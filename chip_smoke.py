@@ -8,21 +8,31 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases (any failure ends the run with a non-zero exit):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. kernels: builds the three CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``
+2. kernels: builds the five CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``
    (one nvcc per source, started together), compares each with its plain
    PyTorch version on the card at the main path's shapes, and times the
    kernel, the plain version and one PyTorch library call for the same
-   function, beside the datasheet bound (3.35 TB/s, 989 TFLOP/s bf16);
+   function (for the two fused decode-layer kernels, which no single call
+   computes, the chain of library calls instead), beside the datasheet
+   bound (3.35 TB/s, 989 TFLOP/s bf16);
 3. the main path: gpt2-large (36 layers, full width, random weights from a
-   seed) served through ``init_inference`` with int8 weights, kernel
-   injection and ``fused_decode_block: False``; 8 prompts of 128 tokens,
-   128 new tokens, greedy (twice: the streams must be identical) and
-   sampled. Every kernel's launch count over the greedy run must equal the
-   path's: quant_matmul (4*36+1)*128, flash 36, decode 36*127. The prefill
-   logits of the kernel path are compared with the plain versions on the
-   card, and the steady decode rate is measured;
-4. llama3-8b at full width, depth cut to 2 layers (set-up time), so RoPE,
-   RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to end.
+   seed) served through ``init_inference`` with the default int8
+   kernel-injected config, so decode steps take the fused decode layer;
+   8 prompts of 128 tokens, 128 new tokens, greedy (twice: the streams
+   must be identical) and sampled. Every kernel's launch count over the
+   greedy run must equal the path's: fused_qkv_ln = fused_out_mlp =
+   decode = 36*127, flash 36, quant_matmul (4*36+1) + 127 (the prefill,
+   then the int8 head of every decode step). The prefill logits and the
+   fused decode steps' logits of the kernel path are compared with the
+   plain versions on the card, and the steady decode rate is measured and
+   profiled;
+4. the per-projection path: the same model and weights with
+   ``fused_decode_block: False`` (launch counts quant_matmul (4*36+1)*128,
+   flash 36, decode 36*127), its steady decode rate and profile beside the
+   fused path's;
+5. llama3-8b at full width, depth cut to 2 layers (set-up time), fused, so
+   RoPE, RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to
+   end.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -154,14 +164,139 @@ def decode_cases(torch, gen, dev):
                nbytes, 4 * (H // nkv) * D * live * nkv)
 
 
+def _dequant(torch, qw, sc):
+    K, N = qw.shape
+    G = sc.shape[0]
+    return (qw.float().reshape(G, K // G, N) * sc[:, None, :]).reshape(K, N).to(torch.bfloat16)
+
+
+def _proj(torch, gen, dev, K, N):
+    """An int8 projection as quantize_params leaves it: (K, N) int8, group
+    128 scales, fp32 bias."""
+    G = K // 128
+    return (torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8),
+            torch.rand((G, N), generator=gen, device=dev) * 0.01 + 1e-4,
+            torch.randn((N, ), generator=gen, device=dev) * 0.1)
+
+
+def _proj_bytes(p):
+    return sum(t.numel() * t.element_size() for t in p)
+
+
+def _norm_rows(torch, gen, dev, H, norm):
+    n = torch.randn((4, H), generator=gen, device=dev) * 0.1
+    n[0] += 1.0
+    n[2] += 1.0
+    if norm == "rmsnorm":  # zero bias rows, as fused_decode_operands gives them
+        n[1] = 0.0
+        n[3] = 0.0
+    return n
+
+
+def _lib_norm(F, torch, x, norms, row, norm):
+    H = x.shape[1]
+    if norm == "rmsnorm":
+        return F.rms_norm(x.float(), (H, ), norms[row], 1e-5).to(torch.bfloat16)
+    return F.layer_norm(x.float(), (H, ), norms[row], norms[row + 1], 1e-5).to(torch.bfloat16)
+
+
+# the main path's decode layers: (label, B, H, nh, nkv, hd, F, activation, norm, rope)
+LAYER_SHAPES = [("gpt2-large", 8, 1280, 20, 20, 64, 5120, "gelu", "layernorm", False),
+                ("llama3-8b", 4, 4096, 32, 8, 128, 14336, "swiglu", "rmsnorm", True)]
+
+
+def qkv_ln_cases(torch, gen, dev):
+    """Kernel A at gpt2-large's decode layer (B=8, H=1280, 20 heads of 64,
+    layernorm) and llama3-8b's (B=4, H=4096, 32 q and 8 kv heads of 128,
+    rmsnorm, RoPE). Library: layer_norm/rms_norm + torch.matmul on the
+    dequantized bf16 weight + bias (+ RoPE in torch ops), a chain of calls."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.decode_block import fused_qkv_ln, fused_qkv_ln_plain
+    for label, B, H, nh, nkv, hd, _, _, norm, rope in LAYER_SHAPES:
+        N = (nh + 2 * nkv) * hd
+        x = (torch.randn((B, H), generator=gen, device=dev) * 2).to(torch.bfloat16)
+        norms = _norm_rows(torch, gen, dev, H, norm)
+        qkv = _proj(torch, gen, dev, H, N)
+        rope_op = None
+        nbytes = x.numel() * 2 + 2 * H * 4 + _proj_bytes(qkv) + B * N * 2
+        if rope:
+            ang = torch.rand((B, hd // 2), generator=gen, device=dev) * 6.0
+            rope_op = (torch.sin(ang), torch.cos(ang), nh + nkv, hd)
+            nbytes += 2 * B * (hd // 2) * 4
+        w16, b16 = _dequant(torch, qkv[0], qkv[1]), qkv[2].to(torch.bfloat16)
+
+        def chain(x=x, norms=norms, w16=w16, b16=b16, rope_op=rope_op, norm=norm):
+            y = torch.matmul(_lib_norm(F, torch, x, norms, 0, norm), w16) + b16
+            if rope_op is None:
+                return y
+            sin, cos, rh, hd = rope_op
+            a, b = y[:, :rh * hd].unflatten(1, (rh, hd)).chunk(2, dim=-1)
+            sin, cos = sin[:, None].to(y.dtype), cos[:, None].to(y.dtype)
+            rot = torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1).flatten(1)
+            return torch.cat([rot, y[:, rh * hd:]], dim=1)
+
+        yield (f"{label} B={B} H={H} N={N}{' rope' if rope else ''} {norm}",
+               lambda x=x, n=norms, p=qkv, r=rope_op, nm=norm: fused_qkv_ln(x, n, p, norm=nm, rope=r),
+               lambda x=x, n=norms, p=qkv, r=rope_op, nm=norm: fused_qkv_ln_plain(x, n, p, norm=nm,
+                                                                                   rope=r),
+               chain, nbytes, 2 * B * H * N)
+
+
+def out_mlp_cases(torch, gen, dev):
+    """Kernel C at gpt2-large's decode layer (B=8, H=1280, F=5120, gelu,
+    layernorm) and llama3-8b's (B=4, H=4096, F=14336, swiglu, rmsnorm).
+    Library: the chain torch.matmul + bias + residual, layer_norm/rms_norm,
+    torch.matmul (x2 gated) + bias + activation, torch.matmul + bias +
+    residual, on the dequantized bf16 weights."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_out_mlp_plain
+    for label, B, H, nh, nkv, hd, F_, act, norm, _ in LAYER_SHAPES:
+        Ko = nh * hd
+        attn = torch.randn((B, Ko), generator=gen, device=dev).to(torch.bfloat16)
+        x = (torch.randn((B, H), generator=gen, device=dev) * 4).to(torch.bfloat16)
+        norms = _norm_rows(torch, gen, dev, H, norm)
+        o, up, down = _proj(torch, gen, dev, Ko, H), _proj(torch, gen, dev, H, F_), \
+            _proj(torch, gen, dev, F_, H)
+        gate = _proj(torch, gen, dev, H, F_) if act in ("swiglu", "geglu") else None
+        projs = [p for p in (o, up, gate, down) if p is not None]
+        nbytes = (attn.numel() + 2 * x.numel()) * 2 + 2 * H * 4 + sum(map(_proj_bytes, projs))
+        flops = 2 * B * sum(p[0].numel() for p in projs)
+        w16 = [(_dequant(torch, p[0], p[1]), p[2].to(torch.bfloat16)) if p is not None else None
+               for p in (o, up, gate, down)]
+
+        def chain(attn=attn, x=x, norms=norms, w16=w16, act=act, norm=norm):
+            (wo, bo), (wu, bu), g, (wd, bd) = w16
+            r = torch.matmul(attn, wo) + bo + x
+            h = _lib_norm(F, torch, r, norms, 2, norm)
+            u = torch.matmul(h, wu) + bu
+            if g is not None:
+                u = F.silu(torch.matmul(h, g[0]) + g[1]) * u
+            else:
+                u = F.gelu(u, approximate="tanh")
+            return r + torch.matmul(u, wd) + bd
+
+        kw = dict(activation=act, norm=norm, gate=gate)
+        yield (f"{label} B={B} H={H} Ko={Ko} F={F_} {act} {norm}",
+               lambda a=attn, x=x, n=norms, o=o, u=up, d=down, kw=kw: fused_out_mlp(a, x, n, o, u, d,
+                                                                                    **kw),
+               lambda a=attn, x=x, n=norms, o=o, u=up, d=down, kw=kw: fused_out_mlp_plain(
+                   a, x, n, o, u, d, **kw),
+               chain, nbytes, flops)
+
+
 KERNELS = [
-    # name, source, TPU kernel it replaces, case generator
+    # name, source, TPU kernel it replaces (its pallas_call), case generator,
+    # "call" when one PyTorch call computes the same function, else "chain"
     ("quant_matmul", "deepspeed_tpu_torch/ops/csrc/quant_matmul.cu",
-     "deepspeed_tpu/ops/pallas/quant_matmul.py:143", qmm_cases),
+     "deepspeed_tpu/ops/pallas/quant_matmul.py:143", qmm_cases, "call"),
     ("flash_attention", "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-     "deepspeed_tpu/ops/pallas/flash_attention.py:236", flash_cases),
+     "deepspeed_tpu/ops/pallas/flash_attention.py:236", flash_cases, "call"),
     ("decode_attention", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
-     "deepspeed_tpu/ops/pallas/decode_attention.py:198", decode_cases),
+     "deepspeed_tpu/ops/pallas/decode_attention.py:198", decode_cases, "call"),
+    ("fused_qkv_ln", "deepspeed_tpu_torch/ops/csrc/fused_qkv_ln.cu",
+     "deepspeed_tpu/ops/pallas/decode_block.py:205", qkv_ln_cases, "chain"),
+    ("fused_out_mlp", "deepspeed_tpu_torch/ops/csrc/fused_out_mlp.cu",
+     "deepspeed_tpu/ops/pallas/decode_block.py:386", out_mlp_cases, "chain"),
 ]
 
 
@@ -170,37 +305,43 @@ def kernel_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     results = {}
-    for name, source, replaces, cases in KERNELS:
+    for name, source, replaces, cases, library_kind in KERNELS:
         agg = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": None, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0, "cases": []}
+        if library_kind == "chain":  # no single PyTorch call: library_ms stays null
+            agg["library_ms"], agg["library_chain_ms"] = None, 0.0
         for label, kern, plain, library, nbytes, flops in cases(torch, gen, dev):
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
-            case_err = 0.0
+            case_err, case_ref = 0.0, 0.0
             # outputs in bf16 (the working type): one bf16 ulp at the largest
             # magnitude, 2^-7 of max|plain|; the flash lse (fp32 on both
             # sides, online vs direct softmax) within 1e-3
             for i, (o, r) in enumerate(pairs):
                 err = float((o.float() - r.float()).abs().max())
-                tol = 1e-3 if o.dtype == torch.float32 else 2.0**-7 * float(r.float().abs().max())
+                ref_max = float(r.float().abs().max())
+                tol = 1e-3 if o.dtype == torch.float32 else 2.0**-7 * ref_max
                 check(err <= tol, f"{name} [{label}] output {i}: max abs err {err:.3e} > {tol:.3e}")
                 check(bool(torch.isfinite(o.float()).all()), f"{name} [{label}] non-finite output")
-                case_err = max(case_err, err)
+                case_err, case_ref = max(case_err, err), max(case_ref, ref_max)
             agg["max_abs_err"] = max(agg["max_abs_err"], case_err)
             k_ms, p_ms, l_ms = cuda_ms(kern, flush), cuda_ms(plain, flush, 3), cuda_ms(library, flush)
             b_ms, b_by = bound_ms(nbytes, flops)
-            log(f"kernel {name} [{label}]: {k_ms:.4f} ms (plain {p_ms:.4f}, library {l_ms:.4f}, "
-                f"bound {b_ms:.4f} by {b_by}), max abs err {case_err:.3e}")
+            log(f"kernel {name} [{label}]: {k_ms:.4f} ms (plain {p_ms:.4f}, library "
+                f"{'chain ' if library_kind == 'chain' else ''}{l_ms:.4f}, bound {b_ms:.4f} by "
+                f"{b_by}), max abs err {case_err:.3e} (max |plain| {case_ref:.3e})")
             agg["ms"] += k_ms
             agg["plain_ms"] += p_ms
-            agg["library_ms"] += l_ms
+            agg["library_chain_ms" if library_kind == "chain" else "library_ms"] += l_ms
             agg["bound_ms"] += b_ms
             agg["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
             agg["ops_ms"] += flops / BF16_FLOP_PER_S * 1e3
-            agg["cases"].append({"case": label, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by})
+            agg["cases"].append({"case": label, "ms": k_ms, "plain_ms": p_ms,
+                                 ("library_chain_ms" if library_kind == "chain" else "library_ms"): l_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": case_err,
+                                 "max_abs_plain": case_ref})
         agg["bound_by"] = "bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms") else "operations"
         results[name] = agg
     del flush
@@ -213,10 +354,12 @@ def kernel_phase(torch, dev):
 
 def counters():
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_with_lse
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
     return {"quant_matmul": quant_matmul, "flash_attention": flash_attention_with_lse,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention, "fused_qkv_ln": fused_qkv_ln,
+            "fused_out_mlp": fused_out_mlp}
 
 
 def reset_counts():
@@ -228,15 +371,19 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def expected_counts(cfg, new_tokens):
-    """Launches of one generate of ``new_tokens`` (no eos): every forward
-    runs each layer's int8 projections (fused qkv, o, up, down, plus gate for
-    a gated MLP) and the int8 head; prefill runs flash once per layer, each
-    of the new_tokens - 1 decode steps the decode kernel once per layer."""
-    L = cfg.num_layers
+def expected_counts(cfg, new_tokens, fused):
+    """Launches of one generate of ``new_tokens`` (no eos). The prefill runs
+    each layer's int8 projections (fused qkv, o, up, down, plus gate for a
+    gated MLP), flash once per layer and the int8 head. Each of the
+    new_tokens - 1 decode steps runs the decode kernel once per layer, and
+    either kernel A and kernel C once per layer and the int8 head (fused),
+    or every projection and the head again (per-projection)."""
+    L, steps = cfg.num_layers, new_tokens - 1
     projections = 5 if cfg.activation in ("swiglu", "geglu") else 4
-    return {"quant_matmul": (projections * L + 1) * new_tokens, "flash_attention": L,
-            "decode_attention": L * (new_tokens - 1)}
+    per_forward = projections * L + 1
+    return {"quant_matmul": per_forward + steps * (1 if fused else per_forward),
+            "flash_attention": L, "decode_attention": L * steps,
+            "fused_qkv_ln": L * steps if fused else 0, "fused_out_mlp": L * steps if fused else 0}
 
 
 def check_tokens(out, B, n, vocab, what):
@@ -267,49 +414,39 @@ def prefill_logits_check(torch, eng, prompts, what):
     check(rel <= 5e-2, f"{what}: kernel-path logits differ from plain by rel L2 {rel:.3e} > 5e-2")
 
 
-def gpt2_large_phase(torch, card):
-    import numpy as np
-    import deepspeed_tpu_torch
-    B, P, NEW = 8, 128, 128
-    t0 = time.perf_counter()
-    eng = deepspeed_tpu_torch.init_inference(
-        "gpt2-large", config={"dtype": "int8", "kernel_inject": True, "fused_decode_block": False,
-                              "max_out_tokens": 512})
-    log(f"gpt2-large int8 engine built in {time.perf_counter() - t0:.1f} s "
-        f"(random weights, seed 0; host-side quantize)")
-    vocab = eng.model_config.vocab_size
-    prompts = np.random.default_rng(SEED).integers(0, vocab, (B, P)).astype(np.int32)
-    eng.generate(prompts, max_new_tokens=8)  # first-use costs outside the counted run
-    torch.cuda.synchronize()
+def fused_step_check(torch, eng, prompts, what, steps=4):
+    """The engine's fused decode step with its kernels against the same step
+    with their plain versions on the card: one prefill, two copies of the
+    cache, ``steps`` steps both fed the kernel path's greedy tokens.
+    Tolerance as the prefill check: relative L2 of the logits within 5e-2."""
+    B, P = prompts.shape
+    dev = eng.device
+    layers, head = eng._fast_tree()
+    starts = torch.zeros((B, ), dtype=torch.int32, device=dev)
+    worst, agree = 0.0, []
+    with torch.inference_mode():
+        cache = eng.module.init_cache(B, 256, device=dev)
+        logits, cache = eng.module.apply_with_cache(eng.net, torch.as_tensor(prompts, device=dev).long(),
+                                                    cache, 0)
+        plain_cache = tuple(tuple(c.clone() for c in comp) for comp in cache)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)
+        for t in range(steps):
+            pos_rows = torch.full((B, ), P + t, dtype=torch.long, device=dev)
+            lk = eng._fused_step(layers, head, cache, tok, pos_rows, P + t, starts)
+            lp = eng._fused_step(layers, head, plain_cache, tok, pos_rows, P + t, starts, impl="plain")
+            check(bool(torch.isfinite(lk).all()), f"{what}: non-finite fused-step logits")
+            worst = max(worst, float((lk - lp).norm() / lp.norm()))
+            agree.append(float((lk.argmax(-1) == lp.argmax(-1)).float().mean()))
+            tok = lk.argmax(-1).to(torch.int32)
+    log(f"{what} fused decode steps, kernels vs plain on the card: worst rel L2 {worst:.3e} over "
+        f"{steps} steps, argmax agreement {[round(a, 3) for a in agree]}")
+    check(worst <= 5e-2, f"{what}: fused-step logits differ from plain by rel L2 {worst:.3e} > 5e-2")
 
-    reset_counts()
-    greedy = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    want = expected_counts(eng.model_config, NEW)
-    log(f"gpt2-large greedy generate launches {counts}, expected {want}")
-    check(counts == want, f"gpt2-large launch counts {counts} != {want}")
-    check_tokens(greedy, B, NEW, vocab, "gpt2-large greedy")
-    again = eng.generate(prompts, max_new_tokens=NEW)
-    check(all(np.array_equal(a, b) for a, b in zip(greedy, again)),
-          "gpt2-large greedy output differs between two runs")
 
-    reset_counts()
-    kw = dict(max_new_tokens=NEW, do_sample=True, temperature=0.8, top_k=50, top_p=0.95, seed=1)
-    sampled = eng.generate(prompts, **kw)
-    torch.cuda.synchronize()
-    s_counts = read_counts()
-    check(s_counts == want, f"gpt2-large sampled launch counts {s_counts} != {want}")
-    check_tokens(sampled, B, NEW, vocab, "gpt2-large sampled")
-    check(all(np.array_equal(a, b) for a, b in zip(sampled, eng.generate(prompts, **kw))),
-          "gpt2-large sampled output differs between two runs with one seed")
-    log(f"gpt2-large greedy row 0 starts {greedy[0][:8].tolist()}, sampled row 0 starts "
-        f"{sampled[0][:8].tolist()}")
-
-    prefill_logits_check(torch, eng, prompts, "gpt2-large")
-
-    # steady decode rate as bench.py measures it: two run lengths split the
-    # fixed cost (prefill, set-up) from the marginal decode step
+def steady_step(torch, eng, prompts, what, card):
+    """Steady decode step as bench.py measures it: two run lengths split the
+    fixed cost (prefill, set-up) from the marginal decode step."""
+    B, P = prompts.shape
     times = {}
     for new in (16, 144):
         eng.generate(prompts, max_new_tokens=new)
@@ -322,9 +459,8 @@ def gpt2_large_phase(torch, card):
             trials.append(time.perf_counter() - t)
         times[new] = min(trials)
     step_s = (times[144] - times[16]) / 128
-    log(f"gpt2-large int8 decode, B={B}, prompt {P}: t(16)={times[16]:.4f} s, "
-        f"t(144)={times[144]:.4f} s, steady step {step_s * 1e3:.3f} ms = {B / step_s:.1f} tok/s "
-        f"on {card}")
+    log(f"{what} int8 decode, B={B}, prompt {P}: t(16)={times[16]:.4f} s, t(144)={times[144]:.4f} s, "
+        f"steady step {step_s * 1e3:.3f} ms = {B / step_s:.1f} tok/s on {card}")
     # a decode step reads every weight but the gathered embedding rows once,
     # and the live K/V window of every layer (mean position over the
     # differenced steps 16..144)
@@ -333,35 +469,104 @@ def gpt2_large_phase(torch, card):
                   if not k.startswith(("embed.", "pos_embed")))
     kv_bytes = 2 * mc.num_layers * B * mc.kv_heads * mc.head_size * 2 * (P + 80)
     step_bound_ms = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"gpt2-large decode step bound: ({w_bytes} weight + {kv_bytes} KV bytes) / 3.35 TB/s = "
+    log(f"{what} decode step bound: ({w_bytes} weight + {kv_bytes} KV bytes) / 3.35 TB/s = "
         f"{step_bound_ms:.4f} ms; measured step is {step_s * 1e3 / step_bound_ms:.1f}x it")
-    decode_profile(torch, eng, prompts, step_s * 1e3)
+    return step_s
+
+
+def gpt2_large_phase(torch, card, fused):
+    """gpt2-large at full width and depth, int8, kernel injection. ``fused``:
+    the default config (decode steps through the fused decode layer), the
+    main path; else ``fused_decode_block: False`` (the per-projection
+    path). Returns (launch counts of the greedy run, greedy rows)."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    B, P, NEW = 8, 128, 128
+    what = "gpt2-large " + ("fused" if fused else "per-projection")
+    config = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512}
+    if not fused:
+        config["fused_decode_block"] = False
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.init_inference("gpt2-large", config=config)
+    log(f"{what} int8 engine built in {time.perf_counter() - t0:.1f} s "
+        f"(random weights, seed 0; host-side quantize)")
+    check(bool(eng._fused_decode_eligible()) == fused,
+          f"{what}: fused decode gate {eng._fused_decode_eligible()!r}")
+    vocab = eng.model_config.vocab_size
+    prompts = np.random.default_rng(SEED).integers(0, vocab, (B, P)).astype(np.int32)
+    eng.generate(prompts, max_new_tokens=8)  # first-use costs outside the counted run
+    torch.cuda.synchronize()
+
+    reset_counts()
+    greedy = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected_counts(eng.model_config, NEW, fused)
+    log(f"{what} greedy generate launches {counts}, expected {want}")
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+    check_tokens(greedy, B, NEW, vocab, f"{what} greedy")
+    again = eng.generate(prompts, max_new_tokens=NEW)
+    check(all(np.array_equal(a, b) for a, b in zip(greedy, again)),
+          f"{what} greedy output differs between two runs")
+
+    if fused:
+        reset_counts()
+        kw = dict(max_new_tokens=NEW, do_sample=True, temperature=0.8, top_k=50, top_p=0.95, seed=1)
+        sampled = eng.generate(prompts, **kw)
+        torch.cuda.synchronize()
+        s_counts = read_counts()
+        check(s_counts == want, f"{what} sampled launch counts {s_counts} != {want}")
+        check_tokens(sampled, B, NEW, vocab, f"{what} sampled")
+        check(all(np.array_equal(a, b) for a, b in zip(sampled, eng.generate(prompts, **kw))),
+              f"{what} sampled output differs between two runs with one seed")
+        log(f"{what} greedy row 0 starts {greedy[0][:8].tolist()}, sampled row 0 starts "
+            f"{sampled[0][:8].tolist()}")
+        prefill_logits_check(torch, eng, prompts, what)
+        fused_step_check(torch, eng, prompts, what)
+
+    step_s = steady_step(torch, eng, prompts, what, card)
+    decode_profile(torch, eng, prompts, step_s * 1e3, what)
     del eng
     torch.cuda.empty_cache()
-    return counts
+    return counts, greedy
 
 
-def decode_profile(torch, eng, prompts, step_ms, steps=8):
+def decode_profile(torch, eng, prompts, step_ms, what, steps=8):
     """Where a steady decode step's time goes: device time by kernel
     (torch.profiler, CUPTI) over ``steps`` decode steps after a prefill, and
     the device's busy share of the wall time, both under the profiler and
-    against ``step_ms``, the step measured without it."""
+    against ``step_ms``, the step measured without it. The steps are the
+    engine's own: its fused step when the gate admits the config, else the
+    per-projection forward."""
     from torch.profiler import ProfilerActivity, profile
     B, P = prompts.shape
-    ids = torch.as_tensor(prompts, device=eng.device).long()
-    pos = torch.full((B, 1), P, dtype=torch.long, device=eng.device)
+    dev = eng.device
+    ids = torch.as_tensor(prompts, device=dev).long()
+    pos = torch.full((B, 1), P, dtype=torch.long, device=dev)
+    fused = bool(eng._fused_decode_eligible())
+    if fused:
+        layers, head = eng._fast_tree()
+        pads = torch.zeros((B, ), dtype=torch.long, device=dev)
+        starts = pads.to(torch.int32)
     with torch.inference_mode():
-        cache = eng.module.init_cache(B, 256, device=eng.device)
+        cache = eng.module.init_cache(B, 256, device=dev)
         logits, cache = eng.module.apply_with_cache(eng.net, ids, cache, 0)
-        tok = logits[:, -1].argmax(-1)[:, None]
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+
+        def step(t, tok):
+            if fused:
+                return eng._fused_step(layers, head, cache, tok, P + t - pads, P + t, starts).argmax(-1)
+            logits, _ = eng.module.apply_with_cache(eng.net, tok[:, None].long(), cache, P + t, None,
+                                                    pos + t)
+            return logits[:, 0].argmax(-1)
+
         for t in range(2):  # warm
-            eng.module.apply_with_cache(eng.net, tok, cache, P + t, None, pos + t)
+            step(t, tok)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for t in range(steps):
-                logits, cache = eng.module.apply_with_cache(eng.net, tok, cache, P + t, None, pos + t)
-                tok = logits[:, 0].argmax(-1)[:, None]
+                tok = step(t, tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
@@ -370,10 +575,10 @@ def decode_profile(torch, eng, prompts, step_ms, steps=8):
         log("profile: the profiler recorded no device time (device busy share not measured)")
         return
     device_ms = sum(r[1] for r in rows)
-    log(f"profile of {steps} gpt2-large decode steps (B={B}): per step wall {wall_ms:.3f} ms under "
+    log(f"profile of {steps} {what} decode steps (B={B}): per step wall {wall_ms:.3f} ms under "
         f"the profiler, device busy {device_ms:.3f} ms = {device_ms / wall_ms:.4f} of wall "
         f"({device_ms / step_ms:.4f} of the {step_ms:.3f} ms step timed without the profiler)")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"  device {ms:8.4f} ms/step {n:5d} calls/step  {key[:80]}")
 
 
@@ -385,21 +590,22 @@ def llama_phase(torch):
     t0 = time.perf_counter()
     eng = deepspeed_tpu_torch.init_inference(
         get_model("llama3-8b", num_layers=L),
-        config={"dtype": "int8", "kernel_inject": True, "fused_decode_block": False,
-                "max_out_tokens": 512})
+        config={"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512})
     log(f"llama3-8b (full width, depth cut to {L} of 32 layers to keep set-up short) int8 engine "
         f"built in {time.perf_counter() - t0:.1f} s")
+    check(bool(eng._fused_decode_eligible()), f"llama3-8b: fused gate {eng._fused_decode_eligible()!r}")
     vocab = eng.model_config.vocab_size
     prompts = np.random.default_rng(SEED + 1).integers(0, vocab, (B, P)).astype(np.int32)
     reset_counts()
     out = eng.generate(prompts, max_new_tokens=NEW)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = expected_counts(eng.model_config, NEW)
+    want = expected_counts(eng.model_config, NEW, fused=True)
     log(f"llama3-8b greedy generate launches {counts}, expected {want}")
     check(counts == want, f"llama3-8b launch counts {counts} != {want}")
     check_tokens(out, B, NEW, vocab, "llama3-8b greedy")
     prefill_logits_check(torch, eng, prompts, "llama3-8b")
+    fused_step_check(torch, eng, prompts, "llama3-8b")
     del eng
     torch.cuda.empty_cache()
 
@@ -436,9 +642,17 @@ def main():
 
     dev = torch.device("cuda")
     results = kernel_phase(torch, dev)
-    counts = gpt2_large_phase(torch, card)
+    counts, fused_greedy = gpt2_large_phase(torch, card, fused=True)  # the main path
     for name, n in counts.items():
         results[name]["launches"] = n
+    _, unfused_greedy = gpt2_large_phase(torch, card, fused=False)
+    # the two paths round in other places (bias and RoPE in fp32 before the
+    # cast in the fused kernels), so their streams may part where two logits
+    # are close: reported, not required
+    prefix = [next((i for i, (a, b) in enumerate(zip(f, u)) if a != b), len(f))
+              for f, u in zip(fused_greedy, unfused_greedy)]
+    log(f"gpt2-large greedy streams, fused vs per-projection: common prefix per row {prefix} "
+        f"of {len(fused_greedy[0])}")
     llama_phase(torch)
     for name, r in results.items():
         check(r["launches"] and r["launches"] > 0, f"{name} was never launched on the main path")

@@ -3,9 +3,9 @@
 The port runs on an NVIDIA H100: plain tensor code is PyTorch and every
 TPU kernel on a ported path is a CUDA kernel written for Hopper
 (``ops/csrc``). It mirrors the JAX package's layout file for file and never
-imports JAX or ``deepspeed_tpu``. This slice serves static-batch
-``generate()`` (int8 kernel-injected, per-projection kernels); see
-``ROADMAP.md`` for what is still to come.
+imports JAX or ``deepspeed_tpu``. It serves static-batch ``generate()``
+(int8 kernel-injected: the fused decode layer by default, or the
+per-projection kernels); see ``ROADMAP.md`` for what is still to come.
 """
 
 import os

@@ -480,8 +480,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     mp_size = ConfigField(default=None, help="deprecated alias for tensor_parallel.tp_size")
     fused_decode_block = ConfigField(
         default=True, help="use the fused per-layer decode kernels (qkv->attention->o->mlp) "
-        "when the int8 serving config allows it; not ported yet, so an int8 config that "
-        "would select them raises until this is set False")
+        "when the int8 serving config allows it")
     telemetry = ConfigField(
         default=dict, help="unified telemetry sink section (same keys as the training "
         "config's 'telemetry': enabled/output_path/flush_interval/trace_format/"

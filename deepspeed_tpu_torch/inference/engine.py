@@ -11,7 +11,13 @@ tensor-parallel degree 1:
   to the device, and computes in bf16;
 - the JAX decode ``while_loop`` becomes an eager Python loop that stops when
   every row is done; the KV cache is written in place and pooled per
-  (batch, cache length) across calls.
+  (batch, cache length) across calls;
+- an int8 kernel-injected config that the gate admits
+  (:meth:`InferenceEngine._fused_decode_eligible`, the JAX engine's reasons
+  word for word) decodes through the fused decode layer
+  (``ops/decode_block.py``: kernel A, the cache commit, decode attention,
+  kernel C per layer, then the int8 head); the prefill stays on the
+  per-projection path, as in the JAX engine.
 
 Batched generation follows the JAX engine: a uniform batch is right-padded
 to the 64-token prompt bucket and decoding starts at the true length (no
@@ -24,6 +30,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.logging import logger, log_dist
 from .config import DeepSpeedInferenceConfig
@@ -116,22 +123,26 @@ class InferenceEngine:
         self.module = type(model)(dataclasses.replace(model.cfg, **overrides))
         self.model_config = self.module.cfg
 
+        # fused decode-block gating: every failing condition gets its reason
+        # (ready line + warning). Only for int8 configs that asked for it
+        self._fused_decode_note = None
         if self._int8_weights and cfg.fused_decode_block:
-            gate = self._fused_decode_eligible()
-            if gate:
-                raise NotImplementedError(
-                    "init_inference(int8): this config selects the fused decode block "
-                    "(_qkv_ln_kernel + _out_mlp_kernel), which deepspeed_tpu_torch has not "
-                    "ported yet (ROADMAP Queue 2, next slice); set fused_decode_block: False "
-                    "to serve through the per-projection kernels")
-            logger.warning("init_inference(int8): fused decode-block disabled — "
-                           + "; ".join(gate.reasons))
+            elig = self._fused_decode_eligible()
+            if not elig:
+                self._fused_decode_note = "; ".join(elig.reasons)
+                logger.warning("init_inference(int8): fused decode-block disabled — "
+                               + self._fused_decode_note)
 
         self.params = self._materialize_params(params)
         self.net = self.module.bind(self.params)
         self._cache_pool = {}  # (B, S) -> reusable KV cache buffers
+        fused = ""
+        if self._fused_decode_note:
+            fused = f" fused_decode=off ({self._fused_decode_note})"
+        elif self._int8_weights and cfg.fused_decode_block:
+            fused = " fused_decode=on"
         log_dist(f"InferenceEngine ready: model dtype={self.model_config.dtype} device={self.device} "
-                 f"tp=1 int8_weights={self._int8_weights} kernel_inject={cfg.kernel_inject} "
+                 f"tp=1 int8_weights={self._int8_weights}{fused} kernel_inject={cfg.kernel_inject} "
                  f"max_out_tokens={cfg.max_out_tokens}", [0])
 
     # ------------------------------------------------------------------ params
@@ -155,10 +166,10 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------ generate
     def _fused_decode_eligible(self):
-        """Structured gate for the fused per-layer decode kernels (the JAX
-        package's ``ops/pallas/decode_block.py``), with the JAX engine's
-        reason strings. The port has no fused kernels yet: an eligible int8
-        config is refused at construction."""
+        """Structured gate for the fused per-layer decode kernels
+        (``ops/decode_block.py``), with the JAX engine's reason strings word
+        for word, so the port decodes fused exactly the configs the JAX
+        engine does (the group-size reason keeps its VMEM wording)."""
         mc = self.model_config
         reasons = []
 
@@ -222,6 +233,54 @@ class InferenceEngine:
         if not self._config.fused_decode_block:
             reasons.append("fused_decode_block=False in config")
         return FusedDecodeEligibility(reasons)
+
+    def _fast_tree(self):
+        """The fused decode kernels' per-layer operands, derived once from
+        the int8 params. The int8 weights and the embedding pass through by
+        reference; only the small norm and bias leaves convert. Keyed on the
+        params OBJECT (``is``, not ``id()``): replacing ``self.params``
+        rebuilds it, so the fused decode never serves old weights while the
+        prefill uses new ones."""
+        cached = getattr(self, "_fast_tree_cache", None)
+        if cached is not None and cached[0] is self.params:
+            return cached[1]
+        self._fast_tree_cache = (self.params, self.module.fused_decode_operands(self.params))
+        return self._fast_tree_cache[1]
+
+    def _fused_step(self, layers, head, caches, tok, pos_rows, pos, starts, impl="kernel"):
+        """One fused decode step for one token per row: embedding (+ learned
+        position rows at ``pos_rows``), the L fused layers with the cache
+        committed in place at ``pos`` and attention over ``[starts, pos +
+        1)``, the final norm in fp32, and the int8 head with fp32 output.
+        Returns the (B, V) fp32 logits. ``impl="plain"`` routes every kernel
+        to its plain version (the on-card check of the kernel path)."""
+        from ..ops.decode_block import fused_decode_block
+        from ..ops.quant_matmul import quant_matmul
+        mc = self.model_config
+        x = head["embed"][tok.long()]  # (B, H) in the compute dtype
+        if mc.pos_embedding == "learned":
+            x = x + head["pos_embed"][pos_rows].to(x.dtype)
+        rope = None
+        if mc.pos_embedding == "rope":
+            sin, cos = self.net._rope_table(x.device)
+            rope = (sin[pos_rows], cos[pos_rows])
+        cks, cvs = caches
+        for i, (norms, qkv, o, up, down, gate) in enumerate(layers):
+            x, _, _ = fused_decode_block(x, norms, cks[i], cvs[i], qkv, o, up, down, starts, pos,
+                                         activation=mc.activation, eps=mc.layernorm_epsilon,
+                                         block_kv=mc.decode_block_kv, norm=mc.norm, rope=rope,
+                                         gate=gate, impl=impl)
+        H = mc.hidden_size
+        if "final_bias" in head:  # layernorm head
+            xn = F.layer_norm(x.float(), (H, ), head["final_scale"], head["final_bias"],
+                              mc.layernorm_epsilon)
+        else:
+            xn = F.rms_norm(x.float(), (H, ), head["final_scale"], mc.layernorm_epsilon)
+        logits = quant_matmul(xn.to(x.dtype), head["logits_q"], head["logits_scale"],
+                              out_dtype=torch.float32, impl=impl)[:, :mc.vocab_size]
+        if "logits_bias" in head:
+            logits = logits + head["logits_bias"]
+        return logits
 
     def generate(self, input_ids, max_new_tokens=64, do_sample=False, temperature=1.0, top_k=0,
                  top_p=1.0, eos_token_id=None, pad_token_id=0, seed=0):
@@ -297,7 +356,8 @@ class InferenceEngine:
     def _decode(self, cache, ids, pads, padded, S, W, max_new, do_sample, temperature, top_k,
                 top_p, eos, pad, seed):
         """Prefill, then one token per step until ``max_new`` tokens or every
-        row is done. ``W``: the cache write head after prefill."""
+        row is done. ``W``: the cache write head after prefill. Decode steps
+        take the fused decode layer when the gate admits the config."""
         dev = self.device
         B, P = ids.shape
         max_gen = S - W
@@ -316,13 +376,21 @@ class InferenceEngine:
         buf = torch.full((B, max_gen), pad, dtype=torch.int32, device=dev)
         buf[:, 0] = tok
         done = (tok == eos) if eos is not None else None
+        fused = bool(self._fused_decode_eligible())
+        if fused:
+            layers, head = self._fast_tree()
+            starts = pads_t.to(torch.int32)
         for t in range(max_new - 1):
             if done is not None and bool(done.all()):
                 break
-            pos = (W + t - pads_t)[:, None]  # (B, 1) true positions
-            logits, cache = self.module.apply_with_cache(self.net, tok[:, None].long(), cache,
-                                                         W + t, cache_mask, pos)
-            nxt = _sample_tokens(gen, logits[:, 0].float(), do_sample, temperature, top_k, top_p)
+            if fused:  # one fused layer kernel pair per layer (the reference's fused pass)
+                logits2d = self._fused_step(layers, head, cache, tok, W + t - pads_t, W + t, starts)
+            else:
+                pos = (W + t - pads_t)[:, None]  # (B, 1) true positions
+                logits, cache = self.module.apply_with_cache(self.net, tok[:, None].long(), cache,
+                                                             W + t, cache_mask, pos)
+                logits2d = logits[:, 0].float()
+            nxt = _sample_tokens(gen, logits2d, do_sample, temperature, top_k, top_p)
             if done is not None:
                 nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
                 buf[:, t + 1] = torch.where(done, buf[:, t + 1], nxt)

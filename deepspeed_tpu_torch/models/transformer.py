@@ -13,6 +13,8 @@ whose keys mirror the JAX tree (``layers.{i}.attn.q_proj.kernel``, ...) with
 every kernel in matmul layout (K, N); ``models/convert.py`` carries a JAX
 tree across. Modules are built on the meta device and receive their tensors
 through :meth:`CausalLMModel.bind` (or ``torch.func.functional_call``).
+:meth:`CausalLMModel.fused_decode_operands` hands the same int8 tensors to
+the fused decode-layer kernels (``ops/decode_block.py``).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 MoE, LoRA, alibi, local attention windows, per-row ``write_index``,
@@ -656,6 +658,54 @@ class CausalLMModel:
         if cfg.lm_head_bias and "lm_head.bias" in params:
             out["logits_bias"] = host(params["lm_head.bias"]).float()
         return out
+
+    def fused_decode_operands(self, params):
+        """Per-layer kernel operand tuples for ``ops/decode_block.py``, from
+        the int8 state dict (``quantize_params`` with ``int8_fused_qkv``).
+        The int8 weights, fp32 scales and the embedding pass through by
+        reference; only the small norm and bias leaves convert to fp32, and
+        missing biases (rmsnorm models carry none) become zeros so the
+        kernels stay uniform.
+
+        Returns ``(layers, head)``: ``layers[i] = (norms (4, H) fp32, qkv, o,
+        up, down, gate-or-None)`` with each projection a ``(w int8, scales
+        fp32, bias fp32)`` tuple, and ``head`` the final-norm, embedding and
+        int8 vocab-projection leaves."""
+        cfg = self.cfg
+        H = cfg.hidden_size
+        dev = params["embed.embedding"].device
+
+        def f32(key, n):
+            v = params.get(key)
+            return torch.zeros((n, ), dtype=torch.float32, device=dev) if v is None else v.float()
+
+        def proj(base, n):
+            return (params[base + ".kernel_q"], params[base + ".kernel_scale"].float(),
+                    f32(base + ".bias", n))
+
+        layers = []
+        for i in range(cfg.num_layers):
+            p = f"layers.{i}."
+            norms = torch.stack([f32(p + "attn_norm.scale", H), f32(p + "attn_norm.bias", H),
+                                 f32(p + "mlp_norm.scale", H), f32(p + "mlp_norm.bias", H)])
+            Nq = params[p + "attn.qkv_q"].shape[1]
+            qkv = (params[p + "attn.qkv_q"], params[p + "attn.qkv_scale"].float(),
+                   f32(p + "attn.qkv_bias", Nq))
+            F_ = params[p + "mlp.up_proj.kernel_q"].shape[1]
+            gate = proj(p + "mlp.gate_proj", F_) if p + "mlp.gate_proj.kernel_q" in params else None
+            layers.append((norms, qkv, proj(p + "attn.o_proj", H), proj(p + "mlp.up_proj", F_),
+                           proj(p + "mlp.down_proj", H), gate))
+        head = {"final_scale": params["final_norm.scale"].float(),
+                "embed": params["embed.embedding"],
+                "logits_q": params["logits_q"],
+                "logits_scale": params["logits_scale"].float()}
+        if "final_norm.bias" in params:
+            head["final_bias"] = params["final_norm.bias"].float()
+        if cfg.pos_embedding == "learned":
+            head["pos_embed"] = params["pos_embed"]
+        if "logits_bias" in params:
+            head["logits_bias"] = params["logits_bias"].float()
+        return tuple(layers), head
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
         """Preallocated per-layer KV cache: ``(ks, vs)``, each a tuple of

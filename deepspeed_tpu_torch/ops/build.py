@@ -3,14 +3,17 @@
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes). Libraries land in ``ops/_build/`` (listed in
-``.gitignore``), named by a hash of the sources, so an edited source
-rebuilds and an unchanged one is reused. A failed build raises: nothing
+``.gitignore``), named by a hash of the source and of every header it
+includes from ``csrc/`` (followed through nested includes), so an edit to a
+source or to a header it shares rebuilds every library that uses it, and an
+unchanged one is reused. A failed build raises: nothing
 falls back to a plain version.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -29,12 +32,34 @@ def _nvcc():
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name):
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly or
+    through another header, in the order first reached."""
+    todo, seen = [os.path.join(_CSRC, name + ".cu")], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(dep):  # a system header is found by nvcc, not here
+                todo.append(os.path.normpath(dep))
+    return seen
+
+
 def _paths(name):
     """(source, library, log) paths of kernel ``name``; the library name
-    carries a hash of the source and the shared header."""
+    carries a hash of the source and of every header it includes."""
     src = os.path.join(_CSRC, name + ".cu")
     h = hashlib.sha256()
-    for p in (src, os.path.join(_CSRC, "common.cuh")):
+    for p in sources(name):
+        h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -3,7 +3,9 @@ on the same weights, both with ``fused_decode_block: False`` so both run the
 per-projection path: greedy token streams for uniform prompts (flash
 prefill) and ragged prompts (left-padded fallback), at float32 and at int8
 (bf16 compute). Sampling is held to the port's own invariants (a
-``torch.Generator`` cannot reproduce ``jax.random``)."""
+``torch.Generator`` cannot reproduce ``jax.random``). The fused decode
+gate is held to the JAX engine's reasons here; the fused path's streams are
+in ``test_torch_engine_fused.py``."""
 
 import numpy as np
 import pytest
@@ -103,9 +105,33 @@ def test_eos_stops_rows():
         assert row.tolist() == ref[:stop]  # eos-inclusive trim
 
 
-def test_fused_decode_block_config_raises():
-    with pytest.raises(NotImplementedError, match="fused_decode_block: False"):
-        _port_engine(dtype="int8", fused_decode_block=True)
+# configs the fused gate refuses: model overrides with one reason each, and
+# engine settings (no kernel injection leaves the layers scanned; the
+# config's own switch)
+REFUSED = {
+    "model": ("tiny", dict(parallel_residual=True, embed_norm=True, rotary_dim=8, attn_scale=1.0),
+              {}),
+    "engine": ("tiny-gpt2", {}, dict(kernel_inject=False, fused_decode_block=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_fused_gate_gives_the_jax_reasons(case):
+    """Word for word and in the same order, so the port decodes fused
+    exactly the configs the JAX engine does."""
+    name, over, eng = REFUSED[case]
+    cfg = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512, **eng}
+    jmod = jm.get_model(name, max_seq_len=512, **over)
+    tree = numpy_params(jmod, seed=11)
+    comm._state["mesh"] = None
+    je = deepspeed_tpu.init_inference(jmod, config=cfg, params=tree)
+    tmod = tm.get_model(name, max_seq_len=512, **over)
+    te = deepspeed_tpu_torch.init_inference(tmod, config=cfg, params=params_from_jax(tree, tmod.cfg),
+                                            device="cpu")
+    jr, tr = je._fused_decode_eligible(), te._fused_decode_eligible()
+    assert not jr and not tr
+    assert len(tr.reasons) >= 2 and tr.reasons == jr.reasons
+    assert te._fused_decode_note == je._fused_decode_note
 
 
 def test_unported_config_sections_raise():

@@ -2,8 +2,11 @@
 edge shapes of each kernel's contract: one quantization group over all of K,
 M not a multiple of the row tile, many K splits, the padded vocab; T and Tk
 edges, Tk != T, non-causal, GQA, head dims 64 and 128; empty decode windows,
-per-row and scalar ends, left-pad starts. ``chip_smoke.py`` covers the main
-path's shapes; this file covers the rest.
+per-row and scalar ends, left-pad starts; for the fused decode layer, batches
+other than 8, G=1, contractions longer than 1024, gated and ungated MLPs,
+every activation, head dims 64 and 128 with and without RoPE, and a fully
+padded row. ``chip_smoke.py`` covers the main path's shapes; this file covers
+the rest.
 
 These tests need an NVIDIA card with the CUDA toolkit (a CUDA kernel has no
 CPU mode): they carry the ``cuda`` marker and skip without a card. On the
@@ -18,6 +21,9 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from deepspeed_tpu_torch.ops.decode_block import (fused_decode_block, fused_out_mlp,
+                                                  fused_out_mlp_plain, fused_qkv_ln,
+                                                  fused_qkv_ln_plain)
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain, flash_attention_with_lse
 from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
@@ -149,3 +155,107 @@ def test_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends):
     empty = [b for b in range(B) if starts[b] >= (ends if isinstance(ends, int) else ends[b])]
     for b in empty:  # l = 0 is guarded to 1: the row's output is exactly 0
         assert torch.equal(out[b], torch.zeros_like(out[b]))
+
+
+def _proj(g, dev, K, N, G):
+    return (torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
+            torch.rand((G, N), generator=g, device=dev) * 0.02 + 1e-3,
+            torch.randn((N, ), generator=g, device=dev) * 0.1)
+
+
+def _norms(g, dev, H, norm):
+    n = torch.randn((4, H), generator=g, device=dev) * 0.1
+    n[0] += 1.0
+    n[2] += 1.0
+    if norm == "rmsnorm":  # rmsnorm models pass zero bias rows
+        n[1] = 0.0
+        n[3] = 0.0
+    return n
+
+
+def _rope(g, dev, B, hd):
+    ang = torch.rand((B, hd // 2), generator=g, device=dev) * 6.0
+    return torch.sin(ang), torch.cos(ang)
+
+
+# (B, H, nh, nkv, hd, G, rope, norm): gpt2-large and llama3-8b; B=3 with one
+# group over a K of 200 (not a whole 64-row chunk); B=13 (two row tiles) at
+# hd 128 without RoPE; B=1 over K=1152 (> 1024) with RoPE at hd 64
+QKV_CASES = [(8, 1280, 20, 20, 64, 10, False, "layernorm"), (4, 4096, 32, 8, 128, 32, True, "rmsnorm"),
+             (3, 200, 2, 1, 64, 1, True, "rmsnorm"), (13, 512, 4, 2, 128, 4, False, "layernorm"),
+             (1, 1152, 6, 2, 64, 9, True, "layernorm")]
+
+
+@pytest.mark.parametrize("B,H,nh,nkv,hd,G,rope,norm", QKV_CASES)
+def test_fused_qkv_ln_kernel_matches_plain(dev, B, H, nh, nkv, hd, G, rope, norm):
+    g = _gen(dev, B + H + hd)
+    x = (torch.randn((B, H), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    norms = _norms(g, dev, H, norm)
+    qkv = _proj(g, dev, H, (nh + 2 * nkv) * hd, G)
+    rope_op = (*_rope(g, dev, B, hd), nh + nkv, hd) if rope else None
+    before = fused_qkv_ln.launches
+    out = fused_qkv_ln(x, norms, qkv, norm=norm, rope=rope_op)
+    assert fused_qkv_ln.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_close(out, fused_qkv_ln_plain(x, norms, qkv, norm=norm, rope=rope_op),
+                  f"qkv_ln B={B} H={H} heads {nh}/{nkv}x{hd} G={G} rope={rope}")
+    assert torch.equal(fused_qkv_ln(x, norms, qkv, norm=norm, rope=rope_op), out)  # deterministic
+
+
+# (B, H, Ko, F, activation, norm, groups (o, up, down)): gpt2-large; llama3-8b
+# (swiglu); G=1 everywhere with an F that is not a whole column tile; B=13
+# with K=1152 > 1024 (several JAX k-blocks) and geglu; gelu_exact and
+# quick_gelu at B=5
+MLP_CASES = [(8, 1280, 1280, 5120, "gelu", "layernorm", (10, 10, 40)),
+             (4, 4096, 4096, 14336, "swiglu", "rmsnorm", (32, 32, 112)),
+             (3, 200, 128, 264, "relu", "rmsnorm", (1, 1, 1)),
+             (13, 1152, 384, 512, "geglu", "layernorm", (3, 9, 4)),
+             (5, 256, 256, 1024, "gelu_exact", "layernorm", (2, 2, 8)),
+             (5, 256, 256, 1024, "quick_gelu", "rmsnorm", (2, 2, 8))]
+
+
+@pytest.mark.parametrize("B,H,Ko,F,act,norm,G", MLP_CASES)
+def test_fused_out_mlp_kernel_matches_plain(dev, B, H, Ko, F, act, norm, G):
+    g = _gen(dev, B + H + F)
+    attn = torch.randn((B, Ko), generator=g, device=dev).to(torch.bfloat16)
+    x = (torch.randn((B, H), generator=g, device=dev) * 4).to(torch.bfloat16)
+    norms = _norms(g, dev, H, norm)
+    o, up, down = _proj(g, dev, Ko, H, G[0]), _proj(g, dev, H, F, G[1]), _proj(g, dev, F, H, G[2])
+    gate = _proj(g, dev, H, F, G[1]) if act in ("swiglu", "geglu") else None
+    kw = dict(activation=act, norm=norm, gate=gate)
+    before = fused_out_mlp.launches
+    out = fused_out_mlp(attn, x, norms, o, up, down, **kw)
+    assert fused_out_mlp.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_close(out, fused_out_mlp_plain(attn, x, norms, o, up, down, **kw),
+                  f"out_mlp B={B} H={H} Ko={Ko} F={F} {act} {norm} G={G}")
+    assert torch.equal(fused_out_mlp(attn, x, norms, o, up, down, **kw), out)  # deterministic
+
+
+@pytest.mark.parametrize("hd,rope", [(64, False), (128, True)])
+def test_fused_decode_block_matches_plain_with_a_fully_padded_row(dev, hd, rope):
+    """Row 1's window [start, pos + 1) is empty: its attention is exactly 0
+    and the layer still gives the residual path's result."""
+    g = _gen(dev, hd)
+    B, H, nh, nkv, S, F, pos = 3, 512, 8, 2, 256, 1024, 130
+    x = torch.randn((B, H), generator=g, device=dev).to(torch.bfloat16)
+    norms = _norms(g, dev, H, "rmsnorm" if rope else "layernorm")
+    qkv = _proj(g, dev, H, (nh + 2 * nkv) * hd, 4)
+    o, up, down = _proj(g, dev, nh * hd, H, nh * hd // 128), _proj(g, dev, H, F, 4), _proj(g, dev, F, H, 8)
+    gate = _proj(g, dev, H, F, 4) if rope else None
+    kc = torch.randn((B, nkv, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((B, nkv, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    start = torch.tensor([0, pos + 1, 17], dtype=torch.int32, device=dev)
+    kw = dict(activation="swiglu" if rope else "gelu", norm="rmsnorm" if rope else "layernorm",
+              rope=_rope(g, dev, B, hd) if rope else None, gate=gate)
+    caches = {impl: (kc.clone(), vc.clone()) for impl in ("kernel", "plain")}
+    outs = {impl: fused_decode_block(x, norms, *caches[impl], qkv, o, up, down, start, pos,
+                                     impl=impl, **kw)[0] for impl in ("kernel", "plain")}
+    torch.cuda.synchronize()
+    _assert_close(outs["kernel"], outs["plain"], f"decode block hd={hd} rope={rope}")
+    for i in range(2):
+        _assert_close(caches["kernel"][i], caches["plain"][i], f"cache {i} hd={hd}")
+    # the padded row's output does not depend on the cache at all
+    kc2, vc2 = torch.zeros_like(kc), torch.zeros_like(vc)
+    again = fused_decode_block(x, norms, kc2, vc2, qkv, o, up, down, start, pos, **kw)[0]
+    assert torch.equal(again[1], outs["kernel"][1])
