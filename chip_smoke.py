@@ -8,13 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Phases (any failure ends the run with a non-zero exit):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. kernels: builds the five CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``
-   (one nvcc per source, started together), compares each with its plain
-   PyTorch version on the card at the main path's shapes, and times the
-   kernel, the plain version and one PyTorch library call for the same
-   function (for the two fused decode-layer kernels, which no single call
-   computes, the chain of library calls instead), beside the datasheet
-   bound (3.35 TB/s, 989 TFLOP/s bf16);
+2. kernels: builds the CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``
+   (one nvcc per source, started together), compares each of the seven
+   with its plain PyTorch version on the card at the main paths' shapes
+   (the flash forward at the serving and the training shapes; the
+   backward kernels on the plain forward's residuals),
+   and times the kernel, the plain version and one PyTorch library call for
+   the same function (for the two fused decode-layer kernels, which no
+   single call computes, the chain of library calls instead; for the two
+   flash backward kernels, scaled_dot_product_attention's forward and
+   backward, beside the port's forward and backward), beside the datasheet
+   bound (3.35 TB/s, 989 TFLOP/s bf16); the backward kernels must also give
+   bitwise-equal outputs on two calls;
 3. the main path: gpt2-large (36 layers, full width, random weights from a
    seed) served through ``init_inference`` with the default int8
    kernel-injected config, so decode steps take the fused decode layer;
@@ -32,7 +37,25 @@ Phases (any failure ends the run with a non-zero exit):
    fused path's;
 5. llama3-8b at full width, depth cut to 2 layers (set-up time), fused, so
    RoPE, RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to
-   end.
+   end;
+6. training, the second main path: gpt2-large at full width and depth
+   (random weights from the config seed) through ``initialize`` →
+   ``train_batch`` with ``bench.py``'s config (micro batch 4, seq 1024,
+   AdamW lr 3e-4 wd 0.01, bf16, clipping 1.0) on one random batch: 3
+   warm-up steps, 10 timed steps; every loss finite and the last below the
+   first, launches per step flash forward = dq = dk/dv = 36; step time,
+   tokens/s and MFU by ``bench.py::_mfu``'s formula, a profile of two
+   steps (device busy share, top device ops) and the peak device memory;
+7. one micro-step at gpt2-large width, depth cut to 4 layers, through the
+   kernels and through ``impl="plain"`` on the card: the loss, the global
+   gradient norm and each head's slice of every attention projection's
+   weight gradient within the ``PARITY_*`` limits; then the same with each
+   of ``PLANTED_FAULTS`` (dk of one head, dq of one head's last tile,
+   zeroed in one layer), which the check must catch;
+8. llama3-8b training at full width, depth cut to 2 layers, micro batch
+   1, seq 2048: the same kernel-vs-plain micro-step check, then 3 steps:
+   GQA g=4, D=128, RoPE, RMSNorm and SwiGLU through the backward kernels;
+   finite losses and exact launch counts.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -120,13 +143,20 @@ def qmm_cases(torch, gen, dev):
                    nbytes, 2 * M * K * N)
 
 
+# the training paths' attention: gpt2-large (B=4, H=20, T=1024, D=64) and
+# llama3-8b (B=1, H=32/8, T=2048, D=128), causal
+BWD_SHAPES = ((4, 20, 20, 1024, 64), (1, 32, 8, 2048, 128))
+
+
 def flash_cases(torch, gen, dev):
-    """gpt2-large prefill (B=8, H=20, T=128, D=64) and a llama3-8b shape
-    (H=32, Hkv=8, T=512, D=128)."""
+    """The serving paths' prefill, gpt2-large (B=8, H=20, T=128, D=64) and a
+    llama3-8b shape (H=32, Hkv=8, T=512, D=128), and the training paths'
+    shapes (``BWD_SHAPES``), where the online softmax spans 16 to 32 KV
+    tiles."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain, \
         flash_attention_with_lse
-    for B, H, Hkv, T, D in ((8, 20, 20, 128, 64), (4, 32, 8, 512, 128)):
+    for B, H, Hkv, T, D in ((8, 20, 20, 128, 64), (4, 32, 8, 512, 128)) + BWD_SHAPES:
         q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -138,6 +168,67 @@ def flash_cases(torch, gen, dev):
                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                                     enable_gqa=H != Hkv),
                nbytes, 4 * D * pairs)
+
+
+def _bwd_inputs(torch, gen, dev, B, H, Hkv, T, D):
+    """Random q, k, v, dO and the residuals out, lse of the plain forward, so
+    that the backward kernels' check does not rest on the forward kernel's
+    (which ``flash_cases`` checks at these shapes)."""
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain
+    q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = flash_attention_plain(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, out, lse, delta
+
+
+def _fwd_bwd(torch, fn, q, k, v, do):
+    """Forward and backward of one attention call, through autograd."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves), leaves, do)
+
+
+def bwd_cases(torch, gen, dev, which):
+    """Flash backward kernel ``which`` ("dq" or "dkv") at the training
+    shapes. Plain: the whole plain backward (it computes dq, dk and dv
+    together). Library: scaled_dot_product_attention forward + backward;
+    ``port_fwd_bwd_ms`` is the port's forward + backward kernels through
+    autograd, the like-for-like yardstick of it."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import (_group_sum, flash_attention,
+                                                         flash_attention_bwd_plain, flash_bwd_dkv,
+                                                         flash_bwd_dq)
+    for B, H, Hkv, T, D in BWD_SHAPES:
+        q, k, v, do, out, lse, delta = _bwd_inputs(torch, gen, dev, B, H, Hkv, T, D)
+        pairs = B * H * T * (T + 1) // 2  # causal (query, key) pairs, per query head
+        in_bytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * B * H * T * 4
+        if which == "dq":
+            kern = lambda q=q, k=k, v=v, do=do, lse=lse, d=delta: flash_bwd_dq(q, k, v, do, lse, d)
+            plain = lambda a=(q, k, v, out, lse, do): flash_attention_bwd_plain(*a)[0]
+            nbytes, flops = in_bytes + q.numel() * 2, 6 * D * pairs
+        else:
+            kern = lambda q=q, k=k, v=v, do=do, lse=lse, d=delta, n=Hkv: tuple(
+                _group_sum(x, n) for x in flash_bwd_dkv(q, k, v, do, lse, d))
+            plain = lambda a=(q, k, v, out, lse, do): flash_attention_bwd_plain(*a)[1:]
+            nbytes, flops = in_bytes + 2 * k.numel() * 2, 8 * D * pairs
+        gqa = H != Hkv
+        library = lambda q=q, k=k, v=v, do=do, gqa=gqa: _fwd_bwd(
+            torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                                  enable_gqa=gqa), q, k, v, do)
+        port = lambda q=q, k=k, v=v, do=do: _fwd_bwd(
+            torch, lambda a, b, c: flash_attention(a, b, c, causal=True), q, k, v, do)
+        yield (f"causal B={B} H={H} Hkv={Hkv} T={T} D={D}", kern, plain, library, nbytes, flops,
+               {"port_fwd_bwd_ms": port})
+
+
+def dq_cases(torch, gen, dev):
+    return bwd_cases(torch, gen, dev, "dq")
+
+
+def dkv_cases(torch, gen, dev):
+    return bwd_cases(torch, gen, dev, "dkv")
 
 
 def decode_cases(torch, gen, dev):
@@ -297,7 +388,13 @@ KERNELS = [
      "deepspeed_tpu/ops/pallas/decode_block.py:205", qkv_ln_cases, "chain"),
     ("fused_out_mlp", "deepspeed_tpu_torch/ops/csrc/fused_out_mlp.cu",
      "deepspeed_tpu/ops/pallas/decode_block.py:386", out_mlp_cases, "chain"),
+    ("flash_bwd_dq", "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+     "deepspeed_tpu/ops/pallas/flash_attention.py:298", dq_cases, "call"),
+    ("flash_bwd_dkv", "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+     "deepspeed_tpu/ops/pallas/flash_attention.py:315", dkv_cases, "call"),
 ]
+# kernels whose two calls on the same inputs must agree bit for bit
+DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv")
 
 
 def kernel_phase(torch, dev):
@@ -311,10 +408,15 @@ def kernel_phase(torch, dev):
                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0, "cases": []}
         if library_kind == "chain":  # no single PyTorch call: library_ms stays null
             agg["library_ms"], agg["library_chain_ms"] = None, 0.0
-        for label, kern, plain, library, nbytes, flops in cases(torch, gen, dev):
+        for label, kern, plain, library, nbytes, flops, *extra in cases(torch, gen, dev):
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
+            if name in DETERMINISTIC:
+                again = kern()
+                again = again if isinstance(again, tuple) else (again, )
+                check(all(torch.equal(o, a) for (o, _), a in zip(pairs, again)),
+                      f"{name} [{label}]: two calls on the same inputs differ")
             case_err, case_ref = 0.0, 0.0
             # outputs in bf16 (the working type): one bf16 ulp at the largest
             # magnitude, 2^-7 of max|plain|; the flash lse (fp32 on both
@@ -329,9 +431,13 @@ def kernel_phase(torch, dev):
             agg["max_abs_err"] = max(agg["max_abs_err"], case_err)
             k_ms, p_ms, l_ms = cuda_ms(kern, flush), cuda_ms(plain, flush, 3), cuda_ms(library, flush)
             b_ms, b_by = bound_ms(nbytes, flops)
+            extra_ms = {key: cuda_ms(fn, flush) for key, fn in (extra[0] if extra else {}).items()}
             log(f"kernel {name} [{label}]: {k_ms:.4f} ms (plain {p_ms:.4f}, library "
                 f"{'chain ' if library_kind == 'chain' else ''}{l_ms:.4f}, bound {b_ms:.4f} by "
-                f"{b_by}), max abs err {case_err:.3e} (max |plain| {case_ref:.3e})")
+                f"{b_by}{''.join(f', {key} {v:.4f}' for key, v in extra_ms.items())}), "
+                f"max abs err {case_err:.3e} (max |plain| {case_ref:.3e})")
+            for key, v in extra_ms.items():
+                agg[key] = agg.get(key, 0.0) + v
             agg["ms"] += k_ms
             agg["plain_ms"] += p_ms
             agg["library_chain_ms" if library_kind == "chain" else "library_ms"] += l_ms
@@ -341,7 +447,7 @@ def kernel_phase(torch, dev):
             agg["cases"].append({"case": label, "ms": k_ms, "plain_ms": p_ms,
                                  ("library_chain_ms" if library_kind == "chain" else "library_ms"): l_ms,
                                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": case_err,
-                                 "max_abs_plain": case_ref})
+                                 "max_abs_plain": case_ref, **extra_ms})
         agg["bound_by"] = "bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms") else "operations"
         results[name] = agg
     del flush
@@ -355,11 +461,11 @@ def kernel_phase(torch, dev):
 def counters():
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
-    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_with_lse
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
-    return {"quant_matmul": quant_matmul, "flash_attention": flash_attention_with_lse,
+    return {"quant_matmul": quant_matmul, "flash_attention": flash_attention_fwd,
             "decode_attention": decode_attention, "fused_qkv_ln": fused_qkv_ln,
-            "fused_out_mlp": fused_out_mlp}
+            "fused_out_mlp": fused_out_mlp, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
 
 
 def reset_counts():
@@ -383,7 +489,16 @@ def expected_counts(cfg, new_tokens, fused):
     per_forward = projections * L + 1
     return {"quant_matmul": per_forward + steps * (1 if fused else per_forward),
             "flash_attention": L, "decode_attention": L * steps,
-            "fused_qkv_ln": L * steps if fused else 0, "fused_out_mlp": L * steps if fused else 0}
+            "fused_qkv_ln": L * steps if fused else 0, "fused_out_mlp": L * steps if fused else 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def expected_train_counts(cfg, steps, gas=1):
+    """Launches of ``steps`` train steps of ``gas`` microbatches: one flash
+    forward, one dq and one dk/dv per layer and microbatch, nothing else."""
+    n = cfg.num_layers * gas * steps
+    return {"quant_matmul": 0, "flash_attention": n, "decode_attention": 0, "fused_qkv_ln": 0,
+            "fused_out_mlp": 0, "flash_bwd_dq": n, "flash_bwd_dkv": n}
 
 
 def check_tokens(out, B, n, vocab, what):
@@ -531,6 +646,34 @@ def gpt2_large_phase(torch, card, fused):
     return counts, greedy
 
 
+# a CUPTI overhead record of launch back-pressure (the host waiting on a
+# full launch queue), not device work
+_NOT_DEVICE_WORK = ("Command Buffer Full", )
+
+
+def device_profile(prof, steps):
+    """(rows, busy ms per step) of a profile over ``steps`` steps. Rows are
+    the device-side events only, (name, ms per step, calls per step): the
+    row of a CPU op (an aten op, an autograd Function) carries the device
+    time of the kernels it launched, so summing both would count that time
+    twice. Busy time is the union of the device events' intervals."""
+    from torch.autograd import DeviceType
+
+    def on_device(e):
+        return e.device_type == DeviceType.CUDA and not e.key.startswith(_NOT_DEVICE_WORK)
+
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+            for e in prof.key_averages() if on_device(e) and e.self_device_time_total > 0]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith(_NOT_DEVICE_WORK))
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    return rows, busy_us / 1e3 / steps
+
+
 def decode_profile(torch, eng, prompts, step_ms, what, steps=8):
     """Where a steady decode step's time goes: device time by kernel
     (torch.profiler, CUPTI) over ``steps`` decode steps after a prefill, and
@@ -569,12 +712,10 @@ def decode_profile(torch, eng, prompts, step_ms, what, steps=8):
                 tok = step(t, tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows, device_ms = device_profile(prof, steps)
     if not rows:
         log("profile: the profiler recorded no device time (device busy share not measured)")
         return
-    device_ms = sum(r[1] for r in rows)
     log(f"profile of {steps} {what} decode steps (B={B}): per step wall {wall_ms:.3f} ms under "
         f"the profiler, device busy {device_ms:.3f} ms = {device_ms / wall_ms:.4f} of wall "
         f"({device_ms / step_ms:.4f} of the {step_ms:.3f} ms step timed without the profiler)")
@@ -610,6 +751,253 @@ def llama_phase(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: training
+
+
+# bench.py:110-119, the JAX package's gpt2-large training config
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 4,
+                "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.01}},
+                "bf16": {"enabled": True}, "gradient_clipping": 1.0, "steps_per_print": 10**9,
+                "telemetry": {}}
+
+
+def flops_per_token(cfg, seq):
+    """bench.py::_mfu's PaLM-style count: 6 N_nonemb + 12 L H T."""
+    n_emb = cfg.vocab_size * cfg.hidden_size + (cfg.max_seq_len * cfg.hidden_size
+                                                if cfg.pos_embedding == "learned" else 0)
+    return 6 * (cfg.num_params() - n_emb) + 12 * cfg.num_layers * cfg.hidden_size * seq
+
+
+def timed_steps(torch, engine, batch, n):
+    """``n`` train steps, each timed on the host clock up to a synchronize;
+    returns (losses, step seconds)."""
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    return losses, secs
+
+
+def train_profile(torch, engine, batch, step_ms, what, steps=2):
+    """Device time by kernel over ``steps`` train steps (torch.profiler) and
+    the device's busy share of the wall time, under the profiler and
+    against ``step_ms``, the step timed without it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows, device_ms = device_profile(prof, steps)
+    if not rows:
+        log("profile: the profiler recorded no device time (device busy share not measured)")
+        return
+    log(f"profile of {steps} {what} train steps: per step wall {wall_ms:.3f} ms under the profiler, "
+        f"device busy {device_ms:.3f} ms = {device_ms / wall_ms:.4f} of wall ({device_ms / step_ms:.4f} "
+        f"of the {step_ms:.3f} ms step timed without the profiler)")
+    kernel_ms = sum(r[1] for r in rows)
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        log(f"  device {ms:9.4f} ms/step = {ms / kernel_ms:.4f} of device time {n:5d} calls/step  "
+            f"{key[:70]}")
+
+
+def train_phase(torch, card):
+    """gpt2-large at full width and depth through initialize -> train_batch
+    with bench.py's config. Returns the launch counts of the timed steps."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    WARM, TIMED, T = 3, 10, 1024
+    t0 = time.perf_counter()
+    model = get_model("gpt2-large", attention_impl="flash", remat_policy=None, scan_layers=False)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=dict(TRAIN_CONFIG))
+    cfg = model.cfg
+    B = engine.train_batch_size()
+    log(f"gpt2-large train engine built in {time.perf_counter() - t0:.1f} s ({cfg.num_layers} layers, "
+        f"hidden {cfg.hidden_size}, {cfg.num_heads} heads, vocab {cfg.vocab_size}; random weights from "
+        f"seed {engine.config.seed}; micro batch {B}, seq {T}, bf16, AdamW)")
+    batch = {"input_ids": np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, T)).astype(np.int32)}
+    warm, warm_s = timed_steps(torch, engine, batch, WARM)
+    log(f"gpt2-large warm-up steps: losses {[round(x, 4) for x in warm]}, "
+        f"{[round(x * 1e3, 1) for x in warm_s]} ms")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(torch, engine, batch, TIMED)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_counts(cfg, TIMED)
+    log(f"gpt2-large train launches over {TIMED} steps {counts}, expected {want}")
+    check(counts == want, f"gpt2-large train launch counts {counts} != {want}")
+    all_losses = warm + losses
+    check(all(np.isfinite(all_losses)), f"gpt2-large: non-finite loss in {all_losses}")
+    check(all_losses[-1] < all_losses[0], f"gpt2-large: loss did not fall: {all_losses}")
+    gnorm = engine._last_metrics["grad_norm"]
+    check(np.isfinite(gnorm) and not engine._last_metrics["overflow"],
+          f"gpt2-large: grad norm {gnorm} (overflow {engine._last_metrics['overflow']})")
+    step_s = statistics.median(secs)
+    tok_s = B * T / step_s
+    fpt = flops_per_token(cfg, T)
+    mfu = fpt * tok_s / BF16_FLOP_PER_S
+    log(f"gpt2-large train: losses {[round(x, 4) for x in losses]}, last grad norm {gnorm:.4f} "
+        f"(clip 1.0), lr {engine._last_metrics['lr']:.3e}")
+    log(f"gpt2-large train step (median of {TIMED}): {step_s * 1e3:.3f} ms (min {min(secs) * 1e3:.3f}, "
+        f"max {max(secs) * 1e3:.3f}) = {tok_s:.1f} tokens/s, MFU {mfu:.4f} ({fpt / 1e9:.3f} GFLOP/token "
+        f"over {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; {fpt * B * T / BF16_FLOP_PER_S * 1e3:.3f} ms/step at "
+        f"peak) on {card}")
+    log(f"gpt2-large train peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated over the timed steps)")
+    train_profile(torch, engine, batch, step_s * 1e3, "gpt2-large")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+# kernel path against plain path on one micro-step (bf16 compute through
+# every layer): the loss, the global gradient norm, and the gradient of each
+# head's slice of every attention projection's weight (the q/k/v columns and
+# the o rows of that head, in every layer) as the relative L2 norm of its
+# difference. The limits are set from the readings of sound runs and of
+# planted faults (PERF.md).
+PARITY_LOSS_REL = 1e-4
+PARITY_NORM_REL = 1e-3
+PARITY_HEAD_REL = 8e-2
+# faults planted in the first backward call (the last layer), each of which
+# the check must catch: (what, change to that call's (dq, dk, dv))
+PLANTED_FAULTS = (("dk of head 0 zeroed", lambda dq, dk, dv: dk[:, 0].zero_()),
+                  ("dq of head 0's last 64 query rows (one tile) zeroed",
+                   lambda dq, dk, dv: dq[:, 0, -64:].zero_()))
+
+
+def _head_errs(torch, keys, grads, ref, hd):
+    """{(leaf, head): ||g - g_ref|| / ||g_ref||} over each head's slice of
+    the attention projections' weights. (Their biases are left out: the k
+    bias's gradient is zero in exact arithmetic, softmax being blind to a
+    shift of a row's scores, so on the card it is rounding noise.)"""
+    errs = {}
+    for key, g, r in zip(keys, grads, ref):
+        if ".attn." not in key or not key.endswith(".kernel"):
+            continue
+        if ".o_proj." in key:  # (heads * hd, hidden): a head's rows
+            g, r = g.T, r.T
+        g, r = g.reshape(g.shape[0], -1, hd), r.reshape(r.shape[0], -1, hd)
+        rel = torch.linalg.vector_norm(g - r, dim=(0, 2)) / torch.linalg.vector_norm(r, dim=(0, 2))
+        errs.update({(key, h): x for h, x in enumerate(rel.tolist())})
+    return errs
+
+
+def _global_norm(torch, grads):
+    return float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
+
+
+def kernel_plain_parity(torch, engine, batch, what, plant_faults=False):
+    """One micro-step's loss, global gradient norm and per-head attention
+    weight gradients through the kernels and through their plain versions
+    on the card (same weights and batch), within the ``PARITY_*`` limits.
+    With ``plant_faults``, the kernel step runs again with each of
+    ``PLANTED_FAULTS``, which the check must catch."""
+    import numpy as np
+    keys, hd = list(engine.params), engine.module.cfg.head_size
+    lp, g_plain = engine._micro_loss_and_grads(engine.params, batch, 1.0, impl="plain")
+    lp, n_p = float(lp), _global_norm(torch, g_plain)
+    lk, g_kern = engine._micro_loss_and_grads(engine.params, batch, 1.0, impl="kernel")
+    lk, nk = float(lk), _global_norm(torch, g_kern)
+    errs = _head_errs(torch, keys, g_kern, g_plain, hd)
+    del g_kern
+    worst = max(errs, key=errs.get)
+    log(f"{what} one micro-step, kernels vs plain on the card: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {abs(lk - lp) / abs(lp):.3e}, limit {PARITY_LOSS_REL:g}), grad norm {nk:.6f} vs "
+        f"{n_p:.6f} (rel {abs(nk - n_p) / n_p:.3e}, limit {PARITY_NORM_REL:g}); per-head attention "
+        f"weight gradients rel L2: worst {errs[worst]:.3e} ({worst[0]} head {worst[1]}), median "
+        f"{statistics.median(errs.values()):.3e} over {len(errs)} slices (limit {PARITY_HEAD_REL:g})")
+    check(np.isfinite([lk, nk]).all(), f"{what} parity: non-finite kernel-path loss or grad norm")
+    check(abs(lk - lp) <= PARITY_LOSS_REL * abs(lp), f"{what} parity: loss {lk} vs plain {lp}")
+    check(abs(nk - n_p) <= PARITY_NORM_REL * n_p, f"{what} parity: grad norm {nk} vs plain {n_p}")
+    check(errs[worst] <= PARITY_HEAD_REL,
+          f"{what} parity: {worst[0]} head {worst[1]} gradient differs from plain by rel L2 "
+          f"{errs[worst]:.3e}")
+    for fault, plant in PLANTED_FAULTS if plant_faults else ():
+        _planted_fault(torch, engine, batch, what, keys, hd, g_plain, n_p, fault, plant)
+
+
+def _planted_fault(torch, engine, batch, what, keys, hd, g_plain, n_p, fault, plant):
+    """The kernel micro-step with ``plant`` applied to the first backward
+    call's gradients: the parity check must fail on it."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    real, calls = fa.flash_attention_bwd, []
+
+    def faulty(*args, **kwargs):
+        grads = real(*args, **kwargs)
+        if not calls:
+            plant(*grads)
+        calls.append(1)
+        return grads
+
+    fa.flash_attention_bwd = faulty
+    try:
+        _, g_bad = engine._micro_loss_and_grads(engine.params, batch, 1.0, impl="kernel")
+    finally:
+        fa.flash_attention_bwd = real
+    nb = _global_norm(torch, g_bad)
+    errs = _head_errs(torch, keys, g_bad, g_plain, hd)
+    del g_bad
+    worst = max(errs, key=errs.get)
+    caught = errs[worst] > PARITY_HEAD_REL
+    log(f"{what} planted fault, {fault} in one layer: grad norm rel {abs(nb - n_p) / n_p:.3e}; worst "
+        f"head slice rel L2 {errs[worst]:.3e} ({worst[0]} head {worst[1]}): "
+        f"{'caught' if caught else 'MISSED'}")
+    check(caught, f"{what}: the parity check missed a planted fault ({fault})")
+
+
+def train_parity_phase(torch):
+    """gpt2-large width, depth cut to 4 layers: the kernel path against the
+    plain path on one micro-step, and the check's power on planted faults."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    L, T = 4, 1024
+    model = get_model("gpt2-large", num_layers=L, attention_impl="flash")
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=dict(TRAIN_CONFIG))
+    B = engine.train_batch_size()
+    ids = np.random.default_rng(SEED).integers(0, model.cfg.vocab_size, (B, T))
+    batch = {"input_ids": torch.as_tensor(ids, device=engine.device).long()}
+    kernel_plain_parity(torch, engine, batch, f"gpt2-large ({L} of 36 layers)", plant_faults=True)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def llama_train_phase(torch):
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    L, T, STEPS = 2, 2048, 3
+    t0 = time.perf_counter()
+    model = get_model("llama3-8b", num_layers=L, attention_impl="flash")
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1})
+    log(f"llama3-8b train engine (full width, depth cut to {L} of 32 layers to fit set-up time and "
+        f"memory) built in {time.perf_counter() - t0:.1f} s")
+    batch = {"input_ids": np.random.default_rng(SEED + 1).integers(0, model.cfg.vocab_size, (1, T))}
+    kernel_plain_parity(torch, engine, {"input_ids": torch.as_tensor(batch["input_ids"], device=engine.device)},
+                        f"llama3-8b ({L} of 32 layers)")
+    reset_counts()
+    losses, secs = timed_steps(torch, engine, batch, STEPS)
+    counts = read_counts()
+    want = expected_train_counts(model.cfg, STEPS)
+    log(f"llama3-8b train: losses {[round(x, 4) for x in losses]}, steps "
+        f"{[round(x * 1e3, 1) for x in secs]} ms, launches {counts}, expected {want}")
+    check(all(np.isfinite(losses)), f"llama3-8b: non-finite loss in {losses}")
+    check(counts == want, f"llama3-8b train launch counts {counts} != {want}")
+    del engine
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -634,7 +1022,7 @@ def main():
     from deepspeed_tpu_torch.ops import build
     t0 = time.perf_counter()
     logs = build.build_all([k[1].split("/")[-1][:-3] for k in KERNELS])
-    log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    log(f"built {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -654,6 +1042,12 @@ def main():
     log(f"gpt2-large greedy streams, fused vs per-projection: common prefix per row {prefix} "
         f"of {len(fused_greedy[0])}")
     llama_phase(torch)
+    # the training path is the main path of the backward kernels
+    train_counts = train_phase(torch, card)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[name]["launches"] = train_counts[name]
+    train_parity_phase(torch)
+    llama_train_phase(torch)
     for name, r in results.items():
         check(r["launches"] and r["launches"] > 0, f"{name} was never launched on the main path")
 

@@ -34,3 +34,15 @@ def set_accelerator(accel):
 
 def is_current_accelerator_supported():
     return True
+
+
+def resolve_device(device):
+    """The engines' device: ``None`` means the CUDA card, and without one
+    this raises. An engine never drops to the CPU unless the caller asks for
+    it with ``device="cpu"``."""
+    import torch
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run the kernels' "
+                           "plain versions on the host")
+    return device

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..accelerator import resolve_device
 from ..utils.logging import logger, log_dist
 from .config import DeepSpeedInferenceConfig
 
@@ -77,16 +78,6 @@ class FusedDecodeEligibility:
     def __repr__(self):
         return (f"FusedDecodeEligibility(eligible={self.eligible}, "
                 f"reasons={list(self.reasons)})")
-
-
-def resolve_device(device):
-    """``None`` means the card. Without one this raises: the engine never
-    drops to the CPU unless the caller asks for it."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("init_inference: no CUDA device is available; pass device='cpu' "
-                           "to run the kernels' plain versions on the host")
-    return device
 
 
 class InferenceEngine:

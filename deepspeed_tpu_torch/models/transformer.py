@@ -1,10 +1,12 @@
 """Decoder-only transformer family, in PyTorch.
 
-Port of ``deepspeed_tpu/models/transformer.py`` for serving: one
-configurable causal LM covering the GPT-2/OPT shape (learned positions,
+Port of ``deepspeed_tpu/models/transformer.py`` for serving and training:
+one configurable causal LM covering the GPT-2/OPT shape (learned positions,
 LayerNorm, gelu/relu) and the llama shape (RoPE, RMSNorm, SwiGLU, GQA),
 with int8 weights through the hand-written quant-matmul kernel and the
-flash-prefill and decode attention kernels (``ops/``).
+flash attention (forward and backward) and decode attention kernels
+(``ops/``). :meth:`CausalLMModel.loss` is the training loss: next-token
+cross entropy, through :func:`chunked_cross_entropy` at real vocab sizes.
 
 Layers are always unrolled (``nn.ModuleList``), the form the JAX engine's
 ``kernel_inject`` forces; the KV cache is per-layer ``(B, kv_heads, S,
@@ -19,7 +21,7 @@ the fused decode-layer kernels (``ops/decode_block.py``).
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 MoE, LoRA, alibi, local attention windows, per-row ``write_index``,
 ``q_spans``, ``ext_ops``, int8 KV, sequence sharding, activation
-fake-quantization.
+fake-quantization, and in training dropout and remat policies.
 """
 
 import dataclasses
@@ -147,6 +149,65 @@ def _check_supported(cfg):
         raise _unported("local attention windows", "ROADMAP Queue 1 #10, module_inject policies")
     if cfg.act_quant_bits:
         raise _unported("activation fake-quantization", "ROADMAP Queue 1 #10, compression")
+
+
+# ---------------------------------------------------------------------------
+# chunked cross entropy
+
+
+def _ce_logits(xc, w, transpose):
+    """(B, chunk, V) fp32 logits of one chunk, the matmul in xc's dtype."""
+    wc = w.to(xc.dtype)
+    return torch.matmul(xc, wc.T if transpose else wc).float()
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Sum of next-token CE over valid positions, chunked over time. The
+    backward rebuilds each chunk's logits and emits d(hidden) and d(w) from
+    softmax(p) - onehot, so live memory is one (B, chunk, V) block either
+    way (``_chunked_ce_fwd``/``_chunked_ce_bwd`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, hidden, w, labels, valid, chunk, transpose):
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, hidden.shape[1], chunk):
+            logits = _ce_logits(hidden[:, c0:c0 + chunk], w, transpose)
+            lse = torch.logsumexp(logits, dim=-1)
+            corr = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+            total = total + ((lse - corr) * valid[:, c0:c0 + chunk]).sum()
+        ctx.save_for_backward(hidden, w, labels, valid)
+        ctx.chunk, ctx.transpose = chunk, transpose
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w, labels, valid = ctx.saved_tensors
+        chunk, transpose = ctx.chunk, ctx.transpose
+        wc = w.to(hidden.dtype)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dx = []
+        for c0 in range(0, hidden.shape[1], chunk):
+            xc = hidden[:, c0:c0 + chunk]
+            dlogit = torch.softmax(_ce_logits(xc, w, transpose), dim=-1)
+            dlogit.scatter_add_(-1, labels[:, c0:c0 + chunk, None],
+                                torch.full_like(dlogit[..., :1], -1.0))
+            dlogit = (dlogit * (valid[:, c0:c0 + chunk] * g)[..., None]).to(xc.dtype)
+            if transpose:  # w (V, H)
+                dx.append(torch.matmul(dlogit, wc))
+                dw += torch.matmul(dlogit.flatten(0, 1).T, xc.flatten(0, 1)).float()
+            else:  # w (H, V)
+                dx.append(torch.matmul(dlogit, wc.T))
+                dw += torch.matmul(xc.flatten(0, 1).T, dlogit.flatten(0, 1)).float()
+        return torch.cat(dx, dim=1).to(hidden.dtype), dw.to(w.dtype), None, None, None, None
+
+
+def chunked_cross_entropy(hidden, w, labels, valid, chunk=128, transpose=False):
+    """Sum of next-token CE over valid positions without the full fp32
+    ``(B, T, V)`` logits. ``hidden``: (B, T, H) compute dtype; ``w``: (V, H)
+    when ``transpose`` (tied embedding) else (H, V); ``labels`` (B, T)
+    integer, ``valid`` (B, T) bool. Chunks of ``chunk`` time steps; the last
+    may be shorter (the JAX package pads it with invalid rows instead)."""
+    return _ChunkedCE.apply(hidden, w, labels.long(), valid.to(torch.float32), chunk, transpose)
 
 
 # ---------------------------------------------------------------------------
@@ -504,9 +565,11 @@ class CausalLM(nn.Module):
         return self._rope[key]
 
     def forward(self, input_ids, attn_mask=None, kv_cache=None, cache_index=None,
-                position_ids=None, impl="kernel"):
+                position_ids=None, impl="kernel", return_hidden=False):
         """``kv_cache``: ``(ks, vs)``, per-layer (B, kv_heads, S, hd) caches
-        written in place. Returns logits, or (logits, kv_cache) with a cache.
+        written in place. Returns logits, or (logits, kv_cache) with a cache,
+        or the final-norm hidden states when ``return_hidden`` (the loss
+        fuses the vocab projection into the chunked cross entropy).
         ``impl="plain"`` routes every kernel to its plain version (the
         on-card check that the kernel path computes the same logits)."""
         cfg = self.cfg
@@ -539,6 +602,8 @@ class CausalLM(nn.Module):
                        decode_window, impl)
 
         x = self.final_norm(x)
+        if return_hidden:
+            return x
         if cfg.int8_weights:
             # one int8 vocab projection covers tied and untied heads
             logits = _qmm2d(x.reshape(B * T, cfg.hidden_size), self.logits_q, self.logits_scale,
@@ -596,6 +661,53 @@ class CausalLMModel:
     def apply(self, params, input_ids, attn_mask=None, impl="kernel"):
         return torch.func.functional_call(self.module, params, (input_ids, attn_mask),
                                           {"impl": impl}, strict=True)
+
+    # ---- training ----------------------------------------------------------
+    def _use_chunked_ce(self):
+        """Chunked CE unless ``ce_chunk_size`` is 0, the vocab is below 4096
+        (the dense logits are small there) or the head carries a bias (the
+        chunks rebuild logits from the weight only), as in the JAX model."""
+        cfg = self.cfg
+        if cfg.ce_chunk_size == 0:
+            return False
+        if cfg.ce_chunk_size is None and cfg.vocab_size < 4096:
+            return False
+        return not cfg.lm_head_bias
+
+    def loss(self, params, batch, impl="kernel"):
+        """Next-token cross entropy, the mean over valid tokens. ``batch``:
+        ``input_ids`` (B, T); optional ``labels`` (B, T; -100 = ignore),
+        aligned with the positions (no shift), and ``attention_mask`` (B, T).
+        Without labels position t predicts token t + 1. ``params``: the
+        compute-dtype state dict the gradients flow back through."""
+        cfg = self.cfg
+        if cfg.dropout > 0:
+            raise _unported("dropout in training", "ROADMAP Queue 1 #4, dropout")
+        if cfg.remat_policy is not None:
+            raise _unported(f"remat policy {cfg.remat_policy!r}", "ROADMAP Queue 1 #4, remat")
+        if cfg.int8_weights:
+            raise ValueError("loss() trains float weights; int8_weights models serve only")
+        input_ids = batch["input_ids"]
+        chunked = self._use_chunked_ce()
+        out = torch.func.functional_call(self.module, params, (input_ids, batch.get("attention_mask")),
+                                         {"impl": impl, "return_hidden": chunked}, strict=True)
+        if "labels" in batch:
+            labels, out_t = batch["labels"], out
+        else:
+            labels, out_t = input_ids[:, 1:], out[:, :-1]
+        valid = labels >= 0
+        labels_c = torch.clamp(labels, min=0).long()
+        n_valid = torch.clamp(valid.sum(), min=1)
+        if chunked:
+            if cfg.tie_embeddings:
+                w, transpose = params["embed.embedding"], True  # (V, H)
+            else:
+                w, transpose = params["lm_head.kernel"], False  # (H, V)
+            total = chunked_cross_entropy(out_t, w, labels_c, valid, chunk=cfg.ce_chunk_size or 256,
+                                          transpose=transpose)
+            return total / n_valid
+        ce = F.cross_entropy(out_t.float().flatten(0, 1), labels_c.flatten(), reduction="none")
+        return (ce * valid.flatten()).sum() / n_valid
 
     # ---- generation (KV cache) -------------------------------------------
     def quantize_params(self, params, group_size=None, dtype=None):

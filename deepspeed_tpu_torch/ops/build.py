@@ -90,7 +90,9 @@ def _finish(job):
 
 def build_all(names):
     """Compile every kernel in ``names`` that is not built yet, one nvcc
-    process per source, all started together. Returns {name: ptxas log}."""
+    process per source, all started together. A name given twice (two
+    kernels of one source) builds once. Returns {name: ptxas log}."""
+    names = list(dict.fromkeys(names))
     jobs = [j for j in (_start(n) for n in names) if j is not None]
     try:
         for job in jobs:

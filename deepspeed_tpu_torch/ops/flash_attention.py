@@ -1,19 +1,25 @@
-"""Flash attention forward, with the per-row log-sum-exp.
+"""Flash attention, forward and backward, with the per-row log-sum-exp.
 
-Port of the forward of ``deepspeed_tpu/ops/pallas/flash_attention.py`` (the
-TPU kernel ``_fwd_kernel``; entry points ``flash_attention`` and
-``flash_attention_with_lse``). The CUDA kernel is
-``ops/csrc/flash_attention_fwd.cu``; its header says what bounds it on the
-H100 and how its design answers that. The backward kernels are not ported
-yet (training, ROADMAP Queue 2).
+Port of ``deepspeed_tpu/ops/pallas/flash_attention.py`` (the TPU kernels
+``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; entry points
+``flash_attention`` and ``flash_attention_with_lse``). The CUDA kernels are
+``ops/csrc/flash_attention_fwd.cu`` and ``ops/csrc/flash_attention_bwd.cu``;
+their headers say what bounds them on the H100 and how their designs answer
+that.
 
 q (B, H, T, D); k/v (B, Hkv, Tk, D) with H a multiple of Hkv (GQA-native:
 query head h reads KV head h // (H // Hkv)). Returns out (B, H, T, D) in q's
 dtype and lse (B, H, T) fp32; a row that attends nothing gets out 0 and
 lse -inf.
 
-A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
-``impl="plain"``, takes :func:`flash_attention_plain`.
+Both entry points are differentiable through one ``torch.autograd.Function``
+(:class:`FlashAttentionFunction`): its forward saves q, k, v, out and lse;
+its backward computes ``delta = rowsum(dO * O)`` in fp32 (minus the lse
+cotangent, which folds into the same kernels), launches the dq and the dk/dv
+kernels, and sums dk/dv over the GQA group. Forward and backward each choose
+by device: a CUDA tensor launches the kernels (or the call raises); a CPU
+tensor, or ``impl="plain"``, takes :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain`.
 """
 
 import ctypes
@@ -22,18 +28,26 @@ import torch
 
 from . import build
 
-_lib = None
+_lib = {}
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = build.load("flash_attention_fwd")
-        lib.flash_fwd_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.flash_fwd_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _kernel(name):
+    lib = _lib.get(name)
+    if lib is None:
+        lib = build.load(name)
+        if name == "flash_attention_fwd":
+            lib.flash_fwd_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                                             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            lib.flash_fwd_launch.restype = ctypes.c_int
+        else:
+            lib.flash_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                                                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            lib.flash_bwd_dq_launch.restype = ctypes.c_int
+            lib.flash_bwd_dkv_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                                                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            lib.flash_bwd_dkv_launch.restype = ctypes.c_int
+        _lib[name] = lib
+    return lib
 
 
 def _check(q, k, v):
@@ -47,58 +61,218 @@ def _check(q, k, v):
         raise ValueError(f"query heads {H} not a multiple of kv heads {k.shape[1]}")
 
 
+def _check_kernel_operands(what, bf16=(), fp32=(), like=None):
+    """The kernels take contiguous bf16 (fp32 for lse/delta) tensors on one
+    card, head dim 64 or 128."""
+    for name, t, dt in [(n, t, torch.bfloat16) for n, t in bf16] + [(n, t, torch.float32) for n, t in fp32]:
+        if t.dtype != dt or t.device != like.device or not t.is_contiguous():
+            raise ValueError(f"{what} kernel: {name} must be a contiguous {dt} tensor on "
+                             f"{like.device}; got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+    if like.shape[-1] not in (64, 128):
+        raise ValueError(f"{what} kernel: head dim {like.shape[-1]} not in (64, 128)")
+
+
+def _check_aligned(what, **tensors):
+    """The kernels read bf16 rows in 16-byte vectors."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel: {name} must start on a 16-byte boundary")
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (a copy only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _scale(scale, D):
+    return scale if scale is not None else 1.0 / (D**0.5)
+
+
+def _causal_keep(T, Tk, causal, device):
+    if not causal:
+        return torch.ones((T, Tk), dtype=torch.bool, device=device)
+    return torch.arange(Tk, device=device)[None, :] <= torch.arange(T, device=device)[:, None]
+
+
 def flash_attention_plain(q, k, v, causal=True, scale=None):
-    """Plain PyTorch version of the same function (fp32 softmax)."""
+    """Plain PyTorch version of the forward: fp32 scores and softmax, with
+    ``p`` rounded to v's dtype before the P V product and the row sum taken
+    on the unrounded ``p`` (the TPU kernel's rounding point)."""
     _check(q, k, v)
     B, H, T, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / (D**0.5)
+    scale = _scale(scale, D)
     g = H // Hkv
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale  # (B, H, T, Tk)
-    mask = torch.ones((T, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = torch.arange(Tk, device=q.device)[None, :] <= torch.arange(T, device=q.device)[:, None]
-    s = s.masked_fill(~mask, float("-inf"))
+    s = s.masked_fill(~_causal_keep(T, Tk, causal, q.device), float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.matmul(p, vf) / l_safe
+    out = torch.matmul(p.to(v.dtype).float(), vf) / l_safe
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")), m + torch.log(l_safe))
     return out.to(q.dtype), lse[..., 0]
+
+
+def flash_attention_fwd(q, k, v, causal=True, scale=None):
+    """The forward kernel on CUDA tensors: (out, lse). Counts its launches."""
+    _check(q, k, v)
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    _check_kernel_operands("flash_attention", bf16=(("q", q), ("k", k), ("v", v)), like=q)
+    _check_aligned("flash_attention", q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _kernel("flash_attention_fwd")
+    rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                              lse.data_ptr(), B, H, Hkv, T, Tk, D, float(_scale(scale, D)),
+                              int(bool(causal)), build.stream_of(q))
+    build.check(lib, rc, "flash_attention")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True, scale=None, g_lse=None):
+    """Plain PyTorch version of the backward, following ``_flash_bwd_impl``'s
+    arithmetic: fp32 scores and products, ``ds`` rounded to q's dtype before
+    its products and ``p`` to dO's dtype before dv's (the TPU kernels'
+    rounding points), a row with lse -inf (attended nothing) read as lse 0,
+    and the lse cotangent ``g_lse`` folded into delta. Returns (dq, dk, dv)
+    with dk/dv summed over the GQA group."""
+    _check(q, k, v)
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = _scale(scale, D)
+    delta = _delta(out, dout, g_lse)[..., None]
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))[..., None]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    qf, dof = q.float(), dout.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keep = _causal_keep(T, Tk, causal, q.device)
+    p = torch.where(keep, torch.exp(s - lse), torch.zeros_like(s))
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype)
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), dof).to(v.dtype)
+    return dq.to(q.dtype), _group_sum(dk, Hkv), _group_sum(dv, Hkv)
+
+
+def _delta(out, dout, g_lse):
+    """delta = rowsum(dO * O) in fp32, minus the lse cotangent if any."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta
+
+
+def _group_sum(x, Hkv):
+    """Per-query-head (B, H, Tk, D) gradients summed onto the KV heads."""
+    B, H, Tk, D = x.shape
+    if H == Hkv:
+        return x
+    return x.reshape(B, Hkv, H // Hkv, Tk, D).sum(dim=2)
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, scale=None):
+    """The dq kernel on CUDA tensors. Counts its launches."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    _check_kernel_operands("flash_bwd_dq", bf16=(("q", q), ("k", k), ("v", v), ("dout", dout)),
+                           fp32=(("lse", lse), ("delta", delta)), like=q)
+    _check_aligned("flash_bwd_dq", q=q, k=k, v=v, dout=dout)
+    dq = torch.empty_like(q)
+    lib = _kernel("flash_attention_bwd")
+    rc = lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Hkv, T, Tk,
+                                 D, float(_scale(scale, D)), int(bool(causal)), build.stream_of(q))
+    build.check(lib, rc, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, scale=None):
+    """The dk/dv kernel on CUDA tensors: per-query-head (dk, dv), (B, H, Tk,
+    D), not yet summed over the GQA group. Counts its launches."""
+    B, H, T, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    _check_kernel_operands("flash_bwd_dkv", bf16=(("q", q), ("k", k), ("v", v), ("dout", dout)),
+                           fp32=(("lse", lse), ("delta", delta)), like=q)
+    _check_aligned("flash_bwd_dkv", q=q, k=k, v=v, dout=dout)
+    dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    lib = _kernel("flash_attention_bwd")
+    rc = lib.flash_bwd_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+                                  H, Hkv, T, Tk, D, float(_scale(scale, D)), int(bool(causal)),
+                                  build.stream_of(q))
+    build.check(lib, rc, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None, g_lse=None,
+                        impl="kernel"):
+    """(dq, dk, dv) of softmax attention; the kernels on CUDA tensors, else
+    :func:`flash_attention_bwd_plain`."""
+    if impl == "plain" or not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale, g_lse)
+    _check(q, k, v)
+    q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
+    delta = _delta(out, dout, g_lse)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale)
+    Hkv = k.shape[1]
+    return dq, _group_sum(dk, Hkv), _group_sum(dv, Hkv)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """(out, lse) = attention(q, k, v), differentiable in q, k and v through
+    both outputs (the lse cotangent folds into delta)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, impl):
+        if impl == "plain" or not q.is_cuda:
+            out, lse = flash_attention_plain(q, k, v, causal, scale)
+        else:
+            q, k, v = (_aligned(t) for t in (q, k, v))
+            out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, ctx.causal, ctx.scale, g_lse,
+                                         ctx.impl)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, causal=True, scale=None, impl="kernel"):
     """(out, lse) of softmax attention; see the module docstring."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-    if impl == "plain" or not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal, scale)
     _check(q, k, v)
-    B, H, T, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_attention kernel: {name} must be a contiguous bf16 tensor on "
-                             f"{q.device}; got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention kernel: head dim {D} not in (64, 128)")
-    scale = scale if scale is not None else 1.0 / (D**0.5)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    lib = _kernel()
-    rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              lse.data_ptr(), B, H, Hkv, T, Tk, D, float(scale), int(bool(causal)),
-                              build.stream_of(q))
-    build.check(lib, rc, "flash_attention")
-    flash_attention_with_lse.launches += 1
-    return out, lse
-
-
-flash_attention_with_lse.launches = 0
+    return FlashAttentionFunction.apply(q, k, v, causal, scale, impl)
 
 
 def flash_attention(q, k, v, causal=True, scale=None, impl="kernel"):

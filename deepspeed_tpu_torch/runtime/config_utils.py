@@ -105,3 +105,15 @@ class _Missing:
 
 
 _MISSING = _Missing()
+
+
+def dict_raise_error_on_duplicate_keys(ordered_pairs):
+    """Reject duplicate keys when parsing JSON (reference behavior)."""
+    d = dict((k, v) for k, v in ordered_pairs)
+    if len(d) != len(ordered_pairs):
+        counter = {}
+        for k, v in ordered_pairs:
+            counter[k] = counter.get(k, 0) + 1
+        keys = [k for k, v in counter.items() if v > 1]
+        raise ValueError("Duplicate keys in DeepSpeed config: {}".format(keys))
+    return d

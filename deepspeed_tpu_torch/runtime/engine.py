@@ -1,0 +1,377 @@
+"""Training engine.
+
+Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``; analogue
+of the reference ``deepspeed/runtime/engine.py``) for one device at ZeRO
+stage 0. The JAX engine compiles one fused train step; the port runs the
+same step eagerly, in the same order:
+
+1. per microbatch, cast the fp32 master tensors to the compute dtype inside
+   the differentiated function, run the model's loss (flash attention's
+   forward and backward are the CUDA kernels on the card) and accumulate the
+   fp32 gradients;
+2. unscale by ``loss_scale * gas`` (times the predivide factor with
+   ``prescale_gradients``), take the fp32 global norm, skip the update and
+   the step count on a non-finite norm, clip by ``min(1, clip / (norm +
+   1e-6))``, run the optimizer (``runtime/optimizers.py``) at the learning
+   rate of the applied-step count, and update the loss scaler.
+
+The overflow flag is read on the host once per step (the JAX engine selects
+on the device). Master weights, gradients and the Adam moments stay fp32 on
+the device.
+
+Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
+(``deepspeed_tpu_torch.models`` models have it), or a callable
+``loss_fn(params, batch)``. Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: ZeRO stages 1-3, offload,
+pipeline and model parallelism, 1-bit optimizers, checkpoints,
+``deepspeed_io``.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from ..accelerator import resolve_device
+from ..utils.logging import log_dist
+from .config import DeepSpeedConfig
+from .fp16.loss_scaler import create_loss_scaler
+from .lr_schedules import get_lr_schedule, _LRSchedule
+from .optimizers import build_optimizer
+
+
+def _unported(what, item):
+    return NotImplementedError(f"deepspeed_tpu_torch does not support {what} yet ({item})")
+
+
+def _resolve_loss_fn(model):
+    if hasattr(model, "loss") and callable(model.loss):
+        return model.loss
+    if callable(model):
+        return model
+    raise ValueError(f"Cannot resolve a loss function from model of type {type(model)}")
+
+
+class DeepSpeedEngine:
+
+    def __init__(self,
+                 model,
+                 config=None,
+                 config_class=None,
+                 optimizer=None,
+                 model_parameters=None,
+                 training_data=None,
+                 lr_scheduler=None,
+                 mpu=None,
+                 dist_init_required=None,
+                 collate_fn=None,
+                 device=None):
+        self.module = model
+        self.loss_fn = _resolve_loss_fn(model)
+        self.collate_fn = collate_fn
+        self.global_steps = 0
+        self.global_samples = 0
+        self.micro_steps = 0
+        self.device = resolve_device(device)
+        self._config = config_class if config_class is not None else DeepSpeedConfig(config, mpu)
+
+        zero = self._config.zero_optimization
+        if zero.stage > 0:
+            raise _unported(f"ZeRO stage {zero.stage}", "ROADMAP Queue 1 #7, distributed runtime")
+        if zero.offload_optimizer.device != "none" or zero.offload_param.device != "none":
+            raise _unported("ZeRO offload", "ROADMAP Queue 1 #8, offload and memory tiers")
+        if self._config.pipeline:
+            raise _unported("pipeline parallelism", "ROADMAP Queue 1 #7, distributed runtime")
+        if optimizer is not None:
+            raise _unported("client optimizers", "ROADMAP Queue 1 #4, optimizers")
+        if training_data is not None:
+            raise _unported("deepspeed_io / training_data", "ROADMAP Queue 1 #10, runtime/data_pipeline")
+        self.training_dataloader = None
+
+        # ---- precision ---------------------------------------------------
+        self.compute_dtype = self._config.compute_dtype
+        self.loss_scaler = create_loss_scaler(self._config.fp16 if self._config.fp16.enabled else None)
+        self.dynamic_loss_scale = self._config.dynamic_loss_scale
+        self.loss_scale_state = self.loss_scaler.init_state()
+
+        # ---- params, schedule, optimizer ---------------------------------
+        self.master = self._init_params(model, model_parameters)
+        self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self.optimizer = build_optimizer(self._config.optimizer, list(self.master.values()))
+        self.step_count = 0  # applied (not overflow-skipped) updates
+        self.skipped_steps = 0
+
+        # ---- facade state -------------------------------------------------
+        self._grad_acc = None
+        self._micro_step = 0
+        self._pending_losses = []
+        self._last_metrics = None
+
+        log_dist(
+            f"DeepSpeedEngine ready: device={self.device} zero_stage=0 "
+            f"dtype={self.compute_dtype} micro_bs={self.train_micro_batch_size_per_gpu()} "
+            f"gas={self.gradient_accumulation_steps()} params={sum(p.numel() for p in self.master.values()):,}",
+            [0])
+
+    # ------------------------------------------------------------------ config accessors
+    def train_batch_size(self):
+        return self._config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self._config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self):
+        return self._config.gradient_accumulation_steps
+
+    def zero_optimization_stage(self):
+        return self._config.zero_optimization.stage
+
+    def zero_optimization(self):
+        return self._config.zero_enabled
+
+    def gradient_clipping(self):
+        return self._config.gradient_clipping
+
+    def steps_per_print(self):
+        return self._config.steps_per_print
+
+    def bfloat16_enabled(self):
+        return self._config.bf16.enabled
+
+    def fp16_enabled(self):
+        return self._config.fp16.enabled
+
+    def dp_world_size(self):
+        return 1
+
+    @property
+    def config(self):
+        return self._config
+
+    @property
+    def params(self):
+        """The fp32 master state dict (live tensors, updated in place)."""
+        return self.master
+
+    def get_lr(self):
+        return [float(self.lr_schedule_fn(self.global_steps))]
+
+    def loss_scale(self):
+        return float(self.loss_scale_state.cur_scale)
+
+    # ------------------------------------------------------------------ init helpers
+    def _init_params(self, model, model_parameters):
+        """fp32 master tensors on the device, from ``model_parameters`` (a
+        state dict) or ``model.init_params(seed)``."""
+        if model_parameters is None:
+            if not hasattr(model, "init_params"):
+                raise ValueError("Provide model_parameters or a model with init_params(seed)")
+            model_parameters = model.init_params(self._config.seed)
+        return {k: torch.as_tensor(v).to(self.device, torch.float32).requires_grad_(True)
+                for k, v in model_parameters.items()}
+
+    def _configure_lr_scheduler(self, client_lr_scheduler):
+        """(step -> lr function, stateful schedule or None); reference
+        engine.py:836."""
+        sched_cfg = self._config.scheduler
+        if client_lr_scheduler is not None:
+            if isinstance(client_lr_scheduler, _LRSchedule):
+                return client_lr_scheduler.__call__, client_lr_scheduler
+            if callable(client_lr_scheduler):
+                return client_lr_scheduler, None
+            raise ValueError("lr_scheduler must be a deepspeed_tpu_torch schedule or a step->lr callable")
+        if sched_cfg.type is not None:
+            sched = get_lr_schedule(sched_cfg.type, sched_cfg.params)
+            return sched.__call__, sched
+        base_lr = float(self._config.optimizer.params.get("lr", 1e-3))
+        return (lambda step: base_lr), None
+
+    # ------------------------------------------------------------------ step math
+    def _micro_loss_and_grads(self, params, batch, scale, **loss_kwargs):
+        """One microbatch: cast master -> compute dtype inside the
+        differentiated function, forward, backward. Returns (loss, fp32
+        gradients of ``loss * scale``, one per master tensor)."""
+        keys = list(params)
+        with torch.enable_grad():
+            p_c = {k: params[k].to(self.compute_dtype) for k in keys}
+            loss = self.loss_fn(p_c, batch, **loss_kwargs)
+            grads = torch.autograd.grad(loss.float() * scale, [params[k] for k in keys],
+                                        allow_unused=True)
+        grads = [torch.zeros_like(params[k]) if g is None else g for k, g in zip(keys, grads)]
+        return loss.detach(), grads
+
+    def _grad_denom(self, scale):
+        """Loss-scale x gas (x predivide) unscaling denominator."""
+        denom = scale * self._config.gradient_accumulation_steps
+        if self._config.prescale_gradients:
+            denom = denom * self._config.gradient_predivide_factor
+        return denom
+
+    def _clip_coef(self, gnorm):
+        """Gradient-clipping coefficient, or None when clipping is off."""
+        clip = self._config.gradient_clipping
+        if clip and clip > 0:
+            return min(1.0, clip / (gnorm + 1e-6))
+        return None
+
+    @torch.no_grad()
+    def _apply_grads(self, grads, loss_mean):
+        """Unscale, norm, overflow skip, clip, update (``grads`` is consumed
+        in place)."""
+        scale = self.loss_scale_state.cur_scale
+        torch._foreach_div_(grads, self._grad_denom(scale))
+        gnorm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
+        overflow = not math.isfinite(gnorm)
+        lr = float(self.lr_schedule_fn(self.step_count))
+        if overflow:
+            self.skipped_steps += 1
+        else:
+            coef = self._clip_coef(gnorm)
+            if coef is not None:
+                torch._foreach_mul_(grads, coef)
+            self.optimizer.step(list(self.master.values()), grads, lr)
+            self.step_count += 1
+        self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
+        return {"loss": loss_mean, "grad_norm": gnorm, "lr": lr, "overflow": overflow,
+                "loss_scale": scale}
+
+    # ------------------------------------------------------------------ data placement
+    def _place(self, batch, lead=None):
+        """Host or device leaves -> tensors on the device (integer leaves as
+        int64), each reshaped to ``lead + rest`` when ``lead`` is given."""
+        out = {}
+        for k, x in batch.items():
+            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+            if not t.is_floating_point() and t.dtype != torch.bool:
+                t = t.long()
+            if lead is not None:
+                t = t.reshape(lead + tuple(t.shape[1:]))
+            out[k] = t.to(self.device)
+        return out
+
+    def _next_microbatches(self, data_iter, n):
+        batches = []
+        for _ in range(n):
+            batch = next(data_iter)
+            if self.collate_fn is not None:
+                batch = self.collate_fn(batch)
+            batches.append(batch)
+        return batches
+
+    # ------------------------------------------------------------------ public API
+    def train_batch(self, data_iter=None, batch=None):
+        """One full training step (gas microbatches, then the optimizer
+        update). Returns the mean loss (a 0-d tensor on the device).
+
+        Pass either ``data_iter`` (pulls ``gradient_accumulation_steps``
+        microbatches) or a ``batch`` dict whose leaves carry the whole train
+        batch (``train_batch_size`` rows)."""
+        gas = self.gradient_accumulation_steps()
+        micro = self.train_micro_batch_size_per_gpu()
+        if batch is not None:
+            leading = {int(np.shape(x)[0]) for x in batch.values()}
+            if leading != {self.train_batch_size()}:
+                raise ValueError(
+                    f"train_batch(batch=...) leaves have leading dim {sorted(leading)}; expected "
+                    f"{self.train_batch_size()} samples (train_batch {self.train_batch_size()} = "
+                    f"micro {micro} x gas {gas} x dp 1)")
+            stacked = self._place(batch, (gas, micro))
+        else:
+            if data_iter is None:
+                raise _unported("training_data loaders", "ROADMAP Queue 1 #10, runtime/data_pipeline")
+            mbs = self._next_microbatches(data_iter, gas)
+            stacked = self._place({k: np.stack([np.asarray(mb[k]) for mb in mbs]) for k in mbs[0]})
+
+        acc, loss_sum = None, None
+        scale = self.loss_scale_state.cur_scale
+        for g in range(gas):
+            loss, grads = self._micro_loss_and_grads(self.master, {k: v[g] for k, v in stacked.items()},
+                                                     scale)
+            if acc is None:
+                acc, loss_sum = grads, loss.float()
+            else:
+                torch._foreach_add_(acc, grads)
+                loss_sum = loss_sum + loss.float()
+            del grads
+        metrics = self._apply_grads(acc, loss_sum / gas)
+        self.global_steps += 1
+        self.global_samples += self.train_batch_size()
+        self.micro_steps += gas
+        self._last_metrics = metrics
+        self._report(metrics)
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.last_batch_iteration = self.global_steps
+        return metrics["loss"]
+
+    def forward(self, batch):
+        """Facade: one microbatch's loss and gradients, accumulated until
+        :meth:`step` (reference engine.py:1624; forward and backward fuse
+        here as in the JAX engine, so ``backward`` only marks the
+        micro-step)."""
+        loss, grads = self._micro_loss_and_grads(self.master, self._place(batch),
+                                                 self.loss_scale_state.cur_scale)
+        if self._grad_acc is None:
+            self._grad_acc = grads
+        else:
+            torch._foreach_add_(self._grad_acc, grads)
+        self._micro_step += 1
+        self._pending_losses.append(loss)
+        return loss
+
+    def backward(self, loss=None, allreduce_gradients=True, retain_graph=False):
+        """Facade: gradients were produced in forward(); this marks the
+        micro-step boundary (reference engine.py:1765)."""
+        self.micro_steps += 1
+        return loss
+
+    def is_gradient_accumulation_boundary(self):
+        return self._micro_step % self.gradient_accumulation_steps() == 0
+
+    def step(self, lr_kwargs=None):
+        """Facade: apply the accumulated gradients at a boundary (reference
+        engine.py:1961)."""
+        gas = self.gradient_accumulation_steps()
+        if self._micro_step < gas:
+            return None
+        loss_mean = torch.stack([p.float() for p in self._pending_losses[-gas:]]).mean()
+        metrics = self._apply_grads(self._grad_acc, loss_mean)
+        self._grad_acc, self._micro_step, self._pending_losses = None, 0, []
+        self.global_steps += 1
+        self.global_samples += self.train_batch_size()
+        self._last_metrics = metrics
+        self._report(metrics)
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.last_batch_iteration = self.global_steps
+        return metrics
+
+    @torch.no_grad()
+    def eval_batch(self, batch):
+        p_c = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
+        return self.loss_fn(p_c, self._place(batch))
+
+    def __call__(self, batch):
+        return self.eval_batch(batch)
+
+    def zero_grad(self):
+        self._grad_acc, self._micro_step, self._pending_losses = None, 0, []
+
+    def _report(self, metrics):
+        if self.global_steps % self.steps_per_print() == 0:
+            msg = (f"step={self.global_steps} loss={float(metrics['loss']):.4f} "
+                   f"lr={metrics['lr']:.3e} grad_norm={metrics['grad_norm']:.3f}")
+            if self.fp16_enabled():
+                msg += f" loss_scale={metrics['loss_scale']:g}"
+            log_dist(msg, [0])
+
+    # ------------------------------------------------------------------ not ported yet
+    def deepspeed_io(self, *args, **kwargs):
+        raise _unported("deepspeed_io", "ROADMAP Queue 1 #10, runtime/data_pipeline")
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise _unported("checkpoints", "ROADMAP Queue 1 #10, checkpoint")
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise _unported("checkpoints", "ROADMAP Queue 1 #10, checkpoint")
+
+    def save_16bit_model(self, *args, **kwargs):
+        raise _unported("checkpoints", "ROADMAP Queue 1 #10, checkpoint")

@@ -57,3 +57,27 @@ def test_kv_length_differs_from_query_length():
                                         torch.from_numpy(v), causal=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=2e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=2e-5)
+
+
+# bf16: both sides round p to bf16 before P V (the row sum unrounded) and
+# the output to bf16. Causal, a row's running max in the JAX online softmax
+# is mostly its final max, so the two roundings mostly coincide: rel L2
+# within 1e-3 (measured at most 5.6e-4 over these cases; with p left
+# unrounded in the port, 1.7e-3 or more). Non-causal, the first KV block's
+# running max is often not the row's, so p rounds at other points: within
+# 2e-3 (measured at most 1.6e-3). Every entry within one bf16 ulp of the
+# largest, 2^-7 max|JAX|; lse (fp32 on both sides) within 1e-5.
+@pytest.mark.parametrize("causal,rel_l2", [(True, 1e-3), (False, 2e-3)])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("T", [128, 100])
+def test_plain_matches_jax_bf16(causal, rel_l2, g, T):
+    q, k, v = _qkv(2, 4, 4 // g, T, 32, seed=T + g)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)
+    ref_out, ref_lse = jax_flash(bf(q), bf(k), bf(v), causal, 64, 64)
+    ref_out = np.asarray(ref_out.astype(jnp.float32))
+    out, lse = flash_attention_with_lse(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                                        causal=causal)
+    out = out.float().numpy()
+    assert np.linalg.norm(out - ref_out) <= rel_l2 * np.linalg.norm(ref_out)
+    np.testing.assert_allclose(out, ref_out, rtol=0, atol=2.0**-7 * np.abs(ref_out).max())
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=0, atol=1e-5)

@@ -40,7 +40,8 @@ def test_no_jax_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     mods = ["deepspeed_tpu_torch", "deepspeed_tpu_torch.inference.engine",
-            "deepspeed_tpu_torch.models.convert", "deepspeed_tpu_torch.ops.build"]
+            "deepspeed_tpu_torch.runtime.engine", "deepspeed_tpu_torch.models.convert",
+            "deepspeed_tpu_torch.ops.build"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 edge shapes of each kernel's contract: one quantization group over all of K,
 M not a multiple of the row tile, many K splits, the padded vocab; T and Tk
-edges, Tk != T, non-causal, GQA, head dims 64 and 128; empty decode windows,
+edges, Tk != T, non-causal, GQA, head dims 64 and 128, for the forward and
+the two backward kernels (with an lse cotangent, a row that attends nothing,
+bitwise-equal repeats, and autograd through the forward); empty decode windows,
 per-row and scalar ends, left-pad starts; for the fused decode layer, batches
 other than 8, G=1, contractions longer than 1024, gated and ungated MLPs,
 every activation, head dims 64 and 128 with and without RoPE, and a fully
@@ -24,7 +26,10 @@ from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_at
 from deepspeed_tpu_torch.ops.decode_block import (fused_decode_block, fused_out_mlp,
                                                   fused_out_mlp_plain, fused_qkv_ln,
                                                   fused_qkv_ln_plain)
-from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain, flash_attention_with_lse
+from deepspeed_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain, flash_attention_fwd,
+                                                     flash_attention_plain, flash_attention_with_lse,
+                                                     flash_bwd_dkv, flash_bwd_dq)
 from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
 pytestmark = pytest.mark.cuda
@@ -107,14 +112,97 @@ def test_flash_kernel_matches_plain(dev, B, H, Hkv, T, Tk, D, causal):
     q = torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(torch.bfloat16)
-    before = flash_attention_with_lse.launches
+    before = flash_attention_fwd.launches
     out, lse = flash_attention_with_lse(q, k, v, causal=causal)
-    assert flash_attention_with_lse.launches == before + 1
+    assert flash_attention_fwd.launches == before + 1
     torch.cuda.synchronize()
     ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
     what = f"flash B={B} H={H}/{Hkv} T={T} Tk={Tk} D={D} causal={causal}"
     _assert_close(out, ref_out, what + " out")
     _assert_close(lse, ref_lse, what + " lse")
+
+
+# (B, H, Hkv, T, Tk, D, causal): T not a multiple of the 32-row tile; Tk != T
+# non-causal; g=4 at D=128 (llama); g=4 ragged non-causal at D=128; causal
+# with more keys than queries (kv tiles no query reaches get zeros)
+BWD_CASES = [(2, 4, 4, 100, 100, 64, True), (1, 4, 4, 64, 96, 64, False),
+             (1, 8, 2, 128, 128, 128, True), (2, 4, 1, 77, 77, 128, False),
+             (1, 2, 2, 40, 70, 64, True)]
+
+
+def _bwd_inputs(dev, B, H, Hkv, T, Tk, D, causal, seed):
+    g = _gen(dev, seed)
+    q = torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(torch.bfloat16)
+    do = torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16)
+    g_lse = torch.randn((B, H, T), generator=g, device=dev)
+    out, lse = flash_attention_plain(q, k, v, causal=causal)
+    return q, k, v, do, g_lse, out, lse
+
+
+@pytest.mark.parametrize("with_lse_grad", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,T,Tk,D,causal", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, B, H, Hkv, T, Tk, D, causal, with_lse_grad):
+    q, k, v, do, g_lse, out, lse = _bwd_inputs(dev, B, H, Hkv, T, Tk, D, causal, T + Tk + D + H)
+    g_lse = g_lse if with_lse_grad else None
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal, g_lse=g_lse)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal, g_lse=g_lse)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal, g_lse=g_lse)
+    what = f"flash bwd B={B} H={H}/{Hkv} T={T} Tk={Tk} D={D} causal={causal} g_lse={with_lse_grad}"
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert torch.equal(a, b), f"{what} {name}: two calls differ"  # no atomics
+        _assert_close(a, r, f"{what} {name}")
+
+
+def test_flash_bwd_kernels_row_that_attends_nothing(dev):
+    """lse = -inf (a row that attended nothing) reads as lse 0 in both
+    kernels, as in the TPU kernels and the plain version."""
+    q, k, v, do, _, out, lse = _bwd_inputs(dev, 1, 4, 2, 64, 64, 64, True, 11)
+    lse[0, 1, 5] = float("-inf")
+    lse[0, 3, 40] = float("-inf")
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert bool(torch.isfinite(a.float()).all()), name
+        _assert_close(a, r, f"flash bwd -inf lse rows {name}")
+
+
+def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
+    q, k, v, do, _, out, lse = _bwd_inputs(dev, 1, 2, 2, 64, 64, 64, True, 12)
+    delta = (do.float() * out.float()).sum(-1)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_dq(q, k, v, do, lse.double(), delta)
+    with pytest.raises(ValueError, match="dout"):
+        flash_bwd_dkv(q, k, v, do.float(), lse, delta)
+    q32 = torch.randn((1, 2, 64, 32), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_bwd_dq(q32, q32, q32, q32, lse, delta)
+
+
+@pytest.mark.parametrize("Hkv", [4, 1])
+def test_autograd_through_flash_on_the_card(dev, Hkv):
+    """Backward through flash_attention on CUDA tensors (the kernels) gives
+    the plain version's gradients within the bf16 rule."""
+    g = _gen(dev, 21 + Hkv)
+    q = torch.randn((2, 4, 160, 64), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((2, Hkv, 160, 64), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((2, Hkv, 160, 64), generator=g, device=dev).to(torch.bfloat16)
+    do = torch.randn((2, 4, 160, 64), generator=g, device=dev).to(torch.bfloat16)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True, impl=impl)
+        assert out.grad_fn is not None
+        out.backward(do)
+        grads[impl] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
+        assert a is not None, name
+        _assert_close(a, r, f"autograd flash Hkv={Hkv} {name}")
 
 
 def test_flash_kernel_explicit_scale(dev):
