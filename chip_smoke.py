@@ -9,10 +9,12 @@ Phases (any failure ends the run with a non-zero exit):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
 2. kernels: builds the CUDA kernels from ``deepspeed_tpu_torch/ops/csrc``
-   (one nvcc per source, started together), compares each of the seven
+   (one nvcc per source, started together), compares each kernel (and
+   the paged decode, paged span and int8-KV modes of the decode kernel)
    with its plain PyTorch version on the card at the main paths' shapes
    (the flash forward at the serving and the training shapes; the
-   backward kernels on the plain forward's residuals),
+   backward kernels on the plain forward's residuals; kernels A and C and
+   the int8 head also at the scheduler's chunk width, M = 512),
    and times the kernel, the plain version and one PyTorch library call for
    the same function (for the two fused decode-layer kernels, which no
    single call computes, the chain of library calls instead; for the two
@@ -35,9 +37,24 @@ Phases (any failure ends the run with a non-zero exit):
    ``fused_decode_block: False`` (launch counts quant_matmul (4*36+1)*128,
    flash 36, decode 36*127), its steady decode rate and profile beside the
    fused path's;
+   Then the serving path on the same engine (its config carries
+   ``bench.py::_serving_bench``'s continuous-batching section: 8 slots,
+   K=4, chunk 64): the mixed stream (32 requests, prompts 8-191 tokens, 64
+   new each, all queued at t = 0) through ``engine.scheduler()``, with exact
+   launch counts (kernels A and C 36 per forward, the paged decode kernel
+   36 per width-1 forward, the span kernel 36 per chunk forward, the int8
+   head once per forward), tokens/s, TTFT p50/p95 and sync times; one chunk
+   and one decode step of kernels against plain; the stream again at K=4
+   and at K=1 (identical streams); the shared-prefix stream (radix hits, a
+   hit's logits bitwise equal to the same prompt cold, a retained slot
+   byte-stable while dead); profiles of chunk and decode syncs; the same
+   mixed stream through sequential ``generate()`` calls (bench.py's
+   yardstick); and the int8 KV leg (the first 8 requests on an int8 pool
+   against the bf16 pool: the JAX bound, >= 1.9x rows per byte, the int8
+   kernel variants' launches);
 5. llama3-8b at full width, depth cut to 2 layers (set-up time), fused, so
    RoPE, RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to
-   end;
+   end, through generate() and through the scheduler (4 slots, 8 requests);
 6. training, the second main path: gpt2-large at full width and depth
    (random weights from the config seed) through ``initialize`` →
    ``train_batch`` with ``bench.py``'s config (micro batch 4, seq 1024,
@@ -122,25 +139,31 @@ def bound_ms(nbytes, flops):
 # phase 2: kernels against their plain versions
 
 
+# the scheduler's chunk step at gpt2-large width: 8 slots x 64 columns
+CHUNK_M = 512
+
+
 def qmm_cases(torch, gen, dev):
     """gpt2-large's projections (int8, group 128) and int8 head, at decode
-    (M = B = 8) and prefill (M = B*P = 1024)."""
+    (M = B = 8) and prefill (M = B*P = 1024), and the int8 head at the
+    scheduler's chunk step (M = 8 slots x 64 columns)."""
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     shapes = [("qkv", 1280, 3840), ("o", 1280, 1280), ("up", 1280, 5120), ("down", 5120, 1280),
               ("head", 1280, 51200)]
-    for M in (8, 1024):
-        for proj, K, N in shapes:
-            G = K // 128
-            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
-            qw = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
-            sc = torch.rand((G, N), generator=gen, device=dev) * 0.01 + 1e-4
-            w_deq = (qw.float().reshape(G, K // G, N) * sc[:, None, :]).reshape(K, N).to(torch.bfloat16)
-            nbytes = M * K * 2 + K * N + G * N * 4 + M * N * 2
-            yield (f"{'decode' if M == 8 else 'prefill'} {proj} M={M} K={K} N={N}",
-                   lambda x=x, qw=qw, sc=sc: quant_matmul(x, qw, sc),
-                   lambda x=x, qw=qw, sc=sc: quant_matmul_plain(x, qw, sc),
-                   lambda x=x, w=w_deq: torch.matmul(x, w),
-                   nbytes, 2 * M * K * N)
+    cases = [(M, *sh) for M in (8, 1024) for sh in shapes] + [(CHUNK_M, "head", 1280, 51200)]
+    for M, proj, K, N in cases:
+        G = K // 128
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        qw = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand((G, N), generator=gen, device=dev) * 0.01 + 1e-4
+        w_deq = (qw.float().reshape(G, K // G, N) * sc[:, None, :]).reshape(K, N).to(torch.bfloat16)
+        nbytes = M * K * 2 + K * N + G * N * 4 + M * N * 2
+        kind = {8: "decode", 1024: "prefill", CHUNK_M: "chunk step"}[M]
+        yield (f"{kind} {proj} M={M} K={K} N={N}",
+               lambda x=x, qw=qw, sc=sc: quant_matmul(x, qw, sc),
+               lambda x=x, qw=qw, sc=sc: quant_matmul_plain(x, qw, sc),
+               lambda x=x, w=w_deq: torch.matmul(x, w),
+               nbytes, 2 * M * K * N)
 
 
 # the training paths' attention: gpt2-large (B=4, H=20, T=1024, D=64) and
@@ -255,6 +278,93 @@ def decode_cases(torch, gen, dev):
                nbytes, 4 * (H // nkv) * D * live * nkv)
 
 
+def _paged_kv(torch, gen, dev, B, nkv, S, D, int8):
+    """A slot pool's K/V: bf16, or int8 with the port's per-row scales."""
+    from deepspeed_tpu_torch.ops.quantizer import quantize_kv_rows
+    k = torch.randn((B, nkv, S, D), generator=gen, device=dev) * 2
+    v = torch.randn((B, nkv, S, D), generator=gen, device=dev) * 2
+    if int8:
+        kq, vq, sc = quantize_kv_rows(k, v)
+        deq = ((kq.float() * sc.float()).to(torch.bfloat16), (vq.float() * sc.float()).to(torch.bfloat16))
+        return kq, vq, sc, deq
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    return k, v, None, (k, v)
+
+
+# the scheduler's pool at gpt2-large (8 slots, 20 heads of 64, S=512) and a
+# llama3-8b pool (4 slots, 32 q and 8 kv heads of 128)
+PAGED_SHAPES = [("gpt2-large", 8, 20, 20, 512, 64), ("llama3-8b", 4, 32, 8, 512, 128)]
+
+
+def _paged_bytes(torch, q, nkv, D, windows, int8):
+    """Bytes the paged modes must move: q in, out back, each row's window
+    of K and V once (plus 2 bytes a row of scales on the int8 tier), the
+    (B,) window bounds."""
+    rows = int(sum(windows))
+    return 2 * q.numel() * 2 + rows * nkv * D * 2 * (1 if int8 else 2) + (2 * rows if int8 else 0) \
+        + 2 * len(windows) * 4
+
+
+def paged_decode_cases(torch, gen, dev, int8):
+    """Paged decode over the scheduler's pool at gpt2-large (ragged ends,
+    two dead slots) and llama3-8b (GQA g=4, D=128). Library:
+    scaled_dot_product_attention with the per-row boolean mask over the
+    dequantized cache (dead rows give NaN there, unread)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.decode_attention import (paged_decode_attention,
+                                                          paged_decode_attention_plain)
+    ends_by = {8: [300, 0, 129, 511, 64, 0, 257, 400], 4: [130, 290, 511, 64]}
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 2]:
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
+        ends = torch.tensor(ends_by[B], dtype=torch.int32, device=dev)
+        starts = torch.zeros((B, ), dtype=torch.int32, device=dev)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] < ends[:, None])[:, None, None, :]
+        nbytes = _paged_bytes(torch, q, nkv, D, ends.tolist(), int8)
+        live = int(ends.sum())
+        yield (f"{label} decode B={B} H={H}/{nkv} S={S} D={D} ends {ends.tolist()}",
+               lambda a=(q, kc, vc, starts, ends), sc=sc: paged_decode_attention(
+                   *a, k_scale=sc, v_scale=sc),
+               lambda a=(q, kc, vc, starts, ends), sc=sc: paged_decode_attention_plain(
+                   *a, k_scale=sc, v_scale=sc),
+               lambda q=q, kd=kd, vd=vd, m=mask, g=H != nkv: F.scaled_dot_product_attention(
+                   q[:, :, None], kd, vd, attn_mask=m, enable_gqa=g),
+               nbytes, 4 * H * D * live)
+
+
+def paged_span_cases(torch, gen, dev, int8):
+    """Paged span at the scheduler's chunk step: gpt2-large (one row
+    prefilling 64 columns at base 128, seven decode rows carried at T=64)
+    and llama3-8b (T=64, GQA g=4, D=128). Every column is computed, as on
+    the TPU, so the operations count each column's window. Library:
+    scaled_dot_product_attention with the per-row, per-column mask."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.decode_attention import (paged_span_attention,
+                                                          paged_span_attention_plain)
+    T = 64
+    bases_by = {8: [128, 300, 17, 440, 200, 64, 380, 240], 4: [128, 0, 300, 440]}
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 2]:
+        q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
+        base = torch.tensor(bases_by[B], dtype=torch.int32, device=dev)
+        starts = torch.zeros((B, ), dtype=torch.int32, device=dev)
+        col_end = (base[:, None] + 1 + torch.arange(T, device=dev)[None, :]).clamp(max=S)  # (B, T)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, None, :] < col_end[:, :, None])[:, None]  # (B, 1, T, S)
+        windows = (base + T).clamp(max=S).tolist()
+        nbytes = _paged_bytes(torch, q, nkv, D, windows, int8)
+        pairs = int(col_end.sum()) * H
+        yield (f"{label} span B={B} H={H}/{nkv} T={T} S={S} D={D} bases {base.tolist()}",
+               lambda a=(q, kc, vc, starts, base), sc=sc: paged_span_attention(
+                   *a, k_scale=sc, v_scale=sc),
+               lambda a=(q, kc, vc, starts, base), sc=sc: paged_span_attention_plain(
+                   *a, k_scale=sc, v_scale=sc),
+               lambda q=q, kd=kd, vd=vd, m=mask, g=H != nkv: F.scaled_dot_product_attention(
+                   q, kd, vd, attn_mask=m, enable_gqa=g),
+               nbytes, 4 * D * pairs)
+
+
 def _dequant(torch, qw, sc):
     K, N = qw.shape
     G = sc.shape[0]
@@ -293,13 +403,14 @@ def _lib_norm(F, torch, x, norms, row, norm):
 
 # the main path's decode layers: (label, B, H, nh, nkv, hd, F, activation, norm, rope)
 LAYER_SHAPES = [("gpt2-large", 8, 1280, 20, 20, 64, 5120, "gelu", "layernorm", False),
-                ("llama3-8b", 4, 4096, 32, 8, 128, 14336, "swiglu", "rmsnorm", True)]
+                ("llama3-8b", 4, 4096, 32, 8, 128, 14336, "swiglu", "rmsnorm", True),
+                ("gpt2-large chunk step", CHUNK_M, 1280, 20, 20, 64, 5120, "gelu", "layernorm", False)]
 
 
 def qkv_ln_cases(torch, gen, dev):
     """Kernel A at gpt2-large's decode layer (B=8, H=1280, 20 heads of 64,
     layernorm) and llama3-8b's (B=4, H=4096, 32 q and 8 kv heads of 128,
-    rmsnorm, RoPE). Library: layer_norm/rms_norm + torch.matmul on the
+    rmsnorm, RoPE), and at gpt2-large's chunk step (M=512). Library: layer_norm/rms_norm + torch.matmul on the
     dequantized bf16 weight + bias (+ RoPE in torch ops), a chain of calls."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.decode_block import fused_qkv_ln, fused_qkv_ln_plain
@@ -335,7 +446,9 @@ def qkv_ln_cases(torch, gen, dev):
 
 def out_mlp_cases(torch, gen, dev):
     """Kernel C at gpt2-large's decode layer (B=8, H=1280, F=5120, gelu,
-    layernorm) and llama3-8b's (B=4, H=4096, F=14336, swiglu, rmsnorm).
+    layernorm) and llama3-8b's (B=4, H=4096, F=14336, swiglu, rmsnorm), and
+    at gpt2-large's chunk step (M=512: 2,560 up-projection tiles, many
+    rounds of the cooperative grid's tile loop).
     Library: the chain torch.matmul + bias + residual, layer_norm/rms_norm,
     torch.matmul (x2 gated) + bias + activation, torch.matmul + bias +
     residual, on the dequantized bf16 weights."""
@@ -392,6 +505,19 @@ KERNELS = [
      "deepspeed_tpu/ops/pallas/flash_attention.py:298", dq_cases, "call"),
     ("flash_bwd_dkv", "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
      "deepspeed_tpu/ops/pallas/flash_attention.py:315", dkv_cases, "call"),
+    # the paged, span and int8-KV modes of _decode_kernel (one CUDA kernel)
+    ("paged_decode_attention", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:198",
+     lambda t, g, d: paged_decode_cases(t, g, d, False), "call"),
+    ("paged_decode_attention_int8", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:198",
+     lambda t, g, d: paged_decode_cases(t, g, d, True), "call"),
+    ("paged_span_attention", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:198",
+     lambda t, g, d: paged_span_cases(t, g, d, False), "call"),
+    ("paged_span_attention_int8", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:198",
+     lambda t, g, d: paged_span_cases(t, g, d, True), "call"),
 ]
 # kernels whose two calls on the same inputs must agree bit for bit
 DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv")
@@ -459,22 +585,36 @@ def kernel_phase(torch, dev):
 
 
 def counters():
-    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    """{kernel: (wrapper, its launch-count attribute)}: every kernel's count,
+    the int8-KV variants of the paged modes apart."""
+    from deepspeed_tpu_torch.ops.decode_attention import (decode_attention, paged_decode_attention,
+                                                          paged_span_attention)
     from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
-    return {"quant_matmul": quant_matmul, "flash_attention": flash_attention_fwd,
-            "decode_attention": decode_attention, "fused_qkv_ln": fused_qkv_ln,
-            "fused_out_mlp": fused_out_mlp, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    fns = {"quant_matmul": quant_matmul, "flash_attention": flash_attention_fwd,
+           "decode_attention": decode_attention, "fused_qkv_ln": fused_qkv_ln,
+           "fused_out_mlp": fused_out_mlp, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+           "paged_decode_attention": paged_decode_attention, "paged_span_attention": paged_span_attention}
+    out = {k: (fn, "launches") for k, fn in fns.items()}
+    out["paged_decode_attention_int8"] = (paged_decode_attention, "launches_int8")
+    out["paged_span_attention_int8"] = (paged_span_attention, "launches_int8")
+    return out
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+ZERO_COUNTS = {k: 0 for k in ("quant_matmul", "flash_attention", "decode_attention", "fused_qkv_ln",
+                              "fused_out_mlp", "flash_bwd_dq", "flash_bwd_dkv",
+                              "paged_decode_attention", "paged_span_attention",
+                              "paged_decode_attention_int8", "paged_span_attention_int8")}
 
 
 def expected_counts(cfg, new_tokens, fused):
@@ -487,18 +627,16 @@ def expected_counts(cfg, new_tokens, fused):
     L, steps = cfg.num_layers, new_tokens - 1
     projections = 5 if cfg.activation in ("swiglu", "geglu") else 4
     per_forward = projections * L + 1
-    return {"quant_matmul": per_forward + steps * (1 if fused else per_forward),
+    return {**ZERO_COUNTS, "quant_matmul": per_forward + steps * (1 if fused else per_forward),
             "flash_attention": L, "decode_attention": L * steps,
-            "fused_qkv_ln": L * steps if fused else 0, "fused_out_mlp": L * steps if fused else 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "fused_qkv_ln": L * steps if fused else 0, "fused_out_mlp": L * steps if fused else 0}
 
 
 def expected_train_counts(cfg, steps, gas=1):
     """Launches of ``steps`` train steps of ``gas`` microbatches: one flash
     forward, one dq and one dk/dv per layer and microbatch, nothing else."""
     n = cfg.num_layers * gas * steps
-    return {"quant_matmul": 0, "flash_attention": n, "decode_attention": 0, "fused_qkv_ln": 0,
-            "fused_out_mlp": 0, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    return {**ZERO_COUNTS, "flash_attention": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
 
 
 def check_tokens(out, B, n, vocab, what):
@@ -592,15 +730,18 @@ def steady_step(torch, eng, prompts, what, card):
 def gpt2_large_phase(torch, card, fused):
     """gpt2-large at full width and depth, int8, kernel injection. ``fused``:
     the default config (decode steps through the fused decode layer), the
-    main path; else ``fused_decode_block: False`` (the per-projection
-    path). Returns (launch counts of the greedy run, greedy rows)."""
+    main path, then the serving phase on the same engine; else
+    ``fused_decode_block: False`` (the per-projection path). Returns (launch
+    counts of the greedy run, greedy rows, the serving phase's (mixed
+    stream, int8 KV leg) launch counts or None)."""
     import numpy as np
     import deepspeed_tpu_torch
     B, P, NEW = 8, 128, 128
     what = "gpt2-large " + ("fused" if fused else "per-projection")
-    config = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512}
-    if not fused:
-        config["fused_decode_block"] = False
+    # the fused engine carries bench.py's serving section too: generate()
+    # ignores it, and phase 5 serves through the same engine
+    config = dict(SERVE_CONFIG) if fused else {"dtype": "int8", "kernel_inject": True,
+                                               "max_out_tokens": 512, "fused_decode_block": False}
     t0 = time.perf_counter()
     eng = deepspeed_tpu_torch.init_inference("gpt2-large", config=config)
     log(f"{what} int8 engine built in {time.perf_counter() - t0:.1f} s "
@@ -641,9 +782,10 @@ def gpt2_large_phase(torch, card, fused):
 
     step_s = steady_step(torch, eng, prompts, what, card)
     decode_profile(torch, eng, prompts, step_s * 1e3, what)
+    serve_counts = serving_phase(torch, eng, card) if fused else None
     del eng
     torch.cuda.empty_cache()
-    return counts, greedy
+    return counts, greedy, serve_counts
 
 
 # a CUPTI overhead record of launch back-pressure (the host waiting on a
@@ -731,7 +873,8 @@ def llama_phase(torch):
     t0 = time.perf_counter()
     eng = deepspeed_tpu_torch.init_inference(
         get_model("llama3-8b", num_layers=L),
-        config={"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512})
+        config={"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512,
+                "continuous_batching": {"enabled": True, "num_slots": 4}})
     log(f"llama3-8b (full width, depth cut to {L} of 32 layers to keep set-up short) int8 engine "
         f"built in {time.perf_counter() - t0:.1f} s")
     check(bool(eng._fused_decode_eligible()), f"llama3-8b: fused gate {eng._fused_decode_eligible()!r}")
@@ -747,7 +890,335 @@ def llama_phase(torch):
     check_tokens(out, B, NEW, vocab, "llama3-8b greedy")
     prefill_logits_check(torch, eng, prompts, "llama3-8b")
     fused_step_check(torch, eng, prompts, "llama3-8b")
+    llama_serving_phase(torch, eng)
     del eng
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: continuous-batching serving (the scheduler's main path)
+
+
+# bench.py::_serving_bench's settings (bench.py:219-255): int8 weights,
+# kernel injection, 8 slots, 4 decode steps per host round trip
+SERVE_CONFIG = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512,
+                "continuous_batching": {"enabled": True, "num_slots": 8, "steps_per_sync": 4}}
+SERVE_REQUESTS, SERVE_NEW = 32, 64
+
+
+def mixed_stream(n=SERVE_REQUESTS, seed=SEED):
+    """bench.py's open-loop mixed stream: prompt lengths in [8, 192), token
+    ids in [0, 50257), all queued at t = 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, 192, n)
+    return [rng.integers(0, 50257, int(k)).astype(np.int32) for k in lens]
+
+
+def shared_prefix_stream(sched, n=SERVE_REQUESTS, max_new=SERVE_NEW, seed=SEED):
+    """bench.py's shared-system-prompt stream (bench.py:1790-1834): one
+    common system prefix (128 tokens here) plus a 4-47-token suffix each."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 7)
+    C = sched.prefill_chunk
+    cap = sched.max_len - max_new - 2 * sched.steps_per_sync
+    sys_len = min(max(C, min(2 * C, cap // 2)), cap - 5)
+    system = rng.integers(0, 50257, sys_len).astype(np.int32)
+    return [np.concatenate([system, rng.integers(0, 50257, int(k)).astype(np.int32)])
+            for k in rng.integers(4, min(48, cap - sys_len), n)], sys_len
+
+
+def serve(sched, prompts, max_new=SERVE_NEW, collect=False):
+    """Submit every prompt at t = 0 and pump the scheduler until all finish.
+    Returns (streams, per-request logits or None, wall s, per-sync (shape,
+    seconds), TTFT ms per request). Each step ends in the host's fetch of
+    its token block, so its host-clock time is the sync's."""
+    hs = [sched.submit(p, max_new_tokens=max_new, collect_logits=collect) for p in prompts]
+    syncs = []
+    t0 = time.perf_counter()
+    while any(not h.done for h in hs):
+        t = time.perf_counter()
+        sched.step()
+        syncs.append((sched.last_shape, time.perf_counter() - t))
+    wall = time.perf_counter() - t0
+    ttft = [(h._req.first_token_ts - h._req.submit_ts) * 1e3 for h in hs]
+    logits = [h.result_logits() for h in hs] if collect else None
+    return [h.result() for h in hs], logits, wall, syncs, ttft
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def check_serve_counts(sched, counts, what, int8_kv=False):
+    """Launches over a served stream: per forward, kernel A and kernel C
+    once per layer and the int8 head once; per layer the paged decode kernel
+    once per width-1 forward and the span kernel once per chunk forward,
+    in their bf16 or int8-KV variant; nothing else."""
+    L = sched.engine.model_config.num_layers
+    n1 = sched.forwards[1]
+    nc = sum(v for c, v in sched.forwards.items() if c != 1)
+    sfx = "_int8" if int8_kv else ""
+    want = {**ZERO_COUNTS, "quant_matmul": n1 + nc, "fused_qkv_ln": L * (n1 + nc),
+            "fused_out_mlp": L * (n1 + nc), "paged_decode_attention" + sfx: L * n1,
+            "paged_span_attention" + sfx: L * nc}
+    log(f"{what} launches {counts}, expected {want} ({n1} decode-width and {nc} chunk-width forwards "
+        f"of {L} layers)")
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+    check(n1 > 0 and nc > 0, f"{what}: a width was never dispatched ({dict(sched.forwards)})")
+
+
+def check_streams(outs, n, vocab, what, eos=None):
+    for row in outs:
+        ok_len = len(row) == n or (eos is not None and len(row) < n and row[-1] == eos)
+        check(ok_len, f"{what}: a request returned {len(row)} tokens, expected {n}")
+        check(bool(((row >= 0) & (row < vocab)).all()), f"{what}: token outside [0, {vocab})")
+
+
+def step_logits_check(torch, eng, sched, what):
+    """One chunk-width and one decode-width slot-pool step through the
+    kernels against the same step through their plain versions on the card
+    (``fused_paged_step``, two copies of the live pool): row 0 prefills 64
+    columns over a retained prefix, rows 1-5 decode at their own positions,
+    rows 6-7 are dead. Tolerance as the generate checks: relative L2 of the
+    live columns' logits within 5e-2."""
+    dev = eng.device
+    model, ops = eng.module, eng._fast_tree()
+    N, C = sched.cache.num_slots, sched.prefill_chunk
+    worst = []
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for width in (C, 1):
+        widx = torch.tensor([64, 70, 133, 200, 301, 90, 0, 0], device=dev)[:N]
+        spans = torch.tensor([width, 1, 1, 1, 1, 1, 0, 0], device=dev)[:N]
+        ids = torch.randint(0, eng.model_config.vocab_size, (N, width), generator=gen, device=dev)
+        pos = widx[:, None] + torch.arange(width, device=dev)[None, :]
+        out = {}
+        with torch.inference_mode():
+            for impl in ("kernel", "plain"):
+                pool = tuple(tuple(t.clone() for t in comp) for comp in sched.cache.pool)
+                out[impl] = model.fused_paged_step(ops, ids, pool, pos, widx, spans, impl=impl)[0].float()
+                del pool
+        lk = torch.cat([out["kernel"][b, :max(int(spans[b]), 1)] for b in range(N) if spans[b] > 0])
+        lp = torch.cat([out["plain"][b, :max(int(spans[b]), 1)] for b in range(N) if spans[b] > 0])
+        check(bool(torch.isfinite(lk).all()), f"{what}: non-finite step logits (width {width})")
+        rel = float((lk - lp).norm() / lp.norm())
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        worst.append(rel)
+        log(f"{what} slot-pool step of width {width}, kernels vs plain on the card: rel L2 {rel:.3e}, "
+            f"argmax agreement {agree:.3f} over {lk.shape[0]} live columns")
+    check(max(worst) <= 5e-2, f"{what}: step logits differ from plain by rel L2 {max(worst):.3e} > 5e-2")
+
+
+def sync_profile(torch, sched, prompts, what):
+    """Device time by kernel and the device's busy share over 3 chunk syncs
+    (a fresh stream's admissions) and 3 decode syncs (after its prefills),
+    each window under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    hs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    out = {}
+    for kind in ("chunk", "decode"):
+        if kind == "decode":
+            while sched._prefill is not None or sched.queue:
+                sched.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            shapes = []
+            for _ in range(3):
+                sched.step()
+                shapes.append(sched.last_shape)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        rows, busy_ms = device_profile(prof, 3)
+        if not rows:
+            log("profile: the profiler recorded no device time (device busy share not measured)")
+            continue
+        out[kind] = busy_ms / wall_ms
+        log(f"profile of 3 {what} {kind} syncs {shapes}: per sync wall {wall_ms:.3f} ms under the "
+            f"profiler, device busy {busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of wall")
+        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
+            log(f"  device {ms:9.4f} ms/sync {n:5d} calls/sync  {key[:80]}")
+    for h in hs:
+        h.result()
+    return out
+
+
+def serving_phase(torch, eng, card):
+    """gpt2-large (36 layers) served through the scheduler: the mixed
+    stream timed with exact launch counts, twice and at K=1 (identical
+    streams), the kernel-vs-plain step check, the shared-prefix stream (a
+    radix hit bitwise equal to the same prompt cold; a retained slot's rows
+    byte-stable while dead), sync profiles, the sequential generate()
+    yardstick and the int8 KV leg. Returns the mixed stream's launch counts
+    and the int8 leg's."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    vocab = eng.model_config.vocab_size
+    sched = eng.scheduler()
+    check(sched._fused_block, f"gpt2-large serving: fused gate closed ({sched._fused_block_reasons})")
+    prompts = mixed_stream()
+    # first-use costs (allocator, one chunk and one decode width) outside the timed stream
+    serve(sched, prompts[:2], max_new=8)
+    sched.forwards.clear()
+    sched.dispatched.clear()
+    sched.admitted = sched.evicted = sched.decode_steps = 0
+    reset_counts()
+    outs, _, wall, syncs, ttft = serve(sched, prompts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_serve_counts(sched, counts, "gpt2-large serving (mixed stream)")
+    check_streams(outs, SERVE_NEW, vocab, "gpt2-large serving")
+    check(set(sched.dispatched) <= {(64, 4), (64, 1), (1, 4)},
+          f"gpt2-large serving dispatched shapes {dict(sched.dispatched)}")
+    n_tok = sum(len(o) for o in outs)
+    chunk_s = [t for sh, t in syncs if sh[0] != 1]
+    dec_s = [t for sh, t in syncs if sh[0] == 1]
+    log(f"gpt2-large serving, mixed stream ({len(prompts)} requests, prompts 8-191, {SERVE_NEW} new, "
+        f"8 slots, K=4, chunk 64): {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card}; "
+        f"TTFT p50 {_pct(ttft, 50):.1f} ms, p95 {_pct(ttft, 95):.1f} ms; {len(chunk_s)} chunk syncs "
+        f"(median {statistics.median(chunk_s) * 1e3:.3f} ms), {len(dec_s)} decode syncs (median "
+        f"{statistics.median(dec_s) * 1e3:.3f} ms); shapes {dict(sched.dispatched)}; forwards "
+        f"{dict(sched.forwards)}; admitted {sched.admitted}, evicted {sched.evicted}, decode steps "
+        f"{sched.decode_steps}; pool {sched.cache.capacity_bytes() / 2**20:.1f} MiB, "
+        f"{sched.cache.bytes_per_token()} B/token, token utilization "
+        f"{sched.cache.token_utilization():.4f}")
+    sched.radix.check_invariants()
+    step_logits_check(torch, eng, sched, "gpt2-large serving")
+
+    # determinism: the same stream on fresh schedulers, at K=4 and K=1
+    eng._scheduler = sched = None
+    torch.cuda.empty_cache()
+    for k in (4, 1):
+        again = DecodeScheduler(eng, num_slots=8, steps_per_sync=k)
+        o2, _, w2, _, _ = serve(again, prompts)
+        same = [bool(np.array_equal(a, b)) for a, b in zip(outs, o2)]
+        log(f"gpt2-large serving, mixed stream again at K={k}: {w2:.3f} s, streams identical "
+            f"{sum(same)}/{len(same)}")
+        check(all(same), f"gpt2-large serving: greedy streams differ on a second run at K={k}")
+        del again
+        torch.cuda.empty_cache()
+
+    # shared-prefix stream: radix hits and copy_slot
+    sched = eng.scheduler()
+    sp, sys_len = shared_prefix_stream(sched)
+    outs_sp, _, wall_sp, _, ttft_sp = serve(sched, sp)
+    check_streams(outs_sp, SERVE_NEW, vocab, "gpt2-large shared-prefix stream")
+    n_sp = sum(len(o) for o in outs_sp)
+    log(f"gpt2-large serving, shared-prefix stream ({len(sp)} requests: a {sys_len}-token system prefix "
+        f"+ 4-47 tokens each): {n_sp} tokens in {wall_sp:.3f} s "
+        f"= {n_sp / wall_sp:.1f} tokens/s; TTFT p50 {_pct(ttft_sp, 50):.1f} ms, p95 "
+        f"{_pct(ttft_sp, 95):.1f} ms; radix hits {sched.radix.hits}, misses {sched.radix.misses}, "
+        f"evictions {sched.radix.evictions}")
+    check(sched.radix.hits > 0, "gpt2-large shared-prefix stream: no radix hit")
+    sched.radix.check_invariants()
+    # a hit's logits equal the same prompt's served cold, bit for bit
+    probe = sp[5]
+    hit = sched.submit(probe, max_new_tokens=8, collect_logits=True)
+    hits_before = sched.radix.hits
+    hit_logits = hit.result_logits()
+    check(sched.radix.hits == hits_before + 1, "gpt2-large: the probe request was not a radix hit")
+    # a retained slot stays byte-stable across syncs in which it is dead
+    keep = max(sched.radix.registered_slots(), key=lambda sl: sched.radix._lru.get(sl, 0))
+    snap = [t[keep].clone() for comp in sched.cache.pool for t in comp]
+    serve(sched, [prompts[3]], max_new=8)
+    check(sched.cache.state[keep] == "cached", "gpt2-large: the watched retained slot was reclaimed")
+    leaves = [t for comp in sched.cache.pool for t in comp]
+    stable = all(torch.equal(t[keep], x) for t, x in zip(leaves, snap))
+    check(stable, "gpt2-large: a retained slot's pool rows changed while it was dead")
+    del snap
+    eng._scheduler = sched = None
+    torch.cuda.empty_cache()
+    cold_sched = DecodeScheduler(eng, num_slots=8, steps_per_sync=4, prefix_cache=False)
+    cold_logits = cold_sched.submit(probe, max_new_tokens=8, collect_logits=True).result_logits()
+    del cold_sched
+    check(np.array_equal(hit_logits, cold_logits),
+          f"gpt2-large: radix-hit logits differ from cold (max abs "
+          f"{float(np.abs(hit_logits - cold_logits).max()):.3e})")
+    log("gpt2-large serving: radix-hit logits bitwise equal to the cold prefill's (8 steps); a retained "
+        "slot byte-stable across a stream it sat out")
+
+    # where the time goes: sync profiles
+    sched = eng.scheduler()
+    sync_profile(torch, sched, prompts[:8], "gpt2-large serving")
+    eng._scheduler = sched = None
+    torch.cuda.empty_cache()
+
+    # the yardstick: the same mixed stream through sequential generate() calls
+    eng.generate([prompts[0]], max_new_tokens=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq_tok = sum(len(eng.generate([p], max_new_tokens=SERVE_NEW)[0]) for p in prompts)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    log(f"gpt2-large sequential generate() yardstick, the same stream: {seq_tok} tokens in {seq_s:.3f} s "
+        f"= {seq_tok / seq_s:.1f} tokens/s; the scheduler served {n_tok / wall / (seq_tok / seq_s):.2f}x it")
+
+    int8_counts = int8_kv_leg(torch, eng, prompts[:8])
+    return counts, int8_counts
+
+
+def int8_kv_leg(torch, eng, prompts):
+    """The mixed stream's first 8 requests on an int8 KV pool against the
+    bf16 pool, logits collected: >= 1.9x the rows per byte, the launches of
+    the int8 variants, and per-step logits within 0.05 * max|ref| + 0.05
+    (the JAX test's bound) on every step whose inputs agree (up to and
+    including a row's first greedy flip; after it the streams feed other
+    tokens)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    ref_s = DecodeScheduler(eng, num_slots=8, steps_per_sync=4)
+    _, ref, _, _, _ = serve(ref_s, prompts, collect=True)
+    bpt_ref = ref_s.cache.bytes_per_token()
+    del ref_s
+    torch.cuda.empty_cache()
+    q_s = DecodeScheduler(eng, num_slots=8, steps_per_sync=4, kv_cache_dtype="int8")
+    reset_counts()
+    _, got, wall, _, _ = serve(q_s, prompts, collect=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_serve_counts(q_s, counts, "gpt2-large int8 KV leg", int8_kv=True)
+    ratio = bpt_ref / q_s.cache.bytes_per_token()
+    errs, flips = [], 0
+    for r, g in zip(ref, got):
+        same = r.argmax(-1) == g.argmax(-1)
+        n = len(same) if same.all() else int(np.argmin(same)) + 1
+        flips += int(not same.all())
+        errs.append((float(np.abs(g[:n] - r[:n]).max()), float(np.abs(r[:n]).max())))
+    worst = max(e / (0.05 * m + 0.05) for e, m in errs)
+    log(f"gpt2-large int8 KV leg ({len(prompts)} requests): {q_s.cache.bytes_per_token()} vs {bpt_ref} "
+        f"B/token = {ratio:.3f}x rows per byte; logit error / bound worst {worst:.3f} (max abs "
+        f"{max(e for e, _ in errs):.3e}, max |ref| {max(m for _, m in errs):.3e}); rows whose greedy "
+        f"choice flipped {flips}/{len(prompts)}; {wall:.3f} s")
+    check(ratio >= 1.9, f"int8 KV pool only {ratio:.3f}x denser than bf16")
+    check(worst <= 1.0, "int8 KV logit error beyond 0.05 * max|ref| + 0.05")
+    q_s.radix.check_invariants()
+    del q_s
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_serving_phase(torch, eng):
+    """llama3-8b (full width, 2 layers) through the scheduler: 4 slots, 8
+    requests (GQA g=4, D=128 and RoPE through the span and decode modes),
+    exact launch counts and the kernel-vs-plain step check."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    sched = DecodeScheduler(eng, num_slots=4, steps_per_sync=4)
+    check(sched._fused_block, f"llama3-8b serving: fused gate closed ({sched._fused_block_reasons})")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, eng.model_config.vocab_size, int(k)).astype(np.int32)
+               for k in rng.integers(8, 192, 8)]
+    reset_counts()
+    outs, _, wall, _, ttft = serve(sched, prompts, max_new=32)
+    torch.cuda.synchronize()
+    check_serve_counts(sched, read_counts(), "llama3-8b serving")
+    check_streams(outs, 32, eng.model_config.vocab_size, "llama3-8b serving")
+    log(f"llama3-8b serving (2 of 32 layers, 4 slots, 8 requests, 32 new): {sum(map(len, outs))} tokens "
+        f"in {wall:.3f} s; shapes {dict(sched.dispatched)}")
+    sched.radix.check_invariants()
+    step_logits_check(torch, eng, sched, "llama3-8b serving")
+    del sched
     torch.cuda.empty_cache()
 
 
@@ -1021,7 +1492,7 @@ def main():
 
     from deepspeed_tpu_torch.ops import build
     t0 = time.perf_counter()
-    logs = build.build_all([k[1].split("/")[-1][:-3] for k in KERNELS])
+    logs = build.build_all([k[1].split("/")[-1][:-3] for k in KERNELS])  # each source once
     log(f"built {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1030,10 +1501,16 @@ def main():
 
     dev = torch.device("cuda")
     results = kernel_phase(torch, dev)
-    counts, fused_greedy = gpt2_large_phase(torch, card, fused=True)  # the main path
-    for name, n in counts.items():
-        results[name]["launches"] = n
-    _, unfused_greedy = gpt2_large_phase(torch, card, fused=False)
+    counts, fused_greedy, (serve_counts, int8_counts) = gpt2_large_phase(torch, card, fused=True)
+    for name, n in counts.items():  # the static generate() path
+        if name in results and n:
+            results[name]["launches"] = n
+    # the serving path: the paged modes from the mixed stream, the int8-KV
+    # variants from the int8 leg
+    for name in ("paged_decode_attention", "paged_span_attention"):
+        results[name]["launches"] = serve_counts[name]
+        results[name + "_int8"]["launches"] = int8_counts[name + "_int8"]
+    _, unfused_greedy, _ = gpt2_large_phase(torch, card, fused=False)
     # the two paths round in other places (bias and RoPE in fp32 before the
     # cast in the fused kernels), so their streams may part where two logits
     # are close: reported, not required

@@ -5,7 +5,9 @@ TPU kernel on a ported path is a CUDA kernel written for Hopper
 (``ops/csrc``). It mirrors the JAX package's layout file for file and never
 imports JAX or ``deepspeed_tpu``. It serves static-batch ``generate()``
 (int8 kernel-injected: the fused decode layer by default, or the
-per-projection kernels) and trains on one device through ``initialize()``
+per-projection kernels), serves continuous batching through
+``engine.scheduler()`` / ``engine.submit()`` (chunked prefill, radix prefix
+cache, int8 KV, on the paged decode and span kernels) and trains on one device through ``initialize()``
 → ``train_batch()`` (fp32 master weights, bf16 compute, AdamW, flash
 attention's forward and backward kernels); see ``ROADMAP.md`` for what is
 still to come.

@@ -411,6 +411,37 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
                            "throughput scale with N at zero extra XLA programs")
 
 
+    def unported(self):
+        """The sub-features the port's scheduler does not have yet, each
+        naming its ROADMAP item (the scheduler's constructor refuses the
+        same arguments): refused when set, whether or not the section is
+        enabled, since ``engine.scheduler()`` builds from them either way."""
+        out = []
+        item = "continuous_batching.{} (ROADMAP Queue 1 #{})".format
+        if self.prefill_chunk <= 0:
+            out.append(item("prefill_chunk=0", "5, monolithic prefill"))
+        if self.spec_tokens > 0:
+            out.append(item("spec_tokens", "5, speculative decode"))
+        if self.hierarchical_kv.enabled:
+            out.append(item("hierarchical_kv", "8, hierarchical KV tier"))
+        if self.multi_lora.enabled:
+            out.append(item("multi_lora", "9, multi-LoRA"))
+        if self.expert_offload.enabled:
+            out.append(item("expert_offload", "9, MoE serving"))
+        if self.disaggregation.enabled:
+            out.append(item("disaggregation", "9, disaggregated prefill/decode"))
+        lc = self.long_context
+        if lc.max_extents > 1 or lc.seq_parallel_min_tokens > 0 or lc.allow_lossy_kv:
+            out.append(item("long_context", "9, long context"))
+        if self.multihost.router_url is not None:
+            out.append(item("multihost", "9, multi-host router"))
+        if self.autoscaler.enabled:
+            out.append(item("autoscaler", "9, elastic controller"))
+        if self.replicas != 1:
+            out.append(item("replicas", "9, sharded decode and replicas"))
+        return out
+
+
 class GatewayConfig(DeepSpeedConfigModel):
     """Serving-gateway section (``deepspeed_tpu/serving/``): the stdlib
     HTTP frontend over the continuous-batching scheduler — admission
@@ -516,9 +547,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     def _reject_unported(self):
         """Sections the port has no subsystem for yet: accepted while off,
         refused when on, each naming its ROADMAP Queue 1 item."""
-        unported = []
-        if self.continuous_batching.enabled:
-            unported.append("continuous_batching.enabled (ROADMAP Queue 1 #5, continuous batching)")
+        unported = self.continuous_batching.unported()
         if self.gateway.to_dict() != GatewayConfig().to_dict():
             unported.append("gateway (ROADMAP Queue 1 #6, serving and telemetry)")
         if dict(self.telemetry or {}).get("enabled"):

@@ -19,6 +19,11 @@ tensor-parallel degree 1:
   kernel C per layer, then the int8 head); the prefill stays on the
   per-projection path, as in the JAX engine.
 
+With ``continuous_batching.enabled``, :meth:`InferenceEngine.submit` routes
+each row through the shared continuous-batching scheduler
+(:meth:`InferenceEngine.scheduler`, ``inference/scheduler.py``); its
+handles return what ``generate()`` returns.
+
 Batched generation follows the JAX engine: a uniform batch is right-padded
 to the 64-token prompt bucket and decoding starts at the true length (no
 cache mask, so a prompt of >= 128 tokens prefills through the flash
@@ -127,6 +132,7 @@ class InferenceEngine:
         self.params = self._materialize_params(params)
         self.net = self.module.bind(self.params)
         self._cache_pool = {}  # (B, S) -> reusable KV cache buffers
+        self._scheduler = None
         fused = ""
         if self._fused_decode_note:
             fused = f" fused_decode=off ({self._fused_decode_note})"
@@ -391,8 +397,87 @@ class InferenceEngine:
             tok = nxt
         return buf
 
-    def _init_cache(self, B, S):
-        return self.module.init_cache(B, S, device=self.device)
+    def _init_cache(self, B, S, kv_dtype=None):
+        """``kv_dtype``: None = the model compute dtype; "int8" = the
+        quantized KV tier (3-leaf cache with per-row scales; serving
+        ``kv_cache_dtype: int8``); a torch float dtype = a plain cache of it."""
+        if kv_dtype == "int8":
+            return self.module.init_cache(B, S, device=self.device, quantized=True)
+        return self.module.init_cache(B, S, dtype=kv_dtype, device=self.device)
+
+    # ------------------------------------------------------------------ serving
+    def scheduler(self, **overrides):
+        """The engine's continuous-batching :class:`DecodeScheduler`
+        (``inference/scheduler.py``), built lazily from the
+        ``continuous_batching`` config section; ``overrides`` replace config
+        fields on first construction."""
+        if self._scheduler is None:
+            from .scheduler import DecodeScheduler
+            cb = self._config.continuous_batching
+            kw = {"num_slots": cb.num_slots, "max_len": cb.max_len,
+                  "collect_logits": cb.collect_logits, "steps_per_sync": cb.steps_per_sync,
+                  "prefill_chunk": cb.prefill_chunk, "prefix_cache": cb.prefix_cache,
+                  "spec_tokens": cb.spec_tokens, "kv_cache_dtype": cb.kv_cache_dtype}
+            kw.update(overrides)
+            self._scheduler = DecodeScheduler(self, **kw)
+        elif overrides:
+            raise ValueError("scheduler already built; overrides must be passed on the first "
+                             "scheduler() call")
+        return self._scheduler
+
+    def submit(self, input_ids, **kwargs):
+        """Generation behind a handle whose ``result()`` returns what
+        ``generate()`` would. With ``continuous_batching.enabled`` the rows
+        join the shared scheduler (requests from different submit() calls
+        batch into one step, finished rows evict mid-loop); otherwise the
+        static batch runs now and the handle holds its device output until
+        ``result()`` fetches it."""
+        if self._config.continuous_batching.enabled:
+            return self._submit_continuous(input_ids, **kwargs)
+        buf, trim = self._generate_raw(input_ids, **kwargs)
+
+        class _Handle:
+            done = True
+
+            def result(self_h):
+                return trim(buf.cpu().numpy())
+
+        return _Handle()
+
+    def _submit_continuous(self, input_ids, max_new_tokens=64, do_sample=False, temperature=1.0,
+                           top_k=0, top_p=1.0, eos_token_id=None, pad_token_id=0, seed=0):
+        """submit() on the continuous-batching path: each row becomes one
+        scheduler request (row i seeded ``seed + i``); the handle reassembles
+        ``generate()``'s per-row output lists (eos-inclusive)."""
+        sched = self.scheduler()
+        handles = []
+        try:
+            for i, row in enumerate(input_ids):
+                handles.append(sched.submit(row, max_new_tokens=max_new_tokens,
+                                            eos_token_id=eos_token_id, do_sample=do_sample,
+                                            temperature=temperature, top_k=top_k, top_p=top_p,
+                                            seed=seed + i))
+        except Exception:
+            for h in handles:  # don't orphan already-queued rows
+                h.cancel()
+            raise
+
+        class _BatchHandle:
+            def result(self_h):
+                return [h.result() for h in handles]
+
+            @property
+            def done(self_h):
+                return all(h.done for h in handles)
+
+            def __del__(self_h):
+                # flag abandoned requests for eviction at the scheduler's next
+                # iteration; never pump the loop from GC
+                for h in handles:
+                    if not h.done:
+                        h.cancel()
+
+        return _BatchHandle()
 
     # ------------------------------------------------------------------ misc parity
     @property

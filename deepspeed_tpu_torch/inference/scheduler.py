@@ -1,0 +1,663 @@
+"""Continuous-batching decode scheduler (iteration-level scheduling) with
+chunked prefill fused into the decode step and a radix prefix cache.
+
+Port of ``deepspeed_tpu/inference/scheduler.py`` (``DecodeScheduler``) for
+one device. Queued requests are admitted into free KV-cache slots at
+token-iteration granularity: a finished sequence evicts mid-loop and the
+next queued request joins the very next step.
+
+**Chunked prefill (Sarathi-Serve).** Each scheduler iteration with a
+prefill in flight runs ONE step over ``(num_slots, prefill_chunk)`` query
+columns: live decode rows carry their next token in column 0, the (at most
+one) in-flight prefill row carries up to ``prefill_chunk`` prompt tokens,
+per-row query spans mask the rest (their KV writes are dropped); then the
+sync's remaining ``steps_per_sync - 1`` decode steps. A sync with no
+prefill is the same step body at chunk width 1. Either way it is a Python
+loop of K forwards that reads nothing back: sampled tokens feed the next
+forward as device tensors, and one ``.cpu()`` of the (K, num_slots) token
+block (and the logits, when collected) ends the sync. The paged kernels
+take per-row ends on the device, so no ``max(ends)`` is needed on the host.
+The shapes dispatched are (chunk, K), (chunk, 1) for a non-final chunk on
+an idle pool, and (1, K): ``dispatched`` records them.
+
+**Radix prefix cache (SGLang RadixAttention).** Finished slots are retained
+with their prompts registered in a token trie; admission copies the longest
+matched prefix's KV rows from the donor slot (``copy_slot``) and
+chunk-prefills only the suffix. Matches round DOWN to a ``prefill_chunk``
+multiple, so hit and cold paths run identical chunk boundaries: a hit's
+logits are bitwise equal to a cold prefill's.
+
+**Sampling.** Per-request greedy (``argmax``) or temperature / top-k /
+top-p sampling, with the draw a function of (request seed, absolute step,
+vocab index) only: a counter-based 32-bit hash of those three computed in
+int64 tensor ops (the same integers on the CPU and the card) gives one
+uniform per vocab entry, and the token is the Gumbel-max over the filtered
+logits. So a request's tokens do not depend on its slot, on what shares the
+batch, or on K, and no host sync or per-row Python loop is involved. (The
+JAX package's ``fold_in(key(seed), step)`` draws cannot be reproduced in
+PyTorch.)
+
+**int8 paged KV** (``kv_cache_dtype: "int8"``): the pool stores per-row
+quantized K/V (``ops/quantizer.py``) and the paged kernels dequantize in
+registers.
+
+With the fused decode-layer gate open (int8, kernel injection), each
+forward runs ``CausalLMModel.fused_paged_step`` (kernels A and C); else the
+per-projection ``apply_with_cache``. Both write and read the same pool.
+
+Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
+the monolithic ``prefill_chunk=0`` prefill and speculative decoding (Queue
+1 #5), telemetry (#6), the hierarchical KV tier (#8), multi-LoRA,
+cold-expert offload, disaggregation, long-context extents, seq-parallel
+prefill and lossy KV windows (#9), the weight-swap protocol and migration
+(#9, RLHF and disaggregated serving).
+"""
+
+import collections
+import time
+
+import numpy as np
+import torch
+
+from .kv_cache import RadixPrefixCache, SlotKVCache, copy_slot
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def _unported(what, item):
+    return NotImplementedError(f"deepspeed_tpu_torch does not support {what} yet ({item})")
+
+
+# ---------------------------------------------------------------- sampling
+
+_M32 = 0xFFFFFFFF
+
+
+def _mulmod32(x, c):
+    """(x * c) mod 2^32 for int64 tensors x in [0, 2^32) and a constant c <
+    2^32, without an int64 overflow: x splits into 16-bit halves."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(h):
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values."""
+    h = h ^ (h >> 16)
+    h = _mulmod32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mulmod32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def sample_uniforms(seeds, steps, V):
+    """(N, V) float64 uniforms in (0, 1), a function of (seed, step, vocab
+    index) alone: bitwise the same on the CPU and the card. ``seeds``,
+    ``steps``: (N,) int64, seeds in [0, 2^32)."""
+    key = _mix32(_mix32(seeds & _M32) ^ _mulmod32(steps & _M32, 0x9E3779B1))
+    v = torch.arange(V, dtype=torch.int64, device=seeds.device)
+    h = _mix32(_mix32(key[:, None] ^ _mulmod32(v, 0x27D4EB2F)[None, :]) ^ 0x165667B1)
+    return (h.double() + 0.5) / 4294967296.0
+
+
+def sample_rows(logits, seeds, steps, flags, temps, topks, topps):
+    """Per-row token choice with per-row sampling parameters, all tensors
+    on the logits' device: greedy rows take the argmax; sampling rows take
+    the Gumbel-max over the temperature-scaled logits filtered by top-k and
+    then top-p of the top-k-filtered distribution (the JAX ``_sample_slot``
+    filters). ``logits`` (N, V) fp32; ``seeds``/``steps``/``topks`` (N,)
+    int64; ``flags`` (N,) bool; ``temps``/``topps`` (N,) fp32."""
+    N, V = logits.shape
+    greedy = logits.argmax(-1)
+    x = logits / temps.clamp(min=1e-6)[:, None]
+    desc = torch.sort(x, dim=-1, descending=True).values
+    kth = desc.gather(1, (topks - 1).clamp(0, V - 1)[:, None])
+    x = torch.where((topks > 0)[:, None] & (x < kth), float("-inf"), x)
+    desc = torch.sort(x, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(desc, dim=-1), dim=-1)
+    keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool), cum[:, :-1] < topps[:, None]],
+                     dim=-1)
+    threshold = torch.where(keep, desc, float("inf")).amin(dim=-1, keepdim=True)
+    x = torch.where((topps < 1.0)[:, None] & (x < threshold), float("-inf"), x)
+    gumbel = (-torch.log(-torch.log(sample_uniforms(seeds, steps, V)))).float()
+    return torch.where(flags, (x + gumbel).argmax(-1), greedy)
+
+
+# ---------------------------------------------------------------- requests
+
+
+class _Request:
+    __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id", "do_sample", "temperature",
+                 "top_k", "top_p", "seed", "slot", "out", "logits", "done", "cancelled",
+                 "submit_ts", "first_token_ts", "collect_logits", "on_token")
+
+    def __init__(self, rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature, top_k,
+                 top_p, seed, collect_logits, on_token=None):
+        self.rid = rid
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if self.prompt.size < 1:
+            raise ValueError("scheduler requires at least one prompt token")
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = eos_token_id
+        self.do_sample = bool(do_sample)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.seed = int(seed) & 0xFFFFFFFF
+        self.collect_logits = bool(collect_logits)
+        self.slot = None
+        self.out = []      # generated token ids (host ints)
+        self.logits = []   # per-step (V,) logits when collect_logits
+        self.done = False
+        self.cancelled = False
+        self.submit_ts = time.perf_counter()
+        self.first_token_ts = None
+        self.on_token = on_token
+
+
+class SchedulerHandle:
+    """Future-like handle for one scheduled request. ``result()`` pumps the
+    shared scheduler loop (serving every in-flight request, not just this
+    one) until this request finishes."""
+
+    __slots__ = ("_sched", "_req")
+
+    def __init__(self, sched, req):
+        self._sched = sched
+        self._req = req
+
+    @property
+    def done(self):
+        return self._req.done
+
+    def cancel(self):
+        """Flag the request for eviction: pure host bookkeeping, safe from
+        ``__del__``; the loop frees the slot (or drops the queued request)
+        at its next iteration."""
+        self._req.cancelled = True
+
+    def result(self):
+        while not self._req.done:
+            self._sched.step()
+        return np.asarray(self._req.out, np.int32)
+
+    def result_logits(self):
+        """(T, V) per-generated-token logits (requires ``collect_logits``)."""
+        self.result()
+        if not self._req.collect_logits:
+            raise ValueError("request was not submitted with collect_logits=True")
+        if self._req.logits:
+            return np.stack(self._req.logits)
+        return np.zeros((0, self._sched.engine.model_config.vocab_size), np.float32)
+
+
+class _PrefillState:
+    """The (at most one) in-flight chunked prefill: ``pos`` is the next
+    prompt position to feed; rows ``[0, pos)`` of the slot hold KV."""
+
+    __slots__ = ("req", "pos")
+
+    def __init__(self, req, pos):
+        self.req = req
+        self.pos = pos
+
+
+class DecodeScheduler:
+    """Continuous-batching serving loop over an :class:`InferenceEngine`.
+
+    ``num_slots`` fixes the decode batch (the pool shape); ``max_len`` is
+    the per-slot KV capacity. Requests whose ``prompt + max_new_tokens``
+    (rounded up to ``steps_per_sync``) exceed it are rejected at submit.
+    ``prefix_cache`` retains finished prefixes for cross-request KV reuse.
+    The other arguments keep the JAX scheduler's names; the unported
+    features' arguments raise when set (their tuning knobs, and the legacy
+    prefill's ``prefill_bucket``, are not taken)."""
+
+    def __init__(self, engine, num_slots=8, max_len=None, collect_logits=False, steps_per_sync=4,
+                 prefill_chunk=64, prefix_cache=True, spec_tokens=0, kv_cache_dtype="auto",
+                 prefix_store=None, adapter_store=None, expert_store=None, max_extents=1,
+                 seq_parallel_min_tokens=0, allow_lossy_kv=False):
+        if int(prefill_chunk) <= 0:
+            raise _unported("the monolithic prefill (prefill_chunk=0)",
+                            "ROADMAP Queue 1 #5, monolithic prefill")
+        if int(spec_tokens) > 0:
+            raise _unported("speculative decoding (spec_tokens > 0)",
+                            "ROADMAP Queue 1 #5, speculative decode")
+        if prefix_store is not None:
+            raise _unported("the hierarchical KV tier", "ROADMAP Queue 1 #8, hierarchical KV tier")
+        if adapter_store is not None:
+            raise _unported("multi-LoRA serving", "ROADMAP Queue 1 #9, multi-LoRA")
+        if expert_store is not None:
+            raise _unported("cold-expert offload", "ROADMAP Queue 1 #9, MoE serving")
+        if int(max_extents) > 1 or int(seq_parallel_min_tokens) > 0 or allow_lossy_kv:
+            raise _unported("long-context serving (max_extents > 1, seq-parallel prefill, lossy "
+                            "KV windows)", "ROADMAP Queue 1 #9, long context")
+        self.engine = engine
+        self.device = engine.device
+        model = engine.module
+        cfg = engine._config
+        if max_len is None:
+            max_len = min(model.cfg.max_seq_len, cfg.max_out_tokens)
+        # pool length: multiple of the decode KV block (same rule as the
+        # static path) so the paged kernel's block walk tiles evenly; when
+        # the model's max_seq_len caps it, round DOWN so the tiling holds
+        # (the kernel needs S % block only when S exceeds one block)
+        block = cfg.decode_block_kv
+        S = int(_round_up(max_len, 64))
+        if S > block:
+            S = int(_round_up(S, block))
+        if S > model.cfg.max_seq_len:
+            S = model.cfg.max_seq_len
+            if S > block:
+                S = (S // block) * block
+        if S < 1:
+            raise ValueError(f"model max_seq_len {model.cfg.max_seq_len} leaves no "
+                             f"room for a KV slot")
+        self.max_len = S
+        self.collect_logits = bool(collect_logits)
+        self.steps_per_sync = max(1, int(steps_per_sync))
+        self.prefill_chunk = min(int(prefill_chunk), S)
+        kvd = str(kv_cache_dtype or "auto").lower()
+        if kvd in ("auto", "model", "none"):
+            kv_arg = None
+        elif kvd == "int8":
+            kv_arg = "int8"
+        else:
+            from .config import _DTYPE_MAP
+            if kvd not in _DTYPE_MAP or _DTYPE_MAP[kvd] == torch.int8:
+                raise ValueError(f"kv_cache_dtype must be 'auto', 'int8', or a float "
+                                 f"dtype name, got {kv_cache_dtype!r}")
+            kv_arg = _DTYPE_MAP[kvd]
+        self.kv_quantized = kv_arg == "int8"
+        self.cache = SlotKVCache(engine._init_cache(int(num_slots), S, kv_dtype=kv_arg),
+                                 int(num_slots), S)
+        self.radix = RadixPrefixCache(self.cache) if prefix_cache else None
+        # the fused decode-layer kernels serve the step when the engine's
+        # gate admits the config (the JAX scheduler's `fused_block` programs)
+        if hasattr(engine.model_config, "int8_weights"):
+            elig = engine._fused_decode_eligible()
+            self._fused_block = bool(elig)
+            self._fused_block_reasons = list(elig.reasons)
+        else:
+            self._fused_block = False
+            self._fused_block_reasons = ["model family without fused decode-block support"]
+        self._prefill = None  # at most one in-flight _PrefillState
+        self.queue = collections.deque()
+        self.active = {}  # slot -> _Request
+        self._rid = 0
+        # plain counters (the JAX scheduler's telemetry counters, without a sink)
+        self.admitted = 0
+        self.evicted = 0
+        self.decode_steps = 0
+        # (chunk width, K) -> syncs dispatched at that shape, and forwards
+        # run at each width (the paged kernels launch once per layer each)
+        self.dispatched = collections.Counter()
+        self.forwards = collections.Counter()
+        self.last_shape = None
+
+    # ------------------------------------------------------------------ API
+    def submit(self, prompt, max_new_tokens=64, eos_token_id=None, do_sample=False,
+               temperature=1.0, top_k=0, top_p=1.0, seed=0, collect_logits=None,
+               on_token=None, trace=None, adapter_id=None, kv_window=None):
+        """Enqueue one request; returns a :class:`SchedulerHandle`. The
+        request joins the decode batch as soon as a slot frees up.
+
+        ``on_token(token, done)``: optional host-side streaming hook, called
+        once per generated token from inside the loop, in delivery order,
+        with ``done=True`` on the final token. ``trace``, ``adapter_id`` and
+        ``kv_window`` are not ported and raise when set."""
+        if trace is not None:
+            raise _unported("request tracing", "ROADMAP Queue 1 #6, serving and telemetry")
+        if adapter_id is not None:
+            raise _unported("multi-LoRA serving (adapter_id)", "ROADMAP Queue 1 #9, multi-LoRA")
+        if kv_window is not None:
+            raise _unported("lossy KV windows (kv_window)", "ROADMAP Queue 1 #9, long context")
+        req = _Request(self._rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature,
+                       top_k, top_p, seed,
+                       self.collect_logits if collect_logits is None else collect_logits,
+                       on_token=on_token)
+        self._rid += 1
+        if req.prompt.size >= self.max_len:
+            raise ValueError(
+                f"prompt of {req.prompt.size} tokens exceeds the per-slot KV capacity "
+                f"{self.max_len} (a prompt needs at least one row of decode headroom); raise "
+                f"the scheduler's max_len / the engine's max_out_tokens, or shorten the prompt")
+        if req.max_new_tokens <= 0:  # static-path parity: zero budget -> no tokens
+            req.done = True
+            return SchedulerHandle(self, req)
+        # the K-step sync writes K rows even when the budget ends mid-block
+        budget = _round_up(req.max_new_tokens, self.steps_per_sync)
+        if not self.cache.fits(req.prompt.size, budget):
+            raise ValueError(f"request needs {req.prompt.size + budget} cache rows > slot "
+                             f"capacity {self.max_len}; raise max_out_tokens / max_len, or "
+                             f"shorten the request")
+        handle = SchedulerHandle(self, req)
+        self.queue.append(req)
+        return handle
+
+    def drain(self):
+        """Run until every queued/active request finishes."""
+        while self.queue or self.active or self._prefill is not None:
+            self.step()
+
+    @property
+    def num_slots(self):
+        return self.cache.num_slots
+
+    def _weight_swap(self, *args, **kwargs):
+        raise _unported("the weight-swap protocol (pause/resume/flush/swap_weights)",
+                        "ROADMAP Queue 1 #9, RLHF")
+
+    def _migration(self, *args, **kwargs):
+        raise _unported("request migration (migrate_out/admit_migration)",
+                        "ROADMAP Queue 1 #9, disaggregated prefill/decode")
+
+    pause = resume = flush = swap_weights = _weight_swap
+    migrate_out = admit_migration = _migration
+
+    # ------------------------------------------------------------------ loop
+    def step(self):
+        """One scheduler iteration: settle cancellations, admit at most one
+        prefill, then one fused chunk sync while a prefill is in flight,
+        else ``steps_per_sync`` decode steps. Returns tokens delivered."""
+        self._reap_cancelled()
+        while self.queue and self.queue[0].cancelled:
+            self.queue.popleft().done = True
+        if self._prefill is None and self.queue:
+            pick = next((i for i, r in enumerate(self.queue) if not r.cancelled), None)
+            if pick is not None:
+                req = self.queue[pick]
+                slot, match = self._acquire_slot(req)
+                if slot is not None:
+                    del self.queue[pick]
+                    self._begin_prefill(req, slot, match)
+                    self.admitted += 1
+        if self._prefill is not None:
+            delivered, ksteps = self._fused_chunk_step()
+        elif self.active:
+            delivered, ksteps = self._decode_step()
+        else:
+            return 0
+        self.decode_steps += ksteps
+        return delivered
+
+    def _release_slot(self, slot):
+        """Return a finished/cancelled request's slot: retained (state
+        ``cached``) when the radix trie references its prefix, else freed.
+        Retained lengths clamp to the registered prompt prefix (decode and
+        K-step overshoot rows are garbage for reuse)."""
+        if self.radix is not None and self.cache.refs[slot] > 0:
+            self.cache.lengths[slot] = min(int(self.cache.lengths[slot]),
+                                           self.radix.registered_len(slot))
+            self.cache.retain(slot)
+        else:
+            self.cache.free(slot)
+
+    def _reap_cancelled(self):
+        """Evict slots whose requests were cancelled. Runs only from step(),
+        so eviction never races a dispatch."""
+        for slot, req in list(self.active.items()):
+            if req.cancelled and not req.done:
+                req.done = True
+                del self.active[slot]
+                self._release_slot(slot)
+        if self._prefill is not None and self._prefill.req.cancelled:
+            req = self._prefill.req
+            req.done = True
+            self._release_slot(req.slot)  # mid-prefill slots are never registered
+            self._prefill = None
+
+    def _acquire_slot(self, req):
+        """A free slot for admission plus the radix match for ``req``'s
+        prompt, matched BEFORE any eviction (reclaiming a cached slot drops
+        its registration). When the free list is dry, reclaims the LRU
+        cached slot, sparing the matched donor when another exists. Returns
+        ``(slot, (matched_len, donor))``; slot is None when every slot
+        serves a live request."""
+        match = self.radix.match(req.prompt) if self.radix is not None else (0, None)
+        slot = self.cache.alloc(owner=req.rid)
+        if slot is None and self.radix is not None:
+            victim = self.radix.evict_lru(prefer_not=match[1])
+            if victim is not None:
+                self.cache.reclaim(victim)
+                slot = self.cache.alloc(owner=req.rid)
+        return slot, match
+
+    def _begin_prefill(self, req, slot, match=(0, None)):
+        """Seed ``slot`` with the longest matched prefix (``copy_slot``) and
+        leave the suffix to the fused chunk steps. Matches are capped at
+        ``prompt - 1`` (the last prompt token must run through the model)
+        and rounded DOWN to a ``prefill_chunk`` multiple, so a hit replays
+        the cold path's exact chunk boundaries."""
+        req.slot = slot
+        pos = 0
+        if self.radix is not None:
+            m, donor = match
+            m = min(m, req.prompt.size - 1)
+            m = (m // self.prefill_chunk) * self.prefill_chunk
+            # the donor may have been the LRU victim reclaimed for this very
+            # admission: then it IS our slot, its rows still resident
+            if donor is None or not (donor == slot or donor in self.radix._slot_node):
+                m = 0
+            if m > 0:
+                if donor != slot:
+                    copy_slot(self.cache.pool, donor, slot)
+                pos = m
+                self.radix.hits += 1
+                self.radix.touch(donor)
+            else:
+                self.radix.misses += 1
+        self.cache.lengths[slot] = pos
+        self._prefill = _PrefillState(req, pos)
+
+    def _finish_prefill(self, req, tok, last_logits):
+        """The final chunk landed: register the prompt in the radix trie
+        (live prefixes serve as donors too), move the row to decode and
+        deliver token 0."""
+        self._prefill = None
+        self.active[req.slot] = req
+        if self.radix is not None:
+            self.radix.insert(req.slot, req.prompt)
+        req.first_token_ts = time.perf_counter()
+        if req.collect_logits and last_logits is not None:
+            req.logits.append(last_logits)
+        self._deliver(req, tok)
+
+    def _deliver(self, req, tok):
+        """Append one generated token; finish on EOS or length budget and
+        evict the slot the same iteration."""
+        if req.done:  # cancelled elsewhere: never double-free the slot
+            return
+        req.out.append(tok)
+        if ((req.eos_token_id is not None and tok == req.eos_token_id)
+                or len(req.out) >= req.max_new_tokens):
+            req.done = True
+            if req.slot in self.active:
+                del self.active[req.slot]
+            self._release_slot(req.slot)
+            self.evicted += 1
+        if req.on_token is not None:
+            try:
+                req.on_token(tok, req.done)
+            except Exception:
+                from ..utils.logging import logger
+                logger.warning("scheduler on_token hook raised", exc_info=True)
+
+    # ------------------------------------------------------------------ steps
+    def _gather_sampling(self, live):
+        """Per-slot sampling rows for a step: (seeds, steps, flags, temps,
+        topks, topps, sampling, collect); ``steps`` is each row's ABSOLUTE
+        step index, so results are K- and fused-invariant."""
+        N = self.cache.num_slots
+        seeds = np.zeros(N, np.int64)
+        steps = np.zeros(N, np.int64)
+        flags = np.zeros(N, np.int64)
+        temps = np.ones(N, np.float32)
+        topks = np.zeros(N, np.int64)
+        topps = np.ones(N, np.float32)
+        sampling = collect = False
+        for slot, req in live:
+            seeds[slot] = req.seed
+            steps[slot] = len(req.out)  # prefill consumed step 0
+            flags[slot] = req.do_sample
+            temps[slot] = req.temperature
+            topks[slot] = req.top_k
+            topps[slot] = req.top_p
+            sampling = sampling or req.do_sample
+            collect = collect or req.collect_logits
+        return [seeds, steps, flags, temps, topks, topps], sampling, collect
+
+    def _forward(self, ids, pos, widx, spans):
+        """One in-sync forward over the pool; returns (N, C, V) logits."""
+        model = self.engine.module
+        if self._fused_block:
+            logits, _ = model.fused_paged_step(self.engine._fast_tree(), ids, self.cache.pool, pos,
+                                               widx, spans)
+        else:
+            logits, _ = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
+                                               position_ids=pos, write_index=widx, q_spans=spans)
+        return logits
+
+    @torch.inference_mode()
+    def _run(self, ids, lens, spans, samp, sampling, collect, K):
+        """THE step body: the first forward over the (N, C) ids block with
+        per-row spans, then K - 1 single-column decode forwards, all on the
+        device with nothing read back until the (K, N) token block (and the
+        (K, N, V) logits when collected) comes back at the end. Each row
+        continues at its own write head ``lens + max(span, 1) - 1 + k``;
+        span-0 (dead or cached) rows write nothing in any forward."""
+        N, C = ids.shape
+        dev = self.device
+        seeds, steps, flags, temps, topks, topps = samp
+        ints = torch.from_numpy(np.concatenate(
+            [ids.astype(np.int64), np.stack([lens, spans, seeds, steps, flags, topks], 1)
+             .astype(np.int64)], axis=1)).to(dev)
+        floats = torch.from_numpy(np.stack([temps, topps], 1)).to(dev)
+        ids_t = ints[:, :C]
+        lens_t, spans_t, seeds_t, steps_t, flags_t, topks_t = ints[:, C:].unbind(1)
+        flags_t = flags_t > 0
+        temps_t, topps_t = floats.unbind(1)
+
+        def sample(lg, k):
+            if not sampling:
+                return lg.argmax(-1)
+            return sample_rows(lg, seeds_t, steps_t + k, flags_t, temps_t, topks_t, topps_t)
+
+        self.dispatched[(C, K)] += 1
+        self.last_shape = (C, K)
+        pos = lens_t[:, None] + torch.arange(C, device=dev)[None, :]
+        logits = self._forward(ids_t, pos, lens_t, spans_t)
+        self.forwards[C] += 1
+        # each row's LAST live column: decode rows column 0, the prefill row
+        # its chunk fill - 1 (dead rows clamp to 0, a token never read)
+        last = (spans_t - 1).clamp(min=0)
+        V = logits.shape[-1]
+        lg = logits.gather(1, last[:, None, None].expand(N, 1, V))[:, 0].float()
+        tok = sample(lg, 0)
+        toks, lgs = [tok], [lg]
+        base = lens_t + spans_t.clamp(min=1) - 1  # per-row write head - 1
+        live01 = spans_t.clamp(max=1)  # substep spans: dead rows never write
+        for k in range(1, K):
+            widx = base + k
+            logits = self._forward(tok[:, None], widx[:, None], widx, live01)
+            self.forwards[1] += 1
+            lg = logits[:, 0].float()
+            tok = sample(lg, k)
+            toks.append(tok)
+            lgs.append(lg)
+        toks_k = torch.stack(toks).cpu().numpy()  # the sync's one round trip
+        logits_k = torch.stack(lgs).cpu().numpy() if collect else None
+        return toks_k, logits_k
+
+    def _deliver_block(self, live, toks_k, logits_k, K):
+        """Deliver a fetched (K, N) token block to the live rows: each
+        row's KV advanced K positions on the device; tokens past EOS or the
+        budget were computed but are discarded. Returns tokens delivered."""
+        n = 0
+        for slot, req in live:
+            self.cache.lengths[slot] += K
+            for k in range(K):
+                if req.done:
+                    break
+                if req.collect_logits and logits_k is not None:
+                    req.logits.append(logits_k[k, slot])
+                self._deliver(req, int(toks_k[k, slot]))
+                n += 1
+        return n
+
+    def _decode_step(self):
+        """A pure decode sync: the step at chunk width 1, every live row
+        span 1. Dead and cached rows carry span 0 and length 0: their
+        writes are dropped and their windows are empty."""
+        N = self.cache.num_slots
+        live = sorted(self.active.items())
+        ids = np.zeros((N, 1), np.int64)
+        spans = np.zeros(N, np.int64)
+        lens = np.zeros(N, np.int64)
+        for slot, req in live:
+            ids[slot, 0] = req.out[-1]
+            spans[slot] = 1
+            lens[slot] = self.cache.lengths[slot]
+        samp, sampling, collect = self._gather_sampling(live)
+        K = self.steps_per_sync
+        toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K)
+        return self._deliver_block(live, toks_k, logits_k, K), K
+
+    def _fused_chunk_step(self):
+        """One sync over ``(num_slots, prefill_chunk)`` query columns plus
+        the remaining ``steps_per_sync - 1`` decode steps: live decode rows
+        advance K tokens, the prefill row consumes up to a chunk of prompt
+        tokens (and, on its final chunk, starts decoding in the same sync),
+        dead rows carry span 0. Returns (tokens delivered, K)."""
+        N, C = self.cache.num_slots, self.prefill_chunk
+        pf = self._prefill
+        preq = pf.req
+        L = preq.prompt.size
+        take = min(C, L - pf.pos)
+        final = pf.pos + take >= L
+        ids = np.zeros((N, C), np.int64)
+        spans = np.zeros(N, np.int64)
+        lens = np.zeros(N, np.int64)
+        live = sorted(self.active.items())
+        samp, sampling, collect = self._gather_sampling(live)
+        for slot, req in live:
+            ids[slot, 0] = req.out[-1]
+            spans[slot] = 1
+            lens[slot] = self.cache.lengths[slot]
+        ps = preq.slot
+        ids[ps, :take] = preq.prompt[pf.pos:pf.pos + take]
+        spans[ps] = take
+        lens[ps] = self.cache.lengths[ps]  # prefix copy and/or earlier chunks
+        seeds, steps, flags, temps, topks, topps = samp
+        seeds[ps] = preq.seed  # steps[ps] stays 0: the prefill samples token 0
+        flags[ps] = preq.do_sample
+        temps[ps] = preq.temperature
+        topks[ps] = preq.top_k
+        topps[ps] = preq.top_p
+        sampling = sampling or preq.do_sample
+        collect = collect or preq.collect_logits
+        # substeps pay off only when something decodes in them: live rows,
+        # or the prefill row itself once its final chunk lands
+        K = self.steps_per_sync if (live or final) else 1
+        toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K)
+        delivered = self._deliver_block(live, toks_k, logits_k, K)
+        pf.pos += take
+        if final:
+            # the chunk's rows plus K - 1 substep rows; set before delivery,
+            # since a request finishing mid-sync releases the slot
+            self.cache.lengths[ps] = L + K - 1
+            self._finish_prefill(preq, int(toks_k[0, ps]),
+                                 logits_k[0, ps] if (preq.collect_logits and logits_k is not None)
+                                 else None)
+            delivered += 1
+            for k in range(1, K):
+                if preq.done:
+                    break
+                if preq.collect_logits and logits_k is not None:
+                    preq.logits.append(logits_k[k, ps])
+                self._deliver(preq, int(toks_k[k, ps]))
+                delivered += 1
+        else:
+            self.cache.lengths[ps] = pf.pos
+        return delivered, K

@@ -18,10 +18,18 @@ through :meth:`CausalLMModel.bind` (or ``torch.func.functional_call``).
 :meth:`CausalLMModel.fused_decode_operands` hands the same int8 tensors to
 the fused decode-layer kernels (``ops/decode_block.py``).
 
+The continuous-batching scheduler's slot pool (``inference/scheduler.py``)
+drives the same forward with per-row ``write_index`` and ``q_spans``: each
+row writes its query columns at its own cache position (columns past its
+span are dropped) and attends through the paged decode and span modes of
+the decode-attention kernels; a 3-leaf cache (k int8, v int8, fp16 row
+scales) is the int8 KV tier, quantized on write.
+:meth:`CausalLMModel.fused_paged_step` is the same step through the fused
+decode-layer kernels.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE, LoRA, alibi, local attention windows, per-row ``write_index``,
-``q_spans``, ``ext_ops``, int8 KV, sequence sharding, activation
-fake-quantization, and in training dropout and remat policies.
+MoE, LoRA, alibi, local attention windows, ``ext_ops``, sequence sharding,
+activation fake-quantization, and in training dropout and remat policies.
 """
 
 import dataclasses
@@ -32,9 +40,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import decode_attention, paged_decode_attention, paged_span_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_matmul import quant_matmul
+from ..ops.quantizer import dequantize_kv_rows, quantize_kv_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,21 +360,60 @@ def _sdpa_plain(q, k, v, bias, dtype):
 def _cached_attention_plain(q, ck, cv, cache_index, cache_mask, dtype):
     """Grouped-query attention against a KV cache, no head expansion: query
     position i sits at cache position ``cache_index + i`` and attends every
-    earlier slot that ``cache_mask`` (B, S) allows. The fallback for ragged
-    (left-padded) prefill and short prompts."""
+    earlier slot that ``cache_mask`` (B, S) allows. ``cache_index`` is a
+    shared int or a (B,) tensor (the slot pool: every row at its own
+    position). The fallback for ragged (left-padded) prefill, short prompts
+    and ``attention_impl="xla"``."""
     B, nh, T, hd = q.shape
     nkv, S = ck.shape[1], ck.shape[2]
     g = nh // nkv
     qg = q.reshape(B, nkv, g, T, hd)
     scores = torch.matmul(qg, ck[:, :, None].transpose(-1, -2)).float() / math.sqrt(hd)
-    qpos = cache_index + torch.arange(T, device=q.device)
-    keep = torch.arange(S, device=q.device)[None, :] <= qpos[:, None]  # (T, S)
-    bias = torch.where(keep, 0.0, -1e30)[None, None, None]  # (1, 1, 1, T, S)
+    t = torch.arange(T, device=q.device)
+    if isinstance(cache_index, torch.Tensor):
+        qpos = cache_index.long()[:, None] + t[None, :]  # (B, T)
+    else:
+        qpos = (cache_index + t)[None, :]  # (1, T)
+    keep = torch.arange(S, device=q.device)[None, None, :] <= qpos[..., None]  # (B or 1, T, S)
+    bias = torch.where(keep, 0.0, -1e30)[:, None, None]  # (B or 1, 1, 1, T, S)
     if cache_mask is not None:
         bias = bias + torch.where(cache_mask, 0.0, -1e30)[:, None, None, None, :]
     probs = torch.softmax(scores + bias, dim=-1).to(dtype)
     out = torch.matmul(probs, cv[:, :, None])
     return out.reshape(B, nh, T, hd)
+
+
+def span_targets(write_index, q_spans, T, S):
+    """Where :func:`span_write` puts a (B, T) block of query columns in a
+    cache of S rows: ``(rows (B, T) int64, live (B, T) bool)``. Column j of
+    row b is live when it is inside the row's span (``j < q_spans[b]``) and
+    inside the cache (``write_index[b] + j < S``); its row is
+    ``(write_index[b] + j) % S``, so the T rows of a batch row are distinct
+    while T <= S. Computed once per forward and shared by every layer's
+    leaves."""
+    if T > S:
+        raise ValueError(f"a span of {T} columns does not fit a cache of {S} rows")
+    col = torch.arange(T, device=write_index.device)
+    tgt = write_index.long()[:, None] + col[None, :]
+    return tgt % S, (col[None, :] < q_spans[:, None]) & (tgt < S)
+
+
+def span_write(cache, val, targets):
+    """Write the live columns of ``val`` (B, heads, T, hd) into ``cache``
+    (B, heads, S, hd) in place, at the rows of ``targets`` (from
+    :func:`span_targets`); every other column is dropped, as the JAX
+    package's ``mode="drop"`` writes are. PyTorch has no dropping scatter (an
+    out-of-range index raises on the CPU and is a device-side assert on the
+    card), so this gathers the rows the columns would hit, selects the new
+    value where the column is live and the old one where it is dead, and
+    scatters back: a dead column rewrites a row with its own bytes, so a
+    retained prefix in a dead slot stays byte-stable, with no host sync. A
+    batch row's targets are distinct, so the scatter has no duplicate index."""
+    rows, live = targets
+    B, heads, _, hd = cache.shape
+    idx = rows[:, None, :, None].expand(B, heads, rows.shape[1], hd)
+    old = torch.gather(cache, 2, idx)
+    cache.scatter_(2, idx, torch.where(live[:, None, :, None], val.to(cache.dtype), old))
 
 
 class Attention(nn.Module):
@@ -389,12 +437,17 @@ class Attention(nn.Module):
         self.o_proj = OutProjection(nh * hd, H, self.use_bias, cfg.dtype, i8, gs)
 
     def forward(self, x, sin, cos, attn_mask=None, kv_cache=None, cache_index=None,
-                position_ids=None, decode_window=None, impl="kernel"):
+                position_ids=None, decode_window=None, slot_write=None, impl="kernel"):
         """``attn_mask``: without a cache (B, T) over the current tokens;
         with a cache (B, S) over cache slots (True = attendable, the left-pad
         mask of batched generation). ``decode_window``: the (start, end) rows
-        of the decode kernel, computed once per forward by :class:`CausalLM`.
-        Returns (out, kv_cache); the cache is written in place."""
+        of the decode kernel (with ``slot_write`` at T > 1: (start, base) of
+        the span kernel), computed once per forward by :class:`CausalLM`.
+        ``slot_write``: the slot pool's ``(write_index, q_spans, targets)``,
+        per-row (B,) write positions, live query counts (or None) and their
+        :func:`span_targets`. A 3-leaf cache is the int8 KV tier: fresh K/V
+        are quantized on write. Returns (out, kv_cache); the cache is written
+        in place."""
         cfg = self.cfg
         B, T, H = x.shape
         nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_size
@@ -431,23 +484,50 @@ class Attention(nn.Module):
             q = q * torch.tensor(cfg.attn_scale * (hd**0.5), dtype=q.dtype)
 
         flash = cfg.attention_impl == "flash"
+        write_index, q_spans, targets = slot_write or (None, None, None)
         if kv_cache is not None:
-            if len(kv_cache) != 2:
-                raise _unported("int8 KV caches", "ROADMAP Queue 2, _decode_kernel int8-KV mode")
-            ck, cv = kv_cache
-            ck[:, :, cache_index:cache_index + T] = k.to(ck.dtype)
-            cv[:, :, cache_index:cache_index + T] = v.to(cv.dtype)
-            if flash and T == 1:
+            quant_kv = len(kv_cache) == 3
+            csc = None
+            if quant_kv:
+                ck, cv, csc = kv_cache
+                kq, vq, sc_new = quantize_kv_rows(k, v)
+                writes = [(ck, kq), (cv, vq), (csc, sc_new)]
+            else:
+                ck, cv = kv_cache
+                writes = [(ck, k), (cv, v)]
+            if write_index is not None:
+                for c, val in writes:
+                    span_write(c, val, targets)
+            else:
+                for c, val in writes:
+                    c[:, :, cache_index:cache_index + T] = val.to(c.dtype)
+            if flash and T == 1 and (write_index is not None or not quant_kv):
                 starts, ends = decode_window
-                out = decode_attention(q[:, :, 0].contiguous(), ck, cv, starts, ends,
-                                       block_kv=cfg.decode_block_kv, impl=impl)[:, :, None]
-            elif flash and attn_mask is None and T >= 128 and cache_index == 0:
+                if write_index is not None:
+                    out = paged_decode_attention(q[:, :, 0].contiguous(), ck, cv, starts, ends,
+                                                 block_kv=cfg.decode_block_kv, k_scale=csc,
+                                                 v_scale=csc, impl=impl)[:, :, None]
+                else:
+                    out = decode_attention(q[:, :, 0].contiguous(), ck, cv, starts, ends,
+                                           block_kv=cfg.decode_block_kv, impl=impl)[:, :, None]
+            elif flash and write_index is not None and q_spans is not None:
+                # the fused chunked-prefill step: per-row query spans
+                starts, base = decode_window
+                out = paged_span_attention(q.contiguous(), ck, cv, starts, base,
+                                           block_kv=cfg.decode_block_kv, k_scale=csc, v_scale=csc,
+                                           impl=impl)
+            elif flash and attn_mask is None and T >= 128 and write_index is None and cache_index == 0:
                 # unpadded prefill: nothing earlier in the cache, so attention
                 # over the current tokens only (GQA-native flash kernel)
                 out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                                       impl=impl)
             else:
-                out = _cached_attention_plain(q, ck, cv, cache_index, attn_mask, cfg.dtype)
+                if quant_kv:
+                    ck = dequantize_kv_rows(ck, csc, dtype=cfg.dtype)
+                    cv = dequantize_kv_rows(cv, csc, dtype=cfg.dtype)
+                out = _cached_attention_plain(q, ck, cv,
+                                              cache_index if write_index is None else write_index,
+                                              attn_mask, cfg.dtype)
             out = out.to(cfg.dtype)
             new_cache = kv_cache
         else:
@@ -510,9 +590,9 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, sin, cos, attn_mask=None, kv_cache=None, cache_index=None,
-                position_ids=None, decode_window=None, impl="kernel"):
+                position_ids=None, decode_window=None, slot_write=None, impl="kernel"):
         h, new_cache = self.attn(self.attn_norm(x), sin, cos, attn_mask, kv_cache, cache_index,
-                                 position_ids, decode_window, impl)
+                                 position_ids, decode_window, slot_write, impl)
         if self.cfg.parallel_residual:
             return x + h + self.mlp(self.mlp_norm(x), impl), new_cache
         x = x + h
@@ -565,15 +645,23 @@ class CausalLM(nn.Module):
         return self._rope[key]
 
     def forward(self, input_ids, attn_mask=None, kv_cache=None, cache_index=None,
-                position_ids=None, impl="kernel", return_hidden=False):
-        """``kv_cache``: ``(ks, vs)``, per-layer (B, kv_heads, S, hd) caches
-        written in place. Returns logits, or (logits, kv_cache) with a cache,
-        or the final-norm hidden states when ``return_hidden`` (the loss
-        fuses the vocab projection into the chunked cross entropy).
-        ``impl="plain"`` routes every kernel to its plain version (the
-        on-card check that the kernel path computes the same logits)."""
+                position_ids=None, impl="kernel", return_hidden=False, write_index=None,
+                q_spans=None):
+        """``kv_cache``: ``(ks, vs)`` (or ``(ks, vs, scales)``, the int8 KV
+        tier), per-layer (B, kv_heads, S, hd) caches written in place.
+        Returns logits, or (logits, kv_cache) with a cache, or the
+        final-norm hidden states when ``return_hidden`` (the loss fuses the
+        vocab projection into the chunked cross entropy). ``write_index``/
+        ``q_spans``: the slot pool's per-row write positions and live query
+        counts (``cache_index`` is then unused). ``impl="plain"`` routes
+        every kernel to its plain version (the on-card check that the kernel
+        path computes the same logits)."""
         cfg = self.cfg
         B, T = input_ids.shape
+        if write_index is not None and position_ids is not None:
+            # columns past a row's span may sit past the position tables;
+            # their values are never read (the JAX gathers clamp them too)
+            position_ids = position_ids.clamp(max=cfg.max_seq_len - 1)
         x = self.embed.embedding[input_ids].to(cfg.dtype)
         if cfg.embed_norm:
             x = self.embed_norm(x)
@@ -587,19 +675,28 @@ class CausalLM(nn.Module):
         if cfg.pos_embedding == "rope":
             sin, cos = self._rope_table(input_ids.device)
         decode_window = None
-        if kv_cache is not None and T == 1 and cfg.attention_impl == "flash":
-            # the decode kernel's per-row windows, once for all layers
+        if kv_cache is not None and cfg.attention_impl == "flash" and (T == 1 or write_index is not None):
+            # the decode and span kernels' per-row windows, once for all layers
             if attn_mask is not None:
                 starts = torch.argmax(attn_mask.to(torch.int32), dim=1).to(torch.int32)
             else:
                 starts = torch.zeros((B, ), dtype=torch.int32, device=input_ids.device)
-            ends = torch.full((B, ), cache_index + 1, dtype=torch.int32, device=input_ids.device)
+            if write_index is None:
+                ends = torch.full((B, ), cache_index + 1, dtype=torch.int32, device=input_ids.device)
+            else:  # decode: one past each row's write; span: each row's write head
+                ends = (write_index + 1 if T == 1 else write_index).to(torch.int32)
             decode_window = (starts, ends)
+
+        slot_write = None
+        if write_index is not None:
+            spans = q_spans if q_spans is not None else torch.full_like(write_index, T)
+            targets = span_targets(write_index, spans, T, kv_cache[0][0].shape[2])
+            slot_write = (write_index, q_spans, targets)
 
         for i, blk in enumerate(self.layers):
             layer_cache = None if kv_cache is None else tuple(comp[i] for comp in kv_cache)
             x, _ = blk(x, sin, cos, attn_mask, layer_cache, cache_index, position_ids,
-                       decode_window, impl)
+                       decode_window, slot_write, impl)
 
         x = self.final_norm(x)
         if return_hidden:
@@ -819,31 +916,115 @@ class CausalLMModel:
             head["logits_bias"] = params["logits_bias"].float()
         return tuple(layers), head
 
-    def init_cache(self, batch_size, max_len, dtype=None, device=None):
+    def init_cache(self, batch_size, max_len, dtype=None, device=None, quantized=False):
         """Preallocated per-layer KV cache: ``(ks, vs)``, each a tuple of
-        ``(B, kv_heads, S, head_dim)`` tensors written in place."""
+        ``(B, kv_heads, S, head_dim)`` tensors written in place.
+        ``quantized``: the int8 KV tier (serving ``kv_cache_dtype: int8``),
+        ``(ks, vs, scales)`` with int8 K/V and one fp16 scale per cache row,
+        (B, 1, S, 1), shared by K and V across heads; scales start at 1."""
         cfg = self.cfg
         shape = (batch_size, cfg.kv_heads, max_len, cfg.head_size)
+        L = range(cfg.num_layers)
+        if quantized:
+            sshape = (batch_size, 1, max_len, 1)
+            return (tuple(torch.zeros(shape, dtype=torch.int8, device=device) for _ in L),
+                    tuple(torch.zeros(shape, dtype=torch.int8, device=device) for _ in L),
+                    tuple(torch.ones(sshape, dtype=torch.float16, device=device) for _ in L))
         dt = dtype or cfg.dtype
-        return (tuple(torch.zeros(shape, dtype=dt, device=device) for _ in range(cfg.num_layers)),
-                tuple(torch.zeros(shape, dtype=dt, device=device) for _ in range(cfg.num_layers)))
+        return (tuple(torch.zeros(shape, dtype=dt, device=device) for _ in L),
+                tuple(torch.zeros(shape, dtype=dt, device=device) for _ in L))
 
     def apply_with_cache(self, params, input_ids, kv_cache, cache_index, cache_mask=None,
-                         position_ids=None, impl="kernel", **unported):
+                         position_ids=None, write_index=None, q_spans=None, impl="kernel",
+                         **unported):
         """Forward writing into (and attending over) the KV cache. Returns
         (logits, kv_cache). ``cache_index``: the shared write position (an
-        int); ``cache_mask``: (B, S) attendable slots. ``params`` is a state
-        dict or a module from :meth:`bind`."""
+        int); ``cache_mask``: (B, S) attendable slots. ``write_index``:
+        optional (B,) per-row cache positions (the slot pool; pass
+        ``position_ids`` with it); ``q_spans``: optional (B,) live query
+        counts per row (the fused chunked-prefill step; columns past a row's
+        span are not written). ``params`` is a state dict or a module from
+        :meth:`bind`."""
         _reject_unported_args(unported)
-        args = (input_ids, cache_mask, kv_cache, int(cache_index), position_ids)
+        args = (input_ids, cache_mask, kv_cache, 0 if write_index is not None else int(cache_index),
+                position_ids)
+        kwargs = {"impl": impl, "write_index": write_index, "q_spans": q_spans}
         if isinstance(params, nn.Module):
-            return params(*args, impl=impl)
-        return torch.func.functional_call(self.module, params, args, {"impl": impl}, strict=True)
+            return params(*args, **kwargs)
+        return torch.func.functional_call(self.module, params, args, kwargs, strict=True)
+
+    def fused_paged_step(self, params, input_ids, kv_cache, position_ids, write_index, q_spans,
+                         impl="kernel"):
+        """The slot-pool step through the fused decode-layer kernels, the
+        counterpart of ``apply_with_cache(params, ids, pool, 0,
+        position_ids=..., write_index=..., q_spans=...)``: embeddings, then
+        per layer kernel A (norm1 + [q;k;v] + bias + RoPE), the span commit
+        into the pool (:func:`span_write`, int8-quantized for a 3-leaf
+        pool), paged decode attention (C == 1) or paged span attention
+        (C > 1), kernel C (o-proj, residual, norm2, MLP, residual); then the
+        final norm in fp32 and the int8 head over all N*C positions, as the
+        JAX package's ``fused_paged_step`` does. ``params``: the int8 state
+        dict or its :meth:`fused_decode_operands`. Returns (logits (N, C, V)
+        in the compute dtype, kv_cache), the pool written in place."""
+        from ..ops.decode_block import fused_out_mlp, fused_qkv_ln
+        cfg = self.cfg
+        N, C = input_ids.shape
+        nh, nkv, hd, H = cfg.num_heads, cfg.kv_heads, cfg.head_size, cfg.hidden_size
+        layers, head = params if isinstance(params, tuple) else self.fused_decode_operands(params)
+        pos_flat = position_ids.reshape(-1).clamp(max=cfg.max_seq_len - 1)
+        x2d = head["embed"][input_ids.reshape(-1)]  # (N*C, H)
+        if cfg.pos_embedding == "learned":
+            x2d = x2d + head["pos_embed"][pos_flat].to(x2d.dtype)
+        rope = None
+        if cfg.pos_embedding == "rope":
+            sin, cos = self.module._rope_table(input_ids.device)
+            rope = (sin[pos_flat], cos[pos_flat], nh + nkv, hd)
+        quant_kv = len(kv_cache) == 3
+        starts = torch.zeros((N, ), dtype=torch.int32, device=input_ids.device)
+        ends = (write_index + 1 if C == 1 else write_index).to(torch.int32)
+        targets = span_targets(write_index, q_spans, C, kv_cache[0][0].shape[2])
+        for i, (norms, qkv, o, up, down, gate) in enumerate(layers):
+            layer_cache = tuple(comp[i] for comp in kv_cache)
+            y = fused_qkv_ln(x2d, norms, qkv, eps=cfg.layernorm_epsilon, norm=cfg.norm, rope=rope,
+                             impl=impl)
+            qf, kf, vf = torch.split(y, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+            k = kf.reshape(N, C, nkv, hd).transpose(1, 2)
+            v = vf.reshape(N, C, nkv, hd).transpose(1, 2)
+            csc = None
+            if quant_kv:
+                ck, cv, csc = layer_cache
+                kq, vq, sc_new = quantize_kv_rows(k, v)
+                writes = [(ck, kq), (cv, vq), (csc, sc_new)]
+            else:
+                ck, cv = layer_cache
+                writes = [(ck, k), (cv, v)]
+            for c, val in writes:
+                span_write(c, val, targets)
+            if C == 1:
+                out = paged_decode_attention(qf.reshape(N, nh, hd).contiguous(), ck, cv, starts, ends,
+                                             block_kv=cfg.decode_block_kv, k_scale=csc, v_scale=csc,
+                                             impl=impl)
+                attn2d = out.to(cfg.dtype).reshape(N, nh * hd)
+            else:
+                q4 = qf.reshape(N, C, nh, hd).transpose(1, 2).contiguous()
+                out = paged_span_attention(q4, ck, cv, starts, ends, block_kv=cfg.decode_block_kv,
+                                           k_scale=csc, v_scale=csc, impl=impl)
+                attn2d = out.to(cfg.dtype).transpose(1, 2).reshape(N * C, nh * hd)
+            x2d = fused_out_mlp(attn2d, x2d, norms, o, up, down, activation=cfg.activation,
+                                eps=cfg.layernorm_epsilon, norm=cfg.norm, gate=gate, impl=impl)
+        x32 = x2d.float()
+        if "final_bias" in head:  # layernorm head
+            xn = F.layer_norm(x32, (H, ), head["final_scale"], head["final_bias"], cfg.layernorm_epsilon)
+        else:
+            xn = F.rms_norm(x32, (H, ), head["final_scale"], cfg.layernorm_epsilon)
+        logits = quant_matmul(xn.to(x2d.dtype), head["logits_q"], head["logits_scale"], impl=impl)
+        logits = logits.reshape(N, C, -1)[..., :cfg.vocab_size]
+        if "logits_bias" in head:
+            logits = logits + head["logits_bias"].to(logits.dtype)
+        return logits, kv_cache
 
 
 _UNPORTED_ARGS = {
-    "write_index": "ROADMAP Queue 1 #5, continuous batching",
-    "q_spans": "ROADMAP Queue 1 #5, continuous batching",
     "lora_ops": "ROADMAP Queue 1 #9, multi-LoRA",
     "expert_ops": "ROADMAP Queue 1 #9, MoE serving",
     "expert_stats": "ROADMAP Queue 1 #9, MoE serving",

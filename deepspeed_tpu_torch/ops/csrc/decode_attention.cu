@@ -1,29 +1,49 @@
-// Single-token decode attention over a contiguous KV cache, for Hopper.
+// Decode attention over a KV cache, for Hopper: the static engine's decode
+// mode and the scheduler's paged decode and paged span modes, bf16 or int8 KV.
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/pallas/decode_attention.py::_decode_kernel
-// in its decode_attention mode (bf16 KV, one query per row). Same function:
-// each query row attends the cache slots [start[b], ends[b]) with an fp32
-// online softmax; GQA-native (the g query heads of a group share one KV
-// head); a row whose window is empty gets l = 0, guarded to 1, so out = 0.
+// in its decode_attention, paged_decode_attention and paged_span_attention
+// modes and its int8-KV mode. Same function: the queries of a (row, kv head)
+// are R folded rows, the group's query heads times T span columns with the
+// column fastest (decode: T = 1, R = g), and folded row r attends the cache
+// slots [start[b], ends[b] + r % T) with an fp32 online softmax; GQA-native
+// (the folded rows of a group share one KV head); a row whose window is
+// empty (a dead slot, ends == 0) gets l = 0, guarded to 1, so out = 0. p and
+// v stay in fp32, as in the TPU kernel. With int8 KV each cache row carries
+// one fp16 scale shared by K and V across heads, and the kernel dequantizes
+// in registers, k * scale in fp32 as the TPU kernel does: the bf16 rows
+// never exist in memory.
 //
-// Layout (the JAX one): q (B, H, D) bf16; k/v cache (B, Hkv, S, D) bf16;
-// start, ends (B,) int32; out (B, H, D) bf16. D is 64 or 128, g <= 8.
+// Layout (the JAX one): q (B, Hkv, R, D) bf16; k/v cache (B, Hkv, S, D) bf16
+// or int8; k/v scales (B, 1, S, 1) fp16 (int8 only); start, ends (B,) int32;
+// out (B, Hkv, R, D) bf16. D is 64 or 128.
 //
 // What bounds it on the H100: the KV bytes inside the windows,
-// sum_b (ends[b] - start[b]) * Hkv * D * 2 * 2, over 3.35 TB/s; at decode
-// batch sizes the launch and per-slot latency dominate that.
+// sum_b (window_b) * Hkv * D * 2 * (2 bytes bf16, 1 byte int8) plus 2 bytes a
+// row of scales, over 3.35 TB/s; at decode batch sizes the launch and
+// per-slot latency dominate that, and at the chunk step (T = 64) the
+// per-(row, key) softmax work.
 //
-// Design: one block per (b, kv head), 8 warps. The TPU kernel folded every
-// (b, kv head) into one batched dot and walked KV blocks along a sequential
-// grid axis, skipping blocks past max(end); here each block walks only its
-// own row's window, so nothing past ends[b] (or before start[b]) is read.
-// Warp w takes cache slots start + w, start + w + 8, ...; its 32 lanes split
-// D (2 or 4 contiguous bf16 each, so a slot's K row is one coalesced read),
-// reduce each head's dot with shuffles and keep a running (max, sum, acc)
-// per head. The 8 warps' partial softmax states merge in shared memory in a
-// fixed order, so the result is the same on every run.
+// Design: one block per (b, kv head, group of 8 folded rows), 8 warps. The
+// TPU kernel folded every (b, kv head) into one batched dot and walked KV
+// blocks along a sequential grid axis up to max(ends); here each block walks
+// only its own rows' windows, so nothing past them (or before start[b]) is
+// read and the scheduler needs no max(ends) on the host. Warp w takes cache
+// slots start + w, start + w + 8, ...; its 32 lanes split D (2 or 4
+// contiguous elements each, so a slot's K row is one coalesced read), reduce
+// each row's dot with shuffles and keep a running (max, sum, acc) per row.
+// The 8 warps' partial softmax states merge in shared memory in a fixed
+// order, so the result is the same on every run. One code path serves both
+// modes: a row's arithmetic depends only on its own window, so span column c
+// of a row computes bitwise what the decode mode computes for a row with
+// the same window. The scheduler's results then do not depend on whether a
+// token rode a chunk step or a decode step (its K-invariance on the card).
+// A span re-reads the window once per group of 8 folded rows (from L2);
+// tensor-core tiles for long spans are later work.
 
 #include <math.h>
+
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -31,24 +51,55 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kGmax = 8;  // query heads per KV head
+constexpr int kGmax = 8;  // folded query rows per block
 
-template <int D>
+// Dl contiguous K or V elements of one cache row as fp32, times the row's
+// dequantization scale (int8) or as they are (bf16).
+template <int Dl>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float, float* f) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+#pragma unroll
+  for (int i = 0; i < Dl / 2; ++i) {
+    const float2 x = __bfloat1622float2(p2[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+template <int Dl>
+__device__ __forceinline__ void load_row(const int8_t* p, float s, float* f) {
+#pragma unroll
+  for (int i = 0; i < Dl; ++i) f[i] = static_cast<float>(p[i]) * s;
+}
+
+template <int D, typename KV>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-              const __nv_bfloat16* __restrict__ vc, const int* __restrict__ start,
-              const int* __restrict__ ends, __nv_bfloat16* __restrict__ out, int nkv, int g,
-              int S, float scale) {
+decode_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kc,
+              const KV* __restrict__ vc, const __half* __restrict__ ks,
+              const __half* __restrict__ vs, const int* __restrict__ start,
+              const int* __restrict__ ends, __nv_bfloat16* __restrict__ out, int nkv, int R,
+              int T, int S, float scale) {
   constexpr int Dl = D / 32;  // contiguous elements per lane
+  constexpr bool kQuant = sizeof(KV) == 1;
   __shared__ float sm_m[kWarps][kGmax];
   __shared__ float sm_l[kWarps][kGmax];
   __shared__ float sm_acc[kWarps][kGmax][D];
 
-  const int b = blockIdx.x / nkv, kvh = blockIdx.x % nkv;
+  const int groups = (R + kGmax - 1) / kGmax;
+  const int bh = blockIdx.x / groups, r0 = (blockIdx.x % groups) * kGmax;
+  const int b = bh / nkv;
+  const int g = min(kGmax, R - r0);  // folded rows of this block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int lo = max(start[b], 0), hi = min(ends[b], S);
+  const int lo = max(start[b], 0);
+  int hi_r[kGmax];  // each row's exclusive window end
+  int hi = lo;
+#pragma unroll
+  for (int h = 0; h < kGmax; ++h) {
+    hi_r[h] = h < g ? min(ends[b] + (r0 + h) % T, S) : 0;
+    hi = max(hi, hi_r[h]);
+  }
 
-  const __nv_bfloat16* qb = q + ((size_t)b * nkv * g + (size_t)kvh * g) * D;
+  const __nv_bfloat16* qb = q + ((size_t)bh * R + r0) * D;
   float qr[kGmax][Dl];
 #pragma unroll
   for (int h = 0; h < kGmax; ++h)
@@ -65,25 +116,16 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     for (int i = 0; i < Dl; ++i) acc[h][i] = 0.f;
   }
 
-  const size_t base = (size_t)(b * nkv + kvh) * S * D;
+  const size_t base = (size_t)bh * S * D;
   for (int pos = lo + warp; pos < hi; pos += kWarps) {
-    const __nv_bfloat162* kr =
-        reinterpret_cast<const __nv_bfloat162*>(kc + base + (size_t)pos * D + lane * Dl);
-    const __nv_bfloat162* vr =
-        reinterpret_cast<const __nv_bfloat162*>(vc + base + (size_t)pos * D + lane * Dl);
+    const float ksc = kQuant ? __half2float(ks[(size_t)b * S + pos]) : 1.f;
+    const float vsc = kQuant ? __half2float(vs[(size_t)b * S + pos]) : 1.f;
     float kf[Dl], vf[Dl];
-#pragma unroll
-    for (int i = 0; i < Dl / 2; ++i) {
-      const float2 k2 = __bfloat1622float2(kr[i]);
-      const float2 v2 = __bfloat1622float2(vr[i]);
-      kf[2 * i] = k2.x;
-      kf[2 * i + 1] = k2.y;
-      vf[2 * i] = v2.x;
-      vf[2 * i + 1] = v2.y;
-    }
+    load_row<Dl>(kc + base + (size_t)pos * D + lane * Dl, ksc, kf);
+    load_row<Dl>(vc + base + (size_t)pos * D + lane * Dl, vsc, vf);
 #pragma unroll
     for (int h = 0; h < kGmax; ++h) {
-      if (h < g) {
+      if (pos < hi_r[h]) {
         float dot = 0.f;
 #pragma unroll
         for (int i = 0; i < Dl; ++i) dot = fmaf(qr[h][i], kf[i], dot);
@@ -113,7 +155,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
   __syncthreads();
 
-  __nv_bfloat16* ob = out + ((size_t)b * nkv * g + (size_t)kvh * g) * D;
+  __nv_bfloat16* ob = out + ((size_t)bh * R + r0) * D;
   for (int i = threadIdx.x; i < g * D; i += kThreads) {
     const int h = i / D, d = i % D;
     float mm = -INFINITY;
@@ -128,26 +170,46 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
-}  // namespace
-
-// Device pointers; the caller checked shapes, types, contiguity, D in
-// {64, 128} and g = H / nkv <= 8. Returns cudaGetLastError().
-DS_EXPORT int decode_launch(const void* q, const void* k_cache, const void* v_cache,
-                            const void* start, const void* ends, void* out, int B, int nkv,
-                            int g, int S, int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename KV>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* start, const void* ends, void* out, int B, int nkv, int R, int T, int S,
+           int D, float scale, cudaStream_t s) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_cache);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_cache);
+  const auto* kp = static_cast<const KV*>(k);
+  const auto* vp = static_cast<const KV*>(v);
+  const auto* ksp = static_cast<const __half*>(ks);
+  const auto* vsp = static_cast<const __half*>(vs);
   const auto* sp = static_cast<const int*>(start);
   const auto* ep = static_cast<const int*>(ends);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  const int blocks = B * nkv * ((R + kGmax - 1) / kGmax);
   if (D == 64) {
-    decode_kernel<64><<<B * nkv, kThreads, 0, s>>>(qp, kp, vp, sp, ep, op, nkv, g, S, scale);
+    decode_kernel<64, KV><<<blocks, kThreads, 0, s>>>(qp, kp, vp, ksp, vsp, sp, ep, op, nkv, R, T,
+                                                      S, scale);
   } else if (D == 128) {
-    decode_kernel<128><<<B * nkv, kThreads, 0, s>>>(qp, kp, vp, sp, ep, op, nkv, g, S, scale);
+    decode_kernel<128, KV><<<blocks, kThreads, 0, s>>>(qp, kp, vp, ksp, vsp, sp, ep, op, nkv, R,
+                                                       T, S, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Device pointers; the caller checked shapes, types, contiguity and D in
+// {64, 128}. q/out hold R folded rows per (row, kv head), T span columns
+// with the column fastest (T = 1 in the decode modes). ``quant``: int8 K/V
+// with (B, S) fp16 row scales ks/vs (null otherwise). Returns
+// cudaGetLastError().
+DS_EXPORT int decode_launch(const void* q, const void* k_cache, const void* v_cache,
+                            const void* k_scale, const void* v_scale, const void* start,
+                            const void* ends, void* out, int B, int nkv, int R, int T, int S,
+                            int D, int quant, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (quant)
+    return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, start, ends, out, B, nkv, R, T,
+                          S, D, scale, s);
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, k_scale, v_scale, start, ends, out, B, nkv,
+                               R, T, S, D, scale, s);
 }

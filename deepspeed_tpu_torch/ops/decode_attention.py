@@ -1,19 +1,34 @@
-"""Single-token decode attention over a contiguous KV cache.
+"""Decode attention over a KV cache: the static engine's decode mode and the
+continuous-batching scheduler's paged decode, paged span and int8-KV modes.
 
-Port of ``deepspeed_tpu/ops/pallas/decode_attention.py::decode_attention``
-(the TPU kernel ``_decode_kernel`` in its decode mode: bf16 KV, one query per
-row). The CUDA kernel is ``ops/csrc/decode_attention.cu``; its header says
-what bounds it on the H100 and how its design answers that. The paged,
-span, extent and int8-KV modes come with the scheduler (ROADMAP Queue 2).
+Port of ``deepspeed_tpu/ops/pallas/decode_attention.py`` (the TPU kernel
+``_decode_kernel`` in every mode of its ``_decode_call``). One CUDA kernel,
+``ops/csrc/decode_attention.cu``, templated on bf16 and int8 KV, carries
+every mode: a row's arithmetic depends only on its own window, so a span
+column computes bitwise what the decode mode computes for the same window
+(the scheduler's results do not depend on whether a token rode a chunk step
+or a decode step). Its header says what bounds it on the H100 and how its
+design answers that. The extent walk (``_extent_kernel``)
+comes with long-context serving (ROADMAP Queue 2 #8).
 
-q (B, H, D); k_cache/v_cache (B, kv_heads, S, D); row b attends the cache
-slots ``[start[b], end[b])``. ``end`` is a scalar shared by every row (the
-static-batch engine: ``cache_index + 1``) or a (B,) tensor of per-row ends
-(the scheduler's contract). Returns (B, H, D) in q's dtype; a row whose
-window is empty gets zeros.
+- :func:`decode_attention`: q (B, H, D); row b attends the cache slots
+  ``[start[b], end)``, ``end`` a scalar shared by every row (the static
+  engine: ``cache_index + 1``) or a (B,) tensor of per-row ends.
+- :func:`paged_decode_attention`: the scheduler's slot pool, per-row
+  ``ends``; a dead slot (``ends == 0``) gets zeros.
+- :func:`paged_span_attention`: q (B, H, T, D); column j of row b sits at
+  cache position ``base[b] + j`` and attends ``[start[b], base[b] + j]``.
+
+Caches are (B, kv_heads, S, D). With ``k_scale``/``v_scale`` ((B, 1, S, 1)
+fp16, from :func:`deepspeed_tpu_torch.ops.quantizer.quantize_kv_rows`) the
+caches are int8 and each row is dequantized as ``k * scale`` in fp32. The
+output is in q's dtype; a row whose window is empty gets zeros.
 
 A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
-``impl="plain"``, takes :func:`decode_attention_plain`.
+``impl="plain"``, takes the plain version, which computes what the TPU
+kernel's ``_decode_call`` computes: the (head-group, column) fold with the
+column fastest, ``end + column`` per column, fp32 scores and softmax,
+``l == 0 -> 1``.
 """
 
 import ctypes
@@ -22,32 +37,18 @@ import torch
 
 from . import build
 
-_lib = None
+_libc = None
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
+def _lib():
+    global _libc
+    if _libc is None:
         lib = build.load("decode_attention")
-        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.decode_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _windows(q, k_cache, start, end, block_kv):
-    if q.dim() != 3 or k_cache.dim() != 4:
-        raise ValueError(f"expected q (B, H, D), cache (B, kv_heads, S, D); got "
-                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}")
-    B, H, D = q.shape
-    nkv, S = k_cache.shape[1], k_cache.shape[2]
-    if k_cache.shape[0] != B or k_cache.shape[3] != D or H % nkv:
-        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q {tuple(q.shape)}")
-    block_kv = min(block_kv, S)
-    if S % block_kv:
-        raise ValueError(f"cache length {S} must be a multiple of block_kv={block_kv}")
-    return _rows(start, B, q.device), _rows(end, B, q.device)
+        _libc = lib
+    return _libc
 
 
 def _rows(v, B, device):
@@ -59,57 +60,214 @@ def _rows(v, B, device):
     return torch.full((B, ), int(v), dtype=torch.int32, device=device)
 
 
-def decode_attention_plain(q, k_cache, v_cache, start, end, *, block_kv=256, scale=None):
-    """Plain PyTorch version of the same function (fp32 softmax)."""
-    start, ends = _windows(q, k_cache, start, end, block_kv)
-    B, H, D = q.shape
-    nkv, S = k_cache.shape[1], k_cache.shape[2]
+def _check_cache(qg, k_cache, v_cache, block_kv, k_scale, v_scale):
+    """Shapes of a folded query block (B, nkv, rows, D) against the caches."""
+    B, nkv, _, D = qg.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[1] != nkv \
+            or k_cache.shape[3] != D or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)} do not match the "
+                         f"queries' (B={B}, kv_heads={nkv}, D={D})")
+    S = k_cache.shape[2]
+    block_kv = min(block_kv, S)
+    if S % block_kv:
+        raise ValueError(f"cache length {S} must be a multiple of block_kv={block_kv}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together (int8 KV)")
+    if k_scale is not None and (k_scale.shape != (B, 1, S, 1) or v_scale.shape != k_scale.shape):
+        raise ValueError(f"int8 KV scales must be (B, 1, S, 1) = {(B, 1, S, 1)}; got "
+                         f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)}")
+
+
+def _decode_call_plain(qg, k_cache, v_cache, start, ends, *, span=1, scale=None, k_scale=None,
+                       v_scale=None):
+    """Plain PyTorch version of the TPU kernel's ``_decode_call``: ``qg``
+    (B, nkv, g, D) folded queries (g = head-groups x span columns, column
+    fastest); folded row r attends ``[start, ends + r % span)``."""
+    B, nkv, g, D = qg.shape
+    S = k_cache.shape[2]
+    dev = qg.device
     scale = scale if scale is not None else 1.0 / (D**0.5)
-    qg = q.float().reshape(B, nkv, H // nkv, D) * scale
-    s = torch.matmul(qg, k_cache.float().transpose(-1, -2))  # (B, nkv, g, S)
-    pos = torch.arange(S, device=q.device)
-    live = (pos[None, :] >= start[:, None]) & (pos[None, :] < ends[:, None])  # (B, S)
-    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    q = qg.float() * scale
+    k, v = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        k = k * k_scale.float()
+        v = v * v_scale.float()
+    s = torch.matmul(q, k.transpose(-1, -2))  # (B, nkv, g, S)
+    col = torch.arange(g, device=dev) % span
+    end = ends[:, None] + col[None, :]  # (B, g)
+    pos = torch.arange(S, device=dev)
+    live = (pos >= start[:, None, None]) & (pos < end[:, :, None])  # (B, g, S)
+    s = s.masked_fill(~live[:, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, v_cache.float()) / torch.where(l == 0, torch.ones_like(l), l)
-    return out.reshape(B, H, D).to(q.dtype)
+    out = torch.matmul(p, v) / torch.where(l == 0, torch.ones_like(l), l)
+    return out.to(qg.dtype)
+
+
+def _group(q, nkv):
+    if q.dim() != 3:
+        raise ValueError(f"expected q (B, H, D); got {tuple(q.shape)}")
+    B, H, D = q.shape
+    if H % nkv:
+        raise ValueError(f"{H} query heads do not split into {nkv} kv-head groups")
+    return q.reshape(B, nkv, H // nkv, D)
+
+
+def _fold_span(q, nkv):
+    """(B, H, T, D) -> (B, nkv, g * T, D), the column fastest."""
+    if q.dim() != 4:
+        raise ValueError(f"expected q (B, H, T, D); got {tuple(q.shape)}")
+    B, H, T, D = q.shape
+    if H % nkv:
+        raise ValueError(f"{H} query heads do not split into {nkv} kv-head groups")
+    return q.reshape(B, nkv, (H // nkv) * T, D)
+
+
+def _launch(what, qg, k_cache, v_cache, start, ends, k_scale, v_scale, scale, span):
+    """Launch the kernel on the folded queries (B, nkv, R, D); folded row r
+    attends ``[start, ends + r % span)``."""
+    B, nkv, R, D = qg.shape
+    quant = k_scale is not None
+    kv_dtype = torch.int8 if quant else torch.bfloat16
+    ops = [("q", qg, torch.bfloat16), ("k_cache", k_cache, kv_dtype), ("v_cache", v_cache, kv_dtype)]
+    if quant:
+        ops += [("k_scale", k_scale, torch.float16), ("v_scale", v_scale, torch.float16)]
+    for name, t, dt in ops:
+        if t.dtype != dt or t.device != qg.device or not t.is_contiguous():
+            raise ValueError(f"{what} kernel: {name} must be a contiguous {dt} tensor on "
+                             f"{qg.device}; got {t.dtype} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
+    if D not in (64, 128):
+        raise ValueError(f"{what} kernel: needs head dim 64 or 128; got {D}")
+    S = k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    out = torch.empty_like(qg)
+    lib = _lib()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.decode_launch(ptr(qg), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
+                           ptr(start), ptr(ends), ptr(out), B, nkv, R, span, S, D, int(quant),
+                           float(scale), build.stream_of(qg))
+    build.check(lib, rc, what)
+    return out
+
+
+def _impl_ok(impl):
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+
+
+# ---------------------------------------------------------------- decode mode
+
+
+def decode_attention_plain(q, k_cache, v_cache, start, end, *, block_kv=256, scale=None):
+    """Plain PyTorch version of :func:`decode_attention` (fp32 softmax)."""
+    qg = _group(q, k_cache.shape[1])
+    _check_cache(qg, k_cache, v_cache, block_kv, None, None)
+    B = q.shape[0]
+    out = _decode_call_plain(qg, k_cache, v_cache, _rows(start, B, q.device), _rows(end, B, q.device),
+                             scale=scale)
+    return out.reshape(q.shape)
 
 
 def decode_attention(q, k_cache, v_cache, start, end, *, block_kv=256, scale=None,
                      impl="kernel"):
-    """One query per row over its cache window; see the module docstring.
-    ``block_kv``: the cache-length granularity (S must be a multiple)."""
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    """One query per row over its cache window ``[start, end)``; see the
+    module docstring. ``block_kv``: the cache-length granularity (S must be
+    a multiple). bf16 KV on the card."""
+    _impl_ok(impl)
     if impl == "plain" or not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, start, end, block_kv=block_kv,
                                       scale=scale)
-    start, ends = _windows(q, k_cache, start, end, block_kv)
-    B, H, D = q.shape
-    nkv, S = k_cache.shape[1], k_cache.shape[2]
-    g = H // nkv
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != torch.bfloat16 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"decode_attention kernel: {name} must be a contiguous bf16 tensor "
-                             f"on {q.device}; got {t.dtype} on {t.device}, "
-                             f"contiguous={t.is_contiguous()}")
-    if v_cache.shape != k_cache.shape:
-        raise ValueError(f"v_cache {tuple(v_cache.shape)} != k_cache {tuple(k_cache.shape)}")
-    if D not in (64, 128) or g > 8:
-        raise ValueError(f"decode_attention kernel: needs head dim in (64, 128) and at most 8 "
-                         f"query heads per kv head; got D={D}, g={g}")
-    scale = scale if scale is not None else 1.0 / (D**0.5)
-    out = torch.empty_like(q)
-    lib = _kernel()
-    rc = lib.decode_launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
-                           ends.data_ptr(), out.data_ptr(), B, nkv, g, S, D, float(scale),
-                           build.stream_of(q))
-    build.check(lib, rc, "decode_attention")
+    qg = _group(q, k_cache.shape[1])
+    _check_cache(qg, k_cache, v_cache, block_kv, None, None)
+    B = q.shape[0]
+    out = _launch("decode_attention", qg, k_cache, v_cache, _rows(start, B, q.device),
+                  _rows(end, B, q.device), None, None, scale, 1)
     decode_attention.launches += 1
-    return out
+    return out.reshape(q.shape)
 
 
 decode_attention.launches = 0
+
+# ---------------------------------------------------------------- paged modes
+
+
+def paged_decode_attention_plain(q, k_cache, v_cache, start, ends, *, block_kv=256, scale=None,
+                                 k_scale=None, v_scale=None):
+    """Plain PyTorch version of :func:`paged_decode_attention`."""
+    qg = _group(q, k_cache.shape[1])
+    _check_cache(qg, k_cache, v_cache, block_kv, k_scale, v_scale)
+    B = q.shape[0]
+    out = _decode_call_plain(qg, k_cache, v_cache, _rows(start, B, q.device),
+                             _rows(ends, B, q.device), scale=scale, k_scale=k_scale,
+                             v_scale=v_scale)
+    return out.reshape(q.shape)
+
+
+def paged_decode_attention(q, k_cache, v_cache, start, ends, *, block_kv=256, scale=None,
+                           k_scale=None, v_scale=None, impl="kernel"):
+    """Slot-pool decode: q (B, H, D), per-row ``ends`` (B,) one past each
+    slot's last written position; a row with ``ends == 0`` (a dead slot)
+    gets zeros. ``k_scale``/``v_scale``: (B, 1, S, 1) fp16 row scales of an
+    int8 pool, dequantized inside the kernel. Returns (B, H, D)."""
+    _impl_ok(impl)
+    if impl == "plain" or not q.is_cuda:
+        return paged_decode_attention_plain(q, k_cache, v_cache, start, ends, block_kv=block_kv,
+                                            scale=scale, k_scale=k_scale, v_scale=v_scale)
+    qg = _group(q, k_cache.shape[1])
+    _check_cache(qg, k_cache, v_cache, block_kv, k_scale, v_scale)
+    B = q.shape[0]
+    out = _launch("decode_attention", qg, k_cache, v_cache, _rows(start, B, q.device),
+                  _rows(ends, B, q.device), k_scale, v_scale, scale, 1)
+    if k_scale is None:
+        paged_decode_attention.launches += 1
+    else:
+        paged_decode_attention.launches_int8 += 1
+    return out.reshape(q.shape)
+
+
+paged_decode_attention.launches = 0  # bf16 KV
+paged_decode_attention.launches_int8 = 0
+
+
+def paged_span_attention_plain(q, k_cache, v_cache, start, base, *, block_kv=256, scale=None,
+                               k_scale=None, v_scale=None):
+    """Plain PyTorch version of :func:`paged_span_attention`."""
+    qf = _fold_span(q, k_cache.shape[1])
+    _check_cache(qf, k_cache, v_cache, block_kv, k_scale, v_scale)
+    B, T = q.shape[0], q.shape[2]
+    out = _decode_call_plain(qf, k_cache, v_cache, _rows(start, B, q.device),
+                             _rows(base, B, q.device) + 1, span=T, scale=scale, k_scale=k_scale,
+                             v_scale=v_scale)
+    return out.reshape(q.shape)
+
+
+def paged_span_attention(q, k_cache, v_cache, start, base, *, block_kv=256, scale=None,
+                         k_scale=None, v_scale=None, impl="kernel"):
+    """Per-row query spans (the fused chunked-prefill step): q (B, H, T, D);
+    column j of row b sits at cache position ``base[b] + j`` and attends
+    ``[start[b], base[b] + j]``, its own freshly written row included.
+    Columns past a row's live span compute values the caller never reads.
+    ``k_scale``/``v_scale`` as in :func:`paged_decode_attention`. Returns
+    (B, H, T, D)."""
+    _impl_ok(impl)
+    if impl == "plain" or not q.is_cuda:
+        return paged_span_attention_plain(q, k_cache, v_cache, start, base, block_kv=block_kv,
+                                          scale=scale, k_scale=k_scale, v_scale=v_scale)
+    qf = _fold_span(q, k_cache.shape[1])
+    _check_cache(qf, k_cache, v_cache, block_kv, k_scale, v_scale)
+    B, T = q.shape[0], q.shape[2]
+    out = _launch("paged_span_attention", qf.contiguous(), k_cache, v_cache,
+                  _rows(start, B, q.device), _rows(base, B, q.device) + 1, k_scale, v_scale, scale,
+                  T)
+    if k_scale is None:
+        paged_span_attention.launches += 1
+    else:
+        paged_span_attention.launches_int8 += 1
+    return out.reshape(q.shape)
+
+
+paged_span_attention.launches = 0  # bf16 KV
+paged_span_attention.launches_int8 = 0

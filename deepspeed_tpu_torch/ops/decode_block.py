@@ -94,10 +94,16 @@ def _resident_blocks(name, device):
     return n
 
 
-def _split_plan(M, K, N, blocks):
+def _split_plan(K, N, blocks):
     """(splits, k_per_split): split K across blocks in whole staged chunks
-    so that (column tiles x row tiles x splits) stays within ``blocks``."""
-    tiles = -(-N // _COLS) * -(-M // _ROWS)
+    so that one row tile's (column tiles x splits) stays within ``blocks``.
+    The plan depends on the weight's shape, never on the row count M: a
+    row's sums run in the same order whatever else is in the batch, so the
+    scheduler's chunk step (M = slots x chunk) and decode step (M = slots)
+    compute a row's token bitwise alike (its K- and slot-invariance on the
+    card). Beyond one row tile the work items outnumber the blocks and the
+    kernels loop over them."""
+    tiles = -(-N // _COLS)
     splits = max(1, min(blocks // tiles, -(-K // _CHUNK)))
     k_per = -(-K // (splits * _CHUNK)) * _CHUNK
     return -(-K // k_per), k_per
@@ -225,7 +231,7 @@ def fused_qkv_ln(x, norms, qkv, *, eps=1e-5, norm="layernorm", rope=None, impl="
     G, N = sc.shape
     if N % 4 or K % 4:
         raise ValueError(f"{what} kernel: H={K} and N={N} must be multiples of 4")
-    splits, k_per = _split_plan(M, K, N, _resident_blocks(what, dev))
+    splits, k_per = _split_plan(K, N, _resident_blocks(what, dev))
     tiles = -(-N // _COLS) * -(-M // _ROWS)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
@@ -307,9 +313,9 @@ def fused_out_mlp(attn2d, x, norms, o, up, down, *, activation="gelu", eps=1e-5,
         raise ValueError(f"{what} kernel: H={H} and F={F_} must be multiples of 4")
     lib = _lib(what)
     blocks = _resident_blocks(what, dev)
-    so, ko = _split_plan(M, Ko, H, blocks)
-    su, ku = _split_plan(M, H, F_, blocks)
-    sd, kd = _split_plan(M, F_, H, blocks)
+    so, ko = _split_plan(Ko, H, blocks)
+    su, ku = _split_plan(H, F_, blocks)
+    sd, kd = _split_plan(F_, H, blocks)
     tiles_h, tiles_f = -(-H // _COLS) * -(-M // _ROWS), -(-F_ // _COLS) * -(-M // _ROWS)
     arr = _counters(what, dev, 2 * tiles_h + tiles_f)
     f32 = torch.float32

@@ -136,7 +136,7 @@ def test_fused_gate_gives_the_jax_reasons(case):
 
 def test_unported_config_sections_raise():
     with pytest.raises(NotImplementedError, match="continuous_batching"):
-        _port_engine(continuous_batching={"enabled": True})
+        _port_engine(continuous_batching={"enabled": True, "spec_tokens": 4})
     with pytest.raises(NotImplementedError, match="tp_size"):
         _port_engine(tensor_parallel={"tp_size": 2})
 

@@ -40,6 +40,8 @@ def test_no_jax_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     mods = ["deepspeed_tpu_torch", "deepspeed_tpu_torch.inference.engine",
+            "deepspeed_tpu_torch.inference.scheduler", "deepspeed_tpu_torch.inference.kv_cache",
+            "deepspeed_tpu_torch.ops.quantizer", "deepspeed_tpu_torch.ops.decode_attention",
             "deepspeed_tpu_torch.runtime.engine", "deepspeed_tpu_torch.models.convert",
             "deepspeed_tpu_torch.ops.build"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)

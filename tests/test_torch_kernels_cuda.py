@@ -7,8 +7,14 @@ bitwise-equal repeats, and autograd through the forward); empty decode windows,
 per-row and scalar ends, left-pad starts; for the fused decode layer, batches
 other than 8, G=1, contractions longer than 1024, gated and ungated MLPs,
 every activation, head dims 64 and 128 with and without RoPE, and a fully
-padded row. ``chip_smoke.py`` covers the main path's shapes; this file covers
-the rest.
+padded row; kernels A and C and the int8 head at the scheduler's chunk
+width (M = 8 slots x 64 columns = 512 rows, 2,560 up-projection tiles).
+The paged modes: dead slots (ends 0), start > 0, bf16 and int8 KV, GQA up
+to g = 8, spans T of 1 to 100 (folded rows across several 64-row tiles),
+windows reaching the end of the cache; the fused slot-pool step through
+every kernel against its plain versions; and the sampler's draws, bitwise
+equal on the card and the CPU. ``chip_smoke.py`` covers the main path's
+shapes; this file covers the rest.
 
 These tests need an NVIDIA card with the CUDA toolkit (a CUDA kernel has no
 CPU mode): they carry the ``cuda`` marker and skip without a card. On the
@@ -19,10 +25,19 @@ card, from the repo root:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX's CPU mesh, and this
 file needs no JAX.)"""
 
+import dataclasses
+
 import pytest
 import torch
 
-from deepspeed_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from deepspeed_tpu_torch.inference.scheduler import sample_uniforms
+from deepspeed_tpu_torch.models.transformer import CausalLMModel, TransformerConfig
+from deepspeed_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_plain,
+                                                      paged_decode_attention,
+                                                      paged_decode_attention_plain,
+                                                      paged_span_attention,
+                                                      paged_span_attention_plain)
+from deepspeed_tpu_torch.ops.quantizer import quantize_kv_rows
 from deepspeed_tpu_torch.ops.decode_block import (fused_decode_block, fused_out_mlp,
                                                   fused_out_mlp_plain, fused_qkv_ln,
                                                   fused_qkv_ln_plain)
@@ -347,3 +362,197 @@ def test_fused_decode_block_matches_plain_with_a_fully_padded_row(dev, hd, rope)
     kc2, vc2 = torch.zeros_like(kc), torch.zeros_like(vc)
     again = fused_decode_block(x, norms, kc2, vc2, qkv, o, up, down, start, pos, **kw)[0]
     assert torch.equal(again[1], outs["kernel"][1])
+
+
+# ---------------------------------------------------------------- slot-pool modes
+
+
+def _kv(g, dev, B, nkv, S, D, int8):
+    k = torch.randn((B, nkv, S, D), generator=g, device=dev) * 2
+    v = torch.randn((B, nkv, S, D), generator=g, device=dev) * 2
+    if int8:
+        return quantize_kv_rows(k, v)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), None
+
+
+# (B, H, nkv, S, D, starts, ends): the gpt2-large pool with two dead slots;
+# GQA g=8 at D=128 with a window to the end of the cache and start > 0
+PAGED_DECODE_CASES = [(8, 20, 20, 512, 64, [0] * 8, [130, 0, 257, 1, 0, 512, 64, 300]),
+                      (3, 32, 4, 256, 128, [0, 100, 5], [256, 101, 0])]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,H,nkv,S,D,starts,ends", PAGED_DECODE_CASES)
+def test_paged_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends, int8):
+    g = _gen(dev, S + H + int8)
+    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+    kc, vc, sc = _kv(g, dev, B, nkv, S, D, int8)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    end = torch.tensor(ends, dtype=torch.int32, device=dev)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(paged_decode_attention, counter)
+    out = paged_decode_attention(q, kc, vc, start, end, k_scale=sc, v_scale=sc)
+    assert getattr(paged_decode_attention, counter) == before + 1
+    torch.cuda.synchronize()
+    _assert_close(out, paged_decode_attention_plain(q, kc, vc, start, end, k_scale=sc, v_scale=sc),
+                  f"paged decode B={B} H={H}/{nkv} S={S} D={D} int8={int8}")
+    for b in range(B):
+        if ends[b] <= starts[b]:  # a dead slot: exactly zeros
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+
+
+# (B, H, nkv, T, S, D, starts, bases): the gpt2-large chunk step (one row
+# prefilling 64 columns at base 128, seven rows of span 1 carried at T=64);
+# llama's g=4 (256 folded rows, four tiles); T=5 with g=3 (15 rows, one
+# partial tile); T=100 (two tiles) whose columns run past the cache end;
+# T=1 (the substep width) with start > 0
+SPAN_CASES = [(8, 20, 20, 64, 512, 64, [0] * 8, [128, 0, 7, 300, 0, 64, 511, 200]),
+              (4, 32, 8, 64, 512, 128, [0, 0, 0, 0], [0, 64, 190, 448]),
+              (2, 6, 2, 5, 256, 64, [0, 3], [250, 17]),
+              (2, 4, 2, 100, 256, 128, [0, 10], [200, 5]),
+              (3, 8, 8, 1, 256, 64, [4, 0, 0], [9, 255, 0])]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,H,nkv,T,S,D,starts,bases", SPAN_CASES)
+def test_paged_span_kernel_matches_plain(dev, B, H, nkv, T, S, D, starts, bases, int8):
+    g = _gen(dev, T + S + H + int8)
+    q = torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16)
+    kc, vc, sc = _kv(g, dev, B, nkv, S, D, int8)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    base = torch.tensor(bases, dtype=torch.int32, device=dev)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(paged_span_attention, counter)
+    out = paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc)
+    assert getattr(paged_span_attention, counter) == before + 1
+    torch.cuda.synchronize()
+    _assert_close(out, paged_span_attention_plain(q, kc, vc, start, base, k_scale=sc, v_scale=sc),
+                  f"paged span B={B} H={H}/{nkv} T={T} S={S} D={D} int8={int8}")
+    assert torch.equal(paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc), out)
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.randn((2, 4, 64), device=dev)
+    kc = torch.zeros((2, 4, 64, 64), device=dev, dtype=torch.bfloat16)
+    ends = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        paged_decode_attention(q, kc, kc, 0, ends)  # fp32 queries
+    with pytest.raises(ValueError, match="head dim"):
+        paged_span_attention(torch.zeros((2, 4, 3, 32), device=dev, dtype=torch.bfloat16),
+                             kc[..., :32].contiguous(), kc[..., :32].contiguous(), 0, ends)
+    sc = torch.ones((2, 1, 64, 1), device=dev)  # fp32 scales
+    with pytest.raises(ValueError, match="float16"):
+        paged_decode_attention(q.to(torch.bfloat16), kc.to(torch.int8), kc.to(torch.int8), 0, ends,
+                               k_scale=sc, v_scale=sc)
+
+
+# the scheduler's chunk step at gpt2-large width: M = 8 slots x 64 columns
+CHUNK_M = 512
+
+
+def test_quant_matmul_kernel_at_the_chunk_width(dev):
+    g = _gen(dev, CHUNK_M)
+    x = torch.randn((CHUNK_M, 1280), generator=g, device=dev).to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (1280, 51200), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((10, 51200), generator=g, device=dev) * 0.01 + 1e-4
+    out = quant_matmul(x, qw, sc)
+    torch.cuda.synchronize()
+    _assert_close(out, quant_matmul_plain(x, qw, sc), "qmm head at M=512")
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_fused_qkv_ln_kernel_at_the_chunk_width(dev, rope):
+    g = _gen(dev, CHUNK_M + rope)
+    H, nh, hd = 1280, 20, 64
+    x = (torch.randn((CHUNK_M, H), generator=g, device=dev) * 2).to(torch.bfloat16)
+    norms = _norms(g, dev, H, "layernorm")
+    qkv = _proj(g, dev, H, 3 * nh * hd, 10)
+    rope_op = (*_rope(g, dev, CHUNK_M, hd), 2 * nh, hd) if rope else None
+    out = fused_qkv_ln(x, norms, qkv, rope=rope_op)
+    torch.cuda.synchronize()
+    _assert_close(out, fused_qkv_ln_plain(x, norms, qkv, rope=rope_op), f"qkv_ln M=512 rope={rope}")
+
+
+@pytest.mark.parametrize("M,H,F,act,norm,G", [(CHUNK_M, 1280, 5120, "gelu", "layernorm", (10, 10, 40)),
+                                              (256, 4096, 14336, "swiglu", "rmsnorm", (32, 32, 112))])
+def test_fused_out_mlp_kernel_at_the_chunk_width(dev, M, H, F, act, norm, G):
+    """gpt2-large's chunk step: 2,560 (up) tiles of 8 rows x 128 columns,
+    more than the cooperative grid's resident blocks, so each block's tile
+    loop runs many rounds; llama3-8b's (4 slots x 64 columns)."""
+    g = _gen(dev, M + F)
+    attn = torch.randn((M, H), generator=g, device=dev).to(torch.bfloat16)
+    x = (torch.randn((M, H), generator=g, device=dev) * 4).to(torch.bfloat16)
+    norms = _norms(g, dev, H, norm)
+    o, up, down = _proj(g, dev, H, H, G[0]), _proj(g, dev, H, F, G[1]), _proj(g, dev, F, H, G[2])
+    gate = _proj(g, dev, H, F, G[1]) if act == "swiglu" else None
+    kw = dict(activation=act, norm=norm, gate=gate)
+    out = fused_out_mlp(attn, x, norms, o, up, down, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, fused_out_mlp_plain(attn, x, norms, o, up, down, **kw), f"out_mlp M={M} {act}")
+
+
+@pytest.mark.parametrize("int8_kv", [False, True])
+@pytest.mark.parametrize("C", [1, 64])
+def test_fused_paged_step_matches_plain(dev, C, int8_kv):
+    """The slot-pool step through kernels A and C, the span commit and the
+    paged kernels, against the same step through their plain versions, on
+    a small llama-shaped model (hd 64, GQA g=2, RoPE): logits, and every pool
+    leaf (rows of dead columns, and the whole of a dead slot, untouched).
+    Tolerance: two layers compose the kernels' one-ulp bf16 differences, and
+    the int8 tier requantizes rows whose bf16 values differ by an ulp (a
+    one-step int8 flip), so the live logits are held to relative L2 2e-2
+    (the on-card generate checks use 5e-2); the pool rows to one ulp, or one
+    int8 step."""
+    cfg = TransformerConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                            num_kv_heads=2, max_seq_len=256, intermediate_size=512,
+                            attention_impl="flash", int8_weights=True, int8_fused_qkv=True,
+                            scan_layers=False, dtype=torch.bfloat16)
+    model = CausalLMModel(cfg)
+    init = CausalLMModel(dataclasses.replace(cfg, int8_weights=False, int8_fused_qkv=False)).init_params(0)
+    # weights of std 0.2 (ten times the init's), so activations are not tiny
+    params = {k: v.to(dev) for k, v in model.quantize_params(
+        {k: v * 10 if v.dim() == 2 else v for k, v in init.items()}).items()}
+    ops = model.fused_decode_operands(params)
+    N, S = 4, 256
+    g = _gen(dev, C + int8_kv)
+    pool = model.init_cache(N, S, device=dev, quantized=int8_kv)
+    for t in (t for comp in pool for t in comp):  # a warm pool: every row holds values
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev, dtype=torch.int8))
+        elif t.dtype == torch.float16:
+            t.copy_(torch.rand(t.shape, generator=g, device=dev) * 0.05 + 0.01)
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    ids = torch.randint(0, 512, (N, C), generator=g, device=dev)
+    widx = torch.tensor([70, 0, 190, 5], device=dev)
+    spans = torch.tensor([1, 0, min(C, 40), 1], device=dev)
+    pos = widx[:, None] + torch.arange(C, device=dev)[None, :]
+    pools = {impl: tuple(tuple(t.clone() for t in comp) for comp in pool) for impl in ("kernel", "plain")}
+    logits = {impl: model.fused_paged_step(ops, ids, pools[impl], pos, widx, spans, impl=impl)[0]
+              for impl in ("kernel", "plain")}
+    torch.cuda.synchronize()
+    live = [b for b in range(N) if spans[b] > 0]
+    lk = torch.cat([logits["kernel"][b, :int(spans[b])] for b in live]).float()
+    lp = torch.cat([logits["plain"][b, :int(spans[b])] for b in live]).float()
+    assert bool(torch.isfinite(lk).all())
+    rel = float((lk - lp).norm() / lp.norm())
+    assert rel <= 2e-2, f"step logits: rel L2 {rel:.3e}"
+    for ck, cp, c0 in zip((t for comp in pools["kernel"] for t in comp),
+                          (t for comp in pools["plain"] for t in comp), (t for comp in pool for t in comp)):
+        assert torch.equal(ck[1], c0[1])  # the dead slot
+        for b in (0, 2, 3):
+            w, sp = int(widx[b]), int(spans[b])
+            assert torch.equal(ck[b, :, :w], c0[b, :, :w]) and torch.equal(ck[b, :, w + sp:],
+                                                                            c0[b, :, w + sp:])
+            if ck.dtype == torch.int8:  # quantized rows: a one-step difference at most
+                assert int((ck[b, :, w:w + sp].int() - cp[b, :, w:w + sp].int()).abs().max()) <= 1
+            else:
+                _assert_close(ck[b, :, w:w + sp].to(cp.dtype), cp[b, :, w:w + sp], f"pool row {b}")
+
+
+def test_sampler_draws_equal_on_the_card_and_the_cpu(dev):
+    seeds = torch.tensor([0, 7, 4294967295, 123456789], dtype=torch.int64)
+    steps = torch.tensor([0, 3, 1, 1000], dtype=torch.int64)
+    cpu = sample_uniforms(seeds, steps, 50257)
+    card = sample_uniforms(seeds.to(dev), steps.to(dev), 50257)
+    assert torch.equal(card.cpu(), cpu)

@@ -116,6 +116,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="MoE"):
         tm.get_model("tiny-moe")
     tmod = tm.get_model("tiny", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="write_index"):
+    with pytest.raises(NotImplementedError, match="lora_ops"):
         tmod.apply_with_cache({}, torch.zeros(1, 1).long(), tmod.init_cache(1, 64), 0,
-                              write_index=torch.zeros(1))
+                              lora_ops=({}, ))
