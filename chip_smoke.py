@@ -365,6 +365,137 @@ def paged_span_cases(torch, gen, dev, int8):
                nbytes, 4 * D * pairs)
 
 
+# the long-context pool (extent chains): llama3-8b's (16 rows of 1024, 8 kv
+# heads of 128, GQA g=4, chains of up to 8 extents: its 8192 horizon) and
+# gpt2-large's (8 rows of 512, 20 heads of 64, 2 extents: its 1024 horizon)
+EXT_SHAPES = [("llama3-8b", 16, 32, 8, 1024, 128, 8), ("gpt2-large", 8, 20, 20, 512, 64, 2)]
+
+
+def _ext_layout(N, E, layout):
+    """(table (N, E), ends (N,), sinks, windows) of a pool of N rows for
+    ``layout``: "chain", row 0 a chain over shuffled pool rows (ending at
+    8000 of 8192 on llama's pool, 900 of 1024 on gpt2-large's), the rows
+    outside it one extent each (one of them dead, ends 0), the chain's other
+    rows dead dispatch rows; "lossy", row 0's chain with a 64-token sink and
+    a 1024-token window, the five extents wholly in its hole dropped (-1)
+    and their pool rows holding other rows' single extents; "identity",
+    every row its own pool row, E = 1."""
+    if layout == "identity":
+        return [[b] for b in range(N)], [700, 1024, 33, 512, 0, 900, 250, 1000, 300, 1024, 64,
+                                         800, 450, 0, 990, 17][:N], None, None
+    if N == 8:  # gpt2-large
+        return ([[0, 5], [1, -1], [2, -1], [3, -1], [4, -1], [5, -1], [6, -1], [7, -1]],
+                [900, 300, 0, 129, 511, 0, 64, 400], None, None)
+    table = [[b] + [-1] * (E - 1) for b in range(N)]
+    ends = [0] * N
+    for b, e in zip((1, 4, 6, 8, 10, 11, 13, 15), (700, 1024, 33, 512, 0, 900, 250, 1000)):
+        ends[b] = e
+    if layout == "chain":
+        table[0] = [0, 9, 3, 12, 5, 14, 7, 2]
+        return table, [8000] + ends[1:], None, None
+    table[0] = [0, -1, -1, -1, -1, -1, 7, 2]
+    for b, e in zip((9, 3, 12, 5, 14), (300, 1024, 64, 800, 450)):
+        ends[b] = e
+    sinks, wins = [0] * N, [0] * N
+    sinks[0], wins[0] = 64, 1024
+    return table, [8000] + ends[1:], sinks, wins
+
+
+def _ext_kept(torch, start, col_ends, sinks, wins, L):
+    """(B, T, L) bool: the logical positions each column keeps, its window
+    [start, end) less the lossy hole [sink, end - window)."""
+    pos = torch.arange(L, device=col_ends.device)[None, None, :]
+    end = col_ends[:, :, None]
+    keep = (pos >= start[:, None, None]) & (pos < end)
+    if sinks is not None:
+        w = wins[:, None, None]
+        keep &= (w == 0) | (pos < sinks[:, None, None]) | (pos >= end - w)
+    return keep
+
+
+def extent_cases(torch, gen, dev, span, int8):
+    """The extent modes (``_extent_kernel``) at the long-context pool's
+    shapes: llama3-8b's shuffled 8-extent chain, its lossy window with
+    dropped extents, its identity table (also held bitwise against the
+    paged mode), and gpt2-large's 2-extent chain (D = 64); the span at the
+    chunk step's T = 64 (row 0 prefilling 64 columns up to its end, the
+    other rows carried). Bytes: q in and out, each row's kept window of K
+    and V once (int8: 1 byte an element and 2 bytes of scales a position),
+    its table row; operations 4 * D per (query head, column, kept key).
+    Library chain: the logical window gathered by index_select (and
+    dequantized on the int8 tier), then one scaled_dot_product_attention
+    with the per-row (and per-column) kept mask."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        extent_paged_decode_attention, extent_paged_decode_attention_plain,
+        extent_paged_span_attention, extent_paged_span_attention_plain, paged_decode_attention,
+        paged_span_attention)
+    T = 64 if span else 1
+    layouts = [("llama3-8b", "chain"), ("llama3-8b", "lossy"), ("llama3-8b", "identity"),
+               ("gpt2-large", "chain")]
+    shapes = {lb: sh for lb, *sh in EXT_SHAPES}
+    for label, layout in layouts[:3] if int8 else layouts:
+        N, H, nkv, S, D, E = shapes[label]
+        table, ends_l, sinks_l, wins_l = _ext_layout(N, E, layout)
+        ext = torch.tensor(table, dtype=torch.int32, device=dev)
+        E_t = ext.shape[1]
+        kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, N, nkv, S, D, int8)
+        ends = torch.tensor(ends_l, dtype=torch.int32, device=dev)
+        starts = torch.zeros((N, ), dtype=torch.int32, device=dev)
+        lossy = {} if sinks_l is None else {
+            "sink": torch.tensor(sinks_l, dtype=torch.int32, device=dev),
+            "window": torch.tensor(wins_l, dtype=torch.int32, device=dev)}
+        L = E_t * S
+        if span:
+            base = (ends - T).clamp(min=0)
+            base[1:] = (ends[1:] - 1).clamp(min=0)  # carried decode rows
+            col_ends = (base[:, None] + 1 + torch.arange(T, device=dev)[None, :])
+            q = torch.randn((N, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+            args = (q, kc, vc, starts, base, ext)
+            kern_fn, plain_fn, paged_fn = (extent_paged_span_attention,
+                                           extent_paged_span_attention_plain, paged_span_attention)
+        else:
+            col_ends = ends[:, None]
+            q = torch.randn((N, H, D), generator=gen, device=dev).to(torch.bfloat16)
+            args = (q, kc, vc, starts, ends, ext)
+            kern_fn, plain_fn, paged_fn = (extent_paged_decode_attention,
+                                           extent_paged_decode_attention_plain,
+                                           paged_decode_attention)
+        keep = _ext_kept(torch, starts, col_ends, lossy.get("sink"), lossy.get("window"), L)
+        if layout == "identity":
+            out = kern_fn(*args, k_scale=sc, v_scale=sc)
+            ref = paged_fn(*args[:5], k_scale=sc, v_scale=sc)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"extent {'span' if span else 'decode'} [{label} identity "
+                  f"table, int8={int8}]: differs from the paged mode")
+        rows_kept = int(keep.any(1).sum())
+        nbytes = 2 * q.numel() * 2 + rows_kept * nkv * D * 2 * (1 if int8 else 2) \
+            + (2 * rows_kept if int8 else 0) + ext.numel() * 4 + 2 * N * 4
+        pairs = int(keep.sum()) * H
+        idx = ext.clamp(min=0).long().reshape(-1)
+        mask = keep[:, None]  # (N, 1, T, L)
+
+        def chain(q=q, idx=idx, mask=mask, kc=kc, vc=vc, sc=sc, N=N, nkv=nkv, S=S, D=D, E_t=E_t,
+                  g=H != nkv, span=span):
+            def logical(leaf):
+                return leaf.index_select(0, idx).reshape(N, E_t, *leaf.shape[1:]).transpose(1, 2) \
+                    .reshape(N, leaf.shape[1], E_t * S, leaf.shape[3])
+            kl, vl = logical(kc), logical(vc)
+            if sc is not None:
+                s = logical(sc)
+                kl = (kl.float() * s.float()).to(torch.bfloat16)
+                vl = (vl.float() * s.float()).to(torch.bfloat16)
+            return F.scaled_dot_product_attention(q if span else q[:, :, None], kl, vl, attn_mask=mask,
+                                                  enable_gqa=g)
+
+        desc = (f"{label} {layout} {'span T=64' if span else 'decode'} N={N} H={H}/{nkv} S={S} "
+                f"D={D} E={E_t} ends {ends_l[:4]}...")
+        yield (desc,
+               lambda a=args, sc=sc, lk=lossy, f=kern_fn: f(*a, k_scale=sc, v_scale=sc, **lk),
+               lambda a=args, sc=sc, lk=lossy, f=plain_fn: f(*a, k_scale=sc, v_scale=sc, **lk),
+               chain, nbytes, 4 * D * pairs)
+
+
 def _dequant(torch, qw, sc):
     K, N = qw.shape
     G = sc.shape[0]
@@ -518,6 +649,19 @@ KERNELS = [
     ("paged_span_attention_int8", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
      "deepspeed_tpu/ops/pallas/decode_attention.py:198",
      lambda t, g, d: paged_span_cases(t, g, d, True), "call"),
+    # _extent_kernel: the extent modes of the same CUDA kernel (long context)
+    ("extent_paged_decode", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:367",
+     lambda t, g, d: extent_cases(t, g, d, False, False), "chain"),
+    ("extent_paged_decode_int8", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:367",
+     lambda t, g, d: extent_cases(t, g, d, False, True), "chain"),
+    ("extent_paged_span", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:367",
+     lambda t, g, d: extent_cases(t, g, d, True, False), "chain"),
+    ("extent_paged_span_int8", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+     "deepspeed_tpu/ops/pallas/decode_attention.py:367",
+     lambda t, g, d: extent_cases(t, g, d, True, True), "chain"),
 ]
 # kernels whose two calls on the same inputs must agree bit for bit
 DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv")
@@ -587,7 +731,10 @@ def kernel_phase(torch, dev):
 def counters():
     """{kernel: (wrapper, its launch-count attribute)}: every kernel's count,
     the int8-KV variants of the paged modes apart."""
-    from deepspeed_tpu_torch.ops.decode_attention import (decode_attention, paged_decode_attention,
+    from deepspeed_tpu_torch.ops.decode_attention import (decode_attention,
+                                                          extent_paged_decode_attention,
+                                                          extent_paged_span_attention,
+                                                          paged_decode_attention,
                                                           paged_span_attention)
     from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
@@ -599,6 +746,10 @@ def counters():
     out = {k: (fn, "launches") for k, fn in fns.items()}
     out["paged_decode_attention_int8"] = (paged_decode_attention, "launches_int8")
     out["paged_span_attention_int8"] = (paged_span_attention, "launches_int8")
+    for name, fn in (("extent_paged_decode", extent_paged_decode_attention),
+                     ("extent_paged_span", extent_paged_span_attention)):
+        out[name] = (fn, "launches")
+        out[name + "_int8"] = (fn, "launches_int8")
     return out
 
 
@@ -614,7 +765,9 @@ def read_counts():
 ZERO_COUNTS = {k: 0 for k in ("quant_matmul", "flash_attention", "decode_attention", "fused_qkv_ln",
                               "fused_out_mlp", "flash_bwd_dq", "flash_bwd_dkv",
                               "paged_decode_attention", "paged_span_attention",
-                              "paged_decode_attention_int8", "paged_span_attention_int8")}
+                              "paged_decode_attention_int8", "paged_span_attention_int8",
+                              "extent_paged_decode", "extent_paged_span", "extent_paged_decode_int8",
+                              "extent_paged_span_int8")}
 
 
 def expected_counts(cfg, new_tokens, fused):
@@ -783,6 +936,8 @@ def gpt2_large_phase(torch, card, fused):
     step_s = steady_step(torch, eng, prompts, what, card)
     decode_profile(torch, eng, prompts, step_s * 1e3, what)
     serve_counts = serving_phase(torch, eng, card) if fused else None
+    if not fused:
+        per_projection_streams(torch, eng)
     del eng
     torch.cuda.empty_cache()
     return counts, greedy, serve_counts
@@ -891,8 +1046,10 @@ def llama_phase(torch):
     prefill_logits_check(torch, eng, prompts, "llama3-8b")
     fused_step_check(torch, eng, prompts, "llama3-8b")
     llama_serving_phase(torch, eng)
+    long_counts = long_context_phase(torch, eng)
     del eng
     torch.cuda.empty_cache()
+    return long_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1158,6 +1315,33 @@ def serving_phase(torch, eng, card):
     return counts, int8_counts
 
 
+def per_projection_streams(torch, eng):
+    """The mixed stream through the per-projection scheduler (an engine with
+    ``fused_decode_block: False``: every projection through quant_matmul, at
+    M = 8 slots in decode forwards and 8 x 64 in chunk forwards) at K=4 and
+    at K=1: identical streams. A row's token rides forwards of other widths
+    at the two K, so this holds only while quant_matmul's split plan follows
+    the weight's shape and not M."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    prompts = mixed_stream()
+    outs = {}
+    for k in (4, 1):
+        sched = DecodeScheduler(eng, num_slots=8, steps_per_sync=k)
+        check(not sched._fused_block, "per-projection serving: the fused gate is open")
+        outs[k], _, wall, _, _ = serve(sched, prompts)
+        log(f"gpt2-large per-projection serving, mixed stream at K={k}: {wall:.3f} s, shapes "
+            f"{dict(sched.dispatched)}")
+        del sched
+        torch.cuda.empty_cache()
+    same = [bool(np.array_equal(a, b)) for a, b in zip(outs[4], outs[1])]
+    prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+              for x, y in zip(outs[4], outs[1])]
+    log(f"gpt2-large per-projection serving, mixed stream K=4 vs K=1: streams identical "
+        f"{sum(same)}/{len(same)}; common prefix of the others {[p for p, m in zip(prefix, same) if not m]}")
+    check(all(same), "per-projection serving: greedy streams differ between K=4 and K=1")
+
+
 def int8_kv_leg(torch, eng, prompts):
     """The mixed stream's first 8 requests on an int8 KV pool against the
     bf16 pool, logits collected: >= 1.9x the rows per byte, the launches of
@@ -1220,6 +1404,281 @@ def llama_serving_phase(torch, eng):
     step_logits_check(torch, eng, sched, "llama3-8b serving")
     del sched
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: long-context serving (extent chains) on the llama3-8b engine
+
+
+# the pool: 16 slots of 1024 rows, chains of up to 8 extents (the 8192
+# horizon), bench.py's chunk 64 and K=4 (bench.py:577's long-context bench
+# serves one request at a time at contexts 1024..8192)
+LONG_SLOTS, LONG_MAX_LEN, LONG_EXTENTS, LONG_NEW = 16, 1024, 8, 32
+
+
+def _per_projection(sched):
+    """Every dispatch of ``sched`` through the per-projection path: a
+    dispatch with a live chain runs per projection (the fused decode-layer
+    kernels walk no extents), so a reference that a chained stream is held
+    to bitwise must run per projection too."""
+    sched._fused_block = False
+    return sched
+
+
+def timed_requests(sched, prompts, max_new, collect=False, **kw):
+    """Submit every prompt at t = 0, pump until all finish. Returns
+    (streams, logits or None, wall s, TTFT ms, mean ITL ms) per request:
+    TTFT from submit to the first token, ITL over the later tokens (the
+    host sees a sync's K tokens at once, so ITL is per token over syncs)."""
+    stamps = [[] for _ in prompts]
+    hs = [sched.submit(p, max_new_tokens=max_new, collect_logits=collect,
+                       on_token=lambda tok, done, st=st: st.append(time.perf_counter()), **kw)
+          for p, st in zip(prompts, stamps)]
+    t0 = time.perf_counter()
+    while any(not h.done for h in hs):
+        sched.step()
+    wall = time.perf_counter() - t0
+    ttft = [(st[0] - h._req.submit_ts) * 1e3 for h, st in zip(hs, stamps)]
+    itl = [(st[-1] - st[0]) * 1e3 / max(1, len(st) - 1) for st in stamps]
+    logits = [h.result_logits() for h in hs] if collect else None
+    return [h.result() for h in hs], logits, wall, ttft, itl
+
+
+def check_long_counts(sched, counts, what, int8_kv=False):
+    """Launches over a long-context stream: a forward that carried extent
+    operands ran every projection through quant_matmul (fused qkv, o, gate,
+    up, down: 5 a layer, and the head) and the extent modes once a layer;
+    any other forward, with the fused gate open, kernels A and C once a layer,
+    the paged modes once a layer and the head; nothing else."""
+    cfg = sched.engine.model_config
+    L = cfg.num_layers
+    per_forward = (5 if cfg.activation in ("swiglu", "geglu") else 4) * L + 1
+    n1, nc = sched.forwards[1], sum(v for c, v in sched.forwards.items() if c != 1)
+    e1, ec = sched.ext_forwards[1], sum(v for c, v in sched.ext_forwards.items() if c != 1)
+    u1, uc = n1 - e1, nc - ec
+    sfx = "_int8" if int8_kv else ""
+    fused = sched._fused_block
+    want = {**ZERO_COUNTS,
+            "quant_matmul": per_forward * (e1 + ec) + (1 if fused else per_forward) * (u1 + uc),
+            "fused_qkv_ln": L * (u1 + uc) if fused else 0,
+            "fused_out_mlp": L * (u1 + uc) if fused else 0,
+            "paged_decode_attention" + sfx: L * u1, "paged_span_attention" + sfx: L * uc,
+            "extent_paged_decode" + sfx: L * e1, "extent_paged_span" + sfx: L * ec}
+    log(f"{what} launches {counts}, expected {want} (forwards {dict(sched.forwards)}, with extent "
+        f"operands {dict(sched.ext_forwards)}, {L} layers, fused gate {'open' if fused else 'off'})")
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+    check(e1 > 0 and ec > 0, f"{what}: an extent width was never dispatched ({dict(sched.ext_forwards)})")
+
+
+def one_sync_profile(torch, sched, what):
+    """Device time by kernel and busy share over one sync (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, busy_ms = device_profile(prof, 1)
+    if not rows:
+        log(f"profile of {what}: the profiler recorded no device time (busy share not measured)")
+        return
+    log(f"profile of {what} {sched.last_shape}: wall {wall_ms:.3f} ms under the profiler, device busy "
+        f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of wall")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"  device {ms:9.4f} ms/sync {n:5d} calls/sync  {key[:80]}")
+
+
+def lossy_step_check(torch, eng, sched, what):
+    """One decode-width forward of the live lossy row through the kernels
+    and through their plain versions on the card (two copies of the pool,
+    the dispatch's extent operands with dropped extents inside the window's
+    hole): relative L2 of the live row's logits within 5e-2."""
+    live = sorted(sched.active.items())
+    eo = sched._ext_operands(live)
+    N = sched.cache.num_slots
+    dev = eng.device
+    widx = torch.zeros(N, dtype=torch.long, device=dev)
+    spans = torch.zeros(N, dtype=torch.long, device=dev)
+    ids = torch.zeros((N, 1), dtype=torch.long, device=dev)
+    for slot, req in live:
+        widx[slot] = int(sched.cache.lengths[slot])
+        spans[slot] = 1
+        ids[slot, 0] = req.out[-1]
+    out = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "plain"):
+            pool = tuple(tuple(t.clone() for t in comp) for comp in sched.cache.pool)
+            out[impl] = eng.module.apply_with_cache(eng.net, ids, pool, 0, position_ids=widx[:, None],
+                                                    write_index=widx, q_spans=spans, ext_ops=eo,
+                                                    impl=impl)[0].float()
+            del pool
+    rows = [slot for slot, _ in live]
+    lk, lp = out["kernel"][rows, 0], out["plain"][rows, 0]
+    check(bool(torch.isfinite(lk).all()), f"{what}: non-finite step logits")
+    rel = float((lk - lp).norm() / lp.norm())
+    log(f"{what}: one decode step through the kernels vs plain on the card (dropped extents "
+        f"{sched.cache.missing_extents(rows[0])}): rel L2 {rel:.3e}")
+    check(rel <= 5e-2, f"{what}: step logits differ from plain by rel L2 {rel:.3e} > 5e-2")
+
+
+def long_context_phase(torch, eng, max_len=LONG_MAX_LEN):
+    """Long-context serving on the llama3-8b engine (full width, 2 layers,
+    int8, kernel injection) through ``DecodeScheduler(eng, num_slots=16,
+    max_len=1024, max_extents=8, prefill_chunk=64, steps_per_sync=4)``: the
+    context sweep (1024..8192, one request at a time, 32 new); a chained
+    4096-context request against the same on one 4096-row slot, tokens and
+    logits bitwise, greedy and sampled; a mixed stream (prompts 6000 and 3000
+    and six of 8-191 tokens, queued at t = 0) with exact launch counts, and
+    at K=4 and K=1 per projection with identical streams; the int8 KV leg;
+    the lossy leg (kv_window (64, 1024), an 8000-token prompt). Every length
+    scales with ``max_len`` (a rehearsal at a small pool runs the same
+    extent structure). Returns the mixed stream's and the int8 leg's counts."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    S = max_len
+    u = lambda n: max(1, n * S // LONG_MAX_LEN)  # noqa: E731
+    vocab = eng.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 5)
+
+    def rand_prompt(n):
+        return rng.integers(0, vocab, int(n)).astype(np.int32)
+
+    def make(**kw):
+        return DecodeScheduler(eng, **{"num_slots": LONG_SLOTS, "max_len": S,
+                                       "max_extents": LONG_EXTENTS, "prefill_chunk": 64,
+                                       "steps_per_sync": 4, **kw})
+
+    sched = make()
+    check(sched.max_len == S and sched.cache.max_extents == LONG_EXTENTS,
+          f"long context: pool {sched.max_len} x {sched.cache.max_extents}, expected {S} x {LONG_EXTENTS}")
+    check(sched._fused_block, f"long context: fused gate closed ({sched._fused_block_reasons})")
+    sched.submit(rand_prompt(u(1024) + 8), max_new_tokens=8).result()  # first-use costs, 2 extents
+
+    # the context sweep (bench.py::_long_context_bench): one request at a
+    # time; the 4096 request's greedy logits are the reference below
+    for ctx in (S, 2 * S, 4 * S, 8 * S):
+        p = rand_prompt(ctx - LONG_NEW)
+        outs, lg, wall, ttft, itl = timed_requests(sched, [p], LONG_NEW, collect=ctx == 4 * S)
+        if ctx == 4 * S:
+            p4, chained_greedy = p, (outs[0], lg[0])
+        check_streams(outs, LONG_NEW, vocab, f"long context {ctx}")
+        n_ext = sched.cache.extents_needed(len(p) + LONG_NEW)
+        log(f"llama3-8b long context {ctx} (prompt {len(p)} + {LONG_NEW} new, {n_ext} extent(s) of {S}): "
+            f"TTFT {ttft[0]:.1f} ms, mean ITL {itl[0]:.3f} ms, {wall:.3f} s")
+    sched.radix.check_invariants()
+    check(not sched.cache.chain, "long context: a chain outlived its request")
+
+    # a chained request is bitwise the same request on one big slot
+    ref = _per_projection(make(max_len=4 * S, max_extents=1))
+    kws = ({}, {"do_sample": True, "temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 3})
+    for kw in kws:
+        if kw:
+            got, gl, _, _, _ = timed_requests(sched, [p4], LONG_NEW, collect=True, **kw)
+            got, gl = got[0], gl[0]
+        else:
+            got, gl = chained_greedy
+        want, wl, _, _, _ = timed_requests(ref, [p4], LONG_NEW, collect=True, **kw)
+        same = np.array_equal(got, want[0]) and np.array_equal(gl, wl[0])
+        kind = "sampled" if kw else "greedy"
+        log(f"llama3-8b chained {4 * S}-context request ({sched.cache.extents_needed(4 * S)} extents) vs "
+            f"one {4 * S}-row slot, {kind}: tokens and logits bitwise equal {same}")
+        check(same, f"long context: the chained request differs from one big slot ({kind})")
+    chained_greedy = chained_greedy[1]
+    del ref
+    torch.cuda.empty_cache()
+
+    # the mixed stream: two long requests and six short, queued at t = 0
+    mixed = [rand_prompt(u(6000)), rand_prompt(u(3000))] + [
+        rand_prompt(n) for n in np.random.default_rng(SEED).integers(8, 192, 6)]
+    sched.forwards.clear()
+    sched.ext_forwards.clear()
+    sched.dispatched.clear()
+    reset_counts()
+    outs, _, wall, ttft, itl = timed_requests(sched, mixed, LONG_NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_long_counts(sched, counts, "llama3-8b long-context mixed stream")
+    check_streams(outs, LONG_NEW, vocab, "long-context mixed stream")
+    check(not sched.cache.chain, "long context: a chain outlived the mixed stream")
+    sched.radix.check_invariants()
+    n_tok = sum(len(o) for o in outs)
+    log(f"llama3-8b long-context mixed stream (prompts {[len(p) for p in mixed]}, {LONG_NEW} new, K=4, "
+        f"fused gate open): {n_tok} tokens in {wall:.3f} s; TTFT ms {[round(t, 1) for t in ttft]}; "
+        f"mean ITL ms {[round(t, 3) for t in itl]}; shapes {dict(sched.dispatched)}")
+    per_proj = {}
+    for k in (4, 1):
+        s2 = _per_projection(make(steps_per_sync=k))
+        per_proj[k], _, w2, _, _ = timed_requests(s2, mixed, LONG_NEW)
+        check(not s2.cache.chain, "long context: a chain outlived the mixed stream")
+        s2.radix.check_invariants()
+        log(f"llama3-8b long-context mixed stream per projection at K={k}: {w2:.3f} s, shapes "
+            f"{dict(s2.dispatched)}")
+        del s2
+        torch.cuda.empty_cache()
+    same = [bool(np.array_equal(a, b)) for a, b in zip(per_proj[4], per_proj[1])]
+    log(f"llama3-8b long-context mixed stream per projection, K=4 vs K=1: streams identical "
+        f"{sum(same)}/{len(same)}")
+    check(all(same), "long context: the mixed stream differs between K=4 and K=1")
+    prefix = [next((i for i, (a, b) in enumerate(zip(f, q)) if a != b), len(f))
+              for f, q in zip(outs, per_proj[4])]
+    log(f"llama3-8b long-context mixed stream, fused gate open vs per projection at K=4: common prefix "
+        f"per request {prefix} of {LONG_NEW} (fused and per-projection forwards round in other places)")
+
+    # where a long stream's time goes: one chunk sync and one decode sync
+    h = sched.submit(p4, max_new_tokens=LONG_NEW)
+    sched.step()
+    one_sync_profile(torch, sched, f"a {4 * S}-context chunk sync")
+    while sched._prefill is not None:
+        sched.step()
+    one_sync_profile(torch, sched, f"a {4 * S}-context decode sync")
+    h.result()
+    del sched
+    torch.cuda.empty_cache()
+
+    # int8 KV: the chained 4096 request on an int8 pool against the bf16 pool
+    q_s = make(kv_cache_dtype="int8")
+    reset_counts()
+    got, gl, _, _, _ = timed_requests(q_s, [p4], LONG_NEW, collect=True)
+    torch.cuda.synchronize()
+    int8_counts = read_counts()
+    check_long_counts(q_s, int8_counts, "llama3-8b long-context int8 KV leg", int8_kv=True)
+    r, g = chained_greedy, gl[0]
+    same_tok = r.argmax(-1) == g.argmax(-1)
+    n = len(same_tok) if same_tok.all() else int(np.argmin(same_tok)) + 1
+    worst = float(np.abs(g[:n] - r[:n]).max()) / (0.05 * float(np.abs(r[:n]).max()) + 0.05)
+    log(f"llama3-8b long-context int8 KV leg ({4 * S}-context request on an int8 pool): logit error / "
+        f"bound {worst:.3f} over {n} steps (greedy flip {'none' if same_tok.all() else n - 1})")
+    check(worst <= 1.0, "long context int8 KV: logit error beyond 0.05 * max|ref| + 0.05")
+    del q_s
+    torch.cuda.empty_cache()
+
+    # lossy sliding window: an 8000-token prompt keeping a 64-token sink and
+    # the last 1024 tokens, 64 new; the extents wholly in between drop
+    lossy = make(allow_lossy_kv=True)
+    window = (u(64), u(1024))
+    n_prompt = LONG_EXTENTS * S - 192
+    h = lossy.submit(rand_prompt(n_prompt), max_new_tokens=64, kv_window=window)
+    while lossy._prefill is not None or not lossy.active:
+        lossy.step()
+    slot = next(iter(lossy.active))
+    lossy.step()  # the paging pump drops what slid out of the window
+    dropped = lossy.cache.missing_extents(slot)
+    held = sum(1 for x in lossy.cache.extents(slot) if x >= 0)
+    log(f"llama3-8b lossy window {window} over {n_prompt} tokens: dropped extents {dropped}, demotes "
+        f"{lossy.longctx_demotes}, the chain holds {held} of {len(lossy.cache.extents(slot))} pool rows, "
+        f"free rows {lossy.cache.free_slots} of {LONG_SLOTS}")
+    check(len(dropped) >= 5 or S != LONG_MAX_LEN, f"lossy window dropped only {dropped}")
+    check(lossy.cache.free_slots == LONG_SLOTS - held, "lossy window: dropped rows not on the free list")
+    lossy.cache.check_invariants()
+    lossy_step_check(torch, eng, lossy, "llama3-8b lossy window")
+    check(len(h.result()) == 64, "lossy window: short stream")
+    lossy.radix.check_invariants()
+    check(not lossy.cache.chain and lossy.cache.free_slots + lossy.cache.cached_slots == LONG_SLOTS,
+          "lossy window: rows not returned")
+    del lossy
+    torch.cuda.empty_cache()
+    return counts, int8_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1469,7 +1928,10 @@ def llama_train_phase(torch):
     torch.cuda.empty_cache()
 
 
-def main():
+def main(argv=()):
+    """``--kernels NAME[,NAME...]``: build those kernels and run only their
+    rows of the kernel phase (to time a change against its parent in one
+    call: run this file beside each tree's package, in turns)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1491,6 +1953,10 @@ def main():
     log(f"card: {card}")
 
     from deepspeed_tpu_torch.ops import build
+    global KERNELS
+    only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--kernels" else None
+    if only is not None:
+        KERNELS = [k for k in KERNELS if k[0] in only]
     t0 = time.perf_counter()
     logs = build.build_all([k[1].split("/")[-1][:-3] for k in KERNELS])  # each source once
     log(f"built {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
@@ -1501,6 +1967,9 @@ def main():
 
     dev = torch.device("cuda")
     results = kernel_phase(torch, dev)
+    if only is not None:
+        log(json.dumps({"kernels": list(results.values())}))
+        return 0
     counts, fused_greedy, (serve_counts, int8_counts) = gpt2_large_phase(torch, card, fused=True)
     for name, n in counts.items():  # the static generate() path
         if name in results and n:
@@ -1518,7 +1987,11 @@ def main():
               for f, u in zip(fused_greedy, unfused_greedy)]
     log(f"gpt2-large greedy streams, fused vs per-projection: common prefix per row {prefix} "
         f"of {len(fused_greedy[0])}")
-    llama_phase(torch)
+    long_counts, long_int8_counts = llama_phase(torch)
+    # the extent modes from the long-context mixed stream and its int8 leg
+    for name in ("extent_paged_decode", "extent_paged_span"):
+        results[name]["launches"] = long_counts[name]
+        results[name + "_int8"]["launches"] = long_int8_counts[name + "_int8"]
     # the training path is the main path of the backward kernels
     train_counts = train_phase(torch, card)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -1537,4 +2010,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

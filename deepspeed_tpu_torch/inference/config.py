@@ -430,9 +430,6 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
             out.append(item("expert_offload", "9, MoE serving"))
         if self.disaggregation.enabled:
             out.append(item("disaggregation", "9, disaggregated prefill/decode"))
-        lc = self.long_context
-        if lc.max_extents > 1 or lc.seq_parallel_min_tokens > 0 or lc.allow_lossy_kv:
-            out.append(item("long_context", "9, long context"))
         if self.multihost.router_url is not None:
             out.append(item("multihost", "9, multi-host router"))
         if self.autoscaler.enabled:

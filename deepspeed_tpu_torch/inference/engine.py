@@ -418,6 +418,11 @@ class InferenceEngine:
                   "collect_logits": cb.collect_logits, "steps_per_sync": cb.steps_per_sync,
                   "prefill_chunk": cb.prefill_chunk, "prefix_cache": cb.prefix_cache,
                   "spec_tokens": cb.spec_tokens, "kv_cache_dtype": cb.kv_cache_dtype}
+            lc = cb.long_context  # extent chains, seq-parallel prefill, lossy windows
+            kw.update(max_extents=lc.max_extents,
+                      seq_parallel_min_tokens=lc.seq_parallel_min_tokens,
+                      seq_parallel_degree=lc.seq_parallel_degree,
+                      allow_lossy_kv=lc.allow_lossy_kv)
             kw.update(overrides)
             self._scheduler = DecodeScheduler(self, **kw)
         elif overrides:

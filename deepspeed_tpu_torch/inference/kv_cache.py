@@ -1,9 +1,9 @@
 """Slot-based paged KV cache for continuous-batching decode, plus the radix
 prefix cache that reuses it across requests.
 
-Port of ``deepspeed_tpu/inference/kv_cache.py`` for one extent per request.
-Serving keeps ONE fixed-shape pool of ``num_slots`` cache slots, per-layer
-tuples of (num_slots, kv_heads, max_len, head_dim) tensors (a third tuple of
+Port of ``deepspeed_tpu/inference/kv_cache.py``. Serving keeps ONE
+fixed-shape pool of ``num_slots`` cache slots, per-layer tuples of
+(num_slots, kv_heads, max_len, head_dim) tensors (a third tuple of
 (num_slots, 1, max_len, 1) fp16 scales on the int8 tier), plus a host-side
 row of per-slot lengths. A request claims a free slot, its prompt KV lands in
 rows ``[0, len)`` and it rides the shared decode step; on finish the slot
@@ -19,18 +19,18 @@ rows from the donor slot (:func:`copy_slot`) and prefills only the suffix.
 Every slot is stamped with the pool's weights version at :meth:`alloc`, and
 registrations carry it too, so KV can never be reused across weights.
 
+Long context: a request longer than one slot claims a CHAIN of pool rows
+(extents) at admission, all or nothing (:meth:`SlotKVCache.alloc_chain`);
+logical position ``p`` lives in extent ``p // max_len`` at offset
+``p % max_len``, and the extent modes of the paged kernels walk the chain
+through a per-row extent table. A lossy sliding-window request drops
+extents that slide out of its window (:meth:`SlotKVCache.demote_extent`).
+
 Everything here is host bookkeeping except :func:`copy_slot`, an in-place
-``copy_`` of one slot's rows in every layer leaf. Long-context extent
-chains (``max_extents > 1``) are not ported (ROADMAP Queue 1 #9, long
-context); their entry points raise.
+``copy_`` of one slot's rows in every layer leaf.
 """
 
 import numpy as np
-
-
-def _long_context():
-    return NotImplementedError("deepspeed_tpu_torch does not support multi-extent KV chains yet "
-                               "(ROADMAP Queue 1 #9, long context)")
 
 
 class SlotKVCache:
@@ -42,17 +42,23 @@ class SlotKVCache:
     - ``cached`` — released by its request but holding a retained prefix the
       radix cache still references (``refs[slot] > 0``); not allocatable
       until :meth:`reclaim` (radix eviction) returns it to the free list.
+    - ``extent`` — a secondary row of a long-context extent chain
+      (:meth:`alloc_chain`): its KV belongs to the chain's primary slot,
+      which alone carries the request's logical length and owner.
 
     ``pool`` is the device-side cache tree (``model.init_cache(num_slots,
     max_len)``), written in place by the scheduler's steps.
     """
 
     def __init__(self, pool, num_slots, max_len, max_extents=1):
-        if int(max_extents) != 1:
-            raise _long_context()
         self.pool = pool
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
+        # one request may span up to ``max_extents`` pool rows; its primary
+        # row's ``lengths`` entry then counts LOGICAL tokens (up to
+        # chain_len * max_len), the other rows sit in the ``extent`` state
+        self.max_extents = int(max_extents)
+        self.chain = {}  # primary slot -> [primary, ext1, ...]; -1 = dropped
         self.lengths = np.zeros(self.num_slots, np.int32)  # live tokens per slot
         self.state = ["free"] * self.num_slots
         self.refs = np.zeros(self.num_slots, np.int32)  # trie references
@@ -82,20 +88,106 @@ class SlotKVCache:
         return slot
 
     def alloc_chain(self, n_ext, owner=None):
-        raise _long_context()
+        """Claim ``n_ext`` pool rows as ONE logical extent chain for a
+        long-context request: the first (primary) row carries the request's
+        bookkeeping (logical ``lengths`` row, owner, state ``active``), every
+        other row enters the ``extent`` state, off the free list and
+        invisible to radix reuse. Returns the primary slot, or None when the
+        request exceeds ``max_extents`` or fewer than ``n_ext`` rows are
+        free (all or nothing: a partial chain is never claimed)."""
+        n_ext = int(n_ext)
+        if n_ext <= 1:
+            return self.alloc(owner)
+        if n_ext > self.max_extents or len(self._free) < n_ext:
+            return None
+        primary = self.alloc(owner)
+        members = [primary]
+        for _ in range(n_ext - 1):
+            s = self._free.pop()
+            self.lengths[s] = 0
+            self.state[s] = "extent"
+            self._owner[s] = owner
+            self.slot_version[s] = self.weights_version
+            members.append(s)
+        self.chain[primary] = members
+        return primary
+
+    def extents(self, slot):
+        """Pool rows backing ``slot``'s logical KV in extent order (entry i
+        holds logical tokens ``[i*max_len, (i+1)*max_len)``); -1 marks a
+        dropped extent. A single-extent slot is its own chain."""
+        return self.chain.get(slot, [slot])
+
+    def extent_capacity(self, slot):
+        """Logical token capacity of ``slot``'s chain (dropped extents still
+        count: their logical range exists, just not on the device)."""
+        return len(self.extents(slot)) * self.max_len
+
+    def missing_extents(self, slot):
+        """Indices of dropped extents in ``slot``'s chain."""
+        return [i for i, s in enumerate(self.extents(slot)) if s < 0]
 
     def demote_extent(self, primary, idx):
-        raise _long_context()
+        """Release the pool row behind chain extent ``idx`` of ``primary``
+        (the lossy sliding-window mode: its positions are masked out for
+        good). The row returns to the free list and the chain marks the
+        extent -1. Extent 0 is pinned: it anchors the request's bookkeeping
+        row and holds the attention-sink tokens, so only ``idx >= 1``
+        demotes. Returns the freed pool row."""
+        members = self.chain.get(primary)
+        if members is None:
+            raise ValueError(f"demote_extent on slot {primary} with no extent chain")
+        if not 1 <= int(idx) < len(members):
+            raise ValueError(f"extent index {idx} outside chain of {len(members)} "
+                             f"(extent 0 is pinned)")
+        s = members[int(idx)]
+        if s < 0:
+            raise ValueError(f"extent {idx} of slot {primary} already demoted")
+        self.state[s] = "free"
+        self._owner[s] = None
+        self._free.append(s)
+        members[int(idx)] = -1
+        return s
 
     def restore_extent(self, primary, idx):
-        raise _long_context()
+        """Re-claim a pool row for a dropped extent. Returns the new pool
+        row, or None when the free list is dry."""
+        members = self.chain.get(primary)
+        if members is None:
+            raise ValueError(f"restore_extent on slot {primary} with no extent chain")
+        if not 1 <= int(idx) < len(members):
+            raise ValueError(f"extent index {idx} outside chain of {len(members)}")
+        if members[int(idx)] >= 0:
+            raise ValueError(f"extent {idx} of slot {primary} is not demoted")
+        if not self._free:
+            return None
+        s = self._free.pop()
+        self.lengths[s] = 0
+        self.state[s] = "extent"
+        self._owner[s] = self._owner[primary]
+        self.slot_version[s] = self.weights_version
+        members[int(idx)] = s
+        return s
 
     def free(self, slot):
         """Return an active ``slot`` to the pool (eviction at token-iteration
         granularity: the scheduler calls this the moment a sequence
-        finishes, mid-decode-loop)."""
+        finishes, mid-decode-loop), with its whole extent chain; dropped
+        (-1) entries hold no pool row and are skipped."""
         if self.state[slot] != "active":
             raise ValueError(f"double free of slot {slot} (state {self.state[slot]})")
+        members = self.chain.pop(slot, None)
+        if members is not None:
+            for s in members[1:]:
+                if s < 0:
+                    continue
+                if self.state[s] != "extent":
+                    raise ValueError(f"chain member {s} of slot {slot} in state "
+                                     f"{self.state[s]} (extent bookkeeping drift)")
+                self.lengths[s] = 0
+                self.state[s] = "free"
+                self._owner[s] = None
+                self._free.append(s)
         self.lengths[slot] = 0
         self.state[slot] = "free"
         self._owner[slot] = None
@@ -109,6 +201,9 @@ class SlotKVCache:
         :meth:`reclaim`."""
         if self.state[slot] != "active":
             raise ValueError(f"retain of non-active slot {slot} (state {self.state[slot]})")
+        if slot in self.chain:
+            raise ValueError(f"retain of multi-extent slot {slot}: spanned prefixes don't "
+                             f"register for radix reuse (free the chain instead)")
         if self.refs[slot] <= 0:
             raise ValueError(f"retain of slot {slot} with no trie reference")
         if self.slot_version[slot] != self.weights_version:
@@ -132,13 +227,20 @@ class SlotKVCache:
         self._free.append(slot)
 
     def fits(self, prompt_len, max_new_tokens):
-        """Would a request of this shape ever fit one slot?"""
+        """Would a request of this shape ever fit, spanning up to
+        ``max_extents`` chained rows when one extent is not enough?"""
         return prompt_len + max_new_tokens <= self.spannable_len
 
     @property
     def spannable_len(self):
-        """Maximum tokens one request can hold (one extent: ``max_len``)."""
-        return self.max_len
+        """Maximum logical tokens one request can hold across its longest
+        permitted extent chain."""
+        return self.max_len * self.max_extents
+
+    def extents_needed(self, total_tokens):
+        """Chain length a request of ``total_tokens`` logical tokens needs
+        (ceil over the per-extent capacity; at least 1)."""
+        return max(1, -(-int(total_tokens) // self.max_len))
 
     # ------------------------------------------------------------------ stats
     @property
@@ -149,6 +251,11 @@ class SlotKVCache:
     @property
     def cached_slots(self):
         return sum(1 for s in self.state if s == "cached")
+
+    @property
+    def extent_slots(self):
+        """Pool rows serving as secondary extents of long-context chains."""
+        return sum(1 for s in self.state if s == "extent")
 
     @property
     def free_slots(self):
@@ -193,7 +300,9 @@ class SlotKVCache:
 
     def check_invariants(self):
         """Every slot is in exactly one state; the free list matches the
-        state row; refs only on active/cached slots. Raises on drift."""
+        state row; refs only on active/cached slots; every chain leads with
+        its active primary, holds distinct ``extent`` rows and no more
+        logical tokens than its capacity. Raises on drift."""
         if sorted(self._free) != sorted(i for i, s in enumerate(self.state) if s == "free"):
             raise AssertionError(f"free list {sorted(self._free)} != free states")
         if len(set(self._free)) != len(self._free):
@@ -209,7 +318,34 @@ class SlotKVCache:
                                      f"{self.weights_version} (stale-weights KV retained)")
             if self.refs[i] < 0:
                 raise AssertionError(f"negative refcount on slot {i}")
-        if self.active_slots + self.cached_slots + self.free_slots != self.num_slots:
+        chained = [s for m in self.chain.values() for s in m[1:] if s >= 0]
+        if len(set(chained)) != len(chained):
+            raise AssertionError("pool row appears in two extent chains")
+        for primary, members in self.chain.items():
+            if len(members) < 2 or len(members) > self.max_extents:
+                raise AssertionError(f"chain of slot {primary} has bad length {len(members)} "
+                                     f"(max_extents {self.max_extents})")
+            if members[0] != primary:
+                raise AssertionError(f"chain of slot {primary} doesn't lead with it")
+            if self.state[primary] != "active":
+                raise AssertionError(f"chain primary {primary} is {self.state[primary]}, not active")
+            if self.lengths[primary] > len(members) * self.max_len:
+                raise AssertionError(f"slot {primary} logical length {int(self.lengths[primary])} "
+                                     f"exceeds its chain capacity")
+            for s in members[1:]:
+                if s < 0:
+                    continue  # dropped
+                if self.state[s] != "extent":
+                    raise AssertionError(f"chain member {s} of slot {primary} is {self.state[s]}, "
+                                         f"not extent")
+                if self.lengths[s] != 0 or self.refs[s] != 0:
+                    raise AssertionError(f"extent row {s} holds its own lengths/refs (belong to "
+                                         f"the primary)")
+        for i, s in enumerate(self.state):
+            if s == "extent" and i not in set(chained):
+                raise AssertionError(f"extent-state row {i} belongs to no chain")
+        if (self.active_slots + self.cached_slots + self.free_slots + self.extent_slots
+                != self.num_slots):
             raise AssertionError("slot states don't partition the pool")
 
 

@@ -41,16 +41,33 @@ PyTorch.)
 quantized K/V (``ops/quantizer.py``) and the paged kernels dequantize in
 registers.
 
-With the fused decode-layer gate open (int8, kernel injection), each
-forward runs ``CausalLMModel.fused_paged_step`` (kernels A and C); else the
-per-projection ``apply_with_cache``. Both write and read the same pool.
+**Long context** (``max_extents > 1``, the ``long_context`` config
+section): a request whose prompt and budget exceed one slot is admitted onto
+a CHAIN of pool rows reserved whole at admission; logical position ``p``
+lives in extent ``p // max_len`` at offset ``p % max_len``, and a dispatch
+with a chain (or a lossy window) live hands the model an extent operand
+block (:meth:`DecodeScheduler._ext_operands`): the paged kernels walk each
+row's chain through its extent table and each row writes into its write
+extent's pool row. A chunk never crosses an extent boundary and a K-step
+sync falls to K = 1 when a row lacks K rows of room in its write extent.
+Chained rows skip the radix cache both ways. A request may opt into the
+lossy StreamingLLM window ``kv_window=(sink, recent)`` (with
+``allow_lossy_kv``): extents that slide out of it are dropped once per
+step. ``seq_parallel_min_tokens`` prefills long prompts at the wide chunk
+width, which on one device is the same arithmetic unsharded.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-the monolithic ``prefill_chunk=0`` prefill and speculative decoding (Queue
-1 #5), telemetry (#6), the hierarchical KV tier (#8), multi-LoRA,
-cold-expert offload, disaggregation, long-context extents, seq-parallel
-prefill and lossy KV windows (#9), the weight-swap protocol and migration
-(#9, RLHF and disaggregated serving).
+With the fused decode-layer gate open (int8, kernel injection), each
+forward runs ``CausalLMModel.fused_paged_step`` (kernels A and C); else, and
+in every dispatch that carries extent operands (the fused kernels walk no
+extents), the per-projection ``apply_with_cache``. Both write and read the
+same pool.
+
+Not ported, each raising naming its ROADMAP item: the monolithic
+``prefill_chunk=0`` prefill and speculative decoding, with or without
+extent chains (Queue 1 #5), telemetry (#6), sharding the seq-parallel
+prefill across devices (#7), the hierarchical KV tier and with it lossless
+extent demotion (#8), multi-LoRA, cold-expert offload, disaggregation, the
+weight-swap protocol and migration (#9, RLHF and disaggregated serving).
 """
 
 import collections
@@ -130,10 +147,11 @@ def sample_rows(logits, seeds, steps, flags, temps, topks, topps):
 class _Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id", "do_sample", "temperature",
                  "top_k", "top_p", "seed", "slot", "out", "logits", "done", "cancelled",
-                 "submit_ts", "first_token_ts", "collect_logits", "on_token")
+                 "submit_ts", "first_token_ts", "collect_logits", "on_token", "kv_window",
+                 "row_budget")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature, top_k,
-                 top_p, seed, collect_logits, on_token=None):
+                 top_p, seed, collect_logits, on_token=None, kv_window=None):
         self.rid = rid
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size < 1:
@@ -154,6 +172,12 @@ class _Request:
         self.submit_ts = time.perf_counter()
         self.first_token_ts = None
         self.on_token = on_token
+        # lossy long-context window (sink, recent), or None (exact)
+        self.kv_window = kv_window
+        # rows reserved at submit (the budget rounded up to K): admission
+        # sizes an extent chain from prompt + row_budget, so a chain never
+        # runs out of extents mid-decode
+        self.row_budget = 0
 
 
 class SchedulerHandle:
@@ -194,30 +218,44 @@ class SchedulerHandle:
 
 class _PrefillState:
     """The (at most one) in-flight chunked prefill: ``pos`` is the next
-    prompt position to feed; rows ``[0, pos)`` of the slot hold KV."""
+    prompt position to feed; rows ``[0, pos)`` of the slot hold KV.
+    ``seq_parallel``: the prompt prefills at the wide chunk width."""
 
-    __slots__ = ("req", "pos")
+    __slots__ = ("req", "pos", "seq_parallel")
 
     def __init__(self, req, pos):
         self.req = req
         self.pos = pos
+        self.seq_parallel = False
 
 
 class DecodeScheduler:
     """Continuous-batching serving loop over an :class:`InferenceEngine`.
 
     ``num_slots`` fixes the decode batch (the pool shape); ``max_len`` is
-    the per-slot KV capacity. Requests whose ``prompt + max_new_tokens``
-    (rounded up to ``steps_per_sync``) exceed it are rejected at submit.
-    ``prefix_cache`` retains finished prefixes for cross-request KV reuse.
-    The other arguments keep the JAX scheduler's names; the unported
-    features' arguments raise when set (their tuning knobs, and the legacy
-    prefill's ``prefill_bucket``, are not taken)."""
+    the per-slot KV capacity (one extent). Requests whose ``prompt +
+    max_new_tokens`` (rounded up to ``steps_per_sync``) exceed ``max_len x
+    max_extents`` are rejected at submit. ``prefix_cache`` retains finished
+    prefixes for cross-request KV reuse. ``max_extents``,
+    ``seq_parallel_min_tokens``, ``seq_parallel_degree`` and
+    ``allow_lossy_kv`` are the ``long_context`` section's (see the module
+    docstring). The other arguments keep the JAX scheduler's names; the
+    unported features' arguments raise when set (their tuning knobs, and
+    the legacy prefill's ``prefill_bucket``, are not taken)."""
 
     def __init__(self, engine, num_slots=8, max_len=None, collect_logits=False, steps_per_sync=4,
                  prefill_chunk=64, prefix_cache=True, spec_tokens=0, kv_cache_dtype="auto",
                  prefix_store=None, adapter_store=None, expert_store=None, max_extents=1,
-                 seq_parallel_min_tokens=0, allow_lossy_kv=False):
+                 seq_parallel_min_tokens=0, seq_parallel_degree=0, allow_lossy_kv=False):
+        me = max(1, int(max_extents))
+        if me > 1 and int(prefill_chunk) <= 0:
+            raise ValueError("long_context.max_extents > 1 requires chunked prefill "
+                             "(prefill_chunk > 0): the monolithic prefill path writes one "
+                             "contiguous slot and has no extent plumbing")
+        if int(seq_parallel_min_tokens) > 0 and int(prefill_chunk) <= 0:
+            raise ValueError("seq_parallel_min_tokens > 0 requires chunked prefill "
+                             "(prefill_chunk > 0): sequence parallelism shards the chunked "
+                             "path's wide prefill forwards")
         if int(prefill_chunk) <= 0:
             raise _unported("the monolithic prefill (prefill_chunk=0)",
                             "ROADMAP Queue 1 #5, monolithic prefill")
@@ -230,9 +268,6 @@ class DecodeScheduler:
             raise _unported("multi-LoRA serving", "ROADMAP Queue 1 #9, multi-LoRA")
         if expert_store is not None:
             raise _unported("cold-expert offload", "ROADMAP Queue 1 #9, MoE serving")
-        if int(max_extents) > 1 or int(seq_parallel_min_tokens) > 0 or allow_lossy_kv:
-            raise _unported("long-context serving (max_extents > 1, seq-parallel prefill, lossy "
-                            "KV windows)", "ROADMAP Queue 1 #9, long context")
         self.engine = engine
         self.device = engine.device
         model = engine.module
@@ -258,6 +293,25 @@ class DecodeScheduler:
         self.collect_logits = bool(collect_logits)
         self.steps_per_sync = max(1, int(steps_per_sync))
         self.prefill_chunk = min(int(prefill_chunk), S)
+        # a chain's logical positions are bounded by the model's position
+        # horizon: extents past max_seq_len could never hold a valid row
+        me = max(1, min(me, model.cfg.max_seq_len // S))
+        self.allow_lossy_kv = bool(allow_lossy_kv)
+        self.seq_parallel_min_tokens = max(0, int(seq_parallel_min_tokens))
+        if self.seq_parallel_min_tokens > 0:
+            # the wide chunk: degree x the base chunk, clamped to the extent.
+            # One device is a seq axis of one shard, so the default degree is
+            # 1 and the wide forward runs unsharded (the same arithmetic:
+            # chunk boundaries do not change a column's attention)
+            deg = max(1, int(seq_parallel_degree) or 1)
+            self._seq_chunk = max(min(deg * self.prefill_chunk, S), self.prefill_chunk)
+        else:
+            self._seq_chunk = 0
+        if (me > 1 or self._seq_chunk or self.allow_lossy_kv) \
+                and getattr(model.cfg, "attention_impl", "xla") != "flash":
+            raise ValueError("long-context serving (max_extents > 1 / seq-parallel prefill / lossy "
+                             "KV windows) requires attention_impl='flash': the extent block walk "
+                             "and the seq-sharded span kernel live in the paged kernel path")
         kvd = str(kv_cache_dtype or "auto").lower()
         if kvd in ("auto", "model", "none"):
             kv_arg = None
@@ -271,7 +325,7 @@ class DecodeScheduler:
             kv_arg = _DTYPE_MAP[kvd]
         self.kv_quantized = kv_arg == "int8"
         self.cache = SlotKVCache(engine._init_cache(int(num_slots), S, kv_dtype=kv_arg),
-                                 int(num_slots), S)
+                                 int(num_slots), S, max_extents=me)
         self.radix = RadixPrefixCache(self.cache) if prefix_cache else None
         # the fused decode-layer kernels serve the step when the engine's
         # gate admits the config (the JAX scheduler's `fused_block` programs)
@@ -283,6 +337,10 @@ class DecodeScheduler:
             self._fused_block = False
             self._fused_block_reasons = ["model family without fused decode-block support"]
         self._prefill = None  # at most one in-flight _PrefillState
+        # extents dropped by lossy windows; restores come with the host KV
+        # tier (ROADMAP Queue 1 #8), which lossless demotion needs
+        self.longctx_demotes = 0
+        self.longctx_restores = 0
         self.queue = collections.deque()
         self.active = {}  # slot -> _Request
         self._rid = 0
@@ -294,6 +352,8 @@ class DecodeScheduler:
         # run at each width (the paged kernels launch once per layer each)
         self.dispatched = collections.Counter()
         self.forwards = collections.Counter()
+        # chunk width -> forwards that carried extent operands (per projection)
+        self.ext_forwards = collections.Counter()
         self.last_shape = None
 
     # ------------------------------------------------------------------ API
@@ -305,24 +365,41 @@ class DecodeScheduler:
 
         ``on_token(token, done)``: optional host-side streaming hook, called
         once per generated token from inside the loop, in delivery order,
-        with ``done=True`` on the final token. ``trace``, ``adapter_id`` and
-        ``kv_window`` are not ported and raise when set."""
+        with ``done=True`` on the final token.
+
+        ``kv_window``: optional ``(sink, recent)`` lossy long-context window
+        (attention sinks + sliding window, StreamingLLM): the request
+        attends only its first ``sink`` and most recent ``recent`` tokens,
+        and extents that slide entirely out of that window are dropped.
+        This changes the logits, so it needs ``allow_lossy_kv``.
+        ``trace`` and ``adapter_id`` are not ported and raise when set."""
         if trace is not None:
             raise _unported("request tracing", "ROADMAP Queue 1 #6, serving and telemetry")
         if adapter_id is not None:
             raise _unported("multi-LoRA serving (adapter_id)", "ROADMAP Queue 1 #9, multi-LoRA")
         if kv_window is not None:
-            raise _unported("lossy KV windows (kv_window)", "ROADMAP Queue 1 #9, long context")
+            if not self.allow_lossy_kv:
+                raise ValueError("request sets kv_window but lossy long-context KV is not enabled "
+                                 "(continuous_batching.long_context.allow_lossy_kv): "
+                                 "sliding-window attention changes logits and must be opted into "
+                                 "explicitly")
+            sink, recent = int(kv_window[0]), int(kv_window[1])
+            if sink < 0 or recent < 1:
+                raise ValueError(f"kv_window must be (sink >= 0, recent >= 1), got {kv_window!r}")
+            kv_window = (sink, recent)
         req = _Request(self._rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature,
                        top_k, top_p, seed,
                        self.collect_logits if collect_logits is None else collect_logits,
-                       on_token=on_token)
+                       on_token=on_token, kv_window=kv_window)
         self._rid += 1
-        if req.prompt.size >= self.max_len:
+        cap = self.cache.spannable_len
+        if req.prompt.size >= cap:
             raise ValueError(
                 f"prompt of {req.prompt.size} tokens exceeds the per-slot KV capacity "
-                f"{self.max_len} (a prompt needs at least one row of decode headroom); raise "
-                f"the scheduler's max_len / the engine's max_out_tokens, or shorten the prompt")
+                f"{self.max_len} x {self.cache.max_extents} extent(s) = {cap} spannable rows (a "
+                f"prompt needs at least one row of decode headroom); raise the scheduler's "
+                f"max_len / the engine's max_out_tokens / long_context.max_extents, or shorten "
+                f"the prompt")
         if req.max_new_tokens <= 0:  # static-path parity: zero budget -> no tokens
             req.done = True
             return SchedulerHandle(self, req)
@@ -330,8 +407,10 @@ class DecodeScheduler:
         budget = _round_up(req.max_new_tokens, self.steps_per_sync)
         if not self.cache.fits(req.prompt.size, budget):
             raise ValueError(f"request needs {req.prompt.size + budget} cache rows > slot "
-                             f"capacity {self.max_len}; raise max_out_tokens / max_len, or "
-                             f"shorten the request")
+                             f"capacity {self.max_len} x {self.cache.max_extents} extent(s) = "
+                             f"{self.cache.spannable_len}; raise max_out_tokens / max_len / "
+                             f"long_context.max_extents, or shorten the request")
+        req.row_budget = int(budget)
         handle = SchedulerHandle(self, req)
         self.queue.append(req)
         return handle
@@ -362,6 +441,10 @@ class DecodeScheduler:
         prefill, then one fused chunk sync while a prefill is in flight,
         else ``steps_per_sync`` decode steps. Returns tokens delivered."""
         self._reap_cancelled()
+        if self.cache.chain:
+            # extent paging, before admission: lossy rows drop extents that
+            # slid out of their window, freeing rows for this admission
+            self._service_long_context()
         while self.queue and self.queue[0].cancelled:
             self.queue.popleft().done = True
         if self._prefill is None and self.queue:
@@ -408,13 +491,125 @@ class DecodeScheduler:
             self._release_slot(req.slot)  # mid-prefill slots are never registered
             self._prefill = None
 
+    # ------------------------------------------------------------ long context
+    def _ext_operands(self, rows):
+        """The extent operand block of ONE dispatch, over the full slot axis:
+        ``(ext_table (N, E), wslot (N,), ext_base (N,), sinks (N,), wins
+        (N,))`` int32 tensors on the device, or None when no row of
+        ``rows`` (the dispatch's live rows) needs it (no chain in the pool,
+        no lossy window): the dispatch then runs the pre-extent path
+        unchanged. Rows without a chain get the identity single-extent
+        table; dropped extents carry -1. ``wslot``/``ext_base`` put each
+        live row's writes into its WRITE extent's pool row.
+
+        Every dead row writes too (its span-0 columns rewrite old bytes,
+        ``span_write``), so it gets a pool row of its own that no live row
+        writes: its own row where that is free of live writes, else one of
+        the rows left over (a chain's primary row while the chain writes
+        another extent). There are exactly as many such rows as dead rows,
+        so no two columns of a dispatch target one (row, offset); a dead
+        row keeping its identity ``wslot`` could hit the row a chain writes
+        when that row is itself a dead (``extent``) dispatch row."""
+        if not self.cache.chain and not any(r.kv_window is not None for _, r in rows):
+            return None
+        N, S = self.cache.num_slots, self.max_len
+        E = max(1, self.cache.max_extents)
+        ext = np.full((N, E), -1, np.int32)
+        ext[:, 0] = np.arange(N, dtype=np.int32)
+        wslot = np.full(N, -1, np.int32)
+        base = np.zeros(N, np.int32)
+        sinks = np.zeros(N, np.int32)
+        wins = np.zeros(N, np.int32)
+        for slot, req in rows:
+            members = self.cache.extents(slot)
+            ext[slot, :len(members)] = members
+            w = min(int(self.cache.lengths[slot]) // S, len(members) - 1)
+            wslot[slot] = max(int(members[w]), 0)
+            base[slot] = w * S
+            if req.kv_window is not None:
+                sinks[slot], wins[slot] = req.kv_window
+        written = set(int(w) for w in wslot if w >= 0)
+        dead = [b for b in range(N) if wslot[b] < 0]
+        spare = iter(sorted(set(range(N)) - written - set(dead)))
+        for b in dead:
+            wslot[b] = b if b not in written else next(spare)
+        return tuple(torch.from_numpy(a).to(self.device) for a in (ext, wslot, base, sinks, wins))
+
+    def demote_cold_extents(self, slot, keep_recent=1):
+        """Drop a live multi-extent request's COLD extents from the pool.
+        Extent 0 (the attention-sink prefix, pinned) and the write extent
+        (plus ``keep_recent - 1`` extents before it) stay resident; extents
+        past the write head hold nothing and are skipped. Only a lossy
+        request (``kv_window``) may demote: its sliding-window mask already
+        hides every position the dropped rows held. The lossless mode pages
+        the extents to the host KV tier and restores them before the next
+        dispatch that needs them; that tier is not ported, so it raises.
+        Returns the number of extents demoted."""
+        req = self.active.get(slot)
+        if req is None:
+            raise ValueError(f"slot {slot} is not a live decode row")
+        members = self.cache.extents(slot)
+        if len(members) <= 1:
+            return 0
+        if req.kv_window is None:
+            raise ValueError("lossless extent demotion requires the hierarchical KV tier "
+                             "(continuous_batching.hierarchical_kv) for the host-side copy; "
+                             "enable it, or submit the request with kv_window for the lossy "
+                             "sliding-window mode (the port has no KV tier yet: ROADMAP Queue 1 "
+                             "#8, hierarchical KV tier)")
+        S = self.max_len
+        w = min(int(self.cache.lengths[slot]) // S, len(members) - 1)
+        keep = {max(0, w - i) for i in range(max(1, int(keep_recent)))}
+        demoted = 0
+        for idx in range(1, len(members)):
+            if idx in keep or idx > w or members[idx] < 0:
+                continue
+            self.cache.demote_extent(slot, idx)
+            demoted += 1
+            self.longctx_demotes += 1
+        return demoted
+
+    def _service_long_context(self):
+        """Extent paging, once per scheduler iteration: lossy rows
+        (``kv_window``) drop every extent that has slid entirely out of their
+        attention sink and recent window (the window's trailing edge only
+        advances, so a dropped extent is never needed again)."""
+        S = self.max_len
+        for slot, req in list(self.active.items()):
+            if req.kv_window is None or slot not in self.cache.chain:
+                continue
+            sink, recent = req.kv_window
+            length = int(self.cache.lengths[slot])
+            members = self.cache.extents(slot)
+            for idx in range(1, len(members)):
+                if members[idx] >= 0 and idx * S >= sink and (idx + 1) * S <= length - recent:
+                    self.cache.demote_extent(slot, idx)
+                    self.longctx_demotes += 1
+
+    # ------------------------------------------------------------------ admit
     def _acquire_slot(self, req):
         """A free slot for admission plus the radix match for ``req``'s
         prompt, matched BEFORE any eviction (reclaiming a cached slot drops
         its registration). When the free list is dry, reclaims the LRU
         cached slot, sparing the matched donor when another exists. Returns
         ``(slot, (matched_len, donor))``; slot is None when every slot
-        serves a live request."""
+        serves a live request.
+
+        A request longer than one extent reserves its WHOLE chain (prompt +
+        row budget) up front, all or nothing, evicting LRU radix slots for
+        room: extents claimed lazily could deadlock mid-decode with nothing
+        evictable. Chains skip radix reuse both ways (donors are
+        single-extent slots, and a chained slot is never retained)."""
+        n_ext = self.cache.extents_needed(req.prompt.size + req.row_budget)
+        if n_ext > 1:
+            slot = self.cache.alloc_chain(n_ext, owner=req.rid)
+            while slot is None and self.radix is not None:
+                victim = self.radix.evict_lru()
+                if victim is None:
+                    break
+                self.cache.reclaim(victim)
+                slot = self.cache.alloc_chain(n_ext, owner=req.rid)
+            return slot, (0, None)
         match = self.radix.match(req.prompt) if self.radix is not None else (0, None)
         slot = self.cache.alloc(owner=req.rid)
         if slot is None and self.radix is not None:
@@ -432,7 +627,7 @@ class DecodeScheduler:
         the cold path's exact chunk boundaries."""
         req.slot = slot
         pos = 0
-        if self.radix is not None:
+        if self.radix is not None and slot not in self.cache.chain:
             m, donor = match
             m = min(m, req.prompt.size - 1)
             m = (m // self.prefill_chunk) * self.prefill_chunk
@@ -449,7 +644,9 @@ class DecodeScheduler:
             else:
                 self.radix.misses += 1
         self.cache.lengths[slot] = pos
-        self._prefill = _PrefillState(req, pos)
+        pf = _PrefillState(req, pos)
+        pf.seq_parallel = bool(self._seq_chunk and req.prompt.size >= self.seq_parallel_min_tokens)
+        self._prefill = pf
 
     def _finish_prefill(self, req, tok, last_logits):
         """The final chunk landed: register the prompt in the radix trie
@@ -457,7 +654,7 @@ class DecodeScheduler:
         deliver token 0."""
         self._prefill = None
         self.active[req.slot] = req
-        if self.radix is not None:
+        if self.radix is not None and req.slot not in self.cache.chain:
             self.radix.insert(req.slot, req.prompt)
         req.first_token_ts = time.perf_counter()
         if req.collect_logits and last_logits is not None:
@@ -508,25 +705,34 @@ class DecodeScheduler:
             collect = collect or req.collect_logits
         return [seeds, steps, flags, temps, topks, topps], sampling, collect
 
-    def _forward(self, ids, pos, widx, spans):
-        """One in-sync forward over the pool; returns (N, C, V) logits."""
+    def _forward(self, ids, pos, widx, spans, ext_ops=None):
+        """One in-sync forward over the pool; returns (N, C, V) logits. A
+        dispatch with extent operands goes per projection: the fused
+        decode-layer kernels walk no extents."""
         model = self.engine.module
-        if self._fused_block:
+        if self._fused_block and ext_ops is None:
             logits, _ = model.fused_paged_step(self.engine._fast_tree(), ids, self.cache.pool, pos,
                                                widx, spans)
         else:
             logits, _ = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
-                                               position_ids=pos, write_index=widx, q_spans=spans)
+                                               position_ids=pos, write_index=widx, q_spans=spans,
+                                               ext_ops=ext_ops)
         return logits
 
     @torch.inference_mode()
-    def _run(self, ids, lens, spans, samp, sampling, collect, K):
+    def _run(self, ids, lens, spans, samp, sampling, collect, K, ext_ops=None, hold=None):
         """THE step body: the first forward over the (N, C) ids block with
         per-row spans, then K - 1 single-column decode forwards, all on the
         device with nothing read back until the (K, N) token block (and the
         (K, N, V) logits when collected) comes back at the end. Each row
         continues at its own write head ``lens + max(span, 1) - 1 + k``;
-        span-0 (dead or cached) rows write nothing in any forward."""
+        span-0 (dead or cached) rows write nothing in any forward.
+        ``ext_ops``: the dispatch's extent operands (every forward of the
+        sync writes inside each row's write extent), or None. ``hold``: the
+        row of a non-final prefill chunk in an extent dispatch; it writes
+        nothing in the substeps (their tokens are discarded and the next
+        chunk rewrites those rows; past a chunk that ends at its extent's
+        end they would leave the extent)."""
         N, C = ids.shape
         dev = self.device
         seeds, steps, flags, temps, topks, topps = samp
@@ -547,8 +753,11 @@ class DecodeScheduler:
         self.dispatched[(C, K)] += 1
         self.last_shape = (C, K)
         pos = lens_t[:, None] + torch.arange(C, device=dev)[None, :]
-        logits = self._forward(ids_t, pos, lens_t, spans_t)
+        logits = self._forward(ids_t, pos, lens_t, spans_t, ext_ops)
         self.forwards[C] += 1
+        if ext_ops is not None:
+            self.ext_forwards[C] += 1
+            self.ext_forwards[1] += K - 1
         # each row's LAST live column: decode rows column 0, the prefill row
         # its chunk fill - 1 (dead rows clamp to 0, a token never read)
         last = (spans_t - 1).clamp(min=0)
@@ -558,9 +767,11 @@ class DecodeScheduler:
         toks, lgs = [tok], [lg]
         base = lens_t + spans_t.clamp(min=1) - 1  # per-row write head - 1
         live01 = spans_t.clamp(max=1)  # substep spans: dead rows never write
+        if hold is not None:
+            live01[hold] = 0
         for k in range(1, K):
             widx = base + k
-            logits = self._forward(tok[:, None], widx[:, None], widx, live01)
+            logits = self._forward(tok[:, None], widx[:, None], widx, live01, ext_ops)
             self.forwards[1] += 1
             lg = logits[:, 0].float()
             tok = sample(lg, k)
@@ -601,7 +812,15 @@ class DecodeScheduler:
             lens[slot] = self.cache.lengths[slot]
         samp, sampling, collect = self._gather_sampling(live)
         K = self.steps_per_sync
-        toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K)
+        eo = self._ext_operands(live)
+        if eo is not None and K > 1:
+            # a K-step sync writes rows [len, len + K) in the write extent: a
+            # row about to cross an extent boundary steps through it one
+            # token at a time
+            S = self.max_len
+            if any(S - int(self.cache.lengths[s]) % S < K for s, _ in live):
+                K = 1
+        toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K, eo)
         return self._deliver_block(live, toks_k, logits_k, K), K
 
     def _fused_chunk_step(self):
@@ -610,11 +829,15 @@ class DecodeScheduler:
         advance K tokens, the prefill row consumes up to a chunk of prompt
         tokens (and, on its final chunk, starts decoding in the same sync),
         dead rows carry span 0. Returns (tokens delivered, K)."""
-        N, C = self.cache.num_slots, self.prefill_chunk
+        N, S = self.cache.num_slots, self.max_len
         pf = self._prefill
         preq = pf.req
+        # seq-parallel prefill: the wide chunk width, unsharded on one device
+        C = self._seq_chunk if pf.seq_parallel else self.prefill_chunk
         L = preq.prompt.size
-        take = min(C, L - pf.pos)
+        # a chunk never crosses an extent boundary: its KV write lands in
+        # exactly one extent's pool row
+        take = min(C, L - pf.pos, S - pf.pos % S)
         final = pf.pos + take >= L
         ids = np.zeros((N, C), np.int64)
         spans = np.zeros(N, np.int64)
@@ -640,7 +863,18 @@ class DecodeScheduler:
         # substeps pay off only when something decodes in them: live rows,
         # or the prefill row itself once its final chunk lands
         K = self.steps_per_sync if (live or final) else 1
-        toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K)
+        eo = self._ext_operands(live + [(ps, preq)])
+        if eo is not None and K > 1:
+            # substep writes stay inside each row's write extent: decode rows
+            # need K rows of room; a FINAL chunk's row needs its chunk plus
+            # the K - 1 substep rows to fit its extent
+            room = [S - int(self.cache.lengths[s]) % S for s, _ in live]
+            if final:
+                room.append(S - pf.pos % S - take + 1)
+            if any(r < K for r in room):
+                K = 1
+        toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K, eo,
+                                     hold=None if final or eo is None else ps)
         delivered = self._deliver_block(live, toks_k, logits_k, K)
         pf.pos += take
         if final:

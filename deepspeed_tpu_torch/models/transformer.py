@@ -23,13 +23,16 @@ drives the same forward with per-row ``write_index`` and ``q_spans``: each
 row writes its query columns at its own cache position (columns past its
 span are dropped) and attends through the paged decode and span modes of
 the decode-attention kernels; a 3-leaf cache (k int8, v int8, fp16 row
-scales) is the int8 KV tier, quantized on write.
+scales) is the int8 KV tier, quantized on write. With ``ext_ops`` (long
+context) positions are LOGICAL: each row writes into the pool row of its
+write extent and attends through the extent modes of the same kernel.
 :meth:`CausalLMModel.fused_paged_step` is the same step through the fused
 decode-layer kernels.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE, LoRA, alibi, local attention windows, ``ext_ops``, sequence sharding,
-activation fake-quantization, and in training dropout and remat policies.
+MoE, LoRA, alibi, local attention windows, sequence sharding across
+devices, activation fake-quantization, and in training dropout and remat
+policies.
 """
 
 import dataclasses
@@ -40,7 +43,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.decode_attention import decode_attention, paged_decode_attention, paged_span_attention
+from ..ops.decode_attention import (decode_attention, extent_paged_decode_attention,
+                                    extent_paged_span_attention, paged_decode_attention,
+                                    paged_span_attention)
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_matmul import quant_matmul
 from ..ops.quantizer import dequantize_kv_rows, quantize_kv_rows
@@ -383,19 +388,42 @@ def _cached_attention_plain(q, ck, cv, cache_index, cache_mask, dtype):
     return out.reshape(B, nh, T, hd)
 
 
-def span_targets(write_index, q_spans, T, S):
+def span_targets(write_index, q_spans, T, S, wslot=None, ext_base=None):
     """Where :func:`span_write` puts a (B, T) block of query columns in a
     cache of S rows: ``(rows (B, T) int64, live (B, T) bool)``. Column j of
     row b is live when it is inside the row's span (``j < q_spans[b]``) and
     inside the cache (``write_index[b] + j < S``); its row is
     ``(write_index[b] + j) % S``, so the T rows of a batch row are distinct
     while T <= S. Computed once per forward and shared by every layer's
-    leaves."""
+    leaves.
+
+    The extent write (long context, ``wslot``/``ext_base`` (B,) given):
+    ``(pool rows (B,), offsets (B, T), live (B, T))``; column j of row b
+    lands in pool row ``wslot[b]`` at offset ``write_index[b] - ext_base[b] +
+    j``, live when inside the span. The scheduler clamps a chunk and a
+    sync's substeps to the write extent, so a live offset never leaves
+    ``[0, S)`` (else it would land in another request's row), and hands
+    every batch row a pool row of its own (a dead row one that no live row
+    writes), so no two columns target one (row, offset). On the CPU both
+    are checked and a breach raises; on the card a check would wait for the
+    device."""
     if T > S:
         raise ValueError(f"a span of {T} columns does not fit a cache of {S} rows")
     col = torch.arange(T, device=write_index.device)
     tgt = write_index.long()[:, None] + col[None, :]
-    return tgt % S, (col[None, :] < q_spans[:, None]) & (tgt < S)
+    if wslot is None:
+        return tgt % S, (col[None, :] < q_spans[:, None]) & (tgt < S)
+    off = tgt - ext_base.long()[:, None]
+    live = col[None, :] < q_spans[:, None]
+    if not off.is_cuda:
+        out = (live & ((off < 0) | (off >= S))).any(1).nonzero()[:, 0].tolist()
+        if out:
+            raise ValueError(f"an extent write leaves its extent of {S} rows: rows {out}, "
+                             f"write_index {write_index[out].tolist()}, ext_base "
+                             f"{ext_base[out].tolist()}, span {q_spans[out].tolist()}")
+        if torch.unique(wslot).numel() != wslot.numel():
+            raise ValueError(f"two batch rows write one pool row: wslot {wslot.tolist()}")
+    return wslot.long(), off % S, live
 
 
 def span_write(cache, val, targets):
@@ -408,7 +436,18 @@ def span_write(cache, val, targets):
     value where the column is live and the old one where it is dead, and
     scatters back: a dead column rewrites a row with its own bytes, so a
     retained prefix in a dead slot stays byte-stable, with no host sync. A
-    batch row's targets are distinct, so the scatter has no duplicate index."""
+    batch row's targets are distinct, so the scatter has no duplicate index.
+    With extent targets the same happens in each row's pool row, and the
+    targets of all rows are distinct."""
+    if len(targets) == 3:
+        pool_rows, offs, live = targets
+        B, _, T, _ = val.shape
+        view = cache.transpose(1, 2)  # (Npool, S, heads, hd), a view
+        idx = (pool_rows[:, None].expand(B, T), offs)
+        old = view[idx]  # (B, T, heads, hd)
+        view.index_put_(idx, torch.where(live[:, :, None, None], val.transpose(1, 2).to(cache.dtype),
+                                         old))
+        return
     rows, live = targets
     B, heads, _, hd = cache.shape
     idx = rows[:, None, :, None].expand(B, heads, rows.shape[1], hd)
@@ -443,11 +482,13 @@ class Attention(nn.Module):
         mask of batched generation). ``decode_window``: the (start, end) rows
         of the decode kernel (with ``slot_write`` at T > 1: (start, base) of
         the span kernel), computed once per forward by :class:`CausalLM`.
-        ``slot_write``: the slot pool's ``(write_index, q_spans, targets)``,
-        per-row (B,) write positions, live query counts (or None) and their
-        :func:`span_targets`. A 3-leaf cache is the int8 KV tier: fresh K/V
-        are quantized on write. Returns (out, kv_cache); the cache is written
-        in place."""
+        ``slot_write``: the slot pool's ``(write_index, q_spans, targets,
+        ext)``, per-row (B,) write positions, live query counts (or None),
+        their :func:`span_targets` and, for long context, ``(ext_table,
+        sinks, windows)`` (else None): attention then runs through the
+        extent modes over logical positions. A 3-leaf cache is the int8 KV
+        tier: fresh K/V are quantized on write. Returns (out, kv_cache); the
+        cache is written in place."""
         cfg = self.cfg
         B, T, H = x.shape
         nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_size
@@ -484,7 +525,7 @@ class Attention(nn.Module):
             q = q * torch.tensor(cfg.attn_scale * (hd**0.5), dtype=q.dtype)
 
         flash = cfg.attention_impl == "flash"
-        write_index, q_spans, targets = slot_write or (None, None, None)
+        write_index, q_spans, targets, ext = slot_write or (None, None, None, None)
         if kv_cache is not None:
             quant_kv = len(kv_cache) == 3
             csc = None
@@ -501,7 +542,21 @@ class Attention(nn.Module):
             else:
                 for c, val in writes:
                     c[:, :, cache_index:cache_index + T] = val.to(c.dtype)
-            if flash and T == 1 and (write_index is not None or not quant_kv):
+            if ext is not None:
+                # long context: logical windows through each row's extent table
+                starts, ends = decode_window
+                ext_table, sinks, wins = ext
+                if T == 1:
+                    out = extent_paged_decode_attention(
+                        q[:, :, 0].contiguous(), ck, cv, starts, ends, ext_table,
+                        block_kv=cfg.decode_block_kv, k_scale=csc, v_scale=csc, sink=sinks,
+                        window=wins, impl=impl)[:, :, None]
+                else:
+                    out = extent_paged_span_attention(
+                        q.contiguous(), ck, cv, starts, ends, ext_table,
+                        block_kv=cfg.decode_block_kv, k_scale=csc, v_scale=csc, sink=sinks,
+                        window=wins, impl=impl)
+            elif flash and T == 1 and (write_index is not None or not quant_kv):
                 starts, ends = decode_window
                 if write_index is not None:
                     out = paged_decode_attention(q[:, :, 0].contiguous(), ck, cv, starts, ends,
@@ -646,18 +701,26 @@ class CausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, kv_cache=None, cache_index=None,
                 position_ids=None, impl="kernel", return_hidden=False, write_index=None,
-                q_spans=None):
+                q_spans=None, ext_ops=None):
         """``kv_cache``: ``(ks, vs)`` (or ``(ks, vs, scales)``, the int8 KV
         tier), per-layer (B, kv_heads, S, hd) caches written in place.
         Returns logits, or (logits, kv_cache) with a cache, or the
         final-norm hidden states when ``return_hidden`` (the loss fuses the
         vocab projection into the chunked cross entropy). ``write_index``/
         ``q_spans``: the slot pool's per-row write positions and live query
-        counts (``cache_index`` is then unused). ``impl="plain"`` routes
-        every kernel to its plain version (the on-card check that the kernel
-        path computes the same logits)."""
+        counts (``cache_index`` is then unused). ``ext_ops``: long-context
+        extent operands, see :meth:`CausalLMModel.apply_with_cache`.
+        ``impl="plain"`` routes every kernel to its plain version (the
+        on-card check that the kernel path computes the same logits)."""
         cfg = self.cfg
         B, T = input_ids.shape
+        if ext_ops is not None and (cfg.attention_impl != "flash" or cfg.local_attention_window
+                                    or write_index is None or q_spans is None):
+            # a fall-through to the plain cached attention, which knows no
+            # extents, would read the wrong rows
+            raise ValueError("ext_ops/seq_shard require the fused flash span path "
+                             "(attention_impl='flash', rope/none positions, no per-layer local "
+                             "window, write_index + q_spans)")
         if write_index is not None and position_ids is not None:
             # columns past a row's span may sit past the position tables;
             # their values are never read (the JAX gathers clamp them too)
@@ -690,8 +753,15 @@ class CausalLM(nn.Module):
         slot_write = None
         if write_index is not None:
             spans = q_spans if q_spans is not None else torch.full_like(write_index, T)
-            targets = span_targets(write_index, spans, T, kv_cache[0][0].shape[2])
-            slot_write = (write_index, q_spans, targets)
+            ext = None
+            if ext_ops is None:
+                targets = span_targets(write_index, spans, T, kv_cache[0][0].shape[2])
+            else:
+                ext_table, wslot, ext_base, sinks, wins = ext_ops
+                targets = span_targets(write_index, spans, T, kv_cache[0][0].shape[2], wslot,
+                                       ext_base)
+                ext = (ext_table, sinks, wins)
+            slot_write = (write_index, q_spans, targets, ext)
 
         for i, blk in enumerate(self.layers):
             layer_cache = None if kv_cache is None else tuple(comp[i] for comp in kv_cache)
@@ -936,7 +1006,7 @@ class CausalLMModel:
 
     def apply_with_cache(self, params, input_ids, kv_cache, cache_index, cache_mask=None,
                          position_ids=None, write_index=None, q_spans=None, impl="kernel",
-                         **unported):
+                         ext_ops=None, **unported):
         """Forward writing into (and attending over) the KV cache. Returns
         (logits, kv_cache). ``cache_index``: the shared write position (an
         int); ``cache_mask``: (B, S) attendable slots. ``write_index``:
@@ -944,11 +1014,23 @@ class CausalLMModel:
         ``position_ids`` with it); ``q_spans``: optional (B,) live query
         counts per row (the fused chunked-prefill step; columns past a row's
         span are not written). ``params`` is a state dict or a module from
-        :meth:`bind`."""
+        :meth:`bind`.
+
+        ``ext_ops``: long-context extent operands ``(ext_table (B, E),
+        wslot (B,), ext_base (B,), sinks (B,), windows (B,))``, int32 on the
+        pool's device: ``ext_table`` maps each row's logical extent i
+        (tokens ``[i*S, (i+1)*S)``) to its pool row (-1 = dropped),
+        ``wslot``/``ext_base`` the pool row of the write head's extent and
+        that extent's logical base, so a row writes at offset ``write_index
+        - ext_base`` of pool row ``wslot``; ``write_index``, ``q_spans`` and
+        ``position_ids`` stay LOGICAL. ``sinks``/``windows``: the lossy
+        sliding-window mask (0 = exact). Requires the flash span path
+        (``attention_impl='flash'``, ``write_index`` and ``q_spans``); other
+        combinations raise ``ValueError``."""
         _reject_unported_args(unported)
         args = (input_ids, cache_mask, kv_cache, 0 if write_index is not None else int(cache_index),
                 position_ids)
-        kwargs = {"impl": impl, "write_index": write_index, "q_spans": q_spans}
+        kwargs = {"impl": impl, "write_index": write_index, "q_spans": q_spans, "ext_ops": ext_ops}
         if isinstance(params, nn.Module):
             return params(*args, **kwargs)
         return torch.func.functional_call(self.module, params, args, kwargs, strict=True)
@@ -1028,8 +1110,7 @@ _UNPORTED_ARGS = {
     "lora_ops": "ROADMAP Queue 1 #9, multi-LoRA",
     "expert_ops": "ROADMAP Queue 1 #9, MoE serving",
     "expert_stats": "ROADMAP Queue 1 #9, MoE serving",
-    "ext_ops": "ROADMAP Queue 1 #9, long context",
-    "seq_shard": "ROADMAP Queue 1 #9, long context",
+    "seq_shard": "ROADMAP Queue 1 #7, sequence-parallel prefill across devices",
 }
 
 

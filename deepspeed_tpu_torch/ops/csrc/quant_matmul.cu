@@ -23,10 +23,21 @@
 // scale distributes over the slice sum), and the 8 slices are summed in
 // shared memory in a fixed order. The TPU's sequential K grid axis becomes
 // the loop over groups inside the block. At decode a grid of N/128 blocks
-// cannot fill 132 SMs, so the wrapper splits K across blocks too; each
-// split writes an fp32 partial and the last block of a tile to arrive sums
-// them in split order. No atomics touch the values, so the result is the
-// same on every run.
+// cannot fill 132 SMs, so K is cut into splits (ranges of whole staged
+// chunks); each split's 8 slices sum to one fp32 partial, and a row's
+// result is 0 + partial_0 + partial_1 + ... in split order. No atomics touch
+// the values, so the result is the same on every run.
+//
+// Batch invariance: the wrapper picks the split plan from the weight's shape
+// (K, N) alone, never from M, so a row's sums run in the same order whatever
+// else shares the call (the scheduler's chunk step at M = slots x chunk and
+// its decode step at M = slots give a row the same bits). Only where the
+// splits run follows M: while the (n, m) tile grid is too small to fill the
+// card, each split is a block of its own (grid z) that writes its partial to
+// a workspace and the last block of a tile to arrive sums them; once the
+// tile grid fills the card, each block walks its tile's splits in order and
+// keeps the running sums in registers (no (splits, M, N) workspace). Both
+// add the same partials in the same order.
 
 #include "common.cuh"
 
@@ -49,31 +60,20 @@ __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
-           const float* __restrict__ scales, OutT* __restrict__ out, float* __restrict__ ws,
-           int* __restrict__ arrivals, int M, int K, int N, int gs, int k_per_split) {
-  __shared__ float xs[kRows][kChunk];
-  __shared__ float red[kSlices][kRows][kBlockN + 1];
-  __shared__ bool last_arrival;
-
-  const int tx = threadIdx.x % kTx;
-  const int ty = threadIdx.x / kTx;
-  const int n0 = blockIdx.x * kBlockN + tx * kCols;
-  const int m0 = blockIdx.y * kRows;
-  const int rows = min(kRows, M - m0);
-  const bool live = n0 < N;  // N % 4 == 0, so a thread's 4 columns are all in or all out
-  const int k_lo = blockIdx.z * k_per_split;
-  const int k_hi = min(K, k_lo + k_per_split);
-
-  float acc[kRows][kCols];
+// One split's contribution to a thread's 8 x 4 outputs: every quantization
+// group that meets the K range [k_lo, k_hi), each group's fp32 partial times
+// its scale row, summed in group order into acc.
+__device__ __forceinline__ void split_partial(const __nv_bfloat16* __restrict__ x,
+                                              const int8_t* __restrict__ qw,
+                                              const float* __restrict__ scales,
+                                              float (&xs)[kRows][kChunk], float (&acc)[kRows][kCols],
+                                              int k_lo, int k_hi, int K, int N, int gs, int n0,
+                                              int m0, int rows, bool live, int ty) {
 #pragma unroll
   for (int m = 0; m < kRows; ++m)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
 
-  // every quantization group that meets this block's K range [k_lo, k_hi)
   for (int g0 = k_lo / gs * gs; g0 < k_hi; g0 += gs) {
     const int a = max(g0, k_lo), b = min(g0 + gs, k_hi);
     float part[kRows][kCols];
@@ -127,14 +127,66 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
         for (int c = 0; c < kCols; ++c) acc[m][c] += part[m][c] * sv[c];
     }
   }
+}
 
+// kSeq: each block walks all of its tile's splits in order, keeping the
+// running sums in shared memory; else a block computes the split of its
+// grid z (the only one when the plan has one).
+template <typename OutT, bool kSeq>
+__global__ void __launch_bounds__(kThreads)
+qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
+           const float* __restrict__ scales, OutT* __restrict__ out, float* __restrict__ ws,
+           int* __restrict__ arrivals, int M, int K, int N, int gs, int splits,
+           int k_per_split) {
+  __shared__ float xs[kRows][kChunk];
+  __shared__ float red[kSlices][kRows][kBlockN + 1];
+  __shared__ float total[kSeq ? kRows : 1][kBlockN];  // kSeq: the running sums
+  __shared__ bool last_arrival;
+
+  const int tx = threadIdx.x % kTx;
+  const int ty = threadIdx.x / kTx;
+  const int n0 = blockIdx.x * kBlockN + tx * kCols;
+  const int m0 = blockIdx.y * kRows;
+  const int rows = min(kRows, M - m0);
+  const bool live = n0 < N;  // N % 4 == 0, so a thread's 4 columns are all in or all out
+  float acc[kRows][kCols];
+
+  if constexpr (kSeq) {
+    for (int i = threadIdx.x; i < kRows * kBlockN; i += kThreads)  // a thread's own sums
+      total[i / kBlockN][i % kBlockN] = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      split_partial(x, qw, scales, xs, acc, z * k_per_split, min(K, (z + 1) * k_per_split), K,
+                    N, gs, n0, m0, rows, live, ty);
+      __syncthreads();  // the previous split's readers are done with red
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) red[ty][m][tx * kCols + c] = acc[m][c];
+      __syncthreads();
+      for (int i = threadIdx.x; i < kRows * kBlockN; i += kThreads) {
+        const int m = i / kBlockN, col = i % kBlockN;
+        float s = 0.f;
+        for (int k = 0; k < kSlices; ++k) s += red[k][m][col];  // fixed order
+        total[m][col] += s;  // split order from 0, as the spread path sums
+      }
+    }
+    for (int i = threadIdx.x; i < kRows * kBlockN; i += kThreads) {
+      const int m = i / kBlockN, col = i % kBlockN;
+      const int n = blockIdx.x * kBlockN + col;
+      if (m < rows && n < N) out[(size_t)(m0 + m) * N + n] = to_out<OutT>(total[m][col]);
+    }
+    return;
+  }
+
+  const int k_lo = blockIdx.z * k_per_split;
+  split_partial(x, qw, scales, xs, acc, k_lo, min(K, k_lo + k_per_split), K, N, gs, n0, m0, rows,
+                live, ty);
 #pragma unroll
   for (int m = 0; m < kRows; ++m)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) red[ty][m][tx * kCols + c] = acc[m][c];
   __syncthreads();
 
-  const int splits = gridDim.z;
   for (int i = threadIdx.x; i < kRows * kBlockN; i += kThreads) {
     const int m = i / kBlockN, col = i % kBlockN;
     const int n = blockIdx.x * kBlockN + col;
@@ -150,8 +202,9 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
   }
   if (splits == 1) return;
 
-  // split K: the last block of this (n, m) tile to arrive sums the splits'
-  // partials in split order, so the result does not depend on arrival order
+  // spread splits: the last block of this (n, m) tile to arrive sums the
+  // splits' partials in split order, so the result does not depend on
+  // arrival order
   __threadfence();
   __syncthreads();
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
@@ -174,13 +227,17 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ qw,
 }  // namespace
 
 // x, qw, scales, out: device pointers; the caller checked shapes, types,
-// contiguity, N % 4 == 0 and 16-byte alignment. With splits > 1, ws holds
-// splits * M * N floats and arrivals one zeroed int per (n, m) tile (the
-// kernel leaves it zeroed). Returns cudaGetLastError().
+// contiguity, N % 4 == 0 and 16-byte alignment. The plan: ``splits`` K
+// ranges of ``k_per_split`` rows. ``spread``: one block per split (grid z =
+// splits), ws holding splits * M * N floats and arrivals one zeroed int per
+// (n, m) tile (the kernel leaves it zeroed); else each block walks its
+// tile's splits in order and ws/arrivals may be null. Returns
+// cudaGetLastError().
 DS_EXPORT int qmm_launch(const void* x, const void* qw, const void* scales, void* out,
                          void* ws, void* arrivals, int M, int K, int N, int G, int splits,
-                         int k_per_split, int out_f32, void* stream) {
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kRows - 1) / kRows, splits);
+                         int k_per_split, int spread, int out_f32, void* stream) {
+  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kRows - 1) / kRows,
+                  spread && splits > 1 ? splits : 1);
   const int gs = K / G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
@@ -188,12 +245,21 @@ DS_EXPORT int qmm_launch(const void* x, const void* qw, const void* scales, void
   const auto* sp = static_cast<const float*>(scales);
   auto* wsp = static_cast<float*>(ws);
   auto* ap = static_cast<int*>(arrivals);
-  if (out_f32) {
-    qmm_kernel<float><<<grid, kThreads, 0, s>>>(xp, wp, sp, static_cast<float*>(out), wsp, ap, M,
-                                                K, N, gs, k_per_split);
+  auto* of = static_cast<float*>(out);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const bool seq = !spread && splits > 1;
+  if (out_f32 && seq) {
+    qmm_kernel<float, true><<<grid, kThreads, 0, s>>>(xp, wp, sp, of, wsp, ap, M, K, N, gs, splits,
+                                                      k_per_split);
+  } else if (out_f32) {
+    qmm_kernel<float, false><<<grid, kThreads, 0, s>>>(xp, wp, sp, of, wsp, ap, M, K, N, gs, splits,
+                                                       k_per_split);
+  } else if (seq) {
+    qmm_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(xp, wp, sp, ob, wsp, ap, M, K, N, gs,
+                                                              splits, k_per_split);
   } else {
-    qmm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        xp, wp, sp, static_cast<__nv_bfloat16*>(out), wsp, ap, M, K, N, gs, k_per_split);
+    qmm_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(xp, wp, sp, ob, wsp, ap, M, K, N, gs,
+                                                               splits, k_per_split);
   }
   return static_cast<int>(cudaGetLastError());
 }

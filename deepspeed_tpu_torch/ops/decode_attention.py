@@ -1,15 +1,17 @@
-"""Decode attention over a KV cache: the static engine's decode mode and the
-continuous-batching scheduler's paged decode, paged span and int8-KV modes.
+"""Decode attention over a KV cache: the static engine's decode mode, the
+continuous-batching scheduler's paged decode, paged span and int8-KV modes,
+and their extent modes (long-context KV chains, lossy sliding windows).
 
-Port of ``deepspeed_tpu/ops/pallas/decode_attention.py`` (the TPU kernel
-``_decode_kernel`` in every mode of its ``_decode_call``). One CUDA kernel,
-``ops/csrc/decode_attention.cu``, templated on bf16 and int8 KV, carries
-every mode: a row's arithmetic depends only on its own window, so a span
-column computes bitwise what the decode mode computes for the same window
-(the scheduler's results do not depend on whether a token rode a chunk step
-or a decode step). Its header says what bounds it on the H100 and how its
-design answers that. The extent walk (``_extent_kernel``)
-comes with long-context serving (ROADMAP Queue 2 #8).
+Port of ``deepspeed_tpu/ops/pallas/decode_attention.py`` (the TPU kernels
+``_decode_kernel`` in every mode of its ``_decode_call``, and
+``_extent_kernel``). One CUDA kernel, ``ops/csrc/decode_attention.cu``,
+templated on bf16 and int8 KV, carries every mode: a row's arithmetic
+depends only on its own logical window, so a span column computes bitwise
+what the decode mode computes for the same window (the scheduler's results
+do not depend on whether a token rode a chunk step or a decode step), and a
+row whose window runs through an extent chain computes bitwise what one
+slot holding the same window computes. Its header says what bounds it on the
+H100 and how its design answers that.
 
 - :func:`decode_attention`: q (B, H, D); row b attends the cache slots
   ``[start[b], end)``, ``end`` a scalar shared by every row (the static
@@ -18,17 +20,27 @@ comes with long-context serving (ROADMAP Queue 2 #8).
   ``ends``; a dead slot (``ends == 0``) gets zeros.
 - :func:`paged_span_attention`: q (B, H, T, D); column j of row b sits at
   cache position ``base[b] + j`` and attends ``[start[b], base[b] + j]``.
+- :func:`extent_paged_decode_attention`, :func:`extent_paged_span_attention`:
+  the same over a pool of extents, caches (Npool, kv_heads, S, D): an
+  extent table ``ext`` (B, E) int32 puts row b's LOGICAL position p at pool
+  row ``ext[b, p // S]``, offset ``p % S`` (-1: a dropped extent, which no
+  kept position may lie in); ``start``/``ends``/``base`` are logical, up to
+  E * S. Per-row ``sink``/``window`` (B,) int32: a row with ``window > 0``
+  also skips the positions in ``[sink, end - window)``, ``end`` its column's
+  own end (the lossy StreamingLLM window; ``window == 0`` is exact).
 
-Caches are (B, kv_heads, S, D). With ``k_scale``/``v_scale`` ((B, 1, S, 1)
-fp16, from :func:`deepspeed_tpu_torch.ops.quantizer.quantize_kv_rows`) the
-caches are int8 and each row is dequantized as ``k * scale`` in fp32. The
-output is in q's dtype; a row whose window is empty gets zeros.
+Caches are (B, kv_heads, S, D) (the extent modes: (Npool, ...)). With
+``k_scale``/``v_scale`` ((B or Npool, 1, S, 1) fp16, from
+:func:`deepspeed_tpu_torch.ops.quantizer.quantize_kv_rows`) the caches are
+int8 and each row is dequantized as ``k * scale`` in fp32. The output is in
+q's dtype; a row whose window is empty gets zeros.
 
 A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
 ``impl="plain"``, takes the plain version, which computes what the TPU
-kernel's ``_decode_call`` computes: the (head-group, column) fold with the
-column fastest, ``end + column`` per column, fp32 scores and softmax,
-``l == 0 -> 1``.
+kernels' ``_decode_call``/``_extent_call`` compute: the (head-group,
+column) fold with the column fastest, ``end + column`` per column, fp32
+scores and softmax, ``l == 0 -> 1``; the extent modes gather each row's
+logical window first.
 """
 
 import ctypes
@@ -44,7 +56,7 @@ def _lib():
     global _libc
     if _libc is None:
         lib = build.load("decode_attention")
-        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.decode_launch.restype = ctypes.c_int
         _libc = lib
@@ -79,10 +91,12 @@ def _check_cache(qg, k_cache, v_cache, block_kv, k_scale, v_scale):
 
 
 def _decode_call_plain(qg, k_cache, v_cache, start, ends, *, span=1, scale=None, k_scale=None,
-                       v_scale=None):
+                       v_scale=None, sink=None, win=None):
     """Plain PyTorch version of the TPU kernel's ``_decode_call``: ``qg``
     (B, nkv, g, D) folded queries (g = head-groups x span columns, column
-    fastest); folded row r attends ``[start, ends + r % span)``."""
+    fastest); folded row r attends ``[start, ends + r % span)``, less
+    ``[sink, ends + r % span - win)`` where ``win > 0`` (``_extent_call``'s
+    lossy mask)."""
     B, nkv, g, D = qg.shape
     S = k_cache.shape[2]
     dev = qg.device
@@ -97,6 +111,9 @@ def _decode_call_plain(qg, k_cache, v_cache, start, ends, *, span=1, scale=None,
     end = ends[:, None] + col[None, :]  # (B, g)
     pos = torch.arange(S, device=dev)
     live = (pos >= start[:, None, None]) & (pos < end[:, :, None])  # (B, g, S)
+    if win is not None:
+        w = win[:, None, None]
+        live &= (w == 0) | (pos < sink[:, None, None]) | (pos >= end[:, :, None] - w)
     s = s.masked_fill(~live[:, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -125,15 +142,21 @@ def _fold_span(q, nkv):
     return q.reshape(B, nkv, (H // nkv) * T, D)
 
 
-def _launch(what, qg, k_cache, v_cache, start, ends, k_scale, v_scale, scale, span):
+def _launch(what, qg, k_cache, v_cache, start, ends, k_scale, v_scale, scale, span, ext=None,
+            sink=None, win=None):
     """Launch the kernel on the folded queries (B, nkv, R, D); folded row r
-    attends ``[start, ends + r % span)``."""
+    attends ``[start, ends + r % span)`` (logical positions through ``ext``
+    (B, E) when given, less the lossy hole of ``sink``/``win``)."""
     B, nkv, R, D = qg.shape
     quant = k_scale is not None
     kv_dtype = torch.int8 if quant else torch.bfloat16
     ops = [("q", qg, torch.bfloat16), ("k_cache", k_cache, kv_dtype), ("v_cache", v_cache, kv_dtype)]
     if quant:
         ops += [("k_scale", k_scale, torch.float16), ("v_scale", v_scale, torch.float16)]
+    if ext is not None:
+        ops += [("ext", ext, torch.int32)]
+    if win is not None:
+        ops += [("sink", sink, torch.int32), ("window", win, torch.int32)]
     for name, t, dt in ops:
         if t.dtype != dt or t.device != qg.device or not t.is_contiguous():
             raise ValueError(f"{what} kernel: {name} must be a contiguous {dt} tensor on "
@@ -142,13 +165,14 @@ def _launch(what, qg, k_cache, v_cache, start, ends, k_scale, v_scale, scale, sp
     if D not in (64, 128):
         raise ValueError(f"{what} kernel: needs head dim 64 or 128; got {D}")
     S = k_cache.shape[2]
+    E = 1 if ext is None else ext.shape[1]
     scale = scale if scale is not None else 1.0 / (D**0.5)
     out = torch.empty_like(qg)
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.decode_launch(ptr(qg), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
-                           ptr(start), ptr(ends), ptr(out), B, nkv, R, span, S, D, int(quant),
-                           float(scale), build.stream_of(qg))
+                           ptr(start), ptr(ends), ptr(ext), ptr(sink), ptr(win), ptr(out), B, nkv,
+                           R, span, S, E, D, int(quant), float(scale), build.stream_of(qg))
     build.check(lib, rc, what)
     return out
 
@@ -271,3 +295,136 @@ def paged_span_attention(q, k_cache, v_cache, start, base, *, block_kv=256, scal
 
 paged_span_attention.launches = 0  # bf16 KV
 paged_span_attention.launches_int8 = 0
+
+# ---------------------------------------------------------------- extent modes
+
+
+def _check_pool(qg, k_cache, v_cache, ext, block_kv, k_scale, v_scale):
+    """Shapes of a folded query block (B, nkv, rows, D) against a pool of
+    extents (Npool, nkv, S, D) and its (B, E) table."""
+    B, nkv, _, D = qg.shape
+    if k_cache.dim() != 4 or k_cache.shape[1] != nkv or k_cache.shape[3] != D \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"pool caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)} do not match "
+                         f"the queries' (kv_heads={nkv}, D={D})")
+    if ext.dim() != 2 or ext.shape[0] != B or ext.shape[1] < 1:
+        raise ValueError(f"extent table must be (B={B}, E >= 1); got {tuple(ext.shape)}")
+    Np, S = k_cache.shape[0], k_cache.shape[2]
+    block_kv = min(block_kv, S)
+    if S % block_kv:
+        raise ValueError(f"cache length {S} must be a multiple of block_kv={block_kv}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together (int8 KV)")
+    if k_scale is not None and (k_scale.shape != (Np, 1, S, 1) or v_scale.shape != k_scale.shape):
+        raise ValueError(f"int8 KV scales must be (Npool, 1, S, 1) = {(Np, 1, S, 1)}; got "
+                         f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)}")
+
+
+def _logical(leaf, ext):
+    """A pool leaf (Npool, h, S, d) read through the extent table (B, E):
+    (B, h, E * S, d), row b's logical positions in order (a dropped extent
+    reads pool row 0, masked out by its window)."""
+    B, E = ext.shape
+    _, h, S, d = leaf.shape
+    return leaf[ext.clamp(min=0).long()].transpose(1, 2).reshape(B, h, E * S, d)
+
+
+def _lossy(sink, window, B, device):
+    """(sink, window) as (B,) int32 tensors, or (None, None) for the exact
+    mask (the kernel then takes null pointers)."""
+    if sink is None and window is None:
+        return None, None
+    return _rows(0 if sink is None else sink, B, device), _rows(0 if window is None else window, B,
+                                                               device)
+
+
+def _extent_plain(qf, k_cache, v_cache, start, ends, ext, span, scale, k_scale, v_scale, sink,
+                  window):
+    B = qf.shape[0]
+    sk, wn = _lossy(sink, window, B, qf.device)
+    return _decode_call_plain(qf, _logical(k_cache, ext), _logical(v_cache, ext),
+                              _rows(start, B, qf.device), ends, span=span, scale=scale,
+                              k_scale=None if k_scale is None else _logical(k_scale, ext),
+                              v_scale=None if v_scale is None else _logical(v_scale, ext),
+                              sink=sk, win=wn)
+
+
+def extent_paged_decode_attention_plain(q, k_cache, v_cache, start, ends, ext, *, block_kv=256,
+                                        scale=None, k_scale=None, v_scale=None, sink=None,
+                                        window=None):
+    """Plain PyTorch version of :func:`extent_paged_decode_attention`."""
+    qg = _group(q, k_cache.shape[1])
+    _check_pool(qg, k_cache, v_cache, ext, block_kv, k_scale, v_scale)
+    out = _extent_plain(qg, k_cache, v_cache, start, _rows(ends, q.shape[0], q.device), ext, 1,
+                        scale, k_scale, v_scale, sink, window)
+    return out.reshape(q.shape)
+
+
+def extent_paged_decode_attention(q, k_cache, v_cache, start, ends, ext, *, block_kv=256,
+                                  scale=None, k_scale=None, v_scale=None, sink=None, window=None,
+                                  impl="kernel"):
+    """:func:`paged_decode_attention` over a pool of extents: q (B, H, D),
+    caches (Npool, kv_heads, S, D), ``ext`` (B, E) int32, logical ``ends``
+    (B,); ``sink``/``window`` (B,) the lossy window (None: exact). With an
+    identity table (``ext[b] = [b]``) it computes bitwise what
+    :func:`paged_decode_attention` computes. Returns (B, H, D)."""
+    _impl_ok(impl)
+    if impl == "plain" or not q.is_cuda:
+        return extent_paged_decode_attention_plain(q, k_cache, v_cache, start, ends, ext,
+                                                   block_kv=block_kv, scale=scale, k_scale=k_scale,
+                                                   v_scale=v_scale, sink=sink, window=window)
+    qg = _group(q, k_cache.shape[1])
+    _check_pool(qg, k_cache, v_cache, ext, block_kv, k_scale, v_scale)
+    B = q.shape[0]
+    sk, wn = _lossy(sink, window, B, q.device)
+    out = _launch("extent_paged_decode_attention", qg, k_cache, v_cache, _rows(start, B, q.device),
+                  _rows(ends, B, q.device), k_scale, v_scale, scale, 1, ext=ext, sink=sk, win=wn)
+    if k_scale is None:
+        extent_paged_decode_attention.launches += 1
+    else:
+        extent_paged_decode_attention.launches_int8 += 1
+    return out.reshape(q.shape)
+
+
+extent_paged_decode_attention.launches = 0  # bf16 KV
+extent_paged_decode_attention.launches_int8 = 0
+
+
+def extent_paged_span_attention_plain(q, k_cache, v_cache, start, base, ext, *, block_kv=256,
+                                      scale=None, k_scale=None, v_scale=None, sink=None,
+                                      window=None):
+    """Plain PyTorch version of :func:`extent_paged_span_attention`."""
+    qf = _fold_span(q, k_cache.shape[1])
+    _check_pool(qf, k_cache, v_cache, ext, block_kv, k_scale, v_scale)
+    out = _extent_plain(qf, k_cache, v_cache, start, _rows(base, q.shape[0], q.device) + 1, ext,
+                        q.shape[2], scale, k_scale, v_scale, sink, window)
+    return out.reshape(q.shape)
+
+
+def extent_paged_span_attention(q, k_cache, v_cache, start, base, ext, *, block_kv=256, scale=None,
+                                k_scale=None, v_scale=None, sink=None, window=None, impl="kernel"):
+    """:func:`paged_span_attention` over a pool of extents (the chunk step
+    while a row's context spans extents): q (B, H, T, D), ``base`` (B,)
+    logical write heads, the rest as in :func:`extent_paged_decode_attention`.
+    Returns (B, H, T, D)."""
+    _impl_ok(impl)
+    if impl == "plain" or not q.is_cuda:
+        return extent_paged_span_attention_plain(q, k_cache, v_cache, start, base, ext,
+                                                 block_kv=block_kv, scale=scale, k_scale=k_scale,
+                                                 v_scale=v_scale, sink=sink, window=window)
+    qf = _fold_span(q, k_cache.shape[1])
+    _check_pool(qf, k_cache, v_cache, ext, block_kv, k_scale, v_scale)
+    B, T = q.shape[0], q.shape[2]
+    sk, wn = _lossy(sink, window, B, q.device)
+    out = _launch("extent_paged_span_attention", qf.contiguous(), k_cache, v_cache,
+                  _rows(start, B, q.device), _rows(base, B, q.device) + 1, k_scale, v_scale, scale,
+                  T, ext=ext, sink=sk, win=wn)
+    if k_scale is None:
+        extent_paged_span_attention.launches += 1
+    else:
+        extent_paged_span_attention.launches_int8 += 1
+    return out.reshape(q.shape)
+
+
+extent_paged_span_attention.launches = 0  # bf16 KV
+extent_paged_span_attention.launches_int8 = 0

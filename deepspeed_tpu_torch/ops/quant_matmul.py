@@ -24,16 +24,38 @@ _arrivals = {}  # device -> zeroed int32 tile counters of the split-K reduction
 
 # kernel tiling (ops/csrc/quant_matmul.cu): 8 rows x 128 columns per block
 _ROWS, _COLS = 8, 128
-# split K across blocks until the grid holds about two blocks per SM of the
-# H100 (132 SMs), keeping at least 64 K rows (one staged chunk) per split
+# split K until one row tile's blocks number about two per SM of the H100
+# (132 SMs), keeping at least 64 K rows (one staged chunk) per split
 _TARGET_BLOCKS, _MIN_SPLIT_K = 264, 64
+
+
+def _split_plan(K, N):
+    """(splits, k_per_split): K cut into ranges of whole staged chunks so
+    that one row tile's (column tiles x splits) blocks about fill the card.
+    The plan is a function of the weight's shape alone, never of the row
+    count M: a row's fp32 partials are summed in the same order whatever
+    else shares the call, so the scheduler's chunk step (M = slots x chunk)
+    and decode step (M = slots) give a row the same bits (its K- and
+    batch-invariance on the card). At M <= 8 (one row tile) it is the plan
+    the kernel has always used at decode."""
+    tiles = -(-N // _COLS)
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), K // _MIN_SPLIT_K))
+    k_per_split = -(-K // (splits * _MIN_SPLIT_K)) * _MIN_SPLIT_K  # whole staged chunks
+    return -(-K // k_per_split), k_per_split
+
+
+def _spread(M, N, splits):
+    """Whether the splits run as blocks of their own (grid z) rather than
+    in order inside each block: only while the (n, m) tile grid alone is too
+    small to fill the card. Where they run never changes a result."""
+    return splits > 1 and -(-N // _COLS) * -(-M // _ROWS) < _TARGET_BLOCKS
 
 
 def _kernel():
     global _lib
     if _lib is None:
         lib = build.load("quant_matmul")
-        lib.qmm_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.qmm_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.qmm_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -92,12 +114,11 @@ def quant_matmul(x, qw, scales, out_dtype=None, impl="kernel"):
     if N % 4:
         raise ValueError(f"quant_matmul kernel: N={N} must be a multiple of 4")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    tiles = -(-N // _COLS) * -(-M // _ROWS)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), K // _MIN_SPLIT_K))
-    k_per_split = -(-K // (splits * _MIN_SPLIT_K)) * _MIN_SPLIT_K  # whole staged chunks
-    splits = -(-K // k_per_split)
+    splits, k_per_split = _split_plan(K, N)
+    spread = _spread(M, N, splits)
     ws = arrivals = None
-    if splits > 1:
+    if spread:
+        tiles = -(-N // _COLS) * -(-M // _ROWS)
         ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
         arrivals = _arrivals.get(x.device)
         if arrivals is None or arrivals.numel() < tiles:
@@ -106,8 +127,8 @@ def quant_matmul(x, qw, scales, out_dtype=None, impl="kernel"):
     rc = lib.qmm_launch(x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
                         None if ws is None else ws.data_ptr(),
                         None if arrivals is None else arrivals.data_ptr(),
-                        M, K, N, G, splits, k_per_split, int(out_dtype == torch.float32),
-                        build.stream_of(x))
+                        M, K, N, G, splits, k_per_split, int(spread),
+                        int(out_dtype == torch.float32), build.stream_of(x))
     build.check(lib, rc, "quant_matmul")
     quant_matmul.launches += 1
     return out

@@ -13,8 +13,15 @@ The paged modes: dead slots (ends 0), start > 0, bf16 and int8 KV, GQA up
 to g = 8, spans T of 1 to 100 (folded rows across several 64-row tiles),
 windows reaching the end of the cache; the fused slot-pool step through
 every kernel against its plain versions; and the sampler's draws, bitwise
-equal on the card and the CPU. ``chip_smoke.py`` covers the main path's
-shapes; this file covers the rest.
+equal on the card and the CPU. The extent modes (long context): one extent,
+a chain ending exactly at an extent boundary, a lossy window that keeps
+nothing of a row, D 64 and 128, bf16 and int8 KV, against their plain
+versions, an identity table bitwise equal to the paged modes and a chain
+bitwise equal to one big slot; a chained request's K/V in the pool bitwise
+equal to one big slot's, with the dead-row write collision planted. And
+quant_matmul's rows bitwise the same whatever M shares the call (8 to 1024
+rows, at gpt2-large's and llama3-8b's projection and head shapes).
+``chip_smoke.py`` covers the main path's shapes; this file covers the rest.
 
 These tests need an NVIDIA card with the CUDA toolkit (a CUDA kernel has no
 CPU mode): they carry the ``cuda`` marker and skip without a card. On the
@@ -32,7 +39,14 @@ import torch
 
 from deepspeed_tpu_torch.inference.scheduler import sample_uniforms
 from deepspeed_tpu_torch.models.transformer import CausalLMModel, TransformerConfig
+import numpy as np
+
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_plain,
+                                                      extent_paged_decode_attention,
+                                                      extent_paged_decode_attention_plain,
+                                                      extent_paged_span_attention,
+                                                      extent_paged_span_attention_plain,
                                                       paged_decode_attention,
                                                       paged_decode_attention_plain,
                                                       paged_span_attention,
@@ -556,3 +570,153 @@ def test_sampler_draws_equal_on_the_card_and_the_cpu(dev):
     cpu = sample_uniforms(seeds, steps, 50257)
     card = sample_uniforms(seeds.to(dev), steps.to(dev), 50257)
     assert torch.equal(card.cpu(), cpu)
+
+
+# ---------------------------------------------------------------- batch invariance
+
+# (K, N): gpt2-large's qkv, o, up, down and padded int8 head; llama3-8b's
+ROW_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 51200),
+              (4096, 6144), (4096, 4096), (4096, 14336), (14336, 4096), (4096, 129024)]
+
+
+@pytest.mark.parametrize("K,N", ROW_SHAPES)
+def test_quant_matmul_rows_do_not_depend_on_the_batch(dev, K, N):
+    """Rows of quant_matmul(x[:m]) are bitwise the same rows of
+    quant_matmul(x) for m in 8, 64, 512, 1024: the split plan follows the
+    weight's shape, never M (the scheduler's chunk and decode steps, and a
+    chained request's per-projection dispatches, give a row the same bits)."""
+    g = _gen(dev, K + N)
+    x = torch.randn((1024, K), generator=g, device=dev).to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((K // 128, N), generator=g, device=dev) * 0.01 + 1e-4
+    full = quant_matmul(x, qw, sc)
+    for m in (8, 64, 512):
+        part = quant_matmul(x[:m], qw, sc)
+        torch.cuda.synchronize()
+        diff = int((part != full[:m]).sum())
+        assert diff == 0, f"qmm {K}x{N}: rows of M={m} differ from M=1024 in {diff} entries"
+
+
+# ---------------------------------------------------------------- extent modes
+
+
+def _pool_kv(g, dev, Np, nkv, S, D, int8):
+    return _kv(g, dev, Np, nkv, S, D, int8)
+
+
+# (Np, S, D, nkv, g, table, starts, ends, sinks, windows): one extent (E=1)
+# over a shuffled pool; a 3-extent chain ending exactly at an extent
+# boundary (end 3*S), a row ending at its first boundary, a dead row; a
+# lossy chain with a dropped (-1) extent inside its hole, a lossy row keeping
+# only its last position (window 1), and a row whose kept window is empty
+# (start == end)
+EXTENT_CASES = [
+    (4, 256, 64, 20, 1, [[2], [0], [3], [1]], [0, 5, 0, 0], [256, 100, 1, 0], None, None),
+    (6, 128, 128, 8, 4, [[5, 0, 3], [1, -1, -1], [2, 4, -1], [0, -1, -1]], [0, 0, 3, 0],
+     [384, 128, 129, 0], None, None),
+    (6, 128, 64, 4, 2, [[5, -1, 3], [1, 0, -1], [2, 4, -1], [3, -1, -1]], [0, 0, 129, 0],
+     [370, 200, 129, 0], [4, 0, 0, 0], [100, 1, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("Np,S,D,nkv,gq,table,starts,ends,sinks,windows", EXTENT_CASES)
+def test_extent_kernels_match_plain(dev, Np, S, D, nkv, gq, table, starts, ends, sinks, windows,
+                                    int8):
+    g = _gen(dev, Np + S + D + int8)
+    B = len(table)
+    kc, vc, sc = _pool_kv(g, dev, Np, nkv, S, D, int8)
+    ext = torch.tensor(table, dtype=torch.int32, device=dev)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    end = torch.tensor(ends, dtype=torch.int32, device=dev)
+    lossy = {} if sinks is None else {
+        "sink": torch.tensor(sinks, dtype=torch.int32, device=dev),
+        "window": torch.tensor(windows, dtype=torch.int32, device=dev)}
+    q = torch.randn((B, nkv * gq, D), generator=g, device=dev).to(torch.bfloat16)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(extent_paged_decode_attention, counter)
+    out = extent_paged_decode_attention(q, kc, vc, start, end, ext, k_scale=sc, v_scale=sc, **lossy)
+    assert getattr(extent_paged_decode_attention, counter) == before + 1
+    torch.cuda.synchronize()
+    ref = extent_paged_decode_attention_plain(q, kc, vc, start, end, ext, k_scale=sc, v_scale=sc,
+                                              **lossy)
+    _assert_close(out, ref, f"extent decode Np={Np} S={S} D={D} int8={int8}")
+    # the span: T = 16 columns ending at each row's end
+    T = 16
+    base = (end - T).clamp(min=0)
+    q4 = torch.randn((B, nkv * gq, T, D), generator=g, device=dev).to(torch.bfloat16)
+    out = extent_paged_span_attention(q4, kc, vc, start, base, ext, k_scale=sc, v_scale=sc, **lossy)
+    torch.cuda.synchronize()
+    ref = extent_paged_span_attention_plain(q4, kc, vc, start, base, ext, k_scale=sc, v_scale=sc,
+                                            **lossy)
+    _assert_close(out, ref, f"extent span Np={Np} S={S} D={D} int8={int8}")
+    assert torch.equal(extent_paged_span_attention(q4, kc, vc, start, base, ext, k_scale=sc,
+                                                   v_scale=sc, **lossy), out)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_extent_kernel_identity_and_chain_bitwise(dev, D, int8):
+    """An identity table launches bitwise what the paged modes launch; a
+    3-extent chain bitwise what one slot of 3 * S rows holding the same
+    logical window gives (decode and span; the big slot's 384 rows take
+    block_kv 128)."""
+    g = _gen(dev, D + int8)
+    Np, nkv, S, H = 5, 4, 128, 16
+    kc, vc, sc = _pool_kv(g, dev, Np, nkv, S, D, int8)
+    ident = torch.arange(Np, dtype=torch.int32, device=dev)[:, None]
+    start = torch.tensor([0, 3, 0, 9, 1], dtype=torch.int32, device=dev)
+    ends = torch.tensor([128, 40, 0, 17, 1], dtype=torch.int32, device=dev)
+    q = torch.randn((Np, H, D), generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(extent_paged_decode_attention(q, kc, vc, start, ends, ident, k_scale=sc,
+                                                     v_scale=sc),
+                       paged_decode_attention(q, kc, vc, start, ends, k_scale=sc, v_scale=sc))
+    q4 = torch.randn((Np, H, 64, D), generator=g, device=dev).to(torch.bfloat16)
+    base = torch.tensor([64, 0, 10, 30, 64], dtype=torch.int32, device=dev)
+    assert torch.equal(extent_paged_span_attention(q4, kc, vc, start, base, ident, k_scale=sc,
+                                                   v_scale=sc),
+                       paged_span_attention(q4, kc, vc, start, base, k_scale=sc, v_scale=sc))
+    chain = torch.tensor([[4, 1, 3]], dtype=torch.int32, device=dev)
+    big = [leaf[chain[0].long()].transpose(0, 1).reshape(1, leaf.shape[1], 3 * S, leaf.shape[3])
+           .contiguous() for leaf in (kc, vc) + ((sc, ) if int8 else ())]
+    bsc = big[2] if int8 else None
+    s1, e1 = start[:1], torch.tensor([300], dtype=torch.int32, device=dev)
+    assert torch.equal(extent_paged_decode_attention(q[:1], kc, vc, s1, e1, chain, k_scale=sc,
+                                                     v_scale=sc),
+                       paged_decode_attention(q[:1], big[0], big[1], s1, e1, k_scale=bsc,
+                                              v_scale=bsc, block_kv=128))
+    b1 = torch.tensor([236], dtype=torch.int32, device=dev)
+    assert torch.equal(extent_paged_span_attention(q4[:1].contiguous(), kc, vc, s1, b1, chain,
+                                                   k_scale=sc, v_scale=sc),
+                       paged_span_attention(q4[:1].contiguous(), big[0], big[1], s1, b1,
+                                            k_scale=bsc, v_scale=bsc, block_kv=128))
+
+
+def test_chained_request_pool_bytes_equal_one_big_slot(dev):
+    """A 3-slot pool on the card, int8 weights through the batch-invariant
+    quant_matmul per projection (chained dispatches skip the fused kernels,
+    so the big slot's reference skips them too): a 200-token prompt on a chain [0, 1] passes its write head
+    over logical 128, offset 0 of extent 1, whose pool row 1 is also a dead
+    dispatch row (the planted collision). The pool then holds, in every
+    layer, bitwise the K/V of the same prompt on one 256-row slot, and the
+    greedy streams are equal."""
+    cfg = TransformerConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                            num_kv_heads=2, max_seq_len=256, intermediate_size=512,
+                            scan_layers=False)
+    config = {"dtype": "int8", "kernel_inject": True, "fused_decode_block": False,
+              "continuous_batching": {"enabled": True, "num_slots": 3}}
+    prompt = [int(t) for t in np.resize(np.arange(3, 500, 7), 200)]
+    outs, pools = [], []
+    for kw in ({"max_len": 128, "max_extents": 2}, {"max_len": 256}):
+        eng = deepspeed_tpu_torch.init_inference(CausalLMModel(cfg), config=config)
+        s = eng.scheduler(prefill_chunk=64, **kw)
+        assert s.max_len == kw["max_len"]
+        outs.append(s.submit(prompt, max_new_tokens=8).result())
+        pools.append([t for comp in s.cache.pool for t in comp])
+        if "max_extents" in kw:
+            assert s.forwards[64] > 0 and s.cache.extents(0) == [0] and not s.cache.chain
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(outs[0], outs[1])
+    for chained, big in zip(*pools):
+        logical = torch.cat([chained[0], chained[1]], dim=1)
+        assert torch.equal(logical[:, :200], big[0, :, :200])

@@ -125,14 +125,6 @@ def test_random_operation_storm_matches_jax(seed):
         _same(jkv, jrx, tkv, trx)
 
 
-def test_long_context_chains_raise():
-    kv = SlotKVCache(None, 2, 64)
-    with pytest.raises(NotImplementedError, match="long context"):
-        kv.alloc_chain(2)
-    with pytest.raises(NotImplementedError, match="long context"):
-        SlotKVCache(None, 2, 64, max_extents=2)
-
-
 @pytest.mark.parametrize("quantized", [False, True])
 def test_copy_slot_copies_exactly_one_slot(quantized):
     """Every layer leaf (k, v, and the int8 tier's scales) of ``dst`` takes

@@ -2,7 +2,10 @@
 Pallas quant_matmul (interpret mode on the CPU), on the same numpy inputs.
 
 The CUDA kernel itself cannot run here; ``chip_smoke.py`` holds it against
-this plain version on the card."""
+this plain version on the card. Its split-K plan is checked here: a function
+of the weight's shape alone, so a row's result does not depend on M."""
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +13,7 @@ import pytest
 import torch
 
 from deepspeed_tpu.ops.pallas.quant_matmul import quant_matmul as jax_qmm
-from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+from deepspeed_tpu_torch.ops.quant_matmul import _spread, _split_plan, quant_matmul, quant_matmul_plain
 
 
 def _inputs(M, K, N, G, seed):
@@ -53,3 +56,32 @@ def test_shape_errors():
         quant_matmul(torch.from_numpy(x), torch.from_numpy(qw), torch.ones(3, 128))
     with pytest.raises(ValueError, match="!= qw K"):
         quant_matmul(torch.from_numpy(x[:, :128]), torch.from_numpy(qw), torch.from_numpy(scales))
+
+
+# gpt2-large's and llama3-8b's projections and int8 heads, (K, N)
+PLAN_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 51200),
+               (4096, 6144), (4096, 4096), (4096, 14336), (14336, 4096), (4096, 129024)]
+
+
+def _decode_plan(K, N):
+    """The split plan at one row tile (M <= 8), written out: K split until
+    the column tiles x splits reach 264 blocks, at least 64 K rows a split,
+    rounded to whole 64-row chunks."""
+    tiles = -(-N // 128)
+    splits = max(1, min(-(-264 // tiles), K // 64))
+    per = -(-K // (splits * 64)) * 64
+    return -(-K // per), per
+
+
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_split_plan_takes_no_row_count(K, N):
+    """The plan's only inputs are K and N, it is the decode plan at every
+    M, its splits cover K in whole chunks, and only where the splits run
+    (spread over blocks, or in order inside each block) follows M."""
+    assert list(inspect.signature(_split_plan).parameters) == ["K", "N"]
+    splits, per = _split_plan(K, N)
+    assert (splits, per) == _decode_plan(K, N)
+    assert per % 64 == 0 and (splits - 1) * per < K <= splits * per
+    spreads = [_spread(M, N, splits) for M in (1, 8, 64, 512, 1024, 8192)]
+    assert spreads[0] == spreads[1] == (splits > 1)
+    assert not spreads[-1]  # a card-filling tile grid walks its splits in order

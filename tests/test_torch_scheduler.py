@@ -406,12 +406,26 @@ PINNED_HASHES = [[3170179127, 4179371476, 682839416, 3842603924],
 
 
 def test_unported_features_raise():
+    """Each unported feature raises naming its ROADMAP item; of long
+    context, sharding the seq-parallel prefill across devices (#7), lossless
+    extent demotion without the KV tier (#8) and chains under speculative
+    decode (#5) still do."""
     eng = _port()
     for kw, item in [({"spec_tokens": 2}, "speculative decode"),
-                     ({"prefill_chunk": 0}, "monolithic prefill"),
-                     ({"max_extents": 2}, "long context")]:
+                     ({"spec_tokens": 2, "max_extents": 2}, "speculative decode"),
+                     ({"prefill_chunk": 0}, "monolithic prefill")]:
         with pytest.raises(NotImplementedError, match=item):
             sched_mod.DecodeScheduler(eng, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+        eng.module.apply_with_cache(eng.net, torch.zeros((1, 1), dtype=torch.long),
+                                    eng.module.init_cache(1, 64), 0, seq_shard=True)
+    flash = _port(kernel_inject=True).scheduler(max_len=32, prefill_chunk=16, max_extents=2)
+    h = flash.submit(LONG, max_new_tokens=8)
+    while not flash.active:
+        flash.step()
+    with pytest.raises(ValueError, match="hierarchical KV tier.*Queue 1 #8"):
+        flash.demote_cold_extents(next(iter(flash.active)))
+    h.cancel()
     with pytest.raises(NotImplementedError, match="multi-LoRA"):
         eng.scheduler().submit(PROMPTS[0], adapter_id="a")
     with pytest.raises(NotImplementedError, match="RLHF"):
@@ -419,7 +433,6 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="disaggregated"):
         eng.scheduler().migrate_out(None, None, None)
     for section, item in [({"spec_tokens": 2}, "speculative decode"),
-                          ({"hierarchical_kv": {"enabled": True}}, "hierarchical KV"),
-                          ({"long_context": {"max_extents": 2}}, "long context")]:
+                          ({"hierarchical_kv": {"enabled": True}}, "hierarchical KV")]:
         with pytest.raises(NotImplementedError, match=item):
             _port(continuous_batching={"enabled": True, **section})
