@@ -72,7 +72,22 @@ Phases (any failure ends the run with a non-zero exit):
 8. llama3-8b training at full width, depth cut to 2 layers, micro batch
    1, seq 2048: the same kernel-vs-plain micro-step check, then 3 steps:
    GQA g=4, D=128, RoPE, RMSNorm and SwiGLU through the backward kernels;
-   finite losses and exact launch counts.
+   finite losses and exact launch counts;
+9. block-sparse attention, the main path of its three kernels: at
+   gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
+   ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
+   ``SparsityConfig`` at its defaults (Fixed unidirectional) and BigBird
+   unidirectional: exactly one forward, one dq and one dk/dv launch a call,
+   two calls bitwise equal, one cached layout per sequence length, out and
+   gradients within 2^-7 of max|plain| and 2e-3 relative L2 error
+   (``impl="plain"``), and a planted fault (one kv block dropped from one
+   q block's walk) failing that relative-L2 gate; the all-ones
+   causal layout against the dense flash kernels; the sparse
+   forward+backward times beside dense flash's. The kernel phase holds the
+   three kernels against their plain versions at gpt2-large's widths
+   (BigBird; Fixed unidirectional, also at a ragged T 4056) and llama3-8b's
+   (H 32, D 128, block 16, BigBird), timed beside
+   scaled_dot_product_attention with the layout expanded to a boolean mask.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -619,6 +634,83 @@ def out_mlp_cases(torch, gen, dev):
                chain, nbytes, flops)
 
 
+# block-sparse attention: gpt2-large's attention widths (B 2, H 20, D 64) at
+# T 4096 with block 64 (BigBird, Fixed unidirectional, and Fixed at a ragged
+# T), and llama3-8b's (B 1, H 32 -- the op has no GQA -- D 128) with block 16
+SPARSE_T = 4096
+
+
+def _sparse_kernel_shapes():
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig, FixedSparsityConfig
+    fixed = lambda H, blk: FixedSparsityConfig(H, block=blk, attention="unidirectional")
+    return [("gpt2-large BigBird", 2, 20, SPARSE_T, 64, BigBirdSparsityConfig(20, block=64)),
+            ("gpt2-large Fixed uni", 2, 20, SPARSE_T, 64, fixed(20, 64)),
+            ("llama3-8b BigBird", 1, 32, SPARSE_T, 128, BigBirdSparsityConfig(32, block=16)),
+            ("gpt2-large Fixed uni ragged", 2, 20, SPARSE_T - 40, 64, fixed(20, 64))]
+
+
+def _visible(torch, layout, block, T, causal, dev):
+    """(1, H, T, T) bool: the layout's tiles expanded to positions, cropped
+    to T, and kv <= q when causal (the function the kernels compute)."""
+    m = torch.from_numpy(layout).to(dev).bool()
+    m = m.repeat_interleave(block, 1).repeat_interleave(block, 2)[:, :T, :T]
+    if causal:
+        m = m & torch.ones((T, T), dtype=torch.bool, device=dev).tril()
+    return m[None]
+
+
+def block_sparse_cases(torch, gen, dev, which):
+    """The block-sparse kernel ``which`` ("fwd", "dq" or "dkv") at
+    ``_sparse_kernel_shapes``. The backward kernels run on the plain
+    forward's out and lse. Bound: 4, 6 or 8 * D operations per visible
+    (query, key) pair of the layout, and q, k, v (+ dO, lse, delta) read
+    once, the outputs written once, and of the tables the counts and the
+    entries a CTA reads (``cnt`` of its row, not the padding). Library: one
+    scaled_dot_product_attention with the layout expanded to a boolean
+    attn_mask (forward and backward for dq and dk/dv)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
+        block_sparse_attention_plain, block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain,
+        block_sparse_bwd_dq, block_sparse_bwd_dq_plain, block_sparse_fwd, make_block_sparse_attention)
+    for label, B, H, T, D, cfg in _sparse_kernel_shapes():
+        blk = cfg.block
+        layout = cfg.make_layout(-(-T // blk) * blk)
+        causal = getattr(cfg, "attention", "bidirectional") == "unidirectional"
+        q_idx, q_cnt, kv_idx, kv_cnt = make_block_sparse_attention(layout, blk, causal).tables(dev)
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        mask = _visible(torch, layout, blk, T, causal, dev)
+        pairs = B * int(mask.sum())
+        qkv_bytes = 3 * q.numel() * 2
+        q_table_bytes = (int(q_cnt.sum()) + q_cnt.numel()) * 4
+        kv_table_bytes = (int(kv_cnt.sum()) + kv_cnt.numel()) * 4
+        desc = (f"{label} B={B} H={H} T={T} D={D} block={blk} density "
+                f"{pairs / (B * H * T * T):.3f}{' causal' if causal else ''}")
+        if which == "fwd":
+            yield (desc,
+                   lambda a=(q, k, v, q_idx, q_cnt, blk, causal): block_sparse_fwd(*a),
+                   lambda a=(q, k, v, q_idx, q_cnt, blk, causal): block_sparse_attention_plain(*a),
+                   lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(q, k, v, attn_mask=m),
+                   qkv_bytes + q.numel() * 2 + B * H * T * 4 + q_table_bytes,
+                   4 * D * pairs)
+            continue
+        out, lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, blk, causal)
+        delta = (do.float() * out.float()).sum(-1)
+        in_bytes = qkv_bytes + do.numel() * 2 + 2 * B * H * T * 4
+        library = lambda q=q, k=k, v=v, do=do, m=mask: _fwd_bwd(
+            torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=m), q, k, v, do)
+        if which == "dq":
+            args = (q, k, v, do, lse, delta, q_idx, q_cnt, blk, causal)
+            yield (desc, lambda a=args: block_sparse_bwd_dq(*a),
+                   lambda a=args: block_sparse_bwd_dq_plain(*a), library,
+                   in_bytes + q.numel() * 2 + q_table_bytes, 6 * D * pairs)
+        else:
+            args = (q, k, v, do, lse, delta, kv_idx, kv_cnt, blk, causal)
+            yield (desc, lambda a=args: block_sparse_bwd_dkv(*a),
+                   lambda a=args: block_sparse_bwd_dkv_plain(*a), library,
+                   in_bytes + 2 * k.numel() * 2 + kv_table_bytes, 8 * D * pairs)
+
+
 KERNELS = [
     # name, source, TPU kernel it replaces (its pallas_call), case generator,
     # "call" when one PyTorch call computes the same function, else "chain"
@@ -662,9 +754,27 @@ KERNELS = [
     ("extent_paged_span_int8", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
      "deepspeed_tpu/ops/pallas/decode_attention.py:367",
      lambda t, g, d: extent_cases(t, g, d, True, True), "chain"),
+    # block-sparse attention: forward, dq, dk/dv over the layout's tables
+    ("block_sparse_fwd", "deepspeed_tpu_torch/ops/csrc/block_sparse_attention_fwd.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:216",
+     lambda t, g, d: block_sparse_cases(t, g, d, "fwd"), "call"),
+    ("block_sparse_bwd_dq", "deepspeed_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:252",
+     lambda t, g, d: block_sparse_cases(t, g, d, "dq"), "call"),
+    ("block_sparse_bwd_dkv", "deepspeed_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:270",
+     lambda t, g, d: block_sparse_cases(t, g, d, "dkv"), "call"),
 ]
 # kernels whose two calls on the same inputs must agree bit for bit
-DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv")
+DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+# kernels whose fp32 output (the lse) holds -inf where a row attends nothing:
+# there the kernel must give -inf too, and the finite entries are compared
+NEG_INF_OUTPUTS = ("block_sparse_fwd", )
+# the block-sparse outputs are also held to a relative L2 error: in a causal
+# layout row 0 attends only itself and sets max|plain| several times the
+# typical entry, so the max-abs gate alone could pass a dropped kv block.
+# The sparse phase plants that fault and requires this gate to catch it.
+SPARSE_REL_L2 = 2e-3
 
 
 def kernel_phase(torch, dev):
@@ -687,16 +797,26 @@ def kernel_phase(torch, dev):
                 again = again if isinstance(again, tuple) else (again, )
                 check(all(torch.equal(o, a) for (o, _), a in zip(pairs, again)),
                       f"{name} [{label}]: two calls on the same inputs differ")
-            case_err, case_ref = 0.0, 0.0
+            case_err, case_ref, case_rel = 0.0, 0.0, None
             # outputs in bf16 (the working type): one bf16 ulp at the largest
             # magnitude, 2^-7 of max|plain|; the flash lse (fp32 on both
             # sides, online vs direct softmax) within 1e-3
             for i, (o, r) in enumerate(pairs):
+                if name in NEG_INF_OUTPUTS and o.dtype == torch.float32:
+                    fin = torch.isfinite(r)
+                    check(torch.equal(torch.isfinite(o), fin) and bool((o[~fin] == r[~fin]).all()),
+                          f"{name} [{label}] output {i}: non-finite entries differ from plain")
+                    o, r = o[fin], r[fin]
                 err = float((o.float() - r.float()).abs().max())
                 ref_max = float(r.float().abs().max())
                 tol = 1e-3 if o.dtype == torch.float32 else 2.0**-7 * ref_max
                 check(err <= tol, f"{name} [{label}] output {i}: max abs err {err:.3e} > {tol:.3e}")
                 check(bool(torch.isfinite(o.float()).all()), f"{name} [{label}] non-finite output")
+                if name in SPARSE_KERNELS and o.dtype != torch.float32:
+                    rel = _rel_l2(o, r)
+                    check(rel <= SPARSE_REL_L2,
+                          f"{name} [{label}] output {i}: rel L2 err {rel:.3e} > {SPARSE_REL_L2:g}")
+                    case_rel = rel if case_rel is None else max(case_rel, rel)
                 case_err, case_ref = max(case_err, err), max(case_ref, ref_max)
             agg["max_abs_err"] = max(agg["max_abs_err"], case_err)
             k_ms, p_ms, l_ms = cuda_ms(kern, flush), cuda_ms(plain, flush, 3), cuda_ms(library, flush)
@@ -705,7 +825,8 @@ def kernel_phase(torch, dev):
             log(f"kernel {name} [{label}]: {k_ms:.4f} ms (plain {p_ms:.4f}, library "
                 f"{'chain ' if library_kind == 'chain' else ''}{l_ms:.4f}, bound {b_ms:.4f} by "
                 f"{b_by}{''.join(f', {key} {v:.4f}' for key, v in extra_ms.items())}), "
-                f"max abs err {case_err:.3e} (max |plain| {case_ref:.3e})")
+                f"max abs err {case_err:.3e} (max |plain| {case_ref:.3e})"
+                + (f", rel L2 err {case_rel:.3e}" if case_rel is not None else ""))
             for key, v in extra_ms.items():
                 agg[key] = agg.get(key, 0.0) + v
             agg["ms"] += k_ms
@@ -717,7 +838,8 @@ def kernel_phase(torch, dev):
             agg["cases"].append({"case": label, "ms": k_ms, "plain_ms": p_ms,
                                  ("library_chain_ms" if library_kind == "chain" else "library_ms"): l_ms,
                                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": case_err,
-                                 "max_abs_plain": case_ref, **extra_ms})
+                                 "max_abs_plain": case_ref,
+                                 **({} if case_rel is None else {"rel_l2_err": case_rel}), **extra_ms})
         agg["bound_by"] = "bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms") else "operations"
         results[name] = agg
     del flush
@@ -739,10 +861,14 @@ def counters():
     from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
+        block_sparse_bwd_dkv, block_sparse_bwd_dq, block_sparse_fwd)
     fns = {"quant_matmul": quant_matmul, "flash_attention": flash_attention_fwd,
            "decode_attention": decode_attention, "fused_qkv_ln": fused_qkv_ln,
            "fused_out_mlp": fused_out_mlp, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
-           "paged_decode_attention": paged_decode_attention, "paged_span_attention": paged_span_attention}
+           "paged_decode_attention": paged_decode_attention, "paged_span_attention": paged_span_attention,
+           "block_sparse_fwd": block_sparse_fwd, "block_sparse_bwd_dq": block_sparse_bwd_dq,
+           "block_sparse_bwd_dkv": block_sparse_bwd_dkv}
     out = {k: (fn, "launches") for k, fn in fns.items()}
     out["paged_decode_attention_int8"] = (paged_decode_attention, "launches_int8")
     out["paged_span_attention_int8"] = (paged_span_attention, "launches_int8")
@@ -767,7 +893,8 @@ ZERO_COUNTS = {k: 0 for k in ("quant_matmul", "flash_attention", "decode_attenti
                               "paged_decode_attention", "paged_span_attention",
                               "paged_decode_attention_int8", "paged_span_attention_int8",
                               "extent_paged_decode", "extent_paged_span", "extent_paged_decode_int8",
-                              "extent_paged_span_int8")}
+                              "extent_paged_span_int8", "block_sparse_fwd", "block_sparse_bwd_dq",
+                              "block_sparse_bwd_dkv")}
 
 
 def expected_counts(cfg, new_tokens, fused):
@@ -1928,6 +2055,129 @@ def llama_train_phase(torch):
     torch.cuda.empty_cache()
 
 
+# the sparse path: gpt2-large's attention widths at T 4096, block 64, bf16
+SPARSE_SHAPE = (2, 20, SPARSE_T, 64)
+SPARSE_BLOCK = 64
+SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+
+
+def sparse_configs(H, block):
+    """Each non-dense SparsityConfig at its defaults (Fixed unidirectional;
+    LocalSlidingWindow is by default), and BigBird unidirectional, the
+    causal-LM form, whose random blocks reach the diagonal."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    return [("Fixed uni", sa.FixedSparsityConfig(H, block=block, attention="unidirectional")),
+            ("Variable", sa.VariableSparsityConfig(H, block=block)),
+            ("BigBird", sa.BigBirdSparsityConfig(H, block=block)),
+            ("BigBird uni", sa.BigBirdSparsityConfig(H, block=block, attention="unidirectional")),
+            ("BSLongformer", sa.BSLongformerSparsityConfig(H, block=block)),
+            ("LocalSlidingWindow", sa.LocalSlidingWindowSparsityConfig(H, block=block))]
+
+
+def _out_and_grads(torch, fn, q, k, v, do):
+    """(out, dq, dk, dv) of one attention call, through autograd."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    out.backward(do)
+    return (out.detach(), *(t.grad for t in leaves))
+
+
+def _rel_l2(got, ref):
+    """||got - ref|| / ||ref||, in fp32."""
+    ref = ref.float()
+    return float((got.float() - ref).norm() / ref.norm())
+
+
+def _close(torch, got, ref, what):
+    """Each of out, dq, dk, dv within 2^-7 of max|ref| (one bf16 ulp at the
+    largest magnitude) and within ``SPARSE_REL_L2`` relative L2 error,
+    finite."""
+    errs = []
+    for tag, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        err, tol = float((a.float() - r.float()).abs().max()), 2.0**-7 * float(r.float().abs().max())
+        rel = _rel_l2(a, r)
+        check(bool(torch.isfinite(a.float()).all()), f"{what} {tag}: non-finite entries")
+        check(err <= tol, f"{what} {tag}: max abs err {err:.3e} > {tol:.3e}")
+        check(rel <= SPARSE_REL_L2, f"{what} {tag}: rel L2 err {rel:.3e} > {SPARSE_REL_L2:g}")
+        errs.append(f"{tag} {err:.2e}/{tol:.2e} rel L2 {rel:.2e}")
+    return ", ".join(errs)
+
+
+def sparse_attention_phase(torch):
+    """``SparseSelfAttention`` forward and backward through autograd for
+    each of ``sparse_configs`` at gpt2-large's widths: launch counts exactly
+    1 forward, 1 dq, 1 dk/dv a call; two calls bitwise equal; one cached
+    layout per sequence length; out and gradients against ``impl="plain"``.
+    Then the all-ones layout, causal, against the dense flash kernels, and
+    the sparse forward+backward times beside dense flash's (a figure, not a
+    gate). Returns the three kernels' launches over the checked calls."""
+    import numpy as np
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention, make_block_sparse_attention
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import block_sparse_fwd
+    B, H, T, D = SPARSE_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    want = {**ZERO_COUNTS, **{n: 1 for n in SPARSE_KERNELS}}
+    totals = dict.fromkeys(SPARSE_KERNELS, 0)
+    fns = {}
+    for label, cfg in sparse_configs(H, SPARSE_BLOCK):
+        ssa = SparseSelfAttention(cfg)
+        runs = []
+        for _ in range(2):
+            reset_counts()
+            runs.append(_out_and_grads(torch, ssa, q, k, v, do))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts == want, f"sparse {label}: launch counts {counts} != {want}")
+            for n in SPARSE_KERNELS:
+                totals[n] += counts[n]
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"sparse {label}: two calls on the same inputs differ")
+        check(list(ssa._cache) == [T], f"sparse {label}: layout cache {list(ssa._cache)}, expected [{T}]")
+        attn = ssa._cache[T]
+        plain = make_block_sparse_attention(attn.layout, SPARSE_BLOCK, attn.causal, impl="plain")
+        errs = _close(torch, runs[0], _out_and_grads(torch, plain, q, k, v, do), f"sparse {label}")
+        cnt = attn.np_tables[1]
+        log(f"sparse {label}: density {float(attn.layout.mean()):.4f}{' causal' if attn.causal else ''}, "
+            f"kv blocks a q block min/median/max {int(cnt.min())}/{int(np.median(cnt))}/{int(cnt.max())}; "
+            f"kernels vs plain: {errs}")
+        fns[label] = ssa
+    # planted fault: the forward kernel with one kv block dropped from the
+    # walk of one q block (head 0, the median count of Fixed uni, causal)
+    # must fail the relative-L2 gate on its own
+    attn = fns["Fixed uni"]._cache[T]
+    q_idx, q_cnt = attn.tables(dev)[:2]
+    row = int(torch.argsort(q_cnt[0], stable=True)[q_cnt.shape[1] // 2])
+    cut = q_cnt.clone()
+    cut[0, row] -= 1
+    good = block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal)[0]
+    bad = block_sparse_fwd(q, k, v, q_idx, cut, SPARSE_BLOCK, attn.causal)[0]
+    rel = _rel_l2(bad, good)
+    log(f"sparse planted fault, Fixed uni head 0 q block {row} walks {int(cut[0, row])} of its "
+        f"{int(q_cnt[0, row])} kv blocks: rel L2 {rel:.3e} (gate {SPARSE_REL_L2:g}), max abs "
+        f"{float((bad.float() - good.float()).abs().max()):.3e}")
+    check(rel > SPARSE_REL_L2, f"sparse planted fault: rel L2 {rel:.3e} passes the {SPARSE_REL_L2:g} gate")
+    nb = T // SPARSE_BLOCK
+    dense = make_block_sparse_attention(np.ones((H, nb, nb), np.int64), SPARSE_BLOCK, causal=True)
+    flash = lambda a, b, c: flash_attention(a, b, c, causal=True)
+    errs = _close(torch, _out_and_grads(torch, dense, q, k, v, do),
+                  _out_and_grads(torch, flash, q, k, v, do), "sparse all-ones causal vs flash")
+    log(f"sparse all-ones layout, causal, vs the dense flash kernels: {errs}")
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    flash_ms = cuda_ms(lambda: _out_and_grads(torch, flash, q, k, v, do), flush)
+    times = {label: cuda_ms(lambda f=f: _out_and_grads(torch, f, q, k, v, do), flush)
+             for label, f in list(fns.items()) + [("all-ones causal", dense)]}
+    del flush
+    log(f"sparse forward+backward ms at B={B} H={H} T={T} D={D} block {SPARSE_BLOCK} (L2 flushed): "
+        + ", ".join(f"{lb} {ms:.4f}" for lb, ms in times.items())
+        + f"; dense flash causal {flash_ms:.4f}")
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main(argv=()):
     """``--kernels NAME[,NAME...]``: build those kernels and run only their
     rows of the kernel phase (to time a change against its parent in one
@@ -1998,6 +2248,10 @@ def main(argv=()):
         results[name]["launches"] = train_counts[name]
     train_parity_phase(torch)
     llama_train_phase(torch)
+    # the sparse path is the main path of the three block-sparse kernels
+    sparse_counts = sparse_attention_phase(torch)
+    for name in SPARSE_KERNELS:
+        results[name]["launches"] = sparse_counts[name]
     for name, r in results.items():
         check(r["launches"] and r["launches"] > 0, f"{name} was never launched on the main path")
 

@@ -9,8 +9,10 @@ per-projection kernels), serves continuous batching through
 ``engine.scheduler()`` / ``engine.submit()`` (chunked prefill, radix prefix
 cache, int8 KV, on the paged decode and span kernels) and trains on one device through ``initialize()``
 → ``train_batch()`` (fp32 master weights, bf16 compute, AdamW, flash
-attention's forward and backward kernels); see ``ROADMAP.md`` for what is
-still to come.
+attention's forward and backward kernels), and runs block-sparse attention
+(``ops.sparse_attention``: every ``SparsityConfig``, forward and backward
+on three table-driven kernels); see ``ROADMAP.md`` for what is still to
+come.
 """
 
 import os

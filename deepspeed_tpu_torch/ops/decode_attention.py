@@ -49,13 +49,15 @@ import torch
 
 from . import build
 
+# the CUDA sources under ops/csrc this module launches
+SOURCES = ("decode_attention", )
 _libc = None
 
 
 def _lib():
     global _libc
     if _libc is None:
-        lib = build.load("decode_attention")
+        lib = build.load(SOURCES[0])
         lib.decode_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.decode_launch.restype = ctypes.c_int

@@ -42,6 +42,8 @@ from . import build
 from .decode_attention import decode_attention
 from .quant_matmul import quant_matmul_plain
 
+# the CUDA sources under ops/csrc this module launches
+SOURCES = ("fused_qkv_ln", "fused_out_mlp")
 _libs = {}
 _arrivals = {}  # (kernel, device) -> zeroed int32 tile counters of the split-K reductions
 _resident = {}  # (kernel, device) -> blocks the device holds at once

@@ -28,6 +28,8 @@ import torch
 
 from . import build
 
+# the CUDA sources under ops/csrc this module launches
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 _lib = {}
 
 

@@ -19,6 +19,8 @@ import torch
 
 from . import build
 
+# the CUDA sources under ops/csrc this module launches
+SOURCES = ("quant_matmul", )
 _lib = None
 _arrivals = {}  # device -> zeroed int32 tile counters of the split-K reduction
 
@@ -54,7 +56,7 @@ def _spread(M, N, splits):
 def _kernel():
     global _lib
     if _lib is None:
-        lib = build.load("quant_matmul")
+        lib = build.load(SOURCES[0])
         lib.qmm_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.qmm_launch.restype = ctypes.c_int
         _lib = lib

@@ -20,7 +20,14 @@ versions, an identity table bitwise equal to the paged modes and a chain
 bitwise equal to one big slot; a chained request's K/V in the pool bitwise
 equal to one big slot's, with the dead-row write collision planted. And
 quant_matmul's rows bitwise the same whatever M shares the call (8 to 1024
-rows, at gpt2-large's and llama3-8b's projection and head shapes).
+rows, at gpt2-large's and llama3-8b's projection and head shapes). The
+block-sparse kernels (forward, dq, dk/dv) at blocks 16/32/64/128 and head
+dims 64/128, causal or not, on a layout with blocks above the diagonal, an
+empty q row, a kv block no query reads and a row that reads only the
+future; a ragged T; different layouts per head; bitwise-equal backward
+repeats; autograd through ``SparseSelfAttention``; and the ValueErrors for
+what the kernels do not take (fp32, head dim 96, block 48, tables off the
+card).
 ``chip_smoke.py`` covers the main path's shapes; this file covers the rest.
 
 These tests need an NVIDIA card with the CUDA toolkit (a CUDA kernel has no
@@ -720,3 +727,149 @@ def test_chained_request_pool_bytes_equal_one_big_slot(dev):
     for chained, big in zip(*pools):
         logical = torch.cat([chained[0], chained[1]], dim=1)
         assert torch.equal(logical[:, :200], big[0, :, :200])
+
+
+# ------------------------------------------------------- block-sparse attention
+
+
+def _sparse_inputs(dev, B, H, T, D, seed):
+    g = _gen(dev, seed)
+    return [torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16) for _ in range(4)]
+
+
+def _edge_layout(H, nb, seed):
+    """Random blocks, different per head, some above the diagonal; in every
+    head q block 1 reads nothing and kv block nb - 2 is read by nobody, and
+    q block 0 reads only a future block (every entry masked under causal)."""
+    layout = (np.random.default_rng(seed).random((H, nb, nb)) < 0.4).astype(np.int64)
+    layout[:, 1, :] = 0
+    layout[:, :, nb - 2] = 0
+    layout[:, 0, :] = 0
+    layout[:, 0, nb - 1] = 1
+    return layout
+
+
+def _check_sparse_kernels(dev, layout, block, B, T, D, causal, seed):
+    """Each of the three kernels against its plain version (the backward
+    kernels on the plain forward's out and lse), and the backward kernels
+    bitwise equal on two calls. Returns the kernels' (out, lse, dq, dk, dv)."""
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
+        block_sparse_attention_plain, block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain,
+        block_sparse_bwd_dq, block_sparse_bwd_dq_plain, block_sparse_fwd, make_block_sparse_attention)
+    q, k, v, do = _sparse_inputs(dev, B, layout.shape[0], T, D, seed)
+    q_idx, q_cnt, kv_idx, kv_cnt = make_block_sparse_attention(layout, block, causal).tables(dev)
+    what = f"block {block} D {D} T {T} causal {causal}"
+    before = block_sparse_fwd.launches
+    out, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, block, causal)
+    assert block_sparse_fwd.launches == before + 1
+    torch.cuda.synchronize()
+    ref_out, ref_lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, block, causal)
+    _assert_close(out, ref_out, f"fwd out, {what}")
+    _assert_close(lse, ref_lse, f"fwd lse, {what}")
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dq_args = (q, k, v, do, ref_lse, delta, q_idx, q_cnt, block, causal)
+    dq = block_sparse_bwd_dq(*dq_args)
+    assert torch.equal(block_sparse_bwd_dq(*dq_args), dq), f"dq repeat, {what}"
+    torch.cuda.synchronize()
+    _assert_close(dq, block_sparse_bwd_dq_plain(*dq_args), f"dq, {what}")
+    dkv_args = (q, k, v, do, ref_lse, delta, kv_idx, kv_cnt, block, causal)
+    dk, dv = block_sparse_bwd_dkv(*dkv_args)
+    dk2, dv2 = block_sparse_bwd_dkv(*dkv_args)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv), f"dk/dv repeat, {what}"
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = block_sparse_bwd_dkv_plain(*dkv_args)
+    _assert_close(dk, ref_dk, f"dk, {what}")
+    _assert_close(dv, ref_dv, f"dv, {what}")
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_block_sparse_kernels_match_plain(dev, block, D, causal):
+    """Every block size and head dim, on a layout with blocks above the
+    diagonal, an empty q row, an empty kv column and a row that reads only
+    the future: those rows give out 0, lse -inf (the empty row always, the
+    future-only row under causal) and dq 0, the unread block dk = dv = 0."""
+    nb = 6
+    layout = _edge_layout(3, nb, block + D)
+    out, lse, dq, dk, dv = _check_sparse_kernels(dev, layout, block, 2, nb * block, D, causal,
+                                                 block * D + causal)
+    empty = slice(block, 2 * block)
+    assert not out[:, :, empty].any() and torch.isneginf(lse[:, :, empty]).all()
+    assert not dq[:, :, empty].any()
+    if causal:
+        assert not out[:, :, :block].any() and torch.isneginf(lse[:, :, :block]).all()
+    unread = slice((nb - 2) * block, (nb - 1) * block)
+    assert not dk[:, :, unread].any() and not dv[:, :, unread].any()
+
+
+@pytest.mark.parametrize("block,D", [(16, 128), (64, 64), (128, 64)])
+def test_block_sparse_kernels_ragged_tail(dev, block, D):
+    """T short of the layout's capacity by part of a block (and, at block
+    16, by more than a block): key columns past T are masked in all three
+    kernels, query rows past T in dk/dv."""
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    nb = 8
+    layout = FixedSparsityConfig(2, block=block, num_local_blocks=2,
+                                 attention="unidirectional").make_layout(nb * block)
+    T = nb * block - (block + 5 if block == 16 else block // 2 + 3)
+    _check_sparse_kernels(dev, layout, block, 2, T, D, True, T)
+
+
+def test_block_sparse_kernels_different_layout_per_head(dev):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+    layout = BigBirdSparsityConfig(4, block=32, num_random_blocks=2, different_layout_per_head=True,
+                                   attention="unidirectional").make_layout(512)
+    assert not all(np.array_equal(layout[0], layout[h]) for h in range(1, 4))
+    _check_sparse_kernels(dev, layout, 32, 2, 512, 64, True, 5)
+
+
+def test_sparse_self_attention_through_autograd_on_the_card(dev):
+    """SparseSelfAttention's forward and backward launch each kernel once
+    and agree with impl="plain"."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (BSLongformerSparsityConfig,
+                                                          SparseSelfAttention,
+                                                          make_block_sparse_attention)
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
+        block_sparse_bwd_dkv, block_sparse_bwd_dq, block_sparse_fwd)
+    ssa = SparseSelfAttention(BSLongformerSparsityConfig(4, block=64, global_block_indices=[0, 3]))
+    q, k, v, do = _sparse_inputs(dev, 2, 4, 1024, 128, 17)
+    fns = (block_sparse_fwd, block_sparse_bwd_dq, block_sparse_bwd_dkv)
+    before = [f.launches for f in fns]
+    got = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = ssa(*got)
+    out.backward(do)
+    assert [f.launches for f in fns] == [b + 1 for b in before]
+    attn = ssa._cache[1024]
+    assert attn.tables(dev)[0].device == q.device
+    ref = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    plain = make_block_sparse_attention(attn.layout, 64, attn.causal, impl="plain")
+    ref_out = plain(*ref)
+    ref_out.backward(do)
+    torch.cuda.synchronize()
+    _assert_close(out.detach(), ref_out.detach(), "SparseSelfAttention out")
+    for tag, a, b in zip("qkv", got, ref):
+        _assert_close(a.grad, b.grad, f"SparseSelfAttention d{tag}")
+
+
+def test_block_sparse_kernels_refuse_what_they_do_not_take(dev):
+    """fp32 on the card, a head dim of 96, a block of 48, tables on the CPU:
+    a ValueError, never the plain version."""
+    from deepspeed_tpu_torch.ops.sparse_attention import make_block_sparse_attention
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import block_sparse_fwd
+    layout = np.ones((2, 4, 4), np.int64)
+    q = torch.zeros((1, 2, 256, 64), device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        make_block_sparse_attention(layout, 64)(q, q, q)
+    q96 = torch.zeros((1, 2, 256, 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96"):
+        make_block_sparse_attention(layout, 64)(q96, q96, q96)
+    q48 = torch.zeros((1, 2, 192, 64), device=dev, dtype=torch.bfloat16)
+    attn = make_block_sparse_attention(layout, 48)
+    with pytest.raises(ValueError, match="block 48"):
+        attn(q48, q48, q48)
+    q_idx, q_cnt = (t for t in make_block_sparse_attention(layout, 64).tables("cpu")[:2])
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="int32 tensor on cuda"):
+        block_sparse_fwd(qb, qb, qb, q_idx, q_cnt, 64)
