@@ -49,9 +49,16 @@ Phases (any failure ends the run with a non-zero exit):
    hit's logits bitwise equal to the same prompt cold, a retained slot
    byte-stable while dead); profiles of chunk and decode syncs; the same
    mixed stream through sequential ``generate()`` calls (bench.py's
-   yardstick); and the int8 KV leg (the first 8 requests on an int8 pool
+   yardstick); the int8 KV leg (the first 8 requests on an int8 pool
    against the bf16 pool: the JAX bound, >= 1.9x rows per byte, the int8
-   kernel variants' launches);
+   kernel variants' launches); the speculative leg (bench.py's
+   7-token-pattern stream at spec_tokens 4 against 0 on fresh schedulers,
+   bf16 and int8 KV: greedy streams and a sampled one bitwise equal, exact
+   launch counts, drafts accepted and more than one token per (row,
+   verify), tokens/s of both, a verify sync's device busy share); and the
+   monolithic leg (``prefill_chunk=0``, the mixed stream: exact counts per
+   prefill bucket, each bucket's first-token logits kernels vs plain,
+   tokens/s, TTFT, streams parting from the chunked run's);
 5. llama3-8b at full width, depth cut to 2 layers (set-up time), fused, so
    RoPE, RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to
    end, through generate() and through the scheduler (4 slots, 8 requests);
@@ -87,7 +94,15 @@ Phases (any failure ends the run with a non-zero exit):
    three kernels against their plain versions at gpt2-large's widths
    (BigBird; Fixed unidirectional, also at a ragged T 4056) and llama3-8b's
    (H 32, D 128, block 16, BigBird), timed beside
-   scaled_dot_product_attention with the layout expanded to a boolean mask.
+   scaled_dot_product_attention with the layout expanded to a boolean mask;
+10. the decode-shape microbench (``deepspeed_tpu_torch.benchmarks.
+   qmm_microbench``), the main path of the qmm2, qmm3 and qmm4 kernels: its
+   eight variants at L 36 with ms a pass, GB/s, relerr against bf16, the
+   byte bound and the per-launch time, and exact launch counts. The kernel
+   phase holds the three kernels against their plain versions at
+   8x1280x5120 (qmm4 bitwise, qmm2 at block_n 512, 1024 and 2560) beside
+   the dequantize-then-matmul chain.
+Each phase prints its wall seconds.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -179,6 +194,43 @@ def qmm_cases(torch, gen, dev):
                lambda x=x, qw=qw, sc=sc: quant_matmul_plain(x, qw, sc),
                lambda x=x, w=w_deq: torch.matmul(x, w),
                nbytes, 2 * M * K * N)
+
+
+# the decode-shape microbench's layer (benchmarks/qmm_microbench.py): x (8,
+# 1280) bf16 against one 1280 x 5120 int8 layer, groups of 128
+MICRO_M, MICRO_K, MICRO_N, MICRO_GS = 8, 1280, 5120, 128
+
+
+def micro_cases(torch, gen, dev, which):
+    """qmm2 at the bench's three column tiles, qmm3 and qmm4 at 2560, on the
+    bench's data (x ~ 0.1 N(0, 1), w ~ 0.02 N(0, 1) quantized per group),
+    beside the library chain (dequantize to bf16, then one cuBLAS matmul
+    with fp32 output). qmm4's row also times its activation quantization
+    alone (``quantize_rows_ms``): the wrapper's time is both. The ops count
+    of qmm4 is given in bf16-equivalent operations (half of its int8
+    operations: the int8 peak is twice the bf16 one)."""
+    from deepspeed_tpu_torch.ops import qmm_microbench as qm
+    M, K, N, gs = MICRO_M, MICRO_K, MICRO_N, MICRO_GS
+    G = K // gs
+    x = (torch.randn((M, K), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+    sc = w.reshape(G, gs, N).abs().amax(1) / 127.0 + 1e-8
+    qw = torch.clamp(torch.round(w.reshape(G, gs, N) / sc[:, None]), -127, 127).to(torch.int8).reshape(K, N)
+    del w
+
+    def library(x=x, qw=qw, sc=sc):
+        wd = (qw.to(torch.bfloat16).reshape(G, gs, N) * sc[:, None, :].to(torch.bfloat16)).reshape(K, N)
+        return torch.mm(x, wd, out_dtype=torch.float32)
+
+    nbytes = M * K * 2 + K * N + G * N * 4 + M * N * 4
+    flops = 2 * M * K * N if which != "qmm4" else M * K * N
+    extra = {"quantize_rows_ms": lambda: qm.quantize_rows(x)} if which == "qmm4" else {}
+    for block_n in ((512, 1024, 2560) if which == "qmm2" else (2560, )):
+        fn, plain = getattr(qm, which), getattr(qm, which + "_plain")
+        yield (f"{M}x{K}x{N} block_n {block_n}",
+               lambda fn=fn, b=block_n: fn(x, qw, sc, block_n=b),
+               lambda plain=plain, b=block_n: plain(x, qw, sc, block_n=b),
+               library, nbytes, flops, extra)
 
 
 # the training paths' attention: gpt2-large (B=4, H=20, T=1024, D=64) and
@@ -764,7 +816,20 @@ KERNELS = [
     ("block_sparse_bwd_dkv", "deepspeed_tpu_torch/ops/csrc/block_sparse_attention_bwd.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:270",
      lambda t, g, d: block_sparse_cases(t, g, d, "dkv"), "call"),
+    # the decode-shape microbench's three tilings (w8a16 in shared memory, in
+    # registers; w8a8), the main path of which is the microbench
+    ("qmm2", "deepspeed_tpu_torch/ops/csrc/qmm_microbench.cu", "benchmarks/qmm_microbench.py:107",
+     lambda t, g, d: micro_cases(t, g, d, "qmm2"), "chain"),
+    ("qmm3", "deepspeed_tpu_torch/ops/csrc/qmm_microbench.cu", "benchmarks/qmm_microbench.py:150",
+     lambda t, g, d: micro_cases(t, g, d, "qmm3"), "chain"),
+    ("qmm4", "deepspeed_tpu_torch/ops/csrc/qmm_microbench.cu", "benchmarks/qmm_microbench.py:205",
+     lambda t, g, d: micro_cases(t, g, d, "qmm4"), "chain"),
 ]
+# the microbench kernels' fp32 outputs: qmm4 bitwise its plain version
+# (exact int32 partials, the same separately rounded recurrence); qmm2 and
+# qmm3 within 2^-16 of max|plain| (exact products, the tensor cores' sums
+# against cuBLAS fp32)
+MICRO_TOL = {"qmm2": 2.0**-16, "qmm3": 2.0**-16, "qmm4": 0.0}
 # kernels whose two calls on the same inputs must agree bit for bit
 DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 # kernels whose fp32 output (the lse) holds -inf where a row attends nothing:
@@ -810,6 +875,9 @@ def kernel_phase(torch, dev):
                 err = float((o.float() - r.float()).abs().max())
                 ref_max = float(r.float().abs().max())
                 tol = 1e-3 if o.dtype == torch.float32 else 2.0**-7 * ref_max
+                if name in MICRO_TOL:
+                    tol = MICRO_TOL[name] * ref_max
+                    check(MICRO_TOL[name] or torch.equal(o, r), f"{name} [{label}]: not bitwise its plain")
                 check(err <= tol, f"{name} [{label}] output {i}: max abs err {err:.3e} > {tol:.3e}")
                 check(bool(torch.isfinite(o.float()).all()), f"{name} [{label}] non-finite output")
                 if name in SPARSE_KERNELS and o.dtype != torch.float32:
@@ -860,6 +928,7 @@ def counters():
                                                           paged_span_attention)
     from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq
+    from deepspeed_tpu_torch.ops.qmm_microbench import qmm2, qmm3, qmm4
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
         block_sparse_bwd_dkv, block_sparse_bwd_dq, block_sparse_fwd)
@@ -868,7 +937,7 @@ def counters():
            "fused_out_mlp": fused_out_mlp, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
            "paged_decode_attention": paged_decode_attention, "paged_span_attention": paged_span_attention,
            "block_sparse_fwd": block_sparse_fwd, "block_sparse_bwd_dq": block_sparse_bwd_dq,
-           "block_sparse_bwd_dkv": block_sparse_bwd_dkv}
+           "block_sparse_bwd_dkv": block_sparse_bwd_dkv, "qmm2": qmm2, "qmm3": qmm3, "qmm4": qmm4}
     out = {k: (fn, "launches") for k, fn in fns.items()}
     out["paged_decode_attention_int8"] = (paged_decode_attention, "launches_int8")
     out["paged_span_attention_int8"] = (paged_span_attention, "launches_int8")
@@ -894,7 +963,7 @@ ZERO_COUNTS = {k: 0 for k in ("quant_matmul", "flash_attention", "decode_attenti
                               "paged_decode_attention_int8", "paged_span_attention_int8",
                               "extent_paged_decode", "extent_paged_span", "extent_paged_decode_int8",
                               "extent_paged_span_int8", "block_sparse_fwd", "block_sparse_bwd_dq",
-                              "block_sparse_bwd_dkv")}
+                              "block_sparse_bwd_dkv", "qmm2", "qmm3", "qmm4")}
 
 
 def expected_counts(cfg, new_tokens, fused):
@@ -1439,7 +1508,173 @@ def serving_phase(torch, eng, card):
         f"= {seq_tok / seq_s:.1f} tokens/s; the scheduler served {n_tok / wall / (seq_tok / seq_s):.2f}x it")
 
     int8_counts = int8_kv_leg(torch, eng, prompts[:8])
+    speculative_leg(torch, eng, card)
+    monolithic_leg(torch, eng, card, prompts, outs)
     return counts, int8_counts
+
+
+def speculative_stream(vocab, cap, n=SERVE_REQUESTS, seed=SEED):
+    """bench.py::_speculative_bench's stream: one 7-token pattern resized to
+    the prompt (96 tokens, or the slot's room), plus 2 random tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    pattern = rng.integers(0, vocab, 7).astype(np.int32)
+    plen = min(96, cap)
+    return [np.concatenate([np.resize(pattern, plen - 2), rng.integers(0, vocab, 2).astype(np.int32)])
+            for _ in range(n)]
+
+
+SPEC_TOKENS = 4
+
+
+def speculative_leg(torch, eng, card):
+    """Self-speculative decoding on gpt2-large (int8, fused, 8 slots, K=4):
+    bench.py's speculative stream at spec_tokens=4 and 0 on fresh
+    schedulers, each warmed by one request: greedy streams and one sampled
+    request bitwise equal, on the bf16 pool and on an int8 KV pool (the
+    first 8 requests); exact launch counts of the verify forwards (the span
+    kernel at W = 5 columns, kernels A and C and the int8 head at M = 8 x 5
+    rows); drafts accepted and more than one token per (row, verify sync);
+    tokens/s of both legs; the device's busy share of one verify sync."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    vocab = eng.model_config.vocab_size
+    W = 1 + SPEC_TOKENS
+    sampled_kw = dict(max_new_tokens=SERVE_NEW, do_sample=True, temperature=0.8, top_k=50, top_p=0.95,
+                      seed=5)
+    res = {}
+    for kv in ("auto", "int8"):
+        for spec in (0, SPEC_TOKENS):
+            sched = DecodeScheduler(eng, num_slots=8, steps_per_sync=4, spec_tokens=spec,
+                                    kv_cache_dtype=kv)
+            if kv == "auto" and spec == 0:
+                cap = sched.max_len - SERVE_NEW - 2 * sched.steps_per_sync - SPEC_TOKENS - 1
+                prompts = speculative_stream(vocab, cap)
+            stream = prompts if kv == "auto" else prompts[:8]
+            sched.submit(stream[0], max_new_tokens=8).result()  # first-use costs
+            torch.cuda.synchronize()
+            sched.forwards.clear()
+            sched.dispatched.clear()
+            sched.spec_steps = sched.spec_row_steps = sched.spec_drafted = 0
+            sched.spec_accepted = sched.spec_delivered = 0
+            reset_counts()
+            outs, _, wall, syncs, ttft = serve(sched, stream, max_new=SERVE_NEW)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check_streams(outs, SERVE_NEW, vocab, f"gpt2-large speculative leg (spec {spec}, {kv} KV)")
+            check_serve_counts(sched, counts, f"gpt2-large speculative leg (spec {spec}, {kv} KV)",
+                               int8_kv=kv == "int8")
+            sampled = sched.submit(stream[1], **sampled_kw).result()
+            n_tok = sum(len(o) for o in outs)
+            res[kv, spec] = (outs, sampled, n_tok / wall, sched)
+            log(f"gpt2-large speculative leg, spec_tokens={spec}, {kv} KV, {len(stream)} requests of "
+                f"{len(stream[0])} tokens, {SERVE_NEW} new: {n_tok} tokens in {wall:.3f} s = "
+                f"{n_tok / wall:.1f} tokens/s on {card}; TTFT p50 {_pct(ttft, 50):.1f} ms; shapes "
+                f"{dict(sched.dispatched)}; spec steps {sched.spec_steps}, drafted {sched.spec_drafted}, "
+                f"accepted {sched.spec_accepted}, tokens per (row, verify) "
+                f"{sched.mean_spec_tokens_per_step():.3f}")
+            if spec:
+                check(sched.dispatched[("spec", W)] == sched.spec_steps > 0,
+                      f"speculative leg ({kv} KV): no verify sync ran ({dict(sched.dispatched)})")
+                check(sched.spec_accepted > 0 and sched.mean_spec_tokens_per_step() > 1.0,
+                      f"speculative leg ({kv} KV): accepted {sched.spec_accepted}, tokens per step "
+                      f"{sched.mean_spec_tokens_per_step():.3f}")
+                sched.cache.check_invariants()
+            if kv == "auto" and spec:
+                # where a verify sync's time goes
+                hs = [sched.submit(p, max_new_tokens=SERVE_NEW) for p in prompts[8:16]]
+                while sched.queue or sched._prefill is not None:
+                    sched.step()
+                for _ in range(6):
+                    if one_sync_profile(torch, sched, "gpt2-large speculative sync")[0] == "spec":
+                        break
+                for h in hs:
+                    h.result()
+            del sched
+            torch.cuda.empty_cache()
+        (o0, s0, r0, _), (o1, s1, r1, _) = res[kv, 0], res[kv, SPEC_TOKENS]
+        same = [bool(np.array_equal(a, b)) for a, b in zip(o0, o1)]
+        log(f"gpt2-large speculative leg, {kv} KV: greedy streams identical {sum(same)}/{len(same)}, "
+            f"sampled stream identical {bool(np.array_equal(s0, s1))}; spec/non-spec tokens/s "
+            f"{r1 / r0:.3f}")
+        check(all(same), f"speculative leg ({kv} KV): greedy streams differ from spec_tokens=0")
+        check(np.array_equal(s0, s1), f"speculative leg ({kv} KV): the sampled stream differs")
+
+
+def monolithic_logits_check(torch, eng, prompts, what):
+    """Per prefill bucket, the first-token logits of the monolithic prefill
+    (one slot, the prompt right-padded to its bucket) through the kernels
+    against their plain versions on the card, within the gate of
+    ``prefill_logits_check`` (relative L2 5e-2)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import _bucket_len
+    worst = {}
+    for p in prompts:
+        L = len(p)
+        Pb = _bucket_len(L, 64, 512)
+        if Pb in worst:
+            continue
+        ids = np.zeros((1, Pb), np.int64)
+        ids[0, :L] = p
+        ids = torch.as_tensor(ids, device=eng.device)
+        out = {}
+        with torch.inference_mode():
+            for impl in ("kernel", "plain"):
+                cache = eng.module.init_cache(1, 512, device=eng.device)
+                out[impl] = eng.module.apply_with_cache(eng.net, ids, cache, 0, impl=impl)[0][0, L - 1].float()
+        check(bool(torch.isfinite(out["kernel"]).all()), f"{what}: non-finite prefill logits (bucket {Pb})")
+        worst[Pb] = float((out["kernel"] - out["plain"]).norm() / out["plain"].norm())
+    log(f"{what} first-token logits, kernels vs plain on the card, rel L2 by bucket {worst}")
+    check(max(worst.values()) <= 5e-2, f"{what}: first-token logits differ from plain beyond 5e-2")
+
+
+def monolithic_leg(torch, eng, card, prompts, chunked_outs):
+    """The monolithic prefill (``prefill_chunk=0, prefix_cache=False``,
+    bench.py's per-concurrency leg) on gpt2-large (int8, fused decode, 8
+    slots, K=4): the mixed 32-request stream with exact launch counts (per
+    prefill every projection and the head at the bucket's width and, from
+    the 128 bucket up, the flash forward once a layer; then the fused decode
+    syncs), tokens/s, TTFT p50/p95, and how many streams part from the
+    chunked run's (the chunked path attends a prompt through the span
+    kernel, the monolithic one through flash at the padded width, so bf16
+    streams may part where two logits are close); each bucket's first-token
+    logits against the plain versions."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    what = "gpt2-large monolithic prefill"
+    monolithic_logits_check(torch, eng, prompts, what)
+    sched = DecodeScheduler(eng, num_slots=8, steps_per_sync=4, prefill_chunk=0, prefix_cache=False)
+    check(sched.radix is None, f"{what}: radix cache on")
+    serve(sched, prompts[:2], max_new=8)  # first-use costs
+    sched.dispatched.clear()
+    sched.forwards.clear()
+    reset_counts()
+    outs, _, wall, syncs, ttft = serve(sched, prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cfg = eng.model_config
+    L = cfg.num_layers
+    buckets = {k[1]: n for k, n in sched.dispatched.items() if k[0] == "prefill"}
+    n_pf = sum(buckets.values())
+    n1 = sched.forwards[1]
+    want = {**ZERO_COUNTS, "quant_matmul": (4 * L + 1) * n_pf + n1,
+            "flash_attention": L * sum(n for b, n in buckets.items() if b >= 128),
+            "fused_qkv_ln": L * n1, "fused_out_mlp": L * n1, "paged_decode_attention": L * n1}
+    log(f"{what} launches {counts}, expected {want} (prefills by bucket {buckets}, {n1} decode forwards)")
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+    check(n_pf == len(prompts) and set(sched.forwards) == {1}, f"{what}: dispatches {dict(sched.dispatched)}")
+    check_streams(outs, SERVE_NEW, eng.model_config.vocab_size, what)
+    n_tok = sum(len(o) for o in outs)
+    parted = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+              for x, y in zip(outs, chunked_outs)]
+    log(f"{what}, mixed stream ({len(prompts)} requests, 8 slots, K=4, buckets from 64): {n_tok} tokens "
+        f"in {wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card}; TTFT p50 {_pct(ttft, 50):.1f} ms, "
+        f"p95 {_pct(ttft, 95):.1f} ms; streams parting from the chunked run's "
+        f"{sum(p is not None for p in parted)}/{len(parted)} (at tokens "
+        f"{[p for p in parted if p is not None]})")
+    sched.cache.check_invariants()
+    del sched
+    torch.cuda.empty_cache()
 
 
 def per_projection_streams(torch, eng):
@@ -1609,11 +1844,12 @@ def one_sync_profile(torch, sched, what):
     rows, busy_ms = device_profile(prof, 1)
     if not rows:
         log(f"profile of {what}: the profiler recorded no device time (busy share not measured)")
-        return
+        return sched.last_shape
     log(f"profile of {what} {sched.last_shape}: wall {wall_ms:.3f} ms under the profiler, device busy "
         f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of wall")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"  device {ms:9.4f} ms/sync {n:5d} calls/sync  {key[:80]}")
+    return sched.last_shape
 
 
 def lossy_step_check(torch, eng, sched, what):
@@ -2178,6 +2414,38 @@ def sparse_attention_phase(torch):
     return totals
 
 
+def microbench_phase(torch):
+    """The decode-shape microbench (``deepspeed_tpu_torch.benchmarks.
+    qmm_microbench``), the main path of the qmm2, qmm3 and qmm4 kernels: all
+    eight variants at L 36, R 64, each printing ms/pass, GB/s of weight
+    bytes, relerr against bf16, the pass's byte bound and the per-launch
+    time. Exact launch counts: per variant, 5 calls of R passes of L layers
+    (one checked, 1 + 3 timed) and 4 x LAUNCH_REPS x L per-launch calls.
+    Every output finite; the int8 variants within 5e-2 relerr of bf16 (the
+    weights' int8 quantization error; JAX's file prints the same measure)."""
+    from deepspeed_tpu_torch.benchmarks import qmm_microbench as mb
+    reset_counts()
+    results = mb.run(log=lambda line: log("microbench " + line))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = 5 * mb.R * mb.L + 4 * mb.LAUNCH_REPS * mb.L
+    want = {**ZERO_COUNTS, "qmm2": 3 * n, "qmm3": n, "qmm4": n, "quant_matmul": n}
+    log(f"microbench launches {counts}, expected {want}")
+    check(counts == want, f"microbench launch counts {counts} != {want}")
+    for r in results:
+        check(r["finite"], f"microbench {r['name']}: non-finite output")
+        check(r["name"] == "bf16" or 0 <= r["relerr"] <= 5e-2,
+              f"microbench {r['name']}: relerr {r['relerr']:.4f} against bf16")
+    return counts
+
+
+def timed_phase(name, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main(argv=()):
     """``--kernels NAME[,NAME...]``: build those kernels and run only their
     rows of the kernel phase (to time a change against its parent in one
@@ -2216,11 +2484,12 @@ def main(argv=()):
                 log(f"  ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda")
-    results = kernel_phase(torch, dev)
+    results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
         return 0
-    counts, fused_greedy, (serve_counts, int8_counts) = gpt2_large_phase(torch, card, fused=True)
+    counts, fused_greedy, (serve_counts, int8_counts) = timed_phase("gpt2-large fused and serving",
+                                                                     gpt2_large_phase, torch, card, fused=True)
     for name, n in counts.items():  # the static generate() path
         if name in results and n:
             results[name]["launches"] = n
@@ -2229,7 +2498,7 @@ def main(argv=()):
     for name in ("paged_decode_attention", "paged_span_attention"):
         results[name]["launches"] = serve_counts[name]
         results[name + "_int8"]["launches"] = int8_counts[name + "_int8"]
-    _, unfused_greedy, _ = gpt2_large_phase(torch, card, fused=False)
+    _, unfused_greedy, _ = timed_phase("gpt2-large per-projection", gpt2_large_phase, torch, card, fused=False)
     # the two paths round in other places (bias and RoPE in fp32 before the
     # cast in the fused kernels), so their streams may part where two logits
     # are close: reported, not required
@@ -2237,21 +2506,25 @@ def main(argv=()):
               for f, u in zip(fused_greedy, unfused_greedy)]
     log(f"gpt2-large greedy streams, fused vs per-projection: common prefix per row {prefix} "
         f"of {len(fused_greedy[0])}")
-    long_counts, long_int8_counts = llama_phase(torch)
+    long_counts, long_int8_counts = timed_phase("llama3-8b and long context", llama_phase, torch)
     # the extent modes from the long-context mixed stream and its int8 leg
     for name in ("extent_paged_decode", "extent_paged_span"):
         results[name]["launches"] = long_counts[name]
         results[name + "_int8"]["launches"] = long_int8_counts[name + "_int8"]
     # the training path is the main path of the backward kernels
-    train_counts = train_phase(torch, card)
+    train_counts = timed_phase("training", train_phase, torch, card)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         results[name]["launches"] = train_counts[name]
-    train_parity_phase(torch)
-    llama_train_phase(torch)
+    timed_phase("training parity", train_parity_phase, torch)
+    timed_phase("llama3-8b training", llama_train_phase, torch)
     # the sparse path is the main path of the three block-sparse kernels
-    sparse_counts = sparse_attention_phase(torch)
+    sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:
         results[name]["launches"] = sparse_counts[name]
+    # the microbench is the main path of its three kernels
+    micro_counts = timed_phase("microbench", microbench_phase, torch)
+    for name in ("qmm2", "qmm3", "qmm4"):
+        results[name]["launches"] = micro_counts[name]
     for name, r in results.items():
         check(r["launches"] and r["launches"] > 0, f"{name} was never launched on the main path")
 

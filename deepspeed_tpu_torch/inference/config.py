@@ -418,10 +418,6 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
         enabled, since ``engine.scheduler()`` builds from them either way."""
         out = []
         item = "continuous_batching.{} (ROADMAP Queue 1 #{})".format
-        if self.prefill_chunk <= 0:
-            out.append(item("prefill_chunk=0", "5, monolithic prefill"))
-        if self.spec_tokens > 0:
-            out.append(item("spec_tokens", "5, speculative decode"))
         if self.hierarchical_kv.enabled:
             out.append(item("hierarchical_kv", "8, hierarchical KV tier"))
         if self.multi_lora.enabled:

@@ -415,9 +415,11 @@ class InferenceEngine:
             from .scheduler import DecodeScheduler
             cb = self._config.continuous_batching
             kw = {"num_slots": cb.num_slots, "max_len": cb.max_len,
-                  "collect_logits": cb.collect_logits, "steps_per_sync": cb.steps_per_sync,
-                  "prefill_chunk": cb.prefill_chunk, "prefix_cache": cb.prefix_cache,
-                  "spec_tokens": cb.spec_tokens, "kv_cache_dtype": cb.kv_cache_dtype}
+                  "prefill_bucket": cb.prefill_bucket, "collect_logits": cb.collect_logits,
+                  "steps_per_sync": cb.steps_per_sync, "prefill_chunk": cb.prefill_chunk,
+                  "prefix_cache": cb.prefix_cache, "spec_tokens": cb.spec_tokens,
+                  "spec_ngram_max": cb.spec_ngram_max, "spec_ngram_min": cb.spec_ngram_min,
+                  "kv_cache_dtype": cb.kv_cache_dtype}
             lc = cb.long_context  # extent chains, seq-parallel prefill, lossy windows
             kw.update(max_extents=lc.max_extents,
                       seq_parallel_min_tokens=lc.seq_parallel_min_tokens,

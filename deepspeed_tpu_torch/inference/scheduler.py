@@ -56,18 +56,40 @@ lossy StreamingLLM window ``kv_window=(sink, recent)`` (with
 step. ``seq_parallel_min_tokens`` prefills long prompts at the wide chunk
 width, which on one device is the same arithmetic unsharded.
 
+**Monolithic prefill** (``prefill_chunk=0``, the legacy admission): every
+free slot is filled at once, FIFO, each request by one single-slot forward
+over its prompt right-padded to a power-of-two bucket (``prefill_bucket``
+floor, the slot's length cap): ``apply_with_cache(params, ids,
+slot_slice(pool, slot), 0)`` writes the slot's rows in place. The padding
+rows are causally invisible to the real tokens and later decode writes
+overwrite them. The radix cache is off in this mode (reuse replays chunk
+boundaries), and extent chains and the seq-parallel prefill need the
+chunked path.
+
+**Self-speculative decoding** (``spec_tokens > 0``): each pure-decode sync
+drafts up to ``spec_tokens`` continuation tokens per live row with the
+prompt-lookup drafter (``inference/speculative.py``) and verifies every
+column in ONE forward over the ``(num_slots, 1 + spec_tokens)`` ids block,
+through the same per-row span machinery as chunked prefill. Each column is
+sampled at its absolute step index, and a draft commits only when it equals
+the sampled token, so the streams are bitwise those of non-speculative
+decode: a column's bits do not depend on the width of the forward it rides
+(``quant_matmul`` and kernels A and C split by weight shape only, and the
+span kernel's column is bitwise its decode mode). A sync where no row
+drafts, or where a row is chained or lossy (the verify carries no extent
+walk), runs the K-step decode sync instead.
+
 With the fused decode-layer gate open (int8, kernel injection), each
 forward runs ``CausalLMModel.fused_paged_step`` (kernels A and C); else, and
 in every dispatch that carries extent operands (the fused kernels walk no
 extents), the per-projection ``apply_with_cache``. Both write and read the
 same pool.
 
-Not ported, each raising naming its ROADMAP item: the monolithic
-``prefill_chunk=0`` prefill and speculative decoding, with or without
-extent chains (Queue 1 #5), telemetry (#6), sharding the seq-parallel
-prefill across devices (#7), the hierarchical KV tier and with it lossless
-extent demotion (#8), multi-LoRA, cold-expert offload, disaggregation, the
-weight-swap protocol and migration (#9, RLHF and disaggregated serving).
+Not ported, each raising naming its ROADMAP item: telemetry (Queue 1 #6),
+sharding the seq-parallel prefill across devices (#7), the hierarchical KV
+tier and with it lossless extent demotion (#8), multi-LoRA, cold-expert
+offload, disaggregation, the weight-swap protocol and migration (#9, RLHF
+and disaggregated serving).
 """
 
 import collections
@@ -76,11 +98,22 @@ import time
 import numpy as np
 import torch
 
-from .kv_cache import RadixPrefixCache, SlotKVCache, copy_slot
+from .kv_cache import RadixPrefixCache, SlotKVCache, copy_slot, slot_slice
+from .speculative import PromptLookupDrafter
 
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
+
+
+def _bucket_len(n, base, cap):
+    """Monolithic prefill bucket: the next power of two >= n (floor
+    ``base``), capped at ``cap``: ~log2(cap / base) widths, at most 2x the
+    prefill's work."""
+    b = base
+    while b < n:
+        b *= 2
+    return min(b, cap)
 
 
 def _unported(what, item):
@@ -239,14 +272,18 @@ class DecodeScheduler:
     prefixes for cross-request KV reuse. ``max_extents``,
     ``seq_parallel_min_tokens``, ``seq_parallel_degree`` and
     ``allow_lossy_kv`` are the ``long_context`` section's (see the module
-    docstring). The other arguments keep the JAX scheduler's names; the
-    unported features' arguments raise when set (their tuning knobs, and
-    the legacy prefill's ``prefill_bucket``, are not taken)."""
+    docstring). ``prefill_chunk=0`` selects the monolithic prefill, bucketed
+    at powers of two from ``prefill_bucket``; ``spec_tokens`` drafted
+    columns (n-grams of ``spec_ngram_max`` down to ``spec_ngram_min``
+    tokens) are verified per pure-decode sync. The other arguments keep the
+    JAX scheduler's names; the unported features' arguments raise when set
+    (their tuning knobs are not taken)."""
 
-    def __init__(self, engine, num_slots=8, max_len=None, collect_logits=False, steps_per_sync=4,
-                 prefill_chunk=64, prefix_cache=True, spec_tokens=0, kv_cache_dtype="auto",
-                 prefix_store=None, adapter_store=None, expert_store=None, max_extents=1,
-                 seq_parallel_min_tokens=0, seq_parallel_degree=0, allow_lossy_kv=False):
+    def __init__(self, engine, num_slots=8, max_len=None, prefill_bucket=64, collect_logits=False,
+                 steps_per_sync=4, prefill_chunk=64, prefix_cache=True, spec_tokens=0,
+                 spec_ngram_max=3, spec_ngram_min=1, kv_cache_dtype="auto", prefix_store=None,
+                 adapter_store=None, expert_store=None, max_extents=1, seq_parallel_min_tokens=0,
+                 seq_parallel_degree=0, allow_lossy_kv=False):
         me = max(1, int(max_extents))
         if me > 1 and int(prefill_chunk) <= 0:
             raise ValueError("long_context.max_extents > 1 requires chunked prefill "
@@ -256,12 +293,6 @@ class DecodeScheduler:
             raise ValueError("seq_parallel_min_tokens > 0 requires chunked prefill "
                              "(prefill_chunk > 0): sequence parallelism shards the chunked "
                              "path's wide prefill forwards")
-        if int(prefill_chunk) <= 0:
-            raise _unported("the monolithic prefill (prefill_chunk=0)",
-                            "ROADMAP Queue 1 #5, monolithic prefill")
-        if int(spec_tokens) > 0:
-            raise _unported("speculative decoding (spec_tokens > 0)",
-                            "ROADMAP Queue 1 #5, speculative decode")
         if prefix_store is not None:
             raise _unported("the hierarchical KV tier", "ROADMAP Queue 1 #8, hierarchical KV tier")
         if adapter_store is not None:
@@ -290,9 +321,11 @@ class DecodeScheduler:
             raise ValueError(f"model max_seq_len {model.cfg.max_seq_len} leaves no "
                              f"room for a KV slot")
         self.max_len = S
+        self.prefill_bucket = int(prefill_bucket)
         self.collect_logits = bool(collect_logits)
         self.steps_per_sync = max(1, int(steps_per_sync))
-        self.prefill_chunk = min(int(prefill_chunk), S)
+        # chunked prefill, the chunk clamped to the slot; 0: monolithic
+        self.prefill_chunk = min(max(0, int(prefill_chunk)), S)
         # a chain's logical positions are bounded by the model's position
         # horizon: extents past max_seq_len could never hold a valid row
         me = max(1, min(me, model.cfg.max_seq_len // S))
@@ -326,7 +359,22 @@ class DecodeScheduler:
         self.kv_quantized = kv_arg == "int8"
         self.cache = SlotKVCache(engine._init_cache(int(num_slots), S, kv_dtype=kv_arg),
                                  int(num_slots), S, max_extents=me)
-        self.radix = RadixPrefixCache(self.cache) if prefix_cache else None
+        # self-speculative decoding: spec_tokens drafted columns verified per
+        # pure-decode sync (clamped so a full verify block always fits one
+        # slot beside at least one row of decode headroom)
+        self.spec_tokens = max(0, min(int(spec_tokens), max(0, S - 2)))
+        self._spec_width = 1 + self.spec_tokens
+        self.drafter = (PromptLookupDrafter(self.spec_tokens, spec_ngram_max, spec_ngram_min)
+                        if self.spec_tokens > 0 else None)
+        self.spec_steps = 0      # verify dispatches
+        self.spec_row_steps = 0  # (live row, verify dispatch) pairs
+        self.spec_drafted = 0    # draft tokens submitted to verification
+        self.spec_accepted = 0   # draft tokens that committed
+        self.spec_delivered = 0  # tokens delivered by verify dispatches
+        # radix prefix cache: chunked mode only (a hit replays the cold
+        # path's chunk boundaries)
+        self.radix = (RadixPrefixCache(self.cache)
+                      if prefix_cache and self.prefill_chunk > 0 else None)
         # the fused decode-layer kernels serve the step when the engine's
         # gate admits the config (the JAX scheduler's `fused_block` programs)
         if hasattr(engine.model_config, "int8_weights"):
@@ -348,8 +396,10 @@ class DecodeScheduler:
         self.admitted = 0
         self.evicted = 0
         self.decode_steps = 0
-        # (chunk width, K) -> syncs dispatched at that shape, and forwards
-        # run at each width (the paged kernels launch once per layer each)
+        # (chunk width, K) -> syncs dispatched at that shape (("spec", W) for
+        # a verify, ("prefill", bucket) for a monolithic prefill), and
+        # slot-pool forwards run at each width (the paged kernels launch
+        # once per layer each)
         self.dispatched = collections.Counter()
         self.forwards = collections.Counter()
         # chunk width -> forwards that carried extent operands (per projection)
@@ -392,7 +442,8 @@ class DecodeScheduler:
                        self.collect_logits if collect_logits is None else collect_logits,
                        on_token=on_token, kv_window=kv_window)
         self._rid += 1
-        cap = self.cache.spannable_len
+        # the monolithic prefill writes one slot; chunks may span a chain
+        cap = self.cache.spannable_len if self.prefill_chunk > 0 else self.max_len
         if req.prompt.size >= cap:
             raise ValueError(
                 f"prompt of {req.prompt.size} tokens exceeds the per-slot KV capacity "
@@ -403,8 +454,11 @@ class DecodeScheduler:
         if req.max_new_tokens <= 0:  # static-path parity: zero budget -> no tokens
             req.done = True
             return SchedulerHandle(self, req)
-        # the K-step sync writes K rows even when the budget ends mid-block
+        # the K-step sync writes K rows even when the budget ends mid-block;
+        # a verify block likewise writes up to W rows past the final token
         budget = _round_up(req.max_new_tokens, self.steps_per_sync)
+        if self.spec_tokens > 0:
+            budget = max(budget, req.max_new_tokens + self._spec_width - 1)
         if not self.cache.fits(req.prompt.size, budget):
             raise ValueError(f"request needs {req.prompt.size + budget} cache rows > slot "
                              f"capacity {self.max_len} x {self.cache.max_extents} extent(s) = "
@@ -437,9 +491,11 @@ class DecodeScheduler:
 
     # ------------------------------------------------------------------ loop
     def step(self):
-        """One scheduler iteration: settle cancellations, admit at most one
-        prefill, then one fused chunk sync while a prefill is in flight,
-        else ``steps_per_sync`` decode steps. Returns tokens delivered."""
+        """One scheduler iteration: settle cancellations; admit at most one
+        chunked prefill (monolithic: prefill a queued request into every
+        free slot); then one fused chunk sync while a prefill is in flight,
+        else a speculative verify sync (with a drafter) or ``steps_per_sync``
+        decode steps. Returns tokens delivered."""
         self._reap_cancelled()
         if self.cache.chain:
             # extent paging, before admission: lossy rows drop extents that
@@ -447,7 +503,16 @@ class DecodeScheduler:
             self._service_long_context()
         while self.queue and self.queue[0].cancelled:
             self.queue.popleft().done = True
-        if self._prefill is None and self.queue:
+        delivered = 0
+        if self.prefill_chunk <= 0:
+            while self.queue and self.cache.active_slots < self.cache.num_slots:
+                req = self.queue.popleft()
+                if req.cancelled:
+                    req.done = True
+                    continue
+                delivered += self._admit(req)
+                self.admitted += 1
+        elif self._prefill is None and self.queue:
             pick = next((i for i, r in enumerate(self.queue) if not r.cancelled), None)
             if pick is not None:
                 req = self.queue[pick]
@@ -457,11 +522,12 @@ class DecodeScheduler:
                     self._begin_prefill(req, slot, match)
                     self.admitted += 1
         if self._prefill is not None:
-            delivered, ksteps = self._fused_chunk_step()
+            n, ksteps = self._fused_chunk_step()
         elif self.active:
-            delivered, ksteps = self._decode_step()
+            n, ksteps = self._spec_decode_step() if self.drafter is not None else self._decode_step()
         else:
-            return 0
+            return delivered
+        delivered += n
         self.decode_steps += ksteps
         return delivered
 
@@ -648,6 +714,49 @@ class DecodeScheduler:
         pf.seq_parallel = bool(self._seq_chunk and req.prompt.size >= self.seq_parallel_min_tokens)
         self._prefill = pf
 
+    @torch.inference_mode()
+    def _admit(self, req):
+        """Monolithic prefill of ``req`` into a free slot: the prompt
+        right-padded to its bucket, one single-slot forward, the last real
+        token's logits sampled for token 0 at step 0. A failed prefill frees
+        its slot. Returns tokens delivered (1)."""
+        slot = self.cache.alloc(owner=req.rid)
+        if slot is None:
+            raise RuntimeError("monolithic admission found no free slot")
+        req.slot = slot
+        L = req.prompt.size
+        Pb = _bucket_len(L, self.prefill_bucket, self.max_len)
+        ids = np.zeros((1, Pb), np.int64)
+        ids[0, :L] = req.prompt
+        try:
+            model = self.engine.module
+            cache = slot_slice(self.cache.pool, slot)
+            # the forward writes the slot's rows in place, through the views
+            # (the JAX package's slot_update of its functional pool)
+            logits, _ = model.apply_with_cache(self.engine.net, torch.from_numpy(ids).to(self.device),
+                                               cache, 0)
+            last = logits[:, L - 1].float()  # (1, V)
+            samp, sampling, _ = self._gather_sampling([(0, req)], rows=1)
+            if sampling:
+                t = [torch.from_numpy(a).to(self.device) for a in samp]
+                tok = sample_rows(last, t[0], t[1], t[2] > 0, t[3], t[4], t[5])
+            else:
+                tok = last.argmax(-1)
+            tok = int(tok.cpu()[0])
+            last_logits = last[0].cpu().numpy() if req.collect_logits else None
+        except Exception:
+            # a failed prefill must not strand its slot
+            self.cache.free(slot)
+            raise
+        self.dispatched[("prefill", Pb)] += 1
+        self.cache.lengths[slot] = L
+        self.active[slot] = req
+        req.first_token_ts = time.perf_counter()
+        if last_logits is not None:
+            req.logits.append(last_logits)
+        self._deliver(req, tok)
+        return 1
+
     def _finish_prefill(self, req, tok, last_logits):
         """The final chunk landed: register the prompt in the radix trie
         (live prefixes serve as donors too), move the row to decode and
@@ -682,11 +791,12 @@ class DecodeScheduler:
                 logger.warning("scheduler on_token hook raised", exc_info=True)
 
     # ------------------------------------------------------------------ steps
-    def _gather_sampling(self, live):
+    def _gather_sampling(self, live, rows=None):
         """Per-slot sampling rows for a step: (seeds, steps, flags, temps,
         topks, topps, sampling, collect); ``steps`` is each row's ABSOLUTE
-        step index, so results are K- and fused-invariant."""
-        N = self.cache.num_slots
+        step index, so results are K- and fused-invariant. ``rows``: the
+        row count (the pool's slots by default)."""
+        N = self.cache.num_slots if rows is None else rows
         seeds = np.zeros(N, np.int64)
         steps = np.zeros(N, np.int64)
         flags = np.zeros(N, np.int64)
@@ -719,6 +829,27 @@ class DecodeScheduler:
                                                ext_ops=ext_ops)
         return logits
 
+    def _device_inputs(self, ids, lens, spans, samp, sampling):
+        """A dispatch's host rows on the device, in two host-to-device
+        copies: (ids, lens, spans, sample), ``sample(logits (N, V), k)``
+        choosing each row's token at its absolute step + k."""
+        C = ids.shape[1]
+        seeds, steps, flags, temps, topks, topps = samp
+        ints = torch.from_numpy(np.concatenate(
+            [ids.astype(np.int64), np.stack([lens, spans, seeds, steps, flags, topks], 1)
+             .astype(np.int64)], axis=1)).to(self.device)
+        floats = torch.from_numpy(np.stack([temps, topps], 1)).to(self.device)
+        lens_t, spans_t, seeds_t, steps_t, flags_t, topks_t = ints[:, C:].unbind(1)
+        flags_t = flags_t > 0
+        temps_t, topps_t = floats.unbind(1)
+
+        def sample(lg, k):
+            if not sampling:
+                return lg.argmax(-1)
+            return sample_rows(lg, seeds_t, steps_t + k, flags_t, temps_t, topks_t, topps_t)
+
+        return ints[:, :C], lens_t, spans_t, sample
+
     @torch.inference_mode()
     def _run(self, ids, lens, spans, samp, sampling, collect, K, ext_ops=None, hold=None):
         """THE step body: the first forward over the (N, C) ids block with
@@ -735,21 +866,7 @@ class DecodeScheduler:
         end they would leave the extent)."""
         N, C = ids.shape
         dev = self.device
-        seeds, steps, flags, temps, topks, topps = samp
-        ints = torch.from_numpy(np.concatenate(
-            [ids.astype(np.int64), np.stack([lens, spans, seeds, steps, flags, topks], 1)
-             .astype(np.int64)], axis=1)).to(dev)
-        floats = torch.from_numpy(np.stack([temps, topps], 1)).to(dev)
-        ids_t = ints[:, :C]
-        lens_t, spans_t, seeds_t, steps_t, flags_t, topks_t = ints[:, C:].unbind(1)
-        flags_t = flags_t > 0
-        temps_t, topps_t = floats.unbind(1)
-
-        def sample(lg, k):
-            if not sampling:
-                return lg.argmax(-1)
-            return sample_rows(lg, seeds_t, steps_t + k, flags_t, temps_t, topks_t, topps_t)
-
+        ids_t, lens_t, spans_t, sample = self._device_inputs(ids, lens, spans, samp, sampling)
         self.dispatched[(C, K)] += 1
         self.last_shape = (C, K)
         pos = lens_t[:, None] + torch.arange(C, device=dev)[None, :]
@@ -822,6 +939,88 @@ class DecodeScheduler:
                 K = 1
         toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K, eo)
         return self._deliver_block(live, toks_k, logits_k, K), K
+
+    @torch.inference_mode()
+    def _verify(self, ids, lens, spans, samp, sampling, collect):
+        """The speculative verify: ONE forward over the (N, W) ids block with
+        per-row spans (a row's last token and its drafts), every column j
+        sampled at the row's step + j. Returns the (W, N) token block and
+        the (W, N, V) logits when collected, in one round trip."""
+        N, W = ids.shape
+        ids_t, lens_t, spans_t, sample = self._device_inputs(ids, lens, spans, samp, sampling)
+        self.dispatched[("spec", W)] += 1
+        self.last_shape = ("spec", W)
+        pos = lens_t[:, None] + torch.arange(W, device=self.device)[None, :]
+        logits = self._forward(ids_t, pos, lens_t, spans_t).float()
+        self.forwards[W] += 1
+        toks = torch.stack([sample(logits[:, j], j) for j in range(W)]).cpu().numpy()
+        return toks, logits.transpose(0, 1).cpu().numpy() if collect else None
+
+    def _spec_decode_step(self):
+        """One self-speculative verify sync: the prompt-lookup drafter
+        proposes up to ``spec_tokens`` tokens per live row (capped by the
+        row's remaining budget and its slot's headroom), one forward
+        verifies every column, and each row commits its drafts up to the
+        first that differs from the token sampled before it, plus that
+        sampled token: between 1 and ``1 + spec_tokens`` tokens a row. The
+        rejected columns' KV rows sit past the row's head until later writes
+        reclaim them. A sync where no row drafts, or a live row is chained
+        or lossy (the verify carries no extent walk), runs the K-step decode
+        sync instead; both give the same bits. Returns (tokens delivered,
+        1)."""
+        N, W = self.cache.num_slots, self._spec_width
+        live = sorted(self.active.items())
+        if any(s in self.cache.chain or r.kv_window is not None for s, r in live):
+            return self._decode_step()
+        drafts, total = {}, 0
+        for slot, req in live:
+            cap = min(W - 1, req.max_new_tokens - len(req.out) - 1,
+                      self.max_len - int(self.cache.lengths[slot]) - 1)
+            drafts[slot] = (self.drafter.draft(np.concatenate([req.prompt, np.asarray(req.out, np.int32)]),
+                                               cap) if cap > 0 else np.empty(0, np.int32))
+            total += drafts[slot].size
+        if total == 0:
+            return self._decode_step()
+        ids = np.zeros((N, W), np.int64)
+        spans = np.zeros(N, np.int64)
+        lens = np.zeros(N, np.int64)
+        for slot, req in live:
+            d = drafts[slot]
+            ids[slot, 0] = req.out[-1]
+            ids[slot, 1:1 + d.size] = d
+            spans[slot] = 1 + d.size
+            lens[slot] = self.cache.lengths[slot]
+        samp, sampling, collect = self._gather_sampling(live)
+        toks, logits = self._verify(ids, lens, spans, samp, sampling, collect)
+        delivered = accepted = 0
+        for slot, req in live:
+            # acceptance walk: toks[j] is the token sampled after column j;
+            # column j + 1 is valid only while its draft equals toks[j]
+            m = 1
+            while m < spans[slot] and toks[m - 1, slot] == ids[slot, m]:
+                m += 1
+            self.cache.lengths[slot] += m  # before delivery: a finish releases the slot
+            n = 0
+            for j in range(m):
+                if req.done:  # EOS inside the accepted block ends delivery
+                    break
+                if req.collect_logits and logits is not None:
+                    req.logits.append(logits[j, slot])
+                self._deliver(req, int(toks[j, slot]))
+                n += 1
+            delivered += n
+            accepted += max(0, n - 1)
+        self.spec_steps += 1
+        self.spec_row_steps += len(live)
+        self.spec_drafted += total
+        self.spec_accepted += accepted
+        self.spec_delivered += delivered
+        return delivered, 1
+
+    def mean_spec_tokens_per_step(self):
+        """Mean tokens delivered per (live row, verify sync): above 1 means
+        speculation nets multi-token steps."""
+        return self.spec_delivered / self.spec_row_steps if self.spec_row_steps else 0.0
 
     def _fused_chunk_step(self):
         """One sync over ``(num_slots, prefill_chunk)`` query columns plus

@@ -135,8 +135,10 @@ def test_fused_gate_gives_the_jax_reasons(case):
 
 
 def test_unported_config_sections_raise():
-    with pytest.raises(NotImplementedError, match="continuous_batching"):
-        _port_engine(continuous_batching={"enabled": True, "spec_tokens": 4})
+    # spec_tokens is ported (speculative decoding); multi-LoRA is not
+    with pytest.raises(NotImplementedError, match="continuous_batching.multi_lora"):
+        _port_engine(continuous_batching={"enabled": True, "multi_lora": {"enabled": True}})
+    assert _port_engine(continuous_batching={"enabled": True, "spec_tokens": 4}).scheduler().drafter
     with pytest.raises(NotImplementedError, match="tp_size"):
         _port_engine(tensor_parallel={"tp_size": 2})
 

@@ -873,3 +873,61 @@ def test_block_sparse_kernels_refuse_what_they_do_not_take(dev):
     qb = q.to(torch.bfloat16)
     with pytest.raises(ValueError, match="int32 tensor on cuda"):
         block_sparse_fwd(qb, qb, qb, q_idx, q_cnt, 64)
+
+
+# the decode-shape microbench's kernels (ops/qmm_microbench.py): (M, K, N,
+# G, block_n): the bench's shape at its three qmm2 tilings; fewer rows than
+# the 8-row tile and two row tiles; one group over all of K; the smallest
+# group (32 rows) and the largest (512); the smallest column tile (128)
+MICRO_CASES = [(8, 1280, 5120, 10, 512), (8, 1280, 5120, 10, 1024), (8, 1280, 5120, 10, 2560),
+               (5, 256, 384, 1, 128), (13, 512, 1024, 1, 256), (3, 256, 512, 8, 128),
+               (16, 1024, 640, 2, 640)]
+
+
+def _micro_inputs(dev, M, K, N, G, seed):
+    g = _gen(dev, seed)
+    x = (torch.randn((M, K), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((G, N), generator=g, device=dev) * 0.001 + 1e-5
+    return x, qw, sc
+
+
+@pytest.mark.parametrize("which", ["qmm2", "qmm3", "qmm4"])
+@pytest.mark.parametrize("M,K,N,G,block_n", MICRO_CASES)
+def test_microbench_kernels_match_plain(dev, which, M, K, N, G, block_n):
+    """qmm4 bitwise its plain version (exact int32 partials, then the same
+    separately rounded fp32 recurrence in group order); qmm2 and qmm3
+    within 2^-16 of max|plain| (every bf16 x int8 product is exact; the
+    tensor cores sum each group's products in their own order and
+    precision, the plain version in cuBLAS fp32). A second call is bitwise
+    the first (the groups are summed in a fixed order, without atomics)."""
+    from deepspeed_tpu_torch.ops import qmm_microbench as qm
+    x, qw, sc = _micro_inputs(dev, M, K, N, G, M + K + N + block_n)
+    fn = getattr(qm, which)
+    before = fn.launches
+    out = fn(x, qw, sc, block_n=block_n)
+    assert fn.launches == before + 1
+    ref = getattr(qm, which + "_plain")(x, qw, sc, block_n=block_n)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    if which == "qmm4":
+        assert torch.equal(out, ref), f"qmm4 {M}x{K}x{N}: max abs err {float((out - ref).abs().max()):.3e}"
+    else:
+        err, tol = float((out - ref).abs().max()), 2.0**-16 * float(ref.abs().max())
+        assert err <= tol, f"{which} {M}x{K}x{N} block_n {block_n}: max abs err {err:.3e} > {tol:.3e}"
+    assert torch.equal(fn(x, qw, sc, block_n=block_n), out)
+
+
+def test_microbench_kernels_refuse_what_they_do_not_take(dev):
+    """A group of 48 rows, a column tile of 64, fp32 x: a ValueError on the
+    card, never the plain version."""
+    from deepspeed_tpu_torch.ops import qmm_microbench as qm
+    x, qw, sc = _micro_inputs(dev, 8, 384, 256, 8, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qm.qmm2(x, qw, sc, block_n=128)
+    x, qw, sc = _micro_inputs(dev, 8, 256, 256, 2, 0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qm.qmm3(x, qw, sc, block_n=64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        qm.qmm4(x.float(), qw, sc, block_n=128)

@@ -47,7 +47,7 @@ def test_ported_builders_load_on_the_cpu(name, monkeypatch):
 
 
 KERNEL_MODULES = ("flash_attention", "decode_attention", "quant_matmul", "decode_block",
-                  "sparse_attention.block_sparse_attention")
+                  "sparse_attention.block_sparse_attention", "qmm_microbench")
 
 
 def test_every_cuda_source_has_one_owning_module():

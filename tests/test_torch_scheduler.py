@@ -407,15 +407,16 @@ PINNED_HASHES = [[3170179127, 4179371476, 682839416, 3842603924],
 
 def test_unported_features_raise():
     """Each unported feature raises naming its ROADMAP item; of long
-    context, sharding the seq-parallel prefill across devices (#7), lossless
-    extent demotion without the KV tier (#8) and chains under speculative
-    decode (#5) still do."""
+    context, sharding the seq-parallel prefill across devices (#7) and
+    lossless extent demotion without the KV tier (#8) still do. Speculative
+    decoding (with or without extent chains) and the monolithic prefill
+    are ported: they build, from the constructor and from the config."""
     eng = _port()
-    for kw, item in [({"spec_tokens": 2}, "speculative decode"),
-                     ({"spec_tokens": 2, "max_extents": 2}, "speculative decode"),
-                     ({"prefill_chunk": 0}, "monolithic prefill")]:
-        with pytest.raises(NotImplementedError, match=item):
-            sched_mod.DecodeScheduler(eng, **kw)
+    for kw in ({"spec_tokens": 2}, {"prefill_chunk": 0}):
+        assert sched_mod.DecodeScheduler(eng, **kw) is not None
+    chained = sched_mod.DecodeScheduler(_port(kernel_inject=True), max_len=32, prefill_chunk=16,
+                                        spec_tokens=2, max_extents=2)
+    assert chained.drafter is not None and chained.cache.max_extents == 2
     with pytest.raises(NotImplementedError, match="Queue 1 #7"):
         eng.module.apply_with_cache(eng.net, torch.zeros((1, 1), dtype=torch.long),
                                     eng.module.init_cache(1, 64), 0, seq_shard=True)
@@ -432,7 +433,7 @@ def test_unported_features_raise():
         eng.scheduler().swap_weights({})
     with pytest.raises(NotImplementedError, match="disaggregated"):
         eng.scheduler().migrate_out(None, None, None)
-    for section, item in [({"spec_tokens": 2}, "speculative decode"),
-                          ({"hierarchical_kv": {"enabled": True}}, "hierarchical KV")]:
-        with pytest.raises(NotImplementedError, match=item):
-            _port(continuous_batching={"enabled": True, **section})
+    for section in ({"spec_tokens": 2}, {"prefill_chunk": 0}):
+        _port(continuous_batching={"enabled": True, **section})
+    with pytest.raises(NotImplementedError, match="hierarchical KV"):
+        _port(continuous_batching={"enabled": True, "hierarchical_kv": {"enabled": True}})
