@@ -173,14 +173,25 @@ def bound_ms(nbytes, flops):
 CHUNK_M = 512
 
 
+# (name, K, N): gpt2-large's projections and padded int8 head, then
+# llama3-8b's (fused qkv, o, fused gate/up, down, padded head)
+QMM_GPT2 = [("qkv", 1280, 3840), ("o", 1280, 1280), ("up", 1280, 5120), ("down", 5120, 1280),
+            ("head", 1280, 51200)]
+QMM_LLAMA = [("llama qkv", 4096, 6144), ("llama o", 4096, 4096), ("llama up", 4096, 14336),
+             ("llama down", 14336, 4096), ("llama head", 4096, 129024)]
+# the rows whose bits must not depend on M: every tile edge of the kernel
+QMM_INVARIANT_M = (1, 8, 16, 32, 33, 64, 65, 512, 1024)
+
+
 def qmm_cases(torch, gen, dev):
     """gpt2-large's projections (int8, group 128) and int8 head, at decode
-    (M = B = 8) and prefill (M = B*P = 1024), and the int8 head at the
-    scheduler's chunk step (M = 8 slots x 64 columns)."""
+    (M = B = 8) and prefill (M = B*P = 1024), the int8 head at the
+    scheduler's chunk step (M = 8 slots x 64 columns), llama3-8b's at
+    M = 1024 (a long-context chunk of 16 slots x 64), and a ragged M of
+    1000 and M = 64 (a tile edge) at gpt2-large's up projection."""
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
-    shapes = [("qkv", 1280, 3840), ("o", 1280, 1280), ("up", 1280, 5120), ("down", 5120, 1280),
-              ("head", 1280, 51200)]
-    cases = [(M, *sh) for M in (8, 1024) for sh in shapes] + [(CHUNK_M, "head", 1280, 51200)]
+    cases = ([(M, *sh) for M in (8, 1024) for sh in QMM_GPT2] + [(CHUNK_M, "head", 1280, 51200)]
+             + [(1024, *sh) for sh in QMM_LLAMA] + [(1000, "up", 1280, 5120), (64, "up", 1280, 5120)])
     for M, proj, K, N in cases:
         G = K // 128
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -188,12 +199,36 @@ def qmm_cases(torch, gen, dev):
         sc = torch.rand((G, N), generator=gen, device=dev) * 0.01 + 1e-4
         w_deq = (qw.float().reshape(G, K // G, N) * sc[:, None, :]).reshape(K, N).to(torch.bfloat16)
         nbytes = M * K * 2 + K * N + G * N * 4 + M * N * 2
-        kind = {8: "decode", 1024: "prefill", CHUNK_M: "chunk step"}[M]
+        kind = {8: "decode", 1024: "prefill", CHUNK_M: "chunk step"}.get(M, "ragged")
         yield (f"{kind} {proj} M={M} K={K} N={N}",
                lambda x=x, qw=qw, sc=sc: quant_matmul(x, qw, sc),
                lambda x=x, qw=qw, sc=sc: quant_matmul_plain(x, qw, sc),
                lambda x=x, w=w_deq: torch.matmul(x, w),
                nbytes, 2 * M * K * N)
+
+
+def qmm_invariance(torch, dev):
+    """Batch invariance on the card: at each of the ten shapes, rows of
+    quant_matmul(x[:m]) are bitwise the same rows of quant_matmul(x) (M =
+    1024) for every m of QMM_INVARIANT_M, and two calls on the same inputs
+    are bitwise equal. Launches here are not the main path's."""
+    from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for proj, K, N in QMM_GPT2 + QMM_LLAMA:
+        x = torch.randn((max(QMM_INVARIANT_M), K), generator=gen, device=dev).to(torch.bfloat16)
+        qw = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand((K // 128, N), generator=gen, device=dev) * 0.01 + 1e-4
+        full = quant_matmul(x, qw, sc)
+        check(torch.equal(quant_matmul(x, qw, sc), full), f"quant_matmul {proj}: two calls differ")
+        for m in QMM_INVARIANT_M:
+            part = quant_matmul(x[:m], qw, sc)
+            diff = int((part != full[:m]).sum())
+            check(diff == 0, f"quant_matmul {proj} {K}x{N}: rows of M={m} differ from M="
+                  f"{x.shape[0]} in {diff} entries")
+        check(bool(torch.isfinite(full).all()), f"quant_matmul {proj}: non-finite output")
+    torch.cuda.synchronize()
+    log(f"quant_matmul batch invariance: rows bitwise equal for M in {QMM_INVARIANT_M} and two "
+        f"calls bitwise equal, at {len(QMM_GPT2 + QMM_LLAMA)} shapes")
 
 
 # the decode-shape microbench's layer (benchmarks/qmm_microbench.py): x (8,
@@ -911,6 +946,8 @@ def kernel_phase(torch, dev):
         agg["bound_by"] = "bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms") else "operations"
         results[name] = agg
     del flush
+    if "quant_matmul" in results:
+        qmm_invariance(torch, dev)
     return results
 
 
@@ -1061,8 +1098,17 @@ def steady_step(torch, eng, prompts, what, card):
             trials.append(time.perf_counter() - t)
         times[new] = min(trials)
     step_s = (times[144] - times[16]) / 128
+    eng.generate(prompts, max_new_tokens=1)
+    prefill = []
+    for _ in range(3):  # the prefill and its one sampled token
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.generate(prompts, max_new_tokens=1)
+        torch.cuda.synchronize()
+        prefill.append(time.perf_counter() - t)
     log(f"{what} int8 decode, B={B}, prompt {P}: t(16)={times[16]:.4f} s, t(144)={times[144]:.4f} s, "
-        f"steady step {step_s * 1e3:.3f} ms = {B / step_s:.1f} tok/s on {card}")
+        f"steady step {step_s * 1e3:.3f} ms = {B / step_s:.1f} tok/s on {card}; prefill "
+        f"(generate() of one new token, min of 3) {min(prefill) * 1e3:.3f} ms")
     # a decode step reads every weight but the gathered embedding rows once,
     # and the live K/V window of every layer (mean position over the
     # differenced steps 16..144)
@@ -1682,8 +1728,8 @@ def per_projection_streams(torch, eng):
     ``fused_decode_block: False``: every projection through quant_matmul, at
     M = 8 slots in decode forwards and 8 x 64 in chunk forwards) at K=4 and
     at K=1: identical streams. A row's token rides forwards of other widths
-    at the two K, so this holds only while quant_matmul's split plan follows
-    the weight's shape and not M."""
+    at the two K, so this holds only while quant_matmul's rows do not
+    depend on M (the same segment partials and fma chain at every M)."""
     import numpy as np
     from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
     prompts = mixed_stream()

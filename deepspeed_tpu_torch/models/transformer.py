@@ -297,6 +297,21 @@ def _q_groups(k, group_size):
     return k // gs if k % gs == 0 else 1
 
 
+def _matmul_rows(x2d, w, w_rows=False):
+    """``x2d (M, K) @ w`` (``w`` (K, N)), or ``@ w.T`` when ``w_rows`` (``w``
+    (N, K), a tied embedding), with rows that do not depend on M: a lone
+    row runs as one row of two, since torch.matmul hands a single row to a
+    matrix-vector routine that sums in another order, and a (N, K) weight
+    stays the left operand (through a transposed view, small M takes other
+    routines too). A decode step's row and a verify's then get the same
+    bits."""
+    pad = x2d.shape[0] == 1
+    if pad:
+        x2d = torch.cat([x2d, torch.zeros_like(x2d)])
+    y = torch.matmul(w, x2d.T).T.contiguous() if w_rows else torch.matmul(x2d, w)
+    return y[:1] if pad else y
+
+
 def _qmm2d(x2d, qw, scales, out_dtype=None, impl="kernel"):
     """int8 matmul ``x @ dequant(qw)`` through the quant-matmul kernel."""
     return quant_matmul(x2d, qw, scales, out_dtype=out_dtype or x2d.dtype, impl=impl)
@@ -323,7 +338,7 @@ class QuantDense(nn.Module):
         if self.int8:
             y = _qmm2d(x2, self.kernel_q, self.kernel_scale, impl=impl)
         else:
-            y = torch.matmul(x2, self.kernel.to(self.dtype))
+            y = _matmul_rows(x2, self.kernel.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y.reshape(x.shape[:-1] + (y.shape[-1], ))
@@ -362,18 +377,30 @@ def _sdpa_plain(q, k, v, bias, dtype):
     return torch.matmul(probs, v)
 
 
-def _cached_attention_plain(q, ck, cv, cache_index, cache_mask, dtype):
+def _cached_attention_plain(q, ck, cv, cache_index, cache_mask, dtype, by_column=False):
     """Grouped-query attention against a KV cache, no head expansion: query
     position i sits at cache position ``cache_index + i`` and attends every
     earlier slot that ``cache_mask`` (B, S) allows. ``cache_index`` is a
     shared int or a (B,) tensor (the slot pool: every row at its own
     position). The fallback for ragged (left-padded) prefill, short prompts
-    and ``attention_impl="xla"``."""
+    and ``attention_impl="xla"``.
+
+    ``by_column`` (``attention_impl="xla"``, the plain cached forward): one
+    matmul per query column, so a column's scores and its probs @ v run the
+    same routine whatever T is, and a decode step's column is bitwise a
+    verify's (torch.matmul picks its routine by shape: one column takes
+    another path than five). The flash configuration's fallback (prefill
+    only) keeps one matmul for all columns."""
     B, nh, T, hd = q.shape
     nkv, S = ck.shape[1], ck.shape[2]
     g = nh // nkv
     qg = q.reshape(B, nkv, g, T, hd)
-    scores = torch.matmul(qg, ck[:, :, None].transpose(-1, -2)).float() / math.sqrt(hd)
+    kt = ck[:, :, None].transpose(-1, -2)
+    if by_column:
+        scores = torch.cat([torch.matmul(qg[:, :, :, i:i + 1], kt) for i in range(T)], dim=3)
+    else:
+        scores = torch.matmul(qg, kt)
+    scores = scores.float() / math.sqrt(hd)
     t = torch.arange(T, device=q.device)
     if isinstance(cache_index, torch.Tensor):
         qpos = cache_index.long()[:, None] + t[None, :]  # (B, T)
@@ -384,7 +411,11 @@ def _cached_attention_plain(q, ck, cv, cache_index, cache_mask, dtype):
     if cache_mask is not None:
         bias = bias + torch.where(cache_mask, 0.0, -1e30)[:, None, None, None, :]
     probs = torch.softmax(scores + bias, dim=-1).to(dtype)
-    out = torch.matmul(probs, cv[:, :, None])
+    vg = cv[:, :, None]
+    if by_column:
+        out = torch.cat([torch.matmul(probs[:, :, :, i:i + 1], vg) for i in range(T)], dim=3)
+    else:
+        out = torch.matmul(probs, vg)
     return out.reshape(B, nh, T, hd)
 
 
@@ -582,7 +613,7 @@ class Attention(nn.Module):
                     cv = dequantize_kv_rows(cv, csc, dtype=cfg.dtype)
                 out = _cached_attention_plain(q, ck, cv,
                                               cache_index if write_index is None else write_index,
-                                              attn_mask, cfg.dtype)
+                                              attn_mask, cfg.dtype, by_column=not flash)
             out = out.to(cfg.dtype)
             new_cache = kv_cache
         else:
@@ -779,7 +810,8 @@ class CausalLM(nn.Module):
             if cfg.lm_head_bias:
                 logits = logits + self.logits_bias.to(logits.dtype)
         elif cfg.tie_embeddings:
-            logits = torch.matmul(x, self.embed.embedding.to(cfg.dtype).T)
+            logits = _matmul_rows(x.reshape(B * T, -1), self.embed.embedding.to(cfg.dtype), w_rows=True)
+            logits = logits.reshape(B, T, -1)
         else:
             logits = self.lm_head(x)
         if kv_cache is not None:

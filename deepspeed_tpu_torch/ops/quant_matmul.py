@@ -22,42 +22,42 @@ from . import build
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("quant_matmul", )
 _lib = None
-_arrivals = {}  # device -> zeroed int32 tile counters of the split-K reduction
 
-# kernel tiling (ops/csrc/quant_matmul.cu): 8 rows x 128 columns per block
-_ROWS, _COLS = 8, 128
-# split K until one row tile's blocks number about two per SM of the H100
-# (132 SMs), keeping at least 64 K rows (one staged chunk) per split
-_TARGET_BLOCKS, _MIN_SPLIT_K = 264, 64
+# kernel tiling (ops/csrc/quant_matmul.cu): 128 columns a block; K in
+# segments of 128 rows, the unit of the fp32 sum
+_COLS, _SEG = 128, 128
+# at M <= 32, split K over blocks until the column tiles x splits reach
+# about two blocks per SM of the H100 (132 SMs)
+_TARGET_BLOCKS, _NARROW_M = 264, 32
 
 
 def _split_plan(K, N):
-    """(splits, k_per_split): K cut into ranges of whole staged chunks so
-    that one row tile's (column tiles x splits) blocks about fill the card.
-    The plan is a function of the weight's shape alone, never of the row
-    count M: a row's fp32 partials are summed in the same order whatever
-    else shares the call, so the scheduler's chunk step (M = slots x chunk)
-    and decode step (M = slots) give a row the same bits (its K- and
-    batch-invariance on the card). At M <= 8 (one row tile) it is the plan
-    the kernel has always used at decode."""
-    tiles = -(-N // _COLS)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), K // _MIN_SPLIT_K))
-    k_per_split = -(-K // (splits * _MIN_SPLIT_K)) * _MIN_SPLIT_K  # whole staged chunks
-    return -(-K // k_per_split), k_per_split
+    """How many blocks share a column tile's K at M <= 32, each taking
+    whole 128-row segments, so that column tiles x splits about fill the
+    card. A function of the weight's shape alone. It decides
+    only where the segments' partials are made: every M runs the same fma
+    chain over the same segment partials in K order (the kernel's header),
+    so a row's bits never depend on the plan, on M or on what else shares
+    the call (the scheduler's chunk and decode steps give a row the same
+    bits)."""
+    segs = -(-K // _SEG)
+    per = -(-segs // min(segs, -(-_TARGET_BLOCKS // -(-N // _COLS))))
+    return -(-segs // per)
 
 
-def _spread(M, N, splits):
-    """Whether the splits run as blocks of their own (grid z) rather than
-    in order inside each block: only while the (n, m) tile grid alone is too
-    small to fill the card. Where they run never changes a result."""
-    return splits > 1 and -(-N // _COLS) * -(-M // _ROWS) < _TARGET_BLOCKS
+def _spread(M, splits):
+    """Whether K is split over blocks (a workspace of segment partials and
+    an ordered second launch): only at M <= 32, where the column tiles alone
+    cannot fill the card. Where the partials are made never changes a
+    result."""
+    return splits > 1 and M <= _NARROW_M
 
 
 def _kernel():
     global _lib
     if _lib is None:
         lib = build.load(SOURCES[0])
-        lib.qmm_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.qmm_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.qmm_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -80,17 +80,22 @@ def _check_shapes(x, qw, scales):
 
 def quant_matmul_plain(x, qw, scales, out_dtype=None):
     """Plain PyTorch version: per-group fp32 dots of x and the widened int8
-    weight, each scaled by its group's row, summed in group order."""
+    weight, each scaled by its group's row, summed in group order. A lone
+    row runs as one row of two (torch.mm hands a single row to a
+    matrix-vector routine that sums in another order), so a row's bits do
+    not depend on M."""
     _check_shapes(x, qw, scales)
     M, K = x.shape
     G, N = scales.shape
     gs = K // G
     xf = x.float()
-    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    if M == 1:
+        xf = torch.cat([xf, torch.zeros_like(xf)])
+    acc = torch.zeros((xf.shape[0], N), dtype=torch.float32, device=x.device)
     for g in range(G):
         sl = slice(g * gs, (g + 1) * gs)
         acc += torch.mm(xf[:, sl], qw[sl].float()) * scales[g].float()
-    return acc.to(out_dtype or x.dtype)
+    return acc[:M].to(out_dtype or x.dtype)
 
 
 def quant_matmul(x, qw, scales, out_dtype=None, impl="kernel"):
@@ -116,20 +121,16 @@ def quant_matmul(x, qw, scales, out_dtype=None, impl="kernel"):
     if N % 4:
         raise ValueError(f"quant_matmul kernel: N={N} must be a multiple of 4")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    splits, k_per_split = _split_plan(K, N)
-    spread = _spread(M, N, splits)
-    ws = arrivals = None
-    if spread:
-        tiles = -(-N // _COLS) * -(-M // _ROWS)
-        ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-        arrivals = _arrivals.get(x.device)
-        if arrivals is None or arrivals.numel() < tiles:
-            arrivals = _arrivals[x.device] = torch.zeros(tiles, dtype=torch.int32, device=x.device)
+    splits = _split_plan(K, N)
+    ws = None
+    if _spread(M, splits):
+        segs = G * -(-(K // G) // _SEG)  # a group's last segment may be shorter
+        ws = torch.empty((segs, M, N), dtype=torch.float32, device=x.device)
+    else:
+        splits = 1
     lib = _kernel()
     rc = lib.qmm_launch(x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                        None if ws is None else ws.data_ptr(),
-                        None if arrivals is None else arrivals.data_ptr(),
-                        M, K, N, G, splits, k_per_split, int(spread),
+                        None if ws is None else ws.data_ptr(), M, K, N, G, splits,
                         int(out_dtype == torch.float32), build.stream_of(x))
     build.check(lib, rc, "quant_matmul")
     quant_matmul.launches += 1

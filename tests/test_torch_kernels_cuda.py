@@ -19,8 +19,8 @@ nothing of a row, D 64 and 128, bf16 and int8 KV, against their plain
 versions, an identity table bitwise equal to the paged modes and a chain
 bitwise equal to one big slot; a chained request's K/V in the pool bitwise
 equal to one big slot's, with the dead-row write collision planted. And
-quant_matmul's rows bitwise the same whatever M shares the call (8 to 1024
-rows, at gpt2-large's and llama3-8b's projection and head shapes). The
+quant_matmul's rows bitwise the same whatever M shares the call (1 to 1024
+rows, across every tile edge, at gpt2-large's and llama3-8b's projection and head shapes). The
 block-sparse kernels (forward, dq, dk/dv) at blocks 16/32/64/128 and head
 dims 64/128, causal or not, on a layout with blocks above the diagonal, an
 empty q row, a kv block no query reads and a row that reads only the
@@ -102,11 +102,15 @@ def _assert_close(out, ref, what):
 
 
 # (M, K, N, G): G=1 (quantize_params' fallback when 128 does not divide K);
-# K not a multiple of the 64-row staged chunk; M not a multiple of the
-# 8-row tile; K split into many blocks (N too narrow to fill the card);
-# the int8 head's padded vocab; a ragged prefill M
+# M not a multiple of the 8-row tile; K split into many blocks (N too
+# narrow to fill the card); the int8 head's padded vocab; a ragged prefill
+# M; a group size that is not a multiple of 8 (K=196) and N not a multiple
+# of 16 (the element-wise loads, at M <= 32 and above, where such shapes
+# keep the mma.sync path); a last column tile of the wgmma path cut at
+# N = 400 (the TMA box zero-fills past it)
 QMM_CASES = [(1, 1280, 1280, 1), (5, 200, 64, 1), (13, 256, 384, 2), (3, 5120, 128, 40),
-             (8, 1280, 51200, 10), (1030, 1280, 1280, 10)]
+             (8, 1280, 51200, 10), (1030, 1280, 1280, 10), (9, 196, 100, 1), (40, 1000, 260, 1),
+             (100, 256, 400, 2)]
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -121,8 +125,39 @@ def test_quant_matmul_kernel_matches_plain(dev, M, K, N, G, out_dtype):
     assert quant_matmul.launches == before + 1  # a CUDA tensor always launches
     torch.cuda.synchronize()
     _assert_close(out, quant_matmul_plain(x, qw, sc, out_dtype=out_dtype), f"qmm {M}x{K}x{N} G={G}")
-    # the split-K tile counters are left zeroed: a second launch agrees bitwise
+    # no atomics: a second launch agrees bitwise
     assert torch.equal(quant_matmul(x, qw, sc, out_dtype=out_dtype), out)
+
+
+# every tile edge of the kernel's M configurations (8, 16, 32 rows; 128 rows
+# of the wide one) at one group over K and at groups of 128, for bf16 and
+# fp32 out: M 1, 7, 9, 32 (the narrow tiles), 33 (the first wide M), 63,
+# 65 and 1000 (a ragged last wide tile)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G", [1, 10])
+@pytest.mark.parametrize("M", [1, 7, 9, 32, 33, 63, 65, 1000])
+def test_quant_matmul_kernel_matches_plain_at_ragged_m(dev, M, G, out_dtype):
+    K, N = 1280, 1280
+    g = _gen(dev, M + 7 * G)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((G, N), generator=g, device=dev) * 0.01 + 1e-4
+    out = quant_matmul(x, qw, sc, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    _assert_close(out, quant_matmul_plain(x, qw, sc, out_dtype=out_dtype), f"qmm M={M} G={G}")
+
+
+@pytest.mark.parametrize("M", [8, 16, 1024])
+def test_quant_matmul_two_calls_bitwise(dev, M):
+    """Run to run: the split-K path (M 8 and 16, its partials summed by a
+    second launch) and the wide path (M 1024) give the same bits twice."""
+    g = _gen(dev, 11 * M)
+    x = torch.randn((M, 5120), generator=g, device=dev).to(torch.bfloat16)
+    qw = torch.randint(-127, 128, (5120, 1280), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand((40, 1280), generator=g, device=dev) * 0.01 + 1e-4
+    outs = [quant_matmul(x, qw, sc, out_dtype=torch.float32) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 def test_quant_matmul_kernel_refuses_what_it_does_not_take(dev):
@@ -589,15 +624,18 @@ ROW_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 512
 @pytest.mark.parametrize("K,N", ROW_SHAPES)
 def test_quant_matmul_rows_do_not_depend_on_the_batch(dev, K, N):
     """Rows of quant_matmul(x[:m]) are bitwise the same rows of
-    quant_matmul(x) for m in 8, 64, 512, 1024: the split plan follows the
-    weight's shape, never M (the scheduler's chunk and decode steps, and a
-    chained request's per-projection dispatches, give a row the same bits)."""
+    quant_matmul(x) for m in 1, 8, 16, 32, 33, 64, 65, 512 and 1024, every
+    tile edge of the kernel (mma.sync with K split over blocks up to 32
+    rows, wgmma with the chain in registers above): every M runs the same
+    segment partials and the same fma chain (the scheduler's chunk and
+    decode steps, and a chained request's per-projection dispatches, give a
+    row the same bits)."""
     g = _gen(dev, K + N)
     x = torch.randn((1024, K), generator=g, device=dev).to(torch.bfloat16)
     qw = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
     sc = torch.rand((K // 128, N), generator=g, device=dev) * 0.01 + 1e-4
     full = quant_matmul(x, qw, sc)
-    for m in (8, 64, 512):
+    for m in (1, 8, 16, 32, 33, 64, 65, 512, 1024):
         part = quant_matmul(x[:m], qw, sc)
         torch.cuda.synchronize()
         diff = int((part != full[:m]).sum())

@@ -3,7 +3,8 @@ Pallas quant_matmul (interpret mode on the CPU), on the same numpy inputs.
 
 The CUDA kernel itself cannot run here; ``chip_smoke.py`` holds it against
 this plain version on the card. Its split-K plan is checked here: a function
-of the weight's shape alone, so a row's result does not depend on M."""
+of the weight's shape alone, which decides only where the kernel's segment
+partials are made, never how they are summed."""
 
 import inspect
 
@@ -64,24 +65,24 @@ PLAN_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 51
 
 
 def _decode_plan(K, N):
-    """The split plan at one row tile (M <= 8), written out: K split until
-    the column tiles x splits reach 264 blocks, at least 64 K rows a split,
-    rounded to whole 64-row chunks."""
-    tiles = -(-N // 128)
-    splits = max(1, min(-(-264 // tiles), K // 64))
-    per = -(-K // (splits * 64)) * 64
-    return -(-K // per), per
+    """The split plan, written out: K in 128-row segments, split until the
+    column tiles x splits reach 264 blocks, whole segments a split."""
+    segs = -(-K // 128)
+    per = -(-segs // min(segs, -(-264 // -(-N // 128))))
+    return -(-segs // per)
 
 
 @pytest.mark.parametrize("K,N", PLAN_SHAPES)
 def test_split_plan_takes_no_row_count(K, N):
-    """The plan's only inputs are K and N, it is the decode plan at every
-    M, its splits cover K in whole chunks, and only where the splits run
-    (spread over blocks, or in order inside each block) follows M."""
+    """The plan's only inputs are K and N, its splits take K's segments in
+    whole segments with none empty, and only whether the splits run as
+    blocks of their own (at M <= 32) follows M."""
     assert list(inspect.signature(_split_plan).parameters) == ["K", "N"]
-    splits, per = _split_plan(K, N)
-    assert (splits, per) == _decode_plan(K, N)
-    assert per % 64 == 0 and (splits - 1) * per < K <= splits * per
-    spreads = [_spread(M, N, splits) for M in (1, 8, 64, 512, 1024, 8192)]
-    assert spreads[0] == spreads[1] == (splits > 1)
-    assert not spreads[-1]  # a card-filling tile grid walks its splits in order
+    splits = _split_plan(K, N)
+    assert splits == _decode_plan(K, N)
+    segs = -(-K // 128)
+    per = -(-segs // splits)
+    assert (splits - 1) * per < segs <= splits * per
+    spreads = [_spread(M, splits) for M in (1, 8, 16, 32, 33, 64, 512, 1024, 8192)]
+    assert spreads[:4] == [splits > 1] * 4
+    assert not any(spreads[4:])  # from 33 rows the block runs its chain in registers

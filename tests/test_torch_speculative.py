@@ -130,22 +130,24 @@ def test_spec_greedy_and_sampled_bitwise_equal_to_non_spec(kv):
     sched.radix.check_invariants()
 
 
-def test_spec_on_the_plain_attention_path():
-    """attention_impl "xla" (the model's plain cached attention): the same
-    tokens with spec_tokens=4 and 0, and logits within 2^-16 of max|ref|,
-    not bitwise: on the CPU, PyTorch's matmul takes another BLAS routine for
-    the one query column of a decode step than for the five of a verify, so
-    a column's scores differ in the last bits (the paged kernels' path
-    above is bitwise)."""
+@pytest.mark.parametrize("num_slots", [4, 1])
+def test_spec_on_the_plain_attention_path(num_slots):
+    """attention_impl "xla" (the model's plain cached attention and plain
+    projections): greedy tokens and their per-step logits bitwise equal
+    with spec_tokens=4 and 0, as the JAX package's plain path holds them.
+    The plain cached attention runs one matmul per query column and a lone
+    projection row runs as one of two, so a decode step's column (T = 1;
+    with one slot also M = 1) and a verify's (T = 5) take the same routines
+    (torch.matmul picks its routine by shape)."""
     out = {}
     for spec in (0, 4):
-        sched = _port(collect_logits=True).scheduler(spec_tokens=spec)
+        sched = _port(collect_logits=True, num_slots=num_slots).scheduler(spec_tokens=spec)
         toks, hs = _serve(sched, PROMPTS, max_new=16)
         out[spec] = toks, [h.result_logits() for h in hs], sched
     for a, b in zip(out[0][0], out[4][0]):
         assert np.array_equal(a, b)
     for a, b in zip(out[0][1], out[4][1]):
-        np.testing.assert_allclose(b, a, rtol=0, atol=2.0**-16 * np.abs(a).max())
+        np.testing.assert_array_equal(a, b)
     assert out[4][2].spec_accepted > 0
 
 
