@@ -21,7 +21,11 @@ Phases (any failure ends the run with a non-zero exit):
    flash backward kernels, scaled_dot_product_attention's forward and
    backward, beside the port's forward and backward), beside the datasheet
    bound (3.35 TB/s, 989 TFLOP/s bf16); the backward kernels must also give
-   bitwise-equal outputs on two calls;
+   bitwise-equal outputs on two calls; ``quant_matmul``'s rows must not
+   depend on M, and the decode kernel's invariants must hold bitwise at
+   gpt2-large's and llama3-8b's heads, bf16 and int8 KV
+   (``decode_invariance``: span column == decode, chained == one big slot
+   at chunk and extent boundaries, NaN outside the windows changing no bit);
 3. the main path: gpt2-large (36 layers, full width, random weights from a
    seed) served through ``init_inference`` with the default int8
    kernel-injected config, so decode steps take the fused decode layer;
@@ -380,6 +384,239 @@ def decode_cases(torch, gen, dev):
                nbytes, 4 * (H // nkv) * D * live * nkv)
 
 
+def _planted(torch, gen, leaves, keep, int8):
+    """The caches (k, v, scales) with NaN (int8: NaN scales, random K/V
+    bytes) and with zeros at every (pool row, offset) that ``keep`` (Np, S)
+    does not mark."""
+    k, v, sc = leaves
+    m = keep[:, None, :, None]
+    zeroed = (k.masked_fill(~m, 0), v.masked_fill(~m, 0), None if sc is None else sc.masked_fill(~m, 0))
+    if int8:
+        noise = torch.randint(-128, 128, k.shape, generator=gen, device=k.device, dtype=torch.int8)
+        return (torch.where(m, k, noise), torch.where(m, v, noise),
+                sc.masked_fill(~m, float("nan"))), zeroed
+    return (k.masked_fill(~m, float("nan")), v.masked_fill(~m, float("nan")), None), zeroed
+
+
+def decode_invariance(torch, dev):
+    """The decode kernel's bitwise invariants on the card, at gpt2-large's
+    heads (D 64) and llama3-8b's (D 128, GQA g=4), bf16 and int8 KV; any
+    failure ends the run:
+    1. every live column c of a paged span call (T = 64) equals the paged
+       decode call for a row with the same window, at the PAGED_SHAPES pools
+       (the long llama pool's columns cross 512-position chunk boundaries);
+    2. chains of 11 extents of S = 100 (no multiple of the 64-position tile)
+       whose windows end at 511/512/513 and 1023/1024/1025 equal one slot of
+       1100 rows, decode and span (T = 64, columns across the boundary); on
+       the same chains, every column of a lossy extent span call equals the
+       extent decode call with its window and hole;
+    3. NaN planted in every cache position that no window keeps (past the
+       ends, in a lossy hole, in the pool row of a dead row, in unnamed pool
+       rows) changes no bit of any of the five modes.
+    (The identity table == paged gate runs in ``extent_cases``.)"""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        decode_attention, extent_paged_decode_attention, extent_paged_span_attention,
+        paged_decode_attention, paged_span_attention)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    T, n = 64, 0
+    pick = lambda t, i: None if t is None else t[i]  # noqa: E731
+    for int8 in (False, True):
+        for label, B, H, nkv, S, D in PAGED_SHAPES:
+            q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+            kc, vc, sc, _ = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
+            base = torch.tensor(SPAN_BASES[label], dtype=torch.int32, device=dev)
+            start = torch.zeros((B, ), dtype=torch.int32, device=dev)
+            span = paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc)
+            for c in range(T):
+                live = (base + 1 + c <= S).nonzero()[:, 0]
+                dec = paged_decode_attention(q[live, :, c].contiguous(), kc[live], vc[live], start[live],
+                                             base[live] + 1 + c, k_scale=pick(sc, live),
+                                             v_scale=pick(sc, live))
+                check(torch.equal(span[live, :, c], dec),
+                      f"decode invariance [{label} int8={int8}]: span column {c} differs from decode")
+                n += 1
+        for label, H, nkv, D in (("gpt2-large", 20, 20, 64), ("llama3-8b", 32, 8, 128)):
+            S, E, ends_l = 100, 11, [511, 512, 513, 1023, 1024, 1025]
+            B = len(ends_l)
+            kc, vc, sc, _ = _paged_kv(torch, gen, dev, B * E, nkv, S, D, int8)
+            chain = torch.randperm(B * E, generator=gen, device=dev).reshape(B, E).to(torch.int32)
+            big = [None if t is None else t[chain.long()].transpose(1, 2)
+                   .reshape(B, t.shape[1], E * S, t.shape[3]).contiguous() for t in (kc, vc, sc)]
+            start = torch.tensor([0, 3, 0, 600, 0, 0], dtype=torch.int32, device=dev)
+            ends = torch.tensor(ends_l, dtype=torch.int32, device=dev)
+            q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+            q1 = q[:, :, 0].contiguous()
+            check(torch.equal(extent_paged_decode_attention(q1, kc, vc, start, ends, chain, k_scale=sc,
+                                                            v_scale=sc),
+                              paged_decode_attention(q1, big[0], big[1], start, ends, k_scale=big[2],
+                                                     v_scale=big[2], block_kv=S)),
+                  f"decode invariance [{label} int8={int8}]: chained decode differs from one big slot")
+            check(torch.equal(extent_paged_span_attention(q, kc, vc, start, ends - 32, chain, k_scale=sc,
+                                                          v_scale=sc),
+                              paged_span_attention(q, big[0], big[1], start, ends - 32, k_scale=big[2],
+                                                   v_scale=big[2], block_kv=S)),
+                  f"decode invariance [{label} int8={int8}]: chained span differs from one big slot")
+            n += 2
+            # lossy rows over the same chains: every column of an extent span
+            # call equals the extent decode call with its window and hole (each
+            # column's hole [sink, end - window) ends elsewhere: across the
+            # 512 boundary, over the dropped extents 0..6 of row 1, empty
+            # while end - window < sink, in the first tile)
+            lchain = chain.clone()
+            lchain[1, :7] = -1
+            lbase = torch.tensor([700, 1000, 900, 600, 1030, 0], dtype=torch.int32, device=dev)
+            lossy = {"sink": torch.tensor([10, 0, 0, 500, 64, 4], dtype=torch.int32, device=dev),
+                     "window": torch.tensor([220, 300, 0, 50, 1024, 2], dtype=torch.int32, device=dev)}
+            span = extent_paged_span_attention(q, kc, vc, start, lbase, lchain, k_scale=sc, v_scale=sc,
+                                               **lossy)
+            for c in range(T):
+                dec = extent_paged_decode_attention(q[:, :, c].contiguous(), kc, vc, start, lbase + 1 + c,
+                                                    lchain, k_scale=sc, v_scale=sc, **lossy)
+                check(torch.equal(span[:, :, c], dec), f"decode invariance [{label} int8={int8}]: lossy "
+                      f"extent span column {c} differs from extent decode")
+                n += 1
+            # NaN outside every window: paged rows 0..2, and extent rows over a
+            # 6-extent table (row 0 lossy: sink 10, window 60, end 590, its
+            # extents 1..4 dropped; row 1 a 3-extent chain; row 2 dead)
+            Np, L = 6, 6 * S
+            kc, vc, sc = kc[:Np].contiguous(), vc[:Np].contiguous(), pick(sc, slice(0, Np))
+            sc = None if sc is None else sc.contiguous()
+            pos, lpos = torch.arange(S, device=dev), torch.arange(L, device=dev)
+            start = torch.tensor([5, 0, 0], dtype=torch.int32, device=dev)
+            ends = torch.tensor([70, 100, 0], dtype=torch.int32, device=dev)
+            base = torch.tensor([20, 90, 0], dtype=torch.int32, device=dev)
+            table = [[3, -1, -1, -1, -1, 1], [0, 2, 5, -1, -1, -1], [4, -1, -1, -1, -1, -1]]
+            ext = torch.tensor(table, dtype=torch.int32, device=dev)
+            x_end = torch.tensor([590, 250, 0], dtype=torch.int32, device=dev)
+            x_base = (x_end - 1).clamp(min=0)
+            zero3 = torch.zeros((3, ), dtype=torch.int32, device=dev)
+            lossy = {"sink": torch.tensor([10, 0, 0], dtype=torch.int32, device=dev),
+                     "window": torch.tensor([60, 0, 0], dtype=torch.int32, device=dev)}
+            rows3 = torch.zeros((3, S), dtype=torch.bool, device=dev)
+
+            def pool_keep(col_ends):
+                keep = torch.zeros((Np, S), dtype=torch.bool, device=dev)
+                for b in range(3):
+                    for end in col_ends[b]:
+                        k = lpos < end
+                        if b == 0:
+                            k &= (lpos < 10) | (lpos >= end - 60)
+                        for e, prow in enumerate(table[b]):
+                            if prow >= 0:
+                                keep[prow] |= k[e * S:(e + 1) * S]
+                return keep
+
+            q1, q8 = q[:Np, :, 0].contiguous(), q[:Np, :, :8].contiguous()
+            first3 = lambda t: None if t is None else t[:3]  # noqa: E731
+            modes = [
+                ("paged decode", (pos >= start[:, None]) & (pos < ends[:, None]),
+                 lambda k, v, s: paged_decode_attention(q1[:3], k[:3], v[:3], start, ends,
+                                                        k_scale=first3(s), v_scale=first3(s))),
+                ("paged span", (pos >= start[:, None]) & (pos < base[:, None] + 8),
+                 lambda k, v, s: paged_span_attention(q8[:3], k[:3], v[:3], start, base,
+                                                      k_scale=first3(s), v_scale=first3(s))),
+                ("extent decode", pool_keep([[int(e)] for e in x_end]),
+                 lambda k, v, s: extent_paged_decode_attention(q1[:3], k, v, zero3, x_end, ext,
+                                                               k_scale=s, v_scale=s, **lossy)),
+                ("extent span", pool_keep([[int(e) + 1 + j for j in range(8)] for e in x_base]),
+                 lambda k, v, s: extent_paged_span_attention(q8[:3], k, v, zero3, x_base, ext,
+                                                             k_scale=s, v_scale=s, **lossy))]
+            if not int8:
+                modes.append(("decode", (pos >= start[:, None]) & (pos < ends[:, None]),
+                              lambda k, v, s: decode_attention(q1[:3], k[:3], v[:3], start, ends)))
+            for what, keep, call in modes:
+                if keep.shape[0] == 3:
+                    keep = torch.cat([keep, rows3])
+                planted, zeroed = _planted(torch, gen, (kc, vc, sc), keep, int8)
+                got, ref = call(*planted), call(*zeroed)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref) and bool(torch.isfinite(got.float()).all()),
+                      f"decode invariance [{label} {what} int8={int8}]: bytes outside the windows leak")
+                n += 1
+    log(f"decode invariance: {n} bitwise checks passed (span column == decode, chained == one big "
+        f"slot at chunk and extent boundaries, NaN outside the windows)")
+
+
+def _paged_plain_p_bf16(torch, q, kc, vc, ends, sc):
+    """Paged decode (start 0) as the kernel would compute it if P V dropped
+    p's bf16 low part: p (times each position's V scale on the int8 tier)
+    rounded to bf16 before the product, the rest as the plain version."""
+    B, H, D = q.shape
+    nkv, S = kc.shape[1], kc.shape[2]
+    qg = q.reshape(B, nkv, H // nkv, D).float() * D**-0.5
+    k, v = kc.float(), vc.float()
+    if sc is not None:
+        k = k * sc.float()
+    s = qg @ k.transpose(-1, -2)  # (B, nkv, g, S)
+    live = torch.arange(S, device=q.device)[None, :] < ends[:, None]
+    s = s.masked_fill(~live[:, None, None], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(-1, keepdim=True)
+    pv = p if sc is None else p * sc.float().transpose(-1, -2)
+    out = (pv.to(torch.bfloat16).float() @ v) / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, H, D).to(torch.bfloat16)
+
+
+def decode_planted_faults(torch, dev):
+    """The decode kernel's relative-L2 gates against two planted faults;
+    either passing its gate ends the run:
+    1. one 512-position chunk skipped in the merge, made by the kernel itself:
+       the extent modes over an identity table with a lossy hole that is
+       exactly one chunk (chunk 3 of row 0's 8 at the long llama3-8b pool,
+       decode and span; chunk 7 of 16 of the 8000-position chain), against
+       the plain version of the whole window: DECODE_ROW_REL_L2 must catch it;
+    2. p's bf16 low part dropped from P V (``_paged_plain_p_bf16``, the
+       kernel's arithmetic with that fault, in PyTorch) at the paged decode
+       pools, bf16 and int8: DECODE_REL_L2 must catch it."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        extent_paged_decode_attention, extent_paged_decode_attention_plain,
+        extent_paged_span_attention, paged_decode_attention_plain, paged_span_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+
+    def report(what, bad, ref, gate):
+        rel, row = _rel_l2(bad, ref), _row_rel_l2(torch, bad, ref)
+        err, tol = float((bad.float() - ref.float()).abs().max()), 2.0**-7 * float(ref.float().abs().max())
+        log(f"decode planted fault, {what}: row rel L2 {row:.3e} (gate {DECODE_ROW_REL_L2:g}), rel L2 "
+            f"{rel:.3e} (gate {DECODE_REL_L2:g}), max abs err {err:.3e} (the 2^-7 max|plain| gate "
+            f"{tol:.3e}: {'caught' if err > tol else 'missed'})")
+        caught = row > DECODE_ROW_REL_L2 if gate == "row" else rel > DECODE_REL_L2
+        check(caught, f"decode planted fault, {what}: passes the {gate} rel L2 gate")
+
+    label, B, H, nkv, S, D = PAGED_SHAPES[2]
+    kc, vc, _, _ = _paged_kv(torch, gen, dev, B, nkv, S, D, False)
+    start, ends, base = i32([0] * B), i32(PAGED_ENDS[label]), i32(SPAN_BASES[label])
+    ident = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    bad = extent_paged_decode_attention(q, kc, vc, start, ends, ident, sink=i32([1536, 0, 0, 0]),
+                                        window=i32([2048, 0, 0, 0]))
+    report(f"{label} decode, row 0 (end 4096) without chunk 3", bad,
+           paged_decode_attention_plain(q, kc, vc, start, ends), "row")
+    q = torch.randn((B, H, 64, D), generator=gen, device=dev).to(torch.bfloat16)
+    bad = extent_paged_span_attention(q, kc, vc, start, base, ident, sink=i32([1536, 0, 0, 0]),
+                                      window=i32([1953, 0, 0, 0]))
+    report(f"{label} span, row 0 (base 4000) without [1536, 2048 + c)", bad,
+           paged_span_attention_plain(q, kc, vc, start, base), "row")
+    N, H, nkv, S, D, E = EXT_SHAPES[0][1:]
+    table, ends_l, _, _ = _ext_layout(N, E, "chain")
+    kc, vc, _, _ = _paged_kv(torch, gen, dev, N, nkv, S, D, False)
+    ext, ends, start = i32(table), i32(ends_l), i32([0] * N)
+    q = torch.randn((N, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    hole = {"sink": i32([7 * 512] + [0] * (N - 1)), "window": i32([ends_l[0] - 8 * 512] + [0] * (N - 1))}
+    bad = extent_paged_decode_attention(q, kc, vc, start, ends, ext, **hole)
+    report("llama3-8b chain decode, row 0 (end 8000) without chunk 7 of 16", bad,
+           extent_paged_decode_attention_plain(q, kc, vc, start, ends, ext), "row")
+    for int8 in (False, True):
+        for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3]:
+            kc, vc, sc, _ = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
+            start, ends = i32([0] * B), i32(PAGED_ENDS[label])
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+            report(f"{label} decode int8={int8}, p's bf16 low part dropped",
+                   _paged_plain_p_bf16(torch, q, kc, vc, ends, sc),
+                   paged_decode_attention_plain(q, kc, vc, start, ends, k_scale=sc, v_scale=sc), "whole")
+
+
 def _paged_kv(torch, gen, dev, B, nkv, S, D, int8):
     """A slot pool's K/V: bf16, or int8 with the port's per-row scales."""
     from deepspeed_tpu_torch.ops.quantizer import quantize_kv_rows
@@ -393,9 +630,15 @@ def _paged_kv(torch, gen, dev, B, nkv, S, D, int8):
     return k, v, None, (k, v)
 
 
-# the scheduler's pool at gpt2-large (8 slots, 20 heads of 64, S=512) and a
-# llama3-8b pool (4 slots, 32 q and 8 kv heads of 128)
-PAGED_SHAPES = [("gpt2-large", 8, 20, 20, 512, 64), ("llama3-8b", 4, 32, 8, 512, 128)]
+# the scheduler's pool at gpt2-large (8 slots, 20 heads of 64, S=512), a
+# llama3-8b pool (4 slots, 32 q and 8 kv heads of 128) and a long llama3-8b
+# pool (S=4096: windows over several of the kernel's 512-position chunks)
+PAGED_SHAPES = [("gpt2-large", 8, 20, 20, 512, 64), ("llama3-8b", 4, 32, 8, 512, 128),
+                ("llama3-8b long", 4, 32, 8, 4096, 128)]
+PAGED_ENDS = {"gpt2-large": [300, 0, 129, 511, 64, 0, 257, 400], "llama3-8b": [130, 290, 511, 64],
+              "llama3-8b long": [4096, 1023, 2600, 3001]}
+SPAN_BASES = {"gpt2-large": [128, 300, 17, 440, 200, 64, 380, 240], "llama3-8b": [128, 0, 300, 440],
+              "llama3-8b long": [4000, 480, 1500, 3000]}
 
 
 def _paged_bytes(torch, q, nkv, D, windows, int8):
@@ -415,11 +658,10 @@ def paged_decode_cases(torch, gen, dev, int8):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.decode_attention import (paged_decode_attention,
                                                           paged_decode_attention_plain)
-    ends_by = {8: [300, 0, 129, 511, 64, 0, 257, 400], 4: [130, 290, 511, 64]}
-    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 2]:
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3]:
         q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
         kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
-        ends = torch.tensor(ends_by[B], dtype=torch.int32, device=dev)
+        ends = torch.tensor(PAGED_ENDS[label], dtype=torch.int32, device=dev)
         starts = torch.zeros((B, ), dtype=torch.int32, device=dev)
         pos = torch.arange(S, device=dev)
         mask = (pos[None, :] < ends[:, None])[:, None, None, :]
@@ -445,11 +687,10 @@ def paged_span_cases(torch, gen, dev, int8):
     from deepspeed_tpu_torch.ops.decode_attention import (paged_span_attention,
                                                           paged_span_attention_plain)
     T = 64
-    bases_by = {8: [128, 300, 17, 440, 200, 64, 380, 240], 4: [128, 0, 300, 440]}
-    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 2]:
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3]:
         q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
         kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
-        base = torch.tensor(bases_by[B], dtype=torch.int32, device=dev)
+        base = torch.tensor(SPAN_BASES[label], dtype=torch.int32, device=dev)
         starts = torch.zeros((B, ), dtype=torch.int32, device=dev)
         col_end = (base[:, None] + 1 + torch.arange(T, device=dev)[None, :]).clamp(max=S)  # (B, T)
         pos = torch.arange(S, device=dev)
@@ -875,6 +1116,19 @@ NEG_INF_OUTPUTS = ("block_sparse_fwd", )
 # typical entry, so the max-abs gate alone could pass a dropped kv block.
 # The sparse phase plants that fault and requires this gate to catch it.
 SPARSE_REL_L2 = 2e-3
+# the decode kernel's rows (every mode of decode_attention.cu)
+DECODE_KERNELS = tuple(k[0] for k in KERNELS if k[1].endswith("/decode_attention.cu"))
+# ... are also held to a relative L2 error in each folded row (the D outputs
+# of one (row, query head, column)) and over the whole output: max|plain| is
+# set by the short windows, so the max-abs gate alone would pass a long
+# window that lost one 512-position chunk in the merge (its outputs are a
+# tenth of the short rows'). ``decode_planted_faults`` plants that fault (and
+# p's bf16 low part dropped) and requires these gates to catch it. The limits
+# lie between the readings (PERF.md): sound rows at most 2.4e-3 a row and
+# 1.4e-4 an output; a skipped chunk 0.66 a row, the low part dropped 1.8e-3
+# an output.
+DECODE_ROW_REL_L2 = 2.0**-6
+DECODE_REL_L2 = 2.0**-11
 
 
 def kernel_phase(torch, dev):
@@ -897,7 +1151,7 @@ def kernel_phase(torch, dev):
                 again = again if isinstance(again, tuple) else (again, )
                 check(all(torch.equal(o, a) for (o, _), a in zip(pairs, again)),
                       f"{name} [{label}]: two calls on the same inputs differ")
-            case_err, case_ref, case_rel = 0.0, 0.0, None
+            case_err, case_ref, case_rel, extra_rec = 0.0, 0.0, None, {}
             # outputs in bf16 (the working type): one bf16 ulp at the largest
             # magnitude, 2^-7 of max|plain|; the flash lse (fp32 on both
             # sides, online vs direct softmax) within 1e-3
@@ -920,8 +1174,17 @@ def kernel_phase(torch, dev):
                     check(rel <= SPARSE_REL_L2,
                           f"{name} [{label}] output {i}: rel L2 err {rel:.3e} > {SPARSE_REL_L2:g}")
                     case_rel = rel if case_rel is None else max(case_rel, rel)
+                if name in DECODE_KERNELS:
+                    case_rel, row_rel = _rel_l2(o, r), _row_rel_l2(torch, o, r)
+                    check(row_rel <= DECODE_ROW_REL_L2, f"{name} [{label}]: a folded row's rel L2 err "
+                          f"{row_rel:.3e} > {DECODE_ROW_REL_L2:g}")
+                    check(case_rel <= DECODE_REL_L2,
+                          f"{name} [{label}]: rel L2 err {case_rel:.3e} > {DECODE_REL_L2:g}")
+                    extra_rec["row_rel_l2_err"] = row_rel
                 case_err, case_ref = max(case_err, err), max(case_ref, ref_max)
             agg["max_abs_err"] = max(agg["max_abs_err"], case_err)
+            if name in DECODE_KERNELS:  # device memory a call takes beyond its inputs
+                extra_rec["call_mib"] = _call_mib(torch, kern)
             k_ms, p_ms, l_ms = cuda_ms(kern, flush), cuda_ms(plain, flush, 3), cuda_ms(library, flush)
             b_ms, b_by = bound_ms(nbytes, flops)
             extra_ms = {key: cuda_ms(fn, flush) for key, fn in (extra[0] if extra else {}).items()}
@@ -929,7 +1192,8 @@ def kernel_phase(torch, dev):
                 f"{'chain ' if library_kind == 'chain' else ''}{l_ms:.4f}, bound {b_ms:.4f} by "
                 f"{b_by}{''.join(f', {key} {v:.4f}' for key, v in extra_ms.items())}), "
                 f"max abs err {case_err:.3e} (max |plain| {case_ref:.3e})"
-                + (f", rel L2 err {case_rel:.3e}" if case_rel is not None else ""))
+                + (f", rel L2 err {case_rel:.3e}" if case_rel is not None else "")
+                + "".join(f", {key} {v:.4g}" for key, v in extra_rec.items()))
             for key, v in extra_ms.items():
                 agg[key] = agg.get(key, 0.0) + v
             agg["ms"] += k_ms
@@ -942,12 +1206,16 @@ def kernel_phase(torch, dev):
                                  ("library_chain_ms" if library_kind == "chain" else "library_ms"): l_ms,
                                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": case_err,
                                  "max_abs_plain": case_ref,
-                                 **({} if case_rel is None else {"rel_l2_err": case_rel}), **extra_ms})
+                                 **({} if case_rel is None else {"rel_l2_err": case_rel}), **extra_rec,
+                                 **extra_ms})
         agg["bound_by"] = "bytes" if agg.pop("bytes_ms") >= agg.pop("ops_ms") else "operations"
         results[name] = agg
     del flush
     if "quant_matmul" in results:
         qmm_invariance(torch, dev)
+    if any(name in DECODE_KERNELS for name in results):
+        decode_invariance(torch, dev)
+        decode_planted_faults(torch, dev)
     return results
 
 
@@ -1852,6 +2120,14 @@ def timed_requests(sched, prompts, max_new, collect=False, **kw):
     return [h.result() for h in hs], logits, wall, ttft, itl
 
 
+def log_peak(torch, what):
+    """The peak device memory since the last reset of the peak (the caching
+    allocator's, which holds the KV pool, the weights and every transient
+    such as the decode kernel's workspace), beside what is held now."""
+    log(f"{what}: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB held after (torch.cuda.max_memory_allocated)")
+
+
 def check_long_counts(sched, counts, what, int8_kv=False):
     """Launches over a long-context stream: a forward that carried extent
     operands ran every projection through quant_matmul (fused qkv, o, gate,
@@ -1940,7 +2216,8 @@ def long_context_phase(torch, eng, max_len=LONG_MAX_LEN):
     logits bitwise, greedy and sampled; a mixed stream (prompts 6000 and 3000
     and six of 8-191 tokens, queued at t = 0) with exact launch counts, and
     at K=4 and K=1 per projection with identical streams; the int8 KV leg;
-    the lossy leg (kv_window (64, 1024), an 8000-token prompt). Every length
+    the lossy leg (kv_window (64, 1024), an 8000-token prompt); exact launch
+    counts and the peak device memory of the mixed stream and both legs. Every length
     scales with ``max_len`` (a rehearsal at a small pool runs the same
     extent structure). Returns the mixed stream's and the int8 leg's counts."""
     import numpy as np
@@ -2004,10 +2281,12 @@ def long_context_phase(torch, eng, max_len=LONG_MAX_LEN):
     sched.ext_forwards.clear()
     sched.dispatched.clear()
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     outs, _, wall, ttft, itl = timed_requests(sched, mixed, LONG_NEW)
     torch.cuda.synchronize()
     counts = read_counts()
     check_long_counts(sched, counts, "llama3-8b long-context mixed stream")
+    log_peak(torch, "llama3-8b long-context mixed stream")
     check_streams(outs, LONG_NEW, vocab, "long-context mixed stream")
     check(not sched.cache.chain, "long context: a chain outlived the mixed stream")
     sched.radix.check_invariants()
@@ -2048,10 +2327,12 @@ def long_context_phase(torch, eng, max_len=LONG_MAX_LEN):
     # int8 KV: the chained 4096 request on an int8 pool against the bf16 pool
     q_s = make(kv_cache_dtype="int8")
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     got, gl, _, _, _ = timed_requests(q_s, [p4], LONG_NEW, collect=True)
     torch.cuda.synchronize()
     int8_counts = read_counts()
     check_long_counts(q_s, int8_counts, "llama3-8b long-context int8 KV leg", int8_kv=True)
+    log_peak(torch, "llama3-8b long-context int8 KV leg")
     r, g = chained_greedy, gl[0]
     same_tok = r.argmax(-1) == g.argmax(-1)
     n = len(same_tok) if same_tok.all() else int(np.argmin(same_tok)) + 1
@@ -2067,6 +2348,8 @@ def long_context_phase(torch, eng, max_len=LONG_MAX_LEN):
     lossy = make(allow_lossy_kv=True)
     window = (u(64), u(1024))
     n_prompt = LONG_EXTENTS * S - 192
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     h = lossy.submit(rand_prompt(n_prompt), max_new_tokens=64, kv_window=window)
     while lossy._prefill is not None or not lossy.active:
         lossy.step()
@@ -2080,8 +2363,13 @@ def long_context_phase(torch, eng, max_len=LONG_MAX_LEN):
     check(len(dropped) >= 5 or S != LONG_MAX_LEN, f"lossy window dropped only {dropped}")
     check(lossy.cache.free_slots == LONG_SLOTS - held, "lossy window: dropped rows not on the free list")
     lossy.cache.check_invariants()
+    leg = read_counts()
     lossy_step_check(torch, eng, lossy, "llama3-8b lossy window")
+    reset_counts()  # the step check's launches are not the leg's
     check(len(h.result()) == 64, "lossy window: short stream")
+    leg = {k: v + read_counts()[k] for k, v in leg.items()}
+    check_long_counts(lossy, leg, "llama3-8b lossy window leg")
+    log_peak(torch, "llama3-8b lossy window leg")
     lossy.radix.check_invariants()
     check(not lossy.cache.chain and lossy.cache.free_slots + lossy.cache.cached_slots == LONG_SLOTS,
           "lossy window: rows not returned")
@@ -2370,6 +2658,27 @@ def _rel_l2(got, ref):
     return float((got.float() - ref).norm() / ref.norm())
 
 
+def _row_rel_l2(torch, got, ref):
+    """The largest ||got - ref|| / ||ref|| over the rows of the last axis;
+    a row whose reference is all zeros (an empty window) counts 0 if it is
+    all zeros too, else infinity."""
+    g, r = got.float().reshape(-1, got.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    num, den = (g - r).norm(dim=1), r.norm(dim=1)
+    rel = torch.where(den > 0, num / den.clamp_min(1e-30), torch.where(num > 0, float("inf"), 0.0))
+    return float(rel.max())
+
+
+def _call_mib(torch, fn):
+    """MiB of device memory one call of ``fn`` allocates beyond what is held
+    before it (its output and scratch), by the caching allocator's peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
 def _close(torch, got, ref, what):
     """Each of out, dq, dk, dv within 2^-7 of max|ref| (one bf16 ulp at the
     largest magnitude) and within ``SPARSE_REL_L2`` relative L2 error,
@@ -2494,8 +2803,10 @@ def timed_phase(name, fn, *args, **kwargs):
 
 def main(argv=()):
     """``--kernels NAME[,NAME...]``: build those kernels and run only their
-    rows of the kernel phase (to time a change against its parent in one
-    call: run this file beside each tree's package, in turns)."""
+    rows of the kernel phase; ``--long``: build every kernel and run only the
+    llama3-8b phase (its launch counts, streams and long-context legs with
+    their peak device memory). Either compares a change with its parent in
+    one call: run this file beside each tree's package, in turns."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2529,6 +2840,10 @@ def main(argv=()):
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    if list(argv) == ["--long"]:
+        timed_phase("llama3-8b and long context", llama_phase, torch)
+        log(card)
+        return 0
     dev = torch.device("cuda")
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:

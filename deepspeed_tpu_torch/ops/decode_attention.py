@@ -4,14 +4,25 @@ and their extent modes (long-context KV chains, lossy sliding windows).
 
 Port of ``deepspeed_tpu/ops/pallas/decode_attention.py`` (the TPU kernels
 ``_decode_kernel`` in every mode of its ``_decode_call``, and
-``_extent_kernel``). One CUDA kernel, ``ops/csrc/decode_attention.cu``,
-templated on bf16 and int8 KV, carries every mode: a row's arithmetic
-depends only on its own logical window, so a span column computes bitwise
+``_extent_kernel``). One CUDA source, ``ops/csrc/decode_attention.cu``,
+templated on bf16 and int8 KV, carries every mode with one tile routine on
+the tensor cores (flash-decoding on ``mma.sync``): a CTA takes 64 folded
+rows (the span modes; a warp each 16) or 16 (the decode modes; four warps
+splitting each tile's positions and columns) and one chunk of 512 logical
+positions (aligned to 0), streams the
+chunk's 64-position tiles through a ``cp.async`` ring, computes the scores
+in bf16 with fp32 sums and P V with p split into bf16 high and low parts;
+a row kept over several chunks is merged by a second launch in chunk
+order. What bounds it: the bytes of the kept windows,
+and at the chunk step (T = 64) the tensor-core work. The tile and chunk are
+constants, a tile a row keeps nothing of is an exact no-op for it, and
+positions no row of a CTA keeps are never read (zero-filled), so a row's
+bits depend only on its own logical window: a span column computes bitwise
 what the decode mode computes for the same window (the scheduler's results
-do not depend on whether a token rode a chunk step or a decode step), and a
+do not depend on whether a token rode a chunk step or a decode step), a
 row whose window runs through an extent chain computes bitwise what one
-slot holding the same window computes. Its header says what bounds it on the
-H100 and how its design answers that.
+slot holding the same window computes, and an identity table what the
+paged modes compute. The kernel's header gives the details.
 
 - :func:`decode_attention`: q (B, H, D); row b attends the cache slots
   ``[start[b], end)``, ``end`` a scalar shared by every row (the static
@@ -33,7 +44,19 @@ Caches are (B, kv_heads, S, D) (the extent modes: (Npool, ...)). With
 ``k_scale``/``v_scale`` ((B or Npool, 1, S, 1) fp16, from
 :func:`deepspeed_tpu_torch.ops.quantizer.quantize_kv_rows`) the caches are
 int8 and each row is dequantized as ``k * scale`` in fp32. The output is in
-q's dtype; a row whose window is empty gets zeros.
+q's dtype; a row whose window is empty gets zeros. Cache positions that no
+window of a call keeps are never read; positions some folded row of a
+(row, kv head) keeps must hold finite values (written or zero-filled rows).
+
+Where a logical window can pass 512 positions (E * S > 512), each call
+allocates a workspace for the merge: ``(D + 2)`` fp32 values per folded row
+and chunk, ``B * nkv * R * ceil(E * S / 512) * (D + 2)`` in all. It is sized
+from shapes, never from ``ends`` (no host read), so it covers every chunk of
+every folded row: about R / 512 of the bytes of the logical K and V windows
+in bf16. In the span modes (R = g * T) that is the most: at llama3-8b's
+long-context pool (16 rows, 8 kv heads, g = 4, T = 64, 8 extents of 1024)
+272.6 MB a call, back in the caching allocator when it returns; in the decode modes
+(R = g) it is g / 512 of the windows' bytes.
 
 A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
 ``impl="plain"``, takes the plain version, which computes what the TPU
@@ -58,9 +81,11 @@ def _lib():
     global _libc
     if _libc is None:
         lib = build.load(SOURCES[0])
-        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.decode_launch.restype = ctypes.c_int
+        lib.decode_workspace.argtypes = [ctypes.c_int] * 6
+        lib.decode_workspace.restype = ctypes.c_longlong
         _libc = lib
     return _libc
 
@@ -171,10 +196,14 @@ def _launch(what, qg, k_cache, v_cache, start, ends, k_scale, v_scale, scale, sp
     scale = scale if scale is not None else 1.0 / (D**0.5)
     out = torch.empty_like(qg)
     lib = _lib()
+    # the per-chunk partials of rows kept over several 512-position chunks
+    n_ws = lib.decode_workspace(B, nkv, R, S, E, D)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=qg.device) if n_ws else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.decode_launch(ptr(qg), ptr(k_cache), ptr(v_cache), ptr(k_scale), ptr(v_scale),
-                           ptr(start), ptr(ends), ptr(ext), ptr(sink), ptr(win), ptr(out), B, nkv,
-                           R, span, S, E, D, int(quant), float(scale), build.stream_of(qg))
+                           ptr(start), ptr(ends), ptr(ext), ptr(sink), ptr(win), ptr(out), ptr(ws),
+                           B, nkv, R, span, S, E, D, int(quant), float(scale),
+                           build.stream_of(qg))
     build.check(lib, rc, what)
     return out
 

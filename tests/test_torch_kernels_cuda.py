@@ -101,6 +101,29 @@ def _assert_close(out, ref, what):
     assert err <= tol, f"{what}: max abs err {err:.3e} > {tol:.3e}"
 
 
+# the decode kernel's outputs are also held to a relative L2 error in each
+# folded row (the D outputs of one row, head and column), as chip_smoke.py
+# holds them (DECODE_ROW_REL_L2): max|ref| is set by the short windows, so
+# the max-abs gate alone would pass a long window that lost one
+# 512-position chunk in the merge. (chip_smoke.py's gate over a whole
+# output is calibrated at full-size outputs; at these sizes one bf16 ulp of
+# a large entry can pass it.)
+DECODE_ROW_REL_L2 = 2.0**-6
+
+
+def _assert_decode_close(out, ref, what):
+    """``_assert_close``, then each folded row within ``DECODE_ROW_REL_L2``
+    relative L2 error; a row whose reference is all zeros (an empty window)
+    is all zeros."""
+    _assert_close(out, ref, what)
+    o, r = out.float().reshape(-1, out.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    num, den = (o - r).norm(dim=1), r.norm(dim=1)
+    assert not bool(num[den == 0].any()), f"{what}: an empty window's row is not zeros"
+    if bool((den > 0).any()):
+        row = float((num[den > 0] / den[den > 0]).max())
+        assert row <= DECODE_ROW_REL_L2, f"{what}: a row's rel L2 err {row:.3e} > {DECODE_ROW_REL_L2:g}"
+
+
 # (M, K, N, G): G=1 (quantize_params' fallback when 128 does not divide K);
 # M not a multiple of the 8-row tile; K split into many blocks (N too
 # narrow to fill the card); the int8 head's padded vocab; a ragged prefill
@@ -309,7 +332,7 @@ def test_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends):
     out = decode_attention(q, kc, vc, start, end)
     assert decode_attention.launches == before + 1
     torch.cuda.synchronize()
-    _assert_close(out, decode_attention_plain(q, kc, vc, start, end),
+    _assert_decode_close(out, decode_attention_plain(q, kc, vc, start, end),
                   f"decode B={B} H={H}/{nkv} S={S} D={D}")
     empty = [b for b in range(B) if starts[b] >= (ends if isinstance(ends, int) else ends[b])]
     for b in empty:  # l = 0 is guarded to 1: the row's output is exactly 0
@@ -432,9 +455,13 @@ def _kv(g, dev, B, nkv, S, D, int8):
 
 
 # (B, H, nkv, S, D, starts, ends): the gpt2-large pool with two dead slots;
-# GQA g=8 at D=128 with a window to the end of the cache and start > 0
+# GQA g=8 at D=128 with a window to the end of the cache and start > 0;
+# long windows over several 512-position chunks (S = 2048 and 4096), ending
+# at, before and after a chunk boundary, one starting past the first chunk
 PAGED_DECODE_CASES = [(8, 20, 20, 512, 64, [0] * 8, [130, 0, 257, 1, 0, 512, 64, 300]),
-                      (3, 32, 4, 256, 128, [0, 100, 5], [256, 101, 0])]
+                      (3, 32, 4, 256, 128, [0, 100, 5], [256, 101, 0]),
+                      (3, 20, 20, 2048, 64, [0, 700, 0], [2048, 1500, 513]),
+                      (4, 32, 8, 4096, 128, [0, 0, 600, 0], [4096, 1024, 3001, 1023])]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -450,7 +477,8 @@ def test_paged_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends, i
     out = paged_decode_attention(q, kc, vc, start, end, k_scale=sc, v_scale=sc)
     assert getattr(paged_decode_attention, counter) == before + 1
     torch.cuda.synchronize()
-    _assert_close(out, paged_decode_attention_plain(q, kc, vc, start, end, k_scale=sc, v_scale=sc),
+    _assert_decode_close(out, paged_decode_attention_plain(q, kc, vc, start, end, k_scale=sc,
+                                                           v_scale=sc),
                   f"paged decode B={B} H={H}/{nkv} S={S} D={D} int8={int8}")
     for b in range(B):
         if ends[b] <= starts[b]:  # a dead slot: exactly zeros
@@ -461,12 +489,15 @@ def test_paged_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends, i
 # prefilling 64 columns at base 128, seven rows of span 1 carried at T=64);
 # llama's g=4 (256 folded rows, four tiles); T=5 with g=3 (15 rows, one
 # partial tile); T=100 (two tiles) whose columns run past the cache end;
-# T=1 (the substep width) with start > 0
+# T=1 (the substep width) with start > 0; long windows (S = 2048 and 4096)
+# whose columns cross a 512-position chunk boundary or run past the cache
 SPAN_CASES = [(8, 20, 20, 64, 512, 64, [0] * 8, [128, 0, 7, 300, 0, 64, 511, 200]),
               (4, 32, 8, 64, 512, 128, [0, 0, 0, 0], [0, 64, 190, 448]),
               (2, 6, 2, 5, 256, 64, [0, 3], [250, 17]),
               (2, 4, 2, 100, 256, 128, [0, 10], [200, 5]),
-              (3, 8, 8, 1, 256, 64, [4, 0, 0], [9, 255, 0])]
+              (3, 8, 8, 1, 256, 64, [4, 0, 0], [9, 255, 0]),
+              (3, 20, 20, 64, 2048, 64, [0, 0, 600], [1000, 2040, 1500]),
+              (2, 32, 8, 64, 4096, 128, [0, 0], [4000, 480])]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -482,8 +513,8 @@ def test_paged_span_kernel_matches_plain(dev, B, H, nkv, T, S, D, starts, bases,
     out = paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc)
     assert getattr(paged_span_attention, counter) == before + 1
     torch.cuda.synchronize()
-    _assert_close(out, paged_span_attention_plain(q, kc, vc, start, base, k_scale=sc, v_scale=sc),
-                  f"paged span B={B} H={H}/{nkv} T={T} S={S} D={D} int8={int8}")
+    _assert_decode_close(out, paged_span_attention_plain(q, kc, vc, start, base, k_scale=sc, v_scale=sc),
+                         f"paged span B={B} H={H}/{nkv} T={T} S={S} D={D} int8={int8}")
     assert torch.equal(paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc), out)
 
 
@@ -500,6 +531,143 @@ def test_paged_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="float16"):
         paged_decode_attention(q.to(torch.bfloat16), kc.to(torch.int8), kc.to(torch.int8), 0, ends,
                                k_scale=sc, v_scale=sc)
+
+
+# (D, nkv, g): gpt2-large's heads (D 64, MHA) and llama3-8b's (D 128, GQA g=4)
+INVARIANT_HEADS = [(64, 4, 1), (128, 2, 4)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D,nkv,gq", INVARIANT_HEADS)
+def test_span_column_equals_decode_bitwise(dev, D, nkv, gq, int8):
+    """Every live column c of a paged span call (T = 64) is bitwise the
+    paged decode call whose row has the same window [start, base + c + 1):
+    columns share a CTA with longer windows, and rows whose columns cross
+    the 512-position chunk boundaries (450 -> 514, 1000 -> 1064, 1500 ->
+    1564) are merged across chunks."""
+    g = _gen(dev, D + int8)
+    B, S, T = 4, 2048, 64
+    kc, vc, sc = _kv(g, dev, B, nkv, S, D, int8)
+    q = torch.randn((B, nkv * gq, T, D), generator=g, device=dev).to(torch.bfloat16)
+    start = torch.tensor([0, 0, 37, 0], dtype=torch.int32, device=dev)
+    base = torch.tensor([450, 1000, 1500, 2000], dtype=torch.int32, device=dev)
+    span = paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc)
+    for c in range(T):
+        live = (base + 1 + c <= S).nonzero()[:, 0]
+        dec = paged_decode_attention(q[live, :, c].contiguous(), kc[live], vc[live], start[live],
+                                     base[live] + 1 + c, k_scale=None if sc is None else sc[live],
+                                     v_scale=None if sc is None else sc[live])
+        assert torch.equal(span[live, :, c], dec), f"column {c} differs from its decode row"
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D,nkv,gq", INVARIANT_HEADS)
+def test_lossy_extent_span_column_equals_decode_bitwise(dev, D, nkv, gq, int8):
+    """Every column c of a lossy extent span call (T = 64) is bitwise the
+    extent decode call with the same window and hole, where each column's
+    hole [sink, end - window) ends elsewhere: across a 512-position chunk
+    boundary, over dropped extents, empty while end - window < sink. Chains
+    of 11 extents of S = 100 (no multiple of the 64-position tile)."""
+    g = _gen(dev, 3 * D + int8)
+    B, S, E, T = 5, 100, 11, 64
+    kc, vc, sc = _pool_kv(g, dev, B * E, nkv, S, D, int8)
+    perm = np.random.default_rng(3 * D + int8).permutation(B * E).reshape(B, E)
+    ext = torch.tensor(perm, dtype=torch.int32, device=dev)
+    ext[1, :7] = -1  # wholly inside row 1's holes [0, 701 + c)
+    start = torch.tensor([0, 3, 0, 600, 0], dtype=torch.int32, device=dev)
+    base = torch.tensor([700, 1000, 600, 1030, 0], dtype=torch.int32, device=dev)
+    lossy = {"sink": torch.tensor([10, 0, 500, 64, 4], dtype=torch.int32, device=dev),
+             "window": torch.tensor([220, 300, 50, 1024, 2], dtype=torch.int32, device=dev)}
+    q = torch.randn((B, nkv * gq, T, D), generator=g, device=dev).to(torch.bfloat16)
+    span = extent_paged_span_attention(q, kc, vc, start, base, ext, k_scale=sc, v_scale=sc, **lossy)
+    for c in range(T):
+        dec = extent_paged_decode_attention(q[:, :, c].contiguous(), kc, vc, start, base + 1 + c, ext,
+                                            k_scale=sc, v_scale=sc, **lossy)
+        assert torch.equal(span[:, :, c], dec), f"column {c} differs from its decode row"
+
+
+def _plant(leaf, keep, fill):
+    """``leaf`` (Np, h, S, d) with ``fill`` at every (pool row, offset) that
+    ``keep`` (Np, S) does not mark."""
+    out = leaf.clone()
+    out.masked_fill_(~keep[:, None, :, None], fill)
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D,nkv,gq", INVARIANT_HEADS)
+def test_decode_kernel_ignores_bytes_outside_windows(dev, D, nkv, gq, int8):
+    """NaN in every cache position that no window of a call keeps (past the
+    ends, before a start, in a lossy hole, in the pool row of a dropped
+    extent, in pool rows no table names) changes nothing: all five modes
+    give bitwise what they give with zeros there (the int8 tier plants NaN
+    in the scales and random bytes in K/V). S = 100 is no multiple of the
+    64-position tile, and the chains run over several chunks."""
+    g = _gen(dev, 7 * D + int8)
+    S, H, T = 100, nkv * gq, 8
+    # paged: rows 0..2 over their own slots
+    start = torch.tensor([5, 0, 0], dtype=torch.int32, device=dev)
+    ends = torch.tensor([70, 100, 0], dtype=torch.int32, device=dev)
+    base = torch.tensor([40, 90, 0], dtype=torch.int32, device=dev)
+    pos = torch.arange(S, device=dev)
+    kept_dec = (pos >= start[:, None]) & (pos < ends[:, None])
+    kept_span = (pos >= start[:, None]) & (pos < base[:, None] + T)
+    # extents: row 0 a lossy chain (sink 10, window 60, end 590: extents 1..4
+    # wholly in its hole and dropped), row 1 a 3-extent chain, row 2 dead
+    table = [[3, -1, -1, -1, -1, 1], [0, 2, 5, -1, -1, -1], [4, -1, -1, -1, -1, -1]]
+    ext = torch.tensor(table, dtype=torch.int32, device=dev)
+    x_end = torch.tensor([590, 250, 0], dtype=torch.int32, device=dev)
+    x_start = torch.zeros(3, dtype=torch.int32, device=dev)
+    lossy = {"sink": torch.tensor([10, 0, 0], dtype=torch.int32, device=dev),
+             "window": torch.tensor([60, 0, 0], dtype=torch.int32, device=dev)}
+    L = ext.shape[1] * S
+    lpos = torch.arange(L, device=dev)
+
+    def pool_keep(col_ends):  # (Np, S): the pool positions some column keeps
+        keep = torch.zeros((6, S), dtype=torch.bool, device=dev)
+        for b in range(3):
+            for e_end in col_ends[b]:
+                k = (lpos >= x_start[b]) & (lpos < e_end)
+                if lossy["window"][b] > 0:
+                    k &= (lpos < lossy["sink"][b]) | (lpos >= e_end - lossy["window"][b])
+                for e, prow in enumerate(table[b]):
+                    if prow >= 0:
+                        keep[prow] |= k[e * S:(e + 1) * S]
+        return keep
+
+    kc, vc, sc = _kv(g, dev, 6, nkv, S, D, int8)
+    q = torch.randn((6, H, D), generator=g, device=dev).to(torch.bfloat16)
+    q4 = torch.randn((6, H, T, D), generator=g, device=dev).to(torch.bfloat16)
+    x_base = (x_end - 1).clamp(min=0)
+    first3 = lambda t: None if t is None else t[:3]  # noqa: E731
+    cases = [("paged decode", kept_dec, lambda k, v, s: paged_decode_attention(
+                  q[:3], k[:3], v[:3], start, ends, k_scale=first3(s), v_scale=first3(s))),
+             ("paged span", kept_span, lambda k, v, s: paged_span_attention(
+                  q4[:3], k[:3], v[:3], start, base, k_scale=first3(s), v_scale=first3(s))),
+             ("extent decode", pool_keep([[int(e)] for e in x_end]),
+              lambda k, v, s: extent_paged_decode_attention(q[:3], k, v, x_start, x_end, ext,
+                                                            k_scale=s, v_scale=s, **lossy)),
+             ("extent span", pool_keep([[int(e) + 1 + j for j in range(T)] for e in x_base]),
+              lambda k, v, s: extent_paged_span_attention(q4[:3], k, v, x_start, x_base, ext,
+                                                          k_scale=s, v_scale=s, **lossy))]
+    if not int8:
+        cases.append(("decode", kept_dec, lambda k, v, s: decode_attention(
+            q[:3], k[:3], v[:3], start, ends)))
+    for what, keep, call in cases:
+        if keep.shape[0] == 3:  # the paged modes' slots 3..5 are not passed
+            keep = torch.cat([keep, torch.zeros((3, S), dtype=torch.bool, device=dev)])
+        if int8:
+            noise = torch.randint(-128, 128, kc.shape, generator=g, device=dev, dtype=torch.int8)
+            planted = (torch.where(keep[:, None, :, None], kc, noise),
+                       torch.where(keep[:, None, :, None], vc, noise), _plant(sc, keep, float("nan")))
+            zeroed = (_plant(kc, keep, 0), _plant(vc, keep, 0), _plant(sc, keep, 0))
+        else:
+            planted = (_plant(kc, keep, float("nan")), _plant(vc, keep, float("nan")), None)
+            zeroed = (_plant(kc, keep, 0), _plant(vc, keep, 0), None)
+        got, ref = call(*planted), call(*zeroed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"{what}: bytes outside the windows changed the result"
+        assert bool(torch.isfinite(got.float()).all()), what
 
 
 # the scheduler's chunk step at gpt2-large width: M = 8 slots x 64 columns
@@ -685,7 +853,7 @@ def test_extent_kernels_match_plain(dev, Np, S, D, nkv, gq, table, starts, ends,
     torch.cuda.synchronize()
     ref = extent_paged_decode_attention_plain(q, kc, vc, start, end, ext, k_scale=sc, v_scale=sc,
                                               **lossy)
-    _assert_close(out, ref, f"extent decode Np={Np} S={S} D={D} int8={int8}")
+    _assert_decode_close(out, ref, f"extent decode Np={Np} S={S} D={D} int8={int8}")
     # the span: T = 16 columns ending at each row's end
     T = 16
     base = (end - T).clamp(min=0)
@@ -694,7 +862,7 @@ def test_extent_kernels_match_plain(dev, Np, S, D, nkv, gq, table, starts, ends,
     torch.cuda.synchronize()
     ref = extent_paged_span_attention_plain(q4, kc, vc, start, base, ext, k_scale=sc, v_scale=sc,
                                             **lossy)
-    _assert_close(out, ref, f"extent span Np={Np} S={S} D={D} int8={int8}")
+    _assert_decode_close(out, ref, f"extent span Np={Np} S={S} D={D} int8={int8}")
     assert torch.equal(extent_paged_span_attention(q4, kc, vc, start, base, ext, k_scale=sc,
                                                    v_scale=sc, **lossy), out)
 
@@ -705,7 +873,8 @@ def test_extent_kernel_identity_and_chain_bitwise(dev, D, int8):
     """An identity table launches bitwise what the paged modes launch; a
     3-extent chain bitwise what one slot of 3 * S rows holding the same
     logical window gives (decode and span; the big slot's 384 rows take
-    block_kv 128)."""
+    block_kv 128); and 11-extent chains of S = 100 whose windows end at the
+    512-position chunk boundaries +-1 bitwise one slot of 1100 rows."""
     g = _gen(dev, D + int8)
     Np, nkv, S, H = 5, 4, 128, 16
     kc, vc, sc = _pool_kv(g, dev, Np, nkv, S, D, int8)
@@ -735,6 +904,29 @@ def test_extent_kernel_identity_and_chain_bitwise(dev, D, int8):
                                                    k_scale=sc, v_scale=sc),
                        paged_span_attention(q4[:1].contiguous(), big[0], big[1], s1, b1,
                                             k_scale=bsc, v_scale=bsc, block_kv=128))
+    # chains over S = 100 (no multiple of the 64-position tile) whose windows
+    # end just before, at and just after the 512- and 1024-position chunk
+    # boundaries, decode and a 4-column span, against one slot of 1100 rows
+    S2, E2, ends2 = 100, 11, [511, 512, 513, 1023, 1024, 1025]
+    B2 = len(ends2)
+    kc2, vc2, sc2 = _pool_kv(g, dev, B2 * E2, nkv, S2, D, int8)
+    perm = np.random.default_rng(D + int8).permutation(B2 * E2).reshape(B2, E2)
+    chain2 = torch.tensor(perm, dtype=torch.int32, device=dev)
+    big2 = [leaf[chain2.long()].transpose(1, 2).reshape(B2, leaf.shape[1], E2 * S2, leaf.shape[3])
+            .contiguous() for leaf in (kc2, vc2) + ((sc2, ) if int8 else ())]
+    bsc2 = big2[2] if int8 else None
+    s2 = torch.tensor([0, 3, 0, 600, 0, 0], dtype=torch.int32, device=dev)
+    e2 = torch.tensor(ends2, dtype=torch.int32, device=dev)
+    q2 = torch.randn((B2, H, D), generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(extent_paged_decode_attention(q2, kc2, vc2, s2, e2, chain2, k_scale=sc2,
+                                                     v_scale=sc2),
+                       paged_decode_attention(q2, big2[0], big2[1], s2, e2, k_scale=bsc2,
+                                              v_scale=bsc2, block_kv=100))
+    q24 = torch.randn((B2, H, 4, D), generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(extent_paged_span_attention(q24, kc2, vc2, s2, e2 - 2, chain2, k_scale=sc2,
+                                                   v_scale=sc2),
+                       paged_span_attention(q24, big2[0], big2[1], s2, e2 - 2, k_scale=bsc2,
+                                            v_scale=bsc2, block_kv=100))
 
 
 def test_chained_request_pool_bytes_equal_one_big_slot(dev):
