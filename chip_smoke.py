@@ -20,8 +20,11 @@ Phases (any failure ends the run with a non-zero exit):
    single call computes, the chain of library calls instead; for the two
    flash backward kernels, scaled_dot_product_attention's forward and
    backward, beside the port's forward and backward), beside the datasheet
-   bound (3.35 TB/s, 989 TFLOP/s bf16); the backward kernels must also give
-   bitwise-equal outputs on two calls; ``quant_matmul``'s rows must not
+   bound (3.35 TB/s, 989 TFLOP/s bf16); the flash forward and the backward
+   kernels must also give bitwise-equal outputs on two calls, and the flash
+   forward's rows must hold a relative L2 gate that catches two planted
+   faults of its K/V walk (``flash_planted_faults``: a skipped 128-key
+   tile, a ring off by one stage); ``quant_matmul``'s rows must not
    depend on M, and the decode kernel's invariants must hold bitwise at
    gpt2-large's and llama3-8b's heads, bf16 and int8 KV
    (``decode_invariance``: span column == decode, chained == one big slot
@@ -535,6 +538,50 @@ def decode_invariance(torch, dev):
                 n += 1
     log(f"decode invariance: {n} bitwise checks passed (span column == decode, chained == one big "
         f"slot at chunk and extent boundaries, NaN outside the windows)")
+
+
+def _flash_plain_keep(torch, q, k, v, keep):
+    """``flash_attention_plain``'s arithmetic (default scale) with the
+    (T, Tk) mask ``keep`` in place of causality: fp32 scores and softmax,
+    p rounded to bf16 before P V, the row sum on the unrounded p."""
+    g = q.shape[1] // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * q.shape[-1]**-0.5
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), vf) / torch.where(l == 0, torch.ones_like(l), l)
+    return out.to(q.dtype)
+
+
+def flash_planted_faults(torch, dev):
+    """The flash forward's row gate against two faults of its K/V walk,
+    planted through the plain version at the training shapes (``BWD_SHAPES``,
+    the longest rows of the main path); either passing the gate ends the run:
+    1. one 128-key tile (keys 256..383) skipped by the rows of the second
+       half, as a walk that lost a ring slot would;
+    2. the ring off by one stage: tile j's V paired with tile j - 1's K
+       (tile 0 with its own), as a consumer reading a stale K slot would.
+    The max-abs gate's verdict is logged beside, for the record."""
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    for B, H, Hkv, T, D in BWD_SHAPES:
+        q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        ref = flash_attention_plain(q, k, v, causal=True)[0]
+        rows, cols = torch.arange(T, device=dev)[:, None], torch.arange(T, device=dev)[None, :]
+        skipped = (cols <= rows) & ~((rows >= T // 2) & (cols >= 256) & (cols < 384))
+        k_stale = torch.cat([k[:, :, :128], k[:, :, :-128]], dim=2)
+        for what, bad in (("rows >= T/2 without keys 256..383", _flash_plain_keep(torch, q, k, v, skipped)),
+                          ("ring off by one stage", flash_attention_plain(q, k_stale, v, causal=True)[0])):
+            row = _row_rel_l2(torch, bad, ref)
+            err, tol = float((bad.float() - ref.float()).abs().max()), 2.0**-7 * float(ref.float().abs().max())
+            log(f"flash planted fault, B={B} H={H} Hkv={Hkv} T={T} D={D}, {what}: row rel L2 {row:.3e} "
+                f"(gate {FLASH_ROW_REL_L2:g}), rel L2 {_rel_l2(bad, ref):.3e}, max abs err {err:.3e} "
+                f"(the 2^-7 max|plain| gate {tol:.3e}: {'caught' if err > tol else 'missed'})")
+            check(row > FLASH_ROW_REL_L2, f"flash planted fault, T={T} D={D}, {what}: passes the row gate")
 
 
 def _paged_plain_p_bf16(torch, q, kc, vc, ends, sc):
@@ -1107,7 +1154,8 @@ KERNELS = [
 # against cuBLAS fp32)
 MICRO_TOL = {"qmm2": 2.0**-16, "qmm3": 2.0**-16, "qmm4": 0.0}
 # kernels whose two calls on the same inputs must agree bit for bit
-DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+DETERMINISTIC = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_bwd_dq",
+                 "block_sparse_bwd_dkv")
 # kernels whose fp32 output (the lse) holds -inf where a row attends nothing:
 # there the kernel must give -inf too, and the finite entries are compared
 NEG_INF_OUTPUTS = ("block_sparse_fwd", )
@@ -1129,6 +1177,12 @@ DECODE_KERNELS = tuple(k[0] for k in KERNELS if k[1].endswith("/decode_attention
 # an output.
 DECODE_ROW_REL_L2 = 2.0**-6
 DECODE_REL_L2 = 2.0**-11
+# the flash forward's output rows (the D outputs of one (b, h, query row))
+# are also held to a relative L2 error: in a causal layout row 0 attends
+# only itself and sets max|plain|, so the max-abs gate alone would pass a
+# long row that lost one 128-key tile or read a stale ring slot.
+# ``flash_planted_faults`` plants both and requires this gate to catch them.
+FLASH_ROW_REL_L2 = 2.0**-6
 
 
 def kernel_phase(torch, dev):
@@ -1174,6 +1228,11 @@ def kernel_phase(torch, dev):
                     check(rel <= SPARSE_REL_L2,
                           f"{name} [{label}] output {i}: rel L2 err {rel:.3e} > {SPARSE_REL_L2:g}")
                     case_rel = rel if case_rel is None else max(case_rel, rel)
+                if name == "flash_attention" and o.dtype != torch.float32:
+                    row_rel = _row_rel_l2(torch, o, r)
+                    check(row_rel <= FLASH_ROW_REL_L2, f"{name} [{label}]: a row's rel L2 err "
+                          f"{row_rel:.3e} > {FLASH_ROW_REL_L2:g}")
+                    extra_rec["row_rel_l2_err"] = row_rel
                 if name in DECODE_KERNELS:
                     case_rel, row_rel = _rel_l2(o, r), _row_rel_l2(torch, o, r)
                     check(row_rel <= DECODE_ROW_REL_L2, f"{name} [{label}]: a folded row's rel L2 err "
@@ -1216,6 +1275,8 @@ def kernel_phase(torch, dev):
     if any(name in DECODE_KERNELS for name in results):
         decode_invariance(torch, dev)
         decode_planted_faults(torch, dev)
+    if "flash_attention" in results:
+        flash_planted_faults(torch, dev)
     return results
 
 
@@ -2837,7 +2898,7 @@ def main(argv=()):
     log(f"built {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     if list(argv) == ["--long"]:

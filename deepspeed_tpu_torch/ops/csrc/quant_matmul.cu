@@ -58,10 +58,9 @@
 // second launch (qmm_reduce_kernel) runs the same fma chain over the
 // segments in order. No atomics and no fence: two calls give the same bits.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only)
-
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "int8_mma.cuh"
 
 namespace {
@@ -69,6 +68,7 @@ namespace {
 using ds_mma::bf16;
 using ds_mma::mma16816;
 using ds_mma::smem_u32;
+using namespace ds_hopper;
 using namespace ds_int8;
 
 constexpr int kSegK = 128;   // K rows of a segment
@@ -424,41 +424,6 @@ qmm_wide_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through cudaGetDriverEntryPoint
-// (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 2D row-major tensor (outer x inner elements) read in boxes of
-// box_outer rows x 128 bytes, 128-byte swizzled, zeros past the edges
-int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem_bytes,
-             uint64_t inner, uint64_t outer, uint32_t box_outer) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes), box_outer};
-  const cuuint32_t estrides[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estrides,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // ------------------------------------------------------------- launches
 
 struct Args {
@@ -470,15 +435,6 @@ struct Args {
   int M, K, N, gs, spg, segs, splits, vec;
   cudaStream_t s;
 };
-
-template <typename Kern>
-int set_smem(Kern* kern, int bytes, bool& done) {  // once per kernel instantiation
-  if (done) return 0;
-  const int rc = static_cast<int>(
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  done = rc == 0;
-  return rc;
-}
 
 template <int TM, typename OutT, bool kChain>
 int launch_narrow_main(const Args& a, int splits) {
@@ -510,8 +466,10 @@ int launch_wide(const Args& a) {
   static bool attr = false;
   if (const int rc = set_smem(qmm_wide_kernel<OutT>, kWideSmem, attr)) return rc;
   CUtensorMap tw, tx;
-  if (const int rc = make_map(&tw, a.qw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.N, a.K, kWideSK)) return rc;
-  if (const int rc = make_map(&tx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.K, a.M, kWideBM)) return rc;
+  const uint64_t dw[2] = {(uint64_t)a.N, (uint64_t)a.K}, dx[2] = {(uint64_t)a.K, (uint64_t)a.M};
+  const uint32_t bw = kWideSK, bx = kWideBM;  // rows of a box (of 128 bytes each)
+  if (const int rc = make_map(&tw, a.qw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, dw, &bw)) return rc;
+  if (const int rc = make_map(&tx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, dx, &bx)) return rc;
   // row tiles fastest: the blocks of a column tile run together and share its weight in L2
   const dim3 grid((a.M + kWideBM - 1) / kWideBM, (a.N + kBlockN - 1) / kBlockN);
   qmm_wide_kernel<OutT><<<grid, kWideThreads, kWideSmem, a.s>>>(tw, tx, a.scales, static_cast<OutT*>(a.out),

@@ -23,6 +23,7 @@ tensor, or ``impl="plain"``, takes :func:`flash_attention_plain` and
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -91,6 +92,16 @@ def _scale(scale, D):
     return scale if scale is not None else 1.0 / (D**0.5)
 
 
+def _kernel_scale(scale, D):
+    """The forward kernel's softmax scale: it folds log2(e) into a positive
+    scale and takes the row max before scaling, so it refuses a scale that
+    is not a finite number above 0 (the plain version takes any)."""
+    scale = float(_scale(scale, D))
+    if not (math.isfinite(scale) and scale > 0):
+        raise ValueError(f"flash_attention kernel: scale must be a finite number > 0, got {scale}")
+    return scale
+
+
 def _causal_keep(T, Tk, causal, device):
     if not causal:
         return torch.ones((T, Tk), dtype=torch.bool, device=device)
@@ -127,12 +138,13 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     Hkv, Tk = k.shape[1], k.shape[2]
     _check_kernel_operands("flash_attention", bf16=(("q", q), ("k", k), ("v", v)), like=q)
     _check_aligned("flash_attention", q=q, k=k, v=v)
+    scale = _kernel_scale(scale, D)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _kernel("flash_attention_fwd")
     rc = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              lse.data_ptr(), B, H, Hkv, T, Tk, D, float(_scale(scale, D)),
-                              int(bool(causal)), build.stream_of(q))
+                              lse.data_ptr(), B, H, Hkv, T, Tk, D, scale, int(bool(causal)),
+                              build.stream_of(q))
     build.check(lib, rc, "flash_attention")
     flash_attention_fwd.launches += 1
     return out, lse

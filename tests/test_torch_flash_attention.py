@@ -81,3 +81,14 @@ def test_plain_matches_jax_bf16(causal, rel_l2, g, T):
     assert np.linalg.norm(out - ref_out) <= rel_l2 * np.linalg.norm(ref_out)
     np.testing.assert_allclose(out, ref_out, rtol=0, atol=2.0**-7 * np.abs(ref_out).max())
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=0, atol=1e-5)
+
+
+def test_kernel_scale_contract():
+    """The CUDA forward's wrapper takes the default 1/sqrt(D) or a finite
+    scale above 0, and refuses any other before it builds or launches."""
+    from deepspeed_tpu_torch.ops.flash_attention import _kernel_scale
+    assert _kernel_scale(None, 64) == 0.125
+    assert _kernel_scale(0.3, 128) == 0.3
+    for bad in (0.0, -0.125, float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="scale"):
+            _kernel_scale(bad, 64)

@@ -2,7 +2,9 @@
 edge shapes of each kernel's contract: one quantization group over all of K,
 M not a multiple of the row tile, many K splits, the padded vocab; T and Tk
 edges, Tk != T, non-causal, GQA, head dims 64 and 128, for the forward and
-the two backward kernels (with an lse cotangent, a row that attends nothing,
+the two backward kernels (the forward also at every edge of its 128-row
+tiles, causal with Tk above and below T, T = 2048 under a per-row relative
+L2 gate, bitwise repeats, NaN past Tk changing no bit, a refused scale) (with an lse cotangent, a row that attends nothing,
 bitwise-equal repeats, and autograd through the forward); empty decode windows,
 per-row and scalar ends, left-pad starts; for the fused decode layer, batches
 other than 8, G=1, contractions longer than 1024, gated and ungated MLPs,
@@ -101,27 +103,29 @@ def _assert_close(out, ref, what):
     assert err <= tol, f"{what}: max abs err {err:.3e} > {tol:.3e}"
 
 
-# the decode kernel's outputs are also held to a relative L2 error in each
-# folded row (the D outputs of one row, head and column), as chip_smoke.py
-# holds them (DECODE_ROW_REL_L2): max|ref| is set by the short windows, so
-# the max-abs gate alone would pass a long window that lost one
-# 512-position chunk in the merge. (chip_smoke.py's gate over a whole
-# output is calibrated at full-size outputs; at these sizes one bf16 ulp of
-# a large entry can pass it.)
-DECODE_ROW_REL_L2 = 2.0**-6
+# the decode kernel's and the flash forward's outputs are also held to a
+# relative L2 error in each row (the D outputs of one folded decode row,
+# head and column; of one flash (b, h, query row)), as chip_smoke.py holds
+# them (DECODE_ROW_REL_L2, FLASH_ROW_REL_L2): max|ref| is set by the short
+# windows or rows, so the max-abs gate alone would pass a long window that
+# lost one 512-position chunk in the merge, or a long row that lost a
+# 128-key tile. (chip_smoke.py's decode gate over a whole output is
+# calibrated at full-size outputs; at these sizes one bf16 ulp of a large
+# entry can pass it.)
+ROW_REL_L2 = 2.0**-6
 
 
-def _assert_decode_close(out, ref, what):
-    """``_assert_close``, then each folded row within ``DECODE_ROW_REL_L2``
-    relative L2 error; a row whose reference is all zeros (an empty window)
-    is all zeros."""
+def _assert_rows_close(out, ref, what):
+    """``_assert_close``, then each row of the last axis within
+    ``ROW_REL_L2`` relative L2 error; a row whose reference is all zeros
+    (an empty window) is all zeros."""
     _assert_close(out, ref, what)
     o, r = out.float().reshape(-1, out.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
     num, den = (o - r).norm(dim=1), r.norm(dim=1)
     assert not bool(num[den == 0].any()), f"{what}: an empty window's row is not zeros"
     if bool((den > 0).any()):
         row = float((num[den > 0] / den[den > 0]).max())
-        assert row <= DECODE_ROW_REL_L2, f"{what}: a row's rel L2 err {row:.3e} > {DECODE_ROW_REL_L2:g}"
+        assert row <= ROW_REL_L2, f"{what}: a row's rel L2 err {row:.3e} > {ROW_REL_L2:g}"
 
 
 # (M, K, N, G): G=1 (quantize_params' fallback when 128 does not divide K);
@@ -299,6 +303,82 @@ def test_autograd_through_flash_on_the_card(dev, Hkv):
         _assert_close(a, r, f"autograd flash Hkv={Hkv} {name}")
 
 
+def _flash_inputs(dev, B, H, Hkv, T, Tk, D, seed):
+    g = _gen(dev, seed)
+    q = torch.randn((B, H, T, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(torch.bfloat16)
+    return q, k, v
+
+
+def _assert_flash_close(got, ref, what):
+    """out by ``_assert_rows_close``, lse by ``_assert_close``."""
+    _assert_rows_close(got[0], ref[0], what + " out")
+    _assert_close(got[1], ref[1], what + " lse")
+
+
+# (B, H, Hkv, T, Tk, D, causal) against the kernel's q tiles (64 rows at
+# D = 64, 128 at D = 128) and 128-key K/V tiles: T at 127, 128, 129 and 255;
+# T < 64 (at D = 128 one warpgroup's rows all padding); causal with Tk > T
+# and with Tk < T (rows past Tk attend every key); g = 1 and g = 4 at D = 64
+# and D = 128; B*H up to 15 distinct heads, so a box read across a head's
+# edge would show
+FLASH_EDGE_CASES = [(1, 2, 2, 127, 127, 64, True), (1, 2, 2, 128, 128, 128, True),
+                    (2, 2, 1, 129, 129, 64, True), (1, 4, 1, 255, 255, 128, True),
+                    (2, 3, 3, 40, 40, 64, True), (1, 2, 2, 17, 17, 128, False),
+                    (1, 4, 2, 100, 300, 128, True), (1, 4, 2, 300, 100, 64, True),
+                    (1, 4, 2, 129, 257, 64, False), (2, 4, 4, 200, 200, 64, True),
+                    (2, 8, 2, 200, 200, 64, True), (2, 4, 4, 200, 200, 128, False),
+                    (2, 8, 2, 200, 200, 128, True), (3, 5, 5, 129, 129, 128, False)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,Tk,D,causal", FLASH_EDGE_CASES)
+def test_flash_kernel_tile_edges(dev, B, H, Hkv, T, Tk, D, causal):
+    q, k, v = _flash_inputs(dev, B, H, Hkv, T, Tk, D, 7 * T + Tk + D + H)
+    got = flash_attention_with_lse(q, k, v, causal=causal)
+    again = flash_attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    what = f"flash B={B} H={H}/{Hkv} T={T} Tk={Tk} D={D} causal={causal}"
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two calls differ"
+    _assert_flash_close(got, flash_attention_plain(q, k, v, causal=causal), what)
+
+
+@pytest.mark.parametrize("Hkv,D", [(1, 128), (4, 64)])
+def test_flash_kernel_long_rows(dev, Hkv, D):
+    """T = 2048, 16 K/V tiles a long row: every row within the row gate."""
+    q, k, v = _flash_inputs(dev, 1, 4, Hkv, 2048, 2048, D, 2048 + D)
+    got = flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, flash_attention_plain(q, k, v, causal=True), f"flash T=2048 Hkv={Hkv} D={D}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_reads_no_kv_row_past_tk(dev, D, causal):
+    """k and v are the leading Tk = 150 rows of buffers whose later rows are
+    NaN (B = Hkv = 1, so the views are contiguous): the kernel's edge boxes
+    fill zeros past Tk, so the result is bitwise the clean call's."""
+    g = _gen(dev, 41 + D)
+    q = torch.randn((1, 4, 200, D), generator=g, device=dev).to(torch.bfloat16)
+    bufs = [torch.randn((1, 1, 384, D), generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+    for b in bufs:
+        b[:, :, 150:] = float("nan")
+    k, v = (b[:, :, :150] for b in bufs)
+    assert k.is_contiguous() and v.is_contiguous()
+    got = flash_attention_with_lse(q, k, v, causal=causal)
+    clean = flash_attention_with_lse(q, k.clone(), v.clone(), causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0].float()).all()), "a NaN past Tk reached the output"
+    assert all(torch.equal(a, b) for a, b in zip(got, clean)), "the NaN tail changed the result"
+
+
+def test_flash_kernel_refuses_a_scale_it_does_not_take(dev):
+    q, k, v = _flash_inputs(dev, 1, 2, 2, 64, 64, 64, 5)
+    for scale in (0.0, -0.3, float("inf")):
+        with pytest.raises(ValueError, match="scale"):
+            flash_attention_fwd(q, k, v, causal=True, scale=scale)
+
+
 def test_flash_kernel_explicit_scale(dev):
     g = _gen(dev, 3)
     q, k, v = (torch.randn((1, 2, 64, 64), generator=g, device=dev).to(torch.bfloat16)
@@ -332,7 +412,7 @@ def test_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends):
     out = decode_attention(q, kc, vc, start, end)
     assert decode_attention.launches == before + 1
     torch.cuda.synchronize()
-    _assert_decode_close(out, decode_attention_plain(q, kc, vc, start, end),
+    _assert_rows_close(out, decode_attention_plain(q, kc, vc, start, end),
                   f"decode B={B} H={H}/{nkv} S={S} D={D}")
     empty = [b for b in range(B) if starts[b] >= (ends if isinstance(ends, int) else ends[b])]
     for b in empty:  # l = 0 is guarded to 1: the row's output is exactly 0
@@ -477,7 +557,7 @@ def test_paged_decode_kernel_matches_plain(dev, B, H, nkv, S, D, starts, ends, i
     out = paged_decode_attention(q, kc, vc, start, end, k_scale=sc, v_scale=sc)
     assert getattr(paged_decode_attention, counter) == before + 1
     torch.cuda.synchronize()
-    _assert_decode_close(out, paged_decode_attention_plain(q, kc, vc, start, end, k_scale=sc,
+    _assert_rows_close(out, paged_decode_attention_plain(q, kc, vc, start, end, k_scale=sc,
                                                            v_scale=sc),
                   f"paged decode B={B} H={H}/{nkv} S={S} D={D} int8={int8}")
     for b in range(B):
@@ -513,7 +593,7 @@ def test_paged_span_kernel_matches_plain(dev, B, H, nkv, T, S, D, starts, bases,
     out = paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc)
     assert getattr(paged_span_attention, counter) == before + 1
     torch.cuda.synchronize()
-    _assert_decode_close(out, paged_span_attention_plain(q, kc, vc, start, base, k_scale=sc, v_scale=sc),
+    _assert_rows_close(out, paged_span_attention_plain(q, kc, vc, start, base, k_scale=sc, v_scale=sc),
                          f"paged span B={B} H={H}/{nkv} T={T} S={S} D={D} int8={int8}")
     assert torch.equal(paged_span_attention(q, kc, vc, start, base, k_scale=sc, v_scale=sc), out)
 
@@ -853,7 +933,7 @@ def test_extent_kernels_match_plain(dev, Np, S, D, nkv, gq, table, starts, ends,
     torch.cuda.synchronize()
     ref = extent_paged_decode_attention_plain(q, kc, vc, start, end, ext, k_scale=sc, v_scale=sc,
                                               **lossy)
-    _assert_decode_close(out, ref, f"extent decode Np={Np} S={S} D={D} int8={int8}")
+    _assert_rows_close(out, ref, f"extent decode Np={Np} S={S} D={D} int8={int8}")
     # the span: T = 16 columns ending at each row's end
     T = 16
     base = (end - T).clamp(min=0)
@@ -862,7 +942,7 @@ def test_extent_kernels_match_plain(dev, Np, S, D, nkv, gq, table, starts, ends,
     torch.cuda.synchronize()
     ref = extent_paged_span_attention_plain(q4, kc, vc, start, base, ext, k_scale=sc, v_scale=sc,
                                             **lossy)
-    _assert_decode_close(out, ref, f"extent span Np={Np} S={S} D={D} int8={int8}")
+    _assert_rows_close(out, ref, f"extent span Np={Np} S={S} D={D} int8={int8}")
     assert torch.equal(extent_paged_span_attention(q4, kc, vc, start, base, ext, k_scale=sc,
                                                    v_scale=sc, **lossy), out)
 
