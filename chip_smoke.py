@@ -24,8 +24,11 @@ Phases (any failure ends the run with a non-zero exit):
    kernels must also give bitwise-equal outputs on two calls, and the flash
    forward's rows must hold a relative L2 gate that catches two planted
    faults of its K/V walk (``flash_planted_faults``: a skipped 128-key
-   tile, a ring off by one stage); ``quant_matmul``'s rows must not
-   depend on M, and the decode kernel's invariants must hold bitwise at
+   tile, a ring off by one stage), the backward's rows of dq, dk and dv
+   one that catches three of its walks (``flash_bwd_planted_faults``: a
+   K/V tile skipped by dq's long rows, a Q/dO tile skipped by dk/dv's
+   first kv tiles, the dk/dv ring off by one stage); ``quant_matmul``'s
+   rows must not depend on M, and the decode kernel's invariants must hold bitwise at
    gpt2-large's and llama3-8b's heads, bf16 and int8 KV
    (``decode_invariance``: span column == decode, chained == one big slot
    at chunk and extent boundaries, NaN outside the windows changing no bit);
@@ -582,6 +585,69 @@ def flash_planted_faults(torch, dev):
                 f"(gate {FLASH_ROW_REL_L2:g}), rel L2 {_rel_l2(bad, ref):.3e}, max abs err {err:.3e} "
                 f"(the 2^-7 max|plain| gate {tol:.3e}: {'caught' if err > tol else 'missed'})")
             check(row > FLASH_ROW_REL_L2, f"flash planted fault, T={T} D={D}, {what}: passes the row gate")
+
+
+def _flash_bwd_plain_keep(torch, q, k, v, out, lse, do, keep):
+    """``flash_attention_bwd_plain``'s arithmetic (default scale, no lse
+    cotangent) with the (T, Tk) mask ``keep`` in place of causality: the
+    gradients of a backward whose walk skipped the pairs outside ``keep``.
+    Returns (dq, dk, dv), dk/dv summed over the GQA group."""
+    from deepspeed_tpu_torch.ops.flash_attention import _group_sum
+    Hkv = k.shape[1]
+    g, scale = q.shape[1] // Hkv, q.shape[-1]**-0.5
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    qf, dof = q.float(), do.float()
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))[..., None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.where(keep, torch.exp(s - lse), torch.zeros_like(s))
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kf).to(q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof).to(v.dtype)
+    return dq, _group_sum(dk, Hkv), _group_sum(dv, Hkv)
+
+
+def flash_bwd_planted_faults(torch, dev):
+    """The flash backward's row gate against three faults of its walks,
+    planted through the plain version at the training shapes
+    (``BWD_SHAPES``); any of them passing the gate ends the run:
+    1. dq: one 64-key K/V tile of the dq kernel (keys 256..319) skipped by
+       the rows of the second half, as a walk that lost a ring slot would;
+    2. dk/dv: one 64-row q tile (rows 256..319) skipped by the first four
+       64-row kv tiles;
+    3. dk/dv: the ring off by one stage, tile j's dO (with its lse and
+       delta) paired with tile j - 1's Q (tile 0 with its own), as a
+       consumer reading a stale Q slot would.
+    The max-abs gate's verdict is logged beside, for the record."""
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for B, H, Hkv, T, D in BWD_SHAPES:
+        q, k, v, do, out, lse, _ = _bwd_inputs(torch, gen, dev, B, H, Hkv, T, D)
+        ref = flash_attention_bwd_plain(q, k, v, out, lse, do)
+        rows, cols = torch.arange(T, device=dev)[:, None], torch.arange(T, device=dev)[None, :]
+        causal = cols <= rows
+        no_tile = causal & ~((rows >= T // 2) & (cols >= 256) & (cols < 320))
+        no_q_tile = causal & ~((rows >= 256) & (rows < 320) & (cols < 256))
+        q_stale = torch.cat([q[:, :, :64], q[:, :, :-64]], dim=2)
+        faults = (("dq rows >= T/2 without keys 256..319", (0, ),
+                   _flash_bwd_plain_keep(torch, q, k, v, out, lse, do, no_tile)),
+                  ("dk/dv kv rows < 256 without q rows 256..319", (1, 2),
+                   _flash_bwd_plain_keep(torch, q, k, v, out, lse, do, no_q_tile)),
+                  ("dk/dv ring off by one stage", (1, 2),
+                   flash_attention_bwd_plain(q_stale, k, v, out, lse, do)))
+        for what, outputs, bad in faults:
+            for i in outputs:
+                tag = ("dq", "dk", "dv")[i]
+                row = _bwd_row_rel_l2(torch, bad[i], ref[i])
+                err = float((bad[i].float() - ref[i].float()).abs().max())
+                tol = 2.0**-7 * float(ref[i].float().abs().max())
+                log(f"flash bwd planted fault, B={B} H={H} Hkv={Hkv} T={T} D={D}, {what}, {tag}: row rel "
+                    f"L2 {row:.3e} (gate {FLASH_BWD_ROW_REL_L2:g}), rel L2 {_rel_l2(bad[i], ref[i]):.3e}, "
+                    f"max abs err {err:.3e} (the 2^-7 max|plain| gate {tol:.3e}: "
+                    f"{'caught' if err > tol else 'missed'})")
+                check(row > FLASH_BWD_ROW_REL_L2,
+                      f"flash bwd planted fault, T={T} D={D}, {what}, {tag}: passes the row gate")
 
 
 def _paged_plain_p_bf16(torch, q, kc, vc, ends, sc):
@@ -1183,6 +1249,19 @@ DECODE_REL_L2 = 2.0**-11
 # long row that lost one 128-key tile or read a stale ring slot.
 # ``flash_planted_faults`` plants both and requires this gate to catch them.
 FLASH_ROW_REL_L2 = 2.0**-6
+# the flash backward's output rows (one (b, h, q row) of dq; one (b, kv
+# head, kv row) of dk and dv) are held to a relative L2 error too, for the
+# same reason: max|plain| is set by the first causal rows, so a long row
+# that lost a K/V or Q/dO tile could pass the max-abs gate. A few rows'
+# references nearly vanish by cancellation (dq's row 0 attends one key,
+# where dp - delta is 0 but for rounding), so a row's error is taken
+# against its norm or FLASH_BWD_ROW_FLOOR times the rms of the output's row
+# norms, whichever is larger (``_bwd_row_rel_l2``).
+# ``flash_bwd_planted_faults`` plants three faults of the walks and requires
+# this gate to catch each; the limits lie between the readings (PERF.md).
+FLASH_BWD_ROW_REL_L2 = 2.0**-6
+FLASH_BWD_ROW_FLOOR = 2.0**-4
+FLASH_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 
 
 def kernel_phase(torch, dev):
@@ -1233,6 +1312,14 @@ def kernel_phase(torch, dev):
                     check(row_rel <= FLASH_ROW_REL_L2, f"{name} [{label}]: a row's rel L2 err "
                           f"{row_rel:.3e} > {FLASH_ROW_REL_L2:g}")
                     extra_rec["row_rel_l2_err"] = row_rel
+                if name in FLASH_BWD_KERNELS:
+                    row_rel = _bwd_row_rel_l2(torch, o, r)
+                    tag = "dq" if name == "flash_bwd_dq" else ("dk", "dv")[i]
+                    log(f"  {name} [{label}] {tag}: row rel L2 {row_rel:.3e} (gate {FLASH_BWD_ROW_REL_L2:g}; "
+                        f"without the floor {_row_rel_l2(torch, o, r):.3e})")
+                    check(row_rel <= FLASH_BWD_ROW_REL_L2, f"{name} [{label}] {tag}: a row's rel L2 err "
+                          f"{row_rel:.3e} > {FLASH_BWD_ROW_REL_L2:g}")
+                    extra_rec[f"{tag}_row_rel_l2_err"] = row_rel
                 if name in DECODE_KERNELS:
                     case_rel, row_rel = _rel_l2(o, r), _row_rel_l2(torch, o, r)
                     check(row_rel <= DECODE_ROW_REL_L2, f"{name} [{label}]: a folded row's rel L2 err "
@@ -1277,6 +1364,8 @@ def kernel_phase(torch, dev):
         decode_planted_faults(torch, dev)
     if "flash_attention" in results:
         flash_planted_faults(torch, dev)
+    if any(name in FLASH_BWD_KERNELS for name in results):
+        flash_bwd_planted_faults(torch, dev)
     return results
 
 
@@ -2729,6 +2818,16 @@ def _row_rel_l2(torch, got, ref):
     return float(rel.max())
 
 
+def _bwd_row_rel_l2(torch, got, ref):
+    """The largest ||got - ref|| / max(||ref||, FLASH_BWD_ROW_FLOOR * rms)
+    over the rows of the last axis, rms the root mean square of the
+    reference's row norms."""
+    g, r = got.float().reshape(-1, got.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    num, den = (g - r).norm(dim=1), r.norm(dim=1)
+    floor = max(FLASH_BWD_ROW_FLOOR * float(den.square().mean().sqrt()), 1e-30)
+    return float((num / den.clamp_min(floor)).max())
+
+
 def _call_mib(torch, fn):
     """MiB of device memory one call of ``fn`` allocates beyond what is held
     before it (its output and scratch), by the caching allocator's peak."""
@@ -2898,7 +2997,7 @@ def main(argv=()):
     log(f"built {len(logs)} kernel sources in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "wgmma" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     if list(argv) == ["--long"]:

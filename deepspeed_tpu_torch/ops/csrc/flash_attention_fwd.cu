@@ -257,11 +257,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 8; ++kc) {  // a k16 step is 16 key rows, 2048 bytes
-        const uint64_t b = sw128_mn_desc(vst + kc * 16 * 128, kKVBlockBytes);
-        if constexpr (D == 128)
-          wgmma_rs_m64n128<1>(o, pf[kc], b, 1);
-        else
-          wgmma_rs_m64n64<1>(o, pf[kc], b, 1);
+        wgmma_rs_mn<D>(o, pf[kc], sw128_mn_desc(vst + kc * 16 * 128, kKVBlockBytes), 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -305,28 +301,15 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
   // with Tk = 0 no tile is loaded: the K/V maps only need a valid base
   const void* kb = Tk ? k : q;
   const void* vb = Tk ? v : q;
-  const uint64_t dq[3] = {(uint64_t)D, (uint64_t)T, (uint64_t)B * H};
-  const uint64_t dkv[3] = {(uint64_t)D, (uint64_t)(Tk ? Tk : 1), (uint64_t)B * Hkv};
-  const uint32_t box_q[2] = {C::kBq, 1}, box_kv[2] = {kBk, 1};
   CUtensorMap tq, tk, tv;
-  if (const int rc = make_map(&tq, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, dq, box_q)) return rc;
-  if (const int rc = make_map(&tk, kb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, dkv, box_kv)) return rc;
-  if (const int rc = make_map(&tv, vb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, dkv, box_kv)) return rc;
+  if (const int rc = bf16_map(&tq, q, D, T, B * H, C::kBq)) return rc;
+  if (const int rc = bf16_map(&tk, kb, D, Tk ? Tk : 1, B * Hkv, kBk)) return rc;
+  if (const int rc = bf16_map(&tv, vb, D, Tk ? Tk : 1, B * Hkv, kBk)) return rc;
   // a persistent grid: as many CTAs as fit on the card at once, each
   // walking its share of the q tiles
   static int dev_cached = -1, resident = 0;
-  int dev = 0;
-  if (const int rc = static_cast<int>(cudaGetDevice(&dev))) return rc;
-  if (dev != dev_cached) {
-    int sms = 0, per_sm = 0;
-    if (const int rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-      return rc;
-    if (const int rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, flash_fwd_kernel<D>, C::kThreads, C::kSmem)))
-      return rc;
-    resident = max(1, sms * per_sm);
-    dev_cached = dev;
-  }
+  if (const int rc = resident_ctas(flash_fwd_kernel<D>, C::kThreads, C::kSmem, dev_cached, resident))
+    return rc;
   const int n_q = (T + C::kBq - 1) / C::kBq;
   flash_fwd_kernel<D><<<min(n_q * B * H, resident), C::kThreads, C::kSmem, s>>>(
       tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), H, Hkv, T, Tk, B * H, n_q,

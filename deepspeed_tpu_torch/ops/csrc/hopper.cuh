@@ -1,9 +1,10 @@
 // Hopper's asynchronous pieces, shared by the kernels that use them
-// (quant_matmul.cu's wide path, flash_attention_fwd.cu): wgmma (fence,
-// commit, wait; m64n128k16 with both operands in shared memory, and with A
-// from registers and B K-major or MN-major), the descriptors of the 128-byte
-// swizzled layouts that TMA writes, the mbarriers of a producer/consumer
-// ring, and TMA loads of 2D and 3D tensor maps with the host-side encoder.
+// (quant_matmul.cu's wide path, flash_attention_fwd.cu and _bwd.cu): wgmma
+// (fence, commit, wait; m64nNk16 with both operands in shared memory, N =
+// 64 or 128, and with A from registers and B K-major or MN-major), the
+// descriptors of the 128-byte swizzled layouts that TMA writes, setmaxnreg,
+// the mbarriers of a producer/consumer ring, and TMA loads of 2D and 3D
+// tensor maps with the host-side encoder.
 //
 // Shared-memory layouts (128-byte swizzle; a tile starts on a 1024-byte
 // boundary). A TMA box of 64 bf16 columns x R rows lands as R rows of 128
@@ -84,6 +85,21 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// the same with n = 64: d (64 x 64 fp32)
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, "
+      "0;\nwgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 128 fp32) (+)= a (64 x 16 bf16 in registers, mma.m16n8k16's A
 // layout per warp) * b (16 x 128 in shared memory: K-major, or MN-major
 // with TransB = 1); scale_d 0 overwrites d
@@ -129,6 +145,29 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// d (64 x N fp32) (+)= a (64 x 16 bf16 in registers) * b (16 x N, MN-major
+// in shared memory), N = 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs_mn: N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_rs_m64n128<1>(d, a, b, scale_d);
+  else
+    wgmma_rs_m64n64<1>(d, a, b, scale_d);
+}
+
+// moves registers between the warpgroups of a CTA: every warp of the
+// warpgroup executes it; what one warpgroup gives back the others may take
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // mbarriers and TMA (a producer/consumer ring)
@@ -226,6 +265,31 @@ inline int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+// a contiguous (heads, rows, D) bf16 tensor read in boxes of 64 columns x
+// box_rows rows of one head (two boxes a row at D = 128)
+inline int bf16_map(CUtensorMap* map, const void* base, int D, int rows, int heads, uint32_t box_rows) {
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)rows, (uint64_t)heads};
+  const uint32_t box[2] = {box_rows, 1};
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 3, dims, box);
+}
+// as many CTAs of `kern` as fit on the current card at once (a persistent
+// grid), cached per call site and device
+template <typename Kern>
+int resident_ctas(Kern* kern, int threads, int smem, int& dev_cached, int& resident) {
+  int dev = 0;
+  if (const int rc = static_cast<int>(cudaGetDevice(&dev))) return rc;
+  if (dev != dev_cached) {
+    int sms = 0, per_sm = 0;
+    if (const int rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+      return rc;
+    if (const int rc = static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)))
+      return rc;
+    resident = max(1, sms * per_sm);
+    dev_cached = dev;
+  }
+  return 0;
 }
 // the dynamic shared memory a kernel may take, set once per instantiation
 template <typename Kern>

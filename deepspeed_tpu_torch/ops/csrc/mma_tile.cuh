@@ -1,8 +1,11 @@
-// Warp-level tensor-core tiles for the flash attention kernels: bf16
+// Warp-level tensor-core tiles for the block-sparse attention kernels, the
+// decode kernel (through int8_mma.cuh) and the microbench: bf16
 // operands staged in shared memory (row stride D + 8 elements, so the eight
 // 16-byte rows an ldmatrix phase reads fall in distinct banks), mma.sync
 // m16n8k16 with fp32 accumulators, and the conversion of an accumulator into
 // the A operand of the next product (FlashAttention-2's register reuse).
+// hopper.cuh (the flash kernels, quant_matmul's wide path) takes smem_u32
+// and pack_bf16 from here.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 * g + t:
 //   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..), a3 (g+8, 8+2t..)

@@ -76,7 +76,8 @@ def _check_kernel_operands(what, bf16=(), fp32=(), like=None):
 
 
 def _check_aligned(what, **tensors):
-    """The kernels read bf16 rows in 16-byte vectors."""
+    """The kernels load through TMA, whose tensors start on 16-byte
+    boundaries."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{what} kernel: {name} must start on a 16-byte boundary")
@@ -99,6 +100,16 @@ def _kernel_scale(scale, D):
     scale = float(_scale(scale, D))
     if not (math.isfinite(scale) and scale > 0):
         raise ValueError(f"flash_attention kernel: scale must be a finite number > 0, got {scale}")
+    return scale
+
+
+def _bwd_kernel_scale(scale, D, what):
+    """The backward kernels' scale: they fold scale * log2(e) into
+    exp2(s * c - lse * log2(e)) and take no row max, so any finite scale
+    works; they refuse an infinite or NaN one."""
+    scale = float(_scale(scale, D))
+    if not math.isfinite(scale):
+        raise ValueError(f"{what} kernel: scale must be finite, got {scale}")
     return scale
 
 
@@ -204,11 +215,12 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=True, scale=None):
     _check_kernel_operands("flash_bwd_dq", bf16=(("q", q), ("k", k), ("v", v), ("dout", dout)),
                            fp32=(("lse", lse), ("delta", delta)), like=q)
     _check_aligned("flash_bwd_dq", q=q, k=k, v=v, dout=dout)
+    scale = _bwd_kernel_scale(scale, D, "flash_bwd_dq")
     dq = torch.empty_like(q)
     lib = _kernel("flash_attention_bwd")
     rc = lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Hkv, T, Tk,
-                                 D, float(_scale(scale, D)), int(bool(causal)), build.stream_of(q))
+                                 D, scale, int(bool(causal)), build.stream_of(q))
     build.check(lib, rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -225,12 +237,13 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal=True, scale=None):
     _check_kernel_operands("flash_bwd_dkv", bf16=(("q", q), ("k", k), ("v", v), ("dout", dout)),
                            fp32=(("lse", lse), ("delta", delta)), like=q)
     _check_aligned("flash_bwd_dkv", q=q, k=k, v=v, dout=dout)
+    scale = _bwd_kernel_scale(scale, D, "flash_bwd_dkv")
     dk = torch.empty((B, H, Tk, D), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     lib = _kernel("flash_attention_bwd")
     rc = lib.flash_bwd_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-                                  H, Hkv, T, Tk, D, float(_scale(scale, D)), int(bool(causal)),
+                                  H, Hkv, T, Tk, D, scale, int(bool(causal)),
                                   build.stream_of(q))
     build.check(lib, rc, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1

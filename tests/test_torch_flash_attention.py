@@ -92,3 +92,16 @@ def test_kernel_scale_contract():
     for bad in (0.0, -0.125, float("inf"), float("nan")):
         with pytest.raises(ValueError, match="scale"):
             _kernel_scale(bad, 64)
+
+
+def test_bwd_kernel_scale_contract():
+    """The CUDA backward's wrappers take the default 1/sqrt(D) or any finite
+    scale (no row max), and refuse an infinite or NaN one before they build
+    or launch."""
+    from deepspeed_tpu_torch.ops.flash_attention import _bwd_kernel_scale
+    assert _bwd_kernel_scale(None, 128, "flash_bwd_dq") == 1.0 / 128**0.5
+    for ok in (0.3, 0.0, -0.2):
+        assert _bwd_kernel_scale(ok, 64, "flash_bwd_dkv") == ok
+    for bad in (float("inf"), float("-inf"), float("nan")):
+        with pytest.raises(ValueError, match="flash_bwd_dq kernel: scale"):
+            _bwd_kernel_scale(bad, 64, "flash_bwd_dq")

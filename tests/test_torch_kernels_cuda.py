@@ -5,7 +5,11 @@ edges, Tk != T, non-causal, GQA, head dims 64 and 128, for the forward and
 the two backward kernels (the forward also at every edge of its 128-row
 tiles, causal with Tk above and below T, T = 2048 under a per-row relative
 L2 gate, bitwise repeats, NaN past Tk changing no bit, a refused scale) (with an lse cotangent, a row that attends nothing,
-bitwise-equal repeats, and autograd through the forward); empty decode windows,
+bitwise-equal repeats, and autograd through the forward; the backward
+kernels also at T and Tk off their 64-row tiles both ways, GQA groups 1, 4
+and 8, T = 4096, rows with lse -inf in several tiles, under a per-row
+relative L2 gate, NaN past T in q, dO, lse and delta and past Tk in k and v
+changing no bit, any finite scale taken and a non-finite one refused); empty decode windows,
 per-row and scalar ends, left-pad starts; for the fused decode layer, batches
 other than 8, G=1, contractions longer than 1024, gated and ungated MLPs,
 every activation, head dims 64 and 128 with and without RoPE, and a fully
@@ -64,7 +68,7 @@ from deepspeed_tpu_torch.ops.quantizer import quantize_kv_rows
 from deepspeed_tpu_torch.ops.decode_block import (fused_decode_block, fused_out_mlp,
                                                   fused_out_mlp_plain, fused_qkv_ln,
                                                   fused_qkv_ln_plain)
-from deepspeed_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+from deepspeed_tpu_torch.ops.flash_attention import (_group_sum, flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_plain, flash_attention_fwd,
                                                      flash_attention_plain, flash_attention_with_lse,
                                                      flash_bwd_dkv, flash_bwd_dq)
@@ -222,10 +226,19 @@ def test_flash_kernel_matches_plain(dev, B, H, Hkv, T, Tk, D, causal):
 
 # (B, H, Hkv, T, Tk, D, causal): T not a multiple of the 32-row tile; Tk != T
 # non-causal; g=4 at D=128 (llama); g=4 ragged non-causal at D=128; causal
-# with more keys than queries (kv tiles no query reaches get zeros)
+# with more keys than queries (kv tiles no query reaches get zeros); then
+# against the kernels' 64-row tiles (dq: 64 q rows a CTA, 64-key K/V tiles;
+# dk/dv: 64 kv rows a warpgroup, 128 a CTA at D = 128, 64-row Q/dO tiles):
+# T and Tk at 63, 65, 127, 129, 191 and 300, T != Tk both ways, causal and
+# not, up to 15 distinct heads (a box read across a head's edge would show)
 BWD_CASES = [(2, 4, 4, 100, 100, 64, True), (1, 4, 4, 64, 96, 64, False),
              (1, 8, 2, 128, 128, 128, True), (2, 4, 1, 77, 77, 128, False),
-             (1, 2, 2, 40, 70, 64, True)]
+             (1, 2, 2, 40, 70, 64, True),
+             (1, 2, 2, 63, 63, 64, True), (2, 2, 1, 65, 65, 128, True),
+             (1, 4, 2, 127, 129, 64, True), (1, 4, 2, 129, 127, 128, True),
+             (1, 2, 2, 191, 300, 64, True), (1, 2, 2, 300, 191, 128, True),
+             (2, 3, 3, 100, 77, 64, False), (1, 4, 1, 77, 200, 128, False),
+             (3, 5, 5, 129, 129, 128, True), (2, 4, 4, 200, 200, 64, False)]
 
 
 def _bwd_inputs(dev, B, H, Hkv, T, Tk, D, causal, seed):
@@ -237,6 +250,50 @@ def _bwd_inputs(dev, B, H, Hkv, T, Tk, D, causal, seed):
     g_lse = torch.randn((B, H, T), generator=g, device=dev)
     out, lse = flash_attention_plain(q, k, v, causal=causal)
     return q, k, v, do, g_lse, out, lse
+
+
+# the flash backward's rows (dq: one (b, h, q row); dk, dv: one (b, kv head,
+# kv row)) are held to ROW_REL_L2 of their norm or of BWD_ROW_FLOOR times the
+# rms of the output's row norms, whichever is larger, as chip_smoke.py holds
+# them (FLASH_BWD_ROW_REL_L2): dq's first causal row attends one key, where
+# dp - delta vanishes but for rounding, so its own norm is no yardstick.
+BWD_ROW_FLOOR = 2.0**-4
+
+
+def _assert_bwd_rows_close(out, ref, what):
+    """``_assert_close``, then every row within the floored row gate; an
+    all-zero reference needs exact zeros."""
+    _assert_close(out, ref, what)
+    o, r = out.float().reshape(-1, out.shape[-1]), ref.float().reshape(-1, ref.shape[-1])
+    num, den = (o - r).norm(dim=1), r.norm(dim=1)
+    floor = BWD_ROW_FLOOR * float(den.square().mean().sqrt())
+    if floor == 0:
+        assert not bool(num.any()), f"{what}: not zeros"
+        return
+    row = float((num / den.clamp_min(floor)).max())
+    assert row <= ROW_REL_L2, f"{what}: a row's rel L2 err {row:.3e} > {ROW_REL_L2:g}"
+
+
+def _bwd_kernels(q, k, v, do, lse, delta, causal, scale=None):
+    """(dq, dk, dv) of the two backward kernels, dk/dv summed over the GQA
+    group."""
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, _group_sum(dk, k.shape[1]), _group_sum(dv, k.shape[1])
+
+
+def _check_bwd(dev, q, k, v, do, out, lse, causal, what, scale=None):
+    """The kernels against the plain backward under the row gate, and two
+    calls bitwise equal."""
+    delta = (do.float() * out.float()).sum(-1)
+    got = _bwd_kernels(q, k, v, do, lse, delta, causal, scale)
+    again = _bwd_kernels(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal, scale=scale)
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert torch.equal(a, b), f"{what} {name}: two calls differ"
+        assert bool(torch.isfinite(a.float()).all()), f"{what} {name}: non-finite entries"
+        _assert_bwd_rows_close(a, r, f"{what} {name}")
 
 
 @pytest.mark.parametrize("with_lse_grad", [False, True])
@@ -253,7 +310,7 @@ def test_flash_bwd_kernels_match_plain(dev, B, H, Hkv, T, Tk, D, causal, with_ls
     what = f"flash bwd B={B} H={H}/{Hkv} T={T} Tk={Tk} D={D} causal={causal} g_lse={with_lse_grad}"
     for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
         assert torch.equal(a, b), f"{what} {name}: two calls differ"  # no atomics
-        _assert_close(a, r, f"{what} {name}")
+        _assert_bwd_rows_close(a, r, f"{what} {name}")
 
 
 def test_flash_bwd_kernels_row_that_attends_nothing(dev):
@@ -301,6 +358,89 @@ def test_autograd_through_flash_on_the_card(dev, Hkv):
     for name, a, r in zip(("dq", "dk", "dv"), grads["kernel"], grads["plain"]):
         assert a is not None, name
         _assert_close(a, r, f"autograd flash Hkv={Hkv} {name}")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_flash_bwd_kernels_gqa_groups(dev, group, D):
+    """GQA groups 1, 4 and 8: every query head of a group reads one KV head;
+    dk/dv per query head, summed after."""
+    q, k, v, do, _, out, lse = _bwd_inputs(dev, 2, 8, 8 // group, 256, 256, D, True, 17 * group + D)
+    _check_bwd(dev, q, k, v, do, out, lse, True, f"flash bwd GQA g={group} D={D}")
+
+
+@pytest.mark.parametrize("Hkv,D", [(1, 128), (2, 64)])
+def test_flash_bwd_kernels_long_rows(dev, Hkv, D):
+    """T = 4096 causal: the dq walk of the last q tile is 32 to 64 K/V
+    tiles, the dk/dv walk of the first kv tile 64 Q/dO tiles."""
+    q, k, v, do, _, out, lse = _bwd_inputs(dev, 1, 2, Hkv, 4096, 4096, D, True, 4096 + D)
+    _check_bwd(dev, q, k, v, do, out, lse, True, f"flash bwd T=4096 Hkv={Hkv} D={D}")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_kernels_rows_with_neg_inf_lse(dev, D):
+    """lse = -inf rows in several q tiles (first, last, across a tile edge)
+    read as lse 0 in both kernels."""
+    q, k, v, do, _, out, lse = _bwd_inputs(dev, 2, 4, 2, 200, 200, D, True, 13 + D)
+    for b, h, r in ((0, 0, 0), (0, 1, 63), (0, 3, 64), (1, 2, 130), (1, 3, 199)):
+        lse[b, h, r] = float("-inf")
+    _check_bwd(dev, q, k, v, do, out, lse, True, f"flash bwd -inf lse rows D={D}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_kernels_read_nothing_past_t_and_tk(dev, D, causal):
+    """q, dO, lse and delta are the leading T = 150 rows, k and v the
+    leading Tk = 200 rows, of buffers whose later rows are NaN (B = H = Hkv
+    = 1, so the views are contiguous): the kernels' edge boxes fill zeros,
+    so the gradients are bitwise the clean call's."""
+    g = _gen(dev, 43 + D)
+    T, Tk = 150, 200
+
+    def leading(n, rows):  # the leading n rows of a (1, 1, rows, D) buffer with a NaN tail
+        buf = torch.randn((1, 1, rows, D), generator=g, device=dev).to(torch.bfloat16)
+        buf[:, :, n:] = float("nan")
+        return buf[:, :, :n]
+
+    def vec(x):  # x (1, 1, T) fp32 as the leading T entries of a buffer with a NaN tail
+        buf = torch.full((1, 1, 256), float("nan"), device=dev)
+        buf[..., :T] = x
+        return buf[..., :T]
+
+    q, do = leading(T, 256), leading(T, 256)
+    k, v = leading(Tk, 384), leading(Tk, 384)
+    out, lse = flash_attention_plain(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(-1)
+    lse_v, delta_v = vec(lse), vec(delta)
+    assert all(t.is_contiguous() for t in (q, do, k, v, lse_v, delta_v))
+    got = _bwd_kernels(q, k, v, do, lse_v, delta_v, causal)
+    clean = _bwd_kernels(*(t.clone() for t in (q, k, v, do, lse, delta)), causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, clean):
+        assert bool(torch.isfinite(a.float()).all()), f"{name}: a NaN past T or Tk reached it"
+        assert torch.equal(a, b), f"{name}: the NaN tails changed the result"
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_bwd_rows_close(a, r, f"flash bwd NaN tails D={D} causal={causal} {name}")
+
+
+def test_flash_bwd_kernels_take_any_finite_scale(dev):
+    """No row max: a scale of 0.3, or below 0, works (the plain version's
+    arithmetic); an infinite or NaN one is refused."""
+    for scale in (0.3, -0.2):
+        g = _gen(dev, 31)
+        q, k, v, do = (torch.randn((1, 4, 130, 64), generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = flash_attention_plain(q, k[:, :2], v[:, :2], causal=True, scale=scale)
+        _check_bwd(dev, q, k[:, :2].contiguous(), v[:, :2].contiguous(), do, out, lse, True,
+                   f"flash bwd scale={scale}", scale=scale)
+    q, k, v, do, _, out, lse = _bwd_inputs(dev, 1, 2, 2, 64, 64, 64, True, 12)
+    delta = (do.float() * out.float()).sum(-1)
+    for scale in (float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="scale"):
+            flash_bwd_dq(q, k, v, do, lse, delta, scale=scale)
+        with pytest.raises(ValueError, match="scale"):
+            flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale)
 
 
 def _flash_inputs(dev, B, H, Hkv, T, Tk, D, seed):
