@@ -27,8 +27,11 @@ Phases (any failure ends the run with a non-zero exit):
    tile, a ring off by one stage), the backward's rows of dq, dk and dv
    one that catches three of its walks (``flash_bwd_planted_faults``: a
    K/V tile skipped by dq's long rows, a Q/dO tile skipped by dk/dv's
-   first kv tiles, the dk/dv ring off by one stage); ``quant_matmul``'s
-   rows must not depend on M, and the decode kernel's invariants must hold bitwise at
+   first kv tiles, the dk/dv ring off by one stage); kernels A and C's
+   rows must hold a relative L2 gate too; ``quant_matmul``'s rows, and
+   kernels A and C's (``block_invariance``: M = 1 to 512 against M = 512
+   at gpt2-large and llama3-8b, with a planted fault the gate must catch),
+   must not depend on M, and the decode kernel's invariants must hold bitwise at
    gpt2-large's and llama3-8b's heads, bf16 and int8 KV
    (``decode_invariance``: span column == decode, chained == one big slot
    at chunk and extent boundaries, NaN outside the windows changing no bit);
@@ -239,6 +242,73 @@ def qmm_invariance(torch, dev):
     torch.cuda.synchronize()
     log(f"quant_matmul batch invariance: rows bitwise equal for M in {QMM_INVARIANT_M} and two "
         f"calls bitwise equal, at {len(QMM_GPT2 + QMM_LLAMA)} shapes")
+
+
+def _block_layer(torch, gen, dev, H, nh, nkv, hd, F_, act, norm, rope, M):
+    """Kernel A's and kernel C's operands at one layer shape, M rows; returns
+    (A(m), C(m)) calls on the first m rows."""
+    from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_qkv_ln
+    N = (nh + 2 * nkv) * hd
+    x = (torch.randn((M, H), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    attn = torch.randn((M, nh * hd), generator=gen, device=dev).to(torch.bfloat16)
+    norms = _norm_rows(torch, gen, dev, H, norm)
+    qkv, o, up, down = (_proj(torch, gen, dev, H, N), _proj(torch, gen, dev, nh * hd, H),
+                        _proj(torch, gen, dev, H, F_), _proj(torch, gen, dev, F_, H))
+    gate = _proj(torch, gen, dev, H, F_) if act in ("swiglu", "geglu") else None
+    ang = torch.rand((M, hd // 2), generator=gen, device=dev) * 6.0
+    sin, cos = torch.sin(ang), torch.cos(ang)
+
+    def a(m):
+        r = (sin[:m].contiguous(), cos[:m].contiguous(), nh + nkv, hd) if rope else None
+        return fused_qkv_ln(x[:m], norms, qkv, norm=norm, rope=r)
+
+    def c(m):
+        return fused_out_mlp(attn[:m], x[:m], norms, o, up, down, activation=act, norm=norm, gate=gate)
+
+    return a, c
+
+
+def _rows_differing(torch, fn, full):
+    """{m: entries of fn(m) that differ from the first m rows of full}, for
+    each m of BLOCK_INVARIANT_M."""
+    out = {m: int((fn(m) != full[:m]).sum()) for m in BLOCK_INVARIANT_M}
+    torch.cuda.synchronize()
+    return out
+
+
+def block_invariance(torch, dev):
+    """Batch invariance of kernels A and C on the card: at gpt2-large's and
+    llama3-8b's layer shapes (RoPE at hd 128 and swiglu at llama3-8b), the
+    rows of every M of BLOCK_INVARIANT_M are bitwise the same rows at M =
+    512, and two calls on the same inputs are bitwise equal; the scheduler's
+    decode, verify and chunk steps rest on it. Then a planted fault (the
+    wgmma path with the chain in registers sums K's segments in reverse order:
+    ``decode_block._plant``) must break it. Launches here are not the main
+    path's."""
+    from deepspeed_tpu_torch.ops import decode_block
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    checks = 0
+    for label, _, H, nh, nkv, hd, F_, act, norm, rope in LAYER_SHAPES[:2]:
+        a, c = _block_layer(torch, gen, dev, H, nh, nkv, hd, F_, act, norm, rope, max(BLOCK_INVARIANT_M))
+        for kern, fn in (("fused_qkv_ln", a), ("fused_out_mlp", c)):
+            full = fn(max(BLOCK_INVARIANT_M))
+            check(torch.equal(fn(max(BLOCK_INVARIANT_M)), full), f"{kern} {label}: two calls differ")
+            check(bool(torch.isfinite(full.float()).all()), f"{kern} {label}: non-finite output")
+            diff = _rows_differing(torch, fn, full)
+            bad = {m: d for m, d in diff.items() if d}
+            check(not bad, f"{kern} {label}: rows differ from M={max(BLOCK_INVARIANT_M)} at {bad}")
+            checks += len(diff) + 1
+            decode_block._plant = 1
+            try:
+                planted = _rows_differing(torch, fn, fn(max(BLOCK_INVARIANT_M)))
+            finally:
+                decode_block._plant = 0
+            caught = sum(1 for d in planted.values() if d)
+            log(f"  block invariance {kern} {label}: {len(diff)} widths bitwise; the planted fault "
+                f"(K's segments chained in reverse on the wgmma path) makes {caught} widths differ")
+            check(caught > 0, f"{kern} {label}: the invariance gate missed the planted fault")
+    log(f"kernels A and C batch invariance: {checks} bitwise checks (rows of M in {BLOCK_INVARIANT_M} "
+        f"== M={max(BLOCK_INVARIANT_M)}, two calls equal) at gpt2-large and llama3-8b; planted fault caught")
 
 
 # the decode-shape microbench's layer (benchmarks/qmm_microbench.py): x (8,
@@ -992,16 +1062,33 @@ def _lib_norm(F, torch, x, norms, row, norm):
 LAYER_SHAPES = [("gpt2-large", 8, 1280, 20, 20, 64, 5120, "gelu", "layernorm", False),
                 ("llama3-8b", 4, 4096, 32, 8, 128, 14336, "swiglu", "rmsnorm", True),
                 ("gpt2-large chunk step", CHUNK_M, 1280, 20, 20, 64, 5120, "gelu", "layernorm", False)]
+# llama3-8b's chunk step (4 slots x 64 columns), kernels A and C
+LLAMA_CHUNK = ("llama3-8b chunk step", 256, 4096, 32, 8, 128, 14336, "swiglu", "rmsnorm", True)
+# the scheduler's verify width at gpt2-large (8 slots x (1 + 4 drafts)): the
+# first width of kernel C on the wgmma path
+VERIFY = ("gpt2-large verify", 40, 1280, 20, 20, 64, 5120, "gelu", "layernorm", False)
+# kernels A and C's rows are also held to a relative L2 error each (the
+# outputs of one token): max|plain| is set by the largest rows, so the
+# max-abs gate alone could pass a row that lost a segment of K
+BLOCK_ROW_REL_L2 = 2.0**-6
+BLOCK_KERNELS = ("fused_qkv_ln", "fused_out_mlp")
+# the rows whose bits must not depend on M: every path and tile edge of
+# kernels A and C (mma.sync to 32, wgmma on 64-row tiles with K split over
+# blocks, and on 64- or 128-row tiles with the chain in registers)
+BLOCK_INVARIANT_M = (1, 4, 8, 16, 32, 33, 40, 64, 256, 512)
 
 
 def qkv_ln_cases(torch, gen, dev):
     """Kernel A at gpt2-large's decode layer (B=8, H=1280, 20 heads of 64,
     layernorm) and llama3-8b's (B=4, H=4096, 32 q and 8 kv heads of 128,
-    rmsnorm, RoPE), and at gpt2-large's chunk step (M=512). Library: layer_norm/rms_norm + torch.matmul on the
-    dequantized bf16 weight + bias (+ RoPE in torch ops), a chain of calls."""
+    rmsnorm, RoPE), and at the chunk steps (gpt2-large M=512, llama3-8b
+    M=256). Library: layer_norm/rms_norm + torch.matmul on the dequantized
+    bf16 weight + bias (+ RoPE in torch ops), a chain of calls; beside it
+    ``product_ms``, quant_matmul alone on the normalized rows."""
     import torch.nn.functional as F
-    from deepspeed_tpu_torch.ops.decode_block import fused_qkv_ln, fused_qkv_ln_plain
-    for label, B, H, nh, nkv, hd, _, _, norm, rope in LAYER_SHAPES:
+    from deepspeed_tpu_torch.ops.decode_block import _norm, fused_qkv_ln, fused_qkv_ln_plain
+    from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+    for label, B, H, nh, nkv, hd, _, _, norm, rope in LAYER_SHAPES + [LLAMA_CHUNK]:
         N = (nh + 2 * nkv) * hd
         x = (torch.randn((B, H), generator=gen, device=dev) * 2).to(torch.bfloat16)
         norms = _norm_rows(torch, gen, dev, H, norm)
@@ -1024,24 +1111,28 @@ def qkv_ln_cases(torch, gen, dev):
             rot = torch.cat([a * cos - b * sin, b * cos + a * sin], dim=-1).flatten(1)
             return torch.cat([rot, y[:, rh * hd:]], dim=1)
 
+        # the product alone (quant_matmul on the normalized rows): the norm
+        # pass and the epilogue are the rest of the call
+        xn = _norm(x.float(), norms, 0, norm, 1e-5).to(torch.bfloat16)
         yield (f"{label} B={B} H={H} N={N}{' rope' if rope else ''} {norm}",
                lambda x=x, n=norms, p=qkv, r=rope_op, nm=norm: fused_qkv_ln(x, n, p, norm=nm, rope=r),
                lambda x=x, n=norms, p=qkv, r=rope_op, nm=norm: fused_qkv_ln_plain(x, n, p, norm=nm,
                                                                                    rope=r),
-               chain, nbytes, 2 * B * H * N)
+               chain, nbytes, 2 * B * H * N,
+               {"product_ms": lambda xn=xn, p=qkv: quant_matmul(xn, p[0], p[1])})
 
 
 def out_mlp_cases(torch, gen, dev):
     """Kernel C at gpt2-large's decode layer (B=8, H=1280, F=5120, gelu,
-    layernorm) and llama3-8b's (B=4, H=4096, F=14336, swiglu, rmsnorm), and
-    at gpt2-large's chunk step (M=512: 2,560 up-projection tiles, many
-    rounds of the cooperative grid's tile loop).
+    layernorm) and llama3-8b's (B=4, H=4096, F=14336, swiglu, rmsnorm), at
+    the chunk steps (gpt2-large M=512, llama3-8b M=256) and at gpt2-large's
+    verify width (M=40).
     Library: the chain torch.matmul + bias + residual, layer_norm/rms_norm,
     torch.matmul (x2 gated) + bias + activation, torch.matmul + bias +
     residual, on the dequantized bf16 weights."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.decode_block import fused_out_mlp, fused_out_mlp_plain
-    for label, B, H, nh, nkv, hd, F_, act, norm, _ in LAYER_SHAPES:
+    for label, B, H, nh, nkv, hd, F_, act, norm, _ in LAYER_SHAPES + [LLAMA_CHUNK, VERIFY]:
         Ko = nh * hd
         attn = torch.randn((B, Ko), generator=gen, device=dev).to(torch.bfloat16)
         x = (torch.randn((B, H), generator=gen, device=dev) * 4).to(torch.bfloat16)
@@ -1320,6 +1411,11 @@ def kernel_phase(torch, dev):
                     check(row_rel <= FLASH_BWD_ROW_REL_L2, f"{name} [{label}] {tag}: a row's rel L2 err "
                           f"{row_rel:.3e} > {FLASH_BWD_ROW_REL_L2:g}")
                     extra_rec[f"{tag}_row_rel_l2_err"] = row_rel
+                if name in BLOCK_KERNELS:
+                    row_rel = _row_rel_l2(torch, o, r)
+                    check(row_rel <= BLOCK_ROW_REL_L2, f"{name} [{label}]: a row's rel L2 err "
+                          f"{row_rel:.3e} > {BLOCK_ROW_REL_L2:g}")
+                    extra_rec["row_rel_l2_err"] = row_rel
                 if name in DECODE_KERNELS:
                     case_rel, row_rel = _rel_l2(o, r), _row_rel_l2(torch, o, r)
                     check(row_rel <= DECODE_ROW_REL_L2, f"{name} [{label}]: a folded row's rel L2 err "
@@ -1359,6 +1455,8 @@ def kernel_phase(torch, dev):
     del flush
     if "quant_matmul" in results:
         qmm_invariance(torch, dev)
+    if any(name in BLOCK_KERNELS for name in results):
+        block_invariance(torch, dev)
     if any(name in DECODE_KERNELS for name in results):
         decode_invariance(torch, dev)
         decode_planted_faults(torch, dev)

@@ -1,132 +1,107 @@
 // Kernel A of the fused decode layer: norm1(x) @ dequant(Wqkv) + bias, then
-// RoPE on the q and k head segments, for one token per row.
+// RoPE on the q and k head segments, for every row the scheduler gives it
+// (decode, verify and chunk steps alike).
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/pallas/decode_block.py::
 // _qkv_ln_kernel. Same arithmetic: norm1 of each row in fp32 (two-pass
 // variance for layernorm, mean square for rmsnorm), cast to bf16 (the
-// compute dtype) before the dot; int8 weights widen in registers; each
-// quantization group's fp32 partial is multiplied by its scale row; the bias
-// is added and the rotation applied in fp32, and the result is cast last.
+// compute dtype) before the dot; int8 weights widen to bf16 in registers;
+// each quantization segment's fp32 partial is multiplied by its scale row;
+// the bias is added and the rotation applied in fp32, and the result is
+// cast last.
 //
 // Layout (the JAX one): x (M, K) bf16; norms (4, K) fp32, rows 0 and 1 used;
 // w (K, N) int8 with N = (nh + 2 nkv) hd in [q;k;v] order; scales (G, N);
 // bias (N,) fp32; sin, cos (M, hd/2) fp32 at each row's position; out (M, N)
 // bf16. Columns below rot_cols (the q and k heads) are rotated, half-split.
 //
-// What bounds it on the H100: the weight bytes, K*N int8 plus the scales,
-// over 3.35 TB/s (gpt2-large: about 5.2 MB, 1.55 us).
+// What bounds it on the H100: at decode the weight bytes, K*N int8 plus the
+// scales, over 3.35 TB/s (gpt2-large 5.2 MB, 1.55 us); at the chunk step
+// (M = 512) the 2*M*K*N operations over the 989 TFLOP/s of the bf16 tensor
+// cores (5.0 GFLOP, 5.1 us).
 //
-// Design: the TPU kernel walks K along a sequential grid axis with the whole
-// normalized x in VMEM. Here the grid is (column tiles, row tiles, K splits),
-// sized by the wrapper to the blocks the 132 SMs hold at once
-// (resident_blocks). Every block takes the norm statistics of its rows itself
-// (one warp a row, x read through L2; the second pass hits L1) and
-// normalizes x as it stages it, 128 K-rows at a time, while the chunk's
-// weight loads are in flight (int8_stream.cuh); the normalized rows are
-// never written anywhere. The last block of a column tile to arrive sums the
-// splits in split order, adds the bias and rotates. A column tile is 128
-// columns: with a head dim that divides 128 it holds whole heads, so both
-// halves of every rotated pair are in that block's shared memory.
+// Design. Two launches in stream order (three with a split wgmma plan),
+// issued by one call, with programmatic dependent launch:
+//  1. the norm pass (fused_layer.cuh): a block a row writes norm1(x) as bf16
+//     to a workspace (M x K, 1.3 MB at gpt2-large M = 512, read back from
+//     L2);
+//  2. the product on qmm_core.cuh's mainloops, the same code and the same
+//     sum as quant_matmul: mma.sync at M <= 32 (K split over blocks; a
+//     tile's last block chains the segment partials in order and runs the
+//     epilogue), wgmma with TMA-fed tiles at M > 32 (the chain in
+//     registers; partials and an ordered reduce launch where the row tiles
+//     alone leave the card idle). The wrapper's plan picks the tile and the
+//     split; a row's bits depend on neither.
+// The epilogue (bias, RoPE, the cast) sees the block's finished tile in
+// shared memory: at hd = 128 a rotated pair spans the two 64-column
+// warpgroups of a 128-column block, and each element reads its partner
+// there. A 128-column tile holds whole heads when hd divides 128.
+//   Normalizing in the prologue, not in shared memory as x's tile arrives,
+// by measurement: the tile comes by TMA straight into the swizzled layout
+// wgmma reads, and a row's statistics need the whole row before its first
+// tile, so the in-tile variant would take every block's statistics of its
+// rows again (a read of M x K per column tile) and a pass over each staged
+// tile; it could save at most the norm pass and the epilogue, the call less
+// quant_matmul's product on the normalized rows: 0.0272 - 0.0200 ms at
+// gpt2-large M = 512 (chip_smoke.py's product_ms, NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md §6), a quarter of the call.
 
-#include "int8_stream.cuh"
+#include "fused_layer.cuh"
 
 namespace {
 
-using namespace int8s;
+using namespace ds_qmm;
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-qkv_ln_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ norms,
-              const int8_t* __restrict__ w, const float* __restrict__ scales,
-              const float* __restrict__ bias, const float* __restrict__ sin_t,
-              const float* __restrict__ cos_t, __nv_bfloat16* __restrict__ out,
-              float* __restrict__ ws, int* __restrict__ arrivals, int M, int K, int N, int gs,
-              int k_per_split, float eps, int rms, int rot_cols, int hd) {
-  __shared__ Smem sm;
-  const int m0 = blockIdx.y * kRows;
-  const int rows = min(kRows, M - m0);
-  const int n_base = blockIdx.x * kBlockN;
-  const int splits = gridDim.z;
-  const int k_lo = blockIdx.z * k_per_split;
-  const int k_hi = min(K, k_lo + k_per_split);
-
-  // norm1 statistics of this block's rows: warp r takes row m0 + r
-  const int warp = threadIdx.x / 32;
-  if (warp < rows) {
-    const uint2* xr = reinterpret_cast<const uint2*>(x + (size_t)(m0 + warp) * K);
-    warp_row_stats(
-        [&](int j) {  // 4 bf16 values in 8 bytes
-          const uint2 u = __ldg(xr + j);
-          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-          return make_float4(a.x, a.y, b.x, b.y);
-        },
-        K, eps, rms, &sm.mu[warp], &sm.rstd[warp]);
-  }
-  __syncthreads();
-
-  const float* n_scale = norms;
-  const float* n_bias = norms + K;  // zeros for rmsnorm
-  auto stage = [&](int m, int k) {
-    const float v = __bfloat162float(__ldg(x + (size_t)(m0 + m) * K + k));
-    return round_bf16((v - sm.mu[m]) * sm.rstd[m] * n_scale[k] + n_bias[k]);
-  };
-  stream_split(stage, w, scales, N, gs, n_base, rows, k_lo, k_hi,
-               ws + ((size_t)blockIdx.z * M + m0) * N, sm);
-  if (!arrive(&arrivals[blockIdx.y * gridDim.x + blockIdx.x], splits, sm)) return;
-  sum_splits(ws, splits, M, N, m0, n_base, rows, sm.fin[0]);
-
-  const int half = hd / 2;
-  for (int i = threadIdx.x; i < kRows * kBlockN; i += kThreads) {
-    const int m = i / kBlockN, col = i % kBlockN;
-    const int n = n_base + col;
-    if (m >= rows || n >= N) continue;
-    float y = sm.fin[0][m][col] + bias[n];
-    if (n < rot_cols) {
-      const int j = n % hd;
-      const float* sr = sin_t + (size_t)(m0 + m) * half;
-      const float* cr = cos_t + (size_t)(m0 + m) * half;
-      if (j < half) {  // first half: a cos - b sin, b the partner hd/2 columns on
-        const float b = sm.fin[0][m][col + half] + bias[n + half];
-        y = y * cr[j] - b * sr[j];
-      } else {         // second half: b cos + a sin, a the partner hd/2 columns back
-        const float a = sm.fin[0][m][col - half] + bias[n - half];
-        y = y * cr[j - half] + a * sr[j - half];
+struct QkvEpi {  // columns n, n + 1 of row m: bias, then RoPE on the q and k heads
+  static constexpr bool kStaged = true;
+  static constexpr int kPasses = 1;
+  const float* bias;
+  const float* sin_t;
+  const float* cos_t;
+  bf16* out;
+  int N, rot_cols, hd;
+  __device__ __forceinline__ void operator()(const Fin& f, int r, int c, int m, int n) const {
+    const float2 b = ds_fused::ldg2(bias + n);
+    float y0 = __fadd_rn(f(0, r, c), b.x), y1 = __fadd_rn(f(0, r, c + 1), b.y);
+    if (n < rot_cols) {  // hd and hd / 2 are even: n, n + 1 lie in one half of a head
+      const int half = hd >> 1, j = n % hd;
+      const int k = j < half ? j : j - half, d = j < half ? half : -half;
+      const float2 p = ds_fused::ldg2(bias + n + d);  // the partner pair hd / 2 away
+      const float p0 = __fadd_rn(f(0, r, c + d), p.x), p1 = __fadd_rn(f(0, r, c + d + 1), p.y);
+      const float2 cs = ds_fused::ldg2(cos_t + (size_t)m * half + k);
+      const float2 sn = ds_fused::ldg2(sin_t + (size_t)m * half + k);
+      if (j < half) {  // first half: a cos - b sin, b the partner
+        y0 = __fsub_rn(__fmul_rn(y0, cs.x), __fmul_rn(p0, sn.x));
+        y1 = __fsub_rn(__fmul_rn(y1, cs.y), __fmul_rn(p1, sn.y));
+      } else {  // second half: b cos + a sin, a the partner
+        y0 = __fadd_rn(__fmul_rn(y0, cs.x), __fmul_rn(p0, sn.x));
+        y1 = __fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(p1, sn.y));
       }
     }
-    out[(size_t)(m0 + m) * N + n] = __float2bfloat16(y);
+    ds_fused::st2(out + (size_t)m * N + n, y0, y1);
   }
-}
+};
 
 }  // namespace
 
-// The blocks of qkv_ln_kernel that the current device holds at once: SMs x
-// blocks per SM at this kernel's registers and shared memory.
-DS_EXPORT int resident_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qkv_ln_kernel, kThreads, 0);
-  *blocks = sms * per_sm;
-  return static_cast<int>(e);
-}
-
 // Device pointers; the caller checked shapes, types, contiguity, K % 4 == 0,
-// N % 4 == 0, 16-byte alignment and (with rot_cols > 0) 128 % hd == 0. ws holds
-// splits * M * N floats; arrivals one zeroed int per (column, row) tile,
-// left zeroed. Returns cudaGetLastError().
+// N % 4 == 0, 16-byte alignment and (with rot_cols > 0) 128 % hd == 0. xn
+// holds M * K bf16 (the normalized rows); ws the segment partials of a
+// split plan (segments * M * N floats; null when the plan has none); flags
+// one zeroed int a block tile of the mma.sync plans, left zeroed. bm and
+// splits: the plan (ops/decode_block.py::_plan). plant: a check of the
+// invariance gate, 0 on the main path. Returns the first launch error.
 DS_EXPORT int qkv_ln_launch(const void* x, const void* norms, const void* w, const void* scales,
                             const void* bias, const void* sin_t, const void* cos_t, void* out,
-                            void* ws, void* arrivals, int M, int K, int N, int G, int splits,
-                            int k_per_split, float eps, int rms, int rot_cols, int hd,
-                            void* stream) {
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kRows - 1) / kRows, splits);
-  qkv_ln_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(norms),
-      static_cast<const int8_t*>(w), static_cast<const float*>(scales),
-      static_cast<const float*>(bias), static_cast<const float*>(sin_t),
-      static_cast<const float*>(cos_t), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(ws), static_cast<int*>(arrivals), M, K, N, K / G, k_per_split, eps,
-      rms, rot_cols, hd);
-  return static_cast<int>(cudaGetLastError());
+                            void* xn, void* ws, void* flags, int M, int K, int N, int G, int bm, int splits,
+                            float eps, int rms, int rot_cols, int hd, int plant, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* nrm = static_cast<const float*>(norms);
+  if (const int rc = ds_fused::launch_norm(static_cast<const bf16*>(x), nrm, nrm + K,
+                                           static_cast<bf16*>(xn), M, K, eps, rms, s))
+    return rc + 30000;
+  const Operands op = ds_fused::make_ops(xn, w, scales, nullptr, nullptr, ws, flags, M, K, N, G);
+  const QkvEpi epi{static_cast<const float*>(bias), static_cast<const float*>(sin_t),
+                   static_cast<const float*>(cos_t), static_cast<bf16*>(out), N, rot_cols, hd};
+  return ds_qmm::run_product(op, epi, bm, splits, plant, s);
 }

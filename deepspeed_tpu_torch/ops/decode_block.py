@@ -1,4 +1,4 @@
-"""Fused single-token decode layer: kernel A, decode attention, kernel C.
+"""Fused decode layer: kernel A, decode attention, kernel C.
 
 Port of ``deepspeed_tpu/ops/pallas/decode_block.py`` (the TPU kernels
 ``_qkv_ln_kernel`` and ``_out_mlp_kernel``). A decode layer runs as
@@ -9,11 +9,24 @@ Port of ``deepspeed_tpu/ops/pallas/decode_block.py`` (the TPU kernels
     attention ``decode_attention`` over each row's ``[start, pos + 1)``
     kernel C  o-projection + bias + residual -> norm2 -> up (and gate)
               + bias + activation -> down + bias + residual
-              (``ops/csrc/fused_out_mlp.cu``, one cooperative launch)
+              (``ops/csrc/fused_out_mlp.cu``)
 
 in place of the per-projection path's ~8 kernels and ~20 small PyTorch ops
-per layer. The CUDA sources' headers say what bounds each kernel on the
-H100 and how its design answers that.
+per layer; the scheduler's decode, verify and chunk steps run kernels A and
+C on M = slots, slots x (1 + spec_tokens) and slots x chunk rows.
+
+What bounds the kernels on the H100: at decode the int8 weight bytes over
+3.35 TB/s; at the chunk step the products' operations over the 989 TFLOP/s
+of the bf16 tensor cores. Both are a norm pass (a row's normalized bf16
+values written once) and products on ``quant_matmul``'s tensor-core
+mainloops (``ops/csrc/qmm_core.cuh``: ``mma.sync`` at M <= 32, ``wgmma``
+with TMA-fed tiles at M > 32) with elementwise epilogues (bias, RoPE,
+residuals, activation), several launches issued by one C call. A row's
+bits never depend on M or on the launch plan (:func:`_plan`): every plan
+runs the same segment partials and the same ordered fma chain, so the
+scheduler's chunk, verify and decode steps give a row the same bits (K=1 ==
+K=4, radix hit == cold, spec 4 == 0 on the card). The CUDA sources' headers
+say more.
 
 Operand layouts are the JAX functions': ``norms`` is (4, H) fp32 with rows
 [norm1 scale, norm1 bias, norm2 scale, norm2 bias] (zero bias rows for
@@ -34,24 +47,34 @@ A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import build
 from .decode_attention import decode_attention
+from .quant_matmul import _split_plan as _narrow_splits
 from .quant_matmul import quant_matmul_plain
 
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("fused_qkv_ln", "fused_out_mlp")
 _libs = {}
-_arrivals = {}  # (kernel, device) -> zeroed int32 tile counters of the split-K reductions
-_resident = {}  # (kernel, device) -> blocks the device holds at once
+_flags = {}  # device -> zeroed int32 arrival counts of the mma.sync plans' block tiles
 
-# the kernels' tiling (ops/csrc/int8_stream.cuh): 8 rows x 128 columns per
-# work item, K split in whole 128-row staged chunks
-_ROWS, _COLS, _CHUNK = 8, 128, 128
-# activation codes of fused_out_mlp.cu
+# the products' tiling (ops/csrc/qmm_core.cuh): 128 columns a block, K in
+# segments of at most 128 rows inside a quantization group; mma.sync up to
+# 32 rows a block, wgmma on 64 or 128
+_COLS, _SEG, _NARROW_M = 128, 128, 32
+# the H100's SMs: a wgmma plan aims at one block an SM
+_SMS = 132
+# the most segment-partial workspace a wgmma plan may take to split K
+_WS_CAP = 16 << 20
+# a planted fault for the invariance gate's own check (chip_smoke.py's
+# block_invariance): when set, the wgmma path with the chain in registers
+# runs the chain over K's segments in reverse order. 0 on every other call.
+_plant = 0
+# activation codes of fused_layer.cuh
 _ACTS = {"gelu": 0, "gelu_exact": 1, "quick_gelu": 2, "silu": 3, "relu": 4}
 
 
@@ -59,56 +82,88 @@ def _lib(name):
     lib = _libs.get(name)
     if lib is None:
         lib = build.load(name)
-        lib.resident_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.resident_blocks.restype = ctypes.c_int
         if name == "fused_qkv_ln":
-            lib.qkv_ln_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                                          + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            lib.qkv_ln_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                                          + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
             lib.qkv_ln_launch.restype = ctypes.c_int
         else:
-            lib.out_mlp_launch.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 14
+            lib.out_mlp_launch.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 14
                                            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
             lib.out_mlp_launch.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
 
-def _counters(kernel, device, n):
-    """Zeroed int32 tile counters; each kernel leaves them zeroed."""
-    key = (kernel, device)
-    buf = _arrivals.get(key)
+def _flags_for(device, n):
+    """n zeroed int32 arrival counts on ``device``; the kernels leave them
+    zeroed (one call at a time on a device uses them)."""
+    buf = _flags.get(device)
     if buf is None or buf.numel() < n:
-        buf = _arrivals[key] = torch.zeros(n, dtype=torch.int32, device=device)
+        buf = _flags[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     return buf
 
 
-def _resident_blocks(name, device):
-    """SMs x blocks per SM of kernel ``name`` on ``device`` (the occupancy
-    query): the grid that fills the card in one wave, and for the
-    cooperative kernel C the largest grid it may launch."""
-    n = _resident.get((name, device))
-    if n is None:
-        lib = _lib(name)
-        c = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            build.check(lib, lib.resident_blocks(ctypes.byref(c)), f"{name} occupancy")
-        n = _resident[(name, device)] = c.value
-    return n
+def _tiles(M, N, plan):
+    """The block tiles of an mma.sync plan (one arrival count each)."""
+    bm = plan[0]
+    return 0 if bm > _NARROW_M else -(-M // bm) * -(-N // _COLS)
 
 
-def _split_plan(K, N, blocks):
-    """(splits, k_per_split): split K across blocks in whole staged chunks
-    so that one row tile's (column tiles x splits) stays within ``blocks``.
-    The plan depends on the weight's shape, never on the row count M: a
-    row's sums run in the same order whatever else is in the batch, so the
-    scheduler's chunk step (M = slots x chunk) and decode step (M = slots)
-    compute a row's token bitwise alike (its K- and slot-invariance on the
-    card). Beyond one row tile the work items outnumber the blocks and the
-    kernels loop over them."""
-    tiles = -(-N // _COLS)
-    splits = max(1, min(blocks // tiles, -(-K // _CHUNK)))
-    k_per = -(-K // (splits * _CHUNK)) * _CHUNK
-    return -(-K // k_per), k_per
+def _scratch(device, *sizes):
+    """One allocation carved into 256-byte aligned pieces of ``sizes`` bytes:
+    the pieces' addresses."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 256) * 256
+    buf = torch.empty((max(total, 1), ), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [base + o if n else None for o, n in zip(offs, sizes)]
+
+
+def _segments(K, G):
+    """K's segments: at most 128 rows, never across a quantization group."""
+    return G * -(-(K // G) // _SEG)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(M, K, N, G, passes=1):
+    """(bm, splits) of one product: bm rows of x a block (8, 16 or 32:
+    mma.sync; 64 or 128: wgmma) and the blocks K is split over (the segment
+    partials then go to a workspace and an ordered reduce runs the chain).
+
+    At M <= 32, and for a shape the wgmma path cannot take (N % 16, a group
+    size that is not a multiple of 128), mma.sync with ``quant_matmul``'s
+    M-free split plan. At M > 32, wgmma on the row tile (64 or 128) whose
+    waves of blocks take the least time (a 64-row block takes about two
+    thirds of a 128-row one: the weight tile costs it as much), and K split
+    where the tiles fill under half the SMs and the partials stay within
+    ``_WS_CAP``. A plan decides only where the segment partials are made:
+    every plan runs the same partials and the same chain, so a row's bits
+    never depend on it or on M (``ops/csrc/qmm_core.cuh``)."""
+    segs = _segments(K, G)
+    if M <= _NARROW_M or N % 16 or (K // G) % _SEG:
+        bm = 8 if M <= 8 else 16 if M <= 16 else _NARROW_M
+        return bm, _narrow_splits(K, N)
+    tiles_n = -(-N // _COLS)
+
+    def cost(bm):  # waves of blocks x a block's time, which halving bm cuts by a third
+        return -(-(-(-M // bm) * tiles_n) // _SMS) * (bm + 64)
+
+    bm = 128 if cost(128) <= cost(64) else 64
+    tiles = -(-M // bm) * tiles_n * passes
+    splits = 1
+    if 2 * tiles <= _SMS and passes * segs * M * N * 4 <= _WS_CAP:
+        per = -(-segs // min(segs, _SMS // tiles))
+        splits = -(-segs // per)
+    return bm, splits
+
+
+def _ws_floats(M, K, N, G, passes, plan):
+    """The segment-partial workspace a plan writes: every segment of every
+    pass, M x N floats each, unless the chain runs in registers."""
+    bm, splits = plan
+    return 0 if bm > _NARROW_M and splits == 1 else passes * _segments(K, G) * M * N
 
 
 # ---------------------------------------------------------------- plain parts
@@ -233,16 +288,17 @@ def fused_qkv_ln(x, norms, qkv, *, eps=1e-5, norm="layernorm", rope=None, impl="
     G, N = sc.shape
     if N % 4 or K % 4:
         raise ValueError(f"{what} kernel: H={K} and N={N} must be multiples of 4")
-    splits, k_per = _split_plan(K, N, _resident_blocks(what, dev))
-    tiles = -(-N // _COLS) * -(-M // _ROWS)
+    plan = _plan(M, K, N, G)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+    # the scratch allocation is held until the launches are queued
+    keep, (xn, ws) = _scratch(dev, M * K * 2, 4 * _ws_floats(M, K, N, G, 1, plan))
+    flags = _flags_for(dev, _tiles(M, N, plan))
     lib = _lib("fused_qkv_ln")
     rc = lib.qkv_ln_launch(x.data_ptr(), norms.data_ptr(), w.data_ptr(), sc.data_ptr(), b.data_ptr(),
                            None if sin is None else sin.data_ptr(),
-                           None if cos is None else cos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                           _counters(what, dev, tiles).data_ptr(), M, K, N, G, splits, k_per,
-                           float(eps), int(norm == "rmsnorm"), rot_cols, hd, build.stream_of(x))
+                           None if cos is None else cos.data_ptr(), out.data_ptr(), xn, ws,
+                           flags.data_ptr(), M, K, N, G, *plan, float(eps), int(norm == "rmsnorm"),
+                           rot_cols, hd, _plant, build.stream_of(x))
     build.check(lib, rc, what)
     fused_qkv_ln.launches += 1
     return out
@@ -313,29 +369,23 @@ def fused_out_mlp(attn2d, x, norms, o, up, down, *, activation="gelu", eps=1e-5,
     Ko, F_ = attn2d.shape[1], up[0].shape[1]
     if H % 4 or F_ % 4:
         raise ValueError(f"{what} kernel: H={H} and F={F_} must be multiples of 4")
-    lib = _lib(what)
-    blocks = _resident_blocks(what, dev)
-    so, ko = _split_plan(Ko, H, blocks)
-    su, ku = _split_plan(H, F_, blocks)
-    sd, kd = _split_plan(F_, H, blocks)
-    tiles_h, tiles_f = -(-H // _COLS) * -(-M // _ROWS), -(-F_ // _COLS) * -(-M // _ROWS)
-    arr = _counters(what, dev, 2 * tiles_h + tiles_f)
-    f32 = torch.float32
+    Go, Gu, Gd = o[1].shape[0], up[1].shape[0], down[1].shape[0]
+    passes = 1 if gate is None else 2
+    shapes = [(Ko, H, Go, 1), (H, F_, Gu, passes), (F_, H, Gd, 1)]
+    plans = [_plan(M, K, N, G, p) for K, N, G, p in shapes]
+    ws_n = max(_ws_floats(M, K, N, G, p, plan) for (K, N, G, p), plan in zip(shapes, plans))
     out = torch.empty((M, H), dtype=torch.bfloat16, device=dev)
-    res2 = torch.empty((M, H), dtype=f32, device=dev)
-    up_h = torch.empty((M, F_), dtype=torch.bfloat16, device=dev)
-    ws_o = torch.empty((so, M, H), dtype=f32, device=dev)
-    ws_u = torch.empty((su, M, F_), dtype=f32, device=dev)
-    ws_g = torch.empty((su, M, F_), dtype=f32, device=dev) if gate is not None else None
-    ws_d = torch.empty((sd, M, H), dtype=f32, device=dev)
+    # the scratch allocation is held until the launches are queued
+    keep, (res2, ln2, h, ws) = _scratch(dev, M * H * 4, M * H * 2, M * F_ * 2, ws_n * 4)
+    flags = _flags_for(dev, max(_tiles(M, N, plan) for (_, N, _, _), plan in zip(shapes, plans)))
     g = gate if gate is not None else (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _lib(what)
     rc = lib.out_mlp_launch(
         ptr(attn2d), ptr(x), ptr(norms), *[ptr(t) for t in o], *[ptr(t) for t in up],
-        *[ptr(t) for t in g], *[ptr(t) for t in down], ptr(out), ptr(res2), ptr(up_h), ptr(ws_o),
-        ptr(ws_u), ptr(ws_g), ptr(ws_d), ptr(arr), ptr(arr[tiles_h:]), ptr(arr[tiles_h + tiles_f:]),
-        M, H, F_, Ko, o[1].shape[0], up[1].shape[0], down[1].shape[0], so, ko, su, ku, sd, kd,
-        _ACTS[act], float(eps), int(norm == "rmsnorm"), blocks, build.stream_of(x))
+        *[ptr(t) for t in g], *[ptr(t) for t in down], ptr(out), res2, ln2, h, ws, ptr(flags),
+        M, H, F_, Ko, Go, Gu, Gd, *plans[0], *plans[1], *plans[2], _ACTS[act], float(eps),
+        int(norm == "rmsnorm"), _plant, build.stream_of(x))
     build.check(lib, rc, what)
     fused_out_mlp.launches += 1
     return out

@@ -81,14 +81,16 @@ def _assert_close(out, ref, dtype):
     np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
 
 
+# batches: a decode width, and one above 32 (the kernels' wgmma widths: the
+# scheduler's verify and chunk steps)
+@pytest.mark.parametrize("B", [3, 40])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(SHAPES))
-def test_fused_qkv_ln_plain_matches_jax(name, dtype):
+def test_fused_qkv_ln_plain_matches_jax(name, dtype, B):
     H, nh, nkv, hd, F, act, norm, rope, _ = SHAPES[name]
     jdt, tdt = DTYPES[dtype]
     norms, qkv = _layer(name, seed=1)[:2]
     rng = np.random.default_rng(2)
-    B = 3
     x = (rng.standard_normal((B, H)) * 2 + 0.5).astype(np.float32)
     jrope = trope = None
     if rope:
@@ -102,14 +104,14 @@ def test_fused_qkv_ln_plain_matches_jax(name, dtype):
     _assert_close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("B", [2, 40])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(SHAPES))
-def test_fused_out_mlp_plain_matches_jax(name, dtype):
+def test_fused_out_mlp_plain_matches_jax(name, dtype, B):
     H, nh, nkv, hd, F, act, norm, _, _ = SHAPES[name]
     jdt, tdt = DTYPES[dtype]
     norms, _, o, up, down, gate = _layer(name, seed=3)
     rng = np.random.default_rng(4)
-    B = 2
     attn = rng.standard_normal((B, nh * hd)).astype(np.float32)
     x = (rng.standard_normal((B, H)) * 4).astype(np.float32)
     ref = jdb.fused_out_mlp(jnp.asarray(attn, jdt), jnp.asarray(x, jdt), jnp.asarray(norms),
@@ -186,3 +188,71 @@ def test_shape_errors():
     with pytest.raises(ValueError, match="gate/up"):
         tdb.fused_out_mlp(torch.zeros(2, 256), x, norms, o, up, down, activation="swiglu",
                           gate=(gate[0], gate[1][:1].contiguous(), gate[2]))
+
+
+# ---------------------------------------------------------------- the kernels' launch plan
+# (the CUDA kernels run only on the card; their plan is Python and is held
+# here: where the segment partials are made, never how they are summed)
+
+# gpt2-large's and llama3-8b's layer products, (K, N, G, passes): qkv, o,
+# up (and gate: two passes), down
+LAYER_PRODUCTS = [(1280, 3840, 10, 1), (1280, 1280, 10, 1), (1280, 5120, 10, 1), (5120, 1280, 40, 1),
+                  (4096, 6144, 32, 1), (4096, 4096, 32, 1), (4096, 14336, 32, 2), (14336, 4096, 112, 1)]
+# the scheduler's widths: decode, verify (8 x 5), chunk steps, prefill
+PLAN_M = (1, 4, 8, 16, 32, 33, 40, 64, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("K,N,G,passes", LAYER_PRODUCTS)
+def test_plan_takes_mma_sync_to_32_rows_and_wgmma_above(K, N, G, passes):
+    """mma.sync with quant_matmul's M-free split plan at M <= 32 (8, 16 or
+    32 rows a block), wgmma on 64- or 128-row tiles above; K split only in
+    whole segments, none empty, and the wgmma splits' partials within the
+    workspace cap."""
+    from deepspeed_tpu_torch.ops.quant_matmul import _split_plan
+    segs = tdb._segments(K, G)
+    for M in PLAN_M:
+        bm, splits = tdb._plan(M, K, N, G, passes)
+        per = -(-segs // splits)
+        assert 1 <= splits <= segs and (splits - 1) * per < segs <= splits * per
+        if M <= 32:
+            assert bm == (8 if M <= 8 else 16 if M <= 16 else 32)
+            assert splits == _split_plan(K, N)
+        else:
+            assert bm in (64, 128)
+            if splits > 1:
+                assert passes * segs * M * N * 4 <= tdb._WS_CAP
+        ws = tdb._ws_floats(M, K, N, G, passes, (bm, splits))
+        assert ws == (0 if bm > 32 and splits == 1 else passes * segs * M * N)
+
+
+@pytest.mark.parametrize("K,N,G", [(200, 264, 1), (1152, 512, 2), (256, 200, 2), (320, 1024, 1)])
+def test_plan_keeps_mma_sync_for_shapes_wgmma_cannot_take(K, N, G):
+    """N % 16 (TMA's 16-byte rows) or a group size that is not a multiple of
+    128 (the ring's whole segments): mma.sync at every M, 32 rows a block
+    above 32 rows."""
+    for M in PLAN_M:
+        bm, splits = tdb._plan(M, K, N, G)
+        assert bm <= 32 and bm == (8 if M <= 8 else 16 if M <= 16 else 32)
+
+
+def test_segments_never_cross_a_group():
+    """K's segments: at most 128 rows inside a quantization group (a group
+    of 200 is two: 128 and 72)."""
+    assert tdb._segments(1280, 10) == 10
+    assert tdb._segments(200, 1) == 2
+    assert tdb._segments(1152, 3) == 9
+    assert tdb._segments(14336, 112) == 112
+
+
+def test_kernel_sources_share_the_quant_matmul_mainloops():
+    """Kernels A and C and quant_matmul build from one header of mainloops,
+    so an edit there rebuilds all three (the library name hashes every
+    csrc/ header a source includes)."""
+    import os
+
+    from deepspeed_tpu_torch.ops import build
+    for name in ("fused_qkv_ln", "fused_out_mlp", "quant_matmul"):
+        heads = {os.path.basename(p) for p in build.sources(name)}
+        assert {"qmm_core.cuh", "hopper.cuh", "int8_mma.cuh"} <= heads
+    for name in ("fused_qkv_ln", "fused_out_mlp"):
+        assert "fused_layer.cuh" in {os.path.basename(p) for p in build.sources(name)}

@@ -14,7 +14,10 @@ per-row and scalar ends, left-pad starts; for the fused decode layer, batches
 other than 8, G=1, contractions longer than 1024, gated and ungated MLPs,
 every activation, head dims 64 and 128 with and without RoPE, and a fully
 padded row; kernels A and C and the int8 head at the scheduler's chunk
-width (M = 8 slots x 64 columns = 512 rows, 2,560 up-projection tiles).
+width (M = 8 slots x 64 columns = 512 rows); kernels A and C's rows bitwise
+across M on every path of their plan (mma.sync, wgmma with K split, wgmma
+with the chain in registers), RoPE at hd 128 above 32 rows, C at the verify
+width M = 40, and shapes that keep mma.sync at every M.
 The paged modes: dead slots (ends 0), start > 0, bf16 and int8 KV, GQA up
 to g = 8, spans T of 1 to 100 (folded rows across several 64-row tiles),
 windows reaching the end of the cache; the fused slot-pool step through
@@ -920,9 +923,9 @@ def test_fused_qkv_ln_kernel_at_the_chunk_width(dev, rope):
 @pytest.mark.parametrize("M,H,F,act,norm,G", [(CHUNK_M, 1280, 5120, "gelu", "layernorm", (10, 10, 40)),
                                               (256, 4096, 14336, "swiglu", "rmsnorm", (32, 32, 112))])
 def test_fused_out_mlp_kernel_at_the_chunk_width(dev, M, H, F, act, norm, G):
-    """gpt2-large's chunk step: 2,560 (up) tiles of 8 rows x 128 columns,
-    more than the cooperative grid's resident blocks, so each block's tile
-    loop runs many rounds; llama3-8b's (4 slots x 64 columns)."""
+    """gpt2-large's chunk step (the wgmma path on 64-row tiles, 320 up
+    tiles: several waves); llama3-8b's (4 slots x 64 columns: up and gate
+    as two passes of one block, the first parked in shared memory)."""
     g = _gen(dev, M + F)
     attn = torch.randn((M, H), generator=g, device=dev).to(torch.bfloat16)
     x = (torch.randn((M, H), generator=g, device=dev) * 4).to(torch.bfloat16)
@@ -933,6 +936,95 @@ def test_fused_out_mlp_kernel_at_the_chunk_width(dev, M, H, F, act, norm, G):
     out = fused_out_mlp(attn, x, norms, o, up, down, **kw)
     torch.cuda.synchronize()
     _assert_close(out, fused_out_mlp_plain(attn, x, norms, o, up, down, **kw), f"out_mlp M={M} {act}")
+
+
+# kernels A and C on every path of their plan: mma.sync to 32 rows, wgmma
+# on 64-row tiles with K split over blocks (33-64 rows), wgmma with the
+# chain in registers on 64- or 128-row tiles above; the scheduler's decode,
+# verify and chunk steps need a row's bits to be the same on all of them
+BLOCK_M = (1, 8, 16, 32, 33, 40, 64, 200, 256)
+# (H, nh, nkv, hd, F, activation, norm, rope, groups (qkv, o, up, down))
+BLOCK_LAYERS = {"gpt2": (1280, 20, 20, 64, 5120, "gelu", "layernorm", False, (10, 10, 10, 40)),
+                "llama": (1024, 8, 2, 128, 3584, "swiglu", "rmsnorm", True, (8, 8, 8, 28)),
+                # N % 16 and a group of 192 rows: mma.sync at every M
+                "narrow": (384, 4, 2, 72, 904, "gelu", "layernorm", False, (2, 3, 2, 113))}
+
+
+def _block_operands(dev, name, M):
+    H, nh, nkv, hd, F, act, norm, rope, (gq, go, gu, gd) = BLOCK_LAYERS[name]
+    g = _gen(dev, H + F + M)
+    x = (torch.randn((M, H), generator=g, device=dev) * 2).to(torch.bfloat16)
+    attn = torch.randn((M, nh * hd), generator=g, device=dev).to(torch.bfloat16)
+    norms = _norms(g, dev, H, norm)
+    qkv = _proj(g, dev, H, (nh + 2 * nkv) * hd, gq)
+    o, up, down = _proj(g, dev, nh * hd, H, go), _proj(g, dev, H, F, gu), _proj(g, dev, F, H, gd)
+    gate = _proj(g, dev, H, F, gu) if act == "swiglu" else None
+    sin, cos = _rope(g, dev, M, hd)
+
+    def a(m, impl="kernel"):
+        r = (sin[:m].contiguous(), cos[:m].contiguous(), nh + nkv, hd) if rope else None
+        return fused_qkv_ln(x[:m], norms, qkv, norm=norm, rope=r, impl=impl)
+
+    def c(m, impl="kernel"):
+        return fused_out_mlp(attn[:m], x[:m], norms, o, up, down, activation=act, norm=norm, gate=gate,
+                             impl=impl)
+
+    return a, c
+
+
+@pytest.mark.parametrize("kernel", ["A", "C"])
+@pytest.mark.parametrize("name", sorted(BLOCK_LAYERS))
+def test_fused_kernels_rows_bitwise_across_m(dev, name, kernel):
+    """The rows of every M are bitwise the same rows at M = 256, and two
+    calls are bitwise equal; the largest M also matches the plain version."""
+    a, c = _block_operands(dev, name, max(BLOCK_M))
+    fn = a if kernel == "A" else c
+    full = fn(max(BLOCK_M))
+    assert torch.equal(fn(max(BLOCK_M)), full)
+    for m in BLOCK_M:
+        part = fn(m)
+        torch.cuda.synchronize()
+        diff = int((part != full[:m]).sum())
+        assert diff == 0, f"{kernel} {name}: rows of M={m} differ from M={max(BLOCK_M)} in {diff} entries"
+    _assert_close(full, fn(max(BLOCK_M), impl="plain"), f"{kernel} {name} M={max(BLOCK_M)}")
+
+
+@pytest.mark.parametrize("M", [33, 40, 256])
+def test_fused_qkv_ln_kernel_wide_with_rope_at_hd_128(dev, M):
+    """Above 32 rows (wgmma), RoPE at hd 128: a rotated pair spans the two
+    64-column warpgroups of a block and meets in its staged tile."""
+    a, _ = _block_operands(dev, "llama", M)
+    out = a(M)
+    torch.cuda.synchronize()
+    _assert_close(out, a(M, impl="plain"), f"qkv_ln llama M={M}")
+    ref = a(M, impl="plain").float()
+    rel = ((out.float() - ref).norm(dim=1) / ref.norm(dim=1)).max()
+    assert float(rel) <= ROW_REL_L2
+
+
+@pytest.mark.parametrize("name", ["gpt2", "llama"])
+def test_fused_out_mlp_kernel_at_the_verify_width(dev, name):
+    """M = 40 (8 slots x (1 + 4 drafts)): the first width on the wgmma path,
+    K split over blocks and the ordered reduce running the epilogues."""
+    _, c = _block_operands(dev, name, 40)
+    out = c(40)
+    torch.cuda.synchronize()
+    ref = c(40, impl="plain")
+    _assert_close(out, ref, f"out_mlp {name} M=40")
+    rel = ((out.float() - ref.float()).norm(dim=1) / ref.float().norm(dim=1)).max()
+    assert float(rel) <= ROW_REL_L2
+
+
+@pytest.mark.parametrize("M", [8, 40, 100])
+def test_fused_kernels_keep_mma_sync_where_wgmma_cannot_go(dev, M):
+    """N % 16 and a group size that is not a multiple of 128 (the wgmma
+    path's TMA rows and whole segments): mma.sync at every M, against the
+    plain versions."""
+    a, c = _block_operands(dev, "narrow", M)
+    for fn, what in ((a, "A"), (c, "C")):
+        out = fn(M)
+        torch.cuda.synchronize()
+        _assert_close(out, fn(M, impl="plain"), f"{what} narrow M={M}")
 
 
 @pytest.mark.parametrize("int8_kv", [False, True])
