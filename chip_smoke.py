@@ -100,8 +100,12 @@ Phases (any failure ends the run with a non-zero exit):
    unidirectional: exactly one forward, one dq and one dk/dv launch a call,
    two calls bitwise equal, one cached layout per sequence length, out and
    gradients within 2^-7 of max|plain| and 2e-3 relative L2 error
-   (``impl="plain"``), and a planted fault (one kv block dropped from one
-   q block's walk) failing that relative-L2 gate; the all-ones
+   (``impl="plain"``, on the same work plans); the forward and dk/dv on
+   their default plans (walks longer than the block size's chunk split over
+   CTAs and merged in piece order) against one-piece plans; two planted
+   faults failing that relative-L2 gate (one kv block dropped from one q
+   block's walk; one q block dropped from the second piece of a split
+   global column, which the merge sums); the all-ones
    causal layout against the dense flash kernels; the sparse
    forward+backward times beside dense flash's. The kernel phase holds the
    three kernels against their plain versions at gpt2-large's widths
@@ -1208,7 +1212,9 @@ def block_sparse_cases(torch, gen, dev, which):
         blk = cfg.block
         layout = cfg.make_layout(-(-T // blk) * blk)
         causal = getattr(cfg, "attention", "bidirectional") == "unidirectional"
-        q_idx, q_cnt, kv_idx, kv_cnt = make_block_sparse_attention(layout, blk, causal).tables(dev)
+        attn = make_block_sparse_attention(layout, blk, causal)
+        q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
+        fwd_plan, dkv_plan = attn.plans
         q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(4))
         mask = _visible(torch, layout, blk, T, causal, dev)
@@ -1218,15 +1224,21 @@ def block_sparse_cases(torch, gen, dev, which):
         kv_table_bytes = (int(kv_cnt.sum()) + kv_cnt.numel()) * 4
         desc = (f"{label} B={B} H={H} T={T} D={D} block={blk} density "
                 f"{pairs / (B * H * T * T):.3f}{' causal' if causal else ''}")
+        plan = fwd_plan if which == "fwd" else dkv_plan
+        if which != "dq":  # the plan's cuts and the workspace their partials take a call
+            ws = plan.workspace_floats(B, blk, D + 2 if which == "fwd" else 2 * D) * 4 / 2**20
+            desc += (f", {len(plan.items)} items, {len(plan.splits)} split rows, "
+                     f"workspace {ws:.2f} MiB")
         if which == "fwd":
             yield (desc,
-                   lambda a=(q, k, v, q_idx, q_cnt, blk, causal): block_sparse_fwd(*a),
-                   lambda a=(q, k, v, q_idx, q_cnt, blk, causal): block_sparse_attention_plain(*a),
+                   lambda a=(q, k, v, q_idx, q_cnt, blk, causal), p=plan: block_sparse_fwd(*a, plan=p),
+                   lambda a=(q, k, v, q_idx, q_cnt, blk, causal), p=plan: block_sparse_attention_plain(
+                       *a, plan=p),
                    lambda q=q, k=k, v=v, m=mask: F.scaled_dot_product_attention(q, k, v, attn_mask=m),
                    qkv_bytes + q.numel() * 2 + B * H * T * 4 + q_table_bytes,
                    4 * D * pairs)
             continue
-        out, lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, blk, causal)
+        out, lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, blk, causal, plan=fwd_plan)
         delta = (do.float() * out.float()).sum(-1)
         in_bytes = qkv_bytes + do.numel() * 2 + 2 * B * H * T * 4
         library = lambda q=q, k=k, v=v, do=do, m=mask: _fwd_bwd(
@@ -1238,8 +1250,8 @@ def block_sparse_cases(torch, gen, dev, which):
                    in_bytes + q.numel() * 2 + q_table_bytes, 6 * D * pairs)
         else:
             args = (q, k, v, do, lse, delta, kv_idx, kv_cnt, blk, causal)
-            yield (desc, lambda a=args: block_sparse_bwd_dkv(*a),
-                   lambda a=args: block_sparse_bwd_dkv_plain(*a), library,
+            yield (desc, lambda a=args, p=plan: block_sparse_bwd_dkv(*a, plan=p),
+                   lambda a=args, p=plan: block_sparse_bwd_dkv_plain(*a, plan=p), library,
                    in_bytes + 2 * k.numel() * 2 + kv_table_bytes, 8 * D * pairs)
 
 
@@ -1311,8 +1323,8 @@ KERNELS = [
 # against cuBLAS fp32)
 MICRO_TOL = {"qmm2": 2.0**-16, "qmm3": 2.0**-16, "qmm4": 0.0}
 # kernels whose two calls on the same inputs must agree bit for bit
-DETERMINISTIC = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_bwd_dq",
-                 "block_sparse_bwd_dkv")
+DETERMINISTIC = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
+                 "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 # kernels whose fp32 output (the lse) holds -inf where a row attends nothing:
 # there the kernel must give -inf too, and the finite entries are compared
 NEG_INF_OUTPUTS = ("block_sparse_fwd", )
@@ -1425,7 +1437,7 @@ def kernel_phase(torch, dev):
                     extra_rec["row_rel_l2_err"] = row_rel
                 case_err, case_ref = max(case_err, err), max(case_ref, ref_max)
             agg["max_abs_err"] = max(agg["max_abs_err"], case_err)
-            if name in DECODE_KERNELS:  # device memory a call takes beyond its inputs
+            if name in DECODE_KERNELS or name in SPARSE_KERNELS:  # memory a call takes beyond its inputs
                 extra_rec["call_mib"] = _call_mib(torch, kern)
             k_ms, p_ms, l_ms = cuda_ms(kern, flush), cuda_ms(plain, flush, 3), cuda_ms(library, flush)
             b_ms, b_by = bound_ms(nbytes, flops)
@@ -2937,12 +2949,31 @@ def _call_mib(torch, fn):
     return (torch.cuda.max_memory_allocated() - held) / 2**20
 
 
-def _close(torch, got, ref, what):
-    """Each of out, dq, dk, dv within 2^-7 of max|ref| (one bf16 ulp at the
-    largest magnitude) and within ``SPARSE_REL_L2`` relative L2 error,
-    finite."""
+def _split_head(plan, sid, rows):
+    """The head of split row ``sid`` of a WorkPlan."""
+    return int(plan.items[plan.items[:, 3] == sid][0, 0]) // rows
+
+
+def _dropped_block(plan, sid, piece):
+    """A copy of ``plan`` whose item ``piece`` of split row ``sid`` walks one
+    table position fewer (a planted fault of the merge)."""
+    import copy
+
+    import numpy as np
+    bad = copy.copy(plan)
+    bad.items = plan.items.copy()
+    i = int(np.nonzero((plan.items[:, 3] == sid) & (plan.items[:, 1] == piece * plan.chunk))[0][0])
+    bad.items[i, 2] -= 1
+    bad._dev, bad._flags = {}, {}
+    return bad
+
+
+def _close(torch, got, ref, what, tags=("out", "dq", "dk", "dv")):
+    """Each of out, dq, dk, dv (or ``tags``) within 2^-7 of max|ref| (one
+    bf16 ulp at the largest magnitude) and within ``SPARSE_REL_L2``
+    relative L2 error, finite."""
     errs = []
-    for tag, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
+    for tag, a, r in zip(tags, got, ref):
         err, tol = float((a.float() - r.float()).abs().max()), 2.0**-7 * float(r.float().abs().max())
         rel = _rel_l2(a, r)
         check(bool(torch.isfinite(a.float()).all()), f"{what} {tag}: non-finite entries")
@@ -2956,14 +2987,21 @@ def sparse_attention_phase(torch):
     """``SparseSelfAttention`` forward and backward through autograd for
     each of ``sparse_configs`` at gpt2-large's widths: launch counts exactly
     1 forward, 1 dq, 1 dk/dv a call; two calls bitwise equal; one cached
-    layout per sequence length; out and gradients against ``impl="plain"``.
-    Then the all-ones layout, causal, against the dense flash kernels, and
-    the sparse forward+backward times beside dense flash's (a figure, not a
-    gate). Returns the three kernels' launches over the checked calls."""
+    layout per sequence length; out and gradients against ``impl="plain"``
+    (on the same work plans). Then the forward and dk/dv on the default
+    plans, whose global rows and columns are split over CTAs, against
+    one-piece plans, with each call's device memory; two planted faults
+    that the relative-L2 gate must catch (a kv block dropped from a q
+    block's count; a q block dropped from the second piece of a split
+    column, which the merge sums); the all-ones layout, causal, against the
+    dense flash kernels; and the sparse forward+backward times beside dense
+    flash's (a figure, not a gate). Returns the three kernels' launches over
+    the checked calls."""
     import numpy as np
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention
     from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention, make_block_sparse_attention
-    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import block_sparse_fwd
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
+        WorkPlan, block_sparse_bwd_dkv, block_sparse_fwd)
     B, H, T, D = SPARSE_SHAPE
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -2994,21 +3032,63 @@ def sparse_attention_phase(torch):
             f"kv blocks a q block min/median/max {int(cnt.min())}/{int(np.median(cnt))}/{int(cnt.max())}; "
             f"kernels vs plain: {errs}")
         fns[label] = ssa
+    # the plans' cut walks against one piece a row: the forward and dk/dv
+    # kernels on the default plans (split global rows and columns, merged in
+    # piece order) within the gates of the one-piece plans' outputs
+    for label in ("Fixed uni", "BigBird"):
+        attn = fns[label]._cache[T]
+        q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
+        whole = (WorkPlan(attn.np_tables[1]), WorkPlan(attn.np_tables[3]))
+        got, ref = [], []
+        for plans, res in ((attn.plans, got), (whole, ref)):
+            out, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal, plan=plans[0])
+            delta = (do.float() * out.float()).sum(-1)
+            res += [out, *block_sparse_bwd_dkv(q, k, v, do, lse, delta, kv_idx, kv_cnt, SPARSE_BLOCK,
+                                               attn.causal, plan=plans[1])]
+        errs = _close(torch, got, ref, f"sparse {label} split vs one-piece plans", ("out", "dk", "dv"))
+        mib = [_call_mib(torch, lambda: block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal,
+                                                         plan=attn.plans[0])),
+               _call_mib(torch, lambda: block_sparse_bwd_dkv(q, k, v, do, lse, delta, kv_idx, kv_cnt,
+                                                             SPARSE_BLOCK, attn.causal, plan=attn.plans[1]))]
+        ws = [attn.plans[0].workspace_floats(B, SPARSE_BLOCK, D + 2) * 4 / 2**20,
+              attn.plans[1].workspace_floats(B, SPARSE_BLOCK, 2 * D) * 4 / 2**20]
+        log(f"sparse {label}: {len(attn.plans[0].splits)} split rows, {len(attn.plans[1].splits)} split "
+            f"columns; a call's MiB (outputs and workspace) forward {mib[0]:.2f} (workspace {ws[0]:.2f}), "
+            f"dk/dv {mib[1]:.2f} (workspace {ws[1]:.2f}); cut walks vs one piece a row: {errs}")
     # planted fault: the forward kernel with one kv block dropped from the
-    # walk of one q block (head 0, the median count of Fixed uni, causal)
-    # must fail the relative-L2 gate on its own
+    # walk of one q block (head 0, the median count of Fixed uni, causal:
+    # the count the plan is built from) must fail the relative-L2 gate on
+    # its own
     attn = fns["Fixed uni"]._cache[T]
-    q_idx, q_cnt = attn.tables(dev)[:2]
+    q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
     row = int(torch.argsort(q_cnt[0], stable=True)[q_cnt.shape[1] // 2])
     cut = q_cnt.clone()
     cut[0, row] -= 1
-    good = block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal)[0]
+    good, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal, plan=attn.plans[0])
     bad = block_sparse_fwd(q, k, v, q_idx, cut, SPARSE_BLOCK, attn.causal)[0]
     rel = _rel_l2(bad, good)
     log(f"sparse planted fault, Fixed uni head 0 q block {row} walks {int(cut[0, row])} of its "
         f"{int(q_cnt[0, row])} kv blocks: rel L2 {rel:.3e} (gate {SPARSE_REL_L2:g}), max abs "
         f"{float((bad.float() - good.float()).abs().max()):.3e}")
     check(rel > SPARSE_REL_L2, f"sparse planted fault: rel L2 {rel:.3e} passes the {SPARSE_REL_L2:g} gate")
+    # planted fault of the merge: dk/dv with one q block dropped from the
+    # second piece of the split global column of head 0 with the most pieces
+    # (Fixed uni) must fail the gate too
+    plan = attn.plans[1]
+    sid = max((i for i in range(len(plan.splits)) if _split_head(plan, i, kv_idx.shape[1]) == 0),
+              key=lambda i: int(plan.splits[i, 1]))
+    bad_plan = _dropped_block(plan, sid, piece=1)
+    delta = (do.float() * good.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, kv_idx, kv_cnt, SPARSE_BLOCK, attn.causal)
+    ok = block_sparse_bwd_dkv(*args, plan=plan)
+    faulty = block_sparse_bwd_dkv(*args, plan=bad_plan)
+    rels = [_rel_l2(b, g) for b, g in zip(faulty, ok)]
+    col = int(plan.items[plan.items[:, 3] == sid][0, 0]) % kv_idx.shape[1]
+    log(f"sparse planted fault, Fixed uni head 0 kv block {col} ({int(plan.splits[sid, 1])} pieces of its "
+        f"{int(kv_cnt[0, col])} q blocks), one q block dropped from piece 1: rel L2 dk {rels[0]:.3e}, "
+        f"dv {rels[1]:.3e} (gate {SPARSE_REL_L2:g})")
+    check(max(rels) > SPARSE_REL_L2,
+          f"sparse dk/dv planted fault: rel L2 {max(rels):.3e} passes the {SPARSE_REL_L2:g} gate")
     nb = T // SPARSE_BLOCK
     dense = make_block_sparse_attention(np.ones((H, nb, nb), np.int64), SPARSE_BLOCK, causal=True)
     flash = lambda a, b, c: flash_attention(a, b, c, causal=True)

@@ -78,7 +78,6 @@
 namespace {
 
 using ds_mma::bf16;
-using ds_mma::pack_bf16;
 using namespace ds_hopper;
 
 constexpr int kBox = 64;            // bf16 columns a TMA box: one 128-byte swizzled row
@@ -93,58 +92,6 @@ __device__ __forceinline__ float ex2(float x) {
 
 // lse in log2 units; -inf (the row attended nothing) reads as 0
 __device__ __forceinline__ float lse_log2(float l) { return isfinite(l) ? l * kLog2e : 0.f; }
-
-// d (64 x 64) = A (64 rows x D) B^T (B: 64 rows x D), both K-major in
-// 64-column blocks of the 128-byte swizzle, a_block and b_block bytes apart
-template <int D>
-__device__ __forceinline__ void mma_nt(float (&d)[32], const uint8_t* a, int a_block, const uint8_t* b,
-                                       int b_block) {
-#pragma unroll
-  for (int t = 0; t < D / 16; ++t) {  // a k16 step is 32 bytes along the swizzled row
-    const int c = t / 4, k32 = (t % 4) * 32;
-    wgmma_ss_m64n64(d, sw128_desc(a + c * a_block + k32), sw128_desc(b + c * b_block + k32), t > 0);
-  }
-}
-
-// d (64 x D) += A (64 x 16 KC, bf16 fragments) B (16 KC rows x D: the rows
-// are the contraction, read MN-major; 64-column blocks b_block bytes apart)
-template <int D, int KC>
-__device__ __forceinline__ void mma_rn(float (&d)[D / 2], const uint32_t (&a)[KC][4], const uint8_t* b,
-                                       int b_block) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc)  // a k16 step is 16 rows, 2048 bytes
-    wgmma_rs_mn<D>(d, a[kc], sw128_mn_desc(b + kc * 16 * 128, b_block), 1);
-}
-
-// a 64 x N accumulator as A fragments, 16 columns each: n8 tiles 2kc and
-// 2kc + 1 (the bf16 rounding point)
-template <int N>
-__device__ __forceinline__ void to_frags(uint32_t (&f)[N / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kc = 0; kc < N / 16; ++kc) {
-    f[kc][0] = pack_bf16(x[8 * kc], x[8 * kc + 1]);
-    f[kc][1] = pack_bf16(x[8 * kc + 2], x[8 * kc + 3]);
-    f[kc][2] = pack_bf16(x[8 * kc + 4], x[8 * kc + 5]);
-    f[kc][3] = pack_bf16(x[8 * kc + 6], x[8 * kc + 7]);
-  }
-}
-
-// accumulator 4i..4i+3 is n8 tile i: (row_lo, 8i + col2 + {0, 1}), (row_lo +
-// 8, ...); rows below `rows` are written as bf16 rows of a (rows, D) matrix
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&x)[D / 2], int row_lo, int rows,
-                                          int col2) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row_lo + 8 * h;
-    if (row < rows) {
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + 8 * i + col2) =
-            __floats2bfloat162_rn(x[4 * i + 2 * h], x[4 * i + 2 * h + 1]);
-    }
-  }
-}
 
 // work item n of this CTA: items are numbered heaviest first and dealt to
 // the CTAs in a snake (forward on even rounds, backward on odd), so the

@@ -1,7 +1,9 @@
 // Hopper's asynchronous pieces, shared by the kernels that use them
-// (quant_matmul.cu's wide path, flash_attention_fwd.cu and _bwd.cu): wgmma
-// (fence, commit, wait; m64nNk16 with both operands in shared memory, N =
-// 64 or 128, and with A from registers and B K-major or MN-major), the
+// (quant_matmul.cu's wide path, flash_attention_fwd.cu and _bwd.cu, the
+// block-sparse forward and dk/dv kernels): wgmma (fence, commit, wait;
+// m64nNk16 with both operands in shared memory, N = 64 or 128, and with A
+// from registers and B K-major or MN-major; the products of the flash
+// backward, mma_nt and mma_rn, and its accumulator helpers), the
 // descriptors of the 128-byte swizzled layouts that TMA writes, setmaxnreg,
 // the mbarriers of a producer/consumer ring, and TMA loads of 2D and 3D
 // tensor maps with the host-side encoder.
@@ -157,6 +159,64 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&
     wgmma_rs_m64n128<1>(d, a, b, scale_d);
   else
     wgmma_rs_m64n64<1>(d, a, b, scale_d);
+}
+
+// d (64 x N) = A (64 rows x D) B^T (B: N rows x D), both K-major in
+// 64-column blocks of the 128-byte swizzle, a_block and b_block bytes
+// apart; N = 64 or 128
+template <int D, int N = 64>
+__device__ __forceinline__ void mma_nt(float (&d)[N / 2], const uint8_t* a, int a_block, const uint8_t* b,
+                                       int b_block) {
+  static_assert(N == 64 || N == 128, "mma_nt: N is 64 or 128");
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t) {  // a k16 step is 32 bytes along the swizzled row
+    const int c = t / 4, k32 = (t % 4) * 32;
+    if constexpr (N == 128)
+      wgmma_ss_m64n128(d, sw128_desc(a + c * a_block + k32), sw128_desc(b + c * b_block + k32), t > 0);
+    else
+      wgmma_ss_m64n64(d, sw128_desc(a + c * a_block + k32), sw128_desc(b + c * b_block + k32), t > 0);
+  }
+}
+
+// d (64 x D) += A (64 x 16 KC, bf16 fragments) B (16 KC rows x D: the rows
+// are the contraction, read MN-major; 64-column blocks b_block bytes apart)
+template <int D, int KC>
+__device__ __forceinline__ void mma_rn(float (&d)[D / 2], const uint32_t (&a)[KC][4], const uint8_t* b,
+                                       int b_block) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)  // a k16 step is 16 rows, 2048 bytes
+    wgmma_rs_mn<D>(d, a[kc], sw128_mn_desc(b + kc * 16 * 128, b_block), 1);
+}
+
+// a 64 x N accumulator (or mma.sync's 16 x N, the same per-lane layout) as
+// A fragments, 16 columns each: n8 tiles 2kc and 2kc + 1 (the bf16
+// rounding point)
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&f)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+    f[kc][0] = ds_mma::pack_bf16(x[8 * kc], x[8 * kc + 1]);
+    f[kc][1] = ds_mma::pack_bf16(x[8 * kc + 2], x[8 * kc + 3]);
+    f[kc][2] = ds_mma::pack_bf16(x[8 * kc + 4], x[8 * kc + 5]);
+    f[kc][3] = ds_mma::pack_bf16(x[8 * kc + 6], x[8 * kc + 7]);
+  }
+}
+
+// accumulator 4i..4i+3 is n8 tile i: (row_lo, 8i + col2 + {0, 1}), (row_lo +
+// 8, ...); rows below `rows` are written as bf16 rows of a (rows, D) matrix
+template <int D>
+__device__ __forceinline__ void store_acc(ds_mma::bf16* dst, const float (&x)[D / 2], int row_lo, int rows,
+                                          int col2) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row < rows) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + 8 * i + col2) =
+            __floats2bfloat162_rn(x[4 * i + 2 * h], x[4 * i + 2 * h + 1]);
+    }
+  }
 }
 
 // moves registers between the warpgroups of a CTA: every warp of the

@@ -33,8 +33,11 @@ rows, across every tile edge, at gpt2-large's and llama3-8b's projection and hea
 block-sparse kernels (forward, dq, dk/dv) at blocks 16/32/64/128 and head
 dims 64/128, causal or not, on a layout with blocks above the diagonal, an
 empty q row, a kv block no query reads and a row that reads only the
-future; a ragged T; different layouts per head; bitwise-equal backward
-repeats; autograd through ``SparseSelfAttention``; and the ValueErrors for
+future, also with the forward's and dk/dv's walks cut every 2 table
+positions (split over CTAs and merged); a ragged T, also cut every 3;
+rows and columns of exactly CHUNK and CHUNK + 1 blocks, and the split plan
+against the one-piece plan; different layouts per head; bitwise-equal
+repeats of all three kernels; autograd through ``SparseSelfAttention``; and the ValueErrors for
 what the kernels do not take (fp32, head dim 96, block 48, tables off the
 card).
 ``chip_smoke.py`` covers the main path's shapes; this file covers the rest.
@@ -1291,21 +1294,29 @@ def _edge_layout(H, nb, seed):
     return layout
 
 
-def _check_sparse_kernels(dev, layout, block, B, T, D, causal, seed):
+def _check_sparse_kernels(dev, layout, block, B, T, D, causal, seed, chunk="default"):
     """Each of the three kernels against its plain version (the backward
-    kernels on the plain forward's out and lse), and the backward kernels
-    bitwise equal on two calls. Returns the kernels' (out, lse, dq, dk, dv)."""
+    kernels on the plain forward's out and lse), the forward and dk/dv on
+    the work plans of ``chunk`` ("default": the block size's ``CHUNK``; an
+    int cuts the walks there), all three bitwise equal on two calls.
+    Returns the kernels' (out, lse, dq, dk, dv)."""
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
-        block_sparse_attention_plain, block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain,
-        block_sparse_bwd_dq, block_sparse_bwd_dq_plain, block_sparse_fwd, make_block_sparse_attention)
+        CHUNK, WorkPlan, block_sparse_attention_plain, block_sparse_bwd_dkv,
+        block_sparse_bwd_dkv_plain, block_sparse_bwd_dq, block_sparse_bwd_dq_plain, block_sparse_fwd,
+        make_block_sparse_attention)
     q, k, v, do = _sparse_inputs(dev, B, layout.shape[0], T, D, seed)
-    q_idx, q_cnt, kv_idx, kv_cnt = make_block_sparse_attention(layout, block, causal).tables(dev)
-    what = f"block {block} D {D} T {T} causal {causal}"
+    attn = make_block_sparse_attention(layout, block, causal)
+    q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
+    c = CHUNK[block] if chunk == "default" else chunk
+    fwd_plan, dkv_plan = WorkPlan(attn.np_tables[1], c), WorkPlan(attn.np_tables[3], c)
+    what = f"block {block} D {D} T {T} causal {causal} chunk {c}"
     before = block_sparse_fwd.launches
-    out, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, block, causal)
+    out, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, block, causal, plan=fwd_plan)
     assert block_sparse_fwd.launches == before + 1
+    out2, lse2 = block_sparse_fwd(q, k, v, q_idx, q_cnt, block, causal, plan=fwd_plan)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse), f"fwd repeat, {what}"
     torch.cuda.synchronize()
-    ref_out, ref_lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, block, causal)
+    ref_out, ref_lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, block, causal, plan=fwd_plan)
     _assert_close(out, ref_out, f"fwd out, {what}")
     _assert_close(lse, ref_lse, f"fwd lse, {what}")
     delta = (do.float() * ref_out.float()).sum(-1)
@@ -1315,28 +1326,31 @@ def _check_sparse_kernels(dev, layout, block, B, T, D, causal, seed):
     torch.cuda.synchronize()
     _assert_close(dq, block_sparse_bwd_dq_plain(*dq_args), f"dq, {what}")
     dkv_args = (q, k, v, do, ref_lse, delta, kv_idx, kv_cnt, block, causal)
-    dk, dv = block_sparse_bwd_dkv(*dkv_args)
-    dk2, dv2 = block_sparse_bwd_dkv(*dkv_args)
+    dk, dv = block_sparse_bwd_dkv(*dkv_args, plan=dkv_plan)
+    dk2, dv2 = block_sparse_bwd_dkv(*dkv_args, plan=dkv_plan)
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv), f"dk/dv repeat, {what}"
     torch.cuda.synchronize()
-    ref_dk, ref_dv = block_sparse_bwd_dkv_plain(*dkv_args)
+    ref_dk, ref_dv = block_sparse_bwd_dkv_plain(*dkv_args, plan=dkv_plan)
     _assert_close(dk, ref_dk, f"dk, {what}")
     _assert_close(dv, ref_dv, f"dv, {what}")
     return out, lse, dq, dk, dv
 
 
+@pytest.mark.parametrize("chunk", ["default", 2])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
-def test_block_sparse_kernels_match_plain(dev, block, D, causal):
+def test_block_sparse_kernels_match_plain(dev, block, D, causal, chunk):
     """Every block size and head dim, on a layout with blocks above the
     diagonal, an empty q row, an empty kv column and a row that reads only
     the future: those rows give out 0, lse -inf (the empty row always, the
-    future-only row under causal) and dq 0, the unread block dk = dv = 0."""
+    future-only row under causal) and dq 0, the unread block dk = dv = 0.
+    With the walks cut every 2 table positions, every row and column of more
+    than 2 blocks is split over CTAs and merged."""
     nb = 6
     layout = _edge_layout(3, nb, block + D)
     out, lse, dq, dk, dv = _check_sparse_kernels(dev, layout, block, 2, nb * block, D, causal,
-                                                 block * D + causal)
+                                                 block * D + causal, chunk)
     empty = slice(block, 2 * block)
     assert not out[:, :, empty].any() and torch.isneginf(lse[:, :, empty]).all()
     assert not dq[:, :, empty].any()
@@ -1346,17 +1360,59 @@ def test_block_sparse_kernels_match_plain(dev, block, D, causal):
     assert not dk[:, :, unread].any() and not dv[:, :, unread].any()
 
 
+@pytest.mark.parametrize("chunk", ["default", 3])
 @pytest.mark.parametrize("block,D", [(16, 128), (64, 64), (128, 64)])
-def test_block_sparse_kernels_ragged_tail(dev, block, D):
+def test_block_sparse_kernels_ragged_tail(dev, block, D, chunk):
     """T short of the layout's capacity by part of a block (and, at block
     16, by more than a block): key columns past T are masked in all three
-    kernels, query rows past T in dk/dv."""
+    kernels, query rows past T in dk/dv; also with the walks cut every 3
+    positions (a split global column whose last piece holds the ragged q
+    block)."""
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
     nb = 8
     layout = FixedSparsityConfig(2, block=block, num_local_blocks=2,
                                  attention="unidirectional").make_layout(nb * block)
     T = nb * block - (block + 5 if block == 16 else block // 2 + 3)
-    _check_sparse_kernels(dev, layout, block, 2, T, D, True, T)
+    _check_sparse_kernels(dev, layout, block, 2, T, D, True, T, chunk)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_block_sparse_walks_of_chunk_and_chunk_plus_one(dev, block, D):
+    """At the block size's own CHUNK: a row and a column of exactly CHUNK
+    blocks (one piece) and of CHUNK + 1 (two pieces, the second of one
+    block), non-causal and causal; then the split plan against the
+    one-piece plan, within the same gates as the plain version."""
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
+        CHUNK, WorkPlan, block_sparse_bwd_dkv, block_sparse_fwd, make_block_sparse_attention)
+    c = CHUNK[block]
+    nb = c + 2
+    layout = np.zeros((2, nb, nb), np.int64)
+    layout[:, np.arange(nb), np.arange(nb)] = 1
+    layout[0, nb - 2, 1:c + 1] = 1  # head 0: q block nb - 2 walks c kv blocks, nb - 1 walks c + 1
+    layout[0, nb - 1, 1:c + 2] = 1
+    layout[1, :c, 0] = 1  # head 1: kv block 0 is read by c q blocks, kv block 1 by c + 1
+    layout[1, 1:c + 2, 1] = 1
+    assert layout[0, nb - 2].sum() == c and layout[0, nb - 1].sum() == c + 1
+    assert layout[1, :, 0].sum() == c and layout[1, :, 1].sum() == c + 1
+    for causal in (False, True):
+        attn = make_block_sparse_attention(layout, block, causal)
+        plans = attn.plans
+        assert sorted(int(n) for n in plans[0].items[:, 2])[-2:] == [c, c]
+        assert len(plans[0].splits) == 1 and len(plans[1].splits) == 1
+        out, lse, dq, dk, dv = _check_sparse_kernels(dev, layout, block, 2, nb * block, D, causal,
+                                                     block + D + causal)
+        q, k, v, do = _sparse_inputs(dev, 2, 2, nb * block, D, block + D + causal)
+        q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
+        whole = (WorkPlan(attn.np_tables[1]), WorkPlan(attn.np_tables[3]))
+        w_out, w_lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, block, causal, plan=whole[0])
+        _assert_close(out, w_out, f"split vs one-piece out, block {block} D {D} causal {causal}")
+        _assert_close(lse, w_lse, f"split vs one-piece lse, block {block} D {D} causal {causal}")
+        delta = (do.float() * w_out.float()).sum(-1)
+        args = (q, k, v, do, w_lse, delta, kv_idx, kv_cnt, block, causal)
+        split = block_sparse_bwd_dkv(*args, plan=plans[1])
+        for tag, a, b in zip(("dk", "dv"), split, block_sparse_bwd_dkv(*args, plan=whole[1])):
+            _assert_close(a, b, f"split vs one-piece {tag}, block {block} D {D} causal {causal}")
 
 
 def test_block_sparse_kernels_different_layout_per_head(dev):
