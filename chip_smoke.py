@@ -99,13 +99,15 @@ Phases (any failure ends the run with a non-zero exit):
    ``SparsityConfig`` at its defaults (Fixed unidirectional) and BigBird
    unidirectional: exactly one forward, one dq and one dk/dv launch a call,
    two calls bitwise equal, one cached layout per sequence length, out and
-   gradients within 2^-7 of max|plain| and 2e-3 relative L2 error
-   (``impl="plain"``, on the same work plans); the forward and dk/dv on
-   their default plans (walks longer than the block size's chunk split over
-   CTAs and merged in piece order) against one-piece plans; two planted
-   faults failing that relative-L2 gate (one kv block dropped from one q
-   block's walk; one q block dropped from the second piece of a split
-   global column, which the merge sums); the all-ones
+   gradients within 2^-7 of max|plain| and 2e-3 relative L2 error, dq's
+   rows also within 2^-6 (``impl="plain"``, on the same work plans); the
+   three kernels on their default plans (walks longer than the block
+   size's chunk split over CTAs and merged in piece order; dq on the
+   forward's) against one-piece plans; three planted faults failing those
+   relative-L2 gates (one kv block dropped from one q block's walk; one q
+   block dropped from the second piece of a split global column, which the
+   dk/dv merge sums; one kv block dropped from the second piece of a split
+   global row, which the dq merge sums); the all-ones
    causal layout against the dense flash kernels; the sparse
    forward+backward times beside dense flash's. The kernel phase holds the
    three kernels against their plain versions at gpt2-large's widths
@@ -1224,11 +1226,10 @@ def block_sparse_cases(torch, gen, dev, which):
         kv_table_bytes = (int(kv_cnt.sum()) + kv_cnt.numel()) * 4
         desc = (f"{label} B={B} H={H} T={T} D={D} block={blk} density "
                 f"{pairs / (B * H * T * T):.3f}{' causal' if causal else ''}")
-        plan = fwd_plan if which == "fwd" else dkv_plan
-        if which != "dq":  # the plan's cuts and the workspace their partials take a call
-            ws = plan.workspace_floats(B, blk, D + 2 if which == "fwd" else 2 * D) * 4 / 2**20
-            desc += (f", {len(plan.items)} items, {len(plan.splits)} split rows, "
-                     f"workspace {ws:.2f} MiB")
+        plan = dkv_plan if which == "dkv" else fwd_plan  # dq walks the forward's plan
+        # the plan's cuts and the workspace their partials take a call
+        ws = plan.workspace_floats(B, blk, {"fwd": D + 2, "dq": D, "dkv": 2 * D}[which]) * 4 / 2**20
+        desc += f", {len(plan.items)} items, {len(plan.splits)} split rows, workspace {ws:.2f} MiB"
         if which == "fwd":
             yield (desc,
                    lambda a=(q, k, v, q_idx, q_cnt, blk, causal), p=plan: block_sparse_fwd(*a, plan=p),
@@ -1245,8 +1246,8 @@ def block_sparse_cases(torch, gen, dev, which):
             torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=m), q, k, v, do)
         if which == "dq":
             args = (q, k, v, do, lse, delta, q_idx, q_cnt, blk, causal)
-            yield (desc, lambda a=args: block_sparse_bwd_dq(*a),
-                   lambda a=args: block_sparse_bwd_dq_plain(*a), library,
+            yield (desc, lambda a=args, p=plan: block_sparse_bwd_dq(*a, plan=p),
+                   lambda a=args, p=plan: block_sparse_bwd_dq_plain(*a, plan=p), library,
                    in_bytes + q.numel() * 2 + q_table_bytes, 6 * D * pairs)
         else:
             args = (q, k, v, do, lse, delta, kv_idx, kv_cnt, blk, causal)
@@ -1362,9 +1363,14 @@ FLASH_ROW_REL_L2 = 2.0**-6
 # norms, whichever is larger (``_bwd_row_rel_l2``).
 # ``flash_bwd_planted_faults`` plants three faults of the walks and requires
 # this gate to catch each; the limits lie between the readings (PERF.md).
+# The block-sparse dq rows are held to it too: a global row that lost one
+# of its 64 kv blocks in the split walks' merge moves the whole dq by only
+# ~1.2e-3 relative L2, under SPARSE_REL_L2 (the global rows' dq is a small
+# share of the whole); ``sparse_attention_phase`` plants that fault.
 FLASH_BWD_ROW_REL_L2 = 2.0**-6
 FLASH_BWD_ROW_FLOOR = 2.0**-4
 FLASH_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+ROW_GATED_BWD = FLASH_BWD_KERNELS + ("block_sparse_bwd_dq", )
 
 
 def kernel_phase(torch, dev):
@@ -1415,9 +1421,9 @@ def kernel_phase(torch, dev):
                     check(row_rel <= FLASH_ROW_REL_L2, f"{name} [{label}]: a row's rel L2 err "
                           f"{row_rel:.3e} > {FLASH_ROW_REL_L2:g}")
                     extra_rec["row_rel_l2_err"] = row_rel
-                if name in FLASH_BWD_KERNELS:
+                if name in ROW_GATED_BWD:
                     row_rel = _bwd_row_rel_l2(torch, o, r)
-                    tag = "dq" if name == "flash_bwd_dq" else ("dk", "dv")[i]
+                    tag = ("dk", "dv")[i] if name == "flash_bwd_dkv" else "dq"
                     log(f"  {name} [{label}] {tag}: row rel L2 {row_rel:.3e} (gate {FLASH_BWD_ROW_REL_L2:g}; "
                         f"without the floor {_row_rel_l2(torch, o, r):.3e})")
                     check(row_rel <= FLASH_BWD_ROW_REL_L2, f"{name} [{label}] {tag}: a row's rel L2 err "
@@ -2971,7 +2977,8 @@ def _dropped_block(plan, sid, piece):
 def _close(torch, got, ref, what, tags=("out", "dq", "dk", "dv")):
     """Each of out, dq, dk, dv (or ``tags``) within 2^-7 of max|ref| (one
     bf16 ulp at the largest magnitude) and within ``SPARSE_REL_L2``
-    relative L2 error, finite."""
+    relative L2 error, finite; dq's rows also within
+    ``FLASH_BWD_ROW_REL_L2`` (``_bwd_row_rel_l2``)."""
     errs = []
     for tag, a, r in zip(tags, got, ref):
         err, tol = float((a.float() - r.float()).abs().max()), 2.0**-7 * float(r.float().abs().max())
@@ -2980,6 +2987,11 @@ def _close(torch, got, ref, what, tags=("out", "dq", "dk", "dv")):
         check(err <= tol, f"{what} {tag}: max abs err {err:.3e} > {tol:.3e}")
         check(rel <= SPARSE_REL_L2, f"{what} {tag}: rel L2 err {rel:.3e} > {SPARSE_REL_L2:g}")
         errs.append(f"{tag} {err:.2e}/{tol:.2e} rel L2 {rel:.2e}")
+        if tag == "dq":
+            row = _bwd_row_rel_l2(torch, a, r)
+            check(row <= FLASH_BWD_ROW_REL_L2,
+                  f"{what} dq: a row's rel L2 err {row:.3e} > {FLASH_BWD_ROW_REL_L2:g}")
+            errs[-1] += f" row {row:.2e}"
     return ", ".join(errs)
 
 
@@ -2988,12 +3000,13 @@ def sparse_attention_phase(torch):
     each of ``sparse_configs`` at gpt2-large's widths: launch counts exactly
     1 forward, 1 dq, 1 dk/dv a call; two calls bitwise equal; one cached
     layout per sequence length; out and gradients against ``impl="plain"``
-    (on the same work plans). Then the forward and dk/dv on the default
-    plans, whose global rows and columns are split over CTAs, against
-    one-piece plans, with each call's device memory; two planted faults
-    that the relative-L2 gate must catch (a kv block dropped from a q
-    block's count; a q block dropped from the second piece of a split
-    column, which the merge sums); the all-ones layout, causal, against the
+    (on the same work plans). Then the three kernels on the default plans,
+    whose global rows and columns are split over CTAs, against one-piece
+    plans, with each call's device memory; three planted faults that the
+    relative-L2 gates must catch (a kv block dropped from a q block's
+    count; a q block dropped from the second piece of a split column,
+    which the dk/dv merge sums; a kv block dropped from the second piece
+    of a split row, which the dq merge sums); the all-ones layout, causal, against the
     dense flash kernels; and the sparse forward+backward times beside dense
     flash's (a figure, not a gate). Returns the three kernels' launches over
     the checked calls."""
@@ -3001,7 +3014,7 @@ def sparse_attention_phase(torch):
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention
     from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention, make_block_sparse_attention
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
-        WorkPlan, block_sparse_bwd_dkv, block_sparse_fwd)
+        WorkPlan, block_sparse_bwd_dkv, block_sparse_bwd_dq, block_sparse_fwd)
     B, H, T, D = SPARSE_SHAPE
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -3032,9 +3045,9 @@ def sparse_attention_phase(torch):
             f"kv blocks a q block min/median/max {int(cnt.min())}/{int(np.median(cnt))}/{int(cnt.max())}; "
             f"kernels vs plain: {errs}")
         fns[label] = ssa
-    # the plans' cut walks against one piece a row: the forward and dk/dv
-    # kernels on the default plans (split global rows and columns, merged in
-    # piece order) within the gates of the one-piece plans' outputs
+    # the plans' cut walks against one piece a row: the three kernels on the
+    # default plans (split global rows and columns, merged in piece order;
+    # dq on the forward's) within the gates of the one-piece plans' outputs
     for label in ("Fixed uni", "BigBird"):
         attn = fns[label]._cache[T]
         q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
@@ -3043,18 +3056,24 @@ def sparse_attention_phase(torch):
         for plans, res in ((attn.plans, got), (whole, ref)):
             out, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal, plan=plans[0])
             delta = (do.float() * out.float()).sum(-1)
-            res += [out, *block_sparse_bwd_dkv(q, k, v, do, lse, delta, kv_idx, kv_cnt, SPARSE_BLOCK,
-                                               attn.causal, plan=plans[1])]
-        errs = _close(torch, got, ref, f"sparse {label} split vs one-piece plans", ("out", "dk", "dv"))
+            res += [out, block_sparse_bwd_dq(q, k, v, do, lse, delta, q_idx, q_cnt, SPARSE_BLOCK, attn.causal,
+                                             plan=plans[0]),
+                    *block_sparse_bwd_dkv(q, k, v, do, lse, delta, kv_idx, kv_cnt, SPARSE_BLOCK, attn.causal,
+                                          plan=plans[1])]
+        errs = _close(torch, got, ref, f"sparse {label} split vs one-piece plans")
         mib = [_call_mib(torch, lambda: block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal,
                                                          plan=attn.plans[0])),
+               _call_mib(torch, lambda: block_sparse_bwd_dq(q, k, v, do, lse, delta, q_idx, q_cnt,
+                                                            SPARSE_BLOCK, attn.causal, plan=attn.plans[0])),
                _call_mib(torch, lambda: block_sparse_bwd_dkv(q, k, v, do, lse, delta, kv_idx, kv_cnt,
                                                              SPARSE_BLOCK, attn.causal, plan=attn.plans[1]))]
         ws = [attn.plans[0].workspace_floats(B, SPARSE_BLOCK, D + 2) * 4 / 2**20,
+              attn.plans[0].workspace_floats(B, SPARSE_BLOCK, D) * 4 / 2**20,
               attn.plans[1].workspace_floats(B, SPARSE_BLOCK, 2 * D) * 4 / 2**20]
         log(f"sparse {label}: {len(attn.plans[0].splits)} split rows, {len(attn.plans[1].splits)} split "
             f"columns; a call's MiB (outputs and workspace) forward {mib[0]:.2f} (workspace {ws[0]:.2f}), "
-            f"dk/dv {mib[1]:.2f} (workspace {ws[1]:.2f}); cut walks vs one piece a row: {errs}")
+            f"dq {mib[1]:.2f} (workspace {ws[1]:.2f}), dk/dv {mib[2]:.2f} (workspace {ws[2]:.2f}); "
+            f"cut walks vs one piece a row: {errs}")
     # planted fault: the forward kernel with one kv block dropped from the
     # walk of one q block (head 0, the median count of Fixed uni, causal:
     # the count the plan is built from) must fail the relative-L2 gate on
@@ -3089,6 +3108,28 @@ def sparse_attention_phase(torch):
         f"dv {rels[1]:.3e} (gate {SPARSE_REL_L2:g})")
     check(max(rels) > SPARSE_REL_L2,
           f"sparse dk/dv planted fault: rel L2 {max(rels):.3e} passes the {SPARSE_REL_L2:g} gate")
+    # planted fault of the dq merge: dq with one kv block dropped from the
+    # second piece of the split global row of head 0 with the most pieces
+    # (BigBird, on the forward's plan) must fail dq's gates: it moves the
+    # whole dq under SPARSE_REL_L2 (one row block of 40), so its row gate
+    # must catch it
+    attn = fns["BigBird"]._cache[T]
+    q_idx, q_cnt, kv_idx, kv_cnt = attn.tables(dev)
+    plan = attn.plans[0]
+    sid = max((i for i in range(len(plan.splits)) if _split_head(plan, i, q_idx.shape[1]) == 0),
+              key=lambda i: int(plan.splits[i, 1]))
+    out, lse = block_sparse_fwd(q, k, v, q_idx, q_cnt, SPARSE_BLOCK, attn.causal, plan=plan)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, q_idx, q_cnt, SPARSE_BLOCK, attn.causal)
+    ok = block_sparse_bwd_dq(*args, plan=plan)
+    faulty = block_sparse_bwd_dq(*args, plan=_dropped_block(plan, sid, piece=1))
+    rel, row_rel = _rel_l2(faulty, ok), _bwd_row_rel_l2(torch, faulty, ok)
+    qrow = int(plan.items[plan.items[:, 3] == sid][0, 0]) % q_idx.shape[1]
+    log(f"sparse planted fault, BigBird head 0 q block {qrow} ({int(plan.splits[sid, 1])} pieces of its "
+        f"{int(q_cnt[0, qrow])} kv blocks), one kv block dropped from piece 1: dq rel L2 {rel:.3e} "
+        f"(gate {SPARSE_REL_L2:g}), a row's rel L2 {row_rel:.3e} (gate {FLASH_BWD_ROW_REL_L2:g})")
+    check(row_rel > FLASH_BWD_ROW_REL_L2,
+          f"sparse dq planted fault: a row's rel L2 {row_rel:.3e} passes the {FLASH_BWD_ROW_REL_L2:g} gate")
     nb = T // SPARSE_BLOCK
     dense = make_block_sparse_attention(np.ones((H, nb, nb), np.int64), SPARSE_BLOCK, causal=True)
     flash = lambda a, b, c: flash_attention(a, b, c, causal=True)

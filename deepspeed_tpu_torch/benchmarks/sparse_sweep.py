@@ -1,10 +1,11 @@
-"""Sweeps of the block-sparse forward and dk/dv kernels on the card.
+"""Sweeps of the block-sparse forward, dq and dk/dv kernels on the card.
 
 ``chunk``: the kernels at ``chip_smoke.py``'s block-sparse shapes
 (gpt2-large's widths B 2, H 20, T 4096, D 64 at block 64, BigBird and Fixed
 unidirectional; llama3-8b's B 1, H 32, D 128 at block 16, BigBird) with
 work plans cut at several chunk lengths: the split rows and columns, the
-dk/dv workspace, and the times. It is what ``CHUNK`` was chosen from.
+dq and dk/dv workspaces, and the times (dq on the forward's plan, so its
+split rows are the forward's). It is what ``CHUNK`` was chosen from.
 
 ``walk``: a wrap-around band layout in which every q block walks exactly w
 kv blocks (and every kv block is read by w q blocks), at the same widths:
@@ -25,8 +26,8 @@ import numpy as np
 import torch
 
 from ..ops.sparse_attention import BigBirdSparsityConfig, FixedSparsityConfig
-from ..ops.sparse_attention.block_sparse_attention import (WorkPlan, block_sparse_bwd_dkv, block_sparse_fwd,
-                                                           make_block_sparse_attention)
+from ..ops.sparse_attention.block_sparse_attention import (WorkPlan, block_sparse_bwd_dkv, block_sparse_bwd_dq,
+                                                           block_sparse_fwd, make_block_sparse_attention)
 
 SEED = 0
 SLEEP_CYCLES = 20_000_000  # ~10 ms at H100 clocks: covers the host time of a call
@@ -62,12 +63,14 @@ def _inputs(B, H, T, D, dev):
 
 
 def _calls(attn, plans, q, k, v, do, blk):
-    """(forward, dk/dv) closures over ``plans``; dk/dv on the forward's out."""
+    """(forward, dq, dk/dv) closures over ``plans``; dq on the forward's
+    plan, both backward kernels on the forward's out."""
     dev = q.device
     qi, qc, ki, kc = attn.tables(dev)
     out, lse = block_sparse_fwd(q, k, v, qi, qc, blk, attn.causal, plan=plans[0])
     delta = (do.float() * out.float()).sum(-1)
     return (lambda: block_sparse_fwd(q, k, v, qi, qc, blk, attn.causal, plan=plans[0]),
+            lambda: block_sparse_bwd_dq(q, k, v, do, lse, delta, qi, qc, blk, attn.causal, plan=plans[0]),
             lambda: block_sparse_bwd_dkv(q, k, v, do, lse, delta, ki, kc, blk, attn.causal, plan=plans[1]))
 
 
@@ -81,10 +84,12 @@ def chunk_sweep(log=print):
         q, k, v, do = _inputs(B, H, T, D, dev)
         for c in ((8, 16, 24, 32, 64) if blk == 64 else (16, 32, 64, 128, 256)):
             plans = (WorkPlan(attn.np_tables[1], c), WorkPlan(attn.np_tables[3], c))
-            fwd, dkv = _calls(attn, plans, q, k, v, do, blk)
+            fwd, dq, dkv = _calls(attn, plans, q, k, v, do, blk)
+            dq_mib = plans[0].workspace_floats(B, blk, D) * 4 / 2**20
             mib = plans[1].workspace_floats(B, blk, 2 * D) * 4 / 2**20
             log(f"chunk {label} B={B} H={H} T={T} D={D} block {blk}, chunk {c}: fwd {cuda_ms(fwd, flush):.4f} ms "
-                f"({len(plans[0].splits)} split rows), dkv {cuda_ms(dkv, flush):.4f} ms "
+                f"({len(plans[0].splits)} split rows), dq {cuda_ms(dq, flush):.4f} ms (workspace "
+                f"{dq_mib:.1f} MiB), dkv {cuda_ms(dkv, flush):.4f} ms "
                 f"({len(plans[1].splits)} split columns, workspace {mib:.1f} MiB)")
 
 
@@ -100,9 +105,10 @@ def walk_sweep(log=print):
             for t in range(w):
                 layout[:, np.arange(nb), (np.arange(nb) - t) % nb] = 1
             attn = make_block_sparse_attention(layout, blk, causal=False)
-            fwd, dkv = _calls(attn, attn.plans, q, k, v, do, blk)
+            fwd, dq, dkv = _calls(attn, attn.plans, q, k, v, do, blk)
             log(f"walk B={B} H={H} T={T} D={D} block {blk}, walk {w} ({B * H * nb * w} tiles): "
                 f"fwd {cuda_ms(fwd, flush):.4f} ms (warm {cuda_ms(fwd, None):.4f}), "
+                f"dq {cuda_ms(dq, flush):.4f} ms (warm {cuda_ms(dq, None):.4f}), "
                 f"dkv {cuda_ms(dkv, flush):.4f} ms (warm {cuda_ms(dkv, None):.4f})")
 
 

@@ -1,4 +1,4 @@
-// Pieces shared by the block-sparse forward and dk/dv kernels
+// Pieces shared by the block-sparse forward, dq and dk/dv kernels
 // (block_sparse_attention_fwd.cu, block_sparse_attention_bwd.cu): the CTA
 // of item groups, mma.sync on the tiles TMA writes in the 128-byte swizzle,
 // a cp.async of fp32 values that lands on a ring slot's mbarrier, and the

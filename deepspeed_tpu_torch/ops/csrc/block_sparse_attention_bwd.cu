@@ -1,4 +1,6 @@
-// Block-sparse flash attention backward (dq; dk/dv), for Hopper.
+// Block-sparse flash attention backward (dq; dk/dv), for Hopper: the
+// forward's host-built work plans, asynchronous TMA rings of gathered tiles
+// and the tensor cores (block_sparse_attention_fwd.cu).
 //
 // Replaces the TPU kernels deepspeed_tpu/ops/sparse_attention/
 // block_sparse_attention.py::_bwd_dq_kernel (its pallas_call at :252) and
@@ -16,51 +18,83 @@
 //
 // Layout (the JAX one): q, k, v, dO, dq, dk, dv (B, H, T, D) bf16,
 // contiguous, 16-byte aligned; lse, delta (B, H, T) fp32; dq walks q_idx
-// (H, nq, K) / q_cnt (H, nq), dk/dv the transposed kv_idx (H, nk, Kt)
-// through its plan, int32. D is 64 or 128; block is 16, 32, 64 or 128.
+// (H, nq, K) through the forward's plan, dk/dv the transposed kv_idx
+// (H, nk, Kt) through its own, int32. D is 64 or 128; block is 16, 32, 64
+// or 128.
 //
-// What bounds them on the H100: the bytes, as for the forward
-// (block_sparse_attention_fwd.cu). A visited tile costs 6 * block^2 * D
-// operations for dq and 8 * block^2 * D for dk/dv against a gather of two
-// block x D bf16 tiles (K and V for dq; Q and dO, with their lse and delta,
-// for dk/dv): at gpt2-large's widths 19,680 (BigBird) and 25,600 (Fixed
-// unidirectional) gathers of 16 KB, at llama3-8b's 64,896 of 8 KB, mostly
-// from L2, against reading q, k, v, dO, lse and delta once and writing the
-// gradients once. The transposed table is the more uneven: Fixed
-// unidirectional's global columns are read by up to 61 q blocks against a
-// median of 3, BigBird's by every q block.
+// What bounds them on the H100: the bytes, as for the forward. A visited
+// tile costs 6 * block^2 * D operations for dq and 8 * block^2 * D for
+// dk/dv against a gather of two block x D bf16 tiles (K and V for dq; Q
+// and dO, with their lse and delta, for dk/dv): at gpt2-large's widths
+// 19,680 (BigBird) and 25,600 (Fixed unidirectional) gathers of 16 KB, at
+// llama3-8b's 64,896 of 8 KB, mostly from L2, against reading q, k, v, dO,
+// lse and delta once and writing the gradients once. So, as in the
+// forward, the time is the gathers' latency and L2 bandwidth, each item's
+// start (its first reads come from device memory) and the longest walk.
+// The tables are uneven: BigBird's global rows walk every kv block (64 at
+// block 64, 256 at block 16) against a median of 6; Fixed unidirectional's
+// global columns are read by up to 61 q blocks against a median of 3.
 //
-// dk/dv (the design of the forward kernel, with the forward's plan over the
-// transposed table): a work item is a piece of a kv block's walk over the
-// q blocks that read it, cut at fixed table positions (WorkPlan, CHUNK) and
-// numbered longest first; a split column's pieces write fp32 dk and dv
-// partials to a workspace sized by the split columns alone, and the last to
-// arrive (an integer count) sums them in piece order and writes dk and dv.
-// No atomics on floats: two calls agree bit for bit. A group's first warp
-// loads the item's K and V tiles once, then streams the visited q blocks'
-// Q and dO tiles with TMA (3D maps over (D, T, B*H), rows past T as zeros)
-// and their lse and delta with cp.async (0 past T; the copies land on the
-// slot's mbarrier) into a 3-slot ring, a q block of 128 rows as two 64-row
-// entries. Blocks 64 and 128 run wgmma, one warpgroup per 64 kv rows, the
-// flash dk/dv kernel's products (flash_attention_bwd.cu, hopper.cuh):
-// S^T = K Q^T and dP^T = V dO^T from shared memory, then dV += bf16(P^T) dO
-// and dK += dS^T Q with P^T and dS^T as register A operands and dO and Q
-// read MN-major. At block 64, D 64 a thread keeps 168 registers, so three
-// CTAs fit on an SM (two at 188; measured, PERF.md); elsewhere up to 255
-// (no producer warpgroup to feed). Blocks 16 and 32 run mma.sync in groups
-// of one or two warps, four or two items a CTA, ldmatrix reading the
-// swizzled tiles (a 64-row wgmma tile would mix kv blocks whose walks
-// differ). Only the diagonal and T-edge entries are masked; a q block
-// wholly past T or wholly before the kv block under causal is never
-// loaded; a kv block no query reads gets dk = dv = 0.
+// Both kernels take the forward's design. A work item is a piece of a
+// row's (dq: a q block's) or a column's (dk/dv: a kv block's) walk, cut at
+// the fixed table positions 0, C, 2C, ... (WorkPlan, CHUNK) and numbered
+// longest first; the grid is (groups of items) x B. An unsplit row or
+// column writes its gradient directly; a split one's pieces write fp32
+// partials to a workspace sized by the split rows alone, and the last to
+// arrive (an integer count of arrivals, left at 0) sums them in piece order
+// and writes the gradient. No atomics on floats: two calls agree bit for
+// bit. A CTA is the forward's Group: blocks 64 and 128 one item on one or
+// two warpgroups (wgmma), blocks 16 and 32 four or two items of one or two
+// warps on mma.sync (a 64-row wgmma tile would mix rows whose walks
+// differ), every warp 16 rows of its item's block and every CTA at least
+// four warps. The tiles come by TMA through 3D maps over (D, T, B*H), boxes
+// of 64 columns in the 128-byte swizzle (two a row at D = 128; rows past T
+// as zeros), into a ring of slots with full and empty mbarriers; ldmatrix
+// reads them at blocks 16 and 32 (sw_off). Only the diagonal and
+// T-edge tiles are masked; a block wholly masked (past T, or beyond the
+// diagonal under causal) is never loaded.
+//
+// dq (the forward's plan over the q table, attn.plans[0], unchanged: its
+// cuts are the forward's). A group's first lane loads the item's Q and dO
+// tiles once, then the K and V tiles of the visited table positions, read
+// ahead from the table, into the ring; each warp reads its rows' lse and
+// delta once. Per tile: S = Q K^T and dP = dO V^T, p and dS in registers,
+// dS rounded to bf16 as the A operand of dQ += dS K with K's tile read
+// MN-major. A piece's partial is block x D floats a batch entry (a plain
+// sum: no m or l).
+//   Blocks 64 and 128 (wgmma; a 128-key tile as two 64-key halves): Q and
+// dO stay in shared memory past a ring of two K/V slots, S and dP take
+// both operands K-major from shared memory (mma_nt) and dQ += dS K takes
+// dS from registers (mma_rn): flash_attention_bwd.cu's dq products. At
+// block 64, D 64 a thread then needs 128 registers (S, dP and dQ 96, dS
+// 16) and a CTA 49 KB, so four CTAs fit an SM. Measured (PERF.md): Q and
+// dO as register fragments with three slots (164 registers, three CTAs)
+// and Q and dO in shared memory with three slots (140 registers, three
+// CTAs of 65 KB) were 3-5% and 8-10% slower; as in the forward, CTAs an
+// SM set the time more than the ring's depth.
+//   Blocks 16 and 32 (mma.sync): Q and dO come first in slot 0 of a
+// three-slot ring, each warp takes its rows of both into registers as A
+// fragments (ldmatrix) and frees the slot; S and dP by mma_ab_t, dQ by
+// mma_ab. At block 16, D 128 a thread keeps 208 registers and a CTA of
+// four items 97 KB: two CTAs an SM (two slots measured the same).
 
-// dq (PR 6's design, kept): block/16 warps a CTA, each warp 16 rows of the
-// CTA's q block; one CTA per (b, h, q block) walks the q block's kv blocks
-// in table order, staging K and V of each in padded shared memory, and each
-// warp forms its scores, dp and ds in registers (in column sub-tiles of at
-// most 64 keys) and feeds ds straight back as the A operand of dq += ds K,
-// with mma.sync (ops/csrc/mma_tile.cuh). Every output element is written by
-// one CTA and every sum runs in table order.
+// dk/dv (the forward's design over the transposed table, attn.plans[1]):
+// a group's first warp loads the item's K and V tiles once, then streams
+// the visited q blocks' Q and dO tiles with TMA and their lse and delta
+// with cp.async (0 past T; the copies land on the slot's mbarrier), a q
+// block of 128 rows as two 64-row entries. Blocks 64 and 128 run the flash
+// dk/dv kernel's products (flash_attention_bwd.cu, hopper.cuh): S^T =
+// K Q^T and dP^T = V dO^T from shared memory, then dV += bf16(P^T) dO and
+// dK += dS^T Q with P^T and dS^T as register A operands and dO and Q read
+// MN-major. At block 64, D 64 a thread keeps 168 registers, so three CTAs
+// fit on an SM (two at 188; measured, PERF.md); elsewhere up to 255 (no
+// producer warpgroup to feed). A kv block no query reads gets dk = dv = 0.
+//
+// Tried and dropped for dq: the first port's design, one CTA of block / 16
+// warps per q block walking the whole row in table order with K and V
+// staged by synchronous loads between two barriers (one warp a CTA at
+// block 16, the 256-block global rows on one warp, nothing overlapping a
+// load: 10-42x its bound; PERF.md).
 
 #include <math.h>
 
@@ -71,89 +105,243 @@ namespace {
 using namespace ds_mma;
 using namespace ds_sparse;
 
-__device__ __forceinline__ float lse_or_zero(float l) {
-  return isfinite(l) ? l : 0.f;  // -inf: the row attended nothing
-}
+// ------------------------------------------------------------------ dq
 
 template <int BLK, int D>
-constexpr int dq_smem_bytes() {
-  return 4 * BLK * (D + 8) * static_cast<int>(sizeof(bf16));
-}
+struct DqCfg {
+  using G = Group<BLK>;
+  static constexpr int kKt = G::kWgmma ? 64 : BLK;  // keys a product: a tile, or half of one of 128
+  static constexpr int kTile = BLK * D * 2;         // a Q, dO, K or V tile
+  static constexpr int kBlockBytes = BLK * 128;     // a 64-column block of a tile
+  // wgmma: two K/V slots, then Q and dO for the walk; mma.sync: three
+  // slots, Q and dO first in slot 0 (entry 0 of the ring)
+  static constexpr int kSlots = G::kWgmma ? 2 : kStages;
+  static constexpr int kFirst = G::kWgmma ? 0 : 1;  // ring entries before the first K/V tile
+  static constexpr int kItemBytes = 2 * kTile * (kSlots + (G::kWgmma ? 1 : 0));
+  static constexpr int kBars = 2 * kSlots + 1;      // a slot's full and empty; wgmma: Q/dO's full
+  static constexpr int kSmem = G::kItems * (kItemBytes + kBars * 8 + 4) + 1024;  // + 1024-byte alignment
+  static constexpr int kPart = BLK * D;             // a piece's partial dq rows
+  // block 64, D 64: four CTAs an SM (49 KB of shared memory each, at most
+  // 128 registers a thread)
+  static constexpr int kMinBlocks = BLK == 64 && D == 64 ? 4 : 1;
+};
 
 template <int BLK, int D>
-__global__ void __launch_bounds__(BLK * 2)
-block_sparse_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(Group<BLK>::kThreads, (DqCfg<BLK, D>::kMinBlocks))
+block_sparse_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       const int* __restrict__ idx, const int* __restrict__ cnt,
-                       bf16* __restrict__ dq, int H, int T, int nq, int K, float scale,
-                       int causal) {
-  constexpr int kLd = D + 8;
-  constexpr int kKt = BLK < 64 ? BLK : 64;  // keys per register sub-tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // BLK x kLd
-  bf16* dos = qs + BLK * kLd;                     // BLK x kLd
-  bf16* ks = dos + BLK * kLd;                     // BLK x kLd
-  bf16* vs = ks + BLK * kLd;                      // BLK x kLd
+                       const int* __restrict__ idx, const int4* __restrict__ items,
+                       const int2* __restrict__ splits, int* __restrict__ counts, float* __restrict__ ws,
+                       bf16* __restrict__ dq, int B, int H, int T, int nq, int K, int n_items, int chunk,
+                       float scale, float scale_log2, int causal) {
+  using C = DqCfg<BLK, D>;
+  using G = Group<BLK>;
+  constexpr int kCB = D / kBox;  // 64-column blocks of a row
+  constexpr int kKt = C::kKt;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // 1024-byte atoms
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gi = warp / G::kWarps, wig = warp % G::kWarps;  // the item group, the warp in it
+  constexpr int kSlots = C::kSlots;
+  uint8_t* ks = base + gi * C::kItemBytes;  // slot s at ks + s * kTile
+  uint8_t* vs = ks + kSlots * C::kTile;
+  uint8_t* qs = G::kWgmma ? vs + kSlots * C::kTile : ks;  // Q and dO: past the ring, or in slot 0
+  uint8_t* dos = G::kWgmma ? qs + C::kTile : vs;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + G::kItems * C::kItemBytes);
+  uint64_t* full = bars + gi * C::kBars;
+  uint64_t* empty = full + kSlots;
+  uint64_t* full_q = G::kWgmma ? empty + kSlots : full;  // Q and dO landed
+  int* last_flag = reinterpret_cast<int*>(bars + G::kItems * C::kBars) + gi;
 
-  const int b = blockIdx.z, h = blockIdx.y, qi = blockIdx.x;
-  const int q0 = qi * BLK;
-  if (q0 >= T) return;
-  const size_t base = (size_t)(b * H + h) * T;
-  const bf16* kb = k + base * D;
-  const bf16* vb = v + base * D;
-  const int* row_idx = idx + (size_t)(h * nq + qi) * K;
-  const int n = cnt[h * nq + qi];
+  if (tid == 0) {
+    for (int g = 0; g < G::kItems; ++g) {
+      uint64_t* b = bars + g * C::kBars;
+      for (int s = 0; s < kSlots; ++s) {
+        mbar_init(b + s, 1);
+        mbar_init(b + kSlots + s, G::kWarps);
+      }
+      mbar_init(b + 2 * kSlots, 1);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_lo = q0 + warp * 16 + lane / 4;  // this lane's rows: row_lo, row_lo + 8
-  const int tig2 = (lane & 3) * 2;
+  const int b = blockIdx.x % B;
+  const int it = (blockIdx.x / B) * G::kItems + gi;
+  if (it >= n_items) return;
+  const int4 item = items[it];
+  const int h = item.x / nq, q0 = (item.x % nq) * BLK;
+  if (q0 >= T) return;  // a q block wholly past the sequence: nothing to write (every piece alike)
+  const int bh = b * H + h;
+  const int* row_idx = idx + (size_t)item.x * K;
+  const int end = item.y + item.z;
+  // the first visited position from p: a kv block wholly past T, or wholly
+  // above the diagonal under causal, masks every entry and is skipped
+  auto next = [&](int p) {
+    for (; p < end; ++p) {
+      const int k0 = row_idx[p] * BLK;
+      if (k0 < T && !(causal && k0 > q0)) break;
+    }
+    return p;
+  };
+  const int first = next(item.y);  // an item that visits nothing loads nothing and writes zeros
 
-  load_rows<D, BLK>(qs, q + base * D, q0, T);
-  load_rows<D, BLK>(dos, dout + base * D, q0, T);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row_lo + 8 * i;
-    lse_r[i] = r < T ? lse_or_zero(lse[base + r]) : 0.f;
-    delta_r[i] = r < T ? delta[base + r] : 0.f;
+  // the producer: the group's first lane, position pp next, `issued` ring
+  // entries so far (a K and V tile a position; at mma.sync entry 0 is the
+  // Q and dO tiles)
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  const bool leader = wig == 0 && lane == 0;
+  int pp = end, issued = 0;
+  auto issue = [&] {
+    const int s = issued % kSlots;
+    if (issued >= kSlots) mbar_wait(&empty[s], (issued / kSlots - 1) & 1);
+    mbar_expect_tx(&full[s], 2 * C::kTile);
+    const int k0 = row_idx[pp] * BLK;
+    for (int c = 0; c < kCB; ++c) {
+      tma_load_3d(ks + s * C::kTile + c * C::kBlockBytes, mk, c * kBox, k0, bh, &full[s]);
+      tma_load_3d(vs + s * C::kTile + c * C::kBlockBytes, mv, c * kBox, k0, bh, &full[s]);
+    }
+    ++issued;
+    pp = next(pp + 1);
+  };
+  if (leader && first < end) {
+    mbar_expect_tx(full_q, 2 * C::kTile);
+    for (int c = 0; c < kCB; ++c) {
+      tma_load_3d(qs + c * C::kBlockBytes, &tq, c * kBox, q0, bh, full_q);
+      tma_load_3d(dos + c * C::kBlockBytes, &tdo, c * kBox, q0, bh, full_q);
+    }
+    issued = C::kFirst;
+    pp = first;
+    while (pp < end && issued < kSlots) issue();
   }
 
-  float acc[D / 8][4];
-  zero(acc);
+  const int col2 = 2 * (lane & 3);
+  const int r_lo = wig * 16 + (lane >> 2);  // this lane's rows of the block: r_lo, r_lo + 8
+  const int row_lo = q0 + r_lo;
+  // each row's lse in log2 units (-inf, a row that attended nothing, reads
+  // as 0) and delta; rows past T read nothing (their zero-filled dO gives
+  // dp = 0, so ds = 0, and they are not written)
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const float lv = row < T ? lse[(size_t)bh * T + row] : 0.f;
+    l2[r] = isfinite(lv) ? lv * kLog2e : 0.f;
+    dl[r] = row < T ? delta[(size_t)bh * T + row] : 0.f;
+  }
+  // accumulator 4i..4i+3 is n8 tile i: (r_lo, 8i + col2 + {0, 1}), (r_lo + 8, ...)
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  for (int j = 0; j < n; ++j) {
-    const int k0 = row_idx[j] * BLK;
-    if (k0 >= T || (causal && k0 > q0)) continue;  // every entry masked (uniform in the CTA)
-    __syncthreads();  // q/dO staged, or the previous block's readers done
-    load_rows<D, BLK>(ks, kb, k0, T);
-    load_rows<D, BLK>(vs, vb, k0, T);
-    __syncthreads();
-
-#pragma unroll
-    for (int c0 = 0; c0 < BLK; c0 += kKt) {
-      float s[kKt / 8][4], dp[kKt / 8][4];
-      zero(s);
-      zero(dp);
-      mma_abt<D, kKt>(s, qs + warp * 16 * kLd, kLd, ks + c0 * kLd, kLd, lane);
-      mma_abt<D, kKt>(dp, dos + warp * 16 * kLd, kLd, vs + c0 * kLd, kLd, lane);
-#pragma unroll
-      for (int nt = 0; nt < kKt / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row_lo + (e >> 1) * 8, col = k0 + c0 + nt * 8 + tig2 + (e & 1);
-          const bool ok = col < T && (!causal || col <= row);
-          const float p = ok ? expf(s[nt][e] * scale - lse_r[e >> 1]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;  // ds
-        }
-      }
-      uint32_t dsf[kKt / 16][4];
-      to_a_frags<kKt>(dsf, s);
-      mma_rb<kKt, D>(acc, dsf, ks + c0 * kLd, kLd, lane);
+  // mma.sync: the warp's Q and dO rows as A fragments, kept in registers
+  // for the walk; slot 0 then takes a K/V tile. wgmma: Q and dO stay in
+  // shared memory.
+  uint32_t qf[D / 16][4], dof[D / 16][4];
+  if (first < end) {
+    mbar_wait(full_q, 0);
+    if constexpr (!G::kWgmma) {
+      ld_a_frags<D, BLK>(qf, qs, wig * 16, lane);
+      ld_a_frags<D, BLK>(dof, dos, wig * 16, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[0]);
+      if (leader && pp < end) issue();
     }
   }
 
-  store_rows<D>(dq + base * D, acc, row_lo, T, lane);
+  int n = C::kFirst;  // ring entries consumed
+  for (int p = first; p < end; p = next(p + 1), ++n) {
+    const int s = n % kSlots;
+    const int k0 = row_idx[p] * BLK;
+    const bool edge = k0 + BLK > T || (causal && k0 == q0);  // the T-edge or the diagonal tile
+    mbar_wait(&full[s], (n / kSlots) & 1);
+    __syncwarp();  // the warp converged for the .aligned products
+#pragma unroll
+    for (int c0 = 0; c0 < BLK; c0 += kKt) {  // 64 keys at a time at block 128
+      const uint8_t* kst = ks + s * C::kTile + c0 * 128;
+      const uint8_t* vst = vs + s * C::kTile + c0 * 128;
+      float sc[kKt / 2], dp[kKt / 2];
+      if constexpr (G::kWgmma) {
+        const uint8_t* qw = qs + (wig >> 2) * 64 * 128;  // the warpgroup's 64 rows
+        const uint8_t* dow = dos + (wig >> 2) * 64 * 128;
+        wgmma_fence();
+        mma_nt<D, kKt>(sc, qw, C::kBlockBytes, kst, C::kBlockBytes);
+        mma_nt<D, kKt>(dp, dow, C::kBlockBytes, vst, C::kBlockBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kKt / 2; ++i) sc[i] = dp[i] = 0.f;
+        mma_ab_t<D, BLK, BLK>(sc, qf, kst, lane);
+        mma_ab_t<D, BLK, BLK>(dp, dof, vst, lane);
+      }
+
+      // p = exp2(s * scale * log2(e) - lse * log2(e)), 0 where masked;
+      // ds = p * (dp - delta) * scale
+#pragma unroll
+      for (int i = 0; i < kKt / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * i + e, r = e >> 1;
+          float z = fmaf(sc[x], scale_log2, -l2[r]);
+          if (edge) {
+            const int row = row_lo + 8 * r, col = k0 + c0 + 8 * i + col2 + (e & 1);
+            if (col >= T || (causal && col > row)) z = -INFINITY;
+          }
+          sc[x] = ex2(z) * (dp[x] - dl[r]) * scale;
+        }
+      }
+      uint32_t dsf[kKt / 16][4];  // dS as A fragments (the bf16 rounding point)
+      to_frags<kKt>(dsf, sc);
+      if constexpr (G::kWgmma) {
+        wgmma_fence();
+        mma_rn<D, kKt / 16>(acc, dsf, kst, C::kBlockBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(dsf);
+      } else {
+        mma_ab<BLK, D, BLK>(acc, dsf, kst, lane);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the slot
+    if (leader && pp < end) issue();
+  }
+
+  if (item.w >= 0) {  // a piece of a split row: its partial, then the sum by the last piece
+    const int2 sp = splits[item.w];
+    float* part = ws + ((size_t)(sp.x + item.y / chunk) * B + b) * C::kPart;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = r_lo + 8 * r;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(part + rr * D + 8 * i + col2) =
+            make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    }
+    if (!last_to_arrive<BLK>(counts + item.w * B + b, sp.y, last_flag, gi, leader)) return;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int pc = 0; pc < sp.y; ++pc) {  // in piece order
+      const float* pt = ws + ((size_t)(sp.x + pc) * B + b) * C::kPart;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = r_lo + 8 * r;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          const float2 x = __ldcg(reinterpret_cast<const float2*>(pt + rr * D + 8 * i + col2));
+          acc[4 * i + 2 * r] += x.x;
+          acc[4 * i + 2 * r + 1] += x.y;
+        }
+      }
+    }
+  }
+  store_acc<D>(dq + (size_t)bh * T * D, acc, row_lo, T, col2);
 }
 
 // ------------------------------------------------------------------ dk/dv
@@ -402,18 +590,25 @@ block_sparse_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_con
 
 template <int BLK, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* idx, const void* cnt, void* dq, int B, int H, int T,
-              int nq, int K, float scale, int causal, cudaStream_t s) {
-  const int smem = dq_smem_bytes<BLK, D>();
-  cudaError_t err = cudaFuncSetAttribute(block_sparse_dq_kernel<BLK, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nq, H, B);
-  block_sparse_dq_kernel<BLK, D><<<grid, BLK * 2, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(idx), static_cast<const int*>(cnt),
-      static_cast<bf16*>(dq), H, T, nq, K, scale, causal);
+              const void* delta, const void* idx, const void* items, const void* splits, void* counts,
+              void* ws, void* dq, int B, int H, int T, int nq, int K, int n_items, int chunk, float scale,
+              int causal, cudaStream_t s) {
+  using C = DqCfg<BLK, D>;
+  using G = Group<BLK>;
+  static bool attr = false;
+  if (const int rc = set_smem(block_sparse_dq_kernel<BLK, D>, C::kSmem, attr)) return rc;
+  if (B * H * T == 0 || n_items == 0) return 0;
+  CUtensorMap tq, tdo, tk, tv;
+  if (const int rc = bf16_map(&tq, q, D, T, B * H, BLK)) return rc;
+  if (const int rc = bf16_map(&tdo, dout, D, T, B * H, BLK)) return rc;
+  if (const int rc = bf16_map(&tk, k, D, T, B * H, BLK)) return rc;
+  if (const int rc = bf16_map(&tv, v, D, T, B * H, BLK)) return rc;
+  const int groups = (n_items + G::kItems - 1) / G::kItems;
+  block_sparse_dq_kernel<BLK, D><<<groups * B, G::kThreads, C::kSmem, s>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(idx), static_cast<const int4*>(items), static_cast<const int2*>(splits),
+      static_cast<int*>(counts), static_cast<float*>(ws), static_cast<bf16*>(dq), B, H, T, nq, K, n_items,
+      chunk, scale, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -450,34 +645,35 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   }                                                       \
   return static_cast<int>(cudaErrorInvalidValue)
 
-template <int D>
-int dq_d(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-         const void* delta, const void* idx, const void* cnt, void* dq, int B, int H, int T,
-         int block, int nq, int K, float scale, int causal, cudaStream_t s) {
-  DS_BLOCKS(launch_dq, D, q, k, v, dout, lse, delta, idx, cnt, dq, B, H, T, nq, K, scale, causal, s);
-}
-
 }  // namespace
 
 // Device pointers; the caller checked shapes, types, contiguity, 16-byte
-// alignment of the bf16 tensors, D in {64, 128}, block in {16, 32, 64, 128}
-// and T <= (number of table rows) * block. Each returns cudaGetLastError()
-// (or the error of the shared-memory attribute call).
+// alignment of the bf16 tensors, D in {64, 128}, block in {16, 32, 64, 128},
+// T <= (number of table rows) * block and that the plan (items, splits;
+// n_items items cut at `chunk` positions) fits the table. `counts` holds
+// one zeroed int a (split row or column, batch entry) and `ws` the split
+// rows' or columns' partials (may be null without one). Each returns
+// cudaGetLastError() (or the error of the shared-memory attribute call or
+// of a tensor map's encoding).
 DS_EXPORT int block_sparse_bwd_dq_launch(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse, const void* delta,
-                                         const void* idx, const void* cnt, void* dq, int B, int H,
-                                         int T, int D, int block, int nq, int K, float scale,
+                                         const void* idx, const void* items, const void* splits,
+                                         void* counts, void* ws, void* dq, int B, int H, int T, int D,
+                                         int block, int nq, int K, int n_items, int chunk, float scale,
                                          int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return dq_d<64>(q, k, v, dout, lse, delta, idx, cnt, dq, B, H, T, block, nq, K, scale, causal, s);
-  if (D == 128)
-    return dq_d<128>(q, k, v, dout, lse, delta, idx, cnt, dq, B, H, T, block, nq, K, scale, causal, s);
+  if (D == 64) {
+    DS_BLOCKS(launch_dq, 64, q, k, v, dout, lse, delta, idx, items, splits, counts, ws, dq, B, H, T, nq, K,
+              n_items, chunk, scale, causal, s);
+  }
+  if (D == 128) {
+    DS_BLOCKS(launch_dq, 128, q, k, v, dout, lse, delta, idx, items, splits, counts, ws, dq, B, H, T, nq, K,
+              n_items, chunk, scale, causal, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// `counts` holds one zeroed int a (split column, batch entry) and `ws` the
-// split columns' partials (may be null without one); the plan (items,
-// splits; n_items items cut at `chunk` positions) fits the transposed table.
+// the same for dk/dv over the transposed table
 DS_EXPORT int block_sparse_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           const void* idx, const void* items, const void* splits,

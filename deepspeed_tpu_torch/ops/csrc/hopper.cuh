@@ -1,6 +1,6 @@
 // Hopper's asynchronous pieces, shared by the kernels that use them
 // (quant_matmul.cu's wide path, flash_attention_fwd.cu and _bwd.cu, the
-// block-sparse forward and dk/dv kernels): wgmma (fence, commit, wait;
+// block-sparse kernels): wgmma (fence, commit, wait;
 // m64nNk16 with both operands in shared memory, N = 64 or 128, and with A
 // from registers and B K-major or MN-major; the products of the flash
 // backward, mma_nt and mma_rn, and its accumulator helpers), the

@@ -1,11 +1,10 @@
-// Warp-level tensor-core tiles for the block-sparse attention kernels, the
-// decode kernel (through int8_mma.cuh) and the microbench: bf16
-// operands staged in shared memory (row stride D + 8 elements, so the eight
-// 16-byte rows an ldmatrix phase reads fall in distinct banks), mma.sync
-// m16n8k16 with fp32 accumulators, and the conversion of an accumulator into
-// the A operand of the next product (FlashAttention-2's register reuse).
-// hopper.cuh (the flash kernels, quant_matmul's wide path) takes smem_u32
-// and pack_bf16 from here.
+// Warp-level tensor-core pieces for the decode kernel (also through
+// int8_mma.cuh), quant_matmul's mainloops and the microbench: bf16 operands
+// staged in shared memory (row stride D + 8 elements, so the eight 16-byte
+// rows an ldmatrix phase reads fall in distinct banks), ldmatrix, mma.sync
+// m16n8k16 with fp32 accumulators and bf16 packing. hopper.cuh and
+// block_sparse.cuh (the flash and block-sparse kernels) take smem_u32,
+// ldmatrix and pack_bf16 from here.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 * g + t:
 //   A 16x16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..), a3 (g+8, 8+2t..)
@@ -51,55 +50,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// acc (16 x N) += A (16 x K) * Bt^T, both in shared memory with K contiguous:
-// A rows at a (stride lda), Bt rows (one per output column) at bt (stride ldb)
-template <int K, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const bf16* a, int lda,
-                                        const bf16* bt, int ldb, int lane) {
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane & 15) * lda + k0 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      uint32_t bf[4];
-      ldsm_x4(bf, bt + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ldb + k0 + ((lane >> 3) & 1) * 8);
-      mma16816(acc[n0 / 8], af, bf[0], bf[1]);
-      mma16816(acc[n0 / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x N) += A (16 x K, bf16 fragments in registers) * B, with B (K x N)
-// in shared memory row-major (N contiguous, stride ldb)
-template <int K, int N>
-__device__ __forceinline__ void mma_rb(float (&acc)[N / 8][4], const uint32_t (&af)[K / 16][4],
-                                       const bf16* b, int ldb, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, b + (kc * 16 + (lane & 15)) * ldb + n0 + (lane >> 4) * 8);
-      mma16816(acc[n0 / 8], af[kc], bf[0], bf[1]);
-      mma16816(acc[n0 / 8 + 1], af[kc], bf[2], bf[3]);
-    }
-  }
-}
-
-// accumulator layout (16 x K fp32, K/8 tiles) -> A fragments (K/16 chunks);
-// the bf16 rounding point of the TPU kernels
-template <int K>
-__device__ __forceinline__ void to_a_frags(uint32_t (&af)[K / 16][4], const float (&c)[K / 8][4]) {
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-    af[kc][0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-    af[kc][1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-    af[kc][2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-    af[kc][3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-  }
-}
-
 template <int N>
 __device__ __forceinline__ void zero(float (&c)[N][4]) {
 #pragma unroll
@@ -116,23 +66,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, in
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c * 8);
     *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = val;
-  }
-}
-
-// write a warp's 16 x D accumulator (rows row_lo and row_lo + 8 of this
-// lane) as bf16 rows of a (rows, D) matrix
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&c)[D / 8][4], int row_lo,
-                                           int rows, int lane) {
-  const int col = (lane & 3) * 2;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    if (row_lo < rows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row_lo * D + nt * 8 + col) =
-          __floats2bfloat162_rn(c[nt][0], c[nt][1]);
-    if (row_lo + 8 < rows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(row_lo + 8) * D + nt * 8 + col) =
-          __floats2bfloat162_rn(c[nt][2], c[nt][3]);
   }
 }
 

@@ -12,8 +12,9 @@ which key blocks each query block reads. :func:`_index_tables` turns it
 into per-(head, q-block) lists of active kv blocks in ascending order (for
 the forward and dq) and the transposed per-(head, kv-block) lists of the q
 blocks that read it (for dk/dv), with their counts; the kernels walk those
-lists, so the work scales with the layout's active blocks. The forward and
-dk/dv kernels take those walks as the items of a :class:`WorkPlan`: a walk
+lists, so the work scales with the layout's active blocks. All three
+kernels take those walks as the items of a :class:`WorkPlan` (the forward
+and dq the q table's, dk/dv the transposed table's): a walk
 longer than the block size's chunk (``CHUNK``) is cut at fixed table
 positions, its pieces run on separate CTAs, and the last piece to finish
 merges their partials in piece order. Inside a tile
@@ -60,7 +61,7 @@ def _kernel(name):
                                                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             lib.block_sparse_fwd_launch.restype = ctypes.c_int
         else:
-            lib.block_sparse_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+            lib.block_sparse_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                                                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             lib.block_sparse_bwd_dq_launch.restype = ctypes.c_int
             lib.block_sparse_bwd_dkv_launch.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
@@ -104,7 +105,8 @@ CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
 
 
 class WorkPlan:
-    """The forward or dk/dv kernel's work items over one index table, built
+    """A kernel's work items over one index table (the forward's and dq's
+    over the q table, dk/dv's over the transposed table), built
     on the host from the table's counts alone: it depends on the layout and
     the chunk length, never on the batch, the device or timing.
 
@@ -215,12 +217,6 @@ def _blocks(x, n, block):
     return x.view(B, H, n, block, D)
 
 
-def _gather(xb, idx_j):
-    """Blocks ``idx_j[h, i]`` of each head: (B, H, n, block, D)."""
-    H = idx_j.shape[0]
-    return xb[:, torch.arange(H, device=xb.device)[:, None], idx_j]
-
-
 def _tile_mask(row_blk, col_blk, block, T, causal, rows_in_range=False):
     """(H, n, block, block) keep-mask of tiles (row block, col block): key
     positions < T, ``kv <= q`` when causal, query positions < T if asked."""
@@ -239,6 +235,18 @@ def _pieces(plan, device):
     """The plan's items as long tensors: (row, first position, length, piece)."""
     it = torch.from_numpy(plan.items).to(device).long()
     return it[:, 0], it[:, 1], it[:, 2], it[:, 1] // plan.chunk
+
+
+def _sum_pieces(x, rows, piece, n):
+    """Each row's pieces of ``x`` (B, items, block, D) summed from zero in
+    piece order, as the backward kernels' last piece sums the partials:
+    (B, n, block, D) fp32. A row of one piece gets that piece exactly."""
+    out = torch.zeros((x.shape[0], n, *x.shape[2:]), device=x.device)
+    for pc in range(int(piece.max()) + 1 if rows.numel() else 0):
+        sel = piece == pc
+        r = rows[sel]
+        out[:, r] = out[:, r] + x[:, sel]
+    return out
 
 
 def _merge_softmax(M, L, A, m, l, acc):
@@ -307,31 +315,37 @@ def _lse_or_zero(lse):
 
 
 def block_sparse_bwd_dq_plain(q, k, v, dout, lse, delta, q_idx, q_cnt, block, causal=True,
-                              scale=None):
-    """Plain PyTorch version of the dq kernel: over each q block's kv blocks
-    in table order, ``ds = bf16(p (dO V^T - delta) scale)``, ``dq += ds K``."""
+                              scale=None, plan=None):
+    """Plain PyTorch version of the dq kernel: each item of ``plan`` (a
+    :class:`WorkPlan` of the q table, the forward's; None: one piece a q
+    block) walks its kv blocks in order, ``ds = bf16(p (dO V^T - delta)
+    scale)``, ``dq += ds K`` from zero; a split row's pieces are summed in
+    piece order, as the kernel sums them."""
+    plan = _plan_for("block_sparse_bwd_dq", plan, q_cnt)
     B, H, T, D = q.shape
-    nq = q_idx.shape[1]
+    nq, K = q_idx.shape[1], q_idx.shape[2]
     sc = _scale(scale, D)
-    q_idx, q_cnt = q_idx.long(), q_cnt.long()
-    qb, dob = _blocks(q, nq, block), _blocks(dout, nq, block)
+    q_idx = q_idx.long()
+    rows, start, length, piece = _pieces(plan, q.device)
+    h, qi = rows // nq, rows % nq
+    qb, dob = _blocks(q, nq, block)[:, h, qi], _blocks(dout, nq, block)[:, h, qi]  # (B, items, block, D)
+    lse_b = _blocks(_lse_or_zero(lse)[..., None], nq, block)[:, h, qi]
+    delta_b = _blocks(delta[..., None], nq, block)[:, h, qi]
     nk = max(nq, int(q_idx.max()) + 1)
     kb, vb = _blocks(k, nk, block), _blocks(v, nk, block)
-    lse_b = _blocks(_lse_or_zero(lse)[..., None], nq, block)
-    delta_b = _blocks(delta[..., None], nq, block)
-    qi = torch.arange(nq, device=q.device).expand(H, nq)
     dq = torch.zeros_like(qb)
-    for j in range(q_idx.shape[2]):
-        kvb = q_idx[:, :, j]
-        active = (j < q_cnt)[None, :, :, None, None]
-        kg = _gather(kb, kvb)
+    for j in range(int(length.max()) if rows.numel() else 0):
+        kvb = q_idx[h, qi, (start + j).clamp(max=K - 1)]
+        active = (j < length)[None, :, None, None]
+        kg = kb[:, h, kvb]
         s = torch.matmul(qb, kg.transpose(-1, -2)) * sc
         keep = _tile_mask(qi, kvb, block, T, causal)
         p = torch.where(keep, torch.exp(s - lse_b), torch.zeros_like(s))
-        dp = torch.matmul(dob, _gather(vb, kvb).transpose(-1, -2))
+        dp = torch.matmul(dob, vb[:, h, kvb].transpose(-1, -2))
         ds = (p * (dp - delta_b) * sc).to(q.dtype).float()
         dq = torch.where(active, dq + torch.matmul(ds, kg), dq)
-    return dq.reshape(B, H, nq * block, D)[:, :, :T].to(q.dtype).contiguous()
+    DQ = _sum_pieces(dq, rows, piece, H * nq)
+    return DQ.reshape(B, H, nq * block, D)[:, :, :T].to(q.dtype).contiguous()
 
 
 def block_sparse_bwd_dkv_plain(q, k, v, dout, lse, delta, kv_idx, kv_cnt, block, causal=True,
@@ -366,13 +380,7 @@ def block_sparse_bwd_dkv_plain(q, k, v, dout, lse, delta, kv_idx, kv_cnt, block,
         dp = torch.matmul(dog, vb.transpose(-1, -2))
         ds = (p * (dp - delta_b[:, h, qblk]) * sc).to(q.dtype).float()
         dk = torch.where(active, dk + torch.matmul(ds.transpose(-1, -2), qg), dk)
-    DK = torch.zeros((B, H * nk, block, D), device=q.device)
-    DV = torch.zeros_like(DK)
-    for pc in range(int(piece.max()) + 1 if rows.numel() else 0):  # pieces in order
-        sel = piece == pc
-        r = rows[sel]
-        DK[:, r] = DK[:, r] + dk[:, sel]
-        DV[:, r] = DV[:, r] + dv[:, sel]
+    DK, DV = (_sum_pieces(x, rows, piece, H * nk) for x in (dk, dv))
     crop = lambda x, like: x.reshape(B, H, nk * block, D)[:, :, :T].to(like.dtype).contiguous()
     return crop(DK, k), crop(DV, v)
 
@@ -383,13 +391,15 @@ def _delta(out, dout):
 
 
 def block_sparse_attention_bwd_plain(q, k, v, out, lse, dout, tables, block, causal=True,
-                                     scale=None, dkv_plan=None):
+                                     scale=None, dq_plan=None, dkv_plan=None):
     """(dq, dk, dv) through the plain versions of both backward kernels;
     ``tables`` as :func:`_index_tables` returns them, as tensors;
-    ``dkv_plan`` the transposed table's :class:`WorkPlan`."""
+    ``dq_plan`` the q table's :class:`WorkPlan` (the forward's),
+    ``dkv_plan`` the transposed table's."""
     q_idx, q_cnt, kv_idx, kv_cnt = tables
     delta = _delta(out, dout)
-    dq = block_sparse_bwd_dq_plain(q, k, v, dout, lse, delta, q_idx, q_cnt, block, causal, scale)
+    dq = block_sparse_bwd_dq_plain(q, k, v, dout, lse, delta, q_idx, q_cnt, block, causal, scale,
+                                   dq_plan)
     dk, dv = block_sparse_bwd_dkv_plain(q, k, v, dout, lse, delta, kv_idx, kv_cnt, block, causal,
                                         scale, dkv_plan)
     return dq, dk, dv
@@ -430,19 +440,30 @@ def block_sparse_fwd(q, k, v, q_idx, q_cnt, block, causal=True, scale=None, plan
 block_sparse_fwd.launches = 0
 
 
-def block_sparse_bwd_dq(q, k, v, dout, lse, delta, q_idx, q_cnt, block, causal=True, scale=None):
-    """The dq kernel on CUDA tensors. Counts its launches."""
+def block_sparse_bwd_dq(q, k, v, dout, lse, delta, q_idx, q_cnt, block, causal=True, scale=None,
+                        plan=None):
+    """The dq kernel on CUDA tensors. Counts its launches. ``plan``: the q
+    table's :class:`WorkPlan`, the forward's (``BlockSparseAttention.plans[0]``);
+    None builds the default one from ``q_cnt``, a copy to the host. A split
+    row's partials take ``plan.workspace_floats(B, block, D)`` fp32 values."""
     _check_qkv(q, k, v)
     _check_kernel("block_sparse_bwd_dq", q, q_idx, q_cnt, block,
                   (("q", q), ("k", k), ("v", v), ("dout", dout)), (("lse", lse), ("delta", delta)))
+    plan = _plan_for("block_sparse_bwd_dq", plan, q_cnt, CHUNK[block])
     B, H, T, D = q.shape
     dq = torch.empty_like(q)
+    items, splits = plan.on(q.device)
+    flags = plan.flags(q.device, B)
+    n_ws = plan.workspace_floats(B, block, D)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
     lib = _kernel("block_sparse_attention_bwd")
     rc = lib.block_sparse_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                                         lse.data_ptr(), delta.data_ptr(), q_idx.data_ptr(),
-                                        q_cnt.data_ptr(), dq.data_ptr(), B, H, T, D, block,
-                                        q_idx.shape[1], q_idx.shape[2], float(_scale(scale, D)),
-                                        int(bool(causal)), build.stream_of(q))
+                                        items.data_ptr(), splits.data_ptr(), flags.data_ptr(),
+                                        ws.data_ptr() if ws is not None else None, dq.data_ptr(), B, H,
+                                        T, D, block, q_idx.shape[1], q_idx.shape[2], len(plan.items),
+                                        plan.chunk, float(_scale(scale, D)), int(bool(causal)),
+                                        build.stream_of(q))
     build.check(lib, rc, "block_sparse_bwd_dq")
     block_sparse_bwd_dq.launches += 1
     return dq
@@ -508,15 +529,15 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         attn = ctx.attn
         args = (attn.block, attn.causal, attn.scale)
-        dkv_plan = attn.plans[1]
+        dq_plan, dkv_plan = attn.plans
         if ctx.impl == "plain" or not q.is_cuda:
             dq, dk, dv = block_sparse_attention_bwd_plain(q, k, v, out, lse, g_out, ctx.tables, *args,
-                                                          dkv_plan)
+                                                          dq_plan, dkv_plan)
         else:
             q_idx, q_cnt, kv_idx, kv_cnt = ctx.tables
             g_out = _aligned(g_out)
             delta = _delta(out, g_out)
-            dq = block_sparse_bwd_dq(q, k, v, g_out, lse, delta, q_idx, q_cnt, *args)
+            dq = block_sparse_bwd_dq(q, k, v, g_out, lse, delta, q_idx, q_cnt, *args, dq_plan)
             dk, dv = block_sparse_bwd_dkv(q, k, v, g_out, lse, delta, kv_idx, kv_cnt, *args,
                                           dkv_plan)
         return dq, dk, dv, None, None
@@ -524,9 +545,10 @@ class BlockSparseAttentionFunction(torch.autograd.Function):
 
 class BlockSparseAttention:
     """``fn(q, k, v) -> out`` over one static layout: the layout, its index
-    tables (numpy, and int32 tensors cached per device), the work plans of
-    the forward and dk/dv kernels over them (``plans``, chunked by
-    ``CHUNK[block]``) and the options."""
+    tables (numpy, and int32 tensors cached per device), the work plans
+    over them (``plans``: the q table's, for the forward and dq, and the
+    transposed table's, for dk/dv; chunked by ``CHUNK[block]``) and the
+    options."""
 
     def __init__(self, layout, block, causal=True, scale=None, impl="kernel"):
         layout = np.asarray(layout)

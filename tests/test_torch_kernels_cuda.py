@@ -1296,10 +1296,10 @@ def _edge_layout(H, nb, seed):
 
 def _check_sparse_kernels(dev, layout, block, B, T, D, causal, seed, chunk="default"):
     """Each of the three kernels against its plain version (the backward
-    kernels on the plain forward's out and lse), the forward and dk/dv on
-    the work plans of ``chunk`` ("default": the block size's ``CHUNK``; an
-    int cuts the walks there), all three bitwise equal on two calls.
-    Returns the kernels' (out, lse, dq, dk, dv)."""
+    kernels on the plain forward's out and lse), on the work plans of
+    ``chunk`` ("default": the block size's ``CHUNK``; an int cuts the walks
+    there; dq on the forward's plan), one launch a call, all three bitwise
+    equal on two calls. Returns the kernels' (out, lse, dq, dk, dv)."""
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
         CHUNK, WorkPlan, block_sparse_attention_plain, block_sparse_bwd_dkv,
         block_sparse_bwd_dkv_plain, block_sparse_bwd_dq, block_sparse_bwd_dq_plain, block_sparse_fwd,
@@ -1321,10 +1321,12 @@ def _check_sparse_kernels(dev, layout, block, B, T, D, causal, seed, chunk="defa
     _assert_close(lse, ref_lse, f"fwd lse, {what}")
     delta = (do.float() * ref_out.float()).sum(-1)
     dq_args = (q, k, v, do, ref_lse, delta, q_idx, q_cnt, block, causal)
-    dq = block_sparse_bwd_dq(*dq_args)
-    assert torch.equal(block_sparse_bwd_dq(*dq_args), dq), f"dq repeat, {what}"
+    before = block_sparse_bwd_dq.launches
+    dq = block_sparse_bwd_dq(*dq_args, plan=fwd_plan)
+    assert block_sparse_bwd_dq.launches == before + 1
+    assert torch.equal(block_sparse_bwd_dq(*dq_args, plan=fwd_plan), dq), f"dq repeat, {what}"
     torch.cuda.synchronize()
-    _assert_close(dq, block_sparse_bwd_dq_plain(*dq_args), f"dq, {what}")
+    _assert_close(dq, block_sparse_bwd_dq_plain(*dq_args, plan=fwd_plan), f"dq, {what}")
     dkv_args = (q, k, v, do, ref_lse, delta, kv_idx, kv_cnt, block, causal)
     dk, dv = block_sparse_bwd_dkv(*dkv_args, plan=dkv_plan)
     dk2, dv2 = block_sparse_bwd_dkv(*dkv_args, plan=dkv_plan)
@@ -1382,9 +1384,11 @@ def test_block_sparse_walks_of_chunk_and_chunk_plus_one(dev, block, D):
     """At the block size's own CHUNK: a row and a column of exactly CHUNK
     blocks (one piece) and of CHUNK + 1 (two pieces, the second of one
     block), non-causal and causal; then the split plan against the
-    one-piece plan, within the same gates as the plain version."""
+    one-piece plan (forward, dq, dk/dv), within the same gates as the plain
+    version."""
     from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
-        CHUNK, WorkPlan, block_sparse_bwd_dkv, block_sparse_fwd, make_block_sparse_attention)
+        CHUNK, WorkPlan, block_sparse_bwd_dkv, block_sparse_bwd_dq, block_sparse_fwd,
+        make_block_sparse_attention)
     c = CHUNK[block]
     nb = c + 2
     layout = np.zeros((2, nb, nb), np.int64)
@@ -1409,6 +1413,10 @@ def test_block_sparse_walks_of_chunk_and_chunk_plus_one(dev, block, D):
         _assert_close(out, w_out, f"split vs one-piece out, block {block} D {D} causal {causal}")
         _assert_close(lse, w_lse, f"split vs one-piece lse, block {block} D {D} causal {causal}")
         delta = (do.float() * w_out.float()).sum(-1)
+        dq_args = (q, k, v, do, w_lse, delta, q_idx, q_cnt, block, causal)
+        _assert_close(block_sparse_bwd_dq(*dq_args, plan=plans[0]),
+                      block_sparse_bwd_dq(*dq_args, plan=whole[0]),
+                      f"split vs one-piece dq, block {block} D {D} causal {causal}")
         args = (q, k, v, do, w_lse, delta, kv_idx, kv_cnt, block, causal)
         split = block_sparse_bwd_dkv(*args, plan=plans[1])
         for tag, a, b in zip(("dk", "dv"), split, block_sparse_bwd_dkv(*args, plan=whole[1])):

@@ -1,8 +1,8 @@
 """The block-sparse kernels' work plan (``WorkPlan`` in
 ``deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention``): the
-forward and dk/dv kernels cut a walk longer than the chunk length at fixed
-table positions, run the pieces on separate CTAs and merge them in piece
-order. Here, on the CPU: the plan covers every (head, row, table position)
+forward, dq and dk/dv kernels cut a walk longer than the chunk length at
+fixed table positions, run the pieces on separate CTAs and merge them in
+piece order (dq on the forward's plan of the q table). Here, on the CPU: the plan covers every (head, row, table position)
 exactly once in table order, no piece is longer than the chunk, only rows
 longer than the chunk are split, and the plan does not depend on the batch;
 the plain versions, which follow the plan and merge as the kernels do, agree
@@ -23,7 +23,8 @@ import torch
 import deepspeed_tpu.ops.sparse_attention as jsa
 import deepspeed_tpu_torch.ops.sparse_attention as tsa
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
-    CHUNK, WorkPlan, _index_tables, block_sparse_attention_plain, block_sparse_bwd_dkv_plain)
+    CHUNK, WorkPlan, _index_tables, block_sparse_attention_plain, block_sparse_bwd_dkv_plain,
+    block_sparse_bwd_dq_plain)
 
 B, H, T, D = 2, 2, 256, 64
 
@@ -131,6 +132,20 @@ def test_workspace_is_sized_by_the_split_rows():
     assert WorkPlan(q_cnt).workspace_floats(3, 16, D + 2) == 0
 
 
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_dq_workspace_is_pieces_by_batch_by_block_by_head_dim(block):
+    """dq takes the forward's plan, and its partials are a plain sum: D
+    floats a row of every piece of a split row, no softmax state."""
+    layout = tsa.BigBirdSparsityConfig(4, block=block).make_layout(4096 if block >= 64 else 2048)
+    _, q_cnt, _, _ = _index_tables(layout)
+    attn = tsa.make_block_sparse_attention(layout, block, causal=False)
+    plan = attn.plans[0]
+    assert np.array_equal(plan.items, WorkPlan(q_cnt, CHUNK[block]).items)
+    pieces = sum(-(-int(c) // CHUNK[block]) for c in q_cnt.reshape(-1) if c > CHUNK[block])
+    assert pieces > 0 and plan.n_partials == pieces
+    assert plan.workspace_floats(2, block, 128) == pieces * 2 * block * 128
+
+
 def _t(x, dtype=torch.float32):
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(dtype)
 
@@ -200,9 +215,9 @@ def test_split_walks_match_jax_bf16(block):
 @pytest.mark.parametrize("name", ["bigbird", "fixed-uni"])
 @pytest.mark.parametrize("block", [16, 32])
 def test_split_plan_matches_one_piece_plan(name, block):
-    """fp32: out, lse, dk and dv of the split plan within SPLIT_ATOL of the
-    one-piece plan's; a one-piece plan is today's walk (the merge of one
-    piece is exact)."""
+    """fp32: out, lse, dq, dk and dv of the split plan within SPLIT_ATOL of
+    the one-piece plan's; a one-piece plan is today's walk (the merge of one
+    piece is exact), bitwise the plan-free call's."""
     layout, causal = _layouts(block)[name]
     r = np.random.default_rng(block)
     q, k, v, do = (torch.from_numpy(r.standard_normal((B, H, T, D)).astype(np.float32)) for _ in range(4))
@@ -213,12 +228,15 @@ def test_split_plan_matches_one_piece_plan(name, block):
     for plans in (split, whole):
         out, lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, block, causal, plan=plans[0])
         delta = (do * out).sum(-1)
-        res.append((out, lse, *block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta, kv_idx, kv_cnt, block,
-                                                          causal, plan=plans[1])))
-    for tag, a, b in zip(("out", "lse", "dk", "dv"), *res):
+        dq = block_sparse_bwd_dq_plain(q, k, v, do, lse, delta, q_idx, q_cnt, block, causal, plan=plans[0])
+        res.append((out, lse, dq, *block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta, kv_idx, kv_cnt,
+                                                              block, causal, plan=plans[1])))
+    for tag, a, b in zip(("out", "lse", "dq", "dk", "dv"), *res):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=SPLIT_ATOL, err_msg=tag)
-    default = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, block, causal)
-    assert all(torch.equal(a, b) for a, b in zip(default, res[1][:2]))  # None: one piece a row
+    out, lse = block_sparse_attention_plain(q, k, v, q_idx, q_cnt, block, causal)
+    delta = (do * out).sum(-1)
+    default = (out, lse, block_sparse_bwd_dq_plain(q, k, v, do, lse, delta, q_idx, q_cnt, block, causal))
+    assert all(torch.equal(a, b) for a, b in zip(default, res[1][:3]))  # None: one piece a row
 
 
 def test_plan_must_fit_the_table():
