@@ -119,8 +119,10 @@ Phases (any failure ends the run with a non-zero exit):
    eight variants at L 36 with ms a pass, GB/s, relerr against bf16, the
    byte bound and the per-launch time, and exact launch counts. The kernel
    phase holds the three kernels against their plain versions at
-   8x1280x5120 (qmm4 bitwise, qmm2 at block_n 512, 1024 and 2560) beside
-   the dequantize-then-matmul chain.
+   8x1280x5120 (qmm4 bitwise, qmm2 at block_n 512, 1024 and 2560; two calls
+   bitwise equal) beside the dequantize-then-matmul chain, and two faults
+   planted in the kernel must fail those gates (``micro_planted_faults``: a
+   group dropped from one strip's walk, groups summed in reverse order).
 Each phase prints its wall seconds.
 
 The line before the last is the ``kernels`` JSON object; the last line is
@@ -323,13 +325,14 @@ MICRO_M, MICRO_K, MICRO_N, MICRO_GS = 8, 1280, 5120, 128
 
 
 def micro_cases(torch, gen, dev, which):
-    """qmm2 at the bench's three column tiles, qmm3 and qmm4 at 2560, on the
-    bench's data (x ~ 0.1 N(0, 1), w ~ 0.02 N(0, 1) quantized per group),
-    beside the library chain (dequantize to bf16, then one cuBLAS matmul
-    with fp32 output). qmm4's row also times its activation quantization
-    alone (``quantize_rows_ms``): the wrapper's time is both. The ops count
-    of qmm4 is given in bf16-equivalent operations (half of its int8
-    operations: the int8 peak is twice the bf16 one)."""
+    """qmm2 at the bench's three column tiles (one grid: block_n sets
+    nothing on the card), qmm3 and qmm4 at 2560, on the bench's data (x ~
+    0.1 N(0, 1), w ~ 0.02 N(0, 1) quantized per group), beside the library
+    chain (dequantize to bf16, then one cuBLAS matmul with fp32 output).
+    qmm4 quantizes x inside its kernel; its row also times the eager
+    ``quantize_rows`` alone (``quantize_rows_ms``), the time that saves. The
+    ops count of qmm4 is given in bf16-equivalent operations (half of its
+    int8 operations: the int8 peak is twice the bf16 one)."""
     from deepspeed_tpu_torch.ops import qmm_microbench as qm
     M, K, N, gs = MICRO_M, MICRO_K, MICRO_N, MICRO_GS
     G = K // gs
@@ -352,6 +355,37 @@ def micro_cases(torch, gen, dev, which):
                lambda fn=fn, b=block_n: fn(x, qw, sc, block_n=b),
                lambda plain=plain, b=block_n: plain(x, qw, sc, block_n=b),
                library, nbytes, flops, extra)
+
+
+def micro_planted_faults(torch, dev):
+    """The microbench kernels' gates against two faults planted in the kernel
+    (``qmm_microbench._plant``) on the bench's layer; either passing its gate
+    ends the run:
+    1. group 1 dropped from the first strip's walk: qmm2's gate (MICRO_TOL,
+       2^-16 of max|plain|) must fail;
+    2. the groups' scaled products summed in reverse order: qmm4's bitwise
+       gate must fail.
+    Launches here are not the main path's."""
+    from deepspeed_tpu_torch.ops import qmm_microbench as qm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    (label, kern, plain, *_), = [c for c in micro_cases(torch, gen, dev, "qmm2") if "2560" in c[0]]
+    (_, kern4, plain4, *_), = list(micro_cases(torch, gen, dev, "qmm4"))
+    for plant, which, fn, ref_fn in ((1, "qmm2", kern, plain), (2, "qmm4", kern4, plain4)):
+        ref = ref_fn()
+        qm._plant = plant
+        try:
+            bad = fn()
+            torch.cuda.synchronize()
+        finally:
+            qm._plant = 0
+        err, tol = float((bad - ref).abs().max()), MICRO_TOL[which] * float(ref.abs().max())
+        differ = int((bad != ref).sum())
+        caught = err > tol if MICRO_TOL[which] else differ > 0
+        what = ("group 1 dropped from the first strip's walk" if plant == 1
+                else "the groups summed in reverse order")
+        log(f"microbench planted fault {plant} ({what}), {which} [{label}]: max abs err {err:.3e} "
+            f"(gate {tol:.3e}), {differ} entries differ from plain: {'caught' if caught else 'MISSED'}")
+        check(caught, f"microbench planted fault {plant} ({what}) passes {which}'s gate")
 
 
 # the training paths' attention: gpt2-large (B=4, H=20, T=1024, D=64) and
@@ -1325,7 +1359,7 @@ KERNELS = [
 MICRO_TOL = {"qmm2": 2.0**-16, "qmm3": 2.0**-16, "qmm4": 0.0}
 # kernels whose two calls on the same inputs must agree bit for bit
 DETERMINISTIC = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
-                 "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+                 "block_sparse_bwd_dq", "block_sparse_bwd_dkv", "qmm2", "qmm3", "qmm4")
 # kernels whose fp32 output (the lse) holds -inf where a row attends nothing:
 # there the kernel must give -inf too, and the finite entries are compared
 NEG_INF_OUTPUTS = ("block_sparse_fwd", )
@@ -1482,6 +1516,8 @@ def kernel_phase(torch, dev):
         flash_planted_faults(torch, dev)
     if any(name in FLASH_BWD_KERNELS for name in results):
         flash_bwd_planted_faults(torch, dev)
+    if any(name in MICRO_TOL for name in results):
+        micro_planted_faults(torch, dev)
     return results
 
 

@@ -9,13 +9,16 @@ group). All three compute
     out (M, N) fp32 = sum over groups g, in order, of part_g * scale
 
 with ``part_g`` the group's (M, N) partial product and ``scale`` the group's
-scale row ``s[g, :]`` (qmm4: ``sx[m] * s[g, n]``). The CUDA kernels are
-``ops/csrc/qmm_microbench.cu``; its header says what bounds each one on the
-H100 and how its design answers that. ``block_n`` is the JAX kernel's column
-block, which is the CUDA kernel's column tile, so the bench's ``new_n512``,
-``new_n1024`` and ``new_n2560`` variants are three configurations of one
-kernel. ``block_k`` is the group size, as the JAX code takes it at the
-bench's group of 128.
+scale row ``s[g, :]`` (qmm4: ``sx[m] * s[g, n]``). The CUDA kernel is
+``ops/csrc/qmm_microbench.cu``, one template in three modes; its header
+says what bounds each one on the H100 and how its design answers that.
+One launch a call, no workspace: a CTA walks all of K for a strip of 32
+columns and 8 rows of x, and the grid comes from the shapes (``_grid``),
+never from ``block_n``. ``block_n`` is the JAX kernel's column block: it is
+checked as the JAX code checks it and sets nothing on the card, so the bench's ``new_n512``, ``new_n1024`` and ``new_n2560`` variants
+run one configuration. ``block_k`` is the group size, as the JAX code takes
+it at the bench's group of 128. qmm4 quantizes x inside the kernel, bit for
+bit ``quantize_rows``.
 
 A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
 ``impl="plain"``, takes the plain version (``qmm2_plain``, ``qmm3_plain``,
@@ -23,6 +26,7 @@ A CUDA tensor launches the kernel (or the call raises); a CPU tensor, or
 order.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -32,23 +36,73 @@ from . import build
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("qmm_microbench", )
 _lib = None
+# 0, or a fault planted in the kernel for the card's gates to catch: 1 drops
+# group 1 from the first strip's walk, 2 sums the groups in reverse order
+_plant = 0
 
-# the kernels' staging (ops/csrc/qmm_microbench.cu): chunks of 32 K rows by
-# 128 columns; the x stage holds a group of at most 512 K rows
-_CHUNK_K, _CHUNK_N, _MAX_GS = 32, 128, 512
+_MODES = {"qmm2": 0, "qmm3": 1, "qmm4": 2}
+# the kernel's staging (ops/csrc/qmm_microbench.cu): 32-row mma steps; a
+# group of at most 512 rows (the JAX kernel's largest block); strips of 32
+# columns in clusters of 4 along N that share x's rows (N is a multiple of
+# 128: block_n is, and divides it); TMA boxes of 8 KB (32 columns by 256 K
+# rows) on a ring of at most 5 stages; the rows of x a CTA takes and its
+# warps; the most dynamic shared memory a block may have and what the kernel
+# adds for its 1024-byte alignment
+_STEP_K, _MAX_GS = 32, 512
+_STRIP, _CLUSTER = 32, 4
+_BOX_BYTES, _MAX_STAGES = 8192, 5
+_ROWS_M, _WARPS = 8, 8
+_MAX_SMEM, _SMEM_ALIGN = 232448, 1024
+
+Grid = collections.namedtuple("Grid", "ctas row_tiles stages smem")
 
 
 def _kernel():
     global _lib
     if _lib is None:
         lib = build.load(SOURCES[0])
-        for fn in (lib.qmm2_launch, lib.qmm3_launch):
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.qmm4_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.qmm4_launch.restype = ctypes.c_int
+        lib.qmm_microbench_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                              + [ctypes.c_void_p])
+        lib.qmm_microbench_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _smem_bytes(which, K, G, stages):
+    """A CTA's dynamic shared memory, as the kernel lays it out: the ring of
+    weight boxes; x's rows in 1 KB slabs, a whole number of them for each
+    CTA of the cluster; qmm2's per-warp bf16 copies of a pair of steps;
+    qmm4's int8 rows; the groups' scaled partials; sx; the ring's counters
+    and barriers; the alignment. The launch refuses a figure below the
+    kernel's own ``Layout``."""
+    slabs = -(-(K // 64) // _CLUSTER) * _CLUSTER
+    nbytes = (stages * _BOX_BYTES + slabs * 1024 + (_WARPS * 2 * 32 * 24 * 2 if which == "qmm2" else 0)
+              + (_ROWS_M * (K + 16) if which == "qmm4" else 0) + G * _STRIP * 32 + _ROWS_M * 4 + stages * 4)
+    return -(-nbytes // 8) * 8 + (stages + 1) * 8 + _SMEM_ALIGN
+
+
+def _grid(which, M, K, N, G):
+    """The launch's grid, from the shapes alone: a CTA for each strip of 32
+    columns and tile of 8 rows of x (160 CTAs at the bench's 8x1280x5120);
+    a ring of as many 8 KB boxes as the strip's K rows fill, at most 5.
+    Raises on what the kernel cannot take (a group that is not a multiple of
+    32 rows or longer than 512, a K that is not a multiple of 64, an N that
+    is not a multiple of 128, more shared memory than a block may take)."""
+    gs = K // G
+    if gs % _STEP_K or gs > _MAX_GS:
+        raise ValueError(f"{which} kernel: the group size {gs} must be a multiple of {_STEP_K} "
+                         f"and at most {_MAX_GS}")
+    if K % 64:
+        raise ValueError(f"{which} kernel: K={K} must be a multiple of 64 (x is loaded in 64-column slabs)")
+    if N % (_STRIP * _CLUSTER):
+        raise ValueError(f"{which} kernel: N={N} must be a multiple of {_STRIP * _CLUSTER}")
+    row_tiles = -(-M // _ROWS_M)
+    stages = min(-(-K // (_BOX_BYTES // _STRIP)), _MAX_STAGES)
+    smem = _smem_bytes(which, K, G, stages)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{which} kernel: K={K}, G={G} need {smem} bytes of shared memory a CTA, "
+                         f"more than the {_MAX_SMEM} a block may take")
+    return Grid(N // _STRIP * row_tiles, row_tiles, stages, smem)
 
 
 def _check(x, qw, scales, block_n, block_k):
@@ -97,7 +151,10 @@ def quantize_rows(x):
     127)`` as int8 (``torch.round`` rounds half to even as ``jnp.round``
     does). Returns (xq (M, K) int8, sx (M,) fp32)."""
     xf = x.float()
-    sx = xf.abs().amax(dim=1) / 127.0 + 1e-12
+    amax = xf.abs().amax(dim=1)
+    # a tensor divisor: a CUDA tensor divided by a Python number is
+    # multiplied by its fp32 reciprocal, which is not the division
+    sx = amax / torch.full_like(amax, 127.0) + 1e-12
     xq = torch.clamp(torch.round(xf / sx[:, None]), -127, 127).to(torch.int8)
     return xq, sx
 
@@ -116,14 +173,18 @@ def qmm4_plain(x, qw, scales, block_n=2560, block_k=None, out_dtype=torch.float3
     return acc.to(out_dtype)
 
 
-def _launch(which, x, qw, scales, block_n, block_k, out_dtype):
+def _plan(which, x, qw, scales, block_n, block_k):
+    """The grid of a kernel call, after every check
+    of the call's shapes: ``block_n`` is refused as the JAX code and the
+    earlier grid refused it, and sets nothing."""
     M, K, N, G = _check(x, qw, scales, block_n, block_k)
-    gs = K // G
-    if gs % _CHUNK_K or gs > _MAX_GS:
-        raise ValueError(f"{which} kernel: the group size {gs} must be a multiple of {_CHUNK_K} "
-                         f"and at most {_MAX_GS}")
-    if block_n % _CHUNK_N:
-        raise ValueError(f"{which} kernel: block_n={block_n} must be a multiple of {_CHUNK_N}")
+    if block_n % 128:
+        raise ValueError(f"{which} kernel: block_n={block_n} must be a multiple of 128")
+    return _grid(which, M, K, N, G)
+
+
+def _launch(which, x, qw, scales, block_n, block_k, out_dtype):
+    grid = _plan(which, x, qw, scales, block_n, block_k)
     for name, t, dt in (("x", x, torch.bfloat16), ("qw", qw, torch.int8),
                         ("scales", scales, torch.float32)):
         if t.dtype != dt or t.device != x.device or not t.is_contiguous():
@@ -131,18 +192,13 @@ def _launch(which, x, qw, scales, block_n, block_k, out_dtype):
                              f"got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{which} kernel: {name} must be 16-byte aligned")
+    M, K = x.shape
+    N, G = qw.shape[1], scales.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     lib = _kernel()
-    dims = (M, K, N, G, block_n, build.stream_of(x))
-    if which == "qmm4":
-        xq, sx = quantize_rows(x)  # outside the kernel, as outside pallas_call in JAX
-        ws = torch.empty((G, M, N), dtype=torch.int32, device=x.device)
-        rc = lib.qmm4_launch(xq.data_ptr(), sx.data_ptr(), qw.data_ptr(), scales.data_ptr(),
-                             out.data_ptr(), ws.data_ptr(), *dims)
-    else:
-        ws = torch.empty((G, M, N), dtype=torch.float32, device=x.device)
-        fn = lib.qmm2_launch if which == "qmm2" else lib.qmm3_launch
-        rc = fn(x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(), ws.data_ptr(), *dims)
+    rc = lib.qmm_microbench_launch(_MODES[which], x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
+                                   out.data_ptr(), M, K, N, G, grid.stages, grid.smem, _plant,
+                                   build.stream_of(x))
     build.check(lib, rc, which)
     return out.to(out_dtype)
 
@@ -170,8 +226,9 @@ def qmm3(x, qw, scales, block_n=2560, block_k=None, out_dtype=torch.float32, imp
 
 
 def qmm4(x, qw, scales, block_n=2560, block_k=None, out_dtype=torch.float32, impl="kernel"):
-    """w8a8: x quantized per row (``quantize_rows``), an int8 tensor-core dot
-    with exact int32 partials per group, each scaled by ``sx[m] * s[g, n]``."""
+    """w8a8: x quantized per row (``quantize_rows``'s arithmetic, inside the
+    kernel), an int8 tensor-core dot with exact int32 partials per group,
+    each scaled by ``sx[m] * s[g, n]``."""
     return _route(qmm4, qmm4_plain, x, qw, scales, block_n, block_k, out_dtype, impl)
 
 

@@ -39,7 +39,10 @@ rows and columns of exactly CHUNK and CHUNK + 1 blocks, and the split plan
 against the one-piece plan; different layouts per head; bitwise-equal
 repeats of all three kernels; autograd through ``SparseSelfAttention``; and the ValueErrors for
 what the kernels do not take (fp32, head dim 96, block 48, tables off the
-card).
+card). The decode-shape microbench's kernels (qmm2, qmm3, qmm4) at long K
+and narrow N, bitwise repeats, qmm4's
+in-kernel quantization on ties at .5, a zero row and a large row, and one
+allocation a call (the output).
 ``chip_smoke.py`` covers the main path's shapes; this file covers the rest.
 
 These tests need an NVIDIA card with the CUDA toolkit (a CUDA kernel has no
@@ -1484,10 +1487,12 @@ def test_block_sparse_kernels_refuse_what_they_do_not_take(dev):
 # the decode-shape microbench's kernels (ops/qmm_microbench.py): (M, K, N,
 # G, block_n): the bench's shape at its three qmm2 tilings; fewer rows than
 # the 8-row tile and two row tiles; one group over all of K; the smallest
-# group (32 rows) and the largest (512); the smallest column tile (128)
+# group (32 rows) and the largest (512); the smallest column tile (128); a
+# long K (20 boxes through a ring of 5); a narrow N (8 CTAs, fewer than the
+# SMs)
 MICRO_CASES = [(8, 1280, 5120, 10, 512), (8, 1280, 5120, 10, 1024), (8, 1280, 5120, 10, 2560),
                (5, 256, 384, 1, 128), (13, 512, 1024, 1, 256), (3, 256, 512, 8, 128),
-               (16, 1024, 640, 2, 640)]
+               (16, 1024, 640, 2, 640), (8, 5120, 1280, 40, 1280), (8, 1024, 256, 8, 256)]
 
 
 def _micro_inputs(dev, M, K, N, G, seed):
@@ -1523,6 +1528,48 @@ def test_microbench_kernels_match_plain(dev, which, M, K, N, G, block_n):
         err, tol = float((out - ref).abs().max()), 2.0**-16 * float(ref.abs().max())
         assert err <= tol, f"{which} {M}x{K}x{N} block_n {block_n}: max abs err {err:.3e} > {tol:.3e}"
     assert torch.equal(fn(x, qw, sc, block_n=block_n), out)
+
+
+def test_microbench_qmm4_quantizes_inside_bitwise(dev):
+    """qmm4's in-kernel row quantization against ``quantize_rows`` on rows
+    that test its rounding points: x / sx on ties at .5 (max|x| 127 makes sx
+    1.0, so rint's ties go to even), an all-zero row (sx = 1e-12, xq 0), a
+    row of large magnitude, and random rows: the output bitwise
+    ``qmm4_plain``, and ``quantize_rows`` on the card bitwise its CPU run
+    (fp32 division on both: the plain version the kernel is held to)."""
+    from deepspeed_tpu_torch.ops import qmm_microbench as qm
+    M, K, N, G = 8, 1280, 5120, 10
+    x, qw, sc = _micro_inputs(dev, M, K, N, G, 7)
+    ties = torch.arange(K, device=dev, dtype=torch.float32) % 254 - 126.5
+    ties[0] = 127.0
+    x[0] = ties.to(torch.bfloat16)
+    x[1] = 0
+    x[2] = (x[2].float() * 3e30).to(torch.bfloat16)
+    x[3] = -x[0]
+    xq, sx = qm.quantize_rows(x)
+    cq, csx = qm.quantize_rows(x.cpu())
+    assert torch.equal(xq.cpu(), cq) and torch.equal(sx.cpu(), csx)
+    assert float(sx[0]) == 1.0 and float(sx[1]) == torch.tensor(1e-12).item() and int(xq[1].abs().max()) == 0
+    assert int(xq[0, 1]) == -126 and int(xq[0, 2]) == -124  # -125.5 and -124.5: ties to even
+    out = qm.qmm4(x, qw, sc, block_n=2560)
+    ref = qm.qmm4_plain(x, qw, sc, block_n=2560)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), f"qmm4: max abs err {float((out - ref).abs().max()):.3e}"
+
+
+@pytest.mark.parametrize("which", ["qmm2", "qmm3", "qmm4"])
+def test_microbench_launch_allocates_only_out(dev, which):
+    """One launch and no workspace: a call's device memory grows by its
+    output alone."""
+    from deepspeed_tpu_torch.ops import qmm_microbench as qm
+    x, qw, sc = _micro_inputs(dev, 8, 1280, 5120, 10, 3)
+    fn = getattr(qm, which)
+    fn(x, qw, sc, block_n=2560)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = fn(x, qw, sc, block_n=2560)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) - before == out.untyped_storage().nbytes() == 8 * 5120 * 4
 
 
 def test_microbench_kernels_refuse_what_they_do_not_take(dev):

@@ -8,7 +8,10 @@ wrapped with ``interpret=True`` for the test's duration; the file itself is
 not touched), at the bench's full width 8 x 1280 x 5120, against the port's
 plain versions on the same numpy inputs. The CUDA kernels cannot run here;
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` hold them against
-these plain versions on the card."""
+these plain versions on the card. The kernel's launch grid, chosen on the
+host (``_grid``, ``_plan``), is checked here: every output covered once, the
+card filled at the bench's shape, no dependence on ``block_n``, and the
+refusals of what the kernel cannot take."""
 
 import functools
 import importlib.util
@@ -150,3 +153,62 @@ def test_bench_variant_matches_jax(qb, monkeypatch, name):
     tol = (2.0**-22 if name == "w8a8_n2560" else 2.0**-20) * np.abs(ref).max()
     np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
     assert tbench.VARIANTS[name][2] == qb.VARIANTS[name][1]  # the JAX file's byte counts
+
+
+# the kernel's launch grid (``_grid``), checked on the CPU: (M, K, N, G)
+GRID_SHAPES = [(8, 1280, 5120, 10), (5, 256, 384, 1), (13, 512, 1024, 1), (3, 256, 512, 8), (16, 1024, 640, 2),
+               (8, 5120, 1280, 40), (8, 1024, 256, 8), (8, 1280, 10240, 10), (8, 1280, 20480, 10),
+               (33, 1280, 5120, 10), (8, 1280, 8576, 10), (8, 1280, 17024, 10)]
+
+
+@pytest.mark.parametrize("which", ["qmm2", "qmm3", "qmm4"])
+@pytest.mark.parametrize("M,K,N,G", GRID_SHAPES)
+def test_grid_covers_every_output_once(which, M, K, N, G):
+    """Every (row, column) of out belongs to exactly one CTA: strips of 32
+    columns by tiles of 8 rows; the cluster divides the strips and the smem
+    fits a block."""
+    grid = tq._grid(which, M, K, N, G)
+    strip = tq._STRIP
+    cover = np.zeros((grid.row_tiles * 8, N), np.int64)
+    for by in range(grid.row_tiles):
+        for bx in range(N // strip):
+            cover[by * 8:(by + 1) * 8, bx * strip:(bx + 1) * strip] += 1
+    assert grid.ctas == (N // strip) * grid.row_tiles
+    assert (cover[:M] == 1).all() and grid.row_tiles == -(-M // 8)
+    assert (N // strip) % tq._CLUSTER == 0 and grid.smem <= tq._MAX_SMEM
+
+
+@pytest.mark.parametrize("which", ["qmm2", "qmm3", "qmm4"])
+def test_grid_fills_the_card_at_the_bench_shape(which):
+    """At 8x1280x5120 on 132 SMs: at least a CTA an SM, two CTAs fit an SM's
+    228 KB, at least 3 stages of 8 KB each, and at least 3.3 MB of weight
+    bytes in flight over the card (Little's law at 3.35 TB/s and ~1 us)."""
+    grid = tq._grid(which, 8, 1280, 5120, 10)
+    assert grid.ctas >= 132 and grid.stages >= 3
+    assert 2 * (grid.smem + 1024) <= 233472
+    assert grid.ctas * grid.stages * tq._BOX_BYTES >= 3.3e6
+
+
+@pytest.mark.parametrize("which", ["qmm2", "qmm3", "qmm4"])
+def test_grid_does_not_depend_on_block_n(which):
+    """``block_n`` is checked as the JAX code checks it and sets nothing: the
+    bench's three qmm2 tilings, and every other legal block, give one grid."""
+    _, (x, qw, sc) = _layer()
+    grids = {tq._plan(which, x, qw, sc, bn, None) for bn in (128, 256, 512, 640, 1024, 1280, 2560, 5120)}
+    assert len(grids) == 1
+
+
+@pytest.mark.parametrize("which,M,K,N,G,block_n,match", [
+    ("qmm2", 8, 384, 256, 8, 128, "multiple of 32"),   # groups of 48 rows
+    ("qmm3", 8, 2048, 256, 2, 128, "at most 512"),     # groups of 1024 rows
+    ("qmm4", 8, 96, 256, 1, 128, "multiple of 64"),    # K = 96: one group of 96, x's slabs of 64
+    ("qmm2", 8, 32768, 256, 64, 128, "shared memory"),  # x's rows alone fill a block's shared memory
+    ("qmm3", 8, 256, 256, 2, 64, "multiple of 128"),   # block_n 64
+    ("qmm4", 8, 256, 512, 2, 384, "block_n"),          # block_n does not divide N
+])
+def test_grid_refuses_what_the_kernel_cannot_take(which, M, K, N, G, block_n, match):
+    """The host refuses, before any launch, what the kernel cannot take."""
+    x, qw, sc = torch.zeros((M, K), dtype=torch.bfloat16), torch.zeros((K, N), dtype=torch.int8), \
+        torch.zeros((G, N), dtype=torch.float32)
+    with pytest.raises(ValueError, match=match):
+        tq._plan(which, x, qw, sc, block_n, None)
