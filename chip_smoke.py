@@ -72,6 +72,19 @@ Phases (any failure ends the run with a non-zero exit):
    monolithic leg (``prefill_chunk=0``, the mixed stream: exact counts per
    prefill bucket, each bucket's first-token logits kernels vs plain,
    tokens/s, TTFT, streams parting from the chunked run's);
+   Then the gateway phase on the fused engine's weights (``params=``):
+   ``quantize_kv_rows`` on the card bitwise its CPU run at fp16 scale
+   edges; the same serving config behind the HTTP gateway with telemetry on
+   (``deepspeed_tpu_torch.serving.Gateway``, port 0): the mixed stream as 32
+   concurrent streaming POSTs, each SSE stream bitwise its direct
+   ``scheduler().submit()``, exact launch counts, HTTP tokens/s beside the
+   in-process stream's, TTFB and queue wait, the capacity gauges
+   (``serving/mfu``, ``serving/hbm_bw_util`` in (0, 1.05]) and the host-gap
+   buckets in ms per sync (summing to ``serving/host_gap_ms`` within 1%),
+   ``/v1/metrics`` as JSON and Prometheus text, a drain and a 503 after it;
+   the int8-KV leg (8 requests, bitwise, exact counts) under a ``POST
+   /v1/debug/profile`` capture (409 on a second; the device busy share);
+   ``tools/trace_summary.py`` on the JSONL;
 5. llama3-8b at full width, depth cut to 2 layers (set-up time), fused, so
    RoPE, RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to
    end, through generate() and through the scheduler (4 slots, 8 requests);
@@ -1698,7 +1711,8 @@ def gpt2_large_phase(torch, card, fused):
     main path, then the serving phase on the same engine; else
     ``fused_decode_block: False`` (the per-projection path). Returns (launch
     counts of the greedy run, greedy rows, the serving phase's (mixed
-    stream, int8 KV leg) launch counts or None)."""
+    stream, int8 KV leg) launch counts or None, the engine's int8 weights
+    for the gateway phase or None)."""
     import numpy as np
     import deepspeed_tpu_torch
     B, P, NEW = 8, 128, 128
@@ -1750,9 +1764,10 @@ def gpt2_large_phase(torch, card, fused):
     serve_counts = serving_phase(torch, eng, card) if fused else None
     if not fused:
         per_projection_streams(torch, eng)
+    params = eng.params if fused else None
     del eng
     torch.cuda.empty_cache()
-    return counts, greedy, serve_counts
+    return counts, greedy, serve_counts, params
 
 
 # a CUPTI overhead record of launch back-pressure (the host waiting on a
@@ -2358,6 +2373,327 @@ def int8_kv_leg(torch, eng, prompts):
     del q_s
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the serving gateway over HTTP, with telemetry
+
+
+GATEWAY_KV_REQUESTS = 8
+GATEWAY_SAMPLE_EVERY = 8
+_PROM_LINE = r"^(# (TYPE|HELP) .*|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? ([0-9eE.+-]+|NaN|[+-]Inf)( [0-9]+)?)$"
+
+
+def fp16_edge_rows(torch, dev, seed=5):
+    """K/V rows (1, 4, T, 16) whose max |x| puts max / 127 at an fp16
+    rounding edge where the exact quotient and the product with
+    fp32(1/127) round to different fp16 scales (the 127 multiples of fp16
+    midpoints and their fp32 neighbours), then random rows. Returns (k, v,
+    edge rows)."""
+    h = torch.arange(0x1400, 0x4400, dtype=torch.int32).to(torch.int16).view(torch.float16).float()
+    mid = ((h[:-1].double() + h[1:].double()) / 2 * 127).float()
+    cands = torch.cat([torch.nextafter(mid, mid + s) for s in (-1, 1)] + [mid])
+    quot = (cands / torch.full_like(cands, 127.0)).half()
+    recip = (cands * torch.tensor(1 / 127, dtype=torch.float32)).half()
+    edges = cands[quot != recip]
+    n = edges.numel()
+    g = torch.Generator().manual_seed(seed)
+    k = torch.rand((1, 4, n + 16, 16), generator=g) * 2 - 1
+    v = torch.rand((1, 4, n + 16, 16), generator=g) * 2 - 1
+    k[0, :, :n] *= edges[None, :, None] / 2
+    v[0, :, :n] *= edges[None, :, None] / 2
+    k[0, 1, :n, 3] = -edges
+    return k.to(dev), v.to(dev), n
+
+
+def kv_quant_check(torch, dev):
+    """``quantize_kv_rows`` (the int8 KV pool's row quantizer) on the card
+    bitwise its CPU run, int8 rows and fp16 scales, on rows at fp16
+    rounding edges and random rows."""
+    from deepspeed_tpu_torch.ops.quantizer import quantize_kv_rows
+    k, v, n = fp16_edge_rows(torch, dev)
+    kq, vq, sc = quantize_kv_rows(k, v)
+    ck, cv, cs = quantize_kv_rows(k.cpu(), v.cpu())
+    same = (torch.equal(sc.cpu().view(torch.int16), cs.view(torch.int16))
+            and torch.equal(kq.cpu(), ck) and torch.equal(vq.cpu(), cv))
+    # the repaired fault: the same scales with the divisor a Python 127.0
+    amax = torch.maximum(k.float().abs().amax(dim=(1, 3)), v.float().abs().amax(dim=(1, 3)))
+    old = torch.clamp(amax / 127.0, min=1e-8).half()
+    moved = int((old.cpu().view(torch.int16) != sc.reshape(old.shape).cpu().view(torch.int16)).sum())
+    log(f"quantize_kv_rows on the card vs the CPU: {n} rows at fp16 scale edges + 16 random, "
+        f"int8 rows and fp16 scales bitwise equal: {same}; a Python 127.0 divisor would give "
+        f"{moved} of these {n + 16} rows another fp16 scale on this device")
+    check(same, "quantize_kv_rows differs between the card and the CPU")
+
+
+def _http(port, method, path, body=None, headers=None, timeout=600):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, json.dumps(body) if body is not None else None, headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def http_stream(port, prompts, max_new):
+    """Every prompt as a concurrent streaming POST from its own client
+    thread, all sent at once. Returns (per-request (status, token ids,
+    client TTFB ms, finish reason), wall s from the first send to the
+    last [DONE])."""
+    import http.client
+    import threading
+    out = [None] * len(prompts)
+    go = threading.Event()
+
+    def client(i):
+        go.wait()
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        toks, ttfb, reason = [], None, None
+        try:
+            conn.request("POST", "/v1/completions",
+                         json.dumps({"prompt": [int(t) for t in prompts[i]], "max_tokens": max_new,
+                                     "stream": True}), {"x-tenant-id": f"client{i % 4}"})
+            resp = conn.getresponse()
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                if ttfb is None:
+                    ttfb = (time.perf_counter() - t0) * 1e3
+                choice = json.loads(line[6:])["choices"][0]
+                toks += choice["token_ids"]
+                reason = choice["finish_reason"] or reason
+            out[i] = (resp.status, toks, ttfb, reason)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(i, ), daemon=True) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    go.set()
+    for t in threads:
+        t.join(600)
+        check(not t.is_alive(), "gateway: a client thread did not finish within 600 s")
+    return out, time.perf_counter() - t0
+
+
+def device_busy_share(path):
+    """(busy ms, window ms) of a torch.profiler Chrome trace: the union of
+    its device kernel intervals over the span of all its events; None
+    without device events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e and e.get("ph") == "X"]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                     for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    return busy / 1e3, (hi - lo) / 1e3
+
+
+def gap_breakdown(snap):
+    """The host-gap buckets, the sync launch and wait times, in ms per
+    sync, from a telemetry snapshot, and the gap total against the buckets'
+    sum."""
+    hist = snap["histograms"]
+    n = max(1, hist["serving/host_gap_ms"]["count"])
+    buckets = {k.split("/")[-1][:-3]: v["total"] / n for k, v in snap["counters"].items()
+               if k.startswith("serving/host_gap/")}
+    per_sync = {name: hist[f"serving/sync_{name}_ms"]["sum"] / max(1, hist[f"serving/sync_{name}_ms"]["count"])
+                for name in ("launch", "wait")}
+    return buckets, per_sync, hist["serving/host_gap_ms"]["sum"] / n, n
+
+
+def gateway_phase(torch, card, params, model="gpt2-large"):
+    """gpt2-large int8 (serving_phase's configuration: kernel-injected,
+    fused, 8 slots x 512, K = 4, chunk 64) behind the HTTP gateway on the
+    card, with telemetry on (a capacity sample every 8th sync), on the
+    fused engine's weights (``params=``: no second random init). The mixed
+    stream's 32 requests go as concurrent streaming POSTs; each stream must
+    equal bitwise the same request's tokens from a direct
+    ``scheduler().submit()`` on the engine, with exact launch counts. Then,
+    through HTTP: /v1/metrics as JSON and Prometheus text (requests
+    counted, ``serving/mfu`` and ``serving/hbm_bw_util`` in (0, 1.05], the
+    host-gap buckets summing to ``serving/host_gap_ms`` within 1%), a drain
+    and a 503 after it. The int8-KV leg serves the first 8 requests the
+    same way on an int8 pool (bitwise its direct run, the int8 variants'
+    exact counts) under a ``POST /v1/debug/profile`` capture (the device's
+    busy share). ``tools/trace_summary.py`` must read the JSONL. Logs HTTP
+    against in-process tokens/s, TTFB p50/p95, queue-wait p95, the busy
+    share and the host-gap buckets in ms per sync. Returns the bf16 and the
+    int8-KV streams' launch counts."""
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    from deepspeed_tpu_torch.serving import Gateway
+    from deepspeed_tpu_torch.telemetry import set_sink
+    kv_quant_check(torch, torch.device("cuda"))
+    tel_dir = tempfile.mkdtemp(prefix="gateway_telemetry_")
+    config = {**SERVE_CONFIG,
+              "telemetry": {"enabled": True, "output_path": tel_dir, "flush_interval": 1000,
+                            "capacity_sample_every": GATEWAY_SAMPLE_EVERY},
+              "gateway": {"port": 0, "max_queue_depth": 64, "request_timeout_s": 600.0,
+                          "drain_timeout_s": 120.0}}
+    set_sink(None)
+    eng = deepspeed_tpu_torch.init_inference(model, config=config, params=params)
+    check(eng.telemetry.enabled, "gateway phase: the telemetry sink is off")
+    vocab = eng.model_config.vocab_size
+    prompts = [p % vocab for p in mixed_stream()]
+    warm = np.random.default_rng(SEED + 99).integers(0, vocab, 40).astype(np.int32)
+
+    # the reference: the same stream by direct submit on the engine's scheduler
+    sched = eng.scheduler()
+    check(sched._fused_block, f"gateway phase: fused gate closed ({sched._fused_block_reasons})")
+    serve(sched, [warm], max_new=8)
+    direct, _, wall_direct, _, _ = serve(sched, prompts)
+    n_direct = sum(len(o) for o in direct)
+    eng._scheduler = sched = None
+    torch.cuda.empty_cache()
+
+    gw = Gateway(eng).start_background(timeout=300)
+    sched = gw.scheduler
+    try:
+        status, _, _ = _http(gw.port, "POST", "/v1/completions",
+                             {"prompt": warm.tolist(), "max_tokens": 8})
+        check(status == 200, f"gateway warm-up request answered {status}")
+        torch.cuda.synchronize()
+        sched.forwards.clear()
+        reset_counts()
+        res, wall = http_stream(gw.port, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_serve_counts(sched, counts, "gateway stream (bf16 KV)")
+        for i, (status, toks, _, reason) in enumerate(res):
+            check(status == 200 and reason == "length", f"gateway request {i}: {status} {reason}")
+            check(toks == direct[i].tolist(),
+                  f"gateway request {i}: the SSE stream differs from direct submit")
+        n_http = sum(len(r[1]) for r in res)
+        ttfb = [r[2] for r in res]
+        snap = eng.telemetry.snapshot()
+        qw = snap["histograms"]["gateway/queue_wait_ms"]
+        log(f"gateway (HTTP/1.1 + SSE, {len(prompts)} concurrent streaming POSTs, the mixed stream, "
+            f"{SERVE_NEW} new each, 8 slots, K=4, chunk 64): {n_http} tokens in {wall:.3f} s = "
+            f"{n_http / wall:.1f} tokens/s; in-process direct submit of the same stream "
+            f"{n_direct / wall_direct:.1f} tokens/s ({wall_direct:.3f} s); HTTP/in-process "
+            f"{(n_http / wall) / (n_direct / wall_direct):.3f}; client TTFB p50 {_pct(ttfb, 50):.1f} ms, "
+            f"p95 {_pct(ttfb, 95):.1f} ms; queue wait p95 {qw['p95']:.1f} ms (p50 {qw['p50']:.1f}); "
+            f"streams bitwise equal to direct submit {len(res)}/{len(res)} on {card}")
+
+        # the metrics surface
+        status, _, body = _http(gw.port, "GET", "/v1/metrics")
+        metrics = json.loads(body)
+        sent = 1 + len(prompts)
+        tel_req = metrics["telemetry"]["counters"]["gateway/requests"]["total"]
+        check(status == 200 and metrics["gateway"]["requests"] == sent == tel_req,
+              f"gateway/requests {metrics['gateway']['requests']} (sink {tel_req}) != {sent} sent")
+        status, headers, body = _http(gw.port, "GET", "/v1/metrics", headers={"Accept": "text/plain"})
+        text = body.decode()
+        bad = [line for line in text.strip().splitlines() if not re.match(_PROM_LINE, line)]
+        check(status == 200 and headers["Content-Type"].startswith("text/plain") and not bad,
+              f"Prometheus text: {status}, unparseable lines {bad[:3]}")
+        check(f"dstpu_gateway_requests_total {sent}" in text, "Prometheus text lacks the request count")
+        g = metrics["telemetry"]["gauges"]
+        mfu, bw = g.get("serving/mfu", 0.0), g.get("serving/hbm_bw_util", 0.0)
+        check(0.0 < mfu <= 1.05 and 0.0 < bw <= 1.05, f"serving/mfu {mfu}, serving/hbm_bw_util {bw}")
+        buckets, per_sync, gap_ms, n_gaps = gap_breakdown(metrics["telemetry"])
+        total = sum(buckets.values())
+        check(abs(total - gap_ms) <= 0.01 * gap_ms,
+              f"host-gap buckets sum {total:.6f} ms != serving/host_gap_ms {gap_ms:.6f} ms")
+        step_ms = metrics["telemetry"]["histograms"]["serving/step_ms"]
+        log(f"gateway capacity (a fenced sync every {GATEWAY_SAMPLE_EVERY}th; last sample): serving/mfu "
+            f"{mfu:.5f}, serving/hbm_bw_util {bw:.5f}, roofline "
+            f"{ {k.split('/')[-1]: round(v, 4) for k, v in g.items() if k.startswith('serving/roofline/')} }; "
+            f"programs {metrics['capacity']['programs']}")
+        log(f"gateway host gap per sync over {n_gaps} syncs: {gap_ms:.4f} ms = "
+            + " + ".join(f"{k} {v:.4f}" for k, v in buckets.items())
+            + f" (sum {total:.4f}); a sync's launch (host enqueue of its forwards) "
+            f"{per_sync['launch']:.4f} ms, its wait on the device {per_sync['wait']:.4f} ms; "
+            f"serving/step_ms p50 {step_ms['p50']:.3f}")
+
+        # drain with a request in flight: it finishes in full, the door closes
+        import threading
+        held = []
+        t = threading.Thread(target=lambda: held.append(http_stream(gw.port, [warm], 128)[0][0]))
+        t.start()
+        deadline = time.monotonic() + 120
+        while not gw._active and time.monotonic() < deadline:
+            time.sleep(0.005)
+        check(bool(gw._active), "gateway: the drain's in-flight request was never admitted")
+        gw.begin_drain()
+        status, headers, _ = _http(gw.port, "POST", "/v1/completions", {"prompt": [1, 2, 3], "max_tokens": 2})
+        check(status == 503 and int(headers.get("Retry-After", 0)) >= 1,
+              f"gateway: {status} after the drain began, expected 503 with a Retry-After")
+        t.join(600)
+        check(not t.is_alive() and held and held[0][0] == 200 and len(held[0][1]) == 128,
+              "gateway: the request in flight at the drain did not finish in full")
+        check(gw.wait_drained(120), "gateway: the drain did not complete")
+    finally:
+        gw.close(timeout=120)
+    eng._scheduler = sched = None
+    torch.cuda.empty_cache()
+
+    # the int8 KV leg: the first 8 requests on an int8 pool, profiled
+    kv_prompts = prompts[:GATEWAY_KV_REQUESTS]
+    ref = DecodeScheduler(eng, num_slots=8, steps_per_sync=4, kv_cache_dtype="int8")
+    serve(ref, [warm], max_new=8)
+    direct_q, _, _, _, _ = serve(ref, kv_prompts)
+    del ref
+    torch.cuda.empty_cache()
+    eng.scheduler(kv_cache_dtype="int8")
+    gw = Gateway(eng).start_background(timeout=300)
+    sched = gw.scheduler
+    try:
+        _http(gw.port, "POST", "/v1/completions", {"prompt": warm.tolist(), "max_tokens": 8})
+        torch.cuda.synchronize()
+        sched.forwards.clear()
+        reset_counts()
+        status, _, body = _http(gw.port, "POST", "/v1/debug/profile", {"duration_ms": 1500})
+        check(status == 200, f"POST /v1/debug/profile answered {status}")
+        trace_dir = json.loads(body)["path"]
+        status, _, _ = _http(gw.port, "POST", "/v1/debug/profile", {"duration_ms": 100})
+        check(status == 409, f"a second POST /v1/debug/profile answered {status}, expected 409")
+        res_q, wall_q = http_stream(gw.port, kv_prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        counts_q = read_counts()
+        check_serve_counts(sched, counts_q, "gateway stream (int8 KV)", int8_kv=True)
+        for i, (status, toks, _, _) in enumerate(res_q):
+            check(status == 200 and toks == direct_q[i].tolist(),
+                  f"gateway int8-KV request {i}: the SSE stream differs from direct submit")
+    finally:
+        check(gw.close(timeout=120), "gateway (int8 KV) did not drain")
+    busy = device_busy_share(os.path.join(trace_dir, "capture.trace.json"))
+    n_q = sum(len(r[1]) for r in res_q)
+    log(f"gateway int8-KV leg ({len(kv_prompts)} streaming POSTs): {n_q} tokens in {wall_q:.3f} s = "
+        f"{n_q / wall_q:.1f} tokens/s, streams bitwise equal to direct submit {len(res_q)}/{len(res_q)}; "
+        + ("device busy share not measured (the capture holds no device kernel)" if busy is None else
+           f"device busy {busy[0]:.3f} ms of a {busy[1]:.3f} ms torch.profiler capture "
+           f"(POST /v1/debug/profile, 1.5 s) = {busy[0] / busy[1]:.4f}"))
+    eng.telemetry.flush()
+    summary = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "trace_summary.py"),
+                              eng.telemetry.jsonl_path], capture_output=True, text=True, timeout=120)
+    check(summary.returncode == 0, f"tools/trace_summary.py failed: {summary.stderr[-500:]}")
+    for line in summary.stdout.splitlines():
+        if "host_gap" in line or "ttfb" in line or "sync_" in line:
+            log(f"  trace_summary: {line.strip()}")
+    eng.telemetry.close()
+    set_sink(None)
+    shutil.rmtree(tel_dir)
+    del eng
+    torch.cuda.empty_cache()
+    return counts, counts_q
 
 
 def llama_serving_phase(torch, eng):
@@ -3264,8 +3600,8 @@ def main(argv=()):
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
         return 0
-    counts, fused_greedy, (serve_counts, int8_counts) = timed_phase("gpt2-large fused and serving",
-                                                                     gpt2_large_phase, torch, card, fused=True)
+    counts, fused_greedy, (serve_counts, int8_counts), params = timed_phase(
+        "gpt2-large fused and serving", gpt2_large_phase, torch, card, fused=True)
     for name, n in counts.items():  # the static generate() path
         if name in results and n:
             results[name]["launches"] = n
@@ -3274,7 +3610,13 @@ def main(argv=()):
     for name in ("paged_decode_attention", "paged_span_attention"):
         results[name]["launches"] = serve_counts[name]
         results[name + "_int8"]["launches"] = int8_counts[name + "_int8"]
-    _, unfused_greedy, _ = timed_phase("gpt2-large per-projection", gpt2_large_phase, torch, card, fused=False)
+    # the serving gateway over HTTP on the same weights (its launches are
+    # checked and logged there; the kernel rows keep the scheduler's)
+    timed_phase("gateway", gateway_phase, torch, card, params)
+    del params
+    torch.cuda.empty_cache()
+    _, unfused_greedy, _, _ = timed_phase("gpt2-large per-projection", gpt2_large_phase, torch, card,
+                                          fused=False)
     # the two paths round in other places (bias and RoPE in fp32 before the
     # cast in the fused kernels), so their streams may part where two logits
     # are close: reported, not required

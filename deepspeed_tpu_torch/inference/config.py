@@ -436,7 +436,7 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
 
 
 class GatewayConfig(DeepSpeedConfigModel):
-    """Serving-gateway section (``deepspeed_tpu/serving/``): the stdlib
+    """Serving-gateway section (``deepspeed_tpu_torch/serving/``): the stdlib
     HTTP frontend over the continuous-batching scheduler — admission
     control, per-tenant weighted fair queuing, SSE token streaming, and
     graceful drain. See ``benchmarks/SERVING.md`` ("Gateway")."""
@@ -541,10 +541,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         """Sections the port has no subsystem for yet: accepted while off,
         refused when on, each naming its ROADMAP Queue 1 item."""
         unported = self.continuous_batching.unported()
-        if self.gateway.to_dict() != GatewayConfig().to_dict():
-            unported.append("gateway (ROADMAP Queue 1 #6, serving and telemetry)")
-        if dict(self.telemetry or {}).get("enabled"):
-            unported.append("telemetry.enabled (ROADMAP Queue 1 #6, serving and telemetry)")
         if self.moe.to_dict() != MoEInferenceConfig().to_dict():
             unported.append("moe (ROADMAP Queue 1 #7, distributed runtime: MoE)")
         if self.checkpoint is not None:

@@ -24,6 +24,14 @@ each row through the shared continuous-batching scheduler
 (:meth:`InferenceEngine.scheduler`, ``inference/scheduler.py``); its
 handles return what ``generate()`` returns.
 
+Telemetry: the engine reuses an already-installed enabled global sink
+(``telemetry.get_sink()``, e.g. a training engine's, so training and
+serving share one event stream), else builds one from the config's
+``telemetry`` section; ``generate()`` records a ``generate`` span, the
+``decode/latency_ms_per_token`` and ``decode/ttft_ms`` histograms and the
+``decode/tokens`` counter, and the scheduler and the serving gateway
+report through the same sink.
+
 Batched generation follows the JAX engine: a uniform batch is right-padded
 to the 64-token prompt bucket and decoding starts at the true length (no
 cache mask, so a prompt of >= 128 tokens prefills through the flash
@@ -38,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..accelerator import resolve_device
+from ..telemetry import TelemetrySink, get_sink, set_sink
 from ..utils.logging import logger, log_dist
 from .config import DeepSpeedInferenceConfig
 
@@ -133,6 +142,15 @@ class InferenceEngine:
         self.net = self.module.bind(self.params)
         self._cache_pool = {}  # (B, S) -> reusable KV cache buffers
         self._scheduler = None
+        # an installed enabled sink first, else this config's section
+        self.telemetry = get_sink()
+        if self.telemetry is None or not self.telemetry.enabled:
+            if dict(cfg.telemetry or {}).get("enabled"):
+                self.telemetry = TelemetrySink(cfg.telemetry)
+                set_sink(self.telemetry)
+            elif self.telemetry is None:
+                self.telemetry = TelemetrySink(None)
+        self._inflight = 0  # static submits not yet fetched
         fused = ""
         if self._fused_decode_note:
             fused = f" fused_decode=off ({self._fused_decode_note})"
@@ -145,12 +163,15 @@ class InferenceEngine:
     # ------------------------------------------------------------------ params
     def _materialize_params(self, params):
         """Random init (seed 0) or the given state dict; int8 quantizes on the
-        host BEFORE the copy to the device (the float weights never reach it)."""
+        host BEFORE the copy to the device (the float weights never reach it).
+        An int8 engine also takes an int8 engine's own ``params`` (the
+        quantized tree, ``logits_q`` and all) as they are: tensors already on
+        the device are shared, not copied."""
         if params is None:
             logger.warning("init_inference: no params given; initializing random weights")
             init_cfg = dataclasses.replace(self.model_config, int8_weights=False)
             params = type(self.module)(init_cfg).init_params(0)
-        if self._int8_weights:
+        if self._int8_weights and "logits_q" not in params:
             params = self.module.quantize_params(params)
         dtype = self.model_config.dtype
         out = {}
@@ -284,11 +305,31 @@ class InferenceEngine:
         """Batched generation. ``input_ids``: list of token lists or (B, P)
         array. Returns a list of 1-D np arrays of *new* tokens per row
         (trimmed at ``eos_token_id``)."""
+        tel = self.telemetry
+        t0 = tel.now() if tel.enabled else None
         buf, trim = self._generate_raw(input_ids, max_new_tokens=max_new_tokens,
                                        do_sample=do_sample, temperature=temperature,
                                        top_k=top_k, top_p=top_p, eos_token_id=eos_token_id,
                                        pad_token_id=pad_token_id, seed=seed)
-        return trim(buf.cpu().numpy())
+        out = trim(buf.cpu().numpy())
+        if t0 is not None:
+            self._record_decode(t0, out, max_new_tokens)
+        return out
+
+    def _record_decode(self, t0, out, max_new_tokens):
+        """Decode telemetry for one finished generate: a ``generate`` span,
+        the per-token-step latency and TTFT histograms. The whole batch
+        comes back at once, so TTFT here is the request's completion
+        latency (the scheduler's ``serving/ttft_ms`` is the first token's)."""
+        tel = self.telemetry
+        dur = tel.now() - t0
+        n_steps = max(1, max((len(r) for r in out), default=1))
+        tokens = int(sum(len(r) for r in out))
+        tel.record_span("generate", t0, dur, attrs={"batch": len(out), "tokens": tokens,
+                                                    "max_new_tokens": int(max_new_tokens)})
+        tel.histogram("decode/latency_ms_per_token", dur * 1e3 / n_steps)
+        tel.histogram("decode/ttft_ms", dur * 1e3)
+        tel.counter("decode/tokens", tokens)
 
     def _generate_raw(self, input_ids, max_new_tokens=64, do_sample=False, temperature=1.0,
                       top_k=0, top_p=1.0, eos_token_id=None, pad_token_id=0, seed=0):
@@ -441,13 +482,39 @@ class InferenceEngine:
         ``result()`` fetches it."""
         if self._config.continuous_batching.enabled:
             return self._submit_continuous(input_ids, **kwargs)
+        tel = self.telemetry
+        t0 = tel.now() if tel.enabled else None
         buf, trim = self._generate_raw(input_ids, **kwargs)
+        if t0 is not None:
+            self._inflight += 1
+            tel.gauge("inference/queue_depth", self._inflight)
+        eng, max_new = self, kwargs.get("max_new_tokens", 64)
 
         class _Handle:
             done = True
+            _accounted = False
+
+            def _settle(self_h):
+                if t0 is not None and not self_h._accounted:
+                    self_h._accounted = True
+                    eng._inflight -= 1
+                    tel.gauge("inference/queue_depth", eng._inflight)
+                    return True
+                return False
 
             def result(self_h):
-                return trim(buf.cpu().numpy())
+                out = trim(buf.cpu().numpy())
+                if self_h._settle():
+                    eng._record_decode(t0, out, max_new)
+                return out
+
+            def __del__(self_h):
+                # an abandoned handle settles the queue-depth gauge, and never
+                # raises (at interpreter exit the sink may be gone)
+                try:
+                    self_h._settle()
+                except Exception:
+                    pass
 
         return _Handle()
 

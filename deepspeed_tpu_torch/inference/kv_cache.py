@@ -298,6 +298,11 @@ class SlotKVCache:
         """Total device bytes held by the fixed-shape pool."""
         return self.bytes_per_token() * self.num_slots * self.max_len
 
+    def live_bytes(self):
+        """Bytes backing live + retained rows (the working set; the rest of
+        ``capacity_bytes`` is preallocated headroom)."""
+        return (self.live_tokens() + self.cached_tokens()) * self.bytes_per_token()
+
     def check_invariants(self):
         """Every slot is in exactly one state; the free list matches the
         state row; refs only on active/cached slots; every chain leads with
@@ -504,6 +509,10 @@ class RadixPrefixCache:
                     best, best_tick = s, self._lru.get(s, 0)
             stack.extend(n.children.values())
         return best
+
+    def hit_rate(self):
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
 
     def touch(self, slot):
         """LRU bump on a prefix hit."""

@@ -85,11 +85,27 @@ in every dispatch that carries extent operands (the fused kernels walk no
 extents), the per-projection ``apply_with_cache``. Both write and read the
 same pool.
 
-Not ported, each raising naming its ROADMAP item: telemetry (Queue 1 #6),
-sharding the seq-parallel prefill across devices (#7), the hierarchical KV
-tier and with it lossless extent demotion (#8), multi-LoRA, cold-expert
-offload, disaggregation, the weight-swap protocol and migration (#9, RLHF
-and disaggregated serving).
+**Telemetry** (the engine's sink, ``telemetry/``): the JAX scheduler's
+counters, gauges and histograms (``serving/admitted``, ``decode_steps``,
+``decode_tokens``, ``step_ms``, ``ttft_ms``, ``queue_depth``, prefix-cache
+hits, cancellations, ...), a ``sched/step`` span per iteration with flow
+links to the phases of the requests it served (``submit(trace=...)``: a
+:class:`~deepspeed_tpu_torch.telemetry.tracing.RequestTrace`), the capacity
+meter (every ``capacity_sample_every``-th sync drains the device before its
+dispatch, so the wall time to its fetch prices ``serving/mfu`` and
+``serving/hbm_bw_util``) and the host-gap tracker (the device-idle time
+between a sync's fetch and the next dispatch, split into admission, trie
+probe, sampling, on_token delivery and other). The port adds two
+histograms per sync: ``serving/sync_launch_ms``, the host time from the
+dispatch's first launch to its fetch call (the Python loop that enqueues
+the forwards), and ``serving/sync_wait_ms``, the time the fetch then
+blocks on the device. With the sink disabled every hook is one attribute
+test: nothing is allocated and nothing fenced.
+
+Not ported, each raising naming its ROADMAP item: sharding the seq-parallel
+prefill across devices (#7), the hierarchical KV tier and with it lossless
+extent demotion (#8), multi-LoRA, cold-expert offload, disaggregation, the
+weight-swap protocol and migration (#9, RLHF and disaggregated serving).
 """
 
 import collections
@@ -181,10 +197,10 @@ class _Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id", "do_sample", "temperature",
                  "top_k", "top_p", "seed", "slot", "out", "logits", "done", "cancelled",
                  "submit_ts", "first_token_ts", "collect_logits", "on_token", "kv_window",
-                 "row_budget")
+                 "row_budget", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature, top_k,
-                 top_p, seed, collect_logits, on_token=None, kv_window=None):
+                 top_p, seed, collect_logits, on_token=None, kv_window=None, trace=None):
         self.rid = rid
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size < 1:
@@ -211,6 +227,7 @@ class _Request:
         # sizes an extent chain from prompt + row_budget, so a chain never
         # runs out of extents mid-decode
         self.row_budget = 0
+        self.trace = trace  # optional telemetry.tracing.RequestTrace
 
 
 class SchedulerHandle:
@@ -405,6 +422,36 @@ class DecodeScheduler:
         # chunk width -> forwards that carried extent operands (per projection)
         self.ext_forwards = collections.Counter()
         self.last_shape = None
+        # request tracing: the per-sync "sched/step" span collects flow ids
+        # minted by the request phases it executed (a list while a traced
+        # sync is in flight)
+        self._iter = 0
+        self._iter_links = None
+        self.telemetry = engine.telemetry
+        # the replica index this scheduler serves under (serving/replica.py)
+        self.replica_idx = None
+        # capacity accounting (telemetry/capacity.py): built only on an
+        # enabled sink; every hook below tests `self._gap is None` first
+        self.capacity = None
+        self._gap = None
+        self._sync_seq = 0
+        self._cap_sample = False
+        self._goodput_spec_seen = 0
+        if self.telemetry.enabled:
+            from ..accelerator import get_accelerator
+            from ..telemetry.capacity import CapacityMeter, CapacityModel, HostGapTracker
+            accel = get_accelerator()
+            self.capacity = CapacityMeter(
+                self.telemetry,
+                CapacityModel(engine.model_config, self.cache.bytes_per_token(), int(num_slots)),
+                peak_flops=accel.peak_flops(), peak_hbm_bw=accel.peak_hbm_bandwidth(),
+                sample_every=getattr(self.telemetry, "capacity_sample_every", 32))
+            self._gap = HostGapTracker(self.telemetry)
+            # the KV tier's price tag: int8 shows ~half the bytes per
+            # resident token of a bf16 pool
+            self.telemetry.gauges([
+                ("serving/kv_bytes_per_token", self.cache.bytes_per_token(), None),
+                ("serving/kv_cache_capacity_bytes", self.cache.capacity_bytes(), None)])
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, max_new_tokens=64, eos_token_id=None, do_sample=False,
@@ -422,9 +469,13 @@ class DecodeScheduler:
         attends only its first ``sink`` and most recent ``recent`` tokens,
         and extents that slide entirely out of that window are dropped.
         This changes the logits, so it needs ``allow_lossy_kv``.
-        ``trace`` and ``adapter_id`` are not ported and raise when set."""
-        if trace is not None:
-            raise _unported("request tracing", "ROADMAP Queue 1 #6, serving and telemetry")
+
+        ``trace``: optional
+        :class:`~deepspeed_tpu_torch.telemetry.tracing.RequestTrace`; the
+        scheduler records the request's phase tree on it (prefix probe,
+        prefill chunks, decode, complete/cancel), flow-linked to the
+        ``sched/step`` spans. ``adapter_id`` is not ported and raises when
+        set."""
         if adapter_id is not None:
             raise _unported("multi-LoRA serving (adapter_id)", "ROADMAP Queue 1 #9, multi-LoRA")
         if kv_window is not None:
@@ -440,8 +491,10 @@ class DecodeScheduler:
         req = _Request(self._rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature,
                        top_k, top_p, seed,
                        self.collect_logits if collect_logits is None else collect_logits,
-                       on_token=on_token, kv_window=kv_window)
+                       on_token=on_token, kv_window=kv_window, trace=trace)
         self._rid += 1
+        if trace is not None:
+            trace.attrs.setdefault("sched_rid", req.rid)
         # the monolithic prefill writes one slot; chunks may span a chain
         cap = self.cache.spannable_len if self.prefill_chunk > 0 else self.max_len
         if req.prompt.size >= cap:
@@ -467,6 +520,8 @@ class DecodeScheduler:
         req.row_budget = int(budget)
         handle = SchedulerHandle(self, req)
         self.queue.append(req)
+        if self.telemetry.enabled:
+            self.telemetry.gauge("serving/queue_depth", len(self.queue))
         return handle
 
     def drain(self):
@@ -496,6 +551,14 @@ class DecodeScheduler:
         free slot); then one fused chunk sync while a prefill is in flight,
         else a speculative verify sync (with a drafter) or ``steps_per_sync``
         decode steps. Returns tokens delivered."""
+        tel = self.telemetry
+        t0 = tel.now()
+        tracing = tel.enabled and getattr(tel, "trace_requests", False)
+        self._iter_links = [] if tracing else None
+        if self.capacity is not None:
+            # every Nth sync is fenced and timed for the capacity gauges
+            self._sync_seq += 1
+            self._cap_sample = self.capacity.should_sample(self._sync_seq)
         self._reap_cancelled()
         if self.cache.chain:
             # extent paging, before admission: lossy rows drop extents that
@@ -503,7 +566,7 @@ class DecodeScheduler:
             self._service_long_context()
         while self.queue and self.queue[0].cancelled:
             self.queue.popleft().done = True
-        delivered = 0
+        delivered = admitted = 0
         if self.prefill_chunk <= 0:
             while self.queue and self.cache.active_slots < self.cache.num_slots:
                 req = self.queue.popleft()
@@ -511,7 +574,7 @@ class DecodeScheduler:
                     req.done = True
                     continue
                 delivered += self._admit(req)
-                self.admitted += 1
+                admitted += 1
         elif self._prefill is None and self.queue:
             pick = next((i for i, r in enumerate(self.queue) if not r.cancelled), None)
             if pick is not None:
@@ -520,16 +583,95 @@ class DecodeScheduler:
                 if slot is not None:
                     del self.queue[pick]
                     self._begin_prefill(req, slot, match)
-                    self.admitted += 1
+                    admitted = 1
+        self.admitted += admitted
+        if self._gap is not None:
+            # everything since t0 was host-side admission work (the trie
+            # probe inside _acquire_slot re-files its share)
+            self._gap.add("admission", tel.now() - t0)
+        if admitted and tel.enabled:
+            tel.counter("serving/admitted", admitted)
         if self._prefill is not None:
+            kind = "fused"
             n, ksteps = self._fused_chunk_step()
         elif self.active:
+            kind = "spec" if self.drafter is not None else "decode"
             n, ksteps = self._spec_decode_step() if self.drafter is not None else self._decode_step()
         else:
+            self._iter_links = None
             return delivered
         delivered += n
         self.decode_steps += ksteps
+        self._iter += 1
+        if tel.enabled:
+            self._record_step(t0, kind, n, ksteps, tracing)
+        self._iter_links = None
         return delivered
+
+    def _record_step(self, t0, kind, delivered, ksteps, tracing):
+        """One sync's counters, histograms, gauges, goodput and (with request
+        tracing) its ``sched/step`` span."""
+        tel = self.telemetry
+        dur_ms = (tel.now() - t0) * 1e3
+        tel.counter("serving/decode_steps", ksteps)
+        tel.counter("serving/decode_tokens", delivered)
+        tel.histogram("serving/step_ms", dur_ms / ksteps)
+        tel.histogram("serving/tokens_per_step", delivered / ksteps)
+        tel.gauges([("serving/slot_occupancy", self.cache.occupancy(), None),
+                    ("serving/batch_efficiency", delivered / (ksteps * self.cache.num_slots), None),
+                    ("serving/kv_token_utilization", self.cache.token_utilization(), None),
+                    ("serving/kv_bytes_live", self.cache.live_bytes(), None)])
+        if self.capacity is not None:
+            # goodput: tokens delivered vs computed-then-discarded (the
+            # rejected speculative columns of this sync)
+            rejected = (self.spec_drafted - self.spec_accepted) - self._goodput_spec_seen
+            self._goodput_spec_seen += rejected
+            live_lens = [int(self.cache.lengths[s]) for s in self.active]
+            ctx = (sum(live_lens) / len(live_lens)) if live_lens else 0.0
+            self.capacity.account(delivered, wasted_tokens=max(0, rejected), ctx=ctx)
+        if tracing:
+            # the shared per-iteration span: request phases that landed
+            # this sync flow-link to it via _iter_links
+            tel.record_span("sched/step", t0, tel.now() - t0,
+                            attrs={"iter": self._iter, "kind": kind, "live": len(self.active),
+                                   "delivered": delivered},
+                            flow_out=self._iter_links or None)
+
+    def _trace_link(self, trace):
+        """Mint a flow id binding a request phase to the sync in flight
+        (registered on this iteration's ``sched/step`` span); None when
+        tracing is off or no traced sync is active."""
+        if trace is None or self._iter_links is None or not trace.enabled:
+            return None
+        fid = trace.link()
+        self._iter_links.append(fid)
+        return fid
+
+    def _open_dispatch(self):
+        """The first device work of a sync: the host gap closes and, on a
+        sampled sync, the device is drained so the wall time to the sync's
+        fetch is this dispatch alone. Returns the dispatch's start time,
+        or None with the sink disabled."""
+        if self._gap is None:
+            return None
+        self._gap.dispatch(time.perf_counter())
+        if self._cap_sample and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _close_dispatch(self, t0, t_fetch, key, live_ctx, kv_mult=1):
+        """The sync's fetch returned: the device idles and the host gap
+        opens. ``t0``: the dispatch's start (``_open_dispatch``); ``t_fetch``:
+        when the fetch was called (every launch of the sync enqueued). A
+        sampled sync folds its wall time into the capacity gauges."""
+        t = time.perf_counter()
+        self._gap.sync_end(t)
+        tel = self.telemetry
+        tel.histogram("serving/sync_launch_ms", (t_fetch - t0) * 1e3)
+        tel.histogram("serving/sync_wait_ms", (t - t_fetch) * 1e3)
+        if self._cap_sample:
+            self._cap_sample = False  # one fenced dispatch per sampled sync
+            self.capacity.observe_dispatch(key, t - t0, live_ctx, kv_mult)
 
     def _release_slot(self, slot):
         """Return a finished/cancelled request's slot: retained (state
@@ -546,16 +688,25 @@ class DecodeScheduler:
     def _reap_cancelled(self):
         """Evict slots whose requests were cancelled. Runs only from step(),
         so eviction never races a dispatch."""
+        tel = self.telemetry
         for slot, req in list(self.active.items()):
             if req.cancelled and not req.done:
                 req.done = True
                 del self.active[slot]
                 self._release_slot(slot)
+                if tel.enabled:
+                    tel.counter("serving/cancelled")
+                if req.trace is not None:
+                    req.trace.instant("cancelled", where="decode", tokens=len(req.out))
         if self._prefill is not None and self._prefill.req.cancelled:
             req = self._prefill.req
             req.done = True
             self._release_slot(req.slot)  # mid-prefill slots are never registered
             self._prefill = None
+            if tel.enabled:
+                tel.counter("serving/cancelled")
+            if req.trace is not None:
+                req.trace.instant("cancelled", where="prefill")
 
     # ------------------------------------------------------------ long context
     def _ext_operands(self, rows):
@@ -666,6 +817,7 @@ class DecodeScheduler:
         room: extents claimed lazily could deadlock mid-decode with nothing
         evictable. Chains skip radix reuse both ways (donors are
         single-extent slots, and a chained slot is never retained)."""
+        tel = self.telemetry
         n_ext = self.cache.extents_needed(req.prompt.size + req.row_budget)
         if n_ext > 1:
             slot = self.cache.alloc_chain(n_ext, owner=req.rid)
@@ -674,14 +826,26 @@ class DecodeScheduler:
                 if victim is None:
                     break
                 self.cache.reclaim(victim)
+                if tel.enabled:
+                    tel.counter("serving/prefix_cache_evict")
                 slot = self.cache.alloc_chain(n_ext, owner=req.rid)
             return slot, (0, None)
-        match = self.radix.match(req.prompt) if self.radix is not None else (0, None)
+        if self.radix is not None:
+            t0 = time.perf_counter() if self._gap is not None else 0.0
+            match = self.radix.match(req.prompt)
+            if self._gap is not None:
+                # the probe ran inside the admission region step() stamps:
+                # re-file its share so the buckets stay disjoint
+                self._gap.add("trie_probe", time.perf_counter() - t0, steal_from="admission")
+        else:
+            match = (0, None)
         slot = self.cache.alloc(owner=req.rid)
         if slot is None and self.radix is not None:
             victim = self.radix.evict_lru(prefer_not=match[1])
             if victim is not None:
                 self.cache.reclaim(victim)
+                if tel.enabled:
+                    tel.counter("serving/prefix_cache_evict")
                 slot = self.cache.alloc(owner=req.rid)
         return slot, match
 
@@ -691,8 +855,13 @@ class DecodeScheduler:
         ``prompt - 1`` (the last prompt token must run through the model)
         and rounded DOWN to a ``prefill_chunk`` multiple, so a hit replays
         the cold path's exact chunk boundaries."""
+        tel = self.telemetry
         req.slot = slot
         pos = 0
+        tr = req.trace
+        if tr is not None and tr.enabled:
+            tr.mark("prefill")  # the phase closes at _finish_prefill
+            probe_t0 = tel.now()
         if self.radix is not None and slot not in self.cache.chain:
             m, donor = match
             m = min(m, req.prompt.size - 1)
@@ -707,11 +876,25 @@ class DecodeScheduler:
                 pos = m
                 self.radix.hits += 1
                 self.radix.touch(donor)
+                if tel.enabled:
+                    tel.counter("serving/prefix_cache_hit")
+                    tel.counter("serving/prefix_cache_hit_tokens", m)
             else:
                 self.radix.misses += 1
+                if tel.enabled:
+                    tel.counter("serving/prefix_cache_miss")
+            if tel.enabled:
+                tel.gauge("serving/prefix_cache_hit_rate", self.radix.hit_rate())
+            if tr is not None and tr.enabled:
+                tr.phase("prefix_probe", start=probe_t0, slot=slot, cached_tokens=pos,
+                         prompt=int(req.prompt.size))
         self.cache.lengths[slot] = pos
         pf = _PrefillState(req, pos)
         pf.seq_parallel = bool(self._seq_chunk and req.prompt.size >= self.seq_parallel_min_tokens)
+        if tel.enabled:
+            tel.histogram("serving/kv_extents_per_request", len(self.cache.extents(slot)))
+            if pf.seq_parallel:
+                tel.counter("serving/seq_parallel_prefills")
         self._prefill = pf
 
     @torch.inference_mode()
@@ -728,7 +911,10 @@ class DecodeScheduler:
         Pb = _bucket_len(L, self.prefill_bucket, self.max_len)
         ids = np.zeros((1, Pb), np.int64)
         ids[0, :L] = req.prompt
+        tel = self.telemetry
+        t_pf = tel.now()
         try:
+            t0 = self._open_dispatch()
             model = self.engine.module
             cache = slot_slice(self.cache.pool, slot)
             # the forward writes the slot's rows in place, through the views
@@ -742,8 +928,11 @@ class DecodeScheduler:
                 tok = sample_rows(last, t[0], t[1], t[2] > 0, t[3], t[4], t[5])
             else:
                 tok = last.argmax(-1)
+            t_fetch = time.perf_counter() if t0 is not None else 0.0
             tok = int(tok.cpu()[0])
             last_logits = last[0].cpu().numpy() if req.collect_logits else None
+            if t0 is not None:
+                self._close_dispatch(t0, t_fetch, ("prefill", Pb), [L])
         except Exception:
             # a failed prefill must not strand its slot
             self.cache.free(slot)
@@ -752,6 +941,18 @@ class DecodeScheduler:
         self.cache.lengths[slot] = L
         self.active[slot] = req
         req.first_token_ts = time.perf_counter()
+        ttft_ms = (req.first_token_ts - req.submit_ts) * 1e3
+        if tel.enabled:
+            # the monolithic prefill stalls every live decode row for the
+            # whole prompt (chunked prefill bounds it at one chunk)
+            tel.histogram("serving/prefill_stall_ms", (tel.now() - t_pf) * 1e3)
+            tel.histogram("serving/ttft_ms", ttft_ms)
+            tel.gauge("serving/queue_depth", len(self.queue))
+        tr = req.trace
+        if tr is not None and tr.enabled:
+            tr.phase("prefill", start=t_pf, prompt=int(L), monolithic=True,
+                     ttft_ms=round(ttft_ms, 3))
+            tr.mark("decode")
         if last_logits is not None:
             req.logits.append(last_logits)
         self._deliver(req, tok)
@@ -766,6 +967,15 @@ class DecodeScheduler:
         if self.radix is not None and req.slot not in self.cache.chain:
             self.radix.insert(req.slot, req.prompt)
         req.first_token_ts = time.perf_counter()
+        ttft_ms = (req.first_token_ts - req.submit_ts) * 1e3
+        tel = self.telemetry
+        if tel.enabled:
+            tel.histogram("serving/ttft_ms", ttft_ms)
+            tel.gauge("serving/queue_depth", len(self.queue))
+        tr = req.trace
+        if tr is not None and tr.enabled:
+            tr.phase("prefill", prompt=int(req.prompt.size), ttft_ms=round(ttft_ms, 3))
+            tr.mark("decode")  # the phase closes when the request finishes
         if req.collect_logits and last_logits is not None:
             req.logits.append(last_logits)
         self._deliver(req, tok)
@@ -783,6 +993,21 @@ class DecodeScheduler:
                 del self.active[req.slot]
             self._release_slot(req.slot)
             self.evicted += 1
+            if self.telemetry.enabled:
+                self.telemetry.counter("serving/evicted")
+            tr = req.trace
+            if tr is not None and tr.enabled:
+                now = time.perf_counter()
+                eos = req.eos_token_id is not None and tok == req.eos_token_id
+                n = len(req.out)
+                ttft = ((req.first_token_ts - req.submit_ts) * 1e3
+                        if req.first_token_ts is not None else 0.0)
+                itl = ((now - req.first_token_ts) * 1e3 / (n - 1)
+                       if req.first_token_ts is not None and n > 1 else 0.0)
+                fid = self._trace_link(tr)
+                tr.phase("decode", flow_in=[fid] if fid else None, tokens=n)
+                tr.instant("complete", reason="stop" if eos else "length", tokens=n,
+                           ttft_ms=round(ttft, 3), itl_ms=round(itl, 4))
         if req.on_token is not None:
             try:
                 req.on_token(tok, req.done)
@@ -797,6 +1022,7 @@ class DecodeScheduler:
         step index, so results are K- and fused-invariant. ``rows``: the
         row count (the pool's slots by default)."""
         N = self.cache.num_slots if rows is None else rows
+        t0 = time.perf_counter() if self._gap is not None else 0.0
         seeds = np.zeros(N, np.int64)
         steps = np.zeros(N, np.int64)
         flags = np.zeros(N, np.int64)
@@ -813,6 +1039,8 @@ class DecodeScheduler:
             topps[slot] = req.top_p
             sampling = sampling or req.do_sample
             collect = collect or req.collect_logits
+        if self._gap is not None:
+            self._gap.add("sampling_host", time.perf_counter() - t0)
         return [seeds, steps, flags, temps, topks, topps], sampling, collect
 
     def _forward(self, ids, pos, widx, spans, ext_ops=None):
@@ -866,6 +1094,7 @@ class DecodeScheduler:
         end they would leave the extent)."""
         N, C = ids.shape
         dev = self.device
+        t0 = self._open_dispatch()
         ids_t, lens_t, spans_t, sample = self._device_inputs(ids, lens, spans, samp, sampling)
         self.dispatched[(C, K)] += 1
         self.last_shape = (C, K)
@@ -894,8 +1123,12 @@ class DecodeScheduler:
             tok = sample(lg, k)
             toks.append(tok)
             lgs.append(lg)
+        t_fetch = time.perf_counter() if t0 is not None else 0.0
         toks_k = torch.stack(toks).cpu().numpy()  # the sync's one round trip
         logits_k = torch.stack(lgs).cpu().numpy() if collect else None
+        if t0 is not None:
+            self._close_dispatch(t0, t_fetch, ("chunk", C, K) if C > 1 else ("decode", K),
+                                 lens[spans > 0], self.cache.max_extents if ext_ops is not None else 1)
         return toks_k, logits_k
 
     def _deliver_block(self, live, toks_k, logits_k, K):
@@ -903,6 +1136,7 @@ class DecodeScheduler:
         row's KV advanced K positions on the device; tokens past EOS or the
         budget were computed but are discarded. Returns tokens delivered."""
         n = 0
+        t0 = time.perf_counter() if self._gap is not None else 0.0
         for slot, req in live:
             self.cache.lengths[slot] += K
             for k in range(K):
@@ -912,6 +1146,8 @@ class DecodeScheduler:
                     req.logits.append(logits_k[k, slot])
                 self._deliver(req, int(toks_k[k, slot]))
                 n += 1
+        if self._gap is not None:
+            self._gap.add("on_token", time.perf_counter() - t0)
         return n
 
     def _decode_step(self):
@@ -947,14 +1183,20 @@ class DecodeScheduler:
         sampled at the row's step + j. Returns the (W, N) token block and
         the (W, N, V) logits when collected, in one round trip."""
         N, W = ids.shape
+        t0 = self._open_dispatch()
         ids_t, lens_t, spans_t, sample = self._device_inputs(ids, lens, spans, samp, sampling)
         self.dispatched[("spec", W)] += 1
         self.last_shape = ("spec", W)
         pos = lens_t[:, None] + torch.arange(W, device=self.device)[None, :]
         logits = self._forward(ids_t, pos, lens_t, spans_t).float()
         self.forwards[W] += 1
-        toks = torch.stack([sample(logits[:, j], j) for j in range(W)]).cpu().numpy()
-        return toks, logits.transpose(0, 1).cpu().numpy() if collect else None
+        toks = torch.stack([sample(logits[:, j], j) for j in range(W)])
+        t_fetch = time.perf_counter() if t0 is not None else 0.0
+        toks = toks.cpu().numpy()
+        logits = logits.transpose(0, 1).cpu().numpy() if collect else None
+        if t0 is not None:
+            self._close_dispatch(t0, t_fetch, ("verify", W), lens[spans > 0])
+        return toks, logits
 
     def _spec_decode_step(self):
         """One self-speculative verify sync: the prompt-lookup drafter
@@ -993,6 +1235,7 @@ class DecodeScheduler:
         samp, sampling, collect = self._gather_sampling(live)
         toks, logits = self._verify(ids, lens, spans, samp, sampling, collect)
         delivered = accepted = 0
+        t0 = time.perf_counter() if self._gap is not None else 0.0
         for slot, req in live:
             # acceptance walk: toks[j] is the token sampled after column j;
             # column j + 1 is valid only while its draft equals toks[j]
@@ -1010,6 +1253,8 @@ class DecodeScheduler:
                 n += 1
             delivered += n
             accepted += max(0, n - 1)
+        if self._gap is not None:
+            self._gap.add("on_token", time.perf_counter() - t0)
         self.spec_steps += 1
         self.spec_row_steps += len(live)
         self.spec_drafted += total
@@ -1072,8 +1317,19 @@ class DecodeScheduler:
                 room.append(S - pf.pos % S - take + 1)
             if any(r < K for r in room):
                 K = 1
+        tel = self.telemetry
+        t0 = tel.now()
         toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K, eo,
                                      hold=None if final or eo is None else ps)
+        if tel.enabled:
+            # the stall co-resident decode rows eat while a chunk rides
+            # their sync (measured through the block fetch)
+            tel.histogram("serving/prefill_stall_ms", (tel.now() - t0) * 1e3)
+        tr = preq.trace
+        if tr is not None and tr.enabled:
+            fid = self._trace_link(tr)
+            tr.phase("prefill_chunk", start=t0, flow_in=[fid] if fid else None, pos=int(pf.pos),
+                     take=int(take), final=bool(final))
         delivered = self._deliver_block(live, toks_k, logits_k, K)
         pf.pos += take
         if final:

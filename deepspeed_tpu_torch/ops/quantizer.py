@@ -5,7 +5,8 @@ Port of ``deepspeed_tpu/ops/quantizer/__init__.py::quantize_kv_rows`` and
 scheduler (``kv_cache_dtype: "int8"``). Same rounding as the JAX functions:
 the scale is rounded to fp16 first and the rows are divided by it in fp32,
 ``torch.round`` rounds half to even as ``jnp.round`` does, so the int8
-values and the scales are bitwise equal to the JAX package's.
+values and the scales are bitwise equal to the JAX package's, on the CPU and
+on the card alike (every quotient divides by a tensor).
 """
 
 import torch
@@ -21,7 +22,9 @@ def quantize_kv_rows(k, v, scale_dtype=torch.float16):
     kf, vf = k.float(), v.float()
     amax = torch.maximum(kf.abs().amax(dim=(1, 3), keepdim=True),
                          vf.abs().amax(dim=(1, 3), keepdim=True))  # (B, 1, T, 1)
-    scale = torch.clamp(amax / 127.0, min=1e-8).to(scale_dtype)
+    # a tensor divisor: a CUDA tensor divided by a Python number is
+    # multiplied by its fp32 reciprocal, which is not the division
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8).to(scale_dtype)
     s32 = scale.float()
     kq = torch.clamp(torch.round(kf / s32), -127, 127).to(torch.int8)
     vq = torch.clamp(torch.round(vf / s32), -127, 127).to(torch.int8)

@@ -90,8 +90,8 @@ class FlopsProfilerConfig(DeepSpeedConfigModel):
 
 
 class TelemetryConfig(DeepSpeedConfigModel):
-    """The JAX package's telemetry section (same keys); the port's engine
-    accepts it only disabled (ROADMAP Queue 1 #6)."""
+    """The JAX package's telemetry section (same keys): the engine's
+    ``telemetry.TelemetrySink``, its SLO engine and profiler."""
     enabled = ConfigField(default=False)
     output_path = ConfigField(default="telemetry")
     flush_interval = ConfigField(default=100)
@@ -136,10 +136,6 @@ _UNPORTED_SECTIONS = {
     "hybrid_engine": "ROADMAP Queue 1 #9, RLHF",
     "eigenvalue": "ROADMAP Queue 1 #10, compression",
     "compression_training": "ROADMAP Queue 1 #10, compression",
-    "telemetry": "ROADMAP Queue 1 #6, serving and telemetry",
-    "tensorboard": "ROADMAP Queue 1 #6, serving and telemetry",
-    "csv_monitor": "ROADMAP Queue 1 #6, serving and telemetry",
-    "wandb": "ROADMAP Queue 1 #6, serving and telemetry",
     "comms_logger": "ROADMAP Queue 1 #7, distributed runtime",
     "flops_profiler": "ROADMAP Queue 1 #10, profiling",
     "elasticity": "ROADMAP Queue 1 #9, elastic controller",

@@ -19,6 +19,17 @@ The overflow flag is read on the host once per step (the JAX engine selects
 on the device). Master weights, gradients and the Adam moments stay fp32 on
 the device.
 
+Telemetry (the JAX engine's wiring): one :class:`TelemetrySink` is the
+single reporting call site; its gauges fan out to the ``tensorboard``,
+``csv_monitor`` and ``wandb`` monitors, and with ``telemetry.enabled`` each
+step records a ``step`` span (synchronized on the card) and every report
+interval the ``throughput/samples_per_sec`` and ``mfu`` gauges (MFU by
+``bench.py::_mfu``'s 6 N + 12 L H T FLOPs a token over the compute dtype's
+peak) and the memory watermarks. With
+objectives in ``telemetry.slo`` the SLO engine evaluates at each report;
+``request_profile()`` arms a ``torch.profiler`` capture that starts at the
+next one.
+
 Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``. Not ported yet, each raising
@@ -28,11 +39,15 @@ pipeline and model parallelism, 1-bit optimizers, checkpoints,
 """
 
 import math
+import time
 
 import numpy as np
 import torch
 
-from ..accelerator import resolve_device
+from ..accelerator import get_accelerator, resolve_device
+from ..monitor.monitor import MonitorMaster
+from ..telemetry import SLOEngine, TelemetrySink, set_sink
+from ..telemetry.profiler import TorchProfiler
 from ..utils.logging import log_dist
 from .config import DeepSpeedConfig
 from .fp16.loss_scaler import create_loss_scaler
@@ -106,6 +121,28 @@ class DeepSpeedEngine:
         self._micro_step = 0
         self._pending_losses = []
         self._last_metrics = None
+
+        # ---- monitor / telemetry ------------------------------------------
+        # the sink is the single reporting call site: gauges fan out to the
+        # monitor backends; file output only with telemetry.enabled
+        self.monitor = MonitorMaster(self._config)
+        self.telemetry = TelemetrySink(self._config.telemetry, monitor=self.monitor)
+        if self.telemetry.enabled:
+            set_sink(self.telemetry)
+        self._last_step_dur = None
+        self._step_flops = None
+        self._facade_t0 = None
+        self._slo = None
+        if self.telemetry.enabled and self.telemetry.slo_config.get("objectives"):
+            self._slo = SLOEngine(self.telemetry, self.telemetry.slo_config)
+        # on-demand captures start at the next report boundary, never
+        # mid-step; telemetry.profile_report_s > 0 arms one at start
+        self.profiler = None
+        if self.telemetry.enabled:
+            self.profiler = TorchProfiler(self.telemetry.output_path)
+            auto_s = float(self._config.telemetry.profile_report_s or 0.0)
+            if auto_s > 0:
+                self.profiler.request(auto_s)
 
         log_dist(
             f"DeepSpeedEngine ready: device={self.device} zero_stage=0 "
@@ -282,6 +319,9 @@ class DeepSpeedEngine:
             mbs = self._next_microbatches(data_iter, gas)
             stacked = self._place({k: np.stack([np.asarray(mb[k]) for mb in mbs]) for k in mbs[0]})
 
+        t0 = time.perf_counter() if self.telemetry.enabled else None
+        if t0 is not None and self._step_flops is None:
+            self._step_flops = self._flops_per_step(stacked.get("input_ids"), 1)
         acc, loss_sum = None, None
         scale = self.loss_scale_state.cur_scale
         for g in range(gas):
@@ -294,6 +334,8 @@ class DeepSpeedEngine:
                 loss_sum = loss_sum + loss.float()
             del grads
         metrics = self._apply_grads(acc, loss_sum / gas)
+        if t0 is not None:
+            self._record_step(t0, {"path": "fused", "micro_batches": gas})
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.micro_steps += gas
@@ -308,8 +350,19 @@ class DeepSpeedEngine:
         :meth:`step` (reference engine.py:1624; forward and backward fuse
         here as in the JAX engine, so ``backward`` only marks the
         micro-step)."""
-        loss, grads = self._micro_loss_and_grads(self.master, self._place(batch),
+        placed = self._place(batch)
+        if self.telemetry.enabled and self._step_flops is None:
+            self._step_flops = self._flops_per_step(placed.get("input_ids"),
+                                                    self.gradient_accumulation_steps())
+        t0 = time.perf_counter() if self.telemetry.enabled else None
+        loss, grads = self._micro_loss_and_grads(self.master, placed,
                                                  self.loss_scale_state.cur_scale)
+        if t0 is not None:
+            self._sync()
+            dur = time.perf_counter() - t0
+            self.telemetry.record_span("fwd", self.telemetry.now() - dur, dur)
+            if self._micro_step == 0:  # the step's first micro-batch starts its span
+                self._facade_t0 = t0
         if self._grad_acc is None:
             self._grad_acc = grads
         else:
@@ -335,6 +388,8 @@ class DeepSpeedEngine:
             return None
         loss_mean = torch.stack([p.float() for p in self._pending_losses[-gas:]]).mean()
         metrics = self._apply_grads(self._grad_acc, loss_mean)
+        if self.telemetry.enabled:
+            self._record_step(self._facade_t0, {"path": "facade", "micro_batches": gas})
         self._grad_acc, self._micro_step, self._pending_losses = None, 0, []
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -355,13 +410,95 @@ class DeepSpeedEngine:
     def zero_grad(self):
         self._grad_acc, self._micro_step, self._pending_losses = None, 0, []
 
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _flops_per_step(self, ids, repeats):
+        """``bench.py::_mfu``'s count, 6 N_nonemb + 12 L H T FLOPs a token,
+        times the tokens of ``repeats`` batches of ``ids`` (the step's input
+        ids); None for a model without a config or a batch without
+        ``input_ids`` (the MFU gauge is then not emitted)."""
+        cfg = getattr(self.module, "cfg", None)
+        if cfg is None or ids is None or not hasattr(cfg, "num_params"):
+            return None
+        seq = int(ids.shape[-1])
+        n_emb = cfg.vocab_size * cfg.hidden_size + (cfg.max_seq_len * cfg.hidden_size
+                                                    if cfg.pos_embedding == "learned" else 0)
+        per_token = 6 * (cfg.num_params() - n_emb) + 12 * cfg.num_layers * cfg.hidden_size * seq
+        return float(per_token * ids.numel() * repeats)
+
+    def _record_step(self, t0, attrs):
+        """The step span, timed to a device synchronize."""
+        self._sync()
+        dur = time.perf_counter() - t0
+        self._last_step_dur = dur
+        self.telemetry.record_span("step", self.telemetry.now() - dur, dur, attrs=attrs)
+
+    def _interval_gauges(self):
+        """Throughput, MFU and device/host memory watermark gauges for one
+        report interval, as (name, value, step) tuples on the ``global_samples``
+        axis (the Train/Samples scalars' axis)."""
+        out = []
+        if self._last_step_dur:
+            out.append(("throughput/samples_per_sec", self.train_batch_size() / self._last_step_dur,
+                        self.global_samples))
+        if self._step_flops and self._last_step_dur:
+            peak = get_accelerator().peak_flops(self.compute_dtype)
+            out.append(("mfu", self._step_flops / self._last_step_dur / peak, self.global_samples))
+        if self.device.type == "cuda":
+            out.append(("memory/device_bytes_in_use", torch.cuda.memory_allocated(self.device),
+                        self.global_samples))
+            out.append(("memory/device_peak_bytes", torch.cuda.max_memory_allocated(self.device),
+                        self.global_samples))
+        try:
+            import psutil
+        except ImportError:
+            return out
+        out.append(("memory/host_rss_bytes", psutil.Process().memory_info().rss, self.global_samples))
+        return out
+
     def _report(self, metrics):
         if self.global_steps % self.steps_per_print() == 0:
-            msg = (f"step={self.global_steps} loss={float(metrics['loss']):.4f} "
-                   f"lr={metrics['lr']:.3e} grad_norm={metrics['grad_norm']:.3f}")
+            loss, lr = float(metrics["loss"]), float(metrics["lr"])
+            msg = (f"step={self.global_steps} loss={loss:.4f} "
+                   f"lr={lr:.3e} grad_norm={metrics['grad_norm']:.3f}")
             if self.fp16_enabled():
                 msg += f" loss_scale={metrics['loss_scale']:g}"
             log_dist(msg, [0])
+            # one batched sink call per interval: the monitor backends get
+            # one write_events, the JSONL/trace the same scalars as gauges
+            tel = self.telemetry
+            scalars = [("Train/Samples/train_loss", loss, self.global_samples),
+                       ("Train/Samples/lr", lr, self.global_samples)]
+            if self.fp16_enabled():
+                scalars.append(("Train/Samples/loss_scale", float(metrics["loss_scale"]),
+                                self.global_samples))
+            if tel.enabled:
+                scalars.append(("Train/Samples/grad_norm", float(metrics["grad_norm"]),
+                                self.global_samples))
+                scalars.extend(self._interval_gauges())
+            tel.gauges(scalars)
+            if self._slo is not None:
+                self._slo.maybe_evaluate()
+            if self.profiler is not None:
+                # the report boundary starts a pending request_profile() and
+                # reaps an overdue capture
+                started = self.profiler.maybe_capture(tag="report")
+                if started is not None:
+                    log_dist(f"torch.profiler capture started: {started}", [0])
+
+    def request_profile(self, duration_s=1.0):
+        """Arm a duration-bounded ``torch.profiler`` capture that begins at
+        the next report interval (``steps_per_print`` boundary); traces land
+        under the telemetry output path, one ``torch_trace_*`` directory a
+        capture. Raises without telemetry, and
+        :class:`~deepspeed_tpu_torch.telemetry.profiler.ProfileBusy` while a
+        capture is in flight or pending."""
+        if self.profiler is None:
+            raise RuntimeError("request_profile requires telemetry.enabled "
+                               "(the trace needs an output path)")
+        self.profiler.request(duration_s)
 
     # ------------------------------------------------------------------ not ported yet
     def deepspeed_io(self, *args, **kwargs):

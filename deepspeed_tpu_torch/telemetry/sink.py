@@ -1,0 +1,751 @@
+"""Unified telemetry sink.
+
+One structured event bus for everything the ROADMAP's perf work needs to
+measure: the engine's step spans and MFU/memory gauges, the comm layer's
+byte/count accounting, and the inference engine's decode latency
+distributions all report here instead of as ad-hoc ``log_dist`` strings.
+
+Event model (five typed producers):
+
+- **span**   — a named wall-clock interval (``ts``/``dur`` seconds relative
+  to sink start) with free-form ``attrs``; written one JSONL line per span.
+  Spans land on the calling THREAD's track (real ``tid`` + Perfetto
+  ``thread_name`` metadata), so concurrent producers — the gateway pump
+  thread, the HTTP event loop, the training main thread — stop colliding on
+  one timeline. A span may carry outbound *flow* ids
+  (:meth:`TelemetrySink.record_span` ``flow_out``) that async spans bind to.
+- **async span** — a request-scoped interval on a named *track*
+  (:meth:`record_async`): rendered as Perfetto async ``b``/``e`` events
+  keyed by the track id, so each request's phase tree gets its own lane; may
+  carry inbound flow ids (``flow_in``) linking it back to the shared
+  scheduler iteration spans that did its work.
+- **gauge**  — a point-in-time scalar (loss, lr, mfu, HBM watermark); written
+  immediately and *also* fanned out to the configured :class:`MonitorMaster`
+  so tb/wandb/csv backends keep receiving the same scalars with no duplicated
+  call sites.
+- **counter**— a monotonically accumulating (count, total) pair (comm bytes,
+  ops). Snapshots are written at every flush with cumulative semantics.
+- **histogram** — a value distribution (per-token decode latency) over a
+  SLIDING WINDOW (chunked reservoir, ``hist_window_s``/``hist_max_samples``):
+  summary lines (count/sum/min/max/p50/p95/p99 + window accounting) are
+  written at every flush. Percentiles always describe roughly the last
+  window, never a startup-era sample freeze.
+- **event** — a named instant (SLO alert, flight-recorder trigger) with
+  attrs; rendered as a Perfetto instant.
+
+Exports:
+
+- ``<output_path>/telemetry.jsonl`` — machine-consumable event stream
+  (one JSON object per line; see ``benchmarks/OBSERVABILITY.md``).
+- ``<output_path>/trace.json`` — Chrome-trace/Perfetto ``traceEvents``
+  (spans as ``ph:"X"`` complete events in microseconds, request phases as
+  async ``b``/``e`` pairs, flow ``s``/``f`` links, gauges and counter
+  snapshots as ``ph:"C"`` counter samples). Rewritten atomically at every
+  flush so a crashed run still leaves a loadable trace.
+- ``<output_path>/flight_*.json`` — anomaly flight-recorder dumps (see
+  :mod:`deepspeed_tpu.telemetry.flight_recorder`).
+
+The sink is rank-0-gated (a rank other than 0 of an initialised
+``torch.distributed`` process group writes no files) and default-off: with ``telemetry.enabled`` false no files are written and
+producers take the early-return path (the disabled ``span()`` returns one
+shared null object — zero allocation on the hot path). Timestamps come from
+``time.perf_counter`` (monotonic) against a base captured at construction.
+
+Port of ``deepspeed_tpu/telemetry/sink.py``: only the rank test differs.
+The events, the JSONL and the Chrome trace are the JAX sink's byte for
+byte (``tools/trace_summary.py`` reads both).
+"""
+
+import atexit
+import json
+import os
+import threading
+import time
+from bisect import bisect_right
+from collections import deque
+
+# cap on retained chrome-trace events; beyond it new spans still reach the
+# JSONL but the in-memory trace stops growing
+_TRACE_EVENT_CAP = 200_000
+
+_active_sink = None
+
+
+def process_rank():
+    """This process's rank in the initialised ``torch.distributed`` process
+    group, else 0 (one process, or tooling without torch)."""
+    try:
+        import torch.distributed as dist
+    except ImportError:
+        return 0
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def set_sink(sink):
+    """Install ``sink`` as the process-global telemetry sink (consulted by
+    producers that have no engine handle, e.g. ``comm._record``)."""
+    global _active_sink
+    _active_sink = sink
+
+
+def get_sink():
+    """The process-global sink, or None when no telemetry-enabled engine has
+    been constructed."""
+    return _active_sink
+
+
+def _cfg_get(config, key, default):
+    if config is None:
+        return default
+    if isinstance(config, dict):
+        return config.get(key, default)
+    return getattr(config, key, default)
+
+
+def _percentile(ordered, q):
+    """Nearest-rank percentile of an already-sorted list."""
+    if not ordered:
+        return 0.0
+    idx = max(0, min(len(ordered) - 1, int(round(q * (len(ordered) - 1)))))
+    return float(ordered[idx])
+
+
+# number of rotating time buckets the histogram window is split into: the
+# oldest retires whole as time advances, so the summarized sample set always
+# covers between (chunks-1)/chunks and 1x the configured window
+_HIST_CHUNKS = 6
+
+# cumulative-bucket ladder for Prometheus native histograms (ms-scale
+# latencies are the dominant unit; the +Inf bucket is implicit). Lifetime
+# counts, like count/sum — external alerting can rate() them over any
+# window, which the sliding-window quantiles can't offer.
+HIST_BUCKET_BOUNDS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+                      250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0)
+
+
+class _WindowedHistogram:
+    """Sliding-window value distribution with bounded memory.
+
+    Observations land in time-bucketed chunks of ``window_s / _HIST_CHUNKS``
+    seconds; chunks older than the window retire whole. Each chunk holds at
+    most ``max_samples / _HIST_CHUNKS`` values via uniform reservoir
+    sampling (Vitter's Algorithm R with a cheap deterministic LCG), so a
+    long-running server's percentiles track the LAST window at bounded
+    memory — the fix for the old ``_HIST_SAMPLE_CAP`` behavior that froze
+    p95 on the first 100k observations forever. ``count``/``sum`` stay
+    cumulative (lifetime totals); ``min``/``max``/percentiles describe the
+    window."""
+
+    __slots__ = ("window_s", "chunk_cap", "chunk_s", "attrs", "count", "sum",
+                 "window_seen", "_chunks", "_seed", "bucket_counts")
+
+    def __init__(self, window_s, max_samples, attrs=None):
+        self.window_s = max(1e-3, float(window_s))
+        self.chunk_cap = max(1, int(max_samples) // _HIST_CHUNKS)
+        self.chunk_s = self.window_s / _HIST_CHUNKS
+        self.attrs = attrs
+        self.count = 0          # lifetime observations
+        self.sum = 0.0          # lifetime sum
+        self.window_seen = 0    # observations currently inside the window
+        self._chunks = deque()  # (chunk_start_ts, seen_in_chunk, [samples])
+        self._seed = 0x9E3779B9
+        # lifetime per-bucket counts on the fixed ladder (+Inf implicit at
+        # the end) — the Prometheus-native histogram series
+        self.bucket_counts = [0] * (len(HIST_BUCKET_BOUNDS) + 1)
+
+    def _rand(self, n):
+        # LCG (numerical recipes constants): reproducible, allocation-free
+        self._seed = (self._seed * 1664525 + 1013904223) & 0xFFFFFFFF
+        return self._seed % n
+
+    def _retire(self, ts):
+        horizon = ts - self.window_s
+        while self._chunks and self._chunks[0][0] < horizon:
+            self.window_seen -= self._chunks.popleft()[1]
+
+    def observe(self, ts, value):
+        self._retire(ts)
+        self.count += 1
+        self.sum += value
+        self.window_seen += 1
+        self.bucket_counts[bisect_right(HIST_BUCKET_BOUNDS, value)] += 1
+        if not self._chunks or ts - self._chunks[-1][0] >= self.chunk_s:
+            self._chunks.append([ts, 1, [value]])
+            return
+        chunk = self._chunks[-1]
+        chunk[1] += 1
+        samples = chunk[2]
+        if len(samples) < self.chunk_cap:
+            samples.append(value)
+        else:
+            j = self._rand(chunk[1])
+            if j < self.chunk_cap:
+                samples[j] = value
+
+    def window_samples(self, ts):
+        """Copy of the retained window samples (caller sorts OUTSIDE the
+        sink lock) plus the in-window observation count."""
+        self._retire(ts)
+        out = []
+        for _, _, samples in self._chunks:
+            out.extend(samples)
+        return out, self.window_seen
+
+
+def summarize_histogram(name, samples, ts, *, count, total, window_seen,
+                        window_s, attrs=None):
+    """Summary line for one histogram from an (unsorted) window-sample copy.
+    Pure function called OUTSIDE the sink lock — producers are never blocked
+    behind the O(n log n) sort."""
+    ordered = sorted(samples)
+    out = {"type": "histogram", "name": name, "count": count,
+           "sum": round(total, 6),
+           "min": ordered[0] if ordered else 0.0,
+           "max": ordered[-1] if ordered else 0.0,
+           "p50": _percentile(ordered, 0.50),
+           "p95": _percentile(ordered, 0.95),
+           "p99": _percentile(ordered, 0.99),
+           "window_s": window_s,
+           "window_count": window_seen,
+           # in-window observations the reservoir downsampled away: the
+           # percentiles above are estimated from (window_count - dropped)
+           # retained samples
+           "dropped": max(0, window_seen - len(ordered)),
+           "ts": ts}
+    if attrs:
+        out["attrs"] = attrs
+    return out
+
+
+class _Span:
+    """Context manager recording one span into the sink on exit."""
+
+    __slots__ = ("_sink", "name", "attrs", "_t0")
+
+    def __init__(self, sink, name, attrs):
+        self._sink = sink
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        self._t0 = self._sink.now()
+        return self
+
+    def __exit__(self, *exc):
+        self._sink.record_span(self.name, self._t0, self._sink.now() - self._t0, self.attrs)
+        return False
+
+
+class _NullSpan:
+    """Reusable no-op span for the disabled path (zero allocation per call)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class TelemetrySink:
+    """Buffered, typed event sink with JSONL + Chrome-trace export.
+
+    ``config`` is a ``TelemetryConfig`` (``runtime/config.py``), a plain dict
+    with the same keys, or None (disabled). ``monitor`` is an optional
+    :class:`MonitorMaster`; gauges fan out to it even when file output is
+    disabled, which is what lets the engine keep exactly one reporting call
+    site for scalars.
+    """
+
+    def __init__(self, config=None, monitor=None):
+        enabled = bool(_cfg_get(config, "enabled", False))
+        self.enabled = enabled and process_rank() == 0
+        self.output_path = str(_cfg_get(config, "output_path", "telemetry") or "telemetry")
+        self.flush_interval = max(1, int(_cfg_get(config, "flush_interval", 100) or 100))
+        self.trace_format = str(_cfg_get(config, "trace_format", "chrome") or "chrome")
+        self.hist_window_s = float(_cfg_get(config, "hist_window_s", 300.0) or 300.0)
+        self.hist_max_samples = int(_cfg_get(config, "hist_max_samples", 4096) or 4096)
+        # per-request tracing master switch (the gateway/scheduler consult
+        # it before building RequestTrace objects / iteration spans)
+        self.trace_requests = bool(_cfg_get(config, "request_tracing", True))
+        self.slo_config = dict(_cfg_get(config, "slo", None) or {})
+        # roofline/goodput capacity accounting (telemetry/capacity.py):
+        # fence-and-time every Nth scheduler sync (1 = every sync — tests
+        # only; 0/absent = the 1/32 default)
+        self.capacity_sample_every = max(1, int(
+            _cfg_get(config, "capacity_sample_every", 32) or 32))
+        self._monitor = monitor
+        self._lock = threading.RLock()
+        self._io_lock = threading.Lock()  # serializes JSONL appends/trace writes
+        self._buffer = []        # pending JSONL event dicts
+        self._trace_events = []  # retained chrome-trace events
+        self._counters = {}      # name -> [count, total, attrs]
+        self._hists = {}         # name -> _WindowedHistogram
+        self._hist_thresholds = {}  # name -> {threshold: [exceed, total]}
+        self._last_gauges = {}   # name -> latest value (for snapshot())
+        self._tids = {}          # thread ident -> (tid, name)
+        self._dropped_trace_events = 0
+        self._t0 = time.perf_counter()
+        self.started_at = time.time()
+        self._closed = False
+        self._last_trace_write = None  # throttle full-file trace rewrites
+        # anomaly flight recorder: cheap always-on ring of recent events
+        # (see telemetry/flight_recorder.py); None when disabled
+        fr_cfg = _cfg_get(config, "flight_recorder", None)
+        if isinstance(fr_cfg, bool):
+            fr_cfg = {"enabled": fr_cfg}
+        fr_cfg = dict(fr_cfg or {})
+        self.flight = None
+        if self.enabled and fr_cfg.get("enabled", True):
+            from .flight_recorder import FlightRecorder
+            self.flight = FlightRecorder(
+                capacity=int(fr_cfg.get("capacity", 8192)),
+                post_window_s=float(fr_cfg.get("post_window_s", 0.25)),
+                min_interval_s=float(fr_cfg.get("min_interval_s", 1.0)))
+        if self.enabled:
+            os.makedirs(self.output_path, exist_ok=True)
+            self.jsonl_path = os.path.join(self.output_path, "telemetry.jsonl")
+            self.trace_path = os.path.join(self.output_path, "trace.json")
+            with open(self.jsonl_path, "w") as f:
+                f.write(json.dumps({"type": "meta", "ts": 0.0, "started_at": self.started_at,
+                                    "version": 2,
+                                    "hist_window_s": self.hist_window_s}) + "\n")
+            atexit.register(self.close)
+        else:
+            self.jsonl_path = None
+            self.trace_path = None
+
+    # ------------------------------------------------------------------ time
+    def now(self):
+        """Seconds since sink construction (monotonic)."""
+        return time.perf_counter() - self._t0
+
+    # ------------------------------------------------------------------ tracks
+    def _tid(self):
+        """Small integer track id for the calling thread (registers a
+        Perfetto ``thread_name`` metadata event on first sight), so each
+        producer thread renders on its own timeline. Call under the lock."""
+        ident = threading.get_ident()
+        ent = self._tids.get(ident)
+        if ent is None:
+            tid = len(self._tids) + 1
+            name = threading.current_thread().name
+            self._tids[ident] = ent = (tid, name)
+            self._push_trace({"ph": "M", "name": "thread_name", "pid": 0,
+                              "tid": tid, "args": {"name": name}})
+        return ent[0]
+
+    # ------------------------------------------------------------------ producers
+    def span(self, name, **attrs):
+        """Context manager timing a named span; no-op when disabled."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, attrs or None)
+
+    def record_span(self, name, start, dur, attrs=None, flow_out=None):
+        """Record an already-measured interval (``start``/``dur`` seconds on
+        the sink clock — see :meth:`now`). ``flow_out``: iterable of flow
+        ids this span ORIGINATES — a later async span recorded with the same
+        id in ``flow_in`` is rendered flow-linked to this one (Perfetto
+        ``s``/``f`` pairs)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if not self.enabled:  # lost the race against close(): the final
+                return            # flush already gathered; never buffer dead
+            tid = self._tid()
+            event = {"type": "span", "name": name, "ts": round(start, 6),
+                     "dur": round(dur, 6)}
+            if attrs:
+                event["attrs"] = attrs
+            if flow_out:
+                event["flow_out"] = list(flow_out)
+            self._push(event)
+            self._push_trace({"name": name, "cat": "span", "ph": "X", "pid": 0,
+                              "tid": tid,
+                              "ts": round(start * 1e6, 1), "dur": round(dur * 1e6, 1),
+                              **({"args": attrs} if attrs else {})})
+            if flow_out:
+                # flow starts sit just inside the source slice's START: a
+                # matching 'f' is stamped just before its destination
+                # slice's end, which falls DURING this span (the iteration
+                # that executed the phase), keeping s.ts <= f.ts — Perfetto
+                # drops flows that run backward in time. Absolute epsilon,
+                # not proportional: 1% of a multi-second span would land
+                # milliseconds away and reorder against short spans
+                early = round((start + min(1e-4, dur * 0.5)) * 1e6, 1)
+                for fid in flow_out:
+                    self._push_trace({"ph": "s", "cat": "flow", "name": "link",
+                                      "id": str(fid), "pid": 0, "tid": tid,
+                                      "ts": early})
+            if self.flight is not None:
+                self.flight.record(start, "span", name, dur, attrs)
+        self._maybe_flush()
+
+    def record_async(self, name, track, start, dur, attrs=None, flow_in=None):
+        """Record one phase of an async *track* (a request's span tree):
+        rendered as a Perfetto async ``b``/``e`` pair keyed by ``track`` —
+        every phase of one request shares a lane, nested by time. ``flow_in``
+        binds this phase to earlier spans that emitted the same flow ids via
+        ``flow_out`` (e.g. the scheduler iteration that ran this chunk)."""
+        if not self.enabled:
+            return
+        track = str(track)
+        with self._lock:
+            if not self.enabled:
+                return
+            tid = self._tid()
+            event = {"type": "span", "name": name, "ts": round(start, 6),
+                     "dur": round(dur, 6), "track": track}
+            if attrs:
+                event["attrs"] = attrs
+            if flow_in:
+                event["flow_in"] = list(flow_in)
+            self._push(event)
+            self._push_trace({"name": name, "cat": "request", "ph": "b",
+                              "id": track, "pid": 0, "tid": tid,
+                              "ts": round(start * 1e6, 1),
+                              **({"args": attrs} if attrs else {})})
+            self._push_trace({"name": name, "cat": "request", "ph": "e",
+                              "id": track, "pid": 0, "tid": tid,
+                              "ts": round((start + dur) * 1e6, 1)})
+            if flow_in:
+                # just inside the phase's END: the phase finished during
+                # the source iteration span, whose flow 's' sits at that
+                # span's start — see record_span. Absolute epsilon: a
+                # proportional back-off on a long decode phase would land
+                # BEFORE the final (short) iteration began, reversing the
+                # flow
+                late = round((start + max(dur - 1e-4, dur * 0.5)) * 1e6, 1)
+                for fid in flow_in:
+                    self._push_trace({"ph": "f", "bp": "e", "cat": "flow",
+                                      "name": "link", "id": str(fid), "pid": 0,
+                                      "tid": tid, "ts": late})
+            if self.flight is not None:
+                self.flight.record(start, "span", name, dur, attrs, track=track)
+        self._maybe_flush()
+
+    def event(self, name, attrs=None, track=None):
+        """A named instant (SLO alert, flight trigger, request milestone)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if not self.enabled:
+                return
+            ts = self.now()
+            tid = self._tid()
+            event = {"type": "event", "name": name, "ts": round(ts, 6)}
+            if attrs:
+                event["attrs"] = attrs
+            if track is not None:
+                event["track"] = str(track)
+            self._push(event)
+            # instants on a request track carry the track id so a trace-only
+            # consumer can bind milestones (complete/cancel) to the request
+            self._push_trace({"name": name, "cat": "event", "ph": "i", "s": "t",
+                              "pid": 0, "tid": tid, "ts": round(ts * 1e6, 1),
+                              **({"id": str(track)} if track is not None else {}),
+                              **({"args": attrs} if attrs else {})})
+            if self.flight is not None:
+                self.flight.record(ts, "event", name, None, attrs, track=track)
+        self._maybe_flush()
+
+    def gauge(self, name, value, step=None, attrs=None):
+        """Point-in-time scalar; also fans out to the monitor backends when
+        ``step`` is given (step-less gauges like queue depth stay out of the
+        monitor stream — tb/wandb need a monotonic step axis)."""
+        self.gauges([(name, value, step)], attrs=attrs)
+
+    def gauges(self, events, attrs=None):
+        """Batch form of :meth:`gauge`: ``events`` is a list of
+        ``(name, value, step)``. All step-ful events reach the monitor in a
+        single ``write_events`` call (one backend flush per interval, not
+        one per scalar)."""
+        if self._monitor is not None and getattr(self._monitor, "enabled", False):
+            stepped = [(name, float(value), int(step))
+                       for name, value, step in events if step is not None]
+            if stepped:
+                self._monitor.write_events(stepped)
+        if not self.enabled:
+            return
+        with self._lock:
+            if not self.enabled:
+                return
+            ts = self.now()
+            for name, value, step in events:
+                self._last_gauges[name] = float(value)
+                event = {"type": "gauge", "name": name, "value": float(value),
+                         "ts": round(ts, 6)}
+                if step is not None:
+                    event["step"] = int(step)
+                if attrs:
+                    event["attrs"] = attrs
+                self._push(event)
+                self._push_trace({"name": name, "cat": "gauge", "ph": "C", "pid": 0,
+                                  "ts": round(ts * 1e6, 1), "args": {"value": float(value)}})
+                if self.flight is not None:
+                    self.flight.record(ts, "gauge", name, float(value), None)
+        self._maybe_flush()
+
+    def counter(self, name, value=1, attrs=None):
+        """Accumulate into a cumulative (count, total) counter; snapshots are
+        emitted at flush time."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if not self.enabled:
+                return
+            entry = self._counters.setdefault(name, [0, 0, attrs])
+            entry[0] += 1
+            entry[1] += value
+            if self.flight is not None:
+                self.flight.record(self.now(), "counter", name, value, None)
+
+    def histogram(self, name, value, attrs=None):
+        """Record one observation into a named distribution; windowed summary
+        lines (p50/p95/p99 over the last ``hist_window_s`` seconds) are
+        emitted at flush time. ``attrs`` (first writer wins, like counters)
+        are recorded on the summary lines."""
+        if not self.enabled:
+            return
+        value = float(value)
+        with self._lock:
+            if not self.enabled:
+                return
+            hist = self._hists.get(name)
+            if hist is None:
+                hist = self._hists[name] = _WindowedHistogram(
+                    self.hist_window_s, self.hist_max_samples, attrs)
+            hist.observe(self.now(), value)
+            thresholds = self._hist_thresholds.get(name)
+            if thresholds is not None:
+                for th, ent in thresholds.items():
+                    ent[0] += value > th
+                    ent[1] += 1
+            if self.flight is not None:
+                self.flight.record(self.now(), "hist", name, value, None)
+
+    def track_threshold(self, name, threshold):
+        """Register a cumulative exceed counter on histogram ``name``: from
+        now on every observation bumps ``(exceed, total)`` for
+        ``threshold``. The SLO engine uses these for its burn windows —
+        cumulative counts delta cleanly over ANY window, where the sink's
+        own sliding reservoir only answers for the last ``hist_window_s``."""
+        with self._lock:
+            self._hist_thresholds.setdefault(name, {}).setdefault(
+                float(threshold), [0, 0])
+
+    def hist_exceed(self, name, threshold):
+        """Cumulative ``(observations_over_threshold, observations)`` for a
+        threshold previously registered via :meth:`track_threshold`
+        (``(0, 0)`` otherwise — counting starts at registration)."""
+        with self._lock:
+            ent = self._hist_thresholds.get(name, {}).get(float(threshold))
+            return (ent[0], ent[1]) if ent else (0, 0)
+
+    # ------------------------------------------------------------------ output
+    def _push(self, event):
+        self._buffer.append(event)
+
+    def _push_trace(self, event):
+        if len(self._trace_events) < _TRACE_EVENT_CAP:
+            self._trace_events.append(event)
+        else:
+            self._dropped_trace_events += 1
+
+    def _maybe_flush(self):
+        # called AFTER the producer releases the lock (an auto-flush inside
+        # a producer's RLock hold would drag the summarize/file-I/O work
+        # back under the lock it was restructured out of); the unlocked
+        # length read is benign — worst case a flush lands one event early
+        # or late
+        if len(self._buffer) >= self.flush_interval and self.enabled:
+            self.flush()
+
+    def _gather_snapshot(self, ts):
+        """Under the lock: cheap copies of the counter table and each
+        histogram's window samples. The sorting/summarizing happens OUTSIDE
+        the lock (see :meth:`flush`/:meth:`snapshot`) so a fat histogram
+        can never block producers behind an O(n log n) sort."""
+        counters = {name: (c, t, attrs)
+                    for name, (c, t, attrs) in self._counters.items()}
+        hists = {}
+        for name, h in self._hists.items():
+            samples, seen = h.window_samples(ts)
+            hists[name] = (list(samples), seen, h.count, h.sum, h.attrs,
+                           list(h.bucket_counts))
+        return counters, hists
+
+    def _summarize(self, counters, hists, ts):
+        """Counter + histogram snapshot lines (outside the lock)."""
+        out = []
+        for name, (count, total, attrs) in counters.items():
+            out.append({"type": "counter", "name": name, "count": count, "total": total,
+                        "ts": ts, **({"attrs": attrs} if attrs else {})})
+        for name, (samples, seen, count, total, attrs, _buckets) in hists.items():
+            out.append(summarize_histogram(name, samples, ts, count=count,
+                                           total=total, window_seen=seen,
+                                           window_s=self.hist_window_s,
+                                           attrs=attrs))
+        return out
+
+    def flush(self):
+        """Append buffered events + counter/histogram snapshots to the JSONL
+        and rewrite ``trace.json`` (atomic) in Chrome-trace format. State is
+        gathered under the producer lock; summarizing and file I/O run
+        outside it."""
+        if not self.enabled:
+            return
+        self._flush_impl()
+
+    def _flush_impl(self, closing=False):
+        """The one gather/summarize/write body behind both :meth:`flush`
+        and :meth:`close` (``closing`` additionally disables the sink
+        ATOMICALLY with the final buffer gather — an event recorded
+        concurrently either makes the final flush or was never accepted,
+        and force-finalizes pending flight dumps)."""
+        # copy the retained trace list ONLY when the (30s-throttled) trace
+        # rewrite will actually happen: an O(200k) copy under the producer
+        # lock on every flush would stall producers for writes that are
+        # discarded by the throttle anyway
+        will_write_trace = closing or (
+            self.trace_format == "chrome"
+            and (self._last_trace_write is None
+                 or time.perf_counter() - self._last_trace_write
+                 >= self._TRACE_WRITE_PERIOD_S))
+        with self._lock:
+            if closing:
+                if self._closed:
+                    return
+                self._closed = True
+            lines = self._buffer
+            self._buffer = []
+            ts = round(self.now(), 6)
+            counters, hists = self._gather_snapshot(ts)
+            for name, (count, total, _attrs) in counters.items():
+                self._push_trace({"name": name, "cat": "counter", "ph": "C", "pid": 0,
+                                  "ts": round(ts * 1e6, 1), "args": {"value": total}})
+            trace_events = self._trace_events[:] if will_write_trace else None
+            dropped = self._dropped_trace_events
+            flight_ready = (self.flight.take_ready(self.now(), force=closing)
+                            if self.flight is not None else [])
+            if closing:
+                self.enabled = False
+        for pending in flight_ready:
+            self.flight.write_dump(pending)
+        lines = lines + self._summarize(counters, hists, ts)
+        with self._io_lock:
+            if lines:
+                with open(self.jsonl_path, "a") as f:
+                    for event in lines:
+                        f.write(json.dumps(event) + "\n")
+            if trace_events is not None:
+                self._write_trace(trace_events, dropped, force=closing)
+
+    # rewriting the whole trace file is O(retained events); auto-flushes
+    # only pay it every _TRACE_WRITE_PERIOD_S, close() always does
+    _TRACE_WRITE_PERIOD_S = 30.0
+
+    def _write_trace(self, trace_events, dropped, force=False):
+        if self.trace_format != "chrome":
+            return
+        now = time.perf_counter()
+        if (not force and self._last_trace_write is not None
+                and now - self._last_trace_write < self._TRACE_WRITE_PERIOD_S):
+            return
+        self._last_trace_write = now
+        meta = [{"ph": "M", "name": "process_name", "pid": 0,
+                 "args": {"name": "deepspeed_tpu"}}]
+        if dropped:
+            meta.append({"ph": "M", "name": "dropped_events", "pid": 0,
+                         "args": {"count": dropped}})
+        tmp = self.trace_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"traceEvents": meta + trace_events,
+                       "displayTimeUnit": "ms"}, f)
+        os.replace(tmp, self.trace_path)
+
+    # ------------------------------------------------------------------ flight recorder
+    def dump_flight(self, reason, attrs=None):
+        """Trigger an anomaly flight-recorder dump: the ring of recent
+        full-resolution events (the iterations PRECEDING the anomaly) is
+        snapshotted now; events arriving within the recorder's post-window
+        are appended before the dump file is written (so the dump shows the
+        iterations SURROUNDING the trigger). Returns the dump path (the
+        file may still be collecting its post-window), or None when the
+        recorder is off or rate-limited."""
+        if not self.enabled or self.flight is None:
+            return None
+        with self._lock:
+            path = self.flight.trigger(self, reason, attrs)
+        if path is not None:
+            self.event("flight/trigger", attrs={"reason": reason,
+                                                "path": path,
+                                                **(attrs or {})})
+            self.counter("flight/dumps")
+            if self.flight.post_window_s <= 0.0:
+                self.flush()  # an immediate-mode dump lands before we return
+            else:
+                # finalization is otherwise driven by the NEXT flush — on a
+                # quiet server that could be minutes (or process exit)
+                # away, so schedule one for just past the post-window
+                timer = threading.Timer(self.flight.post_window_s + 0.05,
+                                        self.flush)
+                timer.daemon = True
+                timer.start()
+        return path
+
+    def close(self):
+        """Final flush (trace rewrite forced), then disable the sink so
+        later producer calls are no-ops instead of silently-unflushable
+        buffered events. Idempotent (also registered via atexit); see
+        :meth:`_flush_impl` for the atomic gather-and-disable contract."""
+        if self._closed or not self.enabled:
+            return
+        self._flush_impl(closing=True)
+
+    # ------------------------------------------------------------------ introspection
+    def counter_total(self, name):
+        entry = self._counters.get(name)
+        return entry[1] if entry else 0
+
+    def snapshot(self):
+        """Point-in-time JSON-safe view of every counter, the latest value
+        of every gauge, and each histogram's windowed summary stats — the
+        serving gateway's ``/v1/metrics`` endpoint serves exactly this.
+        Read-only: no flush, no file I/O, safe to call from any thread (and
+        from a disabled sink, which reports whatever reached it while
+        enabled). The histogram sort happens OUTSIDE the producer lock."""
+        with self._lock:
+            ts = self.now()
+            counters_raw, hists_raw = self._gather_snapshot(ts)
+            gauges = dict(self._last_gauges)
+        counters = {name: {"count": c, "total": t}
+                    for name, (c, t, _attrs) in counters_raw.items()}
+        hists = {}
+        for name, (samples, seen, count, total, attrs,
+                   buckets) in hists_raw.items():
+            line = summarize_histogram(name, samples, ts, count=count,
+                                       total=total, window_seen=seen,
+                                       window_s=self.hist_window_s, attrs=attrs)
+            line.pop("type")
+            line.pop("name")
+            line.pop("ts")
+            # lifetime cumulative bucket counts on the fixed ladder — what
+            # telemetry/prometheus.py renders as native ``_bucket``/``le``
+            # series (the +Inf bucket equals ``count``)
+            cum = []
+            running = 0
+            for le, n in zip(HIST_BUCKET_BOUNDS, buckets):
+                running += n
+                cum.append([le, running])
+            line["buckets"] = cum
+            hists[name] = line
+        return {"counters": counters, "gauges": gauges, "histograms": hists,
+                "uptime_s": round(self.now(), 3)}

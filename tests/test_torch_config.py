@@ -47,11 +47,24 @@ def test_inference_config_aliases_and_unknown_keys():
         tcfg.DeepSpeedInferenceConfig({"dtype": "int4"})
 
 
-@pytest.mark.parametrize("section", [{"gateway": {"port": 1}}, {"telemetry": {"enabled": True}},
+@pytest.mark.parametrize("section", [{"continuous_batching": {"replicas": 2}},
+                                     {"continuous_batching": {"autoscaler": {"enabled": True}}},
                                      {"moe": {"ep_size": 2}}, {"checkpoint": "ckpt"}])
 def test_unported_sections_raise_when_enabled(section):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tcfg.DeepSpeedInferenceConfig(section)
+
+
+@pytest.mark.parametrize("section", [{"gateway": {"port": 1, "max_queue_depth": 3}},
+                                     {"telemetry": {"enabled": True, "output_path": "tel"}}])
+def test_gateway_and_telemetry_sections_build(section):
+    """The serving gateway and telemetry sections build (ROADMAP Queue 1 #6
+    is ported)."""
+    cfg = tcfg.DeepSpeedInferenceConfig(section)
+    if "gateway" in section:
+        assert cfg.gateway.port == 1 and cfg.gateway.max_queue_depth == 3
+    else:
+        assert cfg.telemetry["enabled"] and cfg.telemetry["output_path"] == "tel"
 
 
 @pytest.mark.parametrize("name", jm.available_models())

@@ -49,7 +49,15 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
             "deepspeed_tpu_torch.ops.op_builder", "deepspeed_tpu_torch.env_report",
             "deepspeed_tpu_torch.ops.qmm_microbench", "deepspeed_tpu_torch.benchmarks.qmm_microbench",
-            "deepspeed_tpu_torch.benchmarks.sparse_sweep", "deepspeed_tpu_torch.inference.speculative"]
+            "deepspeed_tpu_torch.benchmarks.sparse_sweep", "deepspeed_tpu_torch.inference.speculative",
+            "deepspeed_tpu_torch.telemetry", "deepspeed_tpu_torch.telemetry.sink",
+            "deepspeed_tpu_torch.telemetry.capacity", "deepspeed_tpu_torch.telemetry.profiler",
+            "deepspeed_tpu_torch.telemetry.slo", "deepspeed_tpu_torch.telemetry.tracing",
+            "deepspeed_tpu_torch.telemetry.prometheus", "deepspeed_tpu_torch.telemetry.flight_recorder",
+            "deepspeed_tpu_torch.monitor.monitor", "deepspeed_tpu_torch.serving",
+            "deepspeed_tpu_torch.serving.gateway", "deepspeed_tpu_torch.serving.replica",
+            "deepspeed_tpu_torch.serving.fair_queue", "deepspeed_tpu_torch.serving.capacity_math",
+            "deepspeed_tpu_torch.serving.__main__"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -1584,3 +1584,38 @@ def test_microbench_kernels_refuse_what_they_do_not_take(dev):
         qm.qmm3(x, qw, sc, block_n=64)
     with pytest.raises(ValueError, match="bfloat16"):
         qm.qmm4(x.float(), qw, sc, block_n=128)
+
+
+def _fp16_edge_rows(dev, seed):
+    """K/V rows (1, 4, T, 16) whose row max |x| puts max / 127 at an fp16
+    rounding edge: the 127 multiples of fp16 midpoints (2^-10 to 4) and
+    their fp32 neighbours where the exact quotient and the product with
+    fp32(1/127) round to different fp16 scales, then random rows."""
+    h = torch.arange(0x1400, 0x4400, dtype=torch.int32).to(torch.int16).view(torch.float16).float()
+    mid = ((h[:-1].double() + h[1:].double()) / 2 * 127).float()
+    cands = torch.cat([torch.nextafter(mid, mid + s) for s in (-1, 1)] + [mid])
+    quot = (cands / torch.full_like(cands, 127.0)).half()
+    recip = (cands * torch.tensor(1 / 127, dtype=torch.float32)).half()
+    edges = cands[quot != recip]
+    T = edges.numel() + 16
+    g = torch.Generator().manual_seed(seed)
+    k = torch.rand((1, 4, T, 16), generator=g) * 2 - 1
+    v = torch.rand((1, 4, T, 16), generator=g) * 2 - 1
+    k[0, :, :edges.numel()] *= edges[None, :, None] / 2  # below each row's max
+    v[0, :, :edges.numel()] *= edges[None, :, None] / 2
+    k[0, 1, :edges.numel(), 3] = -edges                  # the row max, negative
+    return k.to(dev), v.to(dev), edges.numel()
+
+
+def test_quantize_kv_rows_card_equals_cpu_bitwise(dev):
+    """``quantize_kv_rows`` on the card gives the CPU's int8 rows and fp16
+    scales bit for bit, on rows whose max / 127 sits at an fp16 rounding
+    edge (where dividing by a Python 127 on the card, a multiply by the
+    fp32 reciprocal, picks the other scale) and on random rows."""
+    k, v, n_edge = _fp16_edge_rows(dev, 5)
+    assert n_edge > 0
+    kq, vq, sc = quantize_kv_rows(k, v)
+    ck, cv, cs = quantize_kv_rows(k.cpu(), v.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(sc.cpu().view(torch.int16), cs.view(torch.int16))
+    assert torch.equal(kq.cpu(), ck) and torch.equal(vq.cpu(), cv)

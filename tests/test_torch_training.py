@@ -75,12 +75,26 @@ def test_bad_keys_raise_the_jax_error_text(keys):
     {"data_efficiency": {"enabled": True}},
     {"hybrid_engine": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"telemetry": {"enabled": True}},
+    {"comms_logger": {"enabled": True}},
     {"mesh": {"tensor_parallel_size": 2}},
 ])
 def test_sections_not_ported_raise(section):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         DeepSpeedConfig({"train_batch_size": 4, **section})
+
+
+@pytest.mark.parametrize("section", [{"telemetry": {"enabled": True, "output_path": "tel"}},
+                                     {"tensorboard": {"enabled": True}},
+                                     {"csv_monitor": {"enabled": True, "output_path": "csv"}},
+                                     {"wandb": {"enabled": True, "project": "p"}}])
+def test_telemetry_and_monitor_sections_build(section):
+    """The telemetry section and the three monitor backends build (ROADMAP
+    Queue 1 #6 is ported); the engines wire them (test_torch_telemetry.py)."""
+    cfg = DeepSpeedConfig({"train_batch_size": 4, **section})
+    (key, val), = section.items()
+    assert getattr(cfg, key).enabled
+    if "output_path" in val:
+        assert getattr(cfg, key).output_path == val["output_path"]
 
 
 def test_disabled_sections_and_dtypes():
