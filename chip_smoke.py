@@ -106,6 +106,27 @@ Phases (any failure ends the run with a non-zero exit):
    1, seq 2048: the same kernel-vs-plain micro-step check, then 3 steps:
    GQA g=4, D=128, RoPE, RMSNorm and SwiGLU through the backward kernels;
    finite losses and exact launch counts;
+8b. the training engine's features (``train_features_phase``; ``python3
+   chip_smoke.py --train-features`` runs it alone): gpt2-large at full
+   width and depth, bench.py's config, through ``initialize`` ->
+   ``train_batch`` under no remat, ``nothing_saveable``, ``dots_saveable``
+   and ``dots_and_attn_saveable``: the first step's loss and grad norm
+   against no remat (bitwise, or within ``PARITY_LOSS_REL`` /
+   ``PARITY_NORM_REL``, the log says which), exact launch counts (flash
+   forward twice a layer and step under the first two policies, once
+   otherwise; dq and dk/dv once), the peak device memory (``nothing_saveable``
+   must be below no remat) and the median of 5 steps after 2, with a
+   profile of one step; dropout 0.1 under ``nothing_saveable``: two engines
+   from one seed bitwise over 3 steps, the first step's grad norm with
+   remat off against on, the counter-hash mask on the card bitwise the
+   CPU's at (4, 1024, 1280); Adam (``adam_w_mode`` false), Adagrad, LAMB,
+   SGD, Lion and a client ``torch.optim.AdamW``: 3 steps at 4 layers (fp32,
+   the plain attention) on the card against the CPU within
+   ``OPT_LOSS_REL`` / ``OPT_UPDATE_REL``; checkpoints: 2 steps, a sync and
+   an async save, each loaded into a fresh engine whose next 2 steps are
+   bitwise the uninterrupted run's (losses and master), the seconds and
+   bytes, and the 16-bit export loaded back bitwise the bf16 cast of the
+   master;
 9. block-sparse attention, the main path of its three kernels: at
    gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
    ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
@@ -1601,11 +1622,20 @@ def expected_counts(cfg, new_tokens, fused):
             "fused_qkv_ln": L * steps if fused else 0, "fused_out_mlp": L * steps if fused else 0}
 
 
-def expected_train_counts(cfg, steps, gas=1):
-    """Launches of ``steps`` train steps of ``gas`` microbatches: one flash
-    forward, one dq and one dk/dv per layer and microbatch, nothing else."""
+# the remat policies under which the backward pass runs each block's flash
+# forward again (the others keep its out and lse, or save everything)
+RECOMPUTE_ATTN = ("nothing_saveable", "dots_saveable", "checkpoint_dots",
+                  "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims")
+
+
+def expected_train_counts(cfg, steps, gas=1, policy=None):
+    """Launches of ``steps`` train steps of ``gas`` microbatches under the
+    remat ``policy``: one flash forward (two under a policy of
+    ``RECOMPUTE_ATTN``), one dq and one dk/dv per layer and microbatch,
+    nothing else."""
     n = cfg.num_layers * gas * steps
-    return {**ZERO_COUNTS, "flash_attention": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    fwd = 2 * n if policy in RECOMPUTE_ATTN else n
+    return {**ZERO_COUNTS, "flash_attention": fwd, "flash_bwd_dq": n, "flash_bwd_dkv": n}
 
 
 def check_tokens(out, B, n, vocab, what):
@@ -3263,6 +3293,286 @@ def llama_train_phase(torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: the training engine's features on the training path
+
+FEATURE_MODEL = "gpt2-large"
+FEATURE_SEQ = 1024
+REMAT_POLICIES = (None, "nothing_saveable", "dots_saveable", "dots_and_attn_saveable")
+FEATURE_WARM, FEATURE_TIMED = 2, 5
+DROPOUT = 0.1
+DROPOUT_STEPS = 3
+# the optimizers at gpt2-large width, depth cut to 4 layers, fp32 compute and
+# the plain attention (no kernel), so the card and the CPU differ only in the
+# order of their sums: 3 steps on each, losses within OPT_LOSS_REL and the
+# masters' difference within OPT_UPDATE_REL of what the CPU's 3 updates moved.
+# Lion's update is a sign: where (1 - b1) g + b1 m lies within rounding of 0
+# the two sides may step by lr in opposite directions (PERF.md, PR 17: 5.4e-3
+# of the update in three steps), so its limit is wider
+OPT_LAYERS, OPT_BATCH, OPT_SEQ, OPT_STEPS = 4, 2, 128, 3
+OPT_LOSS_REL = 1e-4
+OPT_UPDATE_REL = {"Lion": 2e-2}
+OPT_UPDATE_REL_DEFAULT = 1e-3
+FEATURE_OPTIMIZERS = (
+    ("Adam adam_w_mode false", {"type": "Adam", "params": {"lr": 1e-4, "weight_decay": 0.01,
+                                                          "adam_w_mode": False}}),
+    ("Adagrad", {"type": "Adagrad", "params": {"lr": 1e-3}}),
+    ("LAMB", {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}}),
+    ("SGD momentum 0.9", {"type": "SGD", "params": {"lr": 1e-2, "momentum": 0.9}}),
+    ("Lion", {"type": "Lion", "params": {"lr": 1e-5, "weight_decay": 0.1}}),
+    ("client torch.optim.AdamW", None),
+)
+
+
+def check_train_counts(counts, want, what):
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+
+
+def _same_or_close(a, b, rel, what):
+    """'bitwise' when ``a == b``, else a check that they agree within
+    ``rel`` and the reading."""
+    if a == b:
+        return "bitwise"
+    r = abs(a - b) / abs(b)
+    check(r <= rel, f"{what}: {a} vs {b} (rel {r:.3e} > {rel:g})")
+    return f"within {rel:g} (rel {r:.3e})"
+
+
+def _feature_engine(host, config, dev, optimizer=None, **model_kw):
+    """An engine for ``FEATURE_MODEL`` on the host weights ``host`` (copied:
+    on the CPU the engine would take fp32 host tensors as its master)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    model_kw = {"attention_impl": "flash", "scan_layers": False, **model_kw}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=get_model(FEATURE_MODEL, **model_kw),
+                                                     model_parameters={k: v.clone() for k, v in host.items()},
+                                                     config=config, optimizer=optimizer, device=dev)
+    return engine
+
+
+def _steps(torch, engine, batch, n):
+    """``n`` train steps: (losses, grad norms, step seconds)."""
+    norms = []
+    losses, secs = [], []
+    for _ in range(n):
+        loss, sec = timed_steps(torch, engine, batch, 1)
+        losses += loss
+        secs += sec
+        norms.append(engine._last_metrics["grad_norm"])
+    return losses, norms, secs
+
+
+def remat_leg(torch, card, dev, host, batch):
+    """gpt2-large at full depth under each of ``REMAT_POLICIES``: the first
+    step's loss and grad norm against no remat, exact launch counts, the
+    peak device memory and the median step over ``FEATURE_TIMED`` steps
+    after ``FEATURE_WARM``, and a profile of one step. Returns {policy: (first-step loss, grad norm)}."""
+    import numpy as np
+    rows = {}
+    for policy in REMAT_POLICIES:
+        config = dict(TRAIN_CONFIG)
+        if policy:
+            config["activation_checkpointing"] = {"policy": policy}
+        engine = _feature_engine(host, config, dev)
+        check(engine.module.cfg.remat_policy == policy, f"remat policy {engine.module.cfg.remat_policy}")
+        warm, norms, _ = _steps(torch, engine, batch, FEATURE_WARM)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, _, secs = _steps(torch, engine, batch, FEATURE_TIMED)
+        counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+        check_train_counts(counts, expected_train_counts(engine.module.cfg, FEATURE_TIMED, policy=policy),
+                           f"remat {policy}")
+        check(all(np.isfinite(warm + losses)), f"remat {policy}: non-finite loss in {warm + losses}")
+        rows[policy] = (warm[0], norms[0], peak, statistics.median(secs) * 1e3, counts["flash_attention"])
+        train_profile(torch, engine, batch, rows[policy][3], f"{FEATURE_MODEL} remat {policy}", steps=1)
+        del engine
+        torch.cuda.empty_cache()
+    base_loss, base_norm, base_peak, base_ms, _ = rows[None]
+    for policy, (loss, norm, peak, ms, fwd) in rows.items():
+        how = ""
+        if policy is not None:
+            how = (f"; first-step loss {_same_or_close(loss, base_loss, PARITY_LOSS_REL, f'remat {policy} loss')}"
+                   f", grad norm {_same_or_close(norm, base_norm, PARITY_NORM_REL, f'remat {policy} norm')}"
+                   f" of no remat's")
+        log(f"remat {policy}: first step loss {loss:.6f} grad norm {norm:.6f}{how}; flash forward "
+            f"launches {fwd} over {FEATURE_TIMED} steps; peak device memory {peak / 2**30:.3f} GiB "
+            f"({peak / base_peak:.4f}x no remat); median step {ms:.3f} ms ({ms / base_ms:.4f}x) on {card}")
+    check(rows["nothing_saveable"][2] < base_peak,
+          f"nothing_saveable's peak {rows['nothing_saveable'][2]} is not below no remat's {base_peak}")
+    return {p: r[:2] for p, r in rows.items()}
+
+
+def dropout_leg(torch, dev, host, batch, no_dropout):
+    """Dropout 0.1 under ``nothing_saveable``: two engines from one seed give
+    bitwise losses over ``DROPOUT_STEPS`` steps (exact launch counts), and a
+    first-step loss other than ``no_dropout``'s (the remat leg's (loss, grad
+    norm) under ``nothing_saveable``); the first step's grad norm with remat
+    off against on; the counter-hash mask on the card bitwise the CPU's at
+    gpt2-large's (B, T, H)."""
+    from deepspeed_tpu_torch.models.transformer import dropout_mask
+    from deepspeed_tpu_torch.utils.counter_hash import fold_in, seed_key
+    config = {**TRAIN_CONFIG, "activation_checkpointing": {"policy": "nothing_saveable"}}
+    runs = []
+    for _ in range(2):
+        engine = _feature_engine(host, config, dev, dropout=DROPOUT)
+        reset_counts()
+        runs.append(_steps(torch, engine, batch, DROPOUT_STEPS))
+        check_train_counts(read_counts(), expected_train_counts(engine.module.cfg, DROPOUT_STEPS,
+                                                                policy="nothing_saveable"),
+                           "dropout under nothing_saveable")
+        del engine
+        torch.cuda.empty_cache()
+    (la, na, sa), (lb, _, _) = runs
+    check(la == lb, f"dropout: two engines from one seed part: {la} vs {lb}")
+    engine = _feature_engine(host, dict(TRAIN_CONFIG), dev, dropout=DROPOUT)
+    _, nc, _ = _steps(torch, engine, batch, 1)
+    del engine
+    torch.cuda.empty_cache()
+    how = _same_or_close(nc[0], na[0], PARITY_NORM_REL, "dropout: first-step grad norm, remat off vs on")
+    log(f"dropout {DROPOUT} under nothing_saveable: losses {la} (bitwise on a second engine), steps "
+        f"{[round(x * 1e3, 3) for x in sa]} ms; first-step loss {la[0]:.6f} (without dropout "
+        f"{no_dropout[0]:.6f}); first-step grad norm remat on {na[0]:.6f}, off {nc[0]:.6f}: {how}")
+    check(la[0] != no_dropout[0], "dropout left the first-step loss unchanged")
+    B, H = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], host["embed.embedding"].shape[1]
+    shape, key = (B, FEATURE_SEQ, H), fold_in(fold_in(seed_key(SEED), 1), 2)
+    t0 = time.perf_counter()
+    on_card = dropout_mask(key, shape, DROPOUT, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    on_host = dropout_mask(key, shape, DROPOUT, "cpu")
+    same = torch.equal(on_card.cpu(), on_host)
+    log(f"dropout mask {shape}: card == CPU bitwise: {same}; keep fraction {float(on_host.float().mean()):.6f} "
+        f"(expected {1 - DROPOUT}); {card_s * 1e3:.3f} ms on the card, first call")
+    check(same, "the counter-hash dropout mask differs between the card and the CPU")
+
+
+def optimizer_leg(torch, dev):
+    """Each optimizer type and a client ``torch.optim.AdamW``: ``OPT_STEPS``
+    steps of the ``OPT_LAYERS``-layer model on the card against the same
+    steps on the CPU."""
+    import numpy as np
+    from deepspeed_tpu_torch.models import get_model
+    host = get_model(FEATURE_MODEL, num_layers=OPT_LAYERS).init_params(SEED)
+    vocab = get_model(FEATURE_MODEL).cfg.vocab_size
+    batch = {"input_ids": np.random.default_rng(SEED + 2).integers(0, vocab, (OPT_BATCH, OPT_SEQ))}
+    config = {"train_micro_batch_size_per_gpu": OPT_BATCH, "gradient_clipping": 1.0,
+              "steps_per_print": 10**9}
+    model_kw = {"num_layers": OPT_LAYERS, "dtype": torch.float32, "attention_impl": "xla",
+                "scan_layers": True}
+    for name, section in FEATURE_OPTIMIZERS:
+        cfg = dict(config) if section is None else {**config, "optimizer": section}
+        out = []
+        for d in (dev, torch.device("cpu")):
+            client = None
+            if section is None:
+                client = lambda ps: torch.optim.AdamW(ps, lr=1e-4, weight_decay=0.01)  # noqa: E731
+            engine = _feature_engine(host, cfg, d, optimizer=client, **model_kw)
+            t0 = time.perf_counter()
+            losses, _, _ = _steps(torch, engine, batch, OPT_STEPS)
+            out.append((losses, {k: v.detach().cpu() for k, v in engine.params.items()},
+                        time.perf_counter() - t0))
+            del engine
+            torch.cuda.empty_cache()
+        (lk, mk, sk), (lc, mc, sc) = out
+        moved = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(mc[k] - host[k])
+                                                            for k in mc])))
+        diff = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(mk[k] - mc[k])
+                                                           for k in mc])))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
+        limit = OPT_UPDATE_REL.get(name, OPT_UPDATE_REL_DEFAULT)
+        log(f"optimizer {name}: {OPT_STEPS} steps card vs CPU: losses {[round(x, 6) for x in lk]} vs "
+            f"{[round(x, 6) for x in lc]} (worst rel {loss_rel:.3e}, limit {OPT_LOSS_REL:g}); masters "
+            f"differ by {diff:.4e} against {moved:.4e} moved (rel {diff / moved:.3e}, limit "
+            f"{limit:g}); {sk:.2f} s on the card, {sc:.2f} s on the CPU")
+        check(moved > 0, f"optimizer {name}: the master did not move")
+        check(loss_rel <= OPT_LOSS_REL, f"optimizer {name}: losses {lk} vs CPU {lc}")
+        check(diff <= limit * moved, f"optimizer {name}: card and CPU masters differ by "
+              f"{diff / moved:.3e} of the update")
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_leg(torch, dev, host, batch):
+    """gpt2-large at full depth: 2 steps, a sync save and an async save
+    (steps 3 and 4 run while it writes), each loaded into a fresh engine
+    whose steps 3 and 4 must be bitwise the uninterrupted run's, losses and
+    master; save and load seconds and bytes; the 16-bit export loads back
+    bitwise the bf16 cast of the master."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        a = _feature_engine(host, dict(TRAIN_CONFIG), dev)
+        _steps(torch, a, batch, 2)
+        times = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.save_checkpoint(root, tag="sync2")
+        times["sync save"] = time.perf_counter() - t0
+        a.config.checkpoint.async_save = True
+        t0 = time.perf_counter()
+        a.save_checkpoint(root, tag="async2")
+        times["async save returns"] = time.perf_counter() - t0
+        a.config.checkpoint.async_save = False
+        want, _, _ = _steps(torch, a, batch, 2)  # while the async file is written
+        t0 = time.perf_counter()
+        a.wait_checkpoint_saves()
+        times["async wait after 2 steps"] = time.perf_counter() - t0
+        nbytes = _dir_bytes(os.path.join(root, "sync2"))
+        check(nbytes == _dir_bytes(os.path.join(root, "async2")), "sync and async checkpoints differ in size")
+        for tag in ("sync2", "async2"):
+            b = _feature_engine(host, dict(TRAIN_CONFIG), dev)
+            with torch.no_grad():
+                for v in b.params.values():
+                    v.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.load_checkpoint(root, tag=tag)
+            torch.cuda.synchronize()
+            times[f"load {tag}"] = time.perf_counter() - t0
+            got, _, _ = _steps(torch, b, batch, 2)
+            same = all(torch.equal(b.params[k], v) for k, v in a.params.items())
+            log(f"checkpoint {tag}: resumed losses {got} vs uninterrupted {want}; masters bitwise: {same}")
+            check(got == want and same, f"checkpoint {tag}: the resumed run parts from the uninterrupted one")
+            del b
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        path = a.save_16bit_model(os.path.join(root, "export"))
+        times["16-bit export"] = time.perf_counter() - t0
+        sd = torch.load(path, weights_only=True)
+        exact = all(torch.equal(sd[k], v.detach().to(torch.bfloat16).cpu()) for k, v in a.params.items())
+        log(f"checkpoint: {nbytes / 2**30:.3f} GiB a checkpoint (fp32 master and both Adam moments), "
+            f"16-bit export {os.path.getsize(path) / 2**30:.3f} GiB, loads back bitwise the bf16 cast of "
+            f"the master: {exact}; seconds {', '.join(f'{k} {v:.2f}' for k, v in times.items())} "
+            f"(host file cache warm for the loads)")
+        check(exact and set(sd) == set(a.params), "the 16-bit export is not the bf16 cast of the master")
+        del a
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_features_phase(torch, card, dev):
+    """Remat, dropout, the optimizers and checkpoints on the training path
+    (``initialize`` -> ``train_batch``, bench.py's config), each leg timed."""
+    import numpy as np
+    from deepspeed_tpu_torch.models import get_model
+    t0 = time.perf_counter()
+    cfg = get_model(FEATURE_MODEL).cfg
+    host = get_model(FEATURE_MODEL).init_params(SEED)
+    B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    batch = {"input_ids": np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, FEATURE_SEQ))}
+    log(f"{FEATURE_MODEL} host weights ({cfg.num_layers} layers, seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s; batch ({B}, {FEATURE_SEQ})")
+    first = timed_phase("training features: remat", remat_leg, torch, card, dev, host, batch)
+    timed_phase("training features: dropout", dropout_leg, torch, dev, host, batch,
+                first["nothing_saveable"])
+    timed_phase("training features: optimizers", optimizer_leg, torch, dev)
+    timed_phase("training features: checkpoints", checkpoint_leg, torch, dev, host, batch)
+
+
 # the sparse path: gpt2-large's attention widths at T 4096, block 64, bf16
 SPARSE_SHAPE = (2, 20, SPARSE_T, 64)
 SPARSE_BLOCK = 64
@@ -3556,8 +3866,10 @@ def main(argv=()):
     """``--kernels NAME[,NAME...]``: build those kernels and run only their
     rows of the kernel phase; ``--long``: build every kernel and run only the
     llama3-8b phase (its launch counts, streams and long-context legs with
-    their peak device memory). Either compares a change with its parent in
-    one call: run this file beside each tree's package, in turns."""
+    their peak device memory); ``--train-features``: build every kernel and
+    run only the training-features phase. Each compares a change with its
+    parent in one call: run this file beside each tree's package, in
+    turns."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3591,11 +3903,15 @@ def main(argv=()):
             if any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma")):
                 log(f"  ptxas {name}: {line.strip()}")
 
+    dev = torch.device("cuda")
     if list(argv) == ["--long"]:
         timed_phase("llama3-8b and long context", llama_phase, torch)
         log(card)
         return 0
-    dev = torch.device("cuda")
+    if list(argv) == ["--train-features"]:
+        timed_phase("training features", train_features_phase, torch, card, dev)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -3635,6 +3951,7 @@ def main(argv=()):
         results[name]["launches"] = train_counts[name]
     timed_phase("training parity", train_parity_phase, torch)
     timed_phase("llama3-8b training", llama_train_phase, torch)
+    timed_phase("training features", train_features_phase, torch, card, dev)
     # the sparse path is the main path of the three block-sparse kernels
     sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:

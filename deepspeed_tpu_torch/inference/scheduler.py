@@ -116,6 +116,7 @@ import torch
 
 from .kv_cache import RadixPrefixCache, SlotKVCache, copy_slot, slot_slice
 from .speculative import PromptLookupDrafter
+from ..utils.counter_hash import GOLDEN, M32, mix32, mulmod32
 
 
 def _round_up(x, m):
@@ -138,32 +139,14 @@ def _unported(what, item):
 
 # ---------------------------------------------------------------- sampling
 
-_M32 = 0xFFFFFFFF
-
-
-def _mulmod32(x, c):
-    """(x * c) mod 2^32 for int64 tensors x in [0, 2^32) and a constant c <
-    2^32, without an int64 overflow: x splits into 16-bit halves."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(h):
-    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values."""
-    h = h ^ (h >> 16)
-    h = _mulmod32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mulmod32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
 
 def sample_uniforms(seeds, steps, V):
     """(N, V) float64 uniforms in (0, 1), a function of (seed, step, vocab
     index) alone: bitwise the same on the CPU and the card. ``seeds``,
     ``steps``: (N,) int64, seeds in [0, 2^32)."""
-    key = _mix32(_mix32(seeds & _M32) ^ _mulmod32(steps & _M32, 0x9E3779B1))
+    key = mix32(mix32(seeds & M32) ^ mulmod32(steps & M32, GOLDEN))
     v = torch.arange(V, dtype=torch.int64, device=seeds.device)
-    h = _mix32(_mix32(key[:, None] ^ _mulmod32(v, 0x27D4EB2F)[None, :]) ^ 0x165667B1)
+    h = mix32(mix32(key[:, None] ^ mulmod32(v, 0x27D4EB2F)[None, :]) ^ 0x165667B1)
     return (h.double() + 0.5) / 4294967296.0
 
 

@@ -29,19 +29,28 @@ write extent and attends through the extent modes of the same kernel.
 :meth:`CausalLMModel.fused_paged_step` is the same step through the fused
 decode-layer kernels.
 
+Training runs the JAX model's remat policies (:func:`resolve_remat_policy`:
+each ``Block`` under non-reentrant ``torch.utils.checkpoint``, a named
+policy mapped to a selective-checkpoint ``context_fn``) and its two
+residual dropouts a block, their masks drawn from a counter hash of
+(seed, step, micro-step, layer, site, element) so a recomputed block draws
+the same mask (:func:`dropout_mask`).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 MoE, LoRA, alibi, local attention windows, sequence sharding across
-devices, activation fake-quantization, and in training dropout and remat
-policies.
+devices and activation fake-quantization.
 """
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..ops.decode_attention import (decode_attention, extent_paged_decode_attention,
                                     extent_paged_span_attention, paged_decode_attention,
@@ -49,6 +58,7 @@ from ..ops.decode_attention import (decode_attention, extent_paged_decode_attent
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_matmul import quant_matmul
 from ..ops.quantizer import dequantize_kv_rows, quantize_kv_rows
+from ..utils.counter_hash import GOLDEN, fold_in, mix32, mulmod32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +232,112 @@ def chunked_cross_entropy(hidden, w, labels, valid, chunk=128, transpose=False):
     integer, ``valid`` (B, T) bool. Chunks of ``chunk`` time steps; the last
     may be shorter (the JAX package pads it with invalid rows instead)."""
     return _ChunkedCE.apply(hidden, w, labels.long(), valid.to(torch.float32), chunk, transpose)
+
+
+# ---------------------------------------------------------------------------
+# remat policies and dropout
+
+# jax.checkpoint_policies' public names (JAX 0.9), quoted by the error for
+# an unknown name as the JAX package quotes them
+_JAX_POLICY_NAMES = ("checkpoint_dots", "checkpoint_dots_with_no_batch_dims", "dots_saveable",
+                     "dots_with_no_batch_dims_saveable", "everything_saveable", "nothing_saveable",
+                     "offload_dot_with_no_batch_dims", "save_and_offload_only_these_names",
+                     "save_any_names_but_these", "save_anything_except_these_names",
+                     "save_from_both_policies", "save_only_these_names")
+
+
+def _saving(ops):
+    """A selective-checkpoint ``context_fn`` that keeps the outputs of
+    ``ops`` (aten overloads) and recomputes everything else."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def resolve_remat_policy(name):
+    """The ``torch.utils.checkpoint`` ``context_fn`` of a remat policy
+    name, or None where a block runs without a checkpoint (the JAX
+    package's ``resolve_remat_policy``, ``models/transformer.py:172``).
+
+    ``nothing_saveable`` recomputes the whole block; ``everything_saveable``
+    keeps every residual, which is what autograd does without a
+    checkpoint; ``dots_saveable`` / ``checkpoint_dots`` keep the products
+    (``aten.mm``, ``addmm``, ``bmm``); ``dots_with_no_batch_dims_saveable``
+    / ``checkpoint_dots_with_no_batch_dims`` the 2-D ones only;
+    ``dots_and_attn_saveable`` the products and the flash forward's out and
+    lse (the ``flash_fwd`` operator), so the backward pass does not run the
+    forward kernel again. A ``jax.checkpoint_policies`` factory (it takes
+    arguments) and an unknown name raise ``ValueError``."""
+    if name is None or name == "everything_saveable":
+        return None
+    if name == "nothing_saveable":
+        return noop_context_fn
+    aten = torch.ops.aten
+    mm = {aten.mm.default, aten.addmm.default}
+    if name in ("dots_saveable", "checkpoint_dots"):
+        return _saving(mm | {aten.bmm.default})
+    if name in ("dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims"):
+        return _saving(mm)
+    if name == "dots_and_attn_saveable":
+        return _saving(mm | {aten.bmm.default, torch.ops.deepspeed_tpu_torch.flash_fwd.default})
+    if name in _JAX_POLICY_NAMES:
+        raise ValueError(f"remat policy {name!r} is a jax.checkpoint_policies factory: it takes "
+                         f"arguments and returns a policy, and is not a policy by itself")
+    raise ValueError(f"unknown remat policy {name!r} (a typo would silently mean full recompute); use "
+                     f"'nothing_saveable', 'dots_and_attn_saveable', or one of "
+                     f"jax.checkpoint_policies: {list(_JAX_POLICY_NAMES)}")
+
+
+def _remat_block(blk, context_fn, x, sin, cos, attn_mask, position_ids, impl, key):
+    """``blk`` on ``x`` under a non-reentrant checkpoint. The block's
+    tensors go in as an argument and every run binds them again: the
+    backward pass recomputes outside the caller's ``functional_call``, where
+    the module holds meta tensors."""
+    tensors = dict(blk.named_buffers())
+
+    def run(x, tensors):
+        return torch.func.functional_call(blk, tensors, (x, sin, cos, attn_mask),
+                                          {"position_ids": position_ids, "impl": impl,
+                                           "dropout_key": key})[0]
+
+    return checkpoint(run, x, tensors, use_reentrant=False, context_fn=context_fn,
+                      preserve_rng_state=False)
+
+
+@functools.lru_cache(maxsize=8)
+def _element_codes(n, device):
+    """mulmod32(i, GOLDEN) for the flat element indices i < n (the same for
+    every layer and site, so kept)."""
+    return mulmod32(torch.arange(n, dtype=torch.int64, device=device), GOLDEN)
+
+
+def dropout_mask(key, shape, rate, device):
+    """The keep mask (bool, ``shape``) of dropout at ``rate`` under ``key``
+    (a uint32 Python int): element i (row-major) is kept when
+    ``mix32(mulmod32(i, GOLDEN) ^ key) >= round(rate * 2^32)``. Integer ops
+    and an integer threshold only, so the card and the CPU draw the same
+    bits, and a recomputed block draws its forward's mask (a
+    ``torch.Generator`` would not: ``torch.utils.checkpoint`` restores only
+    the global generators)."""
+    codes = _element_codes(math.prod(shape), torch.device(device))
+    return (mix32(codes ^ key) >= int(round(rate * 2**32))).reshape(shape)
+
+
+def dropout_apply(x, keep, rate):
+    """flax ``nn.Dropout``'s output for the mask ``keep``: ``select(keep, x
+    / (1 - rate), 0)``, the division by ``1 - rate`` rounded to x's dtype
+    (a tensor divisor: on the card a Python number would become a multiply
+    by its reciprocal)."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def dropout(x, rate, key):
+    return dropout_apply(x, dropout_mask(key, x.shape, rate, x.device), rate)
 
 
 # ---------------------------------------------------------------------------
@@ -676,13 +792,24 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, sin, cos, attn_mask=None, kv_cache=None, cache_index=None,
-                position_ids=None, decode_window=None, slot_write=None, impl="kernel"):
+                position_ids=None, decode_window=None, slot_write=None, impl="kernel",
+                dropout_key=None):
+        """``dropout_key``: this layer's key (training with dropout), else
+        None: the attention and MLP branches each pass through dropout
+        under a key of their own (the JAX ``Block``'s two residual
+        dropouts)."""
+        rate = self.cfg.dropout
         h, new_cache = self.attn(self.attn_norm(x), sin, cos, attn_mask, kv_cache, cache_index,
                                  position_ids, decode_window, slot_write, impl)
+        if dropout_key is not None:
+            h = dropout(h, rate, fold_in(dropout_key, 0))
+        ff_in = x if self.cfg.parallel_residual else x + h
+        ff = self.mlp(self.mlp_norm(ff_in), impl)
+        if dropout_key is not None:
+            ff = dropout(ff, rate, fold_in(dropout_key, 1))
         if self.cfg.parallel_residual:
-            return x + h + self.mlp(self.mlp_norm(x), impl), new_cache
-        x = x + h
-        return x + self.mlp(self.mlp_norm(x), impl), new_cache
+            return x + h + ff, new_cache
+        return ff_in + ff, new_cache
 
 
 class Embed(nn.Module):
@@ -704,6 +831,7 @@ class CausalLM(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self._remat = resolve_remat_policy(cfg.remat_policy)
         H = cfg.hidden_size
         self.embed = Embed(cfg.vocab_size, H)
         if cfg.embed_norm:
@@ -732,7 +860,7 @@ class CausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, kv_cache=None, cache_index=None,
                 position_ids=None, impl="kernel", return_hidden=False, write_index=None,
-                q_spans=None, ext_ops=None):
+                q_spans=None, ext_ops=None, dropout_key=None):
         """``kv_cache``: ``(ks, vs)`` (or ``(ks, vs, scales)``, the int8 KV
         tier), per-layer (B, kv_heads, S, hd) caches written in place.
         Returns logits, or (logits, kv_cache) with a cache, or the
@@ -742,7 +870,10 @@ class CausalLM(nn.Module):
         counts (``cache_index`` is then unused). ``ext_ops``: long-context
         extent operands, see :meth:`CausalLMModel.apply_with_cache`.
         ``impl="plain"`` routes every kernel to its plain version (the
-        on-card check that the kernel path computes the same logits)."""
+        on-card check that the kernel path computes the same logits).
+        ``dropout_key``: the micro-step's dropout key (training), folded
+        with each layer's index; with a remat policy and no cache each
+        block runs under its checkpoint."""
         cfg = self.cfg
         B, T = input_ids.shape
         if ext_ops is not None and (cfg.attention_impl != "flash" or cfg.local_attention_window
@@ -794,10 +925,15 @@ class CausalLM(nn.Module):
                 ext = (ext_table, sinks, wins)
             slot_write = (write_index, q_spans, targets, ext)
 
+        remat = self._remat if kv_cache is None and torch.is_grad_enabled() else None
         for i, blk in enumerate(self.layers):
+            key = None if dropout_key is None else fold_in(dropout_key, i)
+            if remat is not None:
+                x = _remat_block(blk, remat, x, sin, cos, attn_mask, position_ids, impl, key)
+                continue
             layer_cache = None if kv_cache is None else tuple(comp[i] for comp in kv_cache)
             x, _ = blk(x, sin, cos, attn_mask, layer_cache, cache_index, position_ids,
-                       decode_window, slot_write, impl)
+                       decode_window, slot_write, impl, key)
 
         x = self.final_norm(x)
         if return_hidden:
@@ -873,23 +1009,29 @@ class CausalLMModel:
             return False
         return not cfg.lm_head_bias
 
-    def loss(self, params, batch, impl="kernel"):
+    def set_remat_policy(self, policy):
+        """Engine hook for the ``activation_checkpointing`` config section:
+        rebuild the module with the named remat policy."""
+        self.cfg = dataclasses.replace(self.cfg, remat_policy=policy)
+        self.module = CausalLM(self.cfg)
+
+    def loss(self, params, batch, impl="kernel", rng=None):
         """Next-token cross entropy, the mean over valid tokens. ``batch``:
         ``input_ids`` (B, T); optional ``labels`` (B, T; -100 = ignore),
         aligned with the positions (no shift), and ``attention_mask`` (B, T).
         Without labels position t predicts token t + 1. ``params``: the
-        compute-dtype state dict the gradients flow back through."""
+        compute-dtype state dict the gradients flow back through. ``rng``:
+        the micro-step's dropout key (``utils/counter_hash.py``); dropout
+        is on when it is given and ``dropout > 0``, as in the JAX model."""
         cfg = self.cfg
-        if cfg.dropout > 0:
-            raise _unported("dropout in training", "ROADMAP Queue 1 #4, dropout")
-        if cfg.remat_policy is not None:
-            raise _unported(f"remat policy {cfg.remat_policy!r}", "ROADMAP Queue 1 #4, remat")
         if cfg.int8_weights:
             raise ValueError("loss() trains float weights; int8_weights models serve only")
         input_ids = batch["input_ids"]
         chunked = self._use_chunked_ce()
+        key = rng if rng is not None and cfg.dropout > 0 else None
         out = torch.func.functional_call(self.module, params, (input_ids, batch.get("attention_mask")),
-                                         {"impl": impl, "return_hidden": chunked}, strict=True)
+                                         {"impl": impl, "return_hidden": chunked, "dropout_key": key},
+                                         strict=True)
         if "labels" in batch:
             labels, out_t = batch["labels"], out
         else:

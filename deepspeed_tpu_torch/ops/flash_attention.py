@@ -12,11 +12,12 @@ query head h reads KV head h // (H // Hkv)). Returns out (B, H, T, D) in q's
 dtype and lse (B, H, T) fp32; a row that attends nothing gets out 0 and
 lse -inf.
 
-Both entry points are differentiable through one ``torch.autograd.Function``
-(:class:`FlashAttentionFunction`): its forward saves q, k, v, out and lse;
-its backward computes ``delta = rowsum(dO * O)`` in fp32 (minus the lse
-cotangent, which folds into the same kernels), launches the dq and the dk/dv
-kernels, and sums dk/dv over the GQA group. Forward and backward each choose
+Both entry points are differentiable through one registered operator,
+``torch.ops.deepspeed_tpu_torch.flash_fwd`` (:func:`flash_fwd_op`), whose
+autograd saves q, k, v, out and lse; its backward computes ``delta =
+rowsum(dO * O)`` in fp32 (minus the lse cotangent, which folds into the
+same kernels), launches the dq and the dk/dv kernels, and sums dk/dv over
+the GQA group. Forward and backward each choose
 by device: a CUDA tensor launches the kernels (or the call raises); a CPU
 tensor, or ``impl="plain"``, takes :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain`.
@@ -24,6 +25,7 @@ tensor, or ``impl="plain"``, takes :func:`flash_attention_plain` and
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -268,30 +270,45 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None, g_lse=
     return dq, _group_sum(dk, Hkv), _group_sum(dv, Hkv)
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """(out, lse) = attention(q, k, v), differentiable in q, k and v through
-    both outputs (the lse cotangent folds into delta)."""
+@torch.library.custom_op("deepspeed_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 scale: Optional[float], impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) = attention(q, k, v) as one dispatched operator: the
+    forward kernel on CUDA tensors, :func:`flash_attention_plain` on CPU
+    tensors or with ``impl="plain"``. A selective-checkpoint policy sees
+    this operator (and none of the work inside it), so it can keep its
+    outputs (``dots_and_attn_saveable``, the JAX package's
+    ``checkpoint_name(..., "flash_out"/"flash_lse")``) or run it again in
+    the backward pass (``nothing_saveable``, ``dots_saveable``)."""
+    if impl == "plain" or not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal, scale)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    return flash_attention_fwd(q, k, v, causal, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale, impl):
-        if impl == "plain" or not q.is_cuda:
-            out, lse = flash_attention_plain(q, k, v, causal, scale)
-        else:
-            q, k, v = (_aligned(t) for t in (q, k, v))
-            out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if g_out is None:
-            g_out = torch.zeros_like(out)
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, ctx.causal, ctx.scale, g_lse,
-                                         ctx.impl)
-        return dq, dk, dv, None, None, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, impl):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, scale, impl = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
+
+
+def _flash_backward(ctx, g_out, g_lse):
+    """Gradients in q, k and v through both outputs (the lse cotangent
+    folds into delta)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if g_out is None:
+        g_out = torch.zeros_like(out)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, ctx.causal, ctx.scale, g_lse,
+                                     ctx.impl)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention_with_lse(q, k, v, causal=True, scale=None, impl="kernel"):
@@ -299,7 +316,7 @@ def flash_attention_with_lse(q, k, v, causal=True, scale=None, impl="kernel"):
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     _check(q, k, v)
-    return FlashAttentionFunction.apply(q, k, v, causal, scale, impl)
+    return flash_fwd_op(q, k, v, bool(causal), None if scale is None else float(scale), impl)
 
 
 def flash_attention(q, k, v, causal=True, scale=None, impl="kernel"):

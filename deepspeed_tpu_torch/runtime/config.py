@@ -106,6 +106,8 @@ class TelemetryConfig(DeepSpeedConfigModel):
 
 
 class CheckpointConfig(DeepSpeedConfigModel):
+    """``async_save``: the file is written on a thread (the engine's
+    ``save_checkpoint``)."""
     tag_validation = ConfigField(default="Warn")
     load_universal = ConfigField(default=False)
     use_node_local_storage = ConfigField(default=False)
@@ -253,10 +255,6 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
             if _section_on(config_dict[key]):
                 raise NotImplementedError(f"deepspeed_tpu_torch does not support the '{key}' config "
                                           f"section yet ({_UNPORTED_SECTIONS[key]})")
-        ac = self.activation_checkpointing
-        if ac.policy is not None or ac.partition_activations or ac.cpu_checkpointing:
-            raise NotImplementedError("deepspeed_tpu_torch does not support activation "
-                                      "checkpointing yet (ROADMAP Queue 1 #4, remat)")
         m = self.mesh
         for axis in ("tensor_parallel_size", "pipeline_parallel_size", "sequence_parallel_size",
                      "expert_parallel_size"):

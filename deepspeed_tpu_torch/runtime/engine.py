@@ -12,8 +12,23 @@ same step eagerly, in the same order:
 2. unscale by ``loss_scale * gas`` (times the predivide factor with
    ``prescale_gradients``), take the fp32 global norm, skip the update and
    the step count on a non-finite norm, clip by ``min(1, clip / (norm +
-   1e-6))``, run the optimizer (``runtime/optimizers.py``) at the learning
-   rate of the applied-step count, and update the loss scaler.
+   1e-6))``, run the optimizer (``runtime/optimizers.py``: Adam/AdamW,
+   Adagrad, LAMB, SGD, Lion, or a client ``torch.optim.Optimizer``) at the
+   learning rate of the applied-step count, and update the loss scaler.
+
+The ``activation_checkpointing`` section sets the model's remat policy (the
+JAX engine's rule: a ``policy``, ``partition_activations`` or
+``cpu_checkpointing`` turns it on, ``nothing_saveable`` by default). With
+``dropout > 0`` each micro-step's loss gets a dropout key folded from the
+config seed, the applied-step count and the micro-step index (the JAX
+engine's ``fold_in``s), so the fused path and the facade draw the same
+masks and a resumed run the uninterrupted run's.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint`` /
+``wait_checkpoint_saves``, ``runtime/checkpoint_engine``) hold the fp32
+master, the optimizer state, the loss scaler, the step counters, the lr
+schedule, the config and the client state; never the facade's gradient
+accumulator. ``save_16bit_model`` writes the compute-dtype state dict.
 
 The overflow flag is read on the host once per step (the JAX engine selects
 on the device). Master weights, gradients and the Adam moments stay fp32 on
@@ -34,11 +49,12 @@ Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``. Not ported yet, each raising
 ``NotImplementedError`` naming its ROADMAP item: ZeRO stages 1-3, offload,
-pipeline and model parallelism, 1-bit optimizers, checkpoints,
-``deepspeed_io``.
+pipeline and model parallelism, 1-bit optimizers, a resume at another world
+size, ``deepspeed_io``.
 """
 
 import math
+import os
 import time
 
 import numpy as np
@@ -48,11 +64,13 @@ from ..accelerator import get_accelerator, resolve_device
 from ..monitor.monitor import MonitorMaster
 from ..telemetry import SLOEngine, TelemetrySink, set_sink
 from ..telemetry.profiler import TorchProfiler
-from ..utils.logging import log_dist
+from ..utils.counter_hash import fold_in, seed_key
+from ..utils.logging import log_dist, logger
+from .checkpoint_engine import engine as ckpt
 from .config import DeepSpeedConfig
-from .fp16.loss_scaler import create_loss_scaler
+from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import get_lr_schedule, _LRSchedule
-from .optimizers import build_optimizer
+from .optimizers import ClientOptimizer, build_optimizer, tensor_norms
 
 
 def _unported(what, item):
@@ -97,8 +115,6 @@ class DeepSpeedEngine:
             raise _unported("ZeRO offload", "ROADMAP Queue 1 #8, offload and memory tiers")
         if self._config.pipeline:
             raise _unported("pipeline parallelism", "ROADMAP Queue 1 #7, distributed runtime")
-        if optimizer is not None:
-            raise _unported("client optimizers", "ROADMAP Queue 1 #4, optimizers")
         if training_data is not None:
             raise _unported("deepspeed_io / training_data", "ROADMAP Queue 1 #10, runtime/data_pipeline")
         self.training_dataloader = None
@@ -109,12 +125,20 @@ class DeepSpeedEngine:
         self.dynamic_loss_scale = self._config.dynamic_loss_scale
         self.loss_scale_state = self.loss_scaler.init_state()
 
-        # ---- params, schedule, optimizer ---------------------------------
+        # ---- remat policy and dropout --------------------------------------
+        self._configure_remat(model)
+        cfg = getattr(model, "cfg", None)
+        self._dropout = getattr(cfg, "dropout", 0.0) > 0
+        self._base_key = seed_key(self._config.seed)
+
+        # ---- params, optimizer, schedule ---------------------------------
         self.master = self._init_params(model, model_parameters)
+        self.optimizer = build_optimizer(self._config.optimizer, self.master,
+                                         scanned=getattr(cfg, "scan_layers", False), client=optimizer)
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
-        self.optimizer = build_optimizer(self._config.optimizer, list(self.master.values()))
         self.step_count = 0  # applied (not overflow-skipped) updates
         self.skipped_steps = 0
+        self.loaded_checkpoint_tag = None
 
         # ---- facade state -------------------------------------------------
         self._grad_acc = None
@@ -197,6 +221,25 @@ class DeepSpeedEngine:
         return float(self.loss_scale_state.cur_scale)
 
     # ------------------------------------------------------------------ init helpers
+    def _configure_remat(self, model):
+        """The ``activation_checkpointing`` section as the model's remat
+        policy (the JAX engine's ``engine.py:124-143``)."""
+        ac = self._config.activation_checkpointing
+        if ac.policy is None and not ac.partition_activations and not ac.cpu_checkpointing:
+            return
+        policy = ac.policy or "nothing_saveable"
+        if hasattr(model, "set_remat_policy"):
+            if getattr(getattr(model, "cfg", None), "remat_policy", None) != policy:
+                model.set_remat_policy(policy)
+                log_dist(f"activation checkpointing: remat policy '{policy}' applied", [0])
+        else:
+            logger.warning("activation_checkpointing configured but the model exposes no "
+                           "set_remat_policy(policy) hook — section has NO effect; wrap its blocks in "
+                           "runtime.activation_checkpointing.checkpointing.checkpoint yourself")
+        if ac.partition_activations:
+            log_dist("activation_checkpointing.partition_activations has no effect on one device "
+                     "(there is no other device to partition the saved activations over)", [0])
+
     def _init_params(self, model, model_parameters):
         """fp32 master tensors on the device, from ``model_parameters`` (a
         state dict) or ``model.init_params(seed)``."""
@@ -220,15 +263,29 @@ class DeepSpeedEngine:
         if sched_cfg.type is not None:
             sched = get_lr_schedule(sched_cfg.type, sched_cfg.params)
             return sched.__call__, sched
-        base_lr = float(self._config.optimizer.params.get("lr", 1e-3))
+        if isinstance(self.optimizer, ClientOptimizer):  # a client optimizer keeps its own lr
+            base_lr = self.optimizer.lr
+        else:
+            base_lr = float(self._config.optimizer.params.get("lr", 1e-3))
         return (lambda step: base_lr), None
 
     # ------------------------------------------------------------------ step math
-    def _micro_loss_and_grads(self, params, batch, scale, **loss_kwargs):
+    def _micro_rng(self, micro):
+        """The dropout key of micro-step ``micro`` of the coming update
+        (None without dropout): the seed's key folded with the applied-step
+        count, then the micro-step."""
+        if not self._dropout:
+            return None
+        return fold_in(fold_in(self._base_key, self.step_count), micro)
+
+    def _micro_loss_and_grads(self, params, batch, scale, rng=None, **loss_kwargs):
         """One microbatch: cast master -> compute dtype inside the
         differentiated function, forward, backward. Returns (loss, fp32
-        gradients of ``loss * scale``, one per master tensor)."""
+        gradients of ``loss * scale``, one per master tensor). ``rng``: the
+        dropout key, passed to the loss when given."""
         keys = list(params)
+        if rng is not None:
+            loss_kwargs["rng"] = rng
         with torch.enable_grad():
             p_c = {k: params[k].to(self.compute_dtype) for k in keys}
             loss = self.loss_fn(p_c, batch, **loss_kwargs)
@@ -257,7 +314,7 @@ class DeepSpeedEngine:
         in place)."""
         scale = self.loss_scale_state.cur_scale
         torch._foreach_div_(grads, self._grad_denom(scale))
-        gnorm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
+        gnorm = float(torch.linalg.vector_norm(torch.stack(tensor_norms(grads))))
         overflow = not math.isfinite(gnorm)
         lr = float(self.lr_schedule_fn(self.step_count))
         if overflow:
@@ -326,7 +383,7 @@ class DeepSpeedEngine:
         scale = self.loss_scale_state.cur_scale
         for g in range(gas):
             loss, grads = self._micro_loss_and_grads(self.master, {k: v[g] for k, v in stacked.items()},
-                                                     scale)
+                                                     scale, self._micro_rng(g))
             if acc is None:
                 acc, loss_sum = grads, loss.float()
             else:
@@ -355,8 +412,8 @@ class DeepSpeedEngine:
             self._step_flops = self._flops_per_step(placed.get("input_ids"),
                                                     self.gradient_accumulation_steps())
         t0 = time.perf_counter() if self.telemetry.enabled else None
-        loss, grads = self._micro_loss_and_grads(self.master, placed,
-                                                 self.loss_scale_state.cur_scale)
+        loss, grads = self._micro_loss_and_grads(self.master, placed, self.loss_scale_state.cur_scale,
+                                                 self._micro_rng(self._micro_step))
         if t0 is not None:
             self._sync()
             dur = time.perf_counter() - t0
@@ -500,15 +557,92 @@ class DeepSpeedEngine:
                                "(the trace needs an output path)")
         self.profiler.request(duration_s)
 
+    # ------------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Checkpoint under ``save_dir/tag`` (default ``global_step<N>``;
+        the JAX engine's ``engine.py:1658``, its non-offload path): the fp32
+        master, optimizer state, loss scaler and step counts in
+        ``state/``, the counters, lr schedule, config and ``client_state``
+        in ``client_sd.json``. With ``checkpoint.async_save`` the file is
+        written on a thread (:meth:`wait_checkpoint_saves`); the tensors are
+        copied to the host before this returns either way."""
+        tag = tag or f"global_step{self.global_steps}"
+        client_sd = dict(client_state or {})
+        client_sd.update({
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None,
+            "ds_config": self._config.raw_config,
+            "world_size": self._config.world_size,
+        })
+        # the facade's gradient accumulator is in-flight scratch, not
+        # training state (reference engine.py:3012 skips its buffers too)
+        state = {"master": self.master, "optimizer": self.optimizer.state_dict(),
+                 "loss_scale": self.loss_scale_state.to_dict(), "step_count": self.step_count,
+                 "skipped_steps": self.skipped_steps}
+        ckpt.save_checkpoint(save_dir, tag, state, client_sd, save_latest=save_latest,
+                             use_async=self._config.checkpoint.async_save)
+        log_dist(f"saved checkpoint {save_dir}/{tag}", [0])
+        return True
+
+    def wait_checkpoint_saves(self):
+        """Block until an in-flight async checkpoint is written and its
+        'latest' pointer moved."""
+        ckpt.wait_pending_saves()
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, load_module_only=False, custom_load_fn=None):
+        """Load a :meth:`save_checkpoint` checkpoint (``tag`` None: the one
+        ``latest`` names). Returns ``(load_dir, client_sd)``, or ``(None,
+        None)`` when there is none. The master and the applied-step count
+        always load; the optimizer state, loss scaler and skipped-step count
+        unless ``load_optimizer_states`` is False or ``load_module_only``;
+        the lr schedule's state with ``load_lr_scheduler_states``.
+        ``load_module_strict`` False loads the master tensors both sides
+        have. The facade's accumulated gradients are dropped."""
+        state, client_sd = ckpt.load_checkpoint(load_dir, tag, map_location=self.device)
+        if state is None:
+            return None, None
+        if client_sd.get("world_size", 1) != self._config.world_size:
+            raise _unported(f"a resume at world size {self._config.world_size} of a checkpoint saved at "
+                            f"{client_sd['world_size']}", "ROADMAP Queue 1 #9, elastic controller")
+        self._load_master(state["master"], load_module_strict)
+        self.step_count = int(state["step_count"])
+        if load_optimizer_states and not load_module_only:
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.loss_scale_state = LossScaleState.from_dict(state["loss_scale"])
+            self.skipped_steps = int(state["skipped_steps"])
+        self.zero_grad()
+        self.global_steps = client_sd.get("global_steps", self.step_count)
+        self.global_samples = client_sd.get("global_samples", 0)
+        self.micro_steps = client_sd.get("micro_steps", 0)
+        if load_lr_scheduler_states and self.lr_scheduler is not None and client_sd.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(client_sd["lr_scheduler"])
+        self.loaded_checkpoint_tag = tag
+        return load_dir, client_sd
+
+    @torch.no_grad()
+    def _load_master(self, saved, strict):
+        if strict and set(saved) != set(self.master):
+            missing, extra = sorted(set(self.master) - set(saved)), sorted(set(saved) - set(self.master))
+            raise RuntimeError(f"checkpoint master does not match the model: missing {missing[:5]}, "
+                               f"unexpected {extra[:5]}")
+        for k, v in saved.items():
+            if k in self.master:
+                self.master[k].copy_(v)
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin", exclude_frozen_parameters=False):
+        """The master cast to the compute dtype, as a state dict written by
+        ``torch.save`` under the reference DeepSpeed file name (the JAX
+        engine writes a flax msgpack instead). Returns the path."""
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        torch.save({k: v.detach().to(self.compute_dtype).cpu() for k, v in self.master.items()}, path)
+        return path
+
     # ------------------------------------------------------------------ not ported yet
     def deepspeed_io(self, *args, **kwargs):
         raise _unported("deepspeed_io", "ROADMAP Queue 1 #10, runtime/data_pipeline")
-
-    def save_checkpoint(self, *args, **kwargs):
-        raise _unported("checkpoints", "ROADMAP Queue 1 #10, checkpoint")
-
-    def load_checkpoint(self, *args, **kwargs):
-        raise _unported("checkpoints", "ROADMAP Queue 1 #10, checkpoint")
-
-    def save_16bit_model(self, *args, **kwargs):
-        raise _unported("checkpoints", "ROADMAP Queue 1 #10, checkpoint")

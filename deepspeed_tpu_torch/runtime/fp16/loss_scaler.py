@@ -22,6 +22,15 @@ class LossScaleState(NamedTuple):
     last_overflow_iter: int
     iteration: int
 
+    def to_dict(self):
+        """A plain dict of numbers (a checkpoint's ``loss_scale`` entry)."""
+        return self._asdict()
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(cur_scale=float(d["cur_scale"]), cur_hysteresis=int(d["cur_hysteresis"]),
+                   last_overflow_iter=int(d["last_overflow_iter"]), iteration=int(d["iteration"]))
+
 
 class LossScalerBase:
     """Static loss scaler (reference ``LossScaler``)."""

@@ -1,4 +1,4 @@
-"""The port's differentiable flash attention (``FlashAttentionFunction``,
+"""The port's differentiable flash attention (the ``flash_fwd`` operator,
 plain versions on the CPU) against ``jax.vjp`` of the JAX package's Pallas
 ``flash_attention`` / ``flash_attention_with_lse`` (its ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel`` in interpret mode on the CPU, as
@@ -17,8 +17,7 @@ import torch
 
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention_with_lse as jax_flash_lse
-from deepspeed_tpu_torch.ops.flash_attention import (FlashAttentionFunction, flash_attention,
-                                                     flash_attention_bwd_plain,
+from deepspeed_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd_plain,
                                                      flash_attention_with_lse)
 
 # fp32 on both sides: scores, exponentials and products in fp32, summed in
@@ -130,13 +129,14 @@ def test_gradients_match_jax_bf16(causal, g, T):
 
 
 def test_function_keeps_the_graph():
-    """The output carries the Function's backward node, so q, k and v get
+    """The output carries the backward node of the registered flash operator
+    (``torch.ops.deepspeed_tpu_torch.flash_fwd``), so q, k and v get
     gradients (the kernel path once returned outputs with no grad_fn)."""
     q, k, v, do, _ = _inputs(1, 2, 2, 64, 16, seed=3)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     out, lse = flash_attention_with_lse(qt, kt, vt)
     assert out.grad_fn is not None and lse.grad_fn is out.grad_fn
-    assert type(out.grad_fn).__name__ == FlashAttentionFunction.__name__ + "Backward"
+    assert type(out.grad_fn).__name__ == "GeneratedBackwardFor_deepspeed_tpu_torch_flash_fwd_defaultBackward"
     (out * torch.from_numpy(do)).sum().backward()
     assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (qt, kt, vt))
 

@@ -35,3 +35,67 @@ def numpy_params(jax_model, seed):
 
 def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def token_batch(seed, n=16, T=128, vocab=256):
+    """A (n, T) batch of random token ids, int32."""
+    return {"input_ids": np.random.default_rng(seed).integers(0, vocab, (n, T)).astype(np.int32)}
+
+
+def port_engine(name, tree, config, dtype=torch.float32, **model_kw):
+    """``deepspeed_tpu_torch.initialize`` on the CPU for the preset ``name``
+    (flash attention) with the weights of the JAX ``tree``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    model = get_model(name, dtype=dtype, attention_impl="flash", **model_kw)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params_from_jax(to_numpy(tree), model.cfg), config=dict(config),
+        device="cpu")
+    return engine
+
+
+def jax_engine(name, tree, config, optimizer=None, **model_kw):
+    """``deepspeed_tpu.initialize`` for the preset ``name`` (fp32, flash
+    attention) on the weights ``tree``."""
+    import jax.numpy as jnp
+    import deepspeed_tpu
+    from deepspeed_tpu.models import get_model
+    model = get_model(name, dtype=jnp.float32, attention_impl="flash", **model_kw)
+    engine, *_ = deepspeed_tpu.initialize(model=model, optimizer=optimizer, config=dict(config),
+                                          model_parameters=jax.tree_util.tree_map(jnp.asarray, tree))
+    return engine
+
+
+# the remat policies under which the backward pass runs the flash forward again
+RECOMPUTE_ATTN = ("nothing_saveable", "dots_saveable", "checkpoint_dots",
+                  "dots_with_no_batch_dims_saveable", "checkpoint_dots_with_no_batch_dims")
+
+
+def loss_and_grads(name, policy, seed=3, rng=None, dropout=0.0):
+    """One fp32 micro-step of the port's loss on the CPU, counting the plain
+    flash forward's and backward's calls."""
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    model = get_model(name, dtype=torch.float32, attention_impl="flash", remat_policy=policy,
+                      dropout=dropout)
+    params = {k: v.requires_grad_(True) for k, v in model.init_params(seed).items()}
+    ids = torch.from_numpy(token_batch(seed, n=2)["input_ids"]).long()
+    calls = {"fwd": 0, "bwd": 0}
+    real_fwd, real_bwd = fa.flash_attention_plain, fa.flash_attention_bwd_plain
+
+    def fwd(*a, **k):
+        calls["fwd"] += 1
+        return real_fwd(*a, **k)
+
+    def bwd(*a, **k):
+        calls["bwd"] += 1
+        return real_bwd(*a, **k)
+
+    fa.flash_attention_plain, fa.flash_attention_bwd_plain = fwd, bwd
+    try:
+        loss = model.loss(params, {"input_ids": ids}, rng=rng)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    finally:
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain = real_fwd, real_bwd
+    return loss.detach(), grads, calls
