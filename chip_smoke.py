@@ -127,6 +127,29 @@ Phases (any failure ends the run with a non-zero exit):
    bitwise the uninterrupted run's (losses and master), the seconds and
    bytes, and the 16-bit export loaded back bitwise the bf16 cast of the
    master;
+8c. the offload tiers (``offload_phase``; ``python3 chip_smoke.py
+   --offload`` runs it alone; the host C code, ``cpu_adam.c`` and ``aio.c``,
+   builds with ``cc`` at first use): (a) ZeRO-Offload, gpt2-large at full
+   depth with bench.py's config and ``offload_optimizer: cpu``: the first
+   step's loss bitwise the on-device engine's on the same weights, the
+   masters after it within ``OFFLOAD_MASTER_REL`` of the update from the
+   on-device AdamW, the loss falling over 3 + 5 steps with exact flash
+   launches, the peak device memory, the host GiB and the step split
+   (device forward and backward, fetch, host AdamW, push); (b) its NVMe
+   tier (``offload_optimizer: nvme`` under a temporary directory, or
+   ``$CHIP_SMOKE_NVME_DIR``; the depth cut, and the cut logged, only where
+   the disk cannot hold master and moments), 2 steps whose masters are
+   bitwise (a)'s, with the bytes read and written through ``O_DIRECT`` and
+   buffered; (c) ZeRO-Infinity, llama3-8b at full width with ``stage: 3,
+   offload_param: cpu``, seq 2048: at 2 layers the streamed step's loss and
+   grad norm against the on-device engine's on the same weights, then at
+   the deepest depth whose host state (18 bytes a parameter) fits 0.6 of
+   MemAvailable, 1 warm-up and 2 timed steps with exact flash launches (2 L
+   forwards, L dq, L dk/dv a step: the backward recomputes each block),
+   peak device memory, host GiB, the step split and overlap gauges,
+   tokens/s and MFU; (d) ZeRO-Inference, ``param_stream.generate`` on (c)'s
+   2-layer weights: greedy tokens equal the dense ``generate()``'s, with
+   exact flash and decode launches;
 9. block-sparse attention, the main path of its three kernels: at
    gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
    ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
@@ -3573,6 +3596,295 @@ def train_features_phase(torch, card, dev):
     timed_phase("training features: checkpoints", checkpoint_leg, torch, dev, host, batch)
 
 
+# ---------------------------------------------------------------------------
+# phase 8c: the offload tiers (ZeRO-Offload, ZeRO-Infinity, ZeRO-Inference)
+
+OFFLOAD_MODEL = "gpt2-large"
+OFFLOAD_SEQ = 1024
+STREAM_MODEL = "llama3-8b"
+STREAM_SEQ = 2048
+STREAM_BYTES_PER_PARAM = 18   # host bytes a streamed parameter may take (state, copies, staging)
+STREAM_HOST_SHARE = 0.6       # of MemAvailable
+STREAM_LOSS_REL = 1e-4        # streamed vs on-device: loss
+STREAM_NORM_REL = 2e-2        # grad norm (bf16 gradients against the fp32 master's)
+OFFLOAD_MASTER_REL = 1e-4     # masters after step 1, of the update's max magnitude
+NVME_ENV = "CHIP_SMOKE_NVME_DIR"
+GEN_PROMPT, GEN_NEW = 128, 8
+
+
+def _offload_engine(host, extra, dev, **model_kw):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    model = get_model(OFFLOAD_MODEL, attention_impl="flash", scan_layers=False, **model_kw)
+    config = {**TRAIN_CONFIG, **extra}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=host, config=config,
+                                                     device=dev)
+    return engine
+
+
+def _host_gib():
+    from deepspeed_tpu_torch.runtime.zero.offload import PINNED
+    return PINNED["registered"] / 2**30, PINNED["allocator"] / 2**30
+
+
+def _mem_available():
+    with open("/proc/meminfo") as f:
+        info = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
+    return info["MemAvailable"], info["MemTotal"]
+
+
+def _layer_params(name):
+    from deepspeed_tpu_torch.models import get_model
+    return get_model(name, num_layers=2).cfg.num_params() - get_model(name, num_layers=1).cfg.num_params()
+
+
+def zero_offload_leg(torch, card, dev, host, batch):
+    """(a) gpt2-large at full depth, bench.py's config, offload_optimizer
+    cpu: the first step's loss bitwise the on-device engine's, the masters
+    after it within ``OFFLOAD_MASTER_REL`` of the update, the loss falling
+    over 3 + 5 steps; peak device memory, host GiB and the step split.
+    Returns the masters after two steps (leg (b) holds NVMe to them)."""
+    import numpy as np
+    ref = _offload_engine({k: v.clone() for k, v in host.items()}, {}, dev)
+    before = {k: v.detach().clone() for k, v in ref.master.items()}
+    l_ref = float(ref.train_batch(batch=batch))
+    upd = max(float((ref.master[k].detach() - before[k]).abs().max()) for k in before)
+    after = {k: v.detach().clone() for k, v in ref.master.items()}
+    cfg = ref.module.cfg
+    del ref, before
+    torch.cuda.empty_cache()
+    eng = _offload_engine(host, {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, dev)
+    reset_counts()
+    l1 = float(eng.train_batch(batch=batch))
+    master1 = eng.host_opt.state_tensors()[0]
+    err = max(float((master1[k].to(after[k].device) - after[k]).abs().max()) for k in after) / upd
+    log(f"(a) ZeRO-Offload {OFFLOAD_MODEL} ({cfg.num_layers} layers) step 1: loss {l1!r} vs on-device "
+        f"{l_ref!r} ({'bitwise' if l1 == l_ref else 'DIFFERS'}); masters within {err:.3e} of the update's "
+        f"max |{upd:.3e}| (limit {OFFLOAD_MASTER_REL:g}); host step {eng.last_offload_times}")
+    check(l1 == l_ref, f"(a) offload first-step loss {l1!r} != on-device {l_ref!r}")
+    check(err <= OFFLOAD_MASTER_REL, f"(a) offload masters {err:.3e} of the update from on-device AdamW")
+    del after, master1
+    losses = [l1]
+    losses.append(float(eng.train_batch(batch=batch)))
+    two = eng.host_opt.state_tensors()[0]
+    losses += timed_steps(torch, eng, batch, 1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    more, secs = timed_steps(torch, eng, batch, 5)
+    losses += more
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_train_counts(counts, expected_train_counts(cfg, 8), "(a) ZeRO-Offload")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"(a) offload losses {losses}")
+    reg, alloc = _host_gib()
+    log(f"(a) losses over 3 + 5 steps {[round(x, 4) for x in losses]}; step (median of 5) "
+        f"{statistics.median(secs) * 1e3:.3f} ms, last split {eng.last_offload_times} ms; peak device memory "
+        f"{peak / 2**30:.3f} GiB (on-device AdamW: 17.125 GiB, PERF.md PR 17); host "
+        f"{eng.host_opt.host_bytes() / 2**30:.3f} GiB held (pinned registered {reg:.3f} GiB, "
+        f"allocator {alloc:.3f}); flash launches {counts['flash_attention']}/{counts['flash_bwd_dq']}/"
+        f"{counts['flash_bwd_dkv']} over 8 steps on {card}")
+    del eng
+    torch.cuda.empty_cache()
+    return two, counts
+
+
+def nvme_leg(torch, card, dev, host, batch, two):
+    """(b) the NVMe optimizer tier on gpt2-large, 2 steps: masters bitwise
+    leg (a)'s (the depth cut, and logged, only where the disk cannot hold
+    master and moments); bytes read and written, O_DIRECT and buffered."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.models import get_model
+    cfg = get_model(OFFLOAD_MODEL).cfg
+    root = os.environ.get(NVME_ENV) or tempfile.gettempdir()
+    path = tempfile.mkdtemp(prefix="chip_smoke_nvme_", dir=root)
+    try:
+        free = shutil.disk_usage(path).free
+        per_layer = _layer_params(OFFLOAD_MODEL)
+        L = cfg.num_layers
+        while L > 1 and 12 * (cfg.num_params() - (cfg.num_layers - L) * per_layer) > 0.8 * free:
+            L -= 1
+        extra = {"zero_optimization": {"offload_optimizer": {"device": "nvme", "nvme_path": path}}}
+        if L < cfg.num_layers:
+            log(f"(b) depth cut to {L} of {cfg.num_layers} layers: {free / 2**30:.1f} GiB free under {root}")
+            keep = {k: v for k, v in host.items() if not k.startswith("layers.") or int(k.split(".")[1]) < L}
+            ref = _offload_engine({k: v.clone() for k, v in keep.items()},
+                                  {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, dev,
+                                  num_layers=L)
+            for _ in range(2):
+                ref.train_batch(batch=batch)
+            two = ref.host_opt.state_tensors()[0]
+            del ref
+            host = keep
+        t0 = time.perf_counter()
+        eng = _offload_engine(host, extra, dev, num_layers=L)
+        t1 = time.perf_counter()
+        secs = [timed_steps(torch, eng, batch, 1)[1][0] for _ in range(2)]
+        got = eng.host_opt.state_tensors()[0]
+        same = all(torch.equal(got[k], two[k]) for k in two)
+        io = eng.host_opt.io_stats()
+        log(f"(b) NVMe tier {OFFLOAD_MODEL} ({L} layers) under {path}: init {t1 - t0:.1f} s, steps "
+            f"{[round(x * 1e3, 1) for x in secs]} ms, last split {eng.last_offload_times}; masters after 2 "
+            f"steps {'bitwise' if same else 'DIFFER from'} the host tier's; read {io['bytes_read'] / 2**30:.3f} "
+            f"GiB, written {io['bytes_written'] / 2**30:.3f} GiB; O_DIRECT read/write "
+            f"{io['direct_read'] / 2**30:.3f}/{io['direct_write'] / 2**30:.3f} GiB, buffered "
+            f"{io['buffered_read'] / 2**30:.3f}/{io['buffered_write'] / 2**30:.3f} GiB; "
+            f"{free / 2**30:.1f} GiB free on {card}")
+        check(same, "(b) NVMe-tier masters differ from the host tier's")
+        del eng
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _stream_config(extra=None):
+    return {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1,
+            "zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}, **(extra or {})}}
+
+
+def _stream_batch(vocab):
+    import numpy as np
+    return {"input_ids": np.random.default_rng(SEED + 1).integers(0, vocab, (1, STREAM_SEQ))}
+
+
+def stream_parity_leg(torch, card, dev):
+    """(c), first part: llama3-8b at full width and 2 layers, stage 3 with
+    offload_param cpu, seq 2048: the streamed step's loss and grad norm
+    against the on-device engine's (as ``llama_train_phase`` builds it) on
+    the same weights. Returns those weights (leg (d) decodes with them)."""
+    import gc
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    model = get_model(STREAM_MODEL, num_layers=2, attention_impl="flash")
+    batch = _stream_batch(model.cfg.vocab_size)
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.initialize(model=model, config=_stream_config(), device=dev)[0]
+    tree = eng.param_stream.get_params_tree()
+    log(f"(c) streamed {STREAM_MODEL} at 2 layers built in {time.perf_counter() - t0:.1f} s "
+        f"(blocks initialized on the device, {eng.param_stream.store.num_params():,} params)")
+    ref = deepspeed_tpu_torch.initialize(model=get_model(STREAM_MODEL, num_layers=2, attention_impl="flash"),
+                                         model_parameters={k: v.clone() for k, v in tree.items()},
+                                         config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1},
+                                         device=dev)[0]
+    l_ref = float(ref.train_batch(batch=batch))
+    n_ref = ref._last_metrics["grad_norm"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    l_s = float(eng.train_batch(batch=batch))
+    n_s = eng._last_metrics["grad_norm"]
+    log(f"(c) 2 layers, streamed vs on-device step: loss {l_s!r} vs {l_ref!r} "
+        f"({_same_or_close(l_s, l_ref, STREAM_LOSS_REL, '(c) loss')}), grad norm {n_s:.6f} vs {n_ref:.6f} "
+        f"({_same_or_close(n_s, n_ref, STREAM_NORM_REL, '(c) grad norm')})")
+    del eng
+    gc.collect()
+    return tree
+
+
+def zero_infinity_leg(torch, card, dev):
+    """(c), second part: llama3-8b at full width and the deepest depth whose
+    host state fits ``STREAM_HOST_SHARE`` of MemAvailable, 1 warm-up and 2
+    timed steps with exact flash launches (2 L forwards, L dq, L dk/dv a
+    step); peak device memory, host GiB, the step split, the overlap
+    gauges, tokens/s and MFU."""
+    import gc
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    T = STREAM_SEQ
+    gc.collect()
+    avail, total = _mem_available()
+    full = get_model(STREAM_MODEL).cfg
+    batch = _stream_batch(full.vocab_size)
+    per_layer = _layer_params(STREAM_MODEL)
+    rest = full.num_params() - full.num_layers * per_layer
+    L = int(min(full.num_layers, (STREAM_HOST_SHARE * avail / STREAM_BYTES_PER_PARAM - rest) // per_layer))
+    check(L >= 1, f"(c) host memory {avail / 2**30:.1f} GiB available holds no layer")
+    model = get_model(STREAM_MODEL, num_layers=L, attention_impl="flash")
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.initialize(model=model, config=_stream_config(), device=dev)[0]
+    ps = eng.param_stream
+    log(f"(c) streamed {STREAM_MODEL} at {L} of {full.num_layers} layers (the deepest whose host state at "
+        f"{STREAM_BYTES_PER_PARAM} B/param fits {STREAM_HOST_SHARE} of MemAvailable {avail / 2**30:.1f} GiB; "
+        f"MemTotal {total / 2**30:.1f} GiB): {ps.store.num_params():,} params, built in "
+        f"{time.perf_counter() - t0:.1f} s, host state {ps.store.host_bytes() / 2**30:.3f} GiB")
+    warm = timed_steps(torch, eng, batch, 1)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = timed_steps(torch, eng, batch, 2)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**ZERO_COUNTS, "flash_attention": 2 * 2 * L, "flash_bwd_dq": 2 * L, "flash_bwd_dkv": 2 * L}
+    check_train_counts(counts, want, f"(c) streamed {STREAM_MODEL}")
+    check(all(np.isfinite(warm[0] + losses)), f"(c) non-finite loss {warm[0] + losses}")
+    pt = {k: round(v * 1e3, 3) if k.endswith("_s") else round(v, 4) for k, v in ps.last_phase_times.items()}
+    step_s = statistics.median(secs)
+    tok_s = T / step_s
+    fpt = flops_per_token(model.cfg, T)
+    reg, alloc = _host_gib()
+    log(f"(c) losses {[round(x, 4) for x in warm[0] + losses]}, steps {[round(x * 1e3, 1) for x in secs]} ms "
+        f"(warm-up {warm[1][0] * 1e3:.1f}); launches {counts} (2L/L/L a step: exact); peak device memory "
+        f"{peak / 2**30:.3f} GiB; host state {ps.store.host_bytes() / 2**30:.3f} GiB (pinned registered "
+        f"{reg:.3f}, allocator {alloc:.3f}); last step split (ms; adam summed over pool threads) {pt}; "
+        f"{tok_s:.1f} tokens/s, MFU {fpt * tok_s / BF16_FLOP_PER_S:.4f} on {card}")
+    del eng, ps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zero_inference_leg(torch, card, dev, tree):
+    """(d) ``param_stream.generate`` on (c)'s 2-layer weights: greedy tokens
+    equal the dense ``generate()``'s; decode kernel launches counted."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    model = get_model(STREAM_MODEL, num_layers=2, attention_impl="flash")
+    cfg = model.cfg
+    eng = deepspeed_tpu_torch.initialize(model=model, model_parameters=tree, config=_stream_config(),
+                                         device=dev)[0]
+    ids = np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, (2, GEN_PROMPT)).astype(np.int32)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.param_stream.generate(ids, max_new_tokens=GEN_NEW)
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    want = {**ZERO_COUNTS, "flash_attention": 2, "decode_attention": 2 * (GEN_NEW - 1)}
+    del eng
+    dense = deepspeed_tpu_torch.init_inference(get_model(STREAM_MODEL, num_layers=2, attention_impl="flash"),
+                                               config={"dtype": "bfloat16"}, params=tree, device=dev)
+    ref = np.stack(dense.generate(ids, max_new_tokens=GEN_NEW))
+    del dense
+    torch.cuda.empty_cache()
+    log(f"(d) ZeRO-Inference generate, 2 x {GEN_PROMPT} prompt, {GEN_NEW} new: {sec * 1e3:.1f} ms, tokens "
+        f"{out[:, GEN_PROMPT:].tolist()} vs dense {ref.tolist()}; launches {counts} on {card}")
+    check(np.array_equal(out[:, GEN_PROMPT:], ref), "(d) streamed greedy tokens differ from dense generate()")
+    check_train_counts(counts, want, "(d) ZeRO-Inference generate")
+    return counts
+
+
+def offload_phase(torch, card, dev=None):
+    """The offload tiers on the card: (a) ZeRO-Offload, (b) its NVMe tier,
+    (c) ZeRO-Infinity on llama3-8b at full width, (d) ZeRO-Inference.
+    Returns (a)'s and (d)'s launch counts."""
+    import numpy as np
+    from deepspeed_tpu_torch.models import get_model
+    avail, total = _mem_available()
+    log(f"host memory at the phase's start: MemAvailable {avail / 2**30:.1f} GiB of {total / 2**30:.1f} GiB")
+    t0 = time.perf_counter()
+    cfg = get_model(OFFLOAD_MODEL).cfg
+    host = get_model(OFFLOAD_MODEL).init_params(SEED)
+    B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    batch = {"input_ids": np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, OFFLOAD_SEQ))}
+    log(f"{OFFLOAD_MODEL} host weights ({cfg.num_layers} layers, seed {SEED}) in "
+        f"{time.perf_counter() - t0:.1f} s; batch ({B}, {OFFLOAD_SEQ})")
+    two, counts = timed_phase("offload: (a) ZeRO-Offload", zero_offload_leg, torch, card, dev, host, batch)
+    timed_phase("offload: (b) NVMe tier", nvme_leg, torch, card, dev, host, batch, two)
+    del two, host
+    tree = timed_phase("offload: (c) ZeRO-Infinity at 2 layers", stream_parity_leg, torch, card, dev)
+    gen_counts = timed_phase("offload: (d) ZeRO-Inference", zero_inference_leg, torch, card, dev, tree)
+    del tree
+    timed_phase("offload: (c) ZeRO-Infinity at depth", zero_infinity_leg, torch, card, dev)
+    return counts, gen_counts
+
+
 # the sparse path: gpt2-large's attention widths at T 4096, block 64, bf16
 SPARSE_SHAPE = (2, 20, SPARSE_T, 64)
 SPARSE_BLOCK = 64
@@ -3867,9 +4179,10 @@ def main(argv=()):
     rows of the kernel phase; ``--long``: build every kernel and run only the
     llama3-8b phase (its launch counts, streams and long-context legs with
     their peak device memory); ``--train-features``: build every kernel and
-    run only the training-features phase. Each compares a change with its
-    parent in one call: run this file beside each tree's package, in
-    turns."""
+    run only the training-features phase; ``--offload``: build every
+    kernel and run only the offload tiers' phase. Each compares a change
+    with its parent in one call: run this file beside each tree's package,
+    in turns."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3912,6 +4225,10 @@ def main(argv=()):
         timed_phase("training features", train_features_phase, torch, card, dev)
         log(card)
         return 0
+    if list(argv) == ["--offload"]:
+        timed_phase("offload tiers", offload_phase, torch, card)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -3952,6 +4269,7 @@ def main(argv=()):
     timed_phase("training parity", train_parity_phase, torch)
     timed_phase("llama3-8b training", llama_train_phase, torch)
     timed_phase("training features", train_features_phase, torch, card, dev)
+    timed_phase("offload tiers", offload_phase, torch, card)
     # the sparse path is the main path of the three block-sparse kernels
     sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:

@@ -5,9 +5,10 @@ Port of ``deepspeed_tpu/env_report.py``. Run as
 ``python -m deepspeed_tpu_torch.env_report``. Reports the framework
 versions (torch, its CUDA, numpy, the ``nvcc`` the kernels build with), the
 visible cards, and the op table of the op-builder registry
-(``ops/op_builder``). Nothing is compiled: an op's CUDA sources are
-reported as built (a library for the current source is in ``ops/_build/``)
-or as building at first use."""
+(``ops/op_builder``). Nothing is compiled: an op's CUDA sources, or the
+host C source of an offload op (``cpu_adam``, ``aio``), are reported as
+built (a library for the current source is in ``ops/_build/``) or as
+building at first use."""
 
 import importlib
 import os
@@ -57,7 +58,11 @@ def op_compatibility():
             continue
         label = f"{name} [{builder.MODULE.rsplit('.', 1)[-1]}]"
         sources = builder.sources()
-        if not sources:
+        mod = importlib.import_module(builder.MODULE)
+        if hasattr(mod, "SOURCE"):  # a host C library
+            built = os.path.exists(build._host_paths(mod.SOURCE, mod.FLAGS)[1])
+            detail = f"host C {mod.SOURCE}.c " + ("built" if built else "(cc) at first use")
+        elif not sources:
             detail = "importable"
         else:
             built = sum(os.path.exists(build._paths(s)[1]) for s in sources)

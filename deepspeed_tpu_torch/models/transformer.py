@@ -1050,6 +1050,111 @@ class CausalLMModel:
         ce = F.cross_entropy(out_t.float().flatten(0, 1), labels_c.flatten(), reduction="none")
         return (ce * valid.flatten()).sum() / n_valid
 
+    # ---- ZeRO-Infinity parameter streaming --------------------------------
+    # Layer-granular entry points for the param-offload runner
+    # (``runtime/zero/param_offload.py``), after the JAX model's
+    # ``models/transformer.py:2017-2110``: host-resident blocks stream through
+    # these one at a time, on the same modules (and so the same kernels) as
+    # the whole-model forward. MoE models raise at construction (#7).
+    def stream_plan(self):
+        """Block partition of the state dict: ``embed`` and ``tail`` keys,
+        and the per-layer keys (``layers.{i}.`` stripped) of ``num_layers``
+        layer blocks. A tied embedding sits in the embed block and is listed
+        in ``tail`` too (one host copy; the runner sums both gradients)."""
+        cfg = self.cfg
+        if cfg.int8_weights:
+            raise ValueError("parameter streaming trains float weights; int8_weights models serve only")
+        keys = list(self.param_shapes())
+        embed = [k for k in keys if k.split(".")[0] in ("embed", "embed_norm", "pos_embed")]
+        tail = [k for k in keys if k.split(".")[0] in ("final_norm", "lm_head")]
+        if cfg.tie_embeddings:
+            tail.append("embed.embedding")
+        layer = [k[len("layers.0."):] for k in keys if k.startswith("layers.0.")]
+        extra = [k for k in keys if k not in embed and k not in tail and not k.startswith("layers.")]
+        if extra:
+            raise ValueError(f"stream_plan: unrecognized params {extra}")
+        return {"embed": embed, "tail": tail, "layer": layer, "num_layers": cfg.num_layers}
+
+    @staticmethod
+    def _sub(tree, prefix):
+        n = len(prefix) + 1
+        return {k[n:]: v for k, v in tree.items() if k.startswith(prefix + ".")}
+
+    def stream_embed(self, embed_tree, input_ids, position_ids=None, cache_index=None):
+        """Token embedding (+ embed norm, learned positions): (B, T) ids ->
+        (B, T, H) in the compute dtype."""
+        cfg, mod = self.cfg, self.module
+        x = embed_tree["embed.embedding"][input_ids].to(cfg.dtype)
+        if cfg.embed_norm:
+            x = torch.func.functional_call(mod.embed_norm, self._sub(embed_tree, "embed_norm"), (x, ))
+        if cfg.pos_embedding == "learned":
+            if position_ids is None:
+                c0 = cache_index or 0
+                pe = embed_tree["pos_embed"][c0:c0 + input_ids.shape[1]]
+            else:
+                pe = embed_tree["pos_embed"][position_ids]
+            x = x + pe.to(cfg.dtype)
+        return x
+
+    def _rope(self, device):
+        if self.cfg.pos_embedding != "rope":
+            return None, None
+        return self.module._rope_table(device)
+
+    def stream_layer(self, layer_tree, h, attn_mask=None, impl="kernel"):
+        """One transformer block (no dropout): ``layer_tree`` holds one
+        layer's tensors under their per-layer keys."""
+        sin, cos = self._rope(h.device)
+        return torch.func.functional_call(self.module.layers[0], layer_tree, (h, sin, cos, attn_mask),
+                                          {"impl": impl}, strict=True)[0]
+
+    def stream_layer_cached(self, layer_tree, h, kv_cache, cache_index, position_ids=None, impl="kernel"):
+        """One block writing into (and attending over) this layer's (k, v)
+        cache at ``cache_index`` (an int shared by the rows), as the
+        whole-model :meth:`apply_with_cache` does for an unpadded batch."""
+        cfg = self.cfg
+        B, T = h.shape[:2]
+        sin, cos = self._rope(h.device)
+        window = None
+        if cfg.attention_impl == "flash" and T == 1:
+            window = (torch.zeros((B, ), dtype=torch.int32, device=h.device),
+                      torch.full((B, ), cache_index + 1, dtype=torch.int32, device=h.device))
+        return torch.func.functional_call(
+            self.module.layers[0], layer_tree, (h, sin, cos, None, tuple(kv_cache), int(cache_index),
+                                                position_ids, window), {"impl": impl}, strict=True)[0]
+
+    def stream_logits(self, tail_tree, h, impl="kernel"):
+        """Final norm and vocab projection: (B, T, H) -> (B, T, V)."""
+        cfg, mod = self.cfg, self.module
+        B, T = h.shape[:2]
+        x = torch.func.functional_call(mod.final_norm, self._sub(tail_tree, "final_norm"), (h, ))
+        if cfg.tie_embeddings:
+            logits = _matmul_rows(x.reshape(B * T, -1), tail_tree["embed.embedding"].to(cfg.dtype), w_rows=True)
+            return logits.reshape(B, T, -1)
+        return torch.func.functional_call(mod.lm_head, self._sub(tail_tree, "lm_head"), (x, ), {"impl": impl})
+
+    def stream_tail_loss(self, tail_tree, h, labels, valid, shift=True):
+        """Final norm, vocab projection and the masked cross entropy (the
+        mean over valid tokens), as :meth:`loss`. ``shift``: position t
+        predicts label t (``labels`` then has T - 1 columns)."""
+        cfg = self.cfg
+        if not self._use_chunked_ce():
+            logits = self.stream_logits(tail_tree, h)
+            if shift:
+                logits = logits[:, :-1]
+            ce = F.cross_entropy(logits.float().flatten(0, 1), labels.long().flatten(), reduction="none")
+            return (ce * valid.flatten()).sum() / torch.clamp(valid.sum(), min=1)
+        x = torch.func.functional_call(self.module.final_norm, self._sub(tail_tree, "final_norm"), (h, ))
+        if shift:
+            x = x[:, :-1]
+        if cfg.tie_embeddings:
+            w, transpose = tail_tree["embed.embedding"], True
+        else:
+            w, transpose = tail_tree["lm_head.kernel"], False
+        total = chunked_cross_entropy(x, w, labels.long(), valid, chunk=cfg.ce_chunk_size or 256,
+                                      transpose=transpose)
+        return total / torch.clamp(valid.sum(), min=1)
+
     # ---- generation (KV cache) -------------------------------------------
     def quantize_params(self, params, group_size=None, dtype=None):
         """Float state dict -> the int8 serving state dict an

@@ -8,6 +8,11 @@ includes from ``csrc/`` (followed through nested includes), so an edit to a
 source or to a header it shares rebuilds every library that uses it, and an
 unchanged one is reused. A failed build raises: nothing
 falls back to a plain version.
+
+The host code of the offload tiers (``csrc/cpu_adam.c``, ``csrc/aio.c``)
+builds the same way with the host C compiler (``$CC``, default ``cc``)
+through :func:`load_host`, named by a hash of the source, the compiler and
+its flags; a failed build raises with the compiler's output.
 """
 
 import ctypes
@@ -23,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded = {}
+_loaded_host = {}
 
 
 def _nvcc():
@@ -131,3 +137,38 @@ def check(lib, rc, what):
 def stream_of(t):
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _host_paths(name, flags):
+    """(source, library, command prefix) of host library ``name``; the
+    library name carries a hash of the source, the compiler and its flags."""
+    src = os.path.join(_CSRC, name + ".c")
+    cmd = [os.environ.get("CC", "cc"), *flags, "-shared", "-fPIC"]
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(cmd).encode())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-host-{h.hexdigest()[:16]}.so"), cmd
+
+
+def load_host(name, flags, libs=()):
+    """The ctypes library of ``csrc/<name>.c``, built with the host C
+    compiler on first use. Raises ``RuntimeError`` with the compiler's
+    output when the build fails."""
+    src, lib, cmd = _host_paths(name, flags)
+    if lib in _loaded_host:
+        return _loaded_host[lib]
+    if not os.path.exists(lib):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        try:
+            proc = subprocess.run([*cmd, src, "-o", tmp, *libs], capture_output=True, text=True,
+                                  timeout=600)
+        except OSError as e:
+            raise RuntimeError(f"building {name}.c: cannot run the C compiler {cmd[0]!r}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cmd[0]} failed to build {name}.c (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    _loaded_host[lib] = ctypes.CDLL(lib)
+    return _loaded_host[lib]

@@ -25,6 +25,7 @@ tensor, or ``impl="plain"``, takes :func:`flash_attention_plain` and
 
 import ctypes
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -280,10 +281,23 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
     outputs (``dots_and_attn_saveable``, the JAX package's
     ``checkpoint_name(..., "flash_out"/"flash_lse")``) or run it again in
     the backward pass (``nothing_saveable``, ``dots_saveable``)."""
+    residuals = getattr(HOST_RESIDUALS, "active", None)
+    if residuals is not None and residuals.replaying:
+        return residuals.pop(q.device)
     if impl == "plain" or not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal, scale)
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    return flash_attention_fwd(q, k, v, causal, scale)
+        out = flash_attention_plain(q, k, v, causal, scale)
+    else:
+        q, k, v = (_aligned(t) for t in (q, k, v))
+        out = flash_attention_fwd(q, k, v, causal, scale)
+    if residuals is not None:
+        residuals.push(out)
+    return out
+
+
+# ``runtime/activation_checkpointing/checkpointing.py``'s cpu_checkpointing:
+# the active region's host copies of (out, lse), recorded in the region's
+# forward and handed back in order when its backward recomputes it
+HOST_RESIDUALS = threading.local()
 
 
 @flash_fwd_op.register_fake

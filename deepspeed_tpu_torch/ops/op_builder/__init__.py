@@ -9,7 +9,10 @@ ROADMAP item that brings it: ``load()`` raises naming it and
 ``is_compatible()`` is False. The module owns the list of CUDA sources under
 ``ops/csrc`` it launches (its ``SOURCES``); ``load()`` compiles them with
 ``ops/build.py`` for ``sm_90a`` when a card is present, else they build at
-the first launch.
+the first launch. The offload tiers' host modules (``cpu_adam``,
+``cpu_adagrad``, ``async_io``) name one host C source (their ``SOURCE``);
+``load()`` builds it with the host C compiler (``load_library()``), and a
+failed build raises.
 """
 
 import importlib
@@ -48,9 +51,11 @@ class OpBuilder:
         return tuple(getattr(self._import(), "SOURCES", ()))
 
     def load(self, verbose=False):
-        """Import the module; with a card, also build its CUDA sources (a
-        failed build raises)."""
+        """Import the module and build its host C library if it has one;
+        with a card, also build its CUDA sources (a failed build raises)."""
         mod = self._import()
+        if hasattr(mod, "load_library"):
+            mod.load_library()
         sources = getattr(mod, "SOURCES", ())
         if sources:
             import torch
@@ -62,19 +67,16 @@ class OpBuilder:
 class CPUAdamBuilder(OpBuilder):
     NAME = "cpu_adam"
     MODULE = "deepspeed_tpu_torch.ops.adam.cpu_adam"
-    ROADMAP = "Queue 1 #8"  # offload and memory tiers
 
 
 class CPUAdagradBuilder(OpBuilder):
     NAME = "cpu_adagrad"
     MODULE = "deepspeed_tpu_torch.ops.adam.cpu_adam"  # shared native lib (ds_adagrad_step)
-    ROADMAP = "Queue 1 #8"  # offload and memory tiers
 
 
 class AsyncIOBuilder(OpBuilder):
     NAME = "async_io"
     MODULE = "deepspeed_tpu_torch.ops.aio"
-    ROADMAP = "Queue 1 #8"  # offload and memory tiers
 
 
 class QuantizerBuilder(OpBuilder):

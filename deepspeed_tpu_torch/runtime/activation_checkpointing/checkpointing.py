@@ -11,16 +11,25 @@ remat policy).
 ``checkpoint(function, *args)`` is non-reentrant ``torch.utils.checkpoint``
 (the engine differentiates with ``torch.autograd.grad``, which the
 reentrant form does not support): full recompute, as ``jax.checkpoint``
-without a policy. The reference's other knobs have no counterpart on one
-device and are accepted as no-ops with a warning: partitioning the saved
-activations, contiguous buffers, a synchronize at the boundaries,
-profiling, and moving the saved activations to the host
-(``cpu_checkpointing``; host offload is ROADMAP Queue 1 #8).
+without a policy. With ``cpu_checkpointing`` (``checkpoint_in_cpu``) it is
+the JAX package's offload policy (``checkpointing.py:66-74``,
+``save_and_offload_only_these_names`` of ``flash_out`` / ``flash_lse``):
+everything is recomputed in the backward pass except the flash forward's
+out and lse, which the forward copies to pinned host memory and the
+recompute copies back instead of launching the kernel again
+(:class:`HostResiduals`, read by ``ops/flash_attention.py``'s operator; the
+checkpoint's own ``saved_tensors_hooks`` drop every other saved tensor).
+The reference's other knobs have no counterpart on one device and are
+accepted as no-ops with a warning: partitioning the saved activations,
+contiguous buffers, a synchronize at the boundaries, profiling.
 """
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
+from ...ops.flash_attention import HOST_RESIDUALS
 from ...utils.logging import logger
 
 _config = {
@@ -62,8 +71,7 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
         _config["cpu_checkpointing"] = True
     for name, val in (("partition_activations", partition_activations),
                       ("contiguous_checkpointing", contiguous_checkpointing),
-                      ("checkpoint_in_cpu", checkpoint_in_cpu), ("synchronize", synchronize),
-                      ("profile", profile)):
+                      ("synchronize", synchronize), ("profile", profile)):
         if val:
             logger.warning(f"activation checkpointing: {name} has no effect on one device; "
                            f"accepted as a no-op")
@@ -75,12 +83,54 @@ def is_configured():
 
 def reset():
     _config["configured"] = False
+    _config["cpu_checkpointing"] = False
+
+
+class HostResiduals:
+    """One checkpointed region's flash residuals in pinned host memory: the
+    region's first run records each flash forward's (out, lse) to the host,
+    every later run (the recompute) takes them back in the same order."""
+
+    def __init__(self):
+        self.saved, self.runs, self.replaying, self._next = [], 0, False, 0
+
+    @contextlib.contextmanager
+    def active(self):
+        self.replaying, self._next = self.runs > 0, 0
+        prev, HOST_RESIDUALS.active = getattr(HOST_RESIDUALS, "active", None), self
+        try:
+            yield
+        finally:
+            HOST_RESIDUALS.active = prev
+            self.runs += 1
+
+    def push(self, outputs):
+        host = []
+        for t in outputs:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+            h.copy_(t, non_blocking=True)  # the recompute's copy back follows it on the stream
+            host.append(h)
+        self.saved.append(tuple(host))
+
+    def pop(self, device):
+        host = self.saved[self._next]
+        self._next += 1
+        return tuple(h.to(device, non_blocking=True) for h in host)
 
 
 def checkpoint(function, *args):
     """``function(*args)`` with its activations recomputed in the backward
-    pass (non-reentrant ``torch.utils.checkpoint``)."""
-    return _torch_checkpoint(function, *args, use_reentrant=False)
+    pass (non-reentrant ``torch.utils.checkpoint``); under
+    ``cpu_checkpointing`` the flash forward's out and lse wait in pinned
+    host memory instead of being recomputed."""
+    if not _config["cpu_checkpointing"]:
+        return _torch_checkpoint(function, *args, use_reentrant=False)
+    residuals = HostResiduals()
+
+    def run(*a):
+        with residuals.active():
+            return function(*a)
+    return _torch_checkpoint(run, *args, use_reentrant=False)
 
 
 def model_parallel_cuda_manual_seed(seed):

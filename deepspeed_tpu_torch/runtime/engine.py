@@ -45,12 +45,36 @@ objectives in ``telemetry.slo`` the SLO engine evaluates at each report;
 ``request_profile()`` arms a ``torch.profiler`` capture that starts at the
 next one.
 
+Offload tiers (the JAX engine's ``engine.py:163-192``, ``:409-444``,
+``:930-1028``, ``:1249-1290``):
+
+- ``zero_optimization.offload_optimizer.device`` ``"cpu"`` or ``"nvme"``
+  (ZeRO-Offload, ``runtime/zero/offload.py``,
+  ``runtime/swap_tensor/optimizer_swapper.py``): the fp32 master and the
+  Adam moments live on the host (or in files under ``nvme_path``), the
+  device holds the compute-dtype weights. A step runs the micro-batches'
+  forward and backward on the device against those weights; the gradients
+  ship at the compute dtype (with ``gas`` > 1 they accumulate in fp32 on
+  the device and are cast before shipping), their fp32 norm decides the
+  overflow skip and the clip coefficient, and the native C AdamW steps the
+  host state, whose bf16 cast is pushed back.
+- ``zero_optimization: {stage: 3, offload_param: {device: "cpu" | "nvme"}}``
+  (ZeRO-Infinity, ``runtime/zero/param_offload.py``): the parameters live on
+  the host too and stream through the step one layer block at a time
+  (``param_stream``: ``train_batch``, ``eval_batch``, ``generate``).
+  ``offload_param`` subsumes ``offload_optimizer`` and requires stage 3;
+  stage 3 is accepted only with it.
+
+Both refuse the forward/backward/step facade; checkpoints keep the
+on-device format (the master under ``master``, the moments as an AdamW
+state under ``optimizer``), so one saved by any tier loads into any other.
+
 Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: ZeRO stages 1-3, offload,
-pipeline and model parallelism, 1-bit optimizers, a resume at another world
-size, ``deepspeed_io``.
+``NotImplementedError`` naming its ROADMAP item: ZeRO stages 1-3 without
+``offload_param``, pipeline and model parallelism, 1-bit optimizers, a
+resume at another world size, ``deepspeed_io``.
 """
 
 import math
@@ -109,10 +133,26 @@ class DeepSpeedEngine:
         self._config = config_class if config_class is not None else DeepSpeedConfig(config, mpu)
 
         zero = self._config.zero_optimization
-        if zero.stage > 0:
-            raise _unported(f"ZeRO stage {zero.stage}", "ROADMAP Queue 1 #7, distributed runtime")
-        if zero.offload_optimizer.device != "none" or zero.offload_param.device != "none":
-            raise _unported("ZeRO offload", "ROADMAP Queue 1 #8, offload and memory tiers")
+        self.offload_param = zero.offload_param.device in ("cpu", "nvme")
+        self.offload_optimizer = zero.offload_optimizer.device in ("cpu", "nvme")
+        if self.offload_param:
+            if zero.stage != 3:
+                raise ValueError("offload_param requires zero stage 3 (reference zero/stage3.py:463 "
+                                 "configures param swapping under stage 3 only)")
+            if not hasattr(model, "stream_plan"):
+                raise ValueError("offload_param requires a model exposing the parameter streaming "
+                                 "protocol (stream_plan/stream_embed/stream_layer/stream_tail_loss — "
+                                 "deepspeed_tpu_torch.models transformers do)")
+            if self.offload_optimizer:
+                log_dist("offload_param subsumes offload_optimizer: the streamed step keeps fp32 "
+                         "master + moments host-resident by construction", [0])
+                self.offload_optimizer = False
+        elif zero.stage > 0:
+            raise _unported(f"ZeRO stage {zero.stage} without offload_param",
+                            "ROADMAP Queue 1 #7, distributed runtime")
+        if zero.offload_optimizer.device == "nvme" and self.offload_optimizer and \
+                not zero.offload_optimizer.nvme_path:
+            raise ValueError("offload_optimizer.device='nvme' requires nvme_path")
         if self._config.pipeline:
             raise _unported("pipeline parallelism", "ROADMAP Queue 1 #7, distributed runtime")
         if training_data is not None:
@@ -132,10 +172,26 @@ class DeepSpeedEngine:
         self._base_key = seed_key(self._config.seed)
 
         # ---- params, optimizer, schedule ---------------------------------
-        self.master = self._init_params(model, model_parameters)
-        self.optimizer = build_optimizer(self._config.optimizer, self.master,
-                                         scanned=getattr(cfg, "scan_layers", False), client=optimizer)
+        self.host_opt = self.param_stream = None
+        if (self.offload_optimizer or self.offload_param) and optimizer is not None:
+            raise ValueError("a client optimizer does not compose with offload_optimizer/offload_param "
+                             "(the host step is the native C AdamW)")
+        if self.offload_param:
+            self.master, self.optimizer = None, None
+        elif self.offload_optimizer:
+            self.master = self._init_host_optimizer(model, model_parameters)
+            self.optimizer = None
+        else:
+            self.master = self._init_params(model, model_parameters)
+            self.optimizer = build_optimizer(self._config.optimizer, self.master,
+                                             scanned=getattr(cfg, "scan_layers", False), client=optimizer)
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        if self.offload_param:
+            from .zero.param_offload import ParamStreamRunner
+            self.param_stream = ParamStreamRunner(model, self._config, self.device, self.compute_dtype,
+                                                  self.lr_schedule_fn, seed=self._config.seed,
+                                                  params=model_parameters)
+        self.last_offload_times = None
         self.step_count = 0  # applied (not overflow-skipped) updates
         self.skipped_steps = 0
         self.loaded_checkpoint_tag = None
@@ -168,11 +224,12 @@ class DeepSpeedEngine:
             if auto_s > 0:
                 self.profiler.request(auto_s)
 
+        n_params = self.param_stream.store.num_params() if self.param_stream is not None else \
+            sum(p.numel() for p in self.master.values())
         log_dist(
-            f"DeepSpeedEngine ready: device={self.device} zero_stage=0 "
+            f"DeepSpeedEngine ready: device={self.device} zero_stage={zero.stage} "
             f"dtype={self.compute_dtype} micro_bs={self.train_micro_batch_size_per_gpu()} "
-            f"gas={self.gradient_accumulation_steps()} params={sum(p.numel() for p in self.master.values()):,}",
-            [0])
+            f"gas={self.gradient_accumulation_steps()} params={n_params:,}", [0])
 
     # ------------------------------------------------------------------ config accessors
     def train_batch_size(self):
@@ -211,7 +268,8 @@ class DeepSpeedEngine:
 
     @property
     def params(self):
-        """The fp32 master state dict (live tensors, updated in place)."""
+        """The fp32 master state dict (live tensors, updated in place); under
+        ``offload_optimizer`` the device's compute-dtype weights."""
         return self.master
 
     def get_lr(self):
@@ -250,6 +308,31 @@ class DeepSpeedEngine:
         return {k: torch.as_tensor(v).to(self.device, torch.float32).requires_grad_(True)
                 for k, v in model_parameters.items()}
 
+    def _init_host_optimizer(self, model, model_parameters):
+        """ZeRO-Offload: the fp32 master (``model_parameters`` or
+        ``model.init_params(seed)``, as the on-device engine takes it) and
+        the moments to the host (or NVMe); returns the device's
+        compute-dtype leaves."""
+        from .zero.offload import HostOffloadOptimizer
+        off = self._config.zero_optimization.offload_optimizer
+        if model_parameters is None:
+            if not hasattr(model, "init_params"):
+                raise ValueError("Provide model_parameters or a model with init_params(seed)")
+            model_parameters = model.init_params(self._config.seed)
+        if off.device == "nvme":
+            from .swap_tensor import NVMeOffloadOptimizer, get_aio_config
+            self.host_opt = NVMeOffloadOptimizer(self._config.optimizer, self.device, self.compute_dtype,
+                                                 off.nvme_path, get_aio_config(self._config.raw_config),
+                                                 pipeline_read=bool(off.pipeline_read),
+                                                 pipeline_write=bool(off.pipeline_write))
+        else:
+            self.host_opt = HostOffloadOptimizer(self._config.optimizer, self.device, self.compute_dtype)
+        params = {k: torch.as_tensor(v) for k, v in model_parameters.items()}
+        leaves = self.host_opt.init(params)
+        self._grad_views = list(self.host_opt.views(self.host_opt.dev_grad).values())
+        self._offload_acc = None
+        return leaves
+
     def _configure_lr_scheduler(self, client_lr_scheduler):
         """(step -> lr function, stateful schedule or None); reference
         engine.py:836."""
@@ -263,7 +346,9 @@ class DeepSpeedEngine:
         if sched_cfg.type is not None:
             sched = get_lr_schedule(sched_cfg.type, sched_cfg.params)
             return sched.__call__, sched
-        if isinstance(self.optimizer, ClientOptimizer):  # a client optimizer keeps its own lr
+        if self.optimizer is None:
+            base_lr = float(self._config.optimizer.params.get("lr", 1e-3))
+        elif isinstance(self.optimizer, ClientOptimizer):  # a client optimizer keeps its own lr
             base_lr = self.optimizer.lr
         else:
             base_lr = float(self._config.optimizer.params.get("lr", 1e-3))
@@ -329,6 +414,68 @@ class DeepSpeedEngine:
         return {"loss": loss_mean, "grad_norm": gnorm, "lr": lr, "overflow": overflow,
                 "loss_scale": scale}
 
+    @torch.no_grad()
+    def _offload_apply(self, gnorm_raw, loss_mean):
+        """The host half of an offloaded step (the JAX engine's
+        ``engine.py:981-1028``): overflow skip, clip, the native AdamW over
+        the host state and the push of its bf16 cast."""
+        scale = self.loss_scale_state.cur_scale
+        denom = self._grad_denom(scale)
+        overflow = not math.isfinite(gnorm_raw)
+        gnorm = gnorm_raw / denom
+        lr = float(self.lr_schedule_fn(self.step_count))
+        if overflow:
+            self.skipped_steps += 1
+            times = {}
+        else:
+            coef = 1.0 / denom
+            clip = self._clip_coef(gnorm)
+            if clip is not None:
+                coef *= clip
+            times = self.host_opt.step(coef, lr)
+            self.step_count += 1
+        self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
+        return {"loss": loss_mean, "grad_norm": gnorm, "lr": lr, "overflow": overflow,
+                "loss_scale": scale}, times
+
+    def _offload_train_batch(self, stacked, gas):
+        """ZeRO-Offload step: the micro-batches' forward and backward on the
+        device against the compute-dtype weights, gradients shipped at the
+        compute dtype (fp32-accumulated on the device when ``gas`` > 1),
+        then :meth:`_offload_apply`."""
+        from .zero.offload import flat_norm
+        t0 = time.perf_counter()
+        scale = self.loss_scale_state.cur_scale
+        loss_sum = None
+        for g in range(gas):
+            loss, grads = self._micro_loss_and_grads(self.master, {k: v[g] for k, v in stacked.items()},
+                                                     scale, self._micro_rng(g))
+            loss_sum = loss.float() if loss_sum is None else loss_sum + loss.float()
+            with torch.no_grad():
+                if gas == 1:
+                    torch._foreach_copy_(self._grad_views, grads)
+                else:
+                    if self._offload_acc is None:
+                        self._offload_acc = torch.empty(self.host_opt.n, dtype=torch.float32,
+                                                        device=self.device)
+                        self._acc_views = list(self.host_opt.views(self._offload_acc).values())
+                    if g == 0:
+                        torch._foreach_copy_(self._acc_views, grads)
+                    else:
+                        torch._foreach_add_(self._acc_views, grads)
+            del grads
+        with torch.no_grad():
+            if gas > 1:
+                self.host_opt.dev_grad.copy_(self._offload_acc)
+                gnorm_raw = float(flat_norm(self._offload_acc))
+            else:
+                gnorm_raw = float(flat_norm(self.host_opt.dev_grad))
+        t1 = time.perf_counter()
+        metrics, times = self._offload_apply(gnorm_raw, loss_sum / gas)
+        self.last_offload_times = {"device_ms": (t1 - t0) * 1e3,
+                                   **{k[:-2] + "_ms": v * 1e3 for k, v in times.items()}}
+        return metrics
+
     # ------------------------------------------------------------------ data placement
     def _place(self, batch, lead=None):
         """Host or device leaves -> tensors on the device (integer leaves as
@@ -362,6 +509,8 @@ class DeepSpeedEngine:
         batch (``train_batch_size`` rows)."""
         gas = self.gradient_accumulation_steps()
         micro = self.train_micro_batch_size_per_gpu()
+        if self.param_stream is not None:
+            return self._param_stream_train_batch(data_iter, batch, gas)
         if batch is not None:
             leading = {int(np.shape(x)[0]) for x in batch.values()}
             if leading != {self.train_batch_size()}:
@@ -379,20 +528,24 @@ class DeepSpeedEngine:
         t0 = time.perf_counter() if self.telemetry.enabled else None
         if t0 is not None and self._step_flops is None:
             self._step_flops = self._flops_per_step(stacked.get("input_ids"), 1)
-        acc, loss_sum = None, None
-        scale = self.loss_scale_state.cur_scale
-        for g in range(gas):
-            loss, grads = self._micro_loss_and_grads(self.master, {k: v[g] for k, v in stacked.items()},
-                                                     scale, self._micro_rng(g))
-            if acc is None:
-                acc, loss_sum = grads, loss.float()
-            else:
-                torch._foreach_add_(acc, grads)
-                loss_sum = loss_sum + loss.float()
-            del grads
-        metrics = self._apply_grads(acc, loss_sum / gas)
+        if self.host_opt is not None:
+            metrics = self._offload_train_batch(stacked, gas)
+        else:
+            acc, loss_sum = None, None
+            scale = self.loss_scale_state.cur_scale
+            for g in range(gas):
+                loss, grads = self._micro_loss_and_grads(self.master, {k: v[g] for k, v in stacked.items()},
+                                                         scale, self._micro_rng(g))
+                if acc is None:
+                    acc, loss_sum = grads, loss.float()
+                else:
+                    torch._foreach_add_(acc, grads)
+                    loss_sum = loss_sum + loss.float()
+                del grads
+            metrics = self._apply_grads(acc, loss_sum / gas)
         if t0 is not None:
-            self._record_step(t0, {"path": "fused", "micro_batches": gas})
+            self._record_step(t0, {"path": "offload" if self.host_opt is not None else "fused",
+                                   "micro_batches": gas})
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.micro_steps += gas
@@ -402,11 +555,54 @@ class DeepSpeedEngine:
             self.lr_scheduler.last_batch_iteration = self.global_steps
         return metrics["loss"]
 
+    def _param_stream_train_batch(self, data_iter, batch, gas):
+        """One streamed step (``param_stream.train_batch``); the engine's
+        counters follow the runner's (an overflow-skipped step does not
+        advance it)."""
+        if batch is None:
+            if data_iter is None:
+                raise _unported("training_data loaders", "ROADMAP Queue 1 #10, runtime/data_pipeline")
+            mbs = self._next_microbatches(data_iter, gas)
+            batch = {k: np.concatenate([np.asarray(mb[k]) for mb in mbs]) for k in mbs[0]}
+        t0 = time.perf_counter() if self.telemetry.enabled else None
+        if t0 is not None and self._step_flops is None:
+            ids = batch.get("input_ids")
+            self._step_flops = self._flops_per_step(None if ids is None else torch.as_tensor(np.asarray(ids)),
+                                                    1)
+        metrics = self.param_stream.train_batch(batch)
+        self.global_steps = self.param_stream.global_steps
+        self.step_count = self.param_stream.global_steps
+        self.global_samples += self.train_batch_size()
+        self.micro_steps += gas
+        self._last_metrics = metrics
+        if t0 is not None:
+            pt = self.param_stream.last_phase_times or {}
+            self._record_step(t0, {"path": "param_stream",
+                                   "overlap_efficiency": round(pt.get("overlap_efficiency", 0.0), 4)})
+            # realized (not dispatched) transfer overlap: the executor fences
+            # every put, so issue time, completion and exposure are apart
+            self.telemetry.gauges([
+                ("offload/put_dispatch_ms", pt.get("put_dispatch_s", 0.0) * 1e3, self.global_samples),
+                ("offload/put_realized_ms", pt.get("put_realized_s", 0.0) * 1e3, self.global_samples),
+                ("offload/fetch_wait_ms", pt.get("drain_s", 0.0) * 1e3, self.global_samples),
+                ("offload/overlap_efficiency", pt.get("overlap_efficiency", 0.0), self.global_samples),
+            ])
+        self._report(metrics)
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.last_batch_iteration = self.global_steps
+        return torch.tensor(metrics["loss"])
+
+    def _refuse_facade(self):
+        if self.host_opt is not None or self.param_stream is not None:
+            raise RuntimeError("the forward/backward/step facade is not supported with "
+                               "offload_optimizer/offload_param; use train_batch()")
+
     def forward(self, batch):
         """Facade: one microbatch's loss and gradients, accumulated until
         :meth:`step` (reference engine.py:1624; forward and backward fuse
         here as in the JAX engine, so ``backward`` only marks the
         micro-step)."""
+        self._refuse_facade()
         placed = self._place(batch)
         if self.telemetry.enabled and self._step_flops is None:
             self._step_flops = self._flops_per_step(placed.get("input_ids"),
@@ -431,6 +627,7 @@ class DeepSpeedEngine:
     def backward(self, loss=None, allreduce_gradients=True, retain_graph=False):
         """Facade: gradients were produced in forward(); this marks the
         micro-step boundary (reference engine.py:1765)."""
+        self._refuse_facade()
         self.micro_steps += 1
         return loss
 
@@ -440,6 +637,7 @@ class DeepSpeedEngine:
     def step(self, lr_kwargs=None):
         """Facade: apply the accumulated gradients at a boundary (reference
         engine.py:1961)."""
+        self._refuse_facade()
         gas = self.gradient_accumulation_steps()
         if self._micro_step < gas:
             return None
@@ -458,6 +656,8 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
+        if self.param_stream is not None:
+            return torch.tensor(self.param_stream.eval_batch(batch)["loss"])
         p_c = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
         return self.loss_fn(p_c, self._place(batch))
 
@@ -580,13 +780,25 @@ class DeepSpeedEngine:
         })
         # the facade's gradient accumulator is in-flight scratch, not
         # training state (reference engine.py:3012 skips its buffers too)
-        state = {"master": self.master, "optimizer": self.optimizer.state_dict(),
+        master, opt_state = self._checkpoint_state()
+        state = {"master": master, "optimizer": opt_state,
                  "loss_scale": self.loss_scale_state.to_dict(), "step_count": self.step_count,
                  "skipped_steps": self.skipped_steps}
         ckpt.save_checkpoint(save_dir, tag, state, client_sd, save_latest=save_latest,
                              use_async=self._config.checkpoint.async_save)
         log_dist(f"saved checkpoint {save_dir}/{tag}", [0])
         return True
+
+    def _checkpoint_state(self):
+        """(fp32 master dict, optimizer state): the offload tiers write their
+        host master and moments under the on-device AdamW's keys."""
+        if self.param_stream is not None:
+            master, mu, nu = self.param_stream.state_tensors()
+            return master, {"count": self.param_stream.store.t, "mu": mu, "nu": nu}
+        if self.host_opt is not None:
+            master, mu, nu = self.host_opt.state_tensors()
+            return master, {"count": self.host_opt.t, "mu": mu, "nu": nu}
+        return self.master, self.optimizer.state_dict()
 
     def wait_checkpoint_saves(self):
         """Block until an in-flight async checkpoint is written and its
@@ -603,16 +815,27 @@ class DeepSpeedEngine:
         the lr schedule's state with ``load_lr_scheduler_states``.
         ``load_module_strict`` False loads the master tensors both sides
         have. The facade's accumulated gradients are dropped."""
-        state, client_sd = ckpt.load_checkpoint(load_dir, tag, map_location=self.device)
+        offloaded = self.host_opt is not None or self.param_stream is not None
+        state, client_sd = ckpt.load_checkpoint(load_dir, tag,
+                                                map_location="cpu" if offloaded else self.device)
         if state is None:
             return None, None
         if client_sd.get("world_size", 1) != self._config.world_size:
             raise _unported(f"a resume at world size {self._config.world_size} of a checkpoint saved at "
                             f"{client_sd['world_size']}", "ROADMAP Queue 1 #9, elastic controller")
-        self._load_master(state["master"], load_module_strict)
+        with_opt = load_optimizer_states and not load_module_only
+        if offloaded:
+            self._load_offloaded(state, with_opt)
+        else:
+            self._load_master(state["master"], load_module_strict)
         self.step_count = int(state["step_count"])
-        if load_optimizer_states and not load_module_only:
-            self.optimizer.load_state_dict(state["optimizer"])
+        if self.param_stream is not None:
+            self.param_stream.global_steps = self.step_count
+        if with_opt and offloaded:
+            self.loss_scale_state = LossScaleState.from_dict(state["loss_scale"])
+            self.skipped_steps = int(state["skipped_steps"])
+        elif with_opt:
+            self.optimizer.load_state_dict(self._in_master_order(state))
             self.loss_scale_state = LossScaleState.from_dict(state["loss_scale"])
             self.skipped_steps = int(state["skipped_steps"])
         self.zero_grad()
@@ -623,6 +846,33 @@ class DeepSpeedEngine:
             self.lr_scheduler.load_state_dict(client_sd["lr_scheduler"])
         self.loaded_checkpoint_tag = tag
         return load_dir, client_sd
+
+    def _in_master_order(self, state):
+        """The saved optimizer state with its per-tensor lists in this
+        engine's master order (a checkpoint of an offload tier lists them in
+        the model's state-dict order)."""
+        saved, mine = list(state["master"]), list(self.master)
+        sd = state["optimizer"]
+        if saved == mine or set(saved) != set(mine):
+            return sd
+        where = {k: i for i, k in enumerate(saved)}
+        return {name: [val[where[k]] for k in mine] if isinstance(val, list) and len(val) == len(saved) else val
+                for name, val in sd.items()}
+
+    def _load_offloaded(self, state, with_opt):
+        """Restore an offload tier from a checkpoint of any tier: the master,
+        and with ``with_opt`` the moments when the saved optimizer is an
+        AdamW state (else fresh moments, as without ``with_opt``)."""
+        opt = state.get("optimizer") or {}
+        has_moments = with_opt and "mu" in opt and "nu" in opt
+        keys = list(state["master"])  # the lists follow the saved master's order
+        mu, nu = (dict(zip(keys, opt["mu"])), dict(zip(keys, opt["nu"]))) if has_moments else (None, None)
+        count = int(opt.get("count", state["step_count"])) if has_moments else 0
+        if with_opt and not has_moments:
+            logger.warning("offload: the checkpoint carries no Adam moments; the master loads, the "
+                           "moments start at zero")
+        target = self.param_stream if self.param_stream is not None else self.host_opt
+        target.load_state(state["master"], mu, nu, count)
 
     @torch.no_grad()
     def _load_master(self, saved, strict):
@@ -640,7 +890,8 @@ class DeepSpeedEngine:
         engine writes a flax msgpack instead). Returns the path."""
         os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
-        torch.save({k: v.detach().to(self.compute_dtype).cpu() for k, v in self.master.items()}, path)
+        master = self._checkpoint_state()[0]
+        torch.save({k: v.detach().to(self.compute_dtype).cpu() for k, v in master.items()}, path)
         return path
 
     # ------------------------------------------------------------------ not ported yet

@@ -60,7 +60,13 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.serving.__main__", "deepspeed_tpu_torch.utils.counter_hash",
             "deepspeed_tpu_torch.runtime.optimizers", "deepspeed_tpu_torch.runtime.checkpoint_engine.engine",
             "deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing",
-            "deepspeed_tpu_torch.checkpoint", "deepspeed_tpu_torch.checkpoint.zero_checkpoint"]
+            "deepspeed_tpu_torch.checkpoint", "deepspeed_tpu_torch.checkpoint.zero_checkpoint",
+            "deepspeed_tpu_torch.ops.adam", "deepspeed_tpu_torch.ops.adam.cpu_adam", "deepspeed_tpu_torch.ops.aio",
+            "deepspeed_tpu_torch.memory", "deepspeed_tpu_torch.memory.streams",
+            "deepspeed_tpu_torch.runtime.swap_tensor", "deepspeed_tpu_torch.runtime.swap_tensor.aio_config",
+            "deepspeed_tpu_torch.runtime.swap_tensor.read_window",
+            "deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper",
+            "deepspeed_tpu_torch.runtime.zero.offload", "deepspeed_tpu_torch.runtime.zero.param_offload"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

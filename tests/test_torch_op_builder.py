@@ -1,9 +1,10 @@
 """The port's op-builder registry (``deepspeed_tpu_torch.ops.op_builder``) and
 ``env_report`` against the JAX package's: the same eight builder names and
 classes, modules of the port, the CUDA sources each builds (only with a
-card; each source named by the one module that launches it), the unported
-builders refusing with their ROADMAP item, and the report's op table read
-from the registry, printed without JAX."""
+card; each source named by the one module that launches it), the host C
+library the offload ops build, the unported builders refusing with their
+ROADMAP item, and the report's op table read from the registry, printed
+without JAX."""
 
 import importlib
 import os
@@ -21,7 +22,7 @@ from deepspeed_tpu_torch import env_report
 from deepspeed_tpu_torch.ops import build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-UNPORTED = ("cpu_adam", "cpu_adagrad", "async_io", "random_ltd")
+UNPORTED = ("random_ltd", )
 PORTED = tuple(n for n in ob.ALL_OPS if n not in UNPORTED)
 
 

@@ -108,12 +108,14 @@ def test_disabled_sections_and_dtypes():
 def test_engine_refuses_what_it_does_not_run():
     model = get_model("tiny", dtype=torch.float32)
     base = {"train_batch_size": 4}
-    for extra, item in (({"zero_optimization": {"stage": 1}}, "#7"),
-                        ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "#8"),
-                        ({"pipeline": {"stages": 2}}, "#7"),
-                        ({"optimizer": {"type": "OneBitAdam"}}, "#10"),
-                        ({"optimizer": {"type": "OneBitLamb"}}, "#10")):
-        with pytest.raises(NotImplementedError, match=item):
+    for extra, err, item in (({"zero_optimization": {"stage": 1}}, NotImplementedError, "#7"),
+                             # offload_param requires stage 3 (the JAX engine's error text)
+                             ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
+                              ValueError, "stage 3"),
+                             ({"pipeline": {"stages": 2}}, NotImplementedError, "#7"),
+                             ({"optimizer": {"type": "OneBitAdam"}}, NotImplementedError, "#10"),
+                             ({"optimizer": {"type": "OneBitLamb"}}, NotImplementedError, "#10")):
+        with pytest.raises(err, match=item):
             deepspeed_tpu_torch.initialize(model=model, config={**base, **extra}, device="cpu")
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=base, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10"):
