@@ -85,6 +85,24 @@ Phases (any failure ends the run with a non-zero exit):
    the int8-KV leg (8 requests, bitwise, exact counts) under a ``POST
    /v1/debug/profile`` capture (409 on a second; the device busy share);
    ``tools/trace_summary.py`` on the JSONL;
+   Then the hierarchical KV tier (``kv_tier_phase``; ``python3
+   chip_smoke.py --kv-tier`` runs it alone) on the same weights, the
+   serving configuration with ``hierarchical_kv`` at 4096 MB of host RAM:
+   (a) 16 prompts of a 384-token system prefix and a 32-token suffix, 64
+   new each, served cold (the 8-slot pool demotes them), then every prefix
+   again with a new suffix, each restored from the host tier: exact launch
+   counts (36 x 6 span launches fewer a restored prefix), TTFT of both
+   passes, the demote's D2H and the restore's H2D by CUDA events, the host
+   gap's ``tier_transfer`` share; 4 revisits (greedy and sampled) restored
+   == device hit == cold with the tier off, bitwise in tokens and logits,
+   on the bf16 pool and again on an int8 pool; (b) the same two passes
+   over 256 MB of host RAM spilling to NVMe under a temporary directory,
+   bitwise (a)'s, with spills, NVMe bytes, the ``O_DIRECT`` share and the
+   TTFT of revisits restored from disk; (c) in phase 5, on the llama3-8b
+   engine, a request chained to 7968 tokens whose cold extents are demoted
+   mid-decode and restored by the paging pump: stream and logits bitwise
+   the run without demotion, exact extent-mode launches, each extent's
+   demote and restore time;
 5. llama3-8b at full width, depth cut to 2 layers (set-up time), fused, so
    RoPE, RMSNorm, SwiGLU, GQA g=4 and the head-dim-128 kernels run end to
    end, through generate() and through the scheduler (4 slots, 8 requests);
@@ -1900,7 +1918,10 @@ def decode_profile(torch, eng, prompts, step_ms, what, steps=8):
         log(f"  device {ms:8.4f} ms/step {n:5d} calls/step  {key[:80]}")
 
 
-def llama_phase(torch):
+def llama_phase(torch, card=None):
+    """llama3-8b at full width, 2 layers: generate(), the scheduler, the
+    long-context phase and, given ``card``, the KV tier's extent-paging leg
+    (``kv_extent_leg``) on the same engine."""
     import numpy as np
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import get_model
@@ -1927,6 +1948,8 @@ def llama_phase(torch):
     fused_step_check(torch, eng, prompts, "llama3-8b")
     llama_serving_phase(torch, eng)
     long_counts = long_context_phase(torch, eng)
+    if card is not None:
+        timed_phase("kv tier: (c) extent paging", kv_extent_leg, torch, card, eng)
     del eng
     torch.cuda.empty_cache()
     return long_counts
@@ -2747,6 +2770,390 @@ def gateway_phase(torch, card, params, model="gpt2-large"):
     del eng
     torch.cuda.empty_cache()
     return counts, counts_q
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the hierarchical KV tier (host RAM and NVMe under the radix cache)
+
+
+KV_HOST_MB, KV_NVME_HOST_MB = 4096, 256
+KV_PREFIXES, KV_NEW, KV_GATED = 16, 64, 4
+KV_SAMPLED = {"do_sample": True, "temperature": 0.8, "top_k": 50, "top_p": 0.95}
+
+
+def kv_tier_streams(sched, vocab, seed=SEED):
+    """16 distinct system prefixes of 6 chunks (384 tokens at chunk 64), each
+    with two distinct half-chunk suffixes (32 tokens): pass 1's prompts and
+    pass 2's revisits."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 19)
+    C = sched.prefill_chunk
+    systems = [rng.integers(0, vocab, 6 * C) for _ in range(KV_PREFIXES)]
+    passes = [[np.concatenate([s, rng.integers(0, vocab, C // 2)]).astype(np.int32) for s in systems]
+              for _ in range(2)]
+    check(all(a[6 * C] != b[6 * C] for a, b in zip(*passes)), "kv tier: two suffixes share a first token")
+    return passes
+
+
+def kv_scheduler(eng, **kw):
+    """A scheduler with the engine's continuous-batching shape (slots, K,
+    chunk) and ``kw``, built directly: no store unless ``kw`` gives one."""
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    cb = eng._config.continuous_batching
+    return DecodeScheduler(eng, num_slots=cb.num_slots, steps_per_sync=cb.steps_per_sync,
+                           prefill_chunk=cb.prefill_chunk, **kw)
+
+
+def kv_gate_kw(j):
+    """The j-th gated request's settings: logits collected, every second
+    one sampled, seeded by j (the same in every run it is compared across)."""
+    return {"collect_logits": True, "seed": 100 + j, **(KV_SAMPLED if j % 2 else {})}
+
+
+def kv_serve(sched, prompts, gated=(), max_new=KV_NEW):
+    """Queue every prompt at t = 0 and pump until all finish; the request
+    at index ``gated[j]`` runs with ``kv_gate_kw(j)``. Returns (streams,
+    {index: logits} of the gated, TTFT ms, wall s)."""
+    kws = {i: kv_gate_kw(j) for j, i in enumerate(gated)}
+    hs = [sched.submit(p, max_new_tokens=max_new, **kws.get(i, {})) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    while any(not h.done for h in hs):
+        sched.step()
+    wall = time.perf_counter() - t0
+    ttft = [(h._req.first_token_ts - h._req.submit_ts) * 1e3 for h in hs]
+    return [h.result() for h in hs], {i: hs[i].result_logits() for i in gated}, ttft, wall
+
+
+def transfer_rates(torch, tier, kind):
+    """(count, median ms, median GB/s) of the tier's ``kind`` copies ("d2h":
+    demotes, "h2d": restores) timed by CUDA events on the copy streams."""
+    torch.cuda.synchronize()
+    ev = [(n, s.elapsed_time(e)) for k, n, s, e in tier.executor.transfer_events if k == kind]
+    if not ev:
+        return 0, float("nan"), float("nan")
+    ms = statistics.median(t for _, t in ev)
+    return len(ev), ms, statistics.median(n / t / 1e6 for n, t in ev if t > 0)
+
+
+def three_way(tokens, logits, what):
+    """Every run's streams and gated logits bitwise the first run's."""
+    import numpy as np
+    (name0, t0), l0 = tokens[0], logits[0][1]
+    for (name, t), (_, lg) in zip(tokens[1:], logits[1:]):
+        same_t = all(np.array_equal(a, b) for a, b in zip(t0, t))
+        same_l = all(np.array_equal(l0[i], lg[i]) for i in l0)
+        log(f"{what}: {name} vs {name0}: tokens bitwise {same_t}, logits bitwise {same_l}")
+        check(same_t and same_l, f"{what}: {name} differs from {name0}")
+
+
+def kv_host_leg(torch, card, eng, store_kw=None, ref=None):
+    """(a) The host tier (``eng.scheduler()``, built from the config's
+    ``hierarchical_kv``; with ``store_kw`` a scheduler over its own store
+    instead, leg (b)): pass 1 computes 16 prompts cold (the 8-slot pool
+    demotes them), pass 2 revisits every prefix with a new suffix and must
+    restore each from the host tier, launching L x 6 span-kernel calls fewer
+    a prefix than its cold prefill; exact launch counts and the radix
+    invariants after each pass. Without ``ref``: the last 4 revisits
+    (collected, greedy and sampled) against their device hits and a cold
+    run with the tier off, bitwise. With ``ref`` (leg (b)): both passes'
+    streams and the gated logits bitwise ``ref``'s. Returns a dict of the
+    passes' prompts, streams and TTFTs, the gated logits and the scheduler."""
+    import numpy as np
+    from deepspeed_tpu_torch.memory import GlobalPrefixStore
+    what = "kv tier (b) NVMe" if store_kw else "kv tier (a) host"
+    vocab = eng.model_config.vocab_size
+    if store_kw is None:
+        sched = eng.scheduler()
+    else:
+        store = GlobalPrefixStore(telemetry=eng.telemetry, **store_kw)
+        sched = kv_scheduler(eng, prefix_store=store)
+    tier = sched.kv_tier
+    check(tier is not None, f"{what}: the scheduler has no KV tier")
+    check(sched._fused_block, f"{what}: fused gate closed ({sched._fused_block_reasons})")
+    L = eng.model_config.num_layers
+    p1, p2 = kv_tier_streams(sched, vocab)
+    gated = tuple(range(KV_PREFIXES - KV_GATED, KV_PREFIXES))
+    warm = (p1[0][:sched.prefill_chunk + 8] + 1) % vocab
+    kv_serve(sched, [warm], max_new=8)  # first-use costs
+    tier.warmup()  # the staging: allocated before the timed passes
+    tier.executor.time_transfers = True
+    tel = eng.telemetry
+    gap = lambda b: tel.counter_total(f"serving/host_gap/{b}_ms")  # noqa: E731
+    passes = []
+    for n, prompts in ((1, p1), (2, p2)):
+        sched.forwards.clear()
+        r0, h0, d0, g0 = tier.restores, sched.radix.hits, tier.demotes, (gap("tier_transfer"),
+                                                                          gap("admission"))
+        reset_counts()
+        outs, lg, ttft, wall = kv_serve(sched, prompts, gated if n == 2 else ())
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_serve_counts(sched, counts, f"{what} pass {n}")
+        check_streams(outs, KV_NEW, vocab, f"{what} pass {n}")
+        sched.radix.check_invariants()  # joins the demotes in flight
+        nc = sum(v for c, v in sched.forwards.items() if c != 1)
+        passes.append((outs, lg, ttft, wall, nc, counts))
+        log(f"{what} pass {n} ({KV_PREFIXES} prompts of {len(prompts[0])} tokens, {KV_NEW} new, 8 slots x "
+            f"{sched.max_len}, K=4, chunk {sched.prefill_chunk}): {wall:.3f} s, TTFT p50 "
+            f"{_pct(ttft, 50):.1f} ms, p95 {_pct(ttft, 95):.1f} ms; restores {tier.restores - r0}, "
+            f"device hits {sched.radix.hits - h0}, demotes {tier.demotes - d0}; chunk forwards {nc}; "
+            f"host gap in tier_transfer {gap('tier_transfer') - g0[0]:.1f} ms of admission "
+            f"{gap('admission') - g0[1]:.1f} ms; on {card}")
+        if n == 1:
+            check(tier.demotes - d0 >= KV_PREFIXES - 8, f"{what}: pass 1 demoted {tier.demotes - d0}")
+        else:
+            check(tier.restores - r0 == KV_PREFIXES and sched.radix.hits == h0,
+                  f"{what}: pass 2 restored {tier.restores - r0} of {KV_PREFIXES} (device hits "
+                  f"{sched.radix.hits - h0})")
+    (out1, _, ttft1, _, nc1, c1), (out2, lg2, ttft2, _, nc2, c2) = passes
+    fewer = c1["paged_span_attention"] - c2["paged_span_attention"]
+    check(nc1 - nc2 == 6 * KV_PREFIXES and fewer == L * 6 * KV_PREFIXES,
+          f"{what}: pass 2 ran {nc1 - nc2} chunk forwards ({fewer} span launches) fewer than pass 1, "
+          f"expected {6 * KV_PREFIXES} ({L * 6 * KV_PREFIXES})")
+    st = tier.store.stats()
+    nd, dms, dgb = transfer_rates(torch, tier, "d2h")
+    nh, hms, hgb = transfer_rates(torch, tier, "h2d")
+    log(f"{what}: TTFT p50/p95 pass 2 (restored) {_pct(ttft2, 50):.1f}/{_pct(ttft2, 95):.1f} ms against "
+        f"pass 1 (cold) {_pct(ttft1, 50):.1f}/{_pct(ttft1, 95):.1f} ms; {L} x 6 fewer span launches a "
+        f"restored prefix ({fewer} over {KV_PREFIXES}); demotes {tier.demotes}, restores {tier.restores}, "
+        f"restored tokens {tier.restored_tokens}; kv_tier_hit_rate {tier.hit_rate(sched.radix):.4f}; "
+        f"host tier {st['host_bytes'] / 2**20:.1f} MiB in {st['entries']} entries, NVMe "
+        f"{st['nvme_bytes'] / 2**20:.1f} MiB; a demote's D2H {dms:.3f} ms = {dgb:.2f} GB/s (median of "
+        f"{nd}), a restore's H2D {hms:.3f} ms = {hgb:.2f} GB/s (median of {nh}), CUDA events; {card}")
+    res = {"p1": p1, "p2": p2, "out1": out1, "out2": out2, "lg2": lg2, "ttft2": ttft2,
+           "gated": gated, "sched": sched}
+    if ref is not None:
+        same = (all(np.array_equal(a, b) for a, b in zip(out1, ref["out1"]))
+                and all(np.array_equal(a, b) for a, b in zip(out2, ref["out2"]))
+                and all(np.array_equal(lg2[i], ref["lg2"][i]) for i in gated))
+        log(f"{what}: both passes' streams and the gated logits bitwise leg (a)'s: {same}")
+        check(same, f"{what}: streams differ from the host tier's")
+        return res
+    # the gated revisits again: device hits now
+    sel = [p2[i] for i in gated]
+    regate = tuple(range(KV_GATED))
+    h0 = sched.radix.hits
+    hit_out, hit_lg, _, _ = kv_serve(sched, sel, regate)
+    check(sched.radix.hits - h0 == KV_GATED, f"{what}: {sched.radix.hits - h0} device hits of {KV_GATED}")
+    sched.radix.check_invariants()
+    cold = kv_scheduler(eng)  # no store: the tier off
+    cold_out, cold_lg, _, _ = kv_serve(cold, sel, regate)
+    del cold
+    restored = ([out2[i] for i in gated], {j: lg2[i] for j, i in enumerate(gated)})
+    three_way([("restored", restored[0]), ("device hit", hit_out), ("cold, tier off", cold_out)],
+              [("restored", restored[1]), ("device hit", hit_lg), ("cold, tier off", cold_lg)],
+              f"{what}, bf16 KV, {KV_GATED} requests (greedy and sampled)")
+    return res
+
+
+def kv_int8_gate(torch, eng, prompts):
+    """The 3-way gate on an int8 pool: ``prompts`` (greedy and sampled)
+    cold with the tier, restored after 8 short requests demoted them, then
+    device hits, and cold with the tier off: bitwise; the restored run's
+    int8-variant launches exact."""
+    import numpy as np
+    from deepspeed_tpu_torch.memory import GlobalPrefixStore
+    what = "kv tier (a) host, int8 KV"
+    gated = tuple(range(len(prompts)))
+    s8 = kv_scheduler(eng, kv_cache_dtype="int8",
+                      prefix_store=GlobalPrefixStore(capacity_bytes=KV_HOST_MB << 20))
+    tier = s8.kv_tier
+    cold_t, cold_l, _, _ = kv_serve(s8, prompts, gated)
+    C = s8.prefill_chunk
+    thrash = [np.arange(2 * C, dtype=np.int32) * (i + 3) % eng.model_config.vocab_size
+              for i in range(8)]
+    kv_serve(s8, thrash, max_new=4)
+    s8.radix.check_invariants()
+    r0 = tier.restores
+    s8.forwards.clear()
+    reset_counts()
+    rest_t, rest_l, _, _ = kv_serve(s8, prompts, gated)
+    torch.cuda.synchronize()
+    check_serve_counts(s8, read_counts(), f"{what} restores", int8_kv=True)
+    check(tier.restores - r0 == len(prompts), f"{what}: {tier.restores - r0} restores of {len(prompts)}")
+    h0 = s8.radix.hits
+    hit_t, hit_l, _, _ = kv_serve(s8, prompts, gated)
+    check(s8.radix.hits - h0 == len(prompts), f"{what}: {s8.radix.hits - h0} device hits")
+    s8.radix.check_invariants()
+    del s8
+    off = kv_scheduler(eng, kv_cache_dtype="int8")
+    off_t, off_l, _, _ = kv_serve(off, prompts, gated)
+    del off
+    torch.cuda.empty_cache()
+    three_way([("restored", rest_t), ("device hit", hit_t), ("cold with the tier", cold_t),
+               ("cold, tier off", off_t)],
+              [("restored", rest_l), ("device hit", hit_l), ("cold with the tier", cold_l),
+               ("cold, tier off", off_l)], f"{what}, {len(prompts)} requests (greedy and sampled)")
+
+
+def kv_nvme_leg(torch, card, eng, ref):
+    """(b) Leg (a) again over a store of 256 MB of host RAM spilling to NVMe
+    under a temporary directory: both passes bitwise (a)'s; spills, NVMe
+    bytes each way, the O_DIRECT share, restores whose submit-time
+    look-ahead read was issued, and the TTFT p50 of the revisits restored
+    from NVMe."""
+    import shutil
+    import tempfile
+    root = os.environ.get(NVME_ENV) or tempfile.gettempdir()
+    path = tempfile.mkdtemp(prefix="chip_smoke_kv_", dir=root)
+    try:
+        loaded = []
+        from deepspeed_tpu_torch.memory import prefix_store
+        load = prefix_store.GlobalPrefixStore._load
+
+        def tracked(self, entry):  # which revisits came from disk
+            loaded.append(entry.key)
+            return load(self, entry)
+
+        prefix_store.GlobalPrefixStore._load = tracked
+        try:
+            res = kv_host_leg(torch, card, eng,
+                              {"capacity_bytes": KV_NVME_HOST_MB << 20, "nvme_path": path}, ref)
+        finally:
+            prefix_store.GlobalPrefixStore._load = load
+        store = res["sched"].kv_tier.store
+        st, io = store.stats(), store.io_stats()
+        from_disk = {tuple(int(t) for t in k) for k in loaded}
+        idx = [i for i, p in enumerate(res["p1"]) if tuple(int(t) for t in p) in from_disk]
+        ttft = [res["ttft2"][i] for i in idx]
+        direct = io["direct_read"] + io["direct_write"]
+        moved = direct + io["buffered_read"] + io["buffered_write"]
+        log(f"kv tier (b) NVMe under {path}: host budget {KV_NVME_HOST_MB} MiB, spills {st['spills']}, "
+            f"NVMe loads {st['nvme_loads']} (revisits {idx}); written {io['nvme_bytes_written'] / 2**20:.1f} "
+            f"MiB, read {io['nvme_bytes_read'] / 2**20:.1f} MiB; O_DIRECT {direct / max(moved, 1):.4f} of "
+            f"{moved / 2**20:.1f} MiB; restores whose look-ahead read was issued at submit "
+            f"{io['prefetches_landed']} of {st['nvme_loads']}; TTFT p50 of the revisits restored from "
+            f"NVMe {_pct(ttft, 50) if ttft else float('nan'):.1f} ms, of all revisits "
+            f"{_pct(res['ttft2'], 50):.1f} ms; {card}")
+        check(st["spills"] > 0 and st["nvme_loads"] > 0, "kv tier (b): nothing went through NVMe")
+        del res
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def kv_extent_leg(torch, card, eng):
+    """(c) Lossless extent paging on the llama3-8b engine (full width, 2
+    layers): the long-context phase's pool (16 slots x 1024, chains of 8,
+    chunk 64, K=4) with a host store; a request chained to 7968 tokens
+    (7936 prompt + 32 new, 8 extents) has its cold extents demoted
+    mid-decode (``demote_cold_extents(keep_recent=1)``),
+    and the paging pump restores them: the stream and logits bitwise the
+    same request without demotion, nothing left parked, exact launch
+    counts; each extent's demote and restore time."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    from deepspeed_tpu_torch.memory import GlobalPrefixStore
+    what = "kv tier (c) extent paging"
+    S = LONG_MAX_LEN
+    prompt = np.random.default_rng(SEED + 23).integers(
+        0, eng.model_config.vocab_size, LONG_EXTENTS * S - S // 4).astype(np.int32)
+
+    def make(store=None):
+        return DecodeScheduler(eng, num_slots=LONG_SLOTS, max_len=S, max_extents=LONG_EXTENTS,
+                               prefill_chunk=64, steps_per_sync=4, prefix_store=store)
+
+    ref = make()
+    h = ref.submit(prompt, max_new_tokens=LONG_NEW, collect_logits=True)
+    ref_tok, ref_lg = h.result(), h.result_logits()
+    del ref
+    torch.cuda.empty_cache()
+    s = make(GlobalPrefixStore(capacity_bytes=1 << 30))
+    tier = s.kv_tier
+    tier.warmup()
+    tier.executor.time_transfers = True
+    times = {"demote": [], "restore": []}
+    for name in ("demote", "restore"):
+        fn = getattr(tier, name + "_extent")
+
+        def timed(*a, fn=fn, out=times[name]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        setattr(tier, name + "_extent", timed)
+    s.forwards.clear()
+    s.ext_forwards.clear()
+    reset_counts()
+    h = s.submit(prompt, max_new_tokens=LONG_NEW, collect_logits=True)
+    while s._prefill is not None or not s.active:
+        s.step()
+    slot = next(iter(s.active))
+    s.step()  # one decode sync: mid-decode
+    n = s.demote_cold_extents(slot, keep_recent=1)
+    parked = slot in s._parked
+    missing = s.cache.missing_extents(slot)
+    tok, lg = h.result(), h.result_logits()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_long_counts(s, counts, what)
+    same = np.array_equal(tok, ref_tok) and np.array_equal(lg, ref_lg)
+    nd, dms, dgb = transfer_rates(torch, tier, "d2h")
+    nh, hms, hgb = transfer_rates(torch, tier, "h2d")
+    log(f"{what}: prompt {len(prompt)} + {LONG_NEW} new on a chain of "
+        f"{s.cache.extents_needed(len(prompt) + LONG_NEW)} x {S}; demoted extents {missing} mid-decode "
+        f"(parked {parked}); longctx demotes {s.longctx_demotes}, restores {s.longctx_restores}; stream and "
+        f"logits bitwise the run without demotion: {same}; an extent ({S * s.cache.bytes_per_token() / 2**20:.1f} "
+        f"MiB) demoted in {[round(t, 3) for t in times['demote']]} ms, restored in "
+        f"{[round(t, 3) for t in times['restore']]} ms (host clock, synchronized); copies: D2H {dms:.3f} ms "
+        f"= {dgb:.2f} GB/s ({nd}), H2D {hms:.3f} ms = {hgb:.2f} GB/s ({nh}), CUDA events; {card}")
+    check(n >= 1 and parked and missing, f"{what}: nothing was demoted ({n})")
+    check(same, f"{what}: the stream differs from the run without demotion")
+    check(s.longctx_demotes >= 1 and s.longctx_restores >= 1, f"{what}: paging counters")
+    check(not s._parked and not s._ext_parked, f"{what}: rows or entries left parked")
+    check(tier.store.stats()["entries"] == 0, f"{what}: extent pages left in the store")
+    del s
+    torch.cuda.empty_cache()
+
+
+def kv_tier_phase(torch, card, params=None, paging=True):
+    """The hierarchical KV tier on the card (``python3 chip_smoke.py
+    --kv-tier`` runs it alone): gpt2-large int8 at full width and depth
+    (``params``: the fused engine's weights, else a random init from seed 0),
+    the serving phase's configuration with ``hierarchical_kv`` at 4096 MB of
+    host RAM and telemetry on: (a) the host tier (``kv_host_leg``) and the
+    int8-KV gate (``kv_int8_gate``), (b) the NVMe tier (``kv_nvme_leg``);
+    then, with ``paging``, (c) lossless extent paging (``kv_extent_leg``) on
+    a llama3-8b engine built here at 2 layers (the full run runs (c) on the
+    long-context phase's engine instead)."""
+    import shutil
+    import tempfile
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.telemetry import set_sink
+    tel_dir = tempfile.mkdtemp(prefix="kv_tier_telemetry_")
+    cb = {**SERVE_CONFIG["continuous_batching"],
+          "hierarchical_kv": {"enabled": True, "host_capacity_mb": KV_HOST_MB}}
+    config = {**SERVE_CONFIG, "continuous_batching": cb,
+              "telemetry": {"enabled": True, "output_path": tel_dir, "flush_interval": 10**9,
+                            "capacity_sample_every": 10**9}}
+    try:
+        set_sink(None)
+        t0 = time.perf_counter()
+        eng = deepspeed_tpu_torch.init_inference("gpt2-large", config=config, params=params)
+        log(f"kv tier: gpt2-large int8 engine built in {time.perf_counter() - t0:.1f} s "
+            f"({'the fused engine weights' if params is not None else 'random weights, seed 0'})")
+        ref = timed_phase("kv tier: (a) host", kv_host_leg, torch, card, eng)
+        gated = [ref["p2"][i] for i in ref["gated"]]
+        del ref["sched"]
+        eng._scheduler = None
+        torch.cuda.empty_cache()
+        timed_phase("kv tier: (a) int8 KV gate", kv_int8_gate, torch, eng, gated)
+        timed_phase("kv tier: (b) NVMe", kv_nvme_leg, torch, card, eng, ref)
+        eng.telemetry.close()  # before its directory goes
+        del eng, ref
+        torch.cuda.empty_cache()
+        set_sink(None)
+    finally:
+        shutil.rmtree(tel_dir, ignore_errors=True)
+    if paging:
+        from deepspeed_tpu_torch.models import get_model
+        llama = deepspeed_tpu_torch.init_inference(
+            get_model("llama3-8b", num_layers=2),
+            config={"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512})
+        timed_phase("kv tier: (c) extent paging", kv_extent_leg, torch, card, llama)
 
 
 def llama_serving_phase(torch, eng):
@@ -4180,7 +4587,8 @@ def main(argv=()):
     llama3-8b phase (its launch counts, streams and long-context legs with
     their peak device memory); ``--train-features``: build every kernel and
     run only the training-features phase; ``--offload``: build every
-    kernel and run only the offload tiers' phase. Each compares a change
+    kernel and run only the offload tiers' phase; ``--kv-tier``: build every
+    kernel and run only the hierarchical KV tier's phase. Each compares a change
     with its parent in one call: run this file beside each tree's package,
     in turns."""
     import torch
@@ -4229,6 +4637,10 @@ def main(argv=()):
         timed_phase("offload tiers", offload_phase, torch, card)
         log(card)
         return 0
+    if list(argv) == ["--kv-tier"]:
+        timed_phase("kv tier", kv_tier_phase, torch, card)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -4246,6 +4658,9 @@ def main(argv=()):
     # the serving gateway over HTTP on the same weights (its launches are
     # checked and logged there; the kernel rows keep the scheduler's)
     timed_phase("gateway", gateway_phase, torch, card, params)
+    # the hierarchical KV tier on the same weights; its extent-paging leg
+    # runs in the llama3-8b phase, on that engine
+    timed_phase("kv tier", kv_tier_phase, torch, card, params, paging=False)
     del params
     torch.cuda.empty_cache()
     _, unfused_greedy, _, _ = timed_phase("gpt2-large per-projection", gpt2_large_phase, torch, card,
@@ -4257,7 +4672,7 @@ def main(argv=()):
               for f, u in zip(fused_greedy, unfused_greedy)]
     log(f"gpt2-large greedy streams, fused vs per-projection: common prefix per row {prefix} "
         f"of {len(fused_greedy[0])}")
-    long_counts, long_int8_counts = timed_phase("llama3-8b and long context", llama_phase, torch)
+    long_counts, long_int8_counts = timed_phase("llama3-8b and long context", llama_phase, torch, card)
     # the extent modes from the long-context mixed stream and its int8 leg
     for name in ("extent_paged_decode", "extent_paged_span"):
         results[name]["launches"] = long_counts[name]

@@ -45,13 +45,14 @@ class MoEInferenceConfig(DeepSpeedConfigModel):
 
 
 class HierarchicalKVConfig(DeepSpeedConfigModel):
-    """Hierarchical KV tier (``deepspeed_tpu/memory/``): radix-evicted
-    prefix KV demotes to a fleet-global host store (with optional NVMe
+    """Hierarchical KV tier (``memory/kv_tier.py``, ``memory/prefix_store.py``):
+    radix-evicted prefix KV demotes to a host store (with optional NVMe
     spill) instead of being destroyed, and admission restores matched
-    prefixes ahead of chunked prefill — restored decode is bit-identical to
-    a device-resident hit and to cold prefill. The store is shared across
-    all scheduler replicas, so any replica can restore a prefix any other
-    computed. See ``benchmarks/SERVING.md`` ("Hierarchical KV")."""
+    prefixes ahead of chunked prefill; restored decode is bitwise a
+    device-resident hit and a cold prefill. ``engine.scheduler()`` builds
+    one store per engine; a scheduler built with the same
+    ``prefix_store=`` shares it. With it, long-context extent demotion
+    (``demote_cold_extents``) is lossless."""
 
     enabled = ConfigField(default=False)
     host_capacity_mb = ConfigField(default=256, help="host-RAM budget for demoted "
@@ -418,8 +419,6 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
         enabled, since ``engine.scheduler()`` builds from them either way."""
         out = []
         item = "continuous_batching.{} (ROADMAP Queue 1 #{})".format
-        if self.hierarchical_kv.enabled:
-            out.append(item("hierarchical_kv", "8, hierarchical KV tier"))
         if self.multi_lora.enabled:
             out.append(item("multi_lora", "9, multi-LoRA"))
         if self.expert_offload.enabled:

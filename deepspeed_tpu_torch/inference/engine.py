@@ -466,6 +466,14 @@ class InferenceEngine:
                       seq_parallel_min_tokens=lc.seq_parallel_min_tokens,
                       seq_parallel_degree=lc.seq_parallel_degree,
                       allow_lossy_kv=lc.allow_lossy_kv)
+            hk = cb.hierarchical_kv
+            if hk.enabled:
+                # ONE host prefix store per engine
+                from ..memory.prefix_store import GlobalPrefixStore
+                kw["prefix_store"] = GlobalPrefixStore(
+                    capacity_bytes=int(hk.host_capacity_mb) << 20, nvme_path=hk.nvme_path,
+                    telemetry=self.telemetry)
+                kw["restore_min_tokens"] = hk.restore_min_tokens
             kw.update(overrides)
             self._scheduler = DecodeScheduler(self, **kw)
         elif overrides:

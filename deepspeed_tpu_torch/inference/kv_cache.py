@@ -405,8 +405,12 @@ class RadixPrefixCache:
       scheduler can :meth:`SlotKVCache.reclaim` it for admission.
 
     Each registration holds one reference in ``kv.refs``; eviction releases
-    it. The JAX package's per-adapter roots and hierarchical-tier hooks come
-    with multi-LoRA and the host KV tier (ROADMAP Queue 1 #9).
+    it. With the hierarchical KV tier attached (``tier``, a
+    :class:`~deepspeed_tpu_torch.memory.kv_tier.KVTier`), an evicted
+    registration's prefix KV DEMOTES to the host store instead of being
+    destroyed, and :meth:`invalidate_all` drops the host tier too. The JAX
+    package's per-adapter roots (and adapter-scoped host keys) come with
+    multi-LoRA (ROADMAP Queue 1 #9).
     """
 
     def __init__(self, kv):
@@ -420,6 +424,8 @@ class RadixPrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.invalidations = 0  # whole-trie drops (weight swaps)
+        self.tier = None
 
     def _touch(self, slot):
         self._tick += 1
@@ -546,9 +552,54 @@ class RadixPrefixCache:
             return None
         spared = [s for s in candidates if s != prefer_not]
         victim = min(spared or candidates, key=lambda s: self._lru.get(s, 0))
+        if self.tier is not None and len(self._slot_node[victim].slots) == 1:
+            # hierarchical KV: the prefix rows demote to the host tier
+            # BEFORE the registration goes (the key comes from the trie
+            # path). Only the LAST device copy of a key demotes: a sibling
+            # registration at the same node holds the identical key, and
+            # demoting one copy would put the key in both tiers
+            self.tier.demote(victim, self.registered_tokens(victim))
         self.remove(victim)
         self.evictions += 1
         return victim
+
+    def registered_tokens(self, slot):
+        """The full token sequence ``slot`` registered (the trie path's
+        edges concatenated root to registration node), or () when
+        unregistered: the demotion path keys host-tier entries on it, so
+        the trie doubles as the token storage."""
+        node = self._slot_node.get(slot)
+        if node is None:
+            return ()
+        edges = []
+        while node.parent is not None:
+            edges.append(node.edge)
+            node = node.parent
+        out = tuple(t for edge in reversed(edges) for t in edge)
+        assert len(out) == self._slot_len[slot], (slot, len(out))
+        return out
+
+    def invalidate_all(self):
+        """Drop EVERY registration and reclaim every cached slot (the
+        weight-swap path: KV computed under the outgoing weights must never
+        be served against the new ones), and with a tier attached its host
+        entries of the outgoing version too. Registrations of LIVE slots
+        raise (flush in-flight work first). Returns the KV tokens
+        invalidated."""
+        live = [s for s in self._slot_node if self.kv.state[s] == "active"]
+        if live:
+            raise ValueError(f"invalidate_all with live registered slots {live}: flush in-flight "
+                             f"requests before swapping weights")
+        dropped = 0
+        for slot in list(self._slot_node):
+            dropped += int(self.kv.lengths[slot])
+            self.remove(slot)
+            if self.kv.state[slot] == "cached":
+                self.kv.reclaim(slot)
+        if self.tier is not None:
+            dropped += self.tier.invalidate()
+        self.invalidations += 1
+        return dropped
 
     def registered_len(self, slot):
         """Token length of ``slot``'s registered prefix (0 if unregistered)."""
@@ -556,7 +607,9 @@ class RadixPrefixCache:
 
     def check_invariants(self):
         """Pool invariants (:meth:`SlotKVCache.check_invariants`) plus every
-        registration's metadata and reachability from the root."""
+        registration's metadata and reachability from the root, and with a
+        tier attached the one-tier-per-key contract: no prefix is
+        device-registered here AND host-demoted by this same scheduler."""
         self.kv.check_invariants()
         for slot, node in self._slot_node.items():
             if slot not in self._slot_len or slot not in self._slot_version:
@@ -567,6 +620,8 @@ class RadixPrefixCache:
                 node = node.parent
             if node is not self.root:
                 raise AssertionError(f"slot {slot} registration not reachable from the root")
+        if self.tier is not None:
+            self.tier.check_invariants(self)
 
     def registered_slots(self):
         return sorted(self._slot_node)

@@ -85,10 +85,26 @@ in every dispatch that carries extent operands (the fused kernels walk no
 extents), the per-projection ``apply_with_cache``. Both write and read the
 same pool.
 
+**Hierarchical KV tier** (``prefix_store=``, built by ``engine.scheduler()``
+from the ``hierarchical_kv`` config section): a radix eviction DEMOTES the
+victim's prefix KV to the host prefix store
+(:class:`~deepspeed_tpu_torch.memory.kv_tier.KVTier`, spilling to NVMe
+past its RAM budget) instead of destroying it; admission probes the store
+beside the trie and restores a host match that beats the device match,
+rounded and capped exactly as a device hit is, so restored == device hit
+== cold prefill bitwise. A submit-time probe starts the NVMe read of a
+spilled match. With the tier, ``demote_cold_extents`` is lossless: a live
+chained request's cold extents page to the store and the row is PARKED
+(left out of every dispatch) until the paging pump at the top of
+:meth:`step` has restored them all.
+
 **Telemetry** (the engine's sink, ``telemetry/``): the JAX scheduler's
 counters, gauges and histograms (``serving/admitted``, ``decode_steps``,
 ``decode_tokens``, ``step_ms``, ``ttft_ms``, ``queue_depth``, prefix-cache
-hits, cancellations, ...), a ``sched/step`` span per iteration with flow
+hits, cancellations, the tier's ``prefix_cache_{demote,restore,
+restore_tokens,spill}`` and ``longctx_{demote,restore}_tokens`` counters
+and ``kv_host_tier_bytes`` / ``kv_tier_hit_rate`` gauges, ...), a
+``sched/step`` span per iteration with flow
 links to the phases of the requests it served (``submit(trace=...)``: a
 :class:`~deepspeed_tpu_torch.telemetry.tracing.RequestTrace`), the capacity
 meter (every ``capacity_sample_every``-th sync drains the device before its
@@ -103,9 +119,9 @@ blocks on the device. With the sink disabled every hook is one attribute
 test: nothing is allocated and nothing fenced.
 
 Not ported, each raising naming its ROADMAP item: sharding the seq-parallel
-prefill across devices (#7), the hierarchical KV tier and with it lossless
-extent demotion (#8), multi-LoRA, cold-expert offload, disaggregation, the
-weight-swap protocol and migration (#9, RLHF and disaggregated serving).
+prefill across devices (#7), multi-LoRA, cold-expert offload,
+disaggregation, the weight-swap protocol and migration (#9, RLHF and
+disaggregated serving).
 """
 
 import collections
@@ -117,6 +133,11 @@ import torch
 from .kv_cache import RadixPrefixCache, SlotKVCache, copy_slot, slot_slice
 from .speculative import PromptLookupDrafter
 from ..utils.counter_hash import GOLDEN, M32, mix32, mulmod32
+
+# host-store namespace of mid-decode extent demotion: a parked extent's
+# entry keys as (_EXT_NS, rid, extent index), a negative sentinel no prompt
+# can collide with; the entries are pinned and held by their scheduler
+_EXT_NS = -0x10C7E57
 
 
 def _round_up(x, m):
@@ -269,7 +290,11 @@ class DecodeScheduler:
     the per-slot KV capacity (one extent). Requests whose ``prompt +
     max_new_tokens`` (rounded up to ``steps_per_sync``) exceed ``max_len x
     max_extents`` are rejected at submit. ``prefix_cache`` retains finished
-    prefixes for cross-request KV reuse. ``max_extents``,
+    prefixes for cross-request KV reuse; ``prefix_store`` (a
+    :class:`~deepspeed_tpu_torch.memory.prefix_store.GlobalPrefixStore`,
+    which several schedulers may share) turns on the hierarchical KV tier
+    in the chunked radix mode, with ``restore_min_tokens`` its
+    restore-vs-recompute threshold. ``max_extents``,
     ``seq_parallel_min_tokens``, ``seq_parallel_degree`` and
     ``allow_lossy_kv`` are the ``long_context`` section's (see the module
     docstring). ``prefill_chunk=0`` selects the monolithic prefill, bucketed
@@ -282,8 +307,8 @@ class DecodeScheduler:
     def __init__(self, engine, num_slots=8, max_len=None, prefill_bucket=64, collect_logits=False,
                  steps_per_sync=4, prefill_chunk=64, prefix_cache=True, spec_tokens=0,
                  spec_ngram_max=3, spec_ngram_min=1, kv_cache_dtype="auto", prefix_store=None,
-                 adapter_store=None, expert_store=None, max_extents=1, seq_parallel_min_tokens=0,
-                 seq_parallel_degree=0, allow_lossy_kv=False):
+                 restore_min_tokens=0, adapter_store=None, expert_store=None, max_extents=1,
+                 seq_parallel_min_tokens=0, seq_parallel_degree=0, allow_lossy_kv=False):
         me = max(1, int(max_extents))
         if me > 1 and int(prefill_chunk) <= 0:
             raise ValueError("long_context.max_extents > 1 requires chunked prefill "
@@ -293,8 +318,6 @@ class DecodeScheduler:
             raise ValueError("seq_parallel_min_tokens > 0 requires chunked prefill "
                              "(prefill_chunk > 0): sequence parallelism shards the chunked "
                              "path's wide prefill forwards")
-        if prefix_store is not None:
-            raise _unported("the hierarchical KV tier", "ROADMAP Queue 1 #8, hierarchical KV tier")
         if adapter_store is not None:
             raise _unported("multi-LoRA serving", "ROADMAP Queue 1 #9, multi-LoRA")
         if expert_store is not None:
@@ -375,6 +398,14 @@ class DecodeScheduler:
         # path's chunk boundaries)
         self.radix = (RadixPrefixCache(self.cache)
                       if prefix_cache and self.prefill_chunk > 0 else None)
+        # hierarchical KV tier: radix eviction demotes to the shared host
+        # store and admission restores from it (chunked radix mode only:
+        # a restore replays the device hit's chunk boundaries)
+        self.kv_tier = None
+        if prefix_store is not None and self.radix is not None:
+            from ..memory.kv_tier import KVTier
+            self.kv_tier = KVTier(self, prefix_store, min_restore_tokens=restore_min_tokens)
+            self.radix.tier = self.kv_tier
         # the fused decode-layer kernels serve the step when the engine's
         # gate admits the config (the JAX scheduler's `fused_block` programs)
         if hasattr(engine.model_config, "int8_weights"):
@@ -385,8 +416,12 @@ class DecodeScheduler:
             self._fused_block = False
             self._fused_block_reasons = ["model family without fused decode-block support"]
         self._prefill = None  # at most one in-flight _PrefillState
-        # extents dropped by lossy windows; restores come with the host KV
-        # tier (ROADMAP Queue 1 #8), which lossless demotion needs
+        # long-context paging: slots whose chained extents are (partly)
+        # host-demoted sit in _parked, left out of every dispatch until the
+        # paging pump restores them; their pinned store entries park in
+        # _ext_parked keyed (rid, extent index)
+        self._parked = set()
+        self._ext_parked = {}
         self.longctx_demotes = 0
         self.longctx_restores = 0
         self.queue = collections.deque()
@@ -503,6 +538,10 @@ class DecodeScheduler:
         req.row_budget = int(budget)
         handle = SchedulerHandle(self, req)
         self.queue.append(req)
+        if self.kv_tier is not None:
+            # look-ahead: an NVMe-spilled host match starts its disk read
+            # now, overlapping the queue wait (admission's restore joins it)
+            self.kv_tier.prefetch(req.prompt)
         if self.telemetry.enabled:
             self.telemetry.gauge("serving/queue_depth", len(self.queue))
         return handle
@@ -543,9 +582,11 @@ class DecodeScheduler:
             self._sync_seq += 1
             self._cap_sample = self.capacity.should_sample(self._sync_seq)
         self._reap_cancelled()
-        if self.cache.chain:
-            # extent paging, before admission: lossy rows drop extents that
-            # slid out of their window, freeing rows for this admission
+        if self._parked or self.cache.chain:
+            # extent paging, before admission: parked rows restore their
+            # demoted extents (a freed row un-parks a live request before
+            # new work is admitted), lossy rows drop extents that slid out
+            # of their window
             self._service_long_context()
         while self.queue and self.queue[0].cancelled:
             self.queue.popleft().done = True
@@ -578,6 +619,13 @@ class DecodeScheduler:
             kind = "fused"
             n, ksteps = self._fused_chunk_step()
         elif self.active:
+            if self._parked and all(s in self._parked for s in self.active):
+                # nothing can dispatch and nothing can free a row: every live
+                # request waits on a restore that needs a free row
+                self._iter_links = None
+                raise RuntimeError("long-context paging deadlock: every live request is parked "
+                                   "on demoted extents and no free pool row exists to restore "
+                                   "into; demote fewer extents or leave slot headroom")
             kind = "spec" if self.drafter is not None else "decode"
             n, ksteps = self._spec_decode_step() if self.drafter is not None else self._decode_step()
         else:
@@ -668,6 +716,18 @@ class DecodeScheduler:
         else:
             self.cache.free(slot)
 
+    def _drop_parked(self, slot, req):
+        """Forget a departing request's extent-paging state: the slot leaves
+        the parked set and its host-parked extent entries are discarded
+        (a finished or cancelled request's demoted KV dies with it)."""
+        if not self._parked and not self._ext_parked:
+            return
+        self._parked.discard(slot)
+        for key in [k for k in self._ext_parked if k[0] == req.rid]:
+            del self._ext_parked[key]
+            if self.kv_tier is not None:
+                self.kv_tier.store.discard((_EXT_NS, req.rid, key[1]))
+
     def _reap_cancelled(self):
         """Evict slots whose requests were cancelled. Runs only from step(),
         so eviction never races a dispatch."""
@@ -677,6 +737,7 @@ class DecodeScheduler:
                 req.done = True
                 del self.active[slot]
                 self._release_slot(slot)
+                self._drop_parked(slot, req)
                 if tel.enabled:
                     tel.counter("serving/cancelled")
                 if req.trace is not None:
@@ -736,44 +797,63 @@ class DecodeScheduler:
         return tuple(torch.from_numpy(a).to(self.device) for a in (ext, wslot, base, sinks, wins))
 
     def demote_cold_extents(self, slot, keep_recent=1):
-        """Drop a live multi-extent request's COLD extents from the pool.
+        """Page a live multi-extent request's COLD extents out of the pool.
         Extent 0 (the attention-sink prefix, pinned) and the write extent
         (plus ``keep_recent - 1`` extents before it) stay resident; extents
-        past the write head hold nothing and are skipped. Only a lossy
-        request (``kv_window``) may demote: its sliding-window mask already
-        hides every position the dropped rows held. The lossless mode pages
-        the extents to the host KV tier and restores them before the next
-        dispatch that needs them; that tier is not ported, so it raises.
-        Returns the number of extents demoted."""
+        past the write head hold nothing and are skipped. Lossless (no
+        ``kv_window`` on the request): each demoted extent is copied to the
+        hierarchical KV tier and the row is PARKED, skipping every dispatch
+        until :meth:`step`'s paging pump has restored them all, so the
+        stream stays bitwise the same; without the tier this raises. A lossy
+        request (``kv_window``) drops the rows outright: its sliding-window
+        mask already hides every position they held. Returns the number of
+        extents demoted."""
         req = self.active.get(slot)
         if req is None:
             raise ValueError(f"slot {slot} is not a live decode row")
         members = self.cache.extents(slot)
         if len(members) <= 1:
             return 0
-        if req.kv_window is None:
+        lossy = req.kv_window is not None
+        if not lossy and self.kv_tier is None:
             raise ValueError("lossless extent demotion requires the hierarchical KV tier "
                              "(continuous_batching.hierarchical_kv) for the host-side copy; "
                              "enable it, or submit the request with kv_window for the lossy "
-                             "sliding-window mode (the port has no KV tier yet: ROADMAP Queue 1 "
-                             "#8, hierarchical KV tier)")
+                             "sliding-window mode")
         S = self.max_len
+        tel = self.telemetry
         w = min(int(self.cache.lengths[slot]) // S, len(members) - 1)
         keep = {max(0, w - i) for i in range(max(1, int(keep_recent)))}
         demoted = 0
         for idx in range(1, len(members)):
             if idx in keep or idx > w or members[idx] < 0:
                 continue
+            if not lossy:
+                # the rows go to fresh memory first: the cache-level demote
+                # frees the pool row
+                self._ext_parked[(req.rid, idx)] = self.kv_tier.demote_extent(
+                    members[idx], (_EXT_NS, req.rid, idx))
             self.cache.demote_extent(slot, idx)
             demoted += 1
             self.longctx_demotes += 1
+            if tel.enabled:
+                tel.counter("serving/longctx_demote_tokens", S)
+            if self.capacity is not None and not lossy:
+                # paging traffic, not tokens
+                self.capacity.account(0, wasted_bytes=S * self.cache.bytes_per_token())
+        if demoted and not lossy:
+            self._parked.add(slot)
         return demoted
 
     def _service_long_context(self):
         """Extent paging, once per scheduler iteration: lossy rows
         (``kv_window``) drop every extent that has slid entirely out of their
         attention sink and recent window (the window's trailing edge only
-        advances, so a dropped extent is never needed again)."""
+        advances, so a dropped extent is never needed again); parked rows
+        (lossless :meth:`demote_cold_extents`) restore every missing extent
+        into free pool rows, evicting LRU radix prefixes under pressure,
+        and rejoin the batch once the last one lands."""
+        tel = self.telemetry
         S = self.max_len
         for slot, req in list(self.active.items()):
             if req.kv_window is None or slot not in self.cache.chain:
@@ -785,6 +865,45 @@ class DecodeScheduler:
                 if members[idx] >= 0 and idx * S >= sink and (idx + 1) * S <= length - recent:
                     self.cache.demote_extent(slot, idx)
                     self.longctx_demotes += 1
+                    if tel.enabled:
+                        tel.counter("serving/longctx_demote_tokens", S)
+        for slot in sorted(self._parked):
+            req = self.active.get(slot)
+            if req is None or req.cancelled:
+                continue  # _reap_cancelled owns the teardown
+            restored_all = True
+            for idx in self.cache.missing_extents(slot):
+                row = self.cache.restore_extent(slot, idx)
+                while row is None and self.radix is not None:
+                    victim = self.radix.evict_lru()
+                    if victim is None:
+                        break
+                    self.cache.reclaim(victim)
+                    if tel.enabled:
+                        tel.counter("serving/prefix_cache_evict")
+                    row = self.cache.restore_extent(slot, idx)
+                if row is None:
+                    restored_all = False  # free list dry: retry next iteration
+                    break
+                entry = self._ext_parked.pop((req.rid, idx), None)
+                if entry is None:
+                    raise RuntimeError("long-context paging invariant violated: a demoted extent "
+                                       "has no parked host entry to restore from")
+                t0 = time.perf_counter() if self._gap is not None else 0.0
+                ok = self.kv_tier.restore_extent(entry, row)
+                if self._gap is not None:
+                    self._gap.add("tier_transfer", time.perf_counter() - t0)
+                if not ok:
+                    raise RuntimeError("long-context paging invariant violated: a parked extent "
+                                       "entry vanished from the host store while its request "
+                                       "was live")
+                self.longctx_restores += 1
+                if tel.enabled:
+                    tel.counter("serving/longctx_restore_tokens", S)
+                if self.capacity is not None:
+                    self.capacity.account(0, wasted_bytes=S * self.cache.bytes_per_token())
+            if restored_all:
+                self._parked.discard(slot)
 
     # ------------------------------------------------------------------ admit
     def _acquire_slot(self, req):
@@ -853,7 +972,29 @@ class DecodeScheduler:
             # admission: then it IS our slot, its rows still resident
             if donor is None or not (donor == slot or donor in self.radix._slot_node):
                 m = 0
-            if m > 0:
+            # hierarchical KV: a host match restores when it beats the device
+            # match, rounded and capped as the device hit is, so restored ==
+            # device hit == cold run the same chunk boundaries
+            hm, entry, restored = 0, None, False
+            if self.kv_tier is not None:
+                tier_t0 = time.perf_counter() if self._gap is not None else 0.0
+                hm, entry = self.kv_tier.probe(req.prompt)
+                hm = min(hm, req.prompt.size - 1)
+                hm = (hm // self.prefill_chunk) * self.prefill_chunk
+                if entry is not None and hm > m and hm >= max(self.prefill_chunk,
+                                                              self.kv_tier.min_restore_tokens):
+                    restored = self.kv_tier.restore(entry, slot, hm, req.prompt.size)
+                if self._gap is not None:
+                    # the probe and restore ran inside the admission region
+                    # step() stamps: re-file their share
+                    self._gap.add("tier_transfer", time.perf_counter() - tier_t0,
+                                  steal_from="admission")
+            if restored:
+                pos = hm
+                if tel.enabled:
+                    tel.counter("serving/prefix_cache_restore")
+                    tel.counter("serving/prefix_cache_restore_tokens", hm)
+            elif m > 0:
                 if donor != slot:
                     copy_slot(self.cache.pool, donor, slot)
                 pos = m
@@ -868,9 +1009,11 @@ class DecodeScheduler:
                     tel.counter("serving/prefix_cache_miss")
             if tel.enabled:
                 tel.gauge("serving/prefix_cache_hit_rate", self.radix.hit_rate())
+                if self.kv_tier is not None:
+                    tel.gauge("serving/kv_tier_hit_rate", self.kv_tier.hit_rate(self.radix))
             if tr is not None and tr.enabled:
                 tr.phase("prefix_probe", start=probe_t0, slot=slot, cached_tokens=pos,
-                         prompt=int(req.prompt.size))
+                         prompt=int(req.prompt.size), **({"restored": True} if restored else {}))
         self.cache.lengths[slot] = pos
         pf = _PrefillState(req, pos)
         pf.seq_parallel = bool(self._seq_chunk and req.prompt.size >= self.seq_parallel_min_tokens)
@@ -948,6 +1091,11 @@ class DecodeScheduler:
         self._prefill = None
         self.active[req.slot] = req
         if self.radix is not None and req.slot not in self.cache.chain:
+            if self.kv_tier is not None:
+                # a cold or device-hit prefill supersedes this scheduler's own
+                # host copy of the same prompt (a restore consumes it; a match
+                # rounded below a chunk or beaten by the device leaves it)
+                self.kv_tier.discard_exact(req.prompt)
             self.radix.insert(req.slot, req.prompt)
         req.first_token_ts = time.perf_counter()
         ttft_ms = (req.first_token_ts - req.submit_ts) * 1e3
@@ -975,6 +1123,7 @@ class DecodeScheduler:
             if req.slot in self.active:
                 del self.active[req.slot]
             self._release_slot(req.slot)
+            self._drop_parked(req.slot, req)
             self.evicted += 1
             if self.telemetry.enabled:
                 self.telemetry.counter("serving/evicted")
@@ -1138,7 +1287,7 @@ class DecodeScheduler:
         span 1. Dead and cached rows carry span 0 and length 0: their
         writes are dropped and their windows are empty."""
         N = self.cache.num_slots
-        live = sorted(self.active.items())
+        live = [(s, r) for s, r in sorted(self.active.items()) if s not in self._parked]
         ids = np.zeros((N, 1), np.int64)
         spans = np.zeros(N, np.int64)
         lens = np.zeros(N, np.int64)
@@ -1194,7 +1343,7 @@ class DecodeScheduler:
         sync instead; both give the same bits. Returns (tokens delivered,
         1)."""
         N, W = self.cache.num_slots, self._spec_width
-        live = sorted(self.active.items())
+        live = [(s, r) for s, r in sorted(self.active.items()) if s not in self._parked]
         if any(s in self.cache.chain or r.kv_window is not None for s, r in live):
             return self._decode_step()
         drafts, total = {}, 0
@@ -1269,7 +1418,7 @@ class DecodeScheduler:
         ids = np.zeros((N, C), np.int64)
         spans = np.zeros(N, np.int64)
         lens = np.zeros(N, np.int64)
-        live = sorted(self.active.items())
+        live = [(s, r) for s, r in sorted(self.active.items()) if s not in self._parked]
         samp, sampling, collect = self._gather_sampling(live)
         for slot, req in live:
             ids[slot, 0] = req.out[-1]

@@ -30,7 +30,11 @@ class serves both.
 Accounting (the JAX contract): DISPATCH is wall time issuing puts, REALIZED
 the busy-interval union of fenced transfer spans (k overlapping transfers
 count each wall second once), WAIT main-thread blocked time;
-``overlap_efficiency = 1 - exposed_wait / realized_transfer``.
+``overlap_efficiency = 1 - exposed_wait / realized_transfer``. With
+``time_transfers`` set on the card, every put and fetch also records a
+pair of timing events around its copies on the copy stream, appended to
+``transfer_events`` as ``(kind, bytes, start, end)`` (kind ``"h2d"`` or
+``"d2h"``) for the caller to read once they have completed.
 """
 
 import threading
@@ -72,6 +76,8 @@ class LayerStreamExecutor:
         self._stage_gen = {}     # (name, key) -> generation last written
         self._gen = 0
         self._lock = threading.Lock()
+        self.time_transfers = False
+        self.transfer_events = []  # (kind, bytes, start, end) while time_transfers
         self.reset_stats()
 
     def reset_stats(self):
@@ -132,9 +138,12 @@ class LayerStreamExecutor:
             val, ev = self._dispatch(name), None
         else:
             with torch.cuda.stream(self._h2d):
+                start = self._timing_start(self._h2d)
                 val = self._dispatch(name)
-                ev = torch.cuda.Event()
+                ev = torch.cuda.Event(enable_timing=start is not None)
                 ev.record(self._h2d)
+            if start is not None:
+                self.transfer_events.append(("h2d", sum(t.nbytes for t in val.values()), start, ev))
         self._bump("put_dispatch_s", time.perf_counter() - t0)
         self._put_events[name] = ev
 
@@ -203,11 +212,23 @@ class LayerStreamExecutor:
             return None
         self._d2h.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._d2h):
+            start = self._timing_start(self._d2h)
             for dst, src in pairs:
                 dst.copy_(src, non_blocking=True)
                 src.record_stream(self._d2h)
-            ev = torch.cuda.Event()
+            ev = torch.cuda.Event(enable_timing=start is not None)
             ev.record(self._d2h)
+        if start is not None:
+            self.transfer_events.append(("d2h", sum(s.nbytes for _, s in pairs), start, ev))
+        return ev
+
+    def _timing_start(self, stream):
+        """A timing event recorded on ``stream`` now, or None when
+        ``time_transfers`` is off."""
+        if not self.time_transfers:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
         return ev
 
     def timed_fetch(self, event):

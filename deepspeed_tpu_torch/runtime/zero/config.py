@@ -2,9 +2,10 @@
 
 Port of ``deepspeed_tpu/runtime/zero/config.py`` (analogue of the reference
 ``deepspeed/runtime/zero/config.py`` and ``offload_config.py:94``). Same
-JSON keys, all parsed. The port's engine trains at stage 0 only: a higher
-stage raises naming ROADMAP Queue 1 #7 (distributed runtime) and any
-offload device naming Queue 1 #8 (offload and memory tiers).
+JSON keys, all parsed. The port's engine trains at stage 0, with
+ZeRO-Offload's optimizer tiers (cpu, nvme) and stage 3's parameter
+stream (``offload_param``); a higher stage without ``offload_param``
+raises naming ROADMAP Queue 1 #7 (distributed runtime).
 """
 
 from ..config_utils import DeepSpeedConfigModel, ConfigField

@@ -48,11 +48,14 @@ stdlib only (``asyncio`` + hand-rolled HTTP/1.1):
   every admitted request, flushes telemetry and closes the server;
   ``drain_timeout_s`` bounds the grace.
 
+``POST /v1/debug/flush_radix`` evicts the replica's whole radix trie
+through the hierarchical KV tier on the pump thread (each eviction demotes
+to the host store) and answers once the demotes are probe-visible.
+
 Not ported, each answering 404 (or raising) naming ROADMAP Queue 1 #9:
 more than one replica, the elastic autoscaler (``/v1/autoscaler``), the
 multi-host router's worker hooks (``/v1/store/fetch``), migration resumes
-(a completion body's ``resume``) and phase roles; ``/v1/debug/flush_radix``
-needs the KV tier (#8).
+(a completion body's ``resume``) and phase roles.
 
 Threading: the asyncio event loop owns sockets and parsing; one pump
 thread owns every call into the scheduler (submit/step/cancel). Tokens
@@ -182,6 +185,7 @@ class Gateway:
         self._rid_lock = threading.Lock()
         self._tenant_labels = set()          # tenants with their own counter
         self._wake = threading.Event()       # pump wakeup
+        self._flush_radix_pending = False    # set by /v1/debug/flush_radix
         self._active = set()                 # admitted, unfinished _GatewayRequests
         self._ema_service_s = None           # EMA of request wall time
         # admission (fair-queue pop + placement) and terminal accounting
@@ -334,6 +338,8 @@ class Gateway:
                 self._enforce_cancellations()
                 self._admit()
             try:
+                if self._flush_radix_pending:
+                    self._flush_radix(rep)  # only the pump touches the trie
                 if not rep.idle():
                     rep.step()
             except Exception:  # noqa: BLE001 — fail requests, not the server
@@ -494,6 +500,24 @@ class Gateway:
             if greq.cancel_requested and greq.handle is not None:
                 greq.handle.cancel()
 
+    def _flush_radix(self, rep):
+        """Evict ``rep``'s whole radix trie through the KV tier (each
+        eviction demotes to the host store), then join the async demote
+        fetches so the entries are probe-visible before the endpoint
+        answers. Runs on the pump thread."""
+        sched = rep.scheduler
+        try:
+            if sched.radix is not None:
+                while True:
+                    victim = sched.radix.evict_lru()
+                    if victim is None:
+                        break
+                    sched.cache.reclaim(victim)
+            if sched.kv_tier is not None:
+                sched.kv_tier.executor.drain_fetches()
+        finally:
+            self._flush_radix_pending = False
+
     def _settle_done(self):
         """Cancelled requests finish through the scheduler's reap (done
         without a final on_token): confirm the terminal state to the HTTP
@@ -637,13 +661,21 @@ class Gateway:
             await self._replica_admin(path, writer)
         elif method == "POST" and path == "/v1/completions":
             await self._completions(headers, body, reader, writer)
-        elif path in ("/v1/autoscaler", "/v1/store/fetch", "/v1/debug/flush_radix"):
+        elif method == "POST" and path == "/v1/debug/flush_radix":
+            # force-demote the radix trie through the KV tier; the pump
+            # flushes its own scheduler and the endpoint waits for it
+            self._flush_radix_pending = self.replicas.replicas[0].scheduler.radix is not None
+            self._wake.set()
+            for _ in range(600):
+                if not self._flush_radix_pending:
+                    break
+                await asyncio.sleep(0.05)
+            await self._json(writer, 200, {"flushed": not self._flush_radix_pending})
+        elif path in ("/v1/autoscaler", "/v1/store/fetch"):
             what = {"/v1/autoscaler": "the elastic autoscaler",
-                    "/v1/store/fetch": "the multi-host router's networked store",
-                    "/v1/debug/flush_radix": "the KV tier's radix flush"}[path]
-            item = "ROADMAP Queue 1 #8" if path.endswith("flush_radix") else _ITEM9
+                    "/v1/store/fetch": "the multi-host router's networked store"}[path]
             await self._json(writer, 404, {"error": {"message": f"deepspeed_tpu_torch does not "
-                                                     f"serve {what} yet ({item})"}})
+                                                     f"serve {what} yet ({_ITEM9})"}})
         else:
             await self._json(writer, 404, {"error": {"message": f"no route {method} {path}"}})
 

@@ -124,6 +124,9 @@ class Replica:
             "ema_service_s": self.ema_service_s,
             "prefix_cache_hit_rate": (round(s.radix.hit_rate(), 4)
                                       if s.radix is not None else None),
+            # hierarchical KV tier: this scheduler's demote/restore counts
+            # and the host store's residency (memory/kv_tier.py)
+            "kv_tier": s.kv_tier.stats() if s.kv_tier is not None else None,
         }
 
 

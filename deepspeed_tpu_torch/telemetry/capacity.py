@@ -30,7 +30,8 @@ disabled path allocates nothing):
   / sampling-host / on_token sections into it and the tracker emits the
   ``serving/host_gap_ms`` histogram and ``serving/host_gap/<bucket>_ms``
   counters that sum to the measured gap exactly (the residue lands in
-  ``other``). The port has no KV tier, so ``tier_transfer`` stays 0.
+  ``other``); the hierarchical KV tier's probe, restore and extent
+  paging file under ``tier_transfer``.
 """
 
 # host-gap attribution buckets, in emission order. "other" is the residue

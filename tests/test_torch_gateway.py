@@ -567,8 +567,9 @@ def test_prometheus_exposition_and_capacity_gauges(tmp_path):
 def test_slo_endpoint_debug_flight_and_profile(tmp_path):
     """/v1/slo serves the default serving slate; /v1/debug/flight writes a
     dump; /v1/debug/profile starts a torch.profiler capture and answers 409
-    while it runs; the autoscaler, the router's store and the radix flush
-    answer 404 naming their ROADMAP items."""
+    while it runs; the autoscaler and the router's store answer 404 naming
+    their ROADMAP item; the radix flush answers 200 once the trie is
+    evicted."""
     gw = start_gateway(telemetry=_tel(tmp_path))
     try:
         status, _, body = get(gw.port, "/v1/slo")
@@ -593,10 +594,18 @@ def test_slo_endpoint_debug_flight_and_profile(tmp_path):
             assert conn.getresponse().status == 409
         finally:
             conn.close()
-        for path, item in (("/v1/autoscaler", "#9"), ("/v1/store/fetch", "#9"),
-                           ("/v1/debug/flush_radix", "#8")):
+        for path in ("/v1/autoscaler", "/v1/store/fetch"):
             status, _, body = get(gw.port, path)
-            assert status == 404 and f"Queue 1 {item}" in json.loads(body)["error"]["message"]
+            assert status == 404 and "Queue 1 #9" in json.loads(body)["error"]["message"]
+        # the radix flush is served: it evicts the trie on the pump thread
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=60)
+        try:
+            conn.request("POST", "/v1/debug/flush_radix", b"{}")
+            resp = conn.getresponse()
+            assert resp.status == 200 and json.loads(resp.read()) == {"flushed": True}
+        finally:
+            conn.close()
+        assert not gw.replicas.replicas[0].scheduler.radix.registered_slots()
     finally:
         assert close(gw)  # close() stops the capture and waits for its export
     assert os.path.exists(dump_path)

@@ -63,6 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.checkpoint", "deepspeed_tpu_torch.checkpoint.zero_checkpoint",
             "deepspeed_tpu_torch.ops.adam", "deepspeed_tpu_torch.ops.adam.cpu_adam", "deepspeed_tpu_torch.ops.aio",
             "deepspeed_tpu_torch.memory", "deepspeed_tpu_torch.memory.streams",
+            "deepspeed_tpu_torch.memory.prefix_store", "deepspeed_tpu_torch.memory.kv_tier",
+            "deepspeed_tpu_torch.memory.net_store",
             "deepspeed_tpu_torch.runtime.swap_tensor", "deepspeed_tpu_torch.runtime.swap_tensor.aio_config",
             "deepspeed_tpu_torch.runtime.swap_tensor.read_window",
             "deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper",

@@ -234,8 +234,8 @@ def test_mixed_stream_k_invariant_with_chains():
 
 def test_lossless_demote_requires_kv_tier(port_single):
     """Without the hierarchical tier there is nowhere to park a lossless
-    extent: demote_cold_extents refuses (naming the ROADMAP item) and
-    leaves the row intact."""
+    extent: demote_cold_extents refuses (naming the config section that
+    turns the tier on) and leaves the row intact."""
     s = _port().scheduler(max_len=32, prefill_chunk=16, max_extents=4)
     h = s.submit(PROMPT, max_new_tokens=24)
     while not s.active:
@@ -243,7 +243,7 @@ def test_lossless_demote_requires_kv_tier(port_single):
     slot = next(iter(s.active))
     while int(s.cache.lengths[slot]) < 65:
         s.step()
-    with pytest.raises(ValueError, match="hierarchical.*Queue 1 #8"):
+    with pytest.raises(ValueError, match="hierarchical_kv"):
         s.demote_cold_extents(slot, keep_recent=0)
     np.testing.assert_array_equal(h.result(), port_single[0][0])
 
