@@ -124,6 +124,28 @@ Phases (any failure ends the run with a non-zero exit):
    1, seq 2048: the same kernel-vs-plain micro-step check, then 3 steps:
    GQA g=4, D=128, RoPE, RMSNorm and SwiGLU through the backward kernels;
    finite losses and exact launch counts;
+8a. mixtral-8x7b (``moe_phase``; ``python3 chip_smoke.py --moe`` runs it
+   alone), full width (8 experts of 4096 x 14336, top 2), depth cut to 2
+   of 32 layers (host set-up, device memory), seeded random weights made
+   on the card: (a) ``comm`` on an NCCL group of world 1 and
+   ``initialize_mesh(expert=1)``, every collective returning its input on
+   cuda, the group destroyed; (b) int8 serving through the per-projection
+   path (the fused gate refuses MoE, the JAX engine's reason): greedy
+   ``generate()`` B 4, prompt 128, 32 new, twice bitwise, then sampled
+   twice bitwise, exact launch counts, prefill, decode-step and slot-pool
+   step logits kernels vs plain within 5e-2 relative L2 on a view routing
+   every token to all 8 experts (a top-2 routing flip changes a token
+   wholly; the top-2 comparison is logged), routed counts
+   summing to top-2 x the live columns, the steady decode step and its
+   device time split (experts, attention, the rest), a 4-slot stream of 8
+   requests (16-200 tokens, 32 new) with exact launch counts, tokens/s and
+   TTFT, each stream bitwise its solo run and beside generate()'s row,
+   peak memory and set-up time; (c) bf16 training, ``initialize`` ->
+   ``train_batch`` (AdamW, fp32 masters, clip 1.0, micro 1, seq 2048): the
+   first micro-step's loss and grad norm kernels vs plain within
+   ``MOE_LOSS_REL`` / ``MOE_NORM_REL``, 3 steps with finite losses and grad
+   norms, exact flash launches, step ms, peak memory, the aux loss and the
+   drop fractions;
 8b. the training engine's features (``train_features_phase``; ``python3
    chip_smoke.py --train-features`` runs it alone): gpt2-large at full
    width and depth, bench.py's config, through ``initialize`` ->
@@ -275,6 +297,9 @@ QMM_GPT2 = [("qkv", 1280, 3840), ("o", 1280, 1280), ("up", 1280, 5120), ("down",
             ("head", 1280, 51200)]
 QMM_LLAMA = [("llama qkv", 4096, 6144), ("llama o", 4096, 4096), ("llama up", 4096, 14336),
              ("llama down", 14336, 4096), ("llama head", 4096, 129024)]
+# mixtral-8x7b's int8 head, vocab 32000 padded to 32768: at its decode
+# (M = B = 4) and its scheduler's chunk step (4 slots x 64 columns)
+QMM_MIXTRAL_HEAD = ("mixtral head", 4096, 32768)
 # the rows whose bits must not depend on M: every tile edge of the kernel
 QMM_INVARIANT_M = (1, 8, 16, 32, 33, 64, 65, 512, 1024)
 
@@ -283,11 +308,14 @@ def qmm_cases(torch, gen, dev):
     """gpt2-large's projections (int8, group 128) and int8 head, at decode
     (M = B = 8) and prefill (M = B*P = 1024), the int8 head at the
     scheduler's chunk step (M = 8 slots x 64 columns), llama3-8b's at
-    M = 1024 (a long-context chunk of 16 slots x 64), and a ragged M of
-    1000 and M = 64 (a tile edge) at gpt2-large's up projection."""
+    M = 1024 (a long-context chunk of 16 slots x 64), a ragged M of
+    1000 and M = 64 (a tile edge) at gpt2-large's up projection, and
+    mixtral-8x7b's int8 head at its decode (M = 4) and chunk step (M =
+    256)."""
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     cases = ([(M, *sh) for M in (8, 1024) for sh in QMM_GPT2] + [(CHUNK_M, "head", 1280, 51200)]
-             + [(1024, *sh) for sh in QMM_LLAMA] + [(1000, "up", 1280, 5120), (64, "up", 1280, 5120)])
+             + [(1024, *sh) for sh in QMM_LLAMA] + [(1000, "up", 1280, 5120), (64, "up", 1280, 5120)]
+             + [(M, *QMM_MIXTRAL_HEAD) for M in (MOE_B, MOE_SLOTS * 64)])
     for M, proj, K, N in cases:
         G = K // 128
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -295,7 +323,8 @@ def qmm_cases(torch, gen, dev):
         sc = torch.rand((G, N), generator=gen, device=dev) * 0.01 + 1e-4
         w_deq = (qw.float().reshape(G, K // G, N) * sc[:, None, :]).reshape(K, N).to(torch.bfloat16)
         nbytes = M * K * 2 + K * N + G * N * 4 + M * N * 2
-        kind = {8: "decode", 1024: "prefill", CHUNK_M: "chunk step"}.get(M, "ragged")
+        kind = {8: "decode", 1024: "prefill", CHUNK_M: "chunk step", MOE_B: "decode",
+                MOE_SLOTS * 64: "chunk step"}.get(M, "ragged")
         yield (f"{kind} {proj} M={M} K={K} N={N}",
                lambda x=x, qw=qw, sc=sc: quant_matmul(x, qw, sc),
                lambda x=x, qw=qw, sc=sc: quant_matmul_plain(x, qw, sc),
@@ -3724,6 +3753,418 @@ def llama_train_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 8a: mixtral-8x7b (MoE): comm on NCCL, int8 serving, bf16 training
+
+MOE_MODEL, MOE_LAYERS = "mixtral-8x7b", 2
+MOE_DEVICE = "cuda"  # the legs' device ("cpu" rehearses them on the host)
+MOE_MODEL_KW = {}
+MOE_B, MOE_P, MOE_NEW = 4, 128, 32
+MOE_SLOTS, MOE_REQUESTS = 4, 8
+MOE_SEQ, MOE_STEPS = 2048, 3
+MOE_SERVE_CONFIG = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512,
+                    "continuous_batching": {"enabled": True, "num_slots": MOE_SLOTS, "steps_per_sync": 4}}
+# the first training step, kernels vs plain: loss and global grad norm
+MOE_LOSS_REL, MOE_NORM_REL = 1e-3, 1e-2
+
+
+def random_params(torch, model, dev, seed, int8):
+    """Seeded random weights made on the card: float leaves normal(0.02)
+    (norm scales ones, biases zeros), int8 leaves uniform in [-127, 127]
+    with fp32 group scales around 2.7e-4 (a dequantized std near 0.02),
+    the int8 tree's other float leaves in bf16 as ``quantize_params``
+    leaves them. The host never holds the 46.7B-parameter-class tree."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, (shape, dt) in model.param_shapes().items():
+        leaf = k.rsplit(".", 1)[-1]
+        if dt == torch.int8:
+            out[k] = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            continue
+        if int8 and leaf.endswith("_scale"):
+            out[k] = torch.rand(shape, generator=gen, device=dev) * 1e-4 + 2.2e-4
+            continue
+        if leaf == "scale":
+            t = torch.ones(shape, device=dev)
+        elif leaf.endswith("bias"):
+            t = torch.zeros(shape, device=dev)
+        else:
+            t = torch.empty(shape, device=dev).normal_(0.0, 0.02, generator=gen)
+        out[k] = t.to(torch.bfloat16) if int8 else t
+    return out
+
+
+def moe_comm_leg(torch):
+    """(a) ``comm`` on the card: an NCCL group of world 1 from
+    ``init_distributed()`` (no arguments: the card's backend, an in-process
+    store), ``initialize_mesh(expert=1)``; every collective on a CUDA
+    tensor returns its input, one raw NCCL all-reduce and barrier run; the
+    group is destroyed at the end."""
+    import torch.distributed as tdist
+    import deepspeed_tpu_torch.comm as dist
+    dist.init_distributed(verbose=False)
+    try:
+        check(tdist.get_backend() == "nccl", f"comm: backend {tdist.get_backend()}, expected nccl")
+        mesh = dist.initialize_mesh(expert=1)
+        check(mesh.shape == {"pipe": 1, "expert": 1, "data": 1, "seq": 1, "tensor": 1},
+              f"comm: mesh {mesh.shape}")
+        x = torch.randn((4, 8), device="cuda")
+        outs = {"all_reduce": dist.all_reduce(x), "all_reduce avg": dist.all_reduce(x, op="avg"),
+                "all_gather": dist.all_gather(x, group=dist.DP_AXES),
+                "reduce_scatter": dist.reduce_scatter(x, group="data"),
+                "all_to_all_single": dist.all_to_all_single(x, group="expert", split_axis=0, concat_axis=1),
+                "broadcast": dist.broadcast(x, group="data"), "reduce": dist.reduce(x),
+                "all_reduce_autograd": dist.all_reduce_autograd(x, group=dist.DP_AXES)}
+        for name, out in outs.items():
+            check(torch.equal(out, x), f"comm: {name} at world 1 changed its input")
+        y = x.clone()
+        tdist.all_reduce(y)  # NCCL itself, on the default group
+        dist.barrier()
+        torch.cuda.synchronize()
+        check(torch.equal(y, x), "comm: NCCL all_reduce at world 1 changed its input")
+        check(dist.get_world_size() == 1 and dist.get_rank() == 0 and dist.get_rank("expert") == 0,
+              "comm: world queries")
+        log(f"comm: NCCL world of 1, mesh {mesh.shape}: {len(outs)} collectives and a raw NCCL "
+            f"all_reduce return their input on cuda")
+    finally:
+        dist.destroy_process_group()
+    check(not tdist.is_initialized(), "comm: the process group outlived the phase")
+
+
+def expected_moe_counts(cfg, new_tokens):
+    """Launches of one MoE generate of ``new_tokens`` on the per-projection
+    path: each forward runs the fused int8 qkv and o a layer and the int8
+    head (the experts and the router are torch.matmul), the prefill flash
+    once a layer, each decode step the decode kernel once a layer."""
+    L, steps = cfg.num_layers, new_tokens - 1
+    return {**ZERO_COUNTS, "quant_matmul": (2 * L + 1) * (1 + steps), "flash_attention": L,
+            "decode_attention": L * steps}
+
+
+# kernels vs plain on an MoE model: a token whose router logits sit near a
+# top-k boundary may pick another expert when bf16 rounds elsewhere, and
+# its logits then differ wholly, as do those of every later token of its
+# row that attends to it. So the gate runs on a view of the same weights
+# that routes every token to all experts (top-k = E: the combine weights
+# are the softmax, continuous in the input; every kernel of the path runs
+# as at top 2): relative L2 within MOE_REL, as the dense checks. The top-2
+# engine's own comparison is logged (per-position rel L2, positions beyond
+# MOE_REL: the flips and what they reach)
+MOE_REL = 5e-2
+
+
+def all_experts_view(eng):
+    """The engine's module and weights with every token routed to all
+    experts (``moe_top_k`` = ``num_experts``)."""
+    import dataclasses
+    import types
+    cfg = dataclasses.replace(eng.model_config, moe_top_k=eng.model_config.num_experts)
+    module = type(eng.module)(cfg)
+    return types.SimpleNamespace(module=module, net=module.bind(eng.params), device=eng.device,
+                                 model_config=cfg)
+
+
+def moe_logits_gate(torch, lk, lp, what, where, gate):
+    """Kernel (``lk``) against plain (``lp``) logits (..., V): logged per
+    position; with ``gate``, the whole relative L2 within ``MOE_REL``."""
+    lk, lp = lk.float().reshape(-1, lk.shape[-1]), lp.float().reshape(-1, lp.shape[-1])
+    check(bool(torch.isfinite(lk).all()), f"{what}: non-finite kernel-path logits ({where})")
+    row = (lk - lp).norm(dim=-1) / lp.norm(dim=-1)
+    rel = float((lk - lp).norm() / lp.norm())
+    far = int((row > MOE_REL).sum())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    log(f"{what} {where}, kernels vs plain on the card: rel L2 {rel:.3e}; per position median "
+        f"{float(row.median()):.3e}, max {float(row.max()):.3e}, {far} of {row.numel()} beyond {MOE_REL:g}; "
+        f"argmax agreement {agree:.3f}" + ("" if gate else " (top 2: reported)"))
+    if gate:
+        check(rel <= MOE_REL, f"{what} {where}: kernel-path logits differ from plain by rel L2 {rel:.3e}")
+
+
+def moe_prefill_check(torch, view, prompts, what, gate):
+    """Prefill logits of the kernel path against the plain versions on the
+    card (:func:`moe_logits_gate`)."""
+    B, P = prompts.shape
+    ids = torch.as_tensor(prompts, device=view.device).long()
+    with torch.inference_mode():
+        lk, _ = view.module.apply_with_cache(view.net, ids, view.module.init_cache(B, 256, device=view.device), 0)
+        lp, _ = view.module.apply_with_cache(view.net, ids, view.module.init_cache(B, 256, device=view.device), 0,
+                                             impl="plain")
+    moe_logits_gate(torch, lk, lp, what, "prefill logits", gate)
+
+
+def moe_decode_check(torch, view, prompts, what, gate, steps=4):
+    """Decode steps of the per-projection path with its kernels against the
+    same steps with their plain versions on the card (one prefill, two
+    copies of the cache, both fed the kernel path's greedy tokens), by
+    :func:`moe_logits_gate` over the steps' logits."""
+    B, P = prompts.shape
+    dev, model = view.device, view.module
+    ks, ps = [], []
+    with torch.inference_mode():
+        cache = model.init_cache(B, 256, device=dev)
+        logits, cache = model.apply_with_cache(view.net, torch.as_tensor(prompts, device=dev).long(), cache, 0)
+        plain = tuple(tuple(c.clone() for c in comp) for comp in cache)
+        tok = logits[:, -1].float().argmax(-1)
+        for t in range(steps):
+            pos = torch.full((B, 1), P + t, dtype=torch.long, device=dev)
+            lk, _ = model.apply_with_cache(view.net, tok[:, None], cache, P + t, position_ids=pos)
+            lp, _ = model.apply_with_cache(view.net, tok[:, None], plain, P + t, position_ids=pos, impl="plain")
+            ks.append(lk[:, 0].float())
+            ps.append(lp[:, 0].float())
+            tok = ks[-1].argmax(-1)
+    moe_logits_gate(torch, torch.stack(ks), torch.stack(ps), what, f"{steps} decode steps", gate)
+
+
+def moe_step_check(torch, view, what, gate):
+    """One chunk-width slot-pool step (rows of 64, 1, 1 and 0 live columns
+    over a prefix of 64 written by a first step) through ``apply_with_cache``
+    with its kernels and with their plain versions on two copies of the
+    pool: the live logits by :func:`moe_logits_gate`, and each layer's
+    routed-token counts sum to top-k times the live columns on both
+    paths."""
+    dev, model, cfg = view.device, view.module, view.model_config
+    N, C = MOE_SLOTS, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ids0 = torch.randint(0, cfg.vocab_size, (N, C), generator=gen, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (N, C), generator=gen, device=dev)
+    widx = torch.tensor([C, C, C, 0], device=dev)
+    spans = torch.tensor([C, 1, 1, 0], device=dev)
+    pos = widx[:, None] + torch.arange(C, device=dev)[None, :]
+    out = {}
+    with torch.inference_mode():
+        pool = model.init_cache(N, 512, device=dev)
+        zero = torch.zeros((N, ), dtype=torch.long, device=dev)
+        model.apply_with_cache(view.net, ids0, pool, 0, position_ids=torch.arange(C, device=dev)[None].expand(N, C),
+                               write_index=zero, q_spans=torch.full_like(zero, C))
+        for impl in ("kernel", "plain"):
+            copy = tuple(tuple(c.clone() for c in comp) for comp in pool)
+            lg, _, counts = model.apply_with_cache(view.net, ids, copy, 0, position_ids=pos, write_index=widx,
+                                                   q_spans=spans, impl=impl, expert_stats=True)
+            out[impl] = (lg.float(), counts)
+            live = int(spans.sum())
+            check(all(int(c.sum()) == cfg.moe_top_k * live for c in counts),
+                  f"{what}: routed counts {counts.tolist()} do not sum to top-{cfg.moe_top_k} x {live}")
+    lk = torch.cat([out["kernel"][0][b, :int(spans[b])] for b in range(N) if spans[b] > 0])
+    lp = torch.cat([out["plain"][0][b, :int(spans[b])] for b in range(N) if spans[b] > 0])
+    log(f"{what} slot-pool step of width {C}: routed counts per layer {out['kernel'][1].tolist()} (kernel "
+        f"path), {out['plain'][1].tolist()} (plain), each summing to top-{cfg.moe_top_k} x "
+        f"{int(spans.sum())} live columns")
+    moe_logits_gate(torch, lk, lp, what, f"slot-pool step of width {C}", gate)
+
+
+def moe_step_split(torch, eng, prompts, what):
+    """A steady decode step's device time (CUDA events, L2 flushed), split:
+    one decode step of the whole model, each layer's MoE alone (the router,
+    the 8 experts' dequantization and products, the combine), each layer's
+    decode-attention kernel alone at the step's shape; the rest is the
+    difference (projections, norms, the head)."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    B, P = prompts.shape
+    dev, model, cfg = eng.device, eng.module, eng.model_config
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    with torch.inference_mode():
+        cache = model.init_cache(B, 256, device=dev)
+        logits, cache = model.apply_with_cache(eng.net, torch.as_tensor(prompts, device=dev).long(), cache, 0)
+        tok = logits[:, -1].float().argmax(-1)[:, None]
+        pos = torch.full((B, 1), P, dtype=torch.long, device=dev)
+        step = cuda_ms(lambda: model.apply_with_cache(eng.net, tok, cache, P, position_ids=pos), flush)
+        x = torch.randn((B, 1, cfg.hidden_size), device=dev).to(cfg.dtype)
+        moe = cuda_ms(lambda: eng.net.layers[0].moe.serving(x), flush)
+        q = torch.randn((B, cfg.num_heads, cfg.head_size), device=dev).to(cfg.dtype)
+        starts = torch.zeros((B, ), dtype=torch.int32, device=dev)
+        ends = torch.full((B, ), P + 1, dtype=torch.int32, device=dev)
+        attn = cuda_ms(lambda: decode_attention(q, cache[0][0], cache[1][0], starts, ends,
+                                                block_kv=cfg.decode_block_kv), flush)
+    del flush
+    L = cfg.num_layers
+    rest = step - L * (moe + attn)
+    log(f"{what} decode step (B={B}, position {P}, {L} layers) device time {step:.4f} ms: experts "
+        f"{L * moe:.4f} ms ({L} x {moe:.4f}, {L * moe / step:.3f} of the step), decode attention "
+        f"{L * attn:.4f} ms ({L} x {attn:.4f}), the rest {rest:.4f} ms (projections, norms, head)")
+    exp_bytes = sum(t.numel() * t.element_size() for k, t in eng.params.items() if "moe.experts." in k) / L
+    log(f"{what} experts a layer: {exp_bytes / 1e9:.3f} GB of int8 weights and scales read, "
+        f"{3 * cfg.num_experts * cfg.hidden_size * cfg.ffn_size * 4 / 1e9:.3f} GB of bf16 written and "
+        f"read again by the dequantization; {moe:.4f} ms against the int8 read's bound "
+        f"{exp_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return step, moe, attn
+
+
+def moe_serving_leg(torch, card):
+    """(b) mixtral-8x7b int8 serving at full width, 2 of 32 layers, seeded
+    random weights, the per-projection path (the fused gate refuses MoE)."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    from deepspeed_tpu_torch.models import get_model
+    what = f"{MOE_MODEL} int8"
+    dev = torch.device(MOE_DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(MOE_MODEL, num_layers=MOE_LAYERS, **MOE_MODEL_KW)
+    int8_model = get_model(MOE_MODEL, num_layers=MOE_LAYERS, int8_weights=True, int8_fused_qkv=True,
+                           **MOE_MODEL_KW)
+    eng = deepspeed_tpu_torch.init_inference(model, config=MOE_SERVE_CONFIG, device=dev,
+                                             params=random_params(torch, int8_model, dev, SEED, int8=True))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    reasons = eng._fused_decode_eligible().reasons
+    log(f"{what} (full width, depth cut to {MOE_LAYERS} of 32 layers: host set-up and device memory) "
+        f"engine built in {setup_s:.1f} s, {held / 2**30:.3f} GiB of weights on the card; "
+        f"moe part of the ready line{eng._moe_desc()!r}; fused gate: {list(reasons)}")
+    cfg = eng.model_config
+    E = cfg.num_experts
+    check(any(f"num_experts={E}: the fused per-layer decode kernel has no expert dispatch" in r for r in reasons),
+          f"{what}: the fused gate did not refuse MoE ({reasons})")
+    check(eng._moe_desc() == f" moe[{E}e top2] ep=1", f"{what}: ready line {eng._moe_desc()!r}")
+    vocab = cfg.vocab_size
+    prompts = np.random.default_rng(SEED + 3).integers(0, vocab, (MOE_B, MOE_P)).astype(np.int32)
+    reset_counts()
+    greedy = eng.generate(prompts, max_new_tokens=MOE_NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected_moe_counts(cfg, MOE_NEW)
+    log(f"{what} greedy generate launches {counts}, expected {want}")
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+    check_tokens(greedy, MOE_B, MOE_NEW, vocab, f"{what} greedy")
+    again = eng.generate(prompts, max_new_tokens=MOE_NEW)
+    check(all(np.array_equal(a, b) for a, b in zip(greedy, again)), f"{what}: two greedy generates differ")
+    kw = {"do_sample": True, "temperature": 0.8, "top_k": 50, "seed": 3}
+    sampled = eng.generate(prompts, max_new_tokens=MOE_NEW, **kw)
+    check_tokens(sampled, MOE_B, MOE_NEW, vocab, f"{what} sampled")
+    check(all(np.array_equal(a, b) for a, b in zip(sampled, eng.generate(prompts, max_new_tokens=MOE_NEW, **kw))),
+          f"{what}: two sampled generates with one seed differ")
+    every = all_experts_view(eng)
+    for view, tag, gate in ((every, f"{what}, all {E} experts a token", True), (eng, f"{what}, top 2", False)):
+        moe_prefill_check(torch, view, prompts, tag, gate)
+        moe_decode_check(torch, view, prompts, tag, gate)
+        moe_step_check(torch, view, tag, gate)
+    del every
+    step_s = steady_step(torch, eng, prompts, what, card)
+    moe_step_split(torch, eng, prompts, what)
+
+    # the scheduler: 8 requests of 16-200 tokens, 32 new, in 4 slots
+    rng = np.random.default_rng(SEED + 4)
+    reqs = [rng.integers(0, vocab, int(k)).astype(np.int32) for k in rng.integers(16, 201, MOE_REQUESTS)]
+    sched = DecodeScheduler(eng, num_slots=MOE_SLOTS, steps_per_sync=4)
+    reset_counts()
+    outs, _, wall, syncs, ttft = serve(sched, reqs, max_new=MOE_NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.num_layers
+    n1 = sched.forwards[1]
+    nc = sum(v for c, v in sched.forwards.items() if c != 1)
+    want = {**ZERO_COUNTS, "quant_matmul": (2 * L + 1) * (n1 + nc), "paged_decode_attention": L * n1,
+            "paged_span_attention": L * nc}
+    log(f"{what} stream launches {counts}, expected {want} ({n1} decode-width and {nc} chunk-width "
+        f"forwards of {L} layers)")
+    check(counts == want, f"{what} stream launch counts {counts} != {want}")
+    check(n1 > 0 and nc > 0, f"{what}: a width was never dispatched ({dict(sched.forwards)})")
+    check_streams(outs, MOE_NEW, vocab, f"{what} stream")
+    tokens = sum(map(len, outs))
+    sync_ms = sorted(s * 1e3 for _, s in syncs)
+    log(f"{what} stream ({MOE_SLOTS} slots, {MOE_REQUESTS} requests of {[len(r) for r in reqs]} tokens, "
+        f"{MOE_NEW} new): {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; TTFT p50/p95 "
+        f"{_pct(ttft, 50):.1f} / {_pct(ttft, 95):.1f} ms; {len(syncs)} syncs, median "
+        f"{statistics.median(sync_ms):.3f} ms; shapes {dict(sched.dispatched)}; static decode step "
+        f"{step_s * 1e3:.3f} ms = {MOE_B / step_s:.1f} tokens/s")
+    sched.radix.check_invariants()
+    solo_diff = []
+    for i, r in enumerate(reqs):
+        solo = DecodeScheduler(eng, num_slots=MOE_SLOTS, steps_per_sync=4).submit(r, max_new_tokens=MOE_NEW)
+        if not np.array_equal(solo.result(), outs[i]):
+            solo_diff.append(i)
+    check(not solo_diff, f"{what}: requests {solo_diff} differ from their solo runs")
+    # generate()'s rows: the same prompts one at a time. Its prefill runs
+    # the flash kernel (or the plain cached attention) and its decode the
+    # decode kernel, the scheduler the span and paged decode kernels: bf16
+    # rounds in other places, so a greedy choice between close logits may
+    # flip and a stream part for good (the tolerance of the port's int8
+    # tests against JAX): the common prefixes cover at least half of the
+    # tokens and at least one request agrees in full
+    gen_rows = [eng.generate([r], max_new_tokens=MOE_NEW)[0] for r in reqs]
+    prefix = [next((j for j, (a, b) in enumerate(zip(g, o)) if a != b), len(g)) for g, o in zip(gen_rows, outs)]
+    log(f"{what}: each stream bitwise its solo run ({MOE_REQUESTS} of {MOE_REQUESTS}); common prefix with "
+        f"generate()'s row per request {prefix} of {MOE_NEW}")
+    check(sum(prefix) >= MOE_REQUESTS * MOE_NEW / 2 and max(prefix) == MOE_NEW,
+          f"{what}: streams part from generate()'s rows early: {prefix}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: peak device memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated, set-up "
+        f"included), {held / 2**30:.3f} GiB of it the weights; set-up {setup_s:.1f} s; {card}")
+    del sched, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_training_leg(torch, card):
+    """(c) mixtral-8x7b bf16 training at full width, 2 layers:
+    ``initialize`` -> ``train_batch``, AdamW with fp32 masters and clip
+    1.0, micro 1, seq 2048; the first step's loss and grad norm through the
+    kernels against the plain path; 3 steps."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    what = f"{MOE_MODEL} train"
+    dev = torch.device(MOE_DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(MOE_MODEL, num_layers=MOE_LAYERS, attention_impl="flash", **MOE_MODEL_KW)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=random_params(torch, model, dev, SEED, int8=False),
+        config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1}, device=dev)
+    torch.cuda.synchronize()
+    log(f"{what} engine (full width, {MOE_LAYERS} of 32 layers: 18 B a parameter on the card) built in "
+        f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in engine.master.values()):,} parameters")
+    batch = {"input_ids": np.random.default_rng(SEED + 5).integers(0, model.cfg.vocab_size, (1, MOE_SEQ))}
+    placed = {"input_ids": torch.as_tensor(batch["input_ids"], device=dev)}
+    res = {}
+    for impl in ("plain", "kernel"):
+        loss, grads = engine._micro_loss_and_grads(engine.params, placed, 1.0, impl=impl)
+        res[impl] = (float(loss), _global_norm(torch, grads))
+        del grads
+    (lp, n_p), (lk, nk) = res["plain"], res["kernel"]
+    log(f"{what} one micro-step, kernels vs plain on the card: loss {lk:.6f} vs {lp:.6f} (rel "
+        f"{abs(lk - lp) / abs(lp):.3e}, limit {MOE_LOSS_REL:g}), grad norm {nk:.6f} vs {n_p:.6f} (rel "
+        f"{abs(nk - n_p) / n_p:.3e}, limit {MOE_NORM_REL:g})")
+    check(np.isfinite([lk, nk, lp, n_p]).all(), f"{what}: non-finite loss or grad norm")
+    check(abs(lk - lp) <= MOE_LOSS_REL * abs(lp), f"{what}: loss {lk} vs plain {lp}")
+    check(abs(nk - n_p) <= MOE_NORM_REL * n_p, f"{what}: grad norm {nk} vs plain {n_p}")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for _ in range(MOE_STEPS):
+        l_, s_ = timed_steps(torch, engine, batch, 1)
+        losses += l_
+        secs += s_
+        norms.append(engine._last_metrics["grad_norm"])
+    counts = read_counts()
+    want = expected_train_counts(model.cfg, MOE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    moe = engine.module.last_moe
+    log(f"{what}: losses {[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}, steps "
+        f"{[round(x * 1e3, 1) for x in secs]} ms ({MOE_SEQ / min(secs[1:]):.1f} tokens/s at the fastest), "
+        f"launches {counts}, expected {want}; aux loss {float(moe['aux_loss']):.5f} (summed over "
+        f"{MOE_LAYERS} layers), drop fraction by layer {[round(float(d), 4) for d in moe['drop_frac']]}; "
+        f"peak device memory {peak / 2**30:.3f} GiB over the steps; {card}")
+    check(np.isfinite(losses).all() and np.isfinite(norms).all(), f"{what}: non-finite loss or norm")
+    check(counts == want, f"{what} launch counts {counts} != {want}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_phase(torch, card):
+    """mixtral-8x7b: (a) comm on NCCL at world 1, (b) int8 serving, (c)
+    bf16 training. Returns the serving stream's and the training steps'
+    launch counts."""
+    timed_phase("mixtral-8x7b: (a) comm", moe_comm_leg, torch)
+    serve_counts = timed_phase("mixtral-8x7b: (b) int8 serving", moe_serving_leg, torch, card)
+    train_counts = timed_phase("mixtral-8x7b: (c) bf16 training", moe_training_leg, torch, card)
+    return serve_counts, train_counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: the training engine's features on the training path
 
 FEATURE_MODEL = "gpt2-large"
@@ -4588,7 +5029,8 @@ def main(argv=()):
     their peak device memory); ``--train-features``: build every kernel and
     run only the training-features phase; ``--offload``: build every
     kernel and run only the offload tiers' phase; ``--kv-tier``: build every
-    kernel and run only the hierarchical KV tier's phase. Each compares a change
+    kernel and run only the hierarchical KV tier's phase; ``--moe``: build
+    every kernel and run only the mixtral-8x7b phase. Each compares a change
     with its parent in one call: run this file beside each tree's package,
     in turns."""
     import torch
@@ -4641,6 +5083,10 @@ def main(argv=()):
         timed_phase("kv tier", kv_tier_phase, torch, card)
         log(card)
         return 0
+    if list(argv) == ["--moe"]:
+        timed_phase("mixtral-8x7b", moe_phase, torch, card)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -4683,6 +5129,12 @@ def main(argv=()):
         results[name]["launches"] = train_counts[name]
     timed_phase("training parity", train_parity_phase, torch)
     timed_phase("llama3-8b training", llama_train_phase, torch)
+    # mixtral-8x7b: its launches of the kernels it runs, beside the main paths'
+    moe_serve, moe_train = timed_phase("mixtral-8x7b", moe_phase, torch, card)
+    for counts, path in ((moe_serve, "a 4-slot stream"), (moe_train, f"{MOE_STEPS} training steps")):
+        for name, n in counts.items():
+            if n and name in results:
+                results[name].setdefault("mixtral_launches", {})[path] = n
     timed_phase("training features", train_features_phase, torch, card, dev)
     timed_phase("offload tiers", offload_phase, torch, card)
     # the sparse path is the main path of the three block-sparse kernels

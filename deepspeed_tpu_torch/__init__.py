@@ -7,9 +7,11 @@ imports JAX or ``deepspeed_tpu``. It serves static-batch ``generate()``
 (int8 kernel-injected: the fused decode layer by default, or the
 per-projection kernels), serves continuous batching through
 ``engine.scheduler()`` / ``engine.submit()`` (chunked prefill, radix prefix
-cache, int8 KV, on the paged decode and span kernels) and trains on one device through ``initialize()``
+cache, int8 KV, on the paged decode and span kernels) and trains through ``initialize()``
 → ``train_batch()`` (fp32 master weights, bf16 compute, AdamW, flash
-attention's forward and backward kernels), and runs block-sparse attention
+attention's forward and backward kernels; data-parallel over a
+``torch.distributed`` world, ``comm``), serves and trains MoE models
+(``moe``: Mixtral, with expert parallelism), and runs block-sparse attention
 (``ops.sparse_attention``: every ``SparsityConfig``, forward and backward
 on three table-driven kernels); see ``ROADMAP.md`` for what is still to
 come.

@@ -38,6 +38,9 @@ class QuantConfig(DeepSpeedConfigModel):
 
 
 class MoEInferenceConfig(DeepSpeedConfigModel):
+    """The reference's ``moe`` section, accepted as the JAX package accepts
+    it: its fields have no effect, the expert degree comes from the
+    ``expert`` axis of the ``comm`` mesh."""
     enabled = ConfigField(default=True)
     ep_size = ConfigField(default=1)
     moe_experts = ConfigField(default=lambda: [1])
@@ -422,7 +425,7 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
         if self.multi_lora.enabled:
             out.append(item("multi_lora", "9, multi-LoRA"))
         if self.expert_offload.enabled:
-            out.append(item("expert_offload", "9, MoE serving"))
+            out.append(item("expert_offload", "9, MoE expert offload"))
         if self.disaggregation.enabled:
             out.append(item("disaggregation", "9, disaggregated prefill/decode"))
         if self.multihost.router_url is not None:
@@ -540,8 +543,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         """Sections the port has no subsystem for yet: accepted while off,
         refused when on, each naming its ROADMAP Queue 1 item."""
         unported = self.continuous_batching.unported()
-        if self.moe.to_dict() != MoEInferenceConfig().to_dict():
-            unported.append("moe (ROADMAP Queue 1 #7, distributed runtime: MoE)")
         if self.checkpoint is not None:
             unported.append("checkpoint (ROADMAP Queue 1 #10, checkpoint loading)")
         if self.tensor_parallel.tp_size > 1:

@@ -1,8 +1,11 @@
 """Inference engine: static-batch ``generate()`` over a preallocated KV cache.
 
 Port of ``deepspeed_tpu/inference/engine.py`` (reference
-``inference/engine.py``, ``InferenceEngine``) for one device and
-tensor-parallel degree 1:
+``inference/engine.py``, ``InferenceEngine``) for tensor-parallel degree 1,
+on one device or, for an MoE model, expert-parallel over the ``expert``
+axis of the ``comm`` mesh (each rank serves every token through its
+experts and all-gathers their outputs, bitwise the one-rank result; an
+expert count the axis does not divide serves replicated, with a warning):
 
 - kernel injection selects the model's kernel paths (``attention_impl=
   'flash'``: flash prefill and the decode-attention kernel; int8 weights
@@ -46,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..accelerator import resolve_device
+from ..moe.layer import expert_parallel, shard_config, shard_params
 from ..telemetry import TelemetrySink, get_sink, set_sink
 from ..utils.logging import logger, log_dist
 from .config import DeepSpeedInferenceConfig
@@ -125,7 +129,17 @@ class InferenceEngine:
         if cfg.kernel_inject:
             overrides["attention_impl"] = "flash"
             overrides["scan_layers"] = False
-        self.module = type(model)(dataclasses.replace(model.cfg, **overrides))
+        # expert parallelism from the mesh's expert axis; a count it does not
+        # divide serves REPLICATED expert weights, loudly (the JAX engine's rule)
+        n_experts = getattr(model.cfg, "num_experts", 0)
+        self._ep, sharded = expert_parallel(n_experts) if n_experts else (1, False)
+        self._ep_replicated_fallback = self._ep > 1 and not sharded
+        if self._ep_replicated_fallback:
+            logger.warning(
+                f"init_inference: mesh expert={self._ep} but num_experts="
+                f"{n_experts} doesn't divide it — serving REPLICATED expert "
+                f"weights (uneven expert shards would cost bit-identity)")
+        self.module = type(model)(shard_config(dataclasses.replace(model.cfg, **overrides)))
         self.model_config = self.module.cfg
 
         # fused decode-block gating: every failing condition gets its reason
@@ -157,8 +171,23 @@ class InferenceEngine:
         elif self._int8_weights and cfg.fused_decode_block:
             fused = " fused_decode=on"
         log_dist(f"InferenceEngine ready: model dtype={self.model_config.dtype} device={self.device} "
-                 f"tp=1 int8_weights={self._int8_weights}{fused} kernel_inject={cfg.kernel_inject} "
-                 f"max_out_tokens={cfg.max_out_tokens}", [0])
+                 f"tp=1{self._moe_desc()} int8_weights={self._int8_weights}{fused} "
+                 f"kernel_inject={cfg.kernel_inject} max_out_tokens={cfg.max_out_tokens}", [0])
+
+    def _moe_desc(self):
+        """The ready line's expert layout (the JAX engine's ``_shard_desc``
+        MoE part), empty for a dense model."""
+        n_experts = getattr(self.model_config, "num_experts", 0)
+        if not n_experts:
+            return ""
+        if self._ep <= 1:
+            moe = "ep=1"
+        elif self._ep_replicated_fallback:
+            moe = (f"ep={self._ep} (REPLICATED experts: num_experts="
+                   f"{n_experts} doesn't divide the expert degree)")
+        else:
+            moe = f"ep={self._ep} (expert-sharded, all-gather combine)"
+        return f" moe[{n_experts}e top{self.model_config.moe_top_k}] {moe}"
 
     # ------------------------------------------------------------------ params
     def _materialize_params(self, params):
@@ -169,10 +198,11 @@ class InferenceEngine:
         the device are shared, not copied."""
         if params is None:
             logger.warning("init_inference: no params given; initializing random weights")
-            init_cfg = dataclasses.replace(self.model_config, int8_weights=False)
+            init_cfg = dataclasses.replace(self.model_config, int8_weights=False, moe_local_experts=None)
             params = type(self.module)(init_cfg).init_params(0)
         if self._int8_weights and "logits_q" not in params:
             params = self.module.quantize_params(params)
+        params = shard_params(params, self.model_config)  # this rank's experts
         dtype = self.model_config.dtype
         out = {}
         for k, v in params.items():

@@ -118,6 +118,14 @@ the forwards), and ``serving/sync_wait_ms``, the time the fetch then
 blocks on the device. With the sink disabled every hook is one attribute
 test: nothing is allocated and nothing fenced.
 
+An MoE model serves through the same steps (each token routed on its own,
+capacity-free, ``moe/layer.py``); with telemetry on, the chunk, decode and
+verify forwards also return their per-layer routed-token counts over live
+columns, read back with the sync's tokens into the
+``serving/expert_dispatch_tokens`` counter and the
+``serving/expert_load_balance`` gauge (``expert_dispatch_tokens`` keeps the
+total).
+
 Not ported, each raising naming its ROADMAP item: sharding the seq-parallel
 prefill across devices (#7), multi-LoRA, cold-expert offload,
 disaggregation, the weight-swap protocol and migration (#9, RLHF and
@@ -321,7 +329,7 @@ class DecodeScheduler:
         if adapter_store is not None:
             raise _unported("multi-LoRA serving", "ROADMAP Queue 1 #9, multi-LoRA")
         if expert_store is not None:
-            raise _unported("cold-expert offload", "ROADMAP Queue 1 #9, MoE serving")
+            raise _unported("cold-expert offload", "ROADMAP Queue 1 #9, MoE expert offload")
         self.engine = engine
         self.device = engine.device
         model = engine.module
@@ -415,6 +423,14 @@ class DecodeScheduler:
         else:
             self._fused_block = False
             self._fused_block_reasons = ["model family without fused decode-block support"]
+        # MoE serving: the per-token capacity-free dispatch rides the same
+        # step; with telemetry on, each forward also returns its per-layer
+        # routed-token counts (live columns only), summed over a sync and
+        # read back with its tokens (the JAX scheduler's `expert_stats`)
+        self._moe = getattr(engine.model_config, "num_experts", 0) > 0
+        self._moe_stats = self._moe and engine.telemetry.enabled
+        self._expert_counts = None
+        self.expert_dispatch_tokens = 0
         self._prefill = None  # at most one in-flight _PrefillState
         # long-context paging: slots whose chained extents are (partly)
         # host-demoted sit in _parked, left out of every dispatch until the
@@ -1183,11 +1199,42 @@ class DecodeScheduler:
         if self._fused_block and ext_ops is None:
             logits, _ = model.fused_paged_step(self.engine._fast_tree(), ids, self.cache.pool, pos,
                                                widx, spans)
+        elif self._moe_stats:
+            logits, _, counts = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
+                                                       position_ids=pos, write_index=widx,
+                                                       q_spans=spans, ext_ops=ext_ops,
+                                                       expert_stats=True)
+            self._expert_counts = counts if self._expert_counts is None else self._expert_counts + counts
         else:
             logits, _ = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
                                                position_ids=pos, write_index=widx, q_spans=spans,
                                                ext_ops=ext_ops)
         return logits
+
+    def _take_expert_counts(self):
+        """After a sync's fetch: its summed (L, E) routed-token counts into
+        the routing telemetry."""
+        if self._expert_counts is None:
+            return
+        counts, self._expert_counts = self._expert_counts.cpu().numpy(), None
+        self._record_expert_stats(counts)
+
+    def _record_expert_stats(self, counts):
+        """Routing telemetry from one dispatch's (L, E) counts: total
+        token->expert assignments and the per-step load-balance gauge (1.0 =
+        tokens spread evenly; 1/E = everything on one expert)."""
+        total = int(counts.sum())
+        self.expert_dispatch_tokens += total
+        tel = self.telemetry
+        if not tel.enabled or total == 0:
+            return
+        tel.counter("serving/expert_dispatch_tokens", total)
+        mx = counts.max(axis=1)
+        tot = counts.sum(axis=1)
+        live = mx > 0
+        if live.any():
+            E = counts.shape[1]
+            tel.gauge("serving/expert_load_balance", float(np.mean(tot[live] / (E * mx[live]))))
 
     def _device_inputs(self, ids, lens, spans, samp, sampling):
         """A dispatch's host rows on the device, in two host-to-device
@@ -1258,6 +1305,7 @@ class DecodeScheduler:
         t_fetch = time.perf_counter() if t0 is not None else 0.0
         toks_k = torch.stack(toks).cpu().numpy()  # the sync's one round trip
         logits_k = torch.stack(lgs).cpu().numpy() if collect else None
+        self._take_expert_counts()
         if t0 is not None:
             self._close_dispatch(t0, t_fetch, ("chunk", C, K) if C > 1 else ("decode", K),
                                  lens[spans > 0], self.cache.max_extents if ext_ops is not None else 1)
@@ -1326,6 +1374,7 @@ class DecodeScheduler:
         t_fetch = time.perf_counter() if t0 is not None else 0.0
         toks = toks.cpu().numpy()
         logits = logits.transpose(0, 1).cpu().numpy() if collect else None
+        self._take_expert_counts()
         if t0 is not None:
             self._close_dispatch(t0, t_fetch, ("verify", W), lens[spans > 0])
         return toks, logits

@@ -36,9 +36,19 @@ residual dropouts a block, their masks drawn from a counter hash of
 (seed, step, micro-step, layer, site, element) so a recomputed block draws
 the same mask (:func:`dropout_mask`).
 
+A model with ``num_experts > 0`` (Mixtral) replaces each block's MLP by the
+routed experts of ``moe/layer.py``: training runs the capacity-buffered
+dispatch and adds ``moe_aux_loss_coef`` times the layers' load-balancing
+losses to the loss; the cached (serving) forward routes each token on its
+own, capacity-free, and can return the per-layer routed-token counts
+(``apply_with_cache(..., expert_stats=True)``). Expert weights are
+(E, H, F)/(E, F, H) under ``layers.{i}.moe.experts.``, int8 per expert
+after ``quantize_params``; ``moe_local_experts`` holds a rank's slice of
+them under expert parallelism.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-MoE, LoRA, alibi, local attention windows, sequence sharding across
-devices and activation fake-quantization.
+LoRA, alibi, local attention windows, sequence sharding across devices,
+cold-expert paging and activation fake-quantization.
 """
 
 import dataclasses
@@ -95,6 +105,9 @@ class TransformerConfig:
     moe_capacity_factor: float = 1.25
     moe_aux_loss_coef: float = 0.01
     moe_expert_bias: bool = False
+    # this rank's experts under expert parallelism, (first, count); None =
+    # all of them (moe/layer.py:shard_config sets it)
+    moe_local_experts: Optional[Tuple[int, int]] = None
     # systems
     dtype: Any = torch.bfloat16
     scan_layers: bool = True
@@ -165,8 +178,6 @@ def _unported(what, item):
 
 
 def _check_supported(cfg):
-    if cfg.num_experts > 0:
-        raise _unported("MoE models", "ROADMAP Queue 1 #7, MoE")
     if cfg.pos_embedding == "alibi":
         raise _unported("alibi positions", "ROADMAP Queue 1 #10, module_inject policies")
     if cfg.local_attention_layers:
@@ -291,16 +302,18 @@ def resolve_remat_policy(name):
 
 
 def _remat_block(blk, context_fn, x, sin, cos, attn_mask, position_ids, impl, key):
-    """``blk`` on ``x`` under a non-reentrant checkpoint. The block's
+    """``blk`` on ``x`` under a non-reentrant checkpoint; returns (x, the
+    MoE layer's (aux_loss, drop_frac) or None). The block's
     tensors go in as an argument and every run binds them again: the
     backward pass recomputes outside the caller's ``functional_call``, where
     the module holds meta tensors."""
     tensors = dict(blk.named_buffers())
 
     def run(x, tensors):
-        return torch.func.functional_call(blk, tensors, (x, sin, cos, attn_mask),
-                                          {"position_ids": position_ids, "impl": impl,
-                                           "dropout_key": key})[0]
+        out = torch.func.functional_call(blk, tensors, (x, sin, cos, attn_mask),
+                                         {"position_ids": position_ids, "impl": impl,
+                                          "dropout_key": key})
+        return out[0], out[2]
 
     return checkpoint(run, x, tensors, use_reentrant=False, context_fn=context_fn,
                       preserve_rng_state=False)
@@ -789,27 +802,43 @@ class Block(nn.Module):
         self.attn_norm = make_norm(cfg)
         self.attn = Attention(cfg)
         self.mlp_norm = make_norm(cfg)
-        self.mlp = MLP(cfg)
+        if cfg.num_experts > 0:
+            from ..moe.layer import MoE
+            self.moe = MoE(cfg)
+        else:
+            self.mlp = MLP(cfg)
 
     def forward(self, x, sin, cos, attn_mask=None, kv_cache=None, cache_index=None,
                 position_ids=None, decode_window=None, slot_write=None, impl="kernel",
-                dropout_key=None):
+                dropout_key=None, expert_stats=None):
         """``dropout_key``: this layer's key (training with dropout), else
         None: the attention and MLP branches each pass through dropout
         under a key of their own (the JAX ``Block``'s two residual
-        dropouts)."""
+        dropouts). Returns ``(x, kv_cache, moe)``: ``moe`` is the MoE
+        layer's ``(aux_loss, drop_frac)`` without a cache (training), else
+        None. With a cache an MoE layer routes each token on its own and
+        appends its routed-token counts to the ``expert_stats`` list when
+        one is given."""
         rate = self.cfg.dropout
         h, new_cache = self.attn(self.attn_norm(x), sin, cos, attn_mask, kv_cache, cache_index,
                                  position_ids, decode_window, slot_write, impl)
         if dropout_key is not None:
             h = dropout(h, rate, fold_in(dropout_key, 0))
         ff_in = x if self.cfg.parallel_residual else x + h
-        ff = self.mlp(self.mlp_norm(ff_in), impl)
+        moe = None
+        if self.cfg.num_experts == 0:
+            ff = self.mlp(self.mlp_norm(ff_in), impl)
+        elif kv_cache is not None:
+            ff = self.moe.serving(self.mlp_norm(ff_in), None if slot_write is None else slot_write[1],
+                                  expert_stats)
+        else:
+            ff, aux, drop = self.moe(self.mlp_norm(ff_in))
+            moe = (aux, drop)
         if dropout_key is not None:
             ff = dropout(ff, rate, fold_in(dropout_key, 1))
         if self.cfg.parallel_residual:
-            return x + h + ff, new_cache
-        return ff_in + ff, new_cache
+            return x + h + ff, new_cache, moe
+        return ff_in + ff, new_cache, moe
 
 
 class Embed(nn.Module):
@@ -860,7 +889,7 @@ class CausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, kv_cache=None, cache_index=None,
                 position_ids=None, impl="kernel", return_hidden=False, write_index=None,
-                q_spans=None, ext_ops=None, dropout_key=None):
+                q_spans=None, ext_ops=None, dropout_key=None, moe_out=None, expert_stats=None):
         """``kv_cache``: ``(ks, vs)`` (or ``(ks, vs, scales)``, the int8 KV
         tier), per-layer (B, kv_heads, S, hd) caches written in place.
         Returns logits, or (logits, kv_cache) with a cache, or the
@@ -873,7 +902,10 @@ class CausalLM(nn.Module):
         on-card check that the kernel path computes the same logits).
         ``dropout_key``: the micro-step's dropout key (training), folded
         with each layer's index; with a remat policy and no cache each
-        block runs under its checkpoint."""
+        block runs under its checkpoint. ``moe_out``: a list that receives
+        each MoE layer's ``(aux_loss, drop_frac)`` (training);
+        ``expert_stats``: a list that receives each MoE layer's (E,) routed
+        counts (cached forward)."""
         cfg = self.cfg
         B, T = input_ids.shape
         if ext_ops is not None and (cfg.attention_impl != "flash" or cfg.local_attention_window
@@ -929,11 +961,13 @@ class CausalLM(nn.Module):
         for i, blk in enumerate(self.layers):
             key = None if dropout_key is None else fold_in(dropout_key, i)
             if remat is not None:
-                x = _remat_block(blk, remat, x, sin, cos, attn_mask, position_ids, impl, key)
-                continue
-            layer_cache = None if kv_cache is None else tuple(comp[i] for comp in kv_cache)
-            x, _ = blk(x, sin, cos, attn_mask, layer_cache, cache_index, position_ids,
-                       decode_window, slot_write, impl, key)
+                x, moe = _remat_block(blk, remat, x, sin, cos, attn_mask, position_ids, impl, key)
+            else:
+                layer_cache = None if kv_cache is None else tuple(comp[i] for comp in kv_cache)
+                x, _, moe = blk(x, sin, cos, attn_mask, layer_cache, cache_index, position_ids,
+                                decode_window, slot_write, impl, key, expert_stats)
+            if moe is not None and moe_out is not None:
+                moe_out.append(moe)
 
         x = self.final_norm(x)
         if return_hidden:
@@ -957,13 +991,14 @@ class CausalLM(nn.Module):
 
 def _init_leaf(name, shape, dtype, gen):
     """flax initializers by parameter name: norm scales and int8 scales
-    ones, biases and int8 weights zeros, everything else normal(0.02)."""
+    ones, biases and int8 weights zeros, everything else (the MoE router
+    and expert kernels too) normal(0.02)."""
     leaf = name.rsplit(".", 1)[-1]
     if dtype == torch.int8:
         return torch.zeros(shape, dtype=torch.int8)
-    if leaf in ("scale", "kernel_scale", "qkv_scale", "logits_scale"):
+    if leaf.endswith("scale"):
         return torch.ones(shape, dtype=torch.float32)
-    if leaf in ("bias", "qkv_bias", "logits_bias"):
+    if leaf.endswith("bias"):
         return torch.zeros(shape, dtype=torch.float32)
     return torch.empty(shape, dtype=torch.float32).normal_(0.0, 0.02, generator=gen)
 
@@ -1015,47 +1050,63 @@ class CausalLMModel:
         self.cfg = dataclasses.replace(self.cfg, remat_policy=policy)
         self.module = CausalLM(self.cfg)
 
-    def loss(self, params, batch, impl="kernel", rng=None):
+    def loss(self, params, batch, impl="kernel", rng=None, n_valid=None, aux_share=1.0):
         """Next-token cross entropy, the mean over valid tokens. ``batch``:
         ``input_ids`` (B, T); optional ``labels`` (B, T; -100 = ignore),
         aligned with the positions (no shift), and ``attention_mask`` (B, T).
         Without labels position t predicts token t + 1. ``params``: the
         compute-dtype state dict the gradients flow back through. ``rng``:
         the micro-step's dropout key (``utils/counter_hash.py``); dropout
-        is on when it is given and ``dropout > 0``, as in the JAX model."""
+        is on when it is given and ``dropout > 0``, as in the JAX model.
+
+        An MoE model adds ``moe_aux_loss_coef`` times the sum of its layers'
+        load-balancing losses (the JAX model's ``loss``, which sums the
+        sown ``moe_aux_loss``); ``last_moe`` then holds the step's summed
+        aux loss and each layer's drop fraction. Under data parallelism the
+        engine passes ``n_valid``, the global valid-token count (the JAX
+        loss divides by the global ``sum(valid)``), and ``aux_share``, this
+        rank's share of the aux term, so the ranks' losses sum to the
+        global loss."""
         cfg = self.cfg
         if cfg.int8_weights:
             raise ValueError("loss() trains float weights; int8_weights models serve only")
         input_ids = batch["input_ids"]
         chunked = self._use_chunked_ce()
         key = rng if rng is not None and cfg.dropout > 0 else None
+        moe_out = [] if cfg.num_experts > 0 else None
         out = torch.func.functional_call(self.module, params, (input_ids, batch.get("attention_mask")),
-                                         {"impl": impl, "return_hidden": chunked, "dropout_key": key},
-                                         strict=True)
+                                         {"impl": impl, "return_hidden": chunked, "dropout_key": key,
+                                          "moe_out": moe_out}, strict=True)
         if "labels" in batch:
             labels, out_t = batch["labels"], out
         else:
             labels, out_t = input_ids[:, 1:], out[:, :-1]
         valid = labels >= 0
         labels_c = torch.clamp(labels, min=0).long()
-        n_valid = torch.clamp(valid.sum(), min=1)
+        n_valid = torch.clamp(valid.sum(), min=1) if n_valid is None else n_valid
         if chunked:
             if cfg.tie_embeddings:
                 w, transpose = params["embed.embedding"], True  # (V, H)
             else:
                 w, transpose = params["lm_head.kernel"], False  # (H, V)
-            total = chunked_cross_entropy(out_t, w, labels_c, valid, chunk=cfg.ce_chunk_size or 256,
-                                          transpose=transpose)
-            return total / n_valid
-        ce = F.cross_entropy(out_t.float().flatten(0, 1), labels_c.flatten(), reduction="none")
-        return (ce * valid.flatten()).sum() / n_valid
+            loss = chunked_cross_entropy(out_t, w, labels_c, valid, chunk=cfg.ce_chunk_size or 256,
+                                         transpose=transpose) / n_valid
+        else:
+            ce = F.cross_entropy(out_t.float().flatten(0, 1), labels_c.flatten(), reduction="none")
+            loss = (ce * valid.flatten()).sum() / n_valid
+        if moe_out:
+            aux = sum(a for a, _ in moe_out)
+            loss = loss + cfg.moe_aux_loss_coef * aux * aux_share
+            self.last_moe = {"aux_loss": aux.detach(),
+                             "drop_frac": torch.stack([d for _, d in moe_out]).detach()}
+        return loss
 
     # ---- ZeRO-Infinity parameter streaming --------------------------------
     # Layer-granular entry points for the param-offload runner
     # (``runtime/zero/param_offload.py``), after the JAX model's
     # ``models/transformer.py:2017-2110``: host-resident blocks stream through
     # these one at a time, on the same modules (and so the same kernels) as
-    # the whole-model forward. MoE models raise at construction (#7).
+    # the whole-model forward. An MoE layer's expert leaves ride its block.
     def stream_plan(self):
         """Block partition of the state dict: ``embed`` and ``tail`` keys,
         and the per-layer keys (``layers.{i}.`` stripped) of ``num_layers``
@@ -1101,12 +1152,17 @@ class CausalLMModel:
             return None, None
         return self.module._rope_table(device)
 
-    def stream_layer(self, layer_tree, h, attn_mask=None, impl="kernel"):
+    def stream_layer(self, layer_tree, h, attn_mask=None, impl="kernel", return_aux=False):
         """One transformer block (no dropout): ``layer_tree`` holds one
-        layer's tensors under their per-layer keys."""
+        layer's tensors under their per-layer keys. ``return_aux``: also
+        return the MoE layer's load-balancing aux loss (zero for a dense
+        block), so the streamed trainer can include its gradient."""
         sin, cos = self._rope(h.device)
-        return torch.func.functional_call(self.module.layers[0], layer_tree, (h, sin, cos, attn_mask),
-                                          {"impl": impl}, strict=True)[0]
+        y, _, moe = torch.func.functional_call(self.module.layers[0], layer_tree, (h, sin, cos, attn_mask),
+                                               {"impl": impl}, strict=True)
+        if not return_aux:
+            return y
+        return y, (moe[0] if moe is not None else torch.zeros((), device=h.device))
 
     def stream_layer_cached(self, layer_tree, h, kv_cache, cache_index, position_ids=None, impl="kernel"):
         """One block writing into (and attending over) this layer's (k, v)
@@ -1163,7 +1219,8 @@ class CausalLMModel:
         projection a padded ``logits_q``, and every other float leaf the
         compute dtype. Same grouping and rounding as the JAX package's
         ``quantize_params`` (projection kernels are quantized from their
-        compute-dtype values, the head from the original ones)."""
+        compute-dtype values, the head from the original ones; MoE expert
+        kernels (E, K, N) per expert, with (E, G, N) scales)."""
         cfg = self.cfg
         gs_cfg = group_size if group_size is not None else (cfg.int8_group_size or 128)
         dtype = dtype or cfg.dtype
@@ -1175,15 +1232,15 @@ class CausalLMModel:
             x = host(x)
             return x.to(dtype) if x.is_floating_point() else x
 
-        def quant(w):  # (K, N) -> int8 (K, N) + (G, N) fp32 scales
+        def quant(w):  # (..., K, N) -> int8 (..., K, N) + (..., G, N) fp32 scales
             w = host(w).float()
-            K, N = w.shape
+            K, N = w.shape[-2:]
             gs = gs_cfg if gs_cfg and K % gs_cfg == 0 else K
-            grouped = w.reshape(K // gs, gs, N)
-            scale = grouped.abs().amax(dim=1, keepdim=True) / 127.0
+            grouped = w.reshape(w.shape[:-2] + (K // gs, gs, N))
+            scale = grouped.abs().amax(dim=-2, keepdim=True) / 127.0
             scale = torch.where(scale == 0, torch.ones_like(scale), scale)
             q = torch.clamp(torch.round(grouped / scale), -127, 127).to(torch.int8)
-            return q.reshape(K, N), scale[:, 0, :].contiguous()
+            return q.reshape(w.shape), scale[..., 0, :].contiguous()
 
         out = {k: to_dtype(v) for k, v in params.items() if not k.startswith("lm_head.")}
 
@@ -1204,6 +1261,12 @@ class CausalLMModel:
                 if base + ".kernel" in out:
                     w = out.pop(base + ".kernel").float()
                     out[base + ".kernel_q"], out[base + ".kernel_scale"] = quant(w)
+            # batched (E, K, N) expert kernels, quantized per expert; the
+            # router stays in the compute dtype
+            for n in ("gate_proj", "up_proj", "down_proj"):
+                key = f"{p}moe.experts.{n}"
+                if key in out:
+                    out[key + "_q"], out[key + "_scale"] = quant(out.pop(key).float())
 
         H = cfg.hidden_size
         if cfg.tie_embeddings:
@@ -1265,6 +1328,12 @@ class CausalLMModel:
             head["logits_bias"] = params["logits_bias"].float()
         return tuple(layers), head
 
+    def expert_pattern(self):
+        """The state-dict key fragment of the expert parameters (the JAX
+        model's ``expert_pattern``), None for a dense model."""
+        from ..moe.layer import EXPERT_KEYS
+        return EXPERT_KEYS if self.cfg.num_experts > 0 else None
+
     def init_cache(self, batch_size, max_len, dtype=None, device=None, quantized=False):
         """Preallocated per-layer KV cache: ``(ks, vs)``, each a tuple of
         ``(B, kv_heads, S, head_dim)`` tensors written in place.
@@ -1285,7 +1354,7 @@ class CausalLMModel:
 
     def apply_with_cache(self, params, input_ids, kv_cache, cache_index, cache_mask=None,
                          position_ids=None, write_index=None, q_spans=None, impl="kernel",
-                         ext_ops=None, **unported):
+                         ext_ops=None, expert_stats=False, **unported):
         """Forward writing into (and attending over) the KV cache. Returns
         (logits, kv_cache). ``cache_index``: the shared write position (an
         int); ``cache_mask``: (B, S) attendable slots. ``write_index``:
@@ -1305,14 +1374,26 @@ class CausalLMModel:
         ``position_ids`` stay LOGICAL. ``sinks``/``windows``: the lossy
         sliding-window mask (0 = exact). Requires the flash span path
         (``attention_impl='flash'``, ``write_index`` and ``q_spans``); other
-        combinations raise ``ValueError``."""
+        combinations raise ``ValueError``.
+
+        ``expert_stats=True`` (an MoE model) also returns the per-layer
+        routed-token counts, (L, E) int32 over the live columns (``q_spans``),
+        as a third output."""
         _reject_unported_args(unported)
         args = (input_ids, cache_mask, kv_cache, 0 if write_index is not None else int(cache_index),
                 position_ids)
-        kwargs = {"impl": impl, "write_index": write_index, "q_spans": q_spans, "ext_ops": ext_ops}
+        stats = [] if expert_stats else None
+        kwargs = {"impl": impl, "write_index": write_index, "q_spans": q_spans, "ext_ops": ext_ops,
+                  "expert_stats": stats}
         if isinstance(params, nn.Module):
-            return params(*args, **kwargs)
-        return torch.func.functional_call(self.module, params, args, kwargs, strict=True)
+            out = params(*args, **kwargs)
+        else:
+            out = torch.func.functional_call(self.module, params, args, kwargs, strict=True)
+        if expert_stats:
+            if not stats:
+                raise ValueError("expert_stats=True on a dense model (num_experts == 0)")
+            return out + (torch.stack(stats), )
+        return out
 
     def fused_paged_step(self, params, input_ids, kv_cache, position_ids, write_index, q_spans,
                          impl="kernel"):
@@ -1387,8 +1468,7 @@ class CausalLMModel:
 
 _UNPORTED_ARGS = {
     "lora_ops": "ROADMAP Queue 1 #9, multi-LoRA",
-    "expert_ops": "ROADMAP Queue 1 #9, MoE serving",
-    "expert_stats": "ROADMAP Queue 1 #9, MoE serving",
+    "expert_ops": "ROADMAP Queue 1 #9, MoE expert offload",
     "seq_shard": "ROADMAP Queue 1 #7, sequence-parallel prefill across devices",
 }
 

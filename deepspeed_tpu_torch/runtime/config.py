@@ -4,7 +4,9 @@ Port of ``deepspeed_tpu/runtime/config.py`` (analogue of the reference
 ``deepspeed/runtime/config.py``: ``DeepSpeedConfig`` :674, batch-size triple
 resolution :738-760). Accepts the same JSON document (path or dict), parses
 every section with the same keys and the same errors, and resolves the
-batch triple at world size 1 (the port trains on one card).
+batch triple over the live ``torch.distributed`` world (``comm``; world
+size 1 without one), the data-parallel degree spanning expert x data as
+in the JAX package.
 
 Sections the port's engine does not run yet raise ``NotImplementedError``
 naming their ROADMAP item when present and not disabled (an empty section,
@@ -116,8 +118,9 @@ class CheckpointConfig(DeepSpeedConfigModel):
 
 
 class MeshConfig(DeepSpeedConfigModel):
-    """The JAX package's parallel axis sizes (same keys). The port trains on
-    one card: every axis must be 1 (ROADMAP Queue 1 #7)."""
+    """The JAX package's parallel axis sizes (same keys). The port runs the
+    expert and data axes (their product is the world size); tensor,
+    pipeline and sequence axes must be 1 (ROADMAP Queue 1 #7)."""
     tensor_parallel_size = ConfigField(default=1, aliases=("model_parallel_size",))
     pipeline_parallel_size = ConfigField(default=1)
     sequence_parallel_size = ConfigField(default=1)
@@ -138,7 +141,6 @@ _UNPORTED_SECTIONS = {
     "hybrid_engine": "ROADMAP Queue 1 #9, RLHF",
     "eigenvalue": "ROADMAP Queue 1 #10, compression",
     "compression_training": "ROADMAP Queue 1 #10, compression",
-    "comms_logger": "ROADMAP Queue 1 #7, distributed runtime",
     "flops_profiler": "ROADMAP Queue 1 #10, profiling",
     "elasticity": "ROADMAP Queue 1 #9, elastic controller",
     "nebula": "ROADMAP Queue 1 #10, checkpoint",
@@ -206,7 +208,7 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
     zero_allow_untested_optimizer = ConfigField(default=True)
     zero_force_ds_cpu_optimizer = ConfigField(default=False)
 
-    def __init__(self, config, mpu=None, world_size=1):
+    def __init__(self, config, mpu=None, world_size=None):
         if isinstance(config, (str, os.PathLike)):
             if not os.path.exists(config):
                 raise DeepSpeedConfigError(f"Config file {config} not found")
@@ -225,6 +227,9 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
         if mpu is not None:
             raise NotImplementedError("deepspeed_tpu_torch does not take a model-parallel unit (mpu) "
                                       "yet (ROADMAP Queue 1 #7, distributed runtime)")
+        if world_size is None:
+            from .. import comm as dist
+            world_size = dist.get_world_size()
         self.world_size = world_size
         self.mpu = mpu
         if self.gradient_checkpointing is not None:
@@ -256,22 +261,27 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
                 raise NotImplementedError(f"deepspeed_tpu_torch does not support the '{key}' config "
                                           f"section yet ({_UNPORTED_SECTIONS[key]})")
         m = self.mesh
-        for axis in ("tensor_parallel_size", "pipeline_parallel_size", "sequence_parallel_size",
-                     "expert_parallel_size"):
+        for axis in ("tensor_parallel_size", "pipeline_parallel_size", "sequence_parallel_size"):
             if getattr(m, axis) != 1:
-                raise NotImplementedError(f"deepspeed_tpu_torch trains on one card: mesh.{axis}="
-                                          f"{getattr(m, axis)} needs ROADMAP Queue 1 #7, distributed "
-                                          f"runtime")
+                raise NotImplementedError(f"deepspeed_tpu_torch runs the expert and data axes only: "
+                                          f"mesh.{axis}={getattr(m, axis)} needs ROADMAP Queue 1 #7, "
+                                          f"distributed runtime")
 
     # -- batch size arithmetic (reference config.py:738-760) ---------------
     def _resolve_data_parallel_size(self):
+        """The data-parallel group spans expert x data; data is what the
+        world leaves after the expert axis (the JAX package's rule)."""
         m = self.mesh
+        if self.world_size % m.expert_parallel_size != 0:
+            raise DeepSpeedConfigError(f"world size {self.world_size} not divisible by "
+                                       f"expert_parallel_size {m.expert_parallel_size}")
+        inferred_data = self.world_size // m.expert_parallel_size
         if m.data_parallel_size is None:
-            m.data_parallel_size = self.world_size
-        elif m.data_parallel_size != self.world_size and self.world_size > 1:
+            m.data_parallel_size = inferred_data
+        elif m.data_parallel_size != inferred_data and (self.world_size > 1 or m.expert_parallel_size > 1):
             raise DeepSpeedConfigError(
                 f"data_parallel_size {m.data_parallel_size} inconsistent with world size "
-                f"{self.world_size} / (tp*pp*sp*ep) = {self.world_size}")
+                f"{self.world_size} / (tp*pp*sp*ep) = {inferred_data}")
 
     def _configure_train_batch_size(self):
         train_batch = self.train_batch_size

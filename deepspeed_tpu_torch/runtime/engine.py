@@ -1,8 +1,9 @@
 """Training engine.
 
 Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``; analogue
-of the reference ``deepspeed/runtime/engine.py``) for one device at ZeRO
-stage 0. The JAX engine compiles one fused train step; the port runs the
+of the reference ``deepspeed/runtime/engine.py``) at ZeRO stage 0, on one
+device or data-parallel over the ranks of a ``torch.distributed`` world
+(``comm``). The JAX engine compiles one fused train step; the port runs the
 same step eagerly, in the same order:
 
 1. per microbatch, cast the fp32 master tensors to the compute dtype inside
@@ -33,6 +34,19 @@ accumulator. ``save_16bit_model`` writes the compute-dtype state dict.
 The overflow flag is read on the host once per step (the JAX engine selects
 on the device). Master weights, gradients and the Adam moments stay fp32 on
 the device.
+
+Data and expert parallelism (the JAX engine's mesh, ``comm.initialize_mesh``
+with the config's ``mesh.expert_parallel_size`` and the data degree the
+world leaves): each rank of the expert x data group trains on its rows of
+the global batch (micro-step g's rows ``[r * micro, (r + 1) * micro)`` of
+the global micro-batch, the JAX layout). A model whose ``loss`` takes
+``n_valid`` gets the global valid-token count (all-reduced first, as the
+JAX loss divides by the global ``sum(valid)``) and its share of the MoE aux
+term, so the ranks' losses sum to the JAX loss; dense gradients are then
+summed over expert x data, the experts' (``moe/layer.py``: a rank holds its
+E/ep of them) over data only, and the clip norm is global. Every replica
+applies the same update to the same values, so replicas stay bitwise equal.
+Another loss function gets the mean of the ranks' losses and gradients.
 
 Telemetry (the JAX engine's wiring): one :class:`TelemetrySink` is the
 single reporting call site; its gauges fan out to the ``tensorboard``,
@@ -73,10 +87,12 @@ Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``. Not ported yet, each raising
 ``NotImplementedError`` naming its ROADMAP item: ZeRO stages 1-3 without
-``offload_param``, pipeline and model parallelism, 1-bit optimizers, a
-resume at another world size, ``deepspeed_io``.
+``offload_param``, the offload tiers across ranks, pipeline, tensor and
+sequence parallelism, 1-bit optimizers, a resume at another world size,
+``deepspeed_io``.
 """
 
+import inspect
 import math
 import os
 import time
@@ -84,6 +100,7 @@ import time
 import numpy as np
 import torch
 
+from .. import comm as dist
 from ..accelerator import get_accelerator, resolve_device
 from ..monitor.monitor import MonitorMaster
 from ..telemetry import SLOEngine, TelemetrySink, set_sink
@@ -159,6 +176,11 @@ class DeepSpeedEngine:
             raise _unported("deepspeed_io / training_data", "ROADMAP Queue 1 #10, runtime/data_pipeline")
         self.training_dataloader = None
 
+        # ---- data and expert parallelism ------------------------------------
+        model = self._configure_parallel(model)
+        self.module = model
+        self.loss_fn = _resolve_loss_fn(model)
+
         # ---- precision ---------------------------------------------------
         self.compute_dtype = self._config.compute_dtype
         self.loss_scaler = create_loss_scaler(self._config.fp16 if self._config.fp16.enabled else None)
@@ -183,6 +205,9 @@ class DeepSpeedEngine:
             self.optimizer = None
         else:
             self.master = self._init_params(model, model_parameters)
+            if getattr(getattr(model, "cfg", None), "moe_local_experts", None):
+                pattern = model.expert_pattern()
+                self._expert_mask = [pattern in k for k in self.master]
             self.optimizer = build_optimizer(self._config.optimizer, self.master,
                                              scanned=getattr(cfg, "scan_layers", False), client=optimizer)
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -260,7 +285,7 @@ class DeepSpeedEngine:
         return self._config.fp16.enabled
 
     def dp_world_size(self):
-        return 1
+        return self._dp
 
     @property
     def config(self):
@@ -279,6 +304,35 @@ class DeepSpeedEngine:
         return float(self.loss_scale_state.cur_scale)
 
     # ------------------------------------------------------------------ init helpers
+    def _configure_parallel(self, model):
+        """Data and expert parallelism over the live world: the mesh
+        (expert x data), this rank's rows, and for an MoE model the model
+        rebuilt on this rank's experts. Returns the model to train."""
+        m = self._config.mesh
+        ep, data = m.expert_parallel_size, m.data_parallel_size
+        self._dp = ep * data
+        self._dp_rank = 0
+        self._expert_mask = None  # per master tensor: an expert of a split expert axis
+        self._global_loss = "n_valid" in inspect.signature(self.loss_fn).parameters
+        if self._dp == 1 and not dist.is_initialized():
+            return model
+        if self._dp != dist.get_world_size():
+            raise ValueError(f"expert x data = {ep} x {data} does not cover the world of "
+                             f"{dist.get_world_size()} ranks")
+        if self.offload_param or self.offload_optimizer:
+            raise _unported("the offload tiers across ranks", "ROADMAP Queue 1 #7, ZeRO across ranks")
+        mesh = dist.get_mesh() if dist.has_mesh() else None
+        if mesh is None or (mesh.shape[dist.EXPERT_AXIS], mesh.shape[dist.DATA_AXIS]) != (ep, data):
+            dist.initialize_mesh(expert=ep, data=data)
+        self._dp_rank = dist.get_rank(dist.DP_AXES)
+        cfg = getattr(model, "cfg", None)
+        if getattr(cfg, "num_experts", 0) > 0:
+            from ..moe.layer import shard_config
+            sharded = shard_config(cfg)
+            if sharded != cfg:
+                model = type(model)(sharded)
+        return model
+
     def _configure_remat(self, model):
         """The ``activation_checkpointing`` section as the model's remat
         policy (the JAX engine's ``engine.py:124-143``)."""
@@ -304,7 +358,16 @@ class DeepSpeedEngine:
         if model_parameters is None:
             if not hasattr(model, "init_params"):
                 raise ValueError("Provide model_parameters or a model with init_params(seed)")
-            model_parameters = model.init_params(self._config.seed)
+            init = model
+            cfg = getattr(model, "cfg", None)
+            if getattr(cfg, "moe_local_experts", None):  # every rank draws the full tree
+                import dataclasses
+                init = type(model)(dataclasses.replace(cfg, moe_local_experts=None))
+            model_parameters = init.init_params(self._config.seed)
+        cfg = getattr(model, "cfg", None)
+        if getattr(cfg, "moe_local_experts", None):
+            from ..moe.layer import shard_params
+            model_parameters = shard_params(model_parameters, cfg)
         return {k: torch.as_tensor(v).to(self.device, torch.float32).requires_grad_(True)
                 for k, v in model_parameters.items()}
 
@@ -371,6 +434,10 @@ class DeepSpeedEngine:
         keys = list(params)
         if rng is not None:
             loss_kwargs["rng"] = rng
+        if self._dp > 1 and self._global_loss:
+            labels = batch["labels"] if "labels" in batch else batch["input_ids"][:, 1:]
+            n_valid = dist.all_reduce((labels >= 0).sum(), group=dist.DP_AXES)
+            loss_kwargs.update(n_valid=torch.clamp(n_valid, min=1), aux_share=1.0 / self._dp)
         with torch.enable_grad():
             p_c = {k: params[k].to(self.compute_dtype) for k in keys}
             loss = self.loss_fn(p_c, batch, **loss_kwargs)
@@ -393,13 +460,48 @@ class DeepSpeedEngine:
             return min(1.0, clip / (gnorm + 1e-6))
         return None
 
+    def _reduce(self, tensors, group, op):
+        """All-reduce a list of tensors in place, as one flat buffer."""
+        if not tensors or dist.get_world_size(group) == 1:
+            return
+        flat = dist.all_reduce(torch._utils._flatten_dense_tensors(tensors), op=op, group=group)
+        for t, r in zip(tensors, torch._utils._unflatten_dense_tensors(flat, tensors)):
+            t.copy_(r)
+
+    @torch.no_grad()
+    def _reduce_grads(self, grads, loss_mean):
+        """Data parallelism: sum the ranks' gradients (those of a split
+        expert axis's experts over ``data`` only) and their losses, or
+        average both for a loss without the global valid count. Returns the
+        loss."""
+        if self._dp == 1:
+            return loss_mean
+        op = dist.ReduceOp.SUM if self._global_loss else dist.ReduceOp.AVG
+        mask = self._expert_mask or [False] * len(grads)
+        self._reduce([g for g, e in zip(grads, mask) if not e], dist.DP_AXES, op)
+        self._reduce([g for g, e in zip(grads, mask) if e], dist.DATA_AXIS, op)
+        return dist.all_reduce(loss_mean.float(), op=op, group=dist.DP_AXES)
+
+    def _global_norm(self, grads):
+        """The fp32 norm of the whole model's gradient: a split expert
+        axis's experts' squares summed over ``expert``, the rest shared."""
+        if self._expert_mask is None:
+            return float(torch.linalg.vector_norm(torch.stack(tensor_norms(grads))))
+
+        def sq(keep):
+            return torch.stack([torch.sum(torch.square(g)) for g, e in zip(grads, self._expert_mask)
+                                if e == keep]).sum()
+
+        return float(torch.sqrt(sq(False) + dist.all_reduce(sq(True), group=dist.EXPERT_AXIS)))
+
     @torch.no_grad()
     def _apply_grads(self, grads, loss_mean):
-        """Unscale, norm, overflow skip, clip, update (``grads`` is consumed
-        in place)."""
+        """Reduce over the data-parallel ranks, unscale, norm, overflow skip,
+        clip, update (``grads`` is consumed in place)."""
+        loss_mean = self._reduce_grads(grads, loss_mean)
         scale = self.loss_scale_state.cur_scale
         torch._foreach_div_(grads, self._grad_denom(scale))
-        gnorm = float(torch.linalg.vector_norm(torch.stack(tensor_norms(grads))))
+        gnorm = self._global_norm(grads)
         overflow = not math.isfinite(gnorm)
         lr = float(self.lr_schedule_fn(self.step_count))
         if overflow:
@@ -490,6 +592,14 @@ class DeepSpeedEngine:
             out[k] = t.to(self.device)
         return out
 
+    def _my_rows(self, x, lead):
+        """This rank's rows of a global batch leaf viewed as ``lead`` =
+        (gas, dp, micro) + rest: (gas * micro) + rest."""
+        x = x if isinstance(x, torch.Tensor) else np.asarray(x)
+        gas, dp, micro = lead
+        mine = x.reshape(lead + tuple(x.shape[1:]))[:, self._dp_rank]
+        return mine.reshape((gas * micro, ) + tuple(x.shape[1:]))
+
     def _next_microbatches(self, data_iter, n):
         batches = []
         for _ in range(n):
@@ -513,16 +623,21 @@ class DeepSpeedEngine:
             return self._param_stream_train_batch(data_iter, batch, gas)
         if batch is not None:
             leading = {int(np.shape(x)[0]) for x in batch.values()}
-            if leading != {self.train_batch_size()}:
+            share = self.train_batch_size() // self._dp
+            if leading == {self.train_batch_size()}:  # the global batch: this rank's rows
+                batch = {k: self._my_rows(x, (gas, self._dp, micro)) for k, x in batch.items()}
+            elif leading != {share}:
                 raise ValueError(
                     f"train_batch(batch=...) leaves have leading dim {sorted(leading)}; expected "
                     f"{self.train_batch_size()} samples (train_batch {self.train_batch_size()} = "
-                    f"micro {micro} x gas {gas} x dp 1)")
+                    f"micro {micro} x gas {gas} x dp {self._dp}) or this rank's {share}")
             stacked = self._place(batch, (gas, micro))
         else:
             if data_iter is None:
                 raise _unported("training_data loaders", "ROADMAP Queue 1 #10, runtime/data_pipeline")
             mbs = self._next_microbatches(data_iter, gas)
+            if self._dp > 1 and {int(np.shape(x)[0]) for x in mbs[0].values()} == {micro * self._dp}:
+                mbs = [{k: self._my_rows(x, (1, self._dp, micro))[0] for k, x in mb.items()} for mb in mbs]
             stacked = self._place({k: np.stack([np.asarray(mb[k]) for mb in mbs]) for k in mbs[0]})
 
         t0 = time.perf_counter() if self.telemetry.enabled else None

@@ -301,6 +301,11 @@ class ParamStreamRunner:
             self._scale, self._scale_dynamic = 1.0, False
 
         self.plan = model.stream_plan()
+        # MoE: expert leaves ride each layer block; the gating aux loss
+        # enters through each layer's backward (the JAX runner's rule)
+        cfg_m = getattr(model, "cfg", None)
+        self._moe = getattr(cfg_m, "num_experts", 0) > 0
+        self._aux_coef = float(getattr(cfg_m, "moe_aux_loss_coef", 0.0)) if self._moe else 0.0
         self.L = self.plan["num_layers"]
         self._layer_names = [f"layer{i:05d}" for i in range(self.L)]
         self._shapes = model.param_shapes()
@@ -414,12 +419,18 @@ class ParamStreamRunner:
         bwd = names[::-1]
         ep = ex.take("embed", ahead=fwd[1:])
         acts = []
+        aux_total = 0.0
         with torch.no_grad():
             h = model.stream_embed(ep, ids).to(cd)
             for i, name in enumerate(names):
                 lp = ex.take(name, ahead=fwd[i + 2:])
                 acts.append(h)
-                h = model.stream_layer(self._local(lp, name), h, mask).to(cd)
+                if self._moe:
+                    h, aux = model.stream_layer(self._local(lp, name), h, mask, return_aux=True)
+                    aux_total = aux_total + aux.float()
+                else:
+                    h = model.stream_layer(self._local(lp, name), h, mask)
+                h = h.to(cd)
                 del lp
         tp = ex.take("tail", ahead=bwd)
         with torch.enable_grad():
@@ -427,6 +438,8 @@ class ParamStreamRunner:
             h = h.requires_grad_(True)
             loss = model.stream_tail_loss(tp, h, labels, valid, shift=shift)
             g = torch.autograd.grad(loss.float() * scale, [*tp.values(), h])
+        if self._moe:  # CE + coef * sum(aux), as the on-device engine reports it
+            loss = loss + self._aux_coef * aux_total
         dh = g[-1]
         sink("tail", dict(zip(tp, g[:-1])))
         del tp, h, g
@@ -435,8 +448,17 @@ class ParamStreamRunner:
             with torch.enable_grad():
                 lp = {k: v.requires_grad_(True) for k, v in lp.items()}
                 x = acts.pop().requires_grad_(True)
-                y = model.stream_layer(lp, x, mask).to(cd)
-                g = torch.autograd.grad(y, [*lp.values(), x], grad_outputs=dh)
+                if self._moe:
+                    # the layer's aux loss enters with its coefficient and the
+                    # loss scale, so the gate's and experts' gradients carry
+                    # the load balancing
+                    y, aux = model.stream_layer(lp, x, mask, return_aux=True)
+                    g = torch.autograd.grad([y.to(cd), aux.float()], [*lp.values(), x],
+                                            grad_outputs=[dh, torch.tensor(self._aux_coef * scale,
+                                                                           device=aux.device)])
+                else:
+                    y = model.stream_layer(lp, x, mask).to(cd)
+                    g = torch.autograd.grad(y, [*lp.values(), x], grad_outputs=dh)
             dh = g[-1]
             pre = f"layers.{int(name[5:])}."
             sink(name, {pre + k: gk for k, gk in zip(lp, g[:-1])})
@@ -630,10 +652,17 @@ class ParamStreamRunner:
         names = self._layer_names
         fwd = ["embed"] + names + ["tail"]
         h = model.stream_embed(ex.take("embed", ahead=fwd[1:]), ids).to(cd)
+        aux_total = 0.0
         for i, name in enumerate(names):
-            h = model.stream_layer(self._local(ex.take(name, ahead=fwd[i + 2:]), name), h, mask).to(cd)
+            lp = self._local(ex.take(name, ahead=fwd[i + 2:]), name)
+            if self._moe:
+                h, aux = model.stream_layer(lp, h, mask, return_aux=True)
+                aux_total += float(aux)
+            else:
+                h = model.stream_layer(lp, h, mask)
+            h = h.to(cd)
         loss = model.stream_tail_loss(ex.take("tail"), h, labels, valid, shift=shift)
-        return {"loss": float(loss)}
+        return {"loss": float(loss) + self._aux_coef * aux_total}
 
     # -- ZeRO-Inference: generate from streamed weights ---------------------
     @torch.no_grad()

@@ -1,6 +1,6 @@
 """Logging (reference ``deepspeed/utils/logging.py``): ``logger`` and
-``log_dist``. The port runs as a single process, so every rank filter
-resolves to rank 0."""
+``log_dist``. A rank filter reads the ``torch.distributed`` rank when a
+process group is live (``comm.init_distributed``), else rank 0."""
 
 import logging
 import os
@@ -35,6 +35,8 @@ logger = _create_logger("DeepSpeedTorch",
 
 def log_dist(message, ranks=None, level=logging.INFO):
     """Log ``message`` when rank 0 is listed in ``ranks`` (``-1`` = all)."""
+    import torch.distributed as dist
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
     ranks = [-1] if ranks is None else ranks
-    if 0 in ranks or -1 in ranks:
-        logger.log(level, f"[Rank 0] {message}")
+    if rank in ranks or -1 in ranks:
+        logger.log(level, f"[Rank {rank}] {message}")

@@ -49,7 +49,8 @@ def test_inference_config_aliases_and_unknown_keys():
 
 @pytest.mark.parametrize("section", [{"continuous_batching": {"replicas": 2}},
                                      {"continuous_batching": {"autoscaler": {"enabled": True}}},
-                                     {"moe": {"ep_size": 2}}, {"checkpoint": "ckpt"}])
+                                     {"continuous_batching": {"expert_offload": {"enabled": True}}},
+                                     {"checkpoint": "ckpt"}])
 def test_unported_sections_raise_when_enabled(section):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tcfg.DeepSpeedInferenceConfig(section)

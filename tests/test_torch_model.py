@@ -113,8 +113,8 @@ def test_full_forward_matches_jax(name):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tm.get_model("tiny-moe")
+    with pytest.raises(NotImplementedError, match="alibi"):
+        tm.get_model("tiny", pos_embedding="alibi")
     tmod = tm.get_model("tiny", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="lora_ops"):
         tmod.apply_with_cache({}, torch.zeros(1, 1).long(), tmod.init_cache(1, 64), 0,

@@ -75,7 +75,7 @@ def test_bad_keys_raise_the_jax_error_text(keys):
     {"data_efficiency": {"enabled": True}},
     {"hybrid_engine": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
-    {"comms_logger": {"enabled": True}},
+    {"flops_profiler": {"enabled": True}},
     {"mesh": {"tensor_parallel_size": 2}},
 ])
 def test_sections_not_ported_raise(section):
