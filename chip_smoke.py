@@ -190,6 +190,21 @@ Phases (any failure ends the run with a non-zero exit):
    tokens/s and MFU; (d) ZeRO-Inference, ``param_stream.generate`` on (c)'s
    2-layer weights: greedy tokens equal the dense ``generate()``'s, with
    exact flash and decode launches;
+8d. ZeRO stages 0-3 (``zero_phase``; ``python3 chip_smoke.py --zero`` runs
+   it alone): llama3-8b at full width, depth cut to 2 layers, seq 2048,
+   micro 1, gas 2, bf16 compute, fp32 master AdamW, clip 1.0, seeded
+   weights made on the card, an NCCL world of 1 from ``init_distributed()``
+   (every shard whole; stage 3 still gathers, releases and re-gathers each
+   block, prefetches on a side stream and reduces each gradient through
+   its gather): 3 steps at each stage on the same weights and batches,
+   engines freed in turn; stages 1 and 2 bitwise stage 0 (losses and
+   master), stage 3 within ``ZERO_LOSS_RTOL`` of its losses and
+   ``ZERO_MASTER_REL_L2`` of each master tensor, and bitwise a second
+   stage-3 run; exact flash launches at every stage and exact block gathers
+   at stage 3 (L + 2 a micro-step forward, L + 1 backward); step ms, peak
+   GiB and the ``comm/overlap_efficiency`` and ``comm/all_gather`` gauges
+   per stage; a checkpoint saved at stage 3 before its last step resumes
+   at stage 3 (that step bitwise) and at stage 0 (the master bitwise);
 9. block-sparse attention, the main path of its three kernels: at
    gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
    ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
@@ -4165,6 +4180,189 @@ def moe_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8d: ZeRO stages 0-3 on llama3-8b (NCCL world of 1)
+
+ZERO_MODEL, ZERO_LAYERS, ZERO_SEQ, ZERO_GAS, ZERO_STEPS = "llama3-8b", 2, 2048, 2, 3
+ZERO_LOSS_RTOL = 2e-4      # stage 3 against stage 0: the JAX test's bound (tests/unit/test_engine.py:58)
+ZERO_MASTER_REL_L2 = 1e-3  # stage 3's masters against stage 0's, a tensor
+
+
+def _zero_engine(torch, dev, stage, tel_dir):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    model = get_model(ZERO_MODEL, num_layers=ZERO_LAYERS, attention_impl="flash")
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": ZERO_GAS,
+              "zero_optimization": {"stage": stage},
+              "telemetry": {"enabled": True, "output_path": tel_dir}}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=random_params(torch, model, dev, SEED, int8=False), config=config,
+        device=dev)
+    return engine
+
+
+def _master_copy(engine):
+    """The master's tensors cloned on the card (the comparisons run there;
+    each run's peak is taken above what these copies hold)."""
+    return {k: v.detach().clone() for k, v in engine.master.items()}
+
+
+def zero_stage_run(torch, dev, stage, batch, tel_dir, save_dir=None):
+    """``ZERO_STEPS`` steps at ``stage`` on fresh seeded weights; with
+    ``save_dir`` a checkpoint after step ``ZERO_STEPS - 1`` (the master then
+    is kept too). Returns the losses, step ms, peak GiB, launches, block
+    gathers, the comm gauges and the final master."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # the earlier runs' kept masters
+    t0 = time.perf_counter()
+    engine = _zero_engine(torch, dev, stage, tel_dir)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    out = {"losses": [], "ms": [], "comm": [], "built_s": built}
+    g = engine._stage3.gatherer if engine._stage3 is not None else None
+    before = dict(g.counts) if g is not None else None
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(ZERO_STEPS):
+        if save_dir is not None and step == ZERO_STEPS - 1:
+            t = time.perf_counter()
+            engine.save_checkpoint(save_dir, tag="zero")
+            out["save_s"] = time.perf_counter() - t
+            out["saved_master"] = _master_copy(engine)
+            held += sum(t.numel() * t.element_size() for t in out["saved_master"].values())  # not the engine's
+        losses, secs = timed_steps(torch, engine, batch, 1)
+        out["losses"] += losses
+        out["ms"] += [s * 1e3 for s in secs]
+        out["comm"].append(dict(engine.last_comm_overlap["ops"]) if engine.last_comm_overlap else {})
+        out.setdefault("efficiency", []).append(engine.last_comm_overlap["overlap_efficiency"]
+                                                if engine.last_comm_overlap else None)
+    out["counts"] = read_counts()
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    if g is not None:
+        out["gathers"] = {k: g.counts[k] - before[k] for k in g.counts}
+        out["predicted"] = engine._stage3.predicted_gathers()
+    out["master"] = _master_copy(engine)
+    engine.telemetry.close()
+    del engine, g
+    torch.cuda.empty_cache()
+    # nothing outlives the engine (a reference cycle would keep its 16.6 GiB
+    # of master and moments until a garbage collection)
+    left = (torch.cuda.memory_allocated() - held) / 2**30 - sum(
+        t.numel() * t.element_size() for t in out["master"].values()) / 2**30
+    check(left < 1.0, f"zero stage {stage}: {left:.3f} GiB still held after the engine was dropped")
+    return out
+
+
+def _zero_resume(torch, dev, stage, batch, tel_dir, save_dir):
+    """A fresh engine at ``stage`` loading the checkpoint: its loaded master,
+    then one step's loss and master."""
+    engine = _zero_engine(torch, dev, stage, tel_dir)
+    t = time.perf_counter()
+    engine.load_checkpoint(save_dir, tag="zero")
+    load_s = time.perf_counter() - t
+    loaded = _master_copy(engine)
+    loss = float(engine.train_batch(batch=batch))
+    master = _master_copy(engine)
+    engine.telemetry.close()
+    del engine
+    torch.cuda.empty_cache()
+    return {"loaded": loaded, "loss": loss, "master": master, "load_s": load_s}
+
+
+def _zero_rel_l2(torch, a, b):
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def _bitwise(a, b):
+    import torch
+    return all(torch.equal(a[k], b[k]) for k in b)
+
+
+def zero_phase(torch, card, dev):
+    """(a) stages 0-3 on the same weights and batches, ``ZERO_STEPS``
+    steps each: stages 1 and 2 bitwise stage 0, stage 3 within
+    ``ZERO_LOSS_RTOL`` / ``ZERO_MASTER_REL_L2`` and bitwise its repeat;
+    (b) exact block gathers and flash launches; (c) step ms, peak GiB and
+    the comm gauges per stage; (d) a stage-3 checkpoint resumed at stage 3
+    (bitwise the uninterrupted step) and at stage 0 (the master bitwise).
+    Returns stage 3's launch counts."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.models import get_model
+    cfg = get_model(ZERO_MODEL, num_layers=ZERO_LAYERS, attention_impl="flash").cfg
+    batch = {"input_ids": np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, (ZERO_GAS, ZERO_SEQ))}
+    dist.init_distributed(verbose=False, device=dev.type)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        log(f"zero: {ZERO_MODEL} at full width, {ZERO_LAYERS} of {32} layers, seq {ZERO_SEQ}, micro 1, gas "
+            f"{ZERO_GAS}, bf16 compute, fp32 master AdamW, clip 1.0; an NCCL world of "
+            f"{dist.get_world_size()} ({card}): every shard is whole, the stage-3 machinery runs")
+        runs = {}
+        for stage in (0, 1, 2, 3):
+            runs[stage] = zero_stage_run(torch, dev, stage, batch, tmp,
+                                         save_dir=os.path.join(tmp, "ckpt") if stage == 3 else None)
+            if stage in (1, 2):  # (a) stage 0's arithmetic at world 1
+                r = runs[stage]
+                check(r["losses"] == runs[0]["losses"], f"zero stage {stage}: losses {r['losses']} "
+                      f"!= stage 0's {runs[0]['losses']}")
+                check(_bitwise(r.pop("master"), runs[0]["master"]),
+                      f"zero stage {stage}: the master after {ZERO_STEPS} steps is not bitwise stage 0's")
+        runs["3 again"] = zero_stage_run(torch, dev, 3, batch, tmp)
+        want = expected_train_counts(cfg, ZERO_STEPS, gas=ZERO_GAS)
+        base = runs[0]
+        for stage, r in runs.items():
+            ag = r["comm"][-1].get("all_gather", {})
+            log(f"zero stage {stage}: losses {r['losses']}, steps {[round(x, 3) for x in r['ms']]} ms, peak "
+                f"{r['peak_gib']:.3f} GiB, built in {r['built_s']:.1f} s; comm/overlap_efficiency "
+                f"{r['efficiency']}, comm/all_gather/realized_ms "
+                f"{ag.get('realized_s', 0.0) * 1e3:.3f}, comm/all_gather/dispatch_ms "
+                f"{ag.get('dispatch_s', 0.0) * 1e3:.3f} (last step), ops "
+                f"{sorted(r['comm'][-1])}; {card}")
+            check(np.isfinite(r["losses"]).all(), f"zero stage {stage}: non-finite loss {r['losses']}")
+            check(r["counts"] == want, f"zero stage {stage}: launch counts {r['counts']} != {want}")
+        s3 = runs[3]
+        rel = [abs(a - b) / abs(b) for a, b in zip(s3["losses"], base["losses"])]
+        worst = max((_zero_rel_l2(torch, s3["master"][k], base["master"][k]), k) for k in base["master"])
+        log(f"zero stage 3 vs 0: loss rel {[f'{x:.3e}' for x in rel]} (limit {ZERO_LOSS_RTOL:g}), worst master "
+            f"rel L2 {worst[0]:.3e} ({worst[1]}; limit {ZERO_MASTER_REL_L2:g}), bitwise "
+            f"{_bitwise(s3['master'], base['master'])}")
+        check(max(rel) <= ZERO_LOSS_RTOL, f"zero stage 3: losses {s3['losses']} vs stage 0 {base['losses']}")
+        check(worst[0] <= ZERO_MASTER_REL_L2, f"zero stage 3: master {worst[1]} rel L2 {worst[0]}")
+        again = runs["3 again"]
+        check(again["losses"] == s3["losses"] and _bitwise(again.pop("master"), s3["master"]),
+              "zero stage 3: two runs (one saving a checkpoint) are not bitwise equal")
+        del base["master"]
+        # (b) block gathers: every block forward, each block with a saved
+        # parameter (the layers and the head, not the embedding lookup) backward
+        fwd, bwd = s3["predicted"]
+        design = {"forward": (ZERO_LAYERS + 2) * ZERO_GAS * ZERO_STEPS,
+                  "backward": (ZERO_LAYERS + 1) * ZERO_GAS * ZERO_STEPS}
+        log(f"zero stage 3 block gathers over {ZERO_STEPS} steps: {s3['gathers']}, design {design} "
+            f"(forward L + 2 = {fwd}, backward L + 1 = {bwd} a micro-step)")
+        check(s3["gathers"] == design and (fwd, bwd) == (ZERO_LAYERS + 2, ZERO_LAYERS + 1),
+              f"zero stage 3: block gathers {s3['gathers']} != {design}")
+        # (d) checkpoints
+        ck = os.path.join(tmp, "ckpt")
+        nbytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ck) for f in fs)
+        same = _zero_resume(torch, dev, 3, batch, tmp, ck)
+        check(_bitwise(same.pop("loaded"), s3["saved_master"]), "zero: stage-3 resume did not load the saved master")
+        check(same["loss"] == s3["losses"][-1] and _bitwise(same.pop("master"), s3.pop("master")),
+              f"zero: the resumed stage-3 step ({same['loss']}) is not bitwise the uninterrupted one "
+              f"({s3['losses'][-1]})")
+        zero = _zero_resume(torch, dev, 0, batch, tmp, ck)
+        check(_bitwise(zero.pop("loaded"), s3.pop("saved_master")),
+              "zero: the stage-0 resume's master is not bitwise the stage-3 master gathered")
+        log(f"zero checkpoint at stage 3: {nbytes / 2**30:.2f} GiB saved in {s3['save_s']:.1f} s; resumed at "
+            f"stage 3 bitwise (loaded in {same['load_s']:.1f} s), at stage 0 the master bitwise (loaded in "
+            f"{zero['load_s']:.1f} s, next loss {zero['loss']:.6f} vs stage 3's {same['loss']:.6f}); {card}")
+        return s3["counts"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: the training engine's features on the training path
 
 FEATURE_MODEL = "gpt2-large"
@@ -5030,7 +5228,8 @@ def main(argv=()):
     run only the training-features phase; ``--offload``: build every
     kernel and run only the offload tiers' phase; ``--kv-tier``: build every
     kernel and run only the hierarchical KV tier's phase; ``--moe``: build
-    every kernel and run only the mixtral-8x7b phase. Each compares a change
+    every kernel and run only the mixtral-8x7b phase; ``--zero``: build every
+    kernel and run only the ZeRO stages' phase. Each compares a change
     with its parent in one call: run this file beside each tree's package,
     in turns."""
     import torch
@@ -5087,6 +5286,10 @@ def main(argv=()):
         timed_phase("mixtral-8x7b", moe_phase, torch, card)
         log(card)
         return 0
+    if list(argv) == ["--zero"]:
+        timed_phase("zero stages", zero_phase, torch, card, dev)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -5137,6 +5340,11 @@ def main(argv=()):
                 results[name].setdefault("mixtral_launches", {})[path] = n
     timed_phase("training features", train_features_phase, torch, card, dev)
     timed_phase("offload tiers", offload_phase, torch, card)
+    # ZeRO stages 0-3 on llama3-8b: the flash kernels' launches at stage 3
+    zero_counts = timed_phase("zero stages", zero_phase, torch, card, dev)
+    for name, n in zero_counts.items():
+        if n and name in results:
+            results[name].setdefault("zero_stage3_launches", {})[f"{ZERO_STEPS} llama3-8b steps"] = n
     # the sparse path is the main path of the three block-sparse kernels
     sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:

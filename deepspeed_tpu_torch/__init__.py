@@ -10,7 +10,9 @@ per-projection kernels), serves continuous batching through
 cache, int8 KV, on the paged decode and span kernels) and trains through ``initialize()``
 → ``train_batch()`` (fp32 master weights, bf16 compute, AdamW, flash
 attention's forward and backward kernels; data-parallel over a
-``torch.distributed`` world, ``comm``), serves and trains MoE models
+``torch.distributed`` world, ``comm``, at ZeRO stages 0-3 with the
+sharding planner of ``runtime/zero/sharding.py``, and with the ZeRO-Offload
+and ZeRO-Infinity tiers on one rank or many), serves and trains MoE models
 (``moe``: Mixtral, with expert parallelism), and runs block-sparse attention
 (``ops.sparse_attention``: every ``SparsityConfig``, forward and backward
 on three table-driven kernels); see ``ROADMAP.md`` for what is still to

@@ -21,20 +21,24 @@ eagerly on its tensors:
 - :func:`all_reduce_autograd` and :class:`AllToAll` are the
   differentiable forms the MoE layer and the data-parallel loss use.
 
-``ppermute``, ``send_recv_next``/``send_recv_prev`` and the overlap
-tracker (``comm/overlap.py``) are not ported yet (ROADMAP Queue 1 #7:
-the pipeline and ring attention).
+While a telemetry sink is live, ``barrier``, ``host_broadcast`` and
+``host_allgather`` run inside the overlap tracker's ``track_host``
+(``comm/overlap.py``; the JAX ``comm.py:236-244``). ``ppermute`` and
+``send_recv_next``/``send_recv_prev`` are not ported yet (ROADMAP Queue 1
+#7: the pipeline and ring attention).
 """
 
 import datetime
 import math
 import os
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
 from ..utils.logging import logger
+from .overlap import get_overlap_tracker
 
 # ---------------------------------------------------------------------------
 # canonical mesh axis names (process-group equivalents)
@@ -270,10 +274,22 @@ def get_process_count():
     return get_world_size()
 
 
+def _tracked_host(op_name):
+    """The overlap tracker's realized/exposed bracket of a synchronous
+    host-context collective while a telemetry sink is live, else a no-op
+    context."""
+    from ..telemetry import get_sink
+    sink = get_sink()
+    if sink is not None and sink.enabled:
+        return get_overlap_tracker().track_host(op_name)
+    return nullcontext()
+
+
 def barrier(group=None):
     pg, n = _pg(group)
     if n > 1:
-        tdist.barrier(group=pg)
+        with _tracked_host("barrier"):
+            tdist.barrier(group=pg)
 
 
 def monitored_barrier(group=None, timeout=None, wait_all_ranks=False):
@@ -412,9 +428,28 @@ def inference_all_reduce(tensor, op=ReduceOp.SUM, group=None):
     return all_reduce(tensor, op=op, group=group)
 
 
-def _gather_list(tensor, pg, n):
+def _members_sorted(group):
+    """(members in member order, the same sorted) of an axis-name group
+    whose members are not in increasing global-rank order, else None:
+    torch numbers a process group's ranks by global rank, the mesh by the
+    group's axes in the order given."""
+    if isinstance(group, tdist.ProcessGroup) or not tdist.is_initialized():
+        return None
+    if group is None and _state["mesh"] is None:
+        return None
+    members = get_mesh().group_ranks(_axes(group))
+    srt = sorted(members)
+    return None if srt == members else (members, srt)
+
+
+def _gather_list(tensor, pg, n, group=None):
+    """Every member's ``tensor``, in member order."""
     parts = [torch.empty_like(tensor) for _ in range(n)]
     tdist.all_gather(parts, tensor.contiguous(), group=pg)
+    order = _members_sorted(group)
+    if order is not None:
+        members, srt = order
+        parts = [parts[srt.index(m)] for m in members]
     return parts
 
 
@@ -444,7 +479,7 @@ def all_gather(tensor, group=None, axis=0, tiled=True):
         for _ in _group_shape(group):
             out = out.unsqueeze(axis)
         return out
-    parts = _gather_list(tensor, pg, n)
+    parts = _gather_list(tensor, pg, n, group)
     if tiled:
         return torch.cat(parts, dim=axis)
     out = torch.stack(parts, dim=axis)
@@ -471,6 +506,11 @@ def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, scatter_dimension=0, til
         out = full.chunk(n, dim=d)[get_rank(group)]
     else:
         moved = tensor.movedim(d, 0).contiguous()
+        order = _members_sorted(group)
+        if order is not None:  # process-group rank i (global srt[i]) gets its member's chunk
+            members, srt = order
+            chunks = moved.chunk(n)
+            moved = torch.cat([chunks[members.index(g)] for g in srt])
         out = torch.empty((moved.shape[0] // n, ) + moved.shape[1:], dtype=tensor.dtype, device=tensor.device)
         # reduce_scatter_single is reduce_scatter_tensor's newer name
         rs = getattr(tdist, "reduce_scatter_single", None) or tdist.reduce_scatter_tensor
@@ -523,7 +563,8 @@ def broadcast(tensor, src=0, group=None):
     if n == 1:
         return tensor
     out = tensor.clone().contiguous()
-    tdist.broadcast(out, src=tdist.get_global_rank(pg, src), group=pg)
+    order = _members_sorted(group)
+    tdist.broadcast(out, src=order[0][src] if order is not None else tdist.get_global_rank(pg, src), group=pg)
     return out
 
 
@@ -549,7 +590,8 @@ def host_broadcast(in_tree, src=0):
     if get_world_size() == 1:
         return in_tree
     box = [in_tree]
-    tdist.broadcast_object_list(box, src=src)
+    with _tracked_host("host_broadcast"):
+        tdist.broadcast_object_list(box, src=src)
     return box[0]
 
 
@@ -558,7 +600,8 @@ def host_allgather(in_tree):
     if get_world_size() == 1:
         return _tree_map(lambda x: np.asarray(x)[None], in_tree)
     trees = [None] * get_world_size()
-    tdist.all_gather_object(trees, in_tree)
+    with _tracked_host("host_allgather"):
+        tdist.all_gather_object(trees, in_tree)
     return _tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]), trees[0], *trees[1:])
 
 

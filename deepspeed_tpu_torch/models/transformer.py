@@ -301,13 +301,14 @@ def resolve_remat_policy(name):
                      f"jax.checkpoint_policies: {list(_JAX_POLICY_NAMES)}")
 
 
-def _remat_block(blk, context_fn, x, sin, cos, attn_mask, position_ids, impl, key):
+def _remat_block(blk, context_fn, x, sin, cos, attn_mask, position_ids, impl, key, tensors=None):
     """``blk`` on ``x`` under a non-reentrant checkpoint; returns (x, the
     MoE layer's (aux_loss, drop_frac) or None). The block's
     tensors go in as an argument and every run binds them again: the
     backward pass recomputes outside the caller's ``functional_call``, where
-    the module holds meta tensors."""
-    tensors = dict(blk.named_buffers())
+    the module holds meta tensors. ``tensors``: the block's tensors when the
+    caller binds none (the streamed layer)."""
+    tensors = dict(blk.named_buffers()) if tensors is None else tensors
 
     def run(x, tensors):
         out = torch.func.functional_call(blk, tensors, (x, sin, cos, attn_mask),
@@ -1152,14 +1153,27 @@ class CausalLMModel:
             return None, None
         return self.module._rope_table(device)
 
-    def stream_layer(self, layer_tree, h, attn_mask=None, impl="kernel", return_aux=False):
-        """One transformer block (no dropout): ``layer_tree`` holds one
-        layer's tensors under their per-layer keys. ``return_aux``: also
-        return the MoE layer's load-balancing aux loss (zero for a dense
-        block), so the streamed trainer can include its gradient."""
+    def stream_layer(self, layer_tree, h, attn_mask=None, impl="kernel", return_aux=False, dropout_key=None,
+                     remat=False, moe_out=None):
+        """One transformer block: ``layer_tree`` holds one layer's tensors
+        under their per-layer keys. ``return_aux``: also return the MoE
+        layer's load-balancing aux loss (zero for a dense block), so the
+        streamed trainer can include its gradient. ``dropout_key``: this
+        layer's dropout key (``fold_in`` of the micro-step's key and the
+        layer index, as :meth:`loss` folds it), else no dropout. ``remat``:
+        run the block under the model's remat policy when grad is on, as
+        :meth:`loss` does. ``moe_out``: a list that receives the MoE layer's
+        ``(aux_loss, drop_frac)``."""
         sin, cos = self._rope(h.device)
-        y, _, moe = torch.func.functional_call(self.module.layers[0], layer_tree, (h, sin, cos, attn_mask),
-                                               {"impl": impl}, strict=True)
+        blk = self.module.layers[0]
+        if remat and self.module._remat is not None and torch.is_grad_enabled():
+            y, moe = _remat_block(blk, self.module._remat, h, sin, cos, attn_mask, None, impl, dropout_key,
+                                  tensors=layer_tree)
+        else:
+            y, _, moe = torch.func.functional_call(blk, layer_tree, (h, sin, cos, attn_mask),
+                                                   {"impl": impl, "dropout_key": dropout_key}, strict=True)
+        if moe is not None and moe_out is not None:
+            moe_out.append(moe)
         if not return_aux:
             return y
         return y, (moe[0] if moe is not None else torch.zeros((), device=h.device))
@@ -1189,17 +1203,20 @@ class CausalLMModel:
             return logits.reshape(B, T, -1)
         return torch.func.functional_call(mod.lm_head, self._sub(tail_tree, "lm_head"), (x, ), {"impl": impl})
 
-    def stream_tail_loss(self, tail_tree, h, labels, valid, shift=True):
+    def stream_tail_loss(self, tail_tree, h, labels, valid, shift=True, n_valid=None):
         """Final norm, vocab projection and the masked cross entropy (the
         mean over valid tokens), as :meth:`loss`. ``shift``: position t
-        predicts label t (``labels`` then has T - 1 columns)."""
+        predicts label t (``labels`` then has T - 1 columns). ``n_valid``:
+        the divisor (the global valid-token count under data parallelism),
+        else this batch's count."""
         cfg = self.cfg
+        n_valid = torch.clamp(valid.sum(), min=1) if n_valid is None else n_valid
         if not self._use_chunked_ce():
             logits = self.stream_logits(tail_tree, h)
             if shift:
                 logits = logits[:, :-1]
             ce = F.cross_entropy(logits.float().flatten(0, 1), labels.long().flatten(), reduction="none")
-            return (ce * valid.flatten()).sum() / torch.clamp(valid.sum(), min=1)
+            return (ce * valid.flatten()).sum() / n_valid
         x = torch.func.functional_call(self.module.final_norm, self._sub(tail_tree, "final_norm"), (h, ))
         if shift:
             x = x[:, :-1]
@@ -1209,7 +1226,7 @@ class CausalLMModel:
             w, transpose = tail_tree["lm_head.kernel"], False
         total = chunked_cross_entropy(x, w, labels.long(), valid, chunk=cfg.ce_chunk_size or 256,
                                       transpose=transpose)
-        return total / torch.clamp(valid.sum(), min=1)
+        return total / n_valid
 
     # ---- generation (KV cache) -------------------------------------------
     def quantize_params(self, params, group_size=None, dtype=None):
@@ -1327,6 +1344,26 @@ class CausalLMModel:
         if "logits_bias" in params:
             head["logits_bias"] = params["logits_bias"].float()
         return tuple(layers), head
+
+    def tp_rules(self):
+        """Megatron row/column rules over the ``tensor`` axis by state-dict
+        key (the JAX model's unscanned ``tp_rules``, on the port's 2-D
+        attention kernels: q/k/v (H, heads x hd) split their columns, o
+        (heads x hd, H) its rows). The ZeRO planner applies them before the
+        data-parallel axes, as the JAX engine does; the engine still refuses
+        a tensor axis above 1 (ROADMAP Queue 1 #7.2)."""
+        t, e = "tensor", "expert"  # comm.TENSOR_AXIS, comm.EXPERT_AXIS
+        row = (None, None) if self.cfg.bitwise_tp else (t, None)
+        return [
+            (r"experts\.(gate|up)_proj$", (e, None, t)),
+            (r"experts\.down_proj$", (e, None, None) if self.cfg.bitwise_tp else (e, t, None)),
+            (r"attn\.(q|k|v)_proj\.kernel$", (None, t)),
+            (r"attn\.o_proj\.kernel$", row),
+            (r"mlp\.(gate|up)_proj\.kernel$", (None, t)),
+            (r"mlp\.down_proj\.kernel$", row),
+            (r"embed\.embedding$", (t, None)),
+            (r"lm_head\.kernel$", (None, t)),
+        ]
 
     def expert_pattern(self):
         """The state-dict key fragment of the expert parameters (the JAX

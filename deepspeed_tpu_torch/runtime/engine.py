@@ -1,8 +1,8 @@
 """Training engine.
 
 Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``; analogue
-of the reference ``deepspeed/runtime/engine.py``) at ZeRO stage 0, on one
-device or data-parallel over the ranks of a ``torch.distributed`` world
+of the reference ``deepspeed/runtime/engine.py``) at ZeRO stages 0-3, on
+one device or data-parallel over the ranks of a ``torch.distributed`` world
 (``comm``). The JAX engine compiles one fused train step; the port runs the
 same step eagerly, in the same order:
 
@@ -48,13 +48,43 @@ E/ep of them) over data only, and the clip norm is global. Every replica
 applies the same update to the same values, so replicas stay bitwise equal.
 Another loss function gets the mean of the ranks' losses and gradients.
 
+ZeRO stages (``zero_optimization.stage``; the JAX engine's sharding rules,
+``runtime/zero/sharding.py``, with the collectives run here): each tensor's
+spec comes from :class:`~.zero.sharding.ShardingPlanner` on its global
+logical shape (the model's tensor-parallel rules, then the data-parallel
+axes on the largest divisible dim; a split expert axis's experts over
+``data`` only).
+
+- Stage >= 1: the fp32 master and every optimizer moment hold this rank's
+  shard (``master_spec``); each micro-step casts the shards to the compute
+  dtype and all-gathers them whole (stages 1 and 2), takes the gradient
+  there and casts it to fp32. At stage 1 the whole gradients are reduced
+  and normed as at stage 0, then sliced: bitwise stage 0.
+- Stage >= 2: each micro-step's fp32 gradient is reduced over its group and
+  scattered to this rank's shard (``grad_spec``); the clip norm sums each
+  shard's squares over its group (a split expert axis's experts over
+  ``expert`` too), replicated tensors once.
+- Stage 3: a model with the streaming protocol runs a block at a time
+  (``runtime/zero/stage3.py``: gather before the block, drop after,
+  re-gather in the backward through saved-tensor hooks, the next block
+  prefetched on a side stream with ``overlap_comm``); another loss gathers
+  every tensor at the micro-step's start.
+- The optimizers step shards (``runtime/optimizers.py``: LAMB's trust
+  ratio sums the shards' squared norms); checkpoints hold global logical
+  tensors, gathered one at a time and written by rank 0, and load at any
+  stage on the same world size; ``save_16bit_model`` gathers one tensor at
+  a time.
+
 Telemetry (the JAX engine's wiring): one :class:`TelemetrySink` is the
 single reporting call site; its gauges fan out to the ``tensorboard``,
 ``csv_monitor`` and ``wandb`` monitors, and with ``telemetry.enabled`` each
 step records a ``step`` span (synchronized on the card) and every report
 interval the ``throughput/samples_per_sec`` and ``mfu`` gauges (MFU by
 ``bench.py::_mfu``'s 6 N + 12 L H T FLOPs a token over the compute dtype's
-peak) and the memory watermarks. With
+peak), the memory watermarks and, each step, the comm overlap tracker's
+``comm/{op}/realized_ms``, ``comm/{op}/dispatch_ms`` and
+``comm/overlap_efficiency`` (the batch placement as ``host_to_device``,
+stage 3's gathers as ``all_gather``; ``comm/overlap.py``). With
 objectives in ``telemetry.slo`` the SLO engine evaluates at each report;
 ``request_profile()`` arms a ``torch.profiler`` capture that starts at the
 next one.
@@ -76,8 +106,14 @@ Offload tiers (the JAX engine's ``engine.py:163-192``, ``:409-444``,
   (ZeRO-Infinity, ``runtime/zero/param_offload.py``): the parameters live on
   the host too and stream through the step one layer block at a time
   (``param_stream``: ``train_batch``, ``eval_batch``, ``generate``).
-  ``offload_param`` subsumes ``offload_optimizer`` and requires stage 3;
-  stage 3 is accepted only with it.
+  ``offload_param`` subsumes ``offload_optimizer`` and requires stage 3.
+
+Across ranks ZeRO-Offload's host (or NVMe file set, one a rank) holds and
+steps only this rank's partition (``offload_spec``, at any stage): the
+gradient is reduced and scattered to it before it ships, and the pushed
+compute-dtype cast is all-gathered. ZeRO-Infinity keeps the whole store on
+every rank and sums each block's gradient over the ranks before the host
+step.
 
 Both refuse the forward/backward/step facade; checkpoints keep the
 on-device format (the master under ``master``, the moments as an AdamW
@@ -86,10 +122,9 @@ state under ``optimizer``), so one saved by any tier loads into any other.
 Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: ZeRO stages 1-3 without
-``offload_param``, the offload tiers across ranks, pipeline, tensor and
-sequence parallelism, 1-bit optimizers, a resume at another world size,
-``deepspeed_io``.
+``NotImplementedError`` naming its ROADMAP item: pipeline, tensor and
+sequence parallelism (#7.2, #7.3), 1-bit optimizers, a resume at another
+world size (#9), ``deepspeed_io``.
 """
 
 import inspect
@@ -101,6 +136,7 @@ import numpy as np
 import torch
 
 from .. import comm as dist
+from ..comm.overlap import get_overlap_tracker
 from ..accelerator import get_accelerator, resolve_device
 from ..monitor.monitor import MonitorMaster
 from ..telemetry import SLOEngine, TelemetrySink, set_sink
@@ -112,6 +148,13 @@ from .config import DeepSpeedConfig
 from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import get_lr_schedule, _LRSchedule
 from .optimizers import ClientOptimizer, build_optimizer, tensor_norms
+from .zero.sharding import ShardingPlanner, entry_axes, shard, shard_group, sharded_dims, unshard
+
+
+def _canon(axes):
+    """``axes`` without repeats, in the mesh's order (so every rank names a
+    group the same way)."""
+    return tuple(a for a in dist.MESH_AXES if a in axes)
 
 
 def _unported(what, item):
@@ -164,9 +207,6 @@ class DeepSpeedEngine:
                 log_dist("offload_param subsumes offload_optimizer: the streamed step keeps fp32 "
                          "master + moments host-resident by construction", [0])
                 self.offload_optimizer = False
-        elif zero.stage > 0:
-            raise _unported(f"ZeRO stage {zero.stage} without offload_param",
-                            "ROADMAP Queue 1 #7, distributed runtime")
         if zero.offload_optimizer.device == "nvme" and self.offload_optimizer and \
                 not zero.offload_optimizer.nvme_path:
             raise ValueError("offload_optimizer.device='nvme' requires nvme_path")
@@ -176,10 +216,15 @@ class DeepSpeedEngine:
             raise _unported("deepspeed_io / training_data", "ROADMAP Queue 1 #10, runtime/data_pipeline")
         self.training_dataloader = None
 
-        # ---- data and expert parallelism ------------------------------------
+        # ---- data and expert parallelism, the ZeRO plan ----------------------
         model = self._configure_parallel(model)
         self.module = model
         self.loss_fn = _resolve_loss_fn(model)
+        self.zero_stage = 0 if self.offload_param else zero.stage
+        self.planner = ShardingPlanner(dist.get_mesh() if dist.is_initialized() else {}, zero,
+                                       tp_rules=model.tp_rules() if hasattr(model, "tp_rules") else None,
+                                       expert_pattern=model.expert_pattern() if hasattr(model, "expert_pattern")
+                                       else None)
 
         # ---- precision ---------------------------------------------------
         self.compute_dtype = self._config.compute_dtype
@@ -205,11 +250,18 @@ class DeepSpeedEngine:
             self.optimizer = None
         else:
             self.master = self._init_params(model, model_parameters)
-            if getattr(getattr(model, "cfg", None), "moe_local_experts", None):
-                pattern = model.expert_pattern()
-                self._expert_mask = [pattern in k for k in self.master]
             self.optimizer = build_optimizer(self._config.optimizer, self.master,
-                                             scanned=getattr(cfg, "scan_layers", False), client=optimizer)
+                                             scanned=getattr(cfg, "scan_layers", False), client=optimizer,
+                                             norm_reduce=self._lamb_norm_reduce())
+        self._stage3 = None
+        if self.zero_stage == 3 and self.master is not None:
+            if hasattr(model, "stream_plan"):
+                from .zero.stage3 import Stage3Loss
+                self._stage3 = Stage3Loss(self, model)
+            else:
+                log_dist("ZeRO stage 3: the model has no parameter-streaming protocol (stream_plan/"
+                         "stream_embed/stream_layer/stream_tail_loss), so each micro-step gathers every "
+                         "tensor at its start and frees them after its backward", [0])
         self.lr_schedule_fn, self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         if self.offload_param:
             from .zero.param_offload import ParamStreamRunner
@@ -313,14 +365,14 @@ class DeepSpeedEngine:
         self._dp = ep * data
         self._dp_rank = 0
         self._expert_mask = None  # per master tensor: an expert of a split expert axis
+        self._sharded = False  # the master is this rank's shards (ZeRO stage >= 1 over ranks)
+        self._offload_sharded = False  # ZeRO-Offload's host state is this rank's partition
         self._global_loss = "n_valid" in inspect.signature(self.loss_fn).parameters
         if self._dp == 1 and not dist.is_initialized():
             return model
         if self._dp != dist.get_world_size():
             raise ValueError(f"expert x data = {ep} x {data} does not cover the world of "
                              f"{dist.get_world_size()} ranks")
-        if self.offload_param or self.offload_optimizer:
-            raise _unported("the offload tiers across ranks", "ROADMAP Queue 1 #7, ZeRO across ranks")
         mesh = dist.get_mesh() if dist.has_mesh() else None
         if mesh is None or (mesh.shape[dist.EXPERT_AXIS], mesh.shape[dist.DATA_AXIS]) != (ep, data):
             dist.initialize_mesh(expert=ep, data=data)
@@ -368,8 +420,45 @@ class DeepSpeedEngine:
         if getattr(cfg, "moe_local_experts", None):
             from ..moe.layer import shard_params
             model_parameters = shard_params(model_parameters, cfg)
-        return {k: torch.as_tensor(v).to(self.device, torch.float32).requires_grad_(True)
-                for k, v in model_parameters.items()}
+        self._plan({k: tuple(np.shape(v)) for k, v in model_parameters.items()})
+        master = {}
+        for k, v in model_parameters.items():
+            full = torch.as_tensor(v).to(self.device, torch.float32)
+            mine = shard(full, self._specs["master"][k])
+            master[k] = (mine if mine is full else mine.clone(memory_format=torch.contiguous_format))
+            master[k].requires_grad_(True)
+            del full, mine
+        return master
+
+    def _plan(self, shapes):
+        """The ZeRO specs of every tensor (``runtime/zero/sharding.py``):
+        planned on the global logical shape (a split expert axis's experts
+        counted whole), then localized (this rank already holds only its
+        experts, so the expert axis drops out of their specs). Sets the
+        per-tensor reduction groups and norm groups the step uses."""
+        cfg = getattr(self.module, "cfg", None)
+        split = bool(getattr(cfg, "moe_local_experts", None))
+        pattern = self.module.expert_pattern() if split else None
+        self._expert_mask = [pattern in k for k in shapes] if split else None
+        mask = dict(zip(shapes, self._expert_mask or [False] * len(shapes)))
+        ep = dist.get_world_size(dist.EXPERT_AXIS) if split else 1
+        self._shapes_global = {k: ((shp[0] * ep, ) + tuple(shp[1:])) if mask[k] else tuple(shp)
+                               for k, shp in shapes.items()}
+
+        def local(spec, expert):
+            if not expert:
+                return spec
+            return tuple(None if not a else (tuple(a) if len(a) > 1 else a[0])
+                         for a in ([x for x in entry_axes(e) if x != dist.EXPERT_AXIS] for e in spec))
+
+        self._specs = {which: {k: local(getattr(self.planner, f"{which}_spec")(k, self._shapes_global[k]), mask[k])
+                               for k in shapes}
+                       for which in ("param", "master", "grad", "offload")}
+        self._red_axes = {k: (dist.DATA_AXIS, ) if e else dist.DP_AXES for k, e in mask.items()}
+        extra = {k: (dist.EXPERT_AXIS, ) if e else () for k, e in mask.items()}
+        self._norm_groups = {which: {k: _canon(shard_group(self._specs[which][k]) + extra[k]) for k in shapes}
+                             for which in ("master", "grad", "offload")}
+        self._sharded = any(sharded_dims(sp) for sp in self._specs["master"].values())
 
     def _init_host_optimizer(self, model, model_parameters):
         """ZeRO-Offload: the fp32 master (``model_parameters`` or
@@ -391,10 +480,30 @@ class DeepSpeedEngine:
         else:
             self.host_opt = HostOffloadOptimizer(self._config.optimizer, self.device, self.compute_dtype)
         params = {k: torch.as_tensor(v) for k, v in model_parameters.items()}
-        leaves = self.host_opt.init(params)
+        self._plan({k: tuple(v.shape) for k, v in params.items()})
+        self._sharded = False  # the engine's tensors are the whole compute copy
+        spec = self._specs["offload"]
+        self._offload_sharded = any(sharded_dims(spec[k]) for k in params)
+        # each rank's host holds and steps its partition (offload_spec) only
+        leaves = self.host_opt.init({k: shard(v, spec[k]) for k, v in params.items()})
         self._grad_views = list(self.host_opt.views(self.host_opt.dev_grad).values())
         self._offload_acc = None
+        if self._offload_sharded:
+            self._part_leaves = leaves
+            leaves = {k: torch.empty(v.shape, dtype=self.compute_dtype, device=self.device).requires_grad_(True)
+                      for k, v in params.items()}
+            self._offload_gather(leaves)
         return leaves
+
+    @torch.no_grad()
+    def _offload_gather(self, leaves=None):
+        """The whole compute copy from every rank's pushed partition (an
+        all-gather a tensor, after the push: the current stream waits on
+        it)."""
+        leaves = self.master if leaves is None else leaves
+        spec = self._specs["offload"]
+        for k, part in self._part_leaves.items():
+            leaves[k].copy_(unshard(part, spec[k]))
 
     def _configure_lr_scheduler(self, client_lr_scheduler):
         """(step -> lr function, stateful schedule or None); reference
@@ -427,24 +536,65 @@ class DeepSpeedEngine:
         return fold_in(fold_in(self._base_key, self.step_count), micro)
 
     def _micro_loss_and_grads(self, params, batch, scale, rng=None, **loss_kwargs):
-        """One microbatch: cast master -> compute dtype inside the
-        differentiated function, forward, backward. Returns (loss, fp32
-        gradients of ``loss * scale``, one per master tensor). ``rng``: the
-        dropout key, passed to the loss when given."""
-        keys = list(params)
+        """One microbatch: forward and backward at the compute dtype.
+        Returns (loss, gradients of ``loss * scale`` in the dtype of
+        ``params``' tensors, one per tensor). ``rng``: the dropout key,
+        passed to the loss when given.
+
+        The compute tensors are ``params`` cast inside the differentiated
+        function; when the master is this rank's shards (stage >= 1 across
+        ranks) they are leaves cast and all-gathered from them instead, and
+        the gradient at them is cast back: what the backward of the in-graph
+        cast computes, so stages 0 and 1 give the same bits. At stage >= 2
+        each gradient is reduced over its data-parallel group and scattered
+        to this rank's shard (``grad_spec``); at stage 3 a model with the
+        streaming protocol runs a block at a time (``zero/stage3.py``)."""
         if rng is not None:
             loss_kwargs["rng"] = rng
         if self._dp > 1 and self._global_loss:
             labels = batch["labels"] if "labels" in batch else batch["input_ids"][:, 1:]
             n_valid = dist.all_reduce((labels >= 0).sum(), group=dist.DP_AXES)
             loss_kwargs.update(n_valid=torch.clamp(n_valid, min=1), aux_share=1.0 / self._dp)
+        mine = params is self.master and self.host_opt is None
+        if mine and self._stage3 is not None:
+            return self._stage3(batch, scale, **loss_kwargs)
+        keys = list(params)
+        if mine and self._sharded:  # the whole compute tensors, gathered from the shards
+            with torch.no_grad():
+                p_c = {k: unshard(params[k].detach().to(self.compute_dtype), self._specs["master"][k])
+                       for k in keys}
+            targets = [t.requires_grad_(True) for t in p_c.values()]
+        else:  # cast inside the graph: each gradient reaches ``params`` at its dtype as it lands
+            p_c, targets = None, [params[k] for k in keys]
         with torch.enable_grad():
-            p_c = {k: params[k].to(self.compute_dtype) for k in keys}
+            if p_c is None:
+                p_c = {k: params[k].to(self.compute_dtype) for k in keys}
             loss = self.loss_fn(p_c, batch, **loss_kwargs)
-            grads = torch.autograd.grad(loss.float() * scale, [params[k] for k in keys],
-                                        allow_unused=True)
-        grads = [torch.zeros_like(params[k]) if g is None else g for k, g in zip(keys, grads)]
+            grads = torch.autograd.grad(loss.float() * scale, targets, allow_unused=True)
+        grads = [torch.zeros(t.shape, dtype=params[k].dtype, device=t.device) if g is None
+                 else g.to(params[k].dtype) for k, t, g in zip(keys, targets, grads)]
+        del p_c, targets
+        if mine and self.zero_stage >= 2:
+            grads = [self._reduce_grad(k, g) for k, g in zip(keys, grads)]
         return loss.detach(), grads
+
+    def _reduce_grad(self, k, g, which="grad"):
+        """A whole fp32 gradient of tensor ``k`` reduced over its group
+        (``data`` for a split expert axis's experts, expert x data for the
+        rest; the sum with the global valid count, else the mean) and
+        scattered to this rank's shard of ``grad_spec`` (``offload_spec``
+        for ZeRO-Offload)."""
+        if self._dp == 1:
+            return g
+        op = dist.ReduceOp.SUM if self._global_loss else dist.ReduceOp.AVG
+        spec = self._specs[which][k]
+        shard_axes = shard_group(spec)
+        rest = tuple(a for a in self._red_axes[k] if a not in shard_axes)
+        if rest:
+            g = dist.all_reduce(g, op=op, group=rest)
+        for d, axes in sharded_dims(spec):
+            g = dist.reduce_scatter(g, op=op, group=axes, scatter_dimension=d)
+        return g
 
     def _grad_denom(self, scale):
         """Loss-scale x gas (x predivide) unscaling denominator."""
@@ -472,19 +622,35 @@ class DeepSpeedEngine:
     def _reduce_grads(self, grads, loss_mean):
         """Data parallelism: sum the ranks' gradients (those of a split
         expert axis's experts over ``data`` only) and their losses, or
-        average both for a loss without the global valid count. Returns the
+        average both for a loss without the global valid count (at stage
+        >= 2 the micro-steps reduced the gradients already). Returns the
         loss."""
         if self._dp == 1:
             return loss_mean
         op = dist.ReduceOp.SUM if self._global_loss else dist.ReduceOp.AVG
-        mask = self._expert_mask or [False] * len(grads)
-        self._reduce([g for g, e in zip(grads, mask) if not e], dist.DP_AXES, op)
-        self._reduce([g for g, e in zip(grads, mask) if e], dist.DATA_AXIS, op)
+        if self.zero_stage < 2:
+            mask = self._expert_mask or [False] * len(grads)
+            self._reduce([g for g, e in zip(grads, mask) if not e], dist.DP_AXES, op)
+            self._reduce([g for g, e in zip(grads, mask) if e], dist.DATA_AXIS, op)
         return dist.all_reduce(loss_mean.float(), op=op, group=dist.DP_AXES)
 
-    def _global_norm(self, grads):
-        """The fp32 norm of the whole model's gradient: a split expert
-        axis's experts' squares summed over ``expert``, the rest shared."""
+    def _global_norm(self, grads, groups=None):
+        """The fp32 norm of the whole model's gradient. ``groups``: per
+        gradient the axes its squares sum over (a shard's group, and
+        ``expert`` for a split expert axis's experts); None: whole
+        gradients, a split expert axis's experts' squares summed over
+        ``expert``, the rest shared."""
+        if groups is not None and any(groups):
+            by = {}
+            for n, grp in zip(tensor_norms(grads), groups):
+                by.setdefault(grp, []).append(n)
+            total = None
+            for grp, norms in by.items():
+                sq = torch.stack(norms).square().sum()
+                if grp:
+                    sq = dist.all_reduce(sq, group=grp)
+                total = sq if total is None else total + sq
+            return float(torch.sqrt(total))
         if self._expert_mask is None:
             return float(torch.linalg.vector_norm(torch.stack(tensor_norms(grads))))
 
@@ -494,14 +660,42 @@ class DeepSpeedEngine:
 
         return float(torch.sqrt(sq(False) + dist.all_reduce(sq(True), group=dist.EXPERT_AXIS)))
 
+    def _lamb_norm_reduce(self):
+        """LAMB's whole-tensor norms from shards: each sharded tensor's
+        squared norm summed over its group (``expert`` too for a split
+        expert axis's experts); None when every tensor is whole on this
+        rank and no expert axis splits."""
+        groups = list(self._norm_groups["master"].values())
+        if not any(groups):
+            return None
+
+        def reduce(norms):
+            out = list(norms)
+            by = {}
+            for i, grp in enumerate(groups):
+                if grp:
+                    by.setdefault(grp, []).append(i)
+            for grp, idx in by.items():
+                sq = dist.all_reduce(torch.stack([norms[i] for i in idx]).square(), group=grp)
+                for j, i in enumerate(idx):
+                    out[i] = sq[j].sqrt()
+            return out
+
+        return reduce
+
     @torch.no_grad()
     def _apply_grads(self, grads, loss_mean):
         """Reduce over the data-parallel ranks, unscale, norm, overflow skip,
-        clip, update (``grads`` is consumed in place)."""
+        clip, update (``grads`` is consumed in place). At stage 1 the whole
+        reduced gradients give the norm, as at stage 0, and the optimizer
+        steps this rank's shard; at stage >= 2 they are shards already."""
         loss_mean = self._reduce_grads(grads, loss_mean)
         scale = self.loss_scale_state.cur_scale
         torch._foreach_div_(grads, self._grad_denom(scale))
-        gnorm = self._global_norm(grads)
+        sharded_grads = self.zero_stage >= 2 and self._sharded
+        gnorm = self._global_norm(grads, list(self._norm_groups["grad"].values()) if sharded_grads else None)
+        if self.zero_stage == 1 and self._sharded:
+            grads = [shard(g, self._specs["master"][k]) for k, g in zip(self.master, grads)]
         overflow = not math.isfinite(gnorm)
         lr = float(self.lr_schedule_fn(self.step_count))
         if overflow:
@@ -535,6 +729,8 @@ class DeepSpeedEngine:
             if clip is not None:
                 coef *= clip
             times = self.host_opt.step(coef, lr)
+            if self._offload_sharded:
+                self._offload_gather()
             self.step_count += 1
         self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
         return {"loss": loss_mean, "grad_norm": gnorm, "lr": lr, "overflow": overflow,
@@ -544,17 +740,25 @@ class DeepSpeedEngine:
         """ZeRO-Offload step: the micro-batches' forward and backward on the
         device against the compute-dtype weights, gradients shipped at the
         compute dtype (fp32-accumulated on the device when ``gas`` > 1),
-        then :meth:`_offload_apply`."""
+        then :meth:`_offload_apply`. Across ranks the fp32 gradients are
+        reduced and scattered to this rank's partition (``offload_spec``)
+        before they ship, and the norm sums the partitions' squares."""
         from .zero.offload import flat_norm
         t0 = time.perf_counter()
         scale = self.loss_scale_state.cur_scale
         loss_sum = None
+        acc = None
         for g in range(gas):
             loss, grads = self._micro_loss_and_grads(self.master, {k: v[g] for k, v in stacked.items()},
                                                      scale, self._micro_rng(g))
             loss_sum = loss.float() if loss_sum is None else loss_sum + loss.float()
             with torch.no_grad():
-                if gas == 1:
+                if self._dp > 1:
+                    if acc is None:
+                        acc = [x.float() for x in grads]
+                    else:
+                        torch._foreach_add_(acc, grads)
+                elif gas == 1:
                     torch._foreach_copy_(self._grad_views, grads)
                 else:
                     if self._offload_acc is None:
@@ -567,7 +771,15 @@ class DeepSpeedEngine:
                         torch._foreach_add_(self._acc_views, grads)
             del grads
         with torch.no_grad():
-            if gas > 1:
+            if self._dp > 1:
+                parts = [self._reduce_grad(k, a, "offload") for k, a in zip(self.master, acc)]
+                del acc
+                torch._foreach_copy_(self._grad_views, parts)
+                gnorm_raw = self._global_norm(parts, list(self._norm_groups["offload"].values()))
+                del parts
+                op = dist.ReduceOp.SUM if self._global_loss else dist.ReduceOp.AVG
+                loss_sum = dist.all_reduce(loss_sum, op=op, group=dist.DP_AXES)
+            elif gas > 1:
                 self.host_opt.dev_grad.copy_(self._offload_acc)
                 gnorm_raw = float(flat_norm(self._offload_acc))
             else:
@@ -581,7 +793,10 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ data placement
     def _place(self, batch, lead=None):
         """Host or device leaves -> tensors on the device (integer leaves as
-        int64), each reshaped to ``lead + rest`` when ``lead`` is given."""
+        int64), each reshaped to ``lead + rest`` when ``lead`` is given.
+        With telemetry on, the placement is tracked as ``host_to_device``
+        (the JAX engine's ``engine.py:1113``)."""
+        t0 = time.perf_counter()
         out = {}
         for k, x in batch.items():
             t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -590,6 +805,8 @@ class DeepSpeedEngine:
             if lead is not None:
                 t = t.reshape(lead + tuple(t.shape[1:]))
             out[k] = t.to(self.device)
+        if self.telemetry.enabled:
+            get_overlap_tracker().track_async("host_to_device", out, t0=t0)
         return out
 
     def _my_rows(self, x, lead):
@@ -661,6 +878,7 @@ class DeepSpeedEngine:
         if t0 is not None:
             self._record_step(t0, {"path": "offload" if self.host_opt is not None else "fused",
                                    "micro_batches": gas})
+            self._emit_comm_overlap()
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.micro_steps += gas
@@ -674,11 +892,16 @@ class DeepSpeedEngine:
         """One streamed step (``param_stream.train_batch``); the engine's
         counters follow the runner's (an overflow-skipped step does not
         advance it)."""
+        micro = self.train_micro_batch_size_per_gpu()
         if batch is None:
             if data_iter is None:
                 raise _unported("training_data loaders", "ROADMAP Queue 1 #10, runtime/data_pipeline")
             mbs = self._next_microbatches(data_iter, gas)
+            if self._dp > 1 and {int(np.shape(x)[0]) for x in mbs[0].values()} == {micro * self._dp}:
+                mbs = [{k: self._my_rows(x, (1, self._dp, micro))[0] for k, x in mb.items()} for mb in mbs]
             batch = {k: np.concatenate([np.asarray(mb[k]) for mb in mbs]) for k in mbs[0]}
+        elif self._dp > 1 and {int(np.shape(x)[0]) for x in batch.values()} == {self.train_batch_size()}:
+            batch = {k: self._my_rows(x, (gas, self._dp, micro)) for k, x in batch.items()}
         t0 = time.perf_counter() if self.telemetry.enabled else None
         if t0 is not None and self._step_flops is None:
             ids = batch.get("input_ids")
@@ -760,6 +983,7 @@ class DeepSpeedEngine:
         metrics = self._apply_grads(self._grad_acc, loss_mean)
         if self.telemetry.enabled:
             self._record_step(self._facade_t0, {"path": "facade", "micro_batches": gas})
+            self._emit_comm_overlap()
         self._grad_acc, self._micro_step, self._pending_losses = None, 0, []
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -774,6 +998,8 @@ class DeepSpeedEngine:
         if self.param_stream is not None:
             return torch.tensor(self.param_stream.eval_batch(batch)["loss"])
         p_c = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
+        if self.host_opt is None and self._sharded:
+            p_c = {k: unshard(v, self._specs["master"][k]) for k, v in p_c.items()}
         return self.loss_fn(p_c, self._place(batch))
 
     def __call__(self, batch):
@@ -806,6 +1032,26 @@ class DeepSpeedEngine:
         dur = time.perf_counter() - t0
         self._last_step_dur = dur
         self.telemetry.record_span("step", self.telemetry.now() - dur, dur, attrs=attrs)
+
+    def _emit_comm_overlap(self):
+        """Drain the step's comm accounting (``comm/overlap.py``: the batch
+        placement, stage 3's block gathers, the control-plane ops) into
+        ``comm/{op}/realized_ms``, ``comm/{op}/dispatch_ms`` and
+        ``comm/overlap_efficiency`` gauges (the JAX engine's
+        ``engine.py:1503-1525``); after :meth:`_record_step`'s synchronize,
+        so stage 3's stall events have completed."""
+        if self._stage3 is not None:
+            self._stage3.gatherer.settle()
+        stats = get_overlap_tracker().collect(reset=True)
+        if not stats["ops"]:
+            return
+        gauges = []
+        for op, st in sorted(stats["ops"].items()):
+            gauges.append((f"comm/{op}/realized_ms", st["realized_s"] * 1e3, self.global_samples))
+            gauges.append((f"comm/{op}/dispatch_ms", st["dispatch_s"] * 1e3, self.global_samples))
+        gauges.append(("comm/overlap_efficiency", stats["overlap_efficiency"], self.global_samples))
+        self.telemetry.gauges(gauges)
+        self.last_comm_overlap = stats
 
     def _interval_gauges(self):
         """Throughput, MFU and device/host memory watermark gauges for one
@@ -899,21 +1145,47 @@ class DeepSpeedEngine:
         state = {"master": master, "optimizer": opt_state,
                  "loss_scale": self.loss_scale_state.to_dict(), "step_count": self.step_count,
                  "skipped_steps": self.skipped_steps}
-        ckpt.save_checkpoint(save_dir, tag, state, client_sd, save_latest=save_latest,
-                             use_async=self._config.checkpoint.async_save)
+        # the state holds global logical tensors, the same on every rank:
+        # rank 0 alone writes, the others wait for the file
+        if dist.get_rank() == 0:
+            ckpt.save_checkpoint(save_dir, tag, state, client_sd, save_latest=save_latest,
+                                 use_async=self._config.checkpoint.async_save)
+        del state, master, opt_state
+        dist.barrier()
         log_dist(f"saved checkpoint {save_dir}/{tag}", [0])
         return True
 
     def _checkpoint_state(self):
-        """(fp32 master dict, optimizer state): the offload tiers write their
-        host master and moments under the on-device AdamW's keys."""
+        """(fp32 master dict, optimizer state) as global logical tensors:
+        the offload tiers write their host master and moments under the
+        on-device AdamW's keys; a sharded master and its moments are
+        gathered one tensor at a time (each to the host before the next)."""
         if self.param_stream is not None:
             master, mu, nu = self.param_stream.state_tensors()
             return master, {"count": self.param_stream.store.t, "mu": mu, "nu": nu}
         if self.host_opt is not None:
             master, mu, nu = self.host_opt.state_tensors()
+            if self._offload_sharded:
+                spec = self._specs["offload"]
+                master = {k: unshard(v, spec[k]) for k, v in master.items()}
+                mu = [unshard(v, spec[k]) for k, v in zip(master, mu)]
+                nu = [unshard(v, spec[k]) for k, v in zip(master, nu)]
             return master, {"count": self.host_opt.t, "mu": mu, "nu": nu}
-        return self.master, self.optimizer.state_dict()
+        if not self._sharded:
+            return self.master, self.optimizer.state_dict()
+        if isinstance(self.optimizer, ClientOptimizer):
+            raise NotImplementedError("a checkpoint of a client optimizer's state over ZeRO shards (its "
+                                      "state is per rank; use a built-in optimizer) (ROADMAP Queue 1 #9)")
+        spec = self._specs["master"]
+
+        def whole(k, t):
+            return unshard(t.detach(), spec[k]).cpu() if sharded_dims(spec[k]) else t
+
+        sd = self.optimizer.state_dict()
+        keys = list(self.master)
+        opt = {name: [whole(k, t) for k, t in zip(keys, val)] if isinstance(val, list) and len(val) == len(keys)
+               else val for name, val in sd.items()}
+        return {k: whole(k, v) for k, v in self.master.items()}, opt
 
     def wait_checkpoint_saves(self):
         """Block until an in-flight async checkpoint is written and its
@@ -931,8 +1203,10 @@ class DeepSpeedEngine:
         ``load_module_strict`` False loads the master tensors both sides
         have. The facade's accumulated gradients are dropped."""
         offloaded = self.host_opt is not None or self.param_stream is not None
+        ckpt.wait_pending_saves()
+        dist.barrier()  # rank 0's write is in place
         state, client_sd = ckpt.load_checkpoint(load_dir, tag,
-                                                map_location="cpu" if offloaded else self.device)
+                                                map_location="cpu" if offloaded or self._sharded else self.device)
         if state is None:
             return None, None
         if client_sd.get("world_size", 1) != self._config.world_size:
@@ -950,7 +1224,7 @@ class DeepSpeedEngine:
             self.loss_scale_state = LossScaleState.from_dict(state["loss_scale"])
             self.skipped_steps = int(state["skipped_steps"])
         elif with_opt:
-            self.optimizer.load_state_dict(self._in_master_order(state))
+            self.optimizer.load_state_dict(self._shard_state(self._in_master_order(state)))
             self.loss_scale_state = LossScaleState.from_dict(state["loss_scale"])
             self.skipped_steps = int(state["skipped_steps"])
         self.zero_grad()
@@ -986,8 +1260,24 @@ class DeepSpeedEngine:
         if with_opt and not has_moments:
             logger.warning("offload: the checkpoint carries no Adam moments; the master loads, the "
                            "moments start at zero")
+        master = state["master"]
+        if self._offload_sharded:  # this rank's partitions
+            spec = self._specs["offload"]
+            master = {k: shard(v, spec[k]) for k, v in master.items()}
+            mu, nu = ({k: shard(v, spec[k]) for k, v in x.items()} if x is not None else None for x in (mu, nu))
         target = self.param_stream if self.param_stream is not None else self.host_opt
-        target.load_state(state["master"], mu, nu, count)
+        target.load_state(master, mu, nu, count)
+        if self._offload_sharded:
+            self._offload_gather()
+
+    def _shard_state(self, sd):
+        """An optimizer state of global logical tensors (lists in master
+        order) cut to this rank's shards."""
+        if not self._sharded:
+            return sd
+        keys, spec = list(self.master), self._specs["master"]
+        return {name: [shard(t, spec[k]) for k, t in zip(keys, val)] if isinstance(val, list) and len(val) == len(keys)
+                else val for name, val in sd.items()}
 
     @torch.no_grad()
     def _load_master(self, saved, strict):
@@ -997,16 +1287,23 @@ class DeepSpeedEngine:
                                f"unexpected {extra[:5]}")
         for k, v in saved.items():
             if k in self.master:
-                self.master[k].copy_(v)
+                self.master[k].copy_(shard(v, self._specs["master"][k]))
 
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin", exclude_frozen_parameters=False):
         """The master cast to the compute dtype, as a state dict written by
         ``torch.save`` under the reference DeepSpeed file name (the JAX
         engine writes a flax msgpack instead). Returns the path."""
-        os.makedirs(save_dir, exist_ok=True)
         path = os.path.join(save_dir, save_filename)
-        master = self._checkpoint_state()[0]
-        torch.save({k: v.detach().to(self.compute_dtype).cpu() for k, v in master.items()}, path)
+        if self.param_stream is not None or self.host_opt is not None:
+            master = self._checkpoint_state()[0]
+            sd = {k: v.detach().to(self.compute_dtype).cpu() for k, v in master.items()}
+        else:  # one tensor at a time: cast, gather, to the host
+            spec = self._specs["master"]
+            sd = {k: unshard(v.detach().to(self.compute_dtype), spec[k]).cpu() for k, v in self.master.items()}
+        if dist.get_rank() == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            torch.save(sd, path)
+        dist.barrier()
         return path
 
     # ------------------------------------------------------------------ not ported yet

@@ -31,6 +31,13 @@ and ``lr`` the learning rate of that count:
   master tensors) takes ``.grad`` from the engine, the learning rate in
   every ``param_group``, and steps.
 
+Under ZeRO stage >= 1 the master tensors are this rank's shards and every
+optimizer steps them as they are: the moments are made at the shard's
+shape, AdamW, Adagrad, SGD and Lion are elementwise, LAMB's trust ratio
+takes whole-tensor norms by summing the shards' squared norms over their
+group (``norm_reduce``, from the engine), and a client optimizer gets the
+shard tensors.
+
 The built-in optimizers work through the tensor list a chunk of at most
 ``CHUNK_ELEMS`` elements at a time, so an update's temporaries never
 exceed one chunk (whole-list temporaries, two fp32 copies of the model,
@@ -184,8 +191,9 @@ class Lamb(_Optimizer):
     _STATE = ("mu", "nu")
 
     def __init__(self, params, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, min_coeff=0.01,
-                 groups=None):
+                 groups=None, norm_reduce=None):
         super().__init__()
+        self.norm_reduce = norm_reduce  # shards' norms -> whole tensors' norms (ZeRO stage >= 1)
         self.b1, self.b2, self.eps, self.weight_decay = float(b1), float(b2), float(eps), float(weight_decay)
         self.min_norm = float(min_coeff)
         self.mu = [torch.zeros_like(p) for p in params]
@@ -211,7 +219,10 @@ class Lamb(_Optimizer):
         for sl in self._chunks(params):
             _move_moments(self, sl, grads[sl])
             u_norms += tensor_norms(_adam_update(self, sl, params[sl]))
-        pn, un = self._group_norms(tensor_norms(params)), self._group_norms(u_norms)
+        pn, un = tensor_norms(params), u_norms
+        if self.norm_reduce is not None:
+            pn, un = self.norm_reduce(pn), self.norm_reduce(un)
+        pn, un = self._group_norms(pn), self._group_norms(un)
         ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)[self._group_of].unbind()
         for sl in self._chunks(params):
             update = _adam_update(self, sl, params[sl])
@@ -324,12 +335,14 @@ def norm_groups(names):
     return groups
 
 
-def build_optimizer(opt_config, named_params, scanned=False, client=None):
-    """The optimizer over ``named_params`` (the master state dict, fp32):
-    ``client`` (a ``torch.optim.Optimizer``, or a callable taking the list
-    of master tensors and returning one), else the ``optimizer`` config
-    section's type (default AdamW). ``scanned``: the model stacks its layers
-    in the JAX package (LAMB's norm groups, :func:`norm_groups`)."""
+def build_optimizer(opt_config, named_params, scanned=False, client=None, norm_reduce=None):
+    """The optimizer over ``named_params`` (the master state dict, fp32, or
+    this rank's shards of it): ``client`` (a ``torch.optim.Optimizer``, or
+    a callable taking the list of master tensors and returning one), else
+    the ``optimizer`` config section's type (default AdamW). ``scanned``:
+    the model stacks its layers in the JAX package (LAMB's norm groups,
+    :func:`norm_groups`). ``norm_reduce``: LAMB's whole-tensor norms from
+    the shards' (None: the tensors are whole)."""
     params = list(named_params.values())
     if client is not None:
         if isinstance(client, torch.optim.Optimizer):
@@ -352,7 +365,7 @@ def build_optimizer(opt_config, named_params, scanned=False, client=None):
     if name == LAMB_OPTIMIZER:
         groups = norm_groups(list(named_params)) if scanned else None
         return Lamb(params, b1=betas[0], b2=betas[1], eps=eps, weight_decay=wd,
-                    min_coeff=p.get("min_coeff", 0.01), groups=groups)
+                    min_coeff=p.get("min_coeff", 0.01), groups=groups, norm_reduce=norm_reduce)
     if name == SGD_OPTIMIZER:
         return SGD(params, momentum=p.get("momentum", 0.0), nesterov=p.get("nesterov", False))
     if name == LION_OPTIMIZER:

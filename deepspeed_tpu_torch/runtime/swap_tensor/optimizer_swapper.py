@@ -3,8 +3,9 @@ NVMe.
 
 Port of ``deepspeed_tpu/runtime/swap_tensor/optimizer_swapper.py``
 (``NVMeOffloadOptimizer``; reference ``partitioned_optimizer_swapper.py:40``
-and ``pipelined_optimizer_swapper.py:164``) on one process. Each block (one
-per tensor) keeps three flat files (master, m, v) under ``nvme_path``; host
+and ``pipelined_optimizer_swapper.py:164``). Each block (one per tensor,
+this rank's partition of it) keeps three flat files (master, m, v) under
+``nvme_path``, one file set per rank; host
 memory holds the compute copy, the gradient landing buffer and a rotating
 window of three blocks' buffers. The step walks the blocks:
 
@@ -18,6 +19,7 @@ bitwise the host tier's.
 import os
 import time
 
+from ... import comm as dist
 from ...ops.aio import AsyncIOHandle, aligned_empty
 from ...utils.logging import log_dist
 from ..zero.offload import HostOffloadOptimizer, _sync, cast_to
@@ -37,7 +39,8 @@ class NVMeOffloadOptimizer(HostOffloadOptimizer):
         kw = dict(block_size=aio["block_size"], queue_depth=aio["queue_depth"],
                   single_submit=aio["single_submit"], overlap_events=aio["overlap_events"],
                   thread_count=max(1, aio["thread_count"]) * 2)
-        self.swap_dir = os.path.join(nvme_path, "zero_stage_opt_swap_rank00000")
+        # one file set per rank: each holds its own partition
+        self.swap_dir = os.path.join(nvme_path, f"zero_stage_opt_swap_rank{dist.get_rank():05d}")
         os.makedirs(self.swap_dir, exist_ok=True)
         self._window = AioReadWindow(3, kw)
         self._write_h = AsyncIOHandle(**kw)

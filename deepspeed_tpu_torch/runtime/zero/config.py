@@ -2,10 +2,14 @@
 
 Port of ``deepspeed_tpu/runtime/zero/config.py`` (analogue of the reference
 ``deepspeed/runtime/zero/config.py`` and ``offload_config.py:94``). Same
-JSON keys, all parsed. The port's engine trains at stage 0, with
+JSON keys, all parsed. The port's engine trains at stages 0-3
+(``runtime/zero/sharding.py``, ``runtime/zero/stage3.py``), with
 ZeRO-Offload's optimizer tiers (cpu, nvme) and stage 3's parameter
-stream (``offload_param``); a higher stage without ``offload_param``
-raises naming ROADMAP Queue 1 #7 (distributed runtime).
+stream (``offload_param``). Keys it reads: ``stage``,
+``stage3_param_persistence_threshold``, ``overlap_comm`` (stage 3's
+side-stream prefetch; on by default at stage 3), ``offload_optimizer``
+and ``offload_param``; the bucket and reuse knobs are parsed and have no
+effect (the port gathers and reduces a tensor at a time).
 """
 
 from ..config_utils import DeepSpeedConfigModel, ConfigField

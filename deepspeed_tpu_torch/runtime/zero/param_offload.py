@@ -29,6 +29,13 @@ Norms and tied-embedding sums add in a fixed order, so the result is
 bitwise the same whatever the threads' timing, the prefetch depth or the
 fetch window, and on either tier.
 
+Across ranks (data parallelism over expert x data) every rank holds the
+whole host store and trains on its rows: the loss divides by the global
+valid-token count, each block's gradient is summed over expert x data (a
+split expert axis's experts over ``data``) in fp32 before it ships, so
+every rank steps the same gradients and the stores stay equal (the JAX
+engine's rule; rank 0 alone writes a checkpoint).
+
 Stores: :class:`HostParamStore` (``cpu``: master, moments and the pinned
 compute copy of every block in host memory) and :class:`NVMeParamStore`
 (``nvme``: master and moments in flat per-block files, read ``k`` blocks
@@ -46,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from ... import comm as dist
 from ...memory.streams import LayerStreamExecutor
 from ...ops.aio import AsyncIOHandle, aligned_empty
 from ...utils.logging import log_dist, logger
@@ -159,7 +167,7 @@ class NVMeParamStore(HostParamStore):
                   thread_count=max(1, aio["thread_count"]))
         self._read_h = AsyncIOHandle(**kw)
         self._write_h = AsyncIOHandle(**kw)
-        self.swap_dir = os.path.join(nvme_path, "zero_param_swap_rank00000")
+        self.swap_dir = os.path.join(nvme_path, f"zero_param_swap_rank{dist.get_rank():05d}")
         os.makedirs(self.swap_dir, exist_ok=True)
         self._window = AioReadWindow(max(2, int(state_window)), kw)
         self._prefetched = {}   # name -> slot with (master, m, v) in flight
@@ -341,6 +349,9 @@ class ParamStreamRunner:
         self.global_steps = 0
         self._last_gnorm = None
         self.last_phase_times = None
+        self._dp = dist.get_world_size(dist.DP_AXES)
+        split = getattr(cfg_m, "moe_local_experts", None)
+        self._expert_key = model.expert_pattern() if split else None
         tier = "NVMe" if zc.offload_param.device == "nvme" else "host memory"
         log_dist(f"ZeRO-Infinity param offload: {self.store.num_params():,} params on {tier} "
                  f"({self.store.host_bytes() / 2**30:.2f} GiB of host memory), streamed per layer block", [0])
@@ -407,6 +418,23 @@ class ParamStreamRunner:
         ev = self.executor.d2h([(views[k], g) for k, g in grads.items()] + [(sq, sq_dev)])
         return buf, views, ev, sq
 
+    def _reduce_block(self, grads):
+        """Across ranks: a block's gradients summed over their group in fp32,
+        back at their dtype (one flat buffer a group)."""
+        if self._dp == 1:
+            return grads
+        out = dict(grads)
+        for grp in (dist.DP_AXES, dist.DATA_AXIS):
+            ks = [k for k in grads if (self._expert_key is not None and self._expert_key in k) ==
+                  (grp == dist.DATA_AXIS)]
+            if not ks or dist.get_world_size(grp) == 1:
+                continue
+            parts = [grads[k].float() for k in ks]
+            flat = dist.all_reduce(torch._utils._flatten_dense_tensors(parts), group=grp)
+            for k, r in zip(ks, torch._utils._unflatten_dense_tensors(flat, parts)):
+                out[k] = r.to(grads[k].dtype)
+        return out
+
     # -- hot loop -----------------------------------------------------------
     def _micro_grads(self, ids, mask, labels, valid, shift, sink, scale):
         """One micro-batch, streamed forward then backward; each block's
@@ -417,6 +445,10 @@ class ParamStreamRunner:
         names = self._layer_names
         fwd = ["embed"] + names + ["tail"]
         bwd = names[::-1]
+        n_valid, share = None, 1.0
+        if self._dp > 1:
+            n_valid = torch.clamp(dist.all_reduce(valid.sum(), group=dist.DP_AXES), min=1)
+            share = 1.0 / self._dp
         ep = ex.take("embed", ahead=fwd[1:])
         acts = []
         aux_total = 0.0
@@ -436,12 +468,12 @@ class ParamStreamRunner:
         with torch.enable_grad():
             tp = {k: v.requires_grad_(True) for k, v in tp.items()}
             h = h.requires_grad_(True)
-            loss = model.stream_tail_loss(tp, h, labels, valid, shift=shift)
+            loss = model.stream_tail_loss(tp, h, labels, valid, shift=shift, n_valid=n_valid)
             g = torch.autograd.grad(loss.float() * scale, [*tp.values(), h])
         if self._moe:  # CE + coef * sum(aux), as the on-device engine reports it
-            loss = loss + self._aux_coef * aux_total
+            loss = loss + self._aux_coef * aux_total * share
         dh = g[-1]
-        sink("tail", dict(zip(tp, g[:-1])))
+        sink("tail", self._reduce_block(dict(zip(tp, g[:-1]))))
         del tp, h, g
         for i, name in enumerate(bwd):
             lp = self._local(ex.take(name, ahead=bwd[i + 1:]), name)
@@ -454,20 +486,21 @@ class ParamStreamRunner:
                     # the load balancing
                     y, aux = model.stream_layer(lp, x, mask, return_aux=True)
                     g = torch.autograd.grad([y.to(cd), aux.float()], [*lp.values(), x],
-                                            grad_outputs=[dh, torch.tensor(self._aux_coef * scale,
+                                            grad_outputs=[dh, torch.tensor(self._aux_coef * scale * share,
                                                                            device=aux.device)])
                 else:
                     y = model.stream_layer(lp, x, mask).to(cd)
                     g = torch.autograd.grad(y, [*lp.values(), x], grad_outputs=dh)
             dh = g[-1]
             pre = f"layers.{int(name[5:])}."
-            sink(name, {pre + k: gk for k, gk in zip(lp, g[:-1])})
+            sink(name, self._reduce_block({pre + k: gk for k, gk in zip(lp, g[:-1])}))
             del lp, x, y, g
         with torch.enable_grad():
             ep = {k: v.requires_grad_(True) for k, v in ep.items()}
             x = model.stream_embed(ep, ids).to(cd)
             g = torch.autograd.grad(x, list(ep.values()), grad_outputs=dh, allow_unused=True)
-        sink("embed", {k: torch.zeros_like(v) if gk is None else gk for (k, v), gk in zip(ep.items(), g)})
+        sink("embed", self._reduce_block({k: torch.zeros_like(v) if gk is None else gk
+                                          for (k, v), gk in zip(ep.items(), g)}))
         return loss.detach()
 
     def _batch(self, batch, lead):
@@ -552,6 +585,8 @@ class ParamStreamRunner:
         for i in range(self.gas):
             loss = self._micro_grads(ids[i], None if mask is None else mask[i], labels[i], valid[i], shift,
                                      sink, scale)
+            if self._dp > 1:  # this rank's share of the global loss
+                loss = dist.all_reduce(loss.float(), group=dist.DP_AXES)
             loss_sum += float(loss)
             ex.drain_fetches()  # same-slot accumulations must not race the next micro-batch
         t_loop = time.perf_counter()

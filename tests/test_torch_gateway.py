@@ -555,9 +555,14 @@ def test_prometheus_exposition_and_capacity_gauges(tmp_path):
         _, headers, body = get(gw.port, "/v1/metrics")
         assert headers["Content-Type"] == "application/json"
         snap = json.loads(body)["telemetry"]
-        parts = sum(v["total"] for k, v in snap["counters"].items()
-                    if k.startswith("serving/host_gap/"))
-        assert parts == pytest.approx(snap["histograms"]["serving/host_gap_ms"]["sum"], rel=1e-9)
+        # the snapshot rounds a histogram's sum to 6 decimals: hold the
+        # buckets to the unrounded total the sink keeps
+        tel = gw.telemetry
+        with tel._lock:
+            parts = sum(total for k, (_, total, _) in tel._counters.items()
+                        if k.startswith("serving/host_gap/"))
+            gap_sum = tel._hists["serving/host_gap_ms"].sum
+        assert parts == pytest.approx(gap_sum, rel=1e-9)
         assert 0 < snap["gauges"]["serving/mfu"] and 0 < snap["gauges"]["serving/hbm_bw_util"]
         assert snap["histograms"]["serving/sync_launch_ms"]["count"] > 0
     finally:

@@ -232,9 +232,10 @@ def test_refusals():
         deepspeed_tpu_torch.initialize(model=get_model("tiny"), device="cpu",
                                        config={**BASE, "zero_optimization": {"stage": 2, "offload_param":
                                                                              {"device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="#7"):
-        deepspeed_tpu_torch.initialize(model=get_model("tiny"), device="cpu",
-                                       config={**BASE, "zero_optimization": {"stage": 3}})
+    # stage 3 without offload_param trains on the device (runtime/zero/stage3.py)
+    on_device, *_ = deepspeed_tpu_torch.initialize(model=get_model("tiny"), device="cpu",
+                                                   config={**BASE, "zero_optimization": {"stage": 3}})
+    assert on_device.param_stream is None and on_device._stage3 is not None
     with pytest.raises(ValueError, match="nvme_path"):
         deepspeed_tpu_torch.initialize(model=get_model("tiny"), device="cpu",
                                        config={**BASE, "zero_optimization": {"stage": 3, "offload_param":

@@ -108,7 +108,10 @@ def test_disabled_sections_and_dtypes():
 def test_engine_refuses_what_it_does_not_run():
     model = get_model("tiny", dtype=torch.float32)
     base = {"train_batch_size": 4}
-    for extra, err, item in (({"zero_optimization": {"stage": 1}}, NotImplementedError, "#7"),
+    # ZeRO stages 1-3 train (tests/test_torch_zero_ranks.py); the tensor,
+    # pipe and sequence axes stay refused
+    for extra, err, item in (({"mesh": {"tensor_parallel_size": 2}}, NotImplementedError, "#7"),
+                             ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError, "#7"),
                              # offload_param requires stage 3 (the JAX engine's error text)
                              ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
                               ValueError, "stage 3"),

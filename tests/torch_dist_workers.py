@@ -188,3 +188,113 @@ def serve_world(rank, world, name, trees, config, prompts, max_new, cases):
         dist.initialize_mesh(**layout)
         out.append(serve_run(name, trees[key], config, prompts, max_new, model_kw))
     return out
+
+
+# ---------------------------------------------------------------------------
+# ZeRO stages and the offload tiers across ranks
+
+
+def zero_run(name, tree, config, batch, steps, model_kw, mesh=None, ckpt=None):
+    """``steps`` of ``train_batch`` on the global ``batch`` under
+    ``config``; returns the losses, the global gradient norms (before the
+    clip), every master tensor gathered whole
+    (``utils.tensor_fragment``), this rank's own part of each (its shard on
+    the device, or its host partition under ZeRO-Offload) and the host
+    partition's size. ``ckpt``: (directory, "save" or "load"): save after
+    the steps, or load before them (and return the loaded master)."""
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.utils import safe_get_full_fp32_param
+    if mesh is not None:
+        dist.initialize_mesh(**mesh)
+    model = get_model(name, dtype=torch.float32, attention_impl="flash", **model_kw)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params_from_jax(tree, model.cfg),
+                                                config=dict(config), device="cpu")
+    out = {}
+    if ckpt is not None and ckpt[1] == "load":
+        engine.load_checkpoint(ckpt[0])
+        out["loaded"] = {k: safe_get_full_fp32_param(engine, k).numpy() for k in _master_keys(engine)}
+    out["losses"], out["norms"] = [], []
+    for _ in range(steps):
+        out["losses"].append(float(engine.train_batch(batch=batch)))
+        out["norms"].append(float(engine._last_metrics["grad_norm"]))
+    if ckpt is not None and ckpt[1] == "save":
+        engine.save_checkpoint(ckpt[0])
+    keys = _master_keys(engine)
+    out["master"] = {k: safe_get_full_fp32_param(engine, k).numpy() for k in keys}
+    if engine.host_opt is not None:
+        own = engine.host_opt.state_tensors()[0]
+        out["host_n"] = engine.host_opt.n
+        out["specs"] = engine._specs["offload"]
+    elif engine.param_stream is not None:
+        own, out["host_n"], out["specs"] = {}, engine.param_stream.store.num_params(), None
+    else:
+        own, out["specs"] = engine.master, engine._specs["master"]
+    out["own"] = {k: v.detach().numpy().copy() for k, v in own.items()}
+    out["rank"] = {"data": dist.get_rank(dist.DATA_AXIS), "expert": dist.get_rank(dist.EXPERT_AXIS),
+                   "dp": dist.get_rank(dist.DP_AXES)}
+    return out
+
+
+def _master_keys(engine):
+    return list(engine.param_stream._shapes) if engine.param_stream is not None else list(engine.master)
+
+
+def zero_world(rank, world, name, tree, batch, steps, cases):
+    """:func:`zero_run` for each ``(config, model_kw, mesh, ckpt)`` of
+    ``cases``, in order (a checkpoint saved by one case loads in a later
+    one)."""
+    return [zero_run(name, tree, config, batch, steps, model_kw, mesh, ckpt)
+            for config, model_kw, mesh, ckpt in cases]
+
+
+def zero_helpers_world(rank, world):
+    """Under the mesh (expert 2, data 2): the group API's answers; each of
+    a few specs' ``shard`` of a whole tensor and its ``unshard``; and at
+    stage 3 on ``tiny``, ``utils.tensor_fragment``'s setter and getters."""
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.runtime.zero.sharding import shard, unshard
+    from deepspeed_tpu_torch.utils import (groups, safe_get_full_fp32_param, safe_set_full_fp32_param,
+                                           safe_get_full_grad, safe_get_full_optimizer_state)
+    dist.initialize_mesh(expert=2, data=2)
+    out = {"groups": {
+        "dp": groups.get_data_parallel_group(), "edp": groups.get_expert_data_parallel_group(),
+        "ep": groups.get_expert_parallel_group(), "mp": groups.get_model_parallel_group(),
+        "sp": groups.get_sequence_parallel_group(), "pp": groups.get_pipeline_parallel_group(),
+        "dp_size": groups.get_data_parallel_world_size(), "edp_size": groups.get_expert_data_parallel_world_size(),
+        "ep_size": groups.get_expert_parallel_world_size(), "mp_size": groups.get_model_parallel_world_size(),
+        "sp_size": groups.get_sequence_parallel_world_size(), "pp_size": groups.get_pipeline_parallel_world_size(),
+        "dp_rank": groups.get_data_parallel_rank(), "ep_rank": groups.get_expert_parallel_rank(),
+        "edp_rank": groups.get_expert_data_parallel_rank(), "world": groups.get_world_size()}}
+    whole = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    specs = {"whole": (None, None), "data": ("data", None), "expert_dim1": (None, "expert"),
+             "expert_data": (("expert", "data"), None), "data_expert_dim1": (None, ("data", "expert")),
+             "two_dims": ("expert", "data"), "tensor_axis": ("tensor", "data")}
+    out["shards"] = {}
+    for name, spec in specs.items():
+        part = shard(whole, spec)
+        out["shards"][name] = (whole.numpy(), part.numpy().copy(), unshard(part, spec).numpy())
+    model = get_model("tiny", dtype=torch.float32, attention_impl="flash")
+    config = {"train_batch_size": 16, "gradient_accumulation_steps": 1, "steps_per_print": 10**9,
+              "mesh": {"expert_parallel_size": 2},
+              "zero_optimization": {"stage": 3, "stage3_param_persistence_threshold": 0}}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config, device="cpu")
+    key = "layers.1.mlp.up_proj.kernel"
+    value = torch.arange(64 * 128, dtype=torch.float32).reshape(64, 128) / 1000.0
+    safe_set_full_fp32_param(engine, key, value)
+    batch = {"input_ids": np.random.default_rng(2).integers(0, 256, (16, 32))}
+    frag = {"value": value.numpy(), "set_then_get": safe_get_full_fp32_param(engine, key).numpy(),
+            "shard_shape": tuple(engine.master[key].shape),
+            "sharded": bool(engine._specs["master"][key] != (None, None))}
+    frag["no_grad_outside_facade"] = safe_get_full_grad(engine, key)
+    engine.train_batch(batch=batch)
+    frag["exp_avg_sq"] = safe_get_full_optimizer_state(engine, key, "exp_avg_sq").numpy()
+    mine = {k: v[dist.get_rank(dist.DP_AXES) * 4:(dist.get_rank(dist.DP_AXES) + 1) * 4] for k, v in batch.items()}
+    engine.forward(mine)
+    frag["grad"] = safe_get_full_grad(engine, key).numpy()
+    out["fragment"] = frag
+    return out
