@@ -31,7 +31,13 @@ Phases (any failure ends the run with a non-zero exit):
    rows must hold a relative L2 gate too; ``quant_matmul``'s rows, and
    kernels A and C's (``block_invariance``: M = 1 to 512 against M = 512
    at gpt2-large and llama3-8b, with a planted fault the gate must catch),
-   must not depend on M, and the decode kernel's invariants must hold bitwise at
+   must not depend on M (``quant_matmul``'s column blocks must not depend
+   on N either: ``qmm_column_split``, llama3-8b's fused qkv against its
+   split q, k, v and gate/up and the head against their halves, what the
+   tensor-parallel serving layout rests on), the kernel rows include
+   llama3-8b's shapes on one rank of tensor parallelism 2 (16/4 heads, q N
+   2048, k/v N 512, gate/up N 7168, the head N 64512; flash, paged decode
+   and span, bf16 and int8 KV), and the decode kernel's invariants must hold bitwise at
    gpt2-large's and llama3-8b's heads, bf16 and int8 KV
    (``decode_invariance``: span column == decode, chained == one big slot
    at chunk and extent boundaries, NaN outside the windows changing no bit);
@@ -205,6 +211,24 @@ Phases (any failure ends the run with a non-zero exit):
    GiB and the ``comm/overlap_efficiency`` and ``comm/all_gather`` gauges
    per stage; a checkpoint saved at stage 3 before its last step resumes
    at stage 3 (that step bitwise) and at stage 0 (the master bitwise);
+8e. tensor parallelism (``tp_phase``; ``python3 chip_smoke.py --tp`` runs
+   it alone): llama3-8b at full width, 2 of 32 layers, seeded weights made
+   on the card; tp 1 in this process, then tp 2 as two spawned processes
+   sharing the card over a gloo group whose collectives take the CUDA
+   tensors (``tp_gloo_check``; NCCL refuses two ranks on one card; the
+   ranks load the kernels built here): (a) int8 serving, kernel-injected,
+   per projection at both degrees (the fused decode layer is off at tp >
+   1): ``generate()`` B 4, prompt 128, 32 new, greedy and sampled, the
+   prefill logits, a 4-slot stream of 8 requests and an int8-KV stream of
+   4, tokens and logits bitwise tp 1's on both ranks, exact launch counts a
+   rank (kernels A and C at 0), the ready line's tensor part; (c) bf16
+   training, seq 2048, micro 1, AdamW, stages 0 and 3 at tp 2 against
+   stage 0 at tp 1: losses and grad norms within ``TP_LOSS_REL`` /
+   ``TP_NORM_REL``, bitwise across the ranks, exact flash launches, peak
+   GiB a rank; two faults planted in the copy-to-region backward (its
+   reduction doubled, its reduction left out), one stage-0 step each, must
+   leave the grad-norm gate at the first step; step and sync times of two processes sharing one card are
+   logged and are no tensor-parallel speed;
 9. block-sparse attention, the main path of its three kernels: at
    gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
    ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
@@ -244,6 +268,7 @@ prints no result.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -315,6 +340,14 @@ QMM_LLAMA = [("llama qkv", 4096, 6144), ("llama o", 4096, 4096), ("llama up", 40
 # mixtral-8x7b's int8 head, vocab 32000 padded to 32768: at its decode
 # (M = B = 4) and its scheduler's chunk step (4 slots x 64 columns)
 QMM_MIXTRAL_HEAD = ("mixtral head", 4096, 32768)
+# llama3-8b's projections on one rank of tensor parallelism 2 (the split q,
+# k and v: 16 and 4 of the 32 and 8 heads; gate/up 7168 of 14336 columns;
+# the head 64128 of the 128256-vocab head padded to 129024 / 2 = 64512):
+# at tp_phase's generate() decode (M = B = 4) and prefill (M = 4 x 128).
+# o and down stay whole (the bitwise all-gather layout): the rows above
+QMM_LLAMA_TP2 = [("llama tp2 q", 4096, 2048), ("llama tp2 k/v", 4096, 512), ("llama tp2 gate/up", 4096, 7168),
+                 ("llama tp2 head", 4096, 64512)]
+TP_M = (4, 512)
 # the rows whose bits must not depend on M: every tile edge of the kernel
 QMM_INVARIANT_M = (1, 8, 16, 32, 33, 64, 65, 512, 1024)
 
@@ -330,7 +363,8 @@ def qmm_cases(torch, gen, dev):
     from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     cases = ([(M, *sh) for M in (8, 1024) for sh in QMM_GPT2] + [(CHUNK_M, "head", 1280, 51200)]
              + [(1024, *sh) for sh in QMM_LLAMA] + [(1000, "up", 1280, 5120), (64, "up", 1280, 5120)]
-             + [(M, *QMM_MIXTRAL_HEAD) for M in (MOE_B, MOE_SLOTS * 64)])
+             + [(M, *QMM_MIXTRAL_HEAD) for M in (MOE_B, MOE_SLOTS * 64)]
+             + [(M, *sh) for M in TP_M for sh in QMM_LLAMA_TP2])
     for M, proj, K, N in cases:
         G = K // 128
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
@@ -340,6 +374,8 @@ def qmm_cases(torch, gen, dev):
         nbytes = M * K * 2 + K * N + G * N * 4 + M * N * 2
         kind = {8: "decode", 1024: "prefill", CHUNK_M: "chunk step", MOE_B: "decode",
                 MOE_SLOTS * 64: "chunk step"}.get(M, "ragged")
+        if "tp2" in proj:
+            kind = {4: "tp 2 rank decode", 512: "tp 2 rank prefill"}[M]
         yield (f"{kind} {proj} M={M} K={K} N={N}",
                lambda x=x, qw=qw, sc=sc: quant_matmul(x, qw, sc),
                lambda x=x, qw=qw, sc=sc: quant_matmul_plain(x, qw, sc),
@@ -369,6 +405,41 @@ def qmm_invariance(torch, dev):
     torch.cuda.synchronize()
     log(f"quant_matmul batch invariance: rows bitwise equal for M in {QMM_INVARIANT_M} and two "
         f"calls bitwise equal, at {len(QMM_GPT2 + QMM_LLAMA)} shapes")
+
+
+# the whole projections and the column splits tensor parallelism 2 makes of
+# them (bitwise all-gather layout): llama3-8b's fused qkv against its split q,
+# k, v on one rank; gate/up and the padded head against their halves
+QMM_SPLITS = [("llama qkv", 4096, (2048, 512, 512, 2048, 512, 512)), ("llama gate/up", 4096, (7168, 7168)),
+              ("llama head", 4096, (64512, 64512))]
+
+
+def qmm_column_split(torch, dev):
+    """Column stability on the card (what tp 2 == tp 1 bitwise rests on):
+    for each of ``QMM_SPLITS``, quant_matmul over column blocks of the
+    whole weight, concatenated, is bitwise quant_matmul over the whole, at
+    every M of ``TP_M`` and 1, 33 (the split plan's M <= 32 edge): the
+    kernel's split plan follows N, its bits must not."""
+    from deepspeed_tpu_torch.ops.quant_matmul import quant_matmul
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for proj, K, cols in QMM_SPLITS:
+        N = sum(cols)
+        qw = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand((K // 128, N), generator=gen, device=dev) * 0.01 + 1e-4
+        edges = [0]
+        for c in cols:
+            edges.append(edges[-1] + c)
+        for M in (1, 33) + TP_M:
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            whole = quant_matmul(x, qw, sc)
+            parts = torch.cat([quant_matmul(x, qw[:, a:b].contiguous(), sc[:, a:b].contiguous())
+                               for a, b in zip(edges, edges[1:])], dim=1)
+            diff = int((parts != whole).sum())
+            check(diff == 0, f"quant_matmul {proj} {K}x{N} at M={M}: the column blocks {list(cols)} "
+                  f"differ from the whole in {diff} entries")
+    torch.cuda.synchronize()
+    log(f"quant_matmul column splits: blocks bitwise the whole at M in {(1, 33) + TP_M}, at "
+        f"{len(QMM_SPLITS)} splits")
 
 
 def _block_layer(torch, gen, dev, H, nh, nkv, hd, F_, act, norm, rope, M):
@@ -510,6 +581,9 @@ def micro_planted_faults(torch, dev):
 # the training paths' attention: gpt2-large (B=4, H=20, T=1024, D=64) and
 # llama3-8b (B=1, H=32/8, T=2048, D=128), causal
 BWD_SHAPES = ((4, 20, 20, 1024, 64), (1, 32, 8, 2048, 128))
+# llama3-8b on one rank of tensor parallelism 2 (16 of 32 heads, 4 of 8 kv
+# heads): tp_phase's generate() prefill (B 4, prompt 128) and training (seq 2048)
+TP_FLASH_SHAPES = ((4, 16, 4, 128, 128), (1, 16, 4, 2048, 128))
 
 
 def flash_cases(torch, gen, dev):
@@ -520,7 +594,7 @@ def flash_cases(torch, gen, dev):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain, \
         flash_attention_with_lse
-    for B, H, Hkv, T, D in ((8, 20, 20, 128, 64), (4, 32, 8, 512, 128)) + BWD_SHAPES:
+    for B, H, Hkv, T, D in ((8, 20, 20, 128, 64), (4, 32, 8, 512, 128)) + BWD_SHAPES + TP_FLASH_SHAPES:
         q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -977,10 +1051,13 @@ def _paged_kv(torch, gen, dev, B, nkv, S, D, int8):
 # pool (S=4096: windows over several of the kernel's 512-position chunks)
 PAGED_SHAPES = [("gpt2-large", 8, 20, 20, 512, 64), ("llama3-8b", 4, 32, 8, 512, 128),
                 ("llama3-8b long", 4, 32, 8, 4096, 128)]
+# the llama3-8b pool on one rank of tensor parallelism 2 (16 q and 4 kv heads),
+# bf16 and int8 KV
+PAGED_TP2 = ("llama3-8b tp 2 rank", 4, 16, 4, 512, 128)
 PAGED_ENDS = {"gpt2-large": [300, 0, 129, 511, 64, 0, 257, 400], "llama3-8b": [130, 290, 511, 64],
-              "llama3-8b long": [4096, 1023, 2600, 3001]}
+              "llama3-8b long": [4096, 1023, 2600, 3001], "llama3-8b tp 2 rank": [130, 290, 511, 64]}
 SPAN_BASES = {"gpt2-large": [128, 300, 17, 440, 200, 64, 380, 240], "llama3-8b": [128, 0, 300, 440],
-              "llama3-8b long": [4000, 480, 1500, 3000]}
+              "llama3-8b long": [4000, 480, 1500, 3000], "llama3-8b tp 2 rank": [128, 0, 300, 440]}
 
 
 def _paged_bytes(torch, q, nkv, D, windows, int8):
@@ -1000,7 +1077,7 @@ def paged_decode_cases(torch, gen, dev, int8):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.decode_attention import (paged_decode_attention,
                                                           paged_decode_attention_plain)
-    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3]:
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3] + [PAGED_TP2]:
         q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
         kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
         ends = torch.tensor(PAGED_ENDS[label], dtype=torch.int32, device=dev)
@@ -1029,7 +1106,7 @@ def paged_span_cases(torch, gen, dev, int8):
     from deepspeed_tpu_torch.ops.decode_attention import (paged_span_attention,
                                                           paged_span_attention_plain)
     T = 64
-    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3]:
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3] + [PAGED_TP2]:
         q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
         kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
         base = torch.tensor(SPAN_BASES[label], dtype=torch.int32, device=dev)
@@ -1626,6 +1703,7 @@ def kernel_phase(torch, dev):
     del flush
     if "quant_matmul" in results:
         qmm_invariance(torch, dev)
+        qmm_column_split(torch, dev)
     if any(name in BLOCK_KERNELS for name in results):
         block_invariance(torch, dev)
     if any(name in DECODE_KERNELS for name in results):
@@ -4363,6 +4441,371 @@ def zero_phase(torch, card, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8e: tensor parallelism 2, two ranks sharing the card over gloo
+
+# llama3-8b at full width, 2 of 32 layers; NCCL refuses two ranks on one
+# card, so the two ranks are two processes meeting through a file store in a
+# gloo group whose collectives take the CUDA tensors (tp_gloo_check); the
+# kernels run on the card in both. Step and sync times of two processes
+# sharing one card are no tensor-parallel speed: logged, never claimed.
+TP_MODEL, TP_LAYERS, TP_DEGREE = "llama3-8b", 2, 2
+TP_B, TP_P, TP_NEW, TP_SLOTS, TP_REQUESTS = 4, 128, 32, 4, 8
+TP_SEQ, TP_STEPS = 2048, 3
+# the fused decode layer (kernels A and C) is off at tp > 1, as in the JAX
+# engine; the tp 1 reference runs it off too, so both run per projection
+TP_SERVE_CONFIG = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512, "fused_decode_block": False}
+# bf16 training: the row-parallel products are summed over the ranks in
+# bf16 after each rank's fp32 accumulation (tp 1 rounds once), so losses and
+# grad norms are held within these of tp 1's, not bitwise
+TP_LOSS_REL, TP_NORM_REL = 2e-3, 2e-2
+TP_TIMEOUT_S = 600
+
+def _tp_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_gloo_check(torch, dev):
+    """One call each of the collectives the tensor-parallel path runs, on
+    ``dev`` tensors in the gloo group (all_gather, all_reduce SUM and MAX,
+    broadcast): every result where the inputs say. A refused CUDA tensor
+    raises here, before any phase leans on it."""
+    import deepspeed_tpu_torch.comm as dist
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = (torch.arange(8, device=dev) + r).to(torch.bfloat16)
+    want = torch.cat([torch.arange(8, device=dev) + i for i in range(n)]).to(torch.bfloat16)
+    check(torch.equal(dist.all_gather(x, group=dist.TENSOR_AXIS), want), "tp gloo all_gather")
+    s = sum(torch.arange(8, device=dev) + i for i in range(n)).to(torch.bfloat16)
+    check(torch.equal(dist.all_reduce(x, group=dist.TENSOR_AXIS), s), "tp gloo all_reduce SUM")
+    check(torch.equal(dist.all_reduce(x.half(), dist.ReduceOp.MAX, dist.TENSOR_AXIS),
+                      (torch.arange(8, device=dev) + n - 1).half()), "tp gloo all_reduce MAX")
+    check(torch.equal(dist.broadcast(x, 0, dist.TENSOR_AXIS), torch.arange(8, device=dev).to(torch.bfloat16)),
+          "tp gloo broadcast")
+    return f"all_gather, all_reduce SUM/MAX, broadcast on {x.device.type} tensors: ok"
+
+
+def _tp_whole_model(**kw):
+    from deepspeed_tpu_torch.models import get_model
+    return get_model(TP_MODEL, num_layers=TP_LAYERS, **kw)
+
+
+def tp_int8_tree(torch, dev):
+    """The whole int8 serving tree with split q/k/v, seeded, made on the
+    card (the same bits on every rank: one generator, one device)."""
+    import dataclasses
+    model = _tp_whole_model()
+    m8 = type(model)(dataclasses.replace(model.cfg, int8_weights=True, int8_fused_qkv=False,
+                                         dtype=torch.bfloat16))
+    return model, random_params(torch, m8, dev, SEED + 9, int8=True)
+
+
+def fuse_qkv(torch, tree, layers):
+    """The tp 1 engine's layout of ``tree``: each layer's q/k/v int8 columns
+    and scales concatenated into ``qkv_q``/``qkv_scale`` (the same columns:
+    quantization is per column)."""
+    out = dict(tree)
+    for i in range(layers):
+        a = f"layers.{i}.attn."
+        for leaf, fused in (("kernel_q", "qkv_q"), ("kernel_scale", "qkv_scale")):
+            out[a + fused] = torch.cat([out.pop(f"{a}{p}_proj.{leaf}") for p in ("q", "k", "v")], dim=1)
+    return out
+
+
+def tp_prompts(vocab):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 10)
+    return (rng.integers(0, vocab, (TP_B, TP_P)).astype(np.int32),
+            [rng.integers(0, vocab, int(k)).astype(np.int32) for k in rng.integers(8, 192, TP_REQUESTS)])
+
+
+def tp_serve(torch, eng, dev):
+    """generate() greedy and sampled (B 4, prompt 128, 32 new) with its
+    launch counts, the prefill logits of the prompt batch, and the 4-slot
+    stream of 8 requests with its logits, launch counts and forwards; every
+    tensor on the host."""
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    vocab = eng.model_config.vocab_size
+    prompts, stream = tp_prompts(vocab)
+    out = {"desc": eng._tp_desc(), "fused_gate": bool(eng._fused_decode_eligible())}
+    reset_counts()
+    t = time.perf_counter()
+    out["greedy"] = [r.tolist() for r in eng.generate(prompts, max_new_tokens=TP_NEW)]
+    _tp_sync(torch, dev)
+    out["generate_s"] = time.perf_counter() - t
+    out["generate_counts"] = read_counts()
+    out["sampled"] = [r.tolist() for r in eng.generate(prompts, max_new_tokens=TP_NEW, do_sample=True,
+                                                      temperature=0.8, top_k=50, seed=SEED)]
+    with torch.inference_mode():
+        ids = torch.as_tensor(prompts, device=dev).long()
+        out["prefill_logits"] = eng.module.apply_with_cache(eng.net, ids, eng._init_cache(TP_B, 256),
+                                                           0)[0].cpu()
+    sched = DecodeScheduler(eng, num_slots=TP_SLOTS, steps_per_sync=4, collect_logits=True)
+    reset_counts()
+    toks, logits, wall, _, ttft = serve(sched, stream, max_new=TP_NEW, collect=True)
+    _tp_sync(torch, dev)
+    out.update(stream=[r.tolist() for r in toks], stream_logits=logits, stream_s=wall,
+               stream_counts=read_counts(), forwards=dict(sched.forwards))
+    del sched
+    # the int8 KV tier: the row scale's amax is a MAX over every rank's heads
+    sched = DecodeScheduler(eng, num_slots=TP_SLOTS, steps_per_sync=4, collect_logits=True, kv_cache_dtype="int8")
+    reset_counts()
+    toks, logits, _, _, _ = serve(sched, stream[:TP_SLOTS], max_new=TP_NEW, collect=True)
+    _tp_sync(torch, dev)
+    out.update(int8_stream=[r.tolist() for r in toks], int8_stream_logits=logits, int8_counts=read_counts(),
+               int8_forwards=dict(sched.forwards))
+    del sched
+    return out
+
+
+def tp_expected(cfg, tp, serve):
+    """Launches of ``tp_serve`` on one rank: every forward runs each layer's
+    int8 projections (the fused qkv, o, gate, up, down at tp 1; q, k, v
+    split at tp 2) and the int8 head; the prefill flash once a layer, a
+    generate() decode step the decode kernel once a layer, a stream's
+    width-1 forward the paged decode kernel and a chunk forward the span
+    kernel once a layer (their int8-KV variants on the int8 pool); kernels
+    A and C never (the fused decode layer is off). Returns (generate,
+    stream, int8 stream)."""
+    L = cfg.num_layers
+    per_forward = (5 if tp == 1 else 7) * L + 1
+    gen = {**ZERO_COUNTS, "quant_matmul": per_forward * TP_NEW, "flash_attention": L,
+           "decode_attention": L * (TP_NEW - 1)}
+    out = [gen]
+    for fw, sfx in ((serve["forwards"], ""), (serve["int8_forwards"], "_int8")):
+        n1 = fw.get(1, 0)
+        nc = sum(v for c, v in fw.items() if c != 1)
+        out.append({**ZERO_COUNTS, "quant_matmul": per_forward * (n1 + nc), "paged_decode_attention" + sfx: L * n1,
+                    "paged_span_attention" + sfx: L * nc})
+    return out
+
+
+def tp_train(torch, dev, tp, stage, steps=TP_STEPS):
+    """``steps`` bf16 steps (micro 1, seq ``TP_SEQ``, AdamW, clip 1.0) at
+    ``stage`` on this rank's shard of the seeded weights made on the card:
+    losses, grad norms, step ms, the peak memory and the flash launches."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    model = _tp_whole_model(attention_impl="flash")
+    batch = {"input_ids": np.random.default_rng(SEED + 11).integers(0, model.cfg.vocab_size, (1, TP_SEQ))}
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "zero_optimization": {"stage": stage}, "mesh": {"tensor_parallel_size": tp} if tp > 1 else {}}
+    params = random_params(torch, model, dev, SEED, int8=False)
+    t = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config,
+                                                     device=dev)
+    del params
+    built = time.perf_counter() - t
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        _tp_sync(torch, dev)
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        _tp_sync(torch, dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        norms.append(float(engine._last_metrics["grad_norm"]))
+    out = {"losses": losses, "norms": norms, "ms": ms, "built_s": built, "counts": read_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None,
+           "local": (engine.module.cfg.local_heads, engine.module.cfg.local_kv_heads,
+                     engine.module.cfg.local_ffn)}
+    del engine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# faults planted in the copy-to-region backward (the gradient of a
+# column-parallel product's input, summed over the ranks), one step each at
+# stage 0: the first step's grad norm must leave ``TP_NORM_REL`` of tp 1's
+TP_PLANTED = {"reduced twice": lambda orig, ctx, g: (2 * orig(ctx, g)[0], None),
+              "not reduced": lambda orig, ctx, g: (g, None)}
+
+
+def tp_planted(torch, dev, world):
+    """The first step's grad norm under each of ``TP_PLANTED``, the
+    operator restored after each."""
+    from deepspeed_tpu_torch.comm import comm as comm_mod
+    cls, out = comm_mod._CopyToRegion, {}
+    saved, orig = cls.__dict__["backward"], cls.backward
+    for name, fault in TP_PLANTED.items():
+        cls.backward = staticmethod(lambda ctx, g, fault=fault: fault(orig, ctx, g))
+        try:
+            out[name] = tp_train(torch, dev, world, 0, steps=1)["norms"][0]
+        finally:
+            cls.backward = saved
+    return out
+
+
+def _tp_rank(rank, world, store, out_dir, dev):
+    """One rank of the tp phase (a spawned process): the gloo group over the
+    card, the mesh (tensor = world), then serving and training; results to
+    ``out_dir/rank{rank}.pt``, a traceback to ``rank{rank}.err``."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import deepspeed_tpu_torch
+        import deepspeed_tpu_torch.comm as dist
+        dist.init_distributed(dist_backend="gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                              verbose=False)
+        dist.initialize_mesh(tensor=world)
+        res = {"gloo": tp_gloo_check(torch, dev)}
+        model, tree = tp_int8_tree(torch, dev)
+        eng = deepspeed_tpu_torch.init_inference(model, config=TP_SERVE_CONFIG, params=tree, device=dev)
+        del tree
+        res["serve"] = tp_serve(torch, eng, dev)
+        del eng
+        res["train"] = {stage: tp_train(torch, dev, world, stage) for stage in (0, 3)}
+        res["planted"] = tp_planted(torch, dev, world)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _tp_same(torch, a, b):
+    """Bitwise equality of nested token lists and tensors."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tp_same(torch, x, y) for x, y in zip(a, b))
+    import numpy as np
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+    return a == b
+
+
+def _tp_diff(torch, a, b):
+    """The largest |a - b| over nested tensors (for the log of a mismatch)."""
+    if isinstance(a, (list, tuple)):
+        return max([_tp_diff(torch, x, y) for x, y in zip(a, b)] or [0.0])
+    a, b = (torch.as_tensor(x).double() for x in (a, b))
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def tp_phase(torch, card, dev):
+    """(a) llama3-8b int8 serving at tp 1 (this process) and tp 2 (two
+    ranks): generate() greedy and sampled, the prefill logits and a 4-slot
+    stream's tokens and logits bitwise tp 1's on both ranks, exact launch
+    counts per rank (kernels A and C at 0), the ready line's tensor part;
+    (c) bf16 training at tp 1 (stage 0) and tp 2 (stages 0 and 3): losses
+    and grad norms within ``TP_LOSS_REL`` / ``TP_NORM_REL`` of tp 1's and
+    bitwise equal on the two ranks, exact flash launches, peak GiB a rank;
+    each fault of ``TP_PLANTED`` leaves the grad-norm gate at the first
+    step. (b), the kernels at the rank shapes, is in the kernel phase. Returns
+    one rank's launch counts over the phase."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import deepspeed_tpu_torch
+    import torch.multiprocessing as mp
+    log(f"tp: {TP_MODEL} at full width, {TP_LAYERS} of 32 layers; tp 1 in this process, tp {TP_DEGREE} as two "
+        f"processes sharing the card over a gloo group ({card})")
+    # (a) tp 1 serving: the engine's own layout (the fused qkv matmul), per projection
+    t0 = time.perf_counter()
+    model, tree = tp_int8_tree(torch, dev)
+    eng = deepspeed_tpu_torch.init_inference(model, config=TP_SERVE_CONFIG,
+                                             params=fuse_qkv(torch, tree, model.cfg.num_layers), device=dev)
+    del tree
+    check(not eng._fused_decode_eligible(), "tp 1 reference: the fused decode layer must be off")
+    ref = tp_serve(torch, eng, dev)
+    cfg = eng.model_config
+    del eng
+    for what, want in zip(("generate", "stream", "int8"), tp_expected(cfg, 1, ref)):
+        check(ref[what + "_counts"] == want, f"tp 1 {what} launches {ref[what + '_counts']} != {want}")
+    log(f"tp 1 serving: generate {ref['generate_s']:.3f} s, stream {ref['stream_s']:.3f} s "
+        f"({sum(map(len, ref['stream']))} tokens), desc '{ref['desc']}', {time.perf_counter() - t0:.1f} s")
+    # (c) tp 1 training, stage 0
+    ref_train = tp_train(torch, dev, 1, 0)
+    log(f"tp 1 training stage 0: losses {ref_train['losses']}, grad norms {ref_train['norms']}, step ms "
+        f"{[round(x, 1) for x in ref_train['ms']]}, peak {ref_train['peak_gib']} GiB")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # tp 2: two ranks
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        ctx = mp.get_context("spawn")
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_tp_rank, args=(r, TP_DEGREE, store, tmp, dev)) for r in range(TP_DEGREE)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        errs = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(TP_DEGREE)
+                if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+        check(not alive, f"tp: {len(alive)} rank(s) still running after {TP_TIMEOUT_S} s; killed")
+        check(not errs, "tp: a rank failed:\n" + "\n".join(errs))
+        check(all(p.exitcode == 0 for p in procs), f"tp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(TP_DEGREE)]
+        log(f"tp {TP_DEGREE}: both ranks finished in {time.perf_counter() - t0:.1f} s (spawn, set-up, serving, "
+            f"training; two processes sharing one card)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg2 = dataclasses.replace(cfg, int8_fused_qkv=False)
+    for r, res in enumerate(ranks):
+        s = res["serve"]
+        log(f"tp rank {r}: gloo {res['gloo']}; desc '{s['desc']}'")
+        check(s["desc"].startswith(f"tp={TP_DEGREE} (bitwise all-gather layout, kv_heads sharded /{TP_DEGREE}) "
+                                   f"int8_fused_qkv=off (") and "component boundaries" in s["desc"],
+              f"tp rank {r}: ready line '{s['desc']}'")
+        check(not s["fused_gate"], f"tp rank {r}: the fused decode gate is open")
+        for what, want in zip(("generate", "stream", "int8"), tp_expected(cfg2, TP_DEGREE, s)):
+            got = {k: v for k, v in s[what + "_counts"].items() if v}
+            log(f"tp rank {r} {what} launches {got} (every other kernel 0: "
+                f"{got == {k: v for k, v in want.items() if v}})")
+            check(s[what + "_counts"] == want, f"tp rank {r} {what} launches {s[what + '_counts']} != {want}")
+        for key in ("greedy", "sampled", "prefill_logits", "stream", "stream_logits", "int8_stream",
+                    "int8_stream_logits"):
+            if not _tp_same(torch, s[key], ref[key]):
+                check(False, f"tp rank {r} {key}: not bitwise tp 1's (max |diff| "
+                      f"{_tp_diff(torch, s[key], ref[key]) if 'logits' in key else 'in the tokens'})")
+            check(_tp_same(torch, s[key], ranks[0]["serve"][key]), f"tp rank {r} {key}: differs from rank 0")
+        log(f"tp rank {r} serving: greedy, sampled, prefill logits {tuple(s['prefill_logits'].shape)}, "
+            f"stream tokens and {sum(len(x) for x in s['stream_logits'])} step logits, the int8-KV stream's "
+            f"{sum(len(x) for x in s['int8_stream_logits'])}, bitwise tp 1's; "
+            f"generate {s['generate_s']:.3f} s, stream {s['stream_s']:.3f} s (two processes sharing one "
+            f"card: not a tensor-parallel speed)")
+        for stage, tr in res["train"].items():
+            want = expected_train_counts(cfg, TP_STEPS)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"], ref_train["losses"]))
+            norm_rel = max(abs(a - b) / abs(b) for a, b in zip(tr["norms"], ref_train["norms"]))
+            log(f"tp rank {r} training stage {stage}: losses {tr['losses']} (rel to tp 1 {loss_rel:.2e}, gate "
+                f"{TP_LOSS_REL:g}), grad norms {tr['norms']} (rel {norm_rel:.2e}, gate {TP_NORM_REL:g}), "
+                f"local heads/kv/ffn {tr['local']}, peak {tr['peak_gib']} GiB (tp 1: {ref_train['peak_gib']}), "
+                f"step ms {[round(x, 1) for x in tr['ms']]} (two processes sharing one card), launches "
+                f"{tr['counts']}")
+            check(all(map(math.isfinite, tr["losses"] + tr["norms"])), f"tp rank {r} stage {stage}: non-finite")
+            check(loss_rel <= TP_LOSS_REL, f"tp rank {r} stage {stage}: loss rel {loss_rel:.2e} > {TP_LOSS_REL:g}")
+            check(norm_rel <= TP_NORM_REL, f"tp rank {r} stage {stage}: norm rel {norm_rel:.2e} > {TP_NORM_REL:g}")
+            check(tr["losses"] == ranks[0]["train"][stage]["losses"], f"tp rank {r} stage {stage}: losses "
+                  f"differ from rank 0's")
+            check(tr["counts"] == want, f"tp rank {r} stage {stage}: launches {tr['counts']} != {want}")
+        first = ref_train["norms"][0]
+        for name, norm in res["planted"].items():
+            rel = abs(norm - first) / first
+            log(f"tp rank {r} planted fault (copy-to-region backward {name}): first grad norm {norm} vs tp 1 "
+                f"{first} (rel {rel:.2e}; the sound stage 0 run "
+                f"{abs(res['train'][0]['norms'][0] - first) / first:.2e}, gate {TP_NORM_REL:g})")
+            check(rel > TP_NORM_REL, f"tp rank {r}: the planted fault '{name}' passed the grad-norm gate")
+    s = ranks[0]["serve"]
+    return {k: s["generate_counts"][k] + s["stream_counts"][k] + s["int8_counts"][k]
+            + sum(t["counts"][k] for t in ranks[0]["train"].values()) for k in ZERO_COUNTS}
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: the training engine's features on the training path
 
 FEATURE_MODEL = "gpt2-large"
@@ -5229,9 +5672,10 @@ def main(argv=()):
     kernel and run only the offload tiers' phase; ``--kv-tier``: build every
     kernel and run only the hierarchical KV tier's phase; ``--moe``: build
     every kernel and run only the mixtral-8x7b phase; ``--zero``: build every
-    kernel and run only the ZeRO stages' phase. Each compares a change
-    with its parent in one call: run this file beside each tree's package,
-    in turns."""
+    kernel and run only the ZeRO stages' phase; ``--tp``: build every
+    kernel and run only the tensor-parallel phase (two ranks on the card).
+    Each compares a change with its parent in one call: run this file
+    beside each tree's package, in turns."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5290,6 +5734,10 @@ def main(argv=()):
         timed_phase("zero stages", zero_phase, torch, card, dev)
         log(card)
         return 0
+    if list(argv) == ["--tp"]:
+        timed_phase("tensor parallelism", tp_phase, torch, card, dev)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -5345,6 +5793,11 @@ def main(argv=()):
     for name, n in zero_counts.items():
         if n and name in results:
             results[name].setdefault("zero_stage3_launches", {})[f"{ZERO_STEPS} llama3-8b steps"] = n
+    # tensor parallelism 2 on llama3-8b: one rank's launches (each rank's are checked exact)
+    tp_counts = timed_phase("tensor parallelism", tp_phase, torch, card, dev)
+    for name, n in tp_counts.items():
+        if n and name in results:
+            results[name]["tp2_rank_launches"] = n
     # the sparse path is the main path of the three block-sparse kernels
     sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:

@@ -19,7 +19,12 @@ eagerly on its tensors:
 - with no process group, or a group of one, every collective returns its
   input (what the JAX collectives do without a mesh);
 - :func:`all_reduce_autograd` and :class:`AllToAll` are the
-  differentiable forms the MoE layer and the data-parallel loss use.
+  differentiable forms the MoE layer and the data-parallel loss use;
+  :func:`copy_to_region`, :func:`reduce_from_region` and
+  :func:`gather_from_region` are the tensor-parallel ones (Megatron's f
+  and g, and the all-gather of a column-parallel output), which GSPMD
+  inserts by itself in the JAX package. Each is the identity for a group
+  of one, so a tp 1 program runs no extra operation.
 
 While a telemetry sink is live, ``barrier``, ``host_broadcast`` and
 ``host_allgather`` run inside the overlap tracker's ``track_host``
@@ -645,3 +650,75 @@ class AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         group, split_axis, concat_axis = ctx.args
         return all_to_all_single(g.contiguous(), group, concat_axis, split_axis), None, None, None
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel regions (Megatron's f and g)
+
+
+class _CopyToRegion(torch.autograd.Function):
+    """Identity forward; the backward sums the members' gradients (each
+    member's column-parallel shard saw the whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ReduceOp.SUM, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """Sum of the members' partial outputs forward (a row-parallel
+    product); the backward hands every member the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    """All-gather on the last axis forward (a concatenation, in member
+    order); the backward keeps this member's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return all_gather(x.contiguous(), group=group, axis=x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = get_rank(ctx.group)
+        return g[..., i * ctx.n:(i + 1) * ctx.n].contiguous(), None
+
+
+def copy_to_region(x, group=TENSOR_AXIS):
+    """Enter a tensor-parallel region: ``x`` as it is, its gradient summed
+    over ``group`` (identity for a group of one)."""
+    if _pg(group)[1] == 1:
+        return x
+    return _CopyToRegion.apply(x, group)
+
+
+def reduce_from_region(x, group=TENSOR_AXIS):
+    """Leave a row-parallel region: the sum of the members' ``x``, its
+    gradient passed through (identity for a group of one)."""
+    if _pg(group)[1] == 1:
+        return x
+    return _ReduceFromRegion.apply(x, group)
+
+
+def gather_from_region(x, group=TENSOR_AXIS):
+    """Leave a column-parallel region: every member's ``x`` concatenated on
+    the last axis in member order, the gradient sliced back (identity for a
+    group of one). No arithmetic: the result is bitwise the columns a
+    whole product would give."""
+    if _pg(group)[1] == 1:
+        return x
+    return _GatherFromRegion.apply(x, group)

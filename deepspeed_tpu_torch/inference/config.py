@@ -545,7 +545,5 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         unported = self.continuous_batching.unported()
         if self.checkpoint is not None:
             unported.append("checkpoint (ROADMAP Queue 1 #10, checkpoint loading)")
-        if self.tensor_parallel.tp_size > 1:
-            unported.append("tensor_parallel.tp_size > 1 (ROADMAP Queue 1 #7, distributed runtime)")
         if unported:
             raise NotImplementedError("deepspeed_tpu_torch does not support yet: " + "; ".join(unported))

@@ -1,11 +1,22 @@
 """Inference engine: static-batch ``generate()`` over a preallocated KV cache.
 
 Port of ``deepspeed_tpu/inference/engine.py`` (reference
-``inference/engine.py``, ``InferenceEngine``) for tensor-parallel degree 1,
-on one device or, for an MoE model, expert-parallel over the ``expert``
-axis of the ``comm`` mesh (each rank serves every token through its
-experts and all-gathers their outputs, bitwise the one-rank result; an
-expert count the axis does not divide serves replicated, with a warning):
+``inference/engine.py``, ``InferenceEngine``), on one device or across the
+ranks of the ``comm`` mesh:
+
+- tensor parallelism over the ``tensor`` axis in the JAX engine's bitwise
+  all-gather layout (``TransformerConfig.bitwise_tp``): each rank holds its
+  q/k/v heads, its up/gate columns, its vocab rows and int8 head columns
+  and its KV heads; activations are all-gathered before the whole o_proj
+  and down_proj and the logits before anything reads them, so every
+  cross-rank transfer is a concatenation and tp > 1 is bitwise tp 1. Head
+  counts the degree does not divide serve REPLICATED, with the JAX
+  warning; the fused [q;k;v] matmul and the fused decode layer are off at
+  tp > 1 (the mesh's degree decides). Every rank runs the same requests;
+- expert parallelism for an MoE model over the ``expert`` axis (each rank
+  serves every token through its experts and all-gathers their outputs,
+  bitwise the one-rank result; an expert count the axis does not divide
+  serves replicated, with a warning):
 
 - kernel injection selects the model's kernel paths (``attention_impl=
   'flash'``: flash prefill and the decode-attention kernel; int8 weights
@@ -48,7 +59,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import comm as dist
 from ..accelerator import resolve_device
+from ..models.transformer import tp_shard_config, tp_shard_params
 from ..moe.layer import expert_parallel, shard_config, shard_params
 from ..telemetry import TelemetrySink, get_sink, set_sink
 from ..utils.logging import logger, log_dist
@@ -117,15 +130,54 @@ class InferenceEngine:
             raise ValueError("init_inference expects a deepspeed_tpu_torch model (CausalLMModel or "
                              f"preset name); got {type(model)}")
 
+        # the mesh decides the effective tensor parallelism (an existing mesh
+        # with tensor > 1 shards serving even when the config left tp_size
+        # at 1), before the overrides that depend on it
+        tp = int(cfg.tensor_parallel.tp_size)
+        if dist.is_initialized() and dist.has_mesh():
+            mesh_tp = dist.get_mesh().shape[dist.TENSOR_AXIS]
+            if mesh_tp != tp and tp > 1:
+                raise ValueError(f"existing mesh has tensor={mesh_tp}, config asks tp_size={tp}")
+        elif tp > 1:
+            world = dist.get_world_size()
+            if tp > world or world % tp:
+                raise ValueError(f"tensor_parallel.tp_size={tp} needs a world of a multiple of {tp} "
+                                 f"ranks; this one has {world} (start torch.distributed with one rank "
+                                 f"per shard)")
+            dist.initialize_mesh(tensor=tp)
+        self._tp = dist.get_world_size(dist.TENSOR_AXIS)
+        # head-divisibility gate (the JAX engine's): uneven head shards would
+        # cost bit-identity, so heads the degree does not divide serve
+        # REPLICATED, loudly
+        nh, nkv = model.cfg.num_heads, model.cfg.kv_heads
+        heads_divide = nh % self._tp == 0 and nkv % self._tp == 0
+        self._tp_replicated_fallback = self._tp > 1 and not heads_divide
+        if self._tp_replicated_fallback:
+            logger.warning(
+                f"init_inference: mesh tensor={self._tp} but head counts "
+                f"(num_heads={nh}, kv_heads={nkv}) don't divide it — serving "
+                f"REPLICATED (uneven head shards would cost bit-identity); "
+                f"choose a tensor degree dividing the kv head count to shard")
+
         # dtype 'int8' means int8 weights + bf16 compute: the memory-bound
         # decode loop reads half the weight bytes through the quant matmul
         self._int8_weights = cfg.dtype == torch.int8
         compute_dtype = torch.bfloat16 if self._int8_weights else cfg.dtype
         overrides = {"dtype": compute_dtype, "decode_block_kv": cfg.decode_block_kv}
+        self._int8_fused_note = None
         if self._int8_weights:
-            # fused [q;k;v] int8 matmul: tensor parallelism is 1 in the port
+            # fused [q;k;v] int8 matmul at tp 1; tp > 1 (by the mesh) forces
+            # the split projections, whose columns shard
             overrides["int8_weights"] = True
-            overrides["int8_fused_qkv"] = True
+            overrides["int8_fused_qkv"] = self._tp == 1
+            if self._tp > 1:
+                self._int8_fused_note = (
+                    f"tensor={self._tp} shards split q/k/v projections "
+                    f"column-wise; the fused [q;k;v] column axis cannot "
+                    f"shard without splitting component boundaries")
+                logger.warning(
+                    "init_inference(int8): fused-qkv decode disabled under "
+                    f"tensor parallelism (mesh tensor={self._tp}) — {self._int8_fused_note}")
         if cfg.kernel_inject:
             overrides["attention_impl"] = "flash"
             overrides["scan_layers"] = False
@@ -139,7 +191,9 @@ class InferenceEngine:
                 f"init_inference: mesh expert={self._ep} but num_experts="
                 f"{n_experts} doesn't divide it — serving REPLICATED expert "
                 f"weights (uneven expert shards would cost bit-identity)")
-        self.module = type(model)(shard_config(dataclasses.replace(model.cfg, **overrides)))
+        tp_shard = self._tp if heads_divide else 1
+        self.module = type(model)(tp_shard_config(shard_config(dataclasses.replace(model.cfg, **overrides)),
+                                                  tp=tp_shard, bitwise=tp_shard > 1))
         self.model_config = self.module.cfg
 
         # fused decode-block gating: every failing condition gets its reason
@@ -171,8 +225,26 @@ class InferenceEngine:
         elif self._int8_weights and cfg.fused_decode_block:
             fused = " fused_decode=on"
         log_dist(f"InferenceEngine ready: model dtype={self.model_config.dtype} device={self.device} "
-                 f"tp=1{self._moe_desc()} int8_weights={self._int8_weights}{fused} "
+                 f"{self._tp_desc()}{self._moe_desc()} int8_weights={self._int8_weights}{fused} "
                  f"kernel_inject={cfg.kernel_inject} max_out_tokens={cfg.max_out_tokens}", [0])
+
+    def _tp_desc(self):
+        """The ready line's tensor layout (the JAX engine's ``_shard_desc``
+        tensor and int8 fused-qkv parts): the mesh's degree, the layout in
+        force and the fused-qkv outcome."""
+        if self._tp <= 1:
+            desc = "tp=1"
+        elif self._tp_replicated_fallback:
+            mc = self.model_config
+            desc = (f"tp={self._tp} (REPLICATED fallback: num_heads={mc.num_heads}/"
+                    f"kv_heads={mc.kv_heads} don't divide the tensor degree)")
+        else:
+            desc = f"tp={self._tp} (bitwise all-gather layout, kv_heads sharded /{self._tp})"
+        if self._int8_weights:
+            fused = self.model_config.int8_fused_qkv
+            desc += (f" int8_fused_qkv={'on' if fused else 'off'}"
+                     + (f" ({self._int8_fused_note})" if self._int8_fused_note else ""))
+        return desc
 
     def _moe_desc(self):
         """The ready line's expert layout (the JAX engine's ``_shard_desc``
@@ -198,11 +270,17 @@ class InferenceEngine:
         the device are shared, not copied."""
         if params is None:
             logger.warning("init_inference: no params given; initializing random weights")
-            init_cfg = dataclasses.replace(self.model_config, int8_weights=False, moe_local_experts=None)
+            init_cfg = dataclasses.replace(self.model_config, int8_weights=False, moe_local_experts=None,
+                                           tp_shard=None)
             params = type(self.module)(init_cfg).init_params(0)
         if self._int8_weights and "logits_q" not in params:
             params = self.module.quantize_params(params)
-        params = shard_params(params, self.model_config)  # this rank's experts
+        # this rank's experts, then its tensor shard (a whole tree: an int8
+        # engine's own params are its shard already)
+        params = shard_params(params, self.model_config)
+        shapes = self.module.param_shapes()
+        if any(tuple(np.shape(v)) != shapes[k][0] for k, v in params.items() if k in shapes):
+            params = tp_shard_params(params, self.module)
         dtype = self.model_config.dtype
         out = {}
         for k, v in params.items():
@@ -274,7 +352,7 @@ class InferenceEngine:
             reasons.append(
                 f"int8 group spans {max(bad)} > 1024 on a contraction dim "
                 f"(group_size={gs}): the weight block would exceed VMEM")
-        tp = self._config.tensor_parallel.tp_size
+        tp = self._tp  # the mesh's degree, not the config's
         if tp != 1:
             reasons.append(f"tensor={tp}: the fused kernels are opaque "
                            f"to GSPMD; tp decodes per-projection")

@@ -5,7 +5,10 @@ Port of ``deepspeed_tpu/inference/kv_cache.py``. Serving keeps ONE
 fixed-shape pool of ``num_slots`` cache slots, per-layer tuples of
 (num_slots, kv_heads, max_len, head_dim) tensors (a third tuple of
 (num_slots, 1, max_len, 1) fp16 scales on the int8 tier), plus a host-side
-row of per-slot lengths. A request claims a free slot, its prompt KV lands in
+row of per-slot lengths. Under tensor parallelism a rank's pool holds its
+kv heads (``kv_heads / tp``), and its slots, radix copies and extent chains
+follow the same host bookkeeping on every rank; the int8 scale pool stays
+whole (one scale a row across every head, the same on every rank). A request claims a free slot, its prompt KV lands in
 rows ``[0, len)`` and it rides the shared decode step; on finish the slot
 returns to the free list (or, holding a registered prefix, to the
 ``cached`` state) and the next queued request overwrites it. The paged

@@ -166,6 +166,18 @@ def _unported(what, item):
     return NotImplementedError(f"deepspeed_tpu_torch does not support {what} yet ({item})")
 
 
+def _replicate_logits(logits, vocab_size, shard_deg):
+    """The step logits, whole on every rank before sampling (the JAX
+    scheduler's ``_replicate_logits``): the model's cached forward already
+    all-gathers a vocab-split head (a concatenation), so under any live
+    shard axis this checks that every rank holds the whole vocab and draws
+    the same token from the counter hash."""
+    if shard_deg > 1 and logits.shape[-1] != vocab_size:
+        raise RuntimeError(f"step logits hold {logits.shape[-1]} of {vocab_size} vocab columns under a "
+                           f"shard degree of {shard_deg}: sampling needs them whole on every rank")
+    return logits
+
+
 # ---------------------------------------------------------------- sampling
 
 
@@ -362,6 +374,16 @@ class DecodeScheduler:
         me = max(1, min(me, model.cfg.max_seq_len // S))
         self.allow_lossy_kv = bool(allow_lossy_kv)
         self.seq_parallel_min_tokens = max(0, int(seq_parallel_min_tokens))
+        # the mesh's shard degrees (the JAX scheduler's): every rank runs the
+        # same requests, and sampling reads whole logits under any of them
+        self.tp_size = int(getattr(engine, "_tp", 1))
+        self.ep_size = int(getattr(engine, "_ep", 1))
+        self._shard_deg = max(self.tp_size, self.ep_size)
+        if self.seq_parallel_min_tokens > 0 and self.tp_size > 1:
+            raise ValueError(
+                "sequence-parallel prefill composes with tp=1 only: the "
+                "seq-sharded span kernel gathers over the seq axis while "
+                "tensor parallelism already shards the attention heads")
         if self.seq_parallel_min_tokens > 0:
             # the wide chunk: degree x the base chunk, clamped to the extent.
             # One device is a seq axis of one shard, so the default degree is
@@ -1063,6 +1085,7 @@ class DecodeScheduler:
             # (the JAX package's slot_update of its functional pool)
             logits, _ = model.apply_with_cache(self.engine.net, torch.from_numpy(ids).to(self.device),
                                                cache, 0)
+            logits = _replicate_logits(logits, model.cfg.vocab_size, self._shard_deg)
             last = logits[:, L - 1].float()  # (1, V)
             samp, sampling, _ = self._gather_sampling([(0, req)], rows=1)
             if sampling:
@@ -1209,7 +1232,7 @@ class DecodeScheduler:
             logits, _ = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
                                                position_ids=pos, write_index=widx, q_spans=spans,
                                                ext_ops=ext_ops)
-        return logits
+        return _replicate_logits(logits, model.cfg.vocab_size, self._shard_deg)
 
     def _take_expert_counts(self):
         """After a sync's fetch: its summed (L, E) routed-token counts into

@@ -46,6 +46,18 @@ own, capacity-free, and can return the per-layer routed-token counts
 after ``quantize_params``; ``moe_local_experts`` holds a rank's slice of
 them under expert parallelism.
 
+Tensor parallelism (``cfg.tp_shard``, set by :func:`tp_shard_config`;
+:func:`tp_shard_params` cuts a rank's shard of a whole state dict by
+:meth:`CausalLMModel.tp_rules`): a rank runs its q/k/v heads, its up/gate
+columns and its vocab rows (the embedding takes each token's row from the
+rank that holds it, a select). In the serving layout (``bitwise_tp``, the
+JAX model's) the attention heads and the MLP activation are all-gathered
+before the whole o_proj and down_proj and the logits before they are read:
+every transfer a concatenation, so tp > 1 is bitwise tp 1. In training
+o_proj and down_proj are row-parallel, summed over ``tensor`` before the
+bias, and the loss is :func:`vocab_parallel_cross_entropy`; the region
+operators of ``comm`` carry the gradients.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 LoRA, alibi, local attention windows, sequence sharding across devices,
 cold-expert paging and activation fake-quantization.
@@ -62,6 +74,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from .. import comm as dist
 from ..ops.decode_attention import (decode_attention, extent_paged_decode_attention,
                                     extent_paged_span_attention, paged_decode_attention,
                                     paged_span_attention)
@@ -108,6 +121,10 @@ class TransformerConfig:
     # this rank's experts under expert parallelism, (first, count); None =
     # all of them (moe/layer.py:shard_config sets it)
     moe_local_experts: Optional[Tuple[int, int]] = None
+    # this rank's shard over the ``tensor`` axis, (index, degree); None =
+    # whole (tp_shard_config sets it). The head, ffn and vocab counts stay
+    # the model's; ``local_*`` are the rank's.
+    tp_shard: Optional[Tuple[int, int]] = None
     # systems
     dtype: Any = torch.bfloat16
     scan_layers: bool = True
@@ -139,10 +156,59 @@ class TransformerConfig:
         if self.local_attention_layers and self.scan_layers:
             raise ValueError("local_attention_layers (per-layer windows) requires "
                              "scan_layers=False — scanned layers share one program")
+        if self.tp_size > 1:
+            t = self.tp_size
+            if self.num_heads % t or self.kv_heads % t or self.ffn_size % t:
+                raise ValueError(f"tensor degree {t} must divide num_heads={self.num_heads}, "
+                                 f"kv_heads={self.kv_heads} and ffn_size={self.ffn_size}")
+            if self.int8_fused_qkv:
+                raise ValueError("int8_fused_qkv concatenates [q;k;v] on one column axis, which a "
+                                 "tensor shard would split across component boundaries")
+            if self.int8_weights and (padded_vocab(self) // t) % 4:
+                raise ValueError(f"the int8 head's shard of {padded_vocab(self)}/{t} columns must be a "
+                                 f"multiple of 4 (the quant-matmul kernel's)")
 
     @property
     def kv_heads(self):
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def tp_size(self):
+        return self.tp_shard[1] if self.tp_shard else 1
+
+    @property
+    def tp_index(self):
+        return self.tp_shard[0] if self.tp_shard else 0
+
+    @property
+    def local_heads(self):
+        return self.num_heads // self.tp_size
+
+    @property
+    def local_kv_heads(self):
+        return self.kv_heads // self.tp_size
+
+    @property
+    def local_ffn(self):
+        return self.ffn_size // self.tp_size
+
+    @property
+    def tp_vocab(self):
+        """Whether the embedding and a float head split the vocab over
+        ``tensor`` (a vocab the degree does not divide stays whole, as the
+        JAX planner relaxes it)."""
+        return self.tp_size > 1 and self.vocab_size % self.tp_size == 0
+
+    @property
+    def tp_mode(self):
+        """How o_proj and down_proj (and an expert's down_proj) meet the
+        tensor shards: None at tp 1; ``"reduce"``: they split their
+        contraction and the partial outputs sum over ``tensor`` (training);
+        ``"gather"``: under ``bitwise_tp`` they stay whole and read
+        all-gathered activations (serving)."""
+        if self.tp_size == 1:
+            return None
+        return "gather" if self.bitwise_tp else "reduce"
 
     @property
     def head_size(self):
@@ -243,6 +309,97 @@ def chunked_cross_entropy(hidden, w, labels, valid, chunk=128, transpose=False):
     integer, ``valid`` (B, T) bool. Chunks of ``chunk`` time steps; the last
     may be shorter (the JAX package pads it with invalid rows instead)."""
     return _ChunkedCE.apply(hidden, w, labels.long(), valid.to(torch.float32), chunk, transpose)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """:class:`_ChunkedCE` over a vocab split across ``tensor`` (Megatron's
+    vocab-parallel cross entropy): ``w`` holds this rank's vocab rows
+    ``[start, start + V/t)``. Each chunk's max is all-reduced with MAX, its
+    sum of exponentials and the target logit (taken from the rank that owns
+    the label, zero elsewhere) with SUM, so every rank gets the same loss.
+    The backward stays local: this rank's softmax columns give its part of
+    d(hidden), which the :func:`~deepspeed_tpu_torch.comm.copy_to_region`
+    the caller put before ``hidden`` sums over the ranks, and its own
+    vocab rows' d(w)."""
+
+    @staticmethod
+    def forward(ctx, hidden, w, labels, valid, chunk, transpose, start):
+        Vl = w.shape[0] if transpose else w.shape[1]
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        lses = []
+        for c0 in range(0, hidden.shape[1], chunk):
+            logits = _ce_logits(hidden[:, c0:c0 + chunk], w, transpose)
+            m = dist.all_reduce(logits.amax(dim=-1), dist.ReduceOp.MAX, dist.TENSOR_AXIS)
+            loc = labels[:, c0:c0 + chunk] - start
+            own = (loc >= 0) & (loc < Vl)
+            corr = torch.gather(logits, -1, loc.clamp(0, Vl - 1)[..., None])[..., 0]
+            sums = torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1),
+                                torch.where(own, corr, torch.zeros_like(corr))])
+            sums = dist.all_reduce(sums, dist.ReduceOp.SUM, dist.TENSOR_AXIS)
+            lse = m + torch.log(sums[0])
+            lses.append(lse)
+            total = total + ((lse - sums[1]) * valid[:, c0:c0 + chunk]).sum()
+        ctx.save_for_backward(hidden, w, labels, valid, torch.cat(lses, dim=1))
+        ctx.chunk, ctx.transpose, ctx.start = chunk, transpose, start
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w, labels, valid, lse = ctx.saved_tensors
+        chunk, transpose, start = ctx.chunk, ctx.transpose, ctx.start
+        Vl = w.shape[0] if transpose else w.shape[1]
+        wc = w.to(hidden.dtype)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dx = []
+        for c0 in range(0, hidden.shape[1], chunk):
+            xc = hidden[:, c0:c0 + chunk]
+            dlogit = torch.exp(_ce_logits(xc, w, transpose) - lse[:, c0:c0 + chunk, None])
+            loc = labels[:, c0:c0 + chunk] - start
+            own = ((loc >= 0) & (loc < Vl)).to(dlogit.dtype)
+            dlogit.scatter_add_(-1, loc.clamp(0, Vl - 1)[..., None], -own[..., None])
+            dlogit = (dlogit * (valid[:, c0:c0 + chunk] * g)[..., None]).to(xc.dtype)
+            if transpose:  # w (V/t, H)
+                dx.append(torch.matmul(dlogit, wc))
+                dw += torch.matmul(dlogit.flatten(0, 1).T, xc.flatten(0, 1)).float()
+            else:  # w (H, V/t)
+                dx.append(torch.matmul(dlogit, wc.T))
+                dw += torch.matmul(xc.flatten(0, 1).T, dlogit.flatten(0, 1)).float()
+        return torch.cat(dx, dim=1).to(hidden.dtype), dw.to(w.dtype), None, None, None, None, None
+
+
+def vocab_parallel_cross_entropy(hidden, w, labels, valid, cfg, chunk=256, transpose=False):
+    """:func:`chunked_cross_entropy` with the vocab split over ``tensor``
+    (``cfg.tp_vocab``): ``w`` is this rank's (V/t, H) rows when
+    ``transpose`` (a tied embedding), else its (H, V/t) columns. ``hidden``
+    enters the tensor region here, so its gradient sums over the ranks."""
+    start = cfg.tp_index * (cfg.vocab_size // cfg.tp_size)
+    return _VocabParallelCE.apply(dist.copy_to_region(hidden), w, labels.long(), valid.to(torch.float32),
+                                  chunk, transpose, start)
+
+
+def _chunked_ce(hidden, w, labels, valid, cfg, transpose):
+    """The model's chunked CE: vocab-parallel when the vocab splits over
+    ``tensor``."""
+    chunk = cfg.ce_chunk_size or 256
+    if cfg.tp_vocab:
+        return vocab_parallel_cross_entropy(hidden, w, labels, valid, cfg, chunk=chunk, transpose=transpose)
+    return chunked_cross_entropy(hidden, w, labels, valid, chunk=chunk, transpose=transpose)
+
+
+def embed_lookup(table, ids, cfg):
+    """The embedding rows of ``ids``. With the vocab split over ``tensor``
+    (``cfg.tp_vocab``) each rank looks up the rows it holds, every rank's
+    rows are all-gathered on a new last axis and each token takes its
+    owner's: a select, so the result is exactly the stored row (a sum of
+    the ranks' masked rows would turn a stored -0.0 into +0.0), and its
+    gradient reaches the owner's table only."""
+    if not cfg.tp_vocab:
+        return table[ids]
+    Vl = table.shape[0]
+    rows = table[(ids - cfg.tp_index * Vl).clamp(0, Vl - 1)]
+    stacked = dist.gather_from_region(rows.unsqueeze(-1))  # (..., H, t)
+    owner = torch.div(ids, Vl, rounding_mode="floor")
+    return torch.gather(stacked, -1, owner[..., None, None].expand(rows.shape + (1, )))[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -462,13 +619,18 @@ class QuantDense(nn.Module):
             self.register_buffer("kernel", _meta(k, n))
         self.register_buffer("bias", _meta(n) if use_bias else None)
 
-    def forward(self, x, impl="kernel"):
+    def forward(self, x, impl="kernel", reduce=None):
+        """``reduce``: applied to the product before the bias (a
+        row-parallel shard's sum over ``tensor``, so the bias is added
+        once)."""
         K = x.shape[-1]
         x2 = x.reshape(-1, K).to(self.dtype)
         if self.int8:
             y = _qmm2d(x2, self.kernel_q, self.kernel_scale, impl=impl)
         else:
             y = _matmul_rows(x2, self.kernel.to(self.dtype))
+        if reduce is not None:
+            y = reduce(y)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y.reshape(x.shape[:-1] + (y.shape[-1], ))
@@ -488,11 +650,18 @@ class HeadProjection(QuantDense):
 
 
 class OutProjection(QuantDense):
-    """Attention output projection consuming (B, heads, T, hd)."""
+    """Attention output projection consuming (B, heads, T, hd). Under
+    tensor parallelism the input is this rank's heads: ``bitwise_tp``
+    all-gathers them (a concatenation in head order) before the whole
+    projection, else this rank's rows of the projection run and the
+    partial outputs are summed over ``tensor`` before the bias."""
 
-    def forward(self, x, impl="kernel"):  # (B, heads, T, hd) -> (B, T, features)
+    def forward(self, x, impl="kernel", tp=None):  # (B, heads, T, hd) -> (B, T, features)
         B, n, T, d = x.shape
-        return super().forward(x.transpose(1, 2).reshape(B, T, n * d), impl)
+        x = x.transpose(1, 2).reshape(B, T, n * d)
+        if tp == "gather":
+            return super().forward(dist.gather_from_region(x), impl)
+        return super().forward(x, impl, reduce=dist.reduce_from_region if tp == "reduce" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -621,7 +790,7 @@ class Attention(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        H, nh, nkv, hd = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.head_size
+        H, nh, nkv, hd = cfg.hidden_size, cfg.local_heads, cfg.local_kv_heads, cfg.head_size
         self.use_bias = cfg.attn_bias if cfg.attn_bias is not None else cfg.norm == "layernorm"
         i8, gs = cfg.int8_weights, cfg.int8_group_size
         self.fused = i8 and cfg.int8_fused_qkv
@@ -634,7 +803,8 @@ class Attention(nn.Module):
             self.q_proj = HeadProjection(H, nh, hd, self.use_bias, cfg.dtype, i8, gs)
             self.k_proj = HeadProjection(H, nkv, hd, self.use_bias, cfg.dtype, i8, gs)
             self.v_proj = HeadProjection(H, nkv, hd, self.use_bias, cfg.dtype, i8, gs)
-        self.o_proj = OutProjection(nh * hd, H, self.use_bias, cfg.dtype, i8, gs)
+        o_rows = nh * hd if cfg.tp_mode == "reduce" else cfg.num_heads * hd
+        self.o_proj = OutProjection(o_rows, H, self.use_bias, cfg.dtype, i8, gs)
 
     def forward(self, x, sin, cos, attn_mask=None, kv_cache=None, cache_index=None,
                 position_ids=None, decode_window=None, slot_write=None, impl="kernel"):
@@ -652,7 +822,8 @@ class Attention(nn.Module):
         cache is written in place."""
         cfg = self.cfg
         B, T, H = x.shape
-        nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_size
+        nh, nkv, hd = cfg.local_heads, cfg.local_kv_heads, cfg.head_size
+        x = dist.copy_to_region(x) if cfg.tp_size > 1 else x
         if self.fused:
             y = _qmm2d(x.reshape(B * T, H).to(cfg.dtype), self.qkv_q, self.qkv_scale, impl=impl)
             if self.qkv_bias is not None:
@@ -692,7 +863,7 @@ class Attention(nn.Module):
             csc = None
             if quant_kv:
                 ck, cv, csc = kv_cache
-                kq, vq, sc_new = quantize_kv_rows(k, v)
+                kq, vq, sc_new = quantize_kv_rows(k, v, group=dist.TENSOR_AXIS if cfg.tp_size > 1 else None)
                 writes = [(ck, kq), (cv, vq), (csc, sc_new)]
             else:
                 ck, cv = kv_cache
@@ -760,7 +931,7 @@ class Attention(nn.Module):
                 if attn_mask is not None:
                     bias = bias + torch.where(attn_mask, 0.0, -1e30)[:, None, None, :]
                 out = _sdpa_plain(q, k, v, bias, cfg.dtype)
-        return self.o_proj(out, impl), new_cache
+        return self.o_proj(out, impl, cfg.tp_mode), new_cache
 
 
 class MLP(nn.Module):
@@ -768,16 +939,23 @@ class MLP(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        H, Fs = cfg.hidden_size, cfg.ffn_size
+        H, Fs = cfg.hidden_size, cfg.local_ffn
         bias = cfg.norm == "layernorm"
         i8, gs = cfg.int8_weights, cfg.int8_group_size
         if cfg.activation in ("swiglu", "geglu"):
             self.gate_proj = QuantDense(H, Fs, bias, cfg.dtype, i8, gs)
         self.up_proj = QuantDense(H, Fs, bias, cfg.dtype, i8, gs)
-        self.down_proj = QuantDense(Fs, H, bias, cfg.dtype, i8, gs)
+        self.down_proj = QuantDense(Fs if cfg.tp_mode == "reduce" else cfg.ffn_size, H, bias, cfg.dtype, i8, gs)
 
     def forward(self, x, impl="kernel"):
+        """Under tensor parallelism ``x`` enters the region whole and the
+        up/gate columns are this rank's; ``bitwise_tp`` all-gathers the
+        activation before the whole down_proj, else this rank's down_proj
+        rows run and their outputs sum over ``tensor`` before the bias."""
         act = self.cfg.activation
+        mode = self.cfg.tp_mode
+        if mode is not None:
+            x = dist.copy_to_region(x)
         if act in ("swiglu", "geglu"):
             gate = self.gate_proj(x, impl)
             up = self.up_proj(x, impl)
@@ -792,7 +970,9 @@ class MLP(nn.Module):
                 h = h * torch.sigmoid(1.702 * h)
             else:
                 h = F.relu(h)
-        return self.down_proj(h, impl)
+        if mode == "gather":
+            h = dist.gather_from_region(h)
+        return self.down_proj(h, impl, reduce=dist.reduce_from_region if mode == "reduce" else None)
 
 
 class Block(nn.Module):
@@ -863,7 +1043,8 @@ class CausalLM(nn.Module):
         self.cfg = cfg
         self._remat = resolve_remat_policy(cfg.remat_policy)
         H = cfg.hidden_size
-        self.embed = Embed(cfg.vocab_size, H)
+        V = cfg.vocab_size // cfg.tp_size if cfg.tp_vocab else cfg.vocab_size
+        self.embed = Embed(V, H)
         if cfg.embed_norm:
             self.embed_norm = make_norm(cfg)
         if cfg.pos_embedding == "learned":
@@ -871,13 +1052,13 @@ class CausalLM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.final_norm = make_norm(cfg)
         if cfg.int8_weights:
-            Vpad = padded_vocab(cfg)
+            Vpad = padded_vocab(cfg) // cfg.tp_size  # this rank's columns of the padded head
             self.register_buffer("logits_q", _meta(H, Vpad, dtype=torch.int8))
             self.register_buffer("logits_scale", _meta(_q_groups(H, cfg.int8_group_size), Vpad))
             if cfg.lm_head_bias:
                 self.register_buffer("logits_bias", _meta(cfg.vocab_size))
         elif not cfg.tie_embeddings:
-            self.lm_head = QuantDense(H, cfg.vocab_size, cfg.lm_head_bias, cfg.dtype)
+            self.lm_head = QuantDense(H, V, cfg.lm_head_bias, cfg.dtype)
         self._rope = {}
 
     def _rope_table(self, device):
@@ -920,7 +1101,7 @@ class CausalLM(nn.Module):
             # columns past a row's span may sit past the position tables;
             # their values are never read (the JAX gathers clamp them too)
             position_ids = position_ids.clamp(max=cfg.max_seq_len - 1)
-        x = self.embed.embedding[input_ids].to(cfg.dtype)
+        x = embed_lookup(self.embed.embedding, input_ids, cfg).to(cfg.dtype)
         if cfg.embed_norm:
             x = self.embed_norm(x)
         if cfg.pos_embedding == "learned":
@@ -974,20 +1155,37 @@ class CausalLM(nn.Module):
         if return_hidden:
             return x
         if cfg.int8_weights:
-            # one int8 vocab projection covers tied and untied heads
+            # one int8 vocab projection covers tied and untied heads; under
+            # tensor parallelism each rank's vocab columns, all-gathered
             logits = _qmm2d(x.reshape(B * T, cfg.hidden_size), self.logits_q, self.logits_scale,
                             impl=impl)
-            logits = logits.reshape(B, T, -1)[..., :cfg.vocab_size]
+            logits = _tp_gather(logits, cfg.tp_size > 1).reshape(B, T, -1)[..., :cfg.vocab_size]
             if cfg.lm_head_bias:
                 logits = logits + self.logits_bias.to(logits.dtype)
-        elif cfg.tie_embeddings:
-            logits = _matmul_rows(x.reshape(B * T, -1), self.embed.embedding.to(cfg.dtype), w_rows=True)
-            logits = logits.reshape(B, T, -1)
         else:
-            logits = self.lm_head(x)
+            logits = _float_head(x, self.embed.embedding, self.lm_head if not cfg.tie_embeddings else None, cfg)
         if kv_cache is not None:
             return logits, kv_cache
         return logits
+
+
+def _tp_gather(x, on):
+    return dist.gather_from_region(x) if on else x
+
+
+def _float_head(x, embedding, lm_head, cfg, impl="kernel"):
+    """The float vocab projection of (B, T, H) ``x``: the tied embedding's
+    rows, or ``lm_head`` (a :class:`QuantDense`, called as the module or
+    through ``functional_call``); a vocab split over ``tensor`` is
+    all-gathered, so every rank holds the whole logits."""
+    B, T = x.shape[:2]
+    if cfg.tp_vocab:
+        x = dist.copy_to_region(x)
+    if lm_head is None:
+        logits = _matmul_rows(x.reshape(B * T, -1), embedding.to(cfg.dtype), w_rows=True).reshape(B, T, -1)
+    else:
+        logits = lm_head(x, impl)
+    return _tp_gather(logits, cfg.tp_vocab)
 
 
 def _init_leaf(name, shape, dtype, gen):
@@ -1090,8 +1288,7 @@ class CausalLMModel:
                 w, transpose = params["embed.embedding"], True  # (V, H)
             else:
                 w, transpose = params["lm_head.kernel"], False  # (H, V)
-            loss = chunked_cross_entropy(out_t, w, labels_c, valid, chunk=cfg.ce_chunk_size or 256,
-                                         transpose=transpose) / n_valid
+            loss = _chunked_ce(out_t, w, labels_c, valid, cfg, transpose) / n_valid
         else:
             ce = F.cross_entropy(out_t.float().flatten(0, 1), labels_c.flatten(), reduction="none")
             loss = (ce * valid.flatten()).sum() / n_valid
@@ -1136,7 +1333,7 @@ class CausalLMModel:
         """Token embedding (+ embed norm, learned positions): (B, T) ids ->
         (B, T, H) in the compute dtype."""
         cfg, mod = self.cfg, self.module
-        x = embed_tree["embed.embedding"][input_ids].to(cfg.dtype)
+        x = embed_lookup(embed_tree["embed.embedding"], input_ids, cfg).to(cfg.dtype)
         if cfg.embed_norm:
             x = torch.func.functional_call(mod.embed_norm, self._sub(embed_tree, "embed_norm"), (x, ))
         if cfg.pos_embedding == "learned":
@@ -1196,12 +1393,12 @@ class CausalLMModel:
     def stream_logits(self, tail_tree, h, impl="kernel"):
         """Final norm and vocab projection: (B, T, H) -> (B, T, V)."""
         cfg, mod = self.cfg, self.module
-        B, T = h.shape[:2]
         x = torch.func.functional_call(mod.final_norm, self._sub(tail_tree, "final_norm"), (h, ))
         if cfg.tie_embeddings:
-            logits = _matmul_rows(x.reshape(B * T, -1), tail_tree["embed.embedding"].to(cfg.dtype), w_rows=True)
-            return logits.reshape(B, T, -1)
-        return torch.func.functional_call(mod.lm_head, self._sub(tail_tree, "lm_head"), (x, ), {"impl": impl})
+            return _float_head(x, tail_tree["embed.embedding"], None, cfg)
+        sub = self._sub(tail_tree, "lm_head")
+        return _float_head(x, None, lambda y, impl: torch.func.functional_call(mod.lm_head, sub, (y, ),
+                                                                                {"impl": impl}), cfg, impl)
 
     def stream_tail_loss(self, tail_tree, h, labels, valid, shift=True, n_valid=None):
         """Final norm, vocab projection and the masked cross entropy (the
@@ -1224,9 +1421,7 @@ class CausalLMModel:
             w, transpose = tail_tree["embed.embedding"], True
         else:
             w, transpose = tail_tree["lm_head.kernel"], False
-        total = chunked_cross_entropy(x, w, labels.long(), valid, chunk=cfg.ce_chunk_size or 256,
-                                      transpose=transpose)
-        return total / n_valid
+        return _chunked_ce(x, w, labels.long(), valid, cfg, transpose) / n_valid
 
     # ---- generation (KV cache) -------------------------------------------
     def quantize_params(self, params, group_size=None, dtype=None):
@@ -1350,19 +1545,29 @@ class CausalLMModel:
         key (the JAX model's unscanned ``tp_rules``, on the port's 2-D
         attention kernels: q/k/v (H, heads x hd) split their columns, o
         (heads x hd, H) its rows). The ZeRO planner applies them before the
-        data-parallel axes, as the JAX engine does; the engine still refuses
-        a tensor axis above 1 (ROADMAP Queue 1 #7.2)."""
+        data-parallel axes, as the JAX engine does, and
+        :func:`tp_shard_params` cuts a rank's shard by them. Beyond the JAX
+        rules: the int8 kernels' scale columns go with their kernel
+        columns, and a column-parallel bias with its columns (the JAX
+        package keeps biases whole and lets GSPMD slice them; a rank here
+        holds only what its shard reads). Under ``bitwise_tp`` o_proj and
+        down_proj stay whole."""
         t, e = "tensor", "expert"  # comm.TENSOR_AXIS, comm.EXPERT_AXIS
         row = (None, None) if self.cfg.bitwise_tp else (t, None)
         return [
-            (r"experts\.(gate|up)_proj$", (e, None, t)),
-            (r"experts\.down_proj$", (e, None, None) if self.cfg.bitwise_tp else (e, t, None)),
-            (r"attn\.(q|k|v)_proj\.kernel$", (None, t)),
-            (r"attn\.o_proj\.kernel$", row),
-            (r"mlp\.(gate|up)_proj\.kernel$", (None, t)),
-            (r"mlp\.down_proj\.kernel$", row),
+            (r"experts\.(gate|up)_proj(_q|_scale)?$", (e, None, t)),
+            (r"experts\.up_bias$", (e, t)),
+            (r"experts\.down_proj(_q|_scale)?$", (e, None, None) if self.cfg.bitwise_tp else (e, t, None)),
+            (r"attn\.(q|k|v)_proj\.(kernel|kernel_q|kernel_scale)$", (None, t)),
+            (r"attn\.(q|k|v)_proj\.bias$", (t, )),
+            (r"attn\.o_proj\.(kernel|kernel_q|kernel_scale)$", row),
+            (r"mlp\.(gate|up)_proj\.(kernel|kernel_q|kernel_scale)$", (None, t)),
+            (r"mlp\.(gate|up)_proj\.bias$", (t, )),
+            (r"mlp\.down_proj\.(kernel|kernel_q|kernel_scale)$", row),
             (r"embed\.embedding$", (t, None)),
             (r"lm_head\.kernel$", (None, t)),
+            (r"lm_head\.bias$", (t, )),
+            (r"logits_(q|scale)$", (None, t)),
         ]
 
     def expert_pattern(self):
@@ -1378,7 +1583,7 @@ class CausalLMModel:
         ``(ks, vs, scales)`` with int8 K/V and one fp16 scale per cache row,
         (B, 1, S, 1), shared by K and V across heads; scales start at 1."""
         cfg = self.cfg
-        shape = (batch_size, cfg.kv_heads, max_len, cfg.head_size)
+        shape = (batch_size, cfg.local_kv_heads, max_len, cfg.head_size)
         L = range(cfg.num_layers)
         if quantized:
             sshape = (batch_size, 1, max_len, 1)
@@ -1501,6 +1706,56 @@ class CausalLMModel:
         if "logits_bias" in head:
             logits = logits + head["logits_bias"].to(logits.dtype)
         return logits, kv_cache
+
+
+# ---------------------------------------------------------------------------
+# a rank's shard over the tensor axis
+
+
+def tp_shard_config(cfg, tp, bitwise):
+    """``cfg`` with ``tp_shard`` set to this rank's (index, ``tp``) over the
+    ``tensor`` axis (None when ``tp`` is 1: a whole model) and
+    ``bitwise_tp``."""
+    shard = (dist.get_rank(dist.TENSOR_AXIS), int(tp)) if tp > 1 else None
+    return dataclasses.replace(cfg, tp_shard=shard, bitwise_tp=bool(bitwise))
+
+
+def tp_dims(model, shapes):
+    """{key: the dim split over ``tensor``, or None} for a whole-model state
+    dict's ``shapes`` under ``model``'s :meth:`~CausalLMModel.tp_rules`; a
+    dim the degree does not divide stays whole (the planner's rule)."""
+    from ..runtime.zero.sharding import TensorParallelRules
+    rules = TensorParallelRules(model.tp_rules())
+    t = model.cfg.tp_size
+    out = {}
+    for k, shape in shapes.items():
+        spec = rules.match(k, len(shape)) if t > 1 else None
+        dims = [d for d, a in enumerate(spec or ()) if a == dist.TENSOR_AXIS and shape[d] % t == 0]
+        out[k] = dims[0] if dims else None
+    return out
+
+
+def tp_shard_params(params, model):
+    """A whole-model state dict sliced to this rank's shard
+    (``model.cfg.tp_shard``), by :func:`tp_dims`: the int8 scale columns
+    with their kernel columns. A split tensor is this rank's contiguous
+    copy (a view would keep the whole tensor alive, and the kernels take
+    contiguous operands); the dict itself at tp 1."""
+    cfg = model.cfg
+    if cfg.tp_size == 1:
+        return params
+    dims = tp_dims(model, {k: tuple(v.shape) for k, v in params.items()})
+    return {k: v if dims[k] is None else tp_slice(torch.as_tensor(v), dims[k], cfg).clone(
+        memory_format=torch.contiguous_format) for k, v in params.items()}
+
+
+def tp_slice(t, dim, cfg):
+    """This rank's slice of a whole tensor ``t`` along ``dim`` (a view; ``t``
+    itself when ``dim`` is None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // cfg.tp_size
+    return t.narrow(dim, cfg.tp_index * n, n)
 
 
 _UNPORTED_ARGS = {

@@ -29,6 +29,14 @@ dict to them):
 A count that ep does not divide keeps every expert on every rank (the
 replicated fallback): no exchange, expert gradients summed like the
 dense ones.
+
+Tensor parallelism (``cfg.tp_shard``) splits each expert's gate/up
+columns over ``tensor`` (``(e, None, t)``). Serving (``bitwise_tp``)
+all-gathers the activation before a whole down_proj, a concatenation, so
+tp > 1 is bitwise tp 1 (the JAX ``expert_ffn``'s re-replication); training
+runs this rank's down_proj rows and sums the outputs over ``tensor``
+before the bias. ep x tp composes: the tensor exchange happens inside an
+expert's FFN, the expert exchange around it.
 """
 
 import dataclasses
@@ -130,10 +138,13 @@ def expert_kernels(kernels, e, dtype):
     return out
 
 
-def expert_ffn(x, kern, activation, dtype, rows=None):
+def expert_ffn(x, kern, activation, dtype, rows=None, tp=None):
     """One expert's FFN on its token rows ``x`` (M, H) (the JAX package's
     ``expert_ffn`` for one expert), ``kern`` from :func:`expert_kernels`.
-    ``rows``: run in fixed blocks of that many rows (:func:`_in_blocks`)."""
+    ``rows``: run in fixed blocks of that many rows (:func:`_in_blocks`).
+    ``tp``: None, ``"gather"`` (the ffn-sharded activation all-gathered
+    before a whole down_proj) or ``"reduce"`` (a row-parallel down_proj
+    summed over ``tensor`` before the bias)."""
 
     def ffn(x):
         if activation in GLU:
@@ -145,7 +156,11 @@ def expert_ffn(x, kern, activation, dtype, rows=None):
             if "up_bias" in kern:
                 h = h + kern["up_bias"].to(h.dtype)
             h = F.gelu(h, approximate="tanh") if activation == "gelu" else F.relu(h)
+        if tp == "gather":
+            h = dist.gather_from_region(h)
         out = torch.matmul(h, kern["down_proj"])
+        if tp == "reduce":
+            out = dist.reduce_from_region(out)
         if "down_bias" in kern:
             out = out + kern["down_bias"].to(out.dtype)
         return out
@@ -165,9 +180,10 @@ class Experts(nn.Module):
 
     def __init__(self, cfg, count):
         super().__init__()
-        H, Fs = cfg.hidden_size, cfg.ffn_size
+        H, Fs = cfg.hidden_size, cfg.local_ffn
+        Fd = Fs if cfg.tp_mode == "reduce" else cfg.ffn_size  # down_proj's rows
         gs = cfg.int8_group_size or 128
-        for name, k, n in (("gate_proj", H, Fs), ("up_proj", H, Fs), ("down_proj", Fs, H)):
+        for name, k, n in (("gate_proj", H, Fs), ("up_proj", H, Fs), ("down_proj", Fd, H)):
             if cfg.int8_weights:
                 G = k // gs if k % gs == 0 else 1
                 self.register_buffer(name + "_q", _meta(count, k, n, dtype=torch.int8))
@@ -212,9 +228,12 @@ class MoE(nn.Module):
         sharded = cfg.moe_local_experts is not None
         if sharded:  # (E, C, H) -> (E/ep, ep*C, H): this rank's experts, every rank's slots
             expert_in = dist.AllToAll.apply(expert_in, dist.EXPERT_AXIS, 0, 1)
+        tp = cfg.tp_mode
+        if tp is not None:  # the column-parallel gate/up see the whole slots
+            expert_in = dist.copy_to_region(expert_in)
         kernels = self.experts.kernels()
         expert_out = torch.stack([expert_ffn(expert_in[i], expert_kernels(kernels, i, cfg.dtype),
-                                             cfg.activation, cfg.dtype)
+                                             cfg.activation, cfg.dtype, tp=tp)
                                   for i in range(expert_in.shape[0])])
         if sharded:  # back to (E, C, H), this rank's slots of every expert
             expert_out = dist.AllToAll.apply(expert_out, dist.EXPERT_AXIS, 1, 0)
@@ -240,7 +259,7 @@ class MoE(nn.Module):
         kernels = self.experts.kernels()
         count = next(iter(kernels.values())).shape[0]
         outs = [expert_ffn(tokens, expert_kernels(kernels, i, cfg.dtype), cfg.activation, cfg.dtype,
-                           SERVE_ROWS) for i in range(count)]
+                           SERVE_ROWS, tp=cfg.tp_mode) for i in range(count)]
         if cfg.moe_local_experts is not None:  # every rank's experts, in expert order
             outs = list(dist.all_gather(torch.stack(outs), group=dist.EXPERT_AXIS).unbind(0))
         # a fixed increasing-expert-index walk: every split of the experts

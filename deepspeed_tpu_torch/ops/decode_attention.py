@@ -64,6 +64,13 @@ kernels' ``_decode_call``/``_extent_call`` compute: the (head-group,
 column) fold with the column fastest, ``end + column`` per column, fp32
 scores and softmax, ``l == 0 -> 1``; the extent modes gather each row's
 logical window first.
+
+The ``sharded_*`` wrappers (the JAX package's) take replicated operands,
+run the same kernel on this rank's heads over a mesh axis (``tensor``) and
+all-gather the heads: bitwise the unsharded call. The tensor-parallel model
+does not need them (its pool already holds this rank's kv heads).
+``seq_sharded_span_attention`` waits for sequence parallelism (ROADMAP
+Queue 1 #7.4).
 """
 
 import ctypes
@@ -459,3 +466,48 @@ def extent_paged_span_attention(q, k_cache, v_cache, start, base, ext, *, block_
 
 extent_paged_span_attention.launches = 0  # bf16 KV
 extent_paged_span_attention.launches_int8 = 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel wrappers: this rank's heads, all-gathered
+
+
+def _on_heads(fn, axis, q, k_cache, v_cache, *args, **kw):
+    """``fn`` on this rank's slice of the head axis (dim 1) of ``q`` and the
+    caches over the mesh axis ``axis``, its output's heads all-gathered in
+    rank order; raises when a head count does not divide the degree."""
+    from .. import comm as dist
+    t, i = dist.get_world_size(axis), dist.get_rank(axis)
+    for name, x in (("q", q), ("k/v cache", k_cache), ("k/v cache", v_cache)):
+        if x.shape[1] % t:
+            raise ValueError(f"{name} heads {x.shape[1]} do not divide the {axis} degree {t}")
+    local = [x.narrow(1, i * (x.shape[1] // t), x.shape[1] // t).contiguous() for x in (q, k_cache, v_cache)]
+    out = fn(*local, *args, **kw)
+    return out if t == 1 else dist.all_gather(out.contiguous(), group=axis, axis=1)
+
+
+def sharded_paged_decode_attention(q, k_cache, v_cache, start, ends, *, axis="tensor", **kw):
+    """:func:`paged_decode_attention` over ``axis`` of the ``comm`` mesh (the
+    JAX package's ``sharded_paged_decode_attention``): replicated operands,
+    the kernel on this rank's q heads and kv heads (the int8 row scales
+    stay whole), the heads all-gathered. Bitwise the unsharded call: heads
+    are independent."""
+    return _on_heads(paged_decode_attention, axis, q, k_cache, v_cache, start, ends, **kw)
+
+
+def sharded_paged_span_attention(q, k_cache, v_cache, start, base, *, axis="tensor", **kw):
+    """:func:`paged_span_attention` on this rank's heads, all-gathered (see
+    :func:`sharded_paged_decode_attention`)."""
+    return _on_heads(paged_span_attention, axis, q, k_cache, v_cache, start, base, **kw)
+
+
+def sharded_extent_paged_decode_attention(q, k_cache, v_cache, start, ends, ext, *, axis="tensor", **kw):
+    """:func:`extent_paged_decode_attention` on this rank's heads (the
+    extent table and the lossy window whole), all-gathered."""
+    return _on_heads(extent_paged_decode_attention, axis, q, k_cache, v_cache, start, ends, ext, **kw)
+
+
+def sharded_extent_paged_span_attention(q, k_cache, v_cache, start, base, ext, *, axis="tensor", **kw):
+    """:func:`extent_paged_span_attention` on this rank's heads,
+    all-gathered."""
+    return _on_heads(extent_paged_span_attention, axis, q, k_cache, v_cache, start, base, ext, **kw)

@@ -336,3 +336,14 @@ def flash_attention_with_lse(q, k, v, causal=True, scale=None, impl="kernel"):
 def flash_attention(q, k, v, causal=True, scale=None, impl="kernel"):
     """Attention output only (B, H, T, D); see :func:`flash_attention_with_lse`."""
     return flash_attention_with_lse(q, k, v, causal, scale, impl)[0]
+
+
+def sharded_flash_attention(q, k, v, causal=True, scale=None, impl="kernel", axis="tensor"):
+    """:func:`flash_attention` over ``axis`` of the ``comm`` mesh (the JAX
+    package's ``sharded_flash_attention``, its head-parallel placement):
+    replicated q (B, H, T, D) and k/v (B, Hkv, Tk, D), the kernel on this
+    rank's H/t query heads and Hkv/t kv heads, the heads all-gathered
+    (forward only). Bitwise the unsharded call; a head count the degree
+    does not divide raises."""
+    from .decode_attention import _on_heads
+    return _on_heads(flash_attention, axis, q, k, v, causal, scale, impl)

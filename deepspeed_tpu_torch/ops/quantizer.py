@@ -12,16 +12,22 @@ on the card alike (every quotient divides by a tensor).
 import torch
 
 
-def quantize_kv_rows(k, v, scale_dtype=torch.float16):
+def quantize_kv_rows(k, v, scale_dtype=torch.float16, group=None):
     """Joint symmetric int8 quantization of fresh K/V rows. ``k``/``v``:
     (B, heads, T, hd). ONE scale per (batch row, token), shared by K and V
     across every head: 2 bytes a cache row, so the int8 pool holds >= 1.9x
     the rows of a bf16 pool. Returns ``(kq, vq, scales (B, 1, T, 1))``, the
     scale layout mirroring the cache's so one indexed write stores all
-    three."""
+    three. ``group``: the mesh axes the heads are split over (tensor
+    parallelism): the row's amax is all-reduced with MAX over them, so
+    every rank's scale is the one of all the heads (MAX is exact: the
+    quantized rows are bitwise a whole model's)."""
     kf, vf = k.float(), v.float()
     amax = torch.maximum(kf.abs().amax(dim=(1, 3), keepdim=True),
                          vf.abs().amax(dim=(1, 3), keepdim=True))  # (B, 1, T, 1)
+    if group is not None:
+        from .. import comm as dist
+        amax = dist.all_reduce(amax, dist.ReduceOp.MAX, group)
     # a tensor divisor: a CUDA tensor divided by a Python number is
     # multiplied by its fp32 reciprocal, which is not the division
     scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8).to(scale_dtype)

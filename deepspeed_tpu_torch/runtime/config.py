@@ -119,8 +119,8 @@ class CheckpointConfig(DeepSpeedConfigModel):
 
 class MeshConfig(DeepSpeedConfigModel):
     """The JAX package's parallel axis sizes (same keys). The port runs the
-    expert and data axes (their product is the world size); tensor,
-    pipeline and sequence axes must be 1 (ROADMAP Queue 1 #7)."""
+    tensor, expert and data axes (their product is the world size);
+    pipeline and sequence axes must be 1 (ROADMAP Queue 1 #7.3, #7.4)."""
     tensor_parallel_size = ConfigField(default=1, aliases=("model_parallel_size",))
     pipeline_parallel_size = ConfigField(default=1)
     sequence_parallel_size = ConfigField(default=1)
@@ -224,14 +224,17 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
         super().__init__(config_dict)
         self.raw_config = config_dict
         self._warn_inert_sections(config_dict)
-        if mpu is not None:
-            raise NotImplementedError("deepspeed_tpu_torch does not take a model-parallel unit (mpu) "
-                                      "yet (ROADMAP Queue 1 #7, distributed runtime)")
         if world_size is None:
             from .. import comm as dist
             world_size = dist.get_world_size()
         self.world_size = world_size
         self.mpu = mpu
+        if mpu is not None and self.mesh.data_parallel_size is None:
+            # the JAX package's rule (runtime/config.py:239-246): an mpu reports
+            # the combined expert x data group; the data axis leaves out expert
+            mpu_dp = mpu.get_data_parallel_world_size()
+            if mpu_dp % self.mesh.expert_parallel_size == 0:
+                self.mesh.data_parallel_size = mpu_dp // self.mesh.expert_parallel_size
         if self.gradient_checkpointing is not None:
             if self.gradient_checkpointing and self.activation_checkpointing.policy is None:
                 self.activation_checkpointing.policy = "nothing_saveable"
@@ -261,21 +264,26 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
                 raise NotImplementedError(f"deepspeed_tpu_torch does not support the '{key}' config "
                                           f"section yet ({_UNPORTED_SECTIONS[key]})")
         m = self.mesh
-        for axis in ("tensor_parallel_size", "pipeline_parallel_size", "sequence_parallel_size"):
+        for axis, item in (("pipeline_parallel_size", "#7.3, the pipeline"),
+                           ("sequence_parallel_size", "#7.4, sequence parallelism")):
             if getattr(m, axis) != 1:
-                raise NotImplementedError(f"deepspeed_tpu_torch runs the expert and data axes only: "
-                                          f"mesh.{axis}={getattr(m, axis)} needs ROADMAP Queue 1 #7, "
-                                          f"distributed runtime")
+                raise NotImplementedError(f"deepspeed_tpu_torch runs the tensor, expert and data axes "
+                                          f"only: mesh.{axis}={getattr(m, axis)} needs ROADMAP Queue 1 "
+                                          f"{item}")
 
     # -- batch size arithmetic (reference config.py:738-760) ---------------
     def _resolve_data_parallel_size(self):
         """The data-parallel group spans expert x data; data is what the
-        world leaves after the expert axis (the JAX package's rule)."""
+        world leaves after the tensor and expert axes (the JAX package's
+        rule): the ranks of a tensor group see the same rows."""
         m = self.mesh
-        if self.world_size % m.expert_parallel_size != 0:
-            raise DeepSpeedConfigError(f"world size {self.world_size} not divisible by "
+        tp = m.tensor_parallel_size
+        if self.world_size % tp != 0:
+            raise DeepSpeedConfigError(f"world size {self.world_size} not divisible by tp*pp*sp = {tp}")
+        if (self.world_size // tp) % m.expert_parallel_size != 0:
+            raise DeepSpeedConfigError(f"dp group size {self.world_size // tp} not divisible by "
                                        f"expert_parallel_size {m.expert_parallel_size}")
-        inferred_data = self.world_size // m.expert_parallel_size
+        inferred_data = self.world_size // (tp * m.expert_parallel_size)
         if m.data_parallel_size is None:
             m.data_parallel_size = inferred_data
         elif m.data_parallel_size != inferred_data and (self.world_size > 1 or m.expert_parallel_size > 1):

@@ -75,6 +75,24 @@ axes on the largest divisible dim; a split expert axis's experts over
   stage on the same world size; ``save_16bit_model`` gathers one tensor at
   a time.
 
+Tensor parallelism (``mesh.tensor_parallel_size``; the JAX engine's
+Megatron rules, ``tp_rules()`` with ``bitwise_tp`` off): the model is
+rebuilt on this rank's shard (``models/transformer.py``: its q/k/v heads,
+up/gate columns and vocab rows; o_proj and down_proj row-parallel, their
+outputs summed over ``tensor`` before the bias; the vocab-parallel cross
+entropy) and the master holds that shard. The ranks of a tensor group see
+the same rows, so the data-parallel group (expert x data) and the ZeRO
+axes leave ``tensor`` out: each stage shards and gathers over the data
+axes only, and stage 3 gathers a block's tensor shards, never the whole
+tensors. A tensor replicated over ``tensor`` (a norm, a row-parallel bias)
+gets the same gradient on every rank of the group (the region operators
+sum what a shard's backward left partial), so it needs no reduction; the
+clip norm sums the shards' squares over ``tensor`` and counts a replicated
+tensor once. Checkpoints gather each tensor whole over the data axes, then
+over ``tensor``, and a load slices it to the engine's own mesh. A degree
+that does not divide the head counts raises (the JAX package pads
+unevenly); the offload tiers refuse tp > 1.
+
 Telemetry (the JAX engine's wiring): one :class:`TelemetrySink` is the
 single reporting call site; its gauges fan out to the ``tensorboard``,
 ``csv_monitor`` and ``wandb`` monitors, and with ``telemetry.enabled`` each
@@ -122,9 +140,9 @@ state under ``optimizer``), so one saved by any tier loads into any other.
 Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: pipeline, tensor and
-sequence parallelism (#7.2, #7.3), 1-bit optimizers, a resume at another
-world size (#9), ``deepspeed_io``.
+``NotImplementedError`` naming its ROADMAP item: pipeline and sequence
+parallelism (#7.3, #7.4), the offload tiers at tp > 1 (#7.2), 1-bit
+optimizers, a resume at another world size (#9), ``deepspeed_io``.
 """
 
 import inspect
@@ -357,25 +375,29 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ init helpers
     def _configure_parallel(self, model):
-        """Data and expert parallelism over the live world: the mesh
-        (expert x data), this rank's rows, and for an MoE model the model
-        rebuilt on this rank's experts. Returns the model to train."""
+        """Tensor, data and expert parallelism over the live world: the mesh
+        (expert x data x tensor), this rank's rows, for an MoE model the
+        model rebuilt on this rank's experts, and at tp > 1 on this rank's
+        tensor shard. Returns the model to train."""
         m = self._config.mesh
-        ep, data = m.expert_parallel_size, m.data_parallel_size
+        tp, ep, data = m.tensor_parallel_size, m.expert_parallel_size, m.data_parallel_size
+        self._tp = tp
         self._dp = ep * data
         self._dp_rank = 0
+        self._tp_dims = {}  # master key -> the dim split over tensor (tp > 1)
         self._expert_mask = None  # per master tensor: an expert of a split expert axis
         self._sharded = False  # the master is this rank's shards (ZeRO stage >= 1 over ranks)
         self._offload_sharded = False  # ZeRO-Offload's host state is this rank's partition
         self._global_loss = "n_valid" in inspect.signature(self.loss_fn).parameters
-        if self._dp == 1 and not dist.is_initialized():
+        if self._dp * tp == 1 and not dist.is_initialized():
             return model
-        if self._dp != dist.get_world_size():
-            raise ValueError(f"expert x data = {ep} x {data} does not cover the world of "
+        if self._dp * tp != dist.get_world_size():
+            raise ValueError(f"tensor x expert x data = {tp} x {ep} x {data} does not cover the world of "
                              f"{dist.get_world_size()} ranks")
         mesh = dist.get_mesh() if dist.has_mesh() else None
-        if mesh is None or (mesh.shape[dist.EXPERT_AXIS], mesh.shape[dist.DATA_AXIS]) != (ep, data):
-            dist.initialize_mesh(expert=ep, data=data)
+        if mesh is None or tuple(mesh.shape[a] for a in (dist.EXPERT_AXIS, dist.DATA_AXIS, dist.TENSOR_AXIS)) \
+                != (ep, data, tp):
+            dist.initialize_mesh(expert=ep, data=data, tensor=tp)
         self._dp_rank = dist.get_rank(dist.DP_AXES)
         cfg = getattr(model, "cfg", None)
         if getattr(cfg, "num_experts", 0) > 0:
@@ -383,7 +405,38 @@ class DeepSpeedEngine:
             sharded = shard_config(cfg)
             if sharded != cfg:
                 model = type(model)(sharded)
+        if tp > 1:
+            model = self._tp_model(model)
         return model
+
+    def _tp_model(self, model):
+        """The model rebuilt on this rank's tensor shard (Megatron rules:
+        ``bitwise_tp`` off)."""
+        from ..models.transformer import tp_shard_config
+        tp = self._tp
+        if self.offload_optimizer or self.offload_param:
+            raise _unported(f"the offload tiers at tensor_parallel_size={tp} (ZeRO-Offload and "
+                            f"ZeRO-Infinity hold whole tensors)", "ROADMAP Queue 1 #7.2, its leftover")
+        if not hasattr(model, "tp_rules"):
+            raise ValueError("tensor_parallel_size > 1 needs a deepspeed_tpu_torch model (a config and "
+                             "tp_rules()): a loss function alone has no tensor shards")
+        # the config raises for head counts the degree does not divide (the
+        # JAX package pads them unevenly)
+        return type(model)(tp_shard_config(model.cfg, tp, bitwise=False))
+
+    def _tp_slice(self, k, t):
+        """This rank's tensor shard of a whole tensor ``k`` (``t`` at tp 1
+        or for a replicated tensor)."""
+        from ..models.transformer import tp_slice
+        return tp_slice(t, self._tp_dims.get(k), self.module.cfg)
+
+    def _tp_whole(self, k, t):
+        """The whole tensor ``k`` from every tensor rank's shard ``t`` (an
+        all-gather over ``tensor``; ``t`` when it is replicated)."""
+        d = self._tp_dims.get(k)
+        if d is None:
+            return t
+        return dist.all_gather(t.contiguous(), group=dist.TENSOR_AXIS, axis=d)
 
     def _configure_remat(self, model):
         """The ``activation_checkpointing`` section as the model's remat
@@ -412,9 +465,10 @@ class DeepSpeedEngine:
                 raise ValueError("Provide model_parameters or a model with init_params(seed)")
             init = model
             cfg = getattr(model, "cfg", None)
-            if getattr(cfg, "moe_local_experts", None):  # every rank draws the full tree
+            if getattr(cfg, "moe_local_experts", None) or getattr(cfg, "tp_shard", None):
+                # every rank draws the full tree
                 import dataclasses
-                init = type(model)(dataclasses.replace(cfg, moe_local_experts=None))
+                init = type(model)(dataclasses.replace(cfg, moe_local_experts=None, tp_shard=None))
             model_parameters = init.init_params(self._config.seed)
         cfg = getattr(model, "cfg", None)
         if getattr(cfg, "moe_local_experts", None):
@@ -423,7 +477,11 @@ class DeepSpeedEngine:
         self._plan({k: tuple(np.shape(v)) for k, v in model_parameters.items()})
         master = {}
         for k, v in model_parameters.items():
-            full = torch.as_tensor(v).to(self.device, torch.float32)
+            whole = torch.as_tensor(v)
+            part = self._tp_slice(k, whole)
+            full = part.to(self.device, torch.float32)
+            if part is not whole and full is part:  # this rank's own copy, not a view of the whole
+                full = full.clone(memory_format=torch.contiguous_format)
             mine = shard(full, self._specs["master"][k])
             master[k] = (mine if mine is full else mine.clone(memory_format=torch.contiguous_format))
             master[k].requires_grad_(True)
@@ -435,8 +493,15 @@ class DeepSpeedEngine:
         planned on the global logical shape (a split expert axis's experts
         counted whole), then localized (this rank already holds only its
         experts, so the expert axis drops out of their specs). Sets the
-        per-tensor reduction groups and norm groups the step uses."""
+        per-tensor reduction groups and norm groups the step uses.
+        ``shapes`` are whole over ``tensor``: at tp > 1 the tensor axis
+        drops out of the specs too (the master already holds this rank's
+        tensor shard), and a tensor-sharded tensor's norm sums over
+        ``tensor``."""
         cfg = getattr(self.module, "cfg", None)
+        if self._tp > 1:
+            from ..models.transformer import tp_dims
+            self._tp_dims = tp_dims(self.module, shapes)
         split = bool(getattr(cfg, "moe_local_experts", None))
         pattern = self.module.expert_pattern() if split else None
         self._expert_mask = [pattern in k for k in shapes] if split else None
@@ -445,19 +510,25 @@ class DeepSpeedEngine:
         self._shapes_global = {k: ((shp[0] * ep, ) + tuple(shp[1:])) if mask[k] else tuple(shp)
                                for k, shp in shapes.items()}
 
+        held = (dist.EXPERT_AXIS, dist.TENSOR_AXIS)
+
         def local(spec, expert):
-            if not expert:
+            if not expert and self._tp == 1:
                 return spec
+            drop = held if expert else (dist.TENSOR_AXIS, )
             return tuple(None if not a else (tuple(a) if len(a) > 1 else a[0])
-                         for a in ([x for x in entry_axes(e) if x != dist.EXPERT_AXIS] for e in spec))
+                         for a in ([x for x in entry_axes(e) if x not in drop] for e in spec))
 
         self._specs = {which: {k: local(getattr(self.planner, f"{which}_spec")(k, self._shapes_global[k]), mask[k])
                                for k in shapes}
                        for which in ("param", "master", "grad", "offload")}
         self._red_axes = {k: (dist.DATA_AXIS, ) if e else dist.DP_AXES for k, e in mask.items()}
-        extra = {k: (dist.EXPERT_AXIS, ) if e else () for k, e in mask.items()}
+        extra = {k: ((dist.EXPERT_AXIS, ) if e else ()) + ((dist.TENSOR_AXIS, ) if self._tp_dims.get(k) is not None
+                                                             else ()) for k, e in mask.items()}
         self._norm_groups = {which: {k: _canon(shard_group(self._specs[which][k]) + extra[k]) for k in shapes}
                              for which in ("master", "grad", "offload")}
+        # the norm groups of whole (data-parallel) gradients at tp > 1
+        self._whole_norm_groups = [_canon(extra[k]) for k in shapes] if self._tp > 1 else None
         self._sharded = any(sharded_dims(sp) for sp in self._specs["master"].values())
 
     def _init_host_optimizer(self, model, model_parameters):
@@ -693,7 +764,8 @@ class DeepSpeedEngine:
         scale = self.loss_scale_state.cur_scale
         torch._foreach_div_(grads, self._grad_denom(scale))
         sharded_grads = self.zero_stage >= 2 and self._sharded
-        gnorm = self._global_norm(grads, list(self._norm_groups["grad"].values()) if sharded_grads else None)
+        gnorm = self._global_norm(grads, list(self._norm_groups["grad"].values()) if sharded_grads
+                                  else self._whole_norm_groups)
         if self.zero_stage == 1 and self._sharded:
             grads = [shard(g, self._specs["master"][k]) for k, g in zip(self.master, grads)]
         overflow = not math.isfinite(gnorm)
@@ -1171,15 +1243,17 @@ class DeepSpeedEngine:
                 mu = [unshard(v, spec[k]) for k, v in zip(master, mu)]
                 nu = [unshard(v, spec[k]) for k, v in zip(master, nu)]
             return master, {"count": self.host_opt.t, "mu": mu, "nu": nu}
-        if not self._sharded:
+        if not self._sharded and self._tp == 1:
             return self.master, self.optimizer.state_dict()
         if isinstance(self.optimizer, ClientOptimizer):
-            raise NotImplementedError("a checkpoint of a client optimizer's state over ZeRO shards (its "
-                                      "state is per rank; use a built-in optimizer) (ROADMAP Queue 1 #9)")
+            raise NotImplementedError("a checkpoint of a client optimizer's state over ZeRO or tensor shards "
+                                      "(its state is per rank; use a built-in optimizer) (ROADMAP Queue 1 #9)")
         spec = self._specs["master"]
 
-        def whole(k, t):
-            return unshard(t.detach(), spec[k]).cpu() if sharded_dims(spec[k]) else t
+        def whole(k, t):  # over the data axes, then over tensor
+            if not sharded_dims(spec[k]) and self._tp_dims.get(k) is None:
+                return t
+            return self._tp_whole(k, unshard(t.detach(), spec[k])).cpu()
 
         sd = self.optimizer.state_dict()
         keys = list(self.master)
@@ -1206,7 +1280,8 @@ class DeepSpeedEngine:
         ckpt.wait_pending_saves()
         dist.barrier()  # rank 0's write is in place
         state, client_sd = ckpt.load_checkpoint(load_dir, tag,
-                                                map_location="cpu" if offloaded or self._sharded else self.device)
+                                                map_location="cpu" if offloaded or self._sharded or self._tp > 1
+                                                else self.device)
         if state is None:
             return None, None
         if client_sd.get("world_size", 1) != self._config.world_size:
@@ -1273,11 +1348,11 @@ class DeepSpeedEngine:
     def _shard_state(self, sd):
         """An optimizer state of global logical tensors (lists in master
         order) cut to this rank's shards."""
-        if not self._sharded:
+        if not self._sharded and self._tp == 1:
             return sd
         keys, spec = list(self.master), self._specs["master"]
-        return {name: [shard(t, spec[k]) for k, t in zip(keys, val)] if isinstance(val, list) and len(val) == len(keys)
-                else val for name, val in sd.items()}
+        return {name: [shard(self._tp_slice(k, t), spec[k]) for k, t in zip(keys, val)]
+                if isinstance(val, list) and len(val) == len(keys) else val for name, val in sd.items()}
 
     @torch.no_grad()
     def _load_master(self, saved, strict):
@@ -1287,7 +1362,7 @@ class DeepSpeedEngine:
                                f"unexpected {extra[:5]}")
         for k, v in saved.items():
             if k in self.master:
-                self.master[k].copy_(shard(v, self._specs["master"][k]))
+                self.master[k].copy_(shard(self._tp_slice(k, v), self._specs["master"][k]))
 
     def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin", exclude_frozen_parameters=False):
         """The master cast to the compute dtype, as a state dict written by
@@ -1299,7 +1374,8 @@ class DeepSpeedEngine:
             sd = {k: v.detach().to(self.compute_dtype).cpu() for k, v in master.items()}
         else:  # one tensor at a time: cast, gather, to the host
             spec = self._specs["master"]
-            sd = {k: unshard(v.detach().to(self.compute_dtype), spec[k]).cpu() for k, v in self.master.items()}
+            sd = {k: self._tp_whole(k, unshard(v.detach().to(self.compute_dtype), spec[k])).cpu()
+                  for k, v in self.master.items()}
         if dist.get_rank() == 0:
             os.makedirs(save_dir, exist_ok=True)
             torch.save(sd, path)

@@ -92,6 +92,7 @@ class BlockGatherer:
         self.overlap = overlap
         self.track = track
         self.counts = {"forward": 0, "backward": 0}
+        self.shapes = None  # key -> the compute shape a gather must give (the model's shard)
         self._timed = []  # (start event, done event, host dispatch s, wait event or None) a gather
         self.reset()
 
@@ -118,6 +119,12 @@ class BlockGatherer:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
             out = {k: unshard(self.master[k].detach().to(self.cd, copy=True), self.specs[k]) for k in keys}
+            if self.shapes is not None:
+                # over the data axes only: a tensor-parallel shard stays a shard
+                bad = [k for k, t in out.items() if tuple(t.shape) != self.shapes[k]]
+                if bad:
+                    raise RuntimeError(f"stage 3 gathered {bad[0]} to {tuple(out[bad[0]].shape)}, not the "
+                                       f"model's {self.shapes[bad[0]]}")
             done = None
             if self.cuda:
                 done = torch.cuda.Event(enable_timing=timed)
@@ -248,6 +255,7 @@ class Stage3Loss:
         zero = engine._config.zero_optimization
         self.gatherer = BlockGatherer(engine.master, engine._specs["master"], engine.compute_dtype, blocks,
                                       weakref.WeakMethod(engine._reduce_grad), bool(zero.overlap_comm), False)
+        self.gatherer.shapes = {k: tuple(s) for k, (s, _) in model.param_shapes().items()}
 
     def predicted_gathers(self):
         """(forward, backward) block gathers of one micro-step: every block

@@ -153,6 +153,11 @@ class Gateway:
     """
 
     def __init__(self, engine, config=None, **overrides):
+        tp = int(getattr(engine, "_tp", 1))
+        if tp > 1:
+            raise NotImplementedError(f"deepspeed_tpu_torch does not serve the gateway at tensor "
+                                      f"parallelism {tp} yet (ROADMAP Queue 1 #9, sharded decode and "
+                                      f"replicas): every rank must run the same requests")
         if config is None:
             config = getattr(engine._config, "gateway", None)
         if not isinstance(config, GatewayConfig):
@@ -740,6 +745,8 @@ class Gateway:
             "scheduler/slot_occupancy": float(sched.cache.occupancy()),
             "serving/replicas": float(len(self.replicas)),
             "serving/replicas_available": float(sum(1 for r in self.replicas if r.available())),
+            "serving/tp_size": float(sched.tp_size),
+            "serving/ep_size": float(sched.ep_size),
         }
 
     def _metrics(self):
@@ -760,6 +767,8 @@ class Gateway:
                           "active_slots": sched.cache.active_slots,
                           "queue_depth": len(sched.queue),
                           "slot_occupancy": sched.cache.occupancy(),
+                          "tp_size": sched.tp_size,
+                          "ep_size": sched.ep_size,
                           # the dispatch shapes so far ((chunk width, K),
                           # ("spec", W), ("prefill", bucket))
                           "dispatched": {str(k): v for k, v in sched.dispatched.items()},

@@ -122,6 +122,8 @@ class Replica:
                                  if s.capacity is not None else None),
             "host_gap_total_s": round(s._gap.total_gap_s, 4) if s._gap is not None else None,
             "ema_service_s": self.ema_service_s,
+            "tp_size": s.tp_size,
+            "ep_size": s.ep_size,
             "prefix_cache_hit_rate": (round(s.radix.hit_rate(), 4)
                                       if s.radix is not None else None),
             # hierarchical KV tier: this scheduler's demote/restore counts

@@ -85,6 +85,18 @@ def get_model_parallel_world_size():
     return dist.get_world_size(dist.TENSOR_AXIS)
 
 
+get_tensor_model_parallel_world_size = get_model_parallel_world_size
+
+
+def get_model_parallel_rank():
+    """This rank's index over ``tensor`` (the shard of the column- and
+    row-parallel tensors it holds)."""
+    return dist.get_rank(dist.TENSOR_AXIS)
+
+
+get_tensor_model_parallel_rank = get_model_parallel_rank
+
+
 def get_sequence_parallel_world_size():
     return dist.get_world_size(dist.SEQ_AXIS)
 
@@ -95,7 +107,8 @@ def get_pipeline_parallel_world_size():
 
 def get_data_parallel_rank():
     """This rank's index in the expert x data group (shards a dataset per
-    data-parallel rank)."""
+    data-parallel rank). ``tensor`` is not in it: the ranks of a tensor
+    group see the same rows."""
     return dist.get_rank(dist.DP_AXES)
 
 

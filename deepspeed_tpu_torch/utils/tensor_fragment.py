@@ -7,9 +7,9 @@ Port of ``deepspeed_tpu/utils/tensor_fragment.py`` (reference
 ``safe_set_*`` writers). In the JAX package every tensor is a global
 logical array; in the port a ZeRO stage >= 1 engine holds this rank's shard
 of each master tensor, and ZeRO-Offload this rank's partition on the host,
-so each getter gathers the shard to the whole tensor (a collective: every
-rank of the data-parallel group calls it) and each setter writes this
-rank's slice. ``key``: the state-dict key (``layers.0.attn.q_proj.kernel``);
+and under tensor parallelism its tensor shard, so each getter gathers the
+shard to the whole tensor (a collective: every rank of the data-parallel
+and tensor groups calls it) and each setter writes this rank's slice. ``key``: the state-dict key (``layers.0.attn.q_proj.kernel``);
 the JAX package's ``/``-joined paths are accepted too. Results are fp32
 CPU tensors.
 """
@@ -33,7 +33,9 @@ def _key(engine, key):
 
 
 def _whole(engine, key, t, which):
-    return unshard(t.detach(), engine._specs[which][key]).to("cpu", torch.float32, copy=True)
+    """Over the data axes, then over ``tensor`` (a tensor-parallel shard)."""
+    t = engine._tp_whole(key, unshard(t.detach(), engine._specs[which][key]))
+    return t.to("cpu", torch.float32, copy=True)
 
 
 def _stream_state(engine, key):
@@ -84,7 +86,7 @@ def safe_set_full_fp32_param(engine, key, value):
         if engine._offload_sharded:
             engine._offload_gather()
         return
-    mine = shard(value, engine._specs["master"][key])
+    mine = shard(engine._tp_slice(key, value), engine._specs["master"][key])
     if tuple(mine.shape) != tuple(engine.master[key].shape):
         raise ValueError(f"value shape {tuple(value.shape)} does not fit param {key}")
     engine.master[key].copy_(mine)

@@ -139,7 +139,8 @@ def test_unported_config_sections_raise():
     with pytest.raises(NotImplementedError, match="continuous_batching.multi_lora"):
         _port_engine(continuous_batching={"enabled": True, "multi_lora": {"enabled": True}})
     assert _port_engine(continuous_batching={"enabled": True, "spec_tokens": 4}).scheduler().drafter
-    with pytest.raises(NotImplementedError, match="tp_size"):
+    # tensor parallelism is ported: a degree the world of one cannot hold
+    with pytest.raises(ValueError, match="tp_size=2 needs a world"):
         _port_engine(tensor_parallel={"tp_size": 2})
 
 

@@ -76,7 +76,7 @@ def test_bad_keys_raise_the_jax_error_text(keys):
     {"hybrid_engine": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
-    {"mesh": {"tensor_parallel_size": 2}},
+    {"mesh": {"pipeline_parallel_size": 2}},
 ])
 def test_sections_not_ported_raise(section):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
@@ -108,9 +108,9 @@ def test_disabled_sections_and_dtypes():
 def test_engine_refuses_what_it_does_not_run():
     model = get_model("tiny", dtype=torch.float32)
     base = {"train_batch_size": 4}
-    # ZeRO stages 1-3 train (tests/test_torch_zero_ranks.py); the tensor,
-    # pipe and sequence axes stay refused
-    for extra, err, item in (({"mesh": {"tensor_parallel_size": 2}}, NotImplementedError, "#7"),
+    # ZeRO stages 1-3 and the tensor axis train (tests/test_torch_zero_ranks.py,
+    # tests/test_torch_tp_ranks.py); the pipe and sequence axes stay refused
+    for extra, err, item in (({"mesh": {"pipeline_parallel_size": 2}}, NotImplementedError, "#7.3"),
                              ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError, "#7"),
                              # offload_param requires stage 3 (the JAX engine's error text)
                              ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},

@@ -298,3 +298,166 @@ def zero_helpers_world(rank, world):
     frag["grad"] = safe_get_full_grad(engine, key).numpy()
     out["fragment"] = frag
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+
+
+def tp_serve_run(name, tree, config, prompts, max_new, model_kw, spec=True):
+    """An engine on the whole ``tree`` under the live mesh: ``generate()``
+    greedy and sampled rows with the first rows' prefill logits, the
+    scheduler streams of :func:`serve_streams` (greedy, sampled, a radix
+    hit) on a full-precision and an int8 KV pool, a speculative scheduler's
+    streams and logits and a long-context scheduler's (a 100-token prompt
+    chained over two 64-row extents) (``spec``), the ready line's tensor
+    part, the REPLICATED warnings and the local head counts."""
+    import logging
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.utils.logging import logger
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logger.addHandler(handler)
+    try:
+        model = get_model(name, **model_kw)
+        eng = deepspeed_tpu_torch.init_inference(model, config=dict(config), params=params_from_jax(tree, model.cfg),
+                                                 device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    streams, hit = serve_streams(eng, prompts, max_new)
+    int8_streams, _ = serve_streams(eng, prompts, max_new, kv_cache_dtype="int8")
+    out = {"generate": [r.tolist() for r in eng.generate(prompts[:2], max_new_tokens=max_new)],
+           "sampled": [r.tolist() for r in eng.generate(prompts[:2], max_new_tokens=max_new, do_sample=True,
+                                                        temperature=0.8, top_k=20, seed=3)],
+           "streams": streams, "int8_streams": int8_streams, "radix_hit": hit,
+           "desc": eng._tp_desc() + eng._moe_desc(), "warnings": [m for m in records if "REPLICATED" in m
+                                                                  or "fused-qkv" in m],
+           "local_heads": (eng.model_config.local_heads, eng.model_config.local_kv_heads),
+           "bitwise": eng.model_config.bitwise_tp, "fused": bool(eng._fused_decode_eligible())}
+    ids = torch.tensor([list(prompts[0][:8])] * 2)
+    with torch.no_grad():
+        out["prefill_logits"] = eng.module.apply_with_cache(eng.net, ids, eng._init_cache(2, 64), 0)[0].float().numpy()
+    if spec:
+        sched = DecodeScheduler(eng, num_slots=4, prefill_chunk=16, collect_logits=True, spec_tokens=3)
+        hs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+        hs.append(sched.submit(prompts[0], max_new_tokens=max_new, do_sample=True, temperature=0.9, seed=5))
+        out["spec"] = [(h.result().tolist(), h.result_logits()) for h in hs]
+        sched = DecodeScheduler(eng, num_slots=4, max_len=64, prefill_chunk=16, collect_logits=True, max_extents=2)
+        long = [int(t) for t in np.random.default_rng(9).integers(0, eng.model_config.vocab_size, 100)]
+        hs = [sched.submit(long, max_new_tokens=24), sched.submit(prompts[1], max_new_tokens=max_new)]
+        out["long"] = [(h.result().tolist(), h.result_logits()) for h in hs]
+        out["long_extents"] = int(sum(sched.ext_forwards.values()))
+    return out
+
+
+def tp_serve_world(rank, world, trees, config, prompts, max_new, cases):
+    """:func:`tp_serve_run` for each ``(mesh layout, model name, model_kw,
+    tree key, config overrides, spec)`` of ``cases``."""
+    import deepspeed_tpu_torch.comm as dist
+    out = []
+    for layout, name, model_kw, key, over, spec in cases:
+        dist.initialize_mesh(**layout)
+        out.append(tp_serve_run(name, trees[key], {**config, **over}, prompts, max_new, model_kw, spec))
+    return out
+
+
+def tp_refusals_world(rank, world, tree, batch, cases):
+    """Each ``(config, model_kw)`` of ``cases`` must refuse to build an
+    engine: the messages, in order."""
+    out = []
+    for config, model_kw in cases:
+        try:
+            zero_run("tiny", tree, config, batch, 1, model_kw)
+            out.append(None)
+        except (ValueError, NotImplementedError) as e:
+            out.append(str(e))
+    return out
+
+
+def tp_train_probe(name, tree, config, batch, model_kw):
+    """One facade micro-step on this rank's rows under ``config``: the
+    accumulated gradients of the tensors the model keeps whole over
+    ``tensor`` (norm scales, biases of row-parallel projections), every
+    dropout mask the step drew (key, shape, mask), the local model's head
+    counts and this rank's tensor index."""
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
+    import deepspeed_tpu_torch.models.transformer as tr
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    model = get_model(name, dtype=torch.float32, attention_impl="flash", **model_kw)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params_from_jax(tree, model.cfg),
+                                                config=dict(config), device="cpu")
+    masks, draw = [], tr.dropout_mask
+
+    def record(key, shape, rate, device):
+        m = draw(key, shape, rate, device)
+        masks.append((int(key), tuple(shape), m.numpy().copy()))
+        return m
+
+    tr.dropout_mask = record
+    try:
+        micro = engine.train_micro_batch_size_per_gpu()
+        r = dist.get_rank(dist.DP_AXES)
+        engine.forward({k: v[r * micro:(r + 1) * micro] for k, v in batch.items()})
+    finally:
+        tr.dropout_mask = draw
+    whole = [k for k, d in engine._tp_dims.items() if d is None] if engine._tp > 1 else list(engine.master)
+    grads = dict(zip(engine.master, engine._grad_acc))
+    return {"grads": {k: grads[k].numpy().copy() for k in whole}, "masks": masks,
+            "tp_rank": dist.get_rank(dist.TENSOR_AXIS),
+            "local": (engine.module.cfg.local_heads, engine.module.cfg.local_kv_heads, engine.module.cfg.local_ffn)}
+
+
+def tp_train_world(rank, world, name, tree, batch, steps, cases, probes):
+    """:func:`zero_run` for each case of ``cases`` (as :func:`zero_world`),
+    then :func:`tp_train_probe` for each ``(config, model_kw)`` of
+    ``probes``."""
+    return {"runs": [zero_run(name, tree, config, batch, steps, model_kw, mesh, ckpt)
+                     for config, model_kw, mesh, ckpt in cases],
+            "probes": [tp_train_probe(name, tree, config, batch, model_kw) for config, model_kw in probes]}
+
+
+def tp_ops_world(rank, world, inputs):
+    """The region operators' forward and backward over ``tensor`` (the
+    whole world), and each ``sharded_*`` wrapper against its unsharded
+    call, on this rank."""
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention, sharded_flash_attention
+    dist.initialize_mesh(tensor=world)
+    x = torch.from_numpy(inputs["x"][rank]).requires_grad_(True)
+    g = torch.from_numpy(inputs["g"])
+    out = {}
+    for name, fn in (("copy", dist.copy_to_region), ("reduce", dist.reduce_from_region),
+                     ("gather", dist.gather_from_region)):
+        y = fn(x)
+        gy = g if name != "gather" else torch.cat([g] * world, dim=-1)
+        (dx, ) = torch.autograd.grad(y, x, gy)
+        out[name] = (y.detach().numpy().copy(), dx.numpy().copy())
+    a = inputs["attn"]
+    q, k, v = (torch.from_numpy(a[n]) for n in ("q", "k", "v"))
+    out["flash"] = (sharded_flash_attention(q, k, v).numpy(), flash_attention(q, k, v).numpy())
+    qd, kc, vc = (torch.from_numpy(a[n]) for n in ("qd", "kc", "vc"))
+    start, ends = torch.zeros(qd.shape[0], dtype=torch.int32), torch.from_numpy(a["ends"])
+    ext = torch.arange(qd.shape[0], dtype=torch.int32)[:, None]
+    qs = torch.from_numpy(a["qs"])
+    base = ends - qs.shape[2]
+    out["paged_decode"] = (da.sharded_paged_decode_attention(qd, kc, vc, start, ends).numpy(),
+                           da.paged_decode_attention(qd, kc, vc, start, ends).numpy())
+    out["paged_span"] = (da.sharded_paged_span_attention(qs, kc, vc, start, base).numpy(),
+                         da.paged_span_attention(qs, kc, vc, start, base).numpy())
+    out["extent_decode"] = (da.sharded_extent_paged_decode_attention(qd, kc, vc, start, ends, ext).numpy(),
+                            da.extent_paged_decode_attention(qd, kc, vc, start, ends, ext).numpy())
+    out["extent_span"] = (da.sharded_extent_paged_span_attention(qs, kc, vc, start, base, ext).numpy(),
+                          da.extent_paged_span_attention(qs, kc, vc, start, base, ext).numpy())
+    try:
+        da.sharded_paged_decode_attention(qd[:, :3], kc[:, :1], vc[:, :1], start, ends)
+        out["odd_heads"] = None
+    except ValueError as e:
+        out["odd_heads"] = str(e)
+    return out
