@@ -229,6 +229,23 @@ Phases (any failure ends the run with a non-zero exit):
    reduction doubled, its reduction left out), one stage-0 step each, must
    leave the grad-norm gate at the first step; step and sync times of two processes sharing one card are
    logged and are no tensor-parallel speed;
+8f. pipeline parallelism (``pipe_phase``; ``python3 chip_smoke.py --pipe``
+   runs it alone): gpt2-large at full width and depth (18 layers a stage),
+   seeded weights made on the card, bench.py's config at gas 4 (M = 4 over
+   S = 2); pp 1 in this process, then pp 2 as two spawned processes
+   sharing the card over a gloo group (``pipe_gloo_check``: one exchange
+   each way and a partial ``ppermute`` on CUDA tensors, bf16 and fp32,
+   staged through host memory); under fill-drain and 1F1B, 3 steps each on
+   the same weights and batches: losses and grad norms within
+   ``PIPE_LOSS_REL`` / ``PIPE_NORM_REL`` of pp 1's, 1F1B bitwise
+   fill-drain, the replicated tensors bitwise across the ranks after each
+   step, exact flash forward, dQ and dK/dV launches a rank a step; a
+   checkpoint saved at pp 2 resumes at pp 2 (that step and the master
+   bitwise) and loads at pp 1 here (the master bitwise); two planted faults
+   (the replicated tensors' gradient sum over pipe left out, one
+   microbatch's activation gradient dropped) must leave the grad-norm gate
+   at the first step; peak GiB a rank and step times (no pipeline speed)
+   logged;
 9. block-sparse attention, the main path of its three kernels: at
    gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
    ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
@@ -4806,6 +4823,332 @@ def tp_phase(torch, card, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8f: pipeline parallelism 2, two ranks sharing the card over gloo
+
+# gpt2-large at full width and depth (36 layers, 18 a stage), bench.py's
+# training config with gas 4: M = 4 microbatches over S = 2 stages. pp 1 in
+# this process, pp 2 as two processes meeting through a file store in a gloo
+# group (NCCL refuses two ranks on one card); gloo's point-to-point ops take
+# host tensors only, so ``comm.ppermute`` stages the activations and their
+# gradients through host memory there (``pipe_gloo_check``). The kernels run
+# on the card in both ranks. Step times of two processes sharing one card
+# are no pipeline speed: logged, never claimed.
+PIPE_MODEL, PIPE_DEGREE, PIPE_GAS, PIPE_STEPS, PIPE_SEQ = "gpt2-large", 2, 4, 3, 1024
+PIPE_SCHEDULES = ("fill_drain", "1f1b")
+# bf16: pp 2 sums a replicated tensor's gradient parts (the tied table's
+# lookup on stage 0, its head on stage 1) in fp32 over pipe where pp 1 sums
+# them in bf16 at the compute copy; losses and grad norms are held within
+# these of pp 1's
+PIPE_LOSS_REL, PIPE_NORM_REL = 2e-3, 2e-2
+PIPE_TIMEOUT_S = 900
+
+
+def pipe_gloo_check(torch, dev):
+    """One exchange each way over ``pipe`` (``send_recv_next``,
+    ``send_recv_prev``) and a partial ``ppermute`` on ``dev`` tensors, bf16
+    and fp32: every result where the inputs say, on ``dev``, and the host
+    staging of the gloo branch counted by the comms logger."""
+    import deepspeed_tpu_torch.comm as dist
+    r, n = dist.get_rank(dist.PIPE_AXIS), dist.get_world_size(dist.PIPE_AXIS)
+    cl = dist.configure(enabled=True)
+    base = torch.arange(8, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        x = (base + 10 * r).to(dt)
+        for got, want, what in ((dist.send_recv_next(x), base + 10 * ((r - 1) % n), "send_recv_next"),
+                                (dist.send_recv_prev(x), base + 10 * ((r + 1) % n), "send_recv_prev"),
+                                (dist.ppermute(x, [(0, 1)]), base if r == 1 else 0 * base, "ppermute [(0, 1)]")):
+            check(got.device == x.device and got.dtype == dt and torch.equal(got, want.to(dt)),
+                  f"pipe gloo {what} {dt}: {got.tolist()}")
+    staged = sum(c for sizes in cl.comms_dict.get("ppermute_host_staged", {}).values() for c in sizes.values())
+    dist.configure(enabled=False)
+    check(staged == 6, f"pipe gloo: {staged} host-staged exchanges logged, expected 6")
+    return f"send_recv_next, send_recv_prev and a partial ppermute on {x.device.type} tensors, bf16 and fp32: " \
+           f"ok, {staged} staged through host"
+
+
+def _pipe_batches(vocab):
+    import numpy as np
+    B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"] * PIPE_GAS
+    return [{"input_ids": np.random.default_rng(SEED + 12 + i).integers(0, vocab, (B, PIPE_SEQ)).astype(np.int32)}
+            for i in range(PIPE_STEPS)]
+
+
+def _pipe_engine(torch, dev, pp, schedule=None, seed=SEED):
+    """gpt2-large on seeded weights made on the card, bench.py's config at
+    gas ``PIPE_GAS``; at ``pp`` > 1 under ``schedule`` (this rank keeps its
+    stage's layers and the replicated tensors of the whole tree)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import get_model
+    model = get_model(PIPE_MODEL, attention_impl="flash", remat_policy=None, scan_layers=False)
+    config = {**TRAIN_CONFIG, "gradient_accumulation_steps": PIPE_GAS}
+    if pp > 1:
+        config.update(mesh={"pipeline_parallel_size": pp}, pipeline={"schedule": schedule})
+    params = random_params(torch, model, dev, seed, int8=False)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config, device=dev)
+    del params
+    torch.cuda.empty_cache()
+    return engine
+
+
+def _digests(torch, tensors):
+    """{key: sha256 of the tensor's bytes} (a bitwise comparison across
+    processes without shipping the tensors)."""
+    import hashlib
+    return {k: hashlib.sha256(v.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+            for k, v in tensors.items()}
+
+
+def pipe_train(torch, engine, batches, save=None):
+    """A ``train_batch`` step on each of ``batches``: losses, grad norms,
+    step ms, each step's schedule and in-flight count, the flash launches,
+    the peak GiB; on a pipe stage the replicated tensors' digests after
+    each step and the master's after the last; ``save``: (directory, i)
+    saves a checkpoint before step i (its master's digests under
+    ``saved``)."""
+    out = {"losses": [], "norms": [], "ms": [], "pipe": [], "replicas": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    staged = engine._pp > 1
+    for i, batch in enumerate(batches):
+        if save is not None and i == save[1]:
+            t = time.perf_counter()
+            engine.save_checkpoint(save[0])
+            out["save_s"] = time.perf_counter() - t
+            out["saved"] = _digests(torch, engine.master)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out["losses"].append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["norms"].append(float(engine._last_metrics["grad_norm"]))
+        out["pipe"].append(dict(getattr(engine, "last_pipe", {})))
+        if staged:
+            out["replicas"].append(_digests(torch, {k: v for k, v in engine.master.items()
+                                                    if not engine._pipe_local[k]}))
+    out["counts"] = read_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if staged:
+        out["master"] = _digests(torch, engine.master)
+    return out
+
+
+# faults planted on every rank, one fill-drain step each: the first step's
+# grad norm must leave ``PIPE_NORM_REL`` of pp 1's
+PIPE_PLANTED = ("the replicated tensors' gradient sum over pipe left out",
+                "microbatch 1's activation gradient dropped at the stage boundary")
+
+
+def pipe_planted(torch, dev, world, batch):
+    """The first step's grad norm under each fault of ``PIPE_PLANTED``, the
+    code restored after each."""
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.schedule import PipeStage
+    reduce, backward = DeepSpeedEngine._reduce, PipeStage.backward
+
+    def no_pipe_sum(self, tensors, group, op):
+        if group != dist.PIPE_AXIS:
+            reduce(self, tensors, group, op)
+
+    def drop_mb1(self, m, dy, side_seeds=None):
+        dx = backward(self, m, dy, side_seeds)
+        return torch.zeros_like(dx) if dx is not None and m == 1 else dx
+
+    out = {}
+    for name, cls, attr, fault in ((PIPE_PLANTED[0], DeepSpeedEngine, "_reduce", no_pipe_sum),
+                                   (PIPE_PLANTED[1], PipeStage, "backward", drop_mb1)):
+        saved = cls.__dict__[attr]
+        setattr(cls, attr, fault)
+        try:
+            engine = _pipe_engine(torch, dev, world, "fill_drain")
+            engine.train_batch(batch=batch)
+            out[name] = float(engine._last_metrics["grad_norm"])
+            del engine
+            torch.cuda.empty_cache()
+        finally:
+            setattr(cls, attr, saved)
+    return out
+
+
+def _pipe_rank(rank, world, store, out_dir, dev):
+    """One rank of the pipe phase (a spawned process): the gloo group over
+    the card, the mesh (pipe = world), then each schedule's steps (the
+    fill-drain run saves a checkpoint before its last step), a resume at pp
+    2 from it, the planted faults; results to ``out_dir/rank{rank}.pt``, a
+    traceback to ``rank{rank}.err``."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import deepspeed_tpu_torch.comm as dist
+        dist.init_distributed(dist_backend="gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                              verbose=False)
+        dist.initialize_mesh(pipe=world)
+        res = {"gloo": pipe_gloo_check(torch, dev), "stage": dist.get_rank(dist.PIPE_AXIS), "runs": {}}
+        ck = os.path.join(out_dir, "ckpt")
+        batches = None
+        for schedule in PIPE_SCHEDULES:
+            t = time.perf_counter()
+            engine = _pipe_engine(torch, dev, world, schedule)
+            built = time.perf_counter() - t
+            batches = batches or _pipe_batches(engine.module.cfg.vocab_size)
+            res["runs"][schedule] = pipe_train(torch, engine, batches,
+                                               save=(ck, PIPE_STEPS - 1) if schedule == "fill_drain" else None)
+            res["runs"][schedule]["built_s"] = built
+            res["layers"] = list(engine._pipe_layers)
+            del engine
+            torch.cuda.empty_cache()
+        # the checkpoint saved before the last fill-drain step, resumed at pp 2
+        engine = _pipe_engine(torch, dev, world, "1f1b", seed=SEED + 1)
+        t = time.perf_counter()
+        engine.load_checkpoint(ck)
+        load_s = time.perf_counter() - t
+        res["runs"]["resumed"] = pipe_train(torch, engine, batches[PIPE_STEPS - 1:])
+        res["runs"]["resumed"]["load_s"] = load_s
+        del engine
+        torch.cuda.empty_cache()
+        res["planted"] = pipe_planted(torch, dev, world, batches[0])
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def pipe_expected(layers, steps):
+    """Launches of ``steps`` steps on a stage of ``layers`` layers: one flash
+    forward, dQ and dK/dV a layer a microbatch (no remat policy), nothing
+    else."""
+    n = layers * PIPE_GAS * steps
+    return {**ZERO_COUNTS, "flash_attention": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def pipe_phase(torch, card, dev):
+    """gpt2-large at full depth, bf16, gas 4: pp 1 in this process against
+    pp 2 as two ranks sharing the card (``_pipe_rank``): under fill-drain and
+    1F1B, 3 steps on the same weights and batches, losses and grad norms
+    within ``PIPE_LOSS_REL`` / ``PIPE_NORM_REL`` of pp 1's, 1F1B bitwise
+    fill-drain (losses, norms, every master tensor), the replicated tensors
+    bitwise across the ranks after each step, exact flash launches a rank
+    a step; a checkpoint saved at pp 2 resumes at pp 2 (that step and the
+    master bitwise) and loads at pp 1 here (the master bitwise); each fault
+    of ``PIPE_PLANTED`` leaves the grad-norm gate at the first step. Peak
+    GiB a rank (1F1B's at most fill-drain's) and step times (two processes
+    sharing one card: no pipeline speed) are logged. Returns one rank's
+    launch counts over the phase."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    log(f"pipe: {PIPE_MODEL} at full width and depth, bf16, micro {TRAIN_CONFIG['train_micro_batch_size_per_gpu']} "
+        f"x gas {PIPE_GAS}, seq {PIPE_SEQ}; pp 1 in this process, pp {PIPE_DEGREE} as two processes sharing the "
+        f"card over a gloo group ({card})")
+    engine = _pipe_engine(torch, dev, 1)
+    batches = _pipe_batches(engine.module.cfg.vocab_size)
+    L = engine.module.cfg.num_layers
+    ref = pipe_train(torch, engine, batches)
+    del engine
+    torch.cuda.empty_cache()
+    check(ref["counts"] == pipe_expected(L, PIPE_STEPS), f"pp 1 launches {ref['counts']}")
+    log(f"pp 1: losses {ref['losses']}, grad norms {ref['norms']}, step ms {[round(x, 1) for x in ref['ms']]}, "
+        f"peak {ref['peak_gib']:.3f} GiB")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        ctx = mp.get_context("spawn")
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_pipe_rank, args=(r, PIPE_DEGREE, store, tmp, dev)) for r in range(PIPE_DEGREE)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PIPE_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        errs = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(PIPE_DEGREE)
+                if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+        check(not alive, f"pipe: {len(alive)} rank(s) still running after {PIPE_TIMEOUT_S} s; killed")
+        check(not errs, "pipe: a rank failed:\n" + "\n".join(errs))
+        check(all(p.exitcode == 0 for p in procs), f"pipe: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(PIPE_DEGREE)]
+        log(f"pp {PIPE_DEGREE}: both ranks finished in {time.perf_counter() - t0:.1f} s (spawn, two schedules, a "
+            f"checkpoint round trip, two planted faults; two processes sharing one card)")
+        # the pp 2 checkpoint loads at pp 1: the master bitwise what the ranks saved
+        engine = _pipe_engine(torch, dev, 1, seed=SEED + 2)
+        t = time.perf_counter()
+        engine.load_checkpoint(os.path.join(tmp, "ckpt"))
+        load_s = time.perf_counter() - t
+        loaded = _digests(torch, engine.master)
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saved = {}
+    for res in ranks:
+        saved.update(res["runs"]["fill_drain"]["saved"])
+    check(set(saved) == set(loaded) and saved == loaded, "pipe: the pp 2 checkpoint loaded at pp 1 is not bitwise "
+          f"the ranks' master ({sum(saved.get(k) != v for k, v in loaded.items())} of {len(loaded)} tensors differ)")
+    log(f"pp 2 checkpoint loaded at pp 1 in {load_s:.1f} s: all {len(loaded)} master tensors bitwise the two "
+        f"ranks' at the save")
+    for r, res in enumerate(ranks):
+        runs, layers = res["runs"], res["layers"]
+        log(f"pipe rank {r} (stage {res['stage']}, layers {layers[0]}-{layers[-1]}): gloo {res['gloo']}")
+        check(res["stage"] == r and len(layers) == L // PIPE_DEGREE, f"pipe rank {r}: stage {res['stage']}, "
+              f"{len(layers)} layers")
+        for schedule in PIPE_SCHEDULES:
+            tr = runs[schedule]
+            loss_rel, norm_rel = _rel(tr["losses"], ref["losses"]), _rel(tr["norms"], ref["norms"])
+            want = pipe_expected(len(layers), PIPE_STEPS)
+            log(f"pipe rank {r} {schedule}: losses {tr['losses']} (rel to pp 1 {loss_rel:.2e}, gate "
+                f"{PIPE_LOSS_REL:g}), grad norms {tr['norms']} (rel {norm_rel:.2e}, gate {PIPE_NORM_REL:g}), "
+                f"in flight {[p.get('max_in_flight') for p in tr['pipe']]}, peak {tr['peak_gib']:.3f} GiB (pp 1: "
+                f"{ref['peak_gib']:.3f}), step ms {[round(x, 1) for x in tr['ms']]} (two processes sharing one "
+                f"card), built {tr['built_s']:.1f} s, launches {tr['counts']}")
+            check(all(map(math.isfinite, tr["losses"] + tr["norms"])), f"pipe rank {r} {schedule}: non-finite")
+            check(loss_rel <= PIPE_LOSS_REL, f"pipe rank {r} {schedule}: loss rel {loss_rel:.2e}")
+            check(norm_rel <= PIPE_NORM_REL, f"pipe rank {r} {schedule}: norm rel {norm_rel:.2e}")
+            check([p["schedule"] for p in tr["pipe"]] == [schedule] * PIPE_STEPS, f"pipe rank {r}: schedules "
+                  f"{tr['pipe']}")
+            check(tr["counts"] == want, f"pipe rank {r} {schedule}: launches {tr['counts']} != {want}")
+            check(tr["losses"] == ranks[0]["runs"][schedule]["losses"], f"pipe rank {r} {schedule}: losses differ "
+                  f"from rank 0's")
+            for i, (mine, first) in enumerate(zip(tr["replicas"], ranks[0]["runs"][schedule]["replicas"])):
+                check(mine and mine == first, f"pipe rank {r} {schedule} step {i + 1}: the replicated tensors are "
+                      f"not bitwise rank 0's")
+        fd, ob = runs["fill_drain"], runs["1f1b"]
+        check(ob["losses"] == fd["losses"] and ob["norms"] == fd["norms"] and ob["master"] == fd["master"],
+              f"pipe rank {r}: 1F1B is not bitwise fill-drain")
+        check(ob["peak_gib"] <= fd["peak_gib"], f"pipe rank {r}: 1F1B peak {ob['peak_gib']:.3f} GiB above "
+              f"fill-drain's {fd['peak_gib']:.3f}")
+        rs = runs["resumed"]
+        check(rs["losses"] == fd["losses"][-1:] and rs["norms"] == fd["norms"][-1:] and rs["master"] == fd["master"],
+              f"pipe rank {r}: the resume at pp 2 is not bitwise the uninterrupted step ({rs['losses']} vs "
+              f"{fd['losses'][-1:]})")
+        check(rs["counts"] == pipe_expected(len(layers), 1), f"pipe rank {r} resumed: launches {rs['counts']}")
+        log(f"pipe rank {r}: 1F1B bitwise fill-drain (losses, norms, {len(fd['master'])} master tensors), the "
+            f"replicated tensors bitwise across the ranks after every step; checkpoint saved in "
+            f"{fd.get('save_s', 0):.1f} s, resumed at pp 2 (load {rs['load_s']:.1f} s): step {PIPE_STEPS} and the "
+            f"master bitwise")
+        first = ref["norms"][0]
+        for name, norm in res["planted"].items():
+            rel = abs(norm - first) / first
+            log(f"pipe rank {r} planted fault ({name}): first grad norm {norm} vs pp 1 {first} (rel {rel:.2e}; the "
+                f"sound fill-drain run {abs(fd['norms'][0] - first) / first:.2e}, gate {PIPE_NORM_REL:g})")
+            check(rel > PIPE_NORM_REL, f"pipe rank {r}: the planted fault '{name}' passed the grad-norm gate")
+    runs = ranks[0]["runs"]
+    return {k: sum(runs[s]["counts"][k] for s in PIPE_SCHEDULES + ("resumed", )) for k in ZERO_COUNTS}
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: the training engine's features on the training path
 
 FEATURE_MODEL = "gpt2-large"
@@ -5673,7 +6016,9 @@ def main(argv=()):
     kernel and run only the hierarchical KV tier's phase; ``--moe``: build
     every kernel and run only the mixtral-8x7b phase; ``--zero``: build every
     kernel and run only the ZeRO stages' phase; ``--tp``: build every
-    kernel and run only the tensor-parallel phase (two ranks on the card).
+    kernel and run only the tensor-parallel phase (two ranks on the card);
+    ``--pipe``: build every kernel and run only the pipeline phase (two
+    ranks on the card).
     Each compares a change with its parent in one call: run this file
     beside each tree's package, in turns."""
     import torch
@@ -5738,6 +6083,10 @@ def main(argv=()):
         timed_phase("tensor parallelism", tp_phase, torch, card, dev)
         log(card)
         return 0
+    if list(argv) == ["--pipe"]:
+        timed_phase("pipeline parallelism", pipe_phase, torch, card, dev)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -5798,6 +6147,11 @@ def main(argv=()):
     for name, n in tp_counts.items():
         if n and name in results:
             results[name]["tp2_rank_launches"] = n
+    # pipeline parallelism 2 on gpt2-large: one rank's launches (each rank's are checked exact)
+    pipe_counts = timed_phase("pipeline parallelism", pipe_phase, torch, card, dev)
+    for name, n in pipe_counts.items():
+        if n and name in results:
+            results[name]["pipe2_rank_launches"] = n
     # the sparse path is the main path of the three block-sparse kernels
     sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:

@@ -17,9 +17,15 @@ eagerly on its tensors:
   a tuple of them, and its members are ordered by their index linearized
   over those axes in the order given (JAX's ``axis_index``);
 - with no process group, or a group of one, every collective returns its
-  input (what the JAX collectives do without a mesh);
-- :func:`all_reduce_autograd` and :class:`AllToAll` are the
-  differentiable forms the MoE layer and the data-parallel loss use;
+  input (what the JAX collectives do without a mesh); ``group=None`` is
+  every rank (JAX's ``WORLD`` axes, and ``pipe`` where the mesh splits it);
+- :func:`ppermute` (and :func:`send_recv_next` / :func:`send_recv_prev`,
+  its rings) is the point-to-point exchange the pipeline runs between its
+  stages (the JAX ``comm.py:467-488``, ``lax.ppermute``): every send and
+  receive of one exchange is posted together and waited on before use;
+- :func:`all_reduce_autograd`, :class:`AllToAll` and
+  :func:`ppermute_autograd` are the differentiable forms the MoE layer,
+  the data-parallel loss and the pipeline use;
   :func:`copy_to_region`, :func:`reduce_from_region` and
   :func:`gather_from_region` are the tensor-parallel ones (Megatron's f
   and g, and the all-gather of a column-parallel output), which GSPMD
@@ -28,9 +34,9 @@ eagerly on its tensors:
 
 While a telemetry sink is live, ``barrier``, ``host_broadcast`` and
 ``host_allgather`` run inside the overlap tracker's ``track_host``
-(``comm/overlap.py``; the JAX ``comm.py:236-244``). ``ppermute`` and
-``send_recv_next``/``send_recv_prev`` are not ported yet (ROADMAP Queue 1
-#7: the pipeline and ring attention).
+(``comm/overlap.py``; the JAX ``comm.py:236-244``). Ring attention's use
+of ``ppermute`` (sequence parallelism, ROADMAP Queue 1 #7.4) is not ported
+yet.
 """
 
 import datetime
@@ -229,8 +235,9 @@ def is_available():
 
 
 def _axes(group):
-    if group is None:
-        return WORLD
+    if group is None:  # every rank: JAX's WORLD axes, and pipe where the mesh splits it
+        mesh = _state["mesh"]
+        return MESH_AXES if mesh is not None and mesh.shape[PIPE_AXIS] > 1 else WORLD
     if isinstance(group, str):
         return (group, )
     return tuple(group)
@@ -578,6 +585,79 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None):
     return all_reduce(tensor, op=op, group=group)
 
 
+def _members(group):
+    """The global ranks of this rank's ``group``, in member order."""
+    if isinstance(group, tdist.ProcessGroup):
+        return tdist.get_process_group_ranks(group)
+    if group is None and _state["mesh"] is None:
+        return list(range(tdist.get_world_size()))
+    return get_mesh().group_ranks(_axes(group))
+
+
+def _check_perm(perm, n):
+    perm = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \
+            not all(0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute: {perm} is not a partial permutation of {n} members "
+                         f"(each source and each destination once, indices below {n})")
+    return perm
+
+
+def ppermute(tensor, perm, group=PIPE_AXIS):
+    """Point-to-point exchange over ``group`` (the JAX ``comm.py:467``,
+    ``lax.ppermute``; the reference's pipeline p2p, ``runtime/pipe/p2p.py``).
+    ``perm``: (source, destination) pairs of member indices in the group's
+    member order (``Mesh.group_ranks``, not torch's sorted order): member
+    ``s`` sends ``tensor`` to member ``d``, and each member returns what its
+    source sent, or zeros when no member sends to it. Every member calls it
+    with a tensor of the same shape and dtype.
+
+    Every send and receive of the exchange is posted in one
+    ``batch_isend_irecv`` on global ranks and waited on before the result
+    is used, so no ring order can deadlock. A gloo group stages a CUDA
+    tensor through host memory (its point-to-point ops take host tensors
+    only; the staged bytes are logged as ``ppermute_host_staged``); NCCL
+    takes the device tensor. A group of one returns its input."""
+    _record("ppermute", tensor, _group_name(group))
+    pg, n = _pg(group)
+    if n == 1:
+        return tensor
+    perm = _check_perm(perm, n)
+    me, members = get_rank(group), _members(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if src and src[0] == me:  # a member that sends to itself
+        return tensor.clone()
+    staged = tensor.is_cuda and tdist.get_backend(pg) == "gloo"
+    if staged:
+        _record("ppermute_host_staged", tensor, _group_name(group))
+    wire = tensor.detach().contiguous()
+    wire = wire.cpu() if staged else wire
+    recv = torch.empty_like(wire) if src else None
+    ops = [tdist.P2POp(tdist.isend, wire, members[d], pg) for d in dst]
+    ops += [tdist.P2POp(tdist.irecv, recv, members[s], pg) for s in src]
+    if ops:
+        for work in tdist.batch_isend_irecv(ops):
+            work.wait()
+    if recv is None:
+        return torch.zeros_like(tensor)
+    return recv.to(tensor.device) if staged else recv
+
+
+def send_recv_next(tensor, group=PIPE_AXIS):
+    """Shift +1 along a ring: member i's ``tensor`` arrives at member i + 1
+    (the last member's at member 0)."""
+    n = get_world_size(group)
+    return ppermute(tensor, [(i, (i + 1) % n) for i in range(n)], group=group)
+
+
+def send_recv_prev(tensor, group=PIPE_AXIS):
+    """Shift -1 along a ring: member i's ``tensor`` arrives at member i - 1."""
+    n = get_world_size(group)
+    return ppermute(tensor, [(i, (i - 1) % n) for i in range(n)], group=group)
+
+
 # ---------------------------------------------------------------------------
 # host-side exchange (control plane)
 
@@ -650,6 +730,29 @@ class AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         group, split_axis, concat_axis = ctx.args
         return all_to_all_single(g.contiguous(), group, concat_axis, split_axis), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    """:func:`ppermute` whose backward is the inverse permutation (JAX's
+    ``ppermute`` transpose): each member's gradient goes back to its
+    source, and a member no one sent to passes no gradient on."""
+
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.args = ([(d, s) for s, d in perm], group)
+        return ppermute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse, group = ctx.args
+        return ppermute(g.contiguous(), inverse, group), None, None
+
+
+def ppermute_autograd(tensor, perm, group=PIPE_AXIS):
+    """:func:`ppermute` that carries a gradient."""
+    if _pg(group)[1] == 1:
+        return tensor
+    return _PPermute.apply(tensor, _check_perm(perm, _pg(group)[1]), group)
 
 
 # ---------------------------------------------------------------------------

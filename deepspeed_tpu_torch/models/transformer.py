@@ -1423,6 +1423,45 @@ class CausalLMModel:
             w, transpose = tail_tree["lm_head.kernel"], False
         return _chunked_ce(x, w, labels.long(), valid, cfg, transpose) / n_valid
 
+    # ---- pipeline parallelism ---------------------------------------------
+    # The model's side of the ``pipe`` axis (the JAX model's
+    # ``pipeline_loss`` / ``pipeline_value_and_grad`` / ``pipeline_pattern``,
+    # ``models/transformer.py:1786-1895``) on the streaming protocol above:
+    # stage 0 runs ``stream_embed``, every stage its layers through
+    # :meth:`pipeline_stage`, the last ``stream_tail_loss``; the engine's
+    # ``runtime/pipe/stage.py`` drives them. Embed and head stay replicated
+    # over ``pipe``.
+    def pipeline_pattern(self):
+        """Regex of the state-dict keys placed on one stage; its group is
+        the layer index (the JAX model's ``^layers/``: the stacked leading
+        dim split over ``pipe``)."""
+        return r"^layers\.(\d+)\."
+
+    def pipeline_layers(self, stage, num_stages):
+        """The global indices of ``stage``'s layers: layer ``i`` belongs to
+        stage ``i // (L / S)``, the JAX rule (the stacked dim split
+        evenly)."""
+        L = self.cfg.num_layers
+        if L % num_stages != 0:
+            raise ValueError(f"num_layers={L} does not split evenly over pipeline_parallel_size="
+                             f"{num_stages} (the JAX package splits the stacked layer dim evenly)")
+        per = L // num_stages
+        return range(stage * per, (stage + 1) * per)
+
+    def pipeline_stage(self, layer_trees, h, first_layer, attn_mask=None, dropout_key=None, impl="kernel",
+                       moe_out=None):
+        """A stage's layers on ``h``: ``layer_trees`` yields the stage's
+        layers in order (per-layer keys; an iterator may fetch each just
+        before its layer runs), the first of them global layer
+        ``first_layer``. Each layer's dropout key is ``fold_in`` of the
+        micro-step's ``dropout_key`` and its global index, as :meth:`loss`
+        folds it, so a pipelined run draws the masks of an unpipelined
+        one."""
+        for j, tree in enumerate(layer_trees):
+            key = None if dropout_key is None else fold_in(dropout_key, first_layer + j)
+            h = self.stream_layer(tree, h, attn_mask, impl=impl, dropout_key=key, remat=True, moe_out=moe_out)
+        return h
+
     # ---- generation (KV cache) -------------------------------------------
     def quantize_params(self, params, group_size=None, dtype=None):
         """Float state dict -> the int8 serving state dict an

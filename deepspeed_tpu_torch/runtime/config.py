@@ -119,8 +119,8 @@ class CheckpointConfig(DeepSpeedConfigModel):
 
 class MeshConfig(DeepSpeedConfigModel):
     """The JAX package's parallel axis sizes (same keys). The port runs the
-    tensor, expert and data axes (their product is the world size);
-    pipeline and sequence axes must be 1 (ROADMAP Queue 1 #7.3, #7.4)."""
+    pipe, expert, data and tensor axes (their product is the world size);
+    the sequence axis must be 1 (ROADMAP Queue 1 #7.4)."""
     tensor_parallel_size = ConfigField(default=1, aliases=("model_parallel_size",))
     pipeline_parallel_size = ConfigField(default=1)
     sequence_parallel_size = ConfigField(default=1)
@@ -264,26 +264,25 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
                 raise NotImplementedError(f"deepspeed_tpu_torch does not support the '{key}' config "
                                           f"section yet ({_UNPORTED_SECTIONS[key]})")
         m = self.mesh
-        for axis, item in (("pipeline_parallel_size", "#7.3, the pipeline"),
-                           ("sequence_parallel_size", "#7.4, sequence parallelism")):
-            if getattr(m, axis) != 1:
-                raise NotImplementedError(f"deepspeed_tpu_torch runs the tensor, expert and data axes "
-                                          f"only: mesh.{axis}={getattr(m, axis)} needs ROADMAP Queue 1 "
-                                          f"{item}")
+        if m.sequence_parallel_size != 1:
+            raise NotImplementedError(f"deepspeed_tpu_torch runs the pipe, expert, data and tensor axes only: "
+                                      f"mesh.sequence_parallel_size={m.sequence_parallel_size} needs ROADMAP "
+                                      f"Queue 1 #7.4, sequence parallelism")
 
     # -- batch size arithmetic (reference config.py:738-760) ---------------
     def _resolve_data_parallel_size(self):
         """The data-parallel group spans expert x data; data is what the
-        world leaves after the tensor and expert axes (the JAX package's
-        rule): the ranks of a tensor group see the same rows."""
+        world leaves after the tensor, pipe and expert axes (the JAX
+        package's rule, its ``config.py:306``): the ranks of a tensor group
+        and the stages of a pipe group see the same rows."""
         m = self.mesh
-        tp = m.tensor_parallel_size
-        if self.world_size % tp != 0:
-            raise DeepSpeedConfigError(f"world size {self.world_size} not divisible by tp*pp*sp = {tp}")
-        if (self.world_size // tp) % m.expert_parallel_size != 0:
-            raise DeepSpeedConfigError(f"dp group size {self.world_size // tp} not divisible by "
+        non_dp = m.tensor_parallel_size * m.pipeline_parallel_size * m.sequence_parallel_size
+        if self.world_size % non_dp != 0:
+            raise DeepSpeedConfigError(f"world size {self.world_size} not divisible by tp*pp*sp = {non_dp}")
+        if (self.world_size // non_dp) % m.expert_parallel_size != 0:
+            raise DeepSpeedConfigError(f"dp group size {self.world_size // non_dp} not divisible by "
                                        f"expert_parallel_size {m.expert_parallel_size}")
-        inferred_data = self.world_size // (tp * m.expert_parallel_size)
+        inferred_data = self.world_size // (non_dp * m.expert_parallel_size)
         if m.data_parallel_size is None:
             m.data_parallel_size = inferred_data
         elif m.data_parallel_size != inferred_data and (self.world_size > 1 or m.expert_parallel_size > 1):
@@ -351,6 +350,21 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
         if self.fp16.enabled:
             return torch.float16
         return torch.float32
+
+    PIPELINE_SCHEDULES = ("auto", "fill_drain", "1f1b")
+
+    def pipeline_schedule(self):
+        """The ``pipeline`` section's ``schedule`` (``auto`` by default), as
+        the JAX engine reads it (``engine.py:717-726``): any other key of
+        the section warns, an unknown schedule raises."""
+        section = dict(self.pipeline or {})
+        schedule = str(section.pop("schedule", "auto"))
+        if section:
+            logger.warning(f"pipeline section keys {sorted(section)} are not consumed (only 'schedule' is); "
+                           f"they have NO effect in this build")
+        if schedule not in self.PIPELINE_SCHEDULES:
+            raise ValueError(f"pipeline.schedule must be 'auto', 'fill_drain' or '1f1b', got {schedule!r}")
+        return schedule
 
     @property
     def loss_scale(self):

@@ -137,18 +137,43 @@ Both refuse the forward/backward/step facade; checkpoints keep the
 on-device format (the master under ``master``, the moments as an AdamW
 state under ``optimizer``), so one saved by any tier loads into any other.
 
+Pipeline parallelism (``mesh.pipeline_parallel_size``; the JAX engine's
+``engine.py:710-800``): the mesh is pipe x expert x data x tensor and each
+rank builds and holds only its stage's layers (``layers.{i}.*`` on stage
+``i // (L / S)``, ``ShardingPlanner.pipe_stage``) plus the embed and head
+tensors, replicated over ``pipe``. ``train_batch`` runs the step's
+microbatches through ``runtime/pipe/schedule.py`` (``fill_drain`` or
+``one_f_one_b``, the ``pipeline.schedule`` section: ``auto`` takes 1F1B
+unless fp16, tp > 1, an MoE model or a masked batch) with the model's stage
+(``runtime/pipe/stage.py``), exchanging activations and their gradients
+over ``pipe`` (``comm.ppermute``). The ZeRO stages run over the data axes
+within each stage (stage 3 through a ``BlockGatherer`` of the stage's
+blocks). Each replicated tensor's gradient is summed over ``pipe`` before
+the update (the reference's ReduceTiedGrads), so every stage applies the
+same update; the clip norm counts each stage's layers once (their squares
+summed over ``pipe``) and each replicated tensor once, so an fp16 overflow
+is seen on every stage; the loss is summed over ``pipe`` (the last stage's
+cross entropy and each stage's MoE aux share), so every rank returns it.
+``eval_batch`` runs the forward pipeline on one microbatch. Checkpoints are
+written in the one-stage format: each layer is fetched from its stage to
+rank 0. The forward/backward/step facade and the offload tiers raise under
+``pipe``, as in the JAX engine.
+
 Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
-``loss_fn(params, batch)``. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: pipeline and sequence
-parallelism (#7.3, #7.4), the offload tiers at tp > 1 (#7.2), 1-bit
-optimizers, a resume at another world size (#9), ``deepspeed_io``.
+``loss_fn(params, batch)``; the pipeline needs the streaming protocol
+(``stream_plan``, ``stream_embed``, ``stream_layer``, ``stream_tail_loss``)
+and ``pipeline_layers``. Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: sequence parallelism
+(#7.4), the offload tiers at tp > 1 (#7.2), 1-bit optimizers, a resume at
+another world size (#9), ``deepspeed_io``.
 """
 
 import inspect
 import math
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -228,8 +253,13 @@ class DeepSpeedEngine:
         if zero.offload_optimizer.device == "nvme" and self.offload_optimizer and \
                 not zero.offload_optimizer.nvme_path:
             raise ValueError("offload_optimizer.device='nvme' requires nvme_path")
-        if self._config.pipeline:
-            raise _unported("pipeline parallelism", "ROADMAP Queue 1 #7, distributed runtime")
+        if self._config.mesh.pipeline_parallel_size > 1:
+            # the JAX engine's refusals (engine.py:168-170, :182-184)
+            if self.offload_param:
+                raise NotImplementedError("offload_param does not compose with pipeline_parallel_size > 1")
+            if self.offload_optimizer:
+                raise NotImplementedError("offload_optimizer does not yet compose with "
+                                          "pipeline_parallel_size > 1")
         if training_data is not None:
             raise _unported("deepspeed_io / training_data", "ROADMAP Queue 1 #10, runtime/data_pipeline")
         self.training_dataloader = None
@@ -242,7 +272,9 @@ class DeepSpeedEngine:
         self.planner = ShardingPlanner(dist.get_mesh() if dist.is_initialized() else {}, zero,
                                        tp_rules=model.tp_rules() if hasattr(model, "tp_rules") else None,
                                        expert_pattern=model.expert_pattern() if hasattr(model, "expert_pattern")
-                                       else None)
+                                       else None,
+                                       pipe_pattern=model.pipeline_pattern() if self._pp > 1 else None,
+                                       num_layers=getattr(getattr(model, "cfg", None), "num_layers", None))
 
         # ---- precision ---------------------------------------------------
         self.compute_dtype = self._config.compute_dtype
@@ -271,8 +303,12 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer(self._config.optimizer, self.master,
                                              scanned=getattr(cfg, "scan_layers", False), client=optimizer,
                                              norm_reduce=self._lamb_norm_reduce())
-        self._stage3 = None
-        if self.zero_stage == 3 and self.master is not None:
+        self._stage3 = self._pipe_gatherer = None
+        if self._pp > 1:
+            self._configure_pipe(model)
+        elif self._config.pipeline:
+            self._config.pipeline_schedule()  # one stage: the section is checked, and has no effect
+        if self._pp == 1 and self.zero_stage == 3 and self.master is not None:
             if hasattr(model, "stream_plan"):
                 from .zero.stage3 import Stage3Loss
                 self._stage3 = Stage3Loss(self, model)
@@ -375,13 +411,15 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ init helpers
     def _configure_parallel(self, model):
-        """Tensor, data and expert parallelism over the live world: the mesh
-        (expert x data x tensor), this rank's rows, for an MoE model the
-        model rebuilt on this rank's experts, and at tp > 1 on this rank's
-        tensor shard. Returns the model to train."""
+        """Pipe, tensor, data and expert parallelism over the live world:
+        the mesh (pipe x expert x data x tensor), this rank's rows and pipe
+        stage, for an MoE model the model rebuilt on this rank's experts,
+        and at tp > 1 on this rank's tensor shard. Returns the model to
+        train."""
         m = self._config.mesh
         tp, ep, data = m.tensor_parallel_size, m.expert_parallel_size, m.data_parallel_size
-        self._tp = tp
+        pp = m.pipeline_parallel_size
+        self._tp, self._pp, self._stage = tp, pp, 0
         self._dp = ep * data
         self._dp_rank = 0
         self._tp_dims = {}  # master key -> the dim split over tensor (tp > 1)
@@ -389,16 +427,28 @@ class DeepSpeedEngine:
         self._sharded = False  # the master is this rank's shards (ZeRO stage >= 1 over ranks)
         self._offload_sharded = False  # ZeRO-Offload's host state is this rank's partition
         self._global_loss = "n_valid" in inspect.signature(self.loss_fn).parameters
-        if self._dp * tp == 1 and not dist.is_initialized():
+        if pp > 1:
+            for need in ("stream_plan", "pipeline_layers"):
+                if not hasattr(model, need):
+                    raise ValueError("pipeline_parallel_size > 1 needs a deepspeed_tpu_torch model (the streaming "
+                                     "protocol and pipeline_layers): a loss function alone has no stages")
+        if self._dp * tp * pp == 1 and not dist.is_initialized():
             return model
-        if self._dp * tp != dist.get_world_size():
-            raise ValueError(f"tensor x expert x data = {tp} x {ep} x {data} does not cover the world of "
-                             f"{dist.get_world_size()} ranks")
+        if self._dp * tp * pp != dist.get_world_size():
+            raise ValueError(f"pipe x tensor x expert x data = {pp} x {tp} x {ep} x {data} does not cover the "
+                             f"world of {dist.get_world_size()} ranks")
         mesh = dist.get_mesh() if dist.has_mesh() else None
-        if mesh is None or tuple(mesh.shape[a] for a in (dist.EXPERT_AXIS, dist.DATA_AXIS, dist.TENSOR_AXIS)) \
-                != (ep, data, tp):
-            dist.initialize_mesh(expert=ep, data=data, tensor=tp)
+        axes = (dist.PIPE_AXIS, dist.EXPERT_AXIS, dist.DATA_AXIS, dist.TENSOR_AXIS)
+        if mesh is None or tuple(mesh.shape[a] for a in axes) != (pp, ep, data, tp):
+            dist.initialize_mesh(pipe=pp, expert=ep, data=data, tensor=tp)
         self._dp_rank = dist.get_rank(dist.DP_AXES)
+        self._stage = dist.get_rank(dist.PIPE_AXIS)
+        if pp > 1:
+            model.pipeline_layers(self._stage, pp)  # raises for a depth the degree does not divide
+            # a group is built by every rank at its first use; the stages of a
+            # step first use theirs at different points, so build them now
+            for axes in (dist.PIPE_AXIS, dist.EXPERT_AXIS, dist.DATA_AXIS, dist.TENSOR_AXIS, dist.DP_AXES):
+                dist.get_mesh().process_group(axes)
         cfg = getattr(model, "cfg", None)
         if getattr(cfg, "num_experts", 0) > 0:
             from ..moe.layer import shard_config
@@ -457,6 +507,49 @@ class DeepSpeedEngine:
             log_dist("activation_checkpointing.partition_activations has no effect on one device "
                      "(there is no other device to partition the saved activations over)", [0])
 
+    def _configure_pipe(self, model):
+        """The pipeline's schedule (the ``pipeline`` section, the JAX
+        engine's rules: ``auto`` takes 1F1B unless fp16, tensor or sequence
+        parallelism, an MoE model, or a masked batch; an explicit ``1f1b``
+        refuses the first three), this stage's layers and blocks, and at
+        ZeRO stage 3 the stage's :class:`BlockGatherer`."""
+        from .pipe.stage import stage_blocks
+        self._pipe_schedule = self._config.pipeline_schedule()
+        fp16, moe = self._config.fp16.enabled, getattr(model.cfg, "num_experts", 0) > 0
+        if self._pipe_schedule == "1f1b":
+            if fp16:
+                # the interleaved backward seeds each microbatch before the
+                # dynamic loss scale could skip the step
+                raise NotImplementedError("pipeline.schedule='1f1b' does not support fp16 loss scaling; use bf16 "
+                                          "(TPU-native) or fill_drain")
+            if self._tp > 1:
+                raise NotImplementedError("pipeline.schedule='1f1b' composes with pipe x data meshes; use the "
+                                          "default fill-drain schedule with tensor/sequence parallelism")
+            if moe:
+                raise NotImplementedError("1f1b does not carry the MoE aux loss; use the default fill-drain "
+                                          "schedule for MoE models")
+        if getattr(model.cfg, "scan_layers", False) and str(self._config.optimizer.type or "").lower() == "lamb":
+            raise _unported("LAMB's stacked-layer norm groups (scan_layers) across pipe stages",
+                            "ROADMAP Queue 1 #7.3, its leftover")
+        self._pipe_auto_1f1b = not (fp16 or self._tp > 1 or moe)
+        if self._pipe_schedule == "auto":
+            log_dist(f"pipeline.schedule=auto -> {'1f1b' if self._pipe_auto_1f1b else 'fill_drain'} "
+                     f"(fill_drain for a masked batch)", [0])
+        first, last = self._stage == 0, self._stage == self._pp - 1
+        self._pipe_layers = model.pipeline_layers(self._stage, self._pp)
+        self._pipe_blocks = stage_blocks(model, self._pipe_layers, first, last)
+        if self.zero_stage == 3:
+            from .zero.stage3 import BlockGatherer
+            threshold = self.planner.persistence_threshold
+            self._pipe_persistent = [k for k in self.master if math.prod(self._shapes_global[k]) <= threshold]
+            keep = set(self._pipe_persistent)
+            blocks = {name: [k for k in keys if k not in keep] for name, keys in self._pipe_blocks.items()}
+            zero = self._config.zero_optimization
+            self._pipe_gatherer = BlockGatherer(self.master, self._specs["master"], self.compute_dtype, blocks,
+                                                weakref.WeakMethod(self._reduce_grad), bool(zero.overlap_comm),
+                                                False)
+            self._pipe_gatherer.shapes = {k: tuple(sh) for k, (sh, _) in model.param_shapes().items()}
+
     def _init_params(self, model, model_parameters):
         """fp32 master tensors on the device, from ``model_parameters`` (a
         state dict) or ``model.init_params(seed)``."""
@@ -474,6 +567,10 @@ class DeepSpeedEngine:
         if getattr(cfg, "moe_local_experts", None):
             from ..moe.layer import shard_params
             model_parameters = shard_params(model_parameters, cfg)
+        if self._pp > 1:  # this stage's layers and the tensors replicated over pipe
+            self._all_keys = list(model_parameters)
+            model_parameters = {k: v for k, v in model_parameters.items()
+                                if self.planner.pipe_stage(k) in (None, self._stage)}
         self._plan({k: tuple(np.shape(v)) for k, v in model_parameters.items()})
         master = {}
         for k, v in model_parameters.items():
@@ -527,8 +624,14 @@ class DeepSpeedEngine:
                                                              else ()) for k, e in mask.items()}
         self._norm_groups = {which: {k: _canon(shard_group(self._specs[which][k]) + extra[k]) for k in shapes}
                              for which in ("master", "grad", "offload")}
-        # the norm groups of whole (data-parallel) gradients at tp > 1
-        self._whole_norm_groups = [_canon(extra[k]) for k in shapes] if self._tp > 1 else None
+        # the clip norm's groups: a stage's layers' squares summed over pipe
+        # too (each replicated tensor counts once)
+        self._pipe_local = {k: self._pp > 1 and self.planner.pipe_stage(k) is not None for k in shapes}
+        pipe = {k: (dist.PIPE_AXIS, ) if local else () for k, local in self._pipe_local.items()}
+        self._grad_norm_groups = [_canon(self._norm_groups["grad"][k] + pipe[k]) for k in shapes]
+        # the norm groups of whole (data-parallel) gradients at tp > 1 or pp > 1
+        self._whole_norm_groups = ([_canon(extra[k] + pipe[k]) for k in shapes] if self._tp > 1 or self._pp > 1
+                                   else None)
         self._sharded = any(sharded_dims(sp) for sp in self._specs["master"].values())
 
     def _init_host_optimizer(self, model, model_parameters):
@@ -764,8 +867,7 @@ class DeepSpeedEngine:
         scale = self.loss_scale_state.cur_scale
         torch._foreach_div_(grads, self._grad_denom(scale))
         sharded_grads = self.zero_stage >= 2 and self._sharded
-        gnorm = self._global_norm(grads, list(self._norm_groups["grad"].values()) if sharded_grads
-                                  else self._whole_norm_groups)
+        gnorm = self._global_norm(grads, self._grad_norm_groups if sharded_grads else self._whole_norm_groups)
         if self.zero_stage == 1 and self._sharded:
             grads = [shard(g, self._specs["master"][k]) for k, g in zip(self.master, grads)]
         overflow = not math.isfinite(gnorm)
@@ -862,6 +964,95 @@ class DeepSpeedEngine:
                                    **{k[:-2] + "_ms": v * 1e3 for k, v in times.items()}}
         return metrics
 
+    # ------------------------------------------------------------------ pipeline
+    def _pipe_stage(self, stacked, train=True, scale=1.0, acc=None):
+        """This rank's :class:`~.pipe.stage.ModelStage` over ``stacked``
+        ((M, micro, ...) leaves): its tensors from the step's compute
+        leaves (stages 0-2, gathered whole over the data axes once) or the
+        stage's block gatherer (stage 3, training)."""
+        from .pipe.stage import GatherSource, LeafSource, ModelStage
+        M = stacked["input_ids"].shape[0]
+        labels = stacked["labels"] if "labels" in stacked else stacked["input_ids"][:, :, 1:]
+        denom = (labels >= 0).sum()
+        if train and self._dp > 1:
+            denom = dist.all_reduce(denom, group=dist.DP_AXES)
+        denom = torch.clamp(denom, min=1)
+        keys = list(self.master)
+        if train and self._pipe_gatherer is not None:
+            self._pipe_gatherer.reset()
+            self._pipe_gatherer.track = self.telemetry.enabled
+            src = GatherSource(self._pipe_gatherer, self.master, self._pipe_persistent)
+        else:
+            spec = self._specs["master"]
+            with torch.no_grad():
+                p_c = {k: unshard(v.detach().to(self.compute_dtype), spec[k]) for k, v in self.master.items()}
+            if train:
+                for t in p_c.values():
+                    t.requires_grad_(True)
+            src = LeafSource(p_c, keys)
+        cfg = self.module.cfg
+        return ModelStage(self.module, self._stage, self._pp, self._pipe_layers, self._pipe_blocks, src, stacked,
+                          denom, seed=scale, aux_coef=getattr(cfg, "moe_aux_loss_coef", 0.0) / M / self._dp,
+                          rngs=[self._micro_rng(m) for m in range(M)] if self._dropout and train else None,
+                          accumulate=acc, train=train)
+
+    def _pipe_like(self, stacked):
+        """(shape, dtype, device) of an activation between stages (the
+        model's activation dtype)."""
+        b, T = stacked["input_ids"].shape[1:]
+        cfg = self.module.cfg
+        return (b, T, cfg.hidden_size), cfg.dtype, self.device
+
+    def _pipe_train_batch(self, stacked, gas):
+        """A pipelined step: the schedule over this stage, the gradients
+        accumulated in microbatch order (fp32; reduced to the shard a
+        microbatch at stage 2, in the backward at stage 3), the replicated
+        tensors' summed over ``pipe``, then :meth:`_apply_grads`."""
+        from .pipe.schedule import fill_drain, one_f_one_b
+        keys = list(self.master)
+        acc = [None] * len(keys)
+        reduce_each = self.zero_stage == 2 and self._pipe_gatherer is None
+
+        def accumulate(m, grads):
+            for i, (k, g) in enumerate(zip(keys, grads)):
+                if g is None:
+                    continue
+                g = g.to(self.master[k].dtype)
+                if reduce_each:
+                    g = self._reduce_grad(k, g)
+                acc[i] = g if acc[i] is None else acc[i].add_(g)
+
+        use_1f1b = self._pipe_schedule == "1f1b" or (self._pipe_schedule == "auto" and self._pipe_auto_1f1b
+                                                      and "attention_mask" not in stacked)
+        # the engine unscales by loss_scale * gas; the stream's loss is its mean already
+        stage = self._pipe_stage(stacked, scale=self.loss_scale_state.cur_scale * gas, acc=accumulate)
+        try:
+            (one_f_one_b if use_1f1b else fill_drain)(stage, gas, self._pipe_like(stacked))
+        finally:
+            if self._pipe_gatherer is not None:
+                self._pipe_gatherer.finish()
+        self.last_pipe = {"schedule": "1f1b" if use_1f1b else "fill_drain", "max_in_flight": stage.max_in_flight}
+        with torch.no_grad():
+            # a replicated tensor this stage does not touch: zeros, whole
+            # below stage 2 (the compute leaf's shape), else the master shard's
+            like = stage.src.tensors if self.zero_stage < 2 else self.master
+            grads = [torch.zeros(like[k].shape, dtype=self.master[k].dtype, device=self.device) if a is None else a
+                     for k, a in zip(keys, acc)]
+            self._reduce([g for k, g in zip(keys, grads) if not self._pipe_local[k]], dist.PIPE_AXIS,
+                         dist.ReduceOp.SUM)
+            loss = dist.all_reduce(stage.loss(), group=dist.PIPE_AXIS)
+        return self._apply_grads(grads, loss)
+
+    @torch.no_grad()
+    def _pipe_eval(self, batch):
+        """The forward pipeline on one microbatch (``batch``'s rows): the
+        loss, summed over ``pipe``, on every rank."""
+        from .pipe.schedule import fill_drain
+        stacked = {k: v[None] for k, v in self._place(batch).items()}
+        stage = self._pipe_stage(stacked, train=False)
+        fill_drain(stage, 1, self._pipe_like(stacked))
+        return dist.all_reduce(stage.loss(), group=dist.PIPE_AXIS)
+
     # ------------------------------------------------------------------ data placement
     def _place(self, batch, lead=None):
         """Host or device leaves -> tensors on the device (integer leaves as
@@ -932,7 +1123,9 @@ class DeepSpeedEngine:
         t0 = time.perf_counter() if self.telemetry.enabled else None
         if t0 is not None and self._step_flops is None:
             self._step_flops = self._flops_per_step(stacked.get("input_ids"), 1)
-        if self.host_opt is not None:
+        if self._pp > 1:
+            metrics = self._pipe_train_batch(stacked, gas)
+        elif self.host_opt is not None:
             metrics = self._offload_train_batch(stacked, gas)
         else:
             acc, loss_sum = None, None
@@ -948,8 +1141,8 @@ class DeepSpeedEngine:
                 del grads
             metrics = self._apply_grads(acc, loss_sum / gas)
         if t0 is not None:
-            self._record_step(t0, {"path": "offload" if self.host_opt is not None else "fused",
-                                   "micro_batches": gas})
+            path = "pipeline" if self._pp > 1 else "offload" if self.host_opt is not None else "fused"
+            self._record_step(t0, {"path": path, "micro_batches": gas})
             self._emit_comm_overlap()
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -1003,6 +1196,10 @@ class DeepSpeedEngine:
         return torch.tensor(metrics["loss"])
 
     def _refuse_facade(self):
+        if self._pp > 1:
+            raise RuntimeError("the forward/backward/step facade is not supported under pipeline parallelism; use "
+                               "train_batch() (the reference PipelineEngine likewise only supports train_batch, "
+                               "pipe/engine.py:285)")
         if self.host_opt is not None or self.param_stream is not None:
             raise RuntimeError("the forward/backward/step facade is not supported with "
                                "offload_optimizer/offload_param; use train_batch()")
@@ -1067,6 +1264,8 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
+        if self._pp > 1:
+            return self._pipe_eval(batch)
         if self.param_stream is not None:
             return torch.tensor(self.param_stream.eval_batch(batch)["loss"])
         p_c = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
@@ -1112,8 +1311,9 @@ class DeepSpeedEngine:
         ``comm/overlap_efficiency`` gauges (the JAX engine's
         ``engine.py:1503-1525``); after :meth:`_record_step`'s synchronize,
         so stage 3's stall events have completed."""
-        if self._stage3 is not None:
-            self._stage3.gatherer.settle()
+        gatherer = self._stage3.gatherer if self._stage3 is not None else self._pipe_gatherer
+        if gatherer is not None:
+            gatherer.settle()
         stats = get_overlap_tracker().collect(reset=True)
         if not stats["ops"]:
             return
@@ -1210,6 +1410,7 @@ class DeepSpeedEngine:
             "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None,
             "ds_config": self._config.raw_config,
             "world_size": self._config.world_size,
+            "pipeline_parallel_size": self._pp,
         })
         # the facade's gradient accumulator is in-flight scratch, not
         # training state (reference engine.py:3012 skips its buffers too)
@@ -1243,23 +1444,61 @@ class DeepSpeedEngine:
                 mu = [unshard(v, spec[k]) for k, v in zip(master, mu)]
                 nu = [unshard(v, spec[k]) for k, v in zip(master, nu)]
             return master, {"count": self.host_opt.t, "mu": mu, "nu": nu}
-        if not self._sharded and self._tp == 1:
+        if not self._sharded and self._tp == 1 and self._pp == 1:
             return self.master, self.optimizer.state_dict()
         if isinstance(self.optimizer, ClientOptimizer):
-            raise NotImplementedError("a checkpoint of a client optimizer's state over ZeRO or tensor shards "
+            raise NotImplementedError("a checkpoint of a client optimizer's state over ZeRO, tensor or pipe shards "
                                       "(its state is per rank; use a built-in optimizer) (ROADMAP Queue 1 #9)")
         spec = self._specs["master"]
 
         def whole(k, t):  # over the data axes, then over tensor
-            if not sharded_dims(spec[k]) and self._tp_dims.get(k) is None:
-                return t
-            return self._tp_whole(k, unshard(t.detach(), spec[k])).cpu()
+            t = t.detach()
+            if sharded_dims(spec[k]) or self._tp_dims.get(k) is not None:
+                t = self._tp_whole(k, unshard(t, spec[k]))
+            return t
 
         sd = self.optimizer.state_dict()
         keys = list(self.master)
-        opt = {name: [whole(k, t) for k, t in zip(keys, val)] if isinstance(val, list) and len(val) == len(keys)
+        if self._pp > 1:  # every stage's layers, on stage 0, in the one-stage key order
+            where = {k: i for i, k in enumerate(keys)}
+            opt = {name: list(self._pipe_tensors(lambda k, v=val: whole(k, v[where[k]]), torch.float32).values())
+                   if isinstance(val, list) and len(val) == len(keys) else val for name, val in sd.items()}
+            return self._pipe_tensors(lambda k: whole(k, self.master[k]), torch.float32), opt
+        opt = {name: [whole(k, t).cpu() for k, t in zip(keys, val)] if isinstance(val, list) and len(val) == len(keys)
                else val for name, val in sd.items()}
-        return {k: whole(k, v) for k, v in self.master.items()}, opt
+        return {k: whole(k, v).cpu() for k, v in self.master.items()}, opt
+
+    def _pipe_tensors(self, local, dtype):
+        """{key: whole host tensor} of every model tensor in the model's key
+        order on pipe stage 0 (on another stage: of the keys it holds).
+        ``local(k)``: this rank's ``dtype`` tensor of a key it holds, whole
+        over the data and tensor axes. A layer of another stage comes to
+        stage 0 over ``pipe``."""
+        out = {}
+        for k in self._all_keys:
+            owner = self.planner.pipe_stage(k)
+            t = local(k) if k in self.master else None
+            if owner is not None and owner != 0:
+                t = self._from_stage(t, owner, dtype)
+            if t is not None:
+                out[k] = t.cpu()
+        return out
+
+    def _from_stage(self, t, owner, dtype):
+        """Stage ``owner``'s ``t`` on stage 0, None elsewhere (every member
+        of the pipe group calls it): its shape, then its values, each a
+        ``ppermute`` from ``owner`` to 0."""
+        meta = torch.zeros(8, dtype=torch.int64, device=self.device)
+        if t is not None:
+            meta[0] = t.dim()
+            meta[1:1 + t.dim()] = torch.tensor(t.shape)
+        meta = dist.ppermute(meta, [(owner, 0)], dist.PIPE_AXIS)
+        if self._stage == 0:
+            buf = torch.empty(tuple(meta[1:1 + int(meta[0])].tolist()), dtype=dtype, device=self.device)
+        else:
+            buf = t.contiguous() if t is not None else torch.empty(0, dtype=dtype, device=self.device)
+        got = dist.ppermute(buf, [(owner, 0)], dist.PIPE_AXIS)
+        return got if self._stage == 0 else None
 
     def wait_checkpoint_saves(self):
         """Block until an in-flight async checkpoint is written and its
@@ -1281,10 +1520,12 @@ class DeepSpeedEngine:
         dist.barrier()  # rank 0's write is in place
         state, client_sd = ckpt.load_checkpoint(load_dir, tag,
                                                 map_location="cpu" if offloaded or self._sharded or self._tp > 1
-                                                else self.device)
+                                                or self._pp > 1 else self.device)
         if state is None:
             return None, None
-        if client_sd.get("world_size", 1) != self._config.world_size:
+        saved_world = client_sd.get("world_size", 1)
+        if saved_world != self._config.world_size and \
+                saved_world // client_sd.get("pipeline_parallel_size", 1) != self._config.world_size // self._pp:
             raise _unported(f"a resume at world size {self._config.world_size} of a checkpoint saved at "
                             f"{client_sd['world_size']}", "ROADMAP Queue 1 #9, elastic controller")
         with_opt = load_optimizer_states and not load_module_only
@@ -1314,10 +1555,10 @@ class DeepSpeedEngine:
     def _in_master_order(self, state):
         """The saved optimizer state with its per-tensor lists in this
         engine's master order (a checkpoint of an offload tier lists them in
-        the model's state-dict order)."""
+        the model's state-dict order; a pipe stage takes its keys' only)."""
         saved, mine = list(state["master"]), list(self.master)
         sd = state["optimizer"]
-        if saved == mine or set(saved) != set(mine):
+        if saved == mine or not set(mine) <= set(saved):
             return sd
         where = {k: i for i, k in enumerate(saved)}
         return {name: [val[where[k]] for k in mine] if isinstance(val, list) and len(val) == len(saved) else val
@@ -1356,8 +1597,9 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _load_master(self, saved, strict):
-        if strict and set(saved) != set(self.master):
-            missing, extra = sorted(set(self.master) - set(saved)), sorted(set(saved) - set(self.master))
+        want = set(self._all_keys) if self._pp > 1 else set(self.master)
+        if strict and set(saved) != want:
+            missing, extra = sorted(want - set(saved)), sorted(set(saved) - want)
             raise RuntimeError(f"checkpoint master does not match the model: missing {missing[:5]}, "
                                f"unexpected {extra[:5]}")
         for k, v in saved.items():
@@ -1374,8 +1616,14 @@ class DeepSpeedEngine:
             sd = {k: v.detach().to(self.compute_dtype).cpu() for k, v in master.items()}
         else:  # one tensor at a time: cast, gather, to the host
             spec = self._specs["master"]
-            sd = {k: self._tp_whole(k, unshard(v.detach().to(self.compute_dtype), spec[k])).cpu()
-                  for k, v in self.master.items()}
+
+            def whole(k):
+                return self._tp_whole(k, unshard(self.master[k].detach().to(self.compute_dtype), spec[k]))
+
+            if self._pp > 1:
+                sd = self._pipe_tensors(whole, self.compute_dtype)
+            else:
+                sd = {k: whole(k).cpu() for k in self.master}
         if dist.get_rank() == 0:
             os.makedirs(save_dir, exist_ok=True)
             torch.save(sd, path)

@@ -15,8 +15,8 @@ Rules that carry over from DeepSpeed: ``stage3_param_persistence_threshold``
 (a compute tensor of at most that many elements stays whole); MoE-aware
 groups (an expert tensor shards over ``data`` only, a dense one over
 ``('expert', 'data')``); tensor-parallel rules, matched by key regex before
-the data-parallel axes are placed (the engine still refuses the tensor and
-pipe axes: ROADMAP Queue 1 #7.2 and #7.3).
+the data-parallel axes are placed; the pipe rule, :meth:`ShardingPlanner.
+pipe_stage`. The sequence axis is not ported yet (ROADMAP Queue 1 #7.4).
 
 A spec is a tuple with one entry per dim: None, an axis name, or a tuple
 of axis names (a ``PartitionSpec``'s entries). The JAX package's paths
@@ -24,7 +24,11 @@ join keys with ``/`` and stack a scanned model's layers on a leading dim;
 the port's state dict has one key per layer (``layers.{i}.…``). The rules
 are shape-driven, so a port tensor gets the spec the JAX planner gives its
 layer slice, except where the stacked dim changes which dim is largest or
-divisible: only the memory layout differs there, never a number.
+divisible: only the memory layout differs there, never a number. The JAX
+planner shards a layer stack's leading dim over ``pipe``; the port places
+each ``layers.{i}.*`` tensor whole on its owner stage instead
+(:meth:`ShardingPlanner.pipe_stage`), and its spec is the JAX spec of its
+layer slice: the data axes within the stage.
 """
 
 import math
@@ -85,13 +89,15 @@ class ShardingPlanner:
     state, the gradients and the offloaded optimizer state. ``mesh``: the
     ``comm`` mesh or a mapping of axis name to size."""
 
-    def __init__(self, mesh, zero_config=None, tp_rules=None, expert_pattern=None, pipe_pattern=None):
+    def __init__(self, mesh, zero_config=None, tp_rules=None, expert_pattern=None, pipe_pattern=None,
+                 num_layers=None):
         self.mesh_shape = _shape_of(mesh)
         self.stage = zero_config.stage if zero_config is not None else 0
         self.tp_rules = tp_rules if isinstance(tp_rules, TensorParallelRules) else \
             TensorParallelRules(tp_rules or ())
         self.expert_pattern = re.compile(expert_pattern) if expert_pattern else None
         self.pipe_pattern = re.compile(pipe_pattern) if pipe_pattern else None
+        self.num_layers = num_layers
         self.persistence_threshold = (zero_config.stage3_param_persistence_threshold
                                       if zero_config is not None else int(1e5))
 
@@ -114,19 +120,19 @@ class ShardingPlanner:
             logger.debug(f"{path_str}: shape {shape} not divisible by rule {spec}; relaxed to {entries}")
         return tuple(entries)
 
-    def _apply_pipe(self, spec, shape, path_str):
-        """A layer-stacked tensor's leading dim over ``pipe``."""
+    def pipe_stage(self, path_str):
+        """The pipe stage that holds ``path_str`` whole: a key of
+        ``pipe_pattern`` (its group the layer index) belongs to stage
+        ``i // (L / S)``, the JAX split of the stacked dim; None for a
+        tensor replicated over ``pipe`` (embed, head) or without a pipe
+        axis."""
         pipe = self.mesh_shape.get(dist.PIPE_AXIS, 1)
-        if pipe == 1 or self.pipe_pattern is None or not self.pipe_pattern.search(path_str):
-            return spec
-        if not shape or shape[0] % pipe != 0:
-            logger.warning(f"{path_str}: leading dim {shape and shape[0]} not divisible by "
-                           f"pipe={pipe}; layer stack left unsharded over pipe")
-            return spec
-        entries = list(spec)
-        if entries[0] is None:
-            entries[0] = dist.PIPE_AXIS
-        return tuple(entries)
+        match = self.pipe_pattern.search(path_str) if pipe > 1 and self.pipe_pattern is not None else None
+        if match is None:
+            return None
+        if not self.num_layers or self.num_layers % pipe != 0:
+            raise ValueError(f"{self.num_layers} layers do not split evenly over pipe={pipe}")
+        return int(match.group(1)) // (self.num_layers // pipe)
 
     def dp_axes_for(self, path_str):
         """The ZeRO group of a tensor: ``data`` for an expert, else expert x
@@ -153,8 +159,7 @@ class ShardingPlanner:
     def _base(self, path_str, shape):
         ndim = len(shape)
         spec = self.tp_rules.match(path_str, ndim) or (None, ) * ndim
-        spec = self._validate(spec, shape, path_str)
-        return self._apply_pipe(spec, shape, path_str)
+        return self._validate(spec, shape, path_str)
 
     def param_spec(self, path_str, shape):
         """Spec of a compute parameter: sharded at stage 3 above the

@@ -5,11 +5,16 @@ its own deadline):
 
 - in a world of 4 with the mesh (expert 2, data 2): all_reduce (sum, max,
   min, avg, product), all_gather (tiled on two axes, untiled), reduce_scatter,
-  all_to_all_single (its split- and concat-axis semantics), broadcast and
-  reduce on every rank against the JAX device of the same index, within
+  all_to_all_single (its split- and concat-axis semantics), broadcast,
+  reduce, ppermute (a swap, a partial permutation) and the rings
+  send_recv_next / send_recv_prev on every rank against the JAX device of
+  the same index, within
   1e-6 (the JAX product is exp(sum(log|x|)): 1e-5); the bitwise reductions,
   which JAX refuses, against numpy; host_broadcast and host_allgather; the
-  ``AllToAll`` function's gradient;
+  ``AllToAll`` function's gradient; ppermute and the rings over a group
+  whose member order is not the global ranks' (("data", "expert")), and
+  ``ppermute_autograd``'s gradient there (the inverse permutation), against
+  numpy;
 - the mesh's rank grid and each rank's groups equal JAX's device grid for
   (expert 2, data 2) and (data 4);
 - a world of one: no group, every collective returns its input;
@@ -49,6 +54,19 @@ CASES = [
     ("all_to_all_single", {"group": "expert", "split_axis": 1, "concat_axis": 0}),
     ("broadcast", {"src": 1, "group": "data"}),
     ("reduce", {"group": "expert"}),
+    ("ppermute", {"perm": [(0, 1), (1, 0)], "group": "data"}),
+    ("ppermute", {"perm": [(1, 0)], "group": "expert"}),
+    ("send_recv_next", {"group": "data"}),
+    ("send_recv_prev", {"group": "expert"}),
+]
+# point-to-point over a group whose member order is not the global ranks'
+# order: ("data", "expert") under (expert 2, data 2) orders ranks 0, 2, 1, 3
+# (JAX's ppermute takes one axis: held against numpy)
+P2P_ORDER = [0, 2, 1, 3]
+P2P_CASES = [
+    ("send_recv_next", {"group": ("data", "expert")}, [(i, (i + 1) % 4) for i in range(4)]),
+    ("send_recv_prev", {"group": ("data", "expert")}, [(i, (i - 1) % 4) for i in range(4)]),
+    ("ppermute", {"perm": [(0, 3), (3, 1), (1, 0)], "group": ("data", "expert")}, [(0, 3), (3, 1), (1, 0)]),
 ]
 MESHES = [{"expert": 2, "data": 2}, {"data": 4}]
 
@@ -90,7 +108,20 @@ def _jax_groups(shape, axes):
 
 def test_collectives_and_mesh_match_jax(tmp_path):
     xs = _inputs()
-    ranks = run_world(workers.comm_world, 4, tmp_path, xs, CASES, MESHES)
+    ranks = run_world(workers.comm_world, 4, tmp_path, xs, CASES + [c[:2] for c in P2P_CASES], MESHES)
+    for j, (name, kw, perm) in enumerate(P2P_CASES):
+        for i, r in enumerate(P2P_ORDER):  # member i is rank r
+            src = [a for a, b in perm if b == i]
+            want = xs[P2P_ORDER[src[0]]] if src else np.zeros_like(xs[r])
+            np.testing.assert_array_equal(ranks[r][len(CASES) + j], want, err_msg=f"{name} {kw} rank {r}")
+    for r, got in enumerate(ranks):
+        # ppermute_autograd's backward is the inverse permutation: each
+        # member's gradient goes back to its source (member 2 sent nothing)
+        i = P2P_ORDER.index(r)
+        dst = {0: 3, 3: 1, 1: 0}.get(i)
+        want = np.zeros((4, 8), np.float32) if dst is None else np.full((4, 8), P2P_ORDER[dst] + 1, np.float32)
+        np.testing.assert_array_equal(got["ppermute_grad"], want)
+        assert got["ppermute_one"] is True
     for i, (name, kw) in enumerate(CASES):
         want = _jax_case(name, kw, xs)
         tol = 1e-5 if kw.get("op") == "prod" else 1e-6

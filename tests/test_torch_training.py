@@ -25,7 +25,7 @@ from deepspeed_tpu.runtime.fp16.loss_scaler import DynamicLossScaler as JaxDynam
 from deepspeed_tpu.runtime.lr_schedules import get_lr_schedule as jax_get_lr_schedule
 from deepspeed_tpu_torch.models import get_model
 from deepspeed_tpu_torch.models.convert import params_from_jax
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import DynamicLossScaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.optimizers import AdamW
@@ -76,7 +76,7 @@ def test_bad_keys_raise_the_jax_error_text(keys):
     {"hybrid_engine": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
-    {"mesh": {"pipeline_parallel_size": 2}},
+    {"mesh": {"sequence_parallel_size": 2}},
 ])
 def test_sections_not_ported_raise(section):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
@@ -108,14 +108,15 @@ def test_disabled_sections_and_dtypes():
 def test_engine_refuses_what_it_does_not_run():
     model = get_model("tiny", dtype=torch.float32)
     base = {"train_batch_size": 4}
-    # ZeRO stages 1-3 and the tensor axis train (tests/test_torch_zero_ranks.py,
-    # tests/test_torch_tp_ranks.py); the pipe and sequence axes stay refused
-    for extra, err, item in (({"mesh": {"pipeline_parallel_size": 2}}, NotImplementedError, "#7.3"),
-                             ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError, "#7"),
+    # ZeRO stages 1-3, the tensor and the pipe axes train (tests/test_torch_zero_ranks.py,
+    # tests/test_torch_tp_ranks.py, tests/test_torch_pipe_ranks.py); the sequence axis stays
+    # refused, and the pipe axis needs a world it divides
+    for extra, err, item in (({"mesh": {"pipeline_parallel_size": 2}}, DeepSpeedConfigError, "tp\\*pp\\*sp = 2"),
+                             ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError, "#7.4"),
                              # offload_param requires stage 3 (the JAX engine's error text)
                              ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
                               ValueError, "stage 3"),
-                             ({"pipeline": {"stages": 2}}, NotImplementedError, "#7"),
+                             ({"pipeline": {"schedule": "zigzag"}}, ValueError, "pipeline.schedule"),
                              ({"optimizer": {"type": "OneBitAdam"}}, NotImplementedError, "#10"),
                              ({"optimizer": {"type": "OneBitLamb"}}, NotImplementedError, "#10")):
         with pytest.raises(err, match=item):

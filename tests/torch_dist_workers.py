@@ -91,6 +91,13 @@ def comm_world(rank, world, inputs, cases, meshes):
     y = dist.AllToAll.apply(xg, dist.DATA_AXIS, 0, 1)
     (y * torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape)).sum().backward()
     out["a2a_grad"] = xg.grad.numpy()
+    # ppermute_autograd over ("data", "expert") (members 0, 2, 1, 3): the
+    # gradient each member's output receives is its rank + 1
+    xg = x.clone().requires_grad_(True)
+    y = dist.ppermute_autograd(xg, [(0, 3), (3, 1), (1, 0)], ("data", "expert"))
+    (y * (dist.get_rank() + 1)).sum().backward()
+    out["ppermute_grad"] = xg.grad.numpy()
+    out["ppermute_one"] = dist.ppermute(x, [(0, 0)], "pipe") is x  # a group of one returns its input
     groups = {}
     for shape in meshes:
         mesh = dist.initialize_mesh(**shape)
@@ -461,3 +468,126 @@ def tp_ops_world(rank, world, inputs):
     except ValueError as e:
         out["odd_heads"] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+
+
+def pipe_toy_world(rank, world, w, xs):
+    """The schedules of ``runtime/pipe/schedule.py`` over a ``pipe`` group
+    of the world on a toy stack (``x = tanh(x @ w[i])``, the stage's share
+    of the layers): :func:`spmd_pipeline`'s stream, its aux sum (with aux:
+    a stage's aux is the mean of its output) and the gradients of
+    ``sum(stream ** 2) + aux`` w.r.t. the stage's layers and the stream,
+    without aux and with it; :func:`spmd_pipeline_1f1b` with the head
+    ``sum(y ** 2) / 2`` over ``loss_denom`` 2: the loss and the gradients;
+    each schedule's largest in-flight count on this stage."""
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.runtime.pipe import schedule as sch
+    dist.initialize_mesh(pipe=world)
+    s, per = dist.get_rank(dist.PIPE_AXIS), w.shape[0] // world
+    local = [torch.from_numpy(w[i]).requires_grad_(True) for i in range(s * per, (s + 1) * per)]
+    x = torch.from_numpy(xs).requires_grad_(True)
+
+    def stage_fn(ws, h, m):
+        for wi in ws:
+            h = torch.tanh(h @ wi)
+        return h
+
+    out = {"stage": s, "fill_drain": {}}
+    for with_aux in (False, True):
+        fn = (lambda ws, h, m: (lambda y: (y, y.mean()))(stage_fn(ws, h, m))) if with_aux else stage_fn
+        res = sch.spmd_pipeline(fn, local, x, with_aux=with_aux)
+        stream, aux = res if with_aux else (res, torch.zeros(()))
+        grads = torch.autograd.grad((stream ** 2).sum() + aux, local + [x])
+        out["fill_drain"][with_aux] = {"stream": stream.detach().numpy(), "aux": float(aux.detach()),
+                                       "grads": [g.numpy() for g in grads[:-1]], "dx": grads[-1].numpy()}
+    head = lambda hp, y, m: (y ** 2).sum() / 2
+    loss, sg, _, dxs = sch.spmd_pipeline_1f1b(stage_fn, head, local, [], x.detach(), loss_denom=2.0)
+    out["1f1b"] = {"loss": float(loss), "grads": [g.numpy() for g in sg], "dx": dxs.numpy()}
+    out["in_flight"] = {}
+    for name, fn in (("fill_drain", sch.fill_drain), ("1f1b", sch.one_f_one_b)):
+        st = sch._FnStage(stage_fn, local, x.detach(), dist.PIPE_AXIS, loss_head=head)
+        fn(st, xs.shape[0], (tuple(xs.shape[1:]), x.dtype, x.device))
+        out["in_flight"][name] = st.max_in_flight
+    return out
+
+
+def pipe_run(name, tree, config, batch, steps, model_kw=None, mesh=None, ckpt=None, eval_rows=None,
+             capture=False, save16=None):
+    """``steps`` of ``train_batch`` on the global ``batch`` under
+    ``config``: the losses, the grad norms, this rank's master tensors
+    (``own``: a pipe stage holds its layers and the replicated tensors),
+    its pipe stage, each step's schedule and largest in-flight count, with
+    ``eval_rows`` the ``eval_batch`` loss of those rows, with ``capture``
+    the first step's gradients summed over the data-parallel ranks (before
+    the unscale and the clip). ``ckpt``: (directory, "save" or "load"), as
+    :func:`zero_run`; ``save16``: a directory for ``save_16bit_model``
+    after the steps."""
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    if mesh is not None:
+        dist.initialize_mesh(**mesh)
+    model = get_model(name, dtype=torch.float32, attention_impl="flash", **(model_kw or {}))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, model_parameters=params_from_jax(tree, model.cfg),
+                                                config=dict(config), device="cpu")
+    out = {"stage": engine._stage, "pipe": [], "grads": None}
+    if capture:
+        reduce = engine._reduce_grads
+
+        def grab(grads, loss):
+            loss = reduce(grads, loss)
+            if out["grads"] is None:
+                out["grads"] = {k: g.numpy().copy() for k, g in zip(engine.master, grads)}
+            return loss
+
+        engine._reduce_grads = grab
+    if ckpt is not None and ckpt[1] == "load":
+        engine.load_checkpoint(ckpt[0])
+        out["loaded"] = {k: v.detach().numpy().copy() for k, v in engine.master.items()}
+    out["losses"], out["norms"] = [], []
+    for _ in range(steps):
+        out["losses"].append(float(engine.train_batch(batch=batch)))
+        out["norms"].append(float(engine._last_metrics["grad_norm"]))
+        out["pipe"].append(getattr(engine, "last_pipe", None))
+    if ckpt is not None and ckpt[1] == "save":
+        engine.save_checkpoint(ckpt[0])
+    out["own"] = {k: v.detach().numpy().copy() for k, v in engine.master.items()}
+    if save16 is not None:
+        engine.save_16bit_model(save16)
+    if eval_rows is not None:
+        out["eval"] = float(engine.eval_batch({k: v[:eval_rows] for k, v in batch.items()}))
+    return out
+
+
+def pipe_refusals(name, tree, batch, cases):
+    """Each ``(config, model_kw)`` of ``cases``: the message of the error
+    ``initialize`` or the facade raises (None: neither did)."""
+    out = []
+    for config, model_kw in cases:
+        try:
+            import deepspeed_tpu_torch
+            from deepspeed_tpu_torch.models import get_model
+            model = get_model(name, dtype=torch.float32, attention_impl="flash", **model_kw)
+            engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(config), device="cpu")
+            engine.forward({k: v[:engine.train_micro_batch_size_per_gpu()] for k, v in batch.items()})
+            out.append(None)
+        except (ValueError, NotImplementedError, RuntimeError) as e:
+            out.append(f"{type(e).__name__}: {e}")
+    return out
+
+
+def pipe_world(rank, world, trees, batches, cases, refusals=()):
+    """:func:`pipe_run` for each case of ``cases`` (a dict of its keyword
+    arguments, ``tree`` and ``batch`` naming entries of ``trees`` and
+    ``batches``), in order; then :func:`pipe_refusals` of ``refusals``."""
+    runs = []
+    for case in cases:
+        kw = dict(case)
+        runs.append(pipe_run(kw.pop("name"), trees[kw.pop("tree")], kw.pop("config"), batches[kw.pop("batch")],
+                             **kw))
+    return {"runs": runs, "refusals": pipe_refusals("tiny", trees["tiny"], batches["plain"], refusals)
+            if refusals else []}
