@@ -154,19 +154,19 @@ Phases (any failure ends the run with a non-zero exit):
    drop fractions;
 8b. the training engine's features (``train_features_phase``; ``python3
    chip_smoke.py --train-features`` runs it alone): gpt2-large at full
-   width and depth, bench.py's config, through ``initialize`` ->
+   width, 18 of 36 layers (``FEATURE_LAYERS``), bench.py's config, through ``initialize`` ->
    ``train_batch`` under no remat, ``nothing_saveable``, ``dots_saveable``
    and ``dots_and_attn_saveable``: the first step's loss and grad norm
    against no remat (bitwise, or within ``PARITY_LOSS_REL`` /
    ``PARITY_NORM_REL``, the log says which), exact launch counts (flash
    forward twice a layer and step under the first two policies, once
    otherwise; dq and dk/dv once), the peak device memory (``nothing_saveable``
-   must be below no remat) and the median of 5 steps after 2, with a
+   must be below no remat) and the median of 3 steps after 1, with a
    profile of one step; dropout 0.1 under ``nothing_saveable``: two engines
    from one seed bitwise over 3 steps, the first step's grad norm with
    remat off against on, the counter-hash mask on the card bitwise the
    CPU's at (4, 1024, 1280); Adam (``adam_w_mode`` false), Adagrad, LAMB,
-   SGD, Lion and a client ``torch.optim.AdamW``: 3 steps at 4 layers (fp32,
+   SGD, Lion and a client ``torch.optim.AdamW``: 2 steps at 4 layers (fp32,
    the plain attention) on the card against the CPU within
    ``OPT_LOSS_REL`` / ``OPT_UPDATE_REL``; checkpoints: 2 steps, a sync and
    an async save, each loaded into a fresh engine whose next 2 steps are
@@ -183,9 +183,9 @@ Phases (any failure ends the run with a non-zero exit):
    launches, the peak device memory, the host GiB and the step split
    (device forward and backward, fetch, host AdamW, push); (b) its NVMe
    tier (``offload_optimizer: nvme`` under a temporary directory, or
-   ``$CHIP_SMOKE_NVME_DIR``; the depth cut, and the cut logged, only where
-   the disk cannot hold master and moments), 2 steps whose masters are
-   bitwise (a)'s, with the bytes read and written through ``O_DIRECT`` and
+   ``$CHIP_SMOKE_NVME_DIR``; at ``NVME_LAYERS`` of 36 layers, fewer where
+   the disk cannot hold master and moments, the cut logged), 2 steps whose
+   masters are bitwise the CPU tier's at that depth, with the bytes read and written through ``O_DIRECT`` and
    buffered; (c) ZeRO-Infinity, llama3-8b at full width with ``stage: 3,
    offload_param: cpu``, seq 2048: at 2 layers the streamed step's loss and
    grad norm against the on-device engine's on the same weights, then at
@@ -230,12 +230,12 @@ Phases (any failure ends the run with a non-zero exit):
    leave the grad-norm gate at the first step; step and sync times of two processes sharing one card are
    logged and are no tensor-parallel speed;
 8f. pipeline parallelism (``pipe_phase``; ``python3 chip_smoke.py --pipe``
-   runs it alone): gpt2-large at full width and depth (18 layers a stage),
+   runs it alone): gpt2-large at full width, 18 of 36 layers (9 a stage),
    seeded weights made on the card, bench.py's config at gas 4 (M = 4 over
    S = 2); pp 1 in this process, then pp 2 as two spawned processes
    sharing the card over a gloo group (``pipe_gloo_check``: one exchange
    each way and a partial ``ppermute`` on CUDA tensors, bf16 and fp32,
-   staged through host memory); under fill-drain and 1F1B, 3 steps each on
+   staged through host memory); under fill-drain and 1F1B, 2 steps each on
    the same weights and batches: losses and grad norms within
    ``PIPE_LOSS_REL`` / ``PIPE_NORM_REL`` of pp 1's, 1F1B bitwise
    fill-drain, the replicated tensors bitwise across the ranks after each
@@ -246,6 +246,29 @@ Phases (any failure ends the run with a non-zero exit):
    microbatch's activation gradient dropped) must leave the grad-norm gate
    at the first step; peak GiB a rank and step times (no pipeline speed)
    logged;
+8g. sequence parallelism (``seq_phase``; ``python3 chip_smoke.py --seq``
+   runs it alone): llama3-8b at full width, 2 layers, bf16, AdamW, micro 1,
+   seq 8192, seeded weights made on the card; sp 1 in this process, then
+   sp 2 as two spawned processes sharing the card over a gloo group
+   (``seq_gloo_check``: the all-to-all over ``seq``, point to point and
+   staged through host memory, and a ring ``ppermute`` on CUDA tensors),
+   under Ulysses and ring zig-zag: the first micro-step's attention weight
+   gradients within ``SEQ_GRAD_REL`` relative L2 of sp 1's, 2 steps on
+   two batches with losses and grad norms within ``SEQ_LOSS_REL`` /
+   ``SEQ_NORM_REL`` of sp 1's and equal on the two ranks, exact flash
+   forward, dq and dk/dv launches a rank (the ring's two steps a layer each
+   run again by its checkpoint), peak GiB a rank; three planted faults
+   must leave their gates: the ring's causal keep dropped and the Ulysses
+   all-to-all's member order reversed the gradient gate, the seq gradient
+   sum left out of the engine's reduction (one ``train_batch`` step on a
+   fresh engine) the first step's grad norm gate; the int8 stream at the
+   serving defaults (the fused decode block on) with seq-parallel prefill
+   (128-column wide chunks split over the ranks, per projection at sp 1
+   and sp 2) bitwise sp 1's, tokens and logits, launches equal; the kernel
+   phase holds the flash kernels at the seq phase's causal shapes (sp 1, a
+   Ulysses rank, the zig-zag diagonal) and at the ring's non-causal
+   rectangular steps (forward, and the backward with an lse cotangent),
+   and the span kernel at a seq rank's 64 columns;
 9. block-sparse attention, the main path of its three kernels: at
    gpt2-large's attention widths (B 2, H 20, T 4096, D 64), block 64, bf16,
    ``SparseSelfAttention`` forward and ``.backward()`` for each non-dense
@@ -601,17 +624,23 @@ BWD_SHAPES = ((4, 20, 20, 1024, 64), (1, 32, 8, 2048, 128))
 # llama3-8b on one rank of tensor parallelism 2 (16 of 32 heads, 4 of 8 kv
 # heads): tp_phase's generate() prefill (B 4, prompt 128) and training (seq 2048)
 TP_FLASH_SHAPES = ((4, 16, 4, 128, 128), (1, 16, 4, 2048, 128))
+# llama3-8b at seq 8192 in seq_phase: sp 1 (B 1, H 32/8, T 8192), a Ulysses
+# rank at sp 2 (its 16 of 32 heads, 4 of 8 kv heads, the whole sequence) and
+# the ring zig-zag's causal diagonal step (a rank's two chunks, T 4096)
+SEQ_FLASH_SHAPES = ((1, 32, 8, 8192, 128), (1, 16, 4, 8192, 128), (1, 32, 8, 4096, 128))
 
 
 def flash_cases(torch, gen, dev):
     """The serving paths' prefill, gpt2-large (B=8, H=20, T=128, D=64) and a
     llama3-8b shape (H=32, Hkv=8, T=512, D=128), and the training paths'
     shapes (``BWD_SHAPES``), where the online softmax spans 16 to 32 KV
-    tiles."""
+    tiles, tp 2 ranks' (``TP_FLASH_SHAPES``) and the seq phase's
+    (``SEQ_FLASH_SHAPES``), up to 128 KV tiles a row."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain, \
         flash_attention_with_lse
-    for B, H, Hkv, T, D in ((8, 20, 20, 128, 64), (4, 32, 8, 512, 128)) + BWD_SHAPES + TP_FLASH_SHAPES:
+    for B, H, Hkv, T, D in ((8, 20, 20, 128, 64), (4, 32, 8, 512, 128)) + BWD_SHAPES + TP_FLASH_SHAPES \
+            + SEQ_FLASH_SHAPES:
         q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((B, Hkv, T, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -647,15 +676,16 @@ def _fwd_bwd(torch, fn, q, k, v, do):
 
 def bwd_cases(torch, gen, dev, which):
     """Flash backward kernel ``which`` ("dq" or "dkv") at the training
-    shapes. Plain: the whole plain backward (it computes dq, dk and dv
-    together). Library: scaled_dot_product_attention forward + backward;
-    ``port_fwd_bwd_ms`` is the port's forward + backward kernels through
-    autograd, the like-for-like yardstick of it."""
+    shapes (``BWD_SHAPES``, ``SEQ_FLASH_SHAPES``). Plain: the whole plain
+    backward (it computes dq, dk and dv together). Library:
+    scaled_dot_product_attention forward + backward; ``port_fwd_bwd_ms`` is
+    the port's forward + backward kernels through autograd, the
+    like-for-like yardstick of it."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.flash_attention import (_group_sum, flash_attention,
                                                          flash_attention_bwd_plain, flash_bwd_dkv,
                                                          flash_bwd_dq)
-    for B, H, Hkv, T, D in BWD_SHAPES:
+    for B, H, Hkv, T, D in BWD_SHAPES + SEQ_FLASH_SHAPES:
         q, k, v, do, out, lse, delta = _bwd_inputs(torch, gen, dev, B, H, Hkv, T, D)
         pairs = B * H * T * (T + 1) // 2  # causal (query, key) pairs, per query head
         in_bytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * B * H * T * 4
@@ -684,6 +714,64 @@ def dq_cases(torch, gen, dev):
 
 def dkv_cases(torch, gen, dev):
     return bwd_cases(torch, gen, dev, "dkv")
+
+
+# ring attention's off-diagonal steps at llama3-8b, seq 8192 over sp 2
+# (zig-zag chunks of c = 2048): from a rank behind, q 2c x kv c; from a rank
+# ahead, q c x kv 2c; non-causal
+RING_SHAPES = ((1, 32, 8, 4096, 2048, 128), (1, 32, 8, 2048, 4096, 128))
+
+
+def ring_flash_cases(torch, gen, dev):
+    """The flash forward at the ring's non-causal rectangular shapes."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_plain, flash_attention_with_lse
+    for B, H, Hkv, T, Tk, D in RING_SHAPES:
+        q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, Hkv, Tk, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, Hkv, Tk, D), generator=gen, device=dev).to(torch.bfloat16)
+        pairs = B * H * T * Tk
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * H * T * 4
+        yield (f"full B={B} H={H} Hkv={Hkv} T={T} Tk={Tk} D={D}",
+               lambda q=q, k=k, v=v: flash_attention_with_lse(q, k, v, causal=False),
+               lambda q=q, k=k, v=v: flash_attention_plain(q, k, v, causal=False),
+               lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+               nbytes, 4 * D * pairs)
+
+
+def ring_bwd_cases(torch, gen, dev, which):
+    """The backward kernel ``which`` at the ring's shapes, on the plain
+    forward's residuals, with a random lse cotangent (the ring's merge
+    passes one back) folded into delta."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import (_group_sum, flash_attention, flash_attention_bwd_plain,
+                                                         flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
+    for B, H, Hkv, T, Tk, D in RING_SHAPES:
+        q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, Hkv, Tk, D), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((B, Hkv, Tk, D), generator=gen, device=dev).to(torch.bfloat16)
+        do = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        g_lse = torch.randn((B, H, T), generator=gen, device=dev)
+        out, lse = flash_attention_plain(q, k, v, causal=False)
+        delta = (do.float() * out.float()).sum(-1) - g_lse
+        pairs = B * H * T * Tk
+        in_bytes = (2 * q.numel() + 2 * k.numel()) * 2 + 2 * B * H * T * 4
+        args = (q, k, v, out, lse, do)
+        if which == "dq":
+            kern = lambda q=q, k=k, v=v, do=do, lse=lse, d=delta: flash_bwd_dq(q, k, v, do, lse, d, causal=False)
+            plain = lambda a=args, g=g_lse: flash_attention_bwd_plain(*a, causal=False, g_lse=g)[0]
+            nbytes, flops = in_bytes + q.numel() * 2, 6 * D * pairs
+        else:
+            kern = lambda q=q, k=k, v=v, do=do, lse=lse, d=delta, n=Hkv: tuple(
+                _group_sum(x, n) for x in flash_bwd_dkv(q, k, v, do, lse, d, causal=False))
+            plain = lambda a=args, g=g_lse: flash_attention_bwd_plain(*a, causal=False, g_lse=g)[1:]
+            nbytes, flops = in_bytes + 2 * k.numel() * 2, 8 * D * pairs
+        library = lambda q=q, k=k, v=v, do=do: _fwd_bwd(
+            torch, lambda a, b, c: F.scaled_dot_product_attention(a, b, c, enable_gqa=True), q, k, v, do)
+        port = lambda q=q, k=k, v=v, do=do: _fwd_bwd(
+            torch, lambda a, b, c: flash_attention(a, b, c, causal=False), q, k, v, do)
+        yield (f"full B={B} H={H} Hkv={Hkv} T={T} Tk={Tk} D={D}, lse cotangent", kern, plain, library, nbytes,
+               flops, {"port_fwd_bwd_ms": port})
 
 
 def decode_cases(torch, gen, dev):
@@ -881,7 +969,7 @@ def _flash_plain_keep(torch, q, k, v, keep):
 def flash_planted_faults(torch, dev):
     """The flash forward's row gate against two faults of its K/V walk,
     planted through the plain version at the training shapes (``BWD_SHAPES``,
-    the longest rows of the main path); either passing the gate ends the run:
+    up to T 2048); either passing the gate ends the run:
     1. one 128-key tile (keys 256..383) skipped by the rows of the second
        half, as a walk that lost a ring slot would;
     2. the ring off by one stage: tile j's V paired with tile j - 1's K
@@ -1071,10 +1159,15 @@ PAGED_SHAPES = [("gpt2-large", 8, 20, 20, 512, 64), ("llama3-8b", 4, 32, 8, 512,
 # the llama3-8b pool on one rank of tensor parallelism 2 (16 q and 4 kv heads),
 # bf16 and int8 KV
 PAGED_TP2 = ("llama3-8b tp 2 rank", 4, 16, 4, 512, 128)
+# the seq-parallel prefill on one rank of seq 2 (seq_phase's stream: 4 slots
+# of 1024, a 128-column wide chunk split in two): rank 1's 64 columns of a
+# 768-token prompt's chunk at 640, beside three rows carried at T = 64
+PAGED_SEQ2 = ("llama3-8b seq 2 rank", 4, 32, 8, 1024, 128)
 PAGED_ENDS = {"gpt2-large": [300, 0, 129, 511, 64, 0, 257, 400], "llama3-8b": [130, 290, 511, 64],
               "llama3-8b long": [4096, 1023, 2600, 3001], "llama3-8b tp 2 rank": [130, 290, 511, 64]}
 SPAN_BASES = {"gpt2-large": [128, 300, 17, 440, 200, 64, 380, 240], "llama3-8b": [128, 0, 300, 440],
-              "llama3-8b long": [4000, 480, 1500, 3000], "llama3-8b tp 2 rank": [128, 0, 300, 440]}
+              "llama3-8b long": [4000, 480, 1500, 3000], "llama3-8b tp 2 rank": [128, 0, 300, 440],
+              "llama3-8b seq 2 rank": [704, 310, 45, 0]}
 
 
 def _paged_bytes(torch, q, nkv, D, windows, int8):
@@ -1123,7 +1216,7 @@ def paged_span_cases(torch, gen, dev, int8):
     from deepspeed_tpu_torch.ops.decode_attention import (paged_span_attention,
                                                           paged_span_attention_plain)
     T = 64
-    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3] + [PAGED_TP2]:
+    for label, B, H, nkv, S, D in PAGED_SHAPES[:1 if int8 else 3] + [PAGED_TP2] + ([] if int8 else [PAGED_SEQ2]):
         q = torch.randn((B, H, T, D), generator=gen, device=dev).to(torch.bfloat16)
         kc, vc, sc, (kd, vd) = _paged_kv(torch, gen, dev, B, nkv, S, D, int8)
         base = torch.tensor(SPAN_BASES[label], dtype=torch.int32, device=dev)
@@ -1520,6 +1613,14 @@ KERNELS = [
      "deepspeed_tpu/ops/pallas/flash_attention.py:298", dq_cases, "call"),
     ("flash_bwd_dkv", "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
      "deepspeed_tpu/ops/pallas/flash_attention.py:315", dkv_cases, "call"),
+    # the same three kernels at ring attention's non-causal rectangular steps
+    # (the backward with an lse cotangent); their launches come from the seq phase
+    ("flash_attention_ring", "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+     "deepspeed_tpu/ops/pallas/flash_attention.py:236", ring_flash_cases, "call"),
+    ("flash_bwd_dq_ring", "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+     "deepspeed_tpu/ops/pallas/flash_attention.py:298", lambda t, g, d: ring_bwd_cases(t, g, d, "dq"), "call"),
+    ("flash_bwd_dkv_ring", "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+     "deepspeed_tpu/ops/pallas/flash_attention.py:315", lambda t, g, d: ring_bwd_cases(t, g, d, "dkv"), "call"),
     # the paged, span and int8-KV modes of _decode_kernel (one CUDA kernel)
     ("paged_decode_attention", "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
      "deepspeed_tpu/ops/pallas/decode_attention.py:198",
@@ -1571,7 +1672,8 @@ KERNELS = [
 # against cuBLAS fp32)
 MICRO_TOL = {"qmm2": 2.0**-16, "qmm3": 2.0**-16, "qmm4": 0.0}
 # kernels whose two calls on the same inputs must agree bit for bit
-DETERMINISTIC = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
+DETERMINISTIC = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "flash_attention_ring", "flash_bwd_dq_ring",
+                 "flash_bwd_dkv_ring", "block_sparse_fwd",
                  "block_sparse_bwd_dq", "block_sparse_bwd_dkv", "qmm2", "qmm3", "qmm4")
 # kernels whose fp32 output (the lse) holds -inf where a row attends nothing:
 # there the kernel must give -inf too, and the finite entries are compared
@@ -1600,6 +1702,7 @@ DECODE_REL_L2 = 2.0**-11
 # long row that lost one 128-key tile or read a stale ring slot.
 # ``flash_planted_faults`` plants both and requires this gate to catch them.
 FLASH_ROW_REL_L2 = 2.0**-6
+FLASH_FWD_ROWS = ("flash_attention", "flash_attention_ring")
 # the flash backward's output rows (one (b, h, q row) of dq; one (b, kv
 # head, kv row) of dk and dv) are held to a relative L2 error too, for the
 # same reason: max|plain| is set by the first causal rows, so a long row
@@ -1617,7 +1720,7 @@ FLASH_ROW_REL_L2 = 2.0**-6
 FLASH_BWD_ROW_REL_L2 = 2.0**-6
 FLASH_BWD_ROW_FLOOR = 2.0**-4
 FLASH_BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
-ROW_GATED_BWD = FLASH_BWD_KERNELS + ("block_sparse_bwd_dq", )
+ROW_GATED_BWD = FLASH_BWD_KERNELS + ("flash_bwd_dq_ring", "flash_bwd_dkv_ring", "block_sparse_bwd_dq")
 
 
 def kernel_phase(torch, dev):
@@ -1663,14 +1766,14 @@ def kernel_phase(torch, dev):
                     check(rel <= SPARSE_REL_L2,
                           f"{name} [{label}] output {i}: rel L2 err {rel:.3e} > {SPARSE_REL_L2:g}")
                     case_rel = rel if case_rel is None else max(case_rel, rel)
-                if name == "flash_attention" and o.dtype != torch.float32:
+                if name in FLASH_FWD_ROWS and o.dtype != torch.float32:
                     row_rel = _row_rel_l2(torch, o, r)
                     check(row_rel <= FLASH_ROW_REL_L2, f"{name} [{label}]: a row's rel L2 err "
                           f"{row_rel:.3e} > {FLASH_ROW_REL_L2:g}")
                     extra_rec["row_rel_l2_err"] = row_rel
                 if name in ROW_GATED_BWD:
                     row_rel = _bwd_row_rel_l2(torch, o, r)
-                    tag = ("dk", "dv")[i] if name == "flash_bwd_dkv" else "dq"
+                    tag = ("dk", "dv")[i] if name.startswith("flash_bwd_dkv") else "dq"
                     log(f"  {name} [{label}] {tag}: row rel L2 {row_rel:.3e} (gate {FLASH_BWD_ROW_REL_L2:g}; "
                         f"without the floor {_row_rel_l2(torch, o, r):.3e})")
                     check(row_rel <= FLASH_BWD_ROW_REL_L2, f"{name} [{label}] {tag}: a row's rel L2 err "
@@ -1915,11 +2018,13 @@ def steady_step(torch, eng, prompts, what, card):
     return step_s
 
 
-def gpt2_large_phase(torch, card, fused):
+def gpt2_large_phase(torch, card, fused, params=None):
     """gpt2-large at full width and depth, int8, kernel injection. ``fused``:
     the default config (decode steps through the fused decode layer), the
     main path, then the serving phase on the same engine; else
-    ``fused_decode_block: False`` (the per-projection path). Returns (launch
+    ``fused_decode_block: False`` (the per-projection path). ``params``: an
+    int8 tree to serve (the fused engine's), else random weights from seed
+    0 quantized on the host. Returns (launch
     counts of the greedy run, greedy rows, the serving phase's (mixed
     stream, int8 KV leg) launch counts or None, the engine's int8 weights
     for the gateway phase or None)."""
@@ -1932,9 +2037,9 @@ def gpt2_large_phase(torch, card, fused):
     config = dict(SERVE_CONFIG) if fused else {"dtype": "int8", "kernel_inject": True,
                                                "max_out_tokens": 512, "fused_decode_block": False}
     t0 = time.perf_counter()
-    eng = deepspeed_tpu_torch.init_inference("gpt2-large", config=config)
-    log(f"{what} int8 engine built in {time.perf_counter() - t0:.1f} s "
-        f"(random weights, seed 0; host-side quantize)")
+    eng = deepspeed_tpu_torch.init_inference("gpt2-large", config=config, params=params)
+    src = "the fused engine's int8 tree" if params is not None else "random weights, seed 0; host-side quantize"
+    log(f"{what} int8 engine built in {time.perf_counter() - t0:.1f} s ({src})")
     check(bool(eng._fused_decode_eligible()) == fused,
           f"{what}: fused decode gate {eng._fused_decode_eligible()!r}")
     vocab = eng.model_config.vocab_size
@@ -2063,15 +2168,19 @@ def llama_phase(torch, card=None):
     (``kv_extent_leg``) on the same engine."""
     import numpy as np
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import get_model
-    B, P, NEW, L = 4, 128, 32, 2
+    B, P, NEW = 4, 128, 32
     t0 = time.perf_counter()
+    # the int8 tree made on the card (TP_MODEL at TP_LAYERS: llama3-8b, 2
+    # layers), in the tp 1 engine's fused-qkv layout: a host-side init and
+    # quantize of its 128256-row head took ~26 s
+    model, tree = tp_int8_tree(torch, torch.device("cuda"))
     eng = deepspeed_tpu_torch.init_inference(
-        get_model("llama3-8b", num_layers=L),
-        config={"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512,
-                "continuous_batching": {"enabled": True, "num_slots": 4}})
-    log(f"llama3-8b (full width, depth cut to {L} of 32 layers to keep set-up short) int8 engine "
-        f"built in {time.perf_counter() - t0:.1f} s")
+        model, config={"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512,
+                       "continuous_batching": {"enabled": True, "num_slots": 4}},
+        params=fuse_qkv(torch, tree, model.cfg.num_layers))
+    del tree
+    log(f"llama3-8b (full width, depth cut to {model.cfg.num_layers} of 32 layers to keep set-up short) int8 "
+        f"engine built in {time.perf_counter() - t0:.1f} s (seeded weights made on the card)")
     check(bool(eng._fused_decode_eligible()), f"llama3-8b: fused gate {eng._fused_decode_eligible()!r}")
     vocab = eng.model_config.vocab_size
     prompts = np.random.default_rng(SEED + 1).integers(0, vocab, (B, P)).astype(np.int32)
@@ -4825,7 +4934,8 @@ def tp_phase(torch, card, dev):
 # ---------------------------------------------------------------------------
 # phase 8f: pipeline parallelism 2, two ranks sharing the card over gloo
 
-# gpt2-large at full width and depth (36 layers, 18 a stage), bench.py's
+# gpt2-large at full width, 18 of its 36 layers (9 a stage: the depth cut so
+# that the whole run stays inside its time limit), bench.py's
 # training config with gas 4: M = 4 microbatches over S = 2 stages. pp 1 in
 # this process, pp 2 as two processes meeting through a file store in a gloo
 # group (NCCL refuses two ranks on one card); gloo's point-to-point ops take
@@ -4833,7 +4943,7 @@ def tp_phase(torch, card, dev):
 # gradients through host memory there (``pipe_gloo_check``). The kernels run
 # on the card in both ranks. Step times of two processes sharing one card
 # are no pipeline speed: logged, never claimed.
-PIPE_MODEL, PIPE_DEGREE, PIPE_GAS, PIPE_STEPS, PIPE_SEQ = "gpt2-large", 2, 4, 3, 1024
+PIPE_MODEL, PIPE_LAYERS, PIPE_DEGREE, PIPE_GAS, PIPE_STEPS, PIPE_SEQ = "gpt2-large", 18, 2, 4, 2, 1024
 PIPE_SCHEDULES = ("fill_drain", "1f1b")
 # bf16: pp 2 sums a replicated tensor's gradient parts (the tied table's
 # lookup on stage 0, its head on stage 1) in fp32 over pipe where pp 1 sums
@@ -4879,7 +4989,8 @@ def _pipe_engine(torch, dev, pp, schedule=None, seed=SEED):
     stage's layers and the replicated tensors of the whole tree)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import get_model
-    model = get_model(PIPE_MODEL, attention_impl="flash", remat_policy=None, scan_layers=False)
+    model = get_model(PIPE_MODEL, num_layers=PIPE_LAYERS, attention_impl="flash", remat_policy=None,
+                      scan_layers=False)
     config = {**TRAIN_CONFIG, "gradient_accumulation_steps": PIPE_GAS}
     if pp > 1:
         config.update(mesh={"pipeline_parallel_size": pp}, pipeline={"schedule": schedule})
@@ -5032,7 +5143,7 @@ def _rel(a, b):
 
 
 def pipe_phase(torch, card, dev):
-    """gpt2-large at full depth, bf16, gas 4: pp 1 in this process against
+    """gpt2-large at full width, ``PIPE_LAYERS`` layers, bf16, gas 4: pp 1 in this process against
     pp 2 as two ranks sharing the card (``_pipe_rank``): under fill-drain and
     1F1B, 3 steps on the same weights and batches, losses and grad norms
     within ``PIPE_LOSS_REL`` / ``PIPE_NORM_REL`` of pp 1's, 1F1B bitwise
@@ -5047,7 +5158,7 @@ def pipe_phase(torch, card, dev):
     import shutil
     import tempfile
     import torch.multiprocessing as mp
-    log(f"pipe: {PIPE_MODEL} at full width and depth, bf16, micro {TRAIN_CONFIG['train_micro_batch_size_per_gpu']} "
+    log(f"pipe: {PIPE_MODEL} at full width, {PIPE_LAYERS} of 36 layers, bf16, micro {TRAIN_CONFIG['train_micro_batch_size_per_gpu']} "
         f"x gas {PIPE_GAS}, seq {PIPE_SEQ}; pp 1 in this process, pp {PIPE_DEGREE} as two processes sharing the "
         f"card over a gloo group ({card})")
     engine = _pipe_engine(torch, dev, 1)
@@ -5149,22 +5260,379 @@ def pipe_phase(torch, card, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8g: sequence parallelism 2, two ranks sharing the card over gloo
+
+# llama3-8b at full width, 2 of 32 layers, bf16, AdamW, micro 1, seq 8192:
+# sp 1 in this process, sp 2 as two processes meeting through a file store
+# in a gloo group (NCCL refuses two ranks on one card). Both hold the whole
+# model and optimizer state (seq ranks are replicas; there is no data axis
+# to shard over); the all-to-alls and the ring's exchanges stage through
+# host memory on gloo. Step times of two processes sharing one card are no
+# sequence-parallel speed: logged, never claimed.
+SEQ_DEGREE, SEQ_STEPS, SEQ_LEN = 2, 2, 8192  # the model: TP_MODEL at TP_LAYERS
+SEQ_IMPLS = ("ulysses", "ring")
+SEQ_TIMEOUT_S = 600
+# bf16: sp 2 runs each projection on half the rows (other GEMM tilings) and
+# sums the weight gradients' two halves in fp32 over seq; the ring merges
+# its steps' partial softmaxes in fp32. Losses and grad norms are held
+# within these of sp 1's, and each layer's attention weight gradients (the
+# first micro-step, before any update) within SEQ_GRAD_REL relative L2: a
+# planted fault of the sequence split must leave that gate
+SEQ_LOSS_REL, SEQ_NORM_REL, SEQ_GRAD_REL = 2e-3, 2e-2, 5e-2
+SEQ_PROBE_KEYS = tuple(f"layers.{i}.attn.{p}_proj.kernel" for i in range(TP_LAYERS) for p in "qkvo")
+# the seq-parallel prefill: int8 weights at the serving defaults (the fused
+# decode block serves the decode rows and base chunks; the wide chunks of
+# seq_parallel_degree x prefill_chunk columns go per projection at sp 1 and
+# sp 2 alike)
+SEQ_SERVE_CONFIG = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 1024}
+SEQ_SERVE_SCHED = {"num_slots": 4, "max_len": 1024, "prefill_chunk": 64, "steps_per_sync": 4,
+                   "collect_logits": True, "seq_parallel_min_tokens": 256, "seq_parallel_degree": SEQ_DEGREE}
+SEQ_SERVE_NEW = 16
+SEQ_SERVE_PROMPTS = (768, 300, 40)  # two prompts at or above seq_parallel_min_tokens, one below
+
+
+def _seq_faults():
+    """The planted faults: (name, the implementation it runs under, "probe"
+    (one ``seq_probe``, its attention gradients against sp 1's) or "step"
+    (one ``train_batch`` step on a fresh engine, its grad norm against sp
+    1's first step), a context that plants it)."""
+    import contextlib
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.comm import comm as comm_mod
+    from deepspeed_tpu_torch.ops import ring_attention as ra
+
+    @contextlib.contextmanager
+    def patched(obj, attr, value):
+        saved = getattr(obj, attr)
+        setattr(obj, attr, value)
+        try:
+            yield
+        finally:
+            setattr(obj, attr, saved)
+
+    raw = comm_mod._all_to_all_raw
+
+    def reversed_members(tensor, pg, n, split_axis, concat_axis, tiled, group=None):
+        import torch
+        out = raw(tensor, pg, n, split_axis, concat_axis, tiled, group)
+        return torch.cat(list(reversed(out.chunk(n, dim=concat_axis))), dim=concat_axis)
+
+    return (("the ring's causal keep dropped (a wrapped future chunk merged)", "ring", "probe",
+             lambda engine: patched(ra, "_sees_past", lambda idx, step: True)),
+            # the engine's own reduction in the step (``_reduce_grads``) over
+            # the data axes only: a group of one at dp 1
+            ("the seq gradient sum left out", "ulysses", "step",
+             lambda engine: patched(engine, "_grad_axes", dist.DP_AXES)),
+            ("the Ulysses all-to-all member order reversed", "ulysses", "probe",
+             lambda engine: patched(comm_mod, "_all_to_all_raw", reversed_members)))
+
+
+def seq_gloo_check(torch, dev):
+    """The seq axis's exchanges once each on ``dev`` tensors in the gloo
+    group: the all-to-all (staged through host memory, logged) and a ring
+    ``ppermute``, every result where the inputs say."""
+    import deepspeed_tpu_torch.comm as dist
+    r, n = dist.get_rank(dist.SEQ_AXIS), dist.get_world_size(dist.SEQ_AXIS)
+    cl = dist.configure(enabled=True)
+    x = (torch.arange(4 * n, device=dev) + 100 * r).to(torch.bfloat16).reshape(1, n, 4)
+    got = dist.all_to_all_single(x, dist.SEQ_AXIS, 1, 2)
+    want = torch.cat([(torch.arange(4 * n, device=dev) + 100 * i).reshape(1, n, 4)[:, r:r + 1]
+                      for i in range(n)], dim=2).to(torch.bfloat16)
+    check(got.device == x.device and torch.equal(got, want), f"seq gloo all_to_all: {got.tolist()}")
+    ring = dist.ppermute(x, [(i, (i + 1) % n) for i in range(n)], dist.SEQ_AXIS)
+    prev = (torch.arange(4 * n, device=dev) + 100 * ((r - 1) % n)).to(torch.bfloat16).reshape(1, n, 4)
+    check(torch.equal(ring, prev), "seq gloo ppermute")
+    staged = sum(c for sizes in cl.comms_dict.get("all_to_all_host_staged", {}).values() for c in sizes.values())
+    dist.configure(enabled=False)
+    check(staged == 1, f"seq gloo: {staged} host-staged all-to-alls logged, expected 1")
+    return f"all_to_all and ppermute over seq on {x.device.type} tensors: ok, the all-to-all staged through host"
+
+
+def _seq_batches(vocab):
+    """One batch a step, and the probe's first: on one repeated batch the
+    loss falls to ~1e-2 by the third step, where a relative gate reads
+    rounding."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    return [{"input_ids": rng.integers(0, vocab, (1, SEQ_LEN))} for _ in range(SEQ_STEPS)]
+
+
+def seq_probe(torch, engine, batch, ref_dir=None):
+    """One micro-step before any update: the loss and the attention weight
+    gradients, summed over the engine's loss and gradient groups (the
+    probed tensors only: the whole gradient's sum through gloo takes
+    seconds, and the steps run it), and against sp 1's saved gradients
+    under ``ref_dir`` (or, without it, saving them there) each one's
+    relative L2 error."""
+    import deepspeed_tpu_torch.comm as dist
+    loss, grads = engine._micro_loss_and_grads(engine.master, engine._place(batch), 1.0)
+    attn = {k: g for k, g in zip(engine.master, grads) if k in SEQ_PROBE_KEYS}
+    del grads
+    engine._reduce(list(attn.values()), engine._grad_axes, dist.ReduceOp.SUM)
+    out = {"loss": float(dist.all_reduce(loss.float(), group=engine._loss_axes)), "rel": {}}
+    if ref_dir is None:
+        return out, {k: g.cpu() for k, g in attn.items()}
+    ref = torch.load(os.path.join(ref_dir, "seq_probe.pt"))
+    for k, g in attn.items():
+        want = ref[k].to(g.device)
+        out["rel"][k] = float(torch.linalg.vector_norm(g - want) / torch.linalg.vector_norm(want))
+    del attn
+    torch.cuda.empty_cache()
+    return out, None
+
+
+def seq_train(torch, dev, sp, impl, ref_dir, faults=()):
+    """sp ``sp`` (the mesh's seq axis) under ``impl``: the engine on the
+    seeded weights made on the card, the sound probe (sp 1 saves its
+    attention gradients to ``ref_dir``), each planted fault's probe, then
+    ``SEQ_STEPS`` steps: losses, grad norms, step ms, peak GiB and the
+    kernels' launches; last, each planted fault of the "step" kind on an
+    engine built afresh: its first step's loss and grad norm."""
+    import deepspeed_tpu_torch
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "mesh": {"sequence_parallel_size": sp} if sp > 1 else {}}
+
+    def build():
+        model = _tp_whole_model(attention_impl="flash", sequence_parallel_impl=impl)
+        params = random_params(torch, model, dev, SEED, int8=False)
+        engine = deepspeed_tpu_torch.initialize(model=model, model_parameters=params, config=config,
+                                                device=dev)[0]
+        del params
+        torch.cuda.empty_cache()
+        return engine
+
+    engine = build()
+    batches = _seq_batches(engine.module.cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    probe, saved = seq_probe(torch, engine, batches[0], ref_dir if sp > 1 else None)
+    if saved is not None:
+        torch.save(saved, os.path.join(ref_dir, "seq_probe.pt"))
+        del saved
+    planted = {}
+    for name, under, kind, plant in faults:
+        if under == impl and kind == "probe":
+            with plant(engine):
+                planted[name] = seq_probe(torch, engine, batches[0], ref_dir)[0]
+    reset_counts()
+    losses, norms, ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        norms.append(float(engine._last_metrics["grad_norm"]))
+    out = {"probe": probe, "planted": planted, "losses": losses, "norms": norms, "ms": ms, "counts": read_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del engine
+    torch.cuda.empty_cache()
+    for name, under, kind, plant in faults:
+        if under == impl and kind == "step":
+            engine = build()
+            with plant(engine):
+                loss = float(engine.train_batch(batch=batches[0]))
+            planted[name] = {"loss": loss, "norm": float(engine._last_metrics["grad_norm"])}
+            del engine
+            torch.cuda.empty_cache()
+    return out
+
+
+def seq_serve(torch, dev, sp):
+    """llama3-8b int8 (2 layers, the default serving config) serving a
+    4-slot stream of three requests (768 and 300 tokens: wide seq-parallel
+    chunks; 40: base chunks), greedy and one sampled, with every step's
+    logits and the launch counts; on the mesh's seq axis of ``sp`` the wide
+    chunks' span attention splits over the ranks."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    model, tree = tp_int8_tree(torch, dev)
+    eng = deepspeed_tpu_torch.init_inference(model, config=SEQ_SERVE_CONFIG,
+                                             params=fuse_qkv(torch, tree, model.cfg.num_layers), device=dev)
+    del tree
+    vocab = eng.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 14)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SEQ_SERVE_PROMPTS]
+    sched = DecodeScheduler(eng, **SEQ_SERVE_SCHED)
+    check((sched._seq_shards, sched._seq_chunk) == (sp, SEQ_SERVE_SCHED["prefill_chunk"] * SEQ_DEGREE),
+          f"seq serving sp {sp}: shards / wide chunk {(sched._seq_shards, sched._seq_chunk)}")
+    check(sched._fused_block, f"seq serving sp {sp}: the fused decode block is off ({sched._fused_block_reasons})")
+    reset_counts()
+    hs = [sched.submit(p, max_new_tokens=SEQ_SERVE_NEW) for p in prompts]
+    hs.append(sched.submit(prompts[1], max_new_tokens=SEQ_SERVE_NEW, do_sample=True, temperature=0.8, top_k=50,
+                           seed=SEED))
+    t = time.perf_counter()
+    while any(not h.done for h in hs):
+        sched.step()
+    torch.cuda.synchronize()
+    out = {"tokens": [h.result().tolist() for h in hs], "logits": [np.stack(h.result_logits()) for h in hs],
+           "s": time.perf_counter() - t, "counts": read_counts(), "forwards": dict(sched.forwards)}
+    del sched, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_expected(cfg, impl, sp, steps):
+    """Launches of ``steps`` steps a rank: Ulysses (and sp 1) one flash
+    forward, dq and dk/dv a layer a step; the ring sp steps a layer, each
+    run again in the backward (its checkpoint), so 2 sp forwards and sp dq
+    and dk/dv a layer a step."""
+    n = cfg.num_layers * steps
+    if impl == "ring" and sp > 1:
+        return {**ZERO_COUNTS, "flash_attention": 2 * sp * n, "flash_bwd_dq": sp * n, "flash_bwd_dkv": sp * n}
+    return {**ZERO_COUNTS, "flash_attention": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def _seq_rank(rank, world, store, out_dir, dev):
+    """One rank of the seq phase (a spawned process): the gloo group over
+    the card, the mesh (seq = world), then training under each
+    implementation with its planted faults, then serving; results to
+    ``out_dir/rank{rank}.pt``, a traceback to ``rank{rank}.err``."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import deepspeed_tpu_torch.comm as dist
+        dist.init_distributed(dist_backend="gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                              verbose=False)
+        dist.initialize_mesh(seq=world)
+        res = {"gloo": seq_gloo_check(torch, dev)}
+        faults = _seq_faults()
+        res["train"] = {impl: seq_train(torch, dev, world, impl, out_dir, faults) for impl in SEQ_IMPLS}
+        res["serve"] = seq_serve(torch, dev, world)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def seq_phase(torch, card, dev):
+    """llama3-8b at full width (2 layers), bf16, seq 8192: sp 1 in this
+    process against sp 2 as two ranks sharing the card (``_seq_rank``),
+    under Ulysses and ring zig-zag: the first micro-step's attention weight
+    gradients within ``SEQ_GRAD_REL`` relative L2 of sp 1's, the steps' losses
+    and grad norms within ``SEQ_LOSS_REL`` / ``SEQ_NORM_REL`` and equal on
+    the two ranks, exact flash launches a rank, peak GiB a rank; each fault
+    of ``_seq_faults`` leaves its gate (a probe's the gradient gate, a
+    step's the grad norm gate). Serving: the int8 stream at the serving
+    defaults with seq-parallel prefill at sp 2, tokens and logits bitwise
+    sp 1's on both ranks, launches equal. Returns one rank's launch counts of each
+    implementation's steps and of the stream (``"serve"``), and sp 1's of
+    its steps (``"sp1"``)."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    log(f"seq: {TP_MODEL} at full width, {TP_LAYERS} of 32 layers, bf16, micro 1, seq {SEQ_LEN}; sp 1 in this "
+        f"process, sp {SEQ_DEGREE} as two processes sharing the card over a gloo group ({card})")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    try:
+        ref = seq_train(torch, dev, 1, "ulysses", tmp)
+        cfg = _tp_whole_model().cfg
+        check(ref["counts"] == seq_expected(cfg, "ulysses", 1, SEQ_STEPS), f"sp 1 launches {ref['counts']}")
+        check(all(map(math.isfinite, ref["losses"] + ref["norms"])), "sp 1: non-finite loss or norm")
+        log(f"sp 1: probe loss {ref['probe']['loss']}; losses {ref['losses']}, grad "
+            f"norms {ref['norms']}, step ms {[round(x, 1) for x in ref['ms']]}, peak {ref['peak_gib']:.3f} GiB")
+        serve_ref = seq_serve(torch, dev, 1)
+        log(f"sp 1 serving: {sum(map(len, serve_ref['tokens']))} tokens in {serve_ref['s']:.3f} s, forwards "
+            f"{serve_ref['forwards']}")
+        ctx = mp.get_context("spawn")
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_seq_rank, args=(r, SEQ_DEGREE, store, tmp, dev)) for r in range(SEQ_DEGREE)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SEQ_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        errs = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(SEQ_DEGREE)
+                if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+        check(not alive, f"seq: {len(alive)} rank(s) still running after {SEQ_TIMEOUT_S} s; killed")
+        check(not errs, "seq: a rank failed:\n" + "\n".join(errs))
+        check(all(p.exitcode == 0 for p in procs), f"seq: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(SEQ_DEGREE)]
+        log(f"sp {SEQ_DEGREE}: both ranks finished in {time.perf_counter() - t0:.1f} s (spawn, set-up, training, "
+            f"planted faults, serving; two processes sharing one card)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    for r, res in enumerate(ranks):
+        log(f"seq rank {r}: gloo {res['gloo']}")
+        for impl, tr in res["train"].items():
+            pr = tr["probe"]
+            worst = max(pr["rel"].values())
+            loss_rel = max(rel(a, b) for a, b in zip(tr["losses"], ref["losses"]))
+            norm_rel = max(rel(a, b) for a, b in zip(tr["norms"], ref["norms"]))
+            want = seq_expected(cfg, impl, SEQ_DEGREE, SEQ_STEPS)
+            log(f"seq rank {r} {impl}: probe loss rel {rel(pr['loss'], ref['probe']['loss']):.2e}, attention "
+                f"gradients rel L2 "
+                f"{ {k.split('.', 1)[1]: round(v, 6) for k, v in pr['rel'].items()} } (gate {SEQ_GRAD_REL:g}); "
+                f"losses {tr['losses']} (rel {loss_rel:.2e}, gate {SEQ_LOSS_REL:g}), grad norms {tr['norms']} "
+                f"(rel {norm_rel:.2e}, gate {SEQ_NORM_REL:g}), peak {tr['peak_gib']:.3f} GiB (sp 1: "
+                f"{ref['peak_gib']:.3f}), step ms {[round(x, 1) for x in tr['ms']]} (two processes sharing one "
+                f"card), launches {tr['counts']}")
+            check(all(map(math.isfinite, tr["losses"] + tr["norms"])), f"seq rank {r} {impl}: non-finite")
+            check(worst <= SEQ_GRAD_REL, f"seq rank {r} {impl}: attention gradient rel L2 {worst:.3e} > "
+                  f"{SEQ_GRAD_REL:g}")
+            check(rel(pr["loss"], ref["probe"]["loss"]) <= SEQ_LOSS_REL, f"seq rank {r} {impl}: probe loss")
+            check(loss_rel <= SEQ_LOSS_REL, f"seq rank {r} {impl}: loss rel {loss_rel:.2e} > {SEQ_LOSS_REL:g}")
+            check(norm_rel <= SEQ_NORM_REL, f"seq rank {r} {impl}: norm rel {norm_rel:.2e} > {SEQ_NORM_REL:g}")
+            first = ranks[0]["train"][impl]
+            check(tr["losses"] == first["losses"] and tr["norms"] == first["norms"],
+                  f"seq rank {r} {impl}: losses or norms differ from rank 0's")
+            check(tr["counts"] == want, f"seq rank {r} {impl}: launches {tr['counts']} != {want}")
+            for name, fp in tr["planted"].items():
+                if "norm" in fp:  # a train_batch step: the first step's grad norm gate
+                    bad = rel(fp["norm"], ref["norms"][0])
+                    log(f"seq rank {r} planted fault ({name}), one train_batch step: loss {fp['loss']}, grad norm "
+                        f"{fp['norm']} against sp 1's {ref['norms'][0]}: rel {bad:.3e} (the sound {impl} step "
+                        f"{rel(tr['norms'][0], ref['norms'][0]):.3e}, gate {SEQ_NORM_REL:g})")
+                    check(bad > SEQ_NORM_REL, f"seq rank {r}: the planted fault '{name}' passed the grad norm gate")
+                    continue
+                bad = max(fp["rel"].values())
+                log(f"seq rank {r} planted fault ({name}): attention gradients rel L2 up to {bad:.3e} (the sound "
+                    f"{impl} probe {worst:.3e}, gate {SEQ_GRAD_REL:g})")
+                check(bad > SEQ_GRAD_REL, f"seq rank {r}: the planted fault '{name}' passed the gradient gate")
+        check(sum(len(tr["planted"]) for tr in res["train"].values()) == 3, f"seq rank {r}: planted faults run")
+        s = res["serve"]
+        for key in ("tokens", "logits"):
+            check(_tp_same(torch, s[key], serve_ref[key]), f"seq rank {r} serving {key}: not bitwise sp 1's "
+                  f"(max |diff| {_tp_diff(torch, s[key], serve_ref[key]) if key == 'logits' else 'in the tokens'})")
+        check(s["counts"] == serve_ref["counts"] and s["forwards"] == serve_ref["forwards"],
+              f"seq rank {r} serving launches {s['counts']} / forwards {s['forwards']} != sp 1's "
+              f"{serve_ref['counts']} / {serve_ref['forwards']}")
+        log(f"seq rank {r} serving: {len(s['tokens'])} streams, tokens and {sum(len(x) for x in s['logits'])} step "
+            f"logits bitwise sp 1's, launches equal ({ {k: v for k, v in s['counts'].items() if v} }), "
+            f"{s['s']:.3f} s (two processes sharing one card)")
+    return {**{impl: ranks[0]["train"][impl]["counts"] for impl in SEQ_IMPLS}, "serve": ranks[0]["serve"]["counts"],
+            "sp1": ref["counts"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: the training engine's features on the training path
 
 FEATURE_MODEL = "gpt2-large"
+FEATURE_LAYERS = 18  # of 36: the depth cut so that the whole run stays inside its time limit
 FEATURE_SEQ = 1024
 REMAT_POLICIES = (None, "nothing_saveable", "dots_saveable", "dots_and_attn_saveable")
-FEATURE_WARM, FEATURE_TIMED = 2, 5
+FEATURE_WARM, FEATURE_TIMED = 1, 3
 DROPOUT = 0.1
 DROPOUT_STEPS = 3
 # the optimizers at gpt2-large width, depth cut to 4 layers, fp32 compute and
 # the plain attention (no kernel), so the card and the CPU differ only in the
-# order of their sums: 3 steps on each, losses within OPT_LOSS_REL and the
-# masters' difference within OPT_UPDATE_REL of what the CPU's 3 updates moved.
+# order of their sums: OPT_STEPS steps on each, losses within OPT_LOSS_REL and the
+# masters' difference within OPT_UPDATE_REL of what the CPU's updates moved.
 # Lion's update is a sign: where (1 - b1) g + b1 m lies within rounding of 0
 # the two sides may step by lr in opposite directions (PERF.md, PR 17: 5.4e-3
 # of the update in three steps), so its limit is wider
-OPT_LAYERS, OPT_BATCH, OPT_SEQ, OPT_STEPS = 4, 2, 128, 3
+OPT_LAYERS, OPT_BATCH, OPT_SEQ, OPT_STEPS = 4, 2, 128, 2
 OPT_LOSS_REL = 1e-4
 OPT_UPDATE_REL = {"Lion": 2e-2}
 OPT_UPDATE_REL_DEFAULT = 1e-3
@@ -5198,7 +5666,7 @@ def _feature_engine(host, config, dev, optimizer=None, **model_kw):
     on the CPU the engine would take fp32 host tensors as its master)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import get_model
-    model_kw = {"attention_impl": "flash", "scan_layers": False, **model_kw}
+    model_kw = {"attention_impl": "flash", "scan_layers": False, "num_layers": FEATURE_LAYERS, **model_kw}
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=get_model(FEATURE_MODEL, **model_kw),
                                                      model_parameters={k: v.clone() for k, v in host.items()},
                                                      config=config, optimizer=optimizer, device=dev)
@@ -5218,7 +5686,7 @@ def _steps(torch, engine, batch, n):
 
 
 def remat_leg(torch, card, dev, host, batch):
-    """gpt2-large at full depth under each of ``REMAT_POLICIES``: the first
+    """gpt2-large at ``FEATURE_LAYERS`` layers under each of ``REMAT_POLICIES``: the first
     step's loss and grad norm against no remat, exact launch counts, the
     peak device memory and the median step over ``FEATURE_TIMED`` steps
     after ``FEATURE_WARM``, and a profile of one step. Returns {policy: (first-step loss, grad norm)}."""
@@ -5350,7 +5818,7 @@ def _dir_bytes(path):
 
 
 def checkpoint_leg(torch, dev, host, batch):
-    """gpt2-large at full depth: 2 steps, a sync save and an async save
+    """gpt2-large at ``FEATURE_LAYERS`` layers: 2 steps, a sync save and an async save
     (steps 3 and 4 run while it writes), each loaded into a fresh engine
     whose steps 3 and 4 must be bitwise the uninterrupted run's, losses and
     master; save and load seconds and bytes; the 16-bit export loads back
@@ -5415,8 +5883,8 @@ def train_features_phase(torch, card, dev):
     import numpy as np
     from deepspeed_tpu_torch.models import get_model
     t0 = time.perf_counter()
-    cfg = get_model(FEATURE_MODEL).cfg
-    host = get_model(FEATURE_MODEL).init_params(SEED)
+    cfg = get_model(FEATURE_MODEL, num_layers=FEATURE_LAYERS).cfg
+    host = get_model(FEATURE_MODEL, num_layers=FEATURE_LAYERS).init_params(SEED)
     B = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
     batch = {"input_ids": np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, FEATURE_SEQ))}
     log(f"{FEATURE_MODEL} host weights ({cfg.num_layers} layers, seed {SEED}) in "
@@ -5441,6 +5909,11 @@ STREAM_LOSS_REL = 1e-4        # streamed vs on-device: loss
 STREAM_NORM_REL = 2e-2        # grad norm (bf16 gradients against the fp32 master's)
 OFFLOAD_MASTER_REL = 1e-4     # masters after step 1, of the update's max magnitude
 NVME_ENV = "CHIP_SMOKE_NVME_DIR"
+# the NVMe leg's depth: its host AdamW reads and writes every moment through
+# files (~15 s a step at 36 layers); its gate, bitwise the CPU tier at the
+# same depth, holds at any depth. The cut keeps the whole run inside its
+# time limit
+NVME_LAYERS = 12
 GEN_PROMPT, GEN_NEW = 128, 8
 
 
@@ -5520,9 +5993,10 @@ def zero_offload_leg(torch, card, dev, host, batch):
 
 
 def nvme_leg(torch, card, dev, host, batch, two):
-    """(b) the NVMe optimizer tier on gpt2-large, 2 steps: masters bitwise
-    leg (a)'s (the depth cut, and logged, only where the disk cannot hold
-    master and moments); bytes read and written, O_DIRECT and buffered."""
+    """(b) the NVMe optimizer tier on gpt2-large at ``NVME_LAYERS`` layers
+    (fewer, logged, where the disk cannot hold master and moments), 2
+    steps: masters bitwise the CPU tier's at that depth (leg (a)'s at full
+    depth); bytes read and written, O_DIRECT and buffered."""
     import shutil
     import tempfile
     from deepspeed_tpu_torch.models import get_model
@@ -5532,12 +6006,13 @@ def nvme_leg(torch, card, dev, host, batch, two):
     try:
         free = shutil.disk_usage(path).free
         per_layer = _layer_params(OFFLOAD_MODEL)
-        L = cfg.num_layers
+        L = min(cfg.num_layers, NVME_LAYERS)
         while L > 1 and 12 * (cfg.num_params() - (cfg.num_layers - L) * per_layer) > 0.8 * free:
             L -= 1
         extra = {"zero_optimization": {"offload_optimizer": {"device": "nvme", "nvme_path": path}}}
         if L < cfg.num_layers:
-            log(f"(b) depth cut to {L} of {cfg.num_layers} layers: {free / 2**30:.1f} GiB free under {root}")
+            log(f"(b) depth cut to {L} of {cfg.num_layers} layers (NVME_LAYERS {NVME_LAYERS}; {free / 2**30:.1f} "
+                f"GiB free under {root})")
             keep = {k: v for k, v in host.items() if not k.startswith("layers.") or int(k.split(".")[1]) < L}
             ref = _offload_engine({k: v.clone() for k, v in keep.items()},
                                   {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, dev,
@@ -6018,7 +6493,8 @@ def main(argv=()):
     kernel and run only the ZeRO stages' phase; ``--tp``: build every
     kernel and run only the tensor-parallel phase (two ranks on the card);
     ``--pipe``: build every kernel and run only the pipeline phase (two
-    ranks on the card).
+    ranks on the card); ``--seq``: build every kernel and run only the
+    sequence-parallel phase (two ranks on the card).
     Each compares a change with its parent in one call: run this file
     beside each tree's package, in turns."""
     import torch
@@ -6087,6 +6563,10 @@ def main(argv=()):
         timed_phase("pipeline parallelism", pipe_phase, torch, card, dev)
         log(card)
         return 0
+    if list(argv) == ["--seq"]:
+        timed_phase("sequence parallelism", seq_phase, torch, card, dev)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
@@ -6107,10 +6587,11 @@ def main(argv=()):
     # the hierarchical KV tier on the same weights; its extent-paging leg
     # runs in the llama3-8b phase, on that engine
     timed_phase("kv tier", kv_tier_phase, torch, card, params, paging=False)
+    # the per-projection engine on the same int8 tree (no second host-side quantize)
+    _, unfused_greedy, _, _ = timed_phase("gpt2-large per-projection", gpt2_large_phase, torch, card,
+                                          fused=False, params=params)
     del params
     torch.cuda.empty_cache()
-    _, unfused_greedy, _, _ = timed_phase("gpt2-large per-projection", gpt2_large_phase, torch, card,
-                                          fused=False)
     # the two paths round in other places (bias and RoPE in fp32 before the
     # cast in the fused kernels), so their streams may part where two logits
     # are close: reported, not required
@@ -6152,6 +6633,15 @@ def main(argv=()):
     for name, n in pipe_counts.items():
         if n and name in results:
             results[name]["pipe2_rank_launches"] = n
+    # sequence parallelism 2 on llama3-8b: one rank's launches; the ring leg is
+    # the main path of the ring rows (each rank's are checked exact); sp 1's
+    # and a Ulysses rank's run the causal SEQ_FLASH_SHAPES rows
+    seq_counts = timed_phase("sequence parallelism", seq_phase, torch, card, dev)
+    for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+        results[name + "_ring"]["launches"] = seq_counts["ring"][name]
+        results[name]["seq1_launches"] = seq_counts["sp1"][name]
+        results[name]["seq2_ulysses_rank_launches"] = seq_counts["ulysses"][name]
+    results["paged_span_attention"]["seq2_prefill_rank_launches"] = seq_counts["serve"]["paged_span_attention"]
     # the sparse path is the main path of the three block-sparse kernels
     sparse_counts = timed_phase("block-sparse attention", sparse_attention_phase, torch)
     for name in SPARSE_KERNELS:

@@ -32,11 +32,18 @@ eagerly on its tensors:
   inserts by itself in the JAX package. Each is the identity for a group
   of one, so a tp 1 program runs no extra operation.
 
+Sequence parallelism runs over the ``seq`` axis: ring attention
+(``ops/ring_attention.py``) rotates K/V with :func:`ppermute_autograd`, the
+Ulysses head scatter is :class:`AllToAll` over ``seq``, a K/V gather that
+sums its gradient back is :func:`all_gather_autograd`, and
+:func:`attention_partition_axes` gives the JAX package's head tiling
+(tensor-major over ``(tensor, seq)``). On a gloo group a CUDA tensor's
+all-to-all stages through host memory, as :func:`ppermute` does (logged as
+``all_to_all_host_staged``).
+
 While a telemetry sink is live, ``barrier``, ``host_broadcast`` and
 ``host_allgather`` run inside the overlap tracker's ``track_host``
-(``comm/overlap.py``; the JAX ``comm.py:236-244``). Ring attention's use
-of ``ppermute`` (sequence parallelism, ROADMAP Queue 1 #7.4) is not ported
-yet.
+(``comm/overlap.py``; the JAX ``comm.py:236-244``).
 """
 
 import datetime
@@ -536,14 +543,33 @@ def reduce_scatter(tensor, op=ReduceOp.SUM, group=None, scatter_dimension=0, til
 reduce_scatter_tensor = reduce_scatter
 
 
-def _all_to_all_raw(tensor, pg, n, split_axis, concat_axis, tiled):
+def _all_to_all_raw(tensor, pg, n, split_axis, concat_axis, tiled, group=None):
+    """The exchange itself. A gloo group runs it as point-to-point sends and
+    receives in one ``batch_isend_irecv`` (gloo has no all-to-all on some
+    builds), with a CUDA tensor staged through host memory (gloo's
+    point-to-point takes host tensors)."""
+    gloo = tdist.get_backend(pg) == "gloo"
+    staged = gloo and tensor.is_cuda
+    if staged:
+        _record("all_to_all_host_staged", tensor, _group_name(group))
+    wire = tensor.detach().cpu() if staged else tensor
     if tiled:
-        chunks = [c.contiguous() for c in tensor.chunk(n, dim=split_axis)]
+        chunks = [c.contiguous() for c in wire.chunk(n, dim=split_axis)]
     else:
-        chunks = [c.contiguous() for c in tensor.unbind(split_axis)]
+        chunks = [c.contiguous() for c in wire.unbind(split_axis)]
     recv = [torch.empty_like(c) for c in chunks]
-    tdist.all_to_all(recv, chunks, group=pg)
-    return torch.cat(recv, dim=concat_axis) if tiled else torch.stack(recv, dim=concat_axis)
+    if gloo:
+        who = pg if group is None else group  # member order: the group's (the world's: its ranks)
+        me, members = get_rank(who), _members(who)
+        recv[me] = chunks[me]
+        ops = [tdist.P2POp(tdist.isend, chunks[j], members[j], pg) for j in range(n) if j != me]
+        ops += [tdist.P2POp(tdist.irecv, recv[j], members[j], pg) for j in range(n) if j != me]
+        for work in tdist.batch_isend_irecv(ops):
+            work.wait()
+    else:
+        tdist.all_to_all(recv, chunks, group=pg)
+    out = torch.cat(recv, dim=concat_axis) if tiled else torch.stack(recv, dim=concat_axis)
+    return out.to(tensor.device) if staged else out
 
 
 def all_to_all_single(tensor, group=None, split_axis=0, concat_axis=0, tiled=True):
@@ -562,7 +588,7 @@ def all_to_all_single(tensor, group=None, split_axis=0, concat_axis=0, tiled=Tru
                          f"split over {n} members")
     if n == 1:
         return tensor if tiled else tensor.squeeze(split_axis).unsqueeze(concat_axis)
-    return _all_to_all_raw(tensor, pg, n, split_axis, concat_axis, tiled)
+    return _all_to_all_raw(tensor, pg, n, split_axis, concat_axis, tiled, group)
 
 
 all_to_all = all_to_all_single
@@ -753,6 +779,50 @@ def ppermute_autograd(tensor, perm, group=PIPE_AXIS):
     if _pg(group)[1] == 1:
         return tensor
     return _PPermute.apply(tensor, _check_perm(perm, _pg(group)[1]), group)
+
+
+class _AllGatherSum(torch.autograd.Function):
+    """All-gather along an axis forward; the backward sums the members'
+    gradients and keeps this member's slice (every member's output read
+    every member's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis, x.shape[axis])
+        return all_gather(x.contiguous(), group=group, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis, n = ctx.args
+        total = all_reduce(g.contiguous(), ReduceOp.SUM, group)
+        return total.narrow(axis, get_rank(group) * n, n).contiguous(), None, None
+
+
+def all_gather_autograd(tensor, group=SEQ_AXIS, axis=0):
+    """:func:`all_gather` (tiled along ``axis``, member order) that carries
+    a gradient: each member's slice of the summed gradient flows back."""
+    if _pg(group)[1] == 1:
+        return tensor
+    return _AllGatherSum.apply(tensor, group, axis)
+
+
+def attention_partition_axes(batch_size, num_heads):
+    """The JAX package's placement of an attention over (B, H, T, D)
+    tensors (``comm.py:120-142``): batch over the data axes, heads over
+    ``(tensor, seq)``, tensor-major (a tensor rank's heads split again over
+    ``seq``, the only order one all-to-all over ``seq`` reaches from the
+    Megatron layout). Returns ``(dp_axes, head_axes)``; an axis group is
+    empty when the mesh does not divide its dim."""
+    if not has_mesh():
+        return (), ()
+    shape = get_mesh().shape
+    dp = tuple(a for a in DP_AXES if shape[a] > 1)
+    if dp and batch_size % math.prod(shape[a] for a in dp):
+        dp = ()
+    head = tuple(a for a in (TENSOR_AXIS, SEQ_AXIS) if shape[a] > 1)
+    if head and num_heads % math.prod(shape[a] for a in head):
+        head = ()
+    return dp, head
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,12 @@ ranks of the ``comm`` mesh:
 - expert parallelism for an MoE model over the ``expert`` axis (each rank
   serves every token through its experts and all-gathers their outputs,
   bitwise the one-rank result; an expert count the axis does not divide
-  serves replicated, with a warning):
+  serves replicated, with a warning);
+- the sequence-parallel prefill over the ``seq`` axis (a mesh the caller
+  made, ``comm.initialize_mesh(seq=n)``): the scheduler's wide chunks,
+  with ``continuous_batching.long_context.seq_parallel_min_tokens``, split
+  their span attention's query columns over the ranks, bitwise one rank;
+  every rank holds the whole model and pool and runs the same requests:
 
 - kernel injection selects the model's kernel paths (``attention_impl=
   'flash'``: flash prefill and the decode-attention kernel; int8 weights

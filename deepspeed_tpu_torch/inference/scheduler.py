@@ -54,7 +54,15 @@ Chained rows skip the radix cache both ways. A request may opt into the
 lossy StreamingLLM window ``kv_window=(sink, recent)`` (with
 ``allow_lossy_kv``): extents that slide out of it are dropped once per
 step. ``seq_parallel_min_tokens`` prefills long prompts at the wide chunk
-width, which on one device is the same arithmetic unsharded.
+width (``seq_parallel_degree``, by default the mesh's ``seq`` axis, times
+the chunk, rounded to a multiple of the axis): with ranks on ``seq`` the
+first forward of such a sync splits the span attention's query columns
+over them (``seq_shard``, the JAX scheduler's ``seqp`` program), bitwise
+the one-rank stream since a column's bits depend only on its own window;
+on one rank it is the same arithmetic unsharded. A wide chunk goes per
+projection at every degree (the JAX scheduler takes the fused decode
+block for it on one rank), so the one-rank stream is the sharded one under
+any config. Every rank runs the same requests.
 
 **Monolithic prefill** (``prefill_chunk=0``, the legacy admission): every
 free slot is filled at once, FIFO, each request by one single-slot forward
@@ -126,10 +134,9 @@ columns, read back with the sync's tokens into the
 ``serving/expert_load_balance`` gauge (``expert_dispatch_tokens`` keeps the
 total).
 
-Not ported, each raising naming its ROADMAP item: sharding the seq-parallel
-prefill across devices (#7), multi-LoRA, cold-expert offload,
-disaggregation, the weight-swap protocol and migration (#9, RLHF and
-disaggregated serving).
+Not ported, each raising naming its ROADMAP item: multi-LoRA, cold-expert
+offload, disaggregation, the weight-swap protocol and migration (#9, RLHF
+and disaggregated serving).
 """
 
 import collections
@@ -138,6 +145,7 @@ import time
 import numpy as np
 import torch
 
+from .. import comm as dist
 from .kv_cache import RadixPrefixCache, SlotKVCache, copy_slot, slot_slice
 from .speculative import PromptLookupDrafter
 from ..utils.counter_hash import GOLDEN, M32, mix32, mulmod32
@@ -379,18 +387,23 @@ class DecodeScheduler:
         self.tp_size = int(getattr(engine, "_tp", 1))
         self.ep_size = int(getattr(engine, "_ep", 1))
         self._shard_deg = max(self.tp_size, self.ep_size)
-        if self.seq_parallel_min_tokens > 0 and self.tp_size > 1:
+        seq_on = self.seq_parallel_min_tokens > 0
+        seq_ax = dist.get_world_size(dist.SEQ_AXIS) if dist.is_initialized() and dist.has_mesh() else 1
+        self._seq_shards = seq_ax if seq_on else 1
+        if self._seq_shards > 1 and self.tp_size > 1:
             raise ValueError(
                 "sequence-parallel prefill composes with tp=1 only: the "
                 "seq-sharded span kernel gathers over the seq axis while "
                 "tensor parallelism already shards the attention heads")
-        if self.seq_parallel_min_tokens > 0:
-            # the wide chunk: degree x the base chunk, clamped to the extent.
-            # One device is a seq axis of one shard, so the default degree is
-            # 1 and the wide forward runs unsharded (the same arithmetic:
-            # chunk boundaries do not change a column's attention)
-            deg = max(1, int(seq_parallel_degree) or 1)
-            self._seq_chunk = max(min(deg * self.prefill_chunk, S), self.prefill_chunk)
+        if seq_on:
+            # the wide chunk: degree (default: the seq axis) x the base
+            # chunk, clamped to the extent and rounded to a shard multiple
+            # (the sharded span splits the query block evenly); on a seq
+            # axis of one it runs unsharded, the same arithmetic (chunk
+            # boundaries do not change a column's attention)
+            deg = max(1, int(seq_parallel_degree) or seq_ax)
+            Cs = min(deg * self.prefill_chunk, S)
+            self._seq_chunk = max((Cs // self._seq_shards) * self._seq_shards, self.prefill_chunk)
         else:
             self._seq_chunk = 0
         if (me > 1 or self._seq_chunk or self.allow_lossy_kv) \
@@ -1214,24 +1227,30 @@ class DecodeScheduler:
             self._gap.add("sampling_host", time.perf_counter() - t0)
         return [seeds, steps, flags, temps, topks, topps], sampling, collect
 
-    def _forward(self, ids, pos, widx, spans, ext_ops=None):
+    def _forward(self, ids, pos, widx, spans, ext_ops=None, seq_parallel=False):
         """One in-sync forward over the pool; returns (N, C, V) logits. A
-        dispatch with extent operands goes per projection: the fused
-        decode-layer kernels walk no extents."""
+        dispatch with extent operands, or a wide seq-parallel chunk
+        (``seq_parallel``), goes per projection: the fused decode-layer
+        kernels walk no extents and split no columns. A wide chunk takes
+        that path at every seq degree, so one rank's stream is the one a
+        seq axis of ranks gives, bit for bit (the two paths round in other
+        places); with ranks on ``seq`` its span attention splits over them
+        (``seq_shard``)."""
         model = self.engine.module
-        if self._fused_block and ext_ops is None:
+        seq_shard = seq_parallel and self._seq_shards > 1
+        if self._fused_block and ext_ops is None and not seq_parallel:
             logits, _ = model.fused_paged_step(self.engine._fast_tree(), ids, self.cache.pool, pos,
                                                widx, spans)
         elif self._moe_stats:
             logits, _, counts = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
                                                        position_ids=pos, write_index=widx,
                                                        q_spans=spans, ext_ops=ext_ops,
-                                                       expert_stats=True)
+                                                       expert_stats=True, seq_shard=seq_shard)
             self._expert_counts = counts if self._expert_counts is None else self._expert_counts + counts
         else:
             logits, _ = model.apply_with_cache(self.engine.net, ids, self.cache.pool, 0,
                                                position_ids=pos, write_index=widx, q_spans=spans,
-                                               ext_ops=ext_ops)
+                                               ext_ops=ext_ops, seq_shard=seq_shard)
         return _replicate_logits(logits, model.cfg.vocab_size, self._shard_deg)
 
     def _take_expert_counts(self):
@@ -1281,7 +1300,7 @@ class DecodeScheduler:
         return ints[:, :C], lens_t, spans_t, sample
 
     @torch.inference_mode()
-    def _run(self, ids, lens, spans, samp, sampling, collect, K, ext_ops=None, hold=None):
+    def _run(self, ids, lens, spans, samp, sampling, collect, K, ext_ops=None, hold=None, seq_parallel=False):
         """THE step body: the first forward over the (N, C) ids block with
         per-row spans, then K - 1 single-column decode forwards, all on the
         device with nothing read back until the (K, N) token block (and the
@@ -1293,7 +1312,9 @@ class DecodeScheduler:
         row of a non-final prefill chunk in an extent dispatch; it writes
         nothing in the substeps (their tokens are discarded and the next
         chunk rewrites those rows; past a chunk that ends at its extent's
-        end they would leave the extent)."""
+        end they would leave the extent). ``seq_parallel``: the first
+        forward is a wide seq-parallel chunk (``_forward``; the
+        single-column substeps cannot split)."""
         N, C = ids.shape
         dev = self.device
         t0 = self._open_dispatch()
@@ -1301,7 +1322,7 @@ class DecodeScheduler:
         self.dispatched[(C, K)] += 1
         self.last_shape = (C, K)
         pos = lens_t[:, None] + torch.arange(C, device=dev)[None, :]
-        logits = self._forward(ids_t, pos, lens_t, spans_t, ext_ops)
+        logits = self._forward(ids_t, pos, lens_t, spans_t, ext_ops, seq_parallel)
         self.forwards[C] += 1
         if ext_ops is not None:
             self.ext_forwards[C] += 1
@@ -1480,7 +1501,8 @@ class DecodeScheduler:
         N, S = self.cache.num_slots, self.max_len
         pf = self._prefill
         preq = pf.req
-        # seq-parallel prefill: the wide chunk width, unsharded on one device
+        # seq-parallel prefill: the wide chunk width, sharded over seq when
+        # the axis has ranks
         C = self._seq_chunk if pf.seq_parallel else self.prefill_chunk
         L = preq.prompt.size
         # a chunk never crosses an extent boundary: its KV write lands in
@@ -1524,7 +1546,7 @@ class DecodeScheduler:
         tel = self.telemetry
         t0 = tel.now()
         toks_k, logits_k = self._run(ids, lens, spans, samp, sampling, collect, K, eo,
-                                     hold=None if final or eo is None else ps)
+                                     hold=None if final or eo is None else ps, seq_parallel=pf.seq_parallel)
         if tel.enabled:
             # the stall co-resident decode rows eat while a chunk rides
             # their sync (measured through the block fetch)

@@ -58,9 +58,21 @@ o_proj and down_proj are row-parallel, summed over ``tensor`` before the
 bias, and the loss is :func:`vocab_parallel_cross_entropy`; the region
 operators of ``comm`` carry the gradients.
 
+Sequence parallelism (``cfg.seq_shard``, set by :func:`seq_shard_config`):
+a training forward holds this rank's contiguous chunk of the sequence, its
+positions (learned ``pos_embed``, RoPE) and dropout masks those of the
+chunk's global rows, and attention runs over the ``seq`` axis of ``comm``:
+Ulysses (an all-to-all from sequence- to head-sharded q/k/v and back;
+k/v gathered over ``seq`` when the kv heads do not divide it; the sequence
+gathered when the heads do not) or ring attention (``ops/ring_attention.py``,
+on the flash path only, with the JAX model's once-only warning and fallback
+elsewhere). ``apply_with_cache(..., seq_shard=True)`` is the scheduler's
+sequence-parallel prefill: the span kernel's query columns split over
+``seq`` (``ops/decode_attention.py::seq_sharded_span_attention``).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-LoRA, alibi, local attention windows, sequence sharding across devices,
-cold-expert paging and activation fake-quantization.
+LoRA, alibi, local attention windows, cold-expert paging and activation
+fake-quantization.
 """
 
 import dataclasses
@@ -78,10 +90,13 @@ from .. import comm as dist
 from ..ops.decode_attention import (decode_attention, extent_paged_decode_attention,
                                     extent_paged_span_attention, paged_decode_attention,
                                     paged_span_attention)
+from ..ops.decode_attention import seq_sharded_span_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.quant_matmul import quant_matmul
+from ..ops.ring_attention import ring_attention
 from ..ops.quantizer import dequantize_kv_rows, quantize_kv_rows
 from ..utils.counter_hash import GOLDEN, fold_in, mix32, mulmod32
+from ..utils.logging import warning_once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +140,9 @@ class TransformerConfig:
     # whole (tp_shard_config sets it). The head, ffn and vocab counts stay
     # the model's; ``local_*`` are the rank's.
     tp_shard: Optional[Tuple[int, int]] = None
+    # this rank's chunk of the sequence over the ``seq`` axis, (index,
+    # degree); None = the whole sequence (seq_shard_config sets it)
+    seq_shard: Optional[Tuple[int, int]] = None
     # systems
     dtype: Any = torch.bfloat16
     scan_layers: bool = True
@@ -132,6 +150,7 @@ class TransformerConfig:
     ce_chunk_size: Optional[int] = None
     attention_impl: str = "xla"  # "xla" (plain torch) | "flash" (the kernels)
     sequence_parallel_impl: str = "ulysses"  # "ulysses" | "ring"
+    ring_schedule: str = "zigzag"  # ring attention's causal schedule: "zigzag" | "unbalanced"
     attention_block_q: int = 512
     attention_block_kv: int = 512
     decode_block_kv: int = 256  # cache-length granularity of the decode kernel
@@ -153,6 +172,8 @@ class TransformerConfig:
                              f"got {self.sequence_parallel_impl!r}")
         if self.sequence_parallel_impl == "ring" and self.attention_impl != "flash":
             raise ValueError("sequence_parallel_impl='ring' requires attention_impl='flash'")
+        if self.ring_schedule not in ("zigzag", "unbalanced"):
+            raise ValueError(f"ring_schedule must be 'zigzag' or 'unbalanced', got {self.ring_schedule!r}")
         if self.local_attention_layers and self.scan_layers:
             raise ValueError("local_attention_layers (per-layer windows) requires "
                              "scan_layers=False — scanned layers share one program")
@@ -179,6 +200,14 @@ class TransformerConfig:
     @property
     def tp_index(self):
         return self.tp_shard[0] if self.tp_shard else 0
+
+    @property
+    def seq_size(self):
+        return self.seq_shard[1] if self.seq_shard else 1
+
+    @property
+    def seq_index(self):
+        return self.seq_shard[0] if self.seq_shard else 0
 
     @property
     def local_heads(self):
@@ -478,21 +507,30 @@ def _remat_block(blk, context_fn, x, sin, cos, attn_mask, position_ids, impl, ke
 
 
 @functools.lru_cache(maxsize=8)
-def _element_codes(n, device):
-    """mulmod32(i, GOLDEN) for the flat element indices i < n (the same for
-    every layer and site, so kept)."""
-    return mulmod32(torch.arange(n, dtype=torch.int64, device=device), GOLDEN)
+def _element_codes(shape, seq, device):
+    """mulmod32(i, GOLDEN) for the elements of a (B, T, ...) block, i an
+    element's row-major index in the whole (B, n T, ...) tensor of which the
+    block is chunk s along T (``seq`` = (s, n)); the same for every layer
+    and site, so kept."""
+    (s, n), B, T, inner = seq, shape[0], shape[1], math.prod(shape[2:])
+    rows = torch.arange(B, dtype=torch.int64, device=device)[:, None] * (n * T) + s * T \
+        + torch.arange(T, dtype=torch.int64, device=device)[None, :]
+    idx = rows[:, :, None] * inner + torch.arange(inner, dtype=torch.int64, device=device)
+    return mulmod32(idx.reshape(-1), GOLDEN)
 
 
-def dropout_mask(key, shape, rate, device):
+def dropout_mask(key, shape, rate, device, seq=(0, 1)):
     """The keep mask (bool, ``shape``) of dropout at ``rate`` under ``key``
     (a uint32 Python int): element i (row-major) is kept when
     ``mix32(mulmod32(i, GOLDEN) ^ key) >= round(rate * 2^32)``. Integer ops
     and an integer threshold only, so the card and the CPU draw the same
     bits, and a recomputed block draws its forward's mask (a
     ``torch.Generator`` would not: ``torch.utils.checkpoint`` restores only
-    the global generators)."""
-    codes = _element_codes(math.prod(shape), torch.device(device))
+    the global generators). ``seq``: (index, degree) when ``shape`` (B, T,
+    ...) is chunk ``index`` of a sequence split in ``degree``: element i is
+    then numbered in the whole (B, degree * T, ...) tensor, so a split
+    sequence draws the masks of the whole one."""
+    codes = _element_codes(tuple(shape), tuple(seq), torch.device(device))
     return (mix32(codes ^ key) >= int(round(rate * 2**32))).reshape(shape)
 
 
@@ -507,8 +545,8 @@ def dropout_apply(x, keep, rate):
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def dropout(x, rate, key):
-    return dropout_apply(x, dropout_mask(key, x.shape, rate, x.device), rate)
+def dropout(x, rate, key, seq=(0, 1)):
+    return dropout_apply(x, dropout_mask(key, x.shape, rate, x.device, seq), rate)
 
 
 # ---------------------------------------------------------------------------
@@ -814,12 +852,15 @@ class Attention(nn.Module):
         of the decode kernel (with ``slot_write`` at T > 1: (start, base) of
         the span kernel), computed once per forward by :class:`CausalLM`.
         ``slot_write``: the slot pool's ``(write_index, q_spans, targets,
-        ext)``, per-row (B,) write positions, live query counts (or None),
-        their :func:`span_targets` and, for long context, ``(ext_table,
+        ext, seq_shard)``, per-row (B,) write positions, live query counts
+        (or None), their :func:`span_targets`, for long context ``(ext_table,
         sinks, windows)`` (else None): attention then runs through the
-        extent modes over logical positions. A 3-leaf cache is the int8 KV
-        tier: fresh K/V are quantized on write. Returns (out, kv_cache); the
-        cache is written in place."""
+        extent modes over logical positions; and whether the span's query
+        columns split over ``seq`` (the sequence-parallel prefill). A
+        3-leaf cache is the int8 KV tier: fresh K/V are quantized on write.
+        Without a cache, a model with ``seq_shard`` holds this rank's chunk
+        of the sequence (see :meth:`_seq_attention`). Returns (out,
+        kv_cache); the cache is written in place."""
         cfg = self.cfg
         B, T, H = x.shape
         nh, nkv, hd = cfg.local_heads, cfg.local_kv_heads, cfg.head_size
@@ -842,8 +883,9 @@ class Attention(nn.Module):
                 pos_sin, pos_cos = sin[position_ids], cos[position_ids]  # (B, T, hd/2)
             elif cache_index is not None:
                 pos_sin, pos_cos = sin[cache_index:cache_index + T], cos[cache_index:cache_index + T]
-            else:
-                pos_sin, pos_cos = sin[:T], cos[:T]
+            else:  # a seq rank's chunk sits at its global rows
+                p0 = cfg.seq_index * T
+                pos_sin, pos_cos = sin[p0:p0 + T], cos[p0:p0 + T]
             rot = cfg.rotary_dim or hd
             if rot < hd:  # partial rotary (GPT-J/NeoX): pass-through tail dims
                 q = torch.cat([apply_rope(q[..., :rot], pos_sin, pos_cos), q[..., rot:]], dim=-1)
@@ -857,7 +899,7 @@ class Attention(nn.Module):
             q = q * torch.tensor(cfg.attn_scale * (hd**0.5), dtype=q.dtype)
 
         flash = cfg.attention_impl == "flash"
-        write_index, q_spans, targets, ext = slot_write or (None, None, None, None)
+        write_index, q_spans, targets, ext, seq_split = slot_write or (None, None, None, None, False)
         if kv_cache is not None:
             quant_kv = len(kv_cache) == 3
             csc = None
@@ -874,7 +916,14 @@ class Attention(nn.Module):
             else:
                 for c, val in writes:
                     c[:, :, cache_index:cache_index + T] = val.to(c.dtype)
-            if ext is not None:
+            if seq_split:
+                # the sequence-parallel prefill: this rank's query columns
+                starts, base = decode_window
+                ext_table, sinks, wins = ext or (None, None, None)
+                out = seq_sharded_span_attention(q.contiguous(), ck, cv, starts, base,
+                                                 block_kv=cfg.decode_block_kv, k_scale=csc, v_scale=csc,
+                                                 ext=ext_table, sink=sinks, window=wins, impl=impl)
+            elif ext is not None:
                 # long context: logical windows through each row's extent table
                 starts, ends = decode_window
                 ext_table, sinks, wins = ext
@@ -919,19 +968,72 @@ class Attention(nn.Module):
             new_cache = kv_cache
         else:
             new_cache = None
-            if flash and T >= 128 and attn_mask is None:
-                out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                                      impl=impl)
+            if cfg.seq_size > 1:
+                out = self._seq_attention(q, k, v, attn_mask, impl)
             else:
-                if nkv != nh:
-                    k = k.repeat_interleave(nh // nkv, dim=1)
-                    v = v.repeat_interleave(nh // nkv, dim=1)
-                keep = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
-                bias = torch.where(keep, 0.0, -1e30)[None, None]
-                if attn_mask is not None:
-                    bias = bias + torch.where(attn_mask, 0.0, -1e30)[:, None, None, :]
-                out = _sdpa_plain(q, k, v, bias, cfg.dtype)
+                out = _causal_attention(q, k, v, attn_mask, flash and T >= 128 and attn_mask is None, cfg,
+                                        impl)
         return self.o_proj(out, impl, cfg.tp_mode), new_cache
+
+    def _seq_attention(self, q, k, v, attn_mask, impl):
+        """Causal attention of this rank's chunk (q (B, nh, Tc, hd), k/v
+        (B, nkv, Tc, hd) at global rows ``seq_index * Tc + t``) over the
+        ``seq`` axis (the JAX model's ``models/transformer.py:962-1016``):
+        the flash path (the whole sequence >= 128 rows, no mask) by ring
+        attention under ``sequence_parallel_impl='ring'``; else Ulysses,
+        an all-to-all to this rank's heads over the whole sequence and back
+        (k/v gathered over ``seq`` when the kv heads do not divide it, the
+        sequence gathered when the heads do not). ``attn_mask``: (B, Tc),
+        gathered over ``seq``."""
+        cfg = self.cfg
+        n, s = cfg.seq_size, cfg.seq_index
+        B, nh, Tc, hd = q.shape
+        nkv = k.shape[1]
+        if attn_mask is not None:  # the key mask of the whole sequence
+            attn_mask = dist.all_gather(attn_mask.to(torch.uint8), group=dist.SEQ_AXIS, axis=1).bool()
+        flash = cfg.attention_impl == "flash" and n * Tc >= 128 and attn_mask is None
+        if cfg.sequence_parallel_impl == "ring":
+            if flash:
+                return ring_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                                      schedule=cfg.ring_schedule, impl=impl)
+            warning_once("sequence_parallel_impl='ring' requested but this attention call cannot use it "
+                         "(needs the flash path: T >= 128 and no attention_mask) — falling back to "
+                         "full-sequence attention")
+        if dist.SEQ_AXIS not in dist.attention_partition_axes(B, cfg.num_heads)[1]:
+            # the heads do not tile over (tensor, seq): every rank attends the
+            # whole sequence and keeps its rows
+            qf, kf, vf = (dist.all_gather_autograd(t.contiguous(), dist.SEQ_AXIS, 2) for t in (q, k, v))
+            return _causal_attention(qf, kf, vf, attn_mask, flash, cfg, impl).narrow(2, s * Tc, Tc)
+        hl, g = nh // n, nh // nkv
+        qh = dist.AllToAll.apply(q.contiguous(), dist.SEQ_AXIS, 1, 2)  # (B, nh / n, T, hd)
+        if nkv % n == 0:
+            kh, vh = (dist.AllToAll.apply(t.contiguous(), dist.SEQ_AXIS, 1, 2) for t in (k, v))
+        else:  # this rank's query heads read the kv heads h // g of the gathered sequence
+            kf, vf = (dist.all_gather_autograd(t.contiguous(), dist.SEQ_AXIS, 2) for t in (k, v))
+            if hl % g == 0 or g % hl == 0:
+                lo, hi = s * hl // g, ((s + 1) * hl - 1) // g + 1
+                kh, vh = kf[:, lo:hi], vf[:, lo:hi]
+            else:
+                kh, vh = (t.repeat_interleave(g, dim=1)[:, s * hl:(s + 1) * hl] for t in (kf, vf))
+        out = _causal_attention(qh, kh, vh, attn_mask, flash, cfg, impl)
+        return dist.AllToAll.apply(out.contiguous(), dist.SEQ_AXIS, 2, 1)
+
+
+def _causal_attention(q, k, v, attn_mask, flash, cfg, impl):
+    """Causal attention of q (B, nh, T, hd) over k/v (B, nkv, T, hd): the
+    flash kernel (GQA-native) when ``flash``, else the plain softmax with
+    the key mask ``attn_mask`` (B, T)."""
+    if flash:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, impl=impl)
+    nh, nkv, T = q.shape[1], k.shape[1], q.shape[2]
+    if nkv != nh:
+        k = k.repeat_interleave(nh // nkv, dim=1)
+        v = v.repeat_interleave(nh // nkv, dim=1)
+    keep = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
+    bias = torch.where(keep, 0.0, -1e30)[None, None]
+    if attn_mask is not None:
+        bias = bias + torch.where(attn_mask, 0.0, -1e30)[:, None, None, :]
+    return _sdpa_plain(q, k, v, bias, cfg.dtype)
 
 
 class MLP(nn.Module):
@@ -1003,8 +1105,9 @@ class Block(nn.Module):
         rate = self.cfg.dropout
         h, new_cache = self.attn(self.attn_norm(x), sin, cos, attn_mask, kv_cache, cache_index,
                                  position_ids, decode_window, slot_write, impl)
+        seq = (self.cfg.seq_index, self.cfg.seq_size)
         if dropout_key is not None:
-            h = dropout(h, rate, fold_in(dropout_key, 0))
+            h = dropout(h, rate, fold_in(dropout_key, 0), seq)
         ff_in = x if self.cfg.parallel_residual else x + h
         moe = None
         if self.cfg.num_experts == 0:
@@ -1016,7 +1119,7 @@ class Block(nn.Module):
             ff, aux, drop = self.moe(self.mlp_norm(ff_in))
             moe = (aux, drop)
         if dropout_key is not None:
-            ff = dropout(ff, rate, fold_in(dropout_key, 1))
+            ff = dropout(ff, rate, fold_in(dropout_key, 1), seq)
         if self.cfg.parallel_residual:
             return x + h + ff, new_cache, moe
         return ff_in + ff, new_cache, moe
@@ -1071,7 +1174,8 @@ class CausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, kv_cache=None, cache_index=None,
                 position_ids=None, impl="kernel", return_hidden=False, write_index=None,
-                q_spans=None, ext_ops=None, dropout_key=None, moe_out=None, expert_stats=None):
+                q_spans=None, ext_ops=None, dropout_key=None, moe_out=None, expert_stats=None,
+                seq_shard=False):
         """``kv_cache``: ``(ks, vs)`` (or ``(ks, vs, scales)``, the int8 KV
         tier), per-layer (B, kv_heads, S, hd) caches written in place.
         Returns logits, or (logits, kv_cache) with a cache, or the
@@ -1080,6 +1184,8 @@ class CausalLM(nn.Module):
         ``q_spans``: the slot pool's per-row write positions and live query
         counts (``cache_index`` is then unused). ``ext_ops``: long-context
         extent operands, see :meth:`CausalLMModel.apply_with_cache`.
+        ``seq_shard``: the span's query columns split over ``seq`` (the
+        sequence-parallel prefill; the flash span path and tp 1 only).
         ``impl="plain"`` routes every kernel to its plain version (the
         on-card check that the kernel path computes the same logits).
         ``dropout_key``: the micro-step's dropout key (training), folded
@@ -1090,13 +1196,19 @@ class CausalLM(nn.Module):
         counts (cached forward)."""
         cfg = self.cfg
         B, T = input_ids.shape
-        if ext_ops is not None and (cfg.attention_impl != "flash" or cfg.local_attention_window
-                                    or write_index is None or q_spans is None):
+        if (ext_ops is not None or seq_shard) and (cfg.attention_impl != "flash" or cfg.local_attention_window
+                                                   or write_index is None or q_spans is None):
             # a fall-through to the plain cached attention, which knows no
             # extents, would read the wrong rows
             raise ValueError("ext_ops/seq_shard require the fused flash span path "
                              "(attention_impl='flash', rope/none positions, no per-layer local "
                              "window, write_index + q_spans)")
+        if seq_shard and cfg.tp_size > 1:
+            raise ValueError("seq-parallel prefill requires tensor parallelism of 1 (seq and tensor kernel "
+                             "sharding don't compose)")
+        if kv_cache is not None and cfg.seq_size > 1:
+            raise ValueError("a model holding a chunk of the sequence (seq_shard) trains only; serve it "
+                             "whole (the scheduler's seq-parallel prefill splits the span kernel)")
         if write_index is not None and position_ids is not None:
             # columns past a row's span may sit past the position tables;
             # their values are never read (the JAX gathers clamp them too)
@@ -1107,8 +1219,8 @@ class CausalLM(nn.Module):
         if cfg.pos_embedding == "learned":
             if position_ids is not None:
                 x = x + self.pos_embed[position_ids].to(cfg.dtype)
-            else:
-                c0 = cache_index or 0
+            else:  # a seq rank's chunk sits at its global rows
+                c0 = cache_index or cfg.seq_index * T
                 x = x + self.pos_embed[c0:c0 + T].to(cfg.dtype)
         sin = cos = None
         if cfg.pos_embedding == "rope":
@@ -1137,7 +1249,7 @@ class CausalLM(nn.Module):
                 targets = span_targets(write_index, spans, T, kv_cache[0][0].shape[2], wslot,
                                        ext_base)
                 ext = (ext_table, sinks, wins)
-            slot_write = (write_index, q_spans, targets, ext)
+            slot_write = (write_index, q_spans, targets, ext, bool(seq_shard))
 
         remat = self._remat if kv_cache is None and torch.is_grad_enabled() else None
         for i, blk in enumerate(self.layers):
@@ -1338,7 +1450,7 @@ class CausalLMModel:
             x = torch.func.functional_call(mod.embed_norm, self._sub(embed_tree, "embed_norm"), (x, ))
         if cfg.pos_embedding == "learned":
             if position_ids is None:
-                c0 = cache_index or 0
+                c0 = cache_index or cfg.seq_index * input_ids.shape[1]
                 pe = embed_tree["pos_embed"][c0:c0 + input_ids.shape[1]]
             else:
                 pe = embed_tree["pos_embed"][position_ids]
@@ -1635,7 +1747,7 @@ class CausalLMModel:
 
     def apply_with_cache(self, params, input_ids, kv_cache, cache_index, cache_mask=None,
                          position_ids=None, write_index=None, q_spans=None, impl="kernel",
-                         ext_ops=None, expert_stats=False, **unported):
+                         ext_ops=None, expert_stats=False, seq_shard=False, **unported):
         """Forward writing into (and attending over) the KV cache. Returns
         (logits, kv_cache). ``cache_index``: the shared write position (an
         int); ``cache_mask``: (B, S) attendable slots. ``write_index``:
@@ -1659,13 +1771,20 @@ class CausalLMModel:
 
         ``expert_stats=True`` (an MoE model) also returns the per-layer
         routed-token counts, (L, E) int32 over the live columns (``q_spans``),
-        as a third output."""
+        as a third output.
+
+        ``seq_shard=True``: the sequence-parallel prefill (the JAX
+        package's ``seq_shard``): every rank of the mesh's ``seq`` axis runs
+        the same forward, and the span attention's query columns split over
+        ``seq`` and are all-gathered (bitwise the one-rank forward). It
+        needs the flash span path (``write_index`` and ``q_spans``) and
+        raises ``ValueError`` at tensor parallelism above 1."""
         _reject_unported_args(unported)
         args = (input_ids, cache_mask, kv_cache, 0 if write_index is not None else int(cache_index),
                 position_ids)
         stats = [] if expert_stats else None
         kwargs = {"impl": impl, "write_index": write_index, "q_spans": q_spans, "ext_ops": ext_ops,
-                  "expert_stats": stats}
+                  "expert_stats": stats, "seq_shard": bool(seq_shard)}
         if isinstance(params, nn.Module):
             out = params(*args, **kwargs)
         else:
@@ -1759,6 +1878,13 @@ def tp_shard_config(cfg, tp, bitwise):
     return dataclasses.replace(cfg, tp_shard=shard, bitwise_tp=bool(bitwise))
 
 
+def seq_shard_config(cfg, sp):
+    """``cfg`` with ``seq_shard`` set to this rank's (index, ``sp``) over
+    the ``seq`` axis (None when ``sp`` is 1: the whole sequence)."""
+    shard = (dist.get_rank(dist.SEQ_AXIS), int(sp)) if sp > 1 else None
+    return dataclasses.replace(cfg, seq_shard=shard)
+
+
 def tp_dims(model, shapes):
     """{key: the dim split over ``tensor``, or None} for a whole-model state
     dict's ``shapes`` under ``model``'s :meth:`~CausalLMModel.tp_rules`; a
@@ -1800,7 +1926,6 @@ def tp_slice(t, dim, cfg):
 _UNPORTED_ARGS = {
     "lora_ops": "ROADMAP Queue 1 #9, multi-LoRA",
     "expert_ops": "ROADMAP Queue 1 #9, MoE expert offload",
-    "seq_shard": "ROADMAP Queue 1 #7, sequence-parallel prefill across devices",
 }
 
 

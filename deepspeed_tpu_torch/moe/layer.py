@@ -216,12 +216,15 @@ class MoE(nn.Module):
 
     def forward(self, x):
         """Training: ``x`` (B, T, H) -> (output, aux_loss, drop_frac)
-        through the capacity-buffered dispatch over the global batch."""
+        through the capacity-buffered dispatch over the global batch (under
+        ``seq``, ``x`` is this rank's chunk of each row)."""
         cfg = self.cfg
         B, T, H = x.shape
         tokens = x.reshape(B * T, H)
+        # the global batch: the data axes' rows, and under seq each row's chunks
+        group = dist.DP_AXES + ((dist.SEQ_AXIS, ) if cfg.seq_size > 1 else ())
         dispatch, combine, aux, drop = top_k_gating(self._logits(tokens), cfg.moe_top_k,
-                                                    cfg.moe_capacity_factor, group=dist.DP_AXES)
+                                                    cfg.moe_capacity_factor, group=group, rows=B)
         N, E, C = dispatch.shape
         expert_in = torch.matmul(dispatch.to(cfg.dtype).reshape(N, E * C).T, tokens.to(cfg.dtype))
         expert_in = expert_in.reshape(E, C, H)

@@ -41,17 +41,23 @@ def _top_k_masks(logits, k):
     return masks
 
 
-def top_k_gating(logits, k, capacity_factor, min_capacity=4, group=None):
+def top_k_gating(logits, k, capacity_factor, min_capacity=4, group=None, rows=None):
     """Top-k gating with per-expert capacity over the global batch.
 
     ``logits``: (N, E) router logits of this rank's tokens. ``group``: the
     token group (axis names of the mesh, e.g. ``("expert", "data")``; None
-    or a group of one for a single program). Returns ``dispatch`` (N, E, C)
-    one-hot, ``combine`` (N, E, C) weights, the load-balancing ``aux_loss``
-    (reference l_aux, sharded_moe.py:217) and ``drop_frac``, the fraction
-    of routed slots dropped, both global."""
+    or a group of one for a single program). With ``seq`` last in
+    ``group`` and ``rows`` (this rank's batch rows: N = rows x Tc) the
+    tokens are a chunk of each row's sequence, and a slot goes by the
+    global token order (row-major over the whole sequence, as JAX
+    flattens it). Returns ``dispatch`` (N, E, C) one-hot, ``combine`` (N,
+    E, C) weights, the load-balancing ``aux_loss`` (reference l_aux,
+    sharded_moe.py:217) and ``drop_frac``, the fraction of routed slots
+    dropped, both global."""
     N, E = logits.shape
     R = dist.get_world_size(group) if group is not None else 1
+    axes = () if group is None else ((group, ) if isinstance(group, str) else tuple(group))
+    sp = dist.get_world_size(dist.SEQ_AXIS) if dist.SEQ_AXIS in axes else 1
     n_global = N * R
     C = capacity(n_global * k, E, capacity_factor, min_capacity)
     probs = torch.softmax(logits.float(), dim=-1)
@@ -65,7 +71,11 @@ def top_k_gating(logits, k, capacity_factor, min_capacity=4, group=None):
     # per round, the counts of every rank before this one (the global
     # order is the group's rank order) and of all ranks
     counts = torch.stack([m.sum(0) for m in masks]).to(torch.int64)  # (k, E)
-    if R > 1:
+    if sp > 1:
+        if axes[-1] != dist.SEQ_AXIS or rows is None:
+            raise ValueError("gating over seq needs seq last in the group and this rank's rows")
+        before, total = _seq_before(masks, rows, group, sp)
+    elif R > 1:
         every = dist.all_gather(counts[None], group=group)  # (R, k, E)
         before = every[:dist.get_rank(group)].sum(0)
         total = every.sum(0)
@@ -77,7 +87,11 @@ def top_k_gating(logits, k, capacity_factor, min_capacity=4, group=None):
     prior = torch.zeros((E, ), dtype=torch.int64, device=logits.device)
     kept = torch.zeros((), dtype=torch.float32, device=logits.device)
     for j, m in enumerate(masks):
-        pos = torch.cumsum(m.to(torch.int64), dim=0) - 1 + (prior + before[j])[None, :]  # (N, E)
+        if sp > 1:  # within each row's chunk, after every earlier token of the global order
+            pos = (torch.cumsum(m.to(torch.int64).reshape(rows, N // rows, E), dim=1) - 1
+                   + (prior[None, :] + before[j])[:, None, :]).reshape(N, E)
+        else:
+            pos = torch.cumsum(m.to(torch.int64), dim=0) - 1 + (prior + before[j])[None, :]  # (N, E)
         keep = (pos < C) & (m > 0)
         kept = kept + keep.sum()
         loc = torch.where(keep, pos, torch.zeros_like(pos))
@@ -97,6 +111,25 @@ def top_k_gating(logits, k, capacity_factor, min_capacity=4, group=None):
         kept = dist.all_reduce(kept, group=group)
     drop_frac = 1.0 - kept / (n_global * k)
     return dispatch, combine, aux_loss, drop_frac
+
+
+def _seq_before(masks, rows, group, sp):
+    """(before (k, rows, E), total (k, E)) when the group's tokens are
+    chunks of sequences: ``before[j, b, e]`` counts the round-j picks of
+    expert e by every token ahead of row b's chunk here in the global
+    order (every row of the earlier data ranks; the earlier rows of this
+    data rank, whole; row b's earlier chunks), ``total`` every pick."""
+    k, E = len(masks), masks[0].shape[1]
+    per_row = torch.stack([m.reshape(rows, -1, E).sum(1) for m in masks]).to(torch.int64)  # (k, rows, E)
+    every = dist.all_gather(per_row[None], group=group)  # (R, k, rows, E), seq fastest
+    every = every.reshape(-1, sp, k, rows, E)
+    me = dist.get_rank(group)
+    d, s = me // sp, me % sp
+    earlier_ranks = every[:d].sum(dim=(0, 1, 3))  # (k, E)
+    mine = every[d].sum(0)  # this data rank's rows over the whole sequence, (k, rows, E)
+    earlier_rows = torch.cumsum(mine, dim=1) - mine
+    earlier_chunks = every[d, :s].sum(0)
+    return earlier_ranks[:, None, :] + earlier_rows + earlier_chunks, every.sum(dim=(0, 1, 3))
 
 
 def top_k_serving_weights(logits, k):

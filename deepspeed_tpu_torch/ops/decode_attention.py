@@ -69,8 +69,9 @@ The ``sharded_*`` wrappers (the JAX package's) take replicated operands,
 run the same kernel on this rank's heads over a mesh axis (``tensor``) and
 all-gather the heads: bitwise the unsharded call. The tensor-parallel model
 does not need them (its pool already holds this rank's kv heads).
-``seq_sharded_span_attention`` waits for sequence parallelism (ROADMAP
-Queue 1 #7.4).
+:func:`seq_sharded_span_attention` is the sequence-parallel prefill's: a
+rank computes its share of a wide chunk's query columns against the whole
+pool and the columns are all-gathered over ``seq``.
 """
 
 import ctypes
@@ -511,3 +512,37 @@ def sharded_extent_paged_span_attention(q, k_cache, v_cache, start, base, ext, *
     """:func:`extent_paged_span_attention` on this rank's heads,
     all-gathered."""
     return _on_heads(extent_paged_span_attention, axis, q, k_cache, v_cache, start, base, ext, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the sequence-parallel prefill: this rank's query columns, all-gathered
+
+
+def seq_sharded_span_attention(q, k_cache, v_cache, start, base, *, axis="seq", block_kv=256, scale=None,
+                               k_scale=None, v_scale=None, ext=None, sink=None, window=None, impl="kernel"):
+    """:func:`paged_span_attention` (or, with ``ext``, the extent walk of
+    :func:`extent_paged_span_attention`, ``sink``/``window`` its lossy
+    window) with the ``T`` query columns split over the mesh axis ``axis``
+    (the JAX package's ``seq_sharded_span_attention``,
+    ``ops/pallas/decode_attention.py:635``): rank s takes columns ``[s*Tl,
+    (s+1)*Tl)``, ``Tl = T / n``, against the replicated pool, its base
+    advanced by ``s*Tl``; the columns are all-gathered in rank order. A
+    column's bits depend only on its own window, so the result is bitwise
+    the one-rank call, column for column. A width the axis does not divide
+    raises."""
+    from .. import comm as dist
+    n, s = dist.get_world_size(axis), dist.get_rank(axis)
+    T = q.shape[2]
+    if T % n:
+        raise ValueError(f"span width {T} must divide by the {axis} axis size {n}")
+    Tl = T // n
+    qs = q.narrow(2, s * Tl, Tl)
+    bs = _rows(base, q.shape[0], q.device) + s * Tl
+    if ext is None:
+        out = paged_span_attention(qs, k_cache, v_cache, start, bs, block_kv=block_kv, scale=scale,
+                                   k_scale=k_scale, v_scale=v_scale, impl=impl)
+    else:
+        out = extent_paged_span_attention(qs, k_cache, v_cache, start, bs, ext, block_kv=block_kv,
+                                          scale=scale, k_scale=k_scale, v_scale=v_scale, sink=sink,
+                                          window=window, impl=impl)
+    return out if n == 1 else dist.all_gather(out.contiguous(), group=axis, axis=2)

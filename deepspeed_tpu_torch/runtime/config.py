@@ -118,9 +118,8 @@ class CheckpointConfig(DeepSpeedConfigModel):
 
 
 class MeshConfig(DeepSpeedConfigModel):
-    """The JAX package's parallel axis sizes (same keys). The port runs the
-    pipe, expert, data and tensor axes (their product is the world size);
-    the sequence axis must be 1 (ROADMAP Queue 1 #7.4)."""
+    """The JAX package's parallel axis sizes (same keys): pipe, expert,
+    data, seq and tensor, whose product is the world size."""
     tensor_parallel_size = ConfigField(default=1, aliases=("model_parallel_size",))
     pipeline_parallel_size = ConfigField(default=1)
     sequence_parallel_size = ConfigField(default=1)
@@ -263,11 +262,6 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
             if _section_on(config_dict[key]):
                 raise NotImplementedError(f"deepspeed_tpu_torch does not support the '{key}' config "
                                           f"section yet ({_UNPORTED_SECTIONS[key]})")
-        m = self.mesh
-        if m.sequence_parallel_size != 1:
-            raise NotImplementedError(f"deepspeed_tpu_torch runs the pipe, expert, data and tensor axes only: "
-                                      f"mesh.sequence_parallel_size={m.sequence_parallel_size} needs ROADMAP "
-                                      f"Queue 1 #7.4, sequence parallelism")
 
     # -- batch size arithmetic (reference config.py:738-760) ---------------
     def _resolve_data_parallel_size(self):

@@ -159,14 +159,30 @@ written in the one-stage format: each layer is fetched from its stage to
 rank 0. The forward/backward/step facade and the offload tiers raise under
 ``pipe``, as in the JAX engine.
 
+Sequence parallelism (``mesh.sequence_parallel_size``; the JAX engine's
+``engine.py:1074-1101``): the mesh is pipe x expert x data x seq x tensor,
+the model is rebuilt on this rank's chunk of the sequence
+(``models/transformer.py::seq_shard_config``: global positions and dropout
+rows, Ulysses or ring attention over ``seq``), and every micro-batch's
+sequence dim splits over ``seq`` after its shifted labels are built
+(position t's label is token t + 1; the last position's is ignored), so no
+label is lost at a chunk boundary. The valid-token count, the loss and
+every gradient are summed over the data axes and ``seq``; the ZeRO stages
+shard over the data axes only (seq ranks hold replicas, as the JAX planner
+places them), so the clip norm and the checkpoints are those of the data
+axes. Under ``pipe`` the schedule is fill-drain (1F1B refuses ``seq``, as
+in JAX). An MoE model's capacity gating runs over expert x data x seq in
+the global token order (``moe/sharded_moe.py``). The offload tiers refuse
+``seq`` (a leftover of #7.4).
+
 Model contract: ``model.loss(params, batch, **kw)`` over a flat state dict
 (``deepspeed_tpu_torch.models`` models have it), or a callable
 ``loss_fn(params, batch)``; the pipeline needs the streaming protocol
 (``stream_plan``, ``stream_embed``, ``stream_layer``, ``stream_tail_loss``)
-and ``pipeline_layers``. Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: sequence parallelism
-(#7.4), the offload tiers at tp > 1 (#7.2), 1-bit optimizers, a resume at
-another world size (#9), ``deepspeed_io``.
+and ``pipeline_layers``, sequence parallelism a model with ``seq_shard``.
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: the offload tiers at tp > 1 (#7.2) or sp > 1 (#7.4), 1-bit
+optimizers, a resume at another world size (#9), ``deepspeed_io``.
 """
 
 import inspect
@@ -192,6 +208,9 @@ from .fp16.loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import get_lr_schedule, _LRSchedule
 from .optimizers import ClientOptimizer, build_optimizer, tensor_norms
 from .zero.sharding import ShardingPlanner, entry_axes, shard, shard_group, sharded_dims, unshard
+
+# the gradient all-reduce's flat buffers: about this many bytes each
+_REDUCE_BUCKET_BYTES = 1 << 28
 
 
 def _canon(axes):
@@ -411,17 +430,24 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ init helpers
     def _configure_parallel(self, model):
-        """Pipe, tensor, data and expert parallelism over the live world:
-        the mesh (pipe x expert x data x tensor), this rank's rows and pipe
-        stage, for an MoE model the model rebuilt on this rank's experts,
-        and at tp > 1 on this rank's tensor shard. Returns the model to
-        train."""
+        """Pipe, tensor, sequence, data and expert parallelism over the live
+        world: the mesh (pipe x expert x data x seq x tensor), this rank's
+        rows and pipe stage, for an MoE model the model rebuilt on this
+        rank's experts, at tp > 1 on this rank's tensor shard and at sp > 1
+        on its chunk of the sequence. Returns the model to train."""
         m = self._config.mesh
         tp, ep, data = m.tensor_parallel_size, m.expert_parallel_size, m.data_parallel_size
-        pp = m.pipeline_parallel_size
-        self._tp, self._pp, self._stage = tp, pp, 0
+        pp, sp = m.pipeline_parallel_size, m.sequence_parallel_size
+        self._tp, self._pp, self._sp, self._stage = tp, pp, sp, 0
         self._dp = ep * data
-        self._dp_rank = 0
+        self._dp_rank = self._seq_rank = 0
+        # the ranks that share a step's loss and sum its gradients: the
+        # data axes, and seq (each seq rank holds a chunk of the tokens)
+        seq = (dist.SEQ_AXIS, ) if sp > 1 else ()
+        self._loss_axes = _canon(dist.DP_AXES + seq)
+        self._loss_world = self._dp * sp
+        self._grad_axes = self._loss_axes  # dense tensors
+        self._expert_grad_axes = _canon((dist.DATA_AXIS, ) + seq)  # a split expert axis's experts
         self._tp_dims = {}  # master key -> the dim split over tensor (tp > 1)
         self._expert_mask = None  # per master tensor: an expert of a split expert axis
         self._sharded = False  # the master is this rank's shards (ZeRO stage >= 1 over ranks)
@@ -432,22 +458,25 @@ class DeepSpeedEngine:
                 if not hasattr(model, need):
                     raise ValueError("pipeline_parallel_size > 1 needs a deepspeed_tpu_torch model (the streaming "
                                      "protocol and pipeline_layers): a loss function alone has no stages")
-        if self._dp * tp * pp == 1 and not dist.is_initialized():
+        if self._dp * tp * pp * sp == 1 and not dist.is_initialized():
             return model
-        if self._dp * tp * pp != dist.get_world_size():
-            raise ValueError(f"pipe x tensor x expert x data = {pp} x {tp} x {ep} x {data} does not cover the "
-                             f"world of {dist.get_world_size()} ranks")
+        if self._dp * tp * pp * sp != dist.get_world_size():
+            raise ValueError(f"pipe x tensor x seq x expert x data = {pp} x {tp} x {sp} x {ep} x {data} does not "
+                             f"cover the world of {dist.get_world_size()} ranks")
         mesh = dist.get_mesh() if dist.has_mesh() else None
-        axes = (dist.PIPE_AXIS, dist.EXPERT_AXIS, dist.DATA_AXIS, dist.TENSOR_AXIS)
-        if mesh is None or tuple(mesh.shape[a] for a in axes) != (pp, ep, data, tp):
-            dist.initialize_mesh(pipe=pp, expert=ep, data=data, tensor=tp)
+        axes = (dist.PIPE_AXIS, dist.EXPERT_AXIS, dist.DATA_AXIS, dist.SEQ_AXIS, dist.TENSOR_AXIS)
+        if mesh is None or tuple(mesh.shape[a] for a in axes) != (pp, ep, data, sp, tp):
+            dist.initialize_mesh(pipe=pp, expert=ep, data=data, seq=sp, tensor=tp)
         self._dp_rank = dist.get_rank(dist.DP_AXES)
+        self._seq_rank = dist.get_rank(dist.SEQ_AXIS)
         self._stage = dist.get_rank(dist.PIPE_AXIS)
         if pp > 1:
             model.pipeline_layers(self._stage, pp)  # raises for a depth the degree does not divide
+        if pp > 1 or sp > 1:
             # a group is built by every rank at its first use; the stages of a
             # step first use theirs at different points, so build them now
-            for axes in (dist.PIPE_AXIS, dist.EXPERT_AXIS, dist.DATA_AXIS, dist.TENSOR_AXIS, dist.DP_AXES):
+            for axes in (dist.PIPE_AXIS, dist.EXPERT_AXIS, dist.DATA_AXIS, dist.SEQ_AXIS, dist.TENSOR_AXIS,
+                         dist.DP_AXES, self._loss_axes, self._expert_grad_axes):
                 dist.get_mesh().process_group(axes)
         cfg = getattr(model, "cfg", None)
         if getattr(cfg, "num_experts", 0) > 0:
@@ -457,7 +486,21 @@ class DeepSpeedEngine:
                 model = type(model)(sharded)
         if tp > 1:
             model = self._tp_model(model)
+        if sp > 1:
+            model = self._seq_model(model)
         return model
+
+    def _seq_model(self, model):
+        """The model rebuilt on this rank's chunk of the sequence."""
+        from ..models.transformer import seq_shard_config
+        sp = self._sp
+        if self.offload_optimizer or self.offload_param:
+            raise _unported(f"the offload tiers at sequence_parallel_size={sp} (ZeRO-Offload and ZeRO-Infinity "
+                            f"run the whole sequence)", "ROADMAP Queue 1 #7.4, its leftover")
+        if not hasattr(getattr(model, "cfg", None), "seq_shard"):
+            raise ValueError("sequence_parallel_size > 1 needs a deepspeed_tpu_torch model (a config with "
+                             "seq_shard): a loss function alone cannot place a chunk of the sequence")
+        return type(model)(seq_shard_config(model.cfg, sp))
 
     def _tp_model(self, model):
         """The model rebuilt on this rank's tensor shard (Megatron rules:
@@ -522,7 +565,7 @@ class DeepSpeedEngine:
                 # dynamic loss scale could skip the step
                 raise NotImplementedError("pipeline.schedule='1f1b' does not support fp16 loss scaling; use bf16 "
                                           "(TPU-native) or fill_drain")
-            if self._tp > 1:
+            if self._tp > 1 or self._sp > 1:
                 raise NotImplementedError("pipeline.schedule='1f1b' composes with pipe x data meshes; use the "
                                           "default fill-drain schedule with tensor/sequence parallelism")
             if moe:
@@ -531,7 +574,7 @@ class DeepSpeedEngine:
         if getattr(model.cfg, "scan_layers", False) and str(self._config.optimizer.type or "").lower() == "lamb":
             raise _unported("LAMB's stacked-layer norm groups (scan_layers) across pipe stages",
                             "ROADMAP Queue 1 #7.3, its leftover")
-        self._pipe_auto_1f1b = not (fp16 or self._tp > 1 or moe)
+        self._pipe_auto_1f1b = not (fp16 or self._tp > 1 or self._sp > 1 or moe)
         if self._pipe_schedule == "auto":
             log_dist(f"pipeline.schedule=auto -> {'1f1b' if self._pipe_auto_1f1b else 'fill_drain'} "
                      f"(fill_drain for a masked batch)", [0])
@@ -619,7 +662,7 @@ class DeepSpeedEngine:
         self._specs = {which: {k: local(getattr(self.planner, f"{which}_spec")(k, self._shapes_global[k]), mask[k])
                                for k in shapes}
                        for which in ("param", "master", "grad", "offload")}
-        self._red_axes = {k: (dist.DATA_AXIS, ) if e else dist.DP_AXES for k, e in mask.items()}
+        self._red_axes = {k: self._expert_grad_axes if e else self._grad_axes for k, e in mask.items()}
         extra = {k: ((dist.EXPERT_AXIS, ) if e else ()) + ((dist.TENSOR_AXIS, ) if self._tp_dims.get(k) is not None
                                                              else ()) for k, e in mask.items()}
         self._norm_groups = {which: {k: _canon(shard_group(self._specs[which][k]) + extra[k]) for k in shapes}
@@ -725,10 +768,12 @@ class DeepSpeedEngine:
         streaming protocol runs a block at a time (``zero/stage3.py``)."""
         if rng is not None:
             loss_kwargs["rng"] = rng
-        if self._dp > 1 and self._global_loss:
+        if self._sp > 1:
+            batch = self._seq_split(batch)
+        if self._loss_world > 1 and self._global_loss:
             labels = batch["labels"] if "labels" in batch else batch["input_ids"][:, 1:]
-            n_valid = dist.all_reduce((labels >= 0).sum(), group=dist.DP_AXES)
-            loss_kwargs.update(n_valid=torch.clamp(n_valid, min=1), aux_share=1.0 / self._dp)
+            n_valid = dist.all_reduce((labels >= 0).sum(), group=self._loss_axes)
+            loss_kwargs.update(n_valid=torch.clamp(n_valid, min=1), aux_share=1.0 / self._loss_world)
         mine = params is self.master and self.host_opt is None
         if mine and self._stage3 is not None:
             return self._stage3(batch, scale, **loss_kwargs)
@@ -752,13 +797,31 @@ class DeepSpeedEngine:
             grads = [self._reduce_grad(k, g) for k, g in zip(keys, grads)]
         return loss.detach(), grads
 
+    def _seq_split(self, batch):
+        """This rank's chunk of a batch's sequence dim (the last), after the
+        labels are built: without ``labels`` position t's is token t + 1
+        and the last position's is ignored (-100), so the chunks' labels are
+        the whole sequence's."""
+        ids = batch["input_ids"]
+        T, sp, s = ids.shape[-1], self._sp, self._seq_rank
+        if T % sp:
+            raise ValueError(f"sequence length {T} does not split over sequence_parallel_size={sp}")
+        out = dict(batch)
+        if "labels" not in out:
+            out["labels"] = torch.cat([ids[..., 1:], torch.full_like(ids[..., :1], -100)], dim=-1)
+        Tc = T // sp
+        for k in ("input_ids", "labels", "attention_mask"):
+            if k in out:
+                out[k] = out[k][..., s * Tc:(s + 1) * Tc]
+        return out
+
     def _reduce_grad(self, k, g, which="grad"):
         """A whole fp32 gradient of tensor ``k`` reduced over its group
         (``data`` for a split expert axis's experts, expert x data for the
-        rest; the sum with the global valid count, else the mean) and
-        scattered to this rank's shard of ``grad_spec`` (``offload_spec``
-        for ZeRO-Offload)."""
-        if self._dp == 1:
+        rest, and ``seq``; the sum with the global valid count, else the
+        mean) and scattered to this rank's shard of ``grad_spec``
+        (``offload_spec`` for ZeRO-Offload)."""
+        if self._loss_world == 1:
             return g
         op = dist.ReduceOp.SUM if self._global_loss else dist.ReduceOp.AVG
         spec = self._specs[which][k]
@@ -785,28 +848,37 @@ class DeepSpeedEngine:
         return None
 
     def _reduce(self, tensors, group, op):
-        """All-reduce a list of tensors in place, as one flat buffer."""
+        """All-reduce a list of tensors in place, as flat buffers of about
+        ``_REDUCE_BUCKET_BYTES`` (a whole model's fp32 gradient in one buffer
+        would take two more copies of it on the device)."""
         if not tensors or dist.get_world_size(group) == 1:
             return
-        flat = dist.all_reduce(torch._utils._flatten_dense_tensors(tensors), op=op, group=group)
-        for t, r in zip(tensors, torch._utils._unflatten_dense_tensors(flat, tensors)):
-            t.copy_(r)
+        start, size = 0, 0
+        for i, t in enumerate(tensors):
+            size += t.numel() * t.element_size()
+            if size >= _REDUCE_BUCKET_BYTES or i == len(tensors) - 1:
+                chunk = tensors[start:i + 1]
+                flat = dist.all_reduce(torch._utils._flatten_dense_tensors(chunk), op=op, group=group)
+                for t_, r in zip(chunk, torch._utils._unflatten_dense_tensors(flat, chunk)):
+                    t_.copy_(r)
+                del flat
+                start, size = i + 1, 0
 
     @torch.no_grad()
     def _reduce_grads(self, grads, loss_mean):
-        """Data parallelism: sum the ranks' gradients (those of a split
-        expert axis's experts over ``data`` only) and their losses, or
-        average both for a loss without the global valid count (at stage
-        >= 2 the micro-steps reduced the gradients already). Returns the
-        loss."""
-        if self._dp == 1:
+        """Data and sequence parallelism: sum the ranks' gradients (those of
+        a split expert axis's experts over ``data`` and ``seq`` only) and
+        their losses, or average both for a loss without the global valid
+        count (at stage >= 2 the micro-steps reduced the gradients
+        already). Returns the loss."""
+        if self._loss_world == 1:
             return loss_mean
         op = dist.ReduceOp.SUM if self._global_loss else dist.ReduceOp.AVG
         if self.zero_stage < 2:
             mask = self._expert_mask or [False] * len(grads)
-            self._reduce([g for g, e in zip(grads, mask) if not e], dist.DP_AXES, op)
-            self._reduce([g for g, e in zip(grads, mask) if e], dist.DATA_AXIS, op)
-        return dist.all_reduce(loss_mean.float(), op=op, group=dist.DP_AXES)
+            self._reduce([g for g, e in zip(grads, mask) if not e], self._grad_axes, op)
+            self._reduce([g for g, e in zip(grads, mask) if e], self._expert_grad_axes, op)
+        return dist.all_reduce(loss_mean.float(), op=op, group=self._loss_axes)
 
     def _global_norm(self, grads, groups=None):
         """The fp32 norm of the whole model's gradient. ``groups``: per
@@ -974,8 +1046,10 @@ class DeepSpeedEngine:
         M = stacked["input_ids"].shape[0]
         labels = stacked["labels"] if "labels" in stacked else stacked["input_ids"][:, :, 1:]
         denom = (labels >= 0).sum()
-        if train and self._dp > 1:
-            denom = dist.all_reduce(denom, group=dist.DP_AXES)
+        if train and self._loss_world > 1:
+            denom = dist.all_reduce(denom, group=self._loss_axes)
+        elif self._sp > 1:  # an evaluated microbatch's count over its sequence
+            denom = dist.all_reduce(denom, group=dist.SEQ_AXIS)
         denom = torch.clamp(denom, min=1)
         keys = list(self.master)
         if train and self._pipe_gatherer is not None:
@@ -992,14 +1066,14 @@ class DeepSpeedEngine:
             src = LeafSource(p_c, keys)
         cfg = self.module.cfg
         return ModelStage(self.module, self._stage, self._pp, self._pipe_layers, self._pipe_blocks, src, stacked,
-                          denom, seed=scale, aux_coef=getattr(cfg, "moe_aux_loss_coef", 0.0) / M / self._dp,
+                          denom, seed=scale, aux_coef=getattr(cfg, "moe_aux_loss_coef", 0.0) / M / self._loss_world,
                           rngs=[self._micro_rng(m) for m in range(M)] if self._dropout and train else None,
                           accumulate=acc, train=train)
 
     def _pipe_like(self, stacked):
         """(shape, dtype, device) of an activation between stages (the
         model's activation dtype)."""
-        b, T = stacked["input_ids"].shape[1:]
+        b, T = stacked["input_ids"].shape[1:]  # this rank's chunk under seq
         cfg = self.module.cfg
         return (b, T, cfg.hidden_size), cfg.dtype, self.device
 
@@ -1024,6 +1098,8 @@ class DeepSpeedEngine:
 
         use_1f1b = self._pipe_schedule == "1f1b" or (self._pipe_schedule == "auto" and self._pipe_auto_1f1b
                                                       and "attention_mask" not in stacked)
+        if self._sp > 1:
+            stacked = self._seq_split(stacked)
         # the engine unscales by loss_scale * gas; the stream's loss is its mean already
         stage = self._pipe_stage(stacked, scale=self.loss_scale_state.cur_scale * gas, acc=accumulate)
         try:
@@ -1049,9 +1125,11 @@ class DeepSpeedEngine:
         loss, summed over ``pipe``, on every rank."""
         from .pipe.schedule import fill_drain
         stacked = {k: v[None] for k, v in self._place(batch).items()}
+        if self._sp > 1:
+            stacked = self._seq_split(stacked)
         stage = self._pipe_stage(stacked, train=False)
         fill_drain(stage, 1, self._pipe_like(stacked))
-        return dist.all_reduce(stage.loss(), group=dist.PIPE_AXIS)
+        return dist.all_reduce(stage.loss(), group=(dist.PIPE_AXIS, dist.SEQ_AXIS))
 
     # ------------------------------------------------------------------ data placement
     def _place(self, batch, lead=None):
@@ -1271,7 +1349,12 @@ class DeepSpeedEngine:
         p_c = {k: v.to(self.compute_dtype) for k, v in self.master.items()}
         if self.host_opt is None and self._sharded:
             p_c = {k: unshard(v, self._specs["master"][k]) for k, v in p_c.items()}
-        return self.loss_fn(p_c, self._place(batch))
+        if self._sp == 1:
+            return self.loss_fn(p_c, self._place(batch))
+        # this rank's chunk, over the sequence's valid count, summed over seq
+        placed = self._seq_split(self._place(batch))
+        n_valid = torch.clamp(dist.all_reduce((placed["labels"] >= 0).sum(), group=dist.SEQ_AXIS), min=1)
+        return dist.all_reduce(self.loss_fn(p_c, placed, n_valid=n_valid), group=dist.SEQ_AXIS)
 
     def __call__(self, batch):
         return self.eval_batch(batch)

@@ -16,7 +16,8 @@ Rules that carry over from DeepSpeed: ``stage3_param_persistence_threshold``
 groups (an expert tensor shards over ``data`` only, a dense one over
 ``('expert', 'data')``); tensor-parallel rules, matched by key regex before
 the data-parallel axes are placed; the pipe rule, :meth:`ShardingPlanner.
-pipe_stage`. The sequence axis is not ported yet (ROADMAP Queue 1 #7.4).
+pipe_stage`. The ``seq`` axis takes no part: seq ranks hold replicas, as
+the JAX planner places them.
 
 A spec is a tuple with one entry per dim: None, an axis name, or a tuple
 of axis names (a ``PartitionSpec``'s entries). The JAX package's paths

@@ -2,6 +2,7 @@
 ``log_dist``. A rank filter reads the ``torch.distributed`` rank when a
 process group is live (``comm.init_distributed``), else rank 0."""
 
+import functools
 import logging
 import os
 import sys
@@ -40,3 +41,9 @@ def log_dist(message, ranks=None, level=logging.INFO):
     ranks = [-1] if ranks is None else ranks
     if rank in ranks or -1 in ranks:
         logger.log(level, f"[Rank {rank}] {message}")
+
+
+@functools.lru_cache(None)
+def warning_once(message):
+    """``logger.warning(message)`` the first time this message comes."""
+    logger.warning(message)

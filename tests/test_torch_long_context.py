@@ -343,7 +343,7 @@ def test_ext_ops_outside_the_flash_span_path_raise():
     with pytest.raises(ValueError, match="flash span path"):
         flash.apply_with_cache(params, torch.zeros((2, 1), dtype=torch.long), pool, 0,
                                ext_ops=ext_ops)
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(ValueError, match="flash span path"):
         flash.apply_with_cache(params, torch.zeros((2, 1), dtype=torch.long), pool, 0,
                                seq_shard=True)
 

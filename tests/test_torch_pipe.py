@@ -96,8 +96,9 @@ def test_config_pipe_axis_and_schedule_section(caplog):
         with pytest.raises(Exception) as ref:
             JaxConfig({**cfg, "mesh": dict(cfg["mesh"])}, world_size=world)
         assert str(ours.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="#7.4"):
-        DeepSpeedConfig({"train_batch_size": 16, "mesh": {"sequence_parallel_size": 2}}, world_size=2)
+    # the sequence axis builds too (data = world / (tp x pp x sp))
+    cfg = DeepSpeedConfig({"train_batch_size": 16, "mesh": {"sequence_parallel_size": 2}}, world_size=2)
+    assert cfg.mesh.data_parallel_size == 1 and cfg.train_micro_batch_size_per_gpu == 16
     base = {"train_batch_size": 4}
     assert DeepSpeedConfig(base).pipeline_schedule() == "auto"
     for s in ("auto", "fill_drain", "1f1b"):

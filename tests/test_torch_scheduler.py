@@ -112,6 +112,26 @@ def test_int8_fused_streams_match_jax(monkeypatch):
     assert max(prefix) == len(jo[0]), (jo, to)
 
 
+def test_seq_parallel_wide_chunks_go_per_projection(monkeypatch):
+    """With the fused decode block on (tiny-gpt2 int8), a wide seq-parallel
+    chunk goes per projection on one rank too, as it must where a seq axis
+    of ranks splits it, so one rank and many give one stream; the decode
+    rows and the base chunks stay fused."""
+    te = _port("tiny-gpt2", 512, dtype="int8", kernel_inject=True, max_out_tokens=512)
+    sched = te.scheduler(prefill_chunk=16, seq_parallel_min_tokens=32, seq_parallel_degree=4)
+    assert sched._fused_block and sched._seq_shards == 1 and sched._seq_chunk == 64
+    fused, per_projection = [], []
+    real_fused, real_plain = te.module.fused_paged_step, te.module.apply_with_cache
+    monkeypatch.setattr(te.module, "fused_paged_step",
+                        lambda tree, ids, *a, **k: fused.append(ids.shape[1]) or real_fused(tree, ids, *a, **k))
+    monkeypatch.setattr(te.module, "apply_with_cache", lambda p, ids, *a, **k: per_projection.append(
+        (ids.shape[1], k["seq_shard"])) or real_plain(p, ids, *a, **k))
+    for h in [sched.submit(p, max_new_tokens=4) for p in (LONG, PROMPTS[0])]:
+        h.result()
+    assert per_projection == [(64, False)] * 2, per_projection  # LONG's two wide chunks, unsharded
+    assert fused and 64 not in fused and 16 in fused, fused
+
+
 # ---------------------------------------------------------------- port vs port
 
 
@@ -406,9 +426,9 @@ PINNED_HASHES = [[3170179127, 4179371476, 682839416, 3842603924],
 
 
 def test_unported_features_raise():
-    """Each unported feature raises naming its ROADMAP item; of long
-    context, sharding the seq-parallel prefill across devices (#7) still
-    does. Speculative decoding (with or without extent chains), the
+    """Each unported feature raises naming its ROADMAP item; the
+    seq-parallel prefill off the flash span path raises the JAX model's
+    ``ValueError``. Speculative decoding (with or without extent chains), the
     monolithic prefill and the hierarchical KV tier are ported: they build,
     from the constructor and from the config, and lossless extent demotion
     without the tier refuses (as in JAX) naming the config section, not a
@@ -419,7 +439,7 @@ def test_unported_features_raise():
     chained = sched_mod.DecodeScheduler(_port(kernel_inject=True), max_len=32, prefill_chunk=16,
                                         spec_tokens=2, max_extents=2)
     assert chained.drafter is not None and chained.cache.max_extents == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(ValueError, match="flash span path"):
         eng.module.apply_with_cache(eng.net, torch.zeros((1, 1), dtype=torch.long),
                                     eng.module.init_cache(1, 64), 0, seq_shard=True)
     flash = _port(kernel_inject=True).scheduler(max_len=32, prefill_chunk=16, max_extents=2)

@@ -130,12 +130,13 @@ def test_training_config_tensor_axis_and_mpu():
     assert cfg.mesh.data_parallel_size == 4 and cfg.train_micro_batch_size_per_gpu == 4
     with pytest.raises(DeepSpeedConfigError, match="not divisible by tp"):
         DeepSpeedConfig({"train_batch_size": 16, "mesh": {"tensor_parallel_size": 2}}, world_size=1)
-    # the pipe axis builds (data = world / (tp x pp)); the sequence axis stays refused
+    # the pipe and sequence axes build (data = world / (tp x pp x sp))
     cfg = DeepSpeedConfig({"train_batch_size": 16, "mesh": {"pipeline_parallel_size": 2, "tensor_parallel_size": 2}},
                           world_size=8)
     assert cfg.mesh.data_parallel_size == 2 and cfg.train_micro_batch_size_per_gpu == 8
-    with pytest.raises(NotImplementedError, match="#7.4"):
-        DeepSpeedConfig({"train_batch_size": 16, "mesh": {"sequence_parallel_size": 2}}, world_size=2)
+    cfg = DeepSpeedConfig({"train_batch_size": 16, "mesh": {"sequence_parallel_size": 2, "tensor_parallel_size": 2}},
+                          world_size=8)
+    assert cfg.mesh.data_parallel_size == 2 and cfg.train_micro_batch_size_per_gpu == 8
 
     class MPU:  # the reference's model-parallel unit: dp from the combined group
         def get_data_parallel_world_size(self):

@@ -76,7 +76,7 @@ def test_bad_keys_raise_the_jax_error_text(keys):
     {"hybrid_engine": {"enabled": True}},
     {"eigenvalue": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
-    {"mesh": {"sequence_parallel_size": 2}},
+    {"compression_training": {"enabled": True}},
 ])
 def test_sections_not_ported_raise(section):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
@@ -108,11 +108,11 @@ def test_disabled_sections_and_dtypes():
 def test_engine_refuses_what_it_does_not_run():
     model = get_model("tiny", dtype=torch.float32)
     base = {"train_batch_size": 4}
-    # ZeRO stages 1-3, the tensor and the pipe axes train (tests/test_torch_zero_ranks.py,
-    # tests/test_torch_tp_ranks.py, tests/test_torch_pipe_ranks.py); the sequence axis stays
-    # refused, and the pipe axis needs a world it divides
+    # ZeRO stages 1-3, the tensor, pipe and sequence axes train (tests/test_torch_zero_ranks.py,
+    # tests/test_torch_tp_ranks.py, tests/test_torch_pipe_ranks.py, tests/test_torch_seq_ranks.py);
+    # each needs a world it divides
     for extra, err, item in (({"mesh": {"pipeline_parallel_size": 2}}, DeepSpeedConfigError, "tp\\*pp\\*sp = 2"),
-                             ({"mesh": {"sequence_parallel_size": 2}}, NotImplementedError, "#7.4"),
+                             ({"mesh": {"sequence_parallel_size": 2}}, DeepSpeedConfigError, "tp\\*pp\\*sp = 2"),
                              # offload_param requires stage 3 (the JAX engine's error text)
                              ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
                               ValueError, "stage 3"),

@@ -201,14 +201,15 @@ def serve_world(rank, world, name, trees, config, prompts, max_new, cases):
 # ZeRO stages and the offload tiers across ranks
 
 
-def zero_run(name, tree, config, batch, steps, model_kw, mesh=None, ckpt=None):
+def zero_run(name, tree, config, batch, steps, model_kw, mesh=None, ckpt=None, eval_rows=None):
     """``steps`` of ``train_batch`` on the global ``batch`` under
     ``config``; returns the losses, the global gradient norms (before the
     clip), every master tensor gathered whole
     (``utils.tensor_fragment``), this rank's own part of each (its shard on
     the device, or its host partition under ZeRO-Offload) and the host
     partition's size. ``ckpt``: (directory, "save" or "load"): save after
-    the steps, or load before them (and return the loaded master)."""
+    the steps, or load before them (and return the loaded master).
+    ``eval_rows``: also the ``eval_batch`` loss of the batch's first rows."""
     import deepspeed_tpu_torch
     import deepspeed_tpu_torch.comm as dist
     from deepspeed_tpu_torch.models import get_model
@@ -241,7 +242,9 @@ def zero_run(name, tree, config, batch, steps, model_kw, mesh=None, ckpt=None):
         own, out["specs"] = engine.master, engine._specs["master"]
     out["own"] = {k: v.detach().numpy().copy() for k, v in own.items()}
     out["rank"] = {"data": dist.get_rank(dist.DATA_AXIS), "expert": dist.get_rank(dist.EXPERT_AXIS),
-                   "dp": dist.get_rank(dist.DP_AXES)}
+                   "dp": dist.get_rank(dist.DP_AXES), "seq": dist.get_rank(dist.SEQ_AXIS)}
+    if eval_rows is not None:
+        out["eval"] = float(engine.eval_batch({k: v[:eval_rows] for k, v in batch.items()}))
     return out
 
 
@@ -401,8 +404,8 @@ def tp_train_probe(name, tree, config, batch, model_kw):
                                                 config=dict(config), device="cpu")
     masks, draw = [], tr.dropout_mask
 
-    def record(key, shape, rate, device):
-        m = draw(key, shape, rate, device)
+    def record(key, shape, rate, device, seq=None):
+        m = draw(key, shape, rate, device, seq)
         masks.append((int(key), tuple(shape), m.numpy().copy()))
         return m
 
@@ -591,3 +594,134 @@ def pipe_world(rank, world, trees, batches, cases, refusals=()):
                              **kw))
     return {"runs": runs, "refusals": pipe_refusals("tiny", trees["tiny"], batches["plain"], refusals)
             if refusals else []}
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism
+
+
+def ring_world(rank, world, inputs, cases):
+    """The port's ring attention over ``seq`` on this rank's chunk of each
+    case's q, k, v: ``cases`` maps a name to (inputs key, causal,
+    schedule); returns each case's chunk of (out, dq, dk, dv) of ``sum(out
+    * w)``; and the zig-zag relayout of ``inputs["relayout"]``'s chunk
+    with its round trip."""
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.ops import ring_attention as ra
+    dist.initialize_mesh(seq=world)
+    out = {}
+    for name, (key, causal, schedule) in cases.items():
+        q, k, v, w = (torch.from_numpy(inputs[key][x]) for x in "qkvw")
+        Tc = q.shape[2] // world
+        rows = slice(rank * Tc, (rank + 1) * Tc)
+        leaves = [t[:, :, rows].clone().requires_grad_(True) for t in (q, k, v)]
+        o = ra.ring_attention(*leaves, causal=causal, schedule=schedule)
+        (o * w[:, :, rows]).sum().backward()
+        out[name] = [o.detach().numpy()] + [t.grad.numpy() for t in leaves]
+    x = torch.from_numpy(inputs["relayout"])
+    Tc = x.shape[2] // world
+    z = ra._zigzag_relayout(x[:, :, rank * Tc:(rank + 1) * Tc], dist.SEQ_AXIS, world)
+    out["relayout"] = (z.numpy(), ra._zigzag_relayout(z, dist.SEQ_AXIS, world, inverse=True).numpy())
+    return out
+
+
+def seq_ops_world(rank, world, inputs):
+    """The seq axis's operators on this rank: ``seq_sharded_span_attention``
+    (paged and extent, bf16 and int8 KV, a lossy window) against the
+    unsharded call, ``all_gather_autograd`` and the all-to-all over
+    ``seq`` forward and backward, and the head tiling."""
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops.quantizer import quantize_kv_rows
+    dist.initialize_mesh(seq=world)
+    a = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    out = {}
+    q, kc, vc, start, base = a["q"], a["kc"], a["vc"], a["start"], a["base"]
+    B = q.shape[0]  # the paged modes read the pool's first B rows; the extent modes all of it
+    out["paged"] = (da.seq_sharded_span_attention(q, kc[:B], vc[:B], start, base).numpy(),
+                    da.paged_span_attention(q, kc[:B], vc[:B], start, base).numpy())
+    kq, vq, sc = quantize_kv_rows(kc, vc)
+    out["paged_int8"] = (
+        da.seq_sharded_span_attention(q, kq[:B], vq[:B], start, base, k_scale=sc[:B], v_scale=sc[:B]).numpy(),
+        da.paged_span_attention(q, kq[:B], vq[:B], start, base, k_scale=sc[:B], v_scale=sc[:B]).numpy())
+    ext, sink, win = a["ext"], a["sink"], a["win"]
+    out["extent"] = (da.seq_sharded_span_attention(q, kc, vc, start, base, ext=ext).numpy(),
+                     da.extent_paged_span_attention(q, kc, vc, start, base, ext).numpy())
+    out["extent_lossy_int8"] = (
+        da.seq_sharded_span_attention(q, kq, vq, start, base, k_scale=sc, v_scale=sc, ext=ext, sink=sink,
+                                      window=win).numpy(),
+        da.extent_paged_span_attention(q, kq, vq, start, base, ext, k_scale=sc, v_scale=sc, sink=sink,
+                                       window=win).numpy())
+    try:
+        da.seq_sharded_span_attention(q[:, :, :world + 1], kc[:B], vc[:B], start, base)
+    except ValueError as e:
+        out["odd_width"] = str(e)
+    x = a["x"][rank].clone().requires_grad_(True)  # (2, 3, 5): gathered on dim 1
+    y = dist.all_gather_autograd(x, dist.SEQ_AXIS, 1)
+    (y * a["g"]).sum().backward()
+    out["gather"] = (y.detach().numpy(), x.grad.numpy())
+    h = a["h"][rank].clone().requires_grad_(True)  # (B, heads, Tc, D): heads to seq and back
+    t = dist.AllToAll.apply(h, dist.SEQ_AXIS, 1, 2)
+    back = dist.AllToAll.apply(t, dist.SEQ_AXIS, 2, 1)
+    (t * (rank + 1)).sum().backward()
+    out["a2a"] = (t.detach().numpy(), back.detach().numpy(), h.grad.numpy())
+    out["tiling"] = [dist.attention_partition_axes(b, n) for b, n in ((2, 4), (2, 3))]
+    return out
+
+
+def seq_train_world(rank, world, trees, batches, cases):
+    """Each case ``(kind, kwargs)`` in order: ``"zero"`` runs
+    :func:`zero_run`, ``"pipe"`` :func:`pipe_run`, ``"refuse"`` builds the
+    engine, takes one step and returns the error's message (None when
+    neither raised; ``loss_fn`` a bare loss function in place of the
+    model). ``tree`` and ``batch`` name entries of ``trees`` and
+    ``batches``."""
+    runs = []
+    for kind, case in cases:
+        kw = dict(case)
+        name, tree, batch = kw.pop("name", "tiny"), trees[kw.pop("tree")], batches[kw.pop("batch")]
+        if kind == "zero":
+            runs.append(zero_run(name, tree, kw.pop("config"), batch, kw.pop("steps"), kw.pop("model_kw", {}),
+                                 **kw))
+        elif kind == "pipe":
+            runs.append(pipe_run(name, tree, kw.pop("config"), batch, kw.pop("steps"), **kw))
+        else:
+            try:
+                import deepspeed_tpu_torch
+                from deepspeed_tpu_torch.models import get_model
+                model = get_model(name, dtype=torch.float32, attention_impl="flash", **kw.get("model_kw", {}))
+                if kw.get("loss_fn"):
+                    model = lambda p, b: torch.zeros(())  # noqa: E731  a bare loss function
+                engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(kw["config"]), device="cpu")
+                engine.train_batch(batch=batch)
+                runs.append(None)
+            except (ValueError, NotImplementedError, RuntimeError) as e:
+                runs.append(f"{type(e).__name__}: {e}")
+    return runs
+
+
+def seq_serve_run(eng, prompts, sched_kw):
+    """Greedy and sampled streams with their logits through a fresh
+    scheduler, and its seq-parallel shape: (shards, wide chunk) and the
+    widths dispatched."""
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    sched = DecodeScheduler(eng, num_slots=4, collect_logits=True, **sched_kw)
+    hs = [sched.submit(p, max_new_tokens=24) for p in prompts]
+    hs.append(sched.submit(prompts[0], max_new_tokens=24, temperature=0.8, top_k=20, seed=7, do_sample=True))
+    streams = [(h.result().tolist(), np.stack(h.result_logits())) for h in hs]
+    return {"streams": streams, "shape": (sched._seq_shards, sched._seq_chunk),
+            "widths": sorted({c for c, _ in sched.dispatched})}
+
+
+def seq_serve_world(rank, world, name, tree, config, prompts, cases):
+    """:func:`seq_serve_run` for each scheduler setting of ``cases`` on an
+    engine over the mesh ``seq = world``."""
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    dist.initialize_mesh(seq=world)
+    model = get_model(name, max_seq_len=128)
+    eng = deepspeed_tpu_torch.init_inference(model, config=dict(config), params=params_from_jax(tree, model.cfg),
+                                             device="cpu")
+    return [seq_serve_run(eng, prompts, kw) for kw in cases]
