@@ -67,8 +67,8 @@ Phases (any failure ends the run with a non-zero exit):
    and at K=1 (identical streams); the shared-prefix stream (radix hits, a
    hit's logits bitwise equal to the same prompt cold, a retained slot
    byte-stable while dead); profiles of chunk and decode syncs; the same
-   mixed stream through sequential ``generate()`` calls (bench.py's
-   yardstick); the int8 KV leg (the first 8 requests on an int8 pool
+   mixed stream's first ``YARDSTICK_REQUESTS`` through sequential
+   ``generate()`` calls (bench.py's yardstick, a rate); the int8 KV leg (the first 8 requests on an int8 pool
    against the bf16 pool: the JAX bound, >= 1.9x rows per byte, the int8
    kernel variants' launches); the speculative leg (bench.py's
    7-token-pattern stream at spec_tokens 4 against 0 on fresh schedulers,
@@ -91,6 +91,26 @@ Phases (any failure ends the run with a non-zero exit):
    the int8-KV leg (8 requests, bitwise, exact counts) under a ``POST
    /v1/debug/profile`` capture (409 on a second; the device busy share);
    ``tools/trace_summary.py`` on the JSONL;
+   Then the serving fleet (``fleet_phase``; ``python3 chip_smoke.py
+   --fleet`` runs it alone) on the same weights: (a) the mixed stream's 32
+   concurrent streaming POSTs through a gateway of one replica and of two
+   (``continuous_batching.replicas``), every SSE stream bitwise its direct
+   one-replica submit, launch counts exact as the sum over the replicas,
+   both replicas placed, HTTP tokens/s at 1 and 2, each replica's sync
+   launch and wait in ms; (b) the shared-prefix stream at 2, bitwise, with
+   sticky dispatches and radix hits, under a ``/v1/debug/profile`` capture
+   (the fleet's device busy share; a missing capture fails); (d) on the
+   same gateway, replica 1's step failing from its third call: its
+   requests fail, replica 0 finishes the rest bitwise, the fleet drains;
+   (c) ``["prefill", "decode"]`` roles in process over one host store, the
+   whole mixed stream at t = 0, bf16 and int8 KV, greedy and sampled:
+   tokens and logits bitwise the one-replica run, every request migrated
+   (out == in), each handoff's D2H and H2D by CUDA events and its bytes,
+   wall, TTFT and ITL beside the one-replica run; (e) llama3-8b (2 layers) int8 at tp
+   2, two processes over gloo, rank 0 serving HTTP and rank 1 following:
+   8 concurrent streams bitwise tp 1's direct submits, exact launches on
+   each rank, a client disconnecting mid-decode freeing the slot on both
+   ranks, both ranks exiting 0;
    Then the hierarchical KV tier (``kv_tier_phase``; ``python3
    chip_smoke.py --kv-tier`` runs it alone) on the same weights, the
    serving configuration with ``hierarchical_kv`` at 4096 MB of host RAM:
@@ -2026,8 +2046,8 @@ def gpt2_large_phase(torch, card, fused, params=None):
     int8 tree to serve (the fused engine's), else random weights from seed
     0 quantized on the host. Returns (launch
     counts of the greedy run, greedy rows, the serving phase's (mixed
-    stream, int8 KV leg) launch counts or None, the engine's int8 weights
-    for the gateway phase or None)."""
+    stream, int8 KV leg) launch counts and shared-prefix tokens or None, the
+    engine's int8 weights for the gateway phase or None)."""
     import numpy as np
     import deepspeed_tpu_torch
     B, P, NEW = 8, 128, 128
@@ -2212,6 +2232,10 @@ def llama_phase(torch, card=None):
 SERVE_CONFIG = {"dtype": "int8", "kernel_inject": True, "max_out_tokens": 512,
                 "continuous_batching": {"enabled": True, "num_slots": 8, "steps_per_sync": 4}}
 SERVE_REQUESTS, SERVE_NEW = 32, 64
+# the sequential generate() yardstick's requests, the mixed stream's first
+# (a rate of one request at a time): all 32 took 34.3 s of a run that must
+# stay inside its time limit
+YARDSTICK_REQUESTS = 8
 
 
 def mixed_stream(n=SERVE_REQUESTS, seed=SEED):
@@ -2358,8 +2382,9 @@ def serving_phase(torch, eng, card):
     streams), the kernel-vs-plain step check, the shared-prefix stream (a
     radix hit bitwise equal to the same prompt cold; a retained slot's rows
     byte-stable while dead), sync profiles, the sequential generate()
-    yardstick and the int8 KV leg. Returns the mixed stream's launch counts
-    and the int8 leg's."""
+    yardstick and the int8 KV leg. Returns the mixed stream's launch counts,
+    the int8 leg's and the shared-prefix stream's tokens (the fleet phase's
+    one-replica reference of that stream)."""
     import numpy as np
     from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
     vocab = eng.model_config.vocab_size
@@ -2452,20 +2477,22 @@ def serving_phase(torch, eng, card):
     eng._scheduler = sched = None
     torch.cuda.empty_cache()
 
-    # the yardstick: the same mixed stream through sequential generate() calls
+    # the yardstick: the same mixed stream's first YARDSTICK_REQUESTS through
+    # sequential generate() calls
     eng.generate([prompts[0]], max_new_tokens=8)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    seq_tok = sum(len(eng.generate([p], max_new_tokens=SERVE_NEW)[0]) for p in prompts)
+    seq_tok = sum(len(eng.generate([p], max_new_tokens=SERVE_NEW)[0]) for p in prompts[:YARDSTICK_REQUESTS])
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t0
-    log(f"gpt2-large sequential generate() yardstick, the same stream: {seq_tok} tokens in {seq_s:.3f} s "
+    log(f"gpt2-large sequential generate() yardstick, the same stream's first {YARDSTICK_REQUESTS} requests: "
+        f"{seq_tok} tokens in {seq_s:.3f} s "
         f"= {seq_tok / seq_s:.1f} tokens/s; the scheduler served {n_tok / wall / (seq_tok / seq_s):.2f}x it")
 
     int8_counts = int8_kv_leg(torch, eng, prompts[:8])
     speculative_leg(torch, eng, card)
     monolithic_leg(torch, eng, card, prompts, outs)
-    return counts, int8_counts
+    return counts, int8_counts, outs_sp
 
 
 def speculative_stream(vocab, cap, n=SERVE_REQUESTS, seed=SEED):
@@ -2855,7 +2882,8 @@ def gateway_phase(torch, card, params, model="gpt2-large"):
     busy share). ``tools/trace_summary.py`` must read the JSONL. Logs HTTP
     against in-process tokens/s, TTFB p50/p95, queue-wait p95, the busy
     share and the host-gap buckets in ms per sync. Returns the bf16 and the
-    int8-KV streams' launch counts."""
+    int8-KV streams' launch counts, and the bf16 stream's (HTTP tokens/s,
+    direct streams) for the fleet phase."""
     import re
     import shutil
     import tempfile
@@ -2998,13 +3026,15 @@ def gateway_phase(torch, card, params, model="gpt2-large"):
                   f"gateway int8-KV request {i}: the SSE stream differs from direct submit")
     finally:
         check(gw.close(timeout=120), "gateway (int8 KV) did not drain")
-    busy = device_busy_share(os.path.join(trace_dir, "capture.trace.json"))
+    capture = os.path.join(trace_dir, "capture.trace.json")
+    check(os.path.exists(capture), f"gateway int8-KV leg: no profiler capture at {capture}")
+    busy = device_busy_share(capture)
+    check(busy is not None, "gateway int8-KV leg: the profiler capture holds no device kernel")
     n_q = sum(len(r[1]) for r in res_q)
     log(f"gateway int8-KV leg ({len(kv_prompts)} streaming POSTs): {n_q} tokens in {wall_q:.3f} s = "
         f"{n_q / wall_q:.1f} tokens/s, streams bitwise equal to direct submit {len(res_q)}/{len(res_q)}; "
-        + ("device busy share not measured (the capture holds no device kernel)" if busy is None else
-           f"device busy {busy[0]:.3f} ms of a {busy[1]:.3f} ms torch.profiler capture "
-           f"(POST /v1/debug/profile, 1.5 s) = {busy[0] / busy[1]:.4f}"))
+        f"device busy {busy[0]:.3f} ms of a {busy[1]:.3f} ms torch.profiler capture "
+        f"(POST /v1/debug/profile, 1.5 s) = {busy[0] / busy[1]:.4f}")
     eng.telemetry.flush()
     summary = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "trace_summary.py"),
                               eng.telemetry.jsonl_path], capture_output=True, text=True, timeout=120)
@@ -3017,7 +3047,464 @@ def gateway_phase(torch, card, params, model="gpt2-large"):
     shutil.rmtree(tel_dir)
     del eng
     torch.cuda.empty_cache()
-    return counts, counts_q
+    return counts, counts_q, (n_http / wall, direct)
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the serving fleet (two replicas on the card, phase roles, the
+# gateway across two ranks)
+
+
+FLEET_MODEL = "gpt2-large"  # "tiny-gpt2" rehearses (a)-(d) on the CPU
+FLEET_REPLICAS = 2
+FLEET_FAIL_AFTER = 3        # replica 1's steps before the planted failure
+FLEET_TP_SLOTS, FLEET_TP_NEW = 4, 32
+FLEET_TP_DISCONNECT_NEW = 200
+FLEET_TIMEOUT_S = 300
+
+
+def _hist(snap, name):
+    h = snap["histograms"].get(name)
+    return (h["sum"], h["count"]) if h else (0.0, 0)
+
+
+def fleet_gateway(eng, replicas):
+    """The engine's gateway over ``replicas`` replicas (the engine's config
+    says how many), started; the engine's scheduler singleton is made anew."""
+    from deepspeed_tpu_torch.serving import Gateway
+    eng._scheduler = None
+    eng._config.continuous_batching.replicas = replicas
+    return Gateway(eng).start_background(timeout=300)
+
+
+def fleet_http_leg(torch, card, eng, prompts, direct, warm, replicas):
+    """The mixed stream as concurrent streaming POSTs through a gateway of
+    ``replicas``: every stream bitwise its direct one-replica submit,
+    launch counts exact as the sum over the replicas' forwards, each
+    replica placed, its sync launch and wait in ms. Returns (tokens/s,
+    launch counts, the gateway, still open)."""
+    import types
+    gw = fleet_gateway(eng, replicas)
+    try:
+        warmers = [warm] * replicas  # least-loaded spreads them: every replica warm
+        res, _ = http_stream(gw.port, warmers, 8)
+        check(all(r[0] == 200 for r in res), f"fleet x{replicas}: a warm-up request failed")
+        torch.cuda.synchronize()
+        for rep in gw.replicas:
+            rep.scheduler.forwards.clear()
+        before = eng.telemetry.snapshot()
+        dispatched0 = [rep.dispatched for rep in gw.replicas]
+        reset_counts()
+        res, wall = http_stream(gw.port, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        total = sum((rep.scheduler.forwards for rep in gw.replicas), start=type(gw.scheduler.forwards)())
+        check_serve_counts(types.SimpleNamespace(engine=eng, forwards=total), counts,
+                           f"fleet x{replicas} stream (sum over replicas)")
+        for i, (status, toks, _, reason) in enumerate(res):
+            check(status == 200 and reason == "length", f"fleet x{replicas} request {i}: {status} {reason}")
+            check(toks == direct[i].tolist(), f"fleet x{replicas} request {i}: the SSE stream differs from "
+                                              f"the direct one-replica submit")
+        placed = [rep.dispatched - d for rep, d in zip(gw.replicas, dispatched0)]
+        check(sum(placed) == len(prompts) and all(placed), f"fleet x{replicas}: placements {placed}")
+        after = eng.telemetry.snapshot()
+        per_rep = []
+        for rep in gw.replicas:
+            ms = []
+            for kind in ("launch", "wait"):
+                name = f"serving/replica/{rep.idx}/sync_{kind}_ms"
+                (s1, n1), (s0, n0) = _hist(after, name), _hist(before, name)
+                ms.append((s1 - s0) / max(1, n1 - n0))
+            per_rep.append(f"replica {rep.idx}: {placed[rep.idx]} placed, {n1 - n0} syncs, launch "
+                           f"{ms[0]:.4f} ms, wait {ms[1]:.4f} ms a sync")
+        n_tok = sum(len(r[1]) for r in res)
+        ttfb = [r[2] for r in res]
+        log(f"fleet x{replicas} (HTTP/1.1 + SSE, {len(prompts)} concurrent streaming POSTs, the mixed stream, "
+            f"{SERVE_NEW} new each, 8 slots a replica, K=4, chunk 64): {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} tokens/s; TTFB p50 {_pct(ttfb, 50):.1f} ms, p95 {_pct(ttfb, 95):.1f} ms; "
+            f"streams bitwise the direct one-replica submit {len(res)}/{len(res)}; " + "; ".join(per_rep)
+            + f" on {card}")
+        return n_tok / wall, counts, gw
+    except BaseException:
+        gw.close(timeout=120)
+        raise
+
+
+def fleet_shared_leg(gw, prompts, direct):
+    """The shared-prefix stream through the open two-replica gateway under
+    a ``/v1/debug/profile`` capture (the fleet's device busy share; the
+    profiler slows the host, so this pass's tokens/s is no fleet speed):
+    every stream bitwise its direct one-replica submit, sticky dispatches
+    and radix hits."""
+    tel = gw.telemetry
+    sticky0 = tel.counter_total("serving/dispatch/sticky")
+    hits0 = [rep.scheduler.radix.hits for rep in gw.replicas]
+    status, _, body = _http(gw.port, "POST", "/v1/debug/profile", {"duration_ms": 1500})
+    check(status == 200, f"POST /v1/debug/profile answered {status}")
+    path = os.path.join(json.loads(body)["path"], "capture.trace.json")
+    res, wall = http_stream(gw.port, prompts, SERVE_NEW)
+    for i, (status, toks, _, _) in enumerate(res):
+        check(status == 200 and toks == direct[i].tolist(),
+              f"fleet shared-prefix request {i}: the SSE stream differs from the direct submit")
+    sticky = tel.counter_total("serving/dispatch/sticky") - sticky0
+    hits = [rep.scheduler.radix.hits - h for rep, h in zip(gw.replicas, hits0)]
+    check(sticky > 0 and sum(hits) > 0, f"fleet shared-prefix stream: {sticky} sticky dispatches, radix hits {hits}")
+    n = sum(len(r[1]) for r in res)
+    deadline = time.monotonic() + 60
+    while not os.path.exists(path) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    check(os.path.exists(path), f"fleet shared-prefix stream: no profiler capture at {path} after 60 s")
+    share = device_busy_share(path)
+    check(share is not None, "fleet shared-prefix stream: the profiler capture holds no device kernel")
+    log(f"fleet x2 shared-prefix stream ({len(prompts)} POSTs, under the profiler): {n} tokens in {wall:.3f} s, "
+        f"{sticky} sticky dispatches of {len(prompts)}, radix hits per replica {hits}, streams bitwise the direct "
+        f"submit; device busy {share[0]:.3f} ms of a {share[1]:.3f} ms torch.profiler capture (POST "
+        f"/v1/debug/profile, 1.5 s) = {share[0] / share[1]:.4f}")
+
+
+def fleet_serve(rs, prompts):
+    """Dispatch every prompt at t = 0 (stepping the fleet while it is full),
+    the odd ones sampled (``KV_SAMPLED``), and pump until all finish.
+    Returns (streams, logits, TTFT ms, ITL ms, wall s)."""
+    stamps = [[] for _ in prompts]
+    handles = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        while True:
+            _, h = rs.dispatch(p, max_new_tokens=SERVE_NEW, collect_logits=True, seed=100 + i,
+                               on_token=lambda tok, done, i=i: stamps[i].append(time.perf_counter()),
+                               **(KV_SAMPLED if i % 2 else {}))
+            if h is not None:
+                break
+            rs.pump_once()
+        handles.append(h)
+    rs.drain_all_work()
+    wall = time.perf_counter() - t0
+    ttft = [(s[0] - t0) * 1e3 for s in stamps]
+    itl = [(s[-1] - s[0]) * 1e3 / max(1, len(s) - 1) for s in stamps]
+    return [h.result() for h in handles], [h.result_logits() for h in handles], ttft, itl, wall
+
+
+def fleet_roles_leg(torch, card, eng, prompts):
+    """``roles: ["prefill", "decode"]`` in process over one host store, the
+    whole mixed stream at t = 0 (32 requests on 8 slots a replica: prompts
+    queue for the prefill replica, handoffs for the decode replica): on the
+    model's bf16 pool and an int8 pool, requests greedy and sampled in turn,
+    every request's tokens and logits bitwise the one-replica run's, each
+    migrated (out == in); each handoff's D2H and H2D by CUDA events on the
+    tier's copy streams, its bytes; TTFT and ITL beside the one-replica
+    (colocated) run of the same stream."""
+    import numpy as np
+    from deepspeed_tpu_torch.memory import GlobalPrefixStore
+    from deepspeed_tpu_torch.serving.replica import Replica, ReplicaSet
+    for kv in ("auto", "int8"):
+        what = f"fleet roles ({'int8' if kv == 'int8' else 'bf16'} KV, greedy and sampled)"
+        one = ReplicaSet([Replica(0, kv_scheduler(eng, kv_cache_dtype=kv))])
+        ref_t, ref_l, ref_ttft, ref_itl, ref_wall = fleet_serve(one, prompts)
+        del one
+        store = GlobalPrefixStore(capacity_bytes=4 << 30)
+        pair = [kv_scheduler(eng, kv_cache_dtype=kv, prefix_store=store) for _ in range(2)]
+        rs = ReplicaSet([Replica(i, s) for i, s in enumerate(pair)], roles=["prefill", "decode"])
+        for s in pair:
+            s.kv_tier.executor.time_transfers = True
+        got_t, got_l, ttft, itl, wall = fleet_serve(rs, prompts)
+        same_t = all(np.array_equal(a, b) for a, b in zip(ref_t, got_t))
+        same_l = all(np.array_equal(a, b) for a, b in zip(ref_l, got_l))
+        moved = (pair[0].migrations_out, pair[1].migrations_in)
+        check(same_t and same_l, f"{what}: tokens bitwise {same_t}, logits bitwise {same_l}")
+        check(moved == (len(prompts), len(prompts)), f"{what}: migrations out / in {moved}")
+        d2h = transfer_rates(torch, pair[0].kv_tier, "d2h")
+        h2d = transfer_rates(torch, pair[1].kv_tier, "h2d")
+        sizes = [n for k, n, _, _ in pair[0].kv_tier.executor.transfer_events if k == "d2h"]
+        nbytes = statistics.median(sizes) if sizes else float("nan")
+        log(f"{what}, the mixed stream's {len(prompts)} requests at t = 0, {SERVE_NEW} new, 8 slots a "
+            f"replica: tokens and logits bitwise the one-replica run; migrations out / in {moved[0]} / "
+            f"{moved[1]}; a handoff's D2H {d2h[1]:.4f} ms ({d2h[2]:.2f} GB/s, median of {d2h[0]}), H2D "
+            f"{h2d[1]:.4f} ms ({h2d[2]:.2f} GB/s, median of {h2d[0]}), {nbytes / 1e6:.3f} MB median; wall "
+            f"{wall:.3f} s (one replica {ref_wall:.3f}); TTFT p50 {_pct(ttft, 50):.1f} ms, p95 "
+            f"{_pct(ttft, 95):.1f} (one replica {_pct(ref_ttft, 50):.1f}, {_pct(ref_ttft, 95):.1f}); ITL p50 "
+            f"{_pct(itl, 50):.3f} ms, p95 {_pct(itl, 95):.3f} (one replica {_pct(ref_itl, 50):.3f}, "
+            f"{_pct(ref_itl, 95):.3f}) on {card}")
+        del rs, pair, store, ref_l, got_l
+        torch.cuda.empty_cache()
+
+
+def fleet_failure_leg(gw, prompts, direct):
+    """On the open two-replica gateway, its sticky index cleared (so
+    least-loaded placement spreads the prompts over both replicas again):
+    replica 1's step raises from its ``FLEET_FAIL_AFTER``-th call on, its
+    requests fail, replica 0 serves the rest bitwise, replica 1 reads sick.
+    The caller's close checks that the fleet drains."""
+    gw.replicas._sticky.clear()
+    sick = gw.replicas.replicas[1]
+    real, calls = sick.scheduler.step, []
+
+    def step():
+        calls.append(1)
+        if len(calls) >= FLEET_FAIL_AFTER:
+            raise RuntimeError("planted step failure")
+        return real()
+    sick.scheduler.step = step
+    res, _ = http_stream(gw.port, prompts, SERVE_NEW)
+    ok = [i for i, r in enumerate(res) if r[0] == 200 and r[3] == "length"]
+    for i in ok:
+        check(res[i][1] == direct[i].tolist(), f"fleet failure leg: request {i} differs from direct submit")
+    states = gw.replicas.states()
+    check(0 < len(ok) < len(prompts), f"fleet failure leg: {len(ok)} of {len(prompts)} finished")
+    check(states[1]["status"] == "sick" and states[0]["status"] == "active",
+          f"fleet failure leg: replica states {[s['status'] for s in states]}")
+    log(f"fleet failure leg (replica 1's step raising from its {FLEET_FAIL_AFTER}th call): "
+        f"{len(prompts) - len(ok)} requests failed, {len(ok)} finished bitwise on replica 0; replica 1 "
+        f"{states[1]['status']} ({states[1]['error']})")
+
+
+def _fleet_record():
+    """Every request the schedulers of this process make, in order."""
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    made, real = [], DecodeScheduler._make_request
+
+    def make(self, *args, **kwargs):
+        req = real(self, *args, **kwargs)
+        made.append(req)
+        return req
+    DecodeScheduler._make_request = make
+    return made
+
+
+def _fleet_tp_sse(port, prompt, max_new, disconnect_after=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    toks = []
+    try:
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": [int(t) for t in prompt], "max_tokens": max_new, "stream": True}))
+        resp = conn.getresponse()
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: {"):
+                toks += json.loads(line[6:])["choices"][0]["token_ids"]
+                if disconnect_after is not None and len(toks) >= disconnect_after:
+                    break
+        return resp.status, toks
+    finally:
+        conn.close()
+
+
+def _fleet_tp_rank(rank, world, store, out_dir, dev):
+    """One rank of the fleet's tp 2 leg (a spawned process): the gloo group
+    over the card, the mesh (tensor = world), the int8 llama3-8b engine;
+    rank 0 serves the gateway (the streams, then a client that disconnects
+    mid-decode), the other rank follows. Results to
+    ``out_dir/rank{rank}.pt``, a traceback to ``rank{rank}.err``."""
+    import traceback
+    try:
+        sys.path.insert(0, ROOT)
+        import threading
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import deepspeed_tpu_torch
+        import deepspeed_tpu_torch.comm as dist
+        from deepspeed_tpu_torch.serving import Gateway, follow
+        dist.init_distributed(dist_backend="gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                              verbose=False)
+        dist.initialize_mesh(tensor=world)
+        model, tree = tp_int8_tree(torch, dev)
+        config = {**TP_SERVE_CONFIG, "continuous_batching": {"enabled": True, "num_slots": FLEET_TP_SLOTS,
+                                                               "steps_per_sync": 4}}
+        eng = deepspeed_tpu_torch.init_inference(model, config=config, params=tree, device=dev)
+        del tree
+        made = _fleet_record()
+        reset_counts()
+        res = {}
+        if rank == 0:
+            _, stream = tp_prompts(eng.model_config.vocab_size)
+            gw = Gateway(eng, port=0, request_timeout_s=600.0, drain_timeout_s=120.0).start_background(timeout=300)
+            try:
+                out = [None] * len(stream)
+
+                def client(i):
+                    out[i] = _fleet_tp_sse(gw.port, stream[i], FLEET_TP_NEW)
+                threads = [threading.Thread(target=client, args=(i, )) for i in range(len(stream))]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+                res["wall"] = time.perf_counter() - t0
+                res["streams"] = out
+                rep = gw.replicas.replicas[0]
+                real = rep.step
+
+                def slow():
+                    n = real()
+                    time.sleep(0.02)
+                    return n
+                rep.step = slow  # the disconnect lands mid-decode
+                res["disconnected"] = _fleet_tp_sse(gw.port, stream[0], FLEET_TP_DISCONNECT_NEW, disconnect_after=2)
+                deadline = time.monotonic() + 120
+                while (gw._active or rep.scheduler.cache.active_slots) and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                res["freed"] = not gw._active and rep.scheduler.cache.active_slots == 0
+            finally:
+                res["drained"] = gw.close(timeout=120)
+            res["fatal"] = gw._fatal
+        else:
+            res["rc"] = follow(eng)
+        torch.cuda.synchronize()
+        res["counts"] = read_counts()
+        res["forwards"] = dict(eng._scheduler.forwards)
+        res["reqs"] = [(r.rid, list(r.out), r.cancelled) for r in made]
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def fleet_tp_leg(torch, card, dev):
+    """llama3-8b (2 layers) int8 at tp 2, two processes sharing the card
+    over gloo: rank 0 serves the gateway, rank 1 follows. 8 concurrent
+    streams bitwise the tp 1 engine's direct submits (this process, the
+    engine's own fused-qkv layout), exact launch counts on each rank (the
+    tp 2 per-projection forwards), a client disconnecting mid-decode
+    freeing the slot on both ranks (both ranks' requests, tokens and
+    cancels equal), both ranks exiting 0. Returns one rank's launch
+    counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import deepspeed_tpu_torch
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    model, tree = tp_int8_tree(torch, dev)
+    eng = deepspeed_tpu_torch.init_inference(model, config=TP_SERVE_CONFIG,
+                                             params=fuse_qkv(torch, tree, model.cfg.num_layers), device=dev)
+    del tree
+    _, stream = tp_prompts(eng.model_config.vocab_size)
+    sched = DecodeScheduler(eng, num_slots=FLEET_TP_SLOTS, steps_per_sync=4)
+    ref = [h.result().tolist() for h in [sched.submit(p, max_new_tokens=FLEET_TP_NEW) for p in stream]]
+    cfg = dataclasses.replace(eng.model_config, int8_fused_qkv=False)
+    del sched, eng
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_tp_")
+    try:
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_fleet_tp_rank, args=(r, TP_DEGREE, os.path.join(tmp, "store"), tmp, dev))
+                 for r in range(TP_DEGREE)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        errs = [open(os.path.join(tmp, f"rank{r}.err")).read() for r in range(TP_DEGREE)
+                if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+        check(not alive, f"fleet tp: {len(alive)} rank(s) still running after {FLEET_TIMEOUT_S} s; killed")
+        check(not errs, "fleet tp: a rank failed:\n" + "\n".join(errs))
+        check(all(p.exitcode == 0 for p in procs), f"fleet tp: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(TP_DEGREE)]
+        span = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = ranks
+    check(r0["fatal"] is None and r0["drained"] and r1["rc"] == 0,
+          f"fleet tp: fatal {r0['fatal']}, drained {r0['drained']}, follower {r1.get('rc')}")
+    for i, (status, toks) in enumerate(r0["streams"]):
+        check(status == 200 and toks == ref[i], f"fleet tp request {i}: the SSE stream is not tp 1's direct submit")
+    L, per_forward = cfg.num_layers, 7 * cfg.num_layers + 1
+    for r, res in enumerate(ranks):
+        fw = res["forwards"]
+        n1, nc = fw.get(1, 0), sum(v for c, v in fw.items() if c != 1)
+        want = {**ZERO_COUNTS, "quant_matmul": per_forward * (n1 + nc), "paged_decode_attention": L * n1,
+                "paged_span_attention": L * nc}
+        check(res["counts"] == want, f"fleet tp rank {r} launches {res['counts']} != {want}")
+    check(r0["forwards"] == r1["forwards"], f"fleet tp: forwards per rank {r0['forwards']} / {r1['forwards']}")
+    status, toks = r0["disconnected"]
+    check(status == 200 and len(toks) >= 2 and r0["freed"], f"fleet tp disconnect: {status}, {len(toks)} tokens, "
+                                                             f"freed {r0['freed']}")
+    check(sorted(r0["reqs"]) == sorted(r1["reqs"]), "fleet tp: the ranks' requests, tokens or cancels differ")
+    rid, out, cancelled = r0["reqs"][-1]
+    check(cancelled and len(out) < FLEET_TP_DISCONNECT_NEW, f"fleet tp: the disconnected request ran "
+                                                            f"{len(out)} tokens, cancelled {cancelled}")
+    n = sum(len(t) for _, t in r0["streams"])
+    log(f"fleet tp {TP_DEGREE} ({TP_MODEL}, {cfg.num_layers} layers, int8, rank 0 serving HTTP, rank 1 following; "
+        f"two processes sharing the card over gloo): {len(ref)} streams bitwise tp 1's direct submits, {n} tokens "
+        f"in {r0['wall']:.3f} s (two processes sharing one card: not a tensor-parallel speed); launches exact on "
+        f"both ranks {dict((k, v) for k, v in r0['counts'].items() if v)}; the disconnected request stopped at "
+        f"{len(out)} of {FLEET_TP_DISCONNECT_NEW} tokens on both ranks; both ranks exited 0; {span:.1f} s")
+    return r0["counts"]
+
+
+def fleet_phase(torch, card, params=None, one_replica=None, shared_direct=None):
+    """gpt2-large int8 (``SERVE_CONFIG``: 8 slots x 512, K = 4, chunk 64, at
+    full depth) as a fleet, on ``params`` (the fused engine's; else seed 0
+    random weights): (a) the mixed stream's 32 concurrent streaming POSTs
+    through a gateway of one replica and of two (``fleet_http_leg``; with
+    ``one_replica``, the gateway phase's (HTTP tokens/s, direct streams) of
+    the same stream on the same weights, one replica is not served again), (b)
+    the shared-prefix stream through the two (``fleet_shared_leg``; with
+    ``shared_direct``, the serving phase's streams of it are the reference),
+    (d) a step failure planted on replica 1 of the same gateway
+    (``fleet_failure_leg``), (c) ``["prefill", "decode"]`` in process on the
+    whole mixed stream (``fleet_roles_leg``); then (e) the gateway at tp 2 on
+    llama3-8b (``fleet_tp_leg``). Returns each kernel's launches over (a)'s
+    two-replica stream and (e)'s rank."""
+    import numpy as np
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.telemetry import set_sink
+    import shutil
+    import tempfile
+    tel_dir = tempfile.mkdtemp(prefix="fleet_telemetry_")
+    config = {**SERVE_CONFIG,
+              "telemetry": {"enabled": True, "output_path": tel_dir, "flush_interval": 1000,
+                            "capacity_sample_every": GATEWAY_SAMPLE_EVERY},
+              "gateway": {"port": 0, "max_queue_depth": 64, "request_timeout_s": 600.0, "drain_timeout_s": 120.0}}
+    set_sink(None)
+    eng = deepspeed_tpu_torch.init_inference(FLEET_MODEL, config=config, params=params)
+    vocab = eng.model_config.vocab_size
+    prompts = [p % vocab for p in mixed_stream()]
+    warm = np.random.default_rng(SEED + 99).integers(0, vocab, 40).astype(np.int32)
+    sched = eng.scheduler()
+    shared = [p % vocab for p in shared_prefix_stream(sched)[0]]
+    rates = {}
+    if one_replica is None or shared_direct is None:
+        serve(sched, [warm], max_new=8)
+    if one_replica is None:
+        direct, _, wall_direct, _, _ = serve(sched, prompts)
+        log(f"fleet reference: the mixed stream by direct submit on one replica "
+            f"{sum(len(o) for o in direct) / wall_direct:.1f} tokens/s")
+    else:
+        rates[1], direct = one_replica
+        log(f"fleet: one replica over HTTP {rates[1]:.1f} tokens/s and the direct streams from the gateway phase")
+    if shared_direct is None:
+        shared_direct, _, _, _, _ = serve(sched, shared)
+    eng._scheduler = sched = None
+    torch.cuda.empty_cache()
+    for replicas in [n for n in (1, FLEET_REPLICAS) if n not in rates]:
+        rates[replicas], counts, gw = fleet_http_leg(torch, card, eng, prompts, direct, warm, replicas)
+        try:
+            if replicas > 1:
+                fleet_shared_leg(gw, shared, shared_direct)
+                fleet_failure_leg(gw, prompts[:8], direct)
+        finally:
+            check(gw.close(timeout=120), f"fleet x{replicas}: the gateway did not drain")
+    log(f"fleet HTTP tokens/s: one replica {rates[1]:.1f}, two {rates[FLEET_REPLICAS]:.1f} "
+        f"({rates[FLEET_REPLICAS] / rates[1]:.3f}x) on {card}")
+    eng._scheduler = None
+    torch.cuda.empty_cache()
+    fleet_roles_leg(torch, card, eng, prompts)
+    eng.telemetry.close()
+    set_sink(None)
+    shutil.rmtree(tel_dir, ignore_errors=True)
+    del eng
+    torch.cuda.empty_cache()
+    tp_counts = fleet_tp_leg(torch, card, torch.device("cuda"))
+    return counts, tp_counts
 
 
 # ---------------------------------------------------------------------------
@@ -6494,7 +6981,9 @@ def main(argv=()):
     kernel and run only the tensor-parallel phase (two ranks on the card);
     ``--pipe``: build every kernel and run only the pipeline phase (two
     ranks on the card); ``--seq``: build every kernel and run only the
-    sequence-parallel phase (two ranks on the card).
+    sequence-parallel phase (two ranks on the card); ``--fleet``: build
+    every kernel and run only the serving fleet's phase (two replicas, phase
+    roles, the gateway on two ranks).
     Each compares a change with its parent in one call: run this file
     beside each tree's package, in turns."""
     import torch
@@ -6567,11 +7056,15 @@ def main(argv=()):
         timed_phase("sequence parallelism", seq_phase, torch, card, dev)
         log(card)
         return 0
+    if list(argv) == ["--fleet"]:
+        timed_phase("fleet", fleet_phase, torch, card)
+        log(card)
+        return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)
     if only is not None:
         log(json.dumps({"kernels": list(results.values())}))
         return 0
-    counts, fused_greedy, (serve_counts, int8_counts), params = timed_phase(
+    counts, fused_greedy, (serve_counts, int8_counts, shared_outs), params = timed_phase(
         "gpt2-large fused and serving", gpt2_large_phase, torch, card, fused=True)
     for name, n in counts.items():  # the static generate() path
         if name in results and n:
@@ -6583,7 +7076,17 @@ def main(argv=()):
         results[name + "_int8"]["launches"] = int8_counts[name + "_int8"]
     # the serving gateway over HTTP on the same weights (its launches are
     # checked and logged there; the kernel rows keep the scheduler's)
-    timed_phase("gateway", gateway_phase, torch, card, params)
+    _, _, one_replica = timed_phase("gateway", gateway_phase, torch, card, params)
+    # the serving fleet on the same weights, beside the gateway phase's one
+    # replica (and the serving phase's shared-prefix streams as that
+    # stream's one-replica reference): its two-replica stream's launches,
+    # and a tp 2 rank's behind the gateway across ranks
+    fleet_counts, fleet_tp_counts = timed_phase("fleet", fleet_phase, torch, card, params, one_replica,
+                                                shared_outs)
+    for key, counts in (("fleet_launches", fleet_counts), ("fleet_tp2_rank_launches", fleet_tp_counts)):
+        for name, n in counts.items():
+            if n and name in results:
+                results[name][key] = n
     # the hierarchical KV tier on the same weights; its extent-paging leg
     # runs in the llama3-8b phase, on that engine
     timed_phase("kv tier", kv_tier_phase, torch, card, params, paging=False)

@@ -10,6 +10,7 @@ from .comm import (  # noqa: F401
     reduce_scatter_tensor, all_to_all, all_to_all_single, broadcast, reduce, initialize_mesh, get_mesh,
     set_mesh, has_mesh, new_group, configure, get_comms_logger, log_summary, host_broadcast, host_allgather,
     copy_to_region, reduce_from_region, gather_from_region, ppermute, ppermute_autograd, send_recv_next,
-    send_recv_prev, all_gather_autograd, attention_partition_axes,
+    send_recv_prev, all_gather_autograd, attention_partition_axes, build_group_scope, group_scope,
+    all_gather_object,
     PIPE_AXIS, EXPERT_AXIS, DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, DP_AXES, MESH_AXES, WORLD)
 from .overlap import CommOverlapTracker, get_overlap_tracker  # noqa: F401

@@ -44,12 +44,20 @@ all-to-all stages through host memory, as :func:`ppermute` does (logged as
 While a telemetry sink is live, ``barrier``, ``host_broadcast`` and
 ``host_allgather`` run inside the overlap tracker's ``track_host``
 (``comm/overlap.py``; the JAX ``comm.py:236-244``).
+
+Threads of one process that run collectives at the same time (the serving
+fleet's replicas across ranks) each take a group scope: a set of process
+groups of their own, made on every rank at set-up
+(:func:`build_group_scope`) and entered per thread (:func:`group_scope`),
+so their collectives never interleave on one group.
+:func:`all_gather_object` exchanges picklable host objects.
 """
 
 import datetime
 import math
 import os
-from contextlib import nullcontext
+import threading
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -98,6 +106,7 @@ _TORCH_OPS = {
 }
 
 _state = {"mesh": None, "comms_logger": None}
+_scope = threading.local()  # the group scope of this thread (group_scope)
 
 
 class Mesh:
@@ -138,25 +147,40 @@ class Mesh:
     def process_group(self, axes):
         """This rank's ``ProcessGroup`` over ``axes`` (None for a group of
         one). The first call for a set of axes builds every group of that
-        partition, on every rank, in one fixed order."""
+        partition, on every rank, in one fixed order. Inside
+        :func:`group_scope` it is the scope's group, which
+        :func:`build_group_scope` made."""
         axes = _axes(axes)
         if self.group_size(axes) == 1:
             return None
+        scope = getattr(_scope, "name", None)
+        if scope is not None:
+            pg = self._groups.get((scope, axes))
+            if pg is None:
+                raise RuntimeError(f"group scope {scope!r} has no process group over {axes}: "
+                                   f"build_group_scope must make it on every rank before the scope is used")
+            return pg
         if axes not in self._groups:
             if self.group_size(axes) == self.size and list(self.group_ranks(axes)) == list(range(self.size)):
                 self._groups[axes] = tdist.group.WORLD
             else:
-                seen, mine = set(), None
-                for r in range(self.size):
-                    members = tuple(self.group_ranks(axes, r))
-                    if members in seen:
-                        continue
-                    seen.add(members)
-                    pg = tdist.new_group(list(members))
-                    if get_rank() in members:
-                        mine = pg
-                self._groups[axes] = mine
+                self._groups[axes] = self._new_groups(axes)
         return self._groups[axes]
+
+    def _new_groups(self, axes):
+        """Every group of the partition over ``axes``, made in one fixed
+        order (``new_group`` is collective over the world); returns this
+        rank's."""
+        seen, mine = set(), None
+        for r in range(self.size):
+            members = tuple(self.group_ranks(axes, r))
+            if members in seen:
+                continue
+            seen.add(members)
+            pg = tdist.new_group(list(members))
+            if get_rank() in members:
+                mine = pg
+        return mine
 
 
 # ---------------------------------------------------------------------------
@@ -704,6 +728,49 @@ def host_broadcast(in_tree, src=0):
     with _tracked_host("host_broadcast"):
         tdist.broadcast_object_list(box, src=src)
     return box[0]
+
+
+def build_group_scope(name, groups):
+    """Make a scope ``name`` of process groups of its own, one over each
+    group of ``groups`` (axis names or tuples of them; None is every rank),
+    on the live mesh. Collective: every rank calls it with the same
+    arguments in the same order, at set-up. Threads that run collectives
+    at the same time each take a scope (:func:`group_scope`), so their
+    collectives never interleave on one group."""
+    mesh = get_mesh()
+    for group in groups:
+        axes = _axes(group)
+        if mesh.group_size(axes) > 1 and (name, axes) not in mesh._groups:
+            mesh._groups[(name, axes)] = mesh._new_groups(axes)
+
+
+@contextmanager
+def group_scope(name):
+    """Within the block, this thread's collectives run on the process groups
+    of scope ``name`` (:func:`build_group_scope`); None leaves the mesh's
+    own groups."""
+    prev = getattr(_scope, "name", None)
+    _scope.name = name
+    try:
+        yield
+    finally:
+        _scope.name = prev
+
+
+def all_gather_object(obj, group=None):
+    """Every member's picklable ``obj``, in member order (torch's
+    ``all_gather_object`` on the group; gloo stages it in host memory)."""
+    pg, n = _pg(group)
+    if n == 1:
+        return [obj]
+    out = [None] * n
+    with _tracked_host("all_gather_object"):
+        tdist.all_gather_object(out, obj, group=pg)
+    order = _members_sorted(group)
+    if order is not None:
+        members, srt = order
+        out = [out[srt.index(m)] for m in members]
+    return out
 
 
 def host_allgather(in_tree):

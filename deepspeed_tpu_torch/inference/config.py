@@ -426,14 +426,10 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
             out.append(item("multi_lora", "9, multi-LoRA"))
         if self.expert_offload.enabled:
             out.append(item("expert_offload", "9, MoE expert offload"))
-        if self.disaggregation.enabled:
-            out.append(item("disaggregation", "9, disaggregated prefill/decode"))
         if self.multihost.router_url is not None:
             out.append(item("multihost", "9, multi-host router"))
         if self.autoscaler.enabled:
             out.append(item("autoscaler", "9, elastic controller"))
-        if self.replicas != 1:
-            out.append(item("replicas", "9, sharded decode and replicas"))
         return out
 
 

@@ -580,8 +580,12 @@ class InferenceEngine:
                       seq_parallel_degree=lc.seq_parallel_degree,
                       allow_lossy_kv=lc.allow_lossy_kv)
             hk = cb.hierarchical_kv
-            if hk.enabled:
-                # ONE host prefix store per engine
+            if hk.enabled or cb.disaggregation.enabled:
+                # ONE host prefix store per engine: the scheduler threads it
+                # through _init_kwargs, so every ReplicaSet sibling binds the
+                # same store; disaggregated prefill/decode rides it as its
+                # migration transport, so it is built without the tier too
+                # (the hierarchical_kv knobs apply)
                 from ..memory.prefix_store import GlobalPrefixStore
                 kw["prefix_store"] = GlobalPrefixStore(
                     capacity_bytes=int(hk.host_capacity_mb) << 20, nvme_path=hk.nvme_path,

@@ -234,6 +234,24 @@ class SlotKVCache:
         ``max_extents`` chained rows when one extent is not enough?"""
         return prompt_len + max_new_tokens <= self.spannable_len
 
+    def adopt_rows(self, slot, length, version):
+        """Account ``length`` KV rows computed elsewhere landing on ACTIVE
+        ``slot`` (the disaggregated prefill-to-decode handoff: a decode
+        replica installs rows another replica's prefill wrote). The rows'
+        ``version`` must be this pool's weights version, the rule the
+        retain and insert paths keep."""
+        if self.state[slot] != "active":
+            raise ValueError(f"adopt_rows on non-active slot {slot} (state {self.state[slot]})")
+        if int(version) != self.weights_version:
+            raise ValueError(f"adopt_rows of KV stamped weights_version {int(version)} onto a pool at "
+                             f"version {self.weights_version}: a migrated request whose weights were "
+                             f"swapped mid-handoff must fail, not decode on stale rows")
+        cap = self.extent_capacity(slot)
+        if not 0 <= int(length) <= cap:
+            raise ValueError(f"adopt_rows length {length} outside [0, {cap}]")
+        self.lengths[slot] = int(length)
+        self.slot_version[slot] = self.weights_version
+
     @property
     def spannable_len(self):
         """Maximum logical tokens one request can hold across its longest

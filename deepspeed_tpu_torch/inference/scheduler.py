@@ -123,8 +123,10 @@ probe, sampling, on_token delivery and other). The port adds two
 histograms per sync: ``serving/sync_launch_ms``, the host time from the
 dispatch's first launch to its fetch call (the Python loop that enqueues
 the forwards), and ``serving/sync_wait_ms``, the time the fetch then
-blocks on the device. With the sink disabled every hook is one attribute
-test: nothing is allocated and nothing fenced.
+blocks on the device (in a replica fleet also as
+``serving/replica/<id>/sync_{launch,wait}_ms``). With the sink disabled
+every hook is one attribute test: nothing is allocated and nothing
+fenced.
 
 An MoE model serves through the same steps (each token routed on its own,
 capacity-free, ``moe/layer.py``); with telemetry on, the chunk, decode and
@@ -134,12 +136,30 @@ columns, read back with the sync's tokens into the
 ``serving/expert_load_balance`` gauge (``expert_dispatch_tokens`` keeps the
 total).
 
+**Disaggregated prefill/decode** (``serving/replica.py`` drives both
+halves): when the final chunk of a prefill lands, the ``migrate_hook`` the
+replica set installed may take the request (not a chained or lossy-window
+row); :meth:`DecodeScheduler.migrate_out` then demotes the request's whole
+KV (the prompt's rows and the rows its final sync decoded; int8 pools
+carry their row scales) to the fleet's shared host store through
+``KVTier.demote_request`` and releases the slot, and a decode replica's
+:meth:`DecodeScheduler.admit_migration` restores the rows into a slot of
+its own, where decode resumes from the request object as it left: the
+write head, the absolute step index and the sampling parameters travel
+with it, so the stream is bitwise the one that never moved. (The JAX
+scheduler calls the hook at two sites, its per-projection and its fused
+chunk steps; here both forwards run inside one chunk step.)
+
+Every scheduler has a process-unique id (``uid``) that keys its extent
+demotes in the host store, so schedulers sharing one store never collide
+on their per-scheduler request ids.
+
 Not ported, each raising naming its ROADMAP item: multi-LoRA, cold-expert
-offload, disaggregation, the weight-swap protocol and migration (#9, RLHF
-and disaggregated serving).
+offload and the weight-swap protocol (#9, RLHF).
 """
 
 import collections
+import itertools
 import time
 
 import numpy as np
@@ -151,9 +171,11 @@ from .speculative import PromptLookupDrafter
 from ..utils.counter_hash import GOLDEN, M32, mix32, mulmod32
 
 # host-store namespace of mid-decode extent demotion: a parked extent's
-# entry keys as (_EXT_NS, rid, extent index), a negative sentinel no prompt
-# can collide with; the entries are pinned and held by their scheduler
+# entry keys as (_EXT_NS, scheduler uid, rid, extent index), a negative
+# sentinel no prompt can collide with; the entries are pinned and held by
+# their scheduler
 _EXT_NS = -0x10C7E57
+_UIDS = itertools.count()
 
 
 def _round_up(x, m):
@@ -229,7 +251,7 @@ class _Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id", "do_sample", "temperature",
                  "top_k", "top_p", "seed", "slot", "out", "logits", "done", "cancelled",
                  "submit_ts", "first_token_ts", "collect_logits", "on_token", "kv_window",
-                 "row_budget", "trace")
+                 "row_budget", "trace", "handle", "migrating", "error")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature, top_k,
                  top_p, seed, collect_logits, on_token=None, kv_window=None, trace=None):
@@ -260,6 +282,14 @@ class _Request:
         # runs out of extents mid-decode
         self.row_budget = 0
         self.trace = trace  # optional telemetry.tracing.RequestTrace
+        # disaggregated serving: the handle made at submit (re-pointed
+        # when the request changes scheduler) and the in-handoff flag (set
+        # from migrate-out to admission, while no scheduler owns it)
+        self.handle = None
+        self.migrating = False
+        # a failed request (a migration failure): done with this set, and
+        # result() raises it rather than return a truncated stream
+        self.error = None
 
 
 class SchedulerHandle:
@@ -286,6 +316,8 @@ class SchedulerHandle:
     def result(self):
         while not self._req.done:
             self._sched.step()
+        if self._req.error is not None:
+            raise RuntimeError(self._req.error)
         return np.asarray(self._req.out, np.int32)
 
     def result_logits(self):
@@ -351,6 +383,20 @@ class DecodeScheduler:
         if expert_store is not None:
             raise _unported("cold-expert offload", "ROADMAP Queue 1 #9, MoE expert offload")
         self.engine = engine
+        # the raw arguments, so a replica set clones this scheduler's exact
+        # configuration for its siblings (the normalization below re-runs
+        # the same); the prefix store rides by reference, so every sibling
+        # binds the one fleet-wide host store
+        self._init_kwargs = dict(
+            num_slots=num_slots, max_len=max_len, prefill_bucket=prefill_bucket,
+            collect_logits=collect_logits, steps_per_sync=steps_per_sync,
+            prefill_chunk=prefill_chunk, prefix_cache=prefix_cache, spec_tokens=spec_tokens,
+            spec_ngram_max=spec_ngram_max, spec_ngram_min=spec_ngram_min,
+            kv_cache_dtype=kv_cache_dtype, prefix_store=prefix_store,
+            restore_min_tokens=restore_min_tokens, max_extents=max_extents,
+            seq_parallel_min_tokens=seq_parallel_min_tokens,
+            seq_parallel_degree=seq_parallel_degree, allow_lossy_kv=allow_lossy_kv)
+        self.uid = next(_UIDS)
         self.device = engine.device
         model = engine.module
         cfg = engine._config
@@ -499,6 +545,12 @@ class DecodeScheduler:
         self.telemetry = engine.telemetry
         # the replica index this scheduler serves under (serving/replica.py)
         self.replica_idx = None
+        # disaggregated serving: the replica set's hook, called when a
+        # prefill completes (True: the request migrated out), and the
+        # handoffs each way
+        self.migrate_hook = None
+        self.migrations_out = 0
+        self.migrations_in = 0
         # capacity accounting (telemetry/capacity.py): built only on an
         # enabled sink; every hook below tests `self._gap is None` first
         self.capacity = None
@@ -545,6 +597,18 @@ class DecodeScheduler:
         prefill chunks, decode, complete/cancel), flow-linked to the
         ``sched/step`` spans. ``adapter_id`` is not ported and raises when
         set."""
+        req = self._make_request(prompt, max_new_tokens, eos_token_id, do_sample, temperature, top_k,
+                                 top_p, seed, collect_logits, on_token, trace, adapter_id, kv_window)
+        if not req.done:
+            self._enqueue(req)
+        return req.handle
+
+    def _make_request(self, prompt, max_new_tokens=64, eos_token_id=None, do_sample=False,
+                      temperature=1.0, top_k=0, top_p=1.0, seed=0, collect_logits=None, on_token=None,
+                      trace=None, adapter_id=None, kv_window=None, rid=None):
+        """:meth:`submit`'s request and handle, validated, not queued yet
+        (:meth:`_enqueue`). ``rid``: the id to give it (a rank following
+        another's calls), else the next one."""
         if adapter_id is not None:
             raise _unported("multi-LoRA serving (adapter_id)", "ROADMAP Queue 1 #9, multi-LoRA")
         if kv_window is not None:
@@ -557,11 +621,13 @@ class DecodeScheduler:
             if sink < 0 or recent < 1:
                 raise ValueError(f"kv_window must be (sink >= 0, recent >= 1), got {kv_window!r}")
             kv_window = (sink, recent)
-        req = _Request(self._rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature,
+        rid = self._rid if rid is None else int(rid)
+        req = _Request(rid, prompt, max_new_tokens, eos_token_id, do_sample, temperature,
                        top_k, top_p, seed,
                        self.collect_logits if collect_logits is None else collect_logits,
                        on_token=on_token, kv_window=kv_window, trace=trace)
-        self._rid += 1
+        self._rid = max(self._rid, rid + 1)
+        req.handle = SchedulerHandle(self, req)
         if trace is not None:
             trace.attrs.setdefault("sched_rid", req.rid)
         # the monolithic prefill writes one slot; chunks may span a chain
@@ -575,7 +641,7 @@ class DecodeScheduler:
                 f"the prompt")
         if req.max_new_tokens <= 0:  # static-path parity: zero budget -> no tokens
             req.done = True
-            return SchedulerHandle(self, req)
+            return req
         # the K-step sync writes K rows even when the budget ends mid-block;
         # a verify block likewise writes up to W rows past the final token
         budget = _round_up(req.max_new_tokens, self.steps_per_sync)
@@ -587,7 +653,10 @@ class DecodeScheduler:
                              f"{self.cache.spannable_len}; raise max_out_tokens / max_len / "
                              f"long_context.max_extents, or shorten the request")
         req.row_budget = int(budget)
-        handle = SchedulerHandle(self, req)
+        return req
+
+    def _enqueue(self, req):
+        """Queue a request of :meth:`_make_request`."""
         self.queue.append(req)
         if self.kv_tier is not None:
             # look-ahead: an NVMe-spilled host match starts its disk read
@@ -595,7 +664,6 @@ class DecodeScheduler:
             self.kv_tier.prefetch(req.prompt)
         if self.telemetry.enabled:
             self.telemetry.gauge("serving/queue_depth", len(self.queue))
-        return handle
 
     def drain(self):
         """Run until every queued/active request finishes."""
@@ -610,12 +678,124 @@ class DecodeScheduler:
         raise _unported("the weight-swap protocol (pause/resume/flush/swap_weights)",
                         "ROADMAP Queue 1 #9, RLHF")
 
-    def _migration(self, *args, **kwargs):
-        raise _unported("request migration (migrate_out/admit_migration)",
-                        "ROADMAP Queue 1 #9, disaggregated prefill/decode")
-
     pause = resume = flush = swap_weights = _weight_swap
-    migrate_out = admit_migration = _migration
+
+    def owns(self, req):
+        """Does this scheduler hold ``req`` now (queued, prefilling or
+        decoding)? A request migrated out is held by none while its handoff
+        is parked, so a prefill replica failing after the handoff cannot
+        fail it."""
+        return ((self._prefill is not None and self._prefill.req is req)
+                or (req.slot is not None and self.active.get(req.slot) is req)
+                or any(q is req for q in self.queue))
+
+    # ------------------------------------------------------------------ migration
+    def migrate_out(self, req, key, on_ready):
+        """Release ``req`` with its KV parked in the store under ``key``
+        (the replica set's migrate hook, on this scheduler's pump thread,
+        right after the final prefill sync delivered its tokens).
+        ``on_ready(entry or None)`` fires once the handoff entry is
+        claimable (None: the fetch failed). Returns the rows parked."""
+        slot = req.slot
+        kv_len = int(self.cache.lengths[slot])
+        # demote first, release after: the rows are gathered into fresh
+        # memory, so the slot is reusable at once, and a failure here
+        # propagates while this scheduler still owns the request
+        t0 = time.perf_counter() if self._gap is not None else 0.0
+        self.kv_tier.demote_request(slot, kv_len, key, on_ready)
+        if self._gap is not None:
+            self._gap.add("tier_transfer", time.perf_counter() - t0)
+        if self.capacity is not None:
+            # handoff traffic: no token comes out of moving these bytes
+            self.capacity.account(0, wasted_bytes=kv_len * self.cache.bytes_per_token())
+        req.migrating = True
+        del self.active[slot]
+        # retained cached: the prompt prefix _finish_prefill registered
+        # stays a donor here
+        self._release_slot(slot)
+        self.migrations_out += 1
+        req.slot = None
+        if req.trace is not None and req.trace.enabled:
+            req.trace.mark("migration")
+            req.trace.instant("migrate_out", replica=self.replica_idx, kv_len=kv_len)
+        return kv_len
+
+    def _settle_migration(self, record, error=None, discard=True):
+        """End a failed or cancelled handoff: the request done (with
+        ``error`` unless the client cancelled it), its parked entry
+        dropped, and the outcome counted. Returns ``"settled"``."""
+        req = record.req
+        if error is not None and not req.cancelled:
+            req.error = error
+        req.done = True
+        req.migrating = False
+        if discard and record.entry is not None:
+            self.kv_tier.store.discard(record.key)
+        tel = self.telemetry
+        if tel.enabled:
+            tel.counter("serving/cancelled" if req.cancelled else "serving/migrations_failed")
+        if req.trace is not None:
+            req.trace.instant("cancelled" if req.cancelled else "failed", where="migration")
+        return "settled"
+
+    def admit_migration(self, record):
+        """Admit a migrated request (this scheduler's pump thread, the decode
+        half of the handoff). Returns ``"resumed"`` when it decodes here,
+        ``"settled"`` when it ended without a slot (cancelled mid-handoff, a
+        failed demote, another weights version), None when no slot is free
+        (it stays parked). A restore that raises settles the request as
+        failed first, then re-raises."""
+        req = record.req
+        tel = self.telemetry
+        if req.cancelled or record.entry is None:
+            return self._settle_migration(
+                record, error="migration failed: KV handoff device->host fetch failed")
+        if record.version != int(self.cache.weights_version):
+            return self._settle_migration(
+                record, error="migration failed: weights version changed while the handoff was "
+                              "parked (stale KV must not decode)")
+        slot = self.cache.alloc(owner=req.rid)
+        if slot is None and self.radix is not None:
+            victim = self.radix.evict_lru()
+            if victim is not None:
+                self.cache.reclaim(victim)
+                if tel.enabled:
+                    tel.counter("serving/prefix_cache_evict")
+                slot = self.cache.alloc(owner=req.rid)
+        if slot is None:
+            return None
+        try:
+            t0 = time.perf_counter() if self._gap is not None else 0.0
+            ok = self.kv_tier.restore_request(record.entry, slot, record.kv_len)
+            if self._gap is not None:
+                self._gap.add("tier_transfer", time.perf_counter() - t0)
+            if ok:
+                if self.capacity is not None:
+                    self.capacity.account(0, wasted_bytes=record.kv_len * self.cache.bytes_per_token())
+                self.cache.adopt_rows(slot, record.kv_len, record.version)
+        except Exception:
+            # the record is consumed: settle and free before propagating, so
+            # no slot leaks and no request is left without an owner
+            self.cache.free(slot)
+            self._settle_migration(record, error="migration failed: KV restore raised on the "
+                                                 "decode replica")
+            raise
+        if not ok:
+            self.cache.free(slot)
+            return self._settle_migration(
+                record, discard=False,
+                error="migration failed: handoff entry dropped before the decode replica claimed it")
+        req.slot = slot
+        req.migrating = False
+        self.active[slot] = req
+        self.migrations_in += 1
+        if req.handle is not None:
+            # result() now pumps the scheduler that owns the request
+            req.handle._sched = self
+        if req.trace is not None and req.trace.enabled:
+            req.trace.phase("migration", replica=self.replica_idx, kv_len=record.kv_len)
+            req.trace.instant("migrated", replica=self.replica_idx, replica_kv_len=record.kv_len)
+        return "resumed"
 
     # ------------------------------------------------------------------ loop
     def step(self):
@@ -749,8 +929,12 @@ class DecodeScheduler:
         t = time.perf_counter()
         self._gap.sync_end(t)
         tel = self.telemetry
-        tel.histogram("serving/sync_launch_ms", (t_fetch - t0) * 1e3)
-        tel.histogram("serving/sync_wait_ms", (t - t_fetch) * 1e3)
+        launch_ms, wait_ms = (t_fetch - t0) * 1e3, (t - t_fetch) * 1e3
+        tel.histogram("serving/sync_launch_ms", launch_ms)
+        tel.histogram("serving/sync_wait_ms", wait_ms)
+        if self.replica_idx is not None:
+            tel.histogram(f"serving/replica/{self.replica_idx}/sync_launch_ms", launch_ms)
+            tel.histogram(f"serving/replica/{self.replica_idx}/sync_wait_ms", wait_ms)
         if self._cap_sample:
             self._cap_sample = False  # one fenced dispatch per sampled sync
             self.capacity.observe_dispatch(key, t - t0, live_ctx, kv_mult)
@@ -777,7 +961,7 @@ class DecodeScheduler:
         for key in [k for k in self._ext_parked if k[0] == req.rid]:
             del self._ext_parked[key]
             if self.kv_tier is not None:
-                self.kv_tier.store.discard((_EXT_NS, req.rid, key[1]))
+                self.kv_tier.store.discard((_EXT_NS, self.uid, req.rid, key[1]))
 
     def _reap_cancelled(self):
         """Evict slots whose requests were cancelled. Runs only from step(),
@@ -883,7 +1067,7 @@ class DecodeScheduler:
                 # the rows go to fresh memory first: the cache-level demote
                 # frees the pool row
                 self._ext_parked[(req.rid, idx)] = self.kv_tier.demote_extent(
-                    members[idx], (_EXT_NS, req.rid, idx))
+                    members[idx], (_EXT_NS, self.uid, req.rid, idx))
             self.cache.demote_extent(slot, idx)
             demoted += 1
             self.longctx_demotes += 1
@@ -1573,6 +1757,14 @@ class DecodeScheduler:
                     preq.logits.append(logits_k[k, ps])
                 self._deliver(preq, int(toks_k[k, ps]))
                 delivered += 1
+            # disaggregated serving: a prefill-role replica hands the request
+            # to the decode side here, after this sync's tokens streamed, with
+            # budget left; decode resumes elsewhere from the per-row state
+            # this sync left. Chained and lossy-window rows stay: the handoff
+            # moves one contiguous slot
+            if (not preq.done and self.migrate_hook is not None and ps not in self.cache.chain
+                    and preq.kv_window is None):
+                self.migrate_hook(self, preq)
         else:
             self.cache.lengths[ps] = pf.pos
         return delivered, K

@@ -13,6 +13,10 @@ The host code of the offload tiers (``csrc/cpu_adam.c``, ``csrc/aio.c``)
 builds the same way with the host C compiler (``$CC``, default ``cc``)
 through :func:`load_host`, named by a hash of the source, the compiler and
 its flags; a failed build raises with the compiler's output.
+
+Threads may launch kernels at once (the serving gateway runs a pump thread
+per replica), so a library is built, loaded and bound at most once: under
+one lock, through :func:`bind` in the wrappers.
 """
 
 import ctypes
@@ -21,6 +25,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -29,6 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded = {}
 _loaded_host = {}
+# one build at a time in a process: two threads building one library would
+# share its temporary file
+lock = threading.RLock()
 
 
 def _nvcc():
@@ -99,15 +107,16 @@ def build_all(names):
     process per source, all started together. A name given twice (two
     kernels of one source) builds once. Returns {name: ptxas log}."""
     names = list(dict.fromkeys(names))
-    jobs = [j for j in (_start(n) for n in names) if j is not None]
-    try:
-        for job in jobs:
-            _finish(job)
-    finally:
-        for job in jobs:
-            if job[4].poll() is None:
-                job[4].kill()
-                job[4].wait()
+    with lock:
+        jobs = [j for j in (_start(n) for n in names) if j is not None]
+        try:
+            for job in jobs:
+                _finish(job)
+        finally:
+            for job in jobs:
+                if job[4].poll() is None:
+                    job[4].kill()
+                    job[4].wait()
     logs = {}
     for n in names:
         with open(_paths(n)[2]) as f:
@@ -119,11 +128,28 @@ def load(name):
     """The ctypes library of kernel ``name``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_paths(name)[1])
-        lib.ds_error_string.argtypes = [ctypes.c_int]
-        lib.ds_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        with lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(_paths(name)[1])
+                lib.ds_error_string.argtypes = [ctypes.c_int]
+                lib.ds_error_string.restype = ctypes.c_char_p
+                _loaded[name] = lib
+    return lib
+
+
+def bind(cache, name, setup):
+    """``cache[name]``: kernel ``name``'s library (:func:`load`) with its
+    launch signatures set by ``setup(lib)``, made once across threads."""
+    lib = cache.get(name)
+    if lib is None:
+        with lock:
+            lib = cache.get(name)
+            if lib is None:
+                lib = load(name)
+                setup(lib)
+                cache[name] = lib
     return lib
 
 
@@ -156,6 +182,11 @@ def load_host(name, flags, libs=()):
     compiler on first use. Raises ``RuntimeError`` with the compiler's
     output when the build fails."""
     src, lib, cmd = _host_paths(name, flags)
+    with lock:
+        return _load_host(name, src, lib, cmd, libs)
+
+
+def _load_host(name, src, lib, cmd, libs):
     if lib in _loaded_host:
         return _loaded_host[lib]
     if not os.path.exists(lib):

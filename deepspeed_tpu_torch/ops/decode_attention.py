@@ -82,20 +82,19 @@ from . import build
 
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("decode_attention", )
-_libc = None
+_libs = {}
+
+
+def _bind(lib):
+    lib.decode_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                                  + [ctypes.c_float, ctypes.c_void_p])
+    lib.decode_launch.restype = ctypes.c_int
+    lib.decode_workspace.argtypes = [ctypes.c_int] * 6
+    lib.decode_workspace.restype = ctypes.c_longlong
 
 
 def _lib():
-    global _libc
-    if _libc is None:
-        lib = build.load(SOURCES[0])
-        lib.decode_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-                                      + [ctypes.c_float, ctypes.c_void_p])
-        lib.decode_launch.restype = ctypes.c_int
-        lib.decode_workspace.argtypes = [ctypes.c_int] * 6
-        lib.decode_workspace.restype = ctypes.c_longlong
-        _libc = lib
-    return _libc
+    return build.bind(_libs, SOURCES[0], _bind)
 
 
 def _rows(v, B, device):

@@ -60,7 +60,12 @@ from .quant_matmul import quant_matmul_plain
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("fused_qkv_ln", "fused_out_mlp")
 _libs = {}
-_flags = {}  # device -> zeroed int32 arrival counts of the mma.sync plans' block tiles
+# device -> zeroed int32 arrival counts of the mma.sync plans' block tiles.
+# One buffer a device holds while calls on a device run one at a time: the
+# serving fleet's pump threads all launch on the device's default stream (a
+# new thread's current stream), so their kernels queue in one order. A
+# stream per replica would need a buffer per stream.
+_flags = {}
 
 # the products' tiling (ops/csrc/qmm_core.cuh): 128 columns a block, K in
 # segments of at most 128 rows inside a quantization group; mma.sync up to
@@ -78,20 +83,19 @@ _plant = 0
 _ACTS = {"gelu": 0, "gelu_exact": 1, "quick_gelu": 2, "silu": 3, "relu": 4}
 
 
+def _bind(name, lib):
+    if name == "fused_qkv_ln":
+        lib.qkv_ln_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                                      + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.qkv_ln_launch.restype = ctypes.c_int
+    else:
+        lib.out_mlp_launch.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 14
+                                       + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.out_mlp_launch.restype = ctypes.c_int
+
+
 def _lib(name):
-    lib = _libs.get(name)
-    if lib is None:
-        lib = build.load(name)
-        if name == "fused_qkv_ln":
-            lib.qkv_ln_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                                          + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.qkv_ln_launch.restype = ctypes.c_int
-        else:
-            lib.out_mlp_launch.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 14
-                                           + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-            lib.out_mlp_launch.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+    return build.bind(_libs, name, lambda lib: _bind(name, lib))
 
 
 def _flags_for(device, n):

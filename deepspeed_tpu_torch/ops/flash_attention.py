@@ -37,23 +37,22 @@ SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 _lib = {}
 
 
-def _kernel(name):
-    lib = _lib.get(name)
-    if lib is None:
-        lib = build.load(name)
-        if name == "flash_attention_fwd":
-            lib.flash_fwd_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+def _bind(name, lib):
+    if name == "flash_attention_fwd":
+        lib.flash_fwd_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_fwd_launch.restype = ctypes.c_int
+    else:
+        lib.flash_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_bwd_dq_launch.restype = ctypes.c_int
+        lib.flash_bwd_dkv_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                                              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            lib.flash_fwd_launch.restype = ctypes.c_int
-        else:
-            lib.flash_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                                                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            lib.flash_bwd_dq_launch.restype = ctypes.c_int
-            lib.flash_bwd_dkv_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                                                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            lib.flash_bwd_dkv_launch.restype = ctypes.c_int
-        _lib[name] = lib
-    return lib
+        lib.flash_bwd_dkv_launch.restype = ctypes.c_int
+
+
+def _kernel(name):
+    return build.bind(_lib, name, lambda lib: _bind(name, lib))
 
 
 def _check(q, k, v):

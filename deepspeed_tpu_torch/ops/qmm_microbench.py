@@ -35,7 +35,7 @@ from . import build
 
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("qmm_microbench", )
-_lib = None
+_libs = {}
 # 0, or a fault planted in the kernel for the card's gates to catch: 1 drops
 # group 1 from the first strip's walk, 2 sums the groups in reverse order
 _plant = 0
@@ -57,15 +57,14 @@ _MAX_SMEM, _SMEM_ALIGN = 232448, 1024
 Grid = collections.namedtuple("Grid", "ctas row_tiles stages smem")
 
 
+def _bind(lib):
+    lib.qmm_microbench_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                          + [ctypes.c_void_p])
+    lib.qmm_microbench_launch.restype = ctypes.c_int
+
+
 def _kernel():
-    global _lib
-    if _lib is None:
-        lib = build.load(SOURCES[0])
-        lib.qmm_microbench_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                                              + [ctypes.c_void_p])
-        lib.qmm_microbench_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return build.bind(_libs, SOURCES[0], _bind)
 
 
 def _smem_bytes(which, K, G, stages):

@@ -21,7 +21,7 @@ from . import build
 
 # the CUDA sources under ops/csrc this module launches
 SOURCES = ("quant_matmul", )
-_lib = None
+_libs = {}
 
 # kernel tiling (ops/csrc/quant_matmul.cu): 128 columns a block; K in
 # segments of 128 rows, the unit of the fp32 sum
@@ -53,14 +53,13 @@ def _spread(M, splits):
     return splits > 1 and M <= _NARROW_M
 
 
+def _bind(lib):
+    lib.qmm_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.qmm_launch.restype = ctypes.c_int
+
+
 def _kernel():
-    global _lib
-    if _lib is None:
-        lib = build.load(SOURCES[0])
-        lib.qmm_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.qmm_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return build.bind(_libs, SOURCES[0], _bind)
 
 
 def _check_shapes(x, qw, scales):

@@ -52,24 +52,22 @@ SOURCES = ("block_sparse_attention_fwd", "block_sparse_attention_bwd")
 _lib = {}
 
 
-def _kernel(name):
-    lib = _lib.get(name)
-    if lib is None:
-        lib = build.load(name)
-        if name == "block_sparse_attention_fwd":
-            lib.block_sparse_fwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+def _bind(name, lib):
+    if name == "block_sparse_attention_fwd":
+        lib.block_sparse_fwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                                                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.block_sparse_fwd_launch.restype = ctypes.c_int
+    else:
+        lib.block_sparse_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                                                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.block_sparse_bwd_dq_launch.restype = ctypes.c_int
+        lib.block_sparse_bwd_dkv_launch.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                                                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            lib.block_sparse_fwd_launch.restype = ctypes.c_int
-        else:
-            lib.block_sparse_bwd_dq_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
-                                                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            lib.block_sparse_bwd_dq_launch.restype = ctypes.c_int
-            lib.block_sparse_bwd_dkv_launch.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-                                                        + [ctypes.c_float, ctypes.c_int,
-                                                           ctypes.c_void_p])
-            lib.block_sparse_bwd_dkv_launch.restype = ctypes.c_int
-        _lib[name] = lib
-    return lib
+        lib.block_sparse_bwd_dkv_launch.restype = ctypes.c_int
+
+
+def _kernel(name):
+    return build.bind(_lib, name, lambda lib: _bind(name, lib))
 
 
 def _index_tables(layout):

@@ -1,13 +1,24 @@
 """``python -m deepspeed_tpu_torch.serving``: run the serving gateway.
 
-Port of ``deepspeed_tpu/serving/__main__.py``, its single-process mode.
-Builds an :class:`InferenceEngine` (continuous batching on) on the card, or
-on the CPU with ``--device cpu`` or a config whose ``device`` key says so,
-binds the HTTP gateway, and serves until SIGTERM/SIGINT, which drain it:
-readiness flips to 503, admitted requests finish, telemetry flushes, and
-the process exits 0. Prints one ``GATEWAY_READY`` JSON line (with the bound
-port; ``--port 0`` binds an ephemeral one) once accepting traffic.
-``kill -USR1`` writes a flight-recorder dump under the telemetry directory.
+Port of ``deepspeed_tpu/serving/__main__.py`` without its multi-host
+modes. Builds an :class:`InferenceEngine` (continuous batching on) on the
+card, or on the CPU with ``--device cpu`` or a config whose ``device`` key
+says so, binds the HTTP gateway, and serves until SIGTERM/SIGINT, which
+drain it: readiness flips to 503, admitted requests finish, telemetry
+flushes, and the process exits 0. Prints one ``GATEWAY_READY`` JSON line
+(with the bound port, ``--port 0`` binding an ephemeral one, and the
+process id) once accepting traffic. ``kill -USR1`` writes a
+flight-recorder dump under the telemetry directory.
+
+Across ranks (``torchrun --nproc-per-node N -m deepspeed_tpu_torch.serving
+--config cfg.json``, the config's ``tensor_parallel.tp_size`` dividing N):
+every rank builds the engine over its shard; rank 0 serves and prints the
+one ``GATEWAY_READY`` line, the other ranks follow it
+(``serving.gateway.follow``) and ignore SIGTERM/SIGINT: SIGTERM to rank 0
+drains every rank, and all exit 0. The ranks meet in a gloo group (NCCL
+refuses two ranks on one card; gloo takes the card's tensors through host
+memory); with a card, rank r runs on card ``r mod`` the cards present. A follower's telemetry writes under
+``<output_path>/rank<r>``.
 
 ``--router`` and ``--worker`` (the multi-host tiers) exit non-zero: they are
 not ported yet (ROADMAP Queue 1 #9).
@@ -15,6 +26,7 @@ not ported yet (ROADMAP Queue 1 #9).
 
 import argparse
 import json
+import os
 import signal
 import sys
 
@@ -79,9 +91,30 @@ def main(argv=None):
             gw_cfg[key] = val
 
     import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
     from deepspeed_tpu_torch.serving import Gateway
+    from deepspeed_tpu_torch.serving.gateway import follow
 
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if world > 1:
+        import torch
+        if device != "cpu" and torch.cuda.is_available():
+            torch.cuda.set_device(dist.get_local_rank() % torch.cuda.device_count())
+        dist.init_distributed(dist_backend="gloo", verbose=False)
+        rank = dist.get_rank()
+        tel = cfg.get("telemetry")
+        if rank and isinstance(tel, dict) and tel.get("output_path"):
+            cfg["telemetry"] = {**tel, "output_path": os.path.join(tel["output_path"], f"rank{rank}")}
     engine = deepspeed_tpu_torch.init_inference(args.model, config=cfg, device=device)
+    if world > 1 and dist.get_rank() != 0:
+        # rank 0's drain stops this rank; a signal here must not cut it out
+        # of the ranks' collectives
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+        rc = follow(engine)
+        engine.telemetry.close()
+        dist.destroy_process_group()
+        return rc
     gateway = Gateway(engine)
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: gateway.begin_drain())
@@ -91,6 +124,8 @@ def main(argv=None):
         signal.signal(signal.SIGUSR1, lambda *_: gateway.request_flight_dump("sigusr1"))
     rc = gateway.run()
     engine.telemetry.close()
+    if world > 1:
+        dist.destroy_process_group()
     return rc
 
 

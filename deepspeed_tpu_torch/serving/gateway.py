@@ -1,7 +1,9 @@
 """Serving gateway: streaming HTTP frontend over the scheduler.
 
-Port of ``deepspeed_tpu/serving/gateway.py`` for one replica on one card,
-stdlib only (``asyncio`` + hand-rolled HTTP/1.1):
+Port of ``deepspeed_tpu/serving/gateway.py``, stdlib only (``asyncio`` +
+hand-rolled HTTP/1.1), over a fleet of replicas
+(:class:`~deepspeed_tpu_torch.serving.replica.ReplicaSet`) on one card or
+across the ranks of a mesh:
 
 - **HTTP surface** (OpenAI-compatible where it can be, given the engine
   speaks token ids, not text): ``POST /v1/completions`` with ``"stream":
@@ -13,7 +15,10 @@ stdlib only (``asyncio`` + hand-rolled HTTP/1.1):
   ``GET /v1/slo`` (the SLO engine's objective/burn-rate state), ``GET
   /v1/debug/flight`` (force a flight-recorder dump), ``POST
   /v1/debug/profile`` (a bounded ``torch.profiler`` capture; 409 while one
-  runs), ``GET /v1/replicas`` and ``POST /v1/replicas/0/{drain,resume}``.
+  runs), ``GET /v1/replicas`` and ``POST /v1/replicas/<i>/{drain,resume,
+  role}`` (``role``: body ``{"role": "prefill"|"decode"|"mixed"}``, the
+  phase role of disaggregated prefill/decode; 400 when the fleet would lose
+  a phase).
   Prompts are token-id lists (or whitespace-separated decimal ids in a
   string); completions carry both ``token_ids`` and a space-joined decimal
   ``text``.
@@ -48,20 +53,45 @@ stdlib only (``asyncio`` + hand-rolled HTTP/1.1):
   every admitted request, flushes telemetry and closes the server;
   ``drain_timeout_s`` bounds the grace.
 
-``POST /v1/debug/flush_radix`` evicts the replica's whole radix trie
-through the hierarchical KV tier on the pump thread (each eviction demotes
-to the host store) and answers once the demotes are probe-visible.
+``POST /v1/debug/flush_radix`` evicts every replica's radix trie through
+the hierarchical KV tier on its pump thread (each eviction demotes to the
+host store) and answers once the demotes are probe-visible.
 
-Not ported, each answering 404 (or raising) naming ROADMAP Queue 1 #9:
-more than one replica, the elastic autoscaler (``/v1/autoscaler``), the
-multi-host router's worker hooks (``/v1/store/fetch``), migration resumes
-(a completion body's ``resume``) and phase roles.
+Not ported, each answering 404 (or raising) naming ROADMAP Queue 1 #9: the
+elastic autoscaler (``/v1/autoscaler``), the multi-host router's worker
+hooks (``/v1/store/fetch``) and migration resumes (a completion body's
+``resume``).
 
-Threading: the asyncio event loop owns sockets and parsing; one pump
-thread owns every call into the scheduler (submit/step/cancel). Tokens
-cross from the pump to a response's ``asyncio.Queue`` through
-``loop.call_soon_threadsafe`` from the scheduler's ``on_token`` hook, so
-SSE events flush as each host sync lands.
+Threading: the asyncio event loop owns sockets and parsing; one pump thread
+per replica makes every call into that replica's scheduler (a placement
+made on another pump waits for it, ``Replica.turn``), and the pumps of one
+process take turns at whole steps (``ReplicaSet``). Admission (a
+fair-queue pop and its placement) and terminal accounting serialize on the
+dispatch and finish locks; replica 0's pump also owns the fleet-wide duties (SLO evaluation,
+flight dumps, the profiler's deadline). A replica whose step raises goes
+sick and sheds its own requests while another serves; the last healthy one
+fails what is in flight and keeps serving. Every pump wakes when a
+migration's handoff is ready. Tokens cross from a pump to a response's
+``asyncio.Queue`` through ``loop.call_soon_threadsafe`` from the
+scheduler's ``on_token`` hook, so SSE events flush as each host sync lands.
+All replicas launch on the device's default stream (a new thread's current
+stream), one kernel after another.
+
+**Across ranks** (a mesh of more than one rank: tensor, expert or seq
+parallel, every rank holding its shard of the same engine): rank 0 runs
+the gateway and every other rank runs :func:`follow`. Before each step of
+a replica, rank 0's pump sends the scheduler calls made since that
+replica's last step (submits with their rid and sampling arguments;
+cancels, including deadlines and client disconnects, which only rank 0
+sees; radix flushes) on the replica's own process groups, and every rank
+applies them in order and steps (``ReplicaSet``'s lockstep). Each rank
+checks the exchange: every rank's step count and the tokens its last step
+delivered must agree (else every rank raises), and a follower's requests
+after the calls must be rank 0's (else it raises before stepping). A rank
+that raises stops; rank 0, raising or seeing its collectives fail when a
+follower ends, fails its requests and exits non-zero. A step failure
+across ranks ends the serving the same way (the ranks' collectives cannot
+continue). At the drain rank 0 sends stop and every rank returns.
 
 Telemetry: histograms ``gateway/queue_wait_ms``, ``gateway/ttfb_ms``;
 gauges ``gateway/queue_depth``, ``gateway/active_requests``; counters
@@ -73,11 +103,13 @@ gauges ``gateway/queue_depth``, ``gateway/active_requests``; counters
 import asyncio
 import copy
 import json
+import os
 import threading
 import time
 
 import numpy as np
 
+from .. import comm as dist
 from ..inference.config import GatewayConfig
 from ..telemetry import (DEFAULT_SERVING_OBJECTIVES, RequestTrace, SLOEngine,
                          extract_trace_context)
@@ -105,7 +137,7 @@ class _GatewayRequest:
                  "cost", "deadline", "stream", "loop", "events", "handle",
                  "cancel_requested", "cancel_reason", "finished", "enq_ts",
                  "n_tokens", "trace", "trace_id", "replica",
-                 "return_logits", "echo")
+                 "return_logits", "echo", "cancel_sent")
 
     def __init__(self, rid, prompt, *, max_new_tokens, eos_token_id, do_sample,
                  temperature, top_k, top_p, seed, tenant, priority, deadline,
@@ -137,27 +169,28 @@ class _GatewayRequest:
         self.replica = None         # the replica this request landed on
         self.return_logits = return_logits  # unary responses carry per-step logits
         self.echo = tuple(echo)     # identity headers every response carries
+        self.cancel_sent = False    # the cancel went to its replica (sent once)
 
 
 class Gateway:
-    """Serving gateway over one :class:`InferenceEngine`'s scheduler.
+    """Serving gateway over one :class:`InferenceEngine`'s replica fleet
+    (``continuous_batching.replicas``, replica 0 the engine's scheduler).
 
     ``Gateway(engine).start_background()`` binds the HTTP server (port 0 =
     ephemeral; the bound port lands on :attr:`port`) and starts the pump
-    thread; ``begin_drain()`` initiates graceful shutdown and
+    threads; ``begin_drain()`` initiates graceful shutdown and
     ``wait_drained()`` blocks until every admitted request finished and the
     server closed. ``run()`` is the blocking form the module entry point
     uses. ``config`` defaults to the engine config's ``gateway`` section;
     keyword overrides replace individual fields (on a copy: the engine's
-    config is never mutated).
+    config is never mutated). Across ranks it runs on rank 0 (the other
+    ranks :func:`follow`).
     """
 
     def __init__(self, engine, config=None, **overrides):
-        tp = int(getattr(engine, "_tp", 1))
-        if tp > 1:
-            raise NotImplementedError(f"deepspeed_tpu_torch does not serve the gateway at tensor "
-                                      f"parallelism {tp} yet (ROADMAP Queue 1 #9, sharded decode and "
-                                      f"replicas): every rank must run the same requests")
+        if dist.is_initialized() and dist.get_rank() != 0:
+            raise ValueError(f"the gateway serves on rank 0; rank {dist.get_rank()} runs "
+                             f"deepspeed_tpu_torch.serving.gateway.follow(engine)")
         if config is None:
             config = getattr(engine._config, "gateway", None)
         if not isinstance(config, GatewayConfig):
@@ -175,6 +208,13 @@ class Gateway:
         self.telemetry = engine.telemetry
         self.replicas = ReplicaSet.build(engine)
         self.scheduler = self.replicas.primary
+        # each replica's pump makes every call into its scheduler; across
+        # ranks they run in lockstep with the followers
+        self.lockstep = dist.is_initialized() and dist.get_world_size() > 1
+        for rep in self.replicas:
+            rep.pumped = True
+        self._fatal = None                   # across ranks: the error that ended serving
+        self._broken = set()                 # replicas whose followers are gone
         self._fair = FairQueue(max_depth=config.max_queue_depth,
                                quantum=config.quantum_tokens,
                                tenant_weights=config.tenant_weights,
@@ -190,7 +230,8 @@ class Gateway:
         self._rid_lock = threading.Lock()
         self._tenant_labels = set()          # tenants with their own counter
         self._wake = threading.Event()       # pump wakeup
-        self._flush_radix_pending = False    # set by /v1/debug/flush_radix
+        self.replicas.on_migration_ready = self._wake.set  # a handoff is ready
+        self._flush_radix_pending = set()    # replicas to flush (/v1/debug/flush_radix)
         self._active = set()                 # admitted, unfinished _GatewayRequests
         self._ema_service_s = None           # EMA of request wall time
         # admission (fair-queue pop + placement) and terminal accounting
@@ -200,7 +241,7 @@ class Gateway:
         self._loop = None
         self._server = None
         self._open_streams = 0               # responses still being written
-        self._pump_thread = None
+        self._pump_threads = []
         self._loop_thread = None
         self._done_evt = threading.Event()   # fully drained + server closed
         self._force_stop = False
@@ -256,12 +297,15 @@ class Gateway:
         thread while this waits."""
         self.start_background()
         logger.info(f"gateway listening on {self.host}:{self.port}")
-        print(json.dumps({"event": "GATEWAY_READY", "host": self.host, "port": self.port}),
-              flush=True)
+        print(json.dumps({"event": "GATEWAY_READY", "host": self.host, "port": self.port,
+                          "pid": os.getpid()}), flush=True)
         while not self._done_evt.wait(0.2):
             pass
         if self.profiler is not None:
             self.profiler.stop()
+        if self._fatal is not None:
+            logger.error(f"gateway: serving ended on an error: {self._fatal}")
+            return 1
         return 0
 
     def begin_drain(self):
@@ -310,15 +354,17 @@ class Gateway:
         self._loop = asyncio.get_running_loop()
         self._server = await asyncio.start_server(self._handle_conn, self.host, self.config.port)
         self.port = self._server.sockets[0].getsockname()[1]
-        rep = self.replicas.replicas[0]
-        self._pump_thread = threading.Thread(target=self._pump, args=(rep, ), daemon=True,
-                                             name="gateway-pump-0")
-        self._pump_thread.start()
+        # one pump thread per replica, each owning its scheduler's steps
+        for rep in self.replicas:
+            t = threading.Thread(target=self._pump, args=(rep, ), daemon=True,
+                                 name=f"gateway-pump-{rep.idx}")
+            self._pump_threads.append(t)
+            t.start()
         self.ready = True
         ready_cb()
-        # pump exit == fully drained (it returns only when draining with all
-        # admitted work finished, or on force-stop)
-        while self._pump_thread.is_alive():
+        # pump exit == fully drained (each returns only when draining with
+        # all admitted work finished, or on force-stop)
+        while any(t.is_alive() for t in self._pump_threads):
             await asyncio.sleep(0.05)
         # let in-flight response writers flush their final events
         deadline = time.monotonic() + 10.0
@@ -332,44 +378,75 @@ class Gateway:
             logger.exception("gateway: telemetry flush failed at drain")
         logger.info("gateway: drained and closed")
 
-    # ------------------------------------------------------------------ pump thread
+    # ------------------------------------------------------------------ pump threads
     def _pump(self, rep):
-        """Admit from the fair queue in DRR order, step the scheduler,
-        enforce deadlines and cancellations, and run the side duties (SLO
-        evaluation, operator flight dumps, the profiler's deadline). Exits
-        only when draining and every admitted request has finished."""
+        """One replica's pump: admit from the fair queue in DRR order (a
+        fleet-wide decision, under the dispatch lock), claim parked
+        handoffs, step THIS replica, enforce deadlines and cancellations.
+        Replica 0's pump also runs the fleet-wide duties. Exits only when
+        draining and every admitted request has finished (or on
+        force-stop); across ranks it then sends the followers stop."""
+        primary = rep.idx == 0
         while not self._force_stop:
             with self._dispatch_lock:
                 self._enforce_cancellations()
                 self._admit()
             try:
-                if self._flush_radix_pending:
-                    self._flush_radix(rep)  # only the pump touches the trie
-                if not rep.idle():
+                # claim handoffs inside the step's guard: a restore failing
+                # on the device degrades to sick-replica shedding
+                self.replicas.admit_migrations(rep)
+                flush = rep.idx in self._flush_radix_pending
+                if flush:
+                    rep.flush_radix()  # across ranks: in this turn, on every rank
+                stepping = rep.turn()
+                if flush:
+                    self._flush_radix_pending.discard(rep.idx)
+                if stepping and not rep.sick:
                     rep.step()
-            except Exception:  # noqa: BLE001 — fail requests, not the server
-                logger.exception("gateway: scheduler step failed")
+            except Exception as e:  # noqa: BLE001 — fail requests, not the server
+                logger.exception(f"gateway: replica {rep.idx} scheduler step failed")
                 self.telemetry.dump_flight("backend_error")
-                # one replica: fail everything, stay up, retry on the next
-                # admitted request
-                self._fail_in_flight("scheduler step failed")
+                if self.lockstep:
+                    # the ranks cannot continue: fail everything, stop
+                    self._broken.add(rep.idx)
+                    self._fatal = f"replica {rep.idx}: {e}"
+                    self._fail_in_flight(f"serving across ranks failed: {e}")
+                    self._force_stop = True
+                    break
+                if len(self.replicas.healthy()) > 1:
+                    # shed the sick replica, keep the fleet serving: its
+                    # requests fail and its pump stops stepping it until
+                    # resume()
+                    self.replicas.mark_sick(rep.idx, "scheduler step failed")
+                    self._fail_replica_in_flight(rep, "replica step failed")
+                else:
+                    # the last healthy replica: fail everything, stay up,
+                    # retry on the next admitted request
+                    self._fail_in_flight("scheduler step failed")
             self._settle_done()
-            if self.slo is not None:
-                self.slo.maybe_evaluate()
-            if self._flight_request is not None:
-                reason, self._flight_request = self._flight_request, None
-                self.telemetry.dump_flight(reason)
-            if self.profiler is not None:
-                # belt-and-braces deadline: stops an overdue capture
-                self.profiler.poll()
-            if rep.idle():
+            if primary:
+                if self.slo is not None:
+                    self.slo.maybe_evaluate()
+                if self._flight_request is not None:
+                    reason, self._flight_request = self._flight_request, None
+                    self.telemetry.dump_flight(reason)
+                if self.profiler is not None:
+                    # belt-and-braces deadline: stops an overdue capture
+                    self.profiler.poll()
+            if rep.idle() or rep.sick:
                 if self.draining and not len(self._fair) and not self._active:
                     break
                 self._wake.wait(0.02)
                 self._wake.clear()
-        if self._force_stop:
+        if self._force_stop and primary:
             # anything still in flight is failed, not silently dropped
             self._fail_in_flight("gateway shutdown")
+        if self.lockstep and rep.idx not in self._broken:
+            try:
+                rep.turn(stop=True)
+            except Exception as e:  # noqa: BLE001 — the followers diverged or are gone
+                logger.exception(f"gateway: replica {rep.idx} could not stop its followers")
+                self._fatal = self._fatal or f"replica {rep.idx}: {e}"
 
     def _admit(self):
         """Move requests from the DRR queue into scheduler slots while the
@@ -379,6 +456,11 @@ class Gateway:
         tel = self.telemetry
         while True:
             if not self.replicas.any_capacity():
+                if self.replicas.all_sick():
+                    if len(self._fair):
+                        self._fail_queue("no healthy serving replica")
+                    if self.replicas.pending_migrations():
+                        self.replicas._fail_handoffs()  # no adopter left either
                 return
             greq = self._fair.pop()
             if greq is None:
@@ -403,11 +485,12 @@ class Gateway:
             rep = self.replicas.route(greq.prompt)
             if rep is None:
                 # eligibility changed between the capacity check and the
-                # pop (a drain): requeue at the flow head
+                # pop (a drain, a sick replica, a role flip): requeue at the
+                # flow head
                 self._fair.requeue(greq, greq.tenant, greq.priority, cost=greq.cost)
                 return
             try:
-                handle = rep.scheduler.submit(
+                handle = rep.submit(
                     greq.prompt, max_new_tokens=greq.max_new_tokens,
                     eos_token_id=greq.eos_token_id, do_sample=greq.do_sample,
                     temperature=greq.temperature, top_k=greq.top_k,
@@ -423,6 +506,7 @@ class Gateway:
             greq.handle = handle
             greq.replica = rep
             self.replicas.note_dispatch(rep)
+            self._wake.set()  # the replica's own pump queues it
             if greq.trace is not None:
                 greq.trace.phase("queued", wait_ms=round((now - greq.enq_ts) * 1e3, 3))
                 greq.trace.instant("admitted", replica=rep.idx)
@@ -503,40 +587,44 @@ class Gateway:
                 if tel.enabled:
                     tel.counter("gateway/deadline_expired")
             if greq.cancel_requested and greq.handle is not None:
-                greq.handle.cancel()
+                self._cancel(greq)
 
-    def _flush_radix(self, rep):
-        """Evict ``rep``'s whole radix trie through the KV tier (each
-        eviction demotes to the host store), then join the async demote
-        fetches so the entries are probe-visible before the endpoint
-        answers. Runs on the pump thread."""
-        sched = rep.scheduler
-        try:
-            if sched.radix is not None:
-                while True:
-                    victim = sched.radix.evict_lru()
-                    if victim is None:
-                        break
-                    sched.cache.reclaim(victim)
-            if sched.kv_tier is not None:
-                sched.kv_tier.executor.drain_fetches()
-        finally:
-            self._flush_radix_pending = False
+    def _cancel(self, greq):
+        """Propagate ``greq``'s cancel into its scheduler, once
+        (:meth:`Replica.cancel` decides when it lands)."""
+        if not greq.cancel_sent:
+            greq.cancel_sent = True
+            greq.replica.cancel(greq.handle)
 
     def _settle_done(self):
-        """Cancelled requests finish through the scheduler's reap (done
+        """Cancelled and failed requests finish through the scheduler (done
         without a final on_token): confirm the terminal state to the HTTP
-        side."""
+        side; a failed migration answers 500 with its reason."""
         for greq in list(self._active):
             if greq.handle is not None and greq.handle.done and not greq.finished:
-                self._finish(greq, ("cancelled", greq.cancel_reason or "cancelled"))
+                err = greq.handle._req.error
+                if err is not None:
+                    self._finish(greq, ("failed", 500, err))
+                else:
+                    self._finish(greq, ("cancelled", greq.cancel_reason or "cancelled"))
 
     def _fail_in_flight(self, msg):
         for greq in list(self._active):
             if greq.handle is not None:
-                greq.handle.cancel()
+                self._cancel(greq)
             self._finish(greq, ("failed", 500, msg))
         self._fail_queue(msg)
+
+    def _fail_replica_in_flight(self, rep, msg):
+        """Fail only the requests ``rep``'s scheduler holds now (a handoff
+        migrated out is held by no scheduler, or by its decode replica).
+        Runs on ``rep``'s pump, which first queues the submits waiting for
+        it."""
+        rep.turn()
+        for greq in list(self._active):
+            if greq.handle is not None and rep.scheduler.owns(greq.handle._req):
+                self._cancel(greq)
+                self._finish(greq, ("failed", 500, msg))
 
     def _fail_queue(self, msg):
         while True:
@@ -555,12 +643,19 @@ class Gateway:
 
     # ------------------------------------------------------------------ admission math
     def capacity_signals(self):
-        """Live capacity-signals dict (``serving/capacity_math.py`` shape,
-        one replica: no prefill/decode split)."""
+        """Live capacity-signals dict (``serving/capacity_math.py`` shape):
+        backlogs over available replicas only, and the phase split under
+        disaggregation."""
+        reps = self.replicas
         return {"queued": len(self._fair), "inflight": len(self._active),
-                "sched_backlog": len(self.scheduler.queue),
-                "total_slots": self.scheduler.num_slots,
-                "ema_service_s": self._ema_service_s}
+                "sched_backlog": sum(len(r.scheduler.queue) for r in reps if r.available()),
+                "prefill_backlog": sum(len(r.scheduler.queue) for r in reps
+                                       if r.available() and r.prefill_capable()),
+                "total_slots": reps.total_slots(),
+                "prefill_slots": reps.phase_slots("prefill"),
+                "decode_slots": reps.phase_slots("decode"),
+                "ema_service_s": self._ema_service_s,
+                "disaggregated": reps.disaggregated()}
 
     def _retry_after(self):
         """Advertised backoff from live state: the time for the backlog to
@@ -663,13 +758,13 @@ class Gateway:
         elif method == "GET" and path == "/v1/replicas":
             await self._json(writer, 200, {"replicas": self.replicas.states()})
         elif method == "POST" and path.startswith("/v1/replicas/"):
-            await self._replica_admin(path, writer)
+            await self._replica_admin(path, body, writer)
         elif method == "POST" and path == "/v1/completions":
             await self._completions(headers, body, reader, writer)
         elif method == "POST" and path == "/v1/debug/flush_radix":
-            # force-demote the radix trie through the KV tier; the pump
-            # flushes its own scheduler and the endpoint waits for it
-            self._flush_radix_pending = self.replicas.replicas[0].scheduler.radix is not None
+            # force-demote the radix tries through the KV tier; each pump
+            # flushes its own scheduler and the endpoint waits for them
+            self._flush_radix_pending = {r.idx for r in self.replicas if r.scheduler.radix is not None}
             self._wake.set()
             for _ in range(600):
                 if not self._flush_radix_pending:
@@ -708,15 +803,16 @@ class Gateway:
                                            "note": "the trace file lands when the capture "
                                                    "window elapses"})
 
-    async def _replica_admin(self, path, writer):
-        """``POST /v1/replicas/0/drain`` stops placement (in-flight work
-        finishes; resumable); ``.../resume`` re-admits. Phase roles need
-        more than one replica (#9)."""
+    async def _replica_admin(self, path, body, writer):
+        """``POST /v1/replicas/<idx>/drain`` stops placement onto a replica
+        (in-flight work finishes; resumable); ``.../resume`` re-admits it
+        (clearing drain and sick); ``.../role`` (body ``{"role":
+        "prefill"|"decode"|"mixed"}``) flips its phase role (400 when the
+        fleet would lose a phase)."""
         parts = path.strip("/").split("/")  # v1 replicas <idx> <action>
-        if len(parts) != 4 or parts[3] not in ("drain", "resume"):
+        if len(parts) != 4 or parts[3] not in ("drain", "resume", "role"):
             await self._json(writer, 404,
-                             {"error": {"message": "POST /v1/replicas/<idx>/{drain|resume} "
-                                        f"(phase roles: {_ITEM9})"}})
+                             {"error": {"message": "POST /v1/replicas/<idx>/{drain|resume|role}"}})
             return
         try:
             idx = int(parts[2])
@@ -726,7 +822,15 @@ class Gateway:
             await self._json(writer, 400, {"error": {"message": f"no replica {parts[2]!r} "
                                                      f"(fleet size {len(self.replicas)})"}})
             return
-        state = self.replicas.drain(idx) if parts[3] == "drain" else self.replicas.resume(idx)
+        if parts[3] == "role":
+            try:
+                req = json.loads(body.decode("utf-8") or "{}")
+                state = self.replicas.set_role(idx, req.get("role") if isinstance(req, dict) else None)
+            except (ValueError, UnicodeDecodeError, NotImplementedError) as e:
+                await self._json(writer, 400, {"error": {"message": str(e)}})
+                return
+        else:
+            state = self.replicas.drain(idx) if parts[3] == "drain" else self.replicas.resume(idx)
         self._wake.set()
         await self._json(writer, 200, {"replica": state})
 
@@ -734,7 +838,7 @@ class Gateway:
         """Gateway/scheduler state the sink doesn't own, exposed as plain
         gauges on the Prometheus surface."""
         sched = self.scheduler
-        return {
+        out = {
             "gateway/ready": 1.0 if (self.ready and not self.draining) else 0.0,
             "gateway/queue_depth": float(len(self._fair)),
             "gateway/active_requests": float(len(self._active)),
@@ -748,6 +852,17 @@ class Gateway:
             "serving/tp_size": float(sched.tp_size),
             "serving/ep_size": float(sched.ep_size),
         }
+        if self.replicas.disaggregated():
+            # the phase split and the handoffs pending (per-replica roles are
+            # in /v1/replicas; migrations_{out,in} are labeled counters)
+            out.update({
+                "serving/replicas_prefill_capable": float(
+                    sum(1 for r in self.replicas if r.available() and r.prefill_capable())),
+                "serving/replicas_decode_capable": float(
+                    sum(1 for r in self.replicas if r.available() and r.decode_capable())),
+                "serving/migrations_pending": float(self.replicas.pending_migrations()),
+            })
+        return out
 
     def _metrics(self):
         sched = self.scheduler
@@ -777,6 +892,13 @@ class Gateway:
                           "fused_decode_block": sched._fused_block,
                           "fused_decode_reasons": list(sched._fused_block_reasons)},
             "replicas": self.replicas.states(),
+            "disaggregation": ({
+                "roles": [r.phase_role for r in self.replicas],
+                "migrations": sum(r.scheduler.migrations_out for r in self.replicas),
+                "pending": self.replicas.pending_migrations(),
+                "failed": self.replicas.migrations_failed,
+                "migrate_min_tokens": self.replicas.migrate_min_tokens,
+            } if self.replicas.disaggregated() else None),
             # capacity rollup (telemetry/capacity.py): the dispatch-kind
             # roofline table, goodput and host-gap totals; the live gauges
             # are in the telemetry snapshot
@@ -1085,3 +1207,35 @@ class Gateway:
         body = json.dumps(obj).encode()
         writer.write(self._head(status, _JSON, extra, length=len(body)) + body)
         await writer.drain()
+
+
+def follow(engine):
+    """A following rank's serving loop (every rank but 0 of a mesh whose
+    rank 0 runs the :class:`Gateway`): build the same fleet, then one thread
+    per replica takes rank 0's calls and steps in lockstep
+    (:meth:`Replica.follow`) until rank 0 stops it. Returns 0; raises the
+    first replica's error (a divergence from rank 0) at once."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        raise ValueError("follow() runs on the ranks other than 0 of a world that serves across ranks")
+    replicas = ReplicaSet.build(engine)
+    errors = []
+
+    def run(rep):
+        try:
+            rep.follow()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            logger.exception(f"follower: replica {rep.idx} stopped")
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(rep, ), daemon=True, name=f"follow-{rep.idx}")
+               for rep in replicas]
+    for t in threads:
+        t.start()
+    for t in threads:
+        while t.is_alive() and not errors:
+            t.join(0.2)
+        if errors:
+            # the other replicas' threads wait on rank 0, which learns of
+            # this from its collectives failing once this process ends
+            raise errors[0]
+    return 0

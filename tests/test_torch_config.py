@@ -47,7 +47,7 @@ def test_inference_config_aliases_and_unknown_keys():
         tcfg.DeepSpeedInferenceConfig({"dtype": "int4"})
 
 
-@pytest.mark.parametrize("section", [{"continuous_batching": {"replicas": 2}},
+@pytest.mark.parametrize("section", [{"continuous_batching": {"multi_lora": {"enabled": True}}},
                                      {"continuous_batching": {"autoscaler": {"enabled": True}}},
                                      {"continuous_batching": {"expert_offload": {"enabled": True}}},
                                      {"checkpoint": "ckpt"}])

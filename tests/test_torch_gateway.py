@@ -12,7 +12,7 @@ not mutating the engine's config, 429 with a bounded ``Retry-After``,
 deadline expiry in the queue and mid-decode, client disconnect cancelling,
 the DRR light tenant not starved, drain, tenant telemetry, a
 ``traceparent`` span tree, Prometheus text, ``/v1/slo`` and
-``/v1/debug/flight``; more than one replica, the autoscaler and the router
+``/v1/debug/flight``; the autoscaler, the router and the elastic fleet
 refused naming ROADMAP Queue 1 #9.
 
 No assertion rests on wall time. A test that needs requests to queue holds
@@ -618,20 +618,18 @@ def test_slo_endpoint_debug_flight_and_profile(tmp_path):
 
 
 def test_replicas_autoscaler_and_router_refused():
-    """More than one replica, the autoscaler section and the multi-host
-    router raise naming ROADMAP Queue 1 #9; the single replica drains and
-    resumes through /v1/replicas."""
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        make_engine(continuous_batching={"enabled": True, "replicas": 2})
+    """The autoscaler section, the multi-host router, elastic growth and
+    scale-down, brownout parking and migration resumes raise naming ROADMAP
+    Queue 1 #9; the single replica drains and resumes through
+    /v1/replicas, and its role endpoint answers 400 without the migration
+    transport (the host prefix store)."""
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         make_engine(continuous_batching={"enabled": True, "autoscaler": {"enabled": True}})
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         make_engine(continuous_batching={"enabled": True, "multihost": {"router_url": "http://x"}})
     eng = make_engine()
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        ReplicaSet.build(eng, n=2)
     reps = ReplicaSet.build(eng)
-    for call in (lambda: reps.set_role(0, "prefill"), reps.add_replica,
+    for call in (reps.add_replica, lambda: reps.begin_scale_down(0),
                  lambda: reps.park_out(reps.replicas[0], None),
                  lambda: reps.inject_resume({})):
         with pytest.raises(NotImplementedError, match="Queue 1 #9"):
@@ -651,7 +649,7 @@ def test_replicas_autoscaler_and_router_refused():
         try:
             conn.request("POST", "/v1/replicas/0/role", json.dumps({"role": "decode"}))
             resp = conn.getresponse()
-            assert resp.status == 404 and "Queue 1 #9" in resp.read().decode()
+            assert resp.status == 400 and "prefix store" in resp.read().decode()
         finally:
             conn.close()
         conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=60)

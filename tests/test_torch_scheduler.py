@@ -454,8 +454,8 @@ def test_unported_features_raise():
         eng.scheduler().submit(PROMPTS[0], adapter_id="a")
     with pytest.raises(NotImplementedError, match="RLHF"):
         eng.scheduler().swap_weights({})
-    with pytest.raises(NotImplementedError, match="disaggregated"):
-        eng.scheduler().migrate_out(None, None, None)
+    with pytest.raises(NotImplementedError, match="MoE expert offload"):
+        sched_mod.DecodeScheduler(eng, expert_store=object())
     for section in ({"spec_tokens": 2}, {"prefill_chunk": 0}):
         _port(continuous_batching={"enabled": True, **section})
     tiered = _port(continuous_batching={"enabled": True, "hierarchical_kv": {"enabled": True}})

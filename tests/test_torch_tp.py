@@ -147,11 +147,25 @@ def test_training_config_tensor_axis_and_mpu():
     assert cfg.mpu is not None and cfg.mesh.data_parallel_size == 2
 
 
-def test_gateway_refuses_tensor_parallelism():
-    from deepspeed_tpu_torch.serving.gateway import Gateway
-
-    class Engine:
-        _tp = 2
-
-    with pytest.raises(NotImplementedError, match="#9, sharded decode and replicas"):
-        Gateway(Engine())
+def test_gateway_refuses_tensor_parallelism(monkeypatch):
+    """The gateway serves tp > 1 from rank 0 (``tests/test_torch_gateway_ranks.py``);
+    what it refuses across ranks: serving on another rank (that rank is
+    told to follow rank 0), and phase roles (ROADMAP #9.1)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    from deepspeed_tpu_torch.serving import gateway
+    from deepspeed_tpu_torch.serving.replica import Replica, ReplicaSet
+    monkeypatch.setattr(gateway.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(gateway.dist, "get_rank", lambda group=None: 1)
+    with pytest.raises(ValueError, match="rank 1 runs deepspeed_tpu_torch.serving.gateway.follow"):
+        gateway.Gateway(object())
+    monkeypatch.undo()
+    eng = deepspeed_tpu_torch.init_inference(
+        "tiny", config={"dtype": "float32", "continuous_batching": {"enabled": True, "num_slots": 2,
+                                                                     "hierarchical_kv": {"enabled": True}}},
+        device="cpu")
+    primary = eng.scheduler()
+    fleet = ReplicaSet([Replica(0, primary, scope="replica0"),
+                        Replica(1, DecodeScheduler(eng, **primary._init_kwargs), scope="replica1")])
+    with pytest.raises(NotImplementedError, match="#9.1, its leftover"):
+        fleet.set_role(0, "prefill")

@@ -725,3 +725,132 @@ def seq_serve_world(rank, world, name, tree, config, prompts, cases):
     eng = deepspeed_tpu_torch.init_inference(model, config=dict(config), params=params_from_jax(tree, model.cfg),
                                              device="cpu")
     return [seq_serve_run(eng, prompts, kw) for kw in cases]
+
+
+# ---------------------------------------------------------------------------
+# serving across ranks: the gateway on rank 0, the other ranks following
+
+_MADE = []  # every request this process's schedulers made, in order
+
+
+def _record_requests():
+    """Record every request the port's schedulers make in this process."""
+    from deepspeed_tpu_torch.inference.scheduler import DecodeScheduler
+    if getattr(DecodeScheduler._make_request, "recorded", False):
+        return
+    real = DecodeScheduler._make_request
+
+    def make(self, *args, **kwargs):
+        req = real(self, *args, **kwargs)
+        _MADE.append(req)
+        return req
+    make.recorded = True
+    DecodeScheduler._make_request = make
+
+
+def sse(port, prompt, max_new, disconnect_after=None):
+    """One streaming completion: (status, token ids). ``disconnect_after``:
+    close the connection once that many tokens arrived."""
+    import http.client
+    import json
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    toks = []
+    try:
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": [int(t) for t in prompt], "max_tokens": max_new, "stream": True}))
+        resp = conn.getresponse()
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: {"):
+                toks += json.loads(line[6:])["choices"][0]["token_ids"]
+                if disconnect_after is not None and len(toks) >= disconnect_after:
+                    break
+        return resp.status, toks
+    finally:
+        conn.close()
+
+
+def gateway_rank_case(rank, name, tree, config, mesh, prompts, max_new, replicas, plant):
+    """One engine over ``mesh``: on rank 0 a gateway with ``replicas``
+    serving every prompt as a concurrent SSE stream, then a stream whose
+    client disconnects after 2 tokens (the replica's steps slowed so it is
+    still decoding), then, after ``plant``, one more request; on the other
+    ranks :func:`~deepspeed_tpu_torch.serving.gateway.follow` (with
+    ``plant``, skipping the first cancel rank 0 sends). Returns this rank's
+    requests as (rid, tokens, cancelled) and what it saw."""
+    import threading
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.comm as dist
+    from deepspeed_tpu_torch.models import get_model
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.serving import Gateway, Replica, follow
+    _record_requests()
+    del _MADE[:]
+    dist.initialize_mesh(**mesh)
+    model = get_model(name, max_seq_len=128)
+    cfg = {**config, "continuous_batching": {**config["continuous_batching"], "replicas": replicas}}
+    eng = deepspeed_tpu_torch.init_inference(model, config=cfg, params=params_from_jax(tree, model.cfg), device="cpu")
+    out = {}
+    if rank != 0:
+        if plant:
+            real = Replica._apply
+            skipped = []
+
+            def apply(self, reqs, call):
+                if call[0] == "cancel" and not skipped:
+                    skipped.append(call[1])
+                    return
+                real(self, reqs, call)
+            Replica._apply = apply
+        try:
+            out["rc"] = follow(eng)
+        except RuntimeError as e:
+            out["error"] = str(e)
+        finally:
+            if plant:
+                Replica._apply = real
+    else:
+        gw = Gateway(eng, port=0, request_timeout_s=60.0, drain_timeout_s=60.0)
+        try:
+            gw.start_background()
+            streams = [None] * len(prompts)
+
+            def client(i):
+                streams[i] = sse(gw.port, prompts[i], max_new)
+            threads = [threading.Thread(target=client, args=(i, )) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            out["streams"] = streams
+            out["dispatched"] = [r.dispatched for r in gw.replicas]
+            rep = gw.replicas.replicas[0]
+            real_step = rep.step
+
+            def slow():
+                n = real_step()
+                time.sleep(0.05)
+                return n
+            rep.step = slow
+            if replicas > 1:
+                gw.replicas.drain(1)  # the long stream lands on replica 0
+            out["disconnected"] = sse(gw.port, prompts[0], 100, disconnect_after=2)
+            deadline = time.monotonic() + 30
+            while (gw._active or rep.scheduler.cache.active_slots) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            out["freed"] = not gw._active and rep.scheduler.cache.active_slots == 0
+            if plant:
+                out["after"] = sse(gw.port, prompts[1], max_new)
+        finally:
+            out["drained"] = gw.close(60)
+        out["fatal"] = gw._fatal
+        out["stats"] = dict(gw.stats)
+    out["reqs"] = [(r.rid, list(r.out), r.cancelled) for r in _MADE]
+    return out
+
+
+def gateway_ranks_world(rank, world, trees, cases):
+    """:func:`gateway_rank_case` for each ``(model name, tree key, config,
+    mesh, prompts, max_new, replicas, plant)`` of ``cases``."""
+    return [gateway_rank_case(rank, name, trees[key], config, mesh, prompts, max_new, replicas, plant)
+            for name, key, config, mesh, prompts, max_new, replicas, plant in cases]
