@@ -3193,7 +3193,9 @@ def fleet_roles_leg(torch, card, eng, prompts):
     every request's tokens and logits bitwise the one-replica run's, each
     migrated (out == in); each handoff's D2H and H2D by CUDA events on the
     tier's copy streams, its bytes; TTFT and ITL beside the one-replica
-    (colocated) run of the same stream."""
+    (colocated) run of the same stream. Returns the bf16 one-replica run of
+    the first ``ROUTER_PROMPTS`` requests for the router leg
+    (``router_reference``'s shape)."""
     import numpy as np
     from deepspeed_tpu_torch.memory import GlobalPrefixStore
     from deepspeed_tpu_torch.serving.replica import Replica, ReplicaSet
@@ -3201,6 +3203,9 @@ def fleet_roles_leg(torch, card, eng, prompts):
         what = f"fleet roles ({'int8' if kv == 'int8' else 'bf16'} KV, greedy and sampled)"
         one = ReplicaSet([Replica(0, kv_scheduler(eng, kv_cache_dtype=kv))])
         ref_t, ref_l, ref_ttft, ref_itl, ref_wall = fleet_serve(one, prompts)
+        if kv == "auto":  # the router leg's reference: its workers serve on this pool
+            router_ref = (ref_t[:ROUTER_PROMPTS], [x[:ROUTER_LOGIT_STEPS] for x in ref_l[:ROUTER_PROMPTS]],
+                          _widths(one.primary))
         del one
         store = GlobalPrefixStore(capacity_bytes=4 << 30)
         pair = [kv_scheduler(eng, kv_cache_dtype=kv, prefix_store=store) for _ in range(2)]
@@ -3227,6 +3232,7 @@ def fleet_roles_leg(torch, card, eng, prompts):
             f"{_pct(ref_itl, 95):.3f}) on {card}")
         del rs, pair, store, ref_l, got_l
         torch.cuda.empty_cache()
+    return router_ref
 
 
 def fleet_failure_leg(gw, prompts, direct):
@@ -3440,6 +3446,404 @@ def fleet_tp_leg(torch, card, dev):
     return r0["counts"]
 
 
+# ---------------------------------------------------------------------------
+# the fleet's router leg: the multi-host router and its workers, each one
+# process of ``python -m deepspeed_tpu_torch.serving`` on this card
+
+
+ROUTER_PROMPTS = 8        # the mixed stream's first 8: greedy (even) and sampled (odd), as fleet_serve's
+ROUTER_LOGIT_STEPS = 8    # a unary request's new tokens: the prefill side's last sync gives 4 at K = 4
+ROUTER_KILL_NEW = 48
+ROUTER_START_S = 900
+ROUTER_HASH_SEED = "0"    # the routers' PYTHONHASHSEED: a tie of two workers breaks on hash(wid)
+ROUTER_HOST_MB = 1024
+ROUTER_WORKER_ARGS = []   # ["--device", "cpu"] rehearses the leg on the host
+
+
+def _router_wids():
+    """Two worker ids in different tie-break classes of a router run with
+    ``PYTHONHASHSEED=ROUTER_HASH_SEED`` (two idle workers tie on their
+    load score and break it on ``hash(wid) mod 3``), so the requests
+    placed at once on an idle pair go to both."""
+    code = "import json; print(json.dumps([hash(f'w{i}') % 3 for i in range(16)]))"
+    out = subprocess.run([sys.executable, "-c", code], env={**os.environ, "PYTHONHASHSEED": ROUTER_HASH_SEED},
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    cls = json.loads(out)
+    return "w0", f"w{next(i for i in range(1, 16) if cls[i] != cls[0])}"
+
+
+def _build_snapshot():
+    """{library: mtime} of the kernels built in ``ops/_build``."""
+    from deepspeed_tpu_torch.ops.build import BUILD_DIR
+    if not os.path.isdir(BUILD_DIR):
+        return {}
+    return {n: os.path.getmtime(os.path.join(BUILD_DIR, n)) for n in os.listdir(BUILD_DIR)}
+
+
+class RouterFleet:
+    """Two routers and four workers, started at once: router A over two
+    ``mixed`` workers, router B over a ``prefill`` and a ``decode`` worker;
+    each worker serves ``FLEET_MODEL`` at full width and depth
+    (``SERVE_CONFIG`` with the hierarchical KV tier, weights from seed 0)
+    with the kernels this process built. ``stop()`` ends every process and
+    returns their exit codes."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="router_leg_")
+        self.procs = {}    # name -> (Popen, log path)
+        self.ready = {}    # name -> its READY line
+        self.ports = {}
+        self.workers = {}  # wid -> (router, role)
+        self.t0 = self.t_ready = None
+        self.built = None
+        self.router_mib = None  # the card's memory the routers took (a CUDA context is ~0.5 GiB)
+
+    def _spawn(self, name, args, env=None, nice=0):
+        path = os.path.join(self.dir, name + ".log")
+        with open(path, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.serving", *args], cwd=ROOT,
+                                    stdout=f, stderr=subprocess.STDOUT, env={**os.environ, **(env or {})},
+                                    preexec_fn=(lambda: os.nice(nice)) if nice else None)
+        self.procs[name] = (proc, path)
+
+    def _wait(self, name, token, deadline):
+        proc, path = self.procs[name]
+        while True:
+            with open(path) as f:
+                text = f.read()
+            for line in text.splitlines():
+                if line.startswith("{") and f'"{token}"' in line:
+                    self.ready[name] = json.loads(line)
+                    return self.ready[name]
+            tail = "\n".join(text.splitlines()[-30:])
+            check(proc.poll() is None, f"router leg: {name} exited ({proc.returncode}) before {token}:\n{tail}")
+            check(time.monotonic() < deadline, f"router leg: no {token} from {name} in {ROUTER_START_S} s:\n{tail}")
+            time.sleep(0.2)
+
+    def start(self):
+        """The routers (no model, no device), then the workers at niceness
+        10: they build their weights on the host while this process's own
+        legs run."""
+        self.t0 = time.perf_counter()
+        self.built = _build_snapshot()
+        cb = {**SERVE_CONFIG["continuous_batching"],
+              "hierarchical_kv": {"enabled": True, "host_capacity_mb": ROUTER_HOST_MB}}
+        cfg = {**SERVE_CONFIG, "continuous_batching": cb,
+               "gateway": {"max_queue_depth": 64, "request_timeout_s": 600.0, "drain_timeout_s": 120.0}}
+        path = os.path.join(self.dir, "config.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        used0 = _card_used_mib()
+        for r in ("router_a", "router_b"):
+            self._spawn(r, ["--router", "--port", "0", "--heartbeat-timeout-s", "30"],
+                        env={"PYTHONHASHSEED": ROUTER_HASH_SEED})
+        deadline = time.monotonic() + ROUTER_START_S
+        self.ports = {r: self._wait(r, "ROUTER_READY", deadline)["port"] for r in ("router_a", "router_b")}
+        if used0 is not None:
+            self.router_mib = _card_used_mib() - used0
+        a0, a1 = _router_wids()
+        self.workers = {a0: ("router_a", "mixed"), a1: ("router_a", "mixed"),
+                        "prefill": ("router_b", "prefill"), "decode": ("router_b", "decode")}
+        for wid, (r, role) in self.workers.items():
+            self._spawn(wid, ["--worker", "--router-url", f"http://127.0.0.1:{self.ports[r]}", "--worker-id", wid,
+                              "--worker-role", role, "--model", FLEET_MODEL, "--config", path, "--port", "0",
+                              "--heartbeat-s", "0.5", "--lease-s", "600", *ROUTER_WORKER_ARGS], nice=10)
+        return self
+
+    def wait_ready(self):
+        """Every worker's GATEWAY_READY, and both live at their router."""
+        deadline = time.monotonic() + ROUTER_START_S
+        for wid in self.workers:
+            self._wait(wid, "GATEWAY_READY", deadline)
+        for r, port in self.ports.items():
+            while True:
+                live = [w["wid"] for w in json.loads(_http(port, "GET", "/v1/workers")[2])["workers"]
+                        if w["status"] == "active"]
+                if len(live) == 2:
+                    break
+                check(time.monotonic() < deadline, f"router leg: {r} has live workers {live}")
+                time.sleep(0.2)
+        self.t_ready = time.perf_counter() - self.t0
+        return self
+
+    def pid(self, name):
+        return self.procs[name][0].pid
+
+    def stop(self):
+        import shutil
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        codes = {}
+        for name, (proc, _) in self.procs.items():
+            try:
+                codes[name] = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes[name] = proc.wait(timeout=60)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return codes
+
+
+def _router_body(prompts, i, stream, max_new=None):
+    """Request ``i`` of the leg as ``fleet_serve`` makes it (seed 100 + i,
+    the odd ones sampled): a stream of ``SERVE_NEW`` tokens, or a unary
+    reply of ``ROUTER_LOGIT_STEPS`` tokens with its logits."""
+    body = {"prompt": [int(t) for t in prompts[i]], "seed": 100 + i, **(KV_SAMPLED if i % 2 else {})}
+    if stream:
+        body.update(stream=True, max_tokens=max_new or SERVE_NEW)
+    else:
+        body.update(return_logits=True, max_tokens=max_new or ROUTER_LOGIT_STEPS)
+    return body
+
+
+def _router_unary(port, body):
+    import numpy as np
+    status, _, raw = _http(port, "POST", "/v1/completions", body)
+    check(status == 200, f"router leg: a unary request answered {status}: {raw[:300]!r}")
+    doc = json.loads(raw)
+    check("handoff" not in doc, "router leg: a unary reply carried a handoff")
+    return doc["choices"][0]["token_ids"], np.asarray(doc.get("logits", []), np.float32)
+
+
+def _router_sse(port, body):
+    status, _, raw = _http(port, "POST", "/v1/completions", body)
+    check(status == 200, f"router leg: a stream answered {status}: {raw[:300]!r}")
+    toks, done, handoff = [], False, False
+    for line in raw.decode().splitlines():
+        if line == "data: [DONE]":
+            done = True
+        elif line.startswith("data: "):
+            ev = json.loads(line[6:])
+            handoff = handoff or "handoff" in ev
+            toks += ev.get("choices", [{}])[0].get("token_ids", [])
+    return toks, done, handoff
+
+
+def _run_clients(calls):
+    """Every ``(key, fn, args)`` from its own thread, all at once; returns
+    {key: result}, raising the first failure."""
+    import threading
+    out, errs = {}, []
+
+    def run(key, fn, args):
+        try:
+            out[key] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+    threads = [threading.Thread(target=run, args=c, daemon=True) for c in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+        check(not t.is_alive(), "router leg: a client thread did not finish within 900 s")
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _card_used_mib():
+    """The card's memory in use (MiB) as nvidia-smi reads it, or None
+    without nvidia-smi (a rehearsal on the host)."""
+    import shutil
+    if shutil.which("nvidia-smi") is None:
+        return None
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return int(out.split()[0])
+
+
+def router_leg(torch, card, rf, prompts, ref_t, ref_l, ref_widths, direct=None):
+    """The multi-host router over ``rf``'s processes, against this process's
+    run of the same requests (``fleet_serve``: ``ref_t`` tokens, ``ref_l``
+    the first ``ROUTER_LOGIT_STEPS`` logits, ``ref_widths`` its forward
+    widths). First, request 0 through router A bitwise: the workers' seed-0
+    weights are this process's. Then, all at once: (a) the first
+    ``ROUTER_PROMPTS`` requests through router A (the rest of the unary
+    replies with logits, and every request streamed): tokens and logits
+    bitwise, both workers placed, no handoff event; (c) the same through
+    router B, every request crossing from the prefill worker to the decode
+    worker: bitwise, ``handoff_resumes`` >= the requests. (b) a prefix
+    flushed from worker A0's radix restores on A1 bitwise, A1's
+    ``remote_restores`` and ``net_bytes_in`` rising; (d) each worker's
+    forward widths within this process's; each process's peak device
+    memory; no worker rebuilt a kernel; (e) last, router A's worker holding
+    a ``ROUTER_KILL_NEW``-token stream is SIGKILLed after its first event:
+    the stream ends without ``[DONE]``, ``worker_sick`` >= 1, the survivor
+    serves within 120 s. Returns the workers' forward counts."""
+    import http.client
+    import signal
+    import numpy as np
+    rf.wait_ready()
+    log(f"router leg: 2 routers and 4 workers ({FLEET_MODEL}, {SERVE_CONFIG['dtype']}) live {rf.t_ready:.1f} s "
+        f"after their start")
+    t0 = time.perf_counter()
+    pa, pb = rf.ports["router_a"], rf.ports["router_b"]
+    a0, a1 = [w for w, (r, _) in rf.workers.items() if r == "router_a"]
+    wport = {w: rf.ready[w]["port"] for w in rf.workers}
+    n = ROUTER_PROMPTS
+    if direct is not None:
+        check(all(np.array_equal(direct[i], ref_t[i]) for i in range(0, n, 2)),
+              "router leg: the greedy references differ from the direct streams")
+
+    def same(i, toks, logits=None):
+        ok = toks == [int(t) for t in ref_t[i][:len(toks)]]
+        if logits is not None:
+            ok = ok and logits.shape == ref_l[i][:len(toks)].shape and np.array_equal(logits, ref_l[i][:len(toks)])
+        return ok
+
+    toks, logits = _router_unary(pa, _router_body(prompts, 0, False))
+    check(len(toks) == ROUTER_LOGIT_STEPS and same(0, toks, logits),
+          "router leg: a worker's first reply is not bitwise this process's on the same seed-0 weights: "
+          f"tokens {toks} vs {ref_t[0][:len(toks)].tolist()}")
+    log(f"router leg: request 0 through router A bitwise this process's (tokens and {logits.shape} logits): "
+        f"the workers hold the same seed-0 weights")
+    calls = [(("a", "unary", i), _router_unary, (pa, _router_body(prompts, i, False))) for i in range(1, n)]
+    for tag, port in (("a", pa), ("b", pb)):
+        calls += [((tag, "sse", i), _router_sse, (port, _router_body(prompts, i, True))) for i in range(n)]
+    calls += [(("b", "unary", i), _router_unary, (pb, _router_body(prompts, i, False))) for i in range(n)]
+    t1 = time.perf_counter()
+    res = _run_clients(calls)
+    burst = time.perf_counter() - t1
+    for (tag, mode, i), r in sorted(res.items()):
+        what = f"router leg ({'a' if tag == 'a' else 'c'}): request {i} ({mode}) through router {tag.upper()}"
+        if mode == "unary":
+            check(len(r[0]) == ROUTER_LOGIT_STEPS and same(i, r[0], r[1]), f"{what}: not bitwise this process's")
+        else:
+            check(r[2] is False, f"{what}: a handoff event reached the client")
+            check(r[1] and len(r[0]) == SERVE_NEW and same(i, r[0]), f"{what}: not bitwise this process's")
+    ma, mb = (json.loads(_http(p, "GET", "/v1/metrics")[2]) for p in (pa, pb))
+    routed = {w["wid"]: w["routed"] for w in ma["workers"]}
+    check(all(routed.get(w, 0) > 0 for w in (a0, a1)), f"router leg (a): placements {routed}")
+    check(mb["router"]["handoff_resumes"] >= 2 * n, f"router leg (c): handoff_resumes {mb['router']['handoff_resumes']}")
+    wm = {w: json.loads(_http(p, "GET", "/v1/metrics")[2]) for w, p in wport.items()}
+    out_b, in_b = wm["prefill"]["net_store"]["net_bytes_out"], wm["decode"]["net_store"]["net_bytes_in"]
+    handoffs = wm["prefill"]["gateway"]["handoffs_out"]
+    check(handoffs >= 2 * n and wm["decode"]["gateway"]["resumed_in"] >= 2 * n,
+          f"router leg (c): handoffs out {handoffs}, resumed in {wm['decode']['gateway']['resumed_in']}")
+    log(f"router leg (a), (c): {len(calls) + 1} requests ({n} unary with {ROUTER_LOGIT_STEPS} steps of logits "
+        f"and {n} streams of {SERVE_NEW} a router, greedy and sampled) bitwise this process's run in "
+        f"{burst:.3f} s; router A placed {routed}; router B: {mb['router']['handoff_resumes']} handoff resumes, "
+        f"{handoffs} handoffs out, {out_b} bytes out of the prefill worker's shard and {in_b} into the decode "
+        f"worker's ({out_b / max(1, handoffs) / 1e6:.3f} MB a handoff); no handoff event reached a client")
+    # (b) the cross-host prefix restore, on a prompt no request has sent, of
+    # two chunks or more (a restore moves whole chunks)
+    chunk = SERVE_CONFIG["continuous_batching"].get("prefill_chunk", 64)
+    rb = next(i for i in range(n, len(prompts)) if len(prompts[i]) >= 2 * chunk)
+    body = _router_body(prompts, rb, False)
+    first = _router_unary(wport[a0], body)
+    status, _, raw = _http(wport[a0], "POST", "/v1/debug/flush_radix", {})
+    check(status == 200 and json.loads(raw) == {"flushed": True}, f"router leg (b): flush answered {status} {raw!r}")
+    before = json.loads(_http(wport[a1], "GET", "/v1/metrics")[2])["net_store"]
+    again = _router_unary(wport[a1], body)
+    after = json.loads(_http(wport[a1], "GET", "/v1/metrics")[2])["net_store"]
+    check(first[0] == again[0] and np.array_equal(first[1], again[1]),
+          "router leg (b): the restored prefix's reply is not bitwise the owner's")
+    rose = (after["remote_restores"] - before["remote_restores"], after["net_bytes_in"] - before["net_bytes_in"])
+    check(rose[0] > 0 and rose[1] > 0, f"router leg (b): remote restores / bytes in rose by {rose}")
+    log(f"router leg (b): request {rb} ({len(prompts[rb])} tokens) on {a0}, its radix flushed to its shard, "
+        f"then on {a1}: bitwise, "
+        f"{rose[0]} remote restore(s), {rose[1]} bytes fetched")
+    # (d) forward widths, device memory, the kernels' build
+    counts = {}
+    for w, p in wport.items():
+        m = json.loads(_http(p, "GET", "/v1/metrics")[2])
+        fw = m["scheduler"]["forward_widths"]
+        counts[w] = fw
+        for kind in ("forwards", "ext_forwards"):
+            check(set(fw[kind]) <= set(ref_widths[kind]),
+                  f"router leg (d): {w}'s {kind} widths {sorted(fw[kind])} not within {sorted(ref_widths[kind])}")
+        dev = m["device"]
+        peak = dev["peak_allocated_bytes"] / 2**30 if dev else float("nan")
+        counts[w] = dict(fw, peak_gib=round(peak, 3))
+    check(rf.router_mib is None or rf.router_mib < 256,
+          f"router leg: the card's memory rose {rf.router_mib} MiB as the two routers started (a CUDA context)")
+    check(_build_snapshot() == rf.built, "router leg (d): a worker process rebuilt a kernel library")
+    log(f"router leg (d): forward widths and counts within this process's {ref_widths}: "
+        + "; ".join(f"{w} {c}" for w, c in counts.items())
+        + f"; peak device memory allocated a worker (GiB) {[counts[w]['peak_gib'] for w in wport]}; the card's "
+        f"memory in use rose {rf.router_mib} MiB as the routers started (no CUDA context); no worker rebuilt a "
+        f"kernel; on {card}")
+    # (e) a worker killed mid-stream, last
+    before = {w["wid"]: w["routed"] for w in json.loads(_http(pa, "GET", "/v1/workers")[2])["workers"]}
+    probe = _router_body(prompts, rb + 1, True, max_new=1)
+    _router_sse(pa, probe)
+    after = {w["wid"]: w["routed"] for w in json.loads(_http(pa, "GET", "/v1/workers")[2])["workers"]}
+    (victim, ) = [w for w in after if after[w] > before.get(w, 0)]
+    survivor = a1 if victim == a0 else a0
+    conn = http.client.HTTPConnection("127.0.0.1", pa, timeout=600)
+    try:
+        conn.request("POST", "/v1/completions", json.dumps(dict(probe, max_tokens=ROUTER_KILL_NEW)),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"router leg (e): the stream answered {resp.status}")
+        first = resp.fp.readline()
+        os.kill(rf.pid(victim), signal.SIGKILL)
+        raw = first + resp.fp.read()
+    finally:
+        conn.close()
+    check(first.startswith(b"data:") and b"data: [DONE]" not in raw,
+          "router leg (e): the killed worker's stream was not cut short")
+    t_kill = time.perf_counter()
+    while True:
+        status, _, rawb = _http(pa, "POST", "/v1/completions", _router_body(prompts, rb + 2, False, max_new=4))
+        if status == 200:
+            break
+        check(time.perf_counter() - t_kill < 120, f"router leg (e): no request served within 120 s ({status})")
+        time.sleep(0.5)
+    served = time.perf_counter() - t_kill
+    m = json.loads(_http(pa, "GET", "/v1/metrics")[2])
+    states = {w["wid"]: w["status"] for w in m["workers"]}
+    check(m["router"]["worker_sick"] >= 1 and states[victim] == "sick" and states[survivor] == "active",
+          f"router leg (e): worker_sick {m['router']['worker_sick']}, states {states}")
+    n_tok = raw.count(b'"token_ids": [')
+    log(f"router leg (e): {victim} SIGKILLed after its first event of {ROUTER_KILL_NEW}: the stream ended after "
+        f"{n_tok} events without [DONE]; worker_sick {m['router']['worker_sick']}, {victim} {states[victim]}, "
+        f"{survivor} {states[survivor]}, a new request served in {served:.3f} s")
+    log(f"router leg: the gates {time.perf_counter() - t0:.1f} s; wall since the processes started "
+        f"{time.perf_counter() - rf.t0:.1f} s on {card}")
+    return counts, victim
+
+
+def router_reference(eng, prompts):
+    """This process's run of the router leg's requests (``fleet_serve`` on
+    one replica of the serving shape): (tokens, the first
+    ``ROUTER_LOGIT_STEPS`` logits, its forward widths)."""
+    from deepspeed_tpu_torch.serving.replica import Replica, ReplicaSet
+    one = ReplicaSet([Replica(0, kv_scheduler(eng))])
+    toks, logits, _, _, _ = fleet_serve(one, prompts[:ROUTER_PROMPTS])
+    return toks, [x[:ROUTER_LOGIT_STEPS] for x in logits], _widths(one.primary)
+
+
+def _widths(sched):
+    return {kind: sorted(str(w) for w in getattr(sched, kind)) for kind in ("forwards", "ext_forwards")}
+
+
+def router_phase(torch, card):
+    """``--router``: the router leg alone, its reference this process's own
+    engine on the same seed-0 weights (built while the workers build
+    theirs)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.telemetry import set_sink
+    rf = RouterFleet()
+    try:
+        rf.start()
+        set_sink(None)
+        eng = deepspeed_tpu_torch.init_inference(FLEET_MODEL, config=SERVE_CONFIG)
+        vocab = eng.model_config.vocab_size
+        prompts = [p % vocab for p in mixed_stream()]
+        ref = router_reference(eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+        _, victim = router_leg(torch, card, rf, prompts, *ref)
+    finally:
+        codes = rf.stop()
+    check(all(c == (-9 if name == victim else 0) for name, c in codes.items()),
+          f"router leg: exit codes {codes}")
+    log(f"router leg: every process ended (exit codes {codes})")
+
+
 def fleet_phase(torch, card, params=None, one_replica=None, shared_direct=None):
     """gpt2-large int8 (``SERVE_CONFIG``: 8 slots x 512, K = 4, chunk 64, at
     full depth) as a fleet, on ``params`` (the fused engine's; else seed 0
@@ -3451,58 +3855,71 @@ def fleet_phase(torch, card, params=None, one_replica=None, shared_direct=None):
     ``shared_direct``, the serving phase's streams of it are the reference),
     (d) a step failure planted on replica 1 of the same gateway
     (``fleet_failure_leg``), (c) ``["prefill", "decode"]`` in process on the
-    whole mixed stream (``fleet_roles_leg``); then (e) the gateway at tp 2 on
-    llama3-8b (``fleet_tp_leg``). Returns each kernel's launches over (a)'s
+    whole mixed stream (``fleet_roles_leg``); the multi-host router leg
+    (``router_leg``: two routers and four worker processes, started with
+    the phase so they build their weights meanwhile, against (c)'s
+    one-replica run); then (e) the gateway at tp 2 on llama3-8b
+    (``fleet_tp_leg``). Returns each kernel's launches over (a)'s
     two-replica stream and (e)'s rank."""
     import numpy as np
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.telemetry import set_sink
     import shutil
     import tempfile
-    tel_dir = tempfile.mkdtemp(prefix="fleet_telemetry_")
-    config = {**SERVE_CONFIG,
-              "telemetry": {"enabled": True, "output_path": tel_dir, "flush_interval": 1000,
-                            "capacity_sample_every": GATEWAY_SAMPLE_EVERY},
-              "gateway": {"port": 0, "max_queue_depth": 64, "request_timeout_s": 600.0, "drain_timeout_s": 120.0}}
-    set_sink(None)
-    eng = deepspeed_tpu_torch.init_inference(FLEET_MODEL, config=config, params=params)
-    vocab = eng.model_config.vocab_size
-    prompts = [p % vocab for p in mixed_stream()]
-    warm = np.random.default_rng(SEED + 99).integers(0, vocab, 40).astype(np.int32)
-    sched = eng.scheduler()
-    shared = [p % vocab for p in shared_prefix_stream(sched)[0]]
-    rates = {}
-    if one_replica is None or shared_direct is None:
-        serve(sched, [warm], max_new=8)
-    if one_replica is None:
-        direct, _, wall_direct, _, _ = serve(sched, prompts)
-        log(f"fleet reference: the mixed stream by direct submit on one replica "
-            f"{sum(len(o) for o in direct) / wall_direct:.1f} tokens/s")
-    else:
-        rates[1], direct = one_replica
-        log(f"fleet: one replica over HTTP {rates[1]:.1f} tokens/s and the direct streams from the gateway phase")
-    if shared_direct is None:
-        shared_direct, _, _, _, _ = serve(sched, shared)
-    eng._scheduler = sched = None
-    torch.cuda.empty_cache()
-    for replicas in [n for n in (1, FLEET_REPLICAS) if n not in rates]:
-        rates[replicas], counts, gw = fleet_http_leg(torch, card, eng, prompts, direct, warm, replicas)
-        try:
-            if replicas > 1:
-                fleet_shared_leg(gw, shared, shared_direct)
-                fleet_failure_leg(gw, prompts[:8], direct)
-        finally:
-            check(gw.close(timeout=120), f"fleet x{replicas}: the gateway did not drain")
-    log(f"fleet HTTP tokens/s: one replica {rates[1]:.1f}, two {rates[FLEET_REPLICAS]:.1f} "
-        f"({rates[FLEET_REPLICAS] / rates[1]:.3f}x) on {card}")
-    eng._scheduler = None
-    torch.cuda.empty_cache()
-    fleet_roles_leg(torch, card, eng, prompts)
-    eng.telemetry.close()
-    set_sink(None)
-    shutil.rmtree(tel_dir, ignore_errors=True)
-    del eng
-    torch.cuda.empty_cache()
+    rf = RouterFleet()
+    try:
+        rf.start()
+        tel_dir = tempfile.mkdtemp(prefix="fleet_telemetry_")
+        config = {**SERVE_CONFIG,
+                  "telemetry": {"enabled": True, "output_path": tel_dir, "flush_interval": 1000,
+                                "capacity_sample_every": GATEWAY_SAMPLE_EVERY},
+                  "gateway": {"port": 0, "max_queue_depth": 64, "request_timeout_s": 600.0,
+                              "drain_timeout_s": 120.0}}
+        set_sink(None)
+        eng = deepspeed_tpu_torch.init_inference(FLEET_MODEL, config=config, params=params)
+        vocab = eng.model_config.vocab_size
+        prompts = [p % vocab for p in mixed_stream()]
+        warm = np.random.default_rng(SEED + 99).integers(0, vocab, 40).astype(np.int32)
+        sched = eng.scheduler()
+        shared = [p % vocab for p in shared_prefix_stream(sched)[0]]
+        rates = {}
+        if one_replica is None or shared_direct is None:
+            serve(sched, [warm], max_new=8)
+        if one_replica is None:
+            direct, _, wall_direct, _, _ = serve(sched, prompts)
+            log(f"fleet reference: the mixed stream by direct submit on one replica "
+                f"{sum(len(o) for o in direct) / wall_direct:.1f} tokens/s")
+        else:
+            rates[1], direct = one_replica
+            log(f"fleet: one replica over HTTP {rates[1]:.1f} tokens/s and the direct streams from the gateway "
+                f"phase")
+        if shared_direct is None:
+            shared_direct, _, _, _, _ = serve(sched, shared)
+        eng._scheduler = sched = None
+        torch.cuda.empty_cache()
+        for replicas in [n for n in (1, FLEET_REPLICAS) if n not in rates]:
+            rates[replicas], counts, gw = fleet_http_leg(torch, card, eng, prompts, direct, warm, replicas)
+            try:
+                if replicas > 1:
+                    fleet_shared_leg(gw, shared, shared_direct)
+                    fleet_failure_leg(gw, prompts[:8], direct)
+            finally:
+                check(gw.close(timeout=120), f"fleet x{replicas}: the gateway did not drain")
+        log(f"fleet HTTP tokens/s: one replica {rates[1]:.1f}, two {rates[FLEET_REPLICAS]:.1f} "
+            f"({rates[FLEET_REPLICAS] / rates[1]:.3f}x) on {card}")
+        eng._scheduler = None
+        torch.cuda.empty_cache()
+        router_ref = fleet_roles_leg(torch, card, eng, prompts)
+        eng.telemetry.close()
+        set_sink(None)
+        shutil.rmtree(tel_dir, ignore_errors=True)
+        del eng
+        torch.cuda.empty_cache()
+        _, victim = router_leg(torch, card, rf, prompts, *router_ref, direct=direct)
+    finally:
+        codes = rf.stop()
+    check(all(c == (-9 if name == victim else 0) for name, c in codes.items()), f"router leg: exit codes {codes}")
+    log(f"router leg: every process ended (exit codes {codes})")
     tp_counts = fleet_tp_leg(torch, card, torch.device("cuda"))
     return counts, tp_counts
 
@@ -6983,7 +7400,9 @@ def main(argv=()):
     ranks on the card); ``--seq``: build every kernel and run only the
     sequence-parallel phase (two ranks on the card); ``--fleet``: build
     every kernel and run only the serving fleet's phase (two replicas, phase
-    roles, the gateway on two ranks).
+    roles, the router and its worker processes, the gateway on two ranks);
+    ``--router``: build every kernel and run only the router leg (two
+    routers and four gpt2-large worker processes on the card).
     Each compares a change with its parent in one call: run this file
     beside each tree's package, in turns."""
     import torch
@@ -7058,6 +7477,10 @@ def main(argv=()):
         return 0
     if list(argv) == ["--fleet"]:
         timed_phase("fleet", fleet_phase, torch, card)
+        log(card)
+        return 0
+    if list(argv) == ["--router"]:
+        timed_phase("router", router_phase, torch, card)
         log(card)
         return 0
     results = timed_phase("kernels", kernel_phase, torch, dev)

@@ -110,7 +110,7 @@ class MultihostConfig(DeepSpeedConfigModel):
     networked shard (``memory/net_store.py``) so cross-HOST prefix restore
     and prefill->decode handoff work exactly like their cross-replica
     versions — weights-version stamps and the pinned-entry protocol stay
-    the consistency contract. ``python -m deepspeed_tpu.serving --worker``
+    the consistency contract. ``python -m deepspeed_tpu_torch.serving --worker``
     sets these from flags. See ``benchmarks/SERVING.md`` ("Multi-host
     serving")."""
 
@@ -423,13 +423,11 @@ class ContinuousBatchingConfig(DeepSpeedConfigModel):
         out = []
         item = "continuous_batching.{} (ROADMAP Queue 1 #{})".format
         if self.multi_lora.enabled:
-            out.append(item("multi_lora", "9, multi-LoRA"))
+            out.append(item("multi_lora", "9.3, multi-LoRA"))
         if self.expert_offload.enabled:
-            out.append(item("expert_offload", "9, MoE expert offload"))
-        if self.multihost.router_url is not None:
-            out.append(item("multihost", "9, multi-host router"))
+            out.append(item("expert_offload", "9.4, MoE expert offload"))
         if self.autoscaler.enabled:
-            out.append(item("autoscaler", "9, elastic controller"))
+            out.append(item("autoscaler", "9.5, the elastic controller"))
         return out
 
 

@@ -1,9 +1,10 @@
 """Networked prefix/handoff store: per-host shards + a fleet directory.
 
 Port of ``deepspeed_tpu/memory/net_store.py``; host-only (stdlib
-``http.client`` and ``json``, rows as CPU torch tensors). Its callers, the
-multi-host router and the worker's ``/v1/store/fetch`` route, come with
-ROADMAP Queue 1 #9; until then it is driven in-process.
+``http.client`` and ``json``, rows as CPU torch tensors). Its callers are
+the multi-host router (``serving/router.py``: the directory, the worker
+agent that swaps this facade in) and the worker gateway's
+``/v1/store/fetch`` route.
 
 The cross-HOST half of the hierarchical KV subsystem (Mooncake-style
 KVCache-centric serving across processes): every worker process keeps its
@@ -74,6 +75,11 @@ _JSON_HEADERS = {"Content-Type": "application/json"}
 
 def _is_handoff_key(key):
     return _MIG_SENTINEL in key
+
+
+def _ints(tokens):
+    """A key as JSON-ready Python ints (a prompt arrives as an int32 array)."""
+    return [int(t) for t in tokens]
 
 
 class RemoteEntry:
@@ -242,17 +248,17 @@ class DirectoryClient:
     def register(self, wid, url, key, length, version, nbytes, pinned,
                  lease_s=None, now=None):
         self._try("/v1/store/register",
-                  {"wid": wid, "url": url, "key": list(key),
+                  {"wid": wid, "url": url, "key": _ints(key),
                    "length": int(length), "version": int(version),
                    "nbytes": int(nbytes), "pinned": bool(pinned),
                    "lease_s": lease_s})
 
     def unregister(self, key):
-        self._try("/v1/store/unregister", {"key": list(key)})
+        self._try("/v1/store/unregister", {"key": _ints(key)})
 
     def probe(self, key, version, exclude_wid=None):
         out = self._try("/v1/store/probe",
-                        {"key": list(key), "version": int(version),
+                        {"key": _ints(key), "version": int(version),
                          "wid": exclude_wid})
         if not out or not out.get("found"):
             return None
@@ -261,7 +267,7 @@ class DirectoryClient:
     def drop(self, wid=None, version=None, prefix=None):
         self._try("/v1/store/drop",
                   {"wid": wid, "version": version,
-                   "prefix": list(prefix) if prefix else None})
+                   "prefix": _ints(prefix) if prefix else None})
 
     def reap(self, now=None):
         return 0  # the router reaps its own directory
@@ -385,7 +391,7 @@ class NetPrefixStore:
                                               timeout=self.fetch_timeout_s)
             try:
                 conn.request("POST", "/v1/store/fetch",
-                             json.dumps({"key": list(entry.key),
+                             json.dumps({"key": _ints(entry.key),
                                          "consume": bool(consume)}).encode(),
                              dict(_JSON_HEADERS))
                 resp = conn.getresponse()

@@ -989,7 +989,6 @@ class DeepSpeedEngine:
         then :meth:`_offload_apply`. Across ranks the fp32 gradients are
         reduced and scattered to this rank's partition (``offload_spec``)
         before they ship, and the norm sums the partitions' squares."""
-        from .zero.offload import flat_norm
         t0 = time.perf_counter()
         scale = self.loss_scale_state.cur_scale
         loss_sum = None
@@ -1027,9 +1026,12 @@ class DeepSpeedEngine:
                 loss_sum = dist.all_reduce(loss_sum, op=op, group=dist.DP_AXES)
             elif gas > 1:
                 self.host_opt.dev_grad.copy_(self._offload_acc)
-                gnorm_raw = float(flat_norm(self._offload_acc))
+                gnorm_raw = self._global_norm(self._acc_views)
             else:
-                gnorm_raw = float(flat_norm(self.host_opt.dev_grad))
+                # per tensor, then over the tensors, as the on-device step
+                # norms its gradients: the clipping coefficient, and so the
+                # gradient the host AdamW reads, is bitwise that step's
+                gnorm_raw = self._global_norm(self._grad_views)
         t1 = time.perf_counter()
         metrics, times = self._offload_apply(gnorm_raw, loss_sum / gas)
         self.last_offload_times = {"device_ms": (t1 - t0) * 1e3,
@@ -1531,7 +1533,8 @@ class DeepSpeedEngine:
             return self.master, self.optimizer.state_dict()
         if isinstance(self.optimizer, ClientOptimizer):
             raise NotImplementedError("a checkpoint of a client optimizer's state over ZeRO, tensor or pipe shards "
-                                      "(its state is per rank; use a built-in optimizer) (ROADMAP Queue 1 #9)")
+                                      "(its state is per rank; use a built-in optimizer) (ROADMAP Queue 1 #7.1, its "
+                                      "leftover)")
         spec = self._specs["master"]
 
         def whole(k, t):  # over the data axes, then over tensor

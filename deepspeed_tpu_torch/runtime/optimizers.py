@@ -69,12 +69,14 @@ _UNPORTED = {
 
 
 def tensor_norms(tensors):
-    """The L2 norm of each tensor, as fp32 0-d tensors. On the CPU PyTorch's
-    fp32 norm sums in one pass (5e-3 off at 64M elements, a gpt2-large
-    embedding), so there it accumulates in fp64; the card's reduction is a
-    tree and stays within fp32 rounding."""
+    """The L2 norm of each tensor, as fp32 0-d tensors (a bf16 gradient's
+    in fp32 too, so ZeRO-Offload's bf16 gradients norm as the on-device
+    step's upcast ones). On the CPU PyTorch's fp32 norm sums in one pass
+    (5e-3 off at 64M elements, a gpt2-large embedding), so there it
+    accumulates in fp64; the card's reduction is a tree and stays within
+    fp32 rounding."""
     if tensors and tensors[0].is_cuda:
-        return list(torch._foreach_norm(tensors))
+        return list(torch._foreach_norm(tensors, 2, dtype=torch.float32))
     return [torch.linalg.vector_norm(t, dtype=torch.float64).float() for t in tensors]
 
 

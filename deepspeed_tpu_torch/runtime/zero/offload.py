@@ -95,14 +95,6 @@ def cast_to(src, out):
         out.copy_(src)
 
 
-def flat_norm(flat):
-    """fp32 L2 norm of a flat gradient (fp64 accumulation on the CPU, as
-    ``runtime/optimizers.py::tensor_norms``)."""
-    if flat.is_cuda:
-        return torch.linalg.vector_norm(flat, dtype=torch.float32)
-    return torch.linalg.vector_norm(flat, dtype=torch.float64).float()
-
-
 class _Copies:
     """Two copy streams (device -> host, host -> device) and their events;
     on the CPU plain copies."""

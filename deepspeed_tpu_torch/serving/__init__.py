@@ -1,9 +1,9 @@
 """Serving gateway: streaming HTTP frontend over the continuous-batching
 scheduler — admission control, per-tenant fair queuing, graceful lifecycle.
-Port of ``deepspeed_tpu/serving/`` without the multi-host router and the
-elastic controller: a fleet of replicas (phase roles for disaggregated
-prefill/decode) on one card, or across the ranks of a mesh (rank 0 serves,
-the others :func:`follow`).
+Port of ``deepspeed_tpu/serving/`` without the elastic controller: a fleet
+of replicas (phase roles for disaggregated prefill/decode) on one card, or
+across the ranks of a mesh (rank 0 serves, the others :func:`follow`), and
+the multi-host router over worker processes (``serving/router.py``).
 
 Quickstart::
 
@@ -17,3 +17,4 @@ from ..inference.config import GatewayConfig  # noqa: F401
 from .fair_queue import FairQueue, QueueFull  # noqa: F401
 from .replica import Replica, ReplicaSet  # noqa: F401
 from .gateway import Gateway, follow  # noqa: F401
+from .router import Router, WorkerAgent  # noqa: F401

@@ -57,10 +57,19 @@ across the ranks of a mesh:
 the hierarchical KV tier on its pump thread (each eviction demotes to the
 host store) and answers once the demotes are probe-visible.
 
-Not ported, each answering 404 (or raising) naming ROADMAP Queue 1 #9: the
-elastic autoscaler (``/v1/autoscaler``), the multi-host router's worker
-hooks (``/v1/store/fetch``) and migration resumes (a completion body's
-``resume``).
+- **Multi-host worker hooks** (``serving/router.py``'s
+  :class:`~deepspeed_tpu_torch.serving.router.WorkerAgent` attaches them):
+  ``POST /v1/store/fetch`` serves this process's networked store shard
+  (``net_store``) to a remote restore; a prefill worker's handoff ends its
+  response with a terminal ``handoff`` descriptor (an SSE event, or a
+  ``handoff`` field of the unary reply) that only the router reads; and a
+  completion body's ``resume`` (the router's, on a decode worker) rebuilds
+  the handed-off request past the fair queue, since the prefill worker
+  already admitted it.
+
+Not ported, each answering 404 or 400 naming its ROADMAP item: the elastic
+autoscaler (``/v1/autoscaler``, Queue 1 #9.5) and multi-LoRA adapters (a
+completion body's ``adapter_id``, Queue 1 #9.3).
 
 Threading: the asyncio event loop owns sockets and parsing; one pump thread
 per replica makes every call into that replica's scheduler (a placement
@@ -121,7 +130,8 @@ from .fair_queue import FairQueue, QueueFull
 from .replica import ReplicaSet
 
 _JSON = "application/json"
-_ITEM9 = "ROADMAP Queue 1 #9"
+_AUTOSCALER = "ROADMAP Queue 1 #9.5, the elastic controller"
+_LORA = "ROADMAP Queue 1 #9.3, multi-LoRA"
 
 
 def _round_up(x, m):
@@ -137,11 +147,12 @@ class _GatewayRequest:
                  "cost", "deadline", "stream", "loop", "events", "handle",
                  "cancel_requested", "cancel_reason", "finished", "enq_ts",
                  "n_tokens", "trace", "trace_id", "replica",
-                 "return_logits", "echo", "cancel_sent")
+                 "return_logits", "echo", "cancel_sent", "resume")
 
     def __init__(self, rid, prompt, *, max_new_tokens, eos_token_id, do_sample,
                  temperature, top_k, top_p, seed, tenant, priority, deadline,
-                 stream, loop, trace=None, trace_id=None, return_logits=False, echo=()):
+                 stream, loop, trace=None, trace_id=None, return_logits=False, echo=(),
+                 resume=None):
         self.rid = rid
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
@@ -170,6 +181,9 @@ class _GatewayRequest:
         self.return_logits = return_logits  # unary responses carry per-step logits
         self.echo = tuple(echo)     # identity headers every response carries
         self.cancel_sent = False    # the cancel went to its replica (sent once)
+        # a cross-process resume: the handoff descriptor the router posted
+        # (None for an ordinary arrival); it bypasses the fair queue
+        self.resume = resume
 
 
 class Gateway:
@@ -221,7 +235,7 @@ class Gateway:
                                priority_weights=config.priority_weights)
         self.stats = {"requests": 0, "completed": 0, "tokens": 0, "shed_429": 0,
                       "shed_503": 0, "deadline_expired": 0, "disconnects": 0,
-                      "rejected": 0}
+                      "rejected": 0, "handoffs_out": 0, "resumed_in": 0}
         self.host = config.host
         self.port = None  # bound port (after start)
         self.ready = False
@@ -232,6 +246,9 @@ class Gateway:
         self._wake = threading.Event()       # pump wakeup
         self.replicas.on_migration_ready = self._wake.set  # a handoff is ready
         self._flush_radix_pending = set()    # replicas to flush (/v1/debug/flush_radix)
+        # multi-host serving: the WorkerAgent attaches this process's
+        # NetPrefixStore shard, which /v1/store/fetch serves (None otherwise)
+        self.net_store = None
         self._active = set()                 # admitted, unfinished _GatewayRequests
         self._ema_service_s = None           # EMA of request wall time
         # admission (fair-queue pop + placement) and terminal accounting
@@ -591,10 +608,14 @@ class Gateway:
 
     def _cancel(self, greq):
         """Propagate ``greq``'s cancel into its scheduler, once
-        (:meth:`Replica.cancel` decides when it lands)."""
+        (:meth:`Replica.cancel` decides when it lands). A resume has no
+        replica until one adopts it: the flag settles it while parked."""
         if not greq.cancel_sent:
             greq.cancel_sent = True
-            greq.replica.cancel(greq.handle)
+            if greq.replica is None:
+                greq.handle.cancel()
+            else:
+                greq.replica.cancel(greq.handle)
 
     def _settle_done(self):
         """Cancelled and failed requests finish through the scheduler (done
@@ -641,11 +662,67 @@ class Gateway:
         except RuntimeError:
             pass  # event loop closed mid-drain
 
+    # ------------------------------------------------------------------ multi-host handoff
+    def _handoff_complete(self, req, desc):
+        """A cross-process prefill->decode handoff's demote landed (the
+        WorkerAgent's migrate hook, on the KV transfer thread): finish the
+        gateway request with a terminal ``("handoff", desc)`` event, so the
+        response carries the descriptor instead of further tokens and the
+        router resumes the request on a decode worker. Not a completion (no
+        EMA fold, no completed count): the request lives on in another
+        process. False when no in-flight gateway request owns ``req``."""
+        for greq in list(self._active):
+            if greq.handle is not None and greq.handle._req is req:
+                self.stats["handoffs_out"] += 1
+                self._finish(greq, ("handoff", desc))
+                self._wake.set()
+                return True
+        return False
+
+    def _admit_resume(self, greq):
+        """Admit a router-posted resume (event-loop thread) past the fair
+        queue, since the prefill worker already admitted the request
+        fleet-wide: park it in the fleet's migration queue as a ready
+        handoff whose entry is in the owner's shard, and the pumps'
+        ``admit_migrations`` restores it bitwise."""
+        # active first: a pump may adopt and finish it before this returns
+        self._active.add(greq)
+        try:
+            greq.handle = self.replicas.inject_resume(greq.resume, on_token=self._make_on_token(greq),
+                                                      trace=greq.trace, collect_logits=greq.return_logits)
+        except (ValueError, KeyError, TypeError, NotImplementedError) as e:
+            self._active.discard(greq)
+            self.stats["rejected"] += 1
+            self._post(greq, ("failed", 400, f"bad resume descriptor: {e}"))
+            return
+        self.stats["resumed_in"] += 1
+        if self.telemetry.enabled:
+            self.telemetry.gauge("gateway/active_requests", len(self._active))
+        self._wake.set()
+
+    def forward_widths(self):
+        """The widths this process's slot-pool forwards ran at (the keys of
+        every replica's ``forwards`` and ``ext_forwards`` counters), with
+        their counts: the port's counterpart of a JAX worker's compiled
+        program count, which the router's heartbeat carries."""
+        out = {}
+        for kind in ("forwards", "ext_forwards"):
+            total = {}
+            for rep in self.replicas:
+                for width, n in getattr(rep.scheduler, kind).items():
+                    total[str(width)] = total.get(str(width), 0) + int(n)
+            out[kind] = dict(sorted(total.items(), key=lambda kv: int(kv[0])))
+        return out
+
     # ------------------------------------------------------------------ admission math
     def capacity_signals(self):
         """Live capacity-signals dict (``serving/capacity_math.py`` shape):
-        backlogs over available replicas only, and the phase split under
-        disaggregation."""
+        the one source both the local Retry-After and the multi-host
+        router's fleet-wide merge read. Backlogs count available replicas
+        only (a draining replica's slots are out of ``total_slots``, so its
+        backlog must be too), and the phase split under disaggregation.
+        ``inflight`` already holds parked handoffs (their handles are not
+        done): adding the pending migrations would count them twice."""
         reps = self.replicas
         return {"queued": len(self._fair), "inflight": len(self._active),
                 "sched_backlog": sum(len(r.scheduler.queue) for r in reps if r.available()),
@@ -771,13 +848,41 @@ class Gateway:
                     break
                 await asyncio.sleep(0.05)
             await self._json(writer, 200, {"flushed": not self._flush_radix_pending})
-        elif path in ("/v1/autoscaler", "/v1/store/fetch"):
-            what = {"/v1/autoscaler": "the elastic autoscaler",
-                    "/v1/store/fetch": "the multi-host router's networked store"}[path]
-            await self._json(writer, 404, {"error": {"message": f"deepspeed_tpu_torch does not "
-                                                     f"serve {what} yet ({_ITEM9})"}})
+        elif method == "POST" and path == "/v1/store/fetch":
+            await self._store_fetch(body, writer)
+        elif path == "/v1/autoscaler":
+            await self._json(writer, 404, {"error": {"message": "deepspeed_tpu_torch does not serve the "
+                                                     f"elastic autoscaler yet ({_AUTOSCALER})"}})
         else:
             await self._json(writer, 404, {"error": {"message": f"no route {method} {path}"}})
+
+    async def _store_fetch(self, body, writer):
+        """``POST /v1/store/fetch``: serve THIS shard's KV bytes to a remote
+        restore in ``memory/net_store.py``'s wire format (one meta JSON
+        line, then the leaves' raw bytes). The pop runs on an executor
+        thread (it may read NVMe), so the loop keeps serving meanwhile."""
+        if self.net_store is None:
+            await self._json(writer, 404, {"error": {"message": "no networked store attached "
+                                                     "(multi-host worker mode only)"}})
+            return
+        try:
+            req = json.loads(body.decode("utf-8") or "{}")
+            key = tuple(int(t) for t in req["key"])
+            consume = bool(req.get("consume", True))
+        except (ValueError, KeyError, TypeError, UnicodeDecodeError) as e:
+            await self._json(writer, 400, {"error": {"message": str(e)}})
+            return
+        loop = asyncio.get_running_loop()
+        out = await loop.run_in_executor(None, lambda: self.net_store.serve_fetch(key, consume=consume))
+        if out is None:
+            await self._json(writer, 404, {"error": {"message": "entry not resident (claimed, reaped "
+                                                     "or evicted)"}})
+            return
+        payload, blob = out
+        writer.write(self._head(200, "application/octet-stream", length=len(payload) + len(blob)))
+        writer.write(payload)
+        writer.write(blob)
+        await writer.drain()
 
     async def _profile(self, body, writer):
         if self.profiler is None:
@@ -887,6 +992,8 @@ class Gateway:
                           # the dispatch shapes so far ((chunk width, K),
                           # ("spec", W), ("prefill", bucket))
                           "dispatched": {str(k): v for k, v in sched.dispatched.items()},
+                          # every replica's forward widths and their counts
+                          "forward_widths": self.forward_widths(),
                           # fused decode layer: whether the step runs kernels
                           # A and C, and the gate's reasons when it does not
                           "fused_decode_block": sched._fused_block,
@@ -910,8 +1017,23 @@ class Gateway:
                 "host_gap_total_s": round(sched._gap.total_gap_s, 6),
                 "profiling": self.profiler.active if self.profiler is not None else None,
             } if sched.capacity is not None else None),
+            # multi-host serving: the networked shard's traffic
+            # (net_bytes_{in,out}, remote_restores, leases_expired, ...)
+            "net_store": self.net_store.stats() if self.net_store is not None else None,
+            "device": self._device_memory(),
             "telemetry": self.telemetry.snapshot(),
         }
+
+    def _device_memory(self):
+        """This process's device memory on the card (bytes allocated now and
+        at peak, the caching allocator's counts), or None on the host: a
+        fleet of worker processes sharing one card reports each one's."""
+        dev = self.engine.device
+        if dev.type != "cuda":
+            return None
+        import torch
+        return {"allocated_bytes": int(torch.cuda.memory_allocated(dev)),
+                "peak_allocated_bytes": int(torch.cuda.max_memory_allocated(dev))}
 
     # -------------------------------------------------------------- completions
     def _parse_completion(self, headers, body):
@@ -923,12 +1045,25 @@ class Gateway:
             raise ValueError(f"body is not valid JSON: {e}")
         if not isinstance(req, dict):
             raise ValueError("body must be a JSON object")
-        if req.get("resume") is not None:
-            raise ValueError(f"migration resume is not supported by deepspeed_tpu_torch yet "
-                             f"({_ITEM9})")
+        resume = req.get("resume")
+        if resume is not None:
+            # a cross-process resume (router -> decode worker): the
+            # descriptor is the request, its prompt and sampling arguments
+            # travel in it, so the resumed decode is bitwise the one it
+            # continues
+            if not isinstance(resume, dict):
+                raise ValueError("'resume' must be a handoff descriptor object")
+            for field in ("key", "kv_len", "version", "owner_url", "prompt", "max_new_tokens"):
+                if field not in resume:
+                    raise ValueError(f"resume descriptor missing {field!r}")
+            req = dict(req, prompt=resume["prompt"], max_tokens=int(resume["max_new_tokens"]),
+                       eos_token_id=resume.get("eos_token_id"), do_sample=resume.get("do_sample", False),
+                       temperature=resume.get("temperature", 0.0), top_k=resume.get("top_k", 0),
+                       top_p=resume.get("top_p", 1.0), seed=resume.get("seed", 0),
+                       adapter_id=resume.get("adapter_id"))
         if req.get("adapter_id") is not None:
             raise ValueError("multi-LoRA serving is not enabled (continuous_batching.multi_lora; "
-                             f"{_ITEM9})")
+                             f"{_LORA})")
         prompt = req.get("prompt")
         if isinstance(prompt, str):
             try:
@@ -984,6 +1119,7 @@ class Gateway:
             deadline=(time.monotonic() + timeout_s) if timeout_s > 0 else None,
             stream=bool(req.get("stream", False)),
             return_logits=bool(req.get("return_logits", False)),
+            resume=resume,
         )
 
     async def _completions(self, headers, body, reader, writer):
@@ -1028,20 +1164,26 @@ class Gateway:
             # across concurrent retries (the bare id is what x-request-id
             # echoes)
             trace.track = f"{trace_id}:{greq.rid}"
-        try:
-            self._fair.push(greq, greq.tenant, greq.priority, cost=greq.cost)
-        except QueueFull:
-            self.stats["shed_429"] += 1
+        if greq.resume is not None:
+            # fleet-wide admission happened on the prefill worker: queueing
+            # it again would charge its tenant twice and could deadlock a
+            # full queue
+            self._admit_resume(greq)
+        else:
+            try:
+                self._fair.push(greq, greq.tenant, greq.priority, cost=greq.cost)
+            except QueueFull:
+                self.stats["shed_429"] += 1
+                if tel.enabled:
+                    tel.counter("gateway/shed_429")
+                await self._json(writer, 429,
+                                 {"error": {"message": "server overloaded: request queue is full, "
+                                            "retry later", "type": "overloaded"}},
+                                 extra=[("Retry-After", str(self._retry_after()))] + echo)
+                return
             if tel.enabled:
-                tel.counter("gateway/shed_429")
-            await self._json(writer, 429,
-                             {"error": {"message": "server overloaded: request queue is full, "
-                                        "retry later", "type": "overloaded"}},
-                             extra=[("Retry-After", str(self._retry_after()))] + echo)
-            return
-        if tel.enabled:
-            tel.gauge("gateway/queue_depth", len(self._fair))
-        self._wake.set()
+                tel.gauge("gateway/queue_depth", len(self._fair))
+            self._wake.set()
         if greq.stream:
             await self._respond_stream(greq, reader, writer)
         else:
@@ -1126,6 +1268,13 @@ class Gateway:
                     await writer.drain()
                     if reason is not None:
                         break
+                elif kind == "handoff":
+                    # a cross-process migration: the stream ends here with
+                    # the descriptor, which the router (the only client that
+                    # sees this event) consumes to resume the request on a
+                    # decode worker and stitch that stream on
+                    writer.write(f"data: {json.dumps({'handoff': ev[1]})}\n\n".encode())
+                    break
                 else:  # "done" / "cancelled": a last empty chunk with the reason
                     payload = json.dumps(self._chunk(greq, [], ev[1]))
                     writer.write(f"data: {payload}\n\n".encode())
@@ -1141,6 +1290,7 @@ class Gateway:
         eof_task = asyncio.ensure_future(self._watch_eof(reader))
         toks = []
         finish_reason = None
+        handoff = None
         try:
             while True:
                 ev = await self._next_event(greq, eof_task)
@@ -1158,6 +1308,12 @@ class Gateway:
                     if reason is not None:
                         finish_reason = reason
                         break
+                elif kind == "handoff":
+                    # a cross-process migration: a partial reply, the tokens
+                    # so far and the descriptor the router resumes from
+                    finish_reason = "handoff"
+                    handoff = ev[1]
+                    break
                 else:  # "done" / "cancelled"
                     finish_reason = ev[1]
                     break
@@ -1177,6 +1333,8 @@ class Gateway:
                           "completion_tokens": len(toks),
                           "total_tokens": int(len(greq.prompt)) + len(toks)},
             }
+            if handoff is not None:
+                out["handoff"] = handoff
             if greq.return_logits and greq.handle is not None:
                 # float32 -> JSON double is exact: the logits survive the
                 # process boundary bitwise

@@ -59,9 +59,15 @@ follower whose own differ after the calls raises before it steps, since
 a step that differs would wait in a collective rank 0 never joins. A rank
 that raises does not go on.
 
+**Across processes** (the multi-host router, ``serving/router.py``): a
+prefill worker's handoff is resumed in another process by
+:meth:`ReplicaSet.inject_resume`, which parks the rebuilt request as a
+ready handoff whose entry lives in the owner's networked store shard.
+
 Not ported, each raising ``NotImplementedError``: phase roles at a world
-above one rank (``#9.1, its leftover``), the elastic controller's growth,
-scale-down and brownout parking, and the multi-host router's resumes.
+above one rank (``#9.1, its leftover``), cross-process resumes at a world
+above one rank (``#9.2, its leftover``), and the elastic controller's
+growth, scale-down and brownout parking (#9.5).
 
 Telemetry: gauges ``serving/replica/<id>/{slot_occupancy,queue_depth,
 tok_s}``; counters ``serving/replica/<id>/{dispatched,tokens,
@@ -94,8 +100,8 @@ _SERVING_GROUPS = (None, dist.TENSOR_AXIS, dist.EXPERT_AXIS, dist.SEQ_AXIS)
 # their wait never reaches the process group's timeout
 KEEPALIVE_S = 10.0
 
-_ELASTIC = "ROADMAP Queue 1 #9, elastic controller"
-_ROUTER = "ROADMAP Queue 1 #9, multi-host router"
+_ELASTIC = "ROADMAP Queue 1 #9.5, the elastic controller"
+_ROUTER_LEFTOVER = "ROADMAP Queue 1 #9.2, its leftover"
 
 
 def _unported(what, item):
@@ -570,7 +576,66 @@ class ReplicaSet:
     release_parked = park_out
 
     def inject_resume(self, desc, on_token=None, trace=None, collect_logits=False):
-        raise _unported("cross-process migration resumes", _ROUTER)
+        """Cross-process migration, decode side (the multi-host router's
+        resume, ``serving/router.py``): rebuild the request a prefill
+        WORKER handed off from its descriptor (prompt, sampling arguments,
+        the tokens already decoded, where the KV is parked) and park it in
+        this fleet's migration queue as a ready record whose entry is a
+        :class:`~deepspeed_tpu_torch.memory.net_store.RemoteEntry`.
+        :meth:`admit_migrations` then adopts it through the in-process path:
+        ``admit_migration`` restores the KV (the NetPrefixStore fetches the
+        bytes from the owner over HTTP) and decode resumes bitwise, since a
+        draw folds the request's seed and its absolute step ``len(out)``,
+        and the rebuilt request carries both and the same budget rounding.
+        Returns the request's handle (fleet-pumped until adoption). Raises
+        ValueError on a descriptor this fleet cannot honour."""
+        from ..inference.scheduler import SchedulerHandle, _Request, _round_up
+        from ..memory.net_store import RemoteEntry
+        if self.replicas[0].scope is not None:
+            raise _unported("cross-process migration resumes across ranks", _ROUTER_LEFTOVER)
+        if desc.get("adapter_id") is not None:
+            raise ValueError("cross-process resume does not carry adapter page pins; route adapter "
+                             "traffic to a worker with the adapter resident instead")
+        sched = self.primary
+        if sched.kv_tier is None:
+            raise ValueError("resume requires the hierarchical KV tier as the migration transport "
+                             "(continuous_batching.disaggregation or hierarchical_kv)")
+        with self._lock:
+            self._mig_id += 1
+            rid = -self._mig_id  # never collides with submit()'s own rids
+        req = _Request(rid, np.asarray(desc["prompt"], np.int32), int(desc["max_new_tokens"]),
+                       desc.get("eos_token_id"), bool(desc.get("do_sample", False)),
+                       float(desc.get("temperature", 1.0)), int(desc.get("top_k", 0)),
+                       float(desc.get("top_p", 1.0)), int(desc.get("seed", 0)), bool(collect_logits),
+                       on_token=on_token, trace=trace)
+        # the tokens the prefill side's final sync already decoded (and
+        # streamed): their rows are in the KV, and the next draw's absolute
+        # step is len(out)
+        req.out = [int(t) for t in desc.get("done_tokens", ())]
+        if len(req.out) >= req.max_new_tokens:
+            raise ValueError("resume descriptor is already complete")
+        req.migrating = True
+        # submit()'s overshoot rounding: admission sizes extent chains by it
+        budget = _round_up(req.max_new_tokens, sched.steps_per_sync)
+        if sched.spec_tokens > 0:
+            budget = max(budget, req.max_new_tokens + sched._spec_width - 1)
+        req.row_budget = int(budget)
+        req.handle = SchedulerHandle(self._pump_proxy, req)
+        key = tuple(int(t) for t in desc["key"])
+        record = _Migration(req, key, None, time.monotonic())
+        record.kv_len = int(desc["kv_len"])
+        record.version = int(desc["version"])
+        record.entry = RemoteEntry(key, record.kv_len, record.version, int(desc.get("nbytes", 0)), True,
+                                   desc["owner_url"], desc.get("owner_wid"))
+        record.ready = True
+        with self._lock:
+            self._migrations.append(record)
+        if self.telemetry.enabled:
+            self.telemetry.counter("serving/migrations")
+        cb = self.on_migration_ready
+        if cb is not None:
+            cb()
+        return req.handle
 
     # ---------------------------------------------------------------- phase roles
     def set_role(self, idx, role):

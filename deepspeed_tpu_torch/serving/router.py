@@ -1,0 +1,1107 @@
+"""Multi-host serving: the router tier and the per-process worker agent.
+
+Port of ``deepspeed_tpu/serving/router.py``, host code only (stdlib
+``asyncio`` and ``http.client`` through ``memory/net_store.py``, and
+numpy): the router holds no model and touches no device, so a ``--router``
+process never initialises CUDA. Two pieces cross the process boundary:
+
+- :class:`WorkerAgent` rides inside each ``python -m
+  deepspeed_tpu_torch.serving --worker`` process (its own engine and
+  replica fleet behind its own
+  :class:`~deepspeed_tpu_torch.serving.gateway.Gateway`, on the card or,
+  with ``--device cpu``, on the host): it registers with the router,
+  heartbeats the gateway's ``capacity_signals()`` (the dict the local
+  Retry-After reads), swaps every scheduler's KV-tier store for one
+  :class:`~deepspeed_tpu_torch.memory.net_store.NetPrefixStore` shard, and
+  on ``--worker-role prefill`` installs the cross-process migrate hook: a
+  finished chunked prefill demotes the request's whole KV into the shard,
+  the gateway answers the router with a terminal ``handoff`` descriptor,
+  and a decode worker resumes it bitwise.
+
+- :class:`Router` fronts the worker fleet over plain HTTP: ``POST
+  /v1/completions`` places each request with the signals the in-process
+  ``ReplicaSet`` uses (sticky prefix on a leading-chunk LRU, phase role,
+  adapter residency, least-loaded ``(busy + 1) x service-EMA / slots``
+  from heartbeats), then proxies the stream. A worker dying before the
+  first relayed byte is retried on another; after it, the stream ends
+  without ``[DONE]`` (never a silent re-run). The fleet's Retry-After
+  merges the workers' signals through ``serving/capacity_math.py``, so a
+  draining worker's backlog never counts twice. The router also hosts the
+  store directory (``/v1/store/*``): metadata only, the KV bytes move
+  worker to worker over ``/v1/store/fetch``.
+
+Worker protocol (JSON over HTTP/1.1, ``Connection: close``)::
+
+    POST /v1/workers/register   {wid, url, role, weights_version, ...}
+    POST /v1/workers/heartbeat  {wid, signals, store, weights_version, ...}
+         -> {"unknown": true} when the router restarted: the worker registers again
+    POST /v1/workers/deregister {wid}
+    GET  /v1/workers            fleet state (placement signals included)
+
+Differences by design: the JAX heartbeat's ``compiled_programs`` (XLA
+programs compiled) has no counterpart, since the port runs eagerly; the
+heartbeat carries ``forward_widths`` in its place, the widths the worker's
+slot-pool forwards ran at (the keys of each scheduler's ``forwards`` and
+``ext_forwards`` counters). A worker across more than one rank is refused
+(ROADMAP Queue 1 #9.2, its leftover): a remote restore would have to be
+mirrored on every rank.
+
+Telemetry: counters ``serving/router/{requests,routed_local,routed_remote,
+worker_sick,shed_503,handoff_resumes,retries}``; per-worker labeled
+families ``serving/worker/<wid>/...`` on the Prometheus surface (capped at
+256 labels, like tenants); ``serving/router/store_net_bytes_{in,out}`` and
+``serving/router/remote_restore_ms`` come from the workers' NetPrefixStore
+(the bytes move between workers, not through the router).
+"""
+
+import asyncio
+import collections
+import json
+import threading
+import time
+import urllib.parse
+import zlib
+
+import numpy as np
+
+from .. import comm as dist
+from ..memory.net_store import DirectoryClient, NetPrefixStore, StoreDirectory
+from ..telemetry import prometheus as prom
+from ..utils.logging import logger
+from . import capacity_math
+from .replica import _MIG_SENTINEL, _Migration
+
+_JSON = "application/json"
+_LEFTOVER = "ROADMAP Queue 1 #9.2, its leftover"
+
+
+# ---------------------------------------------------------------------- worker
+
+
+def refuse_ranks(world):
+    """A worker serves from one rank: across ranks every rank would have to
+    mirror each remote restore (as phase roles across ranks would, #9.1's
+    leftover), which is not ported."""
+    if int(world) > 1:
+        raise NotImplementedError(f"deepspeed_tpu_torch does not support a multi-host worker across "
+                                  f"{int(world)} ranks yet ({_LEFTOVER})")
+
+
+class WorkerAgent:
+    """The in-process glue between one worker's Gateway and the router.
+
+    ``attach()`` wires the store facade + migrate hook; ``start()`` spawns
+    the registration/heartbeat daemon; ``stop()`` deregisters. The agent
+    never owns scheduler state — every scheduler interaction happens on
+    hooks the pump threads already run."""
+
+    def __init__(self, gateway, router_url, wid, role="mixed",
+                 heartbeat_s=2.0, lease_s=30.0, advertise_host=None,
+                 migrate_min_tokens=0):
+        refuse_ranks(dist.get_world_size() if dist.is_initialized() else 1)
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"worker role must be prefill|decode|mixed, "
+                             f"got {role!r}")
+        self.gateway = gateway
+        self.router_url = router_url.rstrip("/")
+        self.wid = wid
+        self.role = role
+        self.heartbeat_s = float(heartbeat_s)
+        self.lease_s = float(lease_s)
+        self.migrate_min_tokens = max(0, int(migrate_min_tokens))
+        host = advertise_host or gateway.host or "127.0.0.1"
+        if host == "0.0.0.0":  # noqa: S104 — advertised URL must be routable
+            host = "127.0.0.1"
+        self.url = f"http://{host}:{gateway.port}"
+        # stable per-worker key tag: handoff keys must be unique FLEET-wide,
+        # and two workers' counters both start at 1
+        self._wid_tag = int(zlib.crc32(str(wid).encode()) & 0x7FFFFFFF)
+        self._mig_lock = threading.Lock()
+        self._mig_id = 0
+        self.directory = DirectoryClient(self.router_url)
+        self.net_store = None
+        self.registered = False
+        self._stop = threading.Event()
+        self._thread = None
+
+    # ------------------------------------------------------------------ wiring
+    def attach(self):
+        """Swap every replica's KV-tier store for ONE shared NetPrefixStore
+        shard (the local GlobalPrefixStore is already fleet-shared
+        in-process; the facade adds the directory mirror + remote fetch)
+        and install the cross-process migrate hook on prefill workers."""
+        gw = self.gateway
+        primary = gw.replicas.primary
+        if primary.kv_tier is not None:
+            local = primary.kv_tier.store
+            self.net_store = NetPrefixStore(
+                local, self.directory, self.wid, self.url,
+                lease_s=self.lease_s, telemetry=gw.telemetry)
+            for rep in gw.replicas:
+                if rep.scheduler.kv_tier is not None:
+                    rep.scheduler.kv_tier.store = self.net_store
+            gw.net_store = self.net_store
+        if self.role == "prefill":
+            if primary.kv_tier is None:
+                raise ValueError(
+                    "a prefill-role worker needs the hierarchical-KV prefix "
+                    "store as the migration transport: enable "
+                    "continuous_batching.disaggregation (or hierarchical_kv)")
+            if primary.prefill_chunk <= 0:
+                raise ValueError("cross-process handoff requires chunked "
+                                 "prefill (prefill_chunk > 0)")
+            if gw.replicas._hooks_installed:
+                # in-process disaggregation owns the hook: a fleet that is
+                # ALSO phase-split internally migrates within the process
+                # first; cross-process roles then belong on whole workers
+                raise ValueError(
+                    "worker role 'prefill' conflicts with in-process "
+                    "disaggregation roles — use one phase split, not both")
+            for rep in gw.replicas:
+                rep.scheduler.migrate_hook = self._maybe_migrate_remote
+        return self
+
+    def _maybe_migrate_remote(self, sched, req):
+        """Scheduler migrate hook, cross-process flavor (prefill pump
+        thread, right after the final prefill sync delivered its tokens):
+        demote the request's whole KV into this worker's shard and answer
+        the router with a handoff descriptor instead of decoding here.
+        Mirrors ``ReplicaSet._maybe_migrate``, but the adopter is another
+        PROCESS found by the router, so there is no in-fleet record — the
+        gateway request finishes with a terminal ``handoff`` event."""
+        if req.migrating or sched.kv_tier is None:
+            return False
+        if req.prompt.size < self.migrate_min_tokens:
+            return False  # colocate: the round trip isn't worth a short prompt
+        with self._mig_lock:
+            self._mig_id += 1
+            mig_id = self._mig_id
+        key = (_MIG_SENTINEL, self._wid_tag, mig_id)
+        record = _Migration(req, key, None, time.monotonic())
+        record.version = int(sched.cache.weights_version)
+        gw = self.gateway
+
+        def on_ready(entry):
+            # KV transfer thread: the shard put landed (and the directory
+            # registration with it) — or failed. Either way the request
+            # must reach a terminal state; it is owned by no scheduler.
+            record.entry = entry
+            record.ready = True
+            if entry is None:
+                sched._settle_migration(
+                    record, error="cross-process handoff demote failed")
+            elif not gw._handoff_complete(req, self._desc(req, record)):
+                # no gateway request owns it (direct-drive caller): nobody
+                # will ever resume it — fail loudly, reclaim the entry
+                sched._settle_migration(
+                    record, error="cross-process handoff had no gateway "
+                                  "request to answer")
+            gw._wake.set()
+
+        record.kv_len = sched.migrate_out(req, key, on_ready)
+        tel = gw.telemetry
+        if tel.enabled:
+            tel.counter("serving/migrations")
+        return True
+
+    def _desc(self, req, record):
+        """The handoff descriptor: everything a decode worker needs to
+        rebuild the request bit-identically (sampling keys fold ABSOLUTE
+        step indices, so seed + done-tokens + prompt pin the continuation)
+        plus where the KV bytes are parked."""
+        return {"key": list(record.key), "kv_len": int(record.kv_len),
+                "version": int(record.version),
+                "nbytes": int(record.entry.nbytes),
+                "owner_url": self.url, "owner_wid": self.wid,
+                "prompt": [int(t) for t in req.prompt],
+                "done_tokens": [int(t) for t in req.out],
+                "max_new_tokens": int(req.max_new_tokens),
+                "eos_token_id": req.eos_token_id,
+                "do_sample": bool(req.do_sample),
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k), "top_p": float(req.top_p),
+                "seed": int(req.seed), "adapter_id": None}
+
+    # ------------------------------------------------------------------ heartbeat
+    def signals(self):
+        """The gateway's capacity-signals dict, stamped with this worker's
+        process-level role (the router zeroes the opposite phase's slots
+        when merging — a prefill worker's pool serves no fleet decodes)."""
+        sig = self.gateway.capacity_signals()
+        sig["role"] = self.role
+        return sig
+
+    def _heartbeat_body(self):
+        gw = self.gateway
+        return {"wid": self.wid, "url": self.url, "role": self.role,
+                "signals": self.signals(),
+                "weights_version": int(gw.replicas.primary.cache.weights_version),
+                "store": (self.net_store.stats()
+                          if self.net_store is not None else None),
+                "adapters": [],  # multi-LoRA serving is not ported (#9.3)
+                "draining": bool(gw.draining),
+                "forward_widths": gw.forward_widths(),
+                "stats": {"active_requests": len(gw._active),
+                          "completed": gw.stats["completed"],
+                          "handoffs_out": gw.stats["handoffs_out"],
+                          "resumed_in": gw.stats["resumed_in"]}}
+
+    def _register_body(self):
+        gw = self.gateway
+        return {"wid": self.wid, "url": self.url, "role": self.role,
+                "prefill_chunk": int(gw.replicas.primary.prefill_chunk),
+                "weights_version": int(gw.replicas.primary.cache.weights_version),
+                "signals": self.signals()}
+
+    def start(self):
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"worker-agent-{self.wid}")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self.registered:
+            self.directory._try("/v1/workers/deregister", {"wid": self.wid})
+            self.registered = False
+
+    def _run(self):
+        """Registration + heartbeat daemon: register (with retry — the
+        router may come up after the workers), then heartbeat every
+        ``heartbeat_s``; a 404 means the router restarted and forgot us —
+        re-register, carrying on. Owner-side lease reaping rides the same
+        cadence."""
+        while not self._stop.is_set() and not self.gateway.draining:
+            try:
+                if not self.registered:
+                    out = self.directory._try("/v1/workers/register",
+                                              self._register_body())
+                    self.registered = out is not None and out.get("ok", False)
+                else:
+                    out = self.directory._try("/v1/workers/heartbeat",
+                                              self._heartbeat_body())
+                    if out is not None and out.get("unknown"):
+                        self.registered = False
+                        continue  # re-register immediately
+                if self.net_store is not None:
+                    self.net_store.reap_expired()
+            except Exception:  # noqa: BLE001 — the daemon must survive blips
+                logger.warning("worker agent heartbeat failed", exc_info=True)
+            self._stop.wait(self.heartbeat_s)
+        if self.registered:
+            self.directory._try("/v1/workers/deregister", {"wid": self.wid})
+            self.registered = False
+
+
+# ---------------------------------------------------------------------- router
+
+
+class _Worker:
+    """Router-side view of one registered worker process."""
+
+    __slots__ = ("wid", "url", "host", "port", "role", "prefill_chunk",
+                 "weights_version", "signals", "store", "adapters",
+                 "draining", "forward_widths", "stats", "last_seen",
+                 "sick", "sick_error", "routed")
+
+    def __init__(self, wid, url, role, prefill_chunk, weights_version,
+                 signals):
+        self.wid = wid
+        self.url = url.rstrip("/")
+        parsed = urllib.parse.urlsplit(self.url)
+        self.host = parsed.hostname
+        self.port = parsed.port or 80
+        self.role = role
+        self.prefill_chunk = int(prefill_chunk or 64)
+        self.weights_version = int(weights_version or 0)
+        self.signals = dict(signals or {})
+        self.store = None
+        self.adapters = []
+        self.draining = False
+        self.forward_widths = {}
+        self.stats = {}
+        self.last_seen = time.monotonic()
+        self.sick = False
+        self.sick_error = None
+        self.routed = 0
+
+    def prefill_capable(self):
+        return self.role in ("prefill", "mixed")
+
+    def decode_capable(self):
+        return self.role in ("decode", "mixed")
+
+    def available(self, now, timeout_s):
+        return (not self.sick and not self.draining
+                and (now - self.last_seen) <= timeout_s)
+
+    def merged_signals(self):
+        """Role-adjusted capacity signals for the fleet merge: a worker
+        whose whole PROCESS is one phase contributes no slots to the other
+        phase, whatever its local (all-mixed) fleet reports."""
+        sig = dict(self.signals)
+        if self.role == "prefill":
+            sig["decode_slots"] = 0
+        elif self.role == "decode":
+            sig["prefill_slots"] = 0
+        return sig
+
+    def expected_drain_score(self, fallback_ema):
+        """The ReplicaSet's least-loaded placement score, over the wire:
+        ``(busy + 1) x service-EMA / slots`` from the last heartbeat."""
+        sig = self.signals
+        ema = sig.get("ema_service_s")
+        ema = float(ema) if ema is not None else fallback_ema
+        busy = (int(sig.get("queued", 0)) + int(sig.get("inflight", 0))
+                + int(sig.get("sched_backlog", 0)))
+        return (busy + 1) * ema / max(1, int(sig.get("total_slots", 1)))
+
+    def state(self):
+        return {"wid": self.wid, "url": self.url, "role": self.role,
+                "status": "sick" if self.sick else
+                          ("draining" if self.draining else "active"),
+                "error": self.sick_error,
+                "weights_version": self.weights_version,
+                "signals": self.signals, "store": self.store,
+                "adapters": self.adapters, "routed": self.routed,
+                "forward_widths": self.forward_widths,
+                "age_s": round(time.monotonic() - self.last_seen, 3),
+                "stats": self.stats}
+
+
+class Router:
+    """The fleet frontend: placement + proxy + store directory (see module
+    docstring). One asyncio event loop owns everything; worker I/O is
+    per-request ``asyncio.open_connection`` (Connection: close both ways,
+    matching the gateway's HTTP dialect)."""
+
+    def __init__(self, host="127.0.0.1", port=0, heartbeat_timeout_s=10.0,
+                 retry_after_cap_s=600, sticky_capacity=2048,
+                 reap_interval_s=5.0, proxy_timeout_s=300.0):
+        self.host = host
+        self.port = None
+        self._want_port = int(port)
+        self.heartbeat_timeout_s = float(heartbeat_timeout_s)
+        self.retry_after_cap_s = int(retry_after_cap_s)
+        self.reap_interval_s = float(reap_interval_s)
+        self.proxy_timeout_s = float(proxy_timeout_s)
+        self.directory = StoreDirectory()
+        self.workers = {}
+        self._lock = threading.Lock()
+        self._sticky = collections.OrderedDict()
+        self._sticky_capacity = int(sticky_capacity)
+        self._rr = 0
+        self.counters = collections.Counter({
+            "requests": 0, "routed_local": 0, "routed_remote": 0,
+            "worker_sick": 0, "shed_503": 0, "handoff_resumes": 0,
+            "retries": 0, "resume_failovers": 0})
+        self._worker_labels = set()
+        self._t0 = time.monotonic()
+        self.ready = False
+        self._loop = None
+        self._server = None
+        self._loop_thread = None
+        self._done = threading.Event()
+
+    # ------------------------------------------------------------------ lifecycle
+    def start_background(self, timeout=60.0):
+        started = threading.Event()
+
+        def runner():
+            asyncio.run(self._serve(started.set))
+
+        self._loop_thread = threading.Thread(target=runner, daemon=True,
+                                             name="router-loop")
+        self._loop_thread.start()
+        if not started.wait(timeout):
+            raise RuntimeError("router failed to bind within timeout")
+        return self
+
+    def run(self, ready_cb=None):
+        asyncio.run(self._serve(ready_cb or (lambda: None)))
+
+    def close(self):
+        loop = self._loop
+        if loop is not None and loop.is_running():
+            loop.call_soon_threadsafe(self._shutdown)
+        self._done.wait(10.0)
+
+    def _shutdown(self):
+        if self._server is not None:
+            self._server.close()
+        for task in asyncio.all_tasks(self._loop):
+            task.cancel()
+
+    async def _serve(self, ready_cb):
+        self._loop = asyncio.get_running_loop()
+        self._server = await asyncio.start_server(
+            self._handle_conn, self.host, self._want_port,
+            limit=1 << 20)
+        self.port = self._server.sockets[0].getsockname()[1]
+        self.ready = True
+        reaper = asyncio.ensure_future(self._reaper())
+        ready_cb()
+        try:
+            async with self._server:
+                await self._server.serve_forever()
+        except (asyncio.CancelledError, KeyboardInterrupt):
+            pass
+        finally:
+            reaper.cancel()
+            self.ready = False
+            self._done.set()
+
+    async def _reaper(self):
+        """Periodic hygiene: expire handoff leases the owners never
+        reclaimed (dead-owner case) and flag heartbeat-silent workers sick
+        so placement stops choosing them before a proxy failure does."""
+        while True:
+            await asyncio.sleep(self.reap_interval_s)
+            self.directory.reap()
+            now = time.monotonic()
+            with self._lock:
+                for w in self.workers.values():
+                    if (not w.sick
+                            and now - w.last_seen > self.heartbeat_timeout_s):
+                        self._mark_sick(w, "heartbeat timeout")
+
+    def _mark_sick(self, worker, error):
+        if worker.sick:
+            return
+        worker.sick = True
+        worker.sick_error = str(error)[:300]
+        self.counters["worker_sick"] += 1
+        logger.warning(f"router: worker {worker.wid} marked sick ({error})")
+
+    # ------------------------------------------------------------------ placement
+    def _sticky_key(self, prompt, adapter):
+        # caller holds self._lock (non-reentrant)
+        chunk = 64
+        for w in self.workers.values():
+            chunk = w.prefill_chunk or chunk
+            break
+        return (adapter, tuple(prompt[:chunk]))
+
+    def _record_sticky(self, key, wid):
+        self._sticky[key] = wid
+        self._sticky.move_to_end(key)
+        while len(self._sticky) > self._sticky_capacity:
+            self._sticky.popitem(last=False)
+
+    def _place(self, prompt, adapter=None, phase="prefill", exclude=()):
+        """Mirror of ``ReplicaSet.route`` over the wire: eligible workers
+        (healthy, heartbeat-fresh, phase-capable, not excluded by an
+        earlier failed attempt), sticky prefix first (same leading-chunk
+        LRU), adapter residency preferred, else least-loaded by the
+        expected-drain score with a round-robin tie break."""
+        now = time.monotonic()
+        want = (_Worker.prefill_capable if phase == "prefill"
+                else _Worker.decode_capable)
+        with self._lock:
+            cands = [w for w in self.workers.values()
+                     if w.available(now, self.heartbeat_timeout_s)
+                     and want(w) and w.wid not in exclude]
+            if not cands:
+                # degraded fleet: any live worker beats stalling (the same
+                # colocation fallback the in-process fleet takes when one
+                # phase vanishes)
+                cands = [w for w in self.workers.values()
+                         if w.available(now, self.heartbeat_timeout_s)
+                         and w.wid not in exclude]
+            if not cands:
+                return None
+            skey = None
+            if phase == "prefill" and prompt:
+                skey = self._sticky_key(prompt, adapter)
+                wid = self._sticky.get(skey)
+                if wid is not None:
+                    w = self.workers.get(wid)
+                    if w is not None and w in cands:
+                        self._sticky.move_to_end(skey)
+                        w.routed += 1
+                        return w
+            if adapter is not None:
+                resident = [w for w in cands if adapter in (w.adapters or ())]
+                if resident:
+                    cands = resident
+            emas = [w.signals.get("ema_service_s") for w in cands]
+            emas = [e for e in emas if e is not None]
+            fallback = float(np.mean(emas)) if emas else 1.0
+            order = sorted(
+                cands, key=lambda w: (w.expected_drain_score(fallback),
+                                      (hash(w.wid) - self._rr) % (len(cands) + 1)))
+            self._rr += 1
+            chosen = order[0]
+            if skey is not None:
+                self._record_sticky(skey, chosen.wid)
+            chosen.routed += 1
+            return chosen
+
+    def _fleet_retry_after(self):
+        with self._lock:
+            now = time.monotonic()
+            live = [w.merged_signals() for w in self.workers.values()
+                    if w.available(now, self.heartbeat_timeout_s)]
+        merged = capacity_math.merge_signals(live)
+        return capacity_math.estimate_retry_after(merged,
+                                                  self.retry_after_cap_s)
+
+    # ------------------------------------------------------------------ HTTP layer
+    async def _handle_conn(self, reader, writer):
+        try:
+            req_line = await asyncio.wait_for(reader.readline(), 30.0)
+            parts = req_line.decode("latin-1").split()
+            if len(parts) < 2:
+                return
+            method, path = parts[0].upper(), parts[1]
+            headers = {}
+            for _ in range(128):
+                line = await asyncio.wait_for(reader.readline(), 30.0)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                key, _, val = line.decode("latin-1").partition(":")
+                headers[key.strip().lower()] = val.strip()
+            else:
+                await self._json(writer, 431,
+                                 {"error": {"message": "too many headers"}})
+                return
+            body = b""
+            length = int(headers.get("content-length", "0") or 0)
+            if length > (64 << 20):
+                await self._json(writer, 413,
+                                 {"error": {"message": "body too large"}})
+                return
+            if length:
+                body = await asyncio.wait_for(reader.readexactly(length), 60.0)
+            await self._route(method, path, headers, body, reader, writer)
+        except (asyncio.IncompleteReadError, asyncio.TimeoutError,
+                ConnectionError):
+            pass
+        except Exception:  # noqa: BLE001 — one bad conn must not kill the loop
+            logger.exception("router: connection handler failed")
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except Exception:  # noqa: BLE001
+                pass
+
+    async def _route(self, method, path, headers, body, reader, writer):
+        path, _, query = path.partition("?")
+        if method == "GET" and path == "/healthz":
+            await self._json(writer, 200, {"status": "alive"})
+        elif method == "GET" and path == "/readyz":
+            now = time.monotonic()
+            with self._lock:
+                live = sum(1 for w in self.workers.values()
+                           if w.available(now, self.heartbeat_timeout_s))
+            if live:
+                await self._json(writer, 200, {"status": "ready",
+                                               "workers": live})
+            else:
+                await self._json(
+                    writer, 503, {"status": "no live workers"},
+                    extra=[("Retry-After", str(self._fleet_retry_after()))])
+        elif method == "POST" and path == "/v1/workers/register":
+            await self._worker_register(body, writer)
+        elif method == "POST" and path == "/v1/workers/heartbeat":
+            await self._worker_heartbeat(body, writer)
+        elif method == "POST" and path == "/v1/workers/deregister":
+            req = self._parse_json(body)
+            wid = (req or {}).get("wid")
+            with self._lock:
+                self.workers.pop(wid, None)
+            self.directory.drop_worker(wid)
+            await self._json(writer, 200, {"ok": True})
+        elif method == "GET" and path == "/v1/workers":
+            with self._lock:
+                states = [w.state() for w in self.workers.values()]
+            await self._json(writer, 200, {"workers": states})
+        elif method == "GET" and path == "/v1/metrics":
+            accept = headers.get("accept", "")
+            want_prom = ("format=prometheus" in query
+                         or (("text/plain" in accept or "openmetrics" in accept)
+                             and _JSON not in accept))
+            if want_prom:
+                text = prom.render(self._prom_snapshot(),
+                                   extra_gauges=self._prom_extra()).encode()
+                writer.write(self._head(
+                    200, "text/plain; version=0.0.4; charset=utf-8",
+                    length=len(text)) + text)
+                await writer.drain()
+            else:
+                await self._json(writer, 200, self._metrics())
+        elif method == "POST" and path == "/v1/store/register":
+            req = self._parse_json(body)
+            if req is None or "key" not in req:
+                await self._json(writer, 400,
+                                 {"error": {"message": "bad register body"}})
+                return
+            self.directory.register(
+                req.get("wid"), req.get("url"), req["key"],
+                req.get("length", len(req["key"])), req.get("version", 0),
+                req.get("nbytes", 0), req.get("pinned", False),
+                lease_s=req.get("lease_s"))
+            await self._json(writer, 200, {"ok": True})
+        elif method == "POST" and path == "/v1/store/unregister":
+            req = self._parse_json(body)
+            ok = self.directory.unregister((req or {}).get("key", ()))
+            await self._json(writer, 200, {"ok": ok})
+        elif method == "POST" and path == "/v1/store/probe":
+            req = self._parse_json(body) or {}
+            rec = self.directory.probe(req.get("key", ()),
+                                       req.get("version", 0),
+                                       exclude_wid=req.get("wid"))
+            if rec is None:
+                await self._json(writer, 200, {"found": False})
+            else:
+                rec = dict(rec, key=list(rec["key"]))
+                rec.pop("expires_at", None)
+                await self._json(writer, 200, {"found": True, "entry": rec})
+        elif method == "POST" and path == "/v1/store/drop":
+            req = self._parse_json(body) or {}
+            n = self.directory.drop(wid=req.get("wid"),
+                                    version=req.get("version"),
+                                    prefix=req.get("prefix"))
+            await self._json(writer, 200, {"dropped": n})
+        elif method == "POST" and path == "/v1/completions":
+            await self._completions(headers, body, reader, writer)
+        else:
+            await self._json(writer, 404,
+                             {"error": {"message": f"no route {method} {path}"}})
+
+    async def _worker_register(self, body, writer):
+        req = self._parse_json(body)
+        if not req or not req.get("wid") or not req.get("url"):
+            await self._json(writer, 400,
+                             {"error": {"message": "register needs wid+url"}})
+            return
+        wid = req["wid"]
+        w = _Worker(wid, req["url"], req.get("role", "mixed"),
+                    req.get("prefill_chunk", 64),
+                    req.get("weights_version", 0), req.get("signals"))
+        with self._lock:
+            known = wid in self.workers
+            self.workers[wid] = w
+        if known:
+            # a re-registering wid is a RESTARTED process: its old shard's
+            # rows are gone, so its directory records are garbage
+            self.directory.drop_worker(wid)
+            with self._lock:
+                stale = [k for k, v in self._sticky.items() if v == wid]
+                for k in stale:
+                    del self._sticky[k]
+        logger.info(f"router: worker {wid} registered ({w.role}) at {w.url}")
+        await self._json(writer, 200, {"ok": True,
+                                       "heartbeat_timeout_s":
+                                           self.heartbeat_timeout_s})
+
+    async def _worker_heartbeat(self, body, writer):
+        req = self._parse_json(body) or {}
+        wid = req.get("wid")
+        with self._lock:
+            w = self.workers.get(wid)
+            if w is not None:
+                w.last_seen = time.monotonic()
+                w.sick = False
+                w.sick_error = None
+                w.signals = dict(req.get("signals") or w.signals)
+                w.role = req.get("role", w.role)
+                w.store = req.get("store", w.store)
+                w.adapters = req.get("adapters", w.adapters)
+                w.draining = bool(req.get("draining", False))
+                w.weights_version = int(req.get("weights_version",
+                                                w.weights_version))
+                w.forward_widths = req.get("forward_widths", w.forward_widths)
+                w.stats = req.get("stats", w.stats)
+        if w is None:
+            await self._json(writer, 200, {"unknown": True})
+        else:
+            await self._json(writer, 200, {"ok": True})
+
+    # ------------------------------------------------------------------ proxying
+    async def _completions(self, headers, body, reader, writer):
+        self.counters["requests"] += 1
+        try:
+            req = json.loads(body.decode("utf-8") or "{}")
+            if not isinstance(req, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, UnicodeDecodeError) as e:
+            await self._json(writer, 400, {"error": {"message": str(e)}})
+            return
+        prompt = req.get("prompt") or []
+        if isinstance(prompt, str):
+            try:
+                prompt = [int(t) for t in prompt.split()]
+            except ValueError:
+                prompt = []
+        stream = bool(req.get("stream", False))
+        adapter = req.get("adapter_id")
+        tried = set()
+        while True:
+            worker = self._place(prompt, adapter=adapter, phase="prefill",
+                                 exclude=tried)
+            if worker is None:
+                self.counters["shed_503"] += 1
+                await self._json(
+                    writer, 503,
+                    {"error": {"message": "no live worker can serve the "
+                               "request", "type": "unavailable"}},
+                    extra=[("Retry-After", str(self._fleet_retry_after()))])
+                return
+            self._count_locality(worker)
+            outcome = await self._proxy(worker, headers, body, req, stream,
+                                        writer)
+            if outcome == "retry":
+                # shed-and-retry: the worker died before ANY byte reached
+                # the client, so another worker can serve transparently
+                tried.add(worker.wid)
+                self.counters["retries"] += 1
+                continue
+            return
+
+    def _count_locality(self, worker):
+        local = worker.host in ("127.0.0.1", "localhost", self.host)
+        self.counters["routed_local" if local else "routed_remote"] += 1
+
+    def _forward_headers(self, headers, body_len):
+        out = [("Content-Length", str(body_len)),
+               ("Content-Type", _JSON), ("Connection", "close")]
+        for h in ("x-tenant", "x-priority", "x-request-id", "traceparent"):
+            if h in headers:
+                out.append((h, headers[h]))
+        return out
+
+    async def _open_worker(self, worker, body_bytes, headers):
+        """One POST /v1/completions to a worker; returns (reader, writer,
+        status, resp_headers) or None on connect/greeting failure (the
+        caller marks the worker sick and retries elsewhere)."""
+        try:
+            wr_reader, wr_writer = await asyncio.wait_for(
+                asyncio.open_connection(worker.host, worker.port,
+                                        limit=1 << 20), 10.0)
+        except (OSError, asyncio.TimeoutError):
+            return None
+        try:
+            head = [f"POST /v1/completions HTTP/1.1",
+                    f"Host: {worker.host}:{worker.port}"]
+            for k, v in self._forward_headers(headers, len(body_bytes)):
+                head.append(f"{k}: {v}")
+            wr_writer.write(("\r\n".join(head) + "\r\n\r\n").encode()
+                            + body_bytes)
+            await wr_writer.drain()
+            status_line = await asyncio.wait_for(wr_reader.readline(),
+                                                 self.proxy_timeout_s)
+            parts = status_line.decode("latin-1").split()
+            if len(parts) < 2:
+                raise ConnectionError("empty response")
+            status = int(parts[1])
+            resp_headers = {}
+            for _ in range(128):
+                line = await asyncio.wait_for(wr_reader.readline(), 30.0)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                k, _, v = line.decode("latin-1").partition(":")
+                resp_headers[k.strip().lower()] = v.strip()
+            return wr_reader, wr_writer, status, resp_headers
+        except (OSError, ValueError, asyncio.TimeoutError, ConnectionError):
+            wr_writer.close()
+            return None
+
+    async def _proxy(self, worker, headers, body, req, stream, writer):
+        """Proxy one request to ``worker``; returns "retry" when it failed
+        before any client byte (safe to re-place) or "done". Handoff
+        stitching happens here: the prefill worker's terminal handoff
+        event/field is CONSUMED (never relayed) and the decode worker's
+        resumed response is stitched on, so the client sees ONE stream."""
+        opened = await self._open_worker(worker, body, headers)
+        if opened is None:
+            self._mark_sick(worker, "connect/greeting failed")
+            return "retry"
+        wreader, wwriter, status, resp_headers = opened
+        try:
+            if stream and status == 200:
+                return await self._relay_stream(worker, wreader, headers,
+                                                req, writer)
+            return await self._relay_unary(worker, wreader, status,
+                                           resp_headers, headers, req, writer)
+        finally:
+            try:
+                wwriter.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    async def _read_body(self, wreader, resp_headers):
+        length = resp_headers.get("content-length")
+        if length is not None:
+            return await asyncio.wait_for(
+                wreader.readexactly(int(length)), self.proxy_timeout_s)
+        return await asyncio.wait_for(wreader.read(64 << 20),
+                                      self.proxy_timeout_s)
+
+    async def _relay_unary(self, worker, wreader, status, resp_headers,
+                           headers, req, writer):
+        try:
+            raw = await self._read_body(wreader, resp_headers)
+        except (asyncio.IncompleteReadError, asyncio.TimeoutError,
+                ConnectionError):
+            self._mark_sick(worker, "died mid-response")
+            return "retry"
+        try:
+            doc = json.loads(raw.decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            doc = None
+        if status == 200 and isinstance(doc, dict) and doc.get("handoff"):
+            stitched = await self._resume_unary(doc, headers, req)
+            if stitched is None:
+                await self._json(writer, 502,
+                                 {"error": {"message": "handoff resume "
+                                            "failed on every decode worker"}})
+                return "done"
+            await self._json(writer, 200, stitched)
+            return "done"
+        # verbatim relay (any status): the worker's answer IS the answer
+        writer.write(self._head(status, resp_headers.get("content-type",
+                                                         _JSON),
+                                length=len(raw)) + raw)
+        await writer.drain()
+        return "done"
+
+    async def _resume_unary(self, doc, headers, req):
+        """Resume a unary handoff on a decode worker and stitch the two
+        partial responses into one client answer."""
+        desc = doc["handoff"]
+        resume_req = {"resume": desc, "stream": False,
+                      "return_logits": bool(req.get("return_logits", False))}
+        body = json.dumps(resume_req).encode()
+        # the owner is NOT pre-excluded: with no decode-capable worker left,
+        # resuming on the prefill owner (loopback restore from its own
+        # shard) is the degraded-colocation fallback, same as in-process
+        tried = set()
+        while True:
+            worker = self._place(desc.get("prompt", ()), phase="decode",
+                                 exclude=tried)
+            if worker is None:
+                return None
+            self.counters["handoff_resumes"] += 1
+            opened = await self._open_worker(worker, body, headers)
+            if opened is None:
+                self._mark_sick(worker, "connect failed on resume")
+                tried.add(worker.wid)
+                self.counters["resume_failovers"] += 1
+                continue
+            wreader, wwriter, status, resp_headers = opened
+            try:
+                raw = await self._read_body(wreader, resp_headers)
+            except (asyncio.IncompleteReadError, asyncio.TimeoutError,
+                    ConnectionError):
+                self._mark_sick(worker, "died mid-resume")
+                return None  # the handoff entry was consumed: cannot retry
+            finally:
+                try:
+                    wwriter.close()
+                except Exception:  # noqa: BLE001
+                    pass
+            try:
+                part = json.loads(raw.decode("utf-8"))
+            except (ValueError, UnicodeDecodeError):
+                return None
+            if status != 200:
+                return None
+            return self._stitch_unary(doc, part)
+
+    @staticmethod
+    def _stitch_unary(first, second):
+        c1 = first["choices"][0]
+        c2 = second["choices"][0]
+        toks = list(c1.get("token_ids", ())) + list(c2.get("token_ids", ()))
+        out = dict(second)
+        out["choices"] = [dict(c2, token_ids=toks,
+                               text=" ".join(str(t) for t in toks))]
+        usage = dict(second.get("usage", {}))
+        usage["completion_tokens"] = len(toks)
+        usage["total_tokens"] = usage.get("prompt_tokens", 0) + len(toks)
+        out["usage"] = usage
+        if "logits" in first or "logits" in second:
+            out["logits"] = list(first.get("logits", ())) + \
+                list(second.get("logits", ()))
+        out.pop("handoff", None)
+        return out
+
+    async def _relay_stream(self, worker, wreader, headers, req, writer):
+        """Relay an SSE stream, stitching across handoffs. Events are
+        parsed (never blindly piped) so the handoff descriptor can be
+        consumed and the first stream's [DONE] suppressed; everything else
+        relays byte-faithfully re-serialized."""
+        client_started = False
+        current_worker = worker
+        current_reader = wreader
+        while True:
+            handoff = None
+            try:
+                while True:
+                    line = await asyncio.wait_for(current_reader.readline(),
+                                                  self.proxy_timeout_s)
+                    if not line:
+                        # EOF without [DONE]: the worker died mid-stream
+                        raise ConnectionError("stream ended early")
+                    text = line.decode("utf-8", "replace").strip()
+                    if not text:
+                        continue
+                    if not text.startswith("data:"):
+                        continue
+                    payload = text[5:].strip()
+                    if payload == "[DONE]":
+                        if not client_started:
+                            writer.write(self._head(
+                                200, "text/event-stream",
+                                [("Cache-Control", "no-cache")]))
+                            client_started = True
+                        writer.write(b"data: [DONE]\n\n")
+                        await writer.drain()
+                        return "done"
+                    try:
+                        event = json.loads(payload)
+                    except ValueError:
+                        event = None
+                    if isinstance(event, dict) and event.get("handoff"):
+                        handoff = event["handoff"]
+                        break  # consume, never relay; stitch below
+                    if not client_started:
+                        writer.write(self._head(
+                            200, "text/event-stream",
+                            [("Cache-Control", "no-cache")]))
+                        client_started = True
+                    writer.write(f"data: {payload}\n\n".encode())
+                    await writer.drain()
+            except (asyncio.TimeoutError, ConnectionError,
+                    asyncio.IncompleteReadError):
+                self._mark_sick(current_worker, "died mid-stream")
+                if not client_started:
+                    return "retry"
+                # bytes already reached the client: shed honestly — a
+                # truncated stream without [DONE], never a silent re-run
+                # that could double tokens
+                return "done"
+            # ---- stitch: resume on a decode worker, relay ITS stream
+            resume_req = {"resume": handoff, "stream": True,
+                          "return_logits": bool(req.get("return_logits",
+                                                        False))}
+            body = json.dumps(resume_req).encode()
+            tried = set()
+            opened = None
+            nxt = None
+            while opened is None:
+                nxt = self._place(handoff.get("prompt", ()), phase="decode",
+                                  exclude=tried)
+                if nxt is None:
+                    break
+                self.counters["handoff_resumes"] += 1
+                opened = await self._open_worker(nxt, body, headers)
+                if opened is None:
+                    self._mark_sick(nxt, "connect failed on resume")
+                    tried.add(nxt.wid)
+                    self.counters["resume_failovers"] += 1
+            if opened is None:
+                if not client_started:
+                    await self._json(writer, 502,
+                                     {"error": {"message": "handoff resume "
+                                                "failed: no decode worker"}})
+                return "done"
+            nreader, _, status, _ = opened
+            if status != 200:
+                if not client_started:
+                    await self._json(writer, 502,
+                                     {"error": {"message": f"resume worker "
+                                                f"answered {status}"}})
+                return "done"
+            current_worker, current_reader = nxt, nreader
+            # loop: relay the resumed stream (a second handoff would stitch
+            # again, though decode workers never hand off)
+
+    # ------------------------------------------------------------------ metrics
+    def _metrics(self):
+        with self._lock:
+            states = [w.state() for w in self.workers.values()]
+        return {"ready": self.ready,
+                "router": dict(self.counters,
+                               workers=len(states),
+                               retry_after_s=self._fleet_retry_after(),
+                               uptime_s=round(time.monotonic() - self._t0, 3)),
+                "directory": self.directory.stats(),
+                "workers": states}
+
+    def _prom_snapshot(self):
+        """A telemetry-sink-shaped snapshot (prometheus.render's input
+        contract) hand-built from router state — the router runs no
+        TelemetrySink of its own."""
+        counters = {f"serving/router/{name}": {"count": int(n), "total": int(n)}
+                    for name, n in self.counters.items()}
+        return {"counters": counters, "gauges": {}, "histograms": {},
+                "uptime_s": round(time.monotonic() - self._t0, 3)}
+
+    def _prom_extra(self):
+        now = time.monotonic()
+        dstats = self.directory.stats()
+        out = {"router/ready": 1.0 if self.ready else 0.0,
+               "router/retry_after_s": float(self._fleet_retry_after()),
+               "router/store_entries": float(dstats["entries"]),
+               "router/store_handoffs": float(dstats["handoffs"]),
+               "router/store_leases_expired": float(dstats["leases_expired"])}
+        with self._lock:
+            workers = list(self.workers.values())
+        out["router/workers"] = float(len(workers))
+        out["router/workers_live"] = float(
+            sum(1 for w in workers
+                if w.available(now, self.heartbeat_timeout_s)))
+        for w in workers:
+            # per-worker labeled families, behind the same 256-label
+            # cardinality cap as tenants: wids are operator-controlled but
+            # an autoscaled fleet churns them
+            wid = w.wid
+            if wid not in self._worker_labels:
+                if len(self._worker_labels) < 256:
+                    self._worker_labels.add(wid)
+                else:
+                    wid = "__other__"
+            sig = w.signals
+            out[f"serving/worker/{wid}/up"] = (
+                1.0 if w.available(now, self.heartbeat_timeout_s) else 0.0)
+            out[f"serving/worker/{wid}/inflight"] = float(
+                sig.get("inflight", 0))
+            out[f"serving/worker/{wid}/queued"] = float(sig.get("queued", 0))
+            out[f"serving/worker/{wid}/total_slots"] = float(
+                sig.get("total_slots", 0))
+            out[f"serving/worker/{wid}/routed"] = float(w.routed)
+            if sig.get("ema_service_s") is not None:
+                out[f"serving/worker/{wid}/ema_service_s"] = float(
+                    sig["ema_service_s"])
+        return out
+
+    # ------------------------------------------------------------------ HTTP writing
+    _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
+                413: "Content Too Large", 429: "Too Many Requests",
+                431: "Request Header Fields Too Large", 502: "Bad Gateway",
+                503: "Service Unavailable", 500: "Internal Server Error"}
+
+    @staticmethod
+    def _parse_json(body):
+        try:
+            doc = json.loads(body.decode("utf-8") or "{}")
+        except (ValueError, UnicodeDecodeError):
+            return None
+        return doc if isinstance(doc, dict) else None
+
+    def _head(self, status, ctype, extra=(), length=None):
+        lines = [f"HTTP/1.1 {status} {self._REASONS.get(status, 'Unknown')}",
+                 f"Content-Type: {ctype}", "Connection: close"]
+        if length is not None:
+            lines.append(f"Content-Length: {length}")
+        for key, val in extra:
+            lines.append(f"{key}: {val}")
+        return ("\r\n".join(lines) + "\r\n\r\n").encode()
+
+    async def _json(self, writer, status, obj, extra=()):
+        body = json.dumps(obj).encode()
+        writer.write(self._head(status, _JSON, extra, length=len(body)) + body)
+        await writer.drain()

@@ -12,8 +12,9 @@ not mutating the engine's config, 429 with a bounded ``Retry-After``,
 deadline expiry in the queue and mid-decode, client disconnect cancelling,
 the DRR light tenant not starved, drain, tenant telemetry, a
 ``traceparent`` span tree, Prometheus text, ``/v1/slo`` and
-``/v1/debug/flight``; the autoscaler, the router and the elastic fleet
-refused naming ROADMAP Queue 1 #9.
+``/v1/debug/flight``; the autoscaler and the elastic fleet refused naming
+ROADMAP Queue 1 #9.5; the multi-host worker hooks answering outside worker
+mode.
 
 No assertion rests on wall time. A test that needs requests to queue holds
 the gateway's dispatch lock (the pump cannot admit) while they arrive; one
@@ -250,8 +251,11 @@ def test_bad_requests_rejected():
             status, _, raw = post(gw.port, dict(body))
             assert status == 400, (body, raw)
             assert "error" in json.loads(raw)
+        # a resume body is a handoff descriptor: an incomplete one is refused
         status, _, raw = post(gw.port, {"prompt": PROMPT, "resume": {"key": [1]}})
-        assert status == 400 and "Queue 1 #9" in json.loads(raw)["error"]["message"]
+        assert status == 400 and "resume descriptor missing" in json.loads(raw)["error"]["message"]
+        status, _, raw = post(gw.port, {"prompt": PROMPT, "adapter_id": "acme"})
+        assert status == 400 and "Queue 1 #9.3" in json.loads(raw)["error"]["message"]
         # null sampling params mean "default"
         status, _, raw = post(gw.port, {"prompt": PROMPT, "max_tokens": 2, "top_k": None,
                                         "temperature": None, "seed": None, "top_p": None})
@@ -572,9 +576,10 @@ def test_prometheus_exposition_and_capacity_gauges(tmp_path):
 def test_slo_endpoint_debug_flight_and_profile(tmp_path):
     """/v1/slo serves the default serving slate; /v1/debug/flight writes a
     dump; /v1/debug/profile starts a torch.profiler capture and answers 409
-    while it runs; the autoscaler and the router's store answer 404 naming
-    their ROADMAP item; the radix flush answers 200 once the trie is
-    evicted."""
+    while it runs; the autoscaler answers 404 naming its ROADMAP item, and
+    the networked store's fetch 404 outside multi-host worker mode (400 on a
+    bad body once a shard is attached); the radix flush answers 200 once the
+    trie is evicted."""
     gw = start_gateway(telemetry=_tel(tmp_path))
     try:
         status, _, body = get(gw.port, "/v1/slo")
@@ -599,9 +604,15 @@ def test_slo_endpoint_debug_flight_and_profile(tmp_path):
             assert conn.getresponse().status == 409
         finally:
             conn.close()
-        for path in ("/v1/autoscaler", "/v1/store/fetch"):
-            status, _, body = get(gw.port, path)
-            assert status == 404 and "Queue 1 #9" in json.loads(body)["error"]["message"]
+        status, _, body = get(gw.port, "/v1/autoscaler")
+        assert status == 404 and "Queue 1 #9.5" in json.loads(body)["error"]["message"]
+        conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=60)
+        try:
+            conn.request("POST", "/v1/store/fetch", json.dumps({"key": [1, 2]}))
+            resp = conn.getresponse()
+            assert resp.status == 404 and "worker mode" in json.loads(resp.read())["error"]["message"]
+        finally:
+            conn.close()
         # the radix flush is served: it evicts the trie on the pump thread
         conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=60)
         try:
@@ -618,22 +629,25 @@ def test_slo_endpoint_debug_flight_and_profile(tmp_path):
 
 
 def test_replicas_autoscaler_and_router_refused():
-    """The autoscaler section, the multi-host router, elastic growth and
-    scale-down, brownout parking and migration resumes raise naming ROADMAP
-    Queue 1 #9; the single replica drains and resumes through
-    /v1/replicas, and its role endpoint answers 400 without the migration
-    transport (the host prefix store)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    """The autoscaler section, elastic growth and scale-down and brownout
+    parking raise naming ROADMAP Queue 1 #9.5; the multi-host section is
+    taken (the worker mode reads it) and a migration resume without the KV
+    tier is refused with ValueError; the single replica drains and resumes
+    through /v1/replicas, and its role endpoint answers 400 without the
+    migration transport (the host prefix store)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 #9.5"):
         make_engine(continuous_batching={"enabled": True, "autoscaler": {"enabled": True}})
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        make_engine(continuous_batching={"enabled": True, "multihost": {"router_url": "http://x"}})
+    mh = make_engine(continuous_batching={"enabled": True, "multihost": {"router_url": "http://x",
+                                                                          "worker_role": "decode"}})
+    assert mh._config.continuous_batching.multihost.worker_role == "decode"
     eng = make_engine()
     reps = ReplicaSet.build(eng)
     for call in (reps.add_replica, lambda: reps.begin_scale_down(0),
-                 lambda: reps.park_out(reps.replicas[0], None),
-                 lambda: reps.inject_resume({})):
-        with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+                 lambda: reps.park_out(reps.replicas[0], None)):
+        with pytest.raises(NotImplementedError, match="Queue 1 #9.5"):
             call()
+    with pytest.raises(ValueError, match="hierarchical KV tier"):
+        reps.inject_resume({})
     gw = Gateway(eng, port=0)
     gw.start_background()
     try:

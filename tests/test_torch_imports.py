@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.monitor.monitor", "deepspeed_tpu_torch.serving",
             "deepspeed_tpu_torch.serving.gateway", "deepspeed_tpu_torch.serving.replica",
             "deepspeed_tpu_torch.serving.fair_queue", "deepspeed_tpu_torch.serving.capacity_math",
-            "deepspeed_tpu_torch.serving.__main__", "deepspeed_tpu_torch.utils.counter_hash",
+            "deepspeed_tpu_torch.serving.__main__", "deepspeed_tpu_torch.serving.router",
+            "deepspeed_tpu_torch.utils.counter_hash",
             "deepspeed_tpu_torch.runtime.optimizers", "deepspeed_tpu_torch.runtime.checkpoint_engine.engine",
             "deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing",
             "deepspeed_tpu_torch.checkpoint", "deepspeed_tpu_torch.checkpoint.zero_checkpoint",

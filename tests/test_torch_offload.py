@@ -381,3 +381,59 @@ def test_cpu_checkpointing_keeps_the_flash_residuals_on_the_host(monkeypatch):
         assert len(calls) == runs, (cpu, calls)
     ck.reset()
     assert getattr(fa.HOST_RESIDUALS, "active", None) is None
+
+
+def test_offload_first_step_masters_part_by_an_ulp_of_their_own():
+    """ZeRO-Offload's first bf16 step against the on-device AdamW (the
+    comparison ``chip_smoke.py``'s ``OFFLOAD_MASTER_REL`` gate makes, here at
+    tiny-gpt2 on the host, at its lr 3e-4): the gradient the C AdamW reads,
+    times its coefficient, is bitwise the device step's (both norm the
+    gradient per tensor, then over the tensors, for the clipping
+    coefficient); the masters part by a few ulps of the step's operands
+    (the master before and after, the move), where the C code's fp32
+    rounding order (DeepSpeed's ``cpu_adam``: reciprocal bias corrections,
+    FMA contraction) and the ``_foreach`` ops' round apart. The gate reads
+    such a part over the update's largest magnitude, so one ulp of a norm
+    scale at 1.0 reads ~4e-4, above its 1e-4, whenever a scale parts on a
+    run: a difference by design, set by the masters' magnitudes; its worst
+    element's gradient is far above eps."""
+    from deepspeed_tpu_torch.models import get_model as port_get_model
+    config = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+              "optimizer": {"type": "AdamW", "params": {"lr": 3e-4, "weight_decay": 0.01}}}
+    host = port_get_model("tiny-gpt2").init_params(0)
+    batch = {"input_ids": np.random.default_rng(0).integers(0, 256, (2, 64))}
+
+    def engine(extra):
+        model = port_get_model("tiny-gpt2", attention_impl="flash", scan_layers=False)
+        eng, *_ = deepspeed_tpu_torch.initialize(model=model, model_parameters={k: v.clone() for k, v in host.items()},
+                                                 config={**config, **extra}, device="cpu")
+        return eng
+
+    dev = engine({})
+    before = {k: v.detach().clone() for k, v in dev.master.items()}
+    seen, real = {}, dev.optimizer.step
+    dev.optimizer.step = lambda params, grads, lr: seen.update(g=[g.clone() for g in grads]) or real(params, grads, lr)
+    loss_dev = float(dev.train_batch(batch=batch))
+    after = {k: v.detach().clone() for k, v in dev.master.items()}
+    off = engine({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}})
+    coef, real_range = [], off.host_opt._step_range
+    off.host_opt._step_range = lambda a, b, c, lr: coef.append(c) or real_range(a, b, c, lr)
+    assert float(off.train_batch(batch=batch)) == loss_dev
+    assert off.host_opt.grad_host.dtype == torch.bfloat16 and len(set(coef)) == 1
+    shipped = off.host_opt.views(off.host_opt.grad_host)
+    master = off.host_opt.state_tensors()[0]
+    upd = max(float((after[k] - before[k]).abs().max()) for k in after)
+    worst = (0.0, None)
+    for k, g in zip(after, seen["g"]):
+        assert torch.equal(shipped[k].float() * torch.tensor(coef[0], dtype=torch.float32), g), k
+        # the step's operands: the master before and after, and the move
+        mag = torch.maximum(torch.maximum(before[k].abs(), after[k].abs()), (after[k] - before[k]).abs())
+        part = (master[k] - after[k]).abs()
+        assert bool((part <= 4 * (torch.nextafter(mag, torch.tensor(float("inf"))) - mag)).all()), k
+        i = int(part.argmax())
+        worst = max(worst, (float(part.reshape(-1)[i]) / upd, float(g.reshape(-1)[i])), key=lambda w: w[0])
+    unit = (torch.nextafter(torch.tensor(1.0), torch.tensor(2.0)) - 1.0).item() / upd
+    assert any(bool((v == 1.0).any()) for k, v in before.items() if k.endswith("norm.scale"))
+    # the gate's reading: a few ulps of a master near 1.0 at most, set by
+    # where the masters are, not by gradients near eps
+    assert worst[0] <= 4 * unit and unit > 1e-4 and abs(worst[1]) > 100 * 1e-8

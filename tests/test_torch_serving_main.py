@@ -1,8 +1,9 @@
 """``python -m deepspeed_tpu_torch.serving`` as a subprocess on the CPU
 (``--device cpu --port 0``): the ``GATEWAY_READY`` line, one completion
 with a ``traceparent`` echoed, Prometheus text, a ``SIGUSR1`` flight dump,
-and ``SIGTERM`` draining to exit 0; ``--router`` and ``--worker`` exit
-non-zero naming ROADMAP Queue 1 #9. Every wait is bounded."""
+and ``SIGTERM`` draining to exit 0; ``--router`` printing ``ROUTER_READY``
+and exiting 0 on ``SIGTERM``, and ``--worker`` without ``--router-url``
+exiting 2 with a usage error. Every wait is bounded."""
 
 import http.client
 import json
@@ -33,7 +34,7 @@ def _lines(proc):
     return q
 
 
-def _ready(q):
+def _ready(q, token="GATEWAY_READY"):
     deadline = time.monotonic() + START_S
     seen = []
     while time.monotonic() < deadline:
@@ -44,9 +45,9 @@ def _ready(q):
         if line is None:
             break
         seen.append(line)
-        if line.startswith("{") and '"GATEWAY_READY"' in line:
+        if line.startswith("{") and f'"{token}"' in line:
             return json.loads(line)
-    raise AssertionError("no GATEWAY_READY line:\n" + "".join(seen[-20:]))
+    raise AssertionError(f"no {token} line:\n" + "".join(seen[-20:]))
 
 
 def _request(port, method, path, body=None, headers=None):
@@ -101,7 +102,26 @@ def test_entry_point_serves_dumps_and_drains_on_sigterm(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--router", "--worker"])
 def test_multi_host_modes_exit_nonzero(flag):
-    r = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.serving", flag], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "Queue 1 #9" in r.stderr
-    assert "GATEWAY_READY" not in r.stdout
+    """The multi-host tiers' lifecycles: ``--router`` serves (no model, no
+    device) until SIGTERM, then exits 0; ``--worker`` without
+    ``--router-url`` is a usage error (exit 2) and builds nothing."""
+    if flag == "--worker":
+        r = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.serving", flag, "--device", "cpu"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert r.returncode == 2 and "--worker requires --router-url" in r.stderr
+        assert "GATEWAY_READY" not in r.stdout
+        return
+    proc = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.serving", flag, "--port", "0"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        ready = _ready(_lines(proc), "ROUTER_READY")
+        status, _, body = _request(ready["port"], "GET", "/v1/workers")
+        assert status == 200 and json.loads(body) == {"workers": []}
+        assert ready["pid"] == proc.pid
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.stdout.close()
